@@ -1,0 +1,42 @@
+"""Carry a parameter tree across from the JAX package.
+
+The port keeps the reference's parameter tree and layouts, so conversion
+is a leaf-by-leaf copy. JAX bf16 leaves come out of ``np.asarray`` as
+``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses; they travel
+as their raw 16-bit patterns instead.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def tensor_from_numpy(arr: Any) -> torch.Tensor:
+    """One array (numpy, or anything ``np.asarray`` accepts) -> a CPU tensor
+    with the same bits; bfloat16 goes through int16."""
+    a = np.ascontiguousarray(np.asarray(arr))
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def params_from_jax(tree: Any, device: Optional[Union[str, torch.device]]
+                    = None, dtype: Optional[torch.dtype] = None) -> Any:
+    """Nested dicts of arrays (the JAX package's params as numpy) -> the
+    same tree of tensors on ``device`` (default ``cuda``). Floating leaves
+    are cast to ``dtype`` when one is given."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        t = tensor_from_numpy(x)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(dev)
+
+    return conv(tree)

@@ -59,3 +59,9 @@ def random_placement_instance(rng, m, r, u):
                           eff=float(rng.uniform(0.5, 1.0)))
              for i in range(m)]
     return profs, ResourceGraph(devs, {}, CM.WAN_30MBPS)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips when "
+                   "torch.cuda.is_available() is False")
