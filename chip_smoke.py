@@ -9,18 +9,31 @@ Phases (each prints its own lines; any failure exits non-zero):
   2. hold every kernel against its plain PyTorch version on the card at the
      serving path's shapes (paged attention: bf16 pools, 8 rows, 8 KV heads,
      rep 4, head_dim 64, page 16, ragged seq_lens with an idle row, shared
-     pages; page cipher: [pages_per_slot, 131072] f32 and bf16, bit-exact);
+     pages; page cipher: [pages_per_slot, 131072] f32 and bf16, bit-exact;
+     quantizing seal: the stage boundary's [4, 2048] in bf16 and f32 plus
+     the reference's test shapes, cipher bytes equal but for rounding ties,
+     scales equal, unseal bit-equal);
   3. time each kernel, its plain version, one PyTorch library call of the
-     same function, and compute the least time the card could take;
+     same function where one exists, and compute the least time the card
+     could take;
   4. check the whole serving path on a small input: reduced llama3.2-1b in
-     f32 serves the same greedy streams on the card as on the CPU;
+     f32 serves the same greedy streams on the card as on the CPU, through
+     the local backend and through the pipelined backend (sealed stage
+     boundaries);
   5. serve full-width llama3.2-1b (16 layers, d_model 2048, vocab 128,256)
-     in bf16 with seeded random weights through ``ServingEngine``: 8 slots,
-     16 requests with a shared system prompt, 32 new tokens each, a page
-     pool tight enough that demand paging swap-preempts. The launch counts
-     are zeroed just before and read just after: paged attention must have
-     run num_layers times per decode step, the cipher on every swap, and
-     every swap-in must restore the gathered pages bit for bit.
+     in bf16 with seeded random weights through ``ServingEngine`` on the
+     local backend: 8 slots, 16 requests with a shared system prompt, 32
+     new tokens each, a page pool tight enough that demand paging
+     swap-preempts. The launch counts are zeroed just before and read just
+     after: paged attention must have run num_layers times per decode step,
+     the cipher on every swap, and every swap-in must restore the gathered
+     pages bit for bit;
+  6. serve the same stream through the pipelined backend (``--stages 2
+     --microbatches 2`` over two enclaves, so the planner places blocks
+     (1, 15)), seal on: seal and unseal must have run nm * (S - 1) times
+     per step, paged attention nm * num_layers times per step plus the
+     telemetry's stage probes, the cipher on every swap, every swap-in
+     bit-exact and every logit finite.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
@@ -44,6 +57,11 @@ F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 # figure assumes (128 lanes x 2 FLOP x 132 x 1.98 GHz)
 INT32_OP_PER_S = 64 * 132 * 1.98e9
 KEYSTREAM_OPS = 18               # 32-bit ops per element of the cipher
+# per element of the quantizing seal, beyond the keystream: int32 (top
+# byte shift, low byte mask, XOR, sign extension) and f32 (abs, max, divide,
+# rint, two clamps / a multiply and a convert)
+SEAL_INT_OPS, SEAL_F32_OPS = KEYSTREAM_OPS + 3, 6
+UNSEAL_INT_OPS, UNSEAL_F32_OPS = KEYSTREAM_OPS + 3, 2
 
 
 def log(msg: str) -> None:
@@ -75,9 +93,12 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, ops: float, op_rate: float):
+def bound(bytes_moved: float, *work):
+    """ms the card needs at least: the larger of the bytes over the memory
+    rate and the operations over their peak rates; ``work`` is pairs
+    (operations, operations per second), one per type."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / op_rate * 1e3
+    t_ops = sum(ops / rate for ops, rate in zip(work[::2], work[1::2])) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -155,6 +176,43 @@ def check_cipher(torch, ops, ref, sealing, MP=10, cols=131072):
             f"bit-exact (3 counters, both directions)")
 
 
+SEAL_Q8_CASES = [((4, 2048), "bfloat16"), ((4, 2048), "float32"),
+                 ((64, 128), "float32"), ((256, 512), "bfloat16"),
+                 ((100, 48), "float32"), ((8, 2048), "bfloat16"),
+                 ((1, 16), "float32")]
+
+
+def check_seal_q8(torch, ops, ref):
+    """Quantizing seal kernel vs plain version: cipher bytes equal but for
+    rounding ties (at most 1e-3 of them, the reference's own allowance),
+    row scales equal, and unseal of one cipher bit-equal. Returns the
+    largest difference that the tie mismatches make in the opened values,
+    over every case."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    err = 0.0
+    for shape, dt in SEAL_Q8_CASES:
+        dtype = getattr(torch, dt)
+        x = (3 * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
+        for key, ctr in ((0xC0FFEE + 5, 65537 * 3), (0xFFFFFFFF, 7)):
+            c, s = ops.seal(x, key, ctr)
+            wc, ws = ref.seal_ref(x, key, ctr)
+            mismatch = (c != wc).float().mean().item()
+            assert mismatch <= 1e-3, (shape, dt, mismatch)
+            assert torch.equal(s, ws), f"seal {shape} {dt}: scales differ"
+            assert torch.equal(s.cpu(), ref.seal_ref(x.cpu(), key, ctr)[1]), \
+                f"seal {shape} {dt}: scales differ from the CPU's"
+            got = ops.unseal(wc, ws, key, ctr, dtype)
+            want = ref.unseal_ref(wc, ws, key, ctr, dtype)
+            assert torch.equal(got.float(), want.float()), \
+                f"unseal {shape} {dt} not bit-equal"
+            opened = ref.unseal_ref(c, s, key, ctr, torch.float32)
+            err = max(err, (opened - ref.unseal_ref(
+                wc, ws, key, ctr, torch.float32)).abs().max().item())
+        log(f"check seal/unseal {dt} {list(shape)}: cipher mismatch "
+            f"{mismatch:.1e} (<= 1e-3), scales equal, unseal bit-equal")
+    return err
+
+
 def time_kernels(torch, ops, ref, sealing, F):
     """ms of each kernel, its plain version and a library call, at the
     checked shapes, plus the bound."""
@@ -219,37 +277,71 @@ def time_kernels(torch, ops, ref, sealing, F):
         log(f"time {name} bf16 [10, 131072]: kernel {ms * 1e3:.1f} us, plain "
             f"{plain * 1e3:.1f} us, xor {lib * 1e3:.1f} us, bound "
             f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes / 1e6:.2f} MB)")
+
+    # quantizing seal at the stage boundary: [B_mb = 4, d_model = 2048] bf16
+    x = torch.randn(4, 2048, generator=g, device="cuda").to(torch.bfloat16)
+    key, ctr = 0xC0FFEE + 9, 65537 * 2
+    c, sc = ops.seal(x, key, ctr)
+    n, rows, esz = x.numel(), x.shape[0], x.element_size()
+    for name, fn, plain_fn, nbytes, work in (
+            ("seal", lambda: ops.seal(x, key, ctr),
+             lambda: ref.seal_ref(x, key, ctr),
+             n * esz + n + 4 * rows,
+             (SEAL_INT_OPS * n, INT32_OP_PER_S, SEAL_F32_OPS * n,
+              F32_FLOP_PER_S)),
+            ("unseal", lambda: ops.unseal(c, sc, key, ctr, torch.bfloat16),
+             lambda: ref.unseal_ref(c, sc, key, ctr, torch.bfloat16),
+             n + 4 * rows + n * esz,
+             (UNSEAL_INT_OPS * n, INT32_OP_PER_S, UNSEAL_F32_OPS * n,
+              F32_FLOP_PER_S))):
+        b_ms, b_by = bound(nbytes, *work)
+        ms = time_ms(fn)
+        plain = time_ms(plain_fn, 20)
+        # no single PyTorch call quantizes and ciphers: no library yardstick
+        out[name] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                         bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+        log(f"time {name} bf16 [4, 2048]: kernel {ms * 1e3:.2f} us, plain "
+            f"{plain * 1e3:.1f} us, bound {b_ms * 1e3:.4f} us ({b_by}, "
+            f"{nbytes / 1e3:.1f} KB)")
     return out
 
 
 def small_reference_check(torch):
     """The whole serving path on a small input: reduced llama3.2-1b, f32,
     the same weights and prompts on the card and on the CPU, a pool tight
-    enough to swap. Greedy streams and paging decisions must be equal."""
+    enough to swap, through the local backend and through the pipelined
+    one (stage boundaries sealed; telemetry too rare to re-plan, so both
+    devices keep the planned layout). Greedy streams and paging decisions
+    must be equal."""
     from repro_torch.launch import serve
     from repro_torch.models.api import build_model
-    args = serve.build_parser().parse_args(
-        ["--arch", "llama3.2-1b", "--reduced", "--device", "cpu",
-         "--slots", "4", "--requests", "10", "--prompt-len", "16",
-         "--max-new", "8", "--page-size", "4", "--num-pages", "12", "--f32",
-         "--shared-system-prompt", "0.5"])
-    cpu_api, params, _ = serve.build(args)
-    prompts = serve.gen_prompts(args, cpu_api.cfg.vocab_size)
-    runs = []
-    for device in ("cpu", "cuda"):
-        api = build_model(cpu_api.cfg, device=device, dtype=torch.float32)
-        eng = serve.ServingEngine(api, serve.make_config(args),
-                                  _to(torch, params, device), device=device)
-        reqs = serve.serve_stream(eng, args, prompts)
-        runs.append(([r.generated for r in reqs], eng.stats()))
-    (a, sa), (b, sb) = runs
-    assert a == b, f"greedy streams differ card vs CPU:\n{a}\n{b}"
-    for key in ("preemptions", "swap_outs", "swap_ins", "cow_hits", "steps"):
-        assert sa[key] == sb[key], (key, sa[key], sb[key])
-    assert sb["swap_ins"] > 0, "small check never swapped"
-    log(f"check serving path, reduced f32 card vs CPU: {len(a)} streams "
-        f"equal, swap_outs={sb['swap_outs']} swap_ins={sb['swap_ins']} "
-        f"cow_hits={sb['cow_hits']}")
+    for backend in ("local", "pipelined"):
+        args = serve.build_parser().parse_args(
+            ["--arch", "llama3.2-1b", "--reduced", "--device", "cpu",
+             "--slots", "4", "--requests", "10", "--prompt-len", "16",
+             "--max-new", "8", "--page-size", "4", "--num-pages", "12",
+             "--f32", "--shared-system-prompt", "0.5", "--backend", backend,
+             "--telemetry-interval", "1000"])
+        cpu_api, params = serve.build_params(args)
+        prompts = serve.gen_prompts(args, cpu_api.cfg.vocab_size)
+        runs = []
+        for device in ("cpu", "cuda"):
+            api = build_model(cpu_api.cfg, device=device, dtype=torch.float32)
+            eng = serve.make_engine(api, _to(torch, params, device), args)
+            reqs = serve.serve_stream(eng, args, prompts)
+            runs.append(([r.generated for r in reqs], eng.stats()))
+        (a, sa), (b, sb) = runs
+        assert a == b, f"{backend}: greedy streams differ card vs CPU:\n" \
+                       f"{a}\n{b}"
+        for key in ("preemptions", "swap_outs", "swap_ins", "cow_hits",
+                    "steps", "stage_blocks", "backend"):
+            assert sa[key] == sb[key], (backend, key, sa[key], sb[key])
+        assert sb["swap_ins"] > 0, "small check never swapped"
+        assert sb["backend"] == backend
+        log(f"check serving path, reduced f32 card vs CPU, {backend} "
+            f"backend (stage blocks {sb['stage_blocks']}): {len(a)} streams "
+            f"equal, swap_outs={sb['swap_outs']} swap_ins={sb['swap_ins']} "
+            f"cow_hits={sb['cow_hits']}")
 
 
 def _to(torch, tree, device):
@@ -258,34 +350,30 @@ def _to(torch, tree, device):
     return tree.to(device)
 
 
-def serve_full_width(torch, ops, sealing):
-    """Phase 5: the main path at full width, with launch counts."""
+FULL_WIDTH = ["--arch", "llama3.2-1b", "--device", "cuda", "--slots", "8",
+              "--requests", "16", "--prompt-len", "128", "--max-new", "32",
+              "--page-size", "16", "--num-pages", "30",
+              "--shared-system-prompt", "0.75"]
+
+
+def serve_full_width(torch, ops, api, params, backend):
+    """Phases 5 (local backend) and 6 (pipelined backend): the main path
+    at full width, with launch counts zeroed just before and read just
+    after. Returns the launch counts."""
     from repro_torch.launch import serve
-    argv = ["--arch", "llama3.2-1b", "--device", "cuda", "--slots", "8",
-            "--requests", "16", "--prompt-len", "128", "--max-new", "32",
-            "--page-size", "16", "--num-pages", "30",
-            "--shared-system-prompt", "0.75"]
+    argv = FULL_WIDTH + ["--backend", backend]
     args = serve.build_parser().parse_args(argv)
-    t0 = time.perf_counter()
-    api, params, _ = serve.build(args)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    log(f"serve: llama3.2-1b full width, {api.cfg.num_layers} layers, "
-        f"d_model {api.cfg.d_model}, vocab {api.cfg.vocab_size}, "
-        f"{n_params / 1e9:.3f} B params bf16, init "
-        f"{time.perf_counter() - t0:.1f} s")
     # warm-up: a short stream on its own engine (cuBLAS handles, allocator)
     warm = serve.build_parser().parse_args(argv + ["--requests", "2"])
-    weng = serve.ServingEngine(api, serve.make_config(warm), params,
-                               device="cuda")
-    serve.serve_stream(weng, warm, serve.gen_prompts(warm, api.cfg.vocab_size))
-    del weng
+    serve.serve_stream(serve.make_engine(api, params, warm), warm,
+                       serve.gen_prompts(warm, api.cfg.vocab_size))
 
-    eng = serve.ServingEngine(api, serve.make_config(args), params,
-                              device="cuda")
+    eng = serve.make_engine(api, params, args)
+    planned = eng.stage_blocks
     be = eng.backend
     gathered, restored = {}, []
     bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    probe_layers = [0]
     orig_gather, orig_scatter, orig_step = (be.gather_pages,
                                             be.scatter_pages, be.step)
 
@@ -303,12 +391,21 @@ def serve_full_width(torch, ops, sealing):
                         f"swap-in of page {pg} (row {i}) not bit-exact"
                 restored.append(int(pg))
 
-    def step(tokens):
-        logits = orig_step(tokens)
+    def step(tokens, key):
+        logits = orig_step(tokens, key)
         bad.add_((~torch.isfinite(logits)).sum())
         return logits
 
     be.gather_pages, be.scatter_pages, be.step = gather, scatter, step
+    if backend == "pipelined":
+        orig_times = be.stage_times
+
+        def stage_times():
+            # a telemetry probe runs every stage's layers once
+            probe_layers[0] += api.cfg.num_layers
+            return orig_times()
+
+        be.stage_times = stage_times
     prompts = serve.gen_prompts(args, api.cfg.vocab_size)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -318,6 +415,8 @@ def serve_full_width(torch, ops, sealing):
     launches = dict(ops.LAUNCHES)
     st = eng.stats()
     n_layers = api.cfg.num_layers
+    S, nm = args.stages, args.microbatches
+    phase = 5 if backend == "local" else 6
 
     assert len(reqs) == args.requests
     assert all(r.status == "done" and len(r.generated) == args.max_new
@@ -326,23 +425,42 @@ def serve_full_width(torch, ops, sealing):
     assert int(bad.item()) == 0, "non-finite logits"
     assert st["preemptions"] >= 1 and st["swap_outs"] >= 1, st
     assert st["swap_ins"] >= 1 and restored, st
-    assert launches["paged_attention"] == be.steps * n_layers, \
-        (launches, be.steps)
+    assert st["backend"] == backend, st["backend"]
     assert launches["seal_bits"] == 2 * st["swap_outs"], launches
     assert launches["unseal_bits"] == 2 * st["swap_ins"], launches
     assert launches["seal_bits"] + launches["unseal_bits"] >= 4, launches
+    if backend == "local":
+        assert launches["paged_attention"] == be.steps * n_layers, \
+            (launches, be.steps)
+        assert launches["seal"] == launches["unseal"] == 0, launches
+    else:
+        assert planned == (1, 15), planned
+        assert st["stage_blocks"] == eng.spec.stage_sizes() == planned, \
+            (st["stage_blocks"], eng.spec.stage_sizes(), st["replans"])
+        assert launches["seal"] == launches["unseal"] \
+            == be.steps * nm * (S - 1), (launches, be.steps)
+        assert launches["paged_attention"] == \
+            be.steps * nm * n_layers + probe_layers[0], \
+            (launches, be.steps, probe_layers[0])
     eng.check_page_invariants()
     step_ms = st["decode_wall_s"] / max(st["steps"], 1) * 1e3
-    log(f"serve: {st['completed']} requests, {st['tokens_out']} tokens, "
-        f"{st['steps']} decode steps, {st['tok_per_s']:.1f} tok/s decode, "
-        f"{step_ms:.2f} ms/decode step (host clock, 8 slots), "
-        f"wall {wall:.2f} s incl. admission prefill")
-    log(f"serve: preemptions={st['preemptions']} swap_outs={st['swap_outs']} "
-        f"swap_ins={st['swap_ins']} pages restored bit-exact="
-        f"{len(restored)} cow_hits={st['cow_hits']} forks={st['forks']} "
-        f"admission_p50={st.get('admission_p50_ms', 0):.1f} ms")
-    log(f"serve: launches {launches} (paged_attention = {be.steps} steps x "
-        f"{n_layers} layers)")
+    log(f"serve phase {phase} ({backend}): {st['completed']} requests, "
+        f"{st['tokens_out']} tokens, {st['steps']} decode steps, "
+        f"{st['tok_per_s']:.1f} tok/s decode, {step_ms:.2f} ms/decode step "
+        f"(host clock, 8 slots), wall {wall:.2f} s incl. admission prefill")
+    log(f"serve phase {phase}: stage_blocks={st['stage_blocks']} "
+        f"placement={st['placement']} replans={st['replans']} "
+        f"swaps={st['swaps']}")
+    log(f"serve phase {phase}: preemptions={st['preemptions']} "
+        f"swap_outs={st['swap_outs']} swap_ins={st['swap_ins']} pages "
+        f"restored bit-exact={len(restored)} cow_hits={st['cow_hits']} "
+        f"forks={st['forks']} admission_p50="
+        f"{st.get('admission_p50_ms', 0):.1f} ms")
+    detail = f"{be.steps} steps x {n_layers} layers" if backend == "local" \
+        else (f"{be.steps} steps x {nm} microbatches x {n_layers} layers + "
+              f"{probe_layers[0]} probe layer runs; seal = {be.steps} x "
+              f"{nm} x {S - 1}")
+    log(f"serve phase {phase}: launches {launches} ({detail})")
     return launches
 
 
@@ -397,12 +515,25 @@ def main() -> int:
     # phase 2: kernels vs plain versions
     pa_err = check_paged_attention(torch, ops, ref)
     check_cipher(torch, ops, ref, sealing)
+    q8_err = check_seal_q8(torch, ops, ref)
     # phase 3: timings and bounds
     times = time_kernels(torch, ops, ref, sealing, F)
     # phase 4: whole serving path on a small input, card vs CPU
     small_reference_check(torch)
-    # phase 5: the main path at full width
-    launches = serve_full_width(torch, ops, sealing)
+    # phases 5 and 6: the main path at full width, local then pipelined
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    api, params = serve.build_params(serve.build_parser().parse_args(
+        FULL_WIDTH))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"serve: llama3.2-1b full width, {api.cfg.num_layers} layers, "
+        f"d_model {api.cfg.d_model}, vocab {api.cfg.vocab_size}, "
+        f"{n_params / 1e9:.3f} B params bf16, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    local = serve_full_width(torch, ops, api, params, "local")
+    piped = serve_full_width(torch, ops, api, params, "pipelined")
+    launches = {k: local[k] + piped[k] for k in local}
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
@@ -413,8 +544,13 @@ def main() -> int:
             ("seal_bits", src + "seal_bits.cu",
              "src/repro/kernels/seal.py:106", 0.0),
             ("unseal_bits", src + "seal_bits.cu",
-             "src/repro/kernels/seal.py:106", 0.0)):
+             "src/repro/kernels/seal.py:106", 0.0),
+            ("seal", src + "seal_q8.cu", "src/repro/kernels/seal.py:48",
+             q8_err),
+            ("unseal", src + "seal_q8.cu", "src/repro/kernels/seal.py:67",
+             0.0)):
         t = times[name]
+        assert launches[name] > 0, (name, launches)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": err, "ms": t["ms"],

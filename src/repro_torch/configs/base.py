@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 DENSE = "dense"
 FAMILIES = (DENSE,)
@@ -42,6 +43,30 @@ class ArchConfig:
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim",
                                self.d_model // self.num_heads)
+
+    @property
+    def q_per_kv(self) -> int:
+        return max(1, self.num_heads // max(1, self.num_kv_heads))
+
+    # --- parameter counting (read by the planner's cost model) -----------
+    def attn_params(self) -> int:
+        d, hd = self.d_model, self.head_dim
+        q = d * self.num_heads * hd
+        kv = 2 * d * self.num_kv_heads * hd
+        o = self.num_heads * hd * d
+        return q + kv + o
+
+    def mlp_params(self, d_ff: Optional[int] = None) -> int:
+        dff = self.d_ff if d_ff is None else d_ff
+        return 3 * self.d_model * dff  # gated (SwiGLU-style): up, gate, down
+
+    def block_params(self, layer_idx: int = 0) -> int:
+        """Parameters of one dense block: attention, MLP, two norms."""
+        return self.attn_params() + self.mlp_params() + 2 * self.d_model
+
+    def block_active_params(self, layer_idx: int = 0) -> int:
+        """Parameters touched per token (every one, for a dense block)."""
+        return self.block_params(layer_idx)
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:

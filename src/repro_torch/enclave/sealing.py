@@ -1,5 +1,11 @@
-"""Lossless page sealing and integrity tags (port of the page-sealing half
-of ``repro/enclave/sealing.py``).
+"""Sealing (port of ``repro/enclave/sealing.py``): the quantizing seal of
+stage-boundary activations, the lossless page seal of the swap tier, and
+integrity tags.
+
+Activation boundaries use ``_leaf_counter(step, leaf) = step * 65537 +
+leaf`` (uint32) and the quantizing ``seal`` / ``unseal`` kernels
+(``seal_array`` / ``seal_tree``): int8 with a per-row f32 scale, so a
+boundary crossing is lossy by design, as in the reference.
 
 Counter spaces are the reference's: swap events use
 ``_swap_counter(seq, part)`` with engine-local ``seq < TRANSFER_SEQ_BASE``
@@ -59,6 +65,86 @@ def unseal_pages(cipher: torch.Tensor, key: int, swap_seq: int,
                          out_dtype=out_dtype)
 
 
+# ---------------------------------------------------------------------------
+# Activation boundaries: the quantizing seal
+# ---------------------------------------------------------------------------
+def _leaf_counter(step: int, leaf_idx: int) -> int:
+    """uint32 ``step * 65537 + leaf_idx``, wrapped like JAX's uint32."""
+    return ((int(step) & 0xFFFFFFFF) * 65537 + int(leaf_idx)) & 0xFFFFFFFF
+
+
+def seal_array(x: torch.Tensor, key: int, step: int):
+    """Seal one [..., D] float tensor; returns (cipher uint8, scales f32)
+    with the leading dims flattened (``unseal_array`` restores the shape).
+    The CUDA kernel runs for a CUDA tensor."""
+    return K.seal(x.reshape(-1, x.shape[-1]), key, _leaf_counter(step, 0))
+
+
+def unseal_array(cipher: torch.Tensor, scales: torch.Tensor, shape, key: int,
+                 step: int, dtype: torch.dtype = torch.bfloat16
+                 ) -> torch.Tensor:
+    flat = K.unseal(cipher, scales, key, _leaf_counter(step, 0),
+                    out_dtype=dtype)
+    return flat.reshape(shape)
+
+
+def _flatten(tree: Any, leaves: list):
+    """Leaves in the reference's order (dict keys sorted, as ``jax.tree``
+    flattens them) and a spec that ``_unflatten`` rebuilds the tree from."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        return ("dict", keys, [_flatten(tree[k], leaves) for k in keys])
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), None, [_flatten(t, leaves) for t in tree])
+    leaves.append(tree)
+    return None
+
+
+def _unflatten(spec, leaves) -> Any:
+    if spec is None:
+        return next(leaves)
+    kind, keys, children = spec
+    vals = [_unflatten(c, leaves) for c in children]
+    return dict(zip(keys, vals)) if kind == "dict" else kind(vals)
+
+
+def seal_tree(tree: Any, key: int, step: int):
+    """Seal every floating leaf of a boundary pytree (nested dicts, lists,
+    tuples of tensors). Leaf i uses counter ``_leaf_counter(step, i)``, so
+    keystreams never repeat across leaves or steps. Returns ``(sealed,
+    treedef)``; sealed entries are ``("raw", leaf)`` or ``("sealed",
+    (cipher, scales, shape, dtype))``, as in the reference."""
+    leaves: list = []
+    treedef = _flatten(tree, leaves)
+    sealed = []
+    for i, leaf in enumerate(leaves):
+        if not leaf.is_floating_point():
+            sealed.append(("raw", leaf))
+            continue
+        shape = tuple(leaf.shape)
+        flat = leaf.reshape(-1, shape[-1]) if leaf.dim() > 1 \
+            else leaf.reshape(1, -1)
+        cipher, scales = K.seal(flat, key, _leaf_counter(step, i))
+        sealed.append(("sealed", (cipher, scales, shape, leaf.dtype)))
+    return sealed, treedef
+
+
+def unseal_tree(sealed, treedef, key: int, step: int) -> Any:
+    leaves = []
+    for i, (tag, payload) in enumerate(sealed):
+        if tag == "raw":
+            leaves.append(payload)
+            continue
+        cipher, scales, shape, dtype = payload
+        flat = K.unseal(cipher, scales, key, _leaf_counter(step, i),
+                        out_dtype=dtype)
+        leaves.append(flat.reshape(shape))
+    return _unflatten(treedef, iter(leaves))
+
+
+# ---------------------------------------------------------------------------
+# Host payloads: cipher text views and integrity tags
+# ---------------------------------------------------------------------------
 _HOST_VIEW = {torch.int16: np.uint16, torch.int32: np.uint32}
 _SIGNED_VIEW = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32}
 

@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library under ``<repo>/build/repro_torch_kernels/`` (listed in
-``.gitignore``), named by a hash of its source so an edited kernel
-rebuilds and an unchanged one loads as is. All sources compile in
+``.gitignore``), named by a hash of its source and of the shared headers
+(``csrc/*.cuh``) so an edited kernel or header rebuilds and an unchanged
+one loads as is. All sources compile in
 parallel, one ``nvcc`` each. The build runs at first use, never at import:
 this module imports on hosts that have no ``nvcc`` and no card.
 
@@ -24,19 +25,24 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO / "build" / "repro_torch_kernels"
-SOURCES = ("paged_attention", "seal_bits")
+SOURCES = ("paged_attention", "seal_bits", "seal_q8")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _U, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                        ctypes.c_float, ctypes.c_longlong)
-# argtypes of each library's C entry (pointers and the stream as c_void_p,
-# or ctypes would pass them as 32-bit ints)
+# entry -> (source, C function, argtypes); pointers and the stream are
+# c_void_p, or ctypes would pass them as 32-bit ints
 SIGNATURES = {
-    "paged_attention": ("repro_paged_attention",
+    "paged_attention": ("paged_attention", "repro_paged_attention",
                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _F, _I, _P]),
-    "seal_bits": ("repro_bits_xor", [_P, _P, _LL, _U, _U, _I, _I, _P]),
+    "seal_bits": ("seal_bits", "repro_bits_xor",
+                  [_P, _P, _LL, _U, _U, _I, _I, _P]),
+    "seal_q8": ("seal_q8", "repro_seal_q8", [_P, _P, _P, _I, _I, _U, _U, _I,
+                                             _P]),
+    "unseal_q8": ("seal_q8", "repro_unseal_q8", [_P, _P, _P, _I, _I, _U, _U,
+                                                 _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -53,9 +59,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of that source,
+    every shared header (any of them may be included) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build_all(force: bool = False) -> float:
@@ -96,17 +106,20 @@ def load(name: str) -> ctypes.CDLL:
             if not _target(name).exists():
                 build_all()
             lib = ctypes.CDLL(str(_target(name)))
-            fn_name, argtypes = SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for source, fn_name, argtypes in SIGNATURES.values():
+                if source == name:
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
 
 
 def entry(name: str):
-    """The C entry point of ``csrc/<name>.cu`` with its argtypes set."""
-    return getattr(load(name), SIGNATURES[name][0])
+    """The C entry point ``name`` (a key of ``SIGNATURES``) with its
+    argtypes set."""
+    source, fn_name, _ = SIGNATURES[name]
+    return getattr(load(source), fn_name)
 
 
 if __name__ == "__main__":

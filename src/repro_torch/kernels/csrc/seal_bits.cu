@@ -22,20 +22,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "keystream.cuh"
 
-__device__ __forceinline__ uint32_t keystream_u32(uint32_t key, uint32_t ctr,
-                                                  uint32_t idx) {
-  uint32_t x = idx * 0x9E3779B9u;
-  x ^= key + ctr * 0x85EBCA6Bu;
-  x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
-  x = (x ^ (x >> 13)) * 0xC2B2AE35u;
-  x ^= x >> 16;
-  // second squares round for diffusion
-  x = x * (key | 1u) + ctr;
-  x = (x ^ (x >> 15)) * 0x9E3779B9u;
-  return x ^ (x >> 17);
-}
+namespace {
 
 template <typename T>
 __global__ void bits_xor_kernel(const T* __restrict__ in, T* __restrict__ out,

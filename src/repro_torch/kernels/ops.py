@@ -18,7 +18,7 @@ from . import ref
 from .seal import int_dtype_of
 
 LAUNCHES: Dict[str, int] = {"paged_attention": 0, "seal_bits": 0,
-                            "unseal_bits": 0}
+                            "unseal_bits": 0, "seal": 0, "unseal": 0}
 
 
 def reset_launch_counts() -> None:
@@ -44,6 +44,66 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 def _launch_failed(name: str, rc: int) -> RuntimeError:
     return RuntimeError(f"{name}: CUDA kernel launch failed "
                         f"(cudaError_t {rc})")
+
+
+# ---------------------------------------------------------------------------
+# Quantizing activation seal (stage boundaries)
+# ---------------------------------------------------------------------------
+_Q8_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def seal(x: torch.Tensor, key: int, counter: int):
+    """x [rows, cols] f32/bf16 -> (cipher uint8 [rows, cols], scales f32
+    [rows, 1]): per-row int8 quantization XOR the keystream's top byte."""
+    if x.dtype not in _Q8_DTYPES or x.dim() != 2:
+        raise TypeError(f"seal takes a 2D float32 or bfloat16 tensor, got "
+                        f"{x.dtype} {tuple(x.shape)}")
+    if not x.is_cuda:
+        return ref.seal_ref(x, key, counter)
+    from .build import entry
+    _check_cuda("seal", x)
+    rows, cols = x.shape
+    cipher = torch.empty((rows, cols), dtype=torch.uint8, device=x.device)
+    scales = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = entry("seal_q8")(
+            x.data_ptr(), cipher.data_ptr(), scales.data_ptr(), rows, cols,
+            int(key) & 0xFFFFFFFF, int(counter) & 0xFFFFFFFF,
+            x.element_size(), _stream(x.device))
+    if rc:
+        raise _launch_failed("seal", rc)
+    LAUNCHES["seal"] += 1
+    return cipher, scales
+
+
+def unseal(cipher: torch.Tensor, scales: torch.Tensor, key: int,
+           counter: int, out_dtype: torch.dtype = torch.bfloat16
+           ) -> torch.Tensor:
+    """Inverse of ``seal`` up to the quantization -> ``out_dtype``
+    [rows, cols]."""
+    if cipher.dtype != torch.uint8 or cipher.dim() != 2 \
+            or scales.dtype != torch.float32 \
+            or tuple(scales.shape) != (cipher.shape[0], 1) \
+            or out_dtype not in _Q8_DTYPES:
+        raise TypeError(f"unseal takes uint8 [rows, cols] cipher text, f32 "
+                        f"[rows, 1] scales and a float32/bfloat16 out type; "
+                        f"got {cipher.dtype} {tuple(cipher.shape)}, "
+                        f"{scales.dtype} {tuple(scales.shape)}, {out_dtype}")
+    if not cipher.is_cuda:
+        return ref.unseal_ref(cipher, scales, key, counter, out_dtype)
+    from .build import entry
+    _check_cuda("unseal", cipher, scales)
+    rows, cols = cipher.shape
+    out = torch.empty((rows, cols), dtype=out_dtype, device=cipher.device)
+    with torch.cuda.device(cipher.device):
+        rc = entry("unseal_q8")(
+            cipher.data_ptr(), scales.data_ptr(), out.data_ptr(), rows, cols,
+            int(key) & 0xFFFFFFFF, int(counter) & 0xFFFFFFFF,
+            out.element_size(), _stream(cipher.device))
+    if rc:
+        raise _launch_failed("unseal", rc)
+    LAUNCHES["unseal"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

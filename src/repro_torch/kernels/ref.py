@@ -10,16 +10,57 @@ import torch
 from .seal import int_dtype_of, keystream_u32, to_signed
 
 
+def _flat_index(shape, device) -> torch.Tensor:
+    """int64 row-major element index of a [rows, cols] array (the keystream
+    takes it modulo 2**32, as JAX's uint32 ``row * cols + col`` wraps)."""
+    rows, cols = shape
+    return (torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+            * cols
+            + torch.arange(cols, dtype=torch.int64, device=device)[None, :])
+
+
+# ---------------------------------------------------------------------------
+# seal / unseal — int8 quantize + keystream XOR (stage boundaries)
+# ---------------------------------------------------------------------------
+def _top_byte(shape, key: int, counter: int, device) -> torch.Tensor:
+    return keystream_u32(key, counter, _flat_index(shape, device)) >> 24
+
+
+def seal_ref(x: torch.Tensor, key: int, counter: int):
+    """x [rows, cols] float -> (cipher uint8 [rows, cols], scales f32
+    [rows, 1]): per-row absmax int8 quantization, scale = max(absmax, 1e-6)
+    / 127, q = clip(round_half_even(x / scale), -127, 127) by true division
+    (``torch.round`` rounds half to even, as ``jnp.round`` does), then the
+    low byte of q XOR the keystream's top byte at the flat index."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=1, keepdim=True)
+    # tensor / tensor: on a CUDA tensor PyTorch turns division by a Python
+    # scalar into a multiply by its reciprocal, which is not the IEEE
+    # quotient the reference (and the kernel) compute
+    scale = absmax.clamp_min(1e-6) / torch.full_like(absmax, 127.0)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int64)
+    cipher = (q & 0xFF) ^ _top_byte(x.shape, key, counter, x.device)
+    return cipher.to(torch.uint8), scale
+
+
+def unseal_ref(cipher: torch.Tensor, scales: torch.Tensor, key: int,
+               counter: int, out_dtype: torch.dtype = torch.bfloat16
+               ) -> torch.Tensor:
+    """Inverse of ``seal_ref`` up to the quantization: XOR back, sign-extend
+    the byte, multiply by the row scale in f32, cast to ``out_dtype``."""
+    q = cipher.to(torch.int64) ^ _top_byte(cipher.shape, key, counter,
+                                           cipher.device)
+    q = torch.where(q >= 128, q - 256, q).float()
+    return (q * scales).to(out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # seal_bits / unseal_bits — lossless bitcast + XOR (KV swap tier)
 # ---------------------------------------------------------------------------
 def _bits_keystream(shape, key: int, counter: int, bits: int,
                     device) -> torch.Tensor:
-    rows, cols = shape
-    idx = (torch.arange(rows, dtype=torch.int64, device=device)[:, None]
-           * cols
-           + torch.arange(cols, dtype=torch.int64, device=device)[None, :])
-    return to_signed(keystream_u32(key, counter, idx), bits)
+    return to_signed(keystream_u32(key, counter, _flat_index(shape, device)),
+                     bits)
 
 
 def seal_bits_ref(x: torch.Tensor, key: int, counter: int) -> torch.Tensor:

@@ -1,11 +1,14 @@
 """Where a decode step's time goes on the card.
 
     python -m repro_torch.launch.profile_decode [--steps 8]
-        [--trace decode_trace.json]
+        [--backend local|pipelined] [--trace decode_trace.json]
 
 Builds full-width llama3.2-1b (bf16, seeded random weights), fills all 8
 slots with 128-token prompts, runs a few warm-up steps, then traces
-``--steps`` engine steps with ``torch.profiler`` (CPU + CUDA activities).
+``--steps`` engine steps with ``torch.profiler`` (CPU + CUDA activities)
+on the chosen backend (``pipelined``: the planned two stages, two
+microbatches, sealed boundaries). Telemetry ticks are kept out of the
+traced window, so it holds decode steps only.
 Prints the host-clock time per step, the device-busy time per step (sum
 of kernel time) and the idle share, then the kernels by device time and
 the operators by host time. Needs a CUDA card.
@@ -35,6 +38,8 @@ def _dev_time(evt) -> float:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--backend", default="local",
+                    choices=["local", "pipelined"])
     ap.add_argument("--trace", default="")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -44,7 +49,8 @@ def main(argv=None):
     max_new = WARMUP_STEPS + args.steps + 8
     eng = ServingEngine(api, EngineConfig(
         num_slots=SLOTS, prompt_capacity=PROMPT_LEN,
-        request_capacity=PROMPT_LEN + max_new), params, device="cuda")
+        request_capacity=PROMPT_LEN + max_new, telemetry_interval=10_000),
+        params, device="cuda", backend=args.backend)
     rng = np.random.RandomState(0)
     for _ in range(SLOTS):
         eng.submit(rng.randint(0, cfg.vocab_size, size=PROMPT_LEN).tolist(),
@@ -69,7 +75,8 @@ def main(argv=None):
     step_ms = wall / args.steps * 1e3
     busy_ms = busy_us / args.steps / 1e3
     print(f"device: {torch.cuda.get_device_name(0)}")
-    print(f"decode step ({SLOTS} slots, {cfg.num_layers} layers): "
+    print(f"decode step ({SLOTS} slots, {cfg.num_layers} layers, "
+          f"{args.backend} backend, stage blocks {eng.stage_blocks}): "
           f"host clock {step_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"idle share {1 - busy_ms / step_ms:.3f}")
     print(f"-- kernels by device time per step (ms), top {TOP}")

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -153,6 +153,41 @@ class StackedLM:
         return logits, {SEGMENT: (torch.stack(ks), torch.stack(vs))}
 
     # -- public: paged decode ------------------------------------------------
+    def decode_blocks(self, params, pools, x: torch.Tensor,
+                      block_tables: torch.Tensor, seq_lens: torch.Tensor,
+                      start: int = 0, end: Optional[int] = None
+                      ) -> torch.Tensor:
+        """Blocks ``[start, end)`` of one paged decode step for the rows of
+        ``block_tables`` [B, MP] / ``seq_lens`` [B] (positions are the
+        per-row ``seq_lens``, 0-based). ``x`` [B, 1, d] is the residual
+        stream entering block ``start``; returns the one leaving block
+        ``end - 1``. Each block writes its new K/V into its own layer of the
+        pools ``(k, v)`` [L, N, KVH, Pg, D] in place and attends over
+        ``seq_lens + 1`` tokens. ``decode_paged_fn`` runs every block; a
+        pipeline stage runs its own range on its microbatch's rows."""
+        cfg = self.cfg
+        end = cfg.num_layers if end is None else end
+        positions = seq_lens[:, None]
+        sl_next = seq_lens + 1
+        k_pool, v_pool = pools
+        for l in range(start, end):
+            p = self._layer(params, l)
+            h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+            q, k, v = L.attn_qkv(p["attn"], h, positions, cfg)
+            L.paged_write(k_pool[l], v_pool[l], k[:, 0], v[:, 0],
+                          block_tables, seq_lens)
+            ctx = L.paged_decode_attention(q, k_pool[l], v_pool[l],
+                                           block_tables, sl_next)
+            x = x + L.attn_out(p["attn"], ctx)
+            x = self._mlp(p, x)
+        return x
+
+    def head(self, params, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and output head at the last position: x [B, S, d] ->
+        f32 logits [B, V]."""
+        x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
+        return self.logits(params, x[:, -1])
+
     def decode_paged_fn(self, params, cache, batch):
         """One decode step over the paged cache. ``cache`` holds the pools
         ``{"blocks": (k, v)}`` ``[L, N, KVH, Pg, D]``, ``block_tables``
@@ -160,25 +195,11 @@ class StackedLM:
         0-based. The pools and ``seq_lens`` are updated in place (rows that
         hold a sequence advance by one; idle rows stay 0) and the same
         cache dict is returned with the f32 logits."""
-        cfg = self.cfg
-        tokens = batch["tokens"]                      # [B, 1]
         bt, sl = cache["block_tables"], cache["seq_lens"]
-        positions = sl[:, None]
-        k_pool, v_pool = cache[SEGMENT]
-        x = self.embed(params, tokens)
-        sl_next = sl + 1
-        for l in range(cfg.num_layers):
-            p = self._layer(params, l)
-            h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-            q, k, v = L.attn_qkv(p["attn"], h, positions, cfg)
-            L.paged_write(k_pool[l], v_pool[l], k[:, 0], v[:, 0], bt, sl)
-            ctx = L.paged_decode_attention(q, k_pool[l], v_pool[l], bt,
-                                           sl_next)
-            x = x + L.attn_out(p["attn"], ctx)
-            x = self._mlp(p, x)
-        x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
-        logits = self.logits(params, x[:, -1])
-        sl.copy_(torch.where(sl > 0, sl_next, sl))
+        x = self.embed(params, batch["tokens"])          # [B, 1, d]
+        x = self.decode_blocks(params, cache[SEGMENT], x, bt, sl)
+        logits = self.head(params, x)
+        sl.copy_(torch.where(sl > 0, sl + 1, sl))
         return logits, cache
 
     # -- caches --------------------------------------------------------------

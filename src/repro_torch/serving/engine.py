@@ -4,6 +4,16 @@
 What this slice keeps from the reference, with the same host-side
 decisions so that greedy token streams are equal:
 
+* a placement planned over the trust domains on every backend
+  (``OnlineReplanner`` over ``rm``, two enclaves by default), and every
+  ``telemetry_interval`` steps a telemetry tick: per-stage times feed
+  ``StageTelemetry.maybe_observe``; a re-plan swaps the stage boundaries
+  live (``try_swap``) and decode continues token-exactly;
+* two decode backends: ``PagedLocalBackend`` runs ``decode_paged_fn``
+  over every layer at once (stage boundaries are metadata there), and
+  ``PagedPipelinedBackend`` runs the planned stages in sequence on the
+  card, microbatch by microbatch, sealing every stage boundary with the
+  quantizing ``seal`` kernel (``runtime/pipeline.py``);
 * a paged per-slot KV cache: shared page pools ``[L, N, KVH, Pg, D]`` and
   per-slot block tables, page 0 the immutable null page;
 * ``page_policy="demand"`` (block tables grow a page at a time, identical
@@ -17,12 +27,12 @@ decisions so that greedy token streams are equal:
   ``"recompute"`` re-prefills prompt + generated tokens (the oracle).
 
 On the card every decode step's attention runs the CUDA paged-attention
-kernel and every swap the CUDA page cipher; on the CPU the same calls take
-the plain PyTorch versions. Not in this slice, and refused by name when a
-config asks for them: the legacy timeline layout, chunked and packed
-prefill, warmup (CUDA graphs), sampling at temperature > 0, disaggregated
-prefill/decode, the fault plane, and the planner / telemetry / pipelined
-backends (see ROADMAP.md, "Next slices").
+kernel, every stage boundary the CUDA quantizing seal and every swap the
+CUDA page cipher; on the CPU the same calls take the plain PyTorch
+versions. Not in this slice, and refused by name when a config asks for
+them: the legacy timeline layout, chunked and packed prefill, warmup (CUDA
+graphs), sampling at temperature > 0, disaggregated prefill/decode and the
+fault plane (see ROADMAP.md, "Next slices").
 """
 from __future__ import annotations
 
@@ -34,12 +44,19 @@ from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core.planner import (InfeasibleError, PlacementSpec,
+                                      profiles_from_arch)
+from repro_torch.core.privacy import LM_SIM_DELTA
 from repro_torch.device import resolve_device
 from repro_torch.enclave import sealing
+from repro_torch.enclave.domain import ResourceManager, two_enclave_manager
 from repro_torch.models.transformer import SEGMENT
+from repro_torch.runtime.ft import HeartbeatMonitor, OnlineReplanner
+from repro_torch.runtime.pipeline import PipelinedDecoder, pipeline_applicable
 from repro_torch.serving.sampling import TokenSampler
 from repro_torch.serving.scheduler import (QUEUED, RUNNING, PagePool,
                                            Request, SlotScheduler)
+from repro_torch.serving.telemetry import StageTelemetry
 
 
 @dataclasses.dataclass
@@ -47,6 +64,8 @@ class EngineConfig:
     """The paged subset of the reference's ``EngineConfig`` (same names,
     same meanings)."""
     num_slots: int = 4                  # decode batch == KV slots
+    num_stages: int = 2                 # pipeline stages the plan asks for
+    num_microbatches: int = 2           # decode microbatches per step
     prompt_capacity: int = 32           # max admissible prompt length
     page_size: int = 16                 # tokens per KV page
     request_capacity: int = 0           # max prompt+max_new (0 = auto)
@@ -57,9 +76,19 @@ class EngineConfig:
     #                                     "recompute"
     prefix_sharing: bool = True         # COW prefix index (demand only)
     decode_cow: bool = True             # freeze decode-filled pages too
+    seal_boundary: bool = True          # quantizing seal at stage boundaries
+    solver: str = "dp"
+    space: str = "segment"              # PlacementSpec search space
+    plan_n: int = 10_000
+    delta: float = LM_SIM_DELTA
+    telemetry_interval: int = 8
+    deviation_threshold: float = 1.5
+    heartbeat_timeout_s: float = 10.0
+    allow_swap: bool = True             # apply a re-plan's boundaries live
     temperature: float = 0.0            # > 0 is not ported yet
     events_cap: int = 4096              # host-history ring-buffer caps
     finished_cap: int = 4096
+    step_times_cap: int = 4096
     admission_cap: int = 4096
     # reference options of later slices: anything but the default raises
     kv_layout: str = "paged"
@@ -101,13 +130,19 @@ class PagedLocalBackend:
     device state is updated in place. Index vectors arrive as host numpy
     arrays; rows carrying the out-of-range sentinel ``num_pages`` are
     dropped on the host, as the reference's ``mode="drop"`` scatters drop
-    them on the device."""
+    them on the device. Stage boundaries are metadata here: ``swap``
+    records them and ``stage_times`` measures nothing, so the engine
+    attributes each step's wall time by the plan's predicted shares."""
+
+    migrates_cache = False
 
     def __init__(self, api, params, cfg: EngineConfig, num_pages: int,
-                 pages_per_slot: int):
-        self.api, self.params = api, params
+                 pages_per_slot: int,
+                 stage_blocks: Optional[Sequence[int]] = None):
+        self.api, self.params, self.cfg = api, params, cfg
         self.device = api.device
         self.num_pages = num_pages
+        self.stage_blocks = tuple(stage_blocks or (api.cfg.num_layers,))
         self._shape = (cfg.num_slots, num_pages, cfg.page_size,
                        pages_per_slot)
         self.steps = 0                  # decode steps run on this backend
@@ -119,12 +154,22 @@ class PagedLocalBackend:
     def _idx(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
 
-    def step(self, tokens: np.ndarray) -> torch.Tensor:
+    def _tokens(self, tokens: np.ndarray) -> torch.Tensor:
         toks = torch.from_numpy(np.asarray(tokens, np.int64)).to(self.device)
+        return toks[:, None]
+
+    def step(self, tokens: np.ndarray, key: int) -> torch.Tensor:
         logits, self.cache = self.api.decode_paged_fn(
-            self.params, self.cache, {"tokens": toks[:, None]})
+            self.params, self.cache, {"tokens": self._tokens(tokens)})
         self.steps += 1
         return logits
+
+    def swap(self, stage_blocks: Sequence[int]) -> bool:
+        self.stage_blocks = tuple(stage_blocks)
+        return True
+
+    def stage_times(self) -> Optional[List[float]]:
+        return None                     # engine falls back to attribution
 
     def _set_row(self, slot: int, bt_row: np.ndarray, seq_len: int) -> None:
         self.cache["block_tables"][slot] = torch.from_numpy(
@@ -187,6 +232,81 @@ class PagedLocalBackend:
             pool[:, pg] = g[rows_t].transpose(0, 1)
 
 
+class PagedPipelinedBackend(PagedLocalBackend):
+    """The pipelined decoder over the shared page pools: the planned stages
+    run one after another on the card, microbatch by microbatch, and every
+    stage boundary is sealed with the quantizing seal (``seal_boundary``).
+    The pools keep the local backend's ``[L, N, KVH, Pg, D]`` layout — a
+    stage is a range of layers — so admission, forks and the sealed page
+    swap are the local backend's, and a live boundary swap
+    (``restage_cache``) moves no pages: block tables, seq_lens and the
+    host's refcounts ride along unchanged."""
+
+    migrates_cache = True
+
+    def __init__(self, api, params, cfg: EngineConfig, num_pages: int,
+                 pages_per_slot: int,
+                 stage_blocks: Optional[Sequence[int]] = None):
+        self._layouts: Dict[Tuple[int, ...], Tuple[PipelinedDecoder, Any,
+                                                   Any]] = {}
+        super().__init__(api, params, cfg, num_pages, pages_per_slot,
+                         stage_blocks)
+        self._build(self.stage_blocks)
+
+    def _build(self, stage_blocks: Sequence[int]) -> None:
+        """Decoders are kept per layout, so a swap back is free."""
+        self.stage_blocks = key = tuple(stage_blocks)
+        hit = self._layouts.get(key)
+        if hit is None:
+            cfg = self.cfg
+            dec = PipelinedDecoder(self.api, num_stages=cfg.num_stages,
+                                   num_microbatches=cfg.num_microbatches,
+                                   seal_boundary=cfg.seal_boundary,
+                                   stage_blocks=key)
+            hit = self._layouts[key] = (dec, dec.build(paged=True),
+                                        dec.build_stage_probe(paged=True))
+        self.dec, self.step_fn, self._probe = hit
+
+    def step(self, tokens: np.ndarray, key: int) -> torch.Tensor:
+        logits, self.cache = self.step_fn(
+            self.params, self.cache, {"tokens": self._tokens(tokens)}, key)
+        self.steps += 1
+        return logits
+
+    def swap(self, stage_blocks: Sequence[int]) -> bool:
+        """Rebuild on the new boundaries; the cache is already valid there
+        (``PipelinedDecoder.restage_cache``)."""
+        old_dec = self.dec
+        self._build(stage_blocks)
+        self.cache = old_dec.restage_cache(self.cache, self.dec)
+        return True
+
+    def stage_times(self) -> List[float]:
+        """Host wall seconds of each stage's layer range on one microbatch
+        of the live seq_lens, each ended by a device synchronise. The probe
+        runs on block-table rows of the null page, so it writes no live
+        page (see ``PipelinedDecoder.build_stage_probe``). The decode step
+        has run every kernel of the probe at its shapes already, so no
+        untimed warm-up call precedes it."""
+        cfg = self.cfg
+        b_mb = cfg.num_slots // cfg.num_microbatches
+        pools = self.cache[SEGMENT]
+        sl = self.cache["seq_lens"][:b_mb]
+        bt = torch.zeros_like(self.cache["block_tables"][:b_mb])
+        x = torch.zeros((b_mb, 1, self.api.cfg.d_model), dtype=self.api.dtype,
+                        device=self.device)
+        sync = torch.cuda.synchronize if self.device.type == "cuda" \
+            else (lambda: None)
+        per_stage = []
+        for s in range(cfg.num_stages):
+            sync()
+            t0 = time.perf_counter()
+            self._probe(self.params, pools, s, x, bt, sl)
+            sync()
+            per_stage.append(time.perf_counter() - t0)
+        return per_stage
+
+
 # ---------------------------------------------------------------------------
 # Engine
 # ---------------------------------------------------------------------------
@@ -198,30 +318,69 @@ class EngineEvent:
 
 
 class ServingEngine:
-    """Continuous-batching greedy serving over a paged KV cache.
+    """Continuous-batching greedy serving over a paged KV cache, planned
+    over trust domains.
 
+    The placement is a ``PlacementSpec`` (``self.spec``) from the segment-
+    space solver over ``rm`` (two enclaves by default); its stage block
+    counts (``self.stage_blocks``) drive the pipelined backend and are
+    metadata on the local one. ``backend`` is ``"local"`` (the default, as
+    the reference resolves it without a mesh) or ``"pipelined"``.
     ``device`` defaults to ``cuda`` and must be the model's device; pass
     ``device="cpu"`` (with a CPU model) for the plain-PyTorch path."""
 
     def __init__(self, api, config: Optional[EngineConfig] = None,
                  params=None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 rm: Optional[ResourceManager] = None,
+                 backend: Optional[str] = None):
         cfg = config or EngineConfig()
         self.device = resolve_device(device)
         if api.device != self.device:
             raise ValueError(f"engine device {self.device} but the model "
                              f"lives on {api.device}")
         _refuse_later_slices(cfg)
+        assert pipeline_applicable(api), \
+            f"{api.cfg.name}: serving needs a single homogeneous segment"
+        if cfg.num_slots % cfg.num_microbatches:
+            raise ValueError(f"num_slots {cfg.num_slots} is not a multiple "
+                             f"of num_microbatches {cfg.num_microbatches}")
         if cfg.page_policy not in ("demand", "reserve"):
             raise ValueError(f"page_policy {cfg.page_policy!r}")
         if cfg.preempt_policy not in ("auto", "swap", "recompute"):
             raise ValueError(f"preempt_policy {cfg.preempt_policy!r}")
+        backend = backend or "local"
+        if backend not in ("local", "pipelined"):
+            raise ValueError(f"backend {backend!r}: 'local' or 'pipelined'")
         self.api, self.config = api, cfg
+        self.rm = rm or two_enclave_manager()
         self.params = params if params is not None else api.init(
             torch.Generator(device=self.device).manual_seed(0))
         self.kv_layout = "paged"
         self.preempt_policy = "swap" if cfg.preempt_policy == "auto" \
             else cfg.preempt_policy
+
+        # --- plan over the trust domains ----------------------------------
+        # min_stages: ask for a placement that uses every pipeline stage
+        # (falls back when the topology cannot supply that many)
+        self.profiles = profiles_from_arch(api.cfg, seq_len=1)
+        self.replanner = OnlineReplanner(
+            self.rm, self.profiles, n=cfg.plan_n, delta=cfg.delta,
+            deviation_threshold=cfg.deviation_threshold, solver=cfg.solver,
+            space=cfg.space, min_stages=cfg.num_stages)
+        try:
+            spec = self.replanner.plan()
+        except InfeasibleError:
+            self.replanner.min_stages = None
+            spec = self.replanner.plan()
+        self.spec = spec
+        self.stage_blocks = self._blocks_from(spec)
+        self.telemetry = StageTelemetry(
+            self.replanner,
+            monitor=HeartbeatMonitor(self.rm,
+                                     timeout_s=cfg.heartbeat_timeout_s),
+            interval=cfg.telemetry_interval,
+            step_times_cap=cfg.step_times_cap)
 
         self.request_capacity = cfg.request_capacity or \
             (cfg.prompt_capacity + 64)
@@ -241,12 +400,16 @@ class ServingEngine:
         self._swap_seq = 0
         self.swap_fallbacks = 0
 
-        self.backend = PagedLocalBackend(api, self.params, cfg, num_pages,
-                                         self.pages_per_slot)
+        backend_cls = PagedPipelinedBackend if backend == "pipelined" \
+            else PagedLocalBackend
+        self.backend = backend_cls(api, self.params, cfg, num_pages,
+                                   self.pages_per_slot, self.stage_blocks)
+        self.backend_kind = backend
         self.scheduler = SlotScheduler(cfg.num_slots,
                                        finished_cap=cfg.finished_cap)
         self.pending = np.zeros(cfg.num_slots, np.int32)  # next input token
         self.steps = 0
+        self.swaps = 0
         self.stalled = False
         self.stall_reason: Optional[str] = None
         self._blocked_rid = None
@@ -256,8 +419,19 @@ class ServingEngine:
         self.decode_wall_s = 0.0
         self.events: Deque[EngineEvent] = deque(maxlen=cfg.events_cap)
         self._step_events: List[EngineEvent] = []
+        # uint32 key: swap pages seal under it, and step i's stage
+        # boundaries under key + i
         self._key = 0xC0FFEE
         self.sampler = TokenSampler(cfg.temperature)
+
+    def _blocks_from(self, spec: PlacementSpec) -> Tuple[int, ...]:
+        planned = spec.stage_sizes()
+        n, S = self.api.cfg.num_layers, self.config.num_stages
+        if len(planned) == S:
+            return planned
+        assert n % S == 0, \
+            f"plan wants {len(planned)} stages, {n} blocks not even over {S}"
+        return (n // S,) * S
 
     def _emit(self, kind: str, detail: Any = None) -> None:
         ev = EngineEvent(self.steps, kind, detail)
@@ -660,9 +834,11 @@ class ServingEngine:
             rids[slot] = req.rid
             idxs[slot] = len(req.generated)
         t0 = time.perf_counter()
-        logits = self.backend.step(self.pending)
+        logits = self.backend.step(self.pending,
+                                   (self._key + self.steps) & 0xFFFFFFFF)
         toks = self.sampler.sample(logits, rids, idxs)    # waits for the step
-        self.decode_wall_s += time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        self.decode_wall_s += wall
         self.steps += 1
         for slot, req in active:
             self.pending[slot] = toks[slot]
@@ -672,7 +848,48 @@ class ServingEngine:
                                           step=self.steps)
             if fin is not None:
                 self._on_finish(fin)
+        self._telemetry_tick(wall)
         return self._step_events
+
+    def _telemetry_tick(self, wall: float) -> None:
+        """Telemetry -> maybe re-plan -> maybe swap boundaries live. A
+        backend without stage probes has its step wall time attributed by
+        the plan's predicted shares, so only injected deviation registers."""
+        self.telemetry.record_step(wall)
+        if self.steps % self.telemetry.interval == 0:
+            times = self.backend.stage_times()
+            if times is None:
+                times = [wall * s for s in self.telemetry.predicted_shares()]
+            if times:
+                self.telemetry.record_stage_times(times)
+        new_spec = self.telemetry.maybe_observe(self.steps)
+        if new_spec is None:
+            return
+        self._emit("replan", {"blocks": new_spec.stage_sizes(),
+                              "placement": new_spec.describe()})
+        if self.config.allow_swap:
+            self.try_swap(new_spec.stage_sizes())
+        # adopt the spec only once the executing layout matches it (swap
+        # applied, or sizes unchanged and only devices moved)
+        if new_spec.stage_sizes() == self.stage_blocks:
+            self.spec = new_spec
+
+    # -- live boundary swap --------------------------------------------------
+    def try_swap(self, blocks: Sequence[int]) -> bool:
+        blocks = tuple(blocks)
+        if blocks == self.stage_blocks:
+            return False
+        if len(blocks) != self.config.num_stages or \
+                sum(blocks) != self.api.cfg.num_layers:
+            self._emit("swap_skipped", {"blocks": blocks})
+            return False
+        migrated = self.backend.swap(blocks)
+        self._emit("swap", {"from": self.stage_blocks, "to": blocks,
+                            "migrated": migrated and
+                            self.backend.migrates_cache})
+        self.stage_blocks = blocks
+        self.swaps += 1
+        return True
 
     def _maybe_register_decode_page(self, slot: int, req: Request) -> None:
         """``decode_cow``: when this step's write filled a page, freeze it
@@ -721,6 +938,11 @@ class ServingEngine:
         out.update({
             "device": str(self.device),
             "steps": self.steps,
+            "swaps": self.swaps,
+            "replans": self.replanner.replans,
+            "backend": self.backend_kind,
+            "stage_blocks": self.stage_blocks,
+            "placement": self.spec.describe(),
             "kv_layout": self.kv_layout,
             "decode_wall_s": wall,
             "tok_per_s": (out["tokens_out"] / wall) if wall > 0 else 0.0,

@@ -180,8 +180,13 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     c = ops.seal_bits(x, 5, 6)
     assert torch.equal(c, ref.seal_bits_ref(x, 5, 6))
     assert torch.equal(ops.unseal_bits(c, 5, 6, torch.float32), x)
+    q, s = ops.seal(x, 5, 6)
+    wq, ws = ref.seal_ref(x, 5, 6)
+    assert torch.equal(q, wq) and torch.equal(s, ws)
+    assert torch.equal(ops.unseal(q, s, 5, 6, torch.float32),
+                       ref.unseal_ref(q, s, 5, 6, torch.float32))
     assert ops.LAUNCHES == {"paged_attention": 0, "seal_bits": 0,
-                            "unseal_bits": 0}
+                            "unseal_bits": 0, "seal": 0, "unseal": 0}
 
 
 def test_cipher_rejects_wrong_types():
