@@ -12,14 +12,18 @@ Phases (each prints its own lines; any failure exits non-zero):
      pages; page cipher: [pages_per_slot, 131072] f32 and bf16, bit-exact;
      quantizing seal: the stage boundary's [4, 2048] in bf16 and f32 plus
      the reference's test shapes, cipher bytes equal but for rounding ties,
-     scales equal, unseal bit-equal);
+     scales equal, unseal bit-equal; prefill attention: the reference's
+     grid, ragged lengths, head_dim 128, GQA rep 4 and the one-shot, packed
+     and chunk shapes of full-width llama, f32 and bf16);
   3. time each kernel, its plain version, one PyTorch library call of the
      same function where one exists, and compute the least time the card
-     could take;
+     could take (prefill attention at its three path shapes, in bf16);
   4. check the whole serving path on a small input: reduced llama3.2-1b in
      f32 serves the same greedy streams on the card as on the CPU, through
      the local backend and through the pipelined backend (sealed stage
-     boundaries);
+     boundaries), each once with one-shot prefill and once with chunked and
+     packed prefill (``--prefill-chunk 5 --prefill-pack 3``), whose streams
+     must also equal the one-shot run's;
   5. serve full-width llama3.2-1b (16 layers, d_model 2048, vocab 128,256)
      in bf16 with seeded random weights through ``ServingEngine`` on the
      local backend: 8 slots, 16 requests with a shared system prompt, 32
@@ -33,7 +37,14 @@ Phases (each prints its own lines; any failure exits non-zero):
      (1, 15)), seal on: seal and unseal must have run nm * (S - 1) times
      per step, paged attention nm * num_layers times per step plus the
      telemetry's stage probes, the cipher on every swap, every swap-in
-     bit-exact and every logit finite.
+     bit-exact and every logit finite. In phases 5 to 7 prefill attention
+     must have run num_layers times per prefill call;
+  7. serve full-width llama3.2-1b in bf16 on the local backend with prompts
+     of up to 512 tokens, chunked prefill (chunks of 128) and packed
+     prefill (up to 4 prompts a call), 32 requests over a 116-page pool,
+     chosen by a CPU rehearsal of the same flags so that this one stream
+     chunks, packs and swap-preempts. Prints admission p50/p99, ms per
+     chunk, prefill tokens/s and decode ms per step.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
@@ -62,6 +73,7 @@ KEYSTREAM_OPS = 18               # 32-bit ops per element of the cipher
 # rint, two clamps / a multiply and a convert)
 SEAL_INT_OPS, SEAL_F32_OPS = KEYSTREAM_OPS + 3, 6
 UNSEAL_INT_OPS, UNSEAL_F32_OPS = KEYSTREAM_OPS + 3, 2
+BF16_TC_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
 
 
 def log(msg: str) -> None:
@@ -213,6 +225,120 @@ def check_seal_q8(torch, ops, ref):
     return err
 
 
+# prefill attention: B, Sq, Sk, H, KVH, D, causal, window, q_offset
+FLASH_PATH = {"one-shot": (1, 512, 512, 32, 8, 64, 1, 0, 0),
+              "packed": (4, 128, 128, 32, 8, 64, 1, 0, 0),
+              "chunk": (1, 128, 512, 32, 8, 64, 1, 0, 384)}
+FLASH_CASES = ([(B, S, S, H, H, D, int(c), w, 0) for B, H, S, D, w, c in (
+    (2, 4, 256, 64, 0, True), (1, 2, 128, 32, 64, True),
+    (2, 2, 64, 16, 0, True), (1, 1, 512, 64, 0, True),
+    (1, 2, 128, 32, 0, False))]                    # tests/test_kernels.py
+    + [(2, 77, 77, 4, 2, 64, 1, 0, 0), (1, 1, 1, 4, 1, 64, 1, 0, 0),
+       (1, 100, 100, 8, 2, 128, 1, 0, 0), (2, 96, 96, 16, 4, 64, 1, 0, 0),
+       (1, 8, 45, 4, 2, 64, 1, 0, 37)]
+    + list(FLASH_PATH.values()))
+
+
+def flash_inputs(torch, case, dtype, seed=4):
+    B, Sq, Sk, H, KVH, D = case[:6]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype),
+            torch.randn(B, Sk, KVH, D, generator=g, device="cuda").to(dtype),
+            torch.randn(B, Sk, KVH, D, generator=g, device="cuda").to(dtype))
+
+
+def flash_plain(ref, q, k, v, causal=True, window=0, q_offset=0):
+    """The wrapper's plain path: KV heads repeated, heads ahead of the
+    sequence, the plain version, and back to [B, Sq, H, D]."""
+    rep = q.shape[2] // k.shape[2]
+    return ref.flash_attention_ref(
+        q.transpose(1, 2), k.repeat_interleave(rep, 2).transpose(1, 2),
+        v.repeat_interleave(rep, 2).transpose(1, 2), causal=causal,
+        window=window, q_offset=q_offset).transpose(1, 2)
+
+
+def check_flash_attention(torch, ops, ref):
+    """Prefill attention kernel vs plain version on the card: f32 within
+    atol = rtol = 3e-5 (sums in another order), bf16 within atol 1e-3 +
+    rtol 1e-2 (both sides accumulate in f32 and round once to bf16, whose
+    spacing is 2**-8..2**-7 of the value, so they may land one bf16 step
+    apart). Returns the largest bf16 error at each path shape."""
+    errs = {}
+    for dtype, tol in ((torch.float32, dict(atol=3e-5, rtol=3e-5)),
+                       (torch.bfloat16, dict(atol=1e-3, rtol=1e-2))):
+        worst = 0.0
+        for case in FLASH_CASES:
+            causal, window, off = bool(case[6]), case[7], case[8]
+            q, k, v = flash_inputs(torch, case, dtype)
+            got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                      q_offset=off)
+            want = flash_plain(ref, q, k, v, causal, window, off)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got.float()).all(), case
+            err = (got.float() - want.float()).abs().max().item()
+            torch.testing.assert_close(got.float(), want.float(), **tol,
+                                       msg=lambda m: f"{case}: {m}")
+            worst = max(worst, err)
+            for name, shape in FLASH_PATH.items():
+                if shape == case and dtype == torch.bfloat16:
+                    errs[name] = err
+        log(f"check flash_attention {dtype}: {len(FLASH_CASES)} cases, "
+            f"max_abs_err={worst:.3e} ({tol})")
+    return errs
+
+
+def visible_keys(torch, case) -> float:
+    """Keys all queries of one (batch row, head) see, summed: Sq * Sk_eff
+    for these inputs' causal and window masks."""
+    _, Sq, Sk, _, _, _, causal, window, off = case
+    qp = off + torch.arange(Sq)[:, None]
+    kp = torch.arange(Sk)[None, :]
+    mask = torch.ones(Sq, Sk, dtype=torch.bool)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= kp > qp - window
+    return float(mask.sum().item())
+
+
+def time_flash(torch, ops, ref, F):
+    """ms of the prefill kernel, its plain version and SDPA at the three
+    path shapes in bf16, with the bound."""
+    out = {}
+    for name, case in FLASH_PATH.items():
+        B, Sq, Sk, H, KVH, D, causal, window, off = case
+        q, k, v = flash_inputs(torch, case, torch.bfloat16, seed=5)
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, q_offset=off))
+        plain = time_ms(lambda: flash_plain(ref, q, k, v, q_offset=off), 20)
+        # library yardstick: SDPA with heads ahead and KV heads repeated
+        # beforehand (not timed); is_causal aligns top-left, so the
+        # offset case takes an explicit mask
+        qh = q.transpose(1, 2).contiguous()
+        kh = k.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
+        vh = v.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
+        if off == 0 and Sq == Sk:
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True))
+        else:
+            mask = (torch.arange(Sk, device="cuda")[None, :]
+                    <= off + torch.arange(Sq, device="cuda")[:, None])
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask))
+        esz = q.element_size()
+        nbytes = esz * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4.0 * B * H * D * visible_keys(torch, case)
+        b_ms, b_by = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
+        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                         flops=flops)
+        log(f"time flash_attention {name} bf16 B={B} Sq={Sq} Sk={Sk} H={H} "
+            f"KVH={KVH} D={D} q_offset={off}: kernel {ms * 1e3:.1f} us, "
+            f"plain {plain * 1e3:.1f} us, sdpa {lib * 1e3:.1f} us, bound "
+            f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.3f} GFLOP)")
+    return out
+
+
 def time_kernels(torch, ops, ref, sealing, F):
     """ms of each kernel, its plain version and a library call, at the
     checked shapes, plus the bound."""
@@ -303,6 +429,7 @@ def time_kernels(torch, ops, ref, sealing, F):
         log(f"time {name} bf16 [4, 2048]: kernel {ms * 1e3:.2f} us, plain "
             f"{plain * 1e3:.1f} us, bound {b_ms * 1e3:.4f} us ({b_by}, "
             f"{nbytes / 1e3:.1f} KB)")
+    out["flash_attention"] = time_flash(torch, ops, ref, F)
     return out
 
 
@@ -312,36 +439,59 @@ def small_reference_check(torch):
     enough to swap, through the local backend and through the pipelined
     one (stage boundaries sealed; telemetry too rare to re-plan, so both
     devices keep the planned layout). Greedy streams and paging decisions
-    must be equal."""
+    must be equal. A third run per backend adds chunked and packed prefill
+    (``--prefill-chunk 5 --prefill-pack 3``; a CPU rehearsal of these
+    flags chunks 7 admissions and packs 3 into 2 calls): its streams must
+    be equal on both devices and equal to the one-shot run's."""
     from repro_torch.launch import serve
     from repro_torch.models.api import build_model
-    for backend in ("local", "pipelined"):
-        args = serve.build_parser().parse_args(
-            ["--arch", "llama3.2-1b", "--reduced", "--device", "cpu",
+    small = ["--arch", "llama3.2-1b", "--reduced", "--device", "cpu",
              "--slots", "4", "--requests", "10", "--prompt-len", "16",
              "--max-new", "8", "--page-size", "4", "--num-pages", "12",
-             "--f32", "--shared-system-prompt", "0.5", "--backend", backend,
-             "--telemetry-interval", "1000"])
-        cpu_api, params = serve.build_params(args)
-        prompts = serve.gen_prompts(args, cpu_api.cfg.vocab_size)
-        runs = []
-        for device in ("cpu", "cuda"):
-            api = build_model(cpu_api.cfg, device=device, dtype=torch.float32)
-            eng = serve.make_engine(api, _to(torch, params, device), args)
-            reqs = serve.serve_stream(eng, args, prompts)
-            runs.append(([r.generated for r in reqs], eng.stats()))
-        (a, sa), (b, sb) = runs
-        assert a == b, f"{backend}: greedy streams differ card vs CPU:\n" \
-                       f"{a}\n{b}"
-        for key in ("preemptions", "swap_outs", "swap_ins", "cow_hits",
-                    "steps", "stage_blocks", "backend"):
-            assert sa[key] == sb[key], (backend, key, sa[key], sb[key])
-        assert sb["swap_ins"] > 0, "small check never swapped"
-        assert sb["backend"] == backend
-        log(f"check serving path, reduced f32 card vs CPU, {backend} "
-            f"backend (stage blocks {sb['stage_blocks']}): {len(a)} streams "
-            f"equal, swap_outs={sb['swap_outs']} swap_ins={sb['swap_ins']} "
-            f"cow_hits={sb['cow_hits']}")
+             "--f32", "--shared-system-prompt", "0.5",
+             "--telemetry-interval", "1000"]
+    for backend in ("local", "pipelined"):
+        streams = {}
+        for extra in ([], ["--prefill-chunk", "5", "--prefill-pack", "3"]):
+            args = serve.build_parser().parse_args(
+                small + ["--backend", backend] + extra)
+            cpu_api, params = serve.build_params(args)
+            prompts = serve.gen_prompts(args, cpu_api.cfg.vocab_size)
+            runs = []
+            for device in ("cpu", "cuda"):
+                api = build_model(cpu_api.cfg, device=device,
+                                  dtype=torch.float32)
+                eng = serve.make_engine(api, _to(torch, params, device), args)
+                reqs = serve.serve_stream(eng, args, prompts)
+                runs.append(([r.generated for r in reqs], eng.stats()))
+            (a, sa), (b, sb) = runs
+            what = f"{backend}{' ' + ' '.join(extra) if extra else ''}"
+            assert a == b, f"{what}: greedy streams differ card vs CPU:\n" \
+                           f"{a}\n{b}"
+            for key in ("preemptions", "swap_outs", "swap_ins", "cow_hits",
+                        "steps", "stage_blocks", "backend",
+                        "chunked_admissions", "prefill_chunks",
+                        "packed_admissions", "packed_prefills",
+                        "prefill_calls"):
+                assert sa[key] == sb[key], (what, key, sa[key], sb[key])
+            assert sb["backend"] == backend
+            streams[bool(extra)] = b
+            if extra:
+                assert b == streams[False], \
+                    f"{backend}: chunked/packed streams differ from one-shot"
+                assert sb["chunked_admissions"] > 0, sb
+                assert sb["packed_admissions"] > sb["packed_prefills"] > 0, \
+                    sb
+            else:
+                assert sb["swap_ins"] > 0, "small check never swapped"
+            log(f"check serving path, reduced f32 card vs CPU, {what} "
+                f"(stage blocks {sb['stage_blocks']}): {len(a)} streams "
+                f"equal{', equal to one-shot' if extra else ''}, "
+                f"swap_outs={sb['swap_outs']} swap_ins={sb['swap_ins']} "
+                f"cow_hits={sb['cow_hits']} chunked="
+                f"{sb['chunked_admissions']} in {sb['prefill_chunks']} "
+                f"chunks, packed={sb['packed_admissions']} in "
+                f"{sb['packed_prefills']} calls")
 
 
 def _to(torch, tree, device):
@@ -354,21 +504,70 @@ FULL_WIDTH = ["--arch", "llama3.2-1b", "--device", "cuda", "--slots", "8",
               "--requests", "16", "--prompt-len", "128", "--max-new", "32",
               "--page-size", "16", "--num-pages", "30",
               "--shared-system-prompt", "0.75"]
+# phase 7: a CPU rehearsal of these flags (the schedule depends on the
+# prompts, arrivals and pool, not on the model) chunks 25 admissions, packs
+# 7 admissions into 6 calls and swaps 14 requests out and back in
+PREFILL_WIDE = ["--arch", "llama3.2-1b", "--device", "cuda", "--backend",
+                "local", "--prompt-len", "512", "--prefill-chunk", "128",
+                "--prefill-pack", "4", "--slots", "8", "--max-new", "32",
+                "--page-size", "16", "--shared-system-prompt", "0.5",
+                "--requests", "32", "--num-pages", "116"]
 
 
-def serve_full_width(torch, ops, api, params, backend):
-    """Phases 5 (local backend) and 6 (pipelined backend): the main path
-    at full width, with launch counts zeroed just before and read just
-    after. Returns the launch counts."""
+class TimedPrefill:
+    """The model API with every prefill call timed by the host clock
+    between two device synchronises, and its prompt tokens counted (a
+    packed call's dummy rows have length 1; the stream's prompts have at
+    least 2 tokens)."""
+
+    def __init__(self, torch, api):
+        self._torch, self._api = torch, api
+        self.seconds, self.tokens, self.chunk_ms = 0.0, 0, []
+
+    def __getattr__(self, name):
+        return getattr(self._api, name)
+
+    def _timed(self, fn, tokens, *a):
+        self._torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        self._torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        self.seconds += dt
+        self.tokens += int(tokens)
+        return out, dt
+
+    def prefill_at_fn(self, params, batch):
+        return self._timed(self._api.prefill_at_fn, batch["prompt_len"],
+                           params, batch)[0]
+
+    def prefill_packed_fn(self, params, batch):
+        real = sum(int(n) for n in batch["prompt_lens"] if n > 1)
+        return self._timed(self._api.prefill_packed_fn, real, params,
+                           batch)[0]
+
+    def prefill_chunk_fn(self, params, pools, batch):
+        out, dt = self._timed(self._api.prefill_chunk_fn, batch["chunk_len"],
+                              params, pools, batch)
+        self.chunk_ms.append(dt * 1e3)
+        return out
+
+
+def serve_full_width(torch, ops, api, params, argv, phase):
+    """Phases 5 (local backend), 6 (pipelined backend) and 7 (local, long
+    prompts, chunked and packed prefill): the main path at full width,
+    with launch counts zeroed just before and read just after. Returns
+    the launch counts."""
     from repro_torch.launch import serve
-    argv = FULL_WIDTH + ["--backend", backend]
     args = serve.build_parser().parse_args(argv)
+    backend = serve.backend_of(args)
     # warm-up: a short stream on its own engine (cuBLAS handles, allocator)
     warm = serve.build_parser().parse_args(argv + ["--requests", "2"])
     serve.serve_stream(serve.make_engine(api, params, warm), warm,
                        serve.gen_prompts(warm, api.cfg.vocab_size))
 
-    eng = serve.make_engine(api, params, args)
+    timed = TimedPrefill(torch, api) if phase == 7 else api
+    eng = serve.make_engine(timed, params, args)
     planned = eng.stage_blocks
     be = eng.backend
     gathered, restored = {}, []
@@ -416,7 +615,6 @@ def serve_full_width(torch, ops, api, params, backend):
     st = eng.stats()
     n_layers = api.cfg.num_layers
     S, nm = args.stages, args.microbatches
-    phase = 5 if backend == "local" else 6
 
     assert len(reqs) == args.requests
     assert all(r.status == "done" and len(r.generated) == args.max_new
@@ -429,6 +627,8 @@ def serve_full_width(torch, ops, api, params, backend):
     assert launches["seal_bits"] == 2 * st["swap_outs"], launches
     assert launches["unseal_bits"] == 2 * st["swap_ins"], launches
     assert launches["seal_bits"] + launches["unseal_bits"] >= 4, launches
+    assert launches["flash_attention"] == n_layers * st["prefill_calls"], \
+        (launches, st["prefill_calls"])
     if backend == "local":
         assert launches["paged_attention"] == be.steps * n_layers, \
             (launches, be.steps)
@@ -442,12 +642,16 @@ def serve_full_width(torch, ops, api, params, backend):
         assert launches["paged_attention"] == \
             be.steps * nm * n_layers + probe_layers[0], \
             (launches, be.steps, probe_layers[0])
+    if phase == 7:
+        assert st["chunked_admissions"] > 0, st
+        assert st["packed_admissions"] > st["packed_prefills"] > 0, st
     eng.check_page_invariants()
-    step_ms = st["decode_wall_s"] / max(st["steps"], 1) * 1e3
+    step_ms = st["decode_wall_s"] / max(be.steps, 1) * 1e3
     log(f"serve phase {phase} ({backend}): {st['completed']} requests, "
-        f"{st['tokens_out']} tokens, {st['steps']} decode steps, "
-        f"{st['tok_per_s']:.1f} tok/s decode, {step_ms:.2f} ms/decode step "
-        f"(host clock, 8 slots), wall {wall:.2f} s incl. admission prefill")
+        f"{st['tokens_out']} tokens, {be.steps} decode steps of "
+        f"{st['steps']}, {st['tok_per_s']:.1f} tok/s decode, {step_ms:.2f} "
+        f"ms/decode step (host clock, {args.slots} slots), wall {wall:.2f} "
+        f"s incl. admission prefill")
     log(f"serve phase {phase}: stage_blocks={st['stage_blocks']} "
         f"placement={st['placement']} replans={st['replans']} "
         f"swaps={st['swaps']}")
@@ -455,12 +659,27 @@ def serve_full_width(torch, ops, api, params, backend):
         f"swap_outs={st['swap_outs']} swap_ins={st['swap_ins']} pages "
         f"restored bit-exact={len(restored)} cow_hits={st['cow_hits']} "
         f"forks={st['forks']} admission_p50="
-        f"{st.get('admission_p50_ms', 0):.1f} ms")
+        f"{st.get('admission_p50_ms', 0):.1f} ms p99="
+        f"{st.get('admission_p99_ms', 0):.1f} ms, prefill_calls="
+        f"{st['prefill_calls']}")
+    if phase == 7:
+        chunk = sorted(timed.chunk_ms)
+        log(f"serve phase 7: chunked {st['chunked_admissions']} admissions "
+            f"in {st['prefill_chunks']} chunks of {args.prefill_chunk}, "
+            f"packed {st['packed_admissions']} admissions in "
+            f"{st['packed_prefills']} calls of up to {args.prefill_pack}; "
+            f"ms per chunk p50 {chunk[len(chunk) // 2]:.2f} mean "
+            f"{sum(chunk) / len(chunk):.2f} (host clock between device "
+            f"synchronises); prefill {timed.tokens} tokens in "
+            f"{timed.seconds:.3f} s = {timed.tokens / timed.seconds:.0f} "
+            f"tokens/s")
     detail = f"{be.steps} steps x {n_layers} layers" if backend == "local" \
         else (f"{be.steps} steps x {nm} microbatches x {n_layers} layers + "
               f"{probe_layers[0]} probe layer runs; seal = {be.steps} x "
               f"{nm} x {S - 1}")
-    log(f"serve phase {phase}: launches {launches} ({detail})")
+    log(f"serve phase {phase}: launches {launches} (paged attention "
+        f"{detail}; flash attention {st['prefill_calls']} prefill calls x "
+        f"{n_layers} layers)")
     return launches
 
 
@@ -516,11 +735,13 @@ def main() -> int:
     pa_err = check_paged_attention(torch, ops, ref)
     check_cipher(torch, ops, ref, sealing)
     q8_err = check_seal_q8(torch, ops, ref)
+    fa_err = check_flash_attention(torch, ops, ref)
     # phase 3: timings and bounds
     times = time_kernels(torch, ops, ref, sealing, F)
     # phase 4: whole serving path on a small input, card vs CPU
     small_reference_check(torch)
-    # phases 5 and 6: the main path at full width, local then pipelined
+    # phases 5 to 7: the main path at full width, local then pipelined,
+    # then long prompts with chunked and packed prefill
     from repro_torch.launch import serve
     t0 = time.perf_counter()
     api, params = serve.build_params(serve.build_parser().parse_args(
@@ -531,9 +752,12 @@ def main() -> int:
         f"d_model {api.cfg.d_model}, vocab {api.cfg.vocab_size}, "
         f"{n_params / 1e9:.3f} B params bf16, init "
         f"{time.perf_counter() - t0:.1f} s")
-    local = serve_full_width(torch, ops, api, params, "local")
-    piped = serve_full_width(torch, ops, api, params, "pipelined")
-    launches = {k: local[k] + piped[k] for k in local}
+    runs = [serve_full_width(torch, ops, api, params,
+                             FULL_WIDTH + ["--backend", "local"], 5),
+            serve_full_width(torch, ops, api, params,
+                             FULL_WIDTH + ["--backend", "pipelined"], 6),
+            serve_full_width(torch, ops, api, params, PREFILL_WIDE, 7)]
+    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
@@ -548,8 +772,14 @@ def main() -> int:
             ("seal", src + "seal_q8.cu", "src/repro/kernels/seal.py:48",
              q8_err),
             ("unseal", src + "seal_q8.cu", "src/repro/kernels/seal.py:67",
-             0.0)):
-        t = times[name]
+             0.0),
+            ("flash_attention", src + "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:28",
+             fa_err["one-shot"])):
+        # prefill attention: the one-shot shape's numbers in this line,
+        # all three path shapes in the log above
+        t = times[name] if name != "flash_attention" \
+            else times[name]["one-shot"]
         assert launches[name] > 0, (name, launches)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],

@@ -25,7 +25,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO / "build" / "repro_torch_kernels"
-SOURCES = ("paged_attention", "seal_bits", "seal_q8")
+SOURCES = ("paged_attention", "seal_bits", "seal_q8", "flash_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -43,6 +43,9 @@ SIGNATURES = {
                                              _P]),
     "unseal_q8": ("seal_q8", "repro_unseal_q8", [_P, _P, _P, _I, _I, _U, _U,
                                                  _I, _P]),
+    "flash_attention": ("flash_attention", "repro_flash_attention",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _F, _I, _P]),
 }
 
 _lock = threading.Lock()

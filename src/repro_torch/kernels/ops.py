@@ -18,7 +18,8 @@ from . import ref
 from .seal import int_dtype_of
 
 LAUNCHES: Dict[str, int] = {"paged_attention": 0, "seal_bits": 0,
-                            "unseal_bits": 0, "seal": 0, "unseal": 0}
+                            "unseal_bits": 0, "seal": 0, "unseal": 0,
+                            "flash_attention": 0}
 
 
 def reset_launch_counts() -> None:
@@ -211,3 +212,62 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
         raise _launch_failed("paged_attention", rc)
     LAUNCHES["paged_attention"] += 1
     return out.reshape(B, H, D)
+
+
+# ---------------------------------------------------------------------------
+# Prefill attention (flash attention, GQA-aware wrapper)
+# ---------------------------------------------------------------------------
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_FLASH_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    q_offset: int = 0):
+    """q: [B, Sq, H, D]; k, v: [B, Sk, KVH, D]. Returns [B, Sq, H, D] in
+    q's type. Query i sits at absolute position ``q_offset + i`` and the
+    keys at 0 .. Sk-1; query head h reads KV head ``h // (H // KVH)``.
+
+    On the CPU the KV heads are repeated and the heads moved ahead of the
+    sequence, as the reference's wrapper does, for the plain version. On
+    the card the kernel reads the model's layout as it is."""
+    B, Sq, H, D = q.shape
+    Bk, Sk, KVH, Dk = k.shape
+    if tuple(v.shape) != tuple(k.shape) or Bk != B or Dk != D or H % KVH:
+        raise ValueError(f"flash_attention: inconsistent shapes q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
+    if q_offset < 0 or window < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} and window "
+                         f"{window} must be >= 0")
+    if causal and Sk < q_offset + Sq:
+        raise ValueError(f"flash_attention: causal queries at positions "
+                         f"{q_offset}..{q_offset + Sq - 1} need Sk >= "
+                         f"{q_offset + Sq} keys, got {Sk}")
+    if not q.is_cuda:
+        rep = H // KVH
+        kk = k.repeat_interleave(rep, dim=2) if rep > 1 else k
+        vv = v.repeat_interleave(rep, dim=2) if rep > 1 else v
+        out = ref.flash_attention_ref(
+            q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+            causal=causal, window=window, q_offset=q_offset)
+        return out.transpose(1, 2).contiguous()
+    from .build import entry
+    _check_cuda("flash_attention", q, k, v)
+    if q.dtype not in _FLASH_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes one of f32/bf16 for q, k and "
+                        f"v, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in _FLASH_HEAD_DIMS or B > 65535 or H > 65535:
+        raise ValueError(f"flash_attention kernel supports head_dim in "
+                         f"{_FLASH_HEAD_DIMS} and B, H <= 65535; got D={D}, "
+                         f"B={B}, H={H}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = entry("flash_attention")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Sk, H, KVH, D, int(bool(causal)), int(window), int(q_offset),
+            1.0 / math.sqrt(D), _FLASH_DTYPES[q.dtype], _stream(q.device))
+    if rc:
+        raise _launch_failed("flash_attention", rc)
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -117,3 +117,27 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, seq_lens):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrs,bgsd->bgrd", p, v.float())
     return out.reshape(B, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (causal, optional sliding window, query offset) — oracle
+# ---------------------------------------------------------------------------
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0):
+    """q: [B, H, Sq, D]; k, v: [B, H, Sk, D] (MHA; GQA handled by the
+    wrapper). f32 math, masked scores at -1e30, as the JAX oracle. Query i
+    sits at absolute position ``q_offset + i``, the keys at 0 .. Sk-1 (the
+    JAX oracle is the case ``q_offset = 0``, Sk = Sq)."""
+    Sq, D = q.shape[2], q.shape[3]
+    Sk = k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(D)
+    qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

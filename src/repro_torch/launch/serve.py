@@ -11,10 +11,18 @@ serves a synthetic request stream (the reference launcher's: uniform
 prompt lengths 2..N, a fraction extending one fixed system prompt, one
 arrival every two engine steps) and prints the engine's counters. The
 flags mean what they mean in ``repro.launch.serve``: ``--backend auto``
-pipelines when ``--stages`` > 1, and ``--inject-straggler S:F`` with
+pipelines when ``--stages`` > 1, ``--inject-straggler S:F`` with
 ``--verify-swap --no-seal`` forces a live boundary swap and checks that
-the token streams equal an undisturbed run's. Runs on ``cuda`` unless
-``--device cpu`` is given; without a card it raises.
+the token streams equal an undisturbed run's, ``--prefill-chunk N`` streams
+prompts longer than N in N-token chunks, ``--prefill-pack K`` admits up to
+K short prompts in one prefill call, and ``--verify-chunked`` serves the
+stream again with one-shot prefill and checks the streams are equal
+(prints ``CHUNK-EXACT OK``). Runs on ``cuda`` unless ``--device cpu`` is
+given; without a card it raises.
+
+  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
+      --device cpu --prompt-len 24 --prefill-chunk 5 --prefill-pack 3 \\
+      --f32 --verify-chunked
 """
 from __future__ import annotations
 
@@ -86,6 +94,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--verify-swap", action="store_true",
                     help="run twice (with/without straggler) and assert "
                          "identical token streams across the live swap")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="stream prompts longer than N in N-token chunks, "
+                         "one chunk per engine step between decode ticks "
+                         "(0 = whole-prompt prefill)")
+    ap.add_argument("--prefill-pack", type=int, default=0,
+                    help="pack up to K queued short prompts into one "
+                         "bucketed prefill call (0 = off)")
+    ap.add_argument("--verify-chunked", action="store_true",
+                    help="with --prefill-chunk: serve the stream again "
+                         "unchunked and assert identical token streams")
     ap.add_argument("--f32", action="store_true",
                     help="float32 weights and KV (default bfloat16)")
     ap.add_argument("--seed", type=int, default=0)
@@ -99,7 +117,8 @@ def make_config(args) -> EngineConfig:
         page_size=args.page_size, num_pages=args.num_pages,
         request_capacity=args.prompt_len + args.max_new,
         seal_boundary=not args.no_seal, solver=args.solver, space=args.space,
-        delta=args.delta, telemetry_interval=args.telemetry_interval)
+        delta=args.delta, telemetry_interval=args.telemetry_interval,
+        prefill_chunk=args.prefill_chunk, prefill_pack=args.prefill_pack)
 
 
 def backend_of(args) -> str:
@@ -199,6 +218,14 @@ def report(eng, api, reqs) -> None:
           f"swap_ins={st['swap_ins']} cow_hits={st['cow_hits']} "
           f"forks={st['forks']} peak_pages={st['peak_pages_in_use']}/"
           f"{st['num_pages'] - 1}")
+    if st["prefill_chunk"]:
+        print(f"chunked prefill: {st['chunked_admissions']} admissions in "
+              f"{st['prefill_chunks']} chunks of {st['prefill_chunk']} "
+              f"tokens")
+    if st["prefill_pack"] > 1:
+        print(f"packed prefill: {st['packed_admissions']} admissions in "
+              f"{st['packed_prefills']} calls of up to {st['prefill_pack']} "
+              f"prompts")
     if reqs:
         print("sample tokens:", reqs[0].generated)
 
@@ -226,6 +253,21 @@ def main(argv=None):
         print(f"SWAP-EXACT OK: {len(reqs)} token streams identical across "
               f"live re-plan ({st['stage_blocks']} vs "
               f"{eng2.stats()['stage_blocks']})")
+    if args.verify_chunked:
+        assert args.prefill_chunk > 0, \
+            "--verify-chunked needs --prefill-chunk N"
+        assert st["chunked_admissions"] > 0, \
+            "no prompt exceeded --prefill-chunk: nothing verified " \
+            "(raise --prompt-len or lower --prefill-chunk)"
+        unchunked = copy.copy(args)
+        unchunked.prefill_chunk = 0
+        _, reqs3 = run_once(api, params, unchunked, inject)
+        for a, b in zip(reqs, reqs3):
+            assert a.generated == b.generated, \
+                f"req {a.rid} diverged under chunked prefill:\n" \
+                f"  {a.generated}\n  {b.generated}"
+        print(f"CHUNK-EXACT OK: {len(reqs)} token streams identical, "
+              f"chunked ({args.prefill_chunk}) vs one-shot prefill")
     return st
 
 

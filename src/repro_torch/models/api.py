@@ -53,6 +53,16 @@ class ModelAPI:
         """Right-padded whole-prompt prefill (see StackedLM.prefill_at_fn)."""
         return self.model.prefill_at_fn(params, batch)
 
+    def prefill_packed_fn(self, params, batch):
+        """K right-padded prompts in one call, logits per row at its own
+        last position (see StackedLM.prefill_packed_fn)."""
+        return self.model.prefill_packed_fn(params, batch)
+
+    def prefill_chunk_fn(self, params, pools, batch):
+        """One prefill chunk against the live page pools, which it updates
+        in place (see StackedLM.prefill_chunk_fn)."""
+        return self.model.prefill_chunk_fn(params, pools, batch)
+
 
 def build_model(cfg: ArchConfig, *,
                 device: Optional[Union[str, torch.device]] = None,

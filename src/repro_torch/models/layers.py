@@ -1,25 +1,22 @@
 """Model substrate of the port (dense subset of ``repro/models/layers.py``):
-norms, rotary embeddings, projections, SwiGLU, causal prefill attention
-and the paged decode path.
+norms, rotary embeddings, projections, SwiGLU, prefill attention (one-shot
+and chunked against the page pools) and the paged decode path.
 
 Layouts are the reference's: activations [B, S, ...], ``wq [d, H, hd]``,
 ``wo [H, hd, d]``, page pools ``[N, KVH, page_size, D]``. The paged write
-updates the pools in place (the reference returns new arrays): a pool is
-the engine's largest tensor, and copying it every layer of every step would
-cost more than the step itself.
+and the chunk write update the pools in place (the reference returns new
+arrays): a pool is the engine's largest tensor, and copying it every layer
+of every step would cost more than the step itself.
 """
 from __future__ import annotations
 
 import functools
-import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as KO
-
-NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
@@ -87,25 +84,16 @@ def attn_out(p, ctx):
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
-def causal_attention(q, k, v):
-    """Causal self-attention over a whole prompt in f32 — what the
-    reference's ``chunked_attention(causal=True)`` computes for prompts up
-    to its 2048-token chunk (one block: running max, exp, sum, then P.V
-    divided by the sum). q: [B, S, H, D]; k, v: [B, S, KVH, D] (GQA by
-    grouping query heads). Returns [B, S, H, D] in q's type."""
-    B, S, H, D = q.shape
-    KVH = k.shape[2]
-    rep = H // KVH
-    qf = q.reshape(B, S, KVH, rep, D).float()
-    s = torch.einsum("bqgrd,bkgd->bgrqk", qf, k.float()) * (1.0 / math.sqrt(D))
-    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-    s = s.masked_fill(~causal, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bgrqk,bkgd->bgrqd", p, v.float())
-    out = acc / l.clamp_min(1e-30)                          # [B,KVH,rep,S,D]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      q_offset: int = 0):
+    """Prefill attention (the reference's ``chunked_attention``, a double
+    ``lax.scan`` computing the flash kernel's function). q: [B, Sq, H, D];
+    k, v: [B, Skv, KVH, D] (GQA by head groups); query i at absolute
+    position ``q_offset + i``. Goes through ``ops.flash_attention``: the
+    CUDA kernel for a CUDA tensor, the plain version for a CPU tensor.
+    Returns [B, Sq, H, D] in q's type."""
+    return KO.flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
@@ -144,3 +132,63 @@ def paged_write(k_pages, v_pages, k_new, v_new, block_tables, seq_lens):
     # advanced indices split by the head slice put the batch dim first
     k_pages[page, :, off] = torch.where(keep3, k_new, torch.zeros_like(k_new))
     v_pages[page, :, off] = torch.where(keep3, v_new, torch.zeros_like(v_new))
+
+
+def chunk_prefill_attention(q, k, v, k_pages, v_pages, block_tables,
+                            prior_len: int):
+    """Attention for one prefill chunk resuming at offset ``prior_len``.
+
+    q: [1, C, H, D] chunk queries (absolute positions prior_len + i);
+    k, v: [1, C, KVH, D] the chunk's own fresh keys and values; k_pages,
+    v_pages: [N, KVH, Pg, D] pools holding this row's positions
+    < prior_len; block_tables: [1, MP] the row's pages in sequence order.
+    ``prior_len`` is a host int (the reference traces it).
+
+    The row's first ceil(prior_len / Pg) pages are gathered into a
+    contiguous [1, prior_len, KVH, D] prefix, the chunk's keys appended,
+    and ``chunked_attention`` runs causally with ``q_offset = prior_len``:
+    query i sees every prior key and chunk keys j <= i — the reference's
+    mask. Pool positions at or past prior_len (null tails, the chunk's own
+    fresh pages, the unwritten rest of an adopted COW page) are never
+    gathered. The caller writes the chunk's KV after this
+    (``paged_write_chunk``). Returns [1, C, H, D]."""
+    B, _, KVH, D = k.shape
+    assert B == 1, "chunked prefill runs one slot at a time"
+    Pg = k_pages.shape[2]
+    n = -(-prior_len // Pg)
+    if n:
+        pages = block_tables[0, :n].long()
+        kp = k_pages[pages].transpose(1, 2).reshape(1, n * Pg, KVH, D)
+        vp = v_pages[pages].transpose(1, 2).reshape(1, n * Pg, KVH, D)
+        k = torch.cat([kp[:, :prior_len], k], dim=1)
+        v = torch.cat([vp[:, :prior_len], v], dim=1)
+    return chunked_attention(q, k, v, causal=True, q_offset=prior_len)
+
+
+def chunk_write_rows(pages, offs, num_pages: int, device) -> torch.Tensor:
+    """Host arrays ``pages``/``offs`` [C] of a chunk's write targets ->
+    int64 [3, n] (chunk position, page, offset) of the rows that write, on
+    ``device``. Rows carrying the sentinel ``num_pages`` (right padding,
+    COW-shared pages) are dropped here on the host, as the reference's
+    ``mode="drop"`` scatter drops them, so page 0 and shared pages are
+    never touched. One copy per chunk (pinned and asynchronous on a card),
+    not one per layer: a copy from pageable host memory synchronises the
+    host with the stream."""
+    pages = np.asarray(pages, np.int64)
+    keep = np.nonzero(pages < num_pages)[0]
+    rows = torch.from_numpy(np.stack(
+        [keep, pages[keep], np.asarray(offs, np.int64)[keep]]))
+    if torch.device(device).type != "cuda":
+        return rows
+    return rows.pin_memory().to(device, non_blocking=True)
+
+
+def paged_write_chunk(k_pages, v_pages, k_new, v_new, rows: torch.Tensor):
+    """Write one chunk's KV into the pools, in place: chunk position
+    ``rows[0, i]`` lands in ``(rows[1, i], rows[2, i])`` (``rows`` from
+    ``chunk_write_rows``; the reference takes the [C] ``pages``/``offs``
+    with drop sentinels). k_new, v_new: [C, KVH, D]."""
+    pos, pg, off = rows
+    # advanced indices split by the head slice put the row dim first
+    k_pages[pg, :, off] = k_new[pos]
+    v_pages[pg, :, off] = v_new[pos]

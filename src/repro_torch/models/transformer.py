@@ -126,15 +126,12 @@ class StackedLM:
         return x + L.swiglu(h, m["wi"], m["wg"], m["wo"])
 
     # -- public: batched right-padded prefill --------------------------------
-    def prefill_at_fn(self, params, batch):
-        """Whole-prompt prefill for paged admission: ``tokens`` [B, S_pad]
-        right-padded, ``prompt_len`` the true length (an int). Causal
-        attention hides the padding; logits are read at ``prompt_len - 1``.
-        Returns (logits [B, V] f32, {"blocks": (k, v)}) with k, v
-        [L, B, KVH, S_pad, D] — only the first ``prompt_len`` positions are
-        meaningful."""
+    def _prefill(self, params, tokens: torch.Tensor):
+        """Every block over right-padded prompts ``tokens`` [B, S], causal
+        attention through ``L.chunked_attention`` (the flash kernel on the
+        card). Returns (x [B, S, d] after the final norm, {"blocks": (k, v)}
+        with k, v [L, B, KVH, S, D])."""
         cfg = self.cfg
-        tokens = batch["tokens"]
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)[None, :]
         x = self.embed(params, tokens)
@@ -143,14 +140,73 @@ class StackedLM:
             p = self._layer(params, l)
             h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
             q, k, v = L.attn_qkv(p["attn"], h, positions, cfg)
-            ctx = L.causal_attention(q, k, v)
+            ctx = L.chunked_attention(q, k, v, causal=True)
             x = x + L.attn_out(p["attn"], ctx)
             x = self._mlp(p, x)
             ks.append(k.transpose(1, 2))
             vs.append(v.transpose(1, 2))
         x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
-        logits = self.logits(params, x[:, int(batch["prompt_len"]) - 1])
-        return logits, {SEGMENT: (torch.stack(ks), torch.stack(vs))}
+        return x, {SEGMENT: (torch.stack(ks), torch.stack(vs))}
+
+    def prefill_at_fn(self, params, batch):
+        """Whole-prompt prefill for paged admission: ``tokens`` [B, S_pad]
+        right-padded, ``prompt_len`` the true length (an int). Causal
+        attention hides the padding; logits are read at ``prompt_len - 1``.
+        Returns (logits [B, V] f32, {"blocks": (k, v)}) with k, v
+        [L, B, KVH, S_pad, D] — only the first ``prompt_len`` positions are
+        meaningful."""
+        x, caches = self._prefill(params, batch["tokens"])
+        return self.logits(params, x[:, int(batch["prompt_len"]) - 1]), caches
+
+    def prefill_packed_fn(self, params, batch):
+        """``prefill_at_fn`` over K prompts at once: ``tokens`` [K, S_pad]
+        holds K right-padded prompts, ``prompt_lens`` (K host ints) their
+        true lengths. Rows never attend to each other and causal attention
+        hides each row's padding, so row b's logits — read at its own
+        ``prompt_lens[b] - 1`` — and cache positions < ``prompt_lens[b]``
+        are those of a solo ``prefill_at_fn`` call at the same bucket."""
+        tokens = batch["tokens"]
+        x, caches = self._prefill(params, tokens)
+        last = torch.as_tensor(batch["prompt_lens"], dtype=torch.long,
+                               device=tokens.device) - 1
+        rows = torch.arange(tokens.shape[0], device=tokens.device)
+        return self.logits(params, x[rows, last]), caches
+
+    # -- public: chunked prefill (resume at an offset, pools carried in) -----
+    def prefill_chunk_fn(self, params, pools, batch):
+        """One prefill chunk against the paged cache: ``tokens`` [1, C] is
+        chunk [offset, offset + chunk_len) of a prompt, right-padded to the
+        engine's chunk size C; ``pools`` ``{"blocks": (k, v)}`` the
+        [L, N, KVH, Pg, D] pools already holding positions < ``offset``
+        (earlier chunks, or adopted COW-shared pages); ``bt_row`` [1, MP]
+        the slot's block table so far; ``pages``/``offs`` [C] host arrays
+        of write targets for the chunk's own KV (the sentinel ``N`` for
+        padding and shared pages). ``offset`` and ``chunk_len`` are host
+        ints. Each block attends over the gathered prefix plus the chunk
+        (``L.chunk_prefill_attention``) and then writes the chunk's KV into
+        its layer of the pools, in place. Returns (f32 logits [1, V] at the
+        chunk's last valid token, the same pools)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        C = tokens.shape[1]
+        offset = int(batch["offset"])
+        positions = offset + torch.arange(C, device=tokens.device)[None, :]
+        k_pool, v_pool = pools[SEGMENT]
+        bt = batch["bt_row"]
+        rows = L.chunk_write_rows(batch["pages"], batch["offs"],
+                                  k_pool.shape[1], tokens.device)
+        x = self.embed(params, tokens)
+        for l in range(cfg.num_layers):
+            p = self._layer(params, l)
+            h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+            q, k, v = L.attn_qkv(p["attn"], h, positions, cfg)
+            ctx = L.chunk_prefill_attention(q, k, v, k_pool[l], v_pool[l], bt,
+                                            offset)
+            L.paged_write_chunk(k_pool[l], v_pool[l], k[0], v[0], rows)
+            x = x + L.attn_out(p["attn"], ctx)
+            x = self._mlp(p, x)
+        x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        return self.logits(params, x[:, int(batch["chunk_len"]) - 1]), pools
 
     # -- public: paged decode ------------------------------------------------
     def decode_blocks(self, params, pools, x: torch.Tensor,

@@ -21,18 +21,24 @@ decisions so that greedy token streams are equal:
   into the prefix index with ``decode_cow``) and ``"reserve"`` (worst case
   at admission, the oracle);
 * bucketed, right-padded whole-prompt admission through ``prefill_at_fn``;
+  ``prefill_pack`` K > 1 admits up to K short queued prompts in one
+  ``prefill_packed_fn`` call, and ``prefill_chunk`` C > 0 streams prompts
+  longer than C in C-token chunks (``prefill_chunk_fn``), at most one chunk
+  per engine step between decode ticks, the slot in the PREFILL state
+  until its last chunk lands;
 * preemption when the pool runs dry: ``"swap"`` gathers the victim's
   private pages, seals them with the ``seal_bits`` kernel into host memory
   and restores them bit for bit at resume with ``unseal_bits``;
   ``"recompute"`` re-prefills prompt + generated tokens (the oracle).
 
-On the card every decode step's attention runs the CUDA paged-attention
-kernel, every stage boundary the CUDA quantizing seal and every swap the
-CUDA page cipher; on the CPU the same calls take the plain PyTorch
-versions. Not in this slice, and refused by name when a config asks for
-them: the legacy timeline layout, chunked and packed prefill, warmup (CUDA
-graphs), sampling at temperature > 0, disaggregated prefill/decode and the
-fault plane (see ROADMAP.md, "Next slices").
+On the card every prefill (one-shot, packed or chunk) runs the CUDA
+flash-attention kernel in every layer, every decode step's attention the
+CUDA paged-attention kernel, every stage boundary the CUDA quantizing seal
+and every swap the CUDA page cipher; on the CPU the same calls take the
+plain PyTorch versions. Not in this slice, and refused by name when a
+config asks for them: the legacy timeline layout, per-token prefill, warmup
+(CUDA graphs), sampling at temperature > 0, disaggregated prefill/decode and
+the fault plane (see ROADMAP.md, "Next slices").
 """
 from __future__ import annotations
 
@@ -90,11 +96,14 @@ class EngineConfig:
     finished_cap: int = 4096
     step_times_cap: int = 4096
     admission_cap: int = 4096
+    prefill_pack: int = 0               # pack up to this many short prompts
+    #                                     into one prefill call (0/1 = off)
+    prefill_chunk: int = 0              # prompts longer than this prefill
+    #                                     in chunks of this many tokens, one
+    #                                     chunk per step (0 = one-shot)
     # reference options of later slices: anything but the default raises
     kv_layout: str = "paged"
     batched_prefill: bool = True
-    prefill_chunk: int = 0
-    prefill_pack: int = 0
     disagg_role: str = ""
     warmup: bool = False
     faults: Any = None
@@ -103,8 +112,6 @@ class EngineConfig:
 _LATER = {
     "kv_layout": ("paged", "the legacy timeline KV layout"),
     "batched_prefill": (True, "per-token prefill"),
-    "prefill_chunk": (0, "chunked prefill"),
-    "prefill_pack": ((0, 1), "packed prefill"),
     "disagg_role": ("", "disaggregated prefill/decode"),
     "warmup": (False, "warmup (CUDA-graph capture)"),
     "faults": (None, "the chaos fault plane"),
@@ -150,6 +157,24 @@ class PagedLocalBackend:
 
     def reset_state(self) -> None:
         self.cache = self.api.init_paged_cache(*self._shape)
+
+    def prefill_chunk(self, toks: np.ndarray, offset: int, chunk_len: int,
+                      bt_row: np.ndarray, pages: np.ndarray,
+                      offs: np.ndarray) -> torch.Tensor:
+        """One prefill chunk against the live pools (``prefill_chunk_fn``):
+        block tables and seq_lens stay as they are, so the slot stays idle
+        in the decode batch until ``commit_slot`` after its last chunk.
+        ``pages``/``offs`` are host arrays (sentinel rows dropped on the
+        host). Returns the logits at the chunk's last valid token."""
+        batch = {"tokens": torch.from_numpy(np.asarray(toks, np.int64)).to(
+                     self.device),
+                 "offset": int(offset), "chunk_len": int(chunk_len),
+                 "bt_row": torch.from_numpy(np.asarray(bt_row, np.int32)).to(
+                     self.device),
+                 "pages": pages, "offs": offs}
+        logits, _ = self.api.prefill_chunk_fn(
+            self.params, {SEGMENT: self.cache[SEGMENT]}, batch)
+        return logits
 
     def _idx(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
@@ -237,8 +262,10 @@ class PagedPipelinedBackend(PagedLocalBackend):
     run one after another on the card, microbatch by microbatch, and every
     stage boundary is sealed with the quantizing seal (``seal_boundary``).
     The pools keep the local backend's ``[L, N, KVH, Pg, D]`` layout — a
-    stage is a range of layers — so admission, forks and the sealed page
-    swap are the local backend's, and a live boundary swap
+    stage is a range of layers — so admission, prefill chunks, forks and
+    the sealed page swap are the local backend's (the reference stages a
+    chunk's pools because its pools are staged; these are not), and a live
+    boundary swap
     (``restage_cache``) moves no pages: block tables, seq_lens and the
     host's refcounts ride along unchanged."""
 
@@ -317,6 +344,27 @@ class EngineEvent:
     detail: Any = None
 
 
+@dataclasses.dataclass
+class _ChunkState:
+    """Host state of one slot's in-flight chunked prefill: the full token
+    sequence being streamed in, the pages acquired so far (the device block
+    table stays unset until the final chunk commits), and the COW ledger —
+    ``registered`` counts pages already frozen into the prefix index (a page
+    is registered only once fully written, so another admission can never
+    adopt a half-prefilled page)."""
+
+    req: Request
+    tokens: List[int]
+    keys: List[tuple]                   # COW prefix keys, one per page
+    t0: float                           # admission wall-clock start
+    pos: int = 0                        # tokens prefilled so far
+    chunks: int = 0
+    pages: List[int] = dataclasses.field(default_factory=list)
+    shared: List[bool] = dataclasses.field(default_factory=list)
+    registered: int = 0
+    logits: Any = None                  # last chunk's logits [1, V]
+
+
 class ServingEngine:
     """Continuous-batching greedy serving over a paged KV cache, planned
     over trust domains.
@@ -349,6 +397,9 @@ class ServingEngine:
             raise ValueError(f"page_policy {cfg.page_policy!r}")
         if cfg.preempt_policy not in ("auto", "swap", "recompute"):
             raise ValueError(f"preempt_policy {cfg.preempt_policy!r}")
+        if cfg.prefill_chunk < 0 or cfg.prefill_pack < 0:
+            raise ValueError(f"prefill_chunk {cfg.prefill_chunk} and "
+                             f"prefill_pack {cfg.prefill_pack} must be >= 0")
         backend = backend or "local"
         if backend not in ("local", "pipelined"):
             raise ValueError(f"backend {backend!r}: 'local' or 'pipelined'")
@@ -416,6 +467,14 @@ class ServingEngine:
         self.admission_ms: Deque[float] = deque(maxlen=cfg.admission_cap)
         self.admissions = 0
         self.prefill_calls = 0
+        # packed prefill: K prompts share one bucketed call
+        self.packed_admissions = 0
+        self.packed_prefills = 0
+        # chunked prefill: slot -> _ChunkState for every admitted request
+        # whose prompt is still streaming in
+        self.chunking: Dict[int, _ChunkState] = {}
+        self.chunked_admissions = 0
+        self.chunk_steps = 0
         self.decode_wall_s = 0.0
         self.events: Deque[EngineEvent] = deque(maxlen=cfg.events_cap)
         self._step_events: List[EngineEvent] = []
@@ -487,8 +546,16 @@ class ServingEngine:
     def _page_budget(self, req: Request) -> Tuple[int, int]:
         """``(need, supply)``: fresh prompt pages + one page of headroom vs
         free + evictable pages, not counting pages this request's own
-        prefix keys are about to adopt."""
-        keys = self._prompt_page_keys(self._prompt_tokens(req))
+        prefix keys are about to adopt. A chunked admission (a prompt
+        longer than ``prefill_chunk``) gates on its first chunk's pages
+        only: later chunks allocate page by page, preempting younger slots
+        when the pool runs dry (the submit-time worst case still guarantees
+        progress)."""
+        tokens = self._prompt_tokens(req)
+        keys = self._prompt_page_keys(tokens)
+        C = self.config.prefill_chunk
+        if C > 0 and len(tokens) > C:
+            keys = keys[:self.pool.pages_needed(C)]
         if self.config.prefix_sharing:
             hit_pages = {self.pool.prefix_index[k] for k in keys
                          if k in self.pool.prefix_index}
@@ -520,6 +587,10 @@ class ServingEngine:
     def _prefill_slot(self, slot: int, req: Request) -> None:
         t0 = time.perf_counter()
         if self.pool.has_swap(req.rid) and self._swap_in(slot, req, t0):
+            return
+        C = self.config.prefill_chunk
+        if C > 0 and len(self._prompt_tokens(req)) > C:
+            self._begin_chunked(slot, req, t0)
             return
         logits, shared = self._prefill_paged(slot, req)
         detail = {"rid": req.rid, "slot": slot,
@@ -585,16 +656,138 @@ class ServingEngine:
                           "prompt_len": P})
         kk, vv = (c[:, 0] for c in caches[SEGMENT])   # [L, KVH, S_pad, D]
         self.prefill_calls += 1
-        Pg, N = self.config.page_size, self.pool.num_pages
-        idx = np.arange(S_pad)
-        page_of = np.minimum(idx, P - 1) // Pg
-        shared_of = np.asarray(shared, bool)[page_of]
-        skip = (idx >= P) | shared_of
-        pages_vec = np.where(skip, N, np.asarray(pages, np.int32)[page_of])
-        offs_vec = np.where(idx < P, idx % Pg, 0)
+        pages_vec, offs_vec = self._write_targets(0, P, S_pad, pages, shared)
         self.backend.insert_slot(slot, (kk, vv), pages_vec, offs_vec, bt_row,
                                  P)
         return logits, int(sum(shared))
+
+    def _write_targets(self, start: int, end: int, width: int,
+                       pages: Sequence[int], shared: Sequence[bool]):
+        """Where each of ``width`` prefilled positions ``start + i`` lands:
+        (page, offset) for ``start + i < end``; positions past ``end``
+        (right padding) and positions in adopted shared pages go to the
+        drop sentinel ``num_pages`` (never page 0: the null page stays
+        all-zero)."""
+        Pg, N = self.config.page_size, self.pool.num_pages
+        idx = np.arange(width)
+        abs_pos = start + idx
+        page_of = np.minimum(abs_pos, end - 1) // Pg
+        skip = (abs_pos >= end) | np.asarray(shared, bool)[page_of]
+        pages_vec = np.where(skip, N, np.asarray(pages, np.int64)[page_of])
+        offs_vec = np.where(abs_pos < end, abs_pos % Pg, 0)
+        return pages_vec, offs_vec
+
+    # -- chunked prefill: stream a long prompt in over many steps ----------
+    def _begin_chunked(self, slot: int, req: Request, t0: float) -> None:
+        """Admit ``req`` into ``slot`` without prefilling: the prompt's KV
+        streams in one chunk per engine step (``_advance_chunks``) between
+        the batch's decode ticks. Until the final chunk commits the block
+        table the device row stays idle (seq_len 0) and the request sits in
+        the PREFILL state: it owns pages and can be preempted, but produces
+        no tokens and takes no decode work."""
+        tokens = self._prompt_tokens(req)
+        cs = _ChunkState(req=req, tokens=tokens,
+                         keys=self._prompt_page_keys(tokens), t0=t0)
+        if self.config.page_policy == "reserve":
+            need = self.pool.pages_needed(len(req.prompt)
+                                          + req.max_new_tokens)
+            pages = self.pool.alloc(need)
+            assert pages is not None, "gated by _fits"
+            cs.pages, cs.shared = pages, [False] * need
+        self.slot_pages[slot] = cs.pages
+        self.slot_len[slot] = 0
+        self.chunking[slot] = cs
+        self.scheduler.mark_prefill(slot)
+        self._emit("chunk_admit",
+                   {"rid": req.rid, "slot": slot, "prompt": len(tokens),
+                    "chunk": self.config.prefill_chunk})
+
+    def _advance_chunks(self) -> None:
+        """One chunk of ONE in-flight prompt per engine step (oldest rid
+        first), scheduled before the decode tick."""
+        if not self.chunking:
+            return
+        slot = min(self.chunking, key=lambda s: self.chunking[s].req.rid)
+        cs = self.chunking[slot]
+        self._run_chunk(slot, cs)
+        # _run_chunk may have preempted the slot mid-acquisition
+        if slot in self.chunking and cs.pos == len(cs.tokens):
+            self._finish_chunked(slot, cs)
+
+    def _run_chunk(self, slot: int, cs: _ChunkState) -> None:
+        cfg = self.config
+        req = cs.req
+        C, Pg = cfg.prefill_chunk, cfg.page_size
+        P, pos = len(cs.tokens), cs.pos
+        end = min(pos + C, P)
+        if cfg.page_policy == "demand":
+            # pages covering [0, end): COW index hits adopt the frozen page;
+            # misses allocate, preempting the youngest slot when the pool
+            # runs dry — possibly this one
+            while len(cs.pages) * Pg < end:
+                i = len(cs.pages)
+                pg, sh = None, False
+                if cfg.prefix_sharing:
+                    pg = self.pool.lookup_prefix(cs.keys[i])
+                    sh = pg is not None
+                if pg is None:
+                    pg = self._alloc_or_preempt(req)
+                    if pg is None:
+                        return          # req itself was preempted; requeued
+                cs.pages.append(pg)     # slot_pages aliases this list
+                cs.shared.append(sh)
+        Cp = end - pos
+        toks = np.zeros((1, C), np.int64)
+        toks[0, :Cp] = cs.tokens[pos:end]
+        pages_vec, offs_vec = self._write_targets(pos, end, C, cs.pages,
+                                                  cs.shared)
+        bt_row = np.zeros((1, self.pages_per_slot), np.int32)
+        bt_row[0, :len(cs.pages)] = cs.pages
+        cs.logits = self.backend.prefill_chunk(toks, pos, Cp, bt_row,
+                                               pages_vec, offs_vec)
+        self.prefill_calls += 1
+        self.chunk_steps += 1
+        cs.pos, cs.chunks = end, cs.chunks + 1
+        if cfg.page_policy == "demand" and cfg.prefix_sharing:
+            # freeze pages into the COW index only once fully written: a
+            # half-prefilled page must never be adoptable
+            while cs.registered < len(cs.pages):
+                i = cs.registered
+                if cs.pos < min((i + 1) * Pg, P):
+                    break
+                if not cs.shared[i]:
+                    self.pool.register_prefix(cs.keys[i], cs.pages[i])
+                cs.registered += 1
+        self._emit("chunk", {"rid": req.rid, "slot": slot, "pos": cs.pos,
+                             "of": P})
+
+    def _finish_chunked(self, slot: int, cs: _ChunkState) -> None:
+        """Last chunk landed: commit the block table and seq_len (the row
+        joins the decode batch), sample the first token from the final
+        chunk's logits — the position one-shot prefill reads — and flip
+        the request to RUNNING."""
+        req = cs.req
+        P = len(cs.tokens)
+        bt_row = np.zeros(self.pages_per_slot, np.int32)
+        bt_row[:len(cs.pages)] = cs.pages
+        self.backend.commit_slot(slot, bt_row, P)
+        self.slot_len[slot] = P
+        del self.chunking[slot]
+        self.scheduler.mark_running(slot)
+        first = self.sampler.sample_one(cs.logits, req.rid,
+                                        len(req.generated))
+        self.pending[slot] = first
+        ms = (time.perf_counter() - cs.t0) * 1e3
+        self.admission_ms.append(ms)
+        self.admissions += 1
+        self.chunked_admissions += 1
+        self._emit("admit", {"rid": req.rid, "slot": slot,
+                             "pages": len(cs.pages),
+                             "shared": int(sum(cs.shared)),
+                             "chunks": cs.chunks, "ms": ms})
+        fin = self.scheduler.on_token(slot, first, step=self.steps)
+        if fin is not None:
+            self._on_finish(fin)
 
     def _on_finish(self, fin: Request) -> None:
         self._emit("finish", {"rid": fin.rid, "by": fin.finished_by})
@@ -607,22 +800,31 @@ class ServingEngine:
     def _preempt(self, slot: int, req: Request) -> None:
         """Evict ``req`` to reclaim pages: sealed swap of its private pages
         (``"swap"``), or drop its KV for a teacher-forced re-prefill
-        (``"recompute"``). Either way it goes to the front of the queue
-        and its resumed stream is bit-identical."""
+        (``"recompute"``, and always for a victim still mid-chunked-
+        prefill). Either way it goes to the front of the queue and its
+        resumed stream is bit-identical."""
         if (self.preempt_policy == "swap"
                 and self.config.page_policy == "demand"
-                and req.status == RUNNING):
+                and req.status == RUNNING and slot not in self.chunking):
             self._preempt_swap(slot, req)
             return
         req.preemptions += 1
         self.preemptions += 1
+        cs = self.chunking.pop(slot, None)
         self.pool.release(self.slot_pages.pop(slot))
         self.slot_len.pop(slot)
         self.backend.clear_slot(slot)
         self.scheduler.preempt(slot)
         self.pending[slot] = 0
-        self._emit("preempt", {"rid": req.rid, "slot": slot,
-                               "generated": len(req.generated)})
+        detail = {"rid": req.rid, "slot": slot,
+                  "generated": len(req.generated)}
+        if cs is not None:
+            # mid-chunked-prefill eviction: the KV written so far goes with
+            # the pages; re-admission restarts from token 0 (registered
+            # prefix pages survive in the COW index and are adopted back)
+            detail["mid_prefill"] = True
+            detail["prefilled"] = cs.pos
+        self._emit("preempt", detail)
 
     def _preempt_swap(self, slot: int, req: Request) -> None:
         """Seal the slot's private pages (refcount 1) to host memory with
@@ -730,8 +932,9 @@ class ServingEngine:
         manifests' pins and the evictable prefix index hold them. Drop
         manifests youngest-first (the head's own last) until the head
         fits; each dropped request reverts to the recompute path."""
-        if self.scheduler.active() or not self.pool.swap_manifest:
-            return False
+        if self.scheduler.active() or self.chunking \
+                or not self.pool.swap_manifest:
+            return False                # completions can still free pages
         while not self._fits(nxt) and self.pool.swap_manifest:
             others = sorted(r for r in self.pool.swap_manifest
                             if r != nxt.rid)
@@ -763,11 +966,12 @@ class ServingEngine:
         """Before each decode step, back every decoding slot's next write
         position with a private page: grow the table when the position
         enters a new page, fork the page first when it is shared. Oldest
-        request first, so the youngest is preempted first."""
+        request first, so the youngest is preempted first. PREFILL slots
+        are skipped: their chunks acquire their own pages."""
         if self.config.page_policy != "demand":
             return
         Pg = self.config.page_size
-        for slot, req in sorted(self.scheduler.active(),
+        for slot, req in sorted(self.scheduler.decoding(),
                                 key=lambda t: t[1].rid):
             if self.scheduler.slots[slot] is not req:
                 continue                 # preempted earlier in this pass
@@ -807,17 +1011,106 @@ class ServingEngine:
                                {"rid": nxt.rid, "waiting_on": "pages"})
                 return
             self._blocked_rid = None
+            if self.config.prefill_pack > 1 and self._packable(nxt):
+                self._admit_packed()
+                continue
             hit = self.scheduler.admit_next(step=self.steps)
             assert hit is not None
             self._prefill_slot(*hit)
+
+    # -- packed prefill: several short prompts in one call -----------------
+    def _packable(self, req: Request) -> bool:
+        """Can ``req`` join a packed prefill group? One-shot admissions
+        only: a swap resume restores KV instead of prefilling, and chunked
+        prompts stream over steps."""
+        if self.pool.has_swap(req.rid):
+            return False
+        C = self.config.prefill_chunk
+        return not (C > 0 and len(self._prompt_tokens(req)) > C)
+
+    def _admit_packed(self) -> None:
+        """Greedily admit up to ``prefill_pack`` packable queued requests,
+        acquiring each one's pages as it joins (so the next mate's ``_fits``
+        sees the pool its own allocation will find), then prefill the group
+        in one bucketed call."""
+        t0 = time.perf_counter()
+        group = []
+        while len(group) < self.config.prefill_pack:
+            nxt = self.scheduler.peek()
+            if nxt is None or not self._packable(nxt) \
+                    or not self._fits(nxt):
+                break
+            slot, req = self.scheduler.admit_next(step=self.steps)
+            tokens = self._prompt_tokens(req)
+            pages, shared = self._acquire_pages(req)
+            self.slot_pages[slot] = pages
+            self.slot_len[slot] = len(tokens)
+            group.append((slot, req, tokens, pages, shared))
+        assert group, "caller verified the head fits and is packable"
+        self._prefill_packed(group, t0)
+
+    def _prefill_packed(self, group, t0: float) -> None:
+        """One bucketed prefill over the group: tokens padded to
+        [K, S_pad] (K = prefill_pack always — dummy rows of length 1 keep
+        one shape per bucket, as the reference compiles one), logits read
+        per row at each prompt's own last position, KV written per slot
+        with the one-shot admission's drop-sentinel rule. Rows are
+        independent, so each row's stream is its solo admission's."""
+        K = self.config.prefill_pack
+        S_pad = self._bucket(max(len(t) for _, _, t, _, _ in group))
+        toks = np.zeros((K, S_pad), np.int64)
+        plens = np.ones(K, np.int64)    # dummy rows read position 0
+        for b, (_, _, tokens, _, _) in enumerate(group):
+            toks[b, :len(tokens)] = tokens
+            plens[b] = len(tokens)
+        logits, caches = self.api.prefill_packed_fn(
+            self.params, {"tokens": torch.from_numpy(toks).to(self.device),
+                          "prompt_lens": plens})
+        kk_all, vv_all = caches[SEGMENT]    # [L, K, KVH, S_pad, D]
+        self.prefill_calls += 1
+        self.packed_prefills += 1
+        for b, (slot, req, tokens, pages, shared) in enumerate(group):
+            P = len(tokens)
+            bt_row = np.zeros(self.pages_per_slot, np.int32)
+            bt_row[:len(pages)] = pages
+            pages_vec, offs_vec = self._write_targets(0, P, S_pad, pages,
+                                                      shared)
+            self.backend.insert_slot(slot, (kk_all[:, b], vv_all[:, b]),
+                                     pages_vec, offs_vec, bt_row, P)
+            first = self.sampler.sample_one(logits[b:b + 1], req.rid,
+                                            len(req.generated))
+            self.pending[slot] = first
+            ms = (time.perf_counter() - t0) * 1e3
+            self.admission_ms.append(ms)
+            self.admissions += 1
+            self.packed_admissions += 1
+            detail = {"rid": req.rid, "slot": slot, "pages": len(pages),
+                      "shared": int(sum(shared)), "packed": len(group),
+                      "ms": ms}
+            if req.generated:
+                detail["resumed_at"] = len(req.generated)
+            self._emit("admit", detail)
+            fin = self.scheduler.on_token(slot, first, step=self.steps)
+            if fin is not None:
+                self._on_finish(fin)
 
     # -- one decode step ---------------------------------------------------
     def step(self) -> List[EngineEvent]:
         self._step_events = []
         self._admit()
+        # chunked prefill: at most one prompt chunk per engine step, ahead
+        # of the decode tick, so batch-mates keep emitting tokens while a
+        # long prompt fills in
+        self._advance_chunks()
         self._grow_active()
-        active = self.scheduler.active()
+        active = self.scheduler.decoding()
         if not active:
+            if self.chunking:
+                # chunk-only step: prefill progressed, nothing decodes yet
+                self.steps += 1
+                self.stalled = False
+                self.stall_reason = None
+                return self._step_events
             # head-of-line blocked with nothing running: permanent unless a
             # swap manifest still pins pages the breaker can release
             recoverable = bool(self.pool.swap_manifest)
@@ -948,6 +1241,12 @@ class ServingEngine:
             "tok_per_s": (out["tokens_out"] / wall) if wall > 0 else 0.0,
             "prefill_calls": self.prefill_calls,
             "admissions": self.admissions,
+            "prefill_pack": self.config.prefill_pack,
+            "packed_admissions": self.packed_admissions,
+            "packed_prefills": self.packed_prefills,
+            "prefill_chunk": self.config.prefill_chunk,
+            "chunked_admissions": self.chunked_admissions,
+            "prefill_chunks": self.chunk_steps,
             "stalled": self.stalled,
             "stall_reason": self.stall_reason,
             "page_size": self.config.page_size,

@@ -24,6 +24,7 @@ from collections import OrderedDict, deque
 from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 QUEUED = "queued"
+PREFILL = "prefill"          # admitted to a slot, prompt chunking in flight
 RUNNING = "running"
 SWAPPED = "swapped"          # preempted with KV sealed to the host swap tier
 DONE = "done"
@@ -113,9 +114,28 @@ class SlotScheduler:
 
     # -- decode-step bookkeeping ------------------------------------------
     def active(self) -> List[Tuple[int, Request]]:
-        """Every occupied slot. (Chunked prefill, a later slice, adds slots
-        that are occupied but not decoding yet.)"""
+        """Every occupied slot — RUNNING decoders and PREFILL (mid-chunk)
+        admissions alike (preemption victim selection spans both)."""
         return [(i, r) for i, r in enumerate(self.slots) if r is not None]
+
+    def decoding(self) -> List[Tuple[int, Request]]:
+        """Slots actually decoding this step (excludes PREFILL slots whose
+        prompt is still chunking in — they produce no tokens yet)."""
+        return [(i, r) for i, r in enumerate(self.slots)
+                if r is not None and r.status == RUNNING]
+
+    def mark_prefill(self, slot: int) -> None:
+        """Flag an admitted request as mid-chunked-prefill: it occupies the
+        slot (pages, preemption priority) but is not decoding yet."""
+        req = self.slots[slot]
+        assert req is not None and req.status == RUNNING, (slot, req)
+        req.status = PREFILL
+
+    def mark_running(self, slot: int) -> None:
+        """Chunked prefill complete: the slot joins the decode batch."""
+        req = self.slots[slot]
+        assert req is not None and req.status == PREFILL, (slot, req)
+        req.status = RUNNING
 
     def on_token(self, slot: int, token: int, step: int = -1
                  ) -> Optional[Request]:
@@ -144,7 +164,7 @@ class SlotScheduler:
         return req
 
     def preempt(self, slot: int, swapped: bool = False) -> Request:
-        """Evict a RUNNING request back to the *front* of
+        """Evict a RUNNING (or mid-PREFILL) request back to the *front* of
         the queue (it was admitted before anything still queued, so FIFO
         order by rid is preserved). The request keeps its generated tokens.
 
@@ -156,7 +176,8 @@ class SlotScheduler:
         pages (O(pages) transfer) instead of re-prefilling (O(tokens)
         recompute)."""
         req = self.slots[slot]
-        assert req is not None and req.status == RUNNING, (slot, req)
+        assert req is not None and req.status in (RUNNING, PREFILL), \
+            (slot, req)
         req.status = SWAPPED if swapped else QUEUED
         req.slot = None
         self.slots[slot] = None
@@ -179,7 +200,7 @@ class SlotScheduler:
         assert occupied | free == set(range(self.num_slots)), (occupied, free)
         for i, r in enumerate(self.slots):
             if r is not None:
-                assert r.slot == i and r.status == RUNNING, (i, r)
+                assert r.slot == i and r.status in (RUNNING, PREFILL), (i, r)
 
     def stats(self) -> Dict[str, float]:
         # lifetime aggregates, not the (possibly capped) finished deque

@@ -185,8 +185,16 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert torch.equal(q, wq) and torch.equal(s, ws)
     assert torch.equal(ops.unseal(q, s, 5, 6, torch.float32),
                        ref.unseal_ref(q, s, 5, 6, torch.float32))
+    qa, ka, va = torch.randn(1, 9, 4, 16), torch.randn(1, 12, 2, 16), \
+        torch.randn(1, 12, 2, 16)
+    want = ref.flash_attention_ref(
+        qa.transpose(1, 2), ka.repeat_interleave(2, 2).transpose(1, 2),
+        va.repeat_interleave(2, 2).transpose(1, 2), q_offset=3)
+    assert torch.equal(ops.flash_attention(qa, ka, va, q_offset=3),
+                       want.transpose(1, 2))
     assert ops.LAUNCHES == {"paged_attention": 0, "seal_bits": 0,
-                            "unseal_bits": 0, "seal": 0, "unseal": 0}
+                            "unseal_bits": 0, "seal": 0, "unseal": 0,
+                            "flash_attention": 0}
 
 
 def test_cipher_rejects_wrong_types():

@@ -143,8 +143,8 @@ def test_causal_attention_matches_chunked_attention():
     v = rng.randn(2, 12, 2, 16).astype(np.float32)
     want = np.asarray(JL.chunked_attention(jnp.asarray(q), jnp.asarray(k),
                                            jnp.asarray(v), causal=True))
-    got = TL.causal_attention(torch.from_numpy(q), torch.from_numpy(k),
-                              torch.from_numpy(v)).numpy()
+    got = TL.chunked_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), causal=True).numpy()
     np.testing.assert_allclose(got, want, **TOL)
 
 

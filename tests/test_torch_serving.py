@@ -154,8 +154,7 @@ def test_tampered_swap_payload_falls_back_to_recompute(port):
 
 def test_later_slice_options_raise_by_name(port):
     tapi, tparams = port
-    for kw in (dict(prefill_chunk=8), dict(prefill_pack=2),
-               dict(kv_layout="timeline"), dict(disagg_role="decode"),
+    for kw in (dict(kv_layout="timeline"), dict(disagg_role="decode"),
                dict(warmup=True), dict(faults=object()),
                dict(batched_prefill=False), dict(temperature=0.7)):
         with pytest.raises(NotImplementedError):
