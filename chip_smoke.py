@@ -5,19 +5,25 @@
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-     sm_90a, one process per source in parallel);
+     sm_90a, one process per source in parallel); the flash library's SASS
+     must hold HGMMA (wgmma) instructions, and neither attention kernel
+     may spill registers;
   2. hold every kernel against its plain PyTorch version on the card at the
-     serving path's shapes (paged attention: bf16 pools, 8 rows, 8 KV heads,
-     rep 4, head_dim 64, page 16, ragged seq_lens with an idle row, shared
-     pages; page cipher: [pages_per_slot, 131072] f32 and bf16, bit-exact;
-     quantizing seal: the stage boundary's [4, 2048] in bf16 and f32 plus
-     the reference's test shapes, cipher bytes equal but for rounding ties,
-     scales equal, unseal bit-equal; prefill attention: the reference's
-     grid, ragged lengths, head_dim 128, GQA rep 4 and the one-shot, packed
-     and chunk shapes of full-width llama, f32 and bf16);
+     serving path's shapes (paged attention: bf16 and f32 pools, 8 rows, 8
+     KV heads, rep 4, head_dim 64, page 16, tables of 10 and 34 pages,
+     ragged seq_lens with an idle row, shared pages; page cipher:
+     [pages_per_slot, 131072] f32 and bf16, bit-exact; quantizing seal:
+     the stage boundary's [4, 2048] in bf16 and f32 plus the reference's
+     test shapes, cipher bytes equal but for rounding ties, scales equal,
+     unseal bit-equal; prefill attention: the reference's grid, ragged
+     lengths, head_dim 128, GQA rep 4, the one-shot, packed and chunk
+     shapes of full-width llama and short chunks late in a long prompt,
+     f32 and bf16); both attention kernels must repeat their bits on a
+     second call;
   3. time each kernel, its plain version, one PyTorch library call of the
      same function where one exists, and compute the least time the card
-     could take (prefill attention at its three path shapes, in bf16);
+     could take (prefill attention at its three path shapes, paged
+     attention at the short and the long decode shape, in bf16);
   4. check the whole serving path on a small input: reduced llama3.2-1b in
      f32 serves the same greedy streams on the card as on the CPU, through
      the local backend and through the pipelined backend (sealed stage
@@ -115,8 +121,34 @@ def bound(bytes_moved: float, *work):
 
 
 # ---------------------------------------------------------------------------
+def check_redesigned_build(build):
+    """The bf16 flash kernel must run on the tensor cores: its library's
+    SASS holds HGMMA (wgmma) instructions. Neither attention kernel may
+    spill registers."""
+    import re
+    for name in ("flash_attention", "paged_attention"):
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill",
+                                             build.BUILD_LOG.get(name, ""))]
+        assert spills and not any(spills), f"{name}: register spills {spills}"
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "--dump-sass",
+                           str(build._target("flash_attention"))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    log(f"  flash_attention SASS: {hgmma} HGMMA instructions; no spills in "
+        f"the attention kernels")
+    assert hgmma > 0, "the bf16 flash kernel is not on the tensor cores"
+
+
+# paged attention shapes: phase 5's decode (128-token prompts, MP = 10)
+# and phase 7's (512-token prompts + 32 new tokens: MP = 34 over 116 pages)
+PAGED_SHORT = dict(MP=10, N=30)
+PAGED_LONG = dict(MP=34, N=116, seq_lens=(544, 0, 1, 16, 17, 300, 543, 129))
+
+
 def paged_inputs(torch, dtype, B=8, KVH=8, rep=4, D=64, Pg=16, MP=10, N=30,
-                 seed=0):
+                 seed=0, seq_lens=None):
     """Serving-shaped paged-attention inputs: ragged seq_lens with an idle
     row, random tables that alias pages across rows, and one row whose
     table repeats another's prefix (copy-on-write sharing)."""
@@ -127,8 +159,9 @@ def paged_inputs(torch, dtype, B=8, KVH=8, rep=4, D=64, Pg=16, MP=10, N=30,
     v = torch.from_numpy(rng.randn(N, KVH, Pg, D).astype(np.float32))
     k[0] = 0
     v[0] = 0
-    sl = np.array([MP * Pg, 0, 1, 17, 100, 128, MP * Pg - 1, 64], np.int32)
-    sl = sl[:B]
+    if seq_lens is None:
+        seq_lens = (MP * Pg, 0, 1, 17, 100, 128, MP * Pg - 1, 64)
+    sl = np.array(seq_lens, np.int32)[:B]
     bt = rng.randint(1, N, size=(B, MP)).astype(np.int32)
     bt[5, :4] = bt[4, :4]                          # shared prefix pages
     bt[1] = 0                                      # idle row: null table
@@ -140,29 +173,41 @@ def paged_inputs(torch, dtype, B=8, KVH=8, rep=4, D=64, Pg=16, MP=10, N=30,
 
 
 def check_paged_attention(torch, ops, ref):
-    """Kernel vs plain version on the card. Rows with seq_len > 0 must
-    agree: bf16 within atol 1e-3 + rtol 1e-2 (both sides accumulate in f32
-    and round once to bf16, whose spacing is 2**-8..2**-7 of the value, so
-    they may land one bf16 step apart), f32 within atol = rtol = 3e-5.
-    Idle rows: the kernel writes zeros (the engine ignores them), the plain
-    version the reference's uniform mean; both must be finite."""
+    """Kernel vs plain version on the card, at the short and the long
+    decode shape (the long one's seq_lens 0, 1, 16, 17 and MP * Pg leave
+    splits past a row's length). Rows with seq_len > 0 must agree: bf16
+    within atol 1e-3 + rtol 1e-2 (both sides accumulate in f32 and round
+    once to bf16, whose spacing is 2**-8..2**-7 of the value, so they may
+    land one bf16 step apart), f32 within atol = rtol = 3e-5. Idle rows:
+    the kernel writes zeros (the engine ignores them), the plain version
+    the reference's uniform mean; both must be finite. A second call must
+    give the same bits (splits merge in split order). Returns the largest
+    error per type at the short shape."""
     results = {}
     for dtype, tol in ((torch.bfloat16, dict(atol=1e-3, rtol=1e-2)),
                        (torch.float32, dict(atol=3e-5, rtol=3e-5))):
-        q, k, v, bt, sl = paged_inputs(torch, dtype)
-        got = ops.paged_attention(q, k, v, bt, sl)
-        want = ref.paged_attention_ref(q, k, v, bt, sl)
-        torch.cuda.synchronize()
-        live = sl > 0
-        assert torch.isfinite(got.float()).all() and \
-            torch.isfinite(want.float()).all()
-        assert not got[~live].float().any(), "idle rows must be zero"
-        err = (got[live].float() - want[live].float()).abs().max().item()
-        torch.testing.assert_close(got[live].float(), want[live].float(),
-                                   **tol)
-        results[str(dtype)] = err
-        log(f"check paged_attention {dtype}: max_abs_err={err:.3e} "
-            f"({tol}) rows={int(live.sum())} live + {int((~live).sum())} idle")
+        for name, shape in (("short", PAGED_SHORT), ("long", PAGED_LONG)):
+            q, k, v, bt, sl = paged_inputs(torch, dtype, **shape)
+            got = ops.paged_attention(q, k, v, bt, sl)
+            again = ops.paged_attention(q, k, v, bt, sl)
+            want = ref.paged_attention_ref(q, k, v, bt, sl)
+            torch.cuda.synchronize()
+            live = sl > 0
+            assert torch.isfinite(got.float()).all() and \
+                torch.isfinite(want.float()).all()
+            assert torch.equal(got, again), "repeated call not bit-equal"
+            assert not got[~live].float().any(), "idle rows must be zero"
+            err = (got[live].float() - want[live].float()).abs().max().item()
+            torch.testing.assert_close(got[live].float(), want[live].float(),
+                                       **tol)
+            if name == "short":
+                results[str(dtype)] = err
+            splits = ops._page_splits(q.shape[0], k.shape[1], bt.shape[1],
+                                      ops._sm_count(q.device))
+            log(f"check paged_attention {dtype} {name} (MP={bt.shape[1]}, "
+                f"{splits} splits): max_abs_err={err:.3e} ({tol}) rows="
+                f"{int(live.sum())} live + {int((~live).sum())} idle, "
+                f"repeat bit-equal")
     return results
 
 
@@ -236,7 +281,10 @@ FLASH_CASES = ([(B, S, S, H, H, D, int(c), w, 0) for B, H, S, D, w, c in (
     + [(2, 77, 77, 4, 2, 64, 1, 0, 0), (1, 1, 1, 4, 1, 64, 1, 0, 0),
        (1, 100, 100, 8, 2, 128, 1, 0, 0), (2, 96, 96, 16, 4, 64, 1, 0, 0),
        (1, 8, 45, 4, 2, 64, 1, 0, 37)]
-    + list(FLASH_PATH.values()))
+    + list(FLASH_PATH.values())
+    # short chunks late in a long prompt, one windowed: few query tiles
+    + [(1, 64, 512, 32, 8, 64, 1, 0, 448), (1, 48, 400, 8, 2, 64, 1, 100, 352),
+       (1, 40, 300, 4, 2, 128, 1, 64, 260)])
 
 
 def flash_inputs(torch, case, dtype, seed=4):
@@ -260,9 +308,12 @@ def flash_plain(ref, q, k, v, causal=True, window=0, q_offset=0):
 def check_flash_attention(torch, ops, ref):
     """Prefill attention kernel vs plain version on the card: f32 within
     atol = rtol = 3e-5 (sums in another order), bf16 within atol 1e-3 +
-    rtol 1e-2 (both sides accumulate in f32 and round once to bf16, whose
-    spacing is 2**-8..2**-7 of the value, so they may land one bf16 step
-    apart). Returns the largest bf16 error at each path shape."""
+    rtol 1e-2 (both sides accumulate in f32 and round the output once to
+    bf16, whose spacing is 2**-8..2**-7 of the value, so they may land one
+    bf16 step apart; the kernel feeds P to P.V as two bf16 parts, hi + lo,
+    which keep about 16 bits, so the output's one rounding is what the
+    tolerance covers). A second call must give the same bits. Returns the
+    largest bf16 error at each path shape."""
     errs = {}
     for dtype, tol in ((torch.float32, dict(atol=3e-5, rtol=3e-5)),
                        (torch.bfloat16, dict(atol=1e-3, rtol=1e-2))):
@@ -272,9 +323,12 @@ def check_flash_attention(torch, ops, ref):
             q, k, v = flash_inputs(torch, case, dtype)
             got = ops.flash_attention(q, k, v, causal=causal, window=window,
                                       q_offset=off)
+            again = ops.flash_attention(q, k, v, causal=causal,
+                                        window=window, q_offset=off)
             want = flash_plain(ref, q, k, v, causal, window, off)
             torch.cuda.synchronize()
             assert torch.isfinite(got.float()).all(), case
+            assert torch.equal(got, again), f"{case}: repeat not bit-equal"
             err = (got.float() - want.float()).abs().max().item()
             torch.testing.assert_close(got.float(), want.float(), **tol,
                                        msg=lambda m: f"{case}: {m}")
@@ -283,7 +337,7 @@ def check_flash_attention(torch, ops, ref):
                 if shape == case and dtype == torch.bfloat16:
                     errs[name] = err
         log(f"check flash_attention {dtype}: {len(FLASH_CASES)} cases, "
-            f"max_abs_err={worst:.3e} ({tol})")
+            f"max_abs_err={worst:.3e} ({tol}), repeats bit-equal")
     return errs
 
 
@@ -339,11 +393,10 @@ def time_flash(torch, ops, ref, F):
     return out
 
 
-def time_kernels(torch, ops, ref, sealing, F):
-    """ms of each kernel, its plain version and a library call, at the
-    checked shapes, plus the bound."""
-    out = {}
-    q, k, v, bt, sl = paged_inputs(torch, torch.bfloat16)
+def time_paged(torch, ops, ref, F, shape):
+    """ms of the paged decode kernel, its plain version and SDPA over K/V
+    gathered beforehand, in bf16, with the bound."""
+    q, k, v, bt, sl = paged_inputs(torch, torch.bfloat16, **shape)
     B, H, D = q.shape
     N, KVH, Pg, _ = k.shape
     MP = bt.shape[1]
@@ -373,13 +426,22 @@ def time_kernels(torch, ops, ref, sealing, F):
     nbytes = kv_bytes + 2 * q.numel() * esz + bt.numel() * 4 + sl.numel() * 4
     flops = 4.0 * H * D * float(sl.clamp_min(0).sum().item())
     b_ms, b_by = bound(nbytes, flops, F32_FLOP_PER_S)
-    out["paged_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                  bound_ms=b_ms, bound_by=b_by,
-                                  bytes=nbytes, flops=flops)
+    res = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+               bound_by=b_by, bytes=nbytes, flops=flops)
     log(f"time paged_attention bf16 B={B} KVH={KVH} rep={rep} D={D} Pg={Pg} "
-        f"MP={MP}: kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
-        f"sdpa {lib * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}, "
+        f"MP={MP} N={N}: kernel {ms * 1e3:.2f} us, plain "
+        f"{plain * 1e3:.1f} us, sdpa {lib * 1e3:.2f} us, bound "
+        f"{b_ms * 1e3:.3f} us ({b_by}, "
         f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
+    return res
+
+
+def time_kernels(torch, ops, ref, sealing, F):
+    """ms of each kernel, its plain version and a library call, at the
+    checked shapes, plus the bound."""
+    out = {"paged_attention": time_paged(torch, ops, ref, F, PAGED_SHORT),
+           "paged_attention long": time_paged(torch, ops, ref, F,
+                                              PAGED_LONG)}
 
     g = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn(10, 131072, generator=g, device="cuda").to(torch.bfloat16)
@@ -730,6 +792,7 @@ def main() -> int:
         for line in build.BUILD_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    check_redesigned_build(build)
 
     # phase 2: kernels vs plain versions
     pa_err = check_paged_attention(torch, ops, ref)

@@ -35,8 +35,7 @@ _P, _I, _U, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
 # c_void_p, or ctypes would pass them as 32-bit ints
 SIGNATURES = {
     "paged_attention": ("paged_attention", "repro_paged_attention",
-                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _I, _P]),
+                        [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P]),
     "seal_bits": ("seal_bits", "repro_bits_xor",
                   [_P, _P, _LL, _U, _U, _I, _I, _P]),
     "seal_q8": ("seal_q8", "repro_seal_q8", [_P, _P, _P, _I, _I, _U, _U, _I,

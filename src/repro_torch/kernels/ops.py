@@ -47,6 +47,67 @@ def _launch_failed(name: str, rc: int) -> RuntimeError:
                         f"(cudaError_t {rc})")
 
 
+def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """The attention kernels copy 16 bytes at a time (cp.async)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the CUDA kernel takes tensors that "
+                             f"start on a 16-byte boundary")
+
+
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _split_scratch(name: str, device: torch.device, rows: int, D: int,
+                   tiles: int):
+    """What a split launch needs: f32 (m, l) and acc [rows, D] for the
+    parts' partial rows, and int32 counters, one per merged tile. The
+    counters are zeros kept between calls, one buffer per kernel, device
+    and stream: the last part of a tile resets its counter, so the buffer
+    is zero again after each launch. Launches on one stream run in order,
+    so they never share counters while in flight; two launches that could
+    overlap on one stream's buffer (two captured CUDA graphs replayed on
+    different streams) would need a buffer each."""
+    key = (name, device, _stream(device))
+    ctr = _COUNTERS.get(key)
+    if ctr is None or ctr.numel() < tiles:
+        ctr = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = ctr
+    return (torch.empty(rows * 2, dtype=torch.float32, device=device),
+            torch.empty(rows * D, dtype=torch.float32, device=device), ctr)
+
+
+def _pointers(tensors) -> list:
+    """Data pointers, 0 (NULL) for None."""
+    return [0 if t is None else t.data_ptr() for t in tensors]
+
+
+# ---------------------------------------------------------------------------
+# Split plan of the paged decode kernel (plain Python, shared by the
+# wrapper and the CPU tests of the merge rule)
+# ---------------------------------------------------------------------------
+def _page_splits(B: int, KVH: int, MP: int, sms: int) -> int:
+    """Page splits per (row, KV head) of the paged kernel: enough for eight
+    blocks per SM (small blocks, many resident; a split's pages are a
+    chain of dependent rounds, so shorter chains finish sooner), none
+    covering fewer than two of the table's MP pages, at most 32 (one
+    merging lane each)."""
+    return max(1, min(-(-8 * sms // (B * KVH)), MP // 2, 32))
+
+
+def _page_part(split: int, splits: int, MP: int, seq_len: int, Pg: int):
+    """Table pages [p0, p1) that split ``split`` reads for a row of length
+    ``seq_len`` (the kernel's rule); empty when p0 >= p1."""
+    per = -(-MP // splits)
+    live = min(-(-seq_len // Pg), MP) if seq_len > 0 else 0
+    p0 = split * per
+    return p0, max(p0, min(live, p0 + per))
+
+
 # ---------------------------------------------------------------------------
 # Quantizing activation seal (stage boundaries)
 # ---------------------------------------------------------------------------
@@ -157,7 +218,7 @@ def unseal_bits(cipher: torch.Tensor, key: int, counter: int,
 # ---------------------------------------------------------------------------
 _PAGED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGED_HEAD_DIMS = (16, 32, 64, 128)
-_STATIC_SMEM_LIMIT = 48 * 1024      # the kernel asks for no opt-in beyond it
+_SMEM_LIMIT = 227 * 1024            # a block's shared memory on sm_90
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
@@ -193,20 +254,26 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
                          f"tables {tuple(block_tables.shape)}, seq_lens "
                          f"{tuple(seq_lens.shape)}")
     rep = H // KVH
-    smem = 4 * (rep * D + Pg * (D + 1) + Pg * D)
+    # a two-page ring of K and V pages, the queries and a page of P per warp
+    smem = 4 * Pg * D * q.element_size() + 4 * (rep * D + rep * 32)
     if D not in _PAGED_HEAD_DIMS or rep > 32 or Pg > 32 \
-            or smem > _STATIC_SMEM_LIMIT:
+            or smem > _SMEM_LIMIT:
         raise ValueError(f"paged_attention kernel supports head_dim in "
                          f"{_PAGED_HEAD_DIMS}, rep <= 32, page_size <= 32 and "
-                         f"<= 48 KB of shared memory; got D={D}, rep={rep}, "
+                         f"<= 227 KB of shared memory; got D={D}, rep={rep}, "
                          f"page_size={Pg} ({smem} bytes)")
     qg = q.reshape(B, KVH, rep, D)       # GQA: heads grouped by KV head
     out = torch.empty_like(qg)
+    _check_aligned("paged_attention", qg, k_pages, v_pages)
+    splits = _page_splits(B, KVH, MP, _sm_count(q.device))
+    scratch = (None,) * 3 if splits == 1 else _split_scratch(
+        "paged_attention", q.device, B * KVH * splits * rep, D, B * KVH)
     with torch.cuda.device(q.device):
         rc = entry("paged_attention")(
             qg.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            B, KVH, rep, D, N, Pg, MP, 1.0 / math.sqrt(D),
+            *_pointers(scratch),
+            B, KVH, rep, D, N, Pg, MP, 1.0 / math.sqrt(D), splits,
             _PAGED_DTYPES[q.dtype], _stream(q.device))
     if rc:
         raise _launch_failed("paged_attention", rc)
@@ -262,6 +329,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                          f"{_FLASH_HEAD_DIMS} and B, H <= 65535; got D={D}, "
                          f"B={B}, H={H}")
     out = torch.empty_like(q)
+    _check_aligned("flash_attention", q, k, v)
     with torch.cuda.device(q.device):
         rc = entry("flash_attention")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,

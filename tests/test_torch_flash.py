@@ -12,8 +12,9 @@ atol = rtol = 3e-5 (sums in another order), the reference's own tolerance.
 
 On a card (marker ``cuda``, skipped without one): the CUDA kernel against
 the plain version at the shapes ``chip_smoke.py`` checks — the reference
-grid, ragged lengths, head_dim 128, GQA rep 4 and the prefill path's
-one-shot, packed and chunk shapes. Run there with
+grid, ragged lengths, head_dim 128, GQA rep 4, the prefill path's
+one-shot, packed and chunk shapes and short chunks late in a long
+prompt — and repeated calls bit for bit. Run there with
 ``python -m pytest -q -m cuda tests/test_torch_flash.py``.
 """
 import types
@@ -42,7 +43,12 @@ CARD = ([(B, S, S, H, H, D, int(c), w, 0) for B, H, S, D, w, c in GRID]
            (1, 100, 100, 8, 2, 128, 1, 0, 0), (2, 96, 96, 16, 4, 64, 1, 0, 0),
            (1, 512, 512, 32, 8, 64, 1, 0, 0), (4, 128, 128, 32, 8, 64, 1, 0, 0),
            (1, 128, 512, 32, 8, 64, 1, 0, 384),
-           (1, 8, 45, 4, 2, 64, 1, 0, 37), (1, 5, 300, 4, 2, 64, 0, 0, 0)])
+           (1, 8, 45, 4, 2, 64, 1, 0, 37), (1, 5, 300, 4, 2, 64, 0, 0, 0)]
+        # few query tiles: a short chunk late in a prompt; windowed GQA,
+        # D 64 and 128
+        + [(1, 64, 512, 32, 8, 64, 1, 0, 448),
+           (1, 48, 400, 8, 2, 64, 1, 100, 352),
+           (1, 40, 300, 4, 2, 128, 1, 64, 260)])
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -184,3 +190,18 @@ def test_flash_kernel_matches_plain(cuda, dtype, case):
         window=window, q_offset=off).transpose(1, 2)
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1, 128, 512, 32, 8, 64, 1, 0, 384),
+                                  (1, 48, 400, 8, 2, 64, 1, 100, 352)])
+def test_flash_kernel_repeats_bit_for_bit(cuda, case):
+    """Each block sums its keys in one fixed order, so two calls on the
+    same inputs give the same bits."""
+    B, Sq, Sk, H, KVH, D, causal, window, off = case
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in _case(9, B, Sq, Sk, H, KVH, D))
+    runs = [ops.flash_attention(q, k, v, causal=bool(causal), window=window,
+                                q_offset=off) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])

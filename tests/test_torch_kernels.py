@@ -29,6 +29,10 @@ PAGED_CASES = [(3, 2, 4, 16, 4, 5), (2, 4, 1, 32, 8, 3), (1, 1, 2, 64, 16, 2),
                (4, 2, 2, 128, 8, 4)]
 SHARED_CASES = [(3, 2, 4, 16, 4, 5, 2), (4, 2, 2, 32, 8, 4, 3),
                 (2, 1, 2, 64, 16, 3, 1)]
+# on the card only: the serving decode shapes, whose pages the kernel
+# splits over several blocks per (row, KV head)
+CARD_PAGED_CASES = PAGED_CASES + [(8, 8, 4, 64, 16, 10), (8, 8, 4, 64, 16, 34)]
+CARD_SHARED_CASES = SHARED_CASES + [(8, 8, 4, 64, 16, 34, 4)]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -210,7 +214,7 @@ def test_cipher_rejects_wrong_types():
 # ---------------------------------------------------------------------------
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,KVH,rep,D,Pg,MP", PAGED_CASES)
+@pytest.mark.parametrize("B,KVH,rep,D,Pg,MP", CARD_PAGED_CASES)
 def test_paged_attention_kernel_matches_plain(cuda, dtype, B, KVH, rep, D,
                                               Pg, MP):
     """f32 within 3e-5; bf16 within atol 1e-3 + rtol 1e-2: both sides
@@ -230,7 +234,7 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, B, KVH, rep, D,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,KVH,rep,D,Pg,MP,shared", SHARED_CASES)
+@pytest.mark.parametrize("B,KVH,rep,D,Pg,MP,shared", CARD_SHARED_CASES)
 def test_paged_attention_kernel_shared_tables_and_idle_rows(
         cuda, B, KVH, rep, D, Pg, MP, shared):
     q, kp, vp, bt, sl = (torch.from_numpy(a).to(cuda) for a in
@@ -242,6 +246,30 @@ def test_paged_attention_kernel_shared_tables_and_idle_rows(
     assert torch.isfinite(got).all()
     assert not got[0].any(), "the kernel writes zeros for idle rows"
     torch.testing.assert_close(got[1:], want[1:], **PAGED_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_kernel_splits_past_the_row_length(cuda, dtype):
+    """Rows of 0, 1, 16, 17 and MP * Pg tokens at the decode shape: splits
+    that start past a row's length write the empty marker, the merge skips
+    them, idle rows are zero, and a second call gives the same bits."""
+    tdt = getattr(torch, dtype)
+    tol = PAGED_TOL if dtype == "float32" else dict(atol=1e-3, rtol=1e-2)
+    B, KVH, rep, D, Pg, MP = 8, 8, 4, 64, 16, 34
+    q, kp, vp, bt, _ = _paged_case(12, B, KVH, rep, D, Pg, MP)
+    sl = np.array([0, 1, 16, 17, MP * Pg, 200, MP * Pg - 1, 33], np.int32)
+    q, kp, vp, bt, sl = (torch.from_numpy(a).to(cuda)
+                         for a in (q, kp, vp, bt, sl))
+    q, kp, vp = q.to(tdt), kp.to(tdt), vp.to(tdt)
+    assert ops._page_splits(B, KVH, MP, 132) > 1
+    got = ops.paged_attention(q, kp, vp, bt, sl)
+    again = ops.paged_attention(q, kp, vp, bt, sl)
+    want = ref.paged_attention_ref(q, kp, vp, bt, sl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert not got[0].float().any(), "the kernel writes zeros for idle rows"
+    torch.testing.assert_close(got[1:].float(), want[1:].float(), **tol)
 
 
 @pytest.mark.cuda
