@@ -6,24 +6,28 @@
 Phases (each prints its own lines; any failure exits non-zero):
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
      sm_90a, one process per source in parallel); the flash library's SASS
-     must hold HGMMA (wgmma) instructions, and neither attention kernel
-     may spill registers;
+     must hold HGMMA (wgmma) instructions, no attention, cipher or seal
+     kernel may spill registers, and the cipher's and the seal's SASS
+     instructions per element are printed;
   2. hold every kernel against its plain PyTorch version on the card at the
      serving path's shapes (paged attention: bf16 and f32 pools, 8 rows, 8
      KV heads, rep 4, head_dim 64, page 16, tables of 10 and 34 pages,
      ragged seq_lens with an idle row, shared pages; page cipher:
-     [pages_per_slot, 131072] f32 and bf16, bit-exact; quantizing seal:
-     the stage boundary's [4, 2048] in bf16 and f32 plus the reference's
-     test shapes, cipher bytes equal but for rounding ties, scales equal,
-     unseal bit-equal; prefill attention: the reference's grid, ragged
-     lengths, head_dim 128, GQA rep 4, the one-shot, packed and chunk
+     [pages_per_slot, 131072] f32 and bf16, bit-exact, plus every tail
+     length of a vector and tensors one element past a 16-byte boundary;
+     quantizing seal: the stage boundary's [4, 2048] in bf16 and f32 plus
+     the reference's test shapes, widths not a multiple of 4 and
+     unaligned tensors, cipher bytes equal but for rounding ties, scales
+     equal, unseal bit-equal; prefill attention: the reference's grid,
+     ragged lengths, head_dim 128, GQA rep 4, the one-shot, packed and chunk
      shapes of full-width llama and short chunks late in a long prompt,
      f32 and bf16); both attention kernels must repeat their bits on a
      second call;
   3. time each kernel, its plain version, one PyTorch library call of the
      same function where one exists, and compute the least time the card
      could take (prefill attention at its three path shapes, paged
-     attention at the short and the long decode shape, in bf16);
+     attention at the short and the long decode shape, in bf16); also a
+     launch floor, a one-element ``zero_()`` under the same timing;
   4. check the whole serving path on a small input: reduced llama3.2-1b in
      f32 serves the same greedy streams on the card as on the CPU, through
      the local backend and through the pipelined backend (sealed stage
@@ -121,24 +125,83 @@ def bound(bytes_moved: float, *work):
 
 
 # ---------------------------------------------------------------------------
+def sass_opcodes(build, name):
+    """{function (mangled) name: [opcode, ...]} of the library built from
+    ``csrc/<name>.cu``, from ``cuobjdump --dump-sass`` (NOPs dropped)."""
+    import re
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(build._target(name))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+"
+                     r"(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if m and cur is not None and m.group(1) != "NOP":
+            cur.append(m.group(1))
+    return funcs
+
+
+def _one(funcs, key):
+    hits = [ops for fn, ops in funcs.items() if key in fn]
+    assert len(hits) == 1, f"{key}: {len(hits)} functions in {list(funcs)}"
+    return hits[0]
+
+
+def marginal(more, fewer, elems):
+    """SASS instructions per element that more elements a thread add: the
+    difference of two instantiations that differ in the elements a thread
+    moves, over the elements they differ by (set-up and tail cancel), in
+    total and by opcode."""
+    from collections import Counter
+    a, b = Counter(more), Counter(fewer)
+    by_op = {op: (a[op] - b[op]) / elems for op in a | b if a[op] != b[op]}
+    return (len(more) - len(fewer)) / elems, dict(
+        sorted(by_op.items(), key=lambda kv: -kv[1]))
+
+
 def check_redesigned_build(build):
     """The bf16 flash kernel must run on the tensor cores: its library's
-    SASS holds HGMMA (wgmma) instructions. Neither attention kernel may
-    spill registers."""
+    SASS holds HGMMA (wgmma) instructions. No redesigned kernel (flash and
+    paged attention, the page cipher, the quantizing seal) may spill
+    registers. Prints the SASS instructions per element of the cipher and
+    the seal."""
     import re
-    for name in ("flash_attention", "paged_attention"):
+    for name in ("flash_attention", "paged_attention", "seal_bits",
+                 "seal_q8"):
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill",
                                              build.BUILD_LOG.get(name, ""))]
         assert spills and not any(spills), f"{name}: register spills {spills}"
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "--dump-sass",
-                           str(build._target("flash_attention"))],
-                          capture_output=True, text=True, timeout=120,
-                          check=True).stdout
-    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    flash = sass_opcodes(build, "flash_attention")
+    hgmma = sum(op == "HGMMA" for ops in flash.values() for op in ops)
     log(f"  flash_attention SASS: {hgmma} HGMMA instructions; no spills in "
-        f"the attention kernels")
+        f"the attention, cipher and seal kernels")
     assert hgmma > 0, "the bf16 flash kernel is not on the tensor cores"
+    # bits_xor_kernel<T, VEC>: u16 't' / u32 'j'; a 16-byte vector (VEC =
+    # true, 'Lb1E') against one element (VEC = false, 'Lb0E') a thread
+    bits = sass_opcodes(build, "seal_bits")
+    for label, vec, scalar, per in (
+            ("seal_bits bf16", "bits_xor_kernelItLb1E",
+             "bits_xor_kernelItLb0E", 8),
+            ("seal_bits f32", "bits_xor_kernelIjLb1E",
+             "bits_xor_kernelIjLb0E", 4)):
+        n, by_op = marginal(_one(bits, vec), _one(bits, scalar), per - 1)
+        top = ", ".join(f"{op} {k:g}" for op, k in list(by_op.items())[:8])
+        log(f"  {label} SASS: {n:g} instructions per element, the vector "
+            f"thread's beyond the one-element thread's ({top})")
+    # seal_q8_kernel<bf16, VEC = true>: its whole code over the 4 elements
+    # a thread holds, the later-tile loops included
+    seal = _one(sass_opcodes(build, "seal_q8"),
+                "seal_q8_kernelI13__nv_bfloat16Lb1E")
+    log(f"  seal bf16 SASS: {len(seal)} instructions in the kernel, "
+        f"{len(seal) / 4:g} per element held (an upper bound: the loops "
+        f"over later tiles do not run at 2048 columns)")
+    log(f"  the cipher's bound counts KEYSTREAM_OPS = {KEYSTREAM_OPS} "
+        f"32-bit operations per element")
 
 
 # paged attention shapes: phase 5's decode (128-token prompts, MP = 10)
@@ -231,12 +294,36 @@ def check_cipher(torch, ops, ref, sealing, MP=10, cols=131072):
             assert not torch.equal(ck, x.view(idt)), "cipher == plaintext"
         log(f"check seal_bits/unseal_bits {dtype} [{MP}, {cols}]: "
             f"bit-exact (3 counters, both directions)")
+        # every tail length of a 16-byte vector, and contiguous tensors that
+        # start one element past a 16-byte boundary (the scalar path)
+        ctr = sealing._swap_counter(5, 1)
+        cases = [((1, 8 * 37 + r), 0) for r in range(1, 8)] + \
+            [((MP, cols), 1), ((3, 2047), 1)]
+        for shape, offset in cases:
+            n = shape[0] * shape[1]
+            base = torch.randn(n + offset, generator=g, device="cuda")
+            x = base.to(dtype)[offset:].view(shape)
+            assert (x.data_ptr() % 16 == 0) == (offset == 0)
+            ck = ops.seal_bits(x, 0xC0FFEE, ctr)
+            assert torch.equal(ck, ref.seal_bits_ref(x, 0xC0FFEE, ctr)), \
+                f"seal_bits {dtype} {shape} offset {offset}: cipher differs"
+            back = ops.unseal_bits(ck, 0xC0FFEE, ctr, dtype)
+            assert torch.equal(back.view(idt), x.view(idt)), "round trip"
+        log(f"check seal_bits/unseal_bits {dtype}: {len(cases)} odd and "
+            f"unaligned cases bit-exact (tails of 1..7, offset by one "
+            f"element at [{MP}, {cols}] and [3, 2047])")
 
 
-SEAL_Q8_CASES = [((4, 2048), "bfloat16"), ((4, 2048), "float32"),
-                 ((64, 128), "float32"), ((256, 512), "bfloat16"),
-                 ((100, 48), "float32"), ((8, 2048), "bfloat16"),
-                 ((1, 16), "float32")]
+# (shape, dtype, offset): offset 1 is a contiguous tensor that starts one
+# element past a 16-byte boundary; such tensors and widths not a multiple
+# of 4 take the kernel's scalar path
+SEAL_Q8_CASES = [((4, 2048), "bfloat16", 0), ((4, 2048), "float32", 0),
+                 ((64, 128), "float32", 0), ((256, 512), "bfloat16", 0),
+                 ((100, 48), "float32", 0), ((8, 2048), "bfloat16", 0),
+                 ((1, 16), "float32", 0), ((3, 2047), "bfloat16", 0),
+                 ((5, 7), "float32", 0), ((3, 2052), "bfloat16", 0),
+                 ((4, 2048), "bfloat16", 1), ((3, 2047), "bfloat16", 1),
+                 ((5, 7), "float32", 1)]
 
 
 def check_seal_q8(torch, ops, ref):
@@ -247,14 +334,17 @@ def check_seal_q8(torch, ops, ref):
     over every case."""
     g = torch.Generator(device="cuda").manual_seed(3)
     err = 0.0
-    for shape, dt in SEAL_Q8_CASES:
+    for shape, dt, offset in SEAL_Q8_CASES:
         dtype = getattr(torch, dt)
-        x = (3 * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
+        n = shape[0] * shape[1]
+        x = (3 * torch.randn(n + offset, generator=g, device="cuda")).to(
+            dtype)[offset:].view(shape)
+        assert (x.data_ptr() % 16 == 0) == (offset == 0)
         for key, ctr in ((0xC0FFEE + 5, 65537 * 3), (0xFFFFFFFF, 7)):
             c, s = ops.seal(x, key, ctr)
             wc, ws = ref.seal_ref(x, key, ctr)
             mismatch = (c != wc).float().mean().item()
-            assert mismatch <= 1e-3, (shape, dt, mismatch)
+            assert mismatch <= 1e-3, (shape, dt, offset, mismatch)
             assert torch.equal(s, ws), f"seal {shape} {dt}: scales differ"
             assert torch.equal(s.cpu(), ref.seal_ref(x.cpu(), key, ctr)[1]), \
                 f"seal {shape} {dt}: scales differ from the CPU's"
@@ -265,7 +355,8 @@ def check_seal_q8(torch, ops, ref):
             opened = ref.unseal_ref(c, s, key, ctr, torch.float32)
             err = max(err, (opened - ref.unseal_ref(
                 wc, ws, key, ctr, torch.float32)).abs().max().item())
-        log(f"check seal/unseal {dt} {list(shape)}: cipher mismatch "
+        log(f"check seal/unseal {dt} {list(shape)}"
+            f"{' offset 1' if offset else ''}: cipher mismatch "
             f"{mismatch:.1e} (<= 1e-3), scales equal, unseal bit-equal")
     return err
 
@@ -491,6 +582,12 @@ def time_kernels(torch, ops, ref, sealing, F):
         log(f"time {name} bf16 [4, 2048]: kernel {ms * 1e3:.2f} us, plain "
             f"{plain * 1e3:.1f} us, bound {b_ms * 1e3:.4f} us ({b_by}, "
             f"{nbytes / 1e3:.1f} KB)")
+    # what any launch costs under time_ms: a one-element zero_(); a floor
+    # to read the seals' times against, not a bound, and not in the
+    # kernels line
+    z = torch.zeros(1, device="cuda")
+    log(f"launch floor (one-element zero_(), same timing): "
+        f"{time_ms(lambda: z.zero_()) * 1e3:.2f} us")
     out["flash_attention"] = time_flash(torch, ops, ref, F)
     return out
 

@@ -37,9 +37,9 @@ SIGNATURES = {
     "paged_attention": ("paged_attention", "repro_paged_attention",
                         [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P]),
     "seal_bits": ("seal_bits", "repro_bits_xor",
-                  [_P, _P, _LL, _U, _U, _I, _I, _P]),
-    "seal_q8": ("seal_q8", "repro_seal_q8", [_P, _P, _P, _I, _I, _U, _U, _I,
-                                             _P]),
+                  [_P, _P, _LL, _U, _U] + [_I] * 4 + [_P]),
+    "seal_q8": ("seal_q8", "repro_seal_q8", [_P, _P, _P, _I, _I, _U, _U]
+                + [_I] * 3 + [_P]),
     "unseal_q8": ("seal_q8", "repro_unseal_q8", [_P, _P, _P, _I, _I, _U, _U,
                                                  _I, _P]),
     "flash_attention": ("flash_attention", "repro_flash_attention",

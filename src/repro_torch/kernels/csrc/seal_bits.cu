@@ -6,71 +6,137 @@
 // keystream_u32(key, counter, flat_index) truncated to the element width.
 // XOR is an involution, so one kernel both seals and unseals, bit-exactly.
 //
-// What bounds it on this card: bytes. Every element is read once and
-// written once; the ARX mix is ~18 32-bit integer operations per element,
-// which the SMs' INT32 lanes retire faster than HBM delivers f32 data and
-// about as fast as it delivers bf16 data.
+// What bounds it on this card. At the swap path's [10, 131072] bf16 the
+// bytes (2.6 MB each way, found in L2: the pages were just gathered) take
+// less time than the integer work, one 32-bit ARX mix per 2-byte element,
+// and both less than a launch. The mix is bound by instruction issue (one
+// warp instruction per cycle per SM sub-partition), not by one pipe: moving
+// shifts from the ALU pipe to the FMA pipe (IMAD.HI) made it no faster, so
+// what counts is the total number of instructions per element. The earlier
+// design evaluated the plain mix element by element with 64-bit indexing.
 //
-// Design. A grid-stride loop in which each thread moves 16 bytes (four u32
-// or eight u16 elements) with one vector load and one vector store, so
-// neighbouring threads touch neighbouring 16-byte chunks; a scalar loop
-// covers the tail (and the whole array when a pointer is not 16-byte
-// aligned). The flat index is computed in 64 bits and cast to uint32_t
-// before the mix, which is exactly JAX's uint32 `row * cols + col`
-// wrapped modulo 2**32: the same bits in any tiling, and the same bits as
-// the reference, so payloads seal in one package and unseal in the other.
+// Design.
+//   - The mix runs in the form of keystream.cuh, with its constants
+//     computed on the host: a = idx0 * M1 + j * M1 per lane j, the key
+//     folded in one LOP3, the last xorshift folded into the data XOR. For
+//     bf16 the low halves of two lanes' words are packed by PRMT (two per
+//     pair: the words and their >> 17) and XORed into the data word with
+//     one LOP3. Indices are 32-bit. Per element this is 5 SHF, 4 IMAD,
+//     4.5 LOP3, 1 PRMT and an add in bf16.
+//   - One 16-byte vector (4 u32 or 8 u16 elements) per thread, neighbouring
+//     threads on neighbouring vectors; the load issues first and the
+//     keystream, which depends on the index and never on the data, is
+//     computed while it is in flight. Two or four vectors per thread, with
+//     their chains interleaved, measured no faster: fewer warps per SM
+//     hide less of each chain's latency.
+//   - The launch plan (threads per block, blocks) comes from the wrapper
+//     (`ops._cipher_plan`): blocks of 256 threads, measured faster at the
+//     swap path's size than 128 or 512.
+//   - The element index is (uint32_t)item * VEC + j, exactly JAX's uint32
+//     `row * cols + col` wrapped modulo 2**32: the same bits in any tiling
+//     and the same bits as the reference, so payloads seal in one package
+//     and unseal in the other.
+//   - Up to VEC - 1 tail elements past the last whole vector go to the
+//     first threads, one each. When a pointer is not 16-byte aligned the
+//     item is one element (scalar loads) and there is no tail.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "keystream.cuh"
 
 namespace {
 
+// Bits of element `idx`'s keystream word that XOR into an element of T.
 template <typename T>
-__global__ void bits_xor_kernel(const T* __restrict__ in, T* __restrict__ out,
-                                long long n, long long n_vec, uint32_t key,
-                                uint32_t ctr) {
-  constexpr int VEC = 16 / sizeof(T);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  for (long long v = tid; v < n_vec; v += stride) {
-    uint4 raw = reinterpret_cast<const uint4*>(in)[v];
-    T* e = reinterpret_cast<T*>(&raw);
-    const long long base = v * VEC;
+__device__ __forceinline__ T keystream_elem(const KeystreamConsts& kc,
+                                            uint32_t idx) {
+  const uint32_t p = keystream_pre(kc, idx * kM1);
+  return (T)(p ^ (p >> 17));
+}
+
+// One 16-byte vector of elements starting at index idx0, XORed in place.
+template <typename T>
+__device__ __forceinline__ void xor_vector(const KeystreamConsts& kc,
+                                           uint32_t idx0, uint4& v) {
+  const uint32_t a0 = idx0 * kM1;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&v);
 #pragma unroll
-    for (int j = 0; j < VEC; ++j)
-      e[j] ^= (T)keystream_u32(key, ctr, (uint32_t)(base + j));
-    reinterpret_cast<uint4*>(out)[v] = raw;
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (sizeof(T) == 4) {
+      const uint32_t p = keystream_pre(kc, a0 + (uint32_t)j * kM1);
+      w[j] ^= p ^ (p >> 17);
+    } else {
+      const uint32_t p0 = keystream_pre(kc, a0 + (uint32_t)(2 * j) * kM1);
+      const uint32_t p1 =
+          keystream_pre(kc, a0 + (uint32_t)(2 * j + 1) * kM1);
+      // low halves of p0 ^ (p0 >> 17) and p1 ^ (p1 >> 17), packed
+      w[j] ^= __byte_perm(p0, p1, 0x5410) ^
+              __byte_perm(p0 >> 17, p1 >> 17, 0x5410);
+    }
   }
-  for (long long i = n_vec * VEC + tid; i < n; i += stride)
-    out[i] = in[i] ^ (T)keystream_u32(key, ctr, (uint32_t)i);
+}
+
+// Thread g XORs item g (a 16-byte vector when VEC, else one element) and,
+// when g < tail, tail element items * VEC + g.
+template <typename T, bool VEC>
+__global__ void bits_xor_kernel(const T* __restrict__ in, T* __restrict__ out,
+                                int items, int tail, KeystreamConsts kc) {
+  constexpr uint32_t kPer = VEC ? 16 / sizeof(T) : 1;  // elements per item
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g < items) {
+    if constexpr (VEC) {
+      uint4 v = reinterpret_cast<const uint4*>(in)[g];
+      xor_vector<T>(kc, (uint32_t)g * kPer, v);
+      reinterpret_cast<uint4*>(out)[g] = v;
+    } else {
+      out[g] = in[g] ^ keystream_elem<T>(kc, (uint32_t)g);
+    }
+  }
+  if (g < tail) {
+    const long long i = (long long)items * kPer + g;
+    out[i] = in[i] ^ keystream_elem<T>(kc, (uint32_t)i);
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* in, void* out, int items, int tail,
+                   KeystreamConsts kc, bool vec, int threads, int blocks,
+                   cudaStream_t s) {
+  if (vec)
+    bits_xor_kernel<T, true><<<blocks, threads, 0, s>>>(
+        (const T*)in, (T*)out, items, tail, kc);
+  else
+    bits_xor_kernel<T, false><<<blocks, threads, 0, s>>>(
+        (const T*)in, (T*)out, items, tail, kc);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry (loaded with ctypes). `in` and `out` hold n contiguous
 // elements of elem_bytes (2 or 4) each; vec_ok != 0 promises both pointers
-// are 16-byte aligned. Returns the launch's cudaError_t.
+// are 16-byte aligned. The plan (threads per block, blocks) must give a
+// thread to every item and tail element, with fewer than 2**31 threads; it
+// is checked here. Returns the launch's cudaError_t.
 extern "C" int repro_bits_xor(const void* in, void* out, long long n,
                               unsigned int key, unsigned int ctr,
-                              int elem_bytes, int vec_ok, void* stream) {
+                              int elem_bytes, int vec_ok, int threads,
+                              int blocks, void* stream) {
   if (n <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int vec = 16 / elem_bytes;
-  const long long n_vec = vec_ok ? n / vec : 0;
-  const long long work = n_vec + (n - n_vec * vec);
-  const int threads = 256;
-  long long blocks = (work + threads - 1) / threads;
-  // grid-stride beyond 16 blocks per SM of an H100 (132 SMs)
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  if (elem_bytes == 4) {
-    bits_xor_kernel<uint32_t><<<(unsigned)blocks, threads, 0, s>>>(
-        (const uint32_t*)in, (uint32_t*)out, n, n_vec, key, ctr);
-  } else if (elem_bytes == 2) {
-    bits_xor_kernel<uint16_t><<<(unsigned)blocks, threads, 0, s>>>(
-        (const uint16_t*)in, (uint16_t*)out, n, n_vec, key, ctr);
-  } else {
+  if (elem_bytes != 2 && elem_bytes != 4) return (int)cudaErrorInvalidValue;
+  const int per = vec_ok ? 16 / elem_bytes : 1;
+  const long long items = n / per;
+  const int tail = (int)(n - items * per);
+  const long long grid = (long long)blocks * threads;
+  if (threads <= 0 || blocks <= 0 || grid < items || grid < tail ||
+      grid > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const KeystreamConsts kc = keystream_consts(key, ctr);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (elem_bytes == 4)
+    return (int)launch<uint32_t>(in, out, (int)items, tail, kc, vec_ok != 0,
+                                 threads, blocks, s);
+  return (int)launch<uint16_t>(in, out, (int)items, tail, kc, vec_ok != 0,
+                               threads, blocks, s);
 }

@@ -13,16 +13,32 @@
 // library builds without --use_fast_math, so `/` is correctly rounded, and
 // there is no reciprocal multiply); rounding is rintf, half to even like
 // jnp.round (roundf would round ties away from zero); the absmax is a max,
-// exact in any reduction order. The flat index is taken in 64 bits and cast
-// to uint32_t, as in seal_bits.cu, so the keystream is the reference's.
+// exact in any reduction order. The flat index is row * cols + col modulo
+// 2**32, as in seal_bits.cu, so the keystream is the reference's.
 //
 // What bounds it on this card: at the pipeline boundary's shape ([4, 2048]
 // bf16: 16 KB in, 8 KB + 16 B out) neither bytes (about 7 ns at 3.35 TB/s)
-// nor integer operations (about 12 ns) — a launch costs microseconds, so
-// latency does. The design is the simple one: one block per row, a
-// block-wide absmax (warp shuffles, then shared memory) and a second pass
-// over the row, which the first pass left in L1/L2. unseal is elementwise,
-// grid-stride.
+// nor integer operations (about 11 ns): a launch costs microseconds, and
+// past it the latency of one block's chain (load, block-wide max, divide,
+// store) decides. The earlier design read each row twice with 2-byte loads,
+// 8 elements a thread in series, around two barriers.
+//
+// seal's design, to shorten that chain:
+//   - one block per row; each thread holds 4 consecutive elements in
+//     registers from one 8-byte (bf16) or 16-byte (f32) load, so the row
+//     is read once (512 threads for the boundary's 2048 columns: 8
+//     elements a thread with 256 threads measured slower); the threads per
+//     block come from the wrapper (`ops._seal_threads`);
+//   - the keystream's top bytes are computed while the loads are in flight
+//     (they depend on the index only; the mix's constants come from the
+//     host), packed into a word by PRMT;
+//   - the block absmax takes warp shuffles, one shared-memory exchange and
+//     one __syncthreads; every warp then reduces the warps' maxima itself;
+//   - the cipher bytes go out in one 4-byte store per thread;
+//   - a row not so aligned, or whose width is not a multiple of 4, takes
+//     scalar loads and byte stores with the same ownership; a row wider
+//     than one tile (threads x 4) reads its later tiles again.
+// unseal is elementwise, grid-stride (the simple design of its first port).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,40 +68,118 @@ __device__ __forceinline__ float warp_max(float m) {
   return m;
 }
 
-template <typename T>
-__global__ void seal_q8_kernel(const T* __restrict__ x,
-                               uint8_t* __restrict__ cipher,
-                               float* __restrict__ scales, int cols,
-                               uint32_t key, uint32_t ctr) {
+constexpr int kEpt = 4;  // elements a thread holds
+
+// kEpt elements of one row at columns c .. c + 3, as f32; zero past the
+// row's end. VEC: the row is 16-byte aligned (f32) or 8-byte aligned
+// (bf16) and cols is a multiple of 4, so a thread's elements are one 16-
+// or 8-byte load and lie wholly inside or wholly past the row.
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_elems(const T* __restrict__ xr, int c,
+                                           int cols, float (&v)[kEpt]) {
+  if constexpr (VEC) {
+    if (c >= cols) {
+      v[0] = v[1] = v[2] = v[3] = 0.f;
+    } else if constexpr (sizeof(T) == 2) {
+      // bf16 -> f32 is exact: the bits shifted up by 16
+      const uint2 r = *reinterpret_cast<const uint2*>(xr + c);
+      v[0] = __uint_as_float(r.x << 16);
+      v[1] = __uint_as_float(r.x & 0xFFFF0000u);
+      v[2] = __uint_as_float(r.y << 16);
+      v[3] = __uint_as_float(r.y & 0xFFFF0000u);
+    } else {
+      const float4 r = *reinterpret_cast<const float4*>(xr + c);
+      v[0] = r.x, v[1] = r.y, v[2] = r.z, v[3] = r.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kEpt; ++e)
+      v[e] = c + e < cols ? to_f32(xr[c + e]) : 0.f;
+  }
+}
+
+// Top bytes of the keystream words of indices idx0 .. idx0 + 3, byte e of
+// the result for index idx0 + e; the mix's last xorshift is dropped
+// (keystream.cuh: it leaves the top byte as it is).
+__device__ __forceinline__ uint32_t keystream_top_bytes(
+    const KeystreamConsts& kc, uint32_t idx0) {
+  const uint32_t a0 = idx0 * kM1;
+  uint32_t p[kEpt];
+#pragma unroll
+  for (int e = 0; e < kEpt; ++e)
+    p[e] = keystream_pre(kc, a0 + (uint32_t)e * kM1);
+  return __byte_perm(__byte_perm(p[0], p[1], 0x0073),
+                     __byte_perm(p[2], p[3], 0x0073), 0x5410);
+}
+
+// q = clip(rint(v / scale), -127, 127) by IEEE division (no reciprocal);
+// the low bytes of q XOR the keystream bytes go to columns c .. c + 3 of
+// the row (one 4-byte store when VEC).
+template <bool VEC>
+__device__ __forceinline__ void quantize_store(const float (&v)[kEpt],
+                                               uint32_t ks, float scale,
+                                               uint8_t* __restrict__ cr,
+                                               int c, int cols) {
+  int q[kEpt];
+#pragma unroll
+  for (int e = 0; e < kEpt; ++e)
+    q[e] = (int)fminf(fmaxf(rintf(v[e] / scale), -127.f), 127.f);
+  const uint32_t w = __byte_perm(__byte_perm(q[0], q[1], 0x0040),
+                                 __byte_perm(q[2], q[3], 0x0040), 0x5410) ^
+                     ks;
+  if constexpr (VEC) {
+    if (c < cols) *reinterpret_cast<uint32_t*>(cr + c) = w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < kEpt; ++e)
+      if (c + e < cols) cr[c + e] = (uint8_t)(w >> (8 * e));
+  }
+}
+
+// One block per row; thread t owns columns t * 4 .. t * 4 + 3 of each tile
+// of blockDim.x * 4 columns. The first tile stays in registers from its
+// one read to its store; a row wider than one tile reads its later tiles
+// again for the second pass.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(1024)
+    seal_q8_kernel(const T* __restrict__ x, uint8_t* __restrict__ cipher,
+                   float* __restrict__ scales, int cols, KeystreamConsts kc) {
   __shared__ float partial[32];
-  __shared__ float row_scale;
   const int row = blockIdx.x;
   const long long base = (long long)row * cols;
   const T* xr = x + base;
+  uint8_t* cr = cipher + base;
+  const int tile = blockDim.x * kEpt;
+  const int c = threadIdx.x * kEpt;
 
+  float v[kEpt];
+  load_elems<T, VEC>(xr, c, cols, v);
+  // keystream bytes while the loads are in flight
+  uint32_t ks = keystream_top_bytes(kc, (uint32_t)base + (uint32_t)c);
   float m = 0.f;
-  for (int c = threadIdx.x; c < cols; c += blockDim.x)
-    m = fmaxf(m, fabsf(to_f32(xr[c])));
-  m = warp_max(m);
+#pragma unroll
+  for (int e = 0; e < kEpt; ++e) m = fmaxf(m, fabsf(v[e]));
+  for (int t0 = tile; t0 < cols; t0 += tile) {
+    float w[kEpt];
+    load_elems<T, VEC>(xr, t0 + c, cols, w);
+#pragma unroll
+    for (int e = 0; e < kEpt; ++e) m = fmaxf(m, fabsf(w[e]));
+  }
+  // block absmax: warp shuffles, one shared exchange, one barrier; every
+  // warp then reduces the warps' maxima itself
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  m = warp_max(m);
   if (lane == 0) partial[warp] = m;
   __syncthreads();
-  if (warp == 0) {
-    const int n_warps = (blockDim.x + 31) >> 5;
-    m = warp_max(lane < n_warps ? partial[lane] : 0.f);
-    if (lane == 0) {
-      const float s = fmaxf(m, 1e-6f) / 127.f;
-      row_scale = s;
-      scales[row] = s;
-    }
-  }
-  __syncthreads();
-  const float scale = row_scale;
+  m = warp_max(lane < (int)(blockDim.x >> 5) ? partial[lane] : 0.f);
+  const float scale = fmaxf(m, 1e-6f) / 127.f;
+  if (threadIdx.x == 0) scales[row] = scale;
 
-  for (int c = threadIdx.x; c < cols; c += blockDim.x) {
-    const float q = fminf(fmaxf(rintf(to_f32(xr[c]) / scale), -127.f), 127.f);
-    const uint32_t ks = keystream_u32(key, ctr, (uint32_t)(base + c));
-    cipher[base + c] = (uint8_t)(((uint32_t)(int)q & 0xFFu) ^ (ks >> 24));
+  quantize_store<VEC>(v, ks, scale, cr, c, cols);
+  for (int t0 = tile; t0 < cols; t0 += tile) {
+    load_elems<T, VEC>(xr, t0 + c, cols, v);
+    ks = keystream_top_bytes(kc, (uint32_t)base + (uint32_t)(t0 + c));
+    quantize_store<VEC>(v, ks, scale, cr, t0 + c, cols);
   }
 }
 
@@ -103,29 +197,48 @@ __global__ void unseal_q8_kernel(const uint8_t* __restrict__ cipher,
   }
 }
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // unseal
+
+template <typename T>
+cudaError_t launch_seal(const void* x, void* cipher, void* scales, int rows,
+                        int cols, KeystreamConsts kc, bool vec, int threads,
+                        cudaStream_t s) {
+  if (vec)
+    seal_q8_kernel<T, true><<<rows, threads, 0, s>>>(
+        (const T*)x, (uint8_t*)cipher, (float*)scales, cols, kc);
+  else
+    seal_q8_kernel<T, false><<<rows, threads, 0, s>>>(
+        (const T*)x, (uint8_t*)cipher, (float*)scales, cols, kc);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
 // Plain C entries (loaded with ctypes). x / out hold rows*cols contiguous
 // elements of elem_bytes (4: f32, 2: bf16); cipher is uint8 [rows, cols],
 // scales f32 [rows, 1]. Each returns the launch's cudaError_t.
+//
+// seal takes its threads per block from the wrapper (`ops._seal_threads`:
+// a multiple of 32, at most 1024) and vec_ok != 0 where x is 16-byte
+// aligned, cipher 4-byte aligned and cols a multiple of 4 (checked here).
 extern "C" int repro_seal_q8(const void* x, void* cipher, void* scales,
                              int rows, int cols, unsigned int key,
-                             unsigned int ctr, int elem_bytes, void* stream) {
+                             unsigned int ctr, int elem_bytes, int vec_ok,
+                             int threads, void* stream) {
   if (rows <= 0 || cols <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (elem_bytes == 4) {
-    seal_q8_kernel<float><<<rows, kThreads, 0, s>>>(
-        (const float*)x, (uint8_t*)cipher, (float*)scales, cols, key, ctr);
-  } else if (elem_bytes == 2) {
-    seal_q8_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)x, (uint8_t*)cipher, (float*)scales, cols, key,
-        ctr);
-  } else {
+  const bool vec = vec_ok != 0;
+  if (threads < 32 || threads > 1024 || threads % 32 ||
+      (vec && (cols % 4 || (uintptr_t)x % 16 || (uintptr_t)cipher % 4)))
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const KeystreamConsts kc = keystream_consts(key, ctr);
+  if (elem_bytes == 4)
+    return (int)launch_seal<float>(x, cipher, scales, rows, cols, kc, vec,
+                                   threads, s);
+  if (elem_bytes == 2)
+    return (int)launch_seal<__nv_bfloat16>(x, cipher, scales, rows, cols, kc,
+                                           vec, threads, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int repro_unseal_q8(const void* cipher, const void* scales,

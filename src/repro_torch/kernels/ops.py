@@ -109,6 +109,32 @@ def _page_part(split: int, splits: int, MP: int, seq_len: int, Pg: int):
 
 
 # ---------------------------------------------------------------------------
+# Launch plans of the cipher kernels (plain Python, shared by the wrappers
+# and the CPU tests of coverage)
+# ---------------------------------------------------------------------------
+def _cipher_plan(n: int, elem_bytes: int, vec_ok: bool):
+    """(threads per block, blocks) of the page cipher for n elements. An
+    item is one 16-byte vector when both pointers are 16-byte aligned,
+    else one element; thread g takes item g, and the first threads one
+    tail element each past the last whole vector. Blocks of 256 threads:
+    at the swap path's [10, 131072] bf16 that is 640 blocks, at most 5 on
+    an SM of an H100, within 3% of an even share."""
+    items = n // (16 // elem_bytes if vec_ok else 1)
+    return 256, max(1, -(-items // 256))
+
+
+_SEAL_EPT = 4          # elements a thread of the seal kernel holds (kEpt)
+
+
+def _seal_threads(cols: int) -> int:
+    """Threads per block of the quantizing seal: one block per row, thread
+    t holding columns t * 4 .. t * 4 + 3 of each tile of threads * 4
+    columns; enough threads (a multiple of 32, at most 1024) that one tile
+    covers the row where it can."""
+    return min(1024, 32 * max(1, -(-cols // (32 * _SEAL_EPT))))
+
+
+# ---------------------------------------------------------------------------
 # Quantizing activation seal (stage boundaries)
 # ---------------------------------------------------------------------------
 _Q8_DTYPES = (torch.float32, torch.bfloat16)
@@ -127,11 +153,13 @@ def seal(x: torch.Tensor, key: int, counter: int):
     rows, cols = x.shape
     cipher = torch.empty((rows, cols), dtype=torch.uint8, device=x.device)
     scales = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    vec_ok = int(x.data_ptr() % 16 == 0 and cipher.data_ptr() % 4 == 0
+                 and cols % 4 == 0)
     with torch.cuda.device(x.device):
         rc = entry("seal_q8")(
             x.data_ptr(), cipher.data_ptr(), scales.data_ptr(), rows, cols,
             int(key) & 0xFFFFFFFF, int(counter) & 0xFFFFFFFF,
-            x.element_size(), _stream(x.device))
+            x.element_size(), vec_ok, _seal_threads(cols), _stream(x.device))
     if rc:
         raise _launch_failed("seal", rc)
     LAUNCHES["seal"] += 1
@@ -179,10 +207,11 @@ def _bits_xor(x: torch.Tensor, key: int, counter: int,
         raise ValueError(f"seal_bits takes [rows, cols], got {tuple(x.shape)}")
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     vec_ok = int(x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    plan = _cipher_plan(x.numel(), x.element_size(), bool(vec_ok))
     with torch.cuda.device(x.device):
         rc = entry("seal_bits")(
             x.data_ptr(), out.data_ptr(), x.numel(), int(key) & 0xFFFFFFFF,
-            int(counter) & 0xFFFFFFFF, x.element_size(), vec_ok,
+            int(counter) & 0xFFFFFFFF, x.element_size(), vec_ok, *plan,
             _stream(x.device))
     if rc:
         raise _launch_failed("seal_bits", rc)

@@ -272,12 +272,29 @@ def test_paged_attention_kernel_splits_past_the_row_length(cuda, dtype):
     torch.testing.assert_close(got[1:].float(), want[1:].float(), **tol)
 
 
+# every tail length of a 16-byte vector, and the last vector in the last
+# block, in the middle of a block and one past a full grid of the swap
+# path's plan (640 blocks of 256 threads in bf16)
+CIPHER_EDGE_SHAPES = ([(1, 8 * 37 + r) for r in range(1, 8)]
+                      + [(1, 8 * (640 * 256 + k) + 3) for k in (-1, 1)]
+                      + [(1, 8 * (639 * 256 + 100))])
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", SEAL_SHAPES + [(3, 131072), (5, 7)])
-def test_page_cipher_kernel_bit_exact(cuda, dtype, shape):
+@pytest.mark.parametrize("shape", SEAL_SHAPES + [(3, 131072), (5, 7)]
+                         + CIPHER_EDGE_SHAPES)
+def test_page_cipher_kernel_bit_exact(cuda, dtype, shape, offset):
+    """Every tail length of a 16-byte vector (8 bf16 or 4 f32 lanes), the
+    grid's edge, and (offset 1) a contiguous
+    tensor that starts one element past a 16-byte boundary, which takes
+    the scalar path."""
     tdt = getattr(torch, dtype)
-    x = torch.randn(*shape, device=cuda).to(tdt)
+    n = shape[0] * shape[1]
+    base = torch.randn(n + offset, device=cuda).to(tdt)
+    x = base[offset:].view(shape)
+    assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset == 0)
     for key, ctr in KEYS:
         c = ops.seal_bits(x, key, ctr)
         assert torch.equal(c, ref.seal_bits_ref(x, key, ctr))

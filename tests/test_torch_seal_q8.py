@@ -198,12 +198,24 @@ def test_seal_rejects_wrong_types():
 # ---------------------------------------------------------------------------
 # on the card: the CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
+# on the card also widths that are not a multiple of 4 (the kernel's
+# scalar path) and widths that are a multiple of 4 but not of 8
+CARD_SEAL_CASES = SEAL_CASES + [((3, 2047), "bfloat16"), ((5, 7), "float32"),
+                                ((3, 2052), "bfloat16"), ((2, 4), "float32")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype", SEAL_CASES)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape,dtype", CARD_SEAL_CASES)
 @pytest.mark.parametrize("key,ctr", KEYS)
-def test_seal_kernel_matches_plain(cuda, shape, dtype, key, ctr):
+def test_seal_kernel_matches_plain(cuda, shape, dtype, key, ctr, offset):
+    """offset 1: a contiguous tensor whose storage starts one element (2
+    bytes in bf16, 4 in f32) past a 16-byte boundary."""
     t, _ = _x(shape, dtype)
-    x = t.to(cuda)
+    base = torch.zeros(t.numel() + offset, dtype=t.dtype, device=cuda)
+    base[offset:] = t.flatten().to(cuda)
+    x = base[offset:].view(shape)
+    assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset == 0)
     before = dict(ops.LAUNCHES)
     c, s = ops.seal(x, key, ctr)
     torch.cuda.synchronize()
@@ -224,7 +236,8 @@ def test_seal_kernel_matches_plain(cuda, shape, dtype, key, ctr):
 
 @pytest.mark.cuda
 def test_seal_kernel_rows_wider_than_the_block(cuda):
-    """cols far above the block's 256 threads, and an odd width."""
+    """cols far above one tile (1024 threads x 4 columns), and an odd
+    width."""
     for cols in (131072 + 3, 7):
         x = torch.randn(3, cols, device=cuda)
         c, s = ops.seal(x, 5, 6)
