@@ -7,8 +7,8 @@ Phases (each prints its own lines; any failure exits non-zero):
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
      sm_90a, one process per source in parallel); the flash library's SASS
      must hold HGMMA (wgmma) instructions, no attention, cipher or seal
-     kernel may spill registers, and the cipher's and the seal's SASS
-     instructions per element are printed;
+     kernel may spill registers, and the cipher's, the seal's and the
+     unseal's SASS instructions per element are printed;
   2. hold every kernel against its plain PyTorch version on the card at the
      serving path's shapes (paged attention: bf16 and f32 pools, 8 rows, 8
      KV heads, rep 4, head_dim 64, page 16, tables of 10 and 34 pages,
@@ -17,8 +17,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      length of a vector and tensors one element past a 16-byte boundary;
      quantizing seal: the stage boundary's [4, 2048] in bf16 and f32 plus
      the reference's test shapes, widths not a multiple of 4 and
-     unaligned tensors, cipher bytes equal but for rounding ties, scales
-     equal, unseal bit-equal; prefill attention: the reference's grid,
+     unaligned tensors, one element, a wide row and 70,000 rows, cipher
+     bytes equal but for rounding ties, scales equal, unseal bit-equal into
+     bf16 and f32, also from cipher views 1 to 3 bytes past a 4-byte
+     boundary; prefill attention: the reference's grid,
      ragged lengths, head_dim 128, GQA rep 4, the one-shot, packed and chunk
      shapes of full-width llama and short chunks late in a long prompt,
      f32 and bf16); both attention kernels must repeat their bits on a
@@ -91,28 +93,10 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls, by
-    CUDA events. A spin kernel keeps the stream busy while the host
-    enqueues the calls, so host launch overhead does not show up as device
-    time; operands stay L2-resident between calls."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    host_s = (time.perf_counter() - t0) / 3
-    torch.cuda._sleep(int(min(3 * iters * host_s, 2.0) * 2e9))
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean device time of ``fn`` by CUDA events behind a spin kernel:
+    ``repro_torch.launch.timing.time_ms``, which the plan sweeps share."""
+    from repro_torch.launch.timing import time_ms as timed
+    return timed(fn, iters, warmup)
 
 
 def bound(bytes_moved: float, *work):
@@ -168,8 +152,8 @@ def check_redesigned_build(build):
     """The bf16 flash kernel must run on the tensor cores: its library's
     SASS holds HGMMA (wgmma) instructions. No redesigned kernel (flash and
     paged attention, the page cipher, the quantizing seal) may spill
-    registers. Prints the SASS instructions per element of the cipher and
-    the seal."""
+    registers. Prints the SASS instructions per element of the cipher, the
+    seal and the unseal."""
     import re
     for name in ("flash_attention", "paged_attention", "seal_bits",
                  "seal_q8"):
@@ -194,12 +178,25 @@ def check_redesigned_build(build):
         log(f"  {label} SASS: {n:g} instructions per element, the vector "
             f"thread's beyond the one-element thread's ({top})")
     # seal_q8_kernel<bf16, VEC = true>: its whole code over the 4 elements
-    # a thread holds, the later-tile loops included
-    seal = _one(sass_opcodes(build, "seal_q8"),
-                "seal_q8_kernelI13__nv_bfloat16Lb1E")
+    # a thread holds, the later-tile loops included (the length prefix of
+    # the mangled name tells it from unseal_q8_kernel)
+    q8 = sass_opcodes(build, "seal_q8")
+    seal = _one(q8, "14seal_q8_kernelI13__nv_bfloat16Lb1E")
     log(f"  seal bf16 SASS: {len(seal)} instructions in the kernel, "
         f"{len(seal) / 4:g} per element held (an upper bound: the loops "
         f"over later tiles do not run at 2048 columns)")
+    # unseal_q8_kernel<T, VEC>: each thread opens 4 elements, with no loop,
+    # so the vector kernel's whole code over 4 is its cost per element,
+    # set-up included; the scalar kernel (byte loads, element stores)
+    # beside it
+    for label, t in (("bf16", "I13__nv_bfloat16"), ("f32", "If")):
+        vec = _one(q8, f"16unseal_q8_kernel{t}Lb1E")
+        scalar = _one(q8, f"16unseal_q8_kernel{t}Lb0E")
+        n, by_op = marginal(vec, [], 4)
+        top = ", ".join(f"{op} {k:g}" for op, k in list(by_op.items())[:8])
+        log(f"  unseal {label} SASS: {len(vec)} instructions in the vector "
+            f"kernel, {n:g} per element, set-up included ({top}); the "
+            f"scalar kernel {len(scalar)}")
     log(f"  the cipher's bound counts KEYSTREAM_OPS = {KEYSTREAM_OPS} "
         f"32-bit operations per element")
 
@@ -323,13 +320,19 @@ SEAL_Q8_CASES = [((4, 2048), "bfloat16", 0), ((4, 2048), "float32", 0),
                  ((1, 16), "float32", 0), ((3, 2047), "bfloat16", 0),
                  ((5, 7), "float32", 0), ((3, 2052), "bfloat16", 0),
                  ((4, 2048), "bfloat16", 1), ((3, 2047), "bfloat16", 1),
-                 ((5, 7), "float32", 1)]
+                 ((5, 7), "float32", 1), ((1, 1), "float32", 0),
+                 ((1, 5000), "bfloat16", 0), ((64, 8192), "bfloat16", 0),
+                 ((70000, 4), "float32", 0)]
+# unseal also opens each case's cipher from views this many bytes past a
+# 4-byte boundary (1 to 3: the kernel's scalar path), into both out types
+UNSEAL_OFFSETS = (0, 1, 2, 3)
 
 
 def check_seal_q8(torch, ops, ref):
     """Quantizing seal kernel vs plain version: cipher bytes equal but for
     rounding ties (at most 1e-3 of them, the reference's own allowance),
-    row scales equal, and unseal of one cipher bit-equal. Returns the
+    row scales equal, and unseal of one cipher bit-equal into bf16 and f32,
+    from the cipher at each of ``UNSEAL_OFFSETS``. Returns the
     largest difference that the tie mismatches make in the opened values,
     over every case."""
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -348,16 +351,24 @@ def check_seal_q8(torch, ops, ref):
             assert torch.equal(s, ws), f"seal {shape} {dt}: scales differ"
             assert torch.equal(s.cpu(), ref.seal_ref(x.cpu(), key, ctr)[1]), \
                 f"seal {shape} {dt}: scales differ from the CPU's"
-            got = ops.unseal(wc, ws, key, ctr, dtype)
-            want = ref.unseal_ref(wc, ws, key, ctr, dtype)
-            assert torch.equal(got.float(), want.float()), \
-                f"unseal {shape} {dt} not bit-equal"
+            for off in UNSEAL_OFFSETS:
+                buf = torch.empty(n + off, dtype=torch.uint8, device="cuda")
+                buf[off:] = wc.flatten()
+                cv = buf[off:].view(shape)
+                assert (cv.data_ptr() % 4 == 0) == (off == 0)
+                for out_dt, idt in ((torch.bfloat16, torch.int16),
+                                    (torch.float32, torch.int32)):
+                    got = ops.unseal(cv, ws, key, ctr, out_dt)
+                    want = ref.unseal_ref(wc, ws, key, ctr, out_dt)
+                    assert torch.equal(got.view(idt), want.view(idt)), \
+                        f"unseal {shape} {out_dt} offset {off} not bit-equal"
             opened = ref.unseal_ref(c, s, key, ctr, torch.float32)
             err = max(err, (opened - ref.unseal_ref(
                 wc, ws, key, ctr, torch.float32)).abs().max().item())
         log(f"check seal/unseal {dt} {list(shape)}"
             f"{' offset 1' if offset else ''}: cipher mismatch "
-            f"{mismatch:.1e} (<= 1e-3), scales equal, unseal bit-equal")
+            f"{mismatch:.1e} (<= 1e-3), scales equal, unseal bit-equal "
+            f"(cipher offsets {UNSEAL_OFFSETS}, bf16 and f32 out)")
     return err
 
 

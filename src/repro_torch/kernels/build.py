@@ -40,8 +40,8 @@ SIGNATURES = {
                   [_P, _P, _LL, _U, _U] + [_I] * 4 + [_P]),
     "seal_q8": ("seal_q8", "repro_seal_q8", [_P, _P, _P, _I, _I, _U, _U]
                 + [_I] * 3 + [_P]),
-    "unseal_q8": ("seal_q8", "repro_unseal_q8", [_P, _P, _P, _I, _I, _U, _U,
-                                                 _I, _P]),
+    "unseal_q8": ("seal_q8", "repro_unseal_q8", [_P, _P, _P, _I, _I, _U, _U]
+                  + [_I] * 4 + [_P]),
     "flash_attention": ("flash_attention", "repro_flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _I, _P]),

@@ -49,9 +49,3 @@ __device__ __forceinline__ uint32_t keystream_pre(const KeystreamConsts& c,
   x = x * c.kmul + c.ctr;
   return (x ^ (x >> 15)) * kM1;
 }
-
-__device__ __forceinline__ uint32_t keystream_u32(uint32_t key, uint32_t ctr,
-                                                  uint32_t idx) {
-  const uint32_t p = keystream_pre(keystream_consts(key, ctr), idx * kM1);
-  return p ^ (p >> 17);
-}

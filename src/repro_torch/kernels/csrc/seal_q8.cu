@@ -17,11 +17,12 @@
 // 2**32, as in seal_bits.cu, so the keystream is the reference's.
 //
 // What bounds it on this card: at the pipeline boundary's shape ([4, 2048]
-// bf16: 16 KB in, 8 KB + 16 B out) neither bytes (about 7 ns at 3.35 TB/s)
-// nor integer operations (about 11 ns): a launch costs microseconds, and
-// past it the latency of one block's chain (load, block-wide max, divide,
-// store) decides. The earlier design read each row twice with 2-byte loads,
-// 8 elements a thread in series, around two barriers.
+// bf16: 16 KB in, 8 KB + 16 B out, and the reverse for unseal) neither
+// bytes (about 7 ns at 3.35 TB/s) nor integer operations (about 11 ns): a
+// launch costs microseconds, and past it the latency of one block's chain
+// decides (seal: load, block-wide max, divide, store; unseal: load, XOR,
+// multiply, store). The earlier seal read each row twice with 2-byte
+// loads, 8 elements a thread in series, around two barriers.
 //
 // seal's design, to shorten that chain:
 //   - one block per row; each thread holds 4 consecutive elements in
@@ -38,7 +39,19 @@
 //   - a row not so aligned, or whose width is not a multiple of 4, takes
 //     scalar loads and byte stores with the same ownership; a row wider
 //     than one tile (threads x 4) reads its later tiles again.
-// unseal is elementwise, grid-stride (the simple design of its first port).
+// unseal's design, with no reduction to wait for:
+//   - a 2-D grid: blockIdx.y (and z past 65535 rows) is the row, blockIdx.x
+//     a tile of threads x 4 columns (plan from `ops._unseal_plan`); each
+//     thread owns 4 consecutive columns, found from the block indices in
+//     32-bit arithmetic: no loop and no division;
+//   - one 4-byte load of cipher bytes, one XOR with the same packed
+//     keystream top bytes as the seal's, four sign-extended bytes, four
+//     f32 multiplies by the row's scale (one load, one address per block),
+//     one 8-byte (bf16) or 16-byte (f32) store;
+//   - an unaligned cipher view, or a width not a multiple of 4, takes byte
+//     loads and element stores with the same ownership;
+//   - what is left on an H100 is the launch: at [4, 2048] bf16 unseal
+//     takes about 0.2 us more than a one-element zero_() (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -183,21 +196,71 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-template <typename T>
-__global__ void unseal_q8_kernel(const uint8_t* __restrict__ cipher,
-                                 const float* __restrict__ scales,
-                                 T* __restrict__ out, long long n, int cols,
-                                 uint32_t key, uint32_t ctr) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const uint32_t ks = keystream_u32(key, ctr, (uint32_t)i);
-    const int q = (int)(int8_t)(uint8_t)(cipher[i] ^ (uint8_t)(ks >> 24));
-    out[i] = from_f32<T>((float)q * scales[i / cols]);
+// kEpt elements of one row at columns c .. c + 3 to out, from f32 by
+// round-to-nearest-even; none past the row's end. VEC: out is 8-byte
+// (bf16) or 16-byte (f32) aligned and cols a multiple of 4, so the
+// thread's elements are one store.
+template <typename T, bool VEC>
+__device__ __forceinline__ void store_elems(T* __restrict__ orow, unsigned c,
+                                            unsigned cols,
+                                            const float (&v)[kEpt]) {
+  if constexpr (VEC) {
+    if constexpr (sizeof(T) == 2) {
+      // cvt.rn.bf16x2.f32: each half rounded as __float2bfloat16_rn
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+      *reinterpret_cast<uint2*>(orow + c) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                     *reinterpret_cast<const uint32_t*>(&hi));
+    } else {
+      *reinterpret_cast<float4*>(orow + c) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kEpt; ++e)
+      if (c + e < cols) orow[c + e] = from_f32<T>(v[e]);
   }
 }
 
-constexpr int kThreads = 256;  // unseal
+// Rows per z-slice of unseal's grid: gridDim.y is at most 65535.
+constexpr unsigned kGridRows = 65535;
+
+// Thread t of block (x, y, z) owns columns (x * blockDim.x + t) * 4 .. + 3
+// of row z * 65535 + y: no loop, no division. The cipher bytes come in as
+// one 4-byte load (VEC: cipher 4-byte aligned, cols a multiple of 4) or as
+// byte loads, packed into a word, byte e for column c + e; one XOR with the
+// keystream's top bytes, computed while the loads are in flight, opens all
+// four. The flat index is row * cols + c modulo 2**32; the pointer offset
+// is 64-bit.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(1024)
+    unseal_q8_kernel(const uint8_t* __restrict__ cipher,
+                     const float* __restrict__ scales, T* __restrict__ out,
+                     unsigned rows, unsigned cols, KeystreamConsts kc) {
+  const unsigned row = blockIdx.z * kGridRows + blockIdx.y;
+  const unsigned c = (blockIdx.x * blockDim.x + threadIdx.x) * kEpt;
+  if (row >= rows || c >= cols) return;
+  const long long base = (long long)row * cols;
+  const uint8_t* cr = cipher + base;
+  uint32_t w;
+  if constexpr (VEC) {
+    w = *reinterpret_cast<const uint32_t*>(cr + c);
+  } else {
+    w = 0;
+#pragma unroll
+    for (int e = 0; e < kEpt; ++e)
+      if (c + e < cols) w |= (uint32_t)cr[c + e] << (8 * e);
+  }
+  const float scale = scales[row];  // one address for the whole block
+  w ^= keystream_top_bytes(kc, (uint32_t)base + c);
+  // sign-extend each byte, then one correctly rounded f32 multiply (no FMA)
+  float v[kEpt];
+#pragma unroll
+  for (int e = 0; e < kEpt; ++e)
+    v[e] = __fmul_rn((float)(int8_t)(w >> (8 * e)), scale);
+  store_elems<T, VEC>(out + base, c, cols, v);
+}
 
 template <typename T>
 cudaError_t launch_seal(const void* x, void* cipher, void* scales, int rows,
@@ -209,6 +272,24 @@ cudaError_t launch_seal(const void* x, void* cipher, void* scales, int rows,
   else
     seal_q8_kernel<T, false><<<rows, threads, 0, s>>>(
         (const T*)x, (uint8_t*)cipher, (float*)scales, cols, kc);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_unseal(const void* cipher, const void* scales, void* out,
+                          int rows, int cols, KeystreamConsts kc, bool vec,
+                          int threads, int tiles, cudaStream_t s) {
+  const unsigned r = (unsigned)rows;
+  const dim3 grid((unsigned)tiles, r < kGridRows ? r : kGridRows,
+                  (r + kGridRows - 1) / kGridRows);
+  if (vec)
+    unseal_q8_kernel<T, true><<<grid, threads, 0, s>>>(
+        (const uint8_t*)cipher, (const float*)scales, (T*)out, r,
+        (unsigned)cols, kc);
+  else
+    unseal_q8_kernel<T, false><<<grid, threads, 0, s>>>(
+        (const uint8_t*)cipher, (const float*)scales, (T*)out, r,
+        (unsigned)cols, kc);
   return cudaGetLastError();
 }
 
@@ -241,25 +322,31 @@ extern "C" int repro_seal_q8(const void* x, void* cipher, void* scales,
   return (int)cudaErrorInvalidValue;
 }
 
+// unseal takes its plan from the wrapper (`ops._unseal_plan`): threads per
+// block (a multiple of 32, at most 1024) and column tiles of threads * 4
+// that cover the row with none empty; vec_ok != 0 where cipher is 4-byte
+// aligned, out 8-byte (bf16) or 16-byte (f32) aligned and cols a multiple
+// of 4 (checked here).
 extern "C" int repro_unseal_q8(const void* cipher, const void* scales,
                                void* out, int rows, int cols,
                                unsigned int key, unsigned int ctr,
-                               int out_elem_bytes, void* stream) {
+                               int out_elem_bytes, int vec_ok, int threads,
+                               int tiles, void* stream) {
   if (rows <= 0 || cols <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long n = (long long)rows * cols;
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond that
-  if (out_elem_bytes == 4) {
-    unseal_q8_kernel<float><<<(unsigned)blocks, kThreads, 0, s>>>(
-        (const uint8_t*)cipher, (const float*)scales, (float*)out, n, cols,
-        key, ctr);
-  } else if (out_elem_bytes == 2) {
-    unseal_q8_kernel<__nv_bfloat16><<<(unsigned)blocks, kThreads, 0, s>>>(
-        (const uint8_t*)cipher, (const float*)scales, (__nv_bfloat16*)out, n,
-        cols, key, ctr);
-  } else {
+  if (out_elem_bytes != 2 && out_elem_bytes != 4)
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = vec_ok != 0;
+  const long long tile = (long long)threads * kEpt;
+  if (threads < 32 || threads > 1024 || threads % 32 || tiles <= 0 ||
+      tiles * tile < cols || (tiles - 1) * tile >= cols ||
+      (vec && (cols % 4 || (uintptr_t)cipher % 4 ||
+               (uintptr_t)out % (4 * out_elem_bytes))))
+    return (int)cudaErrorInvalidValue;
+  const KeystreamConsts kc = keystream_consts(key, ctr);
+  if (out_elem_bytes == 4)
+    return (int)launch_unseal<float>(cipher, scales, out, rows, cols, kc, vec,
+                                     threads, tiles, s);
+  return (int)launch_unseal<__nv_bfloat16>(cipher, scales, out, rows, cols,
+                                           kc, vec, threads, tiles, s);
 }

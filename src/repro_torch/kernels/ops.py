@@ -134,6 +134,23 @@ def _seal_threads(cols: int) -> int:
     return min(1024, 32 * max(1, -(-cols // (32 * _SEAL_EPT))))
 
 
+# most threads per block of the quantizing unseal: of 32 .. 512 in
+# ``python -m repro_torch.launch.sweep_seal``, 128 and 256 were within noise
+# of each other at [4, 2048] and [8, 2048] bf16 on an H100, and 128 the
+# fastest at the stage boundary's [4, 2048] (PERF.md section 6)
+_UNSEAL_THREADS = 128
+
+
+def _unseal_plan(cols: int):
+    """(threads per block, column tiles) of the quantizing unseal, the
+    same for every row: block (x, row) holds a tile of threads * 4 columns
+    of its row, thread t columns x * threads * 4 + t * 4 .. + 3 below cols;
+    threads a multiple of 32, at most ``_UNSEAL_THREADS``, fewer where the
+    row is narrower than one such tile, and no tile empty."""
+    threads = min(_UNSEAL_THREADS, 32 * max(1, -(-cols // (32 * _SEAL_EPT))))
+    return threads, -(-cols // (threads * _SEAL_EPT))
+
+
 # ---------------------------------------------------------------------------
 # Quantizing activation seal (stage boundaries)
 # ---------------------------------------------------------------------------
@@ -185,11 +202,15 @@ def unseal(cipher: torch.Tensor, scales: torch.Tensor, key: int,
     _check_cuda("unseal", cipher, scales)
     rows, cols = cipher.shape
     out = torch.empty((rows, cols), dtype=out_dtype, device=cipher.device)
+    vec_ok = int(cipher.data_ptr() % 4 == 0
+                 and out.data_ptr() % (4 * out.element_size()) == 0
+                 and cols % 4 == 0)
     with torch.cuda.device(cipher.device):
         rc = entry("unseal_q8")(
             cipher.data_ptr(), scales.data_ptr(), out.data_ptr(), rows, cols,
             int(key) & 0xFFFFFFFF, int(counter) & 0xFFFFFFFF,
-            out.element_size(), _stream(cipher.device))
+            out.element_size(), vec_ok, *_unseal_plan(cols),
+            _stream(cipher.device))
     if rc:
         raise _launch_failed("unseal", rc)
     LAUNCHES["unseal"] += 1

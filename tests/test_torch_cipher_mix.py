@@ -14,9 +14,16 @@ bf16 and an f32 vector, the scalar path, and the seal's keystream and
 quantized bytes, over 4 x 65,536 indices (one run crossing 2**32, one far
 past it) at key and counter in {0, 0xFFFFFFFF, 0xC0FFEE}.
 
+The quantizing unseal's per-thread arithmetic is transcribed the same
+way (a 4-byte word of cipher bytes, one XOR with the packed keystream top
+bytes, sign extension, one f32 multiply, the round to bf16 done on the
+bits) and held bit for bit against the port's ``ref.unseal_ref`` and the
+JAX package's ``unseal_pallas`` in interpret mode.
+
 It also transcribes the kernels' index rule (which thread touches which
 element) and checks that the wrappers' launch plans (``ops._cipher_plan``,
-``ops._seal_threads``) cover every element exactly once.
+``ops._seal_threads``, ``ops._unseal_plan``) cover every element exactly
+once.
 """
 import types
 
@@ -24,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.seal import keystream_u32 as torch_keystream
 
 MASK = 0xFFFFFFFF
@@ -41,8 +48,9 @@ def jx():
     pytest.importorskip("jax")
     import jax.numpy as jnp
 
-    from repro.kernels.seal import keystream_u32
-    return types.SimpleNamespace(jnp=jnp, keystream=keystream_u32)
+    from repro.kernels.seal import keystream_u32, unseal_pallas
+    return types.SimpleNamespace(jnp=jnp, keystream=keystream_u32,
+                                 unseal_pallas=unseal_pallas)
 
 
 def u32(v) -> np.ndarray:
@@ -200,6 +208,92 @@ def test_seal_packs_each_quantized_byte_in_its_lane():
             (word >> np.uint32(8 * e)) & np.uint32(0xFF), q[:, e] & 0xFF)
 
 
+def unseal_transcribed(cipher: np.ndarray, scales: np.ndarray, key: int,
+                       ctr: int, out: str) -> np.ndarray:
+    """seal_q8.cu unseal_q8_kernel, every thread at once: the thread of
+    columns c .. c + 3 of a row packs their cipher bytes into a word (byte
+    e for column c + e, zero past the row: one 4-byte load on the vector
+    path, byte loads on the scalar one), XORs it with keystream_top_bytes
+    at row * cols + c (mod 2**32), takes byte e as int8, multiplies by the
+    row's f32 scale once (IEEE, round to nearest even) and, for bf16, rounds
+    the f32 bits to nearest even. Returns the output bits: uint16 (bf16) or
+    uint32 (f32), [rows, cols]."""
+    rows, cols = cipher.shape
+    starts = np.arange(0, cols, 4)
+    padded = np.zeros((rows, len(starts) * 4), np.uint32)
+    padded[:, :cols] = cipher
+    lanes = padded.reshape(rows, len(starts), 4)
+    word = (lanes[..., 0] | lanes[..., 1] << np.uint32(8)
+            | lanes[..., 2] << np.uint32(16) | lanes[..., 3] << np.uint32(24))
+    idx0 = np.arange(rows, dtype=np.int64)[:, None] * cols + starts[None, :]
+    w = word ^ seal_top_bytes(consts(key, ctr), idx0)
+    v = np.stack([((w >> np.uint32(8 * e)) & np.uint32(0xFF))
+                  .astype(np.uint8).view(np.int8) for e in range(4)], axis=-1)
+    v = v.astype(np.float32) * scales.astype(np.float32)[:, :, None]
+    bits = v.reshape(rows, -1)[:, :cols].view(np.uint32)
+    if out == "float32":
+        return bits
+    # f32 -> bf16, round to nearest even (values here are finite)
+    rounded = (bits + np.uint32(0x7FFF) + ((bits >> np.uint32(16))
+                                           & np.uint32(1))) >> np.uint32(16)
+    return rounded.astype(np.uint16)
+
+
+def unseal_inputs(shape, seed=5):
+    """Cipher bytes holding every one of the 256 values, shuffled, and f32
+    row scales of the sizes the seal makes (absmax / 127), from numpy."""
+    rng = np.random.RandomState(seed)
+    n = shape[0] * shape[1]
+    c = np.resize(np.arange(256, dtype=np.uint8), n)
+    rng.shuffle(c)
+    scales = (rng.rand(shape[0], 1) * 8 / 127 + 1e-6).astype(np.float32)
+    return c.reshape(shape), scales
+
+
+def bits_of(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("out", ["bfloat16", "float32"])
+@pytest.mark.parametrize("key,ctr", [(0, 0), (0xFFFFFFFF, 0xFFFFFFFF),
+                                     (0xC0FFEE, 65537 * 3)])
+@pytest.mark.parametrize("shape", [(4, 2048), (3, 2047), (5, 7)])
+def test_unseal_transcription_matches_both_packages(jx, shape, key, ctr, out):
+    """The vector path's arithmetic (cols a multiple of 4) and the scalar
+    path's (the last thread of a row holds fewer than 4 columns)."""
+    cipher, scales = unseal_inputs(shape)
+    assert len(np.unique(cipher)) == min(256, cipher.size)
+    got = unseal_transcribed(cipher, scales, key, ctr, out)
+    port = ref.unseal_ref(torch.from_numpy(cipher), torch.from_numpy(scales),
+                          key, ctr, getattr(torch, out))
+    np.testing.assert_array_equal(got, bits_of(port))
+    jnp = jx.jnp
+    want = jx.unseal_pallas(jnp.asarray(cipher), jnp.asarray(scales),
+                            jnp.uint32(key), jnp.uint32(ctr),
+                            out_dtype=getattr(jnp, out), interpret=True)
+    np.testing.assert_array_equal(
+        got, np.asarray(want).view(np.uint16 if out == "bfloat16"
+                                   else np.uint32))
+
+
+def test_unseal_sign_extends_every_byte():
+    """Byte b opens to the int8 value of b times the scale, for all 256 b,
+    in every lane of the word."""
+    cipher = np.arange(256, dtype=np.uint8).reshape(64, 4)
+    ks = seal_top_bytes(consts(3, 4), np.arange(64, dtype=np.int64) * 4)
+    lanes = np.stack([(ks >> np.uint32(8 * e)) & np.uint32(0xFF)
+                      for e in range(4)], axis=1).astype(np.uint8)
+    # the cipher bytes that open to 0..255 in order under key 3, ctr 4
+    opened = unseal_transcribed(cipher ^ lanes, np.ones((64, 1), np.float32),
+                                3, 4, "float32").view(np.float32)
+    # one row of 256 columns: the flat index of (r, c) is 4 * r + c
+    np.testing.assert_array_equal(
+        opened.reshape(-1), np.arange(256, dtype=np.uint8).view(np.int8)
+        .astype(np.float32))
+
+
 # --- launch plans ------------------------------------------------------------
 def cipher_hits(n: int, elem_bytes: int, vec_ok: bool, plan) -> np.ndarray:
     """How often the page cipher kernel touches each of n elements under
@@ -262,4 +356,26 @@ def test_seal_plan_covers_every_column_once(cols):
                 for t in range(threads) for e in range(4)
                 if t0 + t * 4 + e < cols]
     assert np.array_equal(np.bincount(cols_hit, minlength=cols),
+                          np.ones(cols, np.int64))
+
+
+@pytest.mark.parametrize("most", [32, 64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("cols", list(range(1, 10)) + [2047, 2048, 5000,
+                                                      8192])
+def test_unseal_plan_covers_every_column_once(cols, most, monkeypatch):
+    """Thread t of column tile x holds columns x * threads * 4 + t * 4 + e
+    (e < 4, below cols) of its row (seal_q8.cu unseal_q8_kernel), under the
+    plan's default bound on threads and each candidate of
+    ``repro_torch.launch.sweep_seal``; no tile is empty (the C entry
+    refuses such a plan)."""
+    if most != 1024:
+        monkeypatch.setattr(ops, "_UNSEAL_THREADS", most)
+    threads, tiles = ops._unseal_plan(cols)
+    assert threads % 32 == 0 and 32 <= threads <= min(most, 1024)
+    tile = threads * 4
+    assert (tiles - 1) * tile < cols <= tiles * tile, (threads, tiles)
+    x, t, e = np.meshgrid(np.arange(tiles), np.arange(threads), np.arange(4),
+                          indexing="ij")
+    col = (x * tile + t * 4 + e).ravel()
+    assert np.array_equal(np.bincount(col[col < cols], minlength=cols),
                           np.ones(cols, np.int64))

@@ -12,7 +12,8 @@ packages both ways, and the activation-sealing helpers (``_leaf_counter``,
 
 On a card (marker ``cuda``, skipped without one): the CUDA kernel against
 the plain version on the same inputs — the same tolerances, scales equal,
-unseal bit-equal. Run there with
+unseal bit-equal, the latter also from cipher views 1 to 3 bytes past a
+4-byte boundary, into bf16 and f32, and past 65,535 rows. Run there with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_seal_q8.py``
 (the JAX half skips where JAX is not installed).
 """
@@ -244,3 +245,58 @@ def test_seal_kernel_rows_wider_than_the_block(cuda):
         wc, ws = ref.seal_ref(x, 5, 6)
         assert torch.equal(s, ws)
         assert (c != wc).float().mean().item() < TIE_TOL
+
+
+# unseal on the card: the stage boundary's shape and its double, widths not
+# a multiple of 4, one element, one wide row, and a wide block of rows
+UNSEAL_CARD_SHAPES = [(4, 2048), (8, 2048), (3, 2047), (5, 7), (1, 1),
+                      (1, 5000), (64, 8192)]
+
+
+def _unseal_operands(device, shape, offset, seed=7):
+    """Random cipher bytes as a contiguous view ``offset`` bytes past a
+    4-byte boundary, and f32 row scales of the seal's sizes."""
+    rng = np.random.RandomState(seed)
+    n = shape[0] * shape[1]
+    base = torch.from_numpy(rng.randint(0, 256, size=n + offset)
+                            .astype(np.uint8)).to(device)
+    c = base[offset:].view(shape)
+    assert c.is_contiguous() and (c.data_ptr() % 4 == 0) == (offset == 0)
+    scales = torch.from_numpy((rng.rand(shape[0], 1) * 8 / 127 + 1e-6)
+                              .astype(np.float32)).to(device)
+    return c, scales
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", ["bfloat16", "float32"])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("shape", UNSEAL_CARD_SHAPES)
+def test_unseal_kernel_matches_plain(cuda, shape, offset, out):
+    """Bit-equal to the plain version on the card and on the CPU; offsets
+    1 to 3 and widths not a multiple of 4 take the scalar path."""
+    c, scales = _unseal_operands(cuda, shape, offset)
+    dtype = getattr(torch, out)
+    for key, ctr in KEYS:
+        before = ops.LAUNCHES["unseal"]
+        got = ops.unseal(c, scales, key, ctr, dtype)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["unseal"] == before + 1
+        want = ref.unseal_ref(c, scales, key, ctr, dtype)
+        assert torch.equal(_bits(got), _bits(want)), "not bit-equal"
+        cpu = ref.unseal_ref(c.cpu(), scales.cpu(), key, ctr, dtype)
+        assert torch.equal(_bits(got.cpu()), _bits(cpu)), \
+            "not bit-equal to the CPU's"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [4, 3])
+def test_unseal_kernel_past_65535_rows(cuda, cols):
+    """Rows past gridDim.y's limit go to the grid's z slices."""
+    c, scales = _unseal_operands(cuda, (70000, cols), 0)
+    got = ops.unseal(c, scales, 5, 6, torch.float32)
+    want = ref.unseal_ref(c, scales, 5, 6, torch.float32)
+    assert torch.equal(_bits(got), _bits(want))
