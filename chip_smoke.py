@@ -29,7 +29,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      same function where one exists, and compute the least time the card
      could take (prefill attention at its three path shapes, paged
      attention at the short and the long decode shape, in bf16); also a
-     launch floor, a one-element ``zero_()`` under the same timing;
+     launch floor, a one-element ``zero_()`` under the same timing; each
+     kernel and the floor are timed again inside a CUDA graph (50
+     back-to-back launches captured, the graph replayed), as a captured
+     serving step runs them;
   4. check the whole serving path on a small input: reduced llama3.2-1b in
      f32 serves the same greedy streams on the card as on the CPU, through
      the local backend and through the pipelined backend (sealed stage
@@ -56,7 +59,15 @@ Phases (each prints its own lines; any failure exits non-zero):
      prefill (up to 4 prompts a call), 32 requests over a 116-page pool,
      chosen by a CPU rehearsal of the same flags so that this one stream
      chunks, packs and swap-preempts. Prints admission p50/p99, ms per
-     chunk, prefill tokens/s and decode ms per step.
+     chunk, prefill tokens/s and decode ms per step;
+  8. serve phase 5's and phase 7's streams again, each on a fresh engine
+     warmed up as CUDA graphs (``--warmup``: the decode step, every
+     one-shot and packed prefill bucket and every chunk offset captured,
+     each later call one replay): the greedy streams, the schedule and
+     the launch counts (replays included) must equal the eager phase's,
+     with no capture and no stall after warmup and every swap-in
+     bit-exact. Prints warmup seconds, graphs, memory reserved, and host
+     ms per decode step and per chunk beside the eager phase's.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
@@ -97,6 +108,14 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     ``repro_torch.launch.timing.time_ms``, which the plan sweeps share."""
     from repro_torch.launch.timing import time_ms as timed
     return timed(fn, iters, warmup)
+
+
+def graph_ms(fn) -> float:
+    """Mean device time of one call of ``fn`` among 50 back-to-back calls
+    captured in a CUDA graph (``repro_torch.launch.timing.graph_time_ms``):
+    a kernel's cost inside a captured serving step."""
+    from repro_torch.launch.timing import graph_time_ms
+    return graph_time_ms(fn)
 
 
 def bound(bytes_moved: float, *work):
@@ -465,6 +484,8 @@ def time_flash(torch, ops, ref, F):
         B, Sq, Sk, H, KVH, D, causal, window, off = case
         q, k, v = flash_inputs(torch, case, torch.bfloat16, seed=5)
         ms = time_ms(lambda: ops.flash_attention(q, k, v, q_offset=off))
+        in_graph = graph_ms(lambda: ops.flash_attention(q, k, v,
+                                                        q_offset=off))
         plain = time_ms(lambda: flash_plain(ref, q, k, v, q_offset=off), 20)
         # library yardstick: SDPA with heads ahead and KV heads repeated
         # beforehand (not timed); is_causal aligns top-left, so the
@@ -486,12 +507,12 @@ def time_flash(torch, ops, ref, F):
         b_ms, b_by = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
         out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                          bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-                         flops=flops)
+                         flops=flops, graph_ms=in_graph)
         log(f"time flash_attention {name} bf16 B={B} Sq={Sq} Sk={Sk} H={H} "
-            f"KVH={KVH} D={D} q_offset={off}: kernel {ms * 1e3:.1f} us, "
-            f"plain {plain * 1e3:.1f} us, sdpa {lib * 1e3:.1f} us, bound "
-            f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes / 1e6:.2f} MB, "
-            f"{flops / 1e9:.3f} GFLOP)")
+            f"KVH={KVH} D={D} q_offset={off}: kernel {ms * 1e3:.2f} us, "
+            f"in a graph {in_graph * 1e3:.2f} us, plain {plain * 1e3:.1f} "
+            f"us, sdpa {lib * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us "
+            f"({b_by}, {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
     return out
 
 
@@ -504,6 +525,7 @@ def time_paged(torch, ops, ref, F, shape):
     MP = bt.shape[1]
     rep = H // KVH
     ms = time_ms(lambda: ops.paged_attention(q, k, v, bt, sl))
+    in_graph = graph_ms(lambda: ops.paged_attention(q, k, v, bt, sl))
     plain = time_ms(lambda: ref.paged_attention_ref(q, k, v, bt, sl), 20)
     # library yardstick: SDPA over K/V gathered beforehand (not timed)
     btl = bt.long()
@@ -529,9 +551,10 @@ def time_paged(torch, ops, ref, F, shape):
     flops = 4.0 * H * D * float(sl.clamp_min(0).sum().item())
     b_ms, b_by = bound(nbytes, flops, F32_FLOP_PER_S)
     res = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-               bound_by=b_by, bytes=nbytes, flops=flops)
+               bound_by=b_by, bytes=nbytes, flops=flops, graph_ms=in_graph)
     log(f"time paged_attention bf16 B={B} KVH={KVH} rep={rep} D={D} Pg={Pg} "
-        f"MP={MP} N={N}: kernel {ms * 1e3:.2f} us, plain "
+        f"MP={MP} N={N}: kernel {ms * 1e3:.2f} us, in a graph "
+        f"{in_graph * 1e3:.2f} us, plain "
         f"{plain * 1e3:.1f} us, sdpa {lib * 1e3:.2f} us, bound "
         f"{b_ms * 1e3:.3f} us ({b_by}, "
         f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
@@ -561,12 +584,14 @@ def time_kernels(torch, ops, ref, sealing, F):
              lambda: ops.unseal_bits(c, 0xC0FFEE, ctr, torch.bfloat16),
              lambda: ref.unseal_bits_ref(c, 0xC0FFEE, ctr, torch.bfloat16))):
         ms = time_ms(fn)
+        in_graph = graph_ms(fn)
         plain = time_ms(plain_fn, 20)
         out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                         bound_by=b_by, bytes=nbytes)
-        log(f"time {name} bf16 [10, 131072]: kernel {ms * 1e3:.1f} us, plain "
-            f"{plain * 1e3:.1f} us, xor {lib * 1e3:.1f} us, bound "
-            f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes / 1e6:.2f} MB)")
+                         bound_by=b_by, bytes=nbytes, graph_ms=in_graph)
+        log(f"time {name} bf16 [10, 131072]: kernel {ms * 1e3:.2f} us, in a "
+            f"graph {in_graph * 1e3:.2f} us, plain {plain * 1e3:.1f} us, xor "
+            f"{lib * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}, "
+            f"{nbytes / 1e6:.2f} MB)")
 
     # quantizing seal at the stage boundary: [B_mb = 4, d_model = 2048] bf16
     x = torch.randn(4, 2048, generator=g, device="cuda").to(torch.bfloat16)
@@ -586,19 +611,22 @@ def time_kernels(torch, ops, ref, sealing, F):
               F32_FLOP_PER_S))):
         b_ms, b_by = bound(nbytes, *work)
         ms = time_ms(fn)
+        in_graph = graph_ms(fn)
         plain = time_ms(plain_fn, 20)
         # no single PyTorch call quantizes and ciphers: no library yardstick
         out[name] = dict(ms=ms, plain_ms=plain, library_ms=None,
-                         bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
-        log(f"time {name} bf16 [4, 2048]: kernel {ms * 1e3:.2f} us, plain "
-            f"{plain * 1e3:.1f} us, bound {b_ms * 1e3:.4f} us ({b_by}, "
-            f"{nbytes / 1e3:.1f} KB)")
-    # what any launch costs under time_ms: a one-element zero_(); a floor
-    # to read the seals' times against, not a bound, and not in the
-    # kernels line
+                         bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                         graph_ms=in_graph)
+        log(f"time {name} bf16 [4, 2048]: kernel {ms * 1e3:.2f} us, in a "
+            f"graph {in_graph * 1e3:.2f} us, plain {plain * 1e3:.1f} us, "
+            f"bound {b_ms * 1e3:.4f} us ({b_by}, {nbytes / 1e3:.1f} KB)")
+    # what any launch costs under time_ms, and inside a graph: a
+    # one-element zero_(); a floor to read the small kernels' times
+    # against, not a bound, and not in the kernels line
     z = torch.zeros(1, device="cuda")
     log(f"launch floor (one-element zero_(), same timing): "
-        f"{time_ms(lambda: z.zero_()) * 1e3:.2f} us")
+        f"{time_ms(lambda: z.zero_()) * 1e3:.2f} us, in a graph "
+        f"{graph_ms(lambda: z.zero_()) * 1e3:.2f} us")
     out["flash_attention"] = time_flash(torch, ops, ref, F)
     return out
 
@@ -685,59 +713,77 @@ PREFILL_WIDE = ["--arch", "llama3.2-1b", "--device", "cuda", "--backend",
 
 
 class TimedPrefill:
-    """The model API with every prefill call timed by the host clock
-    between two device synchronises, and its prompt tokens counted (a
-    packed call's dummy rows have length 1; the stream's prompts have at
-    least 2 tokens)."""
+    """Every prefill call of an engine (one-shot, packed, chunk) timed by
+    the host clock between two device synchronises, and its prompt tokens
+    counted (a packed call's dummy rows have length 1; the stream's prompts
+    have at least 2 tokens). It wraps the engine's managed calls
+    (``serving/aot.py``) from outside, so under CUDA graphs it times the
+    input copies and the replay, never inside a captured region."""
 
-    def __init__(self, torch, api):
-        self._torch, self._api = torch, api
+    def __init__(self, torch, eng):
+        self._torch = torch
         self.seconds, self.tokens, self.chunk_ms = 0.0, 0, []
+        for owner, attr, count in (
+                (eng, "_prefill_at", lambda a: a[1].sum()),
+                (eng, "_prefill_at_packed", lambda a: a[1][a[1] > 1].sum()),
+                (eng.backend, "_chunk", lambda a: a[2].sum())):
+            setattr(owner, attr, self._timed(getattr(owner, attr), count,
+                                             attr == "_chunk"))
 
-    def __getattr__(self, name):
-        return getattr(self._api, name)
+    def _timed(self, fn, count, chunk):
+        torch = self._torch
 
-    def _timed(self, fn, tokens, *a):
-        self._torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*a)
-        self._torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        self.seconds += dt
-        self.tokens += int(tokens)
-        return out, dt
+        def call(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            self.seconds += dt
+            self.tokens += int(count(a))
+            if chunk:
+                self.chunk_ms.append(dt * 1e3)
+            return out
+        return call
 
-    def prefill_at_fn(self, params, batch):
-        return self._timed(self._api.prefill_at_fn, batch["prompt_len"],
-                           params, batch)[0]
 
-    def prefill_packed_fn(self, params, batch):
-        real = sum(int(n) for n in batch["prompt_lens"] if n > 1)
-        return self._timed(self._api.prefill_packed_fn, real, params,
-                           batch)[0]
-
-    def prefill_chunk_fn(self, params, pools, batch):
-        out, dt = self._timed(self._api.prefill_chunk_fn, batch["chunk_len"],
-                              params, pools, batch)
-        self.chunk_ms.append(dt * 1e3)
-        return out
+# the counters two runs of one stream must agree on, eager or in graphs
+SCHEDULE = ("steps", "swap_outs", "swap_ins", "preemptions", "cow_hits",
+            "forks", "prefill_calls", "chunked_admissions", "prefill_chunks",
+            "packed_admissions", "packed_prefills", "completed",
+            "tokens_out")
 
 
 def serve_full_width(torch, ops, api, params, argv, phase):
-    """Phases 5 (local backend), 6 (pipelined backend) and 7 (local, long
-    prompts, chunked and packed prefill): the main path at full width,
-    with launch counts zeroed just before and read just after. Returns
-    the launch counts."""
+    """Phases 5 (local backend), 6 (pipelined backend), 7 (local, long
+    prompts, chunked and packed prefill) and 8 (5's and 7's streams on an
+    engine warmed up as CUDA graphs): the main path at full width, with
+    launch counts zeroed just before and read just after. Returns the
+    launch counts, the streams, the schedule's counters and the host
+    clock's ms per decode step and per chunk."""
     from repro_torch.launch import serve
     args = serve.build_parser().parse_args(argv)
     backend = serve.backend_of(args)
-    # warm-up: a short stream on its own engine (cuBLAS handles, allocator)
-    warm = serve.build_parser().parse_args(argv + ["--requests", "2"])
+    wide = args.prefill_chunk > 0
+    # warm-up: a short stream on its own eager engine (cuBLAS handles,
+    # allocator)
+    warm = serve.build_parser().parse_args(
+        [a for a in argv if a != "--warmup"] + ["--requests", "2"])
     serve.serve_stream(serve.make_engine(api, params, warm), warm,
                        serve.gen_prompts(warm, api.cfg.vocab_size))
 
-    timed = TimedPrefill(torch, api) if phase == 7 else api
-    eng = serve.make_engine(timed, params, args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = serve.make_engine(api, params, args)
+    if args.warmup:
+        st = eng.stats()
+        assert st["warmed"] and st["graphs"] > 0, st
+        log(f"serve phase {phase}: warmup {st['warmup_s']:.2f} s, "
+            f"{st['graphs']} CUDA graphs captured "
+            f"({', '.join(f'{n} {f.graphs}' for n, f in eng.aot.fns.items())}"
+            f"), memory reserved {torch.cuda.memory_reserved() / 2**30:.2f} "
+            f"GiB, peak {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB")
+    timed = TimedPrefill(torch, eng) if wide else None
     planned = eng.stage_blocks
     be = eng.backend
     gathered, restored = {}, []
@@ -812,13 +858,19 @@ def serve_full_width(torch, ops, api, params, argv, phase):
         assert launches["paged_attention"] == \
             be.steps * nm * n_layers + probe_layers[0], \
             (launches, be.steps, probe_layers[0])
-    if phase == 7:
+    if args.warmup:
+        assert st["post_warmup_compiles"] == 0, st["post_warmup_compiles"]
+        assert st["compile_stalls"] == [], st["compile_stalls"]
+    else:
+        assert st["post_warmup_compiles"] is None and not st["graphs"], st
+    if wide:
         assert st["chunked_admissions"] > 0, st
         assert st["packed_admissions"] > st["packed_prefills"] > 0, st
     eng.check_page_invariants()
     step_ms = st["decode_wall_s"] / max(be.steps, 1) * 1e3
-    log(f"serve phase {phase} ({backend}): {st['completed']} requests, "
-        f"{st['tokens_out']} tokens, {be.steps} decode steps of "
+    log(f"serve phase {phase} ({backend}"
+        f"{', CUDA graphs' if args.warmup else ''}): {st['completed']} "
+        f"requests, {st['tokens_out']} tokens, {be.steps} decode steps of "
         f"{st['steps']}, {st['tok_per_s']:.1f} tok/s decode, {step_ms:.2f} "
         f"ms/decode step (host clock, {args.slots} slots), wall {wall:.2f} "
         f"s incl. admission prefill")
@@ -832,17 +884,19 @@ def serve_full_width(torch, ops, api, params, argv, phase):
         f"{st.get('admission_p50_ms', 0):.1f} ms p99="
         f"{st.get('admission_p99_ms', 0):.1f} ms, prefill_calls="
         f"{st['prefill_calls']}")
-    if phase == 7:
+    chunk_ms = None
+    if wide:
         chunk = sorted(timed.chunk_ms)
-        log(f"serve phase 7: chunked {st['chunked_admissions']} admissions "
-            f"in {st['prefill_chunks']} chunks of {args.prefill_chunk}, "
-            f"packed {st['packed_admissions']} admissions in "
-            f"{st['packed_prefills']} calls of up to {args.prefill_pack}; "
-            f"ms per chunk p50 {chunk[len(chunk) // 2]:.2f} mean "
-            f"{sum(chunk) / len(chunk):.2f} (host clock between device "
-            f"synchronises); prefill {timed.tokens} tokens in "
-            f"{timed.seconds:.3f} s = {timed.tokens / timed.seconds:.0f} "
-            f"tokens/s")
+        chunk_ms = sum(chunk) / len(chunk)
+        log(f"serve phase {phase}: chunked {st['chunked_admissions']} "
+            f"admissions in {st['prefill_chunks']} chunks of "
+            f"{args.prefill_chunk}, packed {st['packed_admissions']} "
+            f"admissions in {st['packed_prefills']} calls of up to "
+            f"{args.prefill_pack}; ms per chunk p50 "
+            f"{chunk[len(chunk) // 2]:.2f} mean {chunk_ms:.2f} (host clock "
+            f"between device synchronises); prefill {timed.tokens} tokens "
+            f"in {timed.seconds:.3f} s = "
+            f"{timed.tokens / timed.seconds:.0f} tokens/s")
     detail = f"{be.steps} steps x {n_layers} layers" if backend == "local" \
         else (f"{be.steps} steps x {nm} microbatches x {n_layers} layers + "
               f"{probe_layers[0]} probe layer runs; seal = {be.steps} x "
@@ -850,7 +904,34 @@ def serve_full_width(torch, ops, api, params, argv, phase):
     log(f"serve phase {phase}: launches {launches} (paged attention "
         f"{detail}; flash attention {st['prefill_calls']} prefill calls x "
         f"{n_layers} layers)")
-    return launches
+    return dict(launches=launches, streams=[list(r.generated) for r in reqs],
+                schedule={k: st[k] for k in SCHEDULE}, steps=be.steps,
+                step_ms=step_ms, chunk_ms=chunk_ms)
+
+
+def serve_in_graphs(torch, ops, api, params, argv, phase, eager):
+    """Phase 8: ``argv``'s stream again on a fresh engine warmed up as CUDA
+    graphs (``--warmup``). Its greedy streams, schedule and launch counts
+    (graph replays included) must equal the eager phase's ``eager``, with
+    no capture and no stall after warmup (``serve_full_width`` asserts
+    those and the bit-exact swap-ins)."""
+    import gc
+    res = serve_full_width(torch, ops, api, params, argv + ["--warmup"],
+                           f"8 (phase {phase}'s stream)")
+    assert res["streams"] == eager["streams"], \
+        f"phase {phase}'s stream differs under CUDA graphs"
+    assert res["schedule"] == eager["schedule"] and \
+        res["steps"] == eager["steps"], (res["schedule"], eager["schedule"])
+    assert res["launches"] == eager["launches"], \
+        (res["launches"], eager["launches"])
+    log(f"serve phase 8 (phase {phase}'s stream): streams, schedule and "
+        f"launches equal the eager run's; host ms per decode step "
+        f"{res['step_ms']:.2f} in graphs against {eager['step_ms']:.2f} "
+        f"eager" + (f"; ms per chunk {res['chunk_ms']:.2f} against "
+                    f"{eager['chunk_ms']:.2f}" if res["chunk_ms"] else ""))
+    gc.collect()                # the engine's graphs and their memory pool
+    torch.cuda.empty_cache()
+    return res
 
 
 def _leaves(tree):
@@ -923,12 +1004,17 @@ def main() -> int:
         f"d_model {api.cfg.d_model}, vocab {api.cfg.vocab_size}, "
         f"{n_params / 1e9:.3f} B params bf16, init "
         f"{time.perf_counter() - t0:.1f} s")
-    runs = [serve_full_width(torch, ops, api, params,
-                             FULL_WIDTH + ["--backend", "local"], 5),
+    local = FULL_WIDTH + ["--backend", "local"]
+    runs = [serve_full_width(torch, ops, api, params, local, 5),
             serve_full_width(torch, ops, api, params,
                              FULL_WIDTH + ["--backend", "pipelined"], 6),
             serve_full_width(torch, ops, api, params, PREFILL_WIDE, 7)]
-    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
+    # phase 8: phases 5 and 7 again, on engines warmed up as CUDA graphs
+    runs += [serve_in_graphs(torch, ops, api, params, local, 5, runs[0]),
+             serve_in_graphs(torch, ops, api, params, PREFILL_WIDE, 7,
+                             runs[2])]
+    launches = {k: sum(r["launches"][k] for r in runs)
+                for k in runs[0]["launches"]}
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = []

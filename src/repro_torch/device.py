@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points.
+"""Device selection for the port's entry points, and host arrays onto the
+device.
 
 The port is written for one NVIDIA GPU. Entry points default to ``cuda``
 and use the CPU only when the caller asks for it (the CPU tests do); with
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -24,3 +26,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def to_device(a, device: torch.device, dtype=np.int64) -> torch.Tensor:
+    """A host array as a tensor on ``device``. On a card the copy goes
+    through pinned memory and does not block: a copy from pageable memory
+    would synchronise the host with the stream, and could not feed a
+    captured graph's input buffer without that wait. The pinned block is
+    the caching host allocator's, which reuses it only once the copy has
+    run."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -17,12 +17,17 @@ the token streams equal an undisturbed run's, ``--prefill-chunk N`` streams
 prompts longer than N in N-token chunks, ``--prefill-pack K`` admits up to
 K short prompts in one prefill call, and ``--verify-chunked`` serves the
 stream again with one-shot prefill and checks the streams are equal
-(prints ``CHUNK-EXACT OK``). Runs on ``cuda`` unless ``--device cpu`` is
-given; without a card it raises.
+(prints ``CHUNK-EXACT OK``). ``--warmup`` captures every serving shape as
+a CUDA graph before serving (local backend; on the CPU the same passes run
+eagerly), and ``--assert-no-recompile`` then fails unless steady-state
+serving captured nothing new (prints ``NO-RECOMPILE OK``). Runs on
+``cuda`` unless ``--device cpu`` is given; without a card it raises.
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
       --device cpu --prompt-len 24 --prefill-chunk 5 --prefill-pack 3 \\
       --f32 --verify-chunked
+  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \
+      --device cpu --backend local --warmup --assert-no-recompile
 """
 from __future__ import annotations
 
@@ -101,6 +106,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill-pack", type=int, default=0,
                     help="pack up to K queued short prompts into one "
                          "bucketed prefill call (0 = off)")
+    ap.add_argument("--warmup", action="store_true",
+                    help="capture every serving shape (decode step, all "
+                         "prefill buckets one-shot and packed, every chunk "
+                         "offset) as a CUDA graph before serving (local "
+                         "backend)")
+    ap.add_argument("--assert-no-recompile", action="store_true",
+                    help="with --warmup: fail unless steady-state serving "
+                         "captured no new graph")
     ap.add_argument("--verify-chunked", action="store_true",
                     help="with --prefill-chunk: serve the stream again "
                          "unchunked and assert identical token streams")
@@ -118,7 +131,8 @@ def make_config(args) -> EngineConfig:
         request_capacity=args.prompt_len + args.max_new,
         seal_boundary=not args.no_seal, solver=args.solver, space=args.space,
         delta=args.delta, telemetry_interval=args.telemetry_interval,
-        prefill_chunk=args.prefill_chunk, prefill_pack=args.prefill_pack)
+        prefill_chunk=args.prefill_chunk, prefill_pack=args.prefill_pack,
+        warmup=args.warmup)
 
 
 def backend_of(args) -> str:
@@ -241,6 +255,15 @@ def main(argv=None):
     eng, reqs = run_once(api, params, args, inject)
     report(eng, api, reqs)
     st = eng.stats()
+    if args.assert_no_recompile:
+        # checked before any --verify-* rerun, as the reference does
+        assert args.warmup, "--assert-no-recompile needs --warmup"
+        n = st["post_warmup_compiles"]
+        assert n == 0, f"{n} graph captures after warmup; stalls: " \
+            f"{st['compile_stalls']}"
+        assert not st["compile_stalls"], st["compile_stalls"]
+        print(f"NO-RECOMPILE OK: post_warmup_compiles={n}, 0 stalls "
+              f"({st['graphs']} graphs, warmup {st['warmup_s']:.2f} s)")
     if args.verify_swap:
         eng2, reqs2 = run_once(api, params, copy.copy(args))
         assert eng.swaps >= 1, \

@@ -165,30 +165,30 @@ def chunk_prefill_attention(q, k, v, k_pages, v_pages, block_tables,
     return chunked_attention(q, k, v, causal=True, q_offset=prior_len)
 
 
-def chunk_write_rows(pages, offs, num_pages: int, device) -> torch.Tensor:
-    """Host arrays ``pages``/``offs`` [C] of a chunk's write targets ->
-    int64 [3, n] (chunk position, page, offset) of the rows that write, on
-    ``device``. Rows carrying the sentinel ``num_pages`` (right padding,
-    COW-shared pages) are dropped here on the host, as the reference's
-    ``mode="drop"`` scatter drops them, so page 0 and shared pages are
-    never touched. One copy per chunk (pinned and asynchronous on a card),
-    not one per layer: a copy from pageable host memory synchronises the
-    host with the stream."""
-    pages = np.asarray(pages, np.int64)
-    keep = np.nonzero(pages < num_pages)[0]
-    rows = torch.from_numpy(np.stack(
-        [keep, pages[keep], np.asarray(offs, np.int64)[keep]]))
-    if torch.device(device).type != "cuda":
-        return rows
-    return rows.pin_memory().to(device, non_blocking=True)
+def chunk_write_targets(pages: torch.Tensor, offs: torch.Tensor,
+                        num_pages: int):
+    """A chunk's write targets ``pages``/``offs`` [C] (int tensors on the
+    pools' device; the sentinel ``num_pages`` marks right padding and
+    COW-shared pages) -> ``(page, off, keep)`` [C] for
+    ``paged_write_chunk``, computed once per chunk for every layer. As in
+    ``paged_write``, a dropped row is aimed at the null page 0, offset 0,
+    and writes zeros there, so the shape is fixed (the chunk can be
+    captured in a CUDA graph, and nothing syncs with the host), page 0
+    stays all-zero and a shared page is never touched."""
+    keep = pages < num_pages
+    zero = torch.zeros_like(pages)
+    return (torch.where(keep, pages, zero).long(),
+            torch.where(keep, offs, zero).long(), keep)
 
 
-def paged_write_chunk(k_pages, v_pages, k_new, v_new, rows: torch.Tensor):
-    """Write one chunk's KV into the pools, in place: chunk position
-    ``rows[0, i]`` lands in ``(rows[1, i], rows[2, i])`` (``rows`` from
-    ``chunk_write_rows``; the reference takes the [C] ``pages``/``offs``
-    with drop sentinels). k_new, v_new: [C, KVH, D]."""
-    pos, pg, off = rows
+def paged_write_chunk(k_pages, v_pages, k_new, v_new, targets):
+    """Write one chunk's KV into the pools, in place: chunk position i lands
+    in ``(page[i], off[i])`` of ``targets`` (``chunk_write_targets``), zeros
+    on the null page where ``keep[i]`` is False -- the reference's
+    ``mode="drop"`` scatter over the [C] ``pages``/``offs``. k_new, v_new:
+    [C, KVH, D]."""
+    page, off, keep = targets
+    keep3 = keep[:, None, None]
     # advanced indices split by the head slice put the row dim first
-    k_pages[pg, :, off] = k_new[pos]
-    v_pages[pg, :, off] = v_new[pos]
+    k_pages[page, :, off] = torch.where(keep3, k_new, torch.zeros_like(k_new))
+    v_pages[page, :, off] = torch.where(keep3, v_new, torch.zeros_like(v_new))

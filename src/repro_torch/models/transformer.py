@@ -15,12 +15,27 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from . import layers as L
 
 SEGMENT = "blocks"          # the reference's single dense segment name
+
+
+def _as_index(x, device) -> torch.Tensor:
+    """Host ints or an int tensor -> an int64 tensor on ``device``. A host
+    value is copied here, which a CUDA graph cannot capture: the engine
+    passes tensors already on the device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.long)
+    return torch.as_tensor(np.asarray(x, np.int64), device=device)
+
+
+def _last_positions(lens, device) -> torch.Tensor:
+    """int64 [n] positions of each row's last valid token, ``lens - 1``."""
+    return _as_index(lens, device).reshape(-1) - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,7 +96,7 @@ class StackedLM:
             raise NotImplementedError(
                 f"{cfg.name}: sliding windows, attention biases and "
                 f"non-RoPE positions are not ported yet (ROADMAP queue 1, "
-                f"item 10)")
+                f"item 12)")
         self.cfg = cfg
 
     # -- parameters --------------------------------------------------------
@@ -150,27 +165,33 @@ class StackedLM:
 
     def prefill_at_fn(self, params, batch):
         """Whole-prompt prefill for paged admission: ``tokens`` [B, S_pad]
-        right-padded, ``prompt_len`` the true length (an int). Causal
-        attention hides the padding; logits are read at ``prompt_len - 1``.
-        Returns (logits [B, V] f32, {"blocks": (k, v)}) with k, v
-        [L, B, KVH, S_pad, D] — only the first ``prompt_len`` positions are
-        meaningful."""
-        x, caches = self._prefill(params, batch["tokens"])
-        return self.logits(params, x[:, int(batch["prompt_len"]) - 1]), caches
+        right-padded, ``prompt_len`` the true length (a host int, or an
+        int64 tensor of one element on the tokens' device, as the engine
+        passes it so that a CUDA graph per bucket serves every length).
+        Causal attention hides the padding; logits are read at
+        ``prompt_len - 1``. Returns (logits [B, V] f32, {"blocks": (k, v)})
+        with k, v [L, B, KVH, S_pad, D] — only the first ``prompt_len``
+        positions are meaningful."""
+        tokens = batch["tokens"]
+        x, caches = self._prefill(params, tokens)
+        last = _last_positions(batch["prompt_len"], tokens.device)
+        return self.logits(params, x.index_select(1, last)[:, 0]), caches
 
     def prefill_packed_fn(self, params, batch):
         """``prefill_at_fn`` over K prompts at once: ``tokens`` [K, S_pad]
-        holds K right-padded prompts, ``prompt_lens`` (K host ints) their
-        true lengths. Rows never attend to each other and causal attention
-        hides each row's padding, so row b's logits — read at its own
-        ``prompt_lens[b] - 1`` — and cache positions < ``prompt_lens[b]``
-        are those of a solo ``prefill_at_fn`` call at the same bucket."""
+        holds K right-padded prompts, ``prompt_lens`` their true lengths
+        (K host ints, or an int64 [K] tensor on the tokens' device). Rows
+        never attend to each other and causal attention hides each row's
+        padding, so row b's logits — read at its own ``prompt_lens[b] - 1``
+        — and cache positions < ``prompt_lens[b]`` are those of a solo
+        ``prefill_at_fn`` call at the same bucket."""
         tokens = batch["tokens"]
+        K, S = tokens.shape
         x, caches = self._prefill(params, tokens)
-        last = torch.as_tensor(batch["prompt_lens"], dtype=torch.long,
-                               device=tokens.device) - 1
-        rows = torch.arange(tokens.shape[0], device=tokens.device)
-        return self.logits(params, x[rows, last]), caches
+        rows = torch.arange(K, device=tokens.device) * S
+        last = rows + _last_positions(batch["prompt_lens"], tokens.device)
+        return self.logits(params, x.flatten(0, 1).index_select(0, last)), \
+            caches
 
     # -- public: chunked prefill (resume at an offset, pools carried in) -----
     def prefill_chunk_fn(self, params, pools, batch):
@@ -179,13 +200,16 @@ class StackedLM:
         engine's chunk size C; ``pools`` ``{"blocks": (k, v)}`` the
         [L, N, KVH, Pg, D] pools already holding positions < ``offset``
         (earlier chunks, or adopted COW-shared pages); ``bt_row`` [1, MP]
-        the slot's block table so far; ``pages``/``offs`` [C] host arrays
-        of write targets for the chunk's own KV (the sentinel ``N`` for
-        padding and shared pages). ``offset`` and ``chunk_len`` are host
-        ints. Each block attends over the gathered prefix plus the chunk
-        (``L.chunk_prefill_attention``) and then writes the chunk's KV into
-        its layer of the pools, in place. Returns (f32 logits [1, V] at the
-        chunk's last valid token, the same pools)."""
+        the slot's block table so far; ``pages``/``offs`` [C] write targets
+        for the chunk's own KV (the sentinel ``N`` for padding and shared
+        pages). ``offset`` is a host int: it sets the gathered prefix and
+        the flash kernel's ``q_offset``, so a CUDA graph is captured per
+        offset. ``chunk_len``, ``pages`` and ``offs`` are host values or
+        int tensors on the tokens' device (the engine's, static buffers
+        under a graph). Each block attends over the gathered prefix plus
+        the chunk (``L.chunk_prefill_attention``) and then writes the
+        chunk's KV into its layer of the pools, in place. Returns (f32
+        logits [1, V] at the chunk's last valid token, the same pools)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         C = tokens.shape[1]
@@ -193,8 +217,9 @@ class StackedLM:
         positions = offset + torch.arange(C, device=tokens.device)[None, :]
         k_pool, v_pool = pools[SEGMENT]
         bt = batch["bt_row"]
-        rows = L.chunk_write_rows(batch["pages"], batch["offs"],
-                                  k_pool.shape[1], tokens.device)
+        targets = L.chunk_write_targets(
+            _as_index(batch["pages"], tokens.device),
+            _as_index(batch["offs"], tokens.device), k_pool.shape[1])
         x = self.embed(params, tokens)
         for l in range(cfg.num_layers):
             p = self._layer(params, l)
@@ -202,11 +227,12 @@ class StackedLM:
             q, k, v = L.attn_qkv(p["attn"], h, positions, cfg)
             ctx = L.chunk_prefill_attention(q, k, v, k_pool[l], v_pool[l], bt,
                                             offset)
-            L.paged_write_chunk(k_pool[l], v_pool[l], k[0], v[0], rows)
+            L.paged_write_chunk(k_pool[l], v_pool[l], k[0], v[0], targets)
             x = x + L.attn_out(p["attn"], ctx)
             x = self._mlp(p, x)
         x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
-        return self.logits(params, x[:, int(batch["chunk_len"]) - 1]), pools
+        last = _last_positions(batch["chunk_len"], tokens.device)
+        return self.logits(params, x.index_select(1, last)[:, 0]), pools
 
     # -- public: paged decode ------------------------------------------------
     def decode_blocks(self, params, pools, x: torch.Tensor,

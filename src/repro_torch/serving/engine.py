@@ -35,10 +35,34 @@ On the card every prefill (one-shot, packed or chunk) runs the CUDA
 flash-attention kernel in every layer, every decode step's attention the
 CUDA paged-attention kernel, every stage boundary the CUDA quantizing seal
 and every swap the CUDA page cipher; on the CPU the same calls take the
-plain PyTorch versions. Not in this slice, and refused by name when a
-config asks for them: the legacy timeline layout, per-token prefill, warmup
-(CUDA graphs), sampling at temperature > 0, disaggregated prefill/decode and
-the fault plane (see ROADMAP.md, "Next slices").
+plain PyTorch versions.
+
+``warmup=True`` (local backend) is the reference's AOT warmup as CUDA
+graphs (``serving/aot.py``): ``warmup()`` captures every shape the
+steady-state loop dispatches -- the decode step, one-shot and packed
+prefill at every bucket, and a prefill chunk at every chunk offset -- and
+from then on each of those calls is one graph replay, holding the paged
+and flash kernels. Per-call numbers (tokens, prompt lengths, write
+targets, block-table rows) reach the device through pinned, non-blocking
+copies into the graphs' static buffers. What stays eager, and why:
+
+* the pipelined step: each step seals its stage boundaries under the key
+  ``key + step``, and the seal kernels take their keystream constants as
+  launch arguments from the host, so a captured step would replay one
+  keystream forever (nonce reuse on a sealed boundary). ``warmup=True``
+  with the pipelined backend raises until the seals read key and counter
+  from device memory;
+* swap I/O (``gather_pages`` / ``scatter_pages``), for the same reason:
+  the page cipher's counter is a host argument (the reference warms these
+  because its counters are traced);
+* page-table maintenance (``insert_slot``, ``commit_slot``,
+  ``clear_slot``, ``set_table_entry``, ``copy_page``): a few small
+  launches per admission or fork.
+
+Not in this slice, and refused by name when a config asks for them: the
+legacy timeline layout, per-token prefill, sampling at temperature > 0,
+disaggregated prefill/decode and the fault plane (see ROADMAP.md, "Next
+slices").
 """
 from __future__ import annotations
 
@@ -53,12 +77,13 @@ import torch
 from repro_torch.core.planner import (InfeasibleError, PlacementSpec,
                                       profiles_from_arch)
 from repro_torch.core.privacy import LM_SIM_DELTA
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.enclave import sealing
 from repro_torch.enclave.domain import ResourceManager, two_enclave_manager
 from repro_torch.models.transformer import SEGMENT
 from repro_torch.runtime.ft import HeartbeatMonitor, OnlineReplanner
 from repro_torch.runtime.pipeline import PipelinedDecoder, pipeline_applicable
+from repro_torch.serving.aot import AotRegistry
 from repro_torch.serving.sampling import TokenSampler
 from repro_torch.serving.scheduler import (QUEUED, RUNNING, PagePool,
                                            Request, SlotScheduler)
@@ -101,11 +126,15 @@ class EngineConfig:
     prefill_chunk: int = 0              # prompts longer than this prefill
     #                                     in chunks of this many tokens, one
     #                                     chunk per step (0 = one-shot)
+    warmup: bool = False                # capture every serving shape as a
+    #                                     CUDA graph at startup (local
+    #                                     backend); steady state then
+    #                                     captures nothing new (asserted via
+    #                                     stats()["post_warmup_compiles"])
     # reference options of later slices: anything but the default raises
     kv_layout: str = "paged"
     batched_prefill: bool = True
     disagg_role: str = ""
-    warmup: bool = False
     faults: Any = None
 
 
@@ -113,7 +142,6 @@ _LATER = {
     "kv_layout": ("paged", "the legacy timeline KV layout"),
     "batched_prefill": (True, "per-token prefill"),
     "disagg_role": ("", "disaggregated prefill/decode"),
-    "warmup": (False, "warmup (CUDA-graph capture)"),
     "faults": (None, "the chaos fault plane"),
 }
 
@@ -134,9 +162,13 @@ def _refuse_later_slices(cfg: EngineConfig) -> None:
 class PagedLocalBackend:
     """Single-device paged backend: ``decode_paged_fn`` over shared page
     pools + per-slot block tables / seq_lens, all on ``api.device``. The
-    device state is updated in place. Index vectors arrive as host numpy
-    arrays; rows carrying the out-of-range sentinel ``num_pages`` are
-    dropped on the host, as the reference's ``mode="drop"`` scatters drop
+    device state is updated in place, and never reallocated: a captured
+    graph holds its addresses. Index vectors arrive as host numpy arrays;
+    the decode step and the prefill chunk go through the engine's
+    ``AotRegistry`` (``decode_step``, ``prefill_chunk``: one graph replay
+    each once warmed), with their drop-sentinel rows aimed at the null
+    page on the device; the eager page-table maintenance drops sentinel
+    rows on the host, as the reference's ``mode="drop"`` scatters drop
     them on the device. Stage boundaries are metadata here: ``swap``
     records them and ``stage_times`` measures nothing, so the engine
     attributes each step's wall time by the plan's predicted shares."""
@@ -145,18 +177,40 @@ class PagedLocalBackend:
 
     def __init__(self, api, params, cfg: EngineConfig, num_pages: int,
                  pages_per_slot: int,
-                 stage_blocks: Optional[Sequence[int]] = None):
+                 stage_blocks: Optional[Sequence[int]] = None,
+                 aot: Optional[AotRegistry] = None):
         self.api, self.params, self.cfg = api, params, cfg
         self.device = api.device
         self.num_pages = num_pages
+        self.pages_per_slot = pages_per_slot
         self.stage_blocks = tuple(stage_blocks or (api.cfg.num_layers,))
         self._shape = (cfg.num_slots, num_pages, cfg.page_size,
                        pages_per_slot)
         self.steps = 0                  # decode steps run on this backend
-        self.reset_state()
+        self.cache = self.api.init_paged_cache(*self._shape)
+        self.aot = aot or AotRegistry(capture=False)
+        self._step = self.aot.wrap("decode_step", self._decode)
+        self._chunk = self.aot.wrap("prefill_chunk", self._prefill_chunk)
 
     def reset_state(self) -> None:
-        self.cache = self.api.init_paged_cache(*self._shape)
+        """Zero the pools, block tables and seq_lens in place (the warmup
+        reset): graphs captured over them stay valid."""
+        for pool in self.cache[SEGMENT]:
+            pool.zero_()
+        self.cache["block_tables"].zero_()
+        self.cache["seq_lens"].zero_()
+        self.steps = 0
+
+    def _decode(self, toks: torch.Tensor) -> torch.Tensor:
+        return self.api.decode_paged_fn(self.params, self.cache,
+                                        {"tokens": toks})[0]
+
+    def _prefill_chunk(self, toks, offset: int, chunk_len, bt_row, pages,
+                       offs) -> torch.Tensor:
+        return self.api.prefill_chunk_fn(
+            self.params, {SEGMENT: self.cache[SEGMENT]},
+            {"tokens": toks, "offset": offset, "chunk_len": chunk_len,
+             "bt_row": bt_row, "pages": pages, "offs": offs})[0]
 
     def prefill_chunk(self, toks: np.ndarray, offset: int, chunk_len: int,
                       bt_row: np.ndarray, pages: np.ndarray,
@@ -164,30 +218,41 @@ class PagedLocalBackend:
         """One prefill chunk against the live pools (``prefill_chunk_fn``):
         block tables and seq_lens stay as they are, so the slot stays idle
         in the decode batch until ``commit_slot`` after its last chunk.
-        ``pages``/``offs`` are host arrays (sentinel rows dropped on the
-        host). Returns the logits at the chunk's last valid token."""
-        batch = {"tokens": torch.from_numpy(np.asarray(toks, np.int64)).to(
-                     self.device),
-                 "offset": int(offset), "chunk_len": int(chunk_len),
-                 "bt_row": torch.from_numpy(np.asarray(bt_row, np.int32)).to(
-                     self.device),
-                 "pages": pages, "offs": offs}
-        logits, _ = self.api.prefill_chunk_fn(
-            self.params, {SEGMENT: self.cache[SEGMENT]}, batch)
-        return logits
+        ``pages``/``offs`` are the [C] write targets (the sentinel
+        ``num_pages`` drops a row on the device). ``offset`` selects the
+        graph. Returns the logits at the chunk's last valid token: a
+        static output under a graph, read before the next managed call."""
+        d = self._idx
+        return self._chunk(d(toks), int(offset), d([chunk_len]), d(bt_row),
+                           d(pages), d(offs))
 
-    def _idx(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
+    def _idx(self, a) -> torch.Tensor:
+        return to_device(a, self.device)
 
     def _tokens(self, tokens: np.ndarray) -> torch.Tensor:
-        toks = torch.from_numpy(np.asarray(tokens, np.int64)).to(self.device)
-        return toks[:, None]
+        return self._idx(np.asarray(tokens)[:, None])
 
     def step(self, tokens: np.ndarray, key: int) -> torch.Tensor:
-        logits, self.cache = self.api.decode_paged_fn(
-            self.params, self.cache, {"tokens": self._tokens(tokens)})
+        """One decode step (``key`` seals nothing here). The logits are a
+        static output under a graph, read before the next managed call."""
+        logits = self._step(self._tokens(tokens))
         self.steps += 1
         return logits
+
+    def warm_step(self) -> None:
+        """Warm the decode step on all-idle slots: every seq_len is 0, so
+        each paged write lands as zeros on the null page and the state is
+        unchanged."""
+        self._step.warm(self._tokens(np.zeros(self.cfg.num_slots)))
+
+    def warm_chunk(self, offset: int) -> None:
+        """Warm the chunk at ``offset`` against an all-null block table with
+        every write target on the drop sentinel: it reads only the null
+        page and writes nothing but zeros there."""
+        C, d = self.cfg.prefill_chunk, self._idx
+        self._chunk.warm(d(np.zeros((1, C))), int(offset), d([C]),
+                         d(np.zeros((1, self.pages_per_slot))),
+                         d(np.full(C, self.num_pages)), d(np.zeros(C)))
 
     def swap(self, stage_blocks: Sequence[int]) -> bool:
         self.stage_blocks = tuple(stage_blocks)
@@ -197,8 +262,8 @@ class PagedLocalBackend:
         return None                     # engine falls back to attribution
 
     def _set_row(self, slot: int, bt_row: np.ndarray, seq_len: int) -> None:
-        self.cache["block_tables"][slot] = torch.from_numpy(
-            np.asarray(bt_row, np.int32)).to(self.device)
+        self.cache["block_tables"][slot] = to_device(bt_row, self.device,
+                                                     np.int32)
         self.cache["seq_lens"][slot] = int(seq_len)
 
     def insert_slot(self, slot: int, kv, pages: np.ndarray, offs: np.ndarray,
@@ -273,11 +338,12 @@ class PagedPipelinedBackend(PagedLocalBackend):
 
     def __init__(self, api, params, cfg: EngineConfig, num_pages: int,
                  pages_per_slot: int,
-                 stage_blocks: Optional[Sequence[int]] = None):
+                 stage_blocks: Optional[Sequence[int]] = None,
+                 aot: Optional[AotRegistry] = None):
         self._layouts: Dict[Tuple[int, ...], Tuple[PipelinedDecoder, Any,
                                                    Any]] = {}
         super().__init__(api, params, cfg, num_pages, pages_per_slot,
-                         stage_blocks)
+                         stage_blocks, aot)
         self._build(self.stage_blocks)
 
     def _build(self, stage_blocks: Sequence[int]) -> None:
@@ -403,6 +469,15 @@ class ServingEngine:
         backend = backend or "local"
         if backend not in ("local", "pipelined"):
             raise ValueError(f"backend {backend!r}: 'local' or 'pipelined'")
+        if cfg.warmup and backend == "pipelined":
+            raise NotImplementedError(
+                "EngineConfig.warmup=True with the pipelined backend: its "
+                "step seals every stage boundary under the key key + step, "
+                "and the seal kernels take their keystream constants as "
+                "host launch arguments, so a captured step would replay one "
+                "keystream forever (nonce reuse on a sealed boundary); "
+                "pipelined warmup waits for the seals' key and counter in "
+                "device memory (see ROADMAP.md)")
         self.api, self.config = api, cfg
         self.rm = rm or two_enclave_manager()
         self.params = params if params is not None else api.init(
@@ -451,10 +526,19 @@ class ServingEngine:
         self._swap_seq = 0
         self.swap_fallbacks = 0
 
+        # every managed entry point (decode step, prefill chunk, one-shot
+        # and packed prefill) is registered here, so warmup() can capture
+        # the full shape inventory as CUDA graphs and stats() can report
+        # post-warmup capture stalls
+        self.aot = AotRegistry(capture=cfg.warmup)
         backend_cls = PagedPipelinedBackend if backend == "pipelined" \
             else PagedLocalBackend
         self.backend = backend_cls(api, self.params, cfg, num_pages,
-                                   self.pages_per_slot, self.stage_blocks)
+                                   self.pages_per_slot, self.stage_blocks,
+                                   aot=self.aot)
+        self._prefill_at = self.aot.wrap("prefill_at", self._prefill_at_fn)
+        self._prefill_at_packed = self.aot.wrap("prefill_packed",
+                                                self._prefill_packed_fn)
         self.backend_kind = backend
         self.scheduler = SlotScheduler(cfg.num_slots,
                                        finished_cap=cfg.finished_cap)
@@ -482,6 +566,10 @@ class ServingEngine:
         # boundaries under key + i
         self._key = 0xC0FFEE
         self.sampler = TokenSampler(cfg.temperature)
+        self.warmup_s = 0.0
+        self.warmed = False
+        if cfg.warmup:
+            self.warmup()
 
     def _blocks_from(self, spec: PlacementSpec) -> Tuple[int, ...]:
         planned = spec.stage_sizes()
@@ -651,15 +739,30 @@ class ServingEngine:
         S_pad = self._bucket(P)
         toks = np.zeros((1, S_pad), np.int64)
         toks[0, :P] = tokens
-        logits, caches = self.api.prefill_at_fn(
-            self.params, {"tokens": torch.from_numpy(toks).to(self.device),
-                          "prompt_len": P})
-        kk, vv = (c[:, 0] for c in caches[SEGMENT])   # [L, KVH, S_pad, D]
+        logits, (kk, vv) = self._prefill_at(to_device(toks, self.device),
+                                            to_device([P], self.device))
+        kk, vv = kk[:, 0], vv[:, 0]                    # [L, KVH, S_pad, D]
         self.prefill_calls += 1
         pages_vec, offs_vec = self._write_targets(0, P, S_pad, pages, shared)
         self.backend.insert_slot(slot, (kk, vv), pages_vec, offs_vec, bt_row,
                                  P)
         return logits, int(sum(shared))
+
+    def _prefill_at_fn(self, toks: torch.Tensor, plen: torch.Tensor):
+        """One-shot prefill, graph-managed per bucket: (logits [1, V],
+        (k, v) [L, 1, KVH, S_pad, D]), static outputs under a graph that
+        the caller consumes (insert, sample) before its next managed
+        call."""
+        logits, caches = self.api.prefill_at_fn(
+            self.params, {"tokens": toks, "prompt_len": plen})
+        return logits, caches[SEGMENT]
+
+    def _prefill_packed_fn(self, toks: torch.Tensor, plens: torch.Tensor):
+        """Packed prefill, graph-managed per bucket at width K (see
+        ``_prefill_at_fn``)."""
+        logits, caches = self.api.prefill_packed_fn(
+            self.params, {"tokens": toks, "prompt_lens": plens})
+        return logits, caches[SEGMENT]
 
     def _write_targets(self, start: int, end: int, width: int,
                        pages: Sequence[int], shared: Sequence[bool]):
@@ -743,6 +846,8 @@ class ServingEngine:
                                                   cs.shared)
         bt_row = np.zeros((1, self.pages_per_slot), np.int32)
         bt_row[0, :len(cs.pages)] = cs.pages
+        # the logits are a graph's static output: only the last chunk's are
+        # read, by _finish_chunked right after this call
         cs.logits = self.backend.prefill_chunk(toks, pos, Cp, bt_row,
                                                pages_vec, offs_vec)
         self.prefill_calls += 1
@@ -1063,10 +1168,11 @@ class ServingEngine:
         for b, (_, _, tokens, _, _) in enumerate(group):
             toks[b, :len(tokens)] = tokens
             plens[b] = len(tokens)
-        logits, caches = self.api.prefill_packed_fn(
-            self.params, {"tokens": torch.from_numpy(toks).to(self.device),
-                          "prompt_lens": plens})
-        kk_all, vv_all = caches[SEGMENT]    # [L, K, KVH, S_pad, D]
+        # static outputs under a graph: every row is inserted and sampled
+        # below, before the next managed call
+        logits, (kk_all, vv_all) = self._prefill_at_packed(
+            to_device(toks, self.device),
+            to_device(plens, self.device))    # kv [L, K, KVH, S_pad, D]
         self.prefill_calls += 1
         self.packed_prefills += 1
         for b, (slot, req, tokens, pages, shared) in enumerate(group):
@@ -1209,6 +1315,133 @@ class ServingEngine:
             return
         self.pool.register_prefix(key, pg)
 
+    # -- warmup: capture the serving shape inventory as CUDA graphs --------
+    def warmup(self) -> float:
+        """Capture every shape the steady-state loop dispatches, then freeze
+        the registry: a capture after this point is a stall, counted by
+        ``stats()["post_warmup_compiles"]`` and named in
+        ``stats()["compile_stalls"]``. The reference's passes, minus its
+        layout tour (the pipelined backend does not warm up):
+
+        1. *traffic* -- synthetic requests through the real submit/step
+           path (a prompt per bucket, a COW twin pair, one long chunked
+           prompt), so the calls serving makes are the ones captured;
+        2. *direct* -- every bucket through one-shot and packed prefill (at
+           the fixed width K), every chunk offset, and a decode step on
+           idle slots, all state-neutral;
+        3. *reset* -- the serving state back to a fresh engine's (the
+           device cache zeroed in place), so warmed and cold engines give
+           the same streams.
+
+        On the CPU the same passes run eagerly and keep the signature
+        ledger. Meaningful only on a fresh engine, asserted below."""
+        assert self.steps == 0 and not self.scheduler.has_work() \
+            and not self.chunking, "warmup() must run on a fresh engine"
+        t0 = time.perf_counter()
+        self._warm_traffic()
+        self._warm_direct()
+        self._reset_state()
+        self.aot.freeze()
+        self.warmed = True
+        self.warmup_s = time.perf_counter() - t0
+        return self.warmup_s
+
+    def _bucket_inventory(self) -> List[int]:
+        """Every prefill bucket ``_bucket()`` can emit: powers of two up to
+        prompt_capacity, plus the resumed-prompt sizes up to
+        request_capacity."""
+        return sorted({self._bucket(n)
+                       for n in range(1, self.request_capacity + 1)})
+
+    def _warm_traffic(self) -> None:
+        """Synthetic requests through the real serve path, with the
+        reference's deterministic token content (so COW twin adoption and
+        the fork on divergence happen)."""
+        cfg = self.config
+        V = self.api.cfg.vocab_size
+
+        def toks(n: int, salt: int) -> List[int]:
+            return [int((salt * 31 + j) % V) for j in range(n)]
+
+        prompts = [toks(b, i) for i, b in enumerate(
+            x for x in self._bucket_inventory() if x <= cfg.prompt_capacity)]
+        # identical twins spanning a partial tail page: COW adoption at the
+        # second admission, then a fork when decode first writes the tail
+        twin = toks(min(cfg.page_size + 2, cfg.prompt_capacity), 101)
+        prompts += [twin, list(twin)]
+        if cfg.prefill_chunk and cfg.prompt_capacity > cfg.prefill_chunk:
+            prompts.append(toks(cfg.prompt_capacity, 202))
+        for p in prompts:
+            mn = max(1, min(2, self.request_capacity - len(p)))
+            if self.pool.pages_needed(len(p) + mn) + 1 > \
+                    self.pool.num_pages - 1:
+                continue                # unadmittable in real serve too
+            self.submit(p, mn)
+        guard = 0
+        while self.scheduler.has_work():
+            self.step()
+            assert not self.stalled, "warmup traffic stalled"
+            guard += 1
+            assert guard < 10_000, "warmup traffic failed to drain"
+
+    def _warm_direct(self) -> None:
+        """State-neutral warm of every managed entry point the traffic may
+        have missed: one-shot and packed prefill (pure functions) at every
+        bucket, the chunk at every offset below request_capacity against
+        the null page, and a decode step on idle slots. Runs after the
+        traffic drained, so every slot is clear."""
+        dev = self.device
+        for b in self._bucket_inventory():
+            self._prefill_at.warm(to_device(np.zeros((1, b)), dev),
+                                  to_device([b], dev))
+        K = self.config.prefill_pack
+        if K > 1:
+            for b in self._bucket_inventory():
+                self._prefill_at_packed.warm(to_device(np.zeros((K, b)), dev),
+                                             to_device(np.ones(K), dev))
+        C = self.config.prefill_chunk
+        if C > 0:
+            for offset in range(0, self.request_capacity, C):
+                self.backend.warm_chunk(offset)
+        self.backend.warm_step()
+
+    def _reset_state(self) -> None:
+        """Reset every piece of serving state the warm traffic touched --
+        scheduler (rids restart at 0), page pool, device cache (in place),
+        clocks, counters, events, measured telemetry -- leaving the
+        captured graphs. Unlike the reference, the swap sequence is not
+        reset: it keys the page cipher's counter, and a counter reused
+        under one key would cipher serving pages with the keystream that
+        ciphered the warm traffic's known pages."""
+        cfg = self.config
+        self.scheduler = SlotScheduler(cfg.num_slots,
+                                       finished_cap=cfg.finished_cap)
+        self.pool = PagePool(self.pool.num_pages, cfg.page_size)
+        self.slot_pages.clear()
+        self.slot_len.clear()
+        self.chunking.clear()
+        self.pending[:] = 0
+        self.steps = 0
+        self.swaps = 0
+        self.preemptions = 0
+        self.peak_running = 0
+        self.swap_fallbacks = 0
+        self.stalled = False
+        self.stall_reason = None
+        self._blocked_rid = None
+        self.admission_ms.clear()
+        self.admissions = 0
+        self.prefill_calls = 0
+        self.packed_admissions = 0
+        self.packed_prefills = 0
+        self.chunked_admissions = 0
+        self.chunk_steps = 0
+        self.decode_wall_s = 0.0
+        self.events.clear()
+        self._step_events = []
+        self.telemetry.reset_measurements()
+        self.backend.reset_state()
+
     # -- drive to completion ----------------------------------------------
     def run(self, max_steps: Optional[int] = None) -> List[Request]:
         n = 0
@@ -1241,6 +1474,14 @@ class ServingEngine:
             "tok_per_s": (out["tokens_out"] / wall) if wall > 0 else 0.0,
             "prefill_calls": self.prefill_calls,
             "admissions": self.admissions,
+            "warmed": self.warmed,
+            "warmup_s": self.warmup_s,
+            # None until warmup() froze the registry; 0 is the steady-state
+            # guarantee (graph captures after warmup)
+            "post_warmup_compiles": self.aot.post_freeze_compiles,
+            "compile_stalls": [s.describe()
+                               for s in self.aot.post_freeze_stalls],
+            "graphs": self.aot.graphs,
             "prefill_pack": self.config.prefill_pack,
             "packed_admissions": self.packed_admissions,
             "packed_prefills": self.packed_prefills,

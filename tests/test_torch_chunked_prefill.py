@@ -6,8 +6,8 @@ the chunk, causal at ``q_offset = prior_len``) against the reference's
 masked attention over the whole block table — with a COW-shared page, null
 table tails, garbage in the chunk's own not-yet-written pages and a prior
 length that is not a multiple of the page size — within atol = rtol = 3e-5;
-``paged_write_chunk`` bit for bit, sentinel rows dropped on the host
-(``chunk_write_rows``) and page 0 untouched.
+``paged_write_chunk`` bit for bit, sentinel rows aimed at the null page
+with zeros on the device (``chunk_write_targets``) and page 0 untouched.
 
 Model function (reduced llama3.2-1b, the JAX package's f32 parameters
 carried across): a chain of ``prefill_chunk_fn`` calls against the JAX
@@ -142,10 +142,13 @@ def test_paged_write_chunk_matches_reference_and_drops_sentinels(f32):
     jk, jv = JL.paged_write_chunk(*(jnp.asarray(a) for a in
                                     (kp, vp, kn, vn, pages, offs)))
     tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
-    rows = TL.chunk_write_rows(pages, offs, N, "cpu")
-    assert rows.tolist() == [[3, 4, 5, 6], [3, 3, 3, 3], [0, 1, 2, 3]]
+    page, off, keep = TL.chunk_write_targets(torch.from_numpy(pages),
+                                             torch.from_numpy(offs), N)
+    assert page.tolist() == [0, 0, 0, 3, 3, 3, 3, 0]
+    assert off.tolist() == [0, 0, 0, 0, 1, 2, 3, 0]
+    assert keep.tolist() == [False] * 3 + [True] * 4 + [False]
     TL.paged_write_chunk(tk, tv, torch.from_numpy(kn), torch.from_numpy(vn),
-                         rows)
+                         (page, off, keep))
     assert np.array_equal(tk.numpy(), np.asarray(jk))
     assert np.array_equal(tv.numpy(), np.asarray(jv))
     assert not tk[0].any() and not tv[0].any()
@@ -154,8 +157,9 @@ def test_paged_write_chunk_matches_reference_and_drops_sentinels(f32):
     assert changed == {3}
     # an all-sentinel chunk writes nothing
     TL.paged_write_chunk(tk, tv, torch.from_numpy(kn), torch.from_numpy(vn),
-                         TL.chunk_write_rows(np.full(C, N), np.zeros(C), N,
-                                             "cpu"))
+                         TL.chunk_write_targets(torch.full((C,), N),
+                                                torch.zeros(C, dtype=torch.long),
+                                                N))
     assert np.array_equal(tk.numpy(), np.asarray(jk))
 
 

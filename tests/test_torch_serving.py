@@ -155,10 +155,15 @@ def test_tampered_swap_payload_falls_back_to_recompute(port):
 def test_later_slice_options_raise_by_name(port):
     tapi, tparams = port
     for kw in (dict(kv_layout="timeline"), dict(disagg_role="decode"),
-               dict(warmup=True), dict(faults=object()),
+               dict(faults=object()),
                dict(batched_prefill=False), dict(temperature=0.7)):
         with pytest.raises(NotImplementedError):
             _torch_engine(tapi, tparams, **kw)
+    # warmup is ported for the local backend; the pipelined step's seals
+    # take a host key that changes every step, so capturing it is refused
+    with pytest.raises(NotImplementedError, match="keystream"):
+        ServingEngine(tapi, EngineConfig(**BASE, warmup=True), tparams,
+                      device="cpu", backend="pipelined")
 
 
 def test_submit_rejects_requests_the_pool_cannot_serve(port):
