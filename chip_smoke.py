@@ -24,7 +24,11 @@ Phases (each prints its own lines; any failure exits non-zero):
      ragged lengths, head_dim 128, GQA rep 4, the one-shot, packed and chunk
      shapes of full-width llama and short chunks late in a long prompt,
      f32 and bf16); both attention kernels must repeat their bits on a
-     second call;
+     second call. The seal, the unseal and the cipher read their key and
+     counter from device memory: captured once in a CUDA graph over key
+     and counter tensors and replayed under two keys written into them,
+     each replay must equal the plain version under its key and the two
+     replays' cipher texts must differ;
   3. time each kernel, its plain version, one PyTorch library call of the
      same function where one exists, and compute the least time the card
      could take (prefill attention at its three path shapes, paged
@@ -32,7 +36,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      launch floor, a one-element ``zero_()`` under the same timing; each
      kernel and the floor are timed again inside a CUDA graph (50
      back-to-back launches captured, the graph replayed), as a captured
-     serving step runs them;
+     serving step runs them; the seal, the unseal and the cipher take their
+     key and counter as device tensors, as the serving path passes them;
   4. check the whole serving path on a small input: reduced llama3.2-1b in
      f32 serves the same greedy streams on the card as on the CPU, through
      the local backend and through the pipelined backend (sealed stage
@@ -60,14 +65,17 @@ Phases (each prints its own lines; any failure exits non-zero):
      chosen by a CPU rehearsal of the same flags so that this one stream
      chunks, packs and swap-preempts. Prints admission p50/p99, ms per
      chunk, prefill tokens/s and decode ms per step;
-  8. serve phase 5's and phase 7's streams again, each on a fresh engine
-     warmed up as CUDA graphs (``--warmup``: the decode step, every
-     one-shot and packed prefill bucket and every chunk offset captured,
-     each later call one replay): the greedy streams, the schedule and
-     the launch counts (replays included) must equal the eager phase's,
-     with no capture and no stall after warmup and every swap-in
-     bit-exact. Prints warmup seconds, graphs, memory reserved, and host
-     ms per decode step and per chunk beside the eager phase's.
+  8. serve phase 5's, phase 7's and phase 6's streams again, each on a
+     fresh engine warmed up as CUDA graphs (``--warmup``: the decode step
+     -- on the pipelined backend one per stage layout, with the stage
+     probes, for the planned layout and the one the warmup tours -- every
+     one-shot and packed prefill bucket, every chunk offset and the swap
+     I/O captured, each later call one replay): the greedy streams, the
+     schedule (stage blocks (1, 15) and no re-plan on the pipelined
+     backend) and the launch counts (replays included) must equal the
+     eager phase's, with no capture and no stall after warmup and every
+     swap-in bit-exact. Prints warmup seconds, graphs, memory reserved,
+     and host ms per decode step and per chunk beside the eager phase's.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
@@ -391,6 +399,66 @@ def check_seal_q8(torch, ops, ref):
     return err
 
 
+def check_captured_keys(torch, ops, ref, sealing):
+    """The seal, the unseal and the cipher read key and counter from device
+    memory: one CUDA graph captures all three over key and counter
+    tensors at the path's shapes ([4, 2048] and [10, 131072] bf16), and is
+    replayed under two keys written into the key tensor. Each replay must
+    equal the plain version under its key (cipher bytes equal but for
+    rounding ties, at most 1e-3 of them, and scales equal for the seal;
+    bit for bit for the unseal of the replay's own cipher and for the
+    cipher), and the two replays' cipher texts must differ: a captured
+    launch that kept one keystream would fail here."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = (3 * torch.randn(4, 2048, generator=g, device="cuda")).to(
+        torch.bfloat16)
+    pages = torch.randn(10, 131072, generator=g, device="cuda").to(
+        torch.bfloat16)
+    kt = torch.zeros(1, dtype=torch.int64, device="cuda")
+    seal_ctr = torch.tensor([sealing._leaf_counter(2, 0)], device="cuda")
+    swap_ctr = torch.tensor([sealing._swap_counter(11, 1)], device="cuda")
+
+    def calls():
+        c, s = ops.seal(x, kt, seal_ctr)
+        return c, s, ops.unseal(c, s, kt, seal_ctr, torch.bfloat16), \
+            ops.seal_bits(pages, kt, swap_ctr)
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        calls()
+    torch.cuda.current_stream().wait_stream(stream)
+    counts = dict(ops.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, stream=stream):
+            c, s, opened, b = calls()
+    finally:
+        ops.LAUNCHES.update(counts)         # a capture launches nothing
+    seen = []
+    for key in (0xC0FFEE + 1, 0xFFFFFFFF):
+        kt.fill_(key)
+        graph.replay()
+        torch.cuda.synchronize()
+        wc, ws = ref.seal_ref(x, key, int(seal_ctr))
+        mismatch = (c != wc).float().mean().item()
+        assert mismatch <= 1e-3, ("captured seal", key, mismatch)
+        assert torch.equal(s, ws), f"captured seal, key {key:#x}: scales"
+        want = ref.unseal_ref(c, s, key, int(seal_ctr), torch.bfloat16)
+        assert torch.equal(opened.view(torch.int16), want.view(torch.int16)), \
+            f"captured unseal, key {key:#x}: not bit-equal"
+        assert torch.equal(b, ref.seal_bits_ref(pages, key, int(swap_ctr))), \
+            f"captured seal_bits, key {key:#x}: cipher differs"
+        seen.append((c.clone(), b.clone(), mismatch))
+    assert not torch.equal(seen[0][0], seen[1][0]), "seal replayed one key"
+    assert not torch.equal(seen[0][1], seen[1][1]), "cipher replayed one key"
+    log(f"check captured seal/unseal/seal_bits (one CUDA graph, key and "
+        f"counter in device memory, replayed under 2 keys): each replay "
+        f"equals the plain version under its key (seal mismatch "
+        f"{max(m for _, _, m in seen):.1e} <= 1e-3, unseal and cipher "
+        f"bit-exact), the replays' cipher texts differ")
+
+
 # prefill attention: B, Sq, Sk, H, KVH, D, causal, window, q_offset
 FLASH_PATH = {"one-shot": (1, 512, 512, 32, 8, 64, 1, 0, 0),
               "packed": (4, 128, 128, 32, 8, 64, 1, 0, 0),
@@ -570,19 +638,21 @@ def time_kernels(torch, ops, ref, sealing, F):
 
     g = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn(10, 131072, generator=g, device="cuda").to(torch.bfloat16)
-    ctr = sealing._swap_counter(3, 0)
-    c = ops.seal_bits(x, 0xC0FFEE, ctr)
-    ks = ref.seal_bits_ref(torch.zeros_like(x), 0xC0FFEE, ctr)
+    # key and counter as device tensors, as the swap path passes them
+    kt = torch.tensor([0xC0FFEE], device="cuda")
+    ctr = torch.tensor([sealing._swap_counter(3, 0)], device="cuda")
+    c = ops.seal_bits(x, kt, ctr)
+    ks = ref.seal_bits_ref(torch.zeros_like(x), kt, ctr)
     xi = x.view(torch.int16)
     nbytes = 2.0 * x.numel() * x.element_size()
     b_ms, b_by = bound(nbytes, KEYSTREAM_OPS * x.numel(), INT32_OP_PER_S)
     lib = time_ms(lambda: torch.bitwise_xor(xi, ks))
     for name, fn, plain_fn in (
-            ("seal_bits", lambda: ops.seal_bits(x, 0xC0FFEE, ctr),
-             lambda: ref.seal_bits_ref(x, 0xC0FFEE, ctr)),
+            ("seal_bits", lambda: ops.seal_bits(x, kt, ctr),
+             lambda: ref.seal_bits_ref(x, kt, ctr)),
             ("unseal_bits",
-             lambda: ops.unseal_bits(c, 0xC0FFEE, ctr, torch.bfloat16),
-             lambda: ref.unseal_bits_ref(c, 0xC0FFEE, ctr, torch.bfloat16))):
+             lambda: ops.unseal_bits(c, kt, ctr, torch.bfloat16),
+             lambda: ref.unseal_bits_ref(c, kt, ctr, torch.bfloat16))):
         ms = time_ms(fn)
         in_graph = graph_ms(fn)
         plain = time_ms(plain_fn, 20)
@@ -595,7 +665,8 @@ def time_kernels(torch, ops, ref, sealing, F):
 
     # quantizing seal at the stage boundary: [B_mb = 4, d_model = 2048] bf16
     x = torch.randn(4, 2048, generator=g, device="cuda").to(torch.bfloat16)
-    key, ctr = 0xC0FFEE + 9, 65537 * 2
+    key = torch.tensor([0xC0FFEE + 9], device="cuda")
+    ctr = torch.tensor([65537 * 2], device="cuda")
     c, sc = ops.seal(x, key, ctr)
     n, rows, esz = x.numel(), x.shape[0], x.element_size()
     for name, fn, plain_fn, nbytes, work in (
@@ -751,7 +822,7 @@ class TimedPrefill:
 SCHEDULE = ("steps", "swap_outs", "swap_ins", "preemptions", "cow_hits",
             "forks", "prefill_calls", "chunked_admissions", "prefill_chunks",
             "packed_admissions", "packed_prefills", "completed",
-            "tokens_out")
+            "tokens_out", "stage_blocks", "replans", "swaps")
 
 
 def serve_full_width(torch, ops, api, params, argv, phase):
@@ -853,6 +924,8 @@ def serve_full_width(torch, ops, api, params, argv, phase):
         assert planned == (1, 15), planned
         assert st["stage_blocks"] == eng.spec.stage_sizes() == planned, \
             (st["stage_blocks"], eng.spec.stage_sizes(), st["replans"])
+        assert st["replans"] == 0 and st["swaps"] == 0, \
+            (st["replans"], st["swaps"])
         assert launches["seal"] == launches["unseal"] \
             == be.steps * nm * (S - 1), (launches, be.steps)
         assert launches["paged_attention"] == \
@@ -874,9 +947,13 @@ def serve_full_width(torch, ops, api, params, argv, phase):
         f"{st['steps']}, {st['tok_per_s']:.1f} tok/s decode, {step_ms:.2f} "
         f"ms/decode step (host clock, {args.slots} slots), wall {wall:.2f} "
         f"s incl. admission prefill")
+    probe = "" if backend == "local" else \
+        " stage probe EMA " + ", ".join(
+            f"{t * 1e3:.3f}" for t in eng.telemetry._stage_ema.values()) + \
+        " ms"
     log(f"serve phase {phase}: stage_blocks={st['stage_blocks']} "
         f"placement={st['placement']} replans={st['replans']} "
-        f"swaps={st['swaps']}")
+        f"swaps={st['swaps']}{probe}")
     log(f"serve phase {phase}: preemptions={st['preemptions']} "
         f"swap_outs={st['swap_outs']} swap_ins={st['swap_ins']} pages "
         f"restored bit-exact={len(restored)} cow_hits={st['cow_hits']} "
@@ -987,6 +1064,7 @@ def main() -> int:
     pa_err = check_paged_attention(torch, ops, ref)
     check_cipher(torch, ops, ref, sealing)
     q8_err = check_seal_q8(torch, ops, ref)
+    check_captured_keys(torch, ops, ref, sealing)
     fa_err = check_flash_attention(torch, ops, ref)
     # phase 3: timings and bounds
     times = time_kernels(torch, ops, ref, sealing, F)
@@ -1009,10 +1087,13 @@ def main() -> int:
             serve_full_width(torch, ops, api, params,
                              FULL_WIDTH + ["--backend", "pipelined"], 6),
             serve_full_width(torch, ops, api, params, PREFILL_WIDE, 7)]
-    # phase 8: phases 5 and 7 again, on engines warmed up as CUDA graphs
+    # phase 8: phases 5, 7 and 6 again, on engines warmed up as CUDA graphs
     runs += [serve_in_graphs(torch, ops, api, params, local, 5, runs[0]),
              serve_in_graphs(torch, ops, api, params, PREFILL_WIDE, 7,
-                             runs[2])]
+                             runs[2]),
+             serve_in_graphs(torch, ops, api, params,
+                             FULL_WIDTH + ["--backend", "pipelined"], 6,
+                             runs[1])]
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 

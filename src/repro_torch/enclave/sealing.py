@@ -15,6 +15,12 @@ sequence through ``transfer_seq`` into ``[TRANSFER_SEQ_BASE,
 counter does. The same (key, seq, part) gives the same cipher bytes in both
 packages, so a payload sealed by one unseals under the other.
 
+Keys, sequence numbers, steps and counters are Python ints or one-element
+integer tensors (``kernels.seal.u32``): a tensor stays on its device and
+the counter arithmetic runs there, with the same uint32 wrap, so a swap or
+a stage boundary captured in a CUDA graph ciphers under whatever key and
+sequence its input buffers hold when it is replayed.
+
 A host payload is a tuple of numpy arrays whose dtypes are the reference's
 cipher dtypes (uint16 for bf16 pages, uint32 for f32 pages): the digest is
 taken over exactly the bytes the reference hashes, shapes and dtype codes
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as K
+from repro_torch.kernels.seal import u32
 
 TRANSFER_SEQ_BASE = 0x4000_0000
 
@@ -47,19 +54,21 @@ def transfer_seq(n: int) -> int:
     return TRANSFER_SEQ_BASE + n
 
 
-def _swap_counter(swap_seq: int, part: int) -> int:
-    """uint32 ``0xA5A50000 ^ (2 * seq + part)``, wrapped like JAX's uint32."""
-    return 0xA5A50000 ^ ((int(swap_seq) * 2 + int(part)) & 0xFFFFFFFF)
+def _swap_counter(swap_seq, part: int):
+    """uint32 ``0xA5A50000 ^ (2 * seq + part)``, wrapped like JAX's uint32;
+    an int for an int ``swap_seq``, an int64 scalar tensor on its device
+    for a tensor one."""
+    return 0xA5A50000 ^ ((u32(swap_seq) * 2 + int(part)) & 0xFFFFFFFF)
 
 
-def seal_pages(pages: torch.Tensor, key: int, swap_seq: int, *,
+def seal_pages(pages: torch.Tensor, key, swap_seq, *,
                part: int = 0) -> torch.Tensor:
     """pages [n_pages, row_elems] float -> cipher int16/int32 on the same
     device (the CUDA kernel for a CUDA tensor)."""
     return K.seal_bits(pages, key, _swap_counter(swap_seq, part))
 
 
-def unseal_pages(cipher: torch.Tensor, key: int, swap_seq: int,
+def unseal_pages(cipher: torch.Tensor, key, swap_seq,
                  out_dtype: torch.dtype, *, part: int = 0) -> torch.Tensor:
     return K.unseal_bits(cipher, key, _swap_counter(swap_seq, part),
                          out_dtype=out_dtype)
@@ -68,21 +77,31 @@ def unseal_pages(cipher: torch.Tensor, key: int, swap_seq: int,
 # ---------------------------------------------------------------------------
 # Activation boundaries: the quantizing seal
 # ---------------------------------------------------------------------------
-def _leaf_counter(step: int, leaf_idx: int) -> int:
-    """uint32 ``step * 65537 + leaf_idx``, wrapped like JAX's uint32."""
-    return ((int(step) & 0xFFFFFFFF) * 65537 + int(leaf_idx)) & 0xFFFFFFFF
+def _leaf_counter(step, leaf_idx: int):
+    """uint32 ``step * 65537 + leaf_idx``, wrapped like JAX's uint32; an
+    int for an int ``step``, an int64 scalar tensor on its device for a
+    tensor one."""
+    return (u32(step) * 65537 + int(leaf_idx)) & 0xFFFFFFFF
 
 
-def seal_array(x: torch.Tensor, key: int, step: int):
+def leaf_counters(steps: int, device) -> torch.Tensor:
+    """``_leaf_counter(t, 0)`` for every t < ``steps``, as one int64 tensor
+    on ``device``. A pipelined step slices its per-tick boundary counters
+    out of it: built once, since a host-to-device copy cannot be captured
+    in a CUDA graph."""
+    return torch.tensor([_leaf_counter(t, 0) for t in range(steps)],
+                        dtype=torch.int64, device=device)
+
+
+def seal_array(x: torch.Tensor, key, step):
     """Seal one [..., D] float tensor; returns (cipher uint8, scales f32)
     with the leading dims flattened (``unseal_array`` restores the shape).
     The CUDA kernel runs for a CUDA tensor."""
     return K.seal(x.reshape(-1, x.shape[-1]), key, _leaf_counter(step, 0))
 
 
-def unseal_array(cipher: torch.Tensor, scales: torch.Tensor, shape, key: int,
-                 step: int, dtype: torch.dtype = torch.bfloat16
-                 ) -> torch.Tensor:
+def unseal_array(cipher: torch.Tensor, scales: torch.Tensor, shape, key,
+                 step, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     flat = K.unseal(cipher, scales, key, _leaf_counter(step, 0),
                     out_dtype=dtype)
     return flat.reshape(shape)
@@ -108,7 +127,7 @@ def _unflatten(spec, leaves) -> Any:
     return dict(zip(keys, vals)) if kind == "dict" else kind(vals)
 
 
-def seal_tree(tree: Any, key: int, step: int):
+def seal_tree(tree: Any, key, step):
     """Seal every floating leaf of a boundary pytree (nested dicts, lists,
     tuples of tensors). Leaf i uses counter ``_leaf_counter(step, i)``, so
     keystreams never repeat across leaves or steps. Returns ``(sealed,
@@ -129,7 +148,7 @@ def seal_tree(tree: Any, key: int, step: int):
     return sealed, treedef
 
 
-def unseal_tree(sealed, treedef, key: int, step: int) -> Any:
+def unseal_tree(sealed, treedef, key, step) -> Any:
     leaves = []
     for i, (tag, payload) in enumerate(sealed):
         if tag == "raw":

@@ -29,18 +29,20 @@ SOURCES = ("paged_attention", "seal_bits", "seal_q8", "flash_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _U, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
-                       ctypes.c_float, ctypes.c_longlong)
+_P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
 # entry -> (source, C function, argtypes); pointers and the stream are
 # c_void_p, or ctypes would pass them as 32-bit ints
 SIGNATURES = {
     "paged_attention": ("paged_attention", "repro_paged_attention",
                         [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P]),
+    # the cipher kernels read key and counter from device memory: two
+    # pointers, each to one int64
     "seal_bits": ("seal_bits", "repro_bits_xor",
-                  [_P, _P, _LL, _U, _U] + [_I] * 4 + [_P]),
-    "seal_q8": ("seal_q8", "repro_seal_q8", [_P, _P, _P, _I, _I, _U, _U]
+                  [_P, _P, _LL, _P, _P] + [_I] * 4 + [_P]),
+    "seal_q8": ("seal_q8", "repro_seal_q8", [_P, _P, _P, _I, _I, _P, _P]
                 + [_I] * 3 + [_P]),
-    "unseal_q8": ("seal_q8", "repro_unseal_q8", [_P, _P, _P, _I, _I, _U, _U]
+    "unseal_q8": ("seal_q8", "repro_unseal_q8", [_P, _P, _P, _I, _I, _P, _P]
                   + [_I] * 4 + [_P]),
     "flash_attention": ("flash_attention", "repro_flash_attention",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -24,8 +24,11 @@ constexpr uint32_t kM1 = 0x9E3779B9u;  // golden-ratio odd constants
 constexpr uint32_t kM2 = 0x85EBCA6Bu;
 constexpr uint32_t kM3 = 0xC2B2AE35u;
 
-// Per-launch constants of the mix, computed on the host by the C entries and
-// passed to the kernels by value.
+// Per-launch constants of the mix. Each block forms them itself from the key
+// and counter it loads from device memory (`load_keystream_consts`), as the
+// Pallas kernels read `key_ref[0]` / `ctr_ref[0]`: a launch captured in a CUDA
+// graph then ciphers under whatever key and counter the buffers hold when it
+// is replayed.
 struct KeystreamConsts {
   uint32_t k1;    // K ^ (K >> 16), K = key + ctr * M2
   uint32_t kmul;  // key | 1
@@ -36,6 +39,16 @@ __host__ __device__ __forceinline__ KeystreamConsts keystream_consts(
     uint32_t key, uint32_t ctr) {
   const uint32_t k = key + ctr * kM2;
   return {k ^ (k >> 16), key | 1u, ctr};
+}
+
+// Key and counter as the kernels take them: one int64 each in device memory
+// (the wrappers' one-element int64 tensors), truncated to uint32 as the
+// reference takes its uint32 key and counter. One load each (all threads of a
+// warp read one address), then the three integer operations of
+// keystream_consts.
+__device__ __forceinline__ KeystreamConsts load_keystream_consts(
+    const long long* __restrict__ key, const long long* __restrict__ ctr) {
+  return keystream_consts((uint32_t)__ldg(key), (uint32_t)__ldg(ctr));
 }
 
 // The mix from a = idx * M1 up to, not including, its last xorshift:

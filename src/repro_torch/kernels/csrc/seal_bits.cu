@@ -17,16 +17,18 @@
 //
 // Design.
 //   - The mix runs in the form of keystream.cuh, with its constants
-//     computed on the host: a = idx0 * M1 + j * M1 per lane j, the key
+//     formed by each thread from the key and counter it loads from device
+//     memory (two loads issued beside the data's, then three integer
+//     operations): a = idx0 * M1 + j * M1 per lane j, the key
 //     folded in one LOP3, the last xorshift folded into the data XOR. For
 //     bf16 the low halves of two lanes' words are packed by PRMT (two per
 //     pair: the words and their >> 17) and XORed into the data word with
 //     one LOP3. Indices are 32-bit. Per element this is 5 SHF, 4 IMAD,
 //     4.5 LOP3, 1 PRMT and an add in bf16.
 //   - One 16-byte vector (4 u32 or 8 u16 elements) per thread, neighbouring
-//     threads on neighbouring vectors; the load issues first and the
-//     keystream, which depends on the index and never on the data, is
-//     computed while it is in flight. Two or four vectors per thread, with
+//     threads on neighbouring vectors; the data load issues beside the key
+//     and counter loads, and the keystream, which depends on the index and
+//     the key, never on the data, is computed while the data is in flight. Two or four vectors per thread, with
 //     their chains interleaved, measured no faster: fewer warps per SM
 //     hide less of each chain's latency.
 //   - The launch plan (threads per block, blocks) comes from the wrapper
@@ -81,50 +83,61 @@ __device__ __forceinline__ void xor_vector(const KeystreamConsts& kc,
 // when g < tail, tail element items * VEC + g.
 template <typename T, bool VEC>
 __global__ void bits_xor_kernel(const T* __restrict__ in, T* __restrict__ out,
-                                int items, int tail, KeystreamConsts kc) {
+                                int items, int tail,
+                                const long long* __restrict__ key,
+                                const long long* __restrict__ ctr) {
   constexpr uint32_t kPer = VEC ? 16 / sizeof(T) : 1;  // elements per item
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g < items) {
     if constexpr (VEC) {
       uint4 v = reinterpret_cast<const uint4*>(in)[g];
+      const KeystreamConsts kc = load_keystream_consts(key, ctr);
       xor_vector<T>(kc, (uint32_t)g * kPer, v);
       reinterpret_cast<uint4*>(out)[g] = v;
     } else {
-      out[g] = in[g] ^ keystream_elem<T>(kc, (uint32_t)g);
+      const T x = in[g];
+      out[g] = x ^ keystream_elem<T>(load_keystream_consts(key, ctr),
+                                     (uint32_t)g);
     }
   }
   if (g < tail) {
     const long long i = (long long)items * kPer + g;
-    out[i] = in[i] ^ keystream_elem<T>(kc, (uint32_t)i);
+    out[i] = in[i] ^ keystream_elem<T>(load_keystream_consts(key, ctr),
+                                       (uint32_t)i);
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* in, void* out, int items, int tail,
-                   KeystreamConsts kc, bool vec, int threads, int blocks,
-                   cudaStream_t s) {
+                   const long long* key, const long long* ctr, bool vec,
+                   int threads, int blocks, cudaStream_t s) {
   if (vec)
     bits_xor_kernel<T, true><<<blocks, threads, 0, s>>>(
-        (const T*)in, (T*)out, items, tail, kc);
+        (const T*)in, (T*)out, items, tail, key, ctr);
   else
     bits_xor_kernel<T, false><<<blocks, threads, 0, s>>>(
-        (const T*)in, (T*)out, items, tail, kc);
+        (const T*)in, (T*)out, items, tail, key, ctr);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry (loaded with ctypes). `in` and `out` hold n contiguous
-// elements of elem_bytes (2 or 4) each; vec_ok != 0 promises both pointers
-// are 16-byte aligned. The plan (threads per block, blocks) must give a
+// elements of elem_bytes (2 or 4) each; `key` and `ctr` each point at one
+// int64 in device memory, read by the kernel (its low 32 bits); vec_ok != 0
+// promises both data pointers are 16-byte aligned. The plan (threads per block, blocks) must give a
 // thread to every item and tail element, with fewer than 2**31 threads; it
 // is checked here. Returns the launch's cudaError_t.
 extern "C" int repro_bits_xor(const void* in, void* out, long long n,
-                              unsigned int key, unsigned int ctr,
+                              const void* key, const void* ctr,
                               int elem_bytes, int vec_ok, int threads,
                               int blocks, void* stream) {
   if (n <= 0) return 0;
   if (elem_bytes != 2 && elem_bytes != 4) return (int)cudaErrorInvalidValue;
+  if (!key || !ctr || (uintptr_t)key % 8 || (uintptr_t)ctr % 8)
+    return (int)cudaErrorInvalidValue;
+  const long long* k = (const long long*)key;
+  const long long* c = (const long long*)ctr;
   const int per = vec_ok ? 16 / elem_bytes : 1;
   const long long items = n / per;
   const int tail = (int)(n - items * per);
@@ -132,11 +145,10 @@ extern "C" int repro_bits_xor(const void* in, void* out, long long n,
   if (threads <= 0 || blocks <= 0 || grid < items || grid < tail ||
       grid > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  const KeystreamConsts kc = keystream_consts(key, ctr);
   cudaStream_t s = (cudaStream_t)stream;
   if (elem_bytes == 4)
-    return (int)launch<uint32_t>(in, out, (int)items, tail, kc, vec_ok != 0,
+    return (int)launch<uint32_t>(in, out, (int)items, tail, k, c, vec_ok != 0,
                                  threads, blocks, s);
-  return (int)launch<uint16_t>(in, out, (int)items, tail, kc, vec_ok != 0,
+  return (int)launch<uint16_t>(in, out, (int)items, tail, k, c, vec_ok != 0,
                                threads, blocks, s);
 }

@@ -31,8 +31,9 @@
 //     elements a thread with 256 threads measured slower); the threads per
 //     block come from the wrapper (`ops._seal_threads`);
 //   - the keystream's top bytes are computed while the loads are in flight
-//     (they depend on the index only; the mix's constants come from the
-//     host), packed into a word by PRMT;
+//     (they depend on the index and the key only; each thread forms the
+//     mix's constants from the key and counter it loads from device memory
+//     beside the row's data), packed into a word by PRMT;
 //   - the block absmax takes warp shuffles, one shared-memory exchange and
 //     one __syncthreads; every warp then reduces the warps' maxima itself;
 //   - the cipher bytes go out in one 4-byte store per thread;
@@ -156,7 +157,9 @@ __device__ __forceinline__ void quantize_store(const float (&v)[kEpt],
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(1024)
     seal_q8_kernel(const T* __restrict__ x, uint8_t* __restrict__ cipher,
-                   float* __restrict__ scales, int cols, KeystreamConsts kc) {
+                   float* __restrict__ scales, int cols,
+                   const long long* __restrict__ key,
+                   const long long* __restrict__ ctr) {
   __shared__ float partial[32];
   const int row = blockIdx.x;
   const long long base = (long long)row * cols;
@@ -167,6 +170,7 @@ __global__ void __launch_bounds__(1024)
 
   float v[kEpt];
   load_elems<T, VEC>(xr, c, cols, v);
+  const KeystreamConsts kc = load_keystream_consts(key, ctr);
   // keystream bytes while the loads are in flight
   uint32_t ks = keystream_top_bytes(kc, (uint32_t)base + (uint32_t)c);
   float m = 0.f;
@@ -237,7 +241,9 @@ template <typename T, bool VEC>
 __global__ void __launch_bounds__(1024)
     unseal_q8_kernel(const uint8_t* __restrict__ cipher,
                      const float* __restrict__ scales, T* __restrict__ out,
-                     unsigned rows, unsigned cols, KeystreamConsts kc) {
+                     unsigned rows, unsigned cols,
+                     const long long* __restrict__ key,
+                     const long long* __restrict__ ctr) {
   const unsigned row = blockIdx.z * kGridRows + blockIdx.y;
   const unsigned c = (blockIdx.x * blockDim.x + threadIdx.x) * kEpt;
   if (row >= rows || c >= cols) return;
@@ -253,7 +259,8 @@ __global__ void __launch_bounds__(1024)
       if (c + e < cols) w |= (uint32_t)cr[c + e] << (8 * e);
   }
   const float scale = scales[row];  // one address for the whole block
-  w ^= keystream_top_bytes(kc, (uint32_t)base + c);
+  w ^= keystream_top_bytes(load_keystream_consts(key, ctr),
+                           (uint32_t)base + c);
   // sign-extend each byte, then one correctly rounded f32 multiply (no FMA)
   float v[kEpt];
 #pragma unroll
@@ -264,32 +271,33 @@ __global__ void __launch_bounds__(1024)
 
 template <typename T>
 cudaError_t launch_seal(const void* x, void* cipher, void* scales, int rows,
-                        int cols, KeystreamConsts kc, bool vec, int threads,
-                        cudaStream_t s) {
+                        int cols, const long long* key, const long long* ctr,
+                        bool vec, int threads, cudaStream_t s) {
   if (vec)
     seal_q8_kernel<T, true><<<rows, threads, 0, s>>>(
-        (const T*)x, (uint8_t*)cipher, (float*)scales, cols, kc);
+        (const T*)x, (uint8_t*)cipher, (float*)scales, cols, key, ctr);
   else
     seal_q8_kernel<T, false><<<rows, threads, 0, s>>>(
-        (const T*)x, (uint8_t*)cipher, (float*)scales, cols, kc);
+        (const T*)x, (uint8_t*)cipher, (float*)scales, cols, key, ctr);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_unseal(const void* cipher, const void* scales, void* out,
-                          int rows, int cols, KeystreamConsts kc, bool vec,
-                          int threads, int tiles, cudaStream_t s) {
+                          int rows, int cols, const long long* key,
+                          const long long* ctr, bool vec, int threads,
+                          int tiles, cudaStream_t s) {
   const unsigned r = (unsigned)rows;
   const dim3 grid((unsigned)tiles, r < kGridRows ? r : kGridRows,
                   (r + kGridRows - 1) / kGridRows);
   if (vec)
     unseal_q8_kernel<T, true><<<grid, threads, 0, s>>>(
         (const uint8_t*)cipher, (const float*)scales, (T*)out, r,
-        (unsigned)cols, kc);
+        (unsigned)cols, key, ctr);
   else
     unseal_q8_kernel<T, false><<<grid, threads, 0, s>>>(
         (const uint8_t*)cipher, (const float*)scales, (T*)out, r,
-        (unsigned)cols, kc);
+        (unsigned)cols, key, ctr);
   return cudaGetLastError();
 }
 
@@ -297,28 +305,32 @@ cudaError_t launch_unseal(const void* cipher, const void* scales, void* out,
 
 // Plain C entries (loaded with ctypes). x / out hold rows*cols contiguous
 // elements of elem_bytes (4: f32, 2: bf16); cipher is uint8 [rows, cols],
-// scales f32 [rows, 1]. Each returns the launch's cudaError_t.
+// scales f32 [rows, 1]; `key` and `ctr` each point at one int64 in device
+// memory, read by the kernel (its low 32 bits). Each returns the launch's
+// cudaError_t.
 //
 // seal takes its threads per block from the wrapper (`ops._seal_threads`:
 // a multiple of 32, at most 1024) and vec_ok != 0 where x is 16-byte
 // aligned, cipher 4-byte aligned and cols a multiple of 4 (checked here).
 extern "C" int repro_seal_q8(const void* x, void* cipher, void* scales,
-                             int rows, int cols, unsigned int key,
-                             unsigned int ctr, int elem_bytes, int vec_ok,
+                             int rows, int cols, const void* key,
+                             const void* ctr, int elem_bytes, int vec_ok,
                              int threads, void* stream) {
   if (rows <= 0 || cols <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const bool vec = vec_ok != 0;
-  if (threads < 32 || threads > 1024 || threads % 32 ||
+  if (threads < 32 || threads > 1024 || threads % 32 || !key || !ctr ||
+      (uintptr_t)key % 8 || (uintptr_t)ctr % 8 ||
       (vec && (cols % 4 || (uintptr_t)x % 16 || (uintptr_t)cipher % 4)))
     return (int)cudaErrorInvalidValue;
-  const KeystreamConsts kc = keystream_consts(key, ctr);
+  const long long* k = (const long long*)key;
+  const long long* c = (const long long*)ctr;
   if (elem_bytes == 4)
-    return (int)launch_seal<float>(x, cipher, scales, rows, cols, kc, vec,
+    return (int)launch_seal<float>(x, cipher, scales, rows, cols, k, c, vec,
                                    threads, s);
   if (elem_bytes == 2)
-    return (int)launch_seal<__nv_bfloat16>(x, cipher, scales, rows, cols, kc,
-                                           vec, threads, s);
+    return (int)launch_seal<__nv_bfloat16>(x, cipher, scales, rows, cols, k,
+                                           c, vec, threads, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -329,7 +341,7 @@ extern "C" int repro_seal_q8(const void* x, void* cipher, void* scales,
 // of 4 (checked here).
 extern "C" int repro_unseal_q8(const void* cipher, const void* scales,
                                void* out, int rows, int cols,
-                               unsigned int key, unsigned int ctr,
+                               const void* key, const void* ctr,
                                int out_elem_bytes, int vec_ok, int threads,
                                int tiles, void* stream) {
   if (rows <= 0 || cols <= 0) return 0;
@@ -339,14 +351,16 @@ extern "C" int repro_unseal_q8(const void* cipher, const void* scales,
   const bool vec = vec_ok != 0;
   const long long tile = (long long)threads * kEpt;
   if (threads < 32 || threads > 1024 || threads % 32 || tiles <= 0 ||
-      tiles * tile < cols || (tiles - 1) * tile >= cols ||
+      tiles * tile < cols || (tiles - 1) * tile >= cols || !key || !ctr ||
+      (uintptr_t)key % 8 || (uintptr_t)ctr % 8 ||
       (vec && (cols % 4 || (uintptr_t)cipher % 4 ||
                (uintptr_t)out % (4 * out_elem_bytes))))
     return (int)cudaErrorInvalidValue;
-  const KeystreamConsts kc = keystream_consts(key, ctr);
+  const long long* k = (const long long*)key;
+  const long long* c = (const long long*)ctr;
   if (out_elem_bytes == 4)
-    return (int)launch_unseal<float>(cipher, scales, out, rows, cols, kc, vec,
-                                     threads, tiles, s);
+    return (int)launch_unseal<float>(cipher, scales, out, rows, cols, k, c,
+                                     vec, threads, tiles, s);
   return (int)launch_unseal<__nv_bfloat16>(cipher, scales, out, rows, cols,
-                                           kc, vec, threads, tiles, s);
+                                           k, c, vec, threads, tiles, s);
 }

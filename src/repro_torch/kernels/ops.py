@@ -5,17 +5,21 @@ version in ``ref``; a CUDA tensor launches the hand-written kernel from
 ``csrc/`` or raises — there is no fallback for a CUDA tensor and no switch
 that turns the kernels off. Each wrapper counts its kernel launches in
 ``LAUNCHES`` (plain ints, bumped only where a kernel is launched), so a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels. The cipher
+kernels (``seal``, ``unseal``, ``seal_bits``, ``unseal_bits``) read their
+key and counter from device memory, as one-element int64 tensors
+(``_keys``), so a captured launch ciphers under whatever they hold at
+replay.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Union
 
 import torch
 
 from . import ref
-from .seal import int_dtype_of
+from .seal import check_key_tensor, int_dtype_of, u32
 
 LAUNCHES: Dict[str, int] = {"paged_attention": 0, "seal_bits": 0,
                             "unseal_bits": 0, "seal": 0, "unseal": 0,
@@ -152,21 +156,64 @@ def _unseal_plan(cols: int):
 
 
 # ---------------------------------------------------------------------------
+# Key and counter of the cipher kernels
+# ---------------------------------------------------------------------------
+KeyArg = Union[int, torch.Tensor]
+
+
+def _keys(name: str, device: torch.device, key: KeyArg, counter: KeyArg):
+    """``key`` and ``counter`` as the cipher kernels read them: each a
+    one-element int64 tensor on ``device``, from device memory, as the
+    Pallas kernels read ``key_ref[0]`` / ``ctr_ref[0]``. A CUDA graph
+    that captured the launch then ciphers under whatever the tensors hold
+    when it is replayed. An int becomes such a tensor here (a host-to-
+    device copy, for eager callers and the tests; a captured caller passes
+    tensors); a tensor on another device raises; any other integer type is
+    widened to int64 on the device (its low 32 bits are the word)."""
+    out = []
+    for what, v in (("key", key), ("counter", counter)):
+        if isinstance(v, torch.Tensor):
+            if v.device != device:
+                raise ValueError(f"{name}: {what} on {v.device}, data on "
+                                 f"{device}")
+            check_key_tensor(v)
+            v = v.reshape(1)
+            if v.dtype != torch.int64:
+                v = v.to(torch.int64)
+            out.append(v)
+        else:
+            out.append(torch.tensor([u32(v)], dtype=torch.int64,
+                                    device=device))
+    return out
+
+
+def _check_plain_keys(name: str, device: torch.device, *vals) -> None:
+    for v in vals:
+        if isinstance(v, torch.Tensor) and v.device != device:
+            raise ValueError(f"{name}: key or counter on {v.device}, data "
+                             f"on {device}")
+
+
+# ---------------------------------------------------------------------------
 # Quantizing activation seal (stage boundaries)
 # ---------------------------------------------------------------------------
 _Q8_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def seal(x: torch.Tensor, key: int, counter: int):
+def seal(x: torch.Tensor, key: KeyArg, counter: KeyArg):
     """x [rows, cols] f32/bf16 -> (cipher uint8 [rows, cols], scales f32
-    [rows, 1]): per-row int8 quantization XOR the keystream's top byte."""
+    [rows, 1]): per-row int8 quantization XOR the keystream's top byte.
+    ``key`` and ``counter``: ints or one-element integer tensors on x's
+    device."""
     if x.dtype not in _Q8_DTYPES or x.dim() != 2:
         raise TypeError(f"seal takes a 2D float32 or bfloat16 tensor, got "
                         f"{x.dtype} {tuple(x.shape)}")
     if not x.is_cuda:
+        _check_plain_keys("seal", x.device, key, counter)
         return ref.seal_ref(x, key, counter)
     from .build import entry
     _check_cuda("seal", x)
+    kt, ct = _keys("seal", x.device, key, counter)
     rows, cols = x.shape
     cipher = torch.empty((rows, cols), dtype=torch.uint8, device=x.device)
     scales = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
@@ -175,16 +222,16 @@ def seal(x: torch.Tensor, key: int, counter: int):
     with torch.cuda.device(x.device):
         rc = entry("seal_q8")(
             x.data_ptr(), cipher.data_ptr(), scales.data_ptr(), rows, cols,
-            int(key) & 0xFFFFFFFF, int(counter) & 0xFFFFFFFF,
-            x.element_size(), vec_ok, _seal_threads(cols), _stream(x.device))
+            kt.data_ptr(), ct.data_ptr(), x.element_size(), vec_ok,
+            _seal_threads(cols), _stream(x.device))
     if rc:
         raise _launch_failed("seal", rc)
     LAUNCHES["seal"] += 1
     return cipher, scales
 
 
-def unseal(cipher: torch.Tensor, scales: torch.Tensor, key: int,
-           counter: int, out_dtype: torch.dtype = torch.bfloat16
+def unseal(cipher: torch.Tensor, scales: torch.Tensor, key: KeyArg,
+           counter: KeyArg, out_dtype: torch.dtype = torch.bfloat16
            ) -> torch.Tensor:
     """Inverse of ``seal`` up to the quantization -> ``out_dtype``
     [rows, cols]."""
@@ -197,9 +244,11 @@ def unseal(cipher: torch.Tensor, scales: torch.Tensor, key: int,
                         f"got {cipher.dtype} {tuple(cipher.shape)}, "
                         f"{scales.dtype} {tuple(scales.shape)}, {out_dtype}")
     if not cipher.is_cuda:
+        _check_plain_keys("unseal", cipher.device, key, counter)
         return ref.unseal_ref(cipher, scales, key, counter, out_dtype)
     from .build import entry
     _check_cuda("unseal", cipher, scales)
+    kt, ct = _keys("unseal", cipher.device, key, counter)
     rows, cols = cipher.shape
     out = torch.empty((rows, cols), dtype=out_dtype, device=cipher.device)
     vec_ok = int(cipher.data_ptr() % 4 == 0
@@ -208,8 +257,8 @@ def unseal(cipher: torch.Tensor, scales: torch.Tensor, key: int,
     with torch.cuda.device(cipher.device):
         rc = entry("unseal_q8")(
             cipher.data_ptr(), scales.data_ptr(), out.data_ptr(), rows, cols,
-            int(key) & 0xFFFFFFFF, int(counter) & 0xFFFFFFFF,
-            out.element_size(), vec_ok, *_unseal_plan(cols),
+            kt.data_ptr(), ct.data_ptr(), out.element_size(), vec_ok,
+            *_unseal_plan(cols),
             _stream(cipher.device))
     if rc:
         raise _launch_failed("unseal", rc)
@@ -220,43 +269,46 @@ def unseal(cipher: torch.Tensor, scales: torch.Tensor, key: int,
 # ---------------------------------------------------------------------------
 # Lossless page cipher
 # ---------------------------------------------------------------------------
-def _bits_xor(x: torch.Tensor, key: int, counter: int,
+def _bits_xor(x: torch.Tensor, key: KeyArg, counter: KeyArg,
               out_dtype: torch.dtype) -> torch.Tensor:
     from .build import entry
     _check_cuda("seal_bits", x)
     if x.dim() != 2:
         raise ValueError(f"seal_bits takes [rows, cols], got {tuple(x.shape)}")
+    kt, ct = _keys("seal_bits", x.device, key, counter)
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     vec_ok = int(x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     plan = _cipher_plan(x.numel(), x.element_size(), bool(vec_ok))
     with torch.cuda.device(x.device):
         rc = entry("seal_bits")(
-            x.data_ptr(), out.data_ptr(), x.numel(), int(key) & 0xFFFFFFFF,
-            int(counter) & 0xFFFFFFFF, x.element_size(), vec_ok, *plan,
-            _stream(x.device))
+            x.data_ptr(), out.data_ptr(), x.numel(), kt.data_ptr(),
+            ct.data_ptr(), x.element_size(), vec_ok, *plan, _stream(x.device))
     if rc:
         raise _launch_failed("seal_bits", rc)
     return out
 
 
-def seal_bits(x: torch.Tensor, key: int, counter: int) -> torch.Tensor:
+def seal_bits(x: torch.Tensor, key: KeyArg, counter: KeyArg) -> torch.Tensor:
     """Losslessly cipher a 2D float tensor (f32 or bf16) -> int32/int16 of
-    the same bit width; ``unseal_bits`` restores it bit for bit."""
+    the same bit width; ``unseal_bits`` restores it bit for bit. ``key``
+    and ``counter``: ints or one-element integer tensors on x's device."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"seal_bits takes float32 or bfloat16, got {x.dtype}")
     if not x.is_cuda:
+        _check_plain_keys("seal_bits", x.device, key, counter)
         return ref.seal_bits_ref(x, key, counter)
     out = _bits_xor(x, key, counter, int_dtype_of(x.dtype))
     LAUNCHES["seal_bits"] += 1
     return out
 
 
-def unseal_bits(cipher: torch.Tensor, key: int, counter: int,
+def unseal_bits(cipher: torch.Tensor, key: KeyArg, counter: KeyArg,
                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     if cipher.dtype != int_dtype_of(out_dtype):
         raise TypeError(f"cipher dtype {cipher.dtype} does not carry "
                         f"{out_dtype} bits")
     if not cipher.is_cuda:
+        _check_plain_keys("unseal_bits", cipher.device, key, counter)
         return ref.unseal_bits_ref(cipher, key, counter, out_dtype)
     out = _bits_xor(cipher, key, counter, out_dtype)
     LAUNCHES["unseal_bits"] += 1

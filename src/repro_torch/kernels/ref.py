@@ -1,6 +1,9 @@
 """Plain PyTorch versions of the ported kernels (port of
 ``repro/kernels/ref.py``): the CPU path of ``ops`` and the oracle every
-CUDA kernel is held against on the card."""
+CUDA kernel is held against on the card. The ciphers' ``key`` and
+``counter`` are ints or one-element integer tensors on the data's device
+(``seal.keystream_u32``): a tensor is used in tensor arithmetic, never read
+back to the host."""
 from __future__ import annotations
 
 import math
@@ -22,11 +25,11 @@ def _flat_index(shape, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # seal / unseal — int8 quantize + keystream XOR (stage boundaries)
 # ---------------------------------------------------------------------------
-def _top_byte(shape, key: int, counter: int, device) -> torch.Tensor:
+def _top_byte(shape, key, counter, device) -> torch.Tensor:
     return keystream_u32(key, counter, _flat_index(shape, device)) >> 24
 
 
-def seal_ref(x: torch.Tensor, key: int, counter: int):
+def seal_ref(x: torch.Tensor, key, counter):
     """x [rows, cols] float -> (cipher uint8 [rows, cols], scales f32
     [rows, 1]): per-row absmax int8 quantization, scale = max(absmax, 1e-6)
     / 127, q = clip(round_half_even(x / scale), -127, 127) by true division
@@ -43,8 +46,8 @@ def seal_ref(x: torch.Tensor, key: int, counter: int):
     return cipher.to(torch.uint8), scale
 
 
-def unseal_ref(cipher: torch.Tensor, scales: torch.Tensor, key: int,
-               counter: int, out_dtype: torch.dtype = torch.bfloat16
+def unseal_ref(cipher: torch.Tensor, scales: torch.Tensor, key,
+               counter, out_dtype: torch.dtype = torch.bfloat16
                ) -> torch.Tensor:
     """Inverse of ``seal_ref`` up to the quantization: XOR back, sign-extend
     the byte, multiply by the row scale in f32, cast to ``out_dtype``."""
@@ -57,13 +60,13 @@ def unseal_ref(cipher: torch.Tensor, scales: torch.Tensor, key: int,
 # ---------------------------------------------------------------------------
 # seal_bits / unseal_bits — lossless bitcast + XOR (KV swap tier)
 # ---------------------------------------------------------------------------
-def _bits_keystream(shape, key: int, counter: int, bits: int,
+def _bits_keystream(shape, key, counter, bits: int,
                     device) -> torch.Tensor:
     return to_signed(keystream_u32(key, counter, _flat_index(shape, device)),
                      bits)
 
 
-def seal_bits_ref(x: torch.Tensor, key: int, counter: int) -> torch.Tensor:
+def seal_bits_ref(x: torch.Tensor, key, counter) -> torch.Tensor:
     """x [rows, cols] float -> cipher int16/int32 of the same bit width:
     the float bits XOR the keystream at flat index ``row*cols + col``
     (modulo 2**32), truncated to the width (low 16 bits for bf16)."""
@@ -73,7 +76,7 @@ def seal_bits_ref(x: torch.Tensor, key: int, counter: int) -> torch.Tensor:
     return u ^ _bits_keystream(x.shape, key, counter, bits, x.device)
 
 
-def unseal_bits_ref(cipher: torch.Tensor, key: int, counter: int,
+def unseal_bits_ref(cipher: torch.Tensor, key, counter,
                     out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Inverse of ``seal_bits_ref`` (XOR is an involution): bit-exact."""
     idt = int_dtype_of(out_dtype)

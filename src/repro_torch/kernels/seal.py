@@ -19,22 +19,42 @@ M3 = 0xC2B2AE35
 MASK32 = 0xFFFFFFFF
 
 
-def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
-    """(a * c) mod 2**32 for int64 ``a`` in [0, 2**32) and a 32-bit
-    constant ``c``, without overflowing int64."""
+def _mul32(a, c):
+    """(a * c) mod 2**32 for ``a`` and ``c`` in [0, 2**32), each an int or
+    an int64 tensor, without overflowing int64."""
     lo = a * (c & 0xFFFF)                        # < 2**48
     hi = ((a * (c >> 16)) & 0xFFFF) << 16        # < 2**32
     return (lo + hi) & MASK32
 
 
-def keystream_u32(key: int, counter: int, idx: torch.Tensor) -> torch.Tensor:
+def check_key_tensor(v: torch.Tensor) -> None:
+    """A key or counter tensor holds one integer: raise TypeError if not."""
+    if v.numel() != 1 or v.is_floating_point() or v.is_complex() \
+            or v.dtype == torch.bool:
+        raise TypeError(f"a key or counter tensor holds one integer, got "
+                        f"{v.dtype} {tuple(v.shape)}")
+
+
+def u32(v):
+    """A key or counter taken modulo 2**32: a Python int stays an int; a
+    one-element integer tensor becomes an int64 scalar tensor on its own
+    device, in tensor arithmetic (no ``.item()``, no host sync), so a
+    signed int32 bit pattern and an int64 value give the same word."""
+    if isinstance(v, torch.Tensor):
+        check_key_tensor(v)
+        return v.reshape(()).to(torch.int64) & MASK32
+    return int(v) & MASK32
+
+
+def keystream_u32(key, counter, idx: torch.Tensor) -> torch.Tensor:
     """Per-element 32-bit keystream. ``key`` and ``counter`` are Python ints
-    taken modulo 2**32; ``idx`` is an integer tensor of element indices,
-    taken modulo 2**32 as JAX's uint32 arithmetic wraps them. Returns int64
-    values in [0, 2**32)."""
-    key, counter = int(key) & MASK32, int(counter) & MASK32
+    or one-element integer tensors (on ``idx``'s device), taken modulo
+    2**32; ``idx`` is an integer tensor of element indices, taken modulo
+    2**32 as JAX's uint32 arithmetic wraps them. Returns int64 values in
+    [0, 2**32), the same for an int and a tensor of the same value."""
+    key, counter = u32(key), u32(counter)
     x = _mul32(idx.to(torch.int64) & MASK32, M1)
-    x = x ^ ((key + counter * M2) & MASK32)
+    x = x ^ ((key + _mul32(counter, M2)) & MASK32)
     x = _mul32(x ^ (x >> 16), M2)
     x = _mul32(x ^ (x >> 13), M3)
     x = x ^ (x >> 16)

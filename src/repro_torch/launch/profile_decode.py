@@ -21,7 +21,7 @@ With ``--prefill`` the traced unit is one ``prefill_chunk_fn`` call
 instead: a 512-token prompt in four 128-token chunks (the last three
 attend over a prefix gathered from the pools), repeated until ``--steps``
 chunks ran. ``--graphs`` replays CUDA graphs: the engine warms up
-(``EngineConfig.warmup``) before the prompts arrive, and the chunk runs
+(``EngineConfig.warmup``, on either backend) before the prompts arrive, and the chunk runs
 through a capturing ``AotRegistry`` (one graph per offset, captured in
 the untraced pass); without it both run eagerly through the same code.
 Needs a CUDA card.

@@ -18,16 +18,22 @@ prompts longer than N in N-token chunks, ``--prefill-pack K`` admits up to
 K short prompts in one prefill call, and ``--verify-chunked`` serves the
 stream again with one-shot prefill and checks the streams are equal
 (prints ``CHUNK-EXACT OK``). ``--warmup`` captures every serving shape as
-a CUDA graph before serving (local backend; on the CPU the same passes run
-eagerly), and ``--assert-no-recompile`` then fails unless steady-state
-serving captured nothing new (prints ``NO-RECOMPILE OK``). Runs on
-``cuda`` unless ``--device cpu`` is given; without a card it raises.
+a CUDA graph before serving, on either backend (pipelined: the step and
+stage probes of the planned layout and of every toured one, and the swap
+I/O; on the CPU the same passes run eagerly), and
+``--assert-no-recompile`` then fails unless steady-state serving captured
+nothing new (prints ``NO-RECOMPILE OK``). Runs on ``cuda`` unless
+``--device cpu`` is given; without a card it raises.
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
       --device cpu --prompt-len 24 --prefill-chunk 5 --prefill-pack 3 \\
       --f32 --verify-chunked
-  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \
+  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
       --device cpu --backend local --warmup --assert-no-recompile
+  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
+      --device cpu --stages 2 --microbatches 2 --slots 4 --requests 6 \\
+      --max-new 8 --no-seal --f32 --inject-straggler 1:10 --verify-swap \\
+      --warmup --assert-no-recompile
 """
 from __future__ import annotations
 
@@ -109,8 +115,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--warmup", action="store_true",
                     help="capture every serving shape (decode step, all "
                          "prefill buckets one-shot and packed, every chunk "
-                         "offset) as a CUDA graph before serving (local "
-                         "backend)")
+                         "offset, swap I/O; pipelined: the step and stage "
+                         "probes of every toured layout) as a CUDA graph "
+                         "before serving")
     ap.add_argument("--assert-no-recompile", action="store_true",
                     help="with --warmup: fail unless steady-state serving "
                          "captured no new graph")

@@ -60,26 +60,29 @@ def plan(seal_threads=None, unseal_most=None):
 
 def candidates(x, c, sc):
     """(label, plan arguments, fn) for every candidate, each held against
-    the plain version under its plan."""
+    the plain version under its plan. Key and counter are device tensors,
+    as the serving path passes them."""
     rows, cols = x.shape
+    key = torch.tensor([KEY], device=x.device)
+    ctr = torch.tensor([CTR], device=x.device)
     wc, ws = ref.seal_ref(x, KEY, CTR)
     want = ref.unseal_ref(c, sc, KEY, CTR, torch.bfloat16)
     out = []
     for threads in SEAL_THREADS:
         with plan(seal_threads=threads):
-            got, gs = ops.seal(x, KEY, CTR)
+            got, gs = ops.seal(x, key, ctr)
         assert torch.equal(gs, ws) and (got != wc).float().mean() <= 1e-3, \
             ("seal", threads)
         out.append((f"seal threads={threads}", dict(seal_threads=threads),
-                    lambda: ops.seal(x, KEY, CTR)))
+                    lambda: ops.seal(x, key, ctr)))
     for most in UNSEAL_THREADS:
         with plan(unseal_most=most):
-            got = ops.unseal(c, sc, KEY, CTR, torch.bfloat16)
+            got = ops.unseal(c, sc, key, ctr, torch.bfloat16)
             threads, tiles = ops._unseal_plan(cols)
         assert torch.equal(got, want), ("unseal", most)
         out.append((f"unseal threads={most} ({tiles} tiles of {threads} "
                     f"threads x {rows} rows)", dict(unseal_most=most),
-                    lambda: ops.unseal(c, sc, KEY, CTR, torch.bfloat16)))
+                    lambda: ops.unseal(c, sc, key, ctr, torch.bfloat16)))
     return out
 
 

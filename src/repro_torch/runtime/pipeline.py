@@ -1,15 +1,21 @@
 """Serdab pipelined serving, stages in sequence on one card.
 
 Port of ``repro/runtime/pipeline.py``. The block stack is split into
-``num_stages`` contiguous stages (block counts from the placement solver,
-uneven ones included) and the decode batch into ``num_microbatches``
-microbatches: rows ``[m * B_mb, (m + 1) * B_mb)`` form microbatch m, with
-``B_mb = num_slots / num_microbatches``. Microbatch m leaves stage s at
-tick ``t = m + s``; its ``[B_mb, 1, d]`` activation is sealed there with
-``seal_array(h, key, t + 1)`` (int8 quantize + keystream XOR, the paper's
-enclave-to-enclave discipline) and opened by stage s + 1 with
-``unseal_array(..., step=t + 1)``. Stage 0 embeds instead of unsealing;
-the last stage applies the final norm and the f32 head, unsealed.
+``num_stages`` contiguous stages (block counts from the placement
+solver, uneven ones included) and the decode batch into
+``num_microbatches`` microbatches: rows ``[m * B_mb, (m + 1) * B_mb)``
+form microbatch m, with ``B_mb = num_slots / num_microbatches``.
+Microbatch m leaves stage s at tick ``t = m + s``; its ``[B_mb, 1, d]``
+activation is sealed there under the step's key and the counter
+``_leaf_counter(t + 1, 0)`` (int8 quantize + keystream XOR, the paper's
+enclave-to-enclave discipline, as the reference's
+``seal_array(h, key, t + 1)``) and opened by stage s + 1 under the same
+pair. The step takes its key as a one-element device tensor, and the
+per-tick counters, fixed for a layout, are built once as a device tensor
+(``sealing.leaf_counters``), so the step can be captured in a CUDA
+graph: each replay seals under the key the engine copied in for it.
+Stage 0 embeds instead of unsealing; the last stage applies the final
+norm and the f32 head, unsealed.
 
 What the reference does for sharding over pods and the port does not copy
 on one card:
@@ -35,6 +41,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.enclave import sealing
+from repro_torch.kernels import ops as K
 from repro_torch.models.api import ModelAPI
 from repro_torch.models.transformer import SEGMENT
 
@@ -114,11 +121,12 @@ class PipelinedDecoder:
         """A single-stage runner for per-stage wall-time telemetry:
         ``probe(params, pools, s, x, bt, sl)`` runs stage s's layer range
         on one microbatch exactly as a tick would (minus the seal) and
-        returns its output. The caller times it around a device
-        synchronise. The probe must leave the serving state as it found
-        it, so the caller passes block-table rows of the null page: every
-        K/V write is dropped and every read sees the zero page, over as many
-        pages as the live lengths reach."""
+        returns its output. The caller times it (the engine: CUDA events
+        on the card, the host clock on the CPU). The probe must leave the
+        serving state as it found it, so the caller passes block-table
+        rows of the null page: every K/V write is dropped and every read
+        sees the zero page, over as many pages as the live lengths
+        reach."""
         if not paged:
             raise NotImplementedError(
                 "the timeline KV layout is not ported; build_stage_probe "
@@ -131,7 +139,9 @@ class PipelinedDecoder:
         ``cache`` is the paged cache dict of ``ModelAPI.init_paged_cache``
         (pools ``[L, N, KVH, Pg, D]``, ``block_tables`` [B, MP], ``seq_lens``
         [B]), updated in place; ``batch["tokens"]`` is [B, 1]; ``key`` is
-        the uint32 boundary key of this step. Returns f32 logits [B, V].
+        the uint32 boundary key of this step, a one-element integer tensor
+        on the device (the engine's, which a captured step reads at every
+        replay) or an int (eager callers). Returns f32 logits [B, V].
 
         Demand paging / COW: the engine backs every row's next write
         position with a private page before the step, so the stages never
@@ -144,8 +154,10 @@ class PipelinedDecoder:
         S, nm = self.num_stages, self.num_microbatches
         seal_on = self.seal_boundary
         stage_run = self._stage_run
+        # _leaf_counter(t, 0) for every tick t: tick t seals under t + 1
+        ctrs = sealing.leaf_counters(nm + S, api.device) if seal_on else None
 
-        def step_fn(params, cache, batch, key: int):
+        def step_fn(params, cache, batch, key):
             tokens = batch["tokens"]                       # [B, 1]
             B = tokens.shape[0]
             assert B % nm == 0, (B, nm)
@@ -153,7 +165,6 @@ class PipelinedDecoder:
             bt, sl = cache["block_tables"], cache["seq_lens"]
             pools = cache[SEGMENT]
             d = api.cfg.d_model
-            key = int(key) & 0xFFFFFFFF
             inflight: List[Any] = [None] * nm    # each microbatch's boundary
             logits = [None] * nm
             for t in range(nm + S - 1):
@@ -166,15 +177,16 @@ class PipelinedDecoder:
                         x = model.embed(params, tokens[rows])
                     elif seal_on:
                         cipher, scales = inflight[m]
-                        x = sealing.unseal_array(cipher, scales, (B_mb, 1, d),
-                                                 key, t, dtype=api.dtype)
+                        x = K.unseal(cipher, scales, key, ctrs[t:t + 1],
+                                     out_dtype=api.dtype).reshape(B_mb, 1, d)
                     else:
                         x = inflight[m]
                     h = stage_run(params, pools, s, x, bt[rows], sl[rows])
                     if s == S - 1:
                         logits[m] = model.head(params, h)
                     elif seal_on:
-                        inflight[m] = sealing.seal_array(h, key, t + 1)
+                        inflight[m] = K.seal(h.reshape(-1, d), key,
+                                             ctrs[t + 1:t + 2])
                     else:
                         inflight[m] = h
             sl.copy_(torch.where(sl > 0, sl + 1, sl))

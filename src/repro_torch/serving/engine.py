@@ -37,27 +37,23 @@ CUDA paged-attention kernel, every stage boundary the CUDA quantizing seal
 and every swap the CUDA page cipher; on the CPU the same calls take the
 plain PyTorch versions.
 
-``warmup=True`` (local backend) is the reference's AOT warmup as CUDA
-graphs (``serving/aot.py``): ``warmup()`` captures every shape the
-steady-state loop dispatches -- the decode step, one-shot and packed
-prefill at every bucket, and a prefill chunk at every chunk offset -- and
-from then on each of those calls is one graph replay, holding the paged
-and flash kernels. Per-call numbers (tokens, prompt lengths, write
-targets, block-table rows) reach the device through pinned, non-blocking
-copies into the graphs' static buffers. What stays eager, and why:
-
-* the pipelined step: each step seals its stage boundaries under the key
-  ``key + step``, and the seal kernels take their keystream constants as
-  launch arguments from the host, so a captured step would replay one
-  keystream forever (nonce reuse on a sealed boundary). ``warmup=True``
-  with the pipelined backend raises until the seals read key and counter
-  from device memory;
-* swap I/O (``gather_pages`` / ``scatter_pages``), for the same reason:
-  the page cipher's counter is a host argument (the reference warms these
-  because its counters are traced);
-* page-table maintenance (``insert_slot``, ``commit_slot``,
-  ``clear_slot``, ``set_table_entry``, ``copy_page``): a few small
-  launches per admission or fork.
+``warmup=True`` is the reference's AOT warmup as CUDA graphs
+(``serving/aot.py``), on both backends: ``warmup()`` captures every shape
+the steady-state loop dispatches -- the decode step (on the pipelined
+backend one per stage layout, ``step{layout}``, with its per-stage
+telemetry probe, ``probe{layout}``, for the planned layout and every
+layout of the reference's tour), one-shot and packed prefill at every
+bucket, a prefill chunk at every chunk offset, and the swap I/O
+(``gather_pages`` / ``scatter_pages``) -- and from then on each of those
+calls is one graph replay, holding the paged, flash, seal and cipher
+kernels. Per-call numbers (tokens, prompt lengths, write targets,
+block-table rows, page vectors, swap payloads, keys and swap sequence
+numbers) reach the device through pinned, non-blocking copies into the
+graphs' static buffers: the seal and cipher kernels read their key and
+counter from device memory, so a replayed step seals under the key copied
+in for it. What stays eager: page-table maintenance (``insert_slot``,
+``commit_slot``, ``clear_slot``, ``set_table_entry``, ``copy_page``), a
+few small launches per admission or fork.
 
 Not in this slice, and refused by name when a config asks for them: the
 legacy timeline layout, per-token prefill, sampling at temperature > 0,
@@ -67,6 +63,8 @@ slices").
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 import time
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple, Union
@@ -127,10 +125,11 @@ class EngineConfig:
     #                                     in chunks of this many tokens, one
     #                                     chunk per step (0 = one-shot)
     warmup: bool = False                # capture every serving shape as a
-    #                                     CUDA graph at startup (local
-    #                                     backend); steady state then
-    #                                     captures nothing new (asserted via
+    #                                     CUDA graph at startup; steady
+    #                                     state then captures nothing new
+    #                                     (asserted via
     #                                     stats()["post_warmup_compiles"])
+    warmup_layouts: int = 8             # swap-target stage layouts to prewarm
     # reference options of later slices: anything but the default raises
     kv_layout: str = "paged"
     batched_prefill: bool = True
@@ -163,13 +162,14 @@ class PagedLocalBackend:
     """Single-device paged backend: ``decode_paged_fn`` over shared page
     pools + per-slot block tables / seq_lens, all on ``api.device``. The
     device state is updated in place, and never reallocated: a captured
-    graph holds its addresses. Index vectors arrive as host numpy arrays;
-    the decode step and the prefill chunk go through the engine's
-    ``AotRegistry`` (``decode_step``, ``prefill_chunk``: one graph replay
-    each once warmed), with their drop-sentinel rows aimed at the null
-    page on the device; the eager page-table maintenance drops sentinel
-    rows on the host, as the reference's ``mode="drop"`` scatters drop
-    them on the device. Stage boundaries are metadata here: ``swap``
+    graph holds its addresses. Index vectors, keys and swap sequence
+    numbers arrive from the host; the decode step, the prefill chunk and
+    the swap I/O go through the engine's ``AotRegistry`` (``decode_step``,
+    ``prefill_chunk``, ``gather_pages``, ``scatter_pages``: one graph
+    replay each once warmed), with their drop-sentinel rows aimed at the
+    null page on the device; the eager page-table maintenance drops
+    sentinel rows on the host, as the reference's ``mode="drop"`` scatters
+    drop them on the device. Stage boundaries are metadata here: ``swap``
     records them and ``stage_times`` measures nothing, so the engine
     attributes each step's wall time by the plan's predicted shares."""
 
@@ -189,8 +189,13 @@ class PagedLocalBackend:
         self.steps = 0                  # decode steps run on this backend
         self.cache = self.api.init_paged_cache(*self._shape)
         self.aot = aot or AotRegistry(capture=False)
-        self._step = self.aot.wrap("decode_step", self._decode)
         self._chunk = self.aot.wrap("prefill_chunk", self._prefill_chunk)
+        self._gather = self.aot.wrap("gather_pages", self._gather_fn)
+        self._scatter = self.aot.wrap("scatter_pages", self._scatter_fn)
+        self._init_step()
+
+    def _init_step(self) -> None:
+        self._step = self.aot.wrap("decode_step", self._decode)
 
     def reset_state(self) -> None:
         """Zero the pools, block tables and seq_lens in place (the warmup
@@ -232,18 +237,22 @@ class PagedLocalBackend:
     def _tokens(self, tokens: np.ndarray) -> torch.Tensor:
         return self._idx(np.asarray(tokens)[:, None])
 
-    def step(self, tokens: np.ndarray, key: int) -> torch.Tensor:
-        """One decode step (``key`` seals nothing here). The logits are a
-        static output under a graph, read before the next managed call."""
+    def _key_tensor(self, key) -> torch.Tensor:
+        """A key or swap sequence number as a one-element int64 device
+        tensor (a graph's input; an int is copied in)."""
+        return key if isinstance(key, torch.Tensor) else self._idx([key])
+
+    def step(self, tokens: np.ndarray, key) -> torch.Tensor:
+        """One decode step; ``key`` (a one-element device tensor or an int)
+        is the step's boundary key, which seals nothing on the local
+        backend. The logits are a static output under a graph, read before
+        the next managed call."""
         logits = self._step(self._tokens(tokens))
         self.steps += 1
         return logits
 
-    def warm_step(self) -> None:
-        """Warm the decode step on all-idle slots: every seq_len is 0, so
-        each paged write lands as zeros on the null page and the state is
-        unchanged."""
-        self._step.warm(self._tokens(np.zeros(self.cfg.num_slots)))
+    def warm_probes(self) -> None:
+        """Stage probes to warm: none, stage boundaries are metadata here."""
 
     def warm_chunk(self, offset: int) -> None:
         """Warm the chunk at ``offset`` against an all-null block table with
@@ -299,55 +308,75 @@ class PagedLocalBackend:
 
     def gather_pages(self, pages: np.ndarray, key: int, ctr: int):
         """Seal ``pages`` (fixed [pages_per_slot] vector; 0 = the null page,
-        for shared and padding rows) out of the pools with the page cipher.
-        Rows are laid out ``[MP, L*KVH*Pg*D]`` exactly as the reference
-        lays them out, so a payload unseals under either package. Returns
-        (k_cipher, v_cipher) on the device."""
-        pg = self._idx(pages)
+        for shared and padding rows) out of the pools with the page cipher,
+        under ``key`` and swap sequence number ``ctr``. Rows are laid out
+        ``[MP, L*KVH*Pg*D]`` exactly as the reference lays them out, so a
+        payload unseals under either package. Returns (k_cipher, v_cipher)
+        on the device: static outputs under a graph, read before the next
+        managed call."""
+        return self._gather(self._idx(pages), self._key_tensor(key),
+                            self._key_tensor(ctr))
+
+    def _gather_fn(self, pg: torch.Tensor, key: torch.Tensor,
+                   seq: torch.Tensor):
         out = []
         for part, pool in enumerate(self.cache[SEGMENT]):
-            rows = pool[:, pg].transpose(0, 1).reshape(len(pages), -1)
-            out.append(sealing.seal_pages(rows, key, ctr, part=part))
+            rows = pool[:, pg].transpose(0, 1).reshape(pg.shape[0], -1)
+            out.append(sealing.seal_pages(rows, key, seq, part=part))
         return tuple(out)
 
     def scatter_pages(self, ck: torch.Tensor, cv: torch.Tensor,
                       pages: np.ndarray, key: int, ctr: int) -> None:
-        """Unseal payload rows and write row i into page ``pages[i]``
-        (sentinel ``num_pages`` = skip the row)."""
-        keep = np.nonzero(np.asarray(pages) < self.num_pages)[0]
-        rows_t, pg = self._idx(keep), self._idx(pages[keep])
+        """Unseal payload rows (device cipher text, fixed [pages_per_slot]
+        rows) under ``key`` and swap sequence number ``ctr`` and write row
+        i into page ``pages[i]`` (sentinel ``num_pages`` = skip the row)."""
+        self._scatter(ck, cv, self._idx(pages), self._key_tensor(key),
+                      self._key_tensor(ctr))
+
+    def _scatter_fn(self, ck: torch.Tensor, cv: torch.Tensor,
+                    pages: torch.Tensor, key: torch.Tensor,
+                    seq: torch.Tensor) -> None:
+        """The scatter on the device, at a fixed shape: a sentinel row is
+        aimed at the null page with zeros (as ``chunk_write_targets`` does
+        for a chunk's writes), so nothing depends on how many rows land
+        (no host sync; the call can be captured) and page 0 stays zero.
+        Live rows name distinct fresh pages."""
+        keep = pages < self.num_pages
+        target = torch.where(keep, pages, torch.zeros_like(pages))
         for part, (pool, c) in enumerate(zip(self.cache[SEGMENT], (ck, cv))):
-            rows = sealing.unseal_pages(c, key, ctr, pool.dtype, part=part)
-            g = rows.reshape(len(pages), pool.shape[0], *pool.shape[2:])
-            pool[:, pg] = g[rows_t].transpose(0, 1)
+            rows = sealing.unseal_pages(c, key, seq, pool.dtype, part=part)
+            g = rows.reshape(pages.shape[0], pool.shape[0], *pool.shape[2:])
+            g = torch.where(keep.view(-1, *[1] * (g.dim() - 1)), g,
+                            torch.zeros_like(g))
+            pool[:, target] = g.transpose(0, 1)
 
 
 class PagedPipelinedBackend(PagedLocalBackend):
     """The pipelined decoder over the shared page pools: the planned stages
     run one after another on the card, microbatch by microbatch, and every
-    stage boundary is sealed with the quantizing seal (``seal_boundary``).
-    The pools keep the local backend's ``[L, N, KVH, Pg, D]`` layout — a
-    stage is a range of layers — so admission, prefill chunks, forks and
-    the sealed page swap are the local backend's (the reference stages a
-    chunk's pools because its pools are staged; these are not), and a live
-    boundary swap
+    stage boundary is sealed with the quantizing seal (``seal_boundary``)
+    under the step's key, a one-element device tensor. The pools keep the
+    local backend's ``[L, N, KVH, Pg, D]`` layout -- a stage is a range of
+    layers -- so admission, prefill chunks, forks and the sealed page swap
+    are the local backend's (the reference stages a chunk's pools because
+    its pools are staged; these are not), and a live boundary swap
     (``restage_cache``) moves no pages: block tables, seq_lens and the
-    host's refcounts ride along unchanged."""
+    host's refcounts ride along unchanged.
+
+    Each stage layout has its own managed step, ``step{layout}``, and
+    per-stage probe, ``probe{layout}`` (one graph per stage: the stage
+    index is a host int that selects the graph), the reference's
+    per-layout entry points; a layout is built once and kept, so a swap
+    back, or onto a layout the warmup toured, finds its graphs."""
 
     migrates_cache = True
 
-    def __init__(self, api, params, cfg: EngineConfig, num_pages: int,
-                 pages_per_slot: int,
-                 stage_blocks: Optional[Sequence[int]] = None,
-                 aot: Optional[AotRegistry] = None):
-        self._layouts: Dict[Tuple[int, ...], Tuple[PipelinedDecoder, Any,
-                                                   Any]] = {}
-        super().__init__(api, params, cfg, num_pages, pages_per_slot,
-                         stage_blocks, aot)
+    def _init_step(self) -> None:
+        # layout -> (decoder, step, probe, the probe's timing events)
+        self._layouts: Dict[Tuple[int, ...], Tuple[Any, ...]] = {}
         self._build(self.stage_blocks)
 
     def _build(self, stage_blocks: Sequence[int]) -> None:
-        """Decoders are kept per layout, so a swap back is free."""
         self.stage_blocks = key = tuple(stage_blocks)
         hit = self._layouts.get(key)
         if hit is None:
@@ -356,13 +385,44 @@ class PagedPipelinedBackend(PagedLocalBackend):
                                    num_microbatches=cfg.num_microbatches,
                                    seal_boundary=cfg.seal_boundary,
                                    stage_blocks=key)
-            hit = self._layouts[key] = (dec, dec.build(paged=True),
-                                        dec.build_stage_probe(paged=True))
-        self.dec, self.step_fn, self._probe = hit
+            step_fn, probe = dec.build(paged=True), \
+                dec.build_stage_probe(paged=True)
 
-    def step(self, tokens: np.ndarray, key: int) -> torch.Tensor:
-        logits, self.cache = self.step_fn(
-            self.params, self.cache, {"tokens": self._tokens(tokens)}, key)
+            def step(toks, step_key):
+                return step_fn(self.params, self.cache, {"tokens": toks},
+                               step_key)[0]
+
+            # on the card, two timing events per stage around its layers,
+            # recorded as nodes of the probe's graph once captured
+            events = [tuple(torch.cuda.Event(enable_timing=True,
+                                             external=True)
+                            for _ in range(2))
+                      for _ in range(cfg.num_stages)] \
+                if self.device.type == "cuda" else None
+
+            def run_probe(s: int, sl: torch.Tensor) -> torch.Tensor:
+                # null block-table rows: every write dropped, every read
+                # the zero page (see PipelinedDecoder.build_stage_probe)
+                if events:
+                    events[s][0].record()
+                bt = torch.zeros((sl.shape[0], self.pages_per_slot),
+                                 dtype=torch.int32, device=sl.device)
+                x = torch.zeros((sl.shape[0], 1, self.api.cfg.d_model),
+                                dtype=self.api.dtype, device=sl.device)
+                out = probe(self.params, self.cache[SEGMENT], s, x, bt, sl)
+                if events:
+                    events[s][1].record()
+                return out
+
+            hit = self._layouts[key] = (
+                dec, self.aot.wrap(f"step{key}", step),
+                self.aot.wrap(f"probe{key}", run_probe), events)
+        self.dec, self._step, self._probe, self._events = hit
+
+    def step(self, tokens: np.ndarray, key) -> torch.Tensor:
+        """One pipelined decode step, its boundaries sealed under ``key``
+        (a one-element device tensor, or an int copied in)."""
+        logits = self._step(self._tokens(tokens), self._key_tensor(key))
         self.steps += 1
         return logits
 
@@ -374,29 +434,48 @@ class PagedPipelinedBackend(PagedLocalBackend):
         self.cache = old_dec.restage_cache(self.cache, self.dec)
         return True
 
-    def stage_times(self) -> List[float]:
-        """Host wall seconds of each stage's layer range on one microbatch
-        of the live seq_lens, each ended by a device synchronise. The probe
-        runs on block-table rows of the null page, so it writes no live
-        page (see ``PipelinedDecoder.build_stage_probe``). The decode step
-        has run every kernel of the probe at its shapes already, so no
-        untimed warm-up call precedes it."""
+    def _probe_rows(self) -> torch.Tensor:
+        """Seq_lens of the first microbatch's rows: a view of the live
+        cache, which a probe reads (copied into its graph's input)."""
         cfg = self.cfg
-        b_mb = cfg.num_slots // cfg.num_microbatches
-        pools = self.cache[SEGMENT]
-        sl = self.cache["seq_lens"][:b_mb]
-        bt = torch.zeros_like(self.cache["block_tables"][:b_mb])
-        x = torch.zeros((b_mb, 1, self.api.cfg.d_model), dtype=self.api.dtype,
-                        device=self.device)
-        sync = torch.cuda.synchronize if self.device.type == "cuda" \
-            else (lambda: None)
+        return self.cache["seq_lens"][:cfg.num_slots // cfg.num_microbatches]
+
+    def warm_probes(self) -> None:
+        """Warm this layout's stage probes (state-neutral: they write
+        nothing), so the telemetry ticks of the warmup's traffic time
+        replays, not captures: their samples stay in the stage EMA after
+        the warmup reset, as in the reference."""
+        sl = self._probe_rows()
+        for s in range(self.cfg.num_stages):
+            self._probe.warm(s, sl)
+
+    def stage_times(self) -> List[float]:
+        """Seconds of each stage's layer range on one microbatch of the live
+        seq_lens. The probe runs on block-table rows of the null page, so
+        it writes no live page (see ``PipelinedDecoder.build_stage_probe``);
+        once warmed it is a graph replay, as the step it stands in for. On
+        the card a stage's time is the device's, between two CUDA events
+        the probe records around the stage's layers (nodes of its graph
+        once captured), waited for: eagerly the device follows the host's
+        launches, so that is the host's pace, and a replay times the
+        stage's kernels alone. Events around the call would also time the
+        host's submission of one standalone replay, a fixed cost of the
+        order of a one-layer stage's replay: the small stage would read as
+        a straggler and re-plan. On the CPU it is the host clock. The
+        decode step has run every kernel of the probe at its shapes
+        already, so no untimed warm-up call precedes it."""
+        sl = self._probe_rows()
         per_stage = []
-        for s in range(cfg.num_stages):
-            sync()
-            t0 = time.perf_counter()
-            self._probe(self.params, pools, s, x, bt, sl)
-            sync()
-            per_stage.append(time.perf_counter() - t0)
+        for s in range(self.cfg.num_stages):
+            if self._events:
+                self._probe(s, sl)
+                start, end = self._events[s]
+                end.synchronize()
+                per_stage.append(start.elapsed_time(end) / 1e3)
+            else:
+                t0 = time.perf_counter()
+                self._probe(s, sl)
+                per_stage.append(time.perf_counter() - t0)
         return per_stage
 
 
@@ -469,15 +548,6 @@ class ServingEngine:
         backend = backend or "local"
         if backend not in ("local", "pipelined"):
             raise ValueError(f"backend {backend!r}: 'local' or 'pipelined'")
-        if cfg.warmup and backend == "pipelined":
-            raise NotImplementedError(
-                "EngineConfig.warmup=True with the pipelined backend: its "
-                "step seals every stage boundary under the key key + step, "
-                "and the seal kernels take their keystream constants as "
-                "host launch arguments, so a captured step would replay one "
-                "keystream forever (nonce reuse on a sealed boundary); "
-                "pipelined warmup waits for the seals' key and counter in "
-                "device memory (see ROADMAP.md)")
         self.api, self.config = api, cfg
         self.rm = rm or two_enclave_manager()
         self.params = params if params is not None else api.init(
@@ -562,9 +632,11 @@ class ServingEngine:
         self.decode_wall_s = 0.0
         self.events: Deque[EngineEvent] = deque(maxlen=cfg.events_cap)
         self._step_events: List[EngineEvent] = []
-        # uint32 key: swap pages seal under it, and step i's stage
-        # boundaries under key + i
+        # uint32 key: swap pages seal under it, and the n-th decode tick
+        # since construction seals its stage boundaries under key + n
+        # (``_step_key``)
         self._key = 0xC0FFEE
+        self._key_shift = 0             # ticks not counted by self.steps
         self.sampler = TokenSampler(cfg.temperature)
         self.warmup_s = 0.0
         self.warmed = False
@@ -579,6 +651,17 @@ class ServingEngine:
         assert n % S == 0, \
             f"plan wants {len(planned)} stages, {n} blocks not even over {S}"
         return (n // S,) * S
+
+    def _step_key(self) -> torch.Tensor:
+        """The uint32 key that seals the next decode tick's stage
+        boundaries, as a one-element device tensor (a captured step reads it
+        at every replay): ``key + n`` for the n-th tick since construction.
+        On a cold engine n is ``self.steps``, the reference's ``key +
+        steps``. Unlike the reference, n keeps running across the warmup
+        reset and counts the warmup's neutral ticks, so serving never seals
+        a boundary under a (key, counter) pair that warmup used."""
+        n = self.steps + self._key_shift
+        return to_device([(self._key + n) & 0xFFFFFFFF], self.device)
 
     def _emit(self, kind: str, detail: Any = None) -> None:
         ev = EngineEvent(self.steps, kind, detail)
@@ -1233,8 +1316,7 @@ class ServingEngine:
             rids[slot] = req.rid
             idxs[slot] = len(req.generated)
         t0 = time.perf_counter()
-        logits = self.backend.step(self.pending,
-                                   (self._key + self.steps) & 0xFFFFFFFF)
+        logits = self.backend.step(self.pending, self._step_key())
         toks = self.sampler.sample(logits, rids, idxs)    # waits for the step
         wall = time.perf_counter() - t0
         self.decode_wall_s += wall
@@ -1320,26 +1402,35 @@ class ServingEngine:
         """Capture every shape the steady-state loop dispatches, then freeze
         the registry: a capture after this point is a stall, counted by
         ``stats()["post_warmup_compiles"]`` and named in
-        ``stats()["compile_stalls"]``. The reference's passes, minus its
-        layout tour (the pipelined backend does not warm up):
+        ``stats()["compile_stalls"]``. The reference's passes:
 
+        0. *probes* -- the planned layout's stage probes (pipelined
+           backend), so the traffic's telemetry ticks time replays;
         1. *traffic* -- synthetic requests through the real submit/step
            path (a prompt per bucket, a COW twin pair, one long chunked
            prompt), so the calls serving makes are the ones captured;
         2. *direct* -- every bucket through one-shot and packed prefill (at
-           the fixed width K), every chunk offset, and a decode step on
-           idle slots, all state-neutral;
-        3. *reset* -- the serving state back to a fresh engine's (the
+           the fixed width K), every chunk offset, the swap I/O, a decode
+           tick on idle slots and the stage probes, all state-neutral;
+        3. *layouts* -- on the pipelined backend with ``allow_swap``, a tour
+           of up to ``warmup_layouts`` other stage layouts
+           (``_swap_targets``), so a live re-plan swaps onto captured
+           steps, probes and swap I/O;
+        4. *reset* -- the serving state back to a fresh engine's (the
            device cache zeroed in place), so warmed and cold engines give
-           the same streams.
+           the same streams. The swap sequence and the boundary key's step
+           count keep running (``_reset_state``).
 
         On the CPU the same passes run eagerly and keep the signature
         ledger. Meaningful only on a fresh engine, asserted below."""
         assert self.steps == 0 and not self.scheduler.has_work() \
             and not self.chunking, "warmup() must run on a fresh engine"
         t0 = time.perf_counter()
+        self.backend.warm_probes()
         self._warm_traffic()
         self._warm_direct()
+        if self.backend_kind == "pipelined" and self.config.allow_swap:
+            self._warm_layouts()
         self._reset_state()
         self.aot.freeze()
         self.warmed = True
@@ -1388,8 +1479,9 @@ class ServingEngine:
         """State-neutral warm of every managed entry point the traffic may
         have missed: one-shot and packed prefill (pure functions) at every
         bucket, the chunk at every offset below request_capacity against
-        the null page, and a decode step on idle slots. Runs after the
-        traffic drained, so every slot is clear."""
+        the null page, the swap I/O, a decode tick on idle slots and the
+        stage probes. Runs after the traffic drained, so every slot is
+        clear."""
         dev = self.device
         for b in self._bucket_inventory():
             self._prefill_at.warm(to_device(np.zeros((1, b)), dev),
@@ -1403,16 +1495,98 @@ class ServingEngine:
         if C > 0:
             for offset in range(0, self.request_capacity, C):
                 self.backend.warm_chunk(offset)
-        self.backend.warm_step()
+        self._warm_swap_io()
+        self._warm_step_neutral()
+        self.backend.stage_times()
+
+    def _warm_swap_io(self) -> None:
+        """State-neutral warm of the swap transfer path, as the reference's:
+        gather the null page for every row (seal, then the copy to host
+        memory, exactly the swap-out's shapes) and scatter the payload back
+        from host memory with every row on the drop sentinel (unseal and
+        scatter, nothing lands; page 0 gets zeros). Runs under the planned
+        layout and under each toured one (one pair of graphs serves every
+        layout here: the pools are not staged). The sequence number is
+        drawn from ``_swap_seq`` like a real swap's, so no page is ever
+        ciphered under a (key, counter) pair that warmup used."""
+        if self.preempt_policy != "swap":
+            return
+        MP, N = self.pages_per_slot, self.pool.num_pages
+        seq = self._swap_seq
+        self._swap_seq += 1
+        ck, cv = self.backend.gather_pages(np.zeros(MP, np.int32), self._key,
+                                           seq)
+        payload = (sealing.cipher_to_host(ck), sealing.cipher_to_host(cv))
+        self.backend.scatter_pages(
+            *(sealing.cipher_to_device(a, self.device) for a in payload),
+            np.full(MP, N, np.int32), self._key, seq)
+
+    def _warm_step_neutral(self) -> None:
+        """One decode tick on all-idle slots: every seq_len is 0, so paged
+        writes land as zeros on the null page and the state is unchanged.
+        It takes the next boundary key, like a real step."""
+        self.backend.step(np.zeros(self.config.num_slots, np.int32),
+                          self._step_key())
+        self._key_shift += 1
+
+    def _swap_targets(self) -> List[Tuple[int, ...]]:
+        """Stage layouts to prewarm (the reference's): ALL compositions of
+        n blocks into num_stages stages when that inventory is small
+        enough, else the adjacent single-block shifts of the planned
+        layout (the replanner's most likely moves), capped at
+        ``warmup_layouts``."""
+        n = self.api.cfg.num_layers
+        S = self.config.num_stages
+        planned = self.stage_blocks
+        if S <= 1 or n < S:
+            return []
+        if math.comb(n - 1, S - 1) - 1 <= self.config.warmup_layouts:
+            out = []
+            for cuts in itertools.combinations(range(1, n), S - 1):
+                bounds = (0,) + cuts + (n,)
+                blocks = tuple(b - a for a, b in zip(bounds, bounds[1:]))
+                if blocks != planned:
+                    out.append(blocks)
+            return out
+        seen, out = {planned}, []
+        for i in range(S - 1):
+            for d in (1, -1):
+                blocks = list(planned)
+                blocks[i] -= d
+                blocks[i + 1] += d
+                t = tuple(blocks)
+                if min(blocks) >= 1 and t not in seen:
+                    seen.add(t)
+                    out.append(t)
+        return out[:self.config.warmup_layouts]
+
+    def _warm_layouts(self) -> None:
+        """Tour the other stage layouts: each ``try_swap`` builds (and
+        keeps) the target's decoder, then its probes, two neutral decode
+        ticks and the swap I/O run there, and the engine swaps home -- so a
+        post-freeze re-plan onto any toured layout, and the swap home,
+        replay captured graphs only."""
+        planned = self.stage_blocks
+        for target in self._swap_targets():
+            if not self.try_swap(target):
+                continue
+            self.backend.stage_times()
+            for _ in range(2):
+                self._warm_step_neutral()
+            self._warm_swap_io()
+            self.try_swap(planned)
+        assert self.stage_blocks == planned
 
     def _reset_state(self) -> None:
         """Reset every piece of serving state the warm traffic touched --
         scheduler (rids restart at 0), page pool, device cache (in place),
         clocks, counters, events, measured telemetry -- leaving the
-        captured graphs. Unlike the reference, the swap sequence is not
-        reset: it keys the page cipher's counter, and a counter reused
-        under one key would cipher serving pages with the keystream that
-        ciphered the warm traffic's known pages."""
+        captured graphs. Unlike the reference, the swap sequence and the
+        boundary key's tick count are not reset: they key the page cipher's
+        counter and the stage seals' key, and a (key, counter) pair reused
+        would cipher serving pages or activations with the keystream that
+        ciphered the warm traffic's known ones. The streams cannot change:
+        both ciphers open to the same values under any key."""
         cfg = self.config
         self.scheduler = SlotScheduler(cfg.num_slots,
                                        finished_cap=cfg.finished_cap)
@@ -1421,6 +1595,7 @@ class ServingEngine:
         self.slot_len.clear()
         self.chunking.clear()
         self.pending[:] = 0
+        self._key_shift += self.steps
         self.steps = 0
         self.swaps = 0
         self.preemptions = 0

@@ -23,7 +23,9 @@ homogeneous hardware.
 
 A copy of ``repro/serving/telemetry.py`` (host code), with its imports
 pointed at ``repro_torch``. In the port the stage probe is
-``PipelinedDecoder.build_stage_probe``, timed with a device synchronise.
+``PipelinedDecoder.build_stage_probe``; on the card the engine times it
+with CUDA events (``PagedPipelinedBackend.stage_times``), on the CPU with
+the host clock.
 """
 from __future__ import annotations
 

@@ -159,11 +159,11 @@ def test_later_slice_options_raise_by_name(port):
                dict(batched_prefill=False), dict(temperature=0.7)):
         with pytest.raises(NotImplementedError):
             _torch_engine(tapi, tparams, **kw)
-    # warmup is ported for the local backend; the pipelined step's seals
-    # take a host key that changes every step, so capturing it is refused
-    with pytest.raises(NotImplementedError, match="keystream"):
-        ServingEngine(tapi, EngineConfig(**BASE, warmup=True), tparams,
-                      device="cpu", backend="pipelined")
+    # warmup is ported for both backends (the seals read their key from
+    # device memory), so the pipelined backend warms up by name too
+    eng = ServingEngine(tapi, EngineConfig(**BASE, warmup=True), tparams,
+                        device="cpu", backend="pipelined")
+    assert eng.stats()["warmed"] and eng.stats()["backend"] == "pipelined"
 
 
 def test_submit_rejects_requests_the_pool_cannot_serve(port):

@@ -11,10 +11,8 @@ eagerly, with the card's signature inventory): a warmed engine serves a
 churn stream with swaps and copy-on-write, and a chunked + packed stream,
 with zero post-warmup stalls and captures; warmed and cold port streams
 are equal and equal the reference engine's warmed streams on the same
-parameters; ``warmup()`` on a used engine raises; the pipelined backend
-refuses warmup (its seals take a host key that changes every step); the
-device cache keeps its storage across the warmup reset (captured graphs
-hold its addresses); the fixed-shape chunk write leaves page 0 zero and
+parameters; ``warmup()`` on a used engine raises; the device cache keeps
+its storage across the warmup reset (captured graphs hold its addresses); the fixed-shape chunk write leaves page 0 zero and
 shared pages untouched, and equals a host-side drop of the sentinel rows.
 
 Tests marked ``cuda`` skip here: on the card a replayed decode step and a
@@ -189,12 +187,14 @@ def test_warmed_engine_serves_churn_with_swaps_and_cow(models):
     for k in ("steps", "swap_outs", "swap_ins", "cow_hits", "forks",
               "preemptions", "prefill_calls", "admissions"):
         assert st[k] == cs[k], (k, st[k], cs[k])
-    # the inventory: one decode shape and one shape per prefill bucket
+    # the inventory: one decode shape, one shape per prefill bucket and
+    # the swap I/O
     buckets = eng._bucket_inventory()
     assert buckets == [4, 8, 16, 32, 64, 80]
     sigs = {n: len(f.signatures) for n, f in eng.aot.fns.items()}
     assert sigs == {"decode_step": 1, "prefill_chunk": 0,
-                    "prefill_at": len(buckets), "prefill_packed": 0}
+                    "prefill_at": len(buckets), "prefill_packed": 0,
+                    "gather_pages": 1, "scatter_pages": 1}
 
 
 def test_warmed_chunked_packed_engine_zero_stalls(models):
@@ -240,13 +240,6 @@ def test_warmup_requires_fresh_engine(models):
     eng.step()
     with pytest.raises(AssertionError, match="fresh engine"):
         eng.warmup()
-
-
-def test_pipelined_backend_refuses_warmup(models):
-    _, _, tapi, tparams = models
-    with pytest.raises(NotImplementedError, match="keystream"):
-        ServingEngine(tapi, EngineConfig(**ENGINE, warmup=True), tparams,
-                      device="cpu", backend="pipelined")
 
 
 def test_reset_state_keeps_cache_storage(models):
