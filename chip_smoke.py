@@ -43,7 +43,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      the local backend and through the pipelined backend (sealed stage
      boundaries), each once with one-shot prefill and once with chunked and
      packed prefill (``--prefill-chunk 5 --prefill-pack 3``), whose streams
-     must also equal the one-shot run's;
+     must also equal the one-shot run's, and, on the local backend, once
+     through the disaggregated pair (``--disagg``), whose streams must
+     equal the one-shot run's on both devices;
   5. serve full-width llama3.2-1b (16 layers, d_model 2048, vocab 128,256)
      in bf16 with seeded random weights through ``ServingEngine`` on the
      local backend: 8 slots, 16 requests with a shared system prompt, 32
@@ -75,13 +77,30 @@ Phases (each prints its own lines; any failure exits non-zero):
      backend) and the launch counts (replays included) must equal the
      eager phase's, with no capture and no stall after warmup and every
      swap-in bit-exact. Prints warmup seconds, graphs, memory reserved,
-     and host ms per decode step and per chunk beside the eager phase's.
+     and host ms per decode step and per chunk beside the eager phase's;
+  9. serve phase 5's stream through the disaggregated pair (``--disagg``:
+     a prefill-role and a decode-role engine over phase 5's ``params``,
+     each prompt's KV sealed with the page cipher under a transfer counter
+     and handed over), eagerly and then on a pair warmed up as CUDA graphs:
+     the streams must equal phase 5's (and, eagerly, a no-peer fallback
+     orchestrator's), the handoffs the requests that did not finish at
+     prefill, every sealed row a transfer-in restores the prefill role's
+     gathered plaintext bit for bit; the cipher must have run twice on
+     every export, transfer-in and swap, flash attention num_layers times
+     per prefill call of either role and paged attention num_layers times
+     per decode step; the warmed pair's launch counts (replays included)
+     must equal the eager pair's, with no capture and no stall after
+     warmup on either role. Prints handoffs, back-pressure events,
+     COW-adopted rows, host ms per export and per transfer-in, decode ms
+     per step, admission p50/p99 and memory reserved, beside phases 5 and
+     8, with the card's name and power limit.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -761,6 +780,28 @@ def small_reference_check(torch):
                 f"{sb['chunked_admissions']} in {sb['prefill_chunks']} "
                 f"chunks, packed={sb['packed_admissions']} in "
                 f"{sb['packed_prefills']} calls")
+        if backend == "local":
+            # the disaggregated pair (``--disagg``) on both devices: its
+            # streams are the one-shot run's
+            args = serve.build_parser().parse_args(
+                small + ["--backend", backend, "--disagg"])
+            cpu_api, params = serve.build_params(args)
+            prompts = serve.gen_prompts(args, cpu_api.cfg.vocab_size)
+            for device in ("cpu", "cuda"):
+                api = build_model(cpu_api.cfg, device=device,
+                                  dtype=torch.float32)
+                orch = serve.make_disagg(api, _to(torch, params, device),
+                                         args)
+                reqs = serve.serve_stream_orch(orch, args, prompts)
+                orch.check_invariants()
+                st = orch.stats()
+                assert [r.generated for r in reqs] == streams[False], \
+                    f"disagg on {device}: streams differ from one-shot"
+                assert st["handoffs"] == len(prompts), st["handoffs"]
+            log(f"check serving path, reduced f32 card vs CPU, local "
+                f"--disagg: {len(reqs)} streams equal the one-shot run's "
+                f"on both, {st['handoffs']} sealed handoffs, "
+                f"cow_hits={st['cow_hits']} swap_outs={st['swap_outs']}")
 
 
 def _to(torch, tree, device):
@@ -836,6 +877,9 @@ def serve_full_width(torch, ops, api, params, argv, phase):
     args = serve.build_parser().parse_args(argv)
     backend = serve.backend_of(args)
     wide = args.prefill_chunk > 0
+    # the earlier phases' garbage, collected now rather than by a pause
+    # inside a timed stage probe
+    gc.collect()
     # warm-up: a short stream on its own eager engine (cuBLAS handles,
     # allocator)
     warm = serve.build_parser().parse_args(
@@ -983,7 +1027,10 @@ def serve_full_width(torch, ops, api, params, argv, phase):
         f"{n_layers} layers)")
     return dict(launches=launches, streams=[list(r.generated) for r in reqs],
                 schedule={k: st[k] for k in SCHEDULE}, steps=be.steps,
-                step_ms=step_ms, chunk_ms=chunk_ms)
+                step_ms=step_ms, chunk_ms=chunk_ms,
+                admission=(st.get("admission_p50_ms", 0.0),
+                           st.get("admission_p99_ms", 0.0)),
+                peak_gib=torch.cuda.max_memory_reserved() / 2**30)
 
 
 def serve_in_graphs(torch, ops, api, params, argv, phase, eager):
@@ -992,7 +1039,6 @@ def serve_in_graphs(torch, ops, api, params, argv, phase, eager):
     (graph replays included) must equal the eager phase's ``eager``, with
     no capture and no stall after warmup (``serve_full_width`` asserts
     those and the bit-exact swap-ins)."""
-    import gc
     res = serve_full_width(torch, ops, api, params, argv + ["--warmup"],
                            f"8 (phase {phase}'s stream)")
     assert res["streams"] == eager["streams"], \
@@ -1009,6 +1055,255 @@ def serve_in_graphs(torch, ops, api, params, argv, phase, eager):
     gc.collect()                # the engine's graphs and their memory pool
     torch.cuda.empty_cache()
     return res
+
+
+class DisaggProbe:
+    """Instruments a disaggregated pair (phase 9) from outside: every
+    export and transfer-in is timed by the host clock between two device
+    synchronises, the plaintext rows each ``gather_pages`` reads (the
+    prefill role's exports, either role's swap-outs) and each
+    ``scatter_pages`` writes (transfer-ins, swap-ins) are cloned on the
+    card as they happen and compared after the run, and every decode
+    step's logits are checked finite. Until ``close()``, each SHA-256 of a
+    host payload (``sealing.payload_digest``: one per export, transfer-in,
+    swap-out and swap-in) is timed by the host clock."""
+
+    def __init__(self, torch, orch, sealing):
+        self.torch, self.sealing = torch, sealing
+        self.export_ms, self.transfer_in_ms, self.digest_ms = [], [], []
+        self._digest = sealing.payload_digest
+        sealing.payload_digest = self._timed(self._digest, self.digest_ms,
+                                             sync=False)
+        self.gathered, self.restored = {}, []
+        self.sealed_rows = 0            # manifest rows that transfer-ins
+        #                                 must scatter (not COW-adopted)
+        pe, de = orch.eng_prefill, orch.decode
+        self.bad = torch.zeros((), dtype=torch.int64, device=de.device)
+        for be in (pe.backend, de.backend):
+            be.gather_pages = self._gather(be, be.gather_pages)
+            be.scatter_pages = self._scatter(be, be.scatter_pages)
+        pe.export_transfer = self._timed(pe.export_transfer, self.export_ms)
+        transfer_in = self._timed(de._transfer_in, self.transfer_in_ms)
+
+        def counted_transfer_in(slot, req, t0):
+            self.sealed_rows += \
+                de.pool.transfer_manifest[req.rid].sealed_pages
+            return transfer_in(slot, req, t0)
+
+        de._transfer_in = counted_transfer_in
+        step = de.backend.step
+
+        def finite_step(tokens, key):
+            logits = step(tokens, key)
+            self.bad.add_((~torch.isfinite(logits)).sum())
+            return logits
+
+        de.backend.step = finite_step
+
+    def _timed(self, fn, into, sync=True):
+        torch = self.torch
+
+        def call(*a):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            if sync:
+                torch.cuda.synchronize()
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    def close(self) -> None:
+        self.sealing.payload_digest = self._digest
+
+    def _gather(self, be, fn):
+        torch = self.torch
+
+        def gather(pages, key, ctr):
+            pg = torch.from_numpy(pages.astype("int64")).to(be.device)
+            self.gathered[int(ctr)] = [pool[:, pg].clone()
+                                       for pool in be.cache["blocks"]]
+            return fn(pages, key, ctr)
+        return gather
+
+    def _scatter(self, be, fn):
+        torch = self.torch
+
+        def scatter(ck, cv, pages, key, ctr):
+            fn(ck, cv, pages, key, ctr)
+            live = [i for i, p in enumerate(pages) if p < be.num_pages]
+            if live:
+                pg = torch.tensor([int(pages[i]) for i in live],
+                                  device=be.device)
+                self.restored.append((int(ctr), live, [
+                    pool[:, pg].clone() for pool in be.cache["blocks"]]))
+        return scatter
+
+    def check(self) -> dict:
+        """Every restored row equals the row its manifest was gathered
+        from, bit for bit. Returns restored rows by kind."""
+        torch, sealing = self.torch, self.sealing
+        rows = {"transfer": 0, "swap": 0}
+        for ctr, live, got in self.restored:
+            idx = torch.tensor(live, device=got[0].device)
+            for want, have in zip(self.gathered[ctr], got):
+                assert torch.equal(want[:, idx], have), \
+                    f"restore under counter {ctr} not bit-exact"
+            rows["transfer" if ctr >= sealing.TRANSFER_SEQ_BASE
+                 else "swap"] += len(live)
+        assert int(self.bad.item()) == 0, "non-finite logits"
+        return rows
+
+
+def serve_disagg(torch, ops, api, params, argv, phase5, phase8, smi):
+    """Phase 9: phase 5's stream through the disaggregated pair
+    (``--disagg``: a prefill-role and a decode-role engine over the same
+    ``params``, every prompt's KV handed over sealed with the page cipher),
+    eagerly and then on a pair warmed up as CUDA graphs. Streams must equal
+    phase 5's and a no-peer fallback orchestrator's; the handoffs must
+    equal the requests that did not finish at prefill; the cipher must run
+    on every export, transfer-in and swap, each restore bit-exact; the
+    flash and paged kernels must run once a layer per prefill call and per
+    decode step. Returns the two runs' launch counts."""
+    from repro_torch.enclave import sealing
+    from repro_torch.launch import serve
+    from repro_torch.serving import DisaggOrchestrator
+    n_layers = api.cfg.num_layers
+    out = []
+    for warm in (False, True):
+        args = serve.build_parser().parse_args(
+            argv + (["--warmup"] if warm else []))
+        prompts = serve.gen_prompts(args, api.cfg.vocab_size)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        orch = serve.make_disagg(api, params, args)
+        pe, de = orch.eng_prefill, orch.decode
+        assert pe.params is de.params is params
+        probe = DisaggProbe(torch, orch, sealing)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            reqs = serve.serve_stream_orch(orch, args, prompts)
+        finally:
+            probe.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        orch.check_invariants()
+        st, ps, ds = orch.stats(), pe.stats(), de.stats()
+        rows = probe.check()
+        streams = [list(r.generated) for r in reqs]
+        what = "CUDA graphs" if warm else "eager"
+
+        assert len(reqs) == args.requests
+        assert all(r.status == "done" and len(r.generated) == args.max_new
+                   for r in reqs), "a request did not complete"
+        assert streams == phase5["streams"], \
+            f"phase 9 ({what}): streams differ from phase 5's"
+        at_prefill = sum(1 for r in reqs if r.max_new_tokens == 1
+                         or r.generated[0] == r.eos_id)
+        assert st["prefill_completed"] == at_prefill, st
+        assert st["handoffs"] == args.requests - at_prefill \
+            == ps["transfers_out"] == ds["transfers_in"], (st, ps)
+        assert ds["recovery"]["unseal_fallback_transfer"] == 0, ds
+        assert st["in_flight_handoffs"] == st["pending_handoffs"] == 0, st
+        assert rows["transfer"] == probe.sealed_rows > 0, \
+            (rows, probe.sealed_rows)
+        assert len(probe.export_ms) == ps["transfers_out"]
+        assert len(probe.transfer_in_ms) == ds["transfers_in"]
+        outs = ps["transfers_out"] + ps["swap_outs"] + ds["swap_outs"]
+        ins = ds["transfers_in"] + ds["swap_ins"] + ps["swap_ins"]
+        assert launches["seal_bits"] == 2 * outs, (launches, outs)
+        assert launches["unseal_bits"] == 2 * ins, (launches, ins)
+        assert len(probe.digest_ms) == outs + ins, (len(probe.digest_ms),
+                                                    outs, ins)
+        assert launches["flash_attention"] == n_layers * (
+            ps["prefill_calls"] + ds["prefill_calls"]), launches
+        assert pe.backend.steps == 0, "the prefill role decoded"
+        assert launches["paged_attention"] == n_layers * de.backend.steps, \
+            (launches, de.backend.steps)
+        assert launches["seal"] == launches["unseal"] == 0, launches
+        for role, s in (("prefill", ps), ("decode", ds)):
+            assert not s["stalled"], (role, s["stall_reason"])
+            if warm:
+                assert s["post_warmup_compiles"] == 0, (role, s)
+                assert s["compile_stalls"] == [], (role, s)
+                assert s["graphs"] > 0, (role, s)
+            else:
+                assert s["post_warmup_compiles"] is None, (role, s)
+        if warm:
+            eager = out[0]
+            assert launches == eager["launches"], \
+                (launches, eager["launches"])
+            assert st["handoffs"] == eager["handoffs"]
+        else:
+            fb = DisaggOrchestrator(serve.make_engine(api, params, args))
+            fb_reqs = serve.serve_stream_orch(fb, args, prompts)
+            assert [list(r.generated) for r in fb_reqs] == streams, \
+                "phase 9: the no-peer fallback's streams differ"
+            assert fb.stats()["handoffs"] == 0
+        adopted = sum(e.detail["shared"] for e in de.events
+                      if e.kind == "handoff_in")
+        step_ms = ds["decode_wall_s"] / max(de.backend.steps, 1) * 1e3
+        exp, tin = sorted(probe.export_ms), sorted(probe.transfer_in_ms)
+        dig = sorted(probe.digest_ms)
+        if warm:
+            log(f"serve phase 9 (CUDA graphs): warmup prefill role "
+                f"{ps['warmup_s']:.2f} s, {ps['graphs']} graphs; decode "
+                f"role {ds['warmup_s']:.2f} s, {ds['graphs']} graphs; no "
+                f"capture and no stall after warmup on either role; "
+                f"streams and launches equal the eager pair's")
+        also = "" if warm else " and the no-peer fallback orchestrator's"
+        log(f"serve phase 9 ({what}): {st['completed']} requests, "
+            f"{st['tokens_out']} tokens, streams equal phase 5's{also}; "
+            f"handoffs={st['handoffs']} (requests not finished at "
+            f"prefill: {args.requests - at_prefill}), backpressure events="
+            f"{st['backpressure_events']}, COW-adopted rows={adopted}, "
+            f"sealed rows restored bit-exact={rows['transfer']}; decode "
+            f"role swap_outs={ds['swap_outs']} swap_ins={ds['swap_ins']} "
+            f"(rows bit-exact {rows['swap']}), prefill role swap_outs="
+            f"{ps['swap_outs']}; wall {wall:.2f} s")
+        log(f"serve phase 9 ({what}): host ms per export p50 "
+            f"{exp[len(exp) // 2]:.3f} mean {sum(exp) / len(exp):.3f}, per "
+            f"transfer-in p50 {tin[len(tin) // 2]:.3f} mean "
+            f"{sum(tin) / len(tin):.3f} (between device synchronises), of "
+            f"which the payload's SHA-256 p50 {dig[len(dig) // 2]:.3f} "
+            f"mean {sum(dig) / len(dig):.3f} ({len(dig)} digests); "
+            f"decode {step_ms:.2f} ms/step over {de.backend.steps} steps "
+            f"({ds['tok_per_s']:.1f} tok/s decode); admission p50 "
+            f"{ds.get('admission_p50_ms', 0):.2f} p99 "
+            f"{ds.get('admission_p99_ms', 0):.2f} ms (decode role, "
+            f"transfer-ins), prefill role p50 "
+            f"{ps.get('admission_p50_ms', 0):.2f} p99 "
+            f"{ps.get('admission_p99_ms', 0):.2f} ms; memory reserved "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB, peak "
+            f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB")
+        log(f"serve phase 9 ({what}): launches {launches} (paged "
+            f"attention {de.backend.steps} decode steps x {n_layers}; "
+            f"flash {ps['prefill_calls']} + {ds['prefill_calls']} prefill "
+            f"calls x {n_layers}; cipher 2 x ({ps['transfers_out']} "
+            f"exports + {ps['swap_outs'] + ds['swap_outs']} swap-outs), "
+            f"2 x ({ds['transfers_in']} transfer-ins + "
+            f"{ds['swap_ins'] + ps['swap_ins']} swap-ins))")
+        out.append(dict(launches=launches, handoffs=st["handoffs"],
+                        step_ms=step_ms,
+                        admission=(ds.get("admission_p50_ms", 0.0),
+                                   ds.get("admission_p99_ms", 0.0)),
+                        peak_gib=torch.cuda.max_memory_reserved() / 2**30))
+        del orch, probe
+    for name, r in (("phase 5 (eager)", phase5),
+                    ("phase 8 (phase 5's stream, CUDA graphs)", phase8),
+                    ("phase 9 (eager pair)", out[0]),
+                    ("phase 9 (pair in CUDA graphs)", out[1])):
+        log(f"serve {name}: decode {r['step_ms']:.2f} ms/step, admission "
+            f"p50 {r['admission'][0]:.2f} p99 {r['admission'][1]:.2f} ms, "
+            f"peak memory reserved {r['peak_gib']:.2f} GiB [{smi}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def _leaves(tree):
@@ -1094,6 +1389,10 @@ def main() -> int:
              serve_in_graphs(torch, ops, api, params,
                              FULL_WIDTH + ["--backend", "pipelined"], 6,
                              runs[1])]
+    # phase 9: phase 5's stream through the disaggregated pair, eager and
+    # in CUDA graphs
+    runs += serve_disagg(torch, ops, api, params, local + ["--disagg"],
+                         runs[0], runs[3], smi[0] if smi else "unavailable")
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 

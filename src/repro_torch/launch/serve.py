@@ -9,7 +9,8 @@ planned over trust domains, pipelined with sealed stage boundaries.
 Builds the model with random weights from a seeded ``torch.Generator``,
 serves a synthetic request stream (the reference launcher's: uniform
 prompt lengths 2..N, a fraction extending one fixed system prompt, one
-arrival every two engine steps) and prints the engine's counters. The
+arrival every ``--arrival-every`` engine steps) and prints the engine's
+counters. The
 flags mean what they mean in ``repro.launch.serve``: ``--backend auto``
 pipelines when ``--stages`` > 1, ``--inject-straggler S:F`` with
 ``--verify-swap --no-seal`` forces a live boundary swap and checks that
@@ -22,8 +23,19 @@ a CUDA graph before serving, on either backend (pipelined: the step and
 stage probes of the planned layout and of every toured one, and the swap
 I/O; on the CPU the same passes run eagerly), and
 ``--assert-no-recompile`` then fails unless steady-state serving captured
-nothing new (prints ``NO-RECOMPILE OK``). Runs on ``cuda`` unless
-``--device cpu`` is given; without a card it raises.
+nothing new (prints ``NO-RECOMPILE OK``). ``--page-policy``,
+``--preempt-policy``, ``--no-prefix-sharing`` and ``--no-decode-cow`` set
+the paging policies; ``--verify-preempt`` (with ``--preempt-policy swap``
+and a pool that swaps) serves the stream again under the recompute oracle
+and on a roomy pool and checks the three streams are equal (prints
+``PREEMPT-EXACT OK``). ``--disagg`` serves through a prefill-role and a
+decode-role engine over shared params, every prompt's KV handed over
+sealed with the page cipher (``serving/disagg.py``); with
+``--verify-disagg`` the stream is served again monolithically and through
+an orchestrator with no prefill peer, and the three must be equal (prints
+``DISAGG-EXACT OK``); ``--assert-no-recompile`` then checks both roles.
+Runs on ``cuda`` unless ``--device cpu`` is given; without a card it
+raises.
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
       --device cpu --prompt-len 24 --prefill-chunk 5 --prefill-pack 3 \\
@@ -34,6 +46,10 @@ nothing new (prints ``NO-RECOMPILE OK``). Runs on ``cuda`` unless
       --device cpu --stages 2 --microbatches 2 --slots 4 --requests 6 \\
       --max-new 8 --no-seal --f32 --inject-straggler 1:10 --verify-swap \\
       --warmup --assert-no-recompile
+  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \
+      --device cpu --backend local --slots 4 --microbatches 1 \
+      --requests 6 --prompt-len 8 --max-new 8 --page-size 4 --no-seal \
+      --f32 --warmup --disagg --verify-disagg --assert-no-recompile
 """
 from __future__ import annotations
 
@@ -49,10 +65,10 @@ from repro_torch.core.privacy import LM_SIM_DELTA
 from repro_torch.device import resolve_device
 from repro_torch.enclave.domain import sandwich_manager, two_enclave_manager
 from repro_torch.models.api import build_model
-from repro_torch.serving import EngineConfig, ServingEngine
+from repro_torch.serving import (DisaggOrchestrator, EngineConfig,
+                                 ServingEngine, build_disagg,
+                                 plan_disagg_roles)
 
-ARRIVAL_EVERY = 2       # one request every 2 engine steps (the reference
-#                         launcher's default --arrival-every)
 TOPOLOGIES = {
     "two-enclave": lambda stages: two_enclave_manager(),
     # 1 trusted pod + (stages - 1) full-rate untrusted pods: the optimal
@@ -75,11 +91,33 @@ def build_parser() -> argparse.ArgumentParser:
                     help="max synthetic prompt length (uniform 2..N)")
     ap.add_argument("--max-new", type=int, default=8,
                     help="tokens to generate per request")
+    ap.add_argument("--arrival-every", type=int, default=2,
+                    help="submit one request every K engine steps")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per KV page")
     ap.add_argument("--num-pages", type=int, default=0,
                     help="shared page-pool size (0 = all slots at full "
                          "request capacity; smaller pools preempt)")
+    ap.add_argument("--page-policy", default="demand",
+                    choices=["demand", "reserve"],
+                    help="demand: pages as generation reaches them, COW "
+                         "prefix sharing, preemption when the pool runs "
+                         "dry; reserve: worst case at admission")
+    ap.add_argument("--no-prefix-sharing", action="store_true",
+                    help="disable the COW prefix index (demand policy)")
+    ap.add_argument("--preempt-policy", default="auto",
+                    choices=["auto", "swap", "recompute"],
+                    help="swap (auto): seal a victim's pages to host "
+                         "memory and restore them on resume; recompute: "
+                         "drop them and re-prefill on resume")
+    ap.add_argument("--no-decode-cow", action="store_true",
+                    help="don't register decode-completed pages in the "
+                         "COW prefix index")
+    ap.add_argument("--verify-preempt", action="store_true",
+                    help="with --preempt-policy swap: serve the stream "
+                         "again under the recompute oracle and on a roomy "
+                         "pool and assert all three token streams are "
+                         "identical (use with --f32)")
     ap.add_argument("--shared-system-prompt", type=float, default=0.0,
                     metavar="RATIO",
                     help="fraction of synthetic prompts extending one "
@@ -124,6 +162,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--verify-chunked", action="store_true",
                     help="with --prefill-chunk: serve the stream again "
                          "unchunked and assert identical token streams")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated serving: a prefill-role engine "
+                         "seals each prompt's KV pages and hands them to "
+                         "a decode-role engine over shared params")
+    ap.add_argument("--verify-disagg", action="store_true",
+                    help="with --disagg: serve the same stream "
+                         "disaggregated, monolithic and through an "
+                         "orchestrator with no prefill peer, and assert "
+                         "all three token streams are identical")
     ap.add_argument("--f32", action="store_true",
                     help="float32 weights and KV (default bfloat16)")
     ap.add_argument("--seed", type=int, default=0)
@@ -135,6 +182,10 @@ def make_config(args) -> EngineConfig:
         num_slots=args.slots, num_stages=args.stages,
         num_microbatches=args.microbatches, prompt_capacity=args.prompt_len,
         page_size=args.page_size, num_pages=args.num_pages,
+        page_policy=args.page_policy,
+        prefix_sharing=not args.no_prefix_sharing,
+        preempt_policy=args.preempt_policy,
+        decode_cow=not args.no_decode_cow,
         request_capacity=args.prompt_len + args.max_new,
         seal_boundary=not args.no_seal, solver=args.solver, space=args.space,
         delta=args.delta, telemetry_interval=args.telemetry_interval,
@@ -180,7 +231,7 @@ def serve_stream(eng: ServingEngine, args, prompts):
     """Submit the prompt stream with its arrival gaps and drain it."""
     reqs, k = [], 0
     while k < len(prompts) or eng.scheduler.has_work():
-        if k < len(prompts) and eng.steps % ARRIVAL_EVERY == 0:
+        if k < len(prompts) and eng.steps % args.arrival_every == 0:
             reqs.append(eng.submit(prompts[k], args.max_new))
             k += 1
         moved = eng.step()
@@ -190,6 +241,32 @@ def serve_stream(eng: ServingEngine, args, prompts):
             reqs.append(eng.submit(prompts[k], args.max_new))
             k += 1
     return reqs
+
+
+def serve_stream_orch(orch: DisaggOrchestrator, args, prompts):
+    """The orchestrator twin of ``serve_stream``: the same prompts in the
+    same order on the decode engine's clock, so the rids match a
+    monolithic run's."""
+    reqs, k = [], 0
+    while k < len(prompts) or orch.has_work():
+        if k < len(prompts) and orch.decode.steps % args.arrival_every == 0:
+            reqs.append(orch.submit(prompts[k], args.max_new))
+            k += 1
+        orch.step()
+        if orch.stalled:
+            break
+        if k < len(prompts) and not orch.has_work():
+            reqs.append(orch.submit(prompts[k], args.max_new))
+            k += 1
+    return reqs
+
+
+def make_disagg(api, params, args) -> DisaggOrchestrator:
+    """The prefill/decode pair the parsed arguments describe, over the
+    shared ``params``, on the model's device."""
+    return build_disagg(api, params, config=make_config(args),
+                        backend=backend_of(args), device=api.device,
+                        rm=TOPOLOGIES[args.topology](args.stages))
 
 
 def build_params(args):
@@ -251,8 +328,68 @@ def report(eng, api, reqs) -> None:
         print("sample tokens:", reqs[0].generated)
 
 
+def _assert_no_recompile(st, role: str = "") -> None:
+    n = st["post_warmup_compiles"]
+    assert n == 0, f"{role}{n} graph captures after warmup; stalls: " \
+        f"{st['compile_stalls']}"
+    assert not st["compile_stalls"], st["compile_stalls"]
+
+
+def disagg_main(api, params, args):
+    """``--disagg``: serve through the prefill/decode orchestrator; with
+    ``--verify-disagg`` serve again monolithically and through the no-peer
+    fallback orchestrator and assert the three streams are equal."""
+    plan = plan_disagg_roles(TOPOLOGIES[args.topology](args.stages),
+                             api.cfg, prompt_len=max(args.prompt_len, 16),
+                             max_new=args.max_new, page_size=args.page_size)
+    print(f"role plan: {plan.describe()}")
+    orch = make_disagg(api, params, args)
+    prompts = gen_prompts(args, api.cfg.vocab_size)
+    reqs = serve_stream_orch(orch, args, prompts)
+    orch.check_invariants()
+    st = orch.stats()
+    ps = st["prefill_stats"]
+    print(f"disagg: device={st['device']} arch={api.cfg.name} "
+          f"dtype={api.dtype} backend={st['backend']}; served "
+          f"{st['completed'] + st['prefill_completed']} requests, "
+          f"{st['tokens_out']} tokens ({st['tok_per_s']:.1f} tok/s) "
+          f"handoffs={st['handoffs']} "
+          f"backpressure={st['backpressure_events']} "
+          f"finished_at_prefill={st['prefill_completed']} "
+          f"cow_hits={st['cow_hits']} transfers_in={st['transfers_in']}")
+    print(f"prefill side: admissions={ps['admissions']} "
+          f"prefill_calls={ps['prefill_calls']} "
+          f"transfers_out={ps['transfers_out']} "
+          f"packed={ps['packed_admissions']}")
+    if reqs:
+        print("sample tokens:", reqs[0].generated)
+    if args.assert_no_recompile:
+        assert args.warmup, "--assert-no-recompile needs --warmup"
+        _assert_no_recompile(orch.decode.stats(), "decode role: ")
+        _assert_no_recompile(orch.eng_prefill.stats(), "prefill role: ")
+        print("NO-RECOMPILE OK: zero post-warmup captures and no stall on "
+              "both roles")
+    if args.verify_disagg:
+        mono = serve_stream(make_engine(api, params, args), args, prompts)
+        fb = DisaggOrchestrator(make_engine(api, params, args))
+        fb_reqs = serve_stream_orch(fb, args, prompts)
+        assert fb.stats()["handoffs"] == 0
+        assert len(reqs) == len(mono) == len(fb_reqs) == len(prompts)
+        for a, b, c in zip(reqs, mono, fb_reqs):
+            assert a.generated == b.generated == c.generated, \
+                f"req {a.rid} diverged across serving modes:\n" \
+                f"  disagg     {a.generated}\n  monolithic {b.generated}\n" \
+                f"  fallback   {c.generated}"
+        print(f"DISAGG-EXACT OK: {len(reqs)} token streams identical "
+              f"across disaggregated / monolithic / fallback "
+              f"({st['handoffs']} sealed handoffs)")
+    return st
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.disagg:
+        return disagg_main(*build_params(args), args)
     inject = parse_straggler(args.inject_straggler)
     if args.verify_swap:
         assert args.no_seal, "--verify-swap needs --no-seal: the quantizing " \
@@ -265,11 +402,9 @@ def main(argv=None):
     if args.assert_no_recompile:
         # checked before any --verify-* rerun, as the reference does
         assert args.warmup, "--assert-no-recompile needs --warmup"
-        n = st["post_warmup_compiles"]
-        assert n == 0, f"{n} graph captures after warmup; stalls: " \
-            f"{st['compile_stalls']}"
-        assert not st["compile_stalls"], st["compile_stalls"]
-        print(f"NO-RECOMPILE OK: post_warmup_compiles={n}, 0 stalls "
+        _assert_no_recompile(st)
+        print(f"NO-RECOMPILE OK: post_warmup_compiles="
+              f"{st['post_warmup_compiles']}, 0 stalls "
               f"({st['graphs']} graphs, warmup {st['warmup_s']:.2f} s)")
     if args.verify_swap:
         eng2, reqs2 = run_once(api, params, copy.copy(args))
@@ -298,6 +433,27 @@ def main(argv=None):
                 f"  {a.generated}\n  {b.generated}"
         print(f"CHUNK-EXACT OK: {len(reqs)} token streams identical, "
               f"chunked ({args.prefill_chunk}) vs one-shot prefill")
+    if args.verify_preempt:
+        assert args.preempt_policy == "swap", \
+            "--verify-preempt compares the swap path against its oracles"
+        assert st["swap_outs"] > 0, \
+            "pool never swap-preempted: nothing verified (shrink " \
+            "--num-pages or raise --requests)"
+        oracle = copy.copy(args)
+        oracle.preempt_policy = "recompute"
+        _, reqs_rc = run_once(api, params, oracle, inject)
+        roomy = copy.copy(args)
+        roomy.num_pages = 0      # all slots at full capacity: no preemption
+        eng_ud, reqs_ud = run_once(api, params, roomy, inject)
+        assert eng_ud.stats()["preemptions"] == 0
+        for a, b, c in zip(reqs, reqs_rc, reqs_ud):
+            assert a.generated == b.generated == c.generated, \
+                f"req {a.rid} diverged across preempt policies:\n" \
+                f"  swap      {a.generated}\n  recompute {b.generated}\n" \
+                f"  undisturbed {c.generated}"
+        print(f"PREEMPT-EXACT OK: {len(reqs)} token streams identical "
+              f"across swap resume / recompute oracle / undisturbed "
+              f"({st['swap_outs']} swap-outs)")
     return st
 
 

@@ -1,10 +1,19 @@
 """Serving layer of the port: scheduler, greedy sampler, stage telemetry,
-the paged engine and its local and pipelined backends."""
+the paged engine and its local and pipelined backends, and disaggregated
+prefill/decode (``disagg``: a prefill-role engine seals each prompt's KV
+pages into a ``TransferManifest`` that a decode-role engine unseals into
+its own pool, routed by ``DisaggOrchestrator``, roles placed by
+``plan_disagg_roles``)."""
+from .disagg import (DisaggOrchestrator, PrefillEngine, RoleCandidate,
+                     RolePlan, build_disagg, plan_disagg_roles)
 from .engine import (EngineConfig, PagedLocalBackend, PagedPipelinedBackend,
                      ServingEngine)
-from .scheduler import PagePool, Request, SlotScheduler, SwapManifest
+from .scheduler import (HANDOFF, PagePool, Request, SlotScheduler,
+                        SwapManifest, TransferManifest)
 from .telemetry import StageTelemetry
 
-__all__ = ["EngineConfig", "PagePool", "PagedLocalBackend",
-           "PagedPipelinedBackend", "Request", "ServingEngine",
-           "SlotScheduler", "StageTelemetry", "SwapManifest"]
+__all__ = ["DisaggOrchestrator", "EngineConfig", "HANDOFF", "PagePool",
+           "PagedLocalBackend", "PagedPipelinedBackend", "PrefillEngine",
+           "Request", "RoleCandidate", "RolePlan", "ServingEngine",
+           "SlotScheduler", "StageTelemetry", "SwapManifest",
+           "TransferManifest", "build_disagg", "plan_disagg_roles"]

@@ -55,10 +55,21 @@ in for it. What stays eager: page-table maintenance (``insert_slot``,
 ``commit_slot``, ``clear_slot``, ``set_table_entry``, ``copy_page``), a
 few small launches per admission or fork.
 
+``disagg_role`` is the reference's disaggregated prefill/decode
+(``serving/disagg.py`` drives a pair): a ``"prefill"`` engine prefills,
+samples the first token and seals every KV page of the slot with the page
+cipher under a counter from the transfer space (``export_transfer``); a
+``"decode"`` engine resolves the manifest's rows against its own prefix
+index (``ingest_transfer``), unseals and scatters the sealed rows in one
+``scatter_pages`` call at admission (``_transfer_in``) and decodes on. A
+tampered payload falls back to a teacher-forced re-prefill of prompt plus
+first token. The prefill role draws its swap sequence numbers and stage
+boundary keys from the upper half of each space, so the two roles, which
+seal under one key, never cipher under one (key, counter) pair.
+
 Not in this slice, and refused by name when a config asks for them: the
-legacy timeline layout, per-token prefill, sampling at temperature > 0,
-disaggregated prefill/decode and the fault plane (see ROADMAP.md, "Next
-slices").
+legacy timeline layout, per-token prefill, sampling at temperature > 0 and
+the fault plane (see ROADMAP.md, "Next slices").
 """
 from __future__ import annotations
 
@@ -84,7 +95,8 @@ from repro_torch.runtime.pipeline import PipelinedDecoder, pipeline_applicable
 from repro_torch.serving.aot import AotRegistry
 from repro_torch.serving.sampling import TokenSampler
 from repro_torch.serving.scheduler import (QUEUED, RUNNING, PagePool,
-                                           Request, SlotScheduler)
+                                           Request, SlotScheduler,
+                                           TransferManifest)
 from repro_torch.serving.telemetry import StageTelemetry
 
 
@@ -130,19 +142,30 @@ class EngineConfig:
     #                                     (asserted via
     #                                     stats()["post_warmup_compiles"])
     warmup_layouts: int = 8             # swap-target stage layouts to prewarm
+    # disaggregated prefill/decode (serving/disagg.py): "" = monolithic,
+    # "prefill" = this engine seals and exports finished prefills
+    # (export_transfer), "decode" = it ingests TransferManifests from a
+    # prefill peer (ingest_transfer); either role needs demand paging
+    disagg_role: str = ""
     # reference options of later slices: anything but the default raises
     kv_layout: str = "paged"
     batched_prefill: bool = True
-    disagg_role: str = ""
     faults: Any = None
 
 
 _LATER = {
     "kv_layout": ("paged", "the legacy timeline KV layout"),
     "batched_prefill": (True, "per-token prefill"),
-    "disagg_role": ("", "disaggregated prefill/decode"),
     "faults": (None, "the chaos fault plane"),
 }
+
+# The prefill role of a disaggregated pair seals under the decode role's key
+# (0xC0FFEE). Its swap sequence numbers start at the middle of the swap
+# space (still below sealing.TRANSFER_SEQ_BASE) and its stage-boundary
+# keys at key + 2^31, so neither its swaps, nor its warmup's swap I/O and
+# decode ticks, reuse a (key, counter) pair of the decode role's.
+_PREFILL_SWAP_SEQ = sealing.TRANSFER_SEQ_BASE // 2
+_PREFILL_KEY_SHIFT = 1 << 31
 
 
 def _refuse_later_slices(cfg: EngineConfig) -> None:
@@ -542,6 +565,14 @@ class ServingEngine:
             raise ValueError(f"page_policy {cfg.page_policy!r}")
         if cfg.preempt_policy not in ("auto", "swap", "recompute"):
             raise ValueError(f"preempt_policy {cfg.preempt_policy!r}")
+        if cfg.disagg_role not in ("", "prefill", "decode"):
+            raise ValueError(f"disagg_role {cfg.disagg_role!r}: '', "
+                             f"'prefill' or 'decode'")
+        if cfg.disagg_role and cfg.page_policy != "demand":
+            raise ValueError(
+                f"disagg_role={cfg.disagg_role!r} needs page_policy="
+                f"'demand' (COW adoption and per-row allocation at "
+                f"transfer-in), not {cfg.page_policy!r}")
         if cfg.prefill_chunk < 0 or cfg.prefill_pack < 0:
             raise ValueError(f"prefill_chunk {cfg.prefill_chunk} and "
                              f"prefill_pack {cfg.prefill_pack} must be >= 0")
@@ -593,8 +624,21 @@ class ServingEngine:
         self.peak_running = 0
         # monotone swap sequence keys the cipher keystream: no (key,
         # counter) pair is ever reused across swap events
-        self._swap_seq = 0
+        prefill = cfg.disagg_role == "prefill"
+        self._swap_seq = _PREFILL_SWAP_SEQ if prefill else 0
         self.swap_fallbacks = 0
+        # disaggregated handoff: transfer sequence numbers key the cipher
+        # in the dedicated transfer counter space (sealing.transfer_seq),
+        # so handoff seals never collide with swap or activation seals
+        self._transfer_seq = 0
+        self.transfers_out = 0
+        # the reference's recovery ladder (stats()["recovery"]); only the
+        # handoff rungs move in this slice, the rest wait for the fault
+        # plane. pending_external is set by an orchestrator holding
+        # in-flight handoffs for this engine, so a head-of-line stall
+        # while one is pending classifies as recoverable.
+        self.recovery = self._fresh_recovery()
+        self.pending_external = 0
 
         # every managed entry point (decode step, prefill chunk, one-shot
         # and packed prefill) is registered here, so warmup() can capture
@@ -636,7 +680,9 @@ class ServingEngine:
         # since construction seals its stage boundaries under key + n
         # (``_step_key``)
         self._key = 0xC0FFEE
-        self._key_shift = 0             # ticks not counted by self.steps
+        # ticks not counted by self.steps (the prefill role of a pair
+        # starts 2^31 ticks on)
+        self._key_shift = _PREFILL_KEY_SHIFT if prefill else 0
         self.sampler = TokenSampler(cfg.temperature)
         self.warmup_s = 0.0
         self.warmed = False
@@ -657,7 +703,7 @@ class ServingEngine:
         boundaries, as a one-element device tensor (a captured step reads it
         at every replay): ``key + n`` for the n-th tick since construction.
         On a cold engine n is ``self.steps``, the reference's ``key +
-        steps``. Unlike the reference, n keeps running across the warmup
+        steps`` (on the prefill role of a pair, 2^31 + ``self.steps``). Unlike the reference, n keeps running across the warmup
         reset and counts the warmup's neutral ticks, so serving never seals
         a boundary under a (key, counter) pair that warmup used."""
         n = self.steps + self._key_shift
@@ -693,7 +739,12 @@ class ServingEngine:
     # -- admission gating --------------------------------------------------
     def _fits(self, req: Request) -> bool:
         if self.config.page_policy == "demand":
-            if self.pool.has_swap(req.rid):
+            if self.pool.has_transfer(req.rid):
+                # handoff admission: one fresh page per sealed manifest row
+                # (+1 headroom); rows resolved against this pool's COW
+                # index at ingest are pinned and re-adopt for free
+                need, supply = self._transfer_budget(req)
+            elif self.pool.has_swap(req.rid):
                 need, supply = self._swap_budget(req)
             else:
                 need, supply = self._page_budget(req)
@@ -743,6 +794,14 @@ class ServingEngine:
         supply = self.pool.free_pages + self.pool.evictable_pages
         return man.sealed_pages + 1, supply
 
+    def _transfer_budget(self, req: Request) -> Tuple[int, int]:
+        """``_swap_budget`` for an ingested handoff: one fresh page per
+        sealed row plus one page of headroom; shared (COW-resolved) rows
+        are pinned and free."""
+        man = self.pool.transfer_manifest[req.rid]
+        supply = self.pool.free_pages + self.pool.evictable_pages
+        return man.sealed_pages + 1, supply
+
     def _bucket(self, n: int) -> int:
         """Pad prompt lengths to power-of-two buckets (capped at
         prompt_capacity, or request_capacity for resumed prompts)."""
@@ -757,7 +816,15 @@ class ServingEngine:
     # -- admission: prefill into a free slot -------------------------------
     def _prefill_slot(self, slot: int, req: Request) -> None:
         t0 = time.perf_counter()
-        if self.pool.has_swap(req.rid) and self._swap_in(slot, req, t0):
+        if self.pool.has_transfer(req.rid):
+            # handoff: restore the peer-sealed pages in one scatter, no
+            # prefill and no sample (the prefill role sampled the first
+            # token). A payload that fails verification drops the manifest
+            # and falls through to a teacher-forced re-prefill of prompt +
+            # first token.
+            if self._transfer_in(slot, req, t0):
+                return
+        elif self.pool.has_swap(req.rid) and self._swap_in(slot, req, t0):
             return
         C = self.config.prefill_chunk
         if C > 0 and len(self._prompt_tokens(req)) > C:
@@ -1054,11 +1121,20 @@ class ServingEngine:
             "sealed_pages": sum(1 for t, _ in entries if t == "sealed"),
             "shared_pages": sum(1 for t, _ in entries if t == "shared")})
 
-    def _integrity_reject(self, req: Request, fresh: List[int],
+    def _integrity_reject(self, req: Request, path: str, fresh: List[int],
                           e: Exception) -> bool:
+        """The failure arm of swap-in and transfer-in (``path`` ``"swap"``
+        or ``"transfer"``): return the freshly allocated pages (no block
+        table references them), drop the tampered manifest and count the
+        fallback; the caller re-prefills teacher-forced."""
         self.pool.release(fresh)
-        self.pool.drop_swap(req.rid)
-        self._emit("unseal_fallback", {"rid": req.rid, "error": str(e)})
+        if path == "swap":
+            self.pool.drop_swap(req.rid)
+        else:
+            self.pool.drop_transfer(req.rid)
+        self.recovery[f"unseal_fallback_{path}"] += 1
+        self._emit("unseal_fallback", {"rid": req.rid, "path": path,
+                                       "error": str(e)})
         return False
 
     def _swap_in(self, slot: int, req: Request, t0: float) -> bool:
@@ -1074,7 +1150,7 @@ class ServingEngine:
             sealing.verify_structure(man.payload, man.digest,
                                      context=f"swap-in rid {req.rid}")
         except sealing.SealIntegrityError as e:
-            return self._integrity_reject(req, [], e)
+            return self._integrity_reject(req, "swap", [], e)
         N = self.pool.num_pages
         pages: List[int] = []
         fresh: List[int] = []
@@ -1098,7 +1174,7 @@ class ServingEngine:
             sealing.verify_payload(man.payload, man.digest,
                                    context=f"swap-in rid {req.rid}")
         except sealing.SealIntegrityError as e:
-            return self._integrity_reject(req, fresh, e)
+            return self._integrity_reject(req, "swap", fresh, e)
         man = self.pool.swap_in(req.rid)
         bt_row = np.zeros(self.pages_per_slot, np.int32)
         bt_row[:len(pages)] = pages
@@ -1115,14 +1191,164 @@ class ServingEngine:
                              "shared": len(pages) - len(fresh), "ms": ms})
         return True
 
+    # -- disaggregated handoff: sealed cross-engine KV transfer ------------
+    def export_transfer(self, slot: int) -> Tuple[Request, TransferManifest]:
+        """Prefill-side handoff: seal EVERY page of ``slot`` (shared pages
+        included -- the payload keeps all rows, so decode-side pin demotion
+        is lossless) in one ``gather_pages`` call under a counter from the
+        transfer sequence space, copy the payload to host memory, free this
+        engine's pages and vacate the slot (HANDOFF state). Returns the
+        request and the manifest the orchestrator ships to the decode
+        engine. The first sampled token rides in ``req.generated`` and was
+        never written to KV: it is the decode engine's first input, as the
+        pre-preemption token is at swap-in."""
+        assert self.config.page_policy == "demand"
+        req = self.scheduler.slots[slot]
+        assert req is not None and req.status == RUNNING and req.generated, \
+            (slot, req)
+        pages = self.slot_pages.pop(slot)
+        n_tokens = self.slot_len.pop(slot)
+        # content keys for the decode pool's COW resolution: the tokens
+        # whose KV is written (generated[-1] is pending, unwritten)
+        tokens = list(req.prompt) + [int(t) for t in req.generated[:-1]]
+        assert len(tokens) == n_tokens, (len(tokens), n_tokens)
+        keys = self._prompt_page_keys(tokens)
+        gather_vec = np.zeros(self.pages_per_slot, np.int32)
+        gather_vec[:len(pages)] = pages
+        entries: List[Tuple[str, Any]] = [
+            ("sealed", (i, keys[i] if i < len(keys) else None))
+            for i in range(len(pages))]
+        seq = sealing.transfer_seq(self._transfer_seq)
+        self._transfer_seq += 1
+        ck, cv = self.backend.gather_pages(gather_vec, self._key, seq)
+        payload = (sealing.cipher_to_host(ck), sealing.cipher_to_host(cv))
+        man = TransferManifest(req.rid, n_tokens, entries, payload, seq,
+                               sealing.payload_digest(payload))
+        self.pool.release(pages)
+        self.backend.clear_slot(slot)
+        self.scheduler.handoff(slot, step=self.steps)
+        self.pending[slot] = 0
+        self.transfers_out += 1
+        self._emit("handoff_out", {"rid": req.rid, "slot": slot,
+                                   "pages": len(pages),
+                                   "n_tokens": n_tokens})
+        return req, man
+
+    def ingest_transfer(self, req: Request, man: TransferManifest) -> None:
+        """Decode-side handoff ingestion: resolve each keyed sealed row
+        against THIS pool's COW prefix index (hits become pinned shared
+        entries, whose payload rows scatter to the drop sentinel), park the
+        manifest and adopt the request into the admission queue. ``_fits``
+        then gates on the remaining sealed rows and ``_prefill_slot``
+        routes to ``_transfer_in``."""
+        assert self.config.page_policy == "demand"
+        total = man.n_tokens + (req.max_new_tokens - len(req.generated)) + 1
+        if total > self.request_capacity:
+            raise ValueError(f"handoff rid {req.rid}: {total} tokens > "
+                             f"decode request_capacity "
+                             f"{self.request_capacity}")
+        if self.pool.pages_needed(total) + 1 > self.pool.num_pages - 1:
+            raise ValueError(f"handoff rid {req.rid} cannot fit the decode "
+                             f"pool of {self.pool.num_pages - 1} pages")
+        entries = list(man.entries)
+        adopted = 0
+        if self.config.prefix_sharing:
+            for i, (tag, (_row, key)) in enumerate(entries):
+                assert tag == "sealed", (i, tag)
+                if key is None:
+                    continue
+                pg = self.pool.lookup_prefix(key)
+                if pg is not None:      # the lookup pinned pg (manifest ref)
+                    entries[i] = ("shared", (key, pg))
+                    adopted += 1
+        self.pool.register_transfer(req.rid, entries, man.payload,
+                                    man.n_tokens, man.counter,
+                                    digest=man.digest)
+        self.scheduler.adopt(req)
+        self._emit("handoff_in", {"rid": req.rid,
+                                  "sealed": len(entries) - adopted,
+                                  "shared": adopted})
+
+    def _transfer_in(self, slot: int, req: Request, t0: float) -> bool:
+        """Admit an ingested handoff: one fresh page per sealed row, the
+        peer's payload unsealed and scattered into them in ONE
+        ``scatter_pages`` call (swap-in's graph: the counter is an input),
+        COW-resolved shared pages adopted in place, the block table rebuilt
+        at the transferred seq_len, and the freshly landed prompt pages
+        registered in this pool's prefix index. No sample: the prefill
+        role's first token (generated[-1]) is the next decode input, so the
+        stream continues as the monolithic engine's.
+
+        Verification is swap-in's: the structure first, then the scatter
+        is launched, the host re-hashes the sealed bits while the card
+        unseals, and the block table commits only after the digest
+        matches. Returns False (the caller re-prefills prompt + first
+        token) when the payload fails either check."""
+        man = self.pool.transfer_manifest[req.rid]
+        context = f"transfer-in rid {req.rid}"
+        try:
+            sealing.verify_structure(man.payload, man.digest, context=context)
+        except sealing.SealIntegrityError as e:
+            return self._integrity_reject(req, "transfer", [], e)
+        N = self.pool.num_pages
+        pages: List[int] = []
+        fresh: List[int] = []
+        fresh_keys: List[Tuple[tuple, int]] = []
+        scatter_vec = np.full(self.pages_per_slot, N, np.int32)
+        for tag, val in man.entries:
+            if tag == "shared":
+                pages.append(val[1])
+                continue
+            row, key = val
+            pg = self.pool.alloc_one()
+            assert pg is not None, "gated by _fits/_transfer_budget"
+            pages.append(pg)
+            fresh.append(pg)
+            scatter_vec[row] = pg
+            if key is not None:
+                fresh_keys.append((key, pg))
+        ck, cv = (sealing.cipher_to_device(a, self.device)
+                  for a in man.payload)
+        self.backend.scatter_pages(ck, cv, scatter_vec, self._key,
+                                   man.counter)
+        try:
+            sealing.verify_payload(man.payload, man.digest, context=context)
+        except sealing.SealIntegrityError as e:
+            return self._integrity_reject(req, "transfer", fresh, e)
+        man = self.pool.transfer_in(req.rid)
+        bt_row = np.zeros(self.pages_per_slot, np.int32)
+        bt_row[:len(pages)] = pages
+        self.backend.commit_slot(slot, bt_row, man.n_tokens)
+        self.slot_pages[slot] = pages
+        self.slot_len[slot] = man.n_tokens
+        if self.config.prefix_sharing:
+            for key, pg in fresh_keys:
+                self.pool.register_prefix(key, pg)     # keeps an older hit
+        self.pending[slot] = req.generated[-1]
+        ms = (time.perf_counter() - t0) * 1e3
+        self.admission_ms.append(ms)
+        self.admissions += 1
+        self._emit("admit", {"rid": req.rid, "slot": slot,
+                             "resumed": "transfer", "pages": len(pages),
+                             "restored": len(fresh),
+                             "shared": len(pages) - len(fresh), "ms": ms})
+        return True
+
     def _maybe_break_swap_deadlock(self, nxt: Request) -> bool:
-        """With nothing active no completion will free pages; only swap
-        manifests' pins and the evictable prefix index hold them. Drop
-        manifests youngest-first (the head's own last) until the head
-        fits; each dropped request reverts to the recompute path."""
-        if self.scheduler.active() or self.chunking \
-                or not self.pool.swap_manifest:
+        """With nothing active no completion will free pages; only swap-
+        and transfer-manifest pins and the evictable prefix index hold
+        them. First demote transfer pins (lossless: the handoff payload
+        keeps every row), then drop swap manifests youngest-first (the
+        head's own last) until the head fits; each dropped swap reverts to
+        the recompute path."""
+        if self.scheduler.active() or self.chunking or not (
+                self.pool.swap_manifest or self.pool.transfer_manifest):
             return False                # completions can still free pages
+        for rid in sorted(self.pool.transfer_manifest):
+            if self._fits(nxt):
+                break
+            if self.pool.demote_transfer(rid):
+                self._emit("transfer_demote", {"rid": rid})
         while not self._fits(nxt) and self.pool.swap_manifest:
             others = sorted(r for r in self.pool.swap_manifest
                             if r != nxt.rid)
@@ -1209,9 +1435,9 @@ class ServingEngine:
     # -- packed prefill: several short prompts in one call -----------------
     def _packable(self, req: Request) -> bool:
         """Can ``req`` join a packed prefill group? One-shot admissions
-        only: a swap resume restores KV instead of prefilling, and chunked
-        prompts stream over steps."""
-        if self.pool.has_swap(req.rid):
+        only: swap resumes and handoff ingests restore KV instead of
+        prefilling, and chunked prompts stream over steps."""
+        if self.pool.has_swap(req.rid) or self.pool.has_transfer(req.rid):
             return False
         C = self.config.prefill_chunk
         return not (C > 0 and len(self._prompt_tokens(req)) > C)
@@ -1301,8 +1527,9 @@ class ServingEngine:
                 self.stall_reason = None
                 return self._step_events
             # head-of-line blocked with nothing running: permanent unless a
-            # swap manifest still pins pages the breaker can release
-            recoverable = bool(self.pool.swap_manifest)
+            # manifest still pins pages the breaker can release, or an
+            # orchestrator still holds handoffs in flight for this engine
+            recoverable = self._stall_recoverable()
             self.stalled = bool(self.scheduler.queue) and not recoverable
             self.stall_reason = None if not self.scheduler.queue else \
                 ("recoverable" if recoverable else "permanent")
@@ -1331,6 +1558,32 @@ class ServingEngine:
                 self._on_finish(fin)
         self._telemetry_tick(wall)
         return self._step_events
+
+    def _stall_recoverable(self) -> bool:
+        return self.pending_external > 0 or bool(
+            self.pool.swap_manifest or self.pool.transfer_manifest)
+
+    @staticmethod
+    def _fresh_recovery() -> Dict[str, int]:
+        """The reference's named rungs of the recovery ladder
+        (``stats()["recovery"]``), all of them: a tampered payload's
+        re-prefill (``unseal_fallback_*``) and the orchestrator's handoff
+        rungs move here; the device-loss, stall and storm rungs read 0
+        until the fault plane is ported."""
+        return {
+            "unseal_fallback_swap": 0,
+            "unseal_fallback_transfer": 0,
+            "device_loss_spills": 0,
+            "device_loss_replans": 0,
+            "stall_replans": 0,
+            "storm_preemptions": 0,
+            "storm_reclaims": 0,
+            # bumped by DisaggOrchestrator on the decode engine: re-sends
+            # after drops, late deliveries, demotions to re-prefill
+            "handoff_retries": 0,
+            "handoff_redeliveries": 0,
+            "handoff_reprefills": 0,
+        }
 
     def _telemetry_tick(self, wall: float) -> None:
         """Telemetry -> maybe re-plan -> maybe swap boundaries live. A
@@ -1508,8 +1761,10 @@ class ServingEngine:
         layout and under each toured one (one pair of graphs serves every
         layout here: the pools are not staged). The sequence number is
         drawn from ``_swap_seq`` like a real swap's, so no page is ever
-        ciphered under a (key, counter) pair that warmup used."""
-        if self.preempt_policy != "swap":
+        ciphered under a (key, counter) pair that warmup used. A
+        disaggregated role warms it whatever its preempt policy: handoff
+        export and ingest replay exactly these graphs."""
+        if self.preempt_policy != "swap" and not self.config.disagg_role:
             return
         MP, N = self.pages_per_slot, self.pool.num_pages
         seq = self._swap_seq
@@ -1581,12 +1836,13 @@ class ServingEngine:
         """Reset every piece of serving state the warm traffic touched --
         scheduler (rids restart at 0), page pool, device cache (in place),
         clocks, counters, events, measured telemetry -- leaving the
-        captured graphs. Unlike the reference, the swap sequence and the
-        boundary key's tick count are not reset: they key the page cipher's
-        counter and the stage seals' key, and a (key, counter) pair reused
-        would cipher serving pages or activations with the keystream that
-        ciphered the warm traffic's known ones. The streams cannot change:
-        both ciphers open to the same values under any key."""
+        captured graphs. Unlike the reference, the swap and transfer
+        sequences and the boundary key's tick count are not reset: they key
+        the page cipher's counter and the stage seals' key, and a (key,
+        counter) pair reused would cipher serving pages or activations with
+        the keystream that ciphered the warm traffic's known ones. The
+        streams cannot change: both ciphers open to the same values under
+        any key."""
         cfg = self.config
         self.scheduler = SlotScheduler(cfg.num_slots,
                                        finished_cap=cfg.finished_cap)
@@ -1601,6 +1857,9 @@ class ServingEngine:
         self.preemptions = 0
         self.peak_running = 0
         self.swap_fallbacks = 0
+        self.transfers_out = 0
+        self.recovery = self._fresh_recovery()
+        self.pending_external = 0
         self.stalled = False
         self.stall_reason = None
         self._blocked_rid = None
@@ -1628,6 +1887,32 @@ class ServingEngine:
                 break
             n += 1
         return list(self.scheduler.finished)
+
+    def run_trace(self, arrivals: Sequence[Tuple[int, Sequence[int], int,
+                                                 Optional[int]]],
+                  max_steps: Optional[int] = None) -> List[Request]:
+        """Replay a timed arrival trace: each ``(step, prompt, max_new,
+        eos_id)`` is submitted once the engine clock reaches its arrival
+        step; idle gaps fast-forward the clock to the next arrival. Returns
+        every submitted Request."""
+        arrivals = sorted(arrivals, key=lambda a: a[0])
+        reqs: List[Request] = []
+        k, n = 0, 0
+        while k < len(arrivals) or self.scheduler.has_work():
+            if max_steps is not None and n >= max_steps:
+                break
+            while k < len(arrivals) and arrivals[k][0] <= self.steps:
+                _, prompt, max_new, eos = arrivals[k]
+                reqs.append(self.submit(list(prompt), max_new, eos_id=eos))
+                k += 1
+            if not self.scheduler.has_work():
+                self.steps = max(self.steps, arrivals[k][0])
+                continue
+            self.step()
+            if self.stalled:
+                break
+            n += 1
+        return reqs
 
     def check_page_invariants(self) -> None:
         """Audit the page pool's refcounts against the live block tables."""
@@ -1665,6 +1950,10 @@ class ServingEngine:
             "prefill_chunks": self.chunk_steps,
             "stalled": self.stalled,
             "stall_reason": self.stall_reason,
+            "pending_external": self.pending_external,
+            "recovery": dict(self.recovery),
+            "disagg_role": self.config.disagg_role,
+            "transfers_out": self.transfers_out,
             "page_size": self.config.page_size,
             "num_pages": self.pool.num_pages,
             "free_pages": self.pool.free_pages,
@@ -1680,7 +1969,7 @@ class ServingEngine:
             "evictions": self.pool.evictions,
             "peak_running_slots": self.peak_running,
         })
-        out.update(self.pool.stats())       # swapped_pages/swap_outs/ins
+        out.update(self.pool.stats())       # swap and transfer ledgers
         if self.admission_ms:
             arr = np.asarray(self.admission_ms)
             out["admission_p50_ms"] = float(np.percentile(arr, 50))

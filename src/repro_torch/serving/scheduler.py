@@ -1,7 +1,7 @@
 """Serving layer 1 — continuous-batching slot scheduler (port of
-``repro/serving/scheduler.py``: the request queue, the slot registry, and
-the ref-counted page pool with its copy-on-write prefix index and host
-swap tier; the disaggregated-transfer ledger is left for a later slice).
+``repro/serving/scheduler.py``: the request queue, the slot registry with
+its handoff state, and the ref-counted page pool with its copy-on-write
+prefix index, host swap tier and disaggregated-transfer ledger).
 
 The engine decodes a fixed batch of ``num_slots`` KV-cache slots every step;
 the scheduler multiplexes a stream of heterogeneous requests onto those
@@ -27,6 +27,8 @@ QUEUED = "queued"
 PREFILL = "prefill"          # admitted to a slot, prompt chunking in flight
 RUNNING = "running"
 SWAPPED = "swapped"          # preempted with KV sealed to the host swap tier
+HANDOFF = "handoff"          # prefilled KV sealed and shipped to a peer
+#                              engine (disaggregated prefill/decode)
 DONE = "done"
 
 
@@ -89,6 +91,18 @@ class SlotScheduler:
         req = Request(self._next_rid, tuple(int(t) for t in prompt),
                       max_new_tokens, eos_id, submit_step=step)
         self._next_rid += 1
+        self.queue.append(req)
+        return req
+
+    def adopt(self, req: Request) -> Request:
+        """Enqueue an externally-created Request, keeping its rid (the
+        disaggregated orchestrator assigns rids globally so the prefill and
+        decode engines' sampler keystreams match the monolithic engine's).
+        The local rid counter advances past it so a later local ``submit``
+        can never collide."""
+        assert req.status in (QUEUED, HANDOFF), req
+        req.status = QUEUED
+        self._next_rid = max(self._next_rid, req.rid + 1)
         self.queue.append(req)
         return req
 
@@ -161,6 +175,22 @@ class SlotScheduler:
             self._wait_sum += req.admit_step - req.submit_step
             self._wait_n += 1
         self.finished.append(req)
+        return req
+
+    def handoff(self, slot: int, step: int = -1) -> Request:
+        """Vacate ``slot`` because the request's prefilled KV was sealed and
+        shipped to a peer decode engine (disaggregated serving): the slot
+        recycles immediately, but the request is neither DONE (its decode
+        continues elsewhere) nor requeued here -- it leaves this scheduler in
+        the HANDOFF state and its transcript stays owned by the caller."""
+        req = self.slots[slot]
+        assert req is not None and req.status == RUNNING, (slot, req)
+        req.status, req.slot = HANDOFF, None
+        self.slots[slot] = None
+        self._free.append(slot)
+        if req.admit_step >= 0 and req.submit_step >= 0:
+            self._wait_sum += req.admit_step - req.submit_step
+            self._wait_n += 1
         return req
 
     def preempt(self, slot: int, swapped: bool = False) -> Request:
@@ -245,6 +275,37 @@ class SwapManifest:
     def sealed_pages(self) -> int:
         return sum(1 for tag, _ in self.entries if tag == "sealed")
 
+    @property
+    def shared_pages(self) -> int:
+        return sum(1 for tag, _ in self.entries if tag == "shared")
+
+
+@dataclasses.dataclass
+class TransferManifest(SwapManifest):
+    """In-flight record of one disaggregated prefill->decode KV handoff.
+
+    Mirrors ``SwapManifest``, but crosses *engines* rather than tiers: the
+    prefill engine gathers and seals **every** page of the handed-off slot
+    into ``payload`` (one ``gather_pages`` call keyed by a counter from the
+    dedicated transfer sequence space, see ``enclave.sealing.transfer_seq``),
+    frees its own device pages, and the manifest travels to the decode
+    engine.
+
+    On the prefill side every entry is ``("sealed", (row, key))`` -- ``row``
+    indexes the payload, ``key`` is the page's content key (or None for a
+    page past the written tokens). At ingestion the decode engine resolves
+    each keyed row against *its own* prefix index: hits become ``("shared",
+    (key, page))`` (the lookup pinned the page -- one manifest reference,
+    exactly like swap), misses stay sealed and are scattered from the
+    payload at admission. Because the payload always retains every row,
+    demoting a shared entry back to sealed (``demote_transfer``, the
+    deadlock-breaker's pin-release path) is lossless.
+
+    ``digest`` is a host-side commitment to the sealed payload, verified by
+    the decode engine before any row is unsealed: a handoff crosses trust
+    domains, so in-transit tampering is exactly the threat the tag is
+    for."""
+
 
 class PagePool:
     """Host-side ref-counted allocator over the shared KV page pools.
@@ -298,6 +359,12 @@ class PagePool:
         self.swap_manifest: Dict[int, SwapManifest] = {}
         self.swap_outs = 0
         self.swap_ins = 0
+        # disaggregated handoff ledger: rid -> in-flight transfer manifest
+        # (decode side only -- the prefill engine hands the manifest straight
+        # to the orchestrator and never registers it in its own pool)
+        self.transfer_manifest: Dict[int, TransferManifest] = {}
+        self.transfers_in = 0
+        self.transfer_demotions = 0
 
     @property
     def free_pages(self) -> int:
@@ -457,22 +524,96 @@ class PagePool:
                 self.decref(val[1])
         return man
 
+    # -- disaggregated transfer (cross-engine handoff) ----------------------
+    def has_transfer(self, rid: int) -> bool:
+        return rid in self.transfer_manifest
+
+    @property
+    def pending_transfers(self) -> int:
+        return len(self.transfer_manifest)
+
+    def register_transfer(self, rid: int, entries: Sequence[Tuple[str, Any]],
+                          payload: Any, n_tokens: int, counter: int,
+                          digest: Any = None) -> TransferManifest:
+        """Park an incoming handoff manifest until the scheduler admits its
+        request. Shared entries were resolved against this pool's prefix
+        index by the caller -- ``lookup_prefix`` already took the manifest's
+        pin reference, so this only records and validates (unlike
+        ``swap_out``, which increfs itself: resolution and pinning are one
+        lookup here)."""
+        assert rid not in self.transfer_manifest, rid
+        man = TransferManifest(rid, n_tokens, list(entries), payload, counter,
+                               digest)
+        for tag, val in man.entries:
+            if tag == "shared":
+                key, page = val
+                assert self._page_key.get(page) == key, \
+                    f"transfer rid {rid}: shared page {page} not frozen " \
+                    f"under its key"
+                assert self.refcount[page] >= 2, (page, self.refcount[page])
+        self.transfer_manifest[rid] = man
+        return man
+
+    def transfer_in(self, rid: int) -> TransferManifest:
+        """Pop the manifest for admission. Shared entries' pins TRANSFER to
+        the caller's block table (the no-movement discipline of
+        ``swap_in``)."""
+        man = self.transfer_manifest.pop(rid)
+        for tag, val in man.entries:
+            if tag == "shared":
+                key, page = val
+                assert self._page_key.get(page) == key, (key, page)
+                assert self.refcount[page] >= 2, (page, self.refcount[page])
+        self.transfers_in += 1
+        return man
+
+    def drop_transfer(self, rid: int) -> TransferManifest:
+        """Abandon an in-flight handoff (its payload failed verification, or
+        the request is gone): unpin its shared pages, drop the sealed
+        payload."""
+        man = self.transfer_manifest.pop(rid)
+        for tag, val in man.entries:
+            if tag == "shared":
+                self.decref(val[1])
+        return man
+
+    def demote_transfer(self, rid: int) -> int:
+        """Release a parked manifest's prefix-index pins without losing the
+        handoff (deadlock breaker): the payload retains every row, so shared
+        entries flip back to sealed and admission scatters them from the
+        payload instead of adopting index pages. Returns pages released."""
+        man = self.transfer_manifest[rid]
+        freed = 0
+        for i, (tag, val) in enumerate(man.entries):
+            if tag == "shared":
+                key, page = val
+                man.entries[i] = ("sealed", (i, key))
+                self.decref(page)
+                freed += 1
+        if freed:
+            self.transfer_demotions += 1
+        return freed
+
     def stats(self) -> Dict[str, int]:
         return {
             "swapped_pages": self.swapped_pages,
             "swap_outs": self.swap_outs,
             "swap_ins": self.swap_ins,
+            "pending_transfers": self.pending_transfers,
+            "transfers_in": self.transfers_in,
+            "transfer_demotions": self.transfer_demotions,
         }
 
     # -- auditing -----------------------------------------------------------
     def check_invariants(self, live_tables: Dict[int, Sequence[int]]) -> None:
         """Audit the ledger against the engine's live block tables:
         refcount(p) == (# live block-table references to p) + (1 if the
-        prefix index holds p) + (# swap-manifest pins on p); free/allocated
-        partition the non-null ids; no page is both free and referenced; the
-        null page is never held; every manifest-pinned shared page is still
-        frozen in the index under its manifest key (so no device page is
-        simultaneously free and claimed by a swapped-out request)."""
+        prefix index holds p) + (# swap- or transfer-manifest pins on p);
+        free/allocated partition the non-null ids; no page is both free and
+        referenced; the null page is never held; every manifest-pinned
+        shared page is still frozen in the index under its manifest key (so
+        no device page is simultaneously free and claimed by a swapped-out
+        or handed-off request)."""
         expect = [0] * self.num_pages
         for _slot, pages in live_tables.items():
             for p in pages:
@@ -481,16 +622,18 @@ class PagePool:
         for key, p in self.prefix_index.items():
             assert self._page_key.get(p) == key, (p, key)
             expect[p] += 1
-        for rid, man in self.swap_manifest.items():
-            assert man.rid == rid, (rid, man.rid)
-            for tag, val in man.entries:
-                if tag == "shared":
-                    key, p = val
-                    assert p != 0, "manifest pins the null page"
-                    assert self._page_key.get(p) == key, \
-                        f"swapped rid {rid}: shared page {p} no longer " \
-                        f"frozen under its key"
-                    expect[p] += 1
+        for what, ledger in (("swapped", self.swap_manifest),
+                             ("transfer", self.transfer_manifest)):
+            for rid, man in ledger.items():
+                assert man.rid == rid, (rid, man.rid)
+                for tag, val in man.entries:
+                    if tag == "shared":
+                        key, p = val
+                        assert p != 0, f"{what} manifest pins the null page"
+                        assert self._page_key.get(p) == key, \
+                            f"{what} rid {rid}: shared page {p} no longer " \
+                            f"frozen under its key"
+                        expect[p] += 1
         free = set(self._free)
         assert len(free) == len(self._free), "free list holds duplicates"
         for p in range(1, self.num_pages):

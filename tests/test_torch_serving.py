@@ -154,11 +154,14 @@ def test_tampered_swap_payload_falls_back_to_recompute(port):
 
 def test_later_slice_options_raise_by_name(port):
     tapi, tparams = port
-    for kw in (dict(kv_layout="timeline"), dict(disagg_role="decode"),
-               dict(faults=object()),
+    for kw in (dict(kv_layout="timeline"), dict(faults=object()),
                dict(batched_prefill=False), dict(temperature=0.7)):
         with pytest.raises(NotImplementedError):
             _torch_engine(tapi, tparams, **kw)
+    # disaggregated prefill/decode is ported: both roles construct
+    for role in ("prefill", "decode"):
+        assert _torch_engine(tapi, tparams, disagg_role=role).stats()[
+            "disagg_role"] == role
     # warmup is ported for both backends (the seals read their key from
     # device memory), so the pipelined backend warms up by name too
     eng = ServingEngine(tapi, EngineConfig(**BASE, warmup=True), tparams,
