@@ -93,7 +93,28 @@ Phases (each prints its own lines; any failure exits non-zero):
      warmup on either role. Prints handoffs, back-pressure events,
      COW-adopted rows, host ms per export and per transfer-in, decode ms
      per step, admission p50/p99 and memory reserved, beside phases 5 and
-     8, with the card's name and power limit.
+     8, with the card's name and power limit;
+ 10. the chaos fault plane and the recovery ladder, on full-width
+     llama3.2-1b in f32 (phase 5's params upcast, exact; TF32 off), each
+     chaotic run against a fault-free run of the same stream and flags:
+     (a) phase 5's stream on the local backend warmed as CUDA graphs under
+     ``FaultConfig.chaos(seed, corrupt_swap=0.5, pool_storm=0.2,
+     device_death=0.3)``; (b) phase 9's pair warmed as CUDA graphs under
+     ``--chaos``'s mix (tampered swaps and transfers, handoff drops and
+     delays, stalls, storms); (c) phase 6's stream pipelined, sealed
+     boundaries, eager, ``allow_swap`` off, one certain device death. Each
+     part: streams equal the fault-free run's, every request done and none
+     failed, every injected fault accounted to a recovery rung or a
+     pending marker (both roles in (b)), every armed site fired, every
+     adopted swap-in and transfer-in restores the gathered plaintext bit
+     for bit, no block table holds a page scattered from a rejected
+     payload, the cipher ran on every swap, export and scatter (rejected
+     scatters included) and flash and paged attention once a layer per
+     prefill call and decode step; (a) and (b) capture nothing after
+     warmup; (c) re-plans once around the corpse and keeps blocks (1, 15).
+     Prints injected faults and rungs, launches, decode ms per step and
+     admission p50/p99 beside the fault-free run's, host ms from a device
+     death to each spilled request's next token and per tamper fallback.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
@@ -490,6 +511,8 @@ FLASH_CASES = ([(B, S, S, H, H, D, int(c), w, 0) for B, H, S, D, w, c in (
        (1, 100, 100, 8, 2, 128, 1, 0, 0), (2, 96, 96, 16, 4, 64, 1, 0, 0),
        (1, 8, 45, 4, 2, 64, 1, 0, 37)]
     + list(FLASH_PATH.values())
+    # phase 10's recompute of a resumed prompt: the request_capacity bucket
+    + [(1, 160, 160, 32, 8, 64, 1, 0, 0)]
     # short chunks late in a long prompt, one windowed: few query tiles
     + [(1, 64, 512, 32, 8, 64, 1, 0, 448), (1, 48, 400, 8, 2, 64, 1, 100, 352),
        (1, 40, 300, 4, 2, 128, 1, 64, 260)])
@@ -859,6 +882,36 @@ class TimedPrefill:
         return call
 
 
+class GcPauses:
+    """Around a timed run: everything allocated before it is collected and
+    then frozen out of the collector's scans (``gc.freeze``), so a
+    collection during the run walks only the run's own objects; each
+    collection's host pause is recorded (``gc.callbacks``). An eager stage
+    probe times the host's launch pace, and a long pause inside the
+    one-layer stage's probe would read as a straggler."""
+
+    def __enter__(self):
+        gc.collect()
+        gc.freeze()
+        self.ms, self._t = [], 0.0
+        gc.callbacks.append(self._note)
+        return self
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        else:
+            self.ms.append((time.perf_counter() - self._t) * 1e3)
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._note)
+        gc.unfreeze()
+
+    def describe(self) -> str:
+        return (f"{len(self.ms)} collections, longest "
+                f"{max(self.ms, default=0.0):.2f} ms")
+
+
 # the counters two runs of one stream must agree on, eager or in graphs
 SCHEDULE = ("steps", "swap_outs", "swap_ins", "preemptions", "cow_hits",
             "forks", "prefill_calls", "chunked_admissions", "prefill_chunks",
@@ -927,21 +980,25 @@ def serve_full_width(torch, ops, api, params, argv, phase):
         return logits
 
     be.gather_pages, be.scatter_pages, be.step = gather, scatter, step
+    samples = []                        # (engine step, probe ms per stage)
     if backend == "pipelined":
         orig_times = be.stage_times
 
         def stage_times():
             # a telemetry probe runs every stage's layers once
             probe_layers[0] += api.cfg.num_layers
-            return orig_times()
+            times = orig_times()
+            samples.append((eng.steps, [round(t * 1e3, 3) for t in times]))
+            return times
 
         be.stage_times = stage_times
     prompts = serve.gen_prompts(args, api.cfg.vocab_size)
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    reqs = serve.serve_stream(eng, args, prompts)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with GcPauses() as pauses:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = serve.serve_stream(eng, args, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     st = eng.stats()
     n_layers = api.cfg.num_layers
@@ -969,7 +1026,8 @@ def serve_full_width(torch, ops, api, params, argv, phase):
         assert st["stage_blocks"] == eng.spec.stage_sizes() == planned, \
             (st["stage_blocks"], eng.spec.stage_sizes(), st["replans"])
         assert st["replans"] == 0 and st["swaps"] == 0, \
-            (st["replans"], st["swaps"])
+            (st["replans"], st["swaps"], pauses.describe(),
+             [e.step for e in eng.events if e.kind == "replan"], samples)
         assert launches["seal"] == launches["unseal"] \
             == be.steps * nm * (S - 1), (launches, be.steps)
         assert launches["paged_attention"] == \
@@ -990,7 +1048,8 @@ def serve_full_width(torch, ops, api, params, argv, phase):
         f"requests, {st['tokens_out']} tokens, {be.steps} decode steps of "
         f"{st['steps']}, {st['tok_per_s']:.1f} tok/s decode, {step_ms:.2f} "
         f"ms/decode step (host clock, {args.slots} slots), wall {wall:.2f} "
-        f"s incl. admission prefill")
+        f"s incl. admission prefill; garbage collector "
+        f"{pauses.describe()}")
     probe = "" if backend == "local" else \
         " stage probe EMA " + ", ".join(
             f"{t * 1e3:.3f}" for t in eng.telemetry._stage_ema.values()) + \
@@ -1057,28 +1116,84 @@ def serve_in_graphs(torch, ops, api, params, argv, phase, eager):
     return res
 
 
-class DisaggProbe:
+class RowProbe:
+    """Clones, on the card, the plaintext rows each ``gather_pages`` reads
+    and each ``scatter_pages`` writes, keyed by the cipher counter, and
+    checks decode logits finite; ``compare`` holds every restore to the
+    rows its payload was gathered from, bit for bit, after the run."""
+
+    def __init__(self, torch, device):
+        self.torch = torch
+        self.gathered, self.restored = {}, []
+        self.bad = torch.zeros((), dtype=torch.int64, device=device)
+
+    def _gather(self, be, fn):
+        torch = self.torch
+
+        def gather(pages, key, ctr):
+            pg = torch.from_numpy(pages.astype("int64")).to(be.device)
+            self.gathered[int(ctr)] = [pool[:, pg].clone()
+                                       for pool in be.cache["blocks"]]
+            return fn(pages, key, ctr)
+        return gather
+
+    def _scatter(self, be, fn):
+        torch = self.torch
+
+        def scatter(ck, cv, pages, key, ctr):
+            fn(ck, cv, pages, key, ctr)
+            # every scatter is recorded (a manifest of shared rows only
+            # scatters none, but its unseal still runs)
+            live = [i for i, p in enumerate(pages) if p < be.num_pages]
+            pg = torch.tensor([int(pages[i]) for i in live],
+                              dtype=torch.int64, device=be.device)
+            self.restored.append((int(ctr), live, [
+                pool[:, pg].clone() for pool in be.cache["blocks"]]))
+        return scatter
+
+    def _finite(self, fn):
+        def step(tokens, key):
+            logits = fn(tokens, key)
+            self.bad.add_((~self.torch.isfinite(logits)).sum())
+            return logits
+        return step
+
+    def compare(self, skip=()):
+        """``(counter, rows)`` of every restore whose counter is not in
+        ``skip``, each checked bit-exact against its gathered rows."""
+        torch, out = self.torch, []
+        for ctr, live, got in self.restored:
+            if ctr in skip:
+                continue
+            idx = torch.tensor(live, dtype=torch.int64, device=got[0].device)
+            for want, have in zip(self.gathered[ctr], got):
+                assert torch.equal(want[:, idx], have), \
+                    f"restore under counter {ctr} not bit-exact"
+            out.append((ctr, len(live)))
+        assert int(self.bad.item()) == 0, "non-finite logits"
+        return out
+
+
+class DisaggProbe(RowProbe):
     """Instruments a disaggregated pair (phase 9) from outside: every
     export and transfer-in is timed by the host clock between two device
-    synchronises, the plaintext rows each ``gather_pages`` reads (the
-    prefill role's exports, either role's swap-outs) and each
-    ``scatter_pages`` writes (transfer-ins, swap-ins) are cloned on the
-    card as they happen and compared after the run, and every decode
-    step's logits are checked finite. Until ``close()``, each SHA-256 of a
-    host payload (``sealing.payload_digest``: one per export, transfer-in,
-    swap-out and swap-in) is timed by the host clock."""
+    synchronises, the rows of every gather (the prefill role's exports,
+    either role's swap-outs) and scatter (transfer-ins, swap-ins) are
+    cloned and compared after the run, and every decode step's logits are
+    checked finite. Until ``close()``, each SHA-256 of a host payload
+    (``sealing.payload_digest``: one per export, transfer-in, swap-out and
+    swap-in) is timed by the host clock."""
 
     def __init__(self, torch, orch, sealing):
-        self.torch, self.sealing = torch, sealing
+        pe, de = orch.eng_prefill, orch.decode
+        super().__init__(torch, de.device)
+        self.sealing = sealing
         self.export_ms, self.transfer_in_ms, self.digest_ms = [], [], []
         self._digest = sealing.payload_digest
         sealing.payload_digest = self._timed(self._digest, self.digest_ms,
                                              sync=False)
-        self.gathered, self.restored = {}, []
         self.sealed_rows = 0            # manifest rows that transfer-ins
         #                                 must scatter (not COW-adopted)
-        pe, de = orch.eng_prefill, orch.decode
-        self.bad = torch.zeros((), dtype=torch.int64, device=de.device)
         for be in (pe.backend, de.backend):
             be.gather_pages = self._gather(be, be.gather_pages)
             be.scatter_pages = self._scatter(be, be.scatter_pages)
@@ -1091,14 +1206,7 @@ class DisaggProbe:
             return transfer_in(slot, req, t0)
 
         de._transfer_in = counted_transfer_in
-        step = de.backend.step
-
-        def finite_step(tokens, key):
-            logits = step(tokens, key)
-            self.bad.add_((~torch.isfinite(logits)).sum())
-            return logits
-
-        de.backend.step = finite_step
+        de.backend.step = self._finite(de.backend.step)
 
     def _timed(self, fn, into, sync=True):
         torch = self.torch
@@ -1117,42 +1225,13 @@ class DisaggProbe:
     def close(self) -> None:
         self.sealing.payload_digest = self._digest
 
-    def _gather(self, be, fn):
-        torch = self.torch
-
-        def gather(pages, key, ctr):
-            pg = torch.from_numpy(pages.astype("int64")).to(be.device)
-            self.gathered[int(ctr)] = [pool[:, pg].clone()
-                                       for pool in be.cache["blocks"]]
-            return fn(pages, key, ctr)
-        return gather
-
-    def _scatter(self, be, fn):
-        torch = self.torch
-
-        def scatter(ck, cv, pages, key, ctr):
-            fn(ck, cv, pages, key, ctr)
-            live = [i for i, p in enumerate(pages) if p < be.num_pages]
-            if live:
-                pg = torch.tensor([int(pages[i]) for i in live],
-                                  device=be.device)
-                self.restored.append((int(ctr), live, [
-                    pool[:, pg].clone() for pool in be.cache["blocks"]]))
-        return scatter
-
     def check(self) -> dict:
         """Every restored row equals the row its manifest was gathered
         from, bit for bit. Returns restored rows by kind."""
-        torch, sealing = self.torch, self.sealing
         rows = {"transfer": 0, "swap": 0}
-        for ctr, live, got in self.restored:
-            idx = torch.tensor(live, device=got[0].device)
-            for want, have in zip(self.gathered[ctr], got):
-                assert torch.equal(want[:, idx], have), \
-                    f"restore under counter {ctr} not bit-exact"
-            rows["transfer" if ctr >= sealing.TRANSFER_SEQ_BASE
-                 else "swap"] += len(live)
-        assert int(self.bad.item()) == 0, "non-finite logits"
+        for ctr, n in self.compare():
+            rows["transfer" if ctr >= self.sealing.TRANSFER_SEQ_BASE
+                 else "swap"] += n
         return rows
 
 
@@ -1183,12 +1262,13 @@ def serve_disagg(torch, ops, api, params, argv, phase5, phase8, smi):
         pe, de = orch.eng_prefill, orch.decode
         assert pe.params is de.params is params
         probe = DisaggProbe(torch, orch, sealing)
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        try:
-            reqs = serve.serve_stream_orch(orch, args, prompts)
-        finally:
-            probe.close()
+        with GcPauses():
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                reqs = serve.serve_stream_orch(orch, args, prompts)
+            finally:
+                probe.close()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
@@ -1306,6 +1386,361 @@ def serve_disagg(torch, ops, api, params, argv, phase5, phase8, smi):
     return out
 
 
+# phase 10's fault seeds, chosen so that every site a part arms fires at
+# least once in this stream (a CPU rehearsal of the same schedules at
+# reduced width and full vocabulary, then the card): 10a fires a death,
+# stalls, corrupt and truncated swaps and storms; 10b stalls, both tampers
+# on both paths, handoff drops and delays and a storm; 10c its one death
+CHAOS_LOCAL_SEED = 12
+CHAOS_DISAGG_SEED = 9
+CHAOS_PIPE_SEED = 0
+
+
+class ChaosProbe(RowProbe):
+    """Instruments the engines of one phase-10 run from outside: as
+    ``DisaggProbe``, every gather's and scatter's rows by counter and
+    finite logits. Besides: the counter of every payload that fails a
+    check (``_integrity_reject``), whose freshly scattered pages must then
+    be in no host or device block table and back on the free list; the
+    host ms (between device synchronises) of each admission that fell back
+    to a re-prefill; and the host ms from each device death to the next
+    token of every request it spilled."""
+
+    def __init__(self, torch, engines):
+        super().__init__(torch, engines[0].device)
+        self.rejected = set()
+        self.fallback_ms, self.death_ms = [], []
+        self._victims = []              # (t0, request, tokens at the death)
+        for eng in engines:
+            be = eng.backend
+            be.gather_pages = self._gather(be, be.gather_pages)
+            be.scatter_pages = self._scatter(be, be.scatter_pages)
+            be.step = self._finite(be.step)
+            eng._integrity_reject = self._reject(eng, eng._integrity_reject)
+            eng._prefill_slot = self._admit(eng, eng._prefill_slot)
+            eng._recover_device_loss = self._death(eng,
+                                                   eng._recover_device_loss)
+            eng.step = self._step(eng.step)
+
+    def _reject(self, eng, fn):
+        torch = self.torch
+
+        def reject(req, path, fresh, e):
+            ledger = eng.pool.swap_manifest if path == "swap" \
+                else eng.pool.transfer_manifest
+            self.rejected.add(int(ledger[req.rid].counter))
+            held = {p for pages in eng.slot_pages.values() for p in pages}
+            assert not held & set(fresh), (path, req.rid, fresh)
+            if fresh:
+                bt = eng.backend.cache["block_tables"]
+                assert not torch.isin(bt, torch.tensor(
+                    fresh, dtype=bt.dtype, device=bt.device)).any(), \
+                    f"a device block table holds a rejected page {fresh}"
+            out = fn(req, path, fresh, e)
+            for pg in fresh:
+                assert eng.pool.refcount[pg] == 0 and \
+                    pg not in eng.pool._page_key, (pg, path)
+            return out
+        return reject
+
+    def _admit(self, eng, fn):
+        torch = self.torch
+
+        def fallbacks():
+            return (eng.recovery["unseal_fallback_swap"]
+                    + eng.recovery["unseal_fallback_transfer"])
+
+        def admit(slot, req):
+            n = fallbacks()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(slot, req)
+            if fallbacks() > n:
+                torch.cuda.synchronize()
+                self.fallback_ms.append((time.perf_counter() - t) * 1e3)
+        return admit
+
+    def _death(self, eng, fn):
+        def death(victim):
+            t0 = time.perf_counter()
+            self._victims += [(t0, req, len(req.generated))
+                              for _, req in eng.scheduler.active()]
+            return fn(victim)
+        return death
+
+    def _step(self, fn):
+        def step():
+            out = fn()
+            now = time.perf_counter()
+            still = []
+            for t0, req, n in self._victims:
+                if len(req.generated) > n:
+                    self.death_ms.append((now - t0) * 1e3)
+                else:
+                    still.append((t0, req, n))
+            self._victims = still
+            return out
+        return step
+
+    def check(self) -> dict:
+        """Every adopted restore equals its gathered rows bit for bit.
+        Returns restored rows of adopted payloads and the scatters of
+        rejected ones."""
+        adopted = self.compare(skip=self.rejected)
+        assert not self._victims, "a spilled request never resumed"
+        return dict(rows=sum(n for _, n in adopted),
+                    rejected_scatters=len(self.restored) - len(adopted))
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else float("nan")
+
+
+def _chaos_run(torch, ops, build, drive, pipelined_layers=0):
+    """One phase-10 run: ``build()`` gives (what to drive, its engines),
+    decode engine first; launch counts are zeroed just before ``drive``
+    and read just after."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    obj, engines = build()
+    probe = ChaosProbe(torch, engines)
+    probes = [0]
+    if pipelined_layers:
+        be = engines[0].backend
+        orig = be.stage_times
+
+        def stage_times():
+            probes[0] += pipelined_layers   # every stage's layers once
+            return orig()
+
+        be.stage_times = stage_times
+    with GcPauses() as pauses:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = drive(obj)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    return dict(reqs=reqs, streams=[list(r.generated) for r in reqs],
+                gc=pauses.describe(), launches=launches, served=obj,
+                engines=engines,
+                stats=[e.stats() for e in engines], probe=probe,
+                restore=probe.check(), wall=wall, probe_layers=probes[0])
+
+
+def _check_chaos(run, n_layers, max_new, n_requests, warm, armed=None,
+                 pipelined=None):
+    """The assertions every phase-10 run (chaotic or fault-free) meets."""
+    from repro_torch.launch import serve
+    stats, launches = run["stats"], run["launches"]
+    assert len(run["reqs"]) == n_requests
+    assert all(r.status == "done" and len(r.generated) == max_new
+               for r in run["reqs"]), "a request did not complete"
+
+    def total(key):
+        return sum(st.get(key, 0) for st in stats)
+
+    injected = {}
+    for st in stats:
+        assert not st["failed_requests"], st["failed_requests"]
+        assert not st["stalled"], st["stall_reason"]
+        if armed is not None:
+            serve.assert_recovery_accounted(st)
+            for k, v in st["faults"].items():
+                injected[k] = injected.get(k, 0) + v
+        if warm:
+            assert st["post_warmup_compiles"] == 0, st["compile_stalls"]
+            assert st["compile_stalls"] == [], st["compile_stalls"]
+            assert st["graphs"] > 0, st
+    for site in armed or ():
+        assert injected[site] >= 1, f"site {site} never fired: {injected}"
+    dec = run["engines"][0].backend
+    assert launches["flash_attention"] == n_layers * total("prefill_calls"), \
+        launches
+    assert launches["seal_bits"] == 2 * (total("swap_outs")
+                                         + total("transfers_out")), launches
+    corrupt = injected.get("corrupt_swap", 0) \
+        + injected.get("corrupt_transfer", 0)
+    assert run["restore"]["rejected_scatters"] == corrupt, \
+        (run["restore"], injected)
+    assert launches["unseal_bits"] == 2 * (total("swap_ins")
+                                           + total("transfers_in")
+                                           + corrupt), launches
+    if pipelined is None:
+        assert launches["paged_attention"] == n_layers * dec.steps, launches
+        assert launches["seal"] == launches["unseal"] == 0, launches
+    else:
+        nm, S = pipelined
+        assert launches["seal"] == launches["unseal"] \
+            == dec.steps * nm * (S - 1), (launches, dec.steps)
+        assert launches["paged_attention"] == \
+            dec.steps * nm * n_layers + run["probe_layers"], launches
+    for eng in run["engines"][1:]:
+        assert eng.backend.steps == 0, "the prefill role decoded"
+    return injected
+
+
+def serve_chaos(torch, ops, api, params, smi):
+    """Phase 10: the fault plane and the recovery ladder at full width in
+    f32, local (a), disaggregated (b) and pipelined (c), each chaotic run
+    against a fault-free run of the same stream and flags. Returns the six
+    runs (launch counts included)."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import FaultConfig, ServingEngine, build_disagg
+    api = build_model(api.cfg, device=api.device, dtype=torch.float32)
+    params = _to_f32(params)
+    n_layers = api.cfg.num_layers
+    out = []
+
+    def engine(args, faults, **kw):
+        cfg = dataclasses.replace(serve.make_config(args), faults=faults,
+                                  **kw)
+        return ServingEngine(api, cfg, params, device=api.device,
+                             rm=serve.TOPOLOGIES[args.topology](args.stages),
+                             backend=serve.backend_of(args))
+
+    def report(part, what, chaos, calm, injected):
+        dst, cst = chaos["stats"][0], calm["stats"][0]
+        rec = {}
+        for st in chaos["stats"]:
+            for k, v in st["recovery"].items():
+                rec[k] = rec.get(k, 0) + v
+        steps = [r["engines"][0].backend.steps for r in (chaos, calm)]
+        ms = [r["stats"][0]["decode_wall_s"] / max(n, 1) * 1e3
+              for r, n in zip((chaos, calm), steps)]
+        pr = chaos["probe"]
+        log(f"serve phase 10{part} ({what}): {len(chaos['reqs'])} requests,"
+            f" streams equal the fault-free run's, none failed, every fault "
+            f"accounted; injected "
+            f"{ {k: v for k, v in injected.items() if v} }; rungs "
+            f"{ {k: v for k, v in rec.items() if v} }; pending "
+            f"{dst['faults_pending']}; failure_replans "
+            f"{dst['failure_replans']} excluded {dst['excluded_devices']} "
+            f"stage_blocks {dst['stage_blocks']}")
+        log(f"serve phase 10{part}: launches {chaos['launches']} (fault-free "
+            f"{calm['launches']}); restored bit-exact rows "
+            f"{chaos['restore']['rows']}, rejected scatters "
+            f"{chaos['restore']['rejected_scatters']}")
+        log(f"serve phase 10{part}: decode {ms[0]:.2f} ms/step over "
+            f"{steps[0]} steps (fault-free {ms[1]:.2f} over {steps[1]}); "
+            f"admission p50 {dst.get('admission_p50_ms', 0):.2f} p99 "
+            f"{dst.get('admission_p99_ms', 0):.2f} ms (fault-free "
+            f"{cst.get('admission_p50_ms', 0):.2f} / "
+            f"{cst.get('admission_p99_ms', 0):.2f}); host ms device death "
+            f"-> spilled request's next token p50 {_pct(pr.death_ms, .5):.2f}"
+            f" p99 {_pct(pr.death_ms, .99):.2f} ({len(pr.death_ms)} "
+            f"requests); per tamper fallback p50 "
+            f"{_pct(pr.fallback_ms, .5):.2f} p99 "
+            f"{_pct(pr.fallback_ms, .99):.2f} ({len(pr.fallback_ms)}); wall "
+            f"{chaos['wall']:.2f} s (fault-free {calm['wall']:.2f}); garbage "
+            f"collector {chaos['gc']} [{smi}]")
+
+    # 10a: phase 5's stream, local, CUDA graphs
+    args = serve.build_parser().parse_args(
+        FULL_WIDTH + ["--backend", "local", "--warmup"])
+    prompts = serve.gen_prompts(args, api.cfg.vocab_size)
+    runs = {}
+    for name, faults in (("calm", None), ("chaos", FaultConfig.chaos(
+            CHAOS_LOCAL_SEED, corrupt_swap=0.5, pool_storm=0.2,
+            device_death=0.3))):
+        def build(faults=faults):
+            eng = engine(args, faults)
+            return eng, [eng]
+        runs[name] = _chaos_run(torch, ops, build, lambda eng: serve
+                                .serve_stream(eng, args, prompts))
+    armed = ("device_death", "stage_stall", "corrupt_swap", "truncate_swap",
+             "pool_storm")
+    _check_chaos(runs["calm"], n_layers, args.max_new, args.requests, True)
+    inj = _check_chaos(runs["chaos"], n_layers, args.max_new, args.requests,
+                       True, armed)
+    assert runs["chaos"]["streams"] == runs["calm"]["streams"], \
+        "phase 10a: chaotic streams differ from the fault-free run's"
+    dst = runs["chaos"]["stats"][0]
+    assert dst["recovery"]["device_loss_spills"] > 0, dst["recovery"]
+    assert runs["chaos"]["probe"].death_ms and \
+        runs["chaos"]["probe"].fallback_ms
+    report("a", "local, CUDA graphs", runs["chaos"], runs["calm"], inj)
+    out += [runs["calm"], runs["chaos"]]
+
+    # 10b: phase 9's pair under --chaos's mix, CUDA graphs
+    args = serve.build_parser().parse_args(
+        FULL_WIDTH + ["--backend", "local", "--warmup", "--disagg"])
+    runs = {}
+    for name, faults in (("calm", None),
+                         ("chaos", FaultConfig.chaos(CHAOS_DISAGG_SEED))):
+        def build(faults=faults):
+            cfg = dataclasses.replace(serve.make_config(args), faults=faults)
+            orch = build_disagg(
+                api, params, config=cfg, backend=serve.backend_of(args),
+                device=api.device,
+                rm=serve.TOPOLOGIES[args.topology](args.stages))
+            return orch, [orch.decode, orch.eng_prefill]
+        runs[name] = _chaos_run(torch, ops, build, lambda orch: serve
+                                .serve_stream_orch(orch, args, prompts))
+    armed = ("stage_stall", "corrupt_swap", "truncate_swap",
+             "corrupt_transfer", "truncate_transfer", "drop_handoff",
+             "delay_handoff", "pool_storm")
+    _check_chaos(runs["calm"], n_layers, args.max_new, args.requests, True)
+    inj = _check_chaos(runs["chaos"], n_layers, args.max_new, args.requests,
+                       True, armed)
+    assert runs["chaos"]["streams"] == runs["calm"]["streams"], \
+        "phase 10b: chaotic streams differ from the fault-free run's"
+    for r in runs.values():
+        orch = r["served"]
+        assert not orch._in_flight and orch.decode.pending_external == 0
+        assert orch.decode.pool.pending_transfers == 0
+    assert runs["chaos"]["probe"].fallback_ms
+    report("b", "disaggregated pair, CUDA graphs", runs["chaos"],
+           runs["calm"], inj)
+    out += [runs["calm"], runs["chaos"]]
+
+    # 10c: phase 6's stream pipelined, sealed boundaries, eager, no live
+    # swap, one certain device death
+    args = serve.build_parser().parse_args(
+        FULL_WIDTH + ["--backend", "pipelined"])
+    runs = {}
+    for name, faults in (("calm", None), ("chaos", FaultConfig(
+            CHAOS_PIPE_SEED, device_death=1.0, max_device_deaths=1))):
+        def build(faults=faults):
+            eng = engine(args, faults, allow_swap=False)
+            assert eng.stage_blocks == (1, 15), eng.stage_blocks
+            return eng, [eng]
+        runs[name] = _chaos_run(torch, ops, build, lambda eng: serve
+                                .serve_stream(eng, args, prompts),
+                                pipelined_layers=n_layers)
+    pipe = (args.microbatches, args.stages)
+    _check_chaos(runs["calm"], n_layers, args.max_new, args.requests, False,
+                 pipelined=pipe)
+    inj = _check_chaos(runs["chaos"], n_layers, args.max_new, args.requests,
+                       False, ("device_death",), pipelined=pipe)
+    assert runs["chaos"]["streams"] == runs["calm"]["streams"], \
+        "phase 10c: chaotic streams differ from the fault-free run's"
+    dst = runs["chaos"]["stats"][0]
+    assert dst["failure_replans"] == 1, dst["failure_replans"]
+    assert len(dst["excluded_devices"]) == 1, dst["excluded_devices"]
+    assert dst["stage_blocks"] == (1, 15) and dst["swaps"] == 0, dst
+    assert dst["recovery"]["device_loss_replans"] == 1, dst["recovery"]
+    assert dst["recovery"]["device_loss_spills"] > 0, dst["recovery"]
+    report("c", "pipelined (1, 15), sealed, eager; a real H100 does not "
+           "die: the plane marks a planner domain unhealthy and both "
+           "domains are this one card", runs["chaos"], runs["calm"], inj)
+    out += [runs["calm"], runs["chaos"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _to_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _to_f32(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1393,6 +1828,10 @@ def main() -> int:
     # in CUDA graphs
     runs += serve_disagg(torch, ops, api, params, local + ["--disagg"],
                          runs[0], runs[3], smi[0] if smi else "unavailable")
+    # phase 10: the fault plane and the recovery ladder, f32, local,
+    # disaggregated and pipelined
+    runs += serve_chaos(torch, ops, api, params,
+                        smi[0] if smi else "unavailable")
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 

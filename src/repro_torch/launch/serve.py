@@ -34,6 +34,14 @@ sealed with the page cipher (``serving/disagg.py``); with
 ``--verify-disagg`` the stream is served again monolithically and through
 an orchestrator with no prefill peer, and the three must be equal (prints
 ``DISAGG-EXACT OK``); ``--assert-no-recompile`` then checks both roles.
+``--chaos`` arms the seeded fault plane (``FaultConfig.chaos(--seed)``:
+tampered swap and transfer payloads, stage stalls, handoff drops and
+delays, pool storms; ``--chaos-death P`` adds a device death per telemetry
+tick with probability P, at most one), monolithic or ``--disagg``;
+``--verify-recovery`` serves the stream again fault-free and checks that
+the streams are equal, that no request failed and that every injected
+fault is accounted to a recovery rung or a pending marker, on both roles
+under ``--disagg`` (prints ``RECOVERY-EXACT OK``).
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card it
 raises.
 
@@ -46,10 +54,19 @@ raises.
       --device cpu --stages 2 --microbatches 2 --slots 4 --requests 6 \\
       --max-new 8 --no-seal --f32 --inject-straggler 1:10 --verify-swap \\
       --warmup --assert-no-recompile
-  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \
-      --device cpu --backend local --slots 4 --microbatches 1 \
-      --requests 6 --prompt-len 8 --max-new 8 --page-size 4 --no-seal \
+  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
+      --device cpu --backend local --slots 4 --microbatches 1 \\
+      --requests 6 --prompt-len 8 --max-new 8 --page-size 4 --no-seal \\
       --f32 --warmup --disagg --verify-disagg --assert-no-recompile
+  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
+      --device cpu --backend local --slots 4 --microbatches 1 \\
+      --requests 10 --prompt-len 8 --max-new 12 --page-size 4 \\
+      --num-pages 12 --no-seal --f32 --warmup --seed 3 --chaos \\
+      --chaos-death 0.4 --verify-recovery --assert-no-recompile
+  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
+      --device cpu --backend local --slots 4 --microbatches 1 \\
+      --requests 8 --prompt-len 8 --max-new 10 --page-size 4 --no-seal \\
+      --f32 --seed 7 --disagg --chaos --verify-recovery
 """
 from __future__ import annotations
 
@@ -66,7 +83,7 @@ from repro_torch.device import resolve_device
 from repro_torch.enclave.domain import sandwich_manager, two_enclave_manager
 from repro_torch.models.api import build_model
 from repro_torch.serving import (DisaggOrchestrator, EngineConfig,
-                                 ServingEngine, build_disagg,
+                                 FaultConfig, ServingEngine, build_disagg,
                                  plan_disagg_roles)
 
 TOPOLOGIES = {
@@ -171,6 +188,20 @@ def build_parser() -> argparse.ArgumentParser:
                          "disaggregated, monolithic and through an "
                          "orchestrator with no prefill peer, and assert "
                          "all three token streams are identical")
+    ap.add_argument("--chaos", action="store_true",
+                    help="arm the seeded chaos fault plane "
+                         "(FaultConfig.chaos(seed=--seed)): sealed-payload "
+                         "corruption and truncation, stage stalls, handoff "
+                         "drops and delays (--disagg), pool storms")
+    ap.add_argument("--chaos-death", type=float, default=0.0, metavar="P",
+                    help="with --chaos: per-telemetry-tick probability of "
+                         "killing a staged trust domain (at most one; "
+                         "recovery = spill + re-plan + swap-in)")
+    ap.add_argument("--verify-recovery", action="store_true",
+                    help="with --chaos: serve the same stream fault-free "
+                         "and assert identical token streams, no failed "
+                         "request and every injected fault accounted to a "
+                         "recovery counter (use with --f32)")
     ap.add_argument("--f32", action="store_true",
                     help="float32 weights and KV (default bfloat16)")
     ap.add_argument("--seed", type=int, default=0)
@@ -190,7 +221,30 @@ def make_config(args) -> EngineConfig:
         seal_boundary=not args.no_seal, solver=args.solver, space=args.space,
         delta=args.delta, telemetry_interval=args.telemetry_interval,
         prefill_chunk=args.prefill_chunk, prefill_pack=args.prefill_pack,
-        warmup=args.warmup)
+        warmup=args.warmup,
+        faults=(FaultConfig.chaos(seed=args.seed,
+                                  device_death=args.chaos_death)
+                if args.chaos else None))
+
+
+def assert_recovery_accounted(st) -> None:
+    """Every injected fault maps to a named recovery rung or a pending
+    marker (the reference's accounting property)."""
+    inj, rec, pend = st["faults"], st["recovery"], st["faults_pending"]
+    assert inj["corrupt_swap"] + inj["truncate_swap"] \
+        == rec["unseal_fallback_swap"], (inj, rec)
+    assert inj["corrupt_transfer"] + inj["truncate_transfer"] \
+        == rec["unseal_fallback_transfer"], (inj, rec)
+    assert inj["device_death"] \
+        == rec["device_loss_replans"] + (1 if pend["death"] else 0), (inj, rec)
+    assert inj["stage_stall"] \
+        == rec["stall_replans"] + (1 if pend["stall"] else 0), (inj, rec)
+    assert inj["pool_storm"] \
+        == rec["storm_reclaims"] + (1 if pend["storm"] else 0), (inj, rec)
+
+
+def _rungs(st) -> dict:
+    return {k: v for k, v in st["recovery"].items() if v}
 
 
 def backend_of(args) -> str:
@@ -324,6 +378,10 @@ def report(eng, api, reqs) -> None:
         print(f"packed prefill: {st['packed_admissions']} admissions in "
               f"{st['packed_prefills']} calls of up to {st['prefill_pack']} "
               f"prompts")
+    if eng.faults is not None:
+        print(f"chaos: injected={st['faults']} recovery={_rungs(st)} "
+              f"pending={st['faults_pending']} "
+              f"failed={st['failed_requests']}")
     if reqs:
         print("sample tokens:", reqs[0].generated)
 
@@ -383,6 +441,33 @@ def disagg_main(api, params, args):
         print(f"DISAGG-EXACT OK: {len(reqs)} token streams identical "
               f"across disaggregated / monolithic / fallback "
               f"({st['handoffs']} sealed handoffs)")
+    if args.chaos:
+        ds = orch.decode.stats()
+        print(f"chaos: injected={ds['faults']} recovery={_rungs(ds)} "
+              f"prefill role injected={orch.eng_prefill.faults.snapshot()} "
+              f"in_flight={st['in_flight_handoffs']}")
+    if args.verify_recovery:
+        assert args.chaos, "--verify-recovery needs --chaos"
+        ds, ps = orch.decode.stats(), orch.eng_prefill.stats()
+        total = orch.decode.faults.total_injected() + \
+            orch.eng_prefill.faults.total_injected()
+        assert total > 0, "chaos armed but no fault landed"
+        assert st["in_flight_handoffs"] == 0
+        calm = copy.copy(args)
+        calm.chaos = False
+        calm_reqs = serve_stream_orch(make_disagg(api, params, calm), calm,
+                                      prompts)
+        assert len(reqs) == len(calm_reqs) == len(prompts)
+        for a, b in zip(reqs, calm_reqs):
+            assert a.generated == b.generated, \
+                f"req {a.rid} diverged under chaos:\n" \
+                f"  chaotic    {a.generated}\n  fault-free {b.generated}"
+        for role in (ds, ps):
+            assert not role["failed_requests"], role["failed_requests"]
+            assert_recovery_accounted(role)
+        print(f"RECOVERY-EXACT OK: {len(reqs)} token streams identical "
+              f"under {total} injected faults across both roles "
+              f"({_rungs(ds)})")
     return st
 
 
@@ -454,6 +539,25 @@ def main(argv=None):
         print(f"PREEMPT-EXACT OK: {len(reqs)} token streams identical "
               f"across swap resume / recompute oracle / undisturbed "
               f"({st['swap_outs']} swap-outs)")
+    if args.verify_recovery:
+        assert args.chaos, "--verify-recovery needs --chaos"
+        total = eng.faults.total_injected()
+        assert total > 0, \
+            "chaos armed but no fault landed: nothing verified (raise " \
+            "--requests, shrink --num-pages, or set --chaos-death)"
+        calm = copy.copy(args)
+        calm.chaos = False
+        _, calm_reqs = run_once(api, params, calm, inject)
+        assert len(reqs) == len(calm_reqs)
+        for a, b in zip(reqs, calm_reqs):
+            assert a.generated == b.generated, \
+                f"req {a.rid} diverged under chaos:\n" \
+                f"  chaotic    {a.generated}\n  fault-free {b.generated}"
+        assert not st["failed_requests"], st["failed_requests"]
+        assert_recovery_accounted(st)
+        print(f"RECOVERY-EXACT OK: {len(reqs)} token streams identical "
+              f"under {total} injected faults, every fault accounted "
+              f"({_rungs(st)})")
     return st
 
 

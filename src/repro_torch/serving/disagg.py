@@ -218,19 +218,30 @@ class DisaggOrchestrator:
       decode side has admission room (its queue plus the handoffs in flight
       shorter than its slot count); otherwise the round is skipped and
       counted (``backpressure_events``), and prompts wait at prefill.
-    * **delivery** -- every handoff rides an in-flight list with a delivery
-      deadline (``DEADLINE_TICKS``). A handoff past its deadline is demoted
-      to a decode-side re-prefill (``handoff_reprefills``): the request is
-      adopted WITHOUT its manifest and rebuilds its KV teacher-forced, so
-      its stream is unchanged. With no fault plane (the port has none yet)
-      every handoff is delivered in the tick it was enqueued; the plane's
-      drop, delay and tamper arms (retries with back-off, redeliveries)
-      come with it. ``decode.pending_external`` mirrors the in-flight
-      count, so a decode stall behind a pending handoff is recoverable.
+    * **delivery ladder** -- every handoff rides an in-flight list with a
+      delivery deadline (``DEADLINE_TICKS``) and bounded exponential
+      back-off. The chaos fault plane (the decode engine's ``faults``) may
+      drop a delivery attempt (re-sent after ``2^attempt`` orchestrator
+      ticks, ``handoff_retries``), park it for a few ticks (counted as a
+      ``handoff_redeliveries`` when it lands) or corrupt or truncate the
+      sealed payload in transit (caught by the digest at ``_transfer_in``,
+      which falls back to a re-prefill). A handoff that exhausts
+      ``MAX_ATTEMPTS`` or blows its deadline is demoted to a decode-side
+      re-prefill (``handoff_reprefills``): the request is adopted WITHOUT
+      its manifest and rebuilds its KV teacher-forced, so its stream is
+      unchanged. A re-sent handoff carries its original sealed manifest
+      (nothing is sealed again), and the demoted re-prefill seals nothing.
+      Fault-free, every handoff is delivered in the tick it was enqueued.
+      ``decode.pending_external`` mirrors the in-flight count, so a decode
+      stall behind a pending handoff is recoverable.
     * **fallback** -- with no prefill peer, ``submit``/``step`` drive the
       decode engine directly: same streams, one engine, zero handoffs.
     """
 
+    # attempt k is re-sent after 2^k ticks, so a handoff is abandoned to
+    # re-prefill after about 2^MAX_ATTEMPTS ticks or at its deadline,
+    # whichever comes first
+    MAX_ATTEMPTS = 4
     DEADLINE_TICKS = 24
 
     def __init__(self, decode: ServingEngine,
@@ -261,10 +272,11 @@ class DisaggOrchestrator:
         self.backpressure_events = 0
         self.handoffs = 0
         self.prefill_completed: List[Request] = []
-        # in-flight handoffs: (req, manifest, deadline) on the orchestrator
-        # tick clock (decode.steps does not advance while decode idles)
+        # in-flight delivery ladder: [req, man, attempt, due, deadline,
+        # delayed] rows on the orchestrator tick clock (decode.steps does
+        # not advance while decode idles)
         self.clock = 0
-        self._in_flight: List[Tuple[Request, TransferManifest, int]] = []
+        self._in_flight: List[List[Any]] = []
 
     # -- submission --------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int,
@@ -308,8 +320,8 @@ class DisaggOrchestrator:
                     < self.decode.config.num_slots)
             if room:
                 handoffs, completed = self.prefill.pump()
-                self._in_flight += [(req, man,
-                                     self.clock + self.DEADLINE_TICKS)
+                self._in_flight += [[req, man, 0, self.clock,
+                                     self.clock + self.DEADLINE_TICKS, False]
                                     for req, man in handoffs]
                 self.prefill_completed.extend(completed)
             else:
@@ -319,15 +331,48 @@ class DisaggOrchestrator:
         self.decode.step()
 
     def _deliver_due(self) -> None:
-        """Deliver every in-flight handoff, in order; one past its deadline
-        is demoted to re-prefill instead."""
-        for req, man, deadline in self._in_flight:
+        """One pass over the in-flight ladder, in order: attempt every due
+        delivery. Fault-free (no plane, or none firing) every handoff
+        enqueued this tick is delivered this tick."""
+        plane = self.decode.faults
+        rec = self.decode.recovery
+        still: List[List[Any]] = []
+        for entry in self._in_flight:
+            req, man, attempt, due, deadline, delayed = entry
+            if self.clock < due:
+                still.append(entry)
+                continue
             if self.clock > deadline:
                 self._demote_to_reprefill(req, man, "deadline")
                 continue
+            fate, d = plane.handoff_fate() if plane is not None \
+                else ("deliver", 0)
+            if fate == "drop":
+                attempt += 1
+                if attempt >= self.MAX_ATTEMPTS:
+                    self._demote_to_reprefill(req, man, "retries")
+                    continue
+                rec["handoff_retries"] += 1
+                entry[2] = attempt
+                entry[3] = self.clock + (1 << attempt)  # exponential back-off
+                still.append(entry)
+                continue
+            if fate == "delay":
+                entry[3] = self.clock + d
+                entry[5] = True
+                still.append(entry)
+                continue
+            if plane is not None:
+                # in-transit tamper: the damage travels with the manifest
+                # and the digest check at _transfer_in catches it
+                tampered, mode = plane.maybe_tamper_transfer(man.payload)
+                if mode is not None:
+                    man.payload = tampered
             self.decode.ingest_transfer(req, man)
             self.handoffs += 1
-        self._in_flight = []
+            if attempt > 0 or delayed:
+                rec["handoff_redeliveries"] += 1
+        self._in_flight = still
 
     def _demote_to_reprefill(self, req: Request, man: TransferManifest,
                              why: str) -> None:
@@ -429,7 +474,8 @@ def build_disagg(api, params=None, *, config: Optional[EngineConfig] = None,
                  rm: Optional[ResourceManager] = None,
                  warmup: Optional[bool] = None) -> DisaggOrchestrator:
     """Build a prefill/decode engine pair over SHARED params and wire the
-    orchestrator. ``config`` seeds both engines; ``prefill_overrides``
+    orchestrator. ``config`` seeds both engines (each role builds its own
+    fault plane from ``config.faults``); ``prefill_overrides``
     (e.g. ``{"prefill_pack": 4, "num_slots": 2}``) reshape the prefill
     role only. ``device`` is the engines' (``cuda`` unless the caller asks
     for the CPU). With ``warmup`` each role captures its own graphs in its

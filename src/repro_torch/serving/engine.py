@@ -67,9 +67,22 @@ first token. The prefill role draws its swap sequence numbers and stage
 boundary keys from the upper half of each space, so the two roles, which
 seal under one key, never cipher under one (key, counter) pair.
 
+``faults`` arms the reference's chaos fault plane (``serving/faults.py``)
+at the reference's points of the step: a pool-exhaustion storm drawn first
+thing in every step, a tamper of a swap payload at the top of every
+swap-in, and a stage stall and a device death at every telemetry tick,
+between the heartbeat pass and the replanner's observation. Each injected
+fault lands on a named rung of the recovery ladder (``stats()["recovery"]``)
+or on a pending marker (``stats()["faults_pending"]``): a tampered payload
+fails its digest and re-prefills teacher-forced, a device death spills
+every active slot through the page cipher and re-plans around the corpse,
+a storm's pages come back on a timer or to the deadlock breaker. Nothing
+draws during warmup, and the warmup reset re-seeds the plane, so a warmed
+engine and a cold one replay one fault schedule.
+
 Not in this slice, and refused by name when a config asks for them: the
-legacy timeline layout, per-token prefill, sampling at temperature > 0 and
-the fault plane (see ROADMAP.md, "Next slices").
+legacy timeline layout, per-token prefill and sampling at temperature > 0
+(see ROADMAP.md, "Next slices").
 """
 from __future__ import annotations
 
@@ -93,6 +106,7 @@ from repro_torch.models.transformer import SEGMENT
 from repro_torch.runtime.ft import HeartbeatMonitor, OnlineReplanner
 from repro_torch.runtime.pipeline import PipelinedDecoder, pipeline_applicable
 from repro_torch.serving.aot import AotRegistry
+from repro_torch.serving.faults import FaultConfig, FaultPlane
 from repro_torch.serving.sampling import TokenSampler
 from repro_torch.serving.scheduler import (QUEUED, RUNNING, PagePool,
                                            Request, SlotScheduler,
@@ -147,16 +161,18 @@ class EngineConfig:
     # (export_transfer), "decode" = it ingests TransferManifests from a
     # prefill peer (ingest_transfer); either role needs demand paging
     disagg_role: str = ""
+    # the chaos fault plane (serving/faults.py): a FaultConfig, or None to
+    # serve fault-free. Injections surface in stats()["faults"], their
+    # recovery in stats()["recovery"]
+    faults: Optional[FaultConfig] = None
     # reference options of later slices: anything but the default raises
     kv_layout: str = "paged"
     batched_prefill: bool = True
-    faults: Any = None
 
 
 _LATER = {
     "kv_layout": ("paged", "the legacy timeline KV layout"),
     "batched_prefill": (True, "per-token prefill"),
-    "faults": (None, "the chaos fault plane"),
 }
 
 # The prefill role of a disaggregated pair seals under the decode role's key
@@ -176,6 +192,9 @@ def _refuse_later_slices(cfg: EngineConfig) -> None:
             raise NotImplementedError(
                 f"EngineConfig.{name}={val!r}: {what} is not ported yet; "
                 f"see ROADMAP.md, 'Next slices'")
+    if cfg.faults is not None and not isinstance(cfg.faults, FaultConfig):
+        raise TypeError(f"EngineConfig.faults must be None or a FaultConfig, "
+                        f"not {type(cfg.faults).__name__}")
 
 
 # ---------------------------------------------------------------------------
@@ -632,13 +651,22 @@ class ServingEngine:
         # so handoff seals never collide with swap or activation seals
         self._transfer_seq = 0
         self.transfers_out = 0
-        # the reference's recovery ladder (stats()["recovery"]); only the
-        # handoff rungs move in this slice, the rest wait for the fault
-        # plane. pending_external is set by an orchestrator holding
-        # in-flight handoffs for this engine, so a head-of-line stall
-        # while one is pending classifies as recoverable.
+        # the chaos fault plane and the recovery ladder: every injected
+        # fault lands on a named rung of self.recovery, on a pending marker
+        # (death, stall, storm) or in self.failed as an explicit
+        # per-request failure. pending_external is set by an orchestrator
+        # holding in-flight handoffs for this engine, so a head-of-line
+        # stall while one is pending classifies as recoverable.
+        self.faults = FaultPlane(cfg.faults) if cfg.faults is not None \
+            else None
         self.recovery = self._fresh_recovery()
+        self.failed: Dict[int, str] = {}
         self.pending_external = 0
+        self._storm_pages: List[int] = []
+        self._storm_left = 0
+        self._death_pending = False
+        self._stall_stage: Optional[int] = None
+        self._in_warmup = False
 
         # every managed entry point (decode step, prefill chunk, one-shot
         # and packed prefill) is registered here, so warmup() can capture
@@ -1079,6 +1107,8 @@ class ServingEngine:
             # prefix pages survive in the COW index and are adopted back)
             detail["mid_prefill"] = True
             detail["prefilled"] = cs.pos
+        if self._storm_pages:
+            self.recovery["storm_preemptions"] += 1
         self._emit("preempt", detail)
 
     def _preempt_swap(self, slot: int, req: Request) -> None:
@@ -1115,6 +1145,8 @@ class ServingEngine:
         self.backend.clear_slot(slot)
         self.scheduler.preempt(slot, swapped=True)
         self.pending[slot] = 0
+        if self._storm_pages:
+            self.recovery["storm_preemptions"] += 1
         self._emit("preempt", {
             "rid": req.rid, "slot": slot, "policy": "swap",
             "generated": len(req.generated),
@@ -1144,8 +1176,17 @@ class ServingEngine:
         prefill and no new sample: ``generated[-1]`` was never written to
         KV and is the next decode input, as in the undisturbed run.
         Returns False (caller recomputes) when the payload fails its
-        integrity tag; nothing is adopted before the digest matches."""
+        integrity tag; nothing is adopted before the digest matches. The
+        fault plane's tamper site runs first: a truncated payload fails
+        ``verify_structure`` and never reaches the scatter (a captured
+        graph's static input has the full shape)."""
         man = self.pool.swap_manifest[req.rid]
+        if self.faults is not None and not self._in_warmup:
+            tampered, mode = self.faults.maybe_tamper_swap(man.payload)
+            if mode is not None:
+                man.payload = tampered
+                self._emit("fault_tamper", {"rid": req.rid, "path": "swap",
+                                            "mode": mode})
         try:
             sealing.verify_structure(man.payload, man.digest,
                                      context=f"swap-in rid {req.rid}")
@@ -1340,10 +1381,17 @@ class ServingEngine:
         them. First demote transfer pins (lossless: the handoff payload
         keeps every row), then drop swap manifests youngest-first (the
         head's own last) until the head fits; each dropped swap reverts to
-        the recompute path."""
-        if self.scheduler.active() or self.chunking or not (
-                self.pool.swap_manifest or self.pool.transfer_manifest):
+        the recompute path. An injected storm's pages come back first: the
+        storm is transient noise, manifests are requests' KV."""
+        if self.scheduler.active() or self.chunking:
             return False                # completions can still free pages
+        if self._storm_pages:
+            self._release_storm(reason="deadlock")
+            self.recovery["storm_reclaims"] += 1
+            if self._fits(nxt):
+                return True
+        if not (self.pool.swap_manifest or self.pool.transfer_manifest):
+            return False
         for rid in sorted(self.pool.transfer_manifest):
             if self._fits(nxt):
                 break
@@ -1512,6 +1560,7 @@ class ServingEngine:
     # -- one decode step ---------------------------------------------------
     def step(self) -> List[EngineEvent]:
         self._step_events = []
+        self._fault_storm_tick()
         self._admit()
         # chunked prefill: at most one prompt chunk per engine step, ahead
         # of the decode tick, so batch-mates keep emitting tokens while a
@@ -1527,8 +1576,9 @@ class ServingEngine:
                 self.stall_reason = None
                 return self._step_events
             # head-of-line blocked with nothing running: permanent unless a
-            # manifest still pins pages the breaker can release, or an
-            # orchestrator still holds handoffs in flight for this engine
+            # manifest still pins pages the breaker can release, a storm
+            # holds pages it will hand back, or an orchestrator still holds
+            # handoffs in flight for this engine
             recoverable = self._stall_recoverable()
             self.stalled = bool(self.scheduler.queue) and not recoverable
             self.stall_reason = None if not self.scheduler.queue else \
@@ -1560,22 +1610,32 @@ class ServingEngine:
         return self._step_events
 
     def _stall_recoverable(self) -> bool:
-        return self.pending_external > 0 or bool(
+        """A head-of-line stall is recoverable while something pending can
+        still free the blocking pages or deliver the blocked request:
+        manifests the deadlock breaker can demote or drop, an injected
+        storm (its pages come back), or handoffs an orchestrator holds in
+        flight."""
+        return self.pending_external > 0 or bool(self._storm_pages) or bool(
             self.pool.swap_manifest or self.pool.transfer_manifest)
 
+    # -- chaos fault plane: injection ticks + recovery ladder --------------
     @staticmethod
     def _fresh_recovery() -> Dict[str, int]:
         """The reference's named rungs of the recovery ladder
-        (``stats()["recovery"]``), all of them: a tampered payload's
-        re-prefill (``unseal_fallback_*``) and the orchestrator's handoff
-        rungs move here; the device-loss, stall and storm rungs read 0
-        until the fault plane is ported."""
+        (``stats()["recovery"]``): every injected fault is accounted to one
+        of these or to a pending marker."""
         return {
+            # sealed-payload integrity failure -> recompute fallback
             "unseal_fallback_swap": 0,
             "unseal_fallback_transfer": 0,
+            # device loss: active slots spilled through the page cipher,
+            # then the placement re-solved around the corpse
             "device_loss_spills": 0,
             "device_loss_replans": 0,
+            # injected straggler absorbed by a telemetry-driven re-plan
             "stall_replans": 0,
+            # pool-exhaustion storm: slots preempted under storm pressure,
+            # seized pages handed back (timer or deadlock breaker)
             "storm_preemptions": 0,
             "storm_reclaims": 0,
             # bumped by DisaggOrchestrator on the decode engine: re-sends
@@ -1584,6 +1644,82 @@ class ServingEngine:
             "handoff_redeliveries": 0,
             "handoff_reprefills": 0,
         }
+
+    def _release_storm(self, reason: str) -> None:
+        if not self._storm_pages:
+            return
+        self._emit("storm_release", {"pages": len(self._storm_pages),
+                                     "reason": reason})
+        self.pool.release(self._storm_pages)
+        self._storm_pages = []
+        self._storm_left = 0
+
+    def _fault_storm_tick(self) -> None:
+        """The storm site, drawn once per step: seize a share of the free
+        list for a few steps (growth and admission then go through the
+        preemption machinery), then hand it back. The deadlock breaker may
+        reclaim it early: a storm costs latency, never a request."""
+        if self.faults is None or self._in_warmup:
+            return
+        if self._storm_pages:
+            self._storm_left -= 1
+            if self._storm_left <= 0:
+                self._release_storm(reason="timer")
+                self.recovery["storm_reclaims"] += 1
+            return
+        n = self.faults.storm_pages(self.pool.free_pages)
+        if n:
+            pages = self.pool.alloc(n)
+            assert pages is not None, "storm sized from the free list"
+            self._storm_pages = pages
+            self._storm_left = self.faults.config.storm_steps
+            self._emit("fault_storm", {"pages": n,
+                                       "steps": self._storm_left})
+
+    def _fault_telemetry_tick(self) -> None:
+        """The stall and device-death sites, drawn once per telemetry
+        interval, after ``record_stage_times`` (whose heartbeat pass marks
+        every staged domain healthy: a death injected earlier would be
+        resurrected) and before ``maybe_observe``, so the replanner's next
+        observation sees the fault as a real heartbeat loss or straggler
+        would surface."""
+        if self._stall_stage is None:   # one outstanding straggler at a time
+            hit = self.faults.pick_stage_stall(self.config.num_stages)
+            if hit is not None:
+                stage, factor = hit
+                self.telemetry.inject(stage, factor)
+                self._stall_stage = stage
+                self._emit("fault_stall", {"stage": stage, "factor": factor})
+        cur = self.replanner.current
+        healthy = {d.name for d in self.rm.healthy_domains()}
+        used = sorted({s.device for s in cur.placement.stages
+                       if s.device in healthy}) if cur is not None else []
+        # never the last healthy domain
+        candidates = used if len(healthy) > 1 else []
+        victim = self.faults.pick_device_death(candidates)
+        if victim is not None:
+            self._recover_device_loss(victim)
+
+    def _recover_device_loss(self, victim: str) -> None:
+        """Rung 1 of the device-loss ladder: mark the domain dead and spill
+        every active slot off the device tier before the replanner restages
+        (swap-policy slots seal their private pages to host manifests
+        through the page cipher; recompute-policy and mid-prefill slots
+        requeue for a teacher-forced re-prefill). Rung 2 is this step's
+        ``maybe_observe``: ``replan_on_failure`` excludes the corpse. Rung
+        3 is ordinary admission resuming every victim bit-identically. On
+        one card both domains are the same device: the plane marks a
+        planner domain unhealthy, and the spill and re-plan run for real."""
+        self._emit("fault_device_death", {"device": victim})
+        self.rm.mark_unhealthy(victim)
+        self._death_pending = True
+        if self.config.page_policy == "demand":
+            for slot, req in sorted(self.scheduler.active(),
+                                    key=lambda t: t[1].rid, reverse=True):
+                if self.scheduler.slots[slot] is not req:
+                    continue            # already evicted by a cascade
+                self._preempt(slot, req)
+                self.recovery["device_loss_spills"] += 1
 
     def _telemetry_tick(self, wall: float) -> None:
         """Telemetry -> maybe re-plan -> maybe swap boundaries live. A
@@ -1596,9 +1732,20 @@ class ServingEngine:
                 times = [wall * s for s in self.telemetry.predicted_shares()]
             if times:
                 self.telemetry.record_stage_times(times)
+            if self.faults is not None and not self._in_warmup:
+                self._fault_telemetry_tick()
         new_spec = self.telemetry.maybe_observe(self.steps)
         if new_spec is None:
             return
+        if self._death_pending:
+            self.recovery["device_loss_replans"] += 1
+            self._death_pending = False
+        if self._stall_stage is not None:
+            # the re-plan absorbed the injected straggler: clear its factor
+            # so the new placement measures clean
+            self.telemetry.inject(self._stall_stage, 1.0)
+            self._stall_stage = None
+            self.recovery["stall_replans"] += 1
         self._emit("replan", {"blocks": new_spec.stage_sizes(),
                               "placement": new_spec.describe()})
         if self.config.allow_swap:
@@ -1679,11 +1826,15 @@ class ServingEngine:
         assert self.steps == 0 and not self.scheduler.has_work() \
             and not self.chunking, "warmup() must run on a fresh engine"
         t0 = time.perf_counter()
-        self.backend.warm_probes()
-        self._warm_traffic()
-        self._warm_direct()
-        if self.backend_kind == "pipelined" and self.config.allow_swap:
-            self._warm_layouts()
+        self._in_warmup = True          # the fault plane draws nothing
+        try:
+            self.backend.warm_probes()
+            self._warm_traffic()
+            self._warm_direct()
+            if self.backend_kind == "pipelined" and self.config.allow_swap:
+                self._warm_layouts()
+        finally:
+            self._in_warmup = False
         self._reset_state()
         self.aot.freeze()
         self.warmed = True
@@ -1836,7 +1987,9 @@ class ServingEngine:
         """Reset every piece of serving state the warm traffic touched --
         scheduler (rids restart at 0), page pool, device cache (in place),
         clocks, counters, events, measured telemetry -- leaving the
-        captured graphs. Unlike the reference, the swap and transfer
+        captured graphs. The fault plane is re-seeded and its storm, death
+        and stall state dropped, so the serve that follows replays a cold
+        engine's fault schedule. Unlike the reference, the swap and transfer
         sequences and the boundary key's tick count are not reset: they key
         the page cipher's counter and the stage seals' key, and a (key,
         counter) pair reused would cipher serving pages or activations with
@@ -1858,8 +2011,15 @@ class ServingEngine:
         self.peak_running = 0
         self.swap_fallbacks = 0
         self.transfers_out = 0
+        if self.faults is not None:
+            self.faults.reset()
         self.recovery = self._fresh_recovery()
+        self.failed.clear()
         self.pending_external = 0
+        self._storm_pages = []          # they died with the pool
+        self._storm_left = 0
+        self._death_pending = False
+        self._stall_stage = None
         self.stalled = False
         self.stall_reason = None
         self._blocked_rid = None
@@ -1915,8 +2075,12 @@ class ServingEngine:
         return reqs
 
     def check_page_invariants(self) -> None:
-        """Audit the page pool's refcounts against the live block tables."""
-        self.pool.check_invariants(dict(self.slot_pages))
+        """Audit the page pool's refcounts against the live block tables;
+        pages an injected storm holds are audited as a live table."""
+        tables: Dict[Any, Any] = dict(self.slot_pages)
+        if self._storm_pages:
+            tables["storm"] = self._storm_pages
+        self.pool.check_invariants(tables)
 
     def stats(self) -> Dict[str, Any]:
         out = dict(self.scheduler.stats())
@@ -1926,6 +2090,8 @@ class ServingEngine:
             "steps": self.steps,
             "swaps": self.swaps,
             "replans": self.replanner.replans,
+            "failure_replans": self.replanner.failure_replans,
+            "excluded_devices": list(self.replanner.excluded_devices),
             "backend": self.backend_kind,
             "stage_blocks": self.stage_blocks,
             "placement": self.spec.describe(),
@@ -1952,6 +2118,7 @@ class ServingEngine:
             "stall_reason": self.stall_reason,
             "pending_external": self.pending_external,
             "recovery": dict(self.recovery),
+            "failed_requests": dict(self.failed),
             "disagg_role": self.config.disagg_role,
             "transfers_out": self.transfers_out,
             "page_size": self.config.page_size,
@@ -1970,6 +2137,16 @@ class ServingEngine:
             "peak_running_slots": self.peak_running,
         })
         out.update(self.pool.stats())       # swap and transfer ledgers
+        if self.faults is not None:
+            out["faults"] = self.faults.snapshot()
+            # injections whose rung has not completed yet (a death or stall
+            # after the last re-plan, a storm mid-lifetime): each injected
+            # fault is charged to a rung or to one of these
+            out["faults_pending"] = {
+                "death": self._death_pending,
+                "stall": self._stall_stage is not None,
+                "storm": bool(self._storm_pages),
+            }
         if self.admission_ms:
             arr = np.asarray(self.admission_ms)
             out["admission_p50_ms"] = float(np.percentile(arr, 50))

@@ -34,8 +34,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.seal import u32
 from repro_torch.launch import serve
 from repro_torch.serving import (HANDOFF, DisaggOrchestrator, EngineConfig,
-                                 PagePool, Request, ServingEngine,
-                                 build_disagg, plan_disagg_roles)
+                                 FaultConfig, FaultPlane, PagePool, Request,
+                                 ServingEngine, build_disagg,
+                                 plan_disagg_roles)
 from repro_torch.serving.scheduler import DONE
 from test_torch_chunked_prefill import _models
 
@@ -281,10 +282,16 @@ def test_roles_accepted_later_slices_still_refused():
     with pytest.raises(ValueError, match="demand"):
         _engine(tapi, params, disagg_role="decode", page_policy="reserve")
     for kw, name in ((dict(kv_layout="timeline"), "kv_layout"),
-                     (dict(faults=object()), "faults"),
                      (dict(batched_prefill=False), "batched_prefill")):
         with pytest.raises(NotImplementedError, match=name):
             _engine(tapi, params, **kw)
+    # the fault plane is ported: a FaultConfig is taken, anything else is
+    # refused by name
+    with pytest.raises(TypeError, match="faults"):
+        _engine(tapi, params, faults=object())
+    assert _engine(tapi, params, disagg_role="decode",
+                   faults=FaultConfig()).stats()["faults"] == \
+        FaultPlane(FaultConfig()).snapshot()
     eng = _engine(tapi, params, disagg_role="prefill")
     assert eng._swap_seq == sealing.TRANSFER_SEQ_BASE // 2
     assert set(eng.stats()["recovery"]) == {
@@ -652,6 +659,41 @@ def test_no_keystream_reuse_across_roles(pairs, backend):
     st, ps = orch.stats(), orch.eng_prefill.stats()
     assert warm > 0 and st["swap_outs"] > 0 and ps["swap_outs"] > 0
     assert st["handoffs"] == len(wl)
+    assert len(set(pairs)) == len(pairs), \
+        [p for p in set(pairs) if pairs.count(p) > 1][:5]
+
+
+def test_no_keystream_reuse_across_roles_under_chaos(pairs):
+    """The same pair under a chaotic schedule: storms and a device death
+    spill slots through new swap sequences, dropped handoffs are re-sent
+    with their original sealed manifests, tampered and demoted ones
+    re-prefill and seal nothing: still no (key, counter) pair twice."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models.api import build_model
+    tapi = build_model(reduced(get_arch("llama3.2-1b")), device="cpu",
+                       dtype=torch.float32)
+    params = tapi.init(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(6)
+    wl = [(rng.randint(0, 500, size=int(n)).tolist(), int(rng.randint(3, 8)))
+          for n in rng.choice([3, 5, 8, 14, 16], size=8)]
+    orch = build_disagg(
+        tapi, params, config=EngineConfig(
+            **BASE, num_pages=9, faults=FaultConfig.chaos(
+                seed=3, drop_handoff=0.4, pool_storm=0.3,
+                device_death=0.5)),
+        prefill_overrides=dict(prefill_chunk=8, num_pages=8,
+                               prefix_sharing=False),
+        backend="local", device="cpu", warmup=True)
+    reqs = [orch.submit(p, m) for p, m in wl]
+    while orch.has_work():
+        orch.step()
+        orch.check_invariants()
+    assert all(r.status == DONE for r in reqs)
+    ds = orch.decode.stats()
+    inj, rec = ds["faults"], ds["recovery"]
+    assert inj["drop_handoff"] > 0 and inj["pool_storm"] > 0
+    assert rec["device_loss_spills"] > 0 and ds["swap_outs"] > 0
+    assert rec["handoff_retries"] > 0
     assert len(set(pairs)) == len(pairs), \
         [p for p in set(pairs) if pairs.count(p) > 1][:5]
 

@@ -16,8 +16,9 @@ the reference's layout tour, swap-I/O warm and null decode tick).
     stall and keep the streams; a straggler-driven live swap on a warmed
     engine keeps the undisturbed run's streams (``SWAP-EXACT``).
 (e) No (key, counter) pair is sealed twice over a warmup and the serve
-    that follows: every stage-boundary seal and every swap-out, recorded
-    at the ops boundary.
+    that follows, fault-free and under a chaotic schedule (a device death's
+    spill, storms, tampered swap-ins): every stage-boundary seal and every
+    swap-out, recorded at the ops boundary.
 (f) The scatter drops sentinel rows on the device, at a fixed shape: it
     equals a host-side drop of those rows and leaves the null page zero.
 (g) On the card (marker ``cuda``): replayed pipelined steps and swap I/O
@@ -196,6 +197,28 @@ def test_no_keystream_reuse_across_warmup_and_serve(model, pairs):
     st = eng.stats()
     assert warm > 0 and st["swap_outs"] > 0
     assert len(pairs) - warm >= st["steps"]
+    assert len(set(pairs)) == len(pairs), \
+        [p for p in set(pairs) if pairs.count(p) > 1][:5]
+
+
+def test_no_keystream_reuse_under_chaos(model, pairs):
+    """The same warmup and churn under a chaotic schedule: a device death
+    spills every active slot and storms preempt under pressure, each
+    through a new swap sequence; tampered swap-ins re-prefill and seal
+    nothing. Still no (key, counter) pair twice."""
+    from repro_torch.serving import FaultConfig
+    api, params = model
+    eng = _engine(api, params, warmup=True, telemetry_interval=4,
+                  allow_swap=False,
+                  faults=FaultConfig.chaos(seed=2, device_death=1.0,
+                                           pool_storm=0.3))
+    warm = len(pairs)
+    _drive(eng, _churn(api))
+    st = eng.stats()
+    assert warm > 0 and st["swap_outs"] > 0
+    assert st["recovery"]["device_loss_spills"] > 0
+    assert st["faults"]["pool_storm"] > 0
+    assert st["stage_blocks"] == eng.stage_blocks
     assert len(set(pairs)) == len(pairs), \
         [p for p in set(pairs) if pairs.count(p) > 1][:5]
 

@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.configs import get_arch, reduced
 from repro_torch.models.api import build_model
-from repro_torch.serving import EngineConfig, PagePool, ServingEngine
+from repro_torch.serving import (EngineConfig, FaultConfig, PagePool,
+                                 ServingEngine)
 from repro_torch.serving.scheduler import DONE, SWAPPED
 
 BASE = dict(num_slots=4, prompt_capacity=16, page_size=4)
@@ -154,10 +155,17 @@ def test_tampered_swap_payload_falls_back_to_recompute(port):
 
 def test_later_slice_options_raise_by_name(port):
     tapi, tparams = port
-    for kw in (dict(kv_layout="timeline"), dict(faults=object()),
-               dict(batched_prefill=False), dict(temperature=0.7)):
+    for kw in (dict(kv_layout="timeline"), dict(batched_prefill=False),
+               dict(temperature=0.7)):
         with pytest.raises(NotImplementedError):
             _torch_engine(tapi, tparams, **kw)
+    # the fault plane is ported: anything but None or a FaultConfig is
+    # refused by name, and a FaultConfig arms the plane
+    with pytest.raises(TypeError, match="faults"):
+        _torch_engine(tapi, tparams, faults=object())
+    eng = _torch_engine(tapi, tparams, faults=FaultConfig())
+    assert eng.faults is not None and eng.stats()["faults_pending"] == {
+        "death": False, "stall": False, "storm": False}
     # disaggregated prefill/decode is ported: both roles construct
     for role in ("prefill", "decode"):
         assert _torch_engine(tapi, tparams, disagg_role=role).stats()[
