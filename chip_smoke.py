@@ -12,8 +12,9 @@ Phases (each prints its own lines; any failure exits non-zero):
   2. hold every kernel against its plain PyTorch version on the card at the
      serving path's shapes (paged attention: bf16 and f32 pools, 8 rows, 8
      KV heads, rep 4, head_dim 64, page 16, tables of 10 and 34 pages,
-     ragged seq_lens with an idle row, shared pages; page cipher:
-     [pages_per_slot, 131072] f32 and bf16, bit-exact, plus every tail
+     ragged seq_lens with an idle row, shared pages; page cipher: the
+     swap rows of llama3.2-1b and -3b, [pages_per_slot, 131072] and
+     [pages_per_slot, 458752], f32 and bf16, bit-exact, plus every tail
      length of a vector and tensors one element past a 16-byte boundary;
      quantizing seal: the stage boundary's [4, 2048] in bf16 and f32 plus
      the reference's test shapes, widths not a multiple of 4 and
@@ -58,7 +59,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      --microbatches 2`` over two enclaves, so the planner places blocks
      (1, 15)), seal on: seal and unseal must have run nm * (S - 1) times
      per step, paged attention nm * num_layers times per step plus the
-     telemetry's stage probes, the cipher on every swap, every swap-in
+     telemetry's stage probes (graph replays, as on every engine on the
+     card), no re-plan, the cipher on every swap, every swap-in
      bit-exact and every logit finite. In phases 5 to 7 prefill attention
      must have run num_layers times per prefill call;
   7. serve full-width llama3.2-1b in bf16 on the local backend with prompts
@@ -272,6 +274,16 @@ def check_redesigned_build(build):
 # and phase 7's (512-token prompts + 32 new tokens: MP = 34 over 116 pages)
 PAGED_SHORT = dict(MP=10, N=30)
 PAGED_LONG = dict(MP=34, N=116, seq_lens=(544, 0, 1, 16, 17, 300, 543, 129))
+# head_dim 128: phase 11's decode (llama3.2-3b, 8 KV heads, rep 3, the
+# same 10-page tables over 30 pages) and glm4-9b's grouping (2 KV heads,
+# rep 16)
+PAGED_D128 = {"d128 rep3": dict(KVH=8, rep=3, D=128, MP=10, N=30),
+              "d128 rep16": dict(KVH=2, rep=16, D=128, MP=10, N=30)}
+# the page cipher's row on the swap and handoff paths (``gather_pages``:
+# [pages, layers x KV heads x page size x head_dim]) for the two served
+# models; the first is the kernels line's shape
+CIPHER_COLS = {"llama3.2-1b": 16 * 8 * 16 * 64,
+               "llama3.2-3b": 28 * 8 * 16 * 128}
 
 
 def paged_inputs(torch, dtype, B=8, KVH=8, rep=4, D=64, Pg=16, MP=10, N=30,
@@ -313,7 +325,8 @@ def check_paged_attention(torch, ops, ref):
     results = {}
     for dtype, tol in ((torch.bfloat16, dict(atol=1e-3, rtol=1e-2)),
                        (torch.float32, dict(atol=3e-5, rtol=3e-5))):
-        for name, shape in (("short", PAGED_SHORT), ("long", PAGED_LONG)):
+        for name, shape in (("short", PAGED_SHORT), ("long", PAGED_LONG),
+                            *PAGED_D128.items()):
             q, k, v, bt, sl = paged_inputs(torch, dtype, **shape)
             got = ops.paged_attention(q, k, v, bt, sl)
             again = ops.paged_attention(q, k, v, bt, sl)
@@ -331,14 +344,16 @@ def check_paged_attention(torch, ops, ref):
                 results[str(dtype)] = err
             splits = ops._page_splits(q.shape[0], k.shape[1], bt.shape[1],
                                       ops._sm_count(q.device))
-            log(f"check paged_attention {dtype} {name} (MP={bt.shape[1]}, "
-                f"{splits} splits): max_abs_err={err:.3e} ({tol}) rows="
+            log(f"check paged_attention {dtype} {name} (KVH={k.shape[1]}, "
+                f"rep={q.shape[1] // k.shape[1]}, D={q.shape[2]}, MP="
+                f"{bt.shape[1]}, {splits} splits): max_abs_err={err:.3e} "
+                f"({tol}) rows="
                 f"{int(live.sum())} live + {int((~live).sum())} idle, "
                 f"repeat bit-equal")
     return results
 
 
-def check_cipher(torch, ops, ref, sealing, MP=10, cols=131072):
+def check_cipher(torch, ops, ref, sealing, cols, MP=10):
     """Page cipher kernel vs plain version: bit-exact cipher text, and a
     bit-exact round trip in both directions."""
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -515,7 +530,14 @@ FLASH_CASES = ([(B, S, S, H, H, D, int(c), w, 0) for B, H, S, D, w, c in (
     + [(1, 160, 160, 32, 8, 64, 1, 0, 0)]
     # short chunks late in a long prompt, one windowed: few query tiles
     + [(1, 64, 512, 32, 8, 64, 1, 0, 448), (1, 48, 400, 8, 2, 64, 1, 100, 352),
-       (1, 40, 300, 4, 2, 128, 1, 64, 260)])
+       (1, 40, 300, 4, 2, 128, 1, 64, 260)]
+    # head_dim 128 at full width: phase 11's one-shot prefill and its
+    # resumed-prompt bucket (llama3.2-3b, 24 heads over 8), and glm4-9b's
+    # grouping (32 heads over 2)
+    + [(1, 128, 128, 24, 8, 128, 1, 0, 0), (1, 160, 160, 24, 8, 128, 1, 0, 0),
+       (1, 128, 128, 32, 2, 128, 1, 0, 0)])
+# phase 11's one-shot prefill shape, timed beside FLASH_PATH's
+FLASH_D128 = {"one-shot d128": (1, 128, 128, 24, 8, 128, 1, 0, 0)}
 
 
 def flash_inputs(torch, case, dtype, seed=4):
@@ -588,9 +610,10 @@ def visible_keys(torch, case) -> float:
 
 def time_flash(torch, ops, ref, F):
     """ms of the prefill kernel, its plain version and SDPA at the three
-    path shapes in bf16, with the bound."""
+    path shapes and phase 11's head_dim-128 one-shot shape in bf16, with
+    the bound."""
     out = {}
-    for name, case in FLASH_PATH.items():
+    for name, case in {**FLASH_PATH, **FLASH_D128}.items():
         B, Sq, Sk, H, KVH, D, causal, window, off = case
         q, k, v = flash_inputs(torch, case, torch.bfloat16, seed=5)
         ms = time_ms(lambda: ops.flash_attention(q, k, v, q_offset=off))
@@ -677,33 +700,40 @@ def time_kernels(torch, ops, ref, sealing, F):
     out = {"paged_attention": time_paged(torch, ops, ref, F, PAGED_SHORT),
            "paged_attention long": time_paged(torch, ops, ref, F,
                                               PAGED_LONG)}
+    for name, shape in PAGED_D128.items():
+        out[f"paged_attention {name}"] = time_paged(torch, ops, ref, F, shape)
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    x = torch.randn(10, 131072, generator=g, device="cuda").to(torch.bfloat16)
-    # key and counter as device tensors, as the swap path passes them
-    kt = torch.tensor([0xC0FFEE], device="cuda")
-    ctr = torch.tensor([sealing._swap_counter(3, 0)], device="cuda")
-    c = ops.seal_bits(x, kt, ctr)
-    ks = ref.seal_bits_ref(torch.zeros_like(x), kt, ctr)
-    xi = x.view(torch.int16)
-    nbytes = 2.0 * x.numel() * x.element_size()
-    b_ms, b_by = bound(nbytes, KEYSTREAM_OPS * x.numel(), INT32_OP_PER_S)
-    lib = time_ms(lambda: torch.bitwise_xor(xi, ks))
-    for name, fn, plain_fn in (
-            ("seal_bits", lambda: ops.seal_bits(x, kt, ctr),
-             lambda: ref.seal_bits_ref(x, kt, ctr)),
-            ("unseal_bits",
-             lambda: ops.unseal_bits(c, kt, ctr, torch.bfloat16),
-             lambda: ref.unseal_bits_ref(c, kt, ctr, torch.bfloat16))):
-        ms = time_ms(fn)
-        in_graph = graph_ms(fn)
-        plain = time_ms(plain_fn, 20)
-        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                         bound_by=b_by, bytes=nbytes, graph_ms=in_graph)
-        log(f"time {name} bf16 [10, 131072]: kernel {ms * 1e3:.2f} us, in a "
-            f"graph {in_graph * 1e3:.2f} us, plain {plain * 1e3:.1f} us, xor "
-            f"{lib * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}, "
-            f"{nbytes / 1e6:.2f} MB)")
+    for model, cols in CIPHER_COLS.items():
+        x = torch.randn(10, cols, generator=g,
+                        device="cuda").to(torch.bfloat16)
+        # key and counter as device tensors, as the swap path passes them
+        kt = torch.tensor([0xC0FFEE], device="cuda")
+        ctr = torch.tensor([sealing._swap_counter(3, 0)], device="cuda")
+        c = ops.seal_bits(x, kt, ctr)
+        ks = ref.seal_bits_ref(torch.zeros_like(x), kt, ctr)
+        xi = x.view(torch.int16)
+        nbytes = 2.0 * x.numel() * x.element_size()
+        b_ms, b_by = bound(nbytes, KEYSTREAM_OPS * x.numel(), INT32_OP_PER_S)
+        lib = time_ms(lambda: torch.bitwise_xor(xi, ks))
+        for name, fn, plain_fn in (
+                ("seal_bits", lambda: ops.seal_bits(x, kt, ctr),
+                 lambda: ref.seal_bits_ref(x, kt, ctr)),
+                ("unseal_bits",
+                 lambda: ops.unseal_bits(c, kt, ctr, torch.bfloat16),
+                 lambda: ref.unseal_bits_ref(c, kt, ctr, torch.bfloat16))):
+            ms = time_ms(fn)
+            in_graph = graph_ms(fn)
+            plain = time_ms(plain_fn, 20)
+            key = name if cols == CIPHER_COLS["llama3.2-1b"] \
+                else f"{name} {model}"
+            out[key] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                            bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                            graph_ms=in_graph)
+            log(f"time {name} bf16 [10, {cols}] ({model}'s row): kernel "
+                f"{ms * 1e3:.2f} us, in a graph {in_graph * 1e3:.2f} us, "
+                f"plain {plain * 1e3:.1f} us, xor {lib * 1e3:.2f} us, bound "
+                f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes / 1e6:.2f} MB)")
 
     # quantizing seal at the stage boundary: [B_mb = 4, d_model = 2048] bf16
     x = torch.randn(4, 2048, generator=g, device="cuda").to(torch.bfloat16)
@@ -827,6 +857,55 @@ def small_reference_check(torch):
                 f"cow_hits={st['cow_hits']} swap_outs={st['swap_outs']}")
 
 
+def small_d128_check(torch):
+    """Phase 4 at head_dim 128: llama3.2-3b reduced to 2 layers of width
+    256 but keeping head_dim 128 and its grouping (rep 3: 6 query heads over
+    2 KV heads), f32, seeded weights. The same stream, greedy and then
+    sampled (temperature 0.8, top-k 50, sample seed 11), through the local
+    backend on the card and on the CPU: the streams must be equal, the
+    pool must swap, and the sampled streams must differ from the greedy
+    ones."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(reduced(get_arch("llama3.2-3b")), num_layers=2,
+                              d_model=256, num_heads=6, num_kv_heads=2,
+                              head_dim=128, d_ff=512)
+    cpu_api = build_model(cfg, device="cpu", dtype=torch.float32)
+    params = cpu_api.init(torch.Generator().manual_seed(0))
+    argv = ["--arch", "llama3.2-3b", "--device", "cpu", "--backend", "local",
+            "--slots", "4", "--requests", "10", "--prompt-len", "16",
+            "--max-new", "8", "--page-size", "4", "--num-pages", "12",
+            "--shared-system-prompt", "0.5", "--telemetry-interval", "1000"]
+    streams = {}
+    for label, extra, seed in (("greedy", [], 0),
+                               ("sampled", ["--temperature", "0.8",
+                                            "--top-k", "50"], 11)):
+        args = serve.build_parser().parse_args(argv + extra)
+        prompts = serve.gen_prompts(args, cfg.vocab_size)
+        runs = []
+        for device in ("cpu", "cuda"):
+            api = build_model(cfg, device=device, dtype=torch.float32)
+            eng = serve.make_engine(api, _to(torch, params, device), args,
+                                    sample_seed=seed)
+            reqs = serve.serve_stream(eng, args, prompts)
+            runs.append(([r.generated for r in reqs], eng.stats()))
+        (a, sa), (b, sb) = runs
+        assert a == b, f"d128 rep 3 {label}: streams differ card vs " \
+                       f"CPU:\n{a}\n{b}"
+        for key in ("preemptions", "swap_outs", "swap_ins", "steps"):
+            assert sa[key] == sb[key], (label, key, sa[key], sb[key])
+        assert sb["swap_ins"] > 0, sb
+        streams[label] = b
+        log(f"check serving path, llama3.2-3b reduced to 2 layers, d_model "
+            f"256, head_dim 128, 6 heads over 2 KV heads (rep 3), f32, "
+            f"{label}: {len(a)} streams equal card vs CPU, swap_outs="
+            f"{sb['swap_outs']} swap_ins={sb['swap_ins']}")
+    assert streams["sampled"] != streams["greedy"]
+
+
 def _to(torch, tree, device):
     if isinstance(tree, dict):
         return {k: _to(torch, v, device) for k, v in tree.items()}
@@ -882,6 +961,52 @@ class TimedPrefill:
         return call
 
 
+class SamplerTimes:
+    """An engine's sampling timed from outside (``ServingEngine._sample``):
+    the device is synchronised first, so the decode step's own work is not
+    counted. Host ms is the host clock around the call, which ends with the
+    tokens on the host; device ms is the time between two CUDA events
+    recorded around ``_sample_fn`` (on a warmed sampled engine one graph
+    replay; eagerly, as fast as the host launches its kernels)."""
+
+    def __init__(self, torch, eng):
+        self.host, self.events = [], []
+        dev_fn, host_fn = eng._sample_fn, eng._sample
+
+        def sample_fn(logits, rows):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = dev_fn(logits, rows)
+            end.record()
+            self.events.append((logits.shape[0], start, end))
+            return out
+
+        def sample(logits, rids, idxs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = host_fn(logits, rids, idxs)
+            self.host.append((logits.shape[0],
+                              (time.perf_counter() - t0) * 1e3))
+            return out
+
+        eng._sample_fn, eng._sample = sample_fn, sample
+
+    def per_step(self, rows):
+        """(device ms, host ms) per sampling of ``rows`` rows (a decode
+        step's), means over the run."""
+        dev = [s.elapsed_time(e) for b, s, e in self.events if b == rows]
+        host = [ms for b, ms in self.host if b == rows]
+        return sum(dev) / len(dev), sum(host) / len(host)
+
+    def describe(self) -> str:
+        rows = max(b for b, _ in self.host)
+        dev, host = self.per_step(rows)
+        return (f"{dev:.3f} device ms and {host:.3f} host ms per decode "
+                f"step's sampling ({rows} rows, means over "
+                f"{sum(b == rows for b, _ in self.host)} steps)")
+
+
 class GcPauses:
     """Around a timed run: everything allocated before it is collected and
     then frozen out of the collector's scans (``gc.freeze``), so a
@@ -919,13 +1044,16 @@ SCHEDULE = ("steps", "swap_outs", "swap_ins", "preemptions", "cow_hits",
             "tokens_out", "stage_blocks", "replans", "swaps")
 
 
-def serve_full_width(torch, ops, api, params, argv, phase):
+def serve_full_width(torch, ops, api, params, argv, phase, overrides=None,
+                     time_sampler=False):
     """Phases 5 (local backend), 6 (pipelined backend), 7 (local, long
-    prompts, chunked and packed prefill) and 8 (5's and 7's streams on an
-    engine warmed up as CUDA graphs): the main path at full width, with
-    launch counts zeroed just before and read just after. Returns the
-    launch counts, the streams, the schedule's counters and the host
-    clock's ms per decode step and per chunk."""
+    prompts, chunked and packed prefill), 8 (5's and 7's streams on an
+    engine warmed up as CUDA graphs) and 11 (full-width llama3.2-3b,
+    sampled): the main path at full width, with launch counts zeroed just
+    before and read just after. ``overrides`` replace fields of the
+    engine's config; ``time_sampler`` times its sampling (``SamplerTimes``).
+    Returns the launch counts, the streams, the schedule's counters, the
+    host clock's ms per decode step and per chunk, and decode tokens/s."""
     from repro_torch.launch import serve
     args = serve.build_parser().parse_args(argv)
     backend = serve.backend_of(args)
@@ -942,7 +1070,7 @@ def serve_full_width(torch, ops, api, params, argv, phase):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    eng = serve.make_engine(api, params, args)
+    eng = serve.make_engine(api, params, args, **(overrides or {}))
     if args.warmup:
         st = eng.stats()
         assert st["warmed"] and st["graphs"] > 0, st
@@ -952,6 +1080,7 @@ def serve_full_width(torch, ops, api, params, argv, phase):
             f"), memory reserved {torch.cuda.memory_reserved() / 2**30:.2f} "
             f"GiB, peak {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB")
     timed = TimedPrefill(torch, eng) if wide else None
+    sampler = SamplerTimes(torch, eng) if time_sampler else None
     planned = eng.stage_blocks
     be = eng.backend
     gathered, restored = {}, []
@@ -1053,7 +1182,9 @@ def serve_full_width(torch, ops, api, params, argv, phase):
     probe = "" if backend == "local" else \
         " stage probe EMA " + ", ".join(
             f"{t * 1e3:.3f}" for t in eng.telemetry._stage_ema.values()) + \
-        " ms"
+        " ms; per stage p50 / max of its samples " + ", ".join(
+            f"{sorted(v)[len(v) // 2]:.3f} / {max(v):.3f}"
+            for v in zip(*(t for _, t in samples))) + " ms"
     log(f"serve phase {phase}: stage_blocks={st['stage_blocks']} "
         f"placement={st['placement']} replans={st['replans']} "
         f"swaps={st['swaps']}{probe}")
@@ -1084,29 +1215,34 @@ def serve_full_width(torch, ops, api, params, argv, phase):
     log(f"serve phase {phase}: launches {launches} (paged attention "
         f"{detail}; flash attention {st['prefill_calls']} prefill calls x "
         f"{n_layers} layers)")
+    if sampler is not None:
+        log(f"serve phase {phase}: sampler {sampler.describe()}")
     return dict(launches=launches, streams=[list(r.generated) for r in reqs],
                 schedule={k: st[k] for k in SCHEDULE}, steps=be.steps,
-                step_ms=step_ms, chunk_ms=chunk_ms,
+                step_ms=step_ms, chunk_ms=chunk_ms, tok_per_s=st["tok_per_s"],
                 admission=(st.get("admission_p50_ms", 0.0),
                            st.get("admission_p99_ms", 0.0)),
+                sampler=sampler and sampler.per_step(eng.config.num_slots),
                 peak_gib=torch.cuda.max_memory_reserved() / 2**30)
 
 
-def serve_in_graphs(torch, ops, api, params, argv, phase, eager):
-    """Phase 8: ``argv``'s stream again on a fresh engine warmed up as CUDA
-    graphs (``--warmup``). Its greedy streams, schedule and launch counts
-    (graph replays included) must equal the eager phase's ``eager``, with
-    no capture and no stall after warmup (``serve_full_width`` asserts
-    those and the bit-exact swap-ins)."""
+def serve_in_graphs(torch, ops, api, params, argv, phase, eager,
+                    label="8", **kw):
+    """Phase 8 (and 11b): ``argv``'s stream again on a fresh engine warmed
+    up as CUDA graphs (``--warmup``). Its streams, schedule and launch
+    counts (graph replays included) must equal the eager phase's
+    ``eager``, with no capture and no stall after warmup
+    (``serve_full_width`` asserts those and the bit-exact swap-ins); ``kw``
+    goes to ``serve_full_width``."""
     res = serve_full_width(torch, ops, api, params, argv + ["--warmup"],
-                           f"8 (phase {phase}'s stream)")
+                           f"{label} (phase {phase}'s stream)", **kw)
     assert res["streams"] == eager["streams"], \
         f"phase {phase}'s stream differs under CUDA graphs"
     assert res["schedule"] == eager["schedule"] and \
         res["steps"] == eager["steps"], (res["schedule"], eager["schedule"])
     assert res["launches"] == eager["launches"], \
         (res["launches"], eager["launches"])
-    log(f"serve phase 8 (phase {phase}'s stream): streams, schedule and "
+    log(f"serve phase {label} (phase {phase}'s stream): streams, schedule and "
         f"launches equal the eager run's; host ms per decode step "
         f"{res['step_ms']:.2f} in graphs against {eager['step_ms']:.2f} "
         f"eager" + (f"; ms per chunk {res['chunk_ms']:.2f} against "
@@ -1235,8 +1371,9 @@ class DisaggProbe(RowProbe):
         return rows
 
 
-def serve_disagg(torch, ops, api, params, argv, phase5, phase8, smi):
-    """Phase 9: phase 5's stream through the disaggregated pair
+def serve_disagg(torch, ops, api, params, argv, phase5, phase8, smi,
+                 overrides=None, warms=(False, True), label="9"):
+    """Phase 9 (and 11c): phase 5's stream through the disaggregated pair
     (``--disagg``: a prefill-role and a decode-role engine over the same
     ``params``, every prompt's KV handed over sealed with the page cipher),
     eagerly and then on a pair warmed up as CUDA graphs. Streams must equal
@@ -1244,13 +1381,16 @@ def serve_disagg(torch, ops, api, params, argv, phase5, phase8, smi):
     equal the requests that did not finish at prefill; the cipher must run
     on every export, transfer-in and swap, each restore bit-exact; the
     flash and paged kernels must run once a layer per prefill call and per
-    decode step. Returns the two runs' launch counts."""
+    decode step. ``overrides`` replace fields of both roles' config,
+    ``warms`` picks the eager and warmed runs, ``label`` names the phase.
+    Returns the runs' launch counts."""
     from repro_torch.enclave import sealing
     from repro_torch.launch import serve
     from repro_torch.serving import DisaggOrchestrator
     n_layers = api.cfg.num_layers
     out = []
-    for warm in (False, True):
+    overrides = overrides or {}
+    for warm in warms:
         args = serve.build_parser().parse_args(
             argv + (["--warmup"] if warm else []))
         prompts = serve.gen_prompts(args, api.cfg.vocab_size)
@@ -1258,7 +1398,7 @@ def serve_disagg(torch, ops, api, params, argv, phase5, phase8, smi):
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        orch = serve.make_disagg(api, params, args)
+        orch = serve.make_disagg(api, params, args, **overrides)
         pe, de = orch.eng_prefill, orch.decode
         assert pe.params is de.params is params
         probe = DisaggProbe(torch, orch, sealing)
@@ -1282,7 +1422,8 @@ def serve_disagg(torch, ops, api, params, argv, phase5, phase8, smi):
         assert all(r.status == "done" and len(r.generated) == args.max_new
                    for r in reqs), "a request did not complete"
         assert streams == phase5["streams"], \
-            f"phase 9 ({what}): streams differ from phase 5's"
+            f"phase {label} ({what}): streams differ from the monolithic " \
+            f"run's"
         at_prefill = sum(1 for r in reqs if r.max_new_tokens == 1
                          or r.generated[0] == r.eos_id)
         assert st["prefill_completed"] == at_prefill, st
@@ -1320,10 +1461,11 @@ def serve_disagg(torch, ops, api, params, argv, phase5, phase8, smi):
                 (launches, eager["launches"])
             assert st["handoffs"] == eager["handoffs"]
         else:
-            fb = DisaggOrchestrator(serve.make_engine(api, params, args))
+            fb = DisaggOrchestrator(serve.make_engine(api, params, args,
+                                                      **overrides))
             fb_reqs = serve.serve_stream_orch(fb, args, prompts)
             assert [list(r.generated) for r in fb_reqs] == streams, \
-                "phase 9: the no-peer fallback's streams differ"
+                f"phase {label}: the no-peer fallback's streams differ"
             assert fb.stats()["handoffs"] == 0
         adopted = sum(e.detail["shared"] for e in de.events
                       if e.kind == "handoff_in")
@@ -1331,14 +1473,15 @@ def serve_disagg(torch, ops, api, params, argv, phase5, phase8, smi):
         exp, tin = sorted(probe.export_ms), sorted(probe.transfer_in_ms)
         dig = sorted(probe.digest_ms)
         if warm:
-            log(f"serve phase 9 (CUDA graphs): warmup prefill role "
+            log(f"serve phase {label} (CUDA graphs): warmup prefill role "
                 f"{ps['warmup_s']:.2f} s, {ps['graphs']} graphs; decode "
                 f"role {ds['warmup_s']:.2f} s, {ds['graphs']} graphs; no "
                 f"capture and no stall after warmup on either role; "
                 f"streams and launches equal the eager pair's")
         also = "" if warm else " and the no-peer fallback orchestrator's"
-        log(f"serve phase 9 ({what}): {st['completed']} requests, "
-            f"{st['tokens_out']} tokens, streams equal phase 5's{also}; "
+        log(f"serve phase {label} ({what}): {st['completed']} requests, "
+            f"{st['tokens_out']} tokens, streams equal the monolithic "
+            f"run's{also}; "
             f"handoffs={st['handoffs']} (requests not finished at "
             f"prefill: {args.requests - at_prefill}), backpressure events="
             f"{st['backpressure_events']}, COW-adopted rows={adopted}, "
@@ -1346,7 +1489,7 @@ def serve_disagg(torch, ops, api, params, argv, phase5, phase8, smi):
             f"role swap_outs={ds['swap_outs']} swap_ins={ds['swap_ins']} "
             f"(rows bit-exact {rows['swap']}), prefill role swap_outs="
             f"{ps['swap_outs']}; wall {wall:.2f} s")
-        log(f"serve phase 9 ({what}): host ms per export p50 "
+        log(f"serve phase {label} ({what}): host ms per export p50 "
             f"{exp[len(exp) // 2]:.3f} mean {sum(exp) / len(exp):.3f}, per "
             f"transfer-in p50 {tin[len(tin) // 2]:.3f} mean "
             f"{sum(tin) / len(tin):.3f} (between device synchronises), of "
@@ -1361,7 +1504,7 @@ def serve_disagg(torch, ops, api, params, argv, phase5, phase8, smi):
             f"{ps.get('admission_p99_ms', 0):.2f} ms; memory reserved "
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB, peak "
             f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB")
-        log(f"serve phase 9 ({what}): launches {launches} (paged "
+        log(f"serve phase {label} ({what}): launches {launches} (paged "
             f"attention {de.backend.steps} decode steps x {n_layers}; "
             f"flash {ps['prefill_calls']} + {ds['prefill_calls']} prefill "
             f"calls x {n_layers}; cipher 2 x ({ps['transfers_out']} "
@@ -1369,11 +1512,13 @@ def serve_disagg(torch, ops, api, params, argv, phase5, phase8, smi):
             f"2 x ({ds['transfers_in']} transfer-ins + "
             f"{ds['swap_ins'] + ps['swap_ins']} swap-ins))")
         out.append(dict(launches=launches, handoffs=st["handoffs"],
-                        step_ms=step_ms,
+                        step_ms=step_ms, tok_per_s=ds["tok_per_s"],
                         admission=(ds.get("admission_p50_ms", 0.0),
                                    ds.get("admission_p99_ms", 0.0)),
                         peak_gib=torch.cuda.max_memory_reserved() / 2**30))
         del orch, probe
+    if len(out) < 2:
+        return out
     for name, r in (("phase 5 (eager)", phase5),
                     ("phase 8 (phase 5's stream, CUDA graphs)", phase8),
                     ("phase 9 (eager pair)", out[0]),
@@ -1587,22 +1732,13 @@ def serve_chaos(torch, ops, api, params, smi):
     f32, local (a), disaggregated (b) and pipelined (c), each chaotic run
     against a fault-free run of the same stream and flags. Returns the six
     runs (launch counts included)."""
-    import dataclasses
-
     from repro_torch.launch import serve
     from repro_torch.models.api import build_model
-    from repro_torch.serving import FaultConfig, ServingEngine, build_disagg
+    from repro_torch.serving import FaultConfig
     api = build_model(api.cfg, device=api.device, dtype=torch.float32)
     params = _to_f32(params)
     n_layers = api.cfg.num_layers
     out = []
-
-    def engine(args, faults, **kw):
-        cfg = dataclasses.replace(serve.make_config(args), faults=faults,
-                                  **kw)
-        return ServingEngine(api, cfg, params, device=api.device,
-                             rm=serve.TOPOLOGIES[args.topology](args.stages),
-                             backend=serve.backend_of(args))
 
     def report(part, what, chaos, calm, injected):
         dst, cst = chaos["stats"][0], calm["stats"][0]
@@ -1649,7 +1785,7 @@ def serve_chaos(torch, ops, api, params, smi):
             CHAOS_LOCAL_SEED, corrupt_swap=0.5, pool_storm=0.2,
             device_death=0.3))):
         def build(faults=faults):
-            eng = engine(args, faults)
+            eng = serve.make_engine(api, params, args, faults=faults)
             return eng, [eng]
         runs[name] = _chaos_run(torch, ops, build, lambda eng: serve
                                 .serve_stream(eng, args, prompts))
@@ -1674,11 +1810,7 @@ def serve_chaos(torch, ops, api, params, smi):
     for name, faults in (("calm", None),
                          ("chaos", FaultConfig.chaos(CHAOS_DISAGG_SEED))):
         def build(faults=faults):
-            cfg = dataclasses.replace(serve.make_config(args), faults=faults)
-            orch = build_disagg(
-                api, params, config=cfg, backend=serve.backend_of(args),
-                device=api.device,
-                rm=serve.TOPOLOGIES[args.topology](args.stages))
+            orch = serve.make_disagg(api, params, args, faults=faults)
             return orch, [orch.decode, orch.eng_prefill]
         runs[name] = _chaos_run(torch, ops, build, lambda orch: serve
                                 .serve_stream_orch(orch, args, prompts))
@@ -1707,7 +1839,8 @@ def serve_chaos(torch, ops, api, params, smi):
     for name, faults in (("calm", None), ("chaos", FaultConfig(
             CHAOS_PIPE_SEED, device_death=1.0, max_device_deaths=1))):
         def build(faults=faults):
-            eng = engine(args, faults, allow_swap=False)
+            eng = serve.make_engine(api, params, args, faults=faults,
+                                    allow_swap=False)
             assert eng.stage_blocks == (1, 15), eng.stage_blocks
             return eng, [eng]
         runs[name] = _chaos_run(torch, ops, build, lambda eng: serve
@@ -1733,6 +1866,76 @@ def serve_chaos(torch, ops, api, params, smi):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# phase 11: full-width llama3.2-3b over phase 5's stream and pool (a CPU
+# rehearsal of these flags at reduced width and the full vocabulary, sampled
+# as below: 105 decode steps, 16 one-shot prefills, 6 swaps out and in)
+FULL_3B = ["--arch", "llama3.2-3b", "--device", "cuda", "--backend", "local",
+           "--slots", "8", "--requests", "16", "--prompt-len", "128",
+           "--max-new", "32", "--page-size", "16", "--num-pages", "30",
+           "--shared-system-prompt", "0.75"]
+SAMPLED = ["--temperature", "0.8", "--top-k", "50"]
+SAMPLE_SEED = 11
+
+
+def serve_sampled(torch, ops, smi):
+    """Phase 11: full-width llama3.2-3b (28 layers, head_dim 128, 24 heads
+    over 8 KV heads) in bf16 with seeded random weights, phase 5's stream
+    and pool, sampled at temperature 0.8, top-k 50, sample seed 11: (a) the
+    local backend eager, twice; (b) the same warmed as CUDA graphs; (c) the
+    disaggregated pair eager; then the same stream greedy, eager and in
+    graphs, as the sampler's yardstick. (a)'s second run, (b) and (c) must
+    give (a)'s streams, (b) its schedule and launches;
+    ``serve_full_width`` and ``serve_disagg`` hold the launch counts
+    (paged = 28 x decode steps, flash = 28 x prefill calls), the bit-exact
+    restores and the absence of captures after warmup. Returns the runs'
+    launch counts."""
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    api, params = serve.build_params(serve.build_parser().parse_args(FULL_3B))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"serve phase 11: llama3.2-3b full width, {api.cfg.num_layers} "
+        f"layers, d_model {api.cfg.d_model}, {api.cfg.num_heads} heads over "
+        f"{api.cfg.num_kv_heads} KV heads, head_dim {api.cfg.head_dim}, "
+        f"vocab {api.cfg.vocab_size}, {n_params / 1e9:.3f} B params bf16, "
+        f"init {time.perf_counter() - t0:.1f} s")
+    seed = {"sample_seed": SAMPLE_SEED}
+    sampled = FULL_3B + SAMPLED
+    a = serve_full_width(torch, ops, api, params, sampled, "11a", seed,
+                         time_sampler=True)
+    again = serve_full_width(torch, ops, api, params, sampled,
+                             "11a (second run)", seed)
+    assert again["streams"] == a["streams"], \
+        "phase 11a: a second run's sampled streams differ"
+    assert again["schedule"] == a["schedule"] and \
+        again["launches"] == a["launches"], (again["schedule"], a["schedule"])
+    b = serve_in_graphs(torch, ops, api, params, sampled, "11a", a,
+                        label="11b", overrides=seed, time_sampler=True)
+    c = serve_disagg(torch, ops, api, params, sampled + ["--disagg"], a, b,
+                     smi, overrides=seed, warms=(False,), label="11c")
+    greedy = serve_full_width(torch, ops, api, params, FULL_3B,
+                              "11 (greedy)", time_sampler=True)
+    greedy_b = serve_in_graphs(torch, ops, api, params, FULL_3B,
+                               "11 (greedy)", greedy, label="11 (greedy)",
+                               time_sampler=True)
+    assert greedy["streams"] != a["streams"]
+    for name, r in (("11a sampled, eager", a), ("11b sampled, CUDA graphs", b),
+                    ("11c sampled, eager pair", c[0]),
+                    ("11 greedy, eager", greedy),
+                    ("11 greedy, CUDA graphs", greedy_b)):
+        smp = "" if r.get("sampler") is None else \
+            (f", sampler {r['sampler'][0]:.3f} device ms and "
+             f"{r['sampler'][1]:.3f} host ms a step")
+        log(f"serve phase {name}: {r['tok_per_s']:.1f} tok/s decode, "
+            f"{r['step_ms']:.2f} ms/decode step, admission p50 "
+            f"{r['admission'][0]:.2f} p99 {r['admission'][1]:.2f} ms{smp} "
+            f"[{smi}]")
+    del api, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [a, again, b, *c, greedy, greedy_b]
 
 
 def _to_f32(tree):
@@ -1792,14 +1995,17 @@ def main() -> int:
 
     # phase 2: kernels vs plain versions
     pa_err = check_paged_attention(torch, ops, ref)
-    check_cipher(torch, ops, ref, sealing)
+    for cols in CIPHER_COLS.values():
+        check_cipher(torch, ops, ref, sealing, cols=cols)
     q8_err = check_seal_q8(torch, ops, ref)
     check_captured_keys(torch, ops, ref, sealing)
     fa_err = check_flash_attention(torch, ops, ref)
     # phase 3: timings and bounds
     times = time_kernels(torch, ops, ref, sealing, F)
-    # phase 4: whole serving path on a small input, card vs CPU
+    # phase 4: whole serving path on a small input, card vs CPU, and at
+    # head_dim 128, rep 3, greedy and sampled
     small_reference_check(torch)
+    small_d128_check(torch)
     # phases 5 to 7: the main path at full width, local then pipelined,
     # then long prompts with chunked and packed prefill
     from repro_torch.launch import serve
@@ -1813,10 +2019,10 @@ def main() -> int:
         f"{n_params / 1e9:.3f} B params bf16, init "
         f"{time.perf_counter() - t0:.1f} s")
     local = FULL_WIDTH + ["--backend", "local"]
-    runs = [serve_full_width(torch, ops, api, params, local, 5),
-            serve_full_width(torch, ops, api, params,
-                             FULL_WIDTH + ["--backend", "pipelined"], 6),
-            serve_full_width(torch, ops, api, params, PREFILL_WIDE, 7)]
+    runs = [serve_full_width(torch, ops, api, params, local, 5)]
+    runs += [serve_full_width(torch, ops, api, params,
+                              FULL_WIDTH + ["--backend", "pipelined"], 6),
+             serve_full_width(torch, ops, api, params, PREFILL_WIDE, 7)]
     # phase 8: phases 5, 7 and 6 again, on engines warmed up as CUDA graphs
     runs += [serve_in_graphs(torch, ops, api, params, local, 5, runs[0]),
              serve_in_graphs(torch, ops, api, params, PREFILL_WIDE, 7,
@@ -1832,6 +2038,12 @@ def main() -> int:
     # disaggregated and pipelined
     runs += serve_chaos(torch, ops, api, params,
                         smi[0] if smi else "unavailable")
+    # phase 11: full-width llama3.2-3b sampled at temperature 0.8, top-k
+    # 50: local eager and in graphs, and the disaggregated pair
+    del api, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs += serve_sampled(torch, ops, smi[0] if smi else "unavailable")
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 

@@ -41,9 +41,15 @@ tick with probability P, at most one), monolithic or ``--disagg``;
 ``--verify-recovery`` serves the stream again fault-free and checks that
 the streams are equal, that no request failed and that every injected
 fault is accounted to a recovery rung or a pending marker, on both roles
-under ``--disagg`` (prints ``RECOVERY-EXACT OK``).
-Runs on ``cuda`` unless ``--device cpu`` is given; without a card it
-raises.
+under ``--disagg`` (prints ``RECOVERY-EXACT OK``). ``--temperature T``
+and ``--top-k K`` switch greedy decoding to seeded sampling (each token
+keyed by request id and position, as the reference's sampler does;
+sampled streams equal the reference's token for token), and
+``--require-non-prefix`` fails unless the planned placement is outside
+the legacy trusted-prefix space (prints ``NON-PREFIX OK``). ``--arch``
+takes every registered dense config (llama3.2-1b, llama3.2-3b, glm4-9b,
+command-r-35b). Runs on ``cuda`` unless ``--device cpu`` is given;
+without a card it raises.
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
       --device cpu --prompt-len 24 --prefill-chunk 5 --prefill-pack 3 \\
@@ -67,16 +73,23 @@ raises.
       --device cpu --backend local --slots 4 --microbatches 1 \\
       --requests 8 --prompt-len 8 --max-new 10 --page-size 4 --no-seal \\
       --f32 --seed 7 --disagg --chaos --verify-recovery
+  python -m repro_torch.launch.serve --arch llama3.2-3b --reduced \\
+      --device cpu --backend local --temperature 0.8 --top-k 50 --f32
+  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
+      --device cpu --stages 3 --microbatches 2 --slots 4 --requests 6 \\
+      --max-new 8 --no-seal --f32 --topology sandwich --delta 2.0 \\
+      --require-non-prefix --inject-straggler 2:10 --verify-swap
 """
 from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCHS, get_arch
 from repro_torch.configs import reduced as reduce_cfg
 from repro_torch.core.privacy import LM_SIM_DELTA
 from repro_torch.device import resolve_device
@@ -96,7 +109,7 @@ TOPOLOGIES = {
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--stages", type=int, default=2)
@@ -151,6 +164,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="placement search space (segment = PlacementSpec)")
     ap.add_argument("--delta", type=float, default=LM_SIM_DELTA,
                     help="privacy threshold for untrusted segments")
+    ap.add_argument("--require-non-prefix", action="store_true",
+                    help="assert the planned PlacementSpec is NOT "
+                         "expressible in the legacy trusted-prefix space")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="restrict sampling to the top-k logits (0 = off)")
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "local", "pipelined"],
                     help="auto: pipelined when --stages > 1")
@@ -208,8 +228,11 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def make_config(args) -> EngineConfig:
-    return EngineConfig(
+def make_config(args, **overrides) -> EngineConfig:
+    """The engine config the parsed arguments describe; ``overrides`` set
+    fields that have no flag (``sample_seed``, as the reference's serve has
+    none) or replace what a flag set."""
+    return dataclasses.replace(EngineConfig(
         num_slots=args.slots, num_stages=args.stages,
         num_microbatches=args.microbatches, prompt_capacity=args.prompt_len,
         page_size=args.page_size, num_pages=args.num_pages,
@@ -220,11 +243,12 @@ def make_config(args) -> EngineConfig:
         request_capacity=args.prompt_len + args.max_new,
         seal_boundary=not args.no_seal, solver=args.solver, space=args.space,
         delta=args.delta, telemetry_interval=args.telemetry_interval,
+        temperature=args.temperature, top_k=args.top_k,
         prefill_chunk=args.prefill_chunk, prefill_pack=args.prefill_pack,
         warmup=args.warmup,
         faults=(FaultConfig.chaos(seed=args.seed,
                                   device_death=args.chaos_death)
-                if args.chaos else None))
+                if args.chaos else None)), **overrides)
 
 
 def assert_recovery_accounted(st) -> None:
@@ -253,10 +277,11 @@ def backend_of(args) -> str:
     return "pipelined" if args.stages > 1 else "local"
 
 
-def make_engine(api, params, args) -> ServingEngine:
+def make_engine(api, params, args, **overrides) -> ServingEngine:
     """The engine the parsed arguments describe (config, topology and
-    backend), on the model's device."""
-    return ServingEngine(api, make_config(args), params, device=api.device,
+    backend), on the model's device; ``overrides`` as ``make_config``."""
+    return ServingEngine(api, make_config(args, **overrides), params,
+                         device=api.device,
                          rm=TOPOLOGIES[args.topology](args.stages),
                          backend=backend_of(args))
 
@@ -315,10 +340,11 @@ def serve_stream_orch(orch: DisaggOrchestrator, args, prompts):
     return reqs
 
 
-def make_disagg(api, params, args) -> DisaggOrchestrator:
+def make_disagg(api, params, args, **overrides) -> DisaggOrchestrator:
     """The prefill/decode pair the parsed arguments describe, over the
-    shared ``params``, on the model's device."""
-    return build_disagg(api, params, config=make_config(args),
+    shared ``params``, on the model's device; ``overrides`` as
+    ``make_config``."""
+    return build_disagg(api, params, config=make_config(args, **overrides),
                         backend=backend_of(args), device=api.device,
                         rm=TOPOLOGIES[args.topology](args.stages))
 
@@ -348,6 +374,11 @@ def run_once(api, params, args, inject=None):
     eng = make_engine(api, params, args)
     if inject:
         eng.telemetry.inject(*inject)
+    if args.require_non_prefix:
+        assert not eng.spec.is_prefix(eng.rm.resource_graph()), \
+            f"planned placement is prefix-expressible: {eng.spec.describe()}"
+        print("NON-PREFIX OK: placement not expressible in the "
+              "trusted-prefix space")
     reqs = serve_stream(eng, args, gen_prompts(args, api.cfg.vocab_size))
     return eng, reqs
 

@@ -96,7 +96,7 @@ class StackedLM:
             raise NotImplementedError(
                 f"{cfg.name}: sliding windows, attention biases and "
                 f"non-RoPE positions are not ported yet (ROADMAP queue 1, "
-                f"item 12)")
+                f"item 8)")
         self.cfg = cfg
 
     # -- parameters --------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Serving layer of the port: scheduler, greedy sampler, stage telemetry,
+"""Serving layer of the port: scheduler, token sampler (greedy, or seeded
+temperature / top-k sampling keyed as the reference's), stage telemetry,
 the paged engine and its local and pipelined backends, and disaggregated
 prefill/decode (``disagg``: a prefill-role engine seals each prompt's KV
 pages into a ``TransferManifest`` that a decode-role engine unseals into

@@ -28,10 +28,11 @@ Three pieces, as in the reference:
   ``cut_exposure`` price of letting an untrusted device see the prompt.
   Decode must be trusted; untrusted prefill is allowed.
 
-Greedy streams equal the monolithic engine's: both roles share params and
-sampler config, the first token is sampled on the prefill side exactly as
-the monolithic engine samples it, and ``_transfer_in`` resumes decode like
-a swap-in (the first token was never written to KV, so it is the next
+Streams, greedy or sampled, equal the monolithic engine's: both roles
+share params and sampler config, a request keeps its rid on both roles
+(the sampler keys each token by rid and index), the first token is
+sampled on the prefill side exactly as the monolithic engine samples it,
+and ``_transfer_in`` resumes decode like a swap-in (the first token was never written to KV, so it is the next
 decode input). On the card both roles run their paged, flash and cipher
 CUDA kernels; with ``warmup`` each role captures its own CUDA graphs.
 """
@@ -256,12 +257,11 @@ class DisaggOrchestrator:
             if decode.config.disagg_role != "decode":
                 raise ValueError("the decode engine of a pair needs "
                                  "disagg_role='decode'")
-            # equal streams need the same params and sampler config (the
-            # port has no top_k or sample_seed yet)
+            # equal streams need the same params and sampler config
             if pe.params is not decode.params:
                 raise ValueError("prefill and decode engines must share "
                                  "params")
-            for f in ("temperature", "page_size"):
+            for f in ("temperature", "top_k", "sample_seed", "page_size"):
                 if getattr(pe.config, f) != getattr(decode.config, f):
                     raise ValueError(f"prefill/decode config mismatch on "
                                      f"{f}")

@@ -80,9 +80,12 @@ a storm's pages come back on a timer or to the deadlock breaker. Nothing
 draws during warmup, and the warmup reset re-seeds the plane, so a warmed
 engine and a cold one replay one fault schedule.
 
+Sampling at ``temperature > 0`` (``top_k``, ``sample_seed``) keys each
+row by its (rid, index) as the reference does (``serving/sampling.py``);
+a warmed engine captures the sampler as one graph per batch shape.
+
 Not in this slice, and refused by name when a config asks for them: the
-legacy timeline layout, per-token prefill and sampling at temperature > 0
-(see ROADMAP.md, "Next slices").
+legacy timeline layout and per-token prefill (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -140,7 +143,9 @@ class EngineConfig:
     deviation_threshold: float = 1.5
     heartbeat_timeout_s: float = 10.0
     allow_swap: bool = True             # apply a re-plan's boundaries live
-    temperature: float = 0.0            # > 0 is not ported yet
+    temperature: float = 0.0            # 0 = greedy argmax
+    top_k: int = 0                      # 0 = no top-k restriction
+    sample_seed: int = 0                # PRNGKey of the sampler
     events_cap: int = 4096              # host-history ring-buffer caps
     finished_cap: int = 4096
     step_times_cap: int = 4096
@@ -191,7 +196,7 @@ def _refuse_later_slices(cfg: EngineConfig) -> None:
         if val not in allowed:
             raise NotImplementedError(
                 f"EngineConfig.{name}={val!r}: {what} is not ported yet; "
-                f"see ROADMAP.md, 'Next slices'")
+                f"see ROADMAP.md, queue 1")
     if cfg.faults is not None and not isinstance(cfg.faults, FaultConfig):
         raise TypeError(f"EngineConfig.faults must be None or a FaultConfig, "
                         f"not {type(cfg.faults).__name__}")
@@ -416,7 +421,14 @@ class PagedPipelinedBackend(PagedLocalBackend):
     def _init_step(self) -> None:
         # layout -> (decoder, step, probe, the probe's timing events)
         self._layouts: Dict[Tuple[int, ...], Tuple[Any, ...]] = {}
+        # the stage probes replay graphs on the card even on an engine
+        # without warmup: an eager probe's events time the host's launch
+        # pace, whose jitter reads as a straggler and re-plans. Its own
+        # registry keeps them out of the engine's graph count
+        self._probe_aot = self.aot if self.aot.capture else AotRegistry()
         self._build(self.stage_blocks)
+        if self._probe_aot is not self.aot:
+            self.warm_probes()
 
     def _build(self, stage_blocks: Sequence[int]) -> None:
         self.stage_blocks = key = tuple(stage_blocks)
@@ -458,7 +470,7 @@ class PagedPipelinedBackend(PagedLocalBackend):
 
             hit = self._layouts[key] = (
                 dec, self.aot.wrap(f"step{key}", step),
-                self.aot.wrap(f"probe{key}", run_probe), events)
+                self._probe_aot.wrap(f"probe{key}", run_probe), events)
         self.dec, self._step, self._probe, self._events = hit
 
     def step(self, tokens: np.ndarray, key) -> torch.Tensor:
@@ -494,18 +506,20 @@ class PagedPipelinedBackend(PagedLocalBackend):
     def stage_times(self) -> List[float]:
         """Seconds of each stage's layer range on one microbatch of the live
         seq_lens. The probe runs on block-table rows of the null page, so
-        it writes no live page (see ``PipelinedDecoder.build_stage_probe``);
-        once warmed it is a graph replay, as the step it stands in for. On
-        the card a stage's time is the device's, between two CUDA events
-        the probe records around the stage's layers (nodes of its graph
-        once captured), waited for: eagerly the device follows the host's
-        launches, so that is the host's pace, and a replay times the
-        stage's kernels alone. Events around the call would also time the
-        host's submission of one standalone replay, a fixed cost of the
-        order of a one-layer stage's replay: the small stage would read as
-        a straggler and re-plan. On the CPU it is the host clock. The
-        decode step has run every kernel of the probe at its shapes
-        already, so no untimed warm-up call precedes it."""
+        it writes no live page (see ``PipelinedDecoder.build_stage_probe``).
+        On the card it is a graph replay, warmed or not (an engine without
+        warmup captures the planned layout's probes at construction and a
+        new layout's at its first tick), and a stage's time is the
+        device's, between two CUDA events the probe records around the
+        stage's layers (nodes of its graph), waited for: a replay times the
+        stage's kernels alone, where eagerly the device would follow the
+        host's launches and time the host's pace (only a new layout's first
+        tick on an engine without warmup runs so). Events around the call
+        would also time the host's submission of one standalone replay, a
+        fixed cost of the order of a one-layer stage's replay: the small
+        stage would read as a straggler and re-plan. On the CPU it is the
+        host clock. The decode step has run every kernel of the probe at
+        its shapes already, so no untimed warm-up call precedes it."""
         sl = self._probe_rows()
         per_stage = []
         for s in range(self.cfg.num_stages):
@@ -711,7 +725,12 @@ class ServingEngine:
         # ticks not counted by self.steps (the prefill role of a pair
         # starts 2^31 ticks on)
         self._key_shift = _PREFILL_KEY_SHIFT if prefill else 0
-        self.sampler = TokenSampler(cfg.temperature)
+        self.sampler = TokenSampler(cfg.temperature, cfg.top_k,
+                                    cfg.sample_seed)
+        # sampled decoding runs on the device under graph management (one
+        # graph per batch shape once warmed); greedy keeps its argmax
+        self._sample_fn = self.sampler.sample_device if self.sampler.greedy \
+            else self.aot.wrap("sample", self.sampler.sample_device)
         self.warmup_s = 0.0
         self.warmed = False
         if cfg.warmup:
@@ -736,6 +755,18 @@ class ServingEngine:
         a boundary under a (key, counter) pair that warmup used."""
         n = self.steps + self._key_shift
         return to_device([(self._key + n) & 0xFFFFFFFF], self.device)
+
+    def _sample(self, logits: torch.Tensor, rids: Sequence[int],
+                idxs: Sequence[int]) -> np.ndarray:
+        """Tokens [B] on the host for the rows of ``logits`` [B, V], row b
+        keyed by request ``rids[b]`` at its token index ``idxs[b]``
+        (``TokenSampler.sample`` through ``_sample_fn``, so a warmed engine
+        replays its graph)."""
+        return self.sampler.sample(logits, rids, idxs, self._sample_fn)
+
+    def _sample_one(self, logits: torch.Tensor, rid: int, index: int) -> int:
+        """An admission's first token from logits [1, V]."""
+        return int(self._sample(logits[:1], [rid], [index])[0])
 
     def _emit(self, kind: str, detail: Any = None) -> None:
         ev = EngineEvent(self.steps, kind, detail)
@@ -863,7 +894,7 @@ class ServingEngine:
                   "pages": len(self.slot_pages[slot]), "shared": shared}
         if req.generated:
             detail["resumed_at"] = len(req.generated)
-        first = self.sampler.sample_one(logits, req.rid, len(req.generated))
+        first = self._sample_one(logits, req.rid, len(req.generated))
         self.pending[slot] = first
         detail["ms"] = (time.perf_counter() - t0) * 1e3
         self.admission_ms.append(detail["ms"])
@@ -1057,8 +1088,7 @@ class ServingEngine:
         self.slot_len[slot] = P
         del self.chunking[slot]
         self.scheduler.mark_running(slot)
-        first = self.sampler.sample_one(cs.logits, req.rid,
-                                        len(req.generated))
+        first = self._sample_one(cs.logits, req.rid, len(req.generated))
         self.pending[slot] = first
         ms = (time.perf_counter() - cs.t0) * 1e3
         self.admission_ms.append(ms)
@@ -1540,8 +1570,8 @@ class ServingEngine:
                                                       shared)
             self.backend.insert_slot(slot, (kk_all[:, b], vv_all[:, b]),
                                      pages_vec, offs_vec, bt_row, P)
-            first = self.sampler.sample_one(logits[b:b + 1], req.rid,
-                                            len(req.generated))
+            first = self._sample_one(logits[b:b + 1], req.rid,
+                                     len(req.generated))
             self.pending[slot] = first
             ms = (time.perf_counter() - t0) * 1e3
             self.admission_ms.append(ms)
@@ -1594,7 +1624,7 @@ class ServingEngine:
             idxs[slot] = len(req.generated)
         t0 = time.perf_counter()
         logits = self.backend.step(self.pending, self._step_key())
-        toks = self.sampler.sample(logits, rids, idxs)    # waits for the step
+        toks = self._sample(logits, rids, idxs)    # waits for the step
         wall = time.perf_counter() - t0
         self.decode_wall_s += wall
         self.steps += 1
@@ -1856,7 +1886,8 @@ class ServingEngine:
         V = self.api.cfg.vocab_size
 
         def toks(n: int, salt: int) -> List[int]:
-            return [int((salt * 31 + j) % V) for j in range(n)]
+            return [int((cfg.sample_seed * 7919 + salt * 31 + j) % V)
+                    for j in range(n)]
 
         prompts = [toks(b, i) for i, b in enumerate(
             x for x in self._bucket_inventory() if x <= cfg.prompt_capacity)]
@@ -1901,7 +1932,20 @@ class ServingEngine:
                 self.backend.warm_chunk(offset)
         self._warm_swap_io()
         self._warm_step_neutral()
+        self._warm_sampler()
         self.backend.stage_times()
+
+    def _warm_sampler(self) -> None:
+        """A sampled engine samples one row at admission and ``num_slots``
+        rows a decode step: both shapes, on zero logits (the sampler is a
+        pure function)."""
+        if self.sampler.greedy:
+            return
+        V = self.api.cfg.vocab_size
+        for b in sorted({1, self.config.num_slots}):
+            self._sample_fn.warm(
+                torch.zeros((b, V), dtype=torch.float32, device=self.device),
+                to_device(np.zeros((2, b)), self.device))
 
     def _warm_swap_io(self) -> None:
         """State-neutral warm of the swap transfer path, as the reference's:

@@ -26,12 +26,19 @@ KEYS = [(0, 0), (0xFFFFFFFF, 0xFFFFFFFF), (0xDEADBEEF, 7),
 # the reference's kernel sweeps (tests/test_kernels.py)
 SEAL_SHAPES = [(64, 128), (256, 512), (100, 48), (8, 2048), (1, 16)]
 PAGED_CASES = [(3, 2, 4, 16, 4, 5), (2, 4, 1, 32, 8, 3), (1, 1, 2, 64, 16, 2),
-               (4, 2, 2, 128, 8, 4)]
+               (4, 2, 2, 128, 8, 4),
+               # head_dim 128 at the grouping of llama3.2-3b (rep 3) and of
+               # glm4-9b (rep 16 over 2 KV heads)
+               (3, 2, 3, 128, 16, 3), (2, 2, 16, 128, 16, 2)]
 SHARED_CASES = [(3, 2, 4, 16, 4, 5, 2), (4, 2, 2, 32, 8, 4, 3),
                 (2, 1, 2, 64, 16, 3, 1)]
 # on the card only: the serving decode shapes, whose pages the kernel
 # splits over several blocks per (row, KV head)
 CARD_PAGED_CASES = PAGED_CASES + [(8, 8, 4, 64, 16, 10), (8, 8, 4, 64, 16, 34)]
+# on the card only: head_dim 128 at serving widths, paged decode (B = 8,
+# page 16, a 10-page table) and one-shot prefill (B, S, H, KVH) for
+# llama3.2-3b (rep 3) and glm4-9b (rep 16)
+CARD_D128 = [dict(KVH=8, rep=3, S=128), dict(KVH=2, rep=16, S=128)]
 CARD_SHARED_CASES = SHARED_CASES + [(8, 8, 4, 64, 16, 34, 4)]
 
 
@@ -270,6 +277,40 @@ def test_paged_attention_kernel_splits_past_the_row_length(cuda, dtype):
     assert torch.equal(got, again)
     assert not got[0].float().any(), "the kernel writes zeros for idle rows"
     torch.testing.assert_close(got[1:].float(), want[1:].float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", CARD_D128, ids=["rep3", "rep16"])
+def test_attention_kernels_at_head_dim_128(cuda, dtype, shape):
+    """Both attention kernels at head_dim 128 and the full configs' GQA
+    groupings, each against its plain version: paged decode over 8 rows of
+    a 10-page table, and causal one-shot prefill (flash's two 64-column
+    blocks of D). Tolerances as above; a second call repeats the bits."""
+    tdt = getattr(torch, dtype)
+    tol = PAGED_TOL if dtype == "float32" else dict(atol=1e-3, rtol=1e-2)
+    KVH, rep, S = shape["KVH"], shape["rep"], shape["S"]
+    q, kp, vp, bt, sl = (torch.from_numpy(a).to(cuda) for a in
+                         _paged_case(13, 8, KVH, rep, 128, 16, 10))
+    q, kp, vp = q.to(tdt), kp.to(tdt), vp.to(tdt)
+    got = ops.paged_attention(q, kp, vp, bt, sl)
+    again = ops.paged_attention(q, kp, vp, bt, sl)
+    want = ref.paged_attention_ref(q, kp, vp, bt, sl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qf = torch.randn(1, S, KVH * rep, 128, generator=g, device=cuda).to(tdt)
+    kf, vf = (torch.randn(1, S, KVH, 128, generator=g, device=cuda).to(tdt)
+              for _ in range(2))
+    got = ops.flash_attention(qf, kf, vf)
+    again = ops.flash_attention(qf, kf, vf)
+    want = ref.flash_attention_ref(
+        qf.transpose(1, 2), kf.repeat_interleave(rep, 2).transpose(1, 2),
+        vf.repeat_interleave(rep, 2).transpose(1, 2)).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 # every tail length of a 16-byte vector, and the last vector in the last

@@ -281,6 +281,25 @@ def test_injected_straggler_swaps_live_and_streams_stay():
     assert st["stage_blocks"] == (3, 1) and st["completed"] == 6
 
 
+def test_non_prefix_plan_swaps_live_and_streams_stay():
+    """The reference's non-prefix CI line (serve's ``--require-non-prefix``)
+    through the port, less its ``--mesh 3x1`` and XLA flag: the sandwich
+    topology plans T|U|U, which the trusted-prefix space cannot express,
+    and a straggler then moves a boundary live with the streams kept."""
+    argv = ["--arch", "llama3.2-1b", "--reduced", "--device", "cpu",
+            "--stages", "3", "--microbatches", "2", "--slots", "4",
+            "--requests", "6", "--max-new", "8", "--no-seal", "--f32",
+            "--topology", "sandwich", "--delta", "2.0",
+            "--require-non-prefix", "--inject-straggler", "2:10",
+            "--verify-swap"]
+    st = serve.main(argv)      # asserts NON-PREFIX and SWAP-EXACT
+    assert st["swaps"] >= 1 and st["backend"] == "pipelined"
+    assert len(st["stage_blocks"]) == 3 and st["completed"] == 6
+    with pytest.raises(AssertionError, match="prefix-expressible"):
+        serve.main(argv[:argv.index("--topology")] + [
+            "--stages", "2", "--require-non-prefix"])
+
+
 def test_swap_mid_stream_keeps_engine_streams(models):
     """The same workload, pipelined and unsealed: boundaries moved by hand
     twice mid-stream, under swap preemption, give the streams of a run

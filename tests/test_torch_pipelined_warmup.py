@@ -23,6 +23,9 @@ the reference's layout tour, swap-I/O warm and null decode tick).
     equals a host-side drop of those rows and leaves the null page zero.
 (g) On the card (marker ``cuda``): replayed pipelined steps and swap I/O
     give logits and final pools bit-equal to eager, with equal launches.
+(h) An engine without warmup keeps its stage probes in a registry of
+    their own, entered at construction, out of its graph count; on the
+    card they are graphs, and every telemetry tick replays one.
 """
 import itertools
 import types
@@ -300,3 +303,41 @@ def test_replayed_pipelined_step_and_swap_io_bit_equal_eager(cuda, seal):
         assert torch.equal(a, b)
     assert n1 == n0 and n1["paged_attention"] > 0 and n1["seal_bits"] > 0
     assert (n1["seal"] > 0) == seal
+
+
+# ---------------------------------------------------------------------------
+# (h) the stage probes of an engine without warmup
+# ---------------------------------------------------------------------------
+def test_unwarmed_engine_enters_its_probes_apart(model):
+    api, params = model
+    eng = _engine(api, params)
+    be = eng.backend
+    assert not eng.aot.capture and be._probe_aot is not eng.aot
+    assert not any(name.startswith("probe") for name in eng.aot.fns)
+    probe = be._probe_aot.fns[f"probe{eng.stage_blocks}"]
+    assert len(probe.signatures) == PIPE["num_stages"] and not probe.graphs
+    times = be.stage_times()
+    assert len(times) == PIPE["num_stages"] and min(times) > 0
+    assert be._probe_aot.stalls == [] and eng.stats()["graphs"] == 0
+    warmed = _engine(api, params, warmup=True)
+    assert warmed.backend._probe_aot is warmed.aot
+
+
+@pytest.mark.cuda
+def test_unwarmed_engine_replays_its_probes(cuda):
+    """Each stage's probe is captured at construction; ticks replay it and
+    count its launches; the engine's own ledger stays graph-free."""
+    api = build_model(reduced(get_arch("llama3.2-1b")), device=cuda,
+                      dtype=torch.float32)
+    params = api.init(torch.Generator(device=cuda).manual_seed(0))
+    eng = _engine(api, params, device=cuda)
+    be = eng.backend
+    probe = be._probe_aot.fns[f"probe{eng.stage_blocks}"]
+    assert probe.graphs == PIPE["num_stages"]
+    captures = be._probe_aot.captures
+    ops.reset_launch_counts()
+    times = be.stage_times()
+    assert len(times) == PIPE["num_stages"] and min(times) > 0
+    assert be._probe_aot.captures == captures
+    assert ops.LAUNCHES["paged_attention"] == api.cfg.num_layers
+    assert eng.stats()["graphs"] == 0

@@ -155,10 +155,16 @@ def test_tampered_swap_payload_falls_back_to_recompute(port):
 
 def test_later_slice_options_raise_by_name(port):
     tapi, tparams = port
-    for kw in (dict(kv_layout="timeline"), dict(batched_prefill=False),
-               dict(temperature=0.7)):
+    for kw in (dict(kv_layout="timeline"), dict(batched_prefill=False)):
         with pytest.raises(NotImplementedError):
             _torch_engine(tapi, tparams, **kw)
+    # sampling is ported: temperature, top_k and sample_seed reach the
+    # sampler, which the engine runs under graph management
+    eng = _torch_engine(tapi, tparams, temperature=0.7, top_k=5,
+                        sample_seed=9)
+    s = eng.sampler
+    assert not s.greedy and (s.temperature, s.top_k, s.seed) == (0.7, 5, 9)
+    assert "sample" in eng.aot.fns
     # the fault plane is ported: anything but None or a FaultConfig is
     # refused by name, and a FaultConfig arms the plane
     with pytest.raises(TypeError, match="faults"):
