@@ -12,9 +12,11 @@ Phases (each prints its own lines; any failure exits non-zero):
   2. hold every kernel against its plain PyTorch version on the card at the
      serving path's shapes (paged attention: bf16 and f32 pools, 8 rows, 8
      KV heads, rep 4, head_dim 64, page 16, tables of 10 and 34 pages,
-     ragged seq_lens with an idle row, shared pages; page cipher: the
-     swap rows of llama3.2-1b and -3b, [pages_per_slot, 131072] and
-     [pages_per_slot, 458752], f32 and bf16, bit-exact, plus every tail
+     and at head_dim 128 rep 3 over 8 KV heads, rep 16 over 2 and rep 1
+     over 16, ragged seq_lens with an idle row, shared pages; page cipher:
+     the swap rows of llama3.2-1b, -3b and qwen2-moe-a2.7b,
+     [pages_per_slot, 131072], [pages_per_slot, 458752] and
+     [pages_per_slot, 786432], f32 and bf16, bit-exact, plus every tail
      length of a vector and tensors one element past a 16-byte boundary;
      quantizing seal: the stage boundary's [4, 2048] in bf16 and f32 plus
      the reference's test shapes, widths not a multiple of 4 and
@@ -23,9 +25,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      bf16 and f32, also from cipher views 1 to 3 bytes past a 4-byte
      boundary; prefill attention: the reference's grid,
      ragged lengths, head_dim 128, GQA rep 4, the one-shot, packed and chunk
-     shapes of full-width llama and short chunks late in a long prompt,
-     f32 and bf16); both attention kernels must repeat their bits on a
-     second call. The seal, the unseal and the cipher read their key and
+     shapes of full-width llama, the one-shot shapes of phases 11 and 12
+     (24 heads over 8, 16 over 16, head_dim 128) and short chunks late in
+     a long prompt, f32 and bf16); both attention kernels must repeat their
+     bits on a second call. The seal, the unseal and the cipher read their key and
      counter from device memory: captured once in a CUDA graph over key
      and counter tensors and replayed under two keys written into them,
      each replay must equal the plain version under its key and the two
@@ -46,7 +49,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      packed prefill (``--prefill-chunk 5 --prefill-pack 3``), whose streams
      must also equal the one-shot run's, and, on the local backend, once
      through the disaggregated pair (``--disagg``), whose streams must
-     equal the one-shot run's on both devices;
+     equal the one-shot run's on both devices; then llama3.2-3b cut to 2
+     layers at head_dim 128, rep 3, greedy and sampled, and reduced
+     qwen2-moe-a2.7b (MoE FFN, attention biases drawn nonzero) through the
+     local and the unsealed pipelined backend, each card vs CPU;
   5. serve full-width llama3.2-1b (16 layers, d_model 2048, vocab 128,256)
      in bf16 with seeded random weights through ``ServingEngine`` on the
      local backend: 8 slots, 16 requests with a shared system prompt, 32
@@ -116,7 +122,22 @@ Phases (each prints its own lines; any failure exits non-zero):
      warmup; (c) re-plans once around the corpse and keeps blocks (1, 15).
      Prints injected faults and rungs, launches, decode ms per step and
      admission p50/p99 beside the fault-free run's, host ms from a device
-     death to each spilled request's next token and per tamper fallback.
+     death to each spilled request's next token and per tamper fallback;
+ 11. serve full-width llama3.2-3b (28 layers, head_dim 128, rep 3) in
+     bf16 over phase 5's stream and pool, sampled at temperature 0.8,
+     top-k 50: local eager twice, warmed as CUDA graphs and through the
+     disaggregated pair, one set of streams; then greedy eager and in
+     graphs, the sampler's yardstick;
+ 12. serve full-width qwen2-moe-a2.7b (24 layers, 60 routed experts top-4
+     plus 4 shared, no-drop dispatch, attention biases, 16 heads over 16
+     KV heads at head_dim 128) in bf16, greedy, over phase 5's stream and
+     pool: local eager twice and warmed as CUDA graphs (one set of
+     streams, schedules and launch counts, nothing captured after
+     warmup), then pipelined eager over two enclaves with two microbatches
+     and sealed boundaries (blocks (4, 20), no re-plan, nm x (S - 1) seals
+     a step); every swap-in bit-exact, every logit finite. Prints the
+     parameters, init seconds, ms per decode step, decode tokens/s,
+     admission p50/p99 and memory reserved and at peak.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
@@ -275,15 +296,18 @@ def check_redesigned_build(build):
 PAGED_SHORT = dict(MP=10, N=30)
 PAGED_LONG = dict(MP=34, N=116, seq_lens=(544, 0, 1, 16, 17, 300, 543, 129))
 # head_dim 128: phase 11's decode (llama3.2-3b, 8 KV heads, rep 3, the
-# same 10-page tables over 30 pages) and glm4-9b's grouping (2 KV heads,
-# rep 16)
+# same 10-page tables over 30 pages), glm4-9b's grouping (2 KV heads,
+# rep 16) and phase 12's decode (qwen2-moe-a2.7b, 16 KV heads, rep 1: one
+# warp a block)
 PAGED_D128 = {"d128 rep3": dict(KVH=8, rep=3, D=128, MP=10, N=30),
-              "d128 rep16": dict(KVH=2, rep=16, D=128, MP=10, N=30)}
+              "d128 rep16": dict(KVH=2, rep=16, D=128, MP=10, N=30),
+              "d128 rep1": dict(KVH=16, rep=1, D=128, MP=10, N=30)}
 # the page cipher's row on the swap and handoff paths (``gather_pages``:
-# [pages, layers x KV heads x page size x head_dim]) for the two served
+# [pages, layers x KV heads x page size x head_dim]) for the three served
 # models; the first is the kernels line's shape
 CIPHER_COLS = {"llama3.2-1b": 16 * 8 * 16 * 64,
-               "llama3.2-3b": 28 * 8 * 16 * 128}
+               "llama3.2-3b": 28 * 8 * 16 * 128,
+               "qwen2-moe-a2.7b": 24 * 16 * 16 * 128}
 
 
 def paged_inputs(torch, dtype, B=8, KVH=8, rep=4, D=64, Pg=16, MP=10, N=30,
@@ -532,12 +556,15 @@ FLASH_CASES = ([(B, S, S, H, H, D, int(c), w, 0) for B, H, S, D, w, c in (
     + [(1, 64, 512, 32, 8, 64, 1, 0, 448), (1, 48, 400, 8, 2, 64, 1, 100, 352),
        (1, 40, 300, 4, 2, 128, 1, 64, 260)]
     # head_dim 128 at full width: phase 11's one-shot prefill and its
-    # resumed-prompt bucket (llama3.2-3b, 24 heads over 8), and glm4-9b's
-    # grouping (32 heads over 2)
+    # resumed-prompt bucket (llama3.2-3b, 24 heads over 8), glm4-9b's
+    # grouping (32 heads over 2) and phase 12's one-shot prefill
+    # (qwen2-moe-a2.7b, 16 heads over 16)
     + [(1, 128, 128, 24, 8, 128, 1, 0, 0), (1, 160, 160, 24, 8, 128, 1, 0, 0),
-       (1, 128, 128, 32, 2, 128, 1, 0, 0)])
-# phase 11's one-shot prefill shape, timed beside FLASH_PATH's
-FLASH_D128 = {"one-shot d128": (1, 128, 128, 24, 8, 128, 1, 0, 0)}
+       (1, 128, 128, 32, 2, 128, 1, 0, 0),
+       (1, 128, 128, 16, 16, 128, 1, 0, 0)])
+# phases 11's and 12's one-shot prefill shapes, timed beside FLASH_PATH's
+FLASH_D128 = {"one-shot d128": (1, 128, 128, 24, 8, 128, 1, 0, 0),
+              "one-shot d128 mha": (1, 128, 128, 16, 16, 128, 1, 0, 0)}
 
 
 def flash_inputs(torch, case, dtype, seed=4):
@@ -906,6 +933,49 @@ def small_d128_check(torch):
     assert streams["sampled"] != streams["greedy"]
 
 
+def small_moe_check(torch):
+    """Phase 4 on the MoE family: reduced qwen2-moe-a2.7b (3 layers, 8
+    experts top-2 plus 1 shared, no-drop dispatch), f32, seeded weights
+    with the attention biases drawn nonzero (the initializer's zeros would
+    hide them), phase 4's stream and pool through the local backend and
+    the unsealed pipelined backend, on the card and on the CPU: the greedy
+    streams and paging decisions must be equal and the pool must swap."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    cfg = reduced(get_arch("qwen2-moe-a2.7b"))
+    g = torch.Generator().manual_seed(0)
+    params = build_model(cfg, device="cpu", dtype=torch.float32).init(g)
+    for b in ("bq", "bk", "bv"):
+        params["blocks"]["attn"][b].normal_(generator=g)
+    argv = ["--arch", "qwen2-moe-a2.7b", "--device", "cpu", "--slots", "4",
+            "--requests", "10", "--prompt-len", "16", "--max-new", "8",
+            "--page-size", "4", "--num-pages", "12",
+            "--shared-system-prompt", "0.5", "--telemetry-interval", "1000"]
+    for extra in (["--backend", "local"],
+                  ["--backend", "pipelined", "--no-seal"]):
+        args = serve.build_parser().parse_args(argv + extra)
+        prompts = serve.gen_prompts(args, cfg.vocab_size)
+        runs = []
+        for device in ("cpu", "cuda"):
+            api = build_model(cfg, device=device, dtype=torch.float32)
+            eng = serve.make_engine(api, _to(torch, params, device), args)
+            reqs = serve.serve_stream(eng, args, prompts)
+            runs.append(([r.generated for r in reqs], eng.stats()))
+        (a, sa), (b, sb) = runs
+        what = " ".join(extra[1:])
+        assert a == b, f"reduced qwen2-moe {what}: streams differ card vs " \
+                       f"CPU:\n{a}\n{b}"
+        for key in ("preemptions", "swap_outs", "swap_ins", "cow_hits",
+                    "steps", "stage_blocks", "backend"):
+            assert sa[key] == sb[key], (what, key, sa[key], sb[key])
+        assert sb["swap_ins"] > 0, sb
+        log(f"check serving path, qwen2-moe-a2.7b reduced (3 layers, 8 "
+            f"experts top-2 + 1 shared, biases nonzero), f32, {what} (stage "
+            f"blocks {sb['stage_blocks']}): {len(a)} streams equal card vs "
+            f"CPU, swap_outs={sb['swap_outs']} swap_ins={sb['swap_ins']}")
+
+
 def _to(torch, tree, device):
     if isinstance(tree, dict):
         return {k: _to(torch, v, device) for k, v in tree.items()}
@@ -1045,15 +1115,18 @@ SCHEDULE = ("steps", "swap_outs", "swap_ins", "preemptions", "cow_hits",
 
 
 def serve_full_width(torch, ops, api, params, argv, phase, overrides=None,
-                     time_sampler=False):
+                     time_sampler=False, plan=(1, 15)):
     """Phases 5 (local backend), 6 (pipelined backend), 7 (local, long
     prompts, chunked and packed prefill), 8 (5's and 7's streams on an
-    engine warmed up as CUDA graphs) and 11 (full-width llama3.2-3b,
-    sampled): the main path at full width, with launch counts zeroed just
-    before and read just after. ``overrides`` replace fields of the
-    engine's config; ``time_sampler`` times its sampling (``SamplerTimes``).
-    Returns the launch counts, the streams, the schedule's counters, the
-    host clock's ms per decode step and per chunk, and decode tokens/s."""
+    engine warmed up as CUDA graphs), 11 (full-width llama3.2-3b,
+    sampled) and 12 (full-width qwen2-moe-a2.7b): the main path at full
+    width, with launch counts zeroed just before and read just after.
+    ``overrides`` replace fields of the engine's config; ``time_sampler``
+    times its sampling (``SamplerTimes``); ``plan`` is the stage blocks
+    the planner must give on the pipelined backend. Returns the launch
+    counts, the streams, the schedule's counters, the host clock's ms per
+    decode step and per chunk, decode tokens/s and memory reserved and at
+    peak."""
     from repro_torch.launch import serve
     args = serve.build_parser().parse_args(argv)
     backend = serve.backend_of(args)
@@ -1151,7 +1224,7 @@ def serve_full_width(torch, ops, api, params, argv, phase, overrides=None,
             (launches, be.steps)
         assert launches["seal"] == launches["unseal"] == 0, launches
     else:
-        assert planned == (1, 15), planned
+        assert planned == plan, (planned, plan)
         assert st["stage_blocks"] == eng.spec.stage_sizes() == planned, \
             (st["stage_blocks"], eng.spec.stage_sizes(), st["replans"])
         assert st["replans"] == 0 and st["swaps"] == 0, \
@@ -1223,7 +1296,9 @@ def serve_full_width(torch, ops, api, params, argv, phase, overrides=None,
                 admission=(st.get("admission_p50_ms", 0.0),
                            st.get("admission_p99_ms", 0.0)),
                 sampler=sampler and sampler.per_step(eng.config.num_slots),
-                peak_gib=torch.cuda.max_memory_reserved() / 2**30)
+                reserved_gib=torch.cuda.memory_reserved() / 2**30,
+                peak_gib=torch.cuda.max_memory_reserved() / 2**30,
+                peak_alloc_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
 def serve_in_graphs(torch, ops, api, params, argv, phase, eager,
@@ -1863,6 +1938,9 @@ def serve_chaos(torch, ops, api, params, smi):
            "die: the plane marks a planner domain unhealthy and both "
            "domains are this one card", runs["chaos"], runs["calm"], inj)
     out += [runs["calm"], runs["chaos"]]
+    # only the launch counts leave: a run also holds its engines (their f32
+    # params, caches and graph pools), which must not outlive this phase
+    out = [dict(launches=r["launches"]) for r in out]
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -1938,6 +2016,77 @@ def serve_sampled(torch, ops, smi):
     return [a, again, b, *c, greedy, greedy_b]
 
 
+# phase 12: full-width qwen2-moe-a2.7b over phase 5's stream and pool (a CPU
+# rehearsal of these flags at reduced width with 2 layers and the full
+# vocabulary: 99 decode steps, 16 one-shot prefills, 10 swaps out and in,
+# on the local backend and on the pipelined one)
+FULL_MOE = ["--arch", "qwen2-moe-a2.7b", "--device", "cuda", "--slots", "8",
+            "--requests", "16", "--prompt-len", "128", "--max-new", "32",
+            "--page-size", "16", "--num-pages", "30",
+            "--shared-system-prompt", "0.75"]
+
+
+def serve_moe(torch, ops, smi):
+    """Phase 12: full-width qwen2-moe-a2.7b (24 layers, 60 routed experts
+    top-4 plus 4 shared, 16 heads over 16 KV heads, head_dim 128, biases)
+    in bf16 with seeded random weights, greedy, phase 5's stream and pool:
+    (a) the local backend eager, twice; (b) the same warmed as CUDA
+    graphs; (c) pipelined eager over two enclaves with two microbatches
+    and sealed boundaries. (a)'s second run and (b) must give (a)'s
+    streams, schedule and launches; ``serve_full_width`` holds the launch
+    counts (paged = 24 x decode steps, flash = 24 x prefill calls, seals
+    nm x (S - 1) a step), the bit-exact restores, the finite logits, (b)'s
+    absence of captures after warmup and (c)'s blocks (4, 20) with no
+    re-plan. (c)'s streams are not compared with (a)'s: the quantizing
+    seal is lossy. Returns the runs' launch counts."""
+    from repro_torch.launch import serve
+    before = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    api, params = serve.build_params(serve.build_parser().parse_args(
+        FULL_MOE))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()            # the init's f32 draws
+    cfg = api.cfg
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"serve phase 12: qwen2-moe-a2.7b full width, {cfg.num_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.num_experts} experts top-"
+        f"{cfg.num_experts_per_tok} + {cfg.num_shared_experts} shared, "
+        f"moe_d_ff {cfg.moe_d_ff}, {cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads} KV heads, head_dim {cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}, {n_params / 1e9:.3f} B params bf16 (config "
+        f"count {cfg.total_params() / 1e9:.3f} B without biases), init "
+        f"{init_s:.2f} s, memory allocated {before:.2f} GiB before init and "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after, reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB after")
+    local = FULL_MOE + ["--backend", "local"]
+    a = serve_full_width(torch, ops, api, params, local, "12a")
+    again = serve_full_width(torch, ops, api, params, local,
+                             "12a (second run)")
+    assert again["streams"] == a["streams"], \
+        "phase 12a: a second run's streams differ"
+    assert again["schedule"] == a["schedule"] and \
+        again["launches"] == a["launches"], (again["schedule"], a["schedule"])
+    b = serve_in_graphs(torch, ops, api, params, local, "12a", a,
+                        label="12b")
+    c = serve_full_width(torch, ops, api, params, FULL_MOE + [
+        "--backend", "pipelined", "--stages", "2", "--microbatches", "2"],
+        "12c", plan=(4, 20))
+    for name, r in (("12a eager", a), ("12a eager, second run", again),
+                    ("12b CUDA graphs", b), ("12c pipelined (4, 20), eager",
+                                             c)):
+        log(f"serve phase {name}: {r['tok_per_s']:.1f} tok/s decode, "
+            f"{r['step_ms']:.2f} ms/decode step, admission p50 "
+            f"{r['admission'][0]:.2f} p99 {r['admission'][1]:.2f} ms, "
+            f"memory reserved {r['reserved_gib']:.2f} GiB, peak "
+            f"{r['peak_gib']:.2f} GiB, peak allocated "
+            f"{r['peak_alloc_gib']:.2f} GiB [{smi}]")
+    del api, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [a, again, b, c]
+
+
 def _to_f32(tree):
     if isinstance(tree, dict):
         return {k: _to_f32(v) for k, v in tree.items()}
@@ -2006,6 +2155,7 @@ def main() -> int:
     # head_dim 128, rep 3, greedy and sampled
     small_reference_check(torch)
     small_d128_check(torch)
+    small_moe_check(torch)
     # phases 5 to 7: the main path at full width, local then pipelined,
     # then long prompts with chunked and packed prefill
     from repro_torch.launch import serve
@@ -2044,6 +2194,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     runs += serve_sampled(torch, ops, smi[0] if smi else "unavailable")
+    # phase 12: full-width qwen2-moe-a2.7b: local eager and in graphs, and
+    # pipelined with sealed boundaries
+    runs += serve_moe(torch, ops, smi[0] if smi else "unavailable")
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 

@@ -1,11 +1,13 @@
 """Where a decode step's (or a prefill chunk's) time goes on the card.
 
-    python -m repro_torch.launch.profile_decode [--steps 8]
-        [--backend local|pipelined] [--graphs] [--trace decode_trace.json]
+    python -m repro_torch.launch.profile_decode [--arch llama3.2-1b]
+        [--steps 8] [--backend local|pipelined] [--graphs]
+        [--trace decode_trace.json]
     python -m repro_torch.launch.profile_decode --prefill [--graphs]
         [--steps 8]
 
-Builds full-width llama3.2-1b (bf16, seeded random weights), fills all 8
+Builds a full-width ``--arch`` (default llama3.2-1b; bf16, seeded random
+weights), fills all 8
 slots with 128-token prompts, runs a few warm-up steps, then traces
 ``--steps`` engine steps with ``torch.profiler`` (CPU + CUDA activities)
 on the chosen backend (``pipelined``: the planned two stages, two
@@ -24,6 +26,13 @@ chunks ran. ``--graphs`` replays CUDA graphs: the engine warms up
 (``EngineConfig.warmup``, on either backend) before the prompts arrive, and the chunk runs
 through a capturing ``AotRegistry`` (one graph per offset, captured in
 the untraced pass); without it both run eagerly through the same code.
+For an MoE arch it also splits one block's MoE FFN
+(``models/moe.py::moe_mlp_apply``, no-drop dispatch) at the decode step's
+8 rows and at a 128-token prefill bucket: device ms of the whole FFN, of
+its expert products (``expert_ffn``) and of its shared experts, each 10
+calls captured in a CUDA graph and replayed (``launch/timing.py``), on
+block 0's weights; the dispatch (routing, scatter, gather, combine) is
+the rest, and each is multiplied by the block count for a step.
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -35,9 +44,12 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCHS, get_arch
+from repro_torch.models import layers as L
 from repro_torch.models.api import build_model
+from repro_torch.models.moe import expert_ffn, moe_mlp_apply
 from repro_torch.device import to_device
+from repro_torch.launch.timing import graph_time_ms
 from repro_torch.serving import EngineConfig, ServingEngine
 from repro_torch.serving.aot import AotRegistry
 
@@ -67,6 +79,7 @@ def _on_device(evt) -> bool:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b", choices=sorted(ARCHS))
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--backend", default="local",
                     choices=["local", "pipelined"])
@@ -78,9 +91,11 @@ def main(argv=None):
                          "launches")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_arch("llama3.2-1b")
+    cfg = get_arch(args.arch)
     api = build_model(cfg, device="cuda", dtype=torch.bfloat16)
     params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    if cfg.is_moe:
+        moe_split(api, params)
     if args.prefill:
         return profile_chunks(api, params, args)
     max_new = WARMUP_STEPS + 2 * args.steps + 8
@@ -100,9 +115,40 @@ def main(argv=None):
     st = eng.stats()
     assert not args.graphs or (st["post_warmup_compiles"] == 0
                                and st["graphs"] > 0), st
-    report(prof, bare, wall, args, f"decode step ({SLOTS} slots, "
+    report(prof, bare, wall, args, f"{cfg.name} decode step ({SLOTS} slots, "
            f"{cfg.num_layers} layers, {args.backend} backend, stage blocks "
            f"{eng.stage_blocks}, {mode(args)})")
+
+
+def moe_split(api, params):
+    """Device ms of block 0's MoE FFN and of its parts, in CUDA graphs, at
+    a decode step's rows and at a 128-token prefill bucket, per block and
+    per step (times the block count)."""
+    cfg = api.cfg
+    p = api.model._layer(params, 0)["moe"]
+    sh = p["shared"]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for what, rows, seq in (("decode step", SLOTS, 1),
+                            (f"prefill bucket of {CHUNK}", 1, CHUNK)):
+        x = torch.randn(rows, seq, cfg.d_model, generator=g,
+                        device="cuda").to(api.dtype)
+        T = rows * seq * cfg.num_experts_per_tok
+        C = max(8, -(-T // 8) * 8)
+        buf = torch.randn(cfg.num_experts, C, cfg.d_model, generator=g,
+                          device="cuda").to(api.dtype)
+        full = graph_time_ms(lambda: moe_mlp_apply(
+            cfg, p, x, drop_tokens=False, aux=False), launches=10)
+        experts = graph_time_ms(lambda: expert_ffn(p, buf), launches=10)
+        shared = graph_time_ms(lambda: L.swiglu(x, sh["wi"], sh["wg"],
+                                                sh["wo"]), launches=10)
+        n = cfg.num_layers
+        print(f"moe ffn, {what} ({rows * seq} tokens, [E, C, D] = "
+              f"[{cfg.num_experts}, {C}, {cfg.d_model}]): whole {full:.4f} "
+              f"ms a block, {full * n:.3f} ms a step; expert products "
+              f"{experts:.4f} / {experts * n:.3f}; shared experts "
+              f"{shared:.4f} / {shared * n:.3f}; dispatch (routing, "
+              f"scatter, gather, combine) {full - experts - shared:.4f} / "
+              f"{(full - experts - shared) * n:.3f}")
 
 
 def mode(args) -> str:
@@ -157,7 +203,8 @@ def profile_chunks(api, params, args):
         chunk(i)
     bare, prof, wall = traced(chunk, args)
     assert fn.graphs == (n_chunks if args.graphs else 0), fn.graphs
-    report(prof, bare, wall, args, f"prefill chunk ({CHUNK} tokens at "
+    report(prof, bare, wall, args, f"{api.cfg.name} prefill chunk ({CHUNK} "
+           f"tokens at "
            f"offsets 0..{CHUNKED_PROMPT - CHUNK}, {api.cfg.num_layers} "
            f"layers, {mode(args)})")
 

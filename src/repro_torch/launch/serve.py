@@ -47,9 +47,11 @@ keyed by request id and position, as the reference's sampler does;
 sampled streams equal the reference's token for token), and
 ``--require-non-prefix`` fails unless the planned placement is outside
 the legacy trusted-prefix space (prints ``NON-PREFIX OK``). ``--arch``
-takes every registered dense config (llama3.2-1b, llama3.2-3b, glm4-9b,
-command-r-35b). Runs on ``cuda`` unless ``--device cpu`` is given;
-without a card it raises.
+takes every registered config: the dense llama3.2-1b, llama3.2-3b,
+glm4-9b and command-r-35b, and the MoE qwen2-moe-a2.7b (60 routed
+experts top-4 plus 4 shared, attention biases; dispatched without
+capacity dropping, as the reference serves it). Runs on ``cuda`` unless
+``--device cpu`` is given; without a card it raises.
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
       --device cpu --prompt-len 24 --prefill-chunk 5 --prefill-pack 3 \\
@@ -75,6 +77,8 @@ without a card it raises.
       --f32 --seed 7 --disagg --chaos --verify-recovery
   python -m repro_torch.launch.serve --arch llama3.2-3b --reduced \\
       --device cpu --backend local --temperature 0.8 --top-k 50 --f32
+  python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --reduced \\
+      --device cpu --backend local --f32
   python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
       --device cpu --stages 3 --microbatches 2 --slots 4 --requests 6 \\
       --max-new 8 --no-seal --f32 --topology sandwich --delta 2.0 \\

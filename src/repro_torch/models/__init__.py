@@ -1,1 +1,1 @@
-"""Model stack of the port (dense family)."""
+"""Model stack of the port (dense and MoE families)."""

@@ -1,4 +1,4 @@
-"""Model API of the port (dense family of ``repro/models/api.py``):
+"""Model API of the port (dense and MoE families of ``repro/models/api.py``):
 ``build_model(cfg, device=..., dtype=...)`` returns a ``ModelAPI`` whose
 closures the serving engine calls."""
 from __future__ import annotations
@@ -8,7 +8,7 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
-from repro_torch.configs.base import DENSE, ArchConfig
+from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from .transformer import SEGMENT, StackedLM
 
@@ -67,9 +67,9 @@ class ModelAPI:
 def build_model(cfg: ArchConfig, *,
                 device: Optional[Union[str, torch.device]] = None,
                 dtype: torch.dtype = torch.bfloat16) -> ModelAPI:
-    """Dense family only. ``device`` defaults to ``cuda`` and raises without
-    a card; pass ``device="cpu"`` for the CPU reference path."""
-    if cfg.family != DENSE:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    """Dense and MoE families (an MoE config with a dense stem,
+    ``first_k_dense > 0``, is refused by name, as the reference's engine
+    refuses to serve it). ``device`` defaults to ``cuda`` and raises
+    without a card; pass ``device="cpu"`` for the CPU reference path."""
     dev = resolve_device(device)
     return ModelAPI(cfg, StackedLM(cfg), dev, dtype)

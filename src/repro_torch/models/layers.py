@@ -1,6 +1,8 @@
-"""Model substrate of the port (dense subset of ``repro/models/layers.py``):
-norms, rotary embeddings, projections, SwiGLU, prefill attention (one-shot
-and chunked against the page pools) and the paged decode path.
+"""Model substrate of the port (the dense and MoE subset of
+``repro/models/layers.py``): parameter specs and their initializer, norms,
+rotary embeddings, projections (with the attention biases), SwiGLU,
+prefill attention (one-shot and chunked against the page pools) and the
+paged decode path.
 
 Layouts are the reference's: activations [B, S, ...], ``wq [d, H, hd]``,
 ``wo [H, hd, d]``, page pools ``[N, KVH, page_size, D]``. The paged write
@@ -10,13 +12,45 @@ of every step would cost more than the step itself.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+import math
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as KO
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    init: str = "normal"    # normal | zeros | ones | embed
+    scale: float = 1.0      # fan-in style scale multiplier
+
+
+def init_one(spec: ParamSpec, generator: torch.Generator, device,
+             dtype) -> torch.Tensor:
+    """The reference's initializer (``repro.models.layers._init_one``):
+    zeros, ones, N(0, 0.02) for the embedding, else N(0, scale /
+    sqrt(fan_in)) with fan_in = the spec's leading dim. For stacked block
+    weights that leading dim is the layer count, as in the reference, so
+    random-weight runs of the two packages sit in the same numeric range.
+    Draws in f32 from ``generator`` (on ``device``), then casts."""
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, device=device, dtype=dtype)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, device=device, dtype=dtype)
+    fan_in = spec.shape[0] if len(spec.shape) > 1 else max(spec.shape[-1], 1)
+    std = 0.02 if spec.init == "embed" else spec.scale / math.sqrt(fan_in)
+    w = torch.randn(spec.shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return w.mul_(std).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -66,12 +100,29 @@ def swiglu(x, wi, wg, wo):
     return (F.silu(x @ wg) * (x @ wi)) @ wo
 
 
+def attn_specs(cfg) -> Dict[str, ParamSpec]:
+    d, H, KVH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = {
+        "wq": ParamSpec((d, H, hd)),
+        "wk": ParamSpec((d, KVH, hd)),
+        "wv": ParamSpec((d, KVH, hd)),
+        "wo": ParamSpec((H, hd, d)),
+    }
+    if cfg.use_bias:
+        s.update({"bq": ParamSpec((H, hd), "zeros"),
+                  "bk": ParamSpec((KVH, hd), "zeros"),
+                  "bv": ParamSpec((KVH, hd), "zeros")})
+    return s
+
+
 def attn_qkv(p, x, positions, cfg):
-    """Project to q, k, v and apply RoPE. x: [B, S, d] ->
-    q [B, S, H, hd], k and v [B, S, KVH, hd]."""
+    """Project to q, k, v, add the biases where the block has them, and
+    apply RoPE. x: [B, S, d] -> q [B, S, H, hd], k and v [B, S, KVH, hd]."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dgk->bsgk", x, p["wk"])
     v = torch.einsum("bsd,dgk->bsgk", x, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -1,0 +1,136 @@
+"""Mixture-of-Experts blocks of the port (``repro/models/moe.py``): top-k
+routing with capacity-based scatter/gather dispatch into ``[E, C, D]``
+buffers, a gated FFN per expert, Qwen-MoE-style always-on shared experts.
+
+The serving path dispatches without dropping (``drop_tokens=False``): C
+is then ``ceil8(T * K)``, a function of the token count T alone, so a
+decode step and every prefill bucket keep static shapes and a CUDA graph
+captures them. Nothing here reads a value back to the host (no
+``nonzero``, no boolean-mask indexing, no ``.item()``; the one-hot is a
+comparison, since ``F.one_hot`` checks its input's range on the host),
+and nothing adds floats in an order that varies between runs: tokens
+scatter into unique (expert, slot) targets, and the K expert outputs of
+a token are summed in k order, as the reference's scatter-add sums them.
+The expert products are ``torch.bmm`` over all E experts, the
+reference's ``einsum``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from . import layers as L
+from .layers import ParamSpec
+
+CAPACITY_FACTOR = 1.25
+
+
+def moe_mlp_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    d, dff, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    s: Dict[str, Any] = {
+        "router": ParamSpec((d, E), scale=1.0),
+        "wi": ParamSpec((E, d, dff)),
+        "wg": ParamSpec((E, d, dff)),
+        "wo": ParamSpec((E, dff, d)),
+    }
+    if cfg.num_shared_experts:
+        sdff = cfg.num_shared_experts * dff
+        s["shared"] = {"wi": ParamSpec((d, sdff)),
+                       "wg": ParamSpec((d, sdff)),
+                       "wo": ParamSpec((sdff, d))}
+    return s
+
+
+def capacity(tokens: int, k: int, num_experts: int,
+             factor: float = CAPACITY_FACTOR) -> int:
+    c = int(math.ceil(tokens * k / num_experts * factor))
+    return max(8, -(-c // 8) * 8)  # round up to multiple of 8
+
+
+def expert_ffn(p, buf: torch.Tensor) -> torch.Tensor:
+    """The gated FFN of every expert over its buffer: [E, C, D] ->
+    [E, C, D], three batched products over all E experts."""
+    h = F.silu(torch.bmm(buf, p["wg"])) * torch.bmm(buf, p["wi"])
+    return torch.bmm(h, p["wo"])
+
+
+def moe_mlp_apply(cfg: ArchConfig, p, x: torch.Tensor, *,
+                  capacity_factor: float = CAPACITY_FACTOR,
+                  drop_tokens: bool = True, aux: bool = True):
+    """x: [B, S, D] -> ([B, S, D], Switch aux load-balancing loss).
+
+    ``drop_tokens=False`` sizes the buffers for the worst case (C =
+    ceil8(T * K)) so that no decision is dropped: inference requires it,
+    because a capacity that depends on T would make prefill (T = B * S)
+    and decode (T = B) drop different tokens. ``aux=False`` returns None
+    for the loss (serving never reads it)."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    T = B * S
+    dev = x.device
+    xt = x.reshape(T, D)
+
+    gates = torch.softmax(xt.float() @ p["router"].float(), dim=-1)  # [T, E]
+    topv, topi = torch.topk(gates, K, dim=-1, sorted=True)          # [T, K]
+    topv = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # slot of each (t, k) decision within its expert: exclusive cumsum
+    flat_e = topi.reshape(T * K)                                    # [TK]
+    onehot = (flat_e[:, None]
+              == torch.arange(E, device=dev)).to(torch.int64)       # [TK, E]
+    pos = torch.cumsum(onehot, 0) - onehot
+    pos_in_e = pos.gather(1, flat_e[:, None])[:, 0]                 # [TK]
+    tok_idx = torch.arange(T * K, device=dev) // K
+    w = topv.reshape(T * K)
+    if drop_tokens:
+        C = capacity(T, K, E, capacity_factor)
+        keep = pos_in_e < C
+        # dropped decisions add zeros at slot 0 of their expert, as the
+        # reference's scatter-add does; only one value there is nonzero,
+        # so the sum is exact in any order
+        slot = torch.where(keep, pos_in_e, torch.zeros_like(pos_in_e))
+        contrib = torch.where(keep[:, None], xt[tok_idx],
+                              torch.zeros((), dtype=x.dtype, device=dev))
+        w = w * keep
+        buf = torch.zeros(E, C, D, dtype=x.dtype, device=dev)
+        buf.index_put_((flat_e, slot), contrib, accumulate=True)
+    else:
+        C = max(8, -(-T * K // 8) * 8)     # worst case: nothing dropped
+        slot = pos_in_e                   # every (expert, slot) unique
+        buf = torch.zeros(E, C, D, dtype=x.dtype, device=dev)
+        buf.index_put_((flat_e, slot), xt[tok_idx])
+
+    y = expert_ffn(p, buf)                                          # [E, C, D]
+
+    # gather back; gate weights in the activations' type, as the reference
+    # casts them, and the K outputs of a token summed in k order
+    y_tok = (y[flat_e, slot] * w.to(y.dtype)[:, None]).view(T, K, D)
+    out = y_tok[:, 0]
+    for k in range(1, K):
+        out = out + y_tok[:, k]
+
+    if cfg.num_shared_experts:
+        sh = p["shared"]
+        shared = L.swiglu(x, sh["wi"], sh["wg"], sh["wo"])
+        out = out + shared.reshape(T, D).to(out.dtype)
+
+    loss = None
+    if aux:
+        me = gates.mean(0)                                          # [E]
+        ce = (onehot.view(T, K, E).sum(1) > 0).float().mean(0)
+        loss = (me * ce).sum() * E
+    return out.reshape(B, S, D).to(x.dtype), loss
+
+
+def moe_block_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    d = cfg.d_model
+    return {
+        "ln1": ParamSpec((d,), "ones"),
+        "ln2": ParamSpec((d,), "ones"),
+        "attn": L.attn_specs(cfg),
+        "moe": moe_mlp_specs(cfg),
+    }

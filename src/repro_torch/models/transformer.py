@@ -1,9 +1,11 @@
-"""Dense decoder stack of the port (dense subset of
-``repro/models/transformer.py``).
+"""Decoder stack of the port (the dense family of
+``repro/models/transformer.py`` and the MoE family's blocks of
+``repro/models/moe.py``, one homogeneous segment).
 
 Parameters are a plain dict with the reference's tree and layouts: block
 weights stacked along a leading layer dim under ``"blocks"`` (``wq``
-``[L, d, H, hd]``, ``wo [L, H, hd, d]``, ...), tied embeddings for llama.
+``[L, d, H, hd]``, ``wo [L, H, hd, d]``, an MoE block's ``moe.wi``
+``[L, E, d, dff]``, ...), tied embeddings for llama.
 A parameter tree converted from the JAX package (``repro_torch.weights``)
 therefore drops in as is. The block loop is a Python loop over layers
 (the reference's ``lax.scan``); the paged KV pools are per-segment
@@ -11,17 +13,17 @@ therefore drops in as is. The block loop is a Python loop over layers
 """
 from __future__ import annotations
 
-import dataclasses
-import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from . import layers as L
+from .layers import ParamSpec, init_one
+from .moe import moe_block_specs, moe_mlp_apply
 
-SEGMENT = "blocks"          # the reference's single dense segment name
+SEGMENT = "blocks"          # the reference's name for the served segment
 
 
 def _as_index(x, device) -> torch.Tensor:
@@ -38,24 +40,12 @@ def _last_positions(lens, device) -> torch.Tensor:
     return _as_index(lens, device).reshape(-1) - 1
 
 
-@dataclasses.dataclass(frozen=True)
-class ParamSpec:
-    shape: Tuple[int, ...]
-    init: str = "normal"    # normal | ones | embed
-
-
 def dense_block_specs(cfg: ArchConfig) -> Dict[str, Any]:
-    d, H, KVH, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                         cfg.head_dim, cfg.d_ff)
+    d, ff = cfg.d_model, cfg.d_ff
     return {
         "ln1": ParamSpec((d,), "ones"),
         "ln2": ParamSpec((d,), "ones"),
-        "attn": {
-            "wq": ParamSpec((d, H, hd)),
-            "wk": ParamSpec((d, KVH, hd)),
-            "wv": ParamSpec((d, KVH, hd)),
-            "wo": ParamSpec((H, hd, d)),
-        },
+        "attn": L.attn_specs(cfg),
         "mlp": {
             "wi": ParamSpec((d, ff)),
             "wg": ParamSpec((d, ff)),
@@ -70,33 +60,28 @@ def _map_specs(fn, tree):
     return {k: _map_specs(fn, v) for k, v in tree.items()}
 
 
-def init_one(spec: ParamSpec, generator: torch.Generator, device,
-             dtype) -> torch.Tensor:
-    """The reference's initializer (``repro.models.layers._init_one``):
-    ones, N(0, 0.02) for the embedding, else N(0, 1 / sqrt(fan_in))
-    with fan_in = the spec's leading dim. For stacked block weights that
-    leading dim is the layer count, as in the reference, so random-weight
-    runs of the two packages sit in the same numeric range. Draws in f32
-    from ``generator`` (on ``device``), then casts."""
-    if spec.init == "ones":
-        return torch.ones(spec.shape, device=device, dtype=dtype)
-    fan_in = spec.shape[0] if len(spec.shape) > 1 else max(spec.shape[-1], 1)
-    std = 0.02 if spec.init == "embed" else 1.0 / math.sqrt(fan_in)
-    w = torch.randn(spec.shape, generator=generator, device=device,
-                    dtype=torch.float32)
-    return (w * std).to(dtype)
+def _at(tree, l: int):
+    """Layer ``l`` of a tree of stacked block weights."""
+    if isinstance(tree, dict):
+        return {k: _at(v, l) for k, v in tree.items()}
+    return tree[l]
 
 
 class StackedLM:
-    """A dense causal LM: embedding, ``num_layers`` pre-norm blocks, final
-    norm, tied (or separate) output head."""
+    """A causal LM: embedding, ``num_layers`` pre-norm blocks (dense, or
+    MoE: dense attention and an MoE FFN), final norm, tied (or separate)
+    output head."""
 
     def __init__(self, cfg: ArchConfig):
-        if cfg.sliding_window or cfg.use_bias or cfg.pos_type != "rope":
+        if cfg.sliding_window or cfg.pos_type != "rope":
             raise NotImplementedError(
-                f"{cfg.name}: sliding windows, attention biases and "
-                f"non-RoPE positions are not ported yet (ROADMAP queue 1, "
-                f"item 8)")
+                f"{cfg.name}: sliding windows and non-RoPE positions are "
+                f"not ported yet (ROADMAP queue 1, item 9)")
+        if cfg.first_k_dense:
+            raise NotImplementedError(
+                f"{cfg.name}: a dense stem segment ahead of the MoE blocks "
+                f"is not served; the reference's engine also serves only "
+                f"a single homogeneous segment")
         self.cfg = cfg
 
     # -- parameters --------------------------------------------------------
@@ -108,9 +93,10 @@ class StackedLM:
         }
         if not c.tie_embeddings:
             specs["head"] = ParamSpec((c.d_model, c.vocab_size))
+        block = moe_block_specs(c) if c.is_moe else dense_block_specs(c)
         specs[SEGMENT] = _map_specs(
-            lambda s: ParamSpec((c.num_layers,) + s.shape, s.init),
-            dense_block_specs(c))
+            lambda s: ParamSpec((c.num_layers,) + s.shape, s.init, s.scale),
+            block)
         return specs
 
     def init_params(self, generator: torch.Generator, device, dtype):
@@ -130,13 +116,16 @@ class StackedLM:
 
     @staticmethod
     def _layer(params, l: int) -> Dict[str, Any]:
-        blk = params[SEGMENT]
-        return {"ln1": blk["ln1"][l], "ln2": blk["ln2"][l],
-                "attn": {k: v[l] for k, v in blk["attn"].items()},
-                "mlp": {k: v[l] for k, v in blk["mlp"].items()}}
+        return _at(params[SEGMENT], l)
 
     def _mlp(self, p, x):
         h = L.rmsnorm(x, p["ln2"], self.cfg.norm_eps)
+        if "moe" in p:
+            # inference dispatches without capacity dropping, as the
+            # reference's moe_block_apply does outside training
+            out, _ = moe_mlp_apply(self.cfg, p["moe"], h, drop_tokens=False,
+                                   aux=False)
+            return x + out
         m = p["mlp"]
         return x + L.swiglu(h, m["wi"], m["wg"], m["wo"])
 

@@ -1,13 +1,16 @@
-"""The port's dense configs against the JAX package's (CPU, f32).
+"""The port's configs against the JAX package's (CPU, f32).
 
 llama3.2-3b, glm4-9b and command-r-35b are the reference's dense configs
-that ``StackedLM`` serves (RoPE, full attention, no bias). Their fields,
-and those of their ``reduced`` forms, must equal the reference's. On the
-same parameters (drawn by the JAX package and carried across with
-``params_from_jax``, glm4-9b's untied head included), each reduced model's
-prefill logits agree within atol = rtol = 1e-4 (f32 sums in another order)
-and its engine's greedy streams and paging decisions under swap
-preemption equal the reference engine's. ``reduced`` keeps at most 4
+that ``StackedLM`` serves (RoPE, full attention, no bias), qwen2-moe-a2.7b
+its MoE config (attention biases, 60 experts top-4 plus 4 shared; reduced:
+8 experts top-2 plus 1 shared). Their fields, and those of their
+``reduced`` forms, must equal the reference's. On the same parameters
+(drawn by the JAX package, attention biases drawn nonzero there, and
+carried across with ``params_from_jax``, untied heads included), each
+reduced model's prefill logits agree within atol = rtol = 1e-4 (f32 sums
+in another order) and its engine's greedy streams and paging decisions
+under swap preemption equal the reference engine's. ``reduced`` keeps at
+most 4
 heads, so two variants restore the full configs' grouping: rep 3
 (llama3.2-3b: 6 query heads over 2 KV heads) and rep 16 over 2 KV heads
 with an untied head (glm4-9b: 32 query heads).
@@ -29,7 +32,7 @@ from test_torch_engine import _both
 from test_torch_serving import _workload
 
 TOL = dict(atol=1e-4, rtol=1e-4)
-NEW = ["llama3.2-3b", "glm4-9b", "command-r-35b"]
+NEW = ["llama3.2-3b", "glm4-9b", "command-r-35b", "qwen2-moe-a2.7b"]
 # name -> (arch, fields replaced on both packages' reduced config)
 VARIANTS = {
     "llama3.2-3b": ("llama3.2-3b", {}),
@@ -37,6 +40,7 @@ VARIANTS = {
     "command-r-35b": ("command-r-35b", {}),
     "llama3.2-3b-rep3": ("llama3.2-3b", dict(num_heads=6, num_kv_heads=2)),
     "glm4-9b-rep16": ("glm4-9b", dict(num_heads=32, num_kv_heads=2)),
+    "qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", {}),
 }
 
 
@@ -79,6 +83,11 @@ def test_registry_holds_the_dense_configs():
             get_arch("llama3.2-3b").q_per_kv) == (128, 3)
     assert get_arch("glm4-9b").q_per_kv == 16
     assert not get_arch("glm4-9b").tie_embeddings
+    moe = get_arch("qwen2-moe-a2.7b")
+    assert (moe.is_moe, moe.use_bias, moe.q_per_kv, moe.head_dim) == \
+        (True, True, 1, 128)
+    assert not any(c.is_moe or c.use_bias for n, c in ARCHS.items()
+                   if n != "qwen2-moe-a2.7b")
 
 
 def _models(variant):
@@ -90,6 +99,13 @@ def _models(variant):
     japi = jax_build(jcfg, max_seq=128)
     jparams = jax.tree.map(lambda x: x.astype(jnp.float32),
                            japi.init(jax.random.PRNGKey(2)))
+    if jcfg.use_bias:
+        # the reference initialises biases to zero; draw them nonzero so
+        # that the comparison sees them
+        attn = jparams["blocks"]["attn"]
+        for i, b in enumerate(("bq", "bk", "bv")):
+            attn[b] = 0.5 * jax.random.normal(jax.random.PRNGKey(10 + i),
+                                              attn[b].shape, jnp.float32)
     tapi = build_model(tcfg, device="cpu", dtype=torch.float32)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     return japi, jparams, tapi, tparams

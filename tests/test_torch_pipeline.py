@@ -4,7 +4,9 @@ engine's ``PagedPipelinedBackend``.
 
 (a) Unsealed, the pipelined step equals the port's own ``decode_paged_fn``
     within 1e-5 on logits and pools, for even and uneven stage layouts, on
-    reduced llama3.2-1b in f32 and on a GQA variant (2 KV heads).
+    reduced llama3.2-1b in f32, on a GQA variant (2 KV heads) and on
+    reduced qwen2-moe-a2.7b at 4 layers (MoE blocks, attention biases
+    drawn nonzero).
 (b) Sealed, the port's step matches the reference ``PipelinedDecoder`` on
     the same parameters, pools and tokens: logits and pools within 1e-3 of
     the largest magnitude (both sides quantize each boundary identically
@@ -168,21 +170,31 @@ def reference(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def models():
-    """The port's reduced llama3.2-1b and a GQA variant (2 KV heads), f32,
-    with seeded random weights."""
+    """The port's reduced llama3.2-1b, a GQA variant (2 KV heads) and
+    reduced qwen2-moe-a2.7b at 4 layers (the stage layouts' depth), f32,
+    with seeded random weights; the MoE's attention biases, zero at init
+    as in the reference, drawn nonzero."""
     out = {}
     base = reduced(get_arch("llama3.2-1b"))
+    moe = dataclasses.replace(reduced(get_arch("qwen2-moe-a2.7b")),
+                              num_layers=4)
     for name, cfg in (("mha", base),
-                      ("gqa", dataclasses.replace(base, num_kv_heads=2))):
+                      ("gqa", dataclasses.replace(base, num_kv_heads=2)),
+                      ("moe", moe)):
         api = build_model(cfg, device="cpu", dtype=torch.float32)
-        out[name] = (api, api.init(torch.Generator().manual_seed(1)))
+        g = torch.Generator().manual_seed(1)
+        params = api.init(g)
+        for b in ("bq", "bk", "bv"):
+            if b in params["blocks"]["attn"]:
+                params["blocks"]["attn"][b].normal_(generator=g)
+        out[name] = (api, params)
     return out
 
 
 # ---------------------------------------------------------------------------
 # (a) unsealed pipeline == the port's own decode step
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("model", ["mha", "gqa"])
+@pytest.mark.parametrize("model", ["mha", "gqa", "moe"])
 @pytest.mark.parametrize("blocks", LAYOUTS)
 def test_unsealed_pipeline_equals_decode_paged_fn(models, model, blocks):
     api, params = models[model]

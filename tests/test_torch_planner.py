@@ -5,8 +5,9 @@ All of it is host code (Python floats, no device work), copied into the
 port with its imports pointed at ``repro_torch``. So every answer must be
 equal, not close: the same layer profiles, the same best placement from
 every solver in both search spaces (``t_chunk`` within 1e-12 relative),
-the same serving plans ((1, 15) for full-width llama3.2-1b and (1, 3) for
-the reduced config over two enclaves), and the same sequence of re-plans
+the same serving plans ((1, 15) for full-width llama3.2-1b, (8, 20) for
+llama3.2-3b, (4, 20) for qwen2-moe-a2.7b and (1, 3) for reduced
+llama3.2-1b over two enclaves), and the same sequence of re-plans
 from the same stage-time observations with a straggler injected.
 """
 import dataclasses
@@ -158,6 +159,29 @@ def test_serving_plans_equal(J, topology, args):
         _same_eval(got.current, want.current)
         if topology == "two_enclave_manager":
             assert gspec.stage_sizes() == blocks
+
+
+@pytest.mark.parametrize("name,blocks", [
+    ("llama3.2-1b", (1, 15)), ("llama3.2-3b", (8, 20)),
+    ("qwen2-moe-a2.7b", (4, 20))])
+def test_full_width_serving_plans_equal(J, name, blocks):
+    """The plan a two-stage engine starts from at full width, with the
+    engine's own planning defaults: the same profiles (an MoE block's
+    bytes count every expert, its FLOPs only the routed-to ones) and the
+    same placement as the reference's."""
+    from repro_torch.serving import EngineConfig
+    ec = EngineConfig()
+    cfg, jcfg = get_arch(name), J.get_arch(name)
+    profs, jprofs = profiles_from_arch(cfg, 1), J.profiles_from_arch(jcfg, 1)
+    assert [dataclasses.astuple(p) for p in profs] == \
+        [dataclasses.astuple(p) for p in jprofs]
+    kw = dict(n=ec.plan_n, delta=ec.delta, solver=ec.solver, space=ec.space,
+              min_stages=2)
+    gspec = OnlineReplanner(two_enclave_manager(), profs, **kw).plan()
+    wspec = J.OnlineReplanner(J.domain.two_enclave_manager(), jprofs,
+                              **kw).plan()
+    assert gspec.describe() == wspec.describe()
+    assert gspec.stage_sizes() == wspec.stage_sizes() == blocks
 
 
 def _telemetry(mk_rm, Replanner, Telemetry, Monitor, profiles):

@@ -17,7 +17,9 @@ shared pages untouched, and equals a host-side drop of the sentinel rows.
 
 Tests marked ``cuda`` skip here: on the card a replayed decode step and a
 replayed chunk give logits and pools bit-equal to eager on the same state,
-and N replays of the decode graph count N times the eager launches.
+and N replays of the decode graph count N times the eager launches; the
+MoE FFN's no-drop dispatch at full-width qwen2-moe-a2.7b's shapes repeats
+its bits eagerly and replays them from a CUDA graph.
 """
 import numpy as np
 import pytest
@@ -27,6 +29,7 @@ from repro_torch.configs import get_arch, reduced
 from repro_torch.kernels import ops
 from repro_torch.models import layers as TL
 from repro_torch.models.api import build_model
+from repro_torch.models.moe import moe_mlp_apply
 from repro_torch.serving import EngineConfig, ServingEngine
 from repro_torch.serving.aot import AotRegistry, _sig_of
 from repro_torch.serving.scheduler import DONE
@@ -370,3 +373,46 @@ def test_replay_launch_counts(cuda):
     assert counts[0]["paged_attention"] == api.cfg.num_layers
     assert counts[1] == {k: 5 * v for k, v in counts[0].items()}
     assert warmed.stats()["post_warmup_compiles"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [8, 128])
+def test_moe_dispatch_repeats_and_replays_bit_equal(cuda, T):
+    """The serving dispatch on the card at full width's E, K and widths
+    (bf16), at a decode step's 8 tokens and a 128-token prefill bucket: a
+    second eager call gives the same bits (no atomics in the scatter or
+    the combine), and a CUDA graph of it replays them."""
+    cfg = get_arch("qwen2-moe-a2.7b")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    p = {"router": torch.randn(cfg.d_model, cfg.num_experts, generator=g,
+                               device=cuda).to(torch.bfloat16) * 0.05}
+    for k, shape in (("wi", (cfg.num_experts, cfg.d_model, cfg.moe_d_ff)),
+                     ("wg", (cfg.num_experts, cfg.d_model, cfg.moe_d_ff)),
+                     ("wo", (cfg.num_experts, cfg.moe_d_ff, cfg.d_model))):
+        p[k] = (torch.randn(shape, generator=g, device=cuda) * 0.02).to(
+            torch.bfloat16)
+    sd = cfg.num_shared_experts * cfg.moe_d_ff
+    p["shared"] = {k: (torch.randn(s, generator=g, device=cuda) * 0.02).to(
+        torch.bfloat16) for k, s in (("wi", (cfg.d_model, sd)),
+                                     ("wg", (cfg.d_model, sd)),
+                                     ("wo", (sd, cfg.d_model)))}
+    x = torch.randn(1, T, cfg.d_model, generator=g, device=cuda).to(
+        torch.bfloat16)
+
+    def run():
+        return moe_mlp_apply(cfg, p, x, drop_tokens=False, aux=False)[0]
+
+    eager, again = run(), run()
+    assert torch.equal(eager, again)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert torch.isfinite(eager.float()).all()
