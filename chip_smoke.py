@@ -25,18 +25,23 @@ Phases (each prints its own lines; any failure exits non-zero):
      bf16 and f32, also from cipher views 1 to 3 bytes past a 4-byte
      boundary; prefill attention: the reference's grid,
      ragged lengths, head_dim 128, GQA rep 4, the one-shot, packed and chunk
-     shapes of full-width llama, the one-shot shapes of phases 11 and 12
-     (24 heads over 8, 16 over 16, head_dim 128) and short chunks late in
-     a long prompt, f32 and bf16); both attention kernels must repeat their
-     bits on a second call. The seal, the unseal and the cipher read their key and
+     shapes of full-width llama, phase 13's training shape (batch 8, seq
+     128), the one-shot shapes of phases 11 and 12 (24 heads over 8, 16
+     over 16, head_dim 128) and short chunks late in a long prompt, f32
+     and bf16); both attention kernels must repeat their bits on a second
+     call. At the training shape the flash wrapper must refuse inputs that
+     require grad outside ``FlashAttentionFn``, and the Function's forward
+     must equal the kernel and its plain backward autograd of the plain
+     forward. The seal, the unseal and the cipher read their key and
      counter from device memory: captured once in a CUDA graph over key
      and counter tensors and replayed under two keys written into them,
      each replay must equal the plain version under its key and the two
      replays' cipher texts must differ;
   3. time each kernel, its plain version, one PyTorch library call of the
      same function where one exists, and compute the least time the card
-     could take (prefill attention at its three path shapes, paged
-     attention at the short and the long decode shape, in bf16); also a
+     could take (prefill attention at its four path shapes, paged
+     attention at the short and the long decode shape, in bf16; the
+     training shape's plain attention backward); also a
      launch floor, a one-element ``zero_()`` under the same timing; each
      kernel and the floor are timed again inside a CUDA graph (50
      back-to-back launches captured, the graph replayed), as a captured
@@ -52,7 +57,11 @@ Phases (each prints its own lines; any failure exits non-zero):
      equal the one-shot run's on both devices; then llama3.2-3b cut to 2
      layers at head_dim 128, rep 3, greedy and sampled, and reduced
      qwen2-moe-a2.7b (MoE FFN, attention biases drawn nonzero) through the
-     local and the unsealed pipelined backend, each card vs CPU;
+     local and the unsealed pipelined backend, each card vs CPU; then the
+     training path: reduced llama3.2-1b in f32, one loss and every
+     gradient card vs CPU (the flash kernel launched 2 x layers), three
+     steps card vs CPU, and on the card in f32 and bf16 two straight runs
+     bit-equal and a checkpointed, resumed run bit-equal to them;
   5. serve full-width llama3.2-1b (16 layers, d_model 2048, vocab 128,256)
      in bf16 with seeded random weights through ``ServingEngine`` on the
      local backend: 8 slots, 16 requests with a shared system prompt, 32
@@ -137,7 +146,15 @@ Phases (each prints its own lines; any failure exits non-zero):
      and sealed boundaries (blocks (4, 20), no re-plan, nm x (S - 1) seals
      a step); every swap-in bit-exact, every logit finite. Prints the
      parameters, init seconds, ms per decode step, decode tokens/s,
-     admission p50/p99 and memory reserved and at peak.
+     admission p50/p99 and memory reserved and at peak;
+ 13. train full-width llama3.2-1b in bf16 through ``launch.train.main``
+     (the launcher's defaults: batch 8, seq 128, lr 1e-3, warmup steps /
+     10; f32 master and moments; deterministic algorithms), 30 steps, no
+     checkpoint directory: every loss and grad norm finite, the mean of the
+     last 5 losses below the first, the flash kernel launched 2 x 16 times
+     a step (forward and remat recompute). Prints the loss curve, ms per
+     step, tokens/s, memory, the bytes a checkpoint would write and a
+     model-FLOP estimate against the bf16 peak.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
@@ -146,6 +163,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -541,7 +559,10 @@ def check_captured_keys(torch, ops, ref, sealing):
 # prefill attention: B, Sq, Sk, H, KVH, D, causal, window, q_offset
 FLASH_PATH = {"one-shot": (1, 512, 512, 32, 8, 64, 1, 0, 0),
               "packed": (4, 128, 128, 32, 8, 64, 1, 0, 0),
-              "chunk": (1, 128, 512, 32, 8, 64, 1, 0, 384)}
+              "chunk": (1, 128, 512, 32, 8, 64, 1, 0, 384),
+              # phase 13's training step: every layer's attention, forward
+              # and remat recompute (llama3.2-1b, batch 8, seq 128)
+              "train": (8, 128, 128, 32, 8, 64, 1, 0, 0)}
 FLASH_CASES = ([(B, S, S, H, H, D, int(c), w, 0) for B, H, S, D, w, c in (
     (2, 4, 256, 64, 0, True), (1, 2, 128, 32, 64, True),
     (2, 2, 64, 16, 0, True), (1, 1, 512, 64, 0, True),
@@ -619,6 +640,51 @@ def check_flash_attention(torch, ops, ref):
         log(f"check flash_attention {dtype}: {len(FLASH_CASES)} cases, "
             f"max_abs_err={worst:.3e} ({tol}), repeats bit-equal")
     return errs
+
+
+def check_flash_train(torch, ops, ref):
+    """Prefill attention under autograd at phase 13's shape (B=8, S=128,
+    32 heads over 8, D=64): ``ops.flash_attention`` refuses CUDA inputs
+    that require grad while autograd records (its output has no graph);
+    ``FlashAttentionFn`` gives the kernel's output bit for bit, and its
+    plain backward's dq, dk, dv agree with autograd through the plain
+    forward: f32 within 1e-4 of the largest gradient (the kernel's output,
+    within 3e-5, enters delta = rowsum(dO·O)), bf16 within 1.6e-2 of it
+    (two bf16 steps: the kernel's bf16 output may sit one step from the
+    plain one's). A second backward gives the same bits."""
+    case = FLASH_PATH["train"]
+    for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 1.6e-2)):
+        q, k, v = (t.requires_grad_() for t in flash_inputs(torch, case,
+                                                            dtype, seed=6))
+        do = torch.randn(q.shape, generator=torch.Generator(
+            device="cuda").manual_seed(7), device="cuda").to(dtype)
+        try:
+            ops.flash_attention(q, k, v)
+        except RuntimeError as e:
+            assert "FlashAttentionFn" in str(e), e
+        else:
+            raise AssertionError("flash_attention launched on inputs that "
+                                 "require grad outside FlashAttentionFn")
+        out = ops.flash_attention_train(q, k, v)
+        with torch.no_grad():
+            kernel = ops.flash_attention(q, k, v)
+        got = torch.autograd.grad(out, (q, k, v), do)
+        again = torch.autograd.grad(ops.flash_attention_train(q, k, v),
+                                    (q, k, v), do)
+        want = torch.autograd.grad(flash_plain(ref, q, k, v), (q, k, v), do)
+        torch.cuda.synchronize()
+        assert torch.equal(out, kernel), "Function forward != kernel"
+        errs = []
+        for name, a, b, c in zip("qkv", got, again, want):
+            assert torch.equal(a, b), f"d{name}: second backward differs"
+            err = (a.float() - c.float()).abs().max().item()
+            top = c.float().abs().max().item()
+            assert err <= rel * top, (dtype, name, err, top)
+            errs.append(f"d{name} {err:.2e} (max {top:.2f})")
+        log(f"check flash_attention under autograd {dtype} B=8 S=128 H=32 "
+            f"KVH=8 D=64: refused outside FlashAttentionFn, forward = "
+            f"kernel bit for bit, {', '.join(errs)} <= {rel} x max, second "
+            f"backward bit-equal")
 
 
 def visible_keys(torch, case) -> float:
@@ -798,6 +864,14 @@ def time_kernels(torch, ops, ref, sealing, F):
         f"{time_ms(lambda: z.zero_()) * 1e3:.2f} us, in a graph "
         f"{graph_ms(lambda: z.zero_()) * 1e3:.2f} us")
     out["flash_attention"] = time_flash(torch, ops, ref, F)
+    # the training step's attention backward (plain PyTorch, no kernel in
+    # the reference either), at phase 13's shape
+    case = FLASH_PATH["train"]
+    q, k, v = flash_inputs(torch, case, torch.bfloat16, seed=5)
+    o = ops.flash_attention(q, k, v)
+    bwd = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, o, o), 20)
+    log(f"time flash_attention train backward (plain, bf16 B=8 S=128 H=32 "
+        f"KVH=8 D=64): {bwd * 1e3:.1f} us")
     return out
 
 
@@ -974,6 +1048,138 @@ def small_moe_check(torch):
             f"experts top-2 + 1 shared, biases nonzero), f32, {what} (stage "
             f"blocks {sb['stage_blocks']}): {len(a)} streams equal card vs "
             f"CPU, swap_outs={sb['swap_outs']} swap_ins={sb['swap_ins']}")
+
+
+TRAIN_OPT = dict(lr=3e-3, warmup_steps=2, total_steps=60, weight_decay=0.01)
+
+
+def _train_run(torch, api, params, steps, ckpt=None, resume=False,
+               ckpt_every=50):
+    """``steps`` train steps of reduced llama3.2-1b through ``TrainLoop``
+    from a copy of ``params`` on the model's device (batch 4, seq 32,
+    ``TRAIN_OPT``): (loop, result)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import SyntheticTokenStream
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.steps import make_train_step
+    from repro_torch.runtime.train_loop import TrainLoop, TrainLoopConfig
+    from repro_torch.tree import map_tree
+    p = map_tree(lambda t: t.to(api.device, copy=True), params)
+    step = make_train_step(api, AdamWConfig(**TRAIN_OPT),
+                           ShapeConfig("t", 32, 4, "train"),
+                           device=api.device)
+    loop = TrainLoop(train_step=step, params=p, opt_state=adamw.init(p),
+                     data=SyntheticTokenStream(api.cfg.vocab_size, 4, 32,
+                                               seed=1),
+                     ckpt=ckpt, cfg=TrainLoopConfig(total_steps=steps,
+                                                    ckpt_every=ckpt_every))
+    if resume:
+        assert loop.try_restore(), "no checkpoint to resume from"
+    return loop, loop.run(steps)
+
+
+def small_train_check(torch, ops):
+    """Phase 4 on the training path: reduced llama3.2-1b in f32 (TF32 off)
+    from the same params on the card and on the CPU. (a) One loss and its
+    gradient: loss rtol 1e-5, every parameter's gradient within 5e-4 of
+    the leaf's largest (the attention weights' included: a dropped
+    attention gradient would leave wq and wk at zero), the flash kernel
+    launched 2 x num_layers times (forward and remat recompute). (b) Three
+    steps through ``TrainLoop``: losses rtol 1e-5, grad norms rtol 1e-3,
+    every parameter within twice the steps' summed learning rates and 95%
+    of each leaf within 1e-5 (the tolerances of tests/test_torch_train.py
+    against the reference). (c) On the card, in f32 and in bf16: two
+    straight runs of 6 steps give the same bits, and 3 steps, a checkpoint
+    and 3 resumed steps on fresh junk state end bit-equal to them."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data import SyntheticTokenStream
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import leaves, map_tree, named_leaves
+    cfg = reduced(get_arch("llama3.2-1b"))
+    cpu = build_model(cfg, device="cpu", dtype=torch.float32)
+    params = cpu.init(torch.Generator().manual_seed(0))
+    card = build_model(cfg, device="cuda", dtype=torch.float32)
+
+    batch = SyntheticTokenStream(cfg.vocab_size, 4, 32, seed=1).batch_at(0)
+    res = {}
+    for api in (cpu, card):
+        tracked = map_tree(
+            lambda t: t.to(api.device, copy=True).requires_grad_(), params)
+        names = list(named_leaves(tracked))
+        b = {k: torch.from_numpy(v).to(api.device) for k, v in batch.items()}
+        ops.reset_launch_counts()
+        loss = api.loss_fn(tracked, b)
+        grads = torch.autograd.grad(loss, leaves(tracked))
+        res[api.device.type] = (float(loss.detach()), [g.cpu() for g in grads],
+                                ops.LAUNCHES["flash_attention"])
+    (loss_c, grads_c, _), (loss_g, grads_g, launched) = res["cpu"], \
+        res["cuda"]
+    assert launched == 2 * cfg.num_layers, launched
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c), (loss_g, loss_c)
+    worst = 0.0
+    for name, a, b in zip(names, grads_g, grads_c):
+        err, top = (a - b).abs().max().item(), b.abs().max().item()
+        assert err <= 5e-4 * top, (name, err, top)
+        assert top > 0, name
+        worst = max(worst, err / top)
+    log(f"check training, reduced llama3.2-1b f32 card vs CPU: loss "
+        f"{loss_g:.7f} vs {loss_c:.7f}, {len(names)} gradients within "
+        f"{worst:.2e} of each leaf's largest (<= 5e-4; wq, wk, wv "
+        f"nonzero), flash launched {launched} = 2 x {cfg.num_layers} layers")
+
+    runs = {dev: _train_run(torch, api, params, 3)
+            for dev, api in (("cpu", cpu), ("cuda", card))}
+    (lc, rc), (lg, rg) = runs["cpu"], runs["cuda"]
+    for a, b in zip(rg["losses"], rc["losses"]):
+        assert abs(a - b) <= 1e-5 * abs(b), (rg["losses"], rc["losses"])
+    for a, b in zip(rg["gnorms"], rc["gnorms"]):
+        assert abs(a - b) <= 1e-3 * abs(b), (rg["gnorms"], rc["gnorms"])
+    lrs = AdamWConfig(**TRAIN_OPT)
+    bound = 2 * sum(float(adamw.schedule(lrs, i)) for i in range(3))
+    for (name, a), b in zip(named_leaves(lg.params).items(),
+                            leaves(lc.params)):
+        d = (a.cpu() - b).abs()
+        assert d.max().item() <= bound, (name, d.max().item(), bound)
+        assert (d <= 1e-5).float().mean().item() >= 0.95, (name, d)
+    log(f"check training, reduced f32, 3 steps card vs CPU: losses "
+        f"{[round(x, 6) for x in rg['losses']]} vs "
+        f"{[round(x, 6) for x in rc['losses']]}, gnorms within 1e-3, params "
+        f"within {bound:.1e} and 95% of each leaf within 1e-5")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        api = build_model(cfg, device="cuda", dtype=dtype)
+        p = map_tree(lambda t: t.to(dtype), params)
+        straight, _ = _train_run(torch, api, p, 6)
+        twice, _ = _train_run(torch, api, p, 6)
+        with tempfile.TemporaryDirectory() as d:
+            ck = CheckpointManager(d, async_save=False)
+            _train_run(torch, api, p, 3, ckpt=ck, ckpt_every=3)
+            junk = map_tree(lambda t: t.to(dtype), card.init(
+                torch.Generator(device="cuda").manual_seed(9)))
+            resumed, _ = _train_run(torch, api, junk, 3, ckpt=ck,
+                                    resume=True)
+        assert resumed.step == 6
+        for (name, a), b, c in zip(named_leaves(straight.params).items(),
+                                   leaves(twice.params),
+                                   leaves(resumed.params)):
+            assert a.dtype == dtype and torch.equal(a, b), \
+                f"{dtype} {name}: a second straight run differs"
+            assert torch.equal(a, c), f"{dtype} {name}: resumed != straight"
+        for (name, x), y in zip(named_leaves(straight.opt_state).items(),
+                                leaves(resumed.opt_state)):
+            assert torch.equal(x, y), f"{dtype} opt {name}: resumed"
+        assert straight.losses[3:] == resumed.losses, \
+            (straight.losses, resumed.losses)
+        log(f"check training on the card, reduced {dtype}: two straight "
+            f"runs of 6 steps bit-equal, 3 + checkpoint + 3 resumed "
+            f"bit-equal to them (params, master, moments, losses "
+            f"{[round(x, 5) for x in straight.losses]})")
 
 
 def _to(torch, tree, device):
@@ -2087,6 +2293,89 @@ def serve_moe(torch, ops, smi):
     return [a, again, b, c]
 
 
+# phase 13: the launcher's defaults (batch 8, seq 128, lr 1e-3, warmup
+# steps / 10), 30 steps, no checkpoint directory
+FULL_TRAIN = ["--arch", "llama3.2-1b", "--steps", "30", "--batch", "8",
+              "--seq", "128", "--lr", "1e-3"]
+
+
+def train_full_width(torch, ops, smi):
+    """Phase 13: ``launch.train.main`` on full-width llama3.2-1b in bf16
+    (16 layers, d_model 2048, vocab 128,256, tied; weights from a seeded
+    ``torch.Generator`` on the card), 30 steps. Every loss and grad norm
+    finite, the mean of the last 5 losses below the first, and the flash
+    kernel launched 2 x 16 times a step (each block's forward and its
+    remat recompute). Prints the loss curve, ms per step (median after
+    step 2), tokens/s, parameters, memory reserved and at peak, the bytes
+    a checkpoint would write (not written), and model FLOPs a step over
+    the step time against the bf16 peak, as an estimate. Returns the
+    launch counts."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import train
+    from repro_torch.models.api import build_model
+    from repro_torch.tree import leaves
+    args = train.build_parser().parse_args(FULL_TRAIN)
+    cfg = reduced(get_arch(args.arch)) if args.reduced else get_arch(args.arch)
+    n_params = sum(math.prod(spec.shape) for spec in leaves(
+        build_model(cfg, device="cuda").param_specs()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.main(FULL_TRAIN)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.memory_reserved() / 2**30
+    losses, gnorms, times = out["losses"], out["gnorms"], out["step_times"]
+    steps = args.steps
+    assert out["step"] == steps and len(losses) == steps, out["step"]
+    assert all(x == x and abs(x) != float("inf") for x in losses + gnorms), \
+        (losses, gnorms)
+    tail = sum(losses[-5:]) / 5
+    assert tail < losses[0], (losses[0], tail)
+    assert launches["flash_attention"] == 2 * cfg.num_layers * steps, \
+        launches
+    assert sum(launches.values()) == launches["flash_attention"], launches
+    ms = sorted(times[2:])[len(times[2:]) // 2] * 1e3
+    tokens = args.batch * args.seq
+    # model FLOPs (no recompute): 6 N per token for the weights, and the
+    # causal attention's scores and weighted sums, 2 S D H per layer per
+    # token forward, three times that with the backward
+    flops = 6.0 * n_params * tokens \
+        + 6.0 * cfg.num_layers * cfg.num_heads * cfg.head_dim * args.seq \
+        * tokens
+    ckpt_bytes = 4 * 4 * n_params      # params widened to f32, master, m, v
+    log(f"train phase 13: llama3.2-1b full width, {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+        f"{n_params / 1e9:.3f} B params bf16 (f32 master and moments), "
+        f"batch {args.batch} x seq {args.seq}, lr {args.lr}, "
+        f"{steps} steps in {wall:.1f} s (init, build and first step "
+        f"included)")
+    log(f"train phase 13: losses {[round(x, 4) for x in losses]}")
+    log(f"train phase 13: grad norms {[round(x, 3) for x in gnorms]}")
+    log(f"train phase 13: loss {losses[0]:.4f} -> mean of last 5 "
+        f"{tail:.4f}; ms per step {ms:.2f} (median of steps 3-{steps}; "
+        f"first step {times[0] * 1e3:.1f}, step 2 {times[1] * 1e3:.1f}), "
+        f"{tokens / ms * 1e3:.0f} tokens/s; flash launches "
+        f"{launches['flash_attention']} = 2 x {cfg.num_layers} layers x "
+        f"{steps} steps")
+    log(f"train phase 13: memory peak allocated {peak:.2f} GiB, reserved "
+        f"{reserved:.2f} GiB; a checkpoint of this state would write "
+        f"{ckpt_bytes} bytes of npz ({ckpt_bytes / 1e9:.1f} GB; not "
+        f"written)")
+    log(f"train phase 13: model FLOPs a step {flops / 1e12:.3f} TFLOP "
+        f"(6 N T + causal attention, no recompute) over {ms:.2f} ms = "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, an estimate of "
+        f"{flops / ms / 1e9 / (BF16_TC_FLOP_PER_S / 1e12) * 100:.1f}% of "
+        f"the 989 TFLOP/s bf16 peak [{smi}]")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def _to_f32(tree):
     if isinstance(tree, dict):
         return {k: _to_f32(v) for k, v in tree.items()}
@@ -2112,6 +2401,8 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    # deterministic cuBLAS for the train step, before cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import torch.nn.functional as F
@@ -2149,6 +2440,7 @@ def main() -> int:
     q8_err = check_seal_q8(torch, ops, ref)
     check_captured_keys(torch, ops, ref, sealing)
     fa_err = check_flash_attention(torch, ops, ref)
+    check_flash_train(torch, ops, ref)
     # phase 3: timings and bounds
     times = time_kernels(torch, ops, ref, sealing, F)
     # phase 4: whole serving path on a small input, card vs CPU, and at
@@ -2156,6 +2448,7 @@ def main() -> int:
     small_reference_check(torch)
     small_d128_check(torch)
     small_moe_check(torch)
+    small_train_check(torch, ops)
     # phases 5 to 7: the main path at full width, local then pipelined,
     # then long prompts with chunked and packed prefill
     from repro_torch.launch import serve
@@ -2197,6 +2490,9 @@ def main() -> int:
     # phase 12: full-width qwen2-moe-a2.7b: local eager and in graphs, and
     # pipelined with sealed boundaries
     runs += serve_moe(torch, ops, smi[0] if smi else "unavailable")
+    # phase 13: full-width llama3.2-1b training through the launcher
+    runs.append(train_full_width(torch, ops,
+                                 smi[0] if smi else "unavailable"))
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 

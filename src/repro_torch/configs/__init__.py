@@ -1,7 +1,8 @@
-"""Config registry of the port: ``get_arch(name)``, ``reduced``."""
+"""Config registry of the port: ``get_arch(name)``, ``reduced``,
+``ShapeConfig``."""
 from __future__ import annotations
 
-from .base import DENSE, MOE, ArchConfig, reduced
+from .base import DENSE, MOE, ArchConfig, ShapeConfig, reduced
 from .command_r_35b import CONFIG as _command_r
 from .glm4_9b import CONFIG as _glm4
 from .llama3_2_1b import CONFIG as _llama1b
@@ -24,4 +25,5 @@ def get_arch(name: str) -> ArchConfig:
     return ARCHS[name]
 
 
-__all__ = ["ArchConfig", "ARCHS", "DENSE", "MOE", "get_arch", "reduced"]
+__all__ = ["ArchConfig", "ARCHS", "DENSE", "MOE", "ShapeConfig", "get_arch",
+           "reduced"]

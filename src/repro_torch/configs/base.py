@@ -146,3 +146,23 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
     if cfg.sliding_window:
         changes.update(sliding_window=32)
     return dataclasses.replace(cfg, **changes)
+
+
+# ---------------------------------------------------------------------------
+# Shapes
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One step's shape (``repro.configs.base.ShapeConfig``): sequence
+    length, global batch and the kind of step."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch  # one new token per sequence
+        return self.seq_len * self.global_batch

@@ -430,6 +430,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention kernel supports head_dim in "
                          f"{_FLASH_HEAD_DIMS} and B, H <= 65535; got D={D}, "
                          f"B={B}, H={H}")
+    refuse_untracked_grad("flash_attention", q, k, v)
     out = torch.empty_like(q)
     _check_aligned("flash_attention", q, k, v)
     with torch.cuda.device(q.device):
@@ -441,3 +442,45 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
         raise _launch_failed("flash_attention", rc)
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def refuse_untracked_grad(name: str, *tensors: torch.Tensor) -> None:
+    """A kernel writes its output through a raw pointer, outside autograd:
+    called while autograd records, on inputs that require grad, it would
+    silently cut their gradient. Raise instead; training goes through
+    ``FlashAttentionFn``, whose forward runs with grad mode off."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel's output carries no autograd graph, "
+            f"so the inputs' gradient would be dropped; call it through "
+            f"FlashAttentionFn (flash_attention_train) or under "
+            f"torch.no_grad()")
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Prefill attention under autograd. Forward: ``flash_attention`` (the
+    kernel on a CUDA tensor, the plain version on a CPU tensor). Backward:
+    ``ref.flash_attention_bwd_ref`` on both devices, plain PyTorch as the
+    reference's gradient is plain ``jnp``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        o = flash_attention(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.mask = (causal, window, q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        dq, dk, dv = ref.flash_attention_bwd_ref(
+            q, k, v, o, do, causal=causal, window=window, q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_train(q, k, v, causal: bool = True, window: int = 0,
+                          q_offset: int = 0):
+    """``flash_attention`` with a gradient (``FlashAttentionFn``)."""
+    return FlashAttentionFn.apply(q, k, v, causal, window, q_offset)

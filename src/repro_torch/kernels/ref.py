@@ -144,3 +144,39 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
+                            window: int = 0, q_offset: int = 0):
+    """Gradient of prefill attention, in the model's layout: q, o, do
+    [B, Sq, H, D]; k, v [B, Sk, KVH, D], query head h reading KV head
+    ``h // (H // KVH)``. Recomputes P in f32 under the forward's mask (the
+    reference has no backward kernel: JAX differentiates its plain
+    ``chunked_attention``), then the usual identities with
+    ``delta = rowsum(do * o)``: dV = Pᵀ dO, dS = P (dO Vᵀ - delta),
+    dQ = dS K / sqrt(D), dK = dSᵀ Q / sqrt(D). dK and dV sum over each KV
+    head's query group. Returns (dq, dk, dv) in q's, k's and v's types."""
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    rep = H // KVH
+    qf = q.float().reshape(B, Sq, KVH, rep, D)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qf, kf) / math.sqrt(D)
+    qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)                       # [B, KVH, rep, Sq, Sk]
+    dof = do.float().reshape(B, Sq, KVH, rep, D)
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dof)
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", dof, vf)
+    delta = (dof * o.float().reshape(B, Sq, KVH, rep, D)).sum(-1)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", ds, kf) / math.sqrt(D)
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, qf) / math.sqrt(D)
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

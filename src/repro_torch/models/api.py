@@ -1,6 +1,6 @@
 """Model API of the port (dense and MoE families of ``repro/models/api.py``):
 ``build_model(cfg, device=..., dtype=...)`` returns a ``ModelAPI`` whose
-closures the serving engine calls."""
+closures the serving engine and the train step call."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,6 +27,10 @@ class ModelAPI:
         """Random parameters drawn from ``generator`` (which must live on
         ``self.device``), in ``self.dtype``."""
         return self.model.init_params(generator, self.device, self.dtype)
+
+    def loss_fn(self, params, batch):
+        """Mean next-token nll of a training batch (see StackedLM.loss_fn)."""
+        return self.model.loss_fn(params, batch)
 
     # -- paged per-slot KV cache (serving hot path) ---------------------------
     def init_paged_cache_specs(self, num_slots: int, num_pages: int,
@@ -66,10 +70,13 @@ class ModelAPI:
 
 def build_model(cfg: ArchConfig, *,
                 device: Optional[Union[str, torch.device]] = None,
-                dtype: torch.dtype = torch.bfloat16) -> ModelAPI:
+                dtype: torch.dtype = torch.bfloat16,
+                remat: bool = True) -> ModelAPI:
     """Dense and MoE families (an MoE config with a dense stem,
     ``first_k_dense > 0``, is refused by name, as the reference's engine
     refuses to serve it). ``device`` defaults to ``cuda`` and raises
-    without a card; pass ``device="cpu"`` for the CPU reference path."""
+    without a card; pass ``device="cpu"`` for the CPU reference path.
+    ``remat`` recomputes each block in the backward of ``loss_fn`` (the
+    reference's default)."""
     dev = resolve_device(device)
-    return ModelAPI(cfg, StackedLM(cfg), dev, dtype)
+    return ModelAPI(cfg, StackedLM(cfg, remat=remat), dev, dtype)

@@ -1,8 +1,8 @@
 """Model substrate of the port (the dense and MoE subset of
 ``repro/models/layers.py``): parameter specs and their initializer, norms,
 rotary embeddings, projections (with the attention biases), SwiGLU,
-prefill attention (one-shot and chunked against the page pools) and the
-paged decode path.
+prefill attention (one-shot and chunked against the page pools), the
+paged decode path and the training loss (``chunked_softmax_xent``).
 
 Layouts are the reference's: activations [B, S, ...], ``wq [d, H, hd]``,
 ``wo [H, hd, d]``, page pools ``[N, KVH, page_size, D]``. The paged write
@@ -20,6 +20,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as KO
 
@@ -142,7 +143,13 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     k, v: [B, Skv, KVH, D] (GQA by head groups); query i at absolute
     position ``q_offset + i``. Goes through ``ops.flash_attention``: the
     CUDA kernel for a CUDA tensor, the plain version for a CPU tensor.
+    While autograd records a graph through q, k or v (training), the call
+    goes through ``ops.FlashAttentionFn``, which adds the backward.
     Returns [B, Sq, H, D] in q's type."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return KO.flash_attention_train(q, k, v, causal=causal,
+                                        window=window, q_offset=q_offset)
     return KO.flash_attention(q, k, v, causal=causal, window=window,
                               q_offset=q_offset)
 
@@ -243,3 +250,42 @@ def paged_write_chunk(k_pages, v_pages, k_new, v_new, targets):
     # advanced indices split by the head slice put the row dim first
     k_pages[page, :, off] = torch.where(keep3, k_new, torch.zeros_like(k_new))
     v_pages[page, :, off] = torch.where(keep3, v_new, torch.zeros_like(v_new))
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy chunked over the sequence (never keeps [B, S, V] logits)
+# ---------------------------------------------------------------------------
+def _xent_chunk(hb, lb, mb, w_head):
+    """(sum of masked nll, sum of mask) of one chunk: f32 logits from the
+    upcast operands (exact, as the serving head computes them)."""
+    logits = hb.float() @ w_head.float()                        # [B, c, V]
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lb[..., None].long())[..., 0]
+    nll = (lse - gold) * mb
+    return nll.sum(), mb.sum()
+
+
+def chunked_softmax_xent(h, w_head, labels, *, chunk: int = 512,
+                         label_mask=None):
+    """h: [B, S, D]; w_head: [D, V]; labels: [B, S] int. Returns the mean
+    nll over unmasked positions (the reference's ``chunked_softmax_xent``):
+    the sequence is cut into chunks of ``min(chunk, S)`` halved until it
+    divides S, each chunk's f32 logits are recomputed in the backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), and
+    the chunks' sums are added in order."""
+    B, S, D = h.shape
+    c = min(chunk, S)
+    while S % c:
+        c //= 2
+    if label_mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
+    else:
+        mask = label_mask.to(torch.float32)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, c):
+        t, n = torch.utils.checkpoint.checkpoint(
+            _xent_chunk, h[:, i:i + c], labels[:, i:i + c],
+            mask[:, i:i + c], w_head, use_reentrant=False)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)

@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from . import layers as L
@@ -67,12 +68,22 @@ def _at(tree, l: int):
     return tree[l]
 
 
+def _unbind(tree, n: int):
+    """The ``n`` layers of a tree of stacked block weights, as views from
+    one ``torch.unbind`` per leaf."""
+    if isinstance(tree, dict):
+        kids = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: kids[k][l] for k in kids} for l in range(n)]
+    return torch.unbind(tree, 0)
+
+
 class StackedLM:
     """A causal LM: embedding, ``num_layers`` pre-norm blocks (dense, or
     MoE: dense attention and an MoE FFN), final norm, tied (or separate)
-    output head."""
+    output head. ``remat`` recomputes each block in the backward of
+    ``loss_fn``, as the reference's default does."""
 
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, remat: bool = True):
         if cfg.sliding_window or cfg.pos_type != "rope":
             raise NotImplementedError(
                 f"{cfg.name}: sliding windows and non-RoPE positions are "
@@ -83,6 +94,7 @@ class StackedLM:
                 f"is not served; the reference's engine also serves only "
                 f"a single homogeneous segment")
         self.cfg = cfg
+        self.remat = remat
 
     # -- parameters --------------------------------------------------------
     def param_specs(self) -> Dict[str, Any]:
@@ -118,38 +130,76 @@ class StackedLM:
     def _layer(params, l: int) -> Dict[str, Any]:
         return _at(params[SEGMENT], l)
 
-    def _mlp(self, p, x):
+    def _mlp(self, p, x, train: bool = False):
         h = L.rmsnorm(x, p["ln2"], self.cfg.norm_eps)
         if "moe" in p:
             # inference dispatches without capacity dropping, as the
-            # reference's moe_block_apply does outside training
-            out, _ = moe_mlp_apply(self.cfg, p["moe"], h, drop_tokens=False,
+            # reference's moe_block_apply does outside training; training
+            # drops at capacity and discards the aux loss, as it does
+            out, _ = moe_mlp_apply(self.cfg, p["moe"], h, drop_tokens=train,
                                    aux=False)
             return x + out
         m = p["mlp"]
         return x + L.swiglu(h, m["wi"], m["wg"], m["wo"])
 
-    # -- public: batched right-padded prefill --------------------------------
-    def _prefill(self, params, tokens: torch.Tensor):
-        """Every block over right-padded prompts ``tokens`` [B, S], causal
-        attention through ``L.chunked_attention`` (the flash kernel on the
-        card). Returns (x [B, S, d] after the final norm, {"blocks": (k, v)}
-        with k, v [L, B, KVH, S, D])."""
+    def _block(self, p, x, positions, train: bool = False):
+        """One block over a whole sequence: causal attention through
+        ``L.chunked_attention`` (the flash kernel on the card), then the
+        FFN. Returns (x, k, v) with k, v [B, S, KVH, D]."""
         cfg = self.cfg
+        h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = L.attn_qkv(p["attn"], h, positions, cfg)
+        ctx = L.chunked_attention(q, k, v, causal=True)
+        x = x + L.attn_out(p["attn"], ctx)
+        return self._mlp(p, x, train), k, v
+
+    def _train_block(self, p, x, positions):
+        return self._block(p, x, positions, train=True)[0]
+
+    def _blocks(self, params, tokens: torch.Tensor, train: bool = False):
+        """Embed ``tokens`` [B, S] at positions 0..S-1 and run every block.
+        Returns (x [B, S, d] before the final norm, [k], [v]) with each
+        layer's k, v [B, KVH, S, D] when serving, empty lists in training.
+        In training with ``remat`` each block runs under
+        ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
+        each scan step): its activations are recomputed in the backward,
+        so the flash kernel runs twice a layer. The stacked block weights
+        are unbound once, so their gradient is one stack of the layers'."""
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)[None, :]
         x = self.embed(params, tokens)
         ks, vs = [], []
-        for l in range(cfg.num_layers):
-            p = self._layer(params, l)
-            h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-            q, k, v = L.attn_qkv(p["attn"], h, positions, cfg)
-            ctx = L.chunked_attention(q, k, v, causal=True)
-            x = x + L.attn_out(p["attn"], ctx)
-            x = self._mlp(p, x)
-            ks.append(k.transpose(1, 2))
-            vs.append(v.transpose(1, 2))
-        x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        for p in _unbind(params[SEGMENT], self.cfg.num_layers):
+            if not train:
+                x, k, v = self._block(p, x, positions)
+                ks.append(k.transpose(1, 2))
+                vs.append(v.transpose(1, 2))
+            elif self.remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    self._train_block, p, x, positions, use_reentrant=False)
+            else:
+                x = self._train_block(p, x, positions)
+        return x, ks, vs
+
+    # -- public: loss ----------------------------------------------------------
+    def loss_fn(self, params, batch):
+        """Mean next-token nll of ``batch`` (``tokens``, ``labels`` [B, S],
+        optional ``label_mask``): every block in train mode, the final
+        norm, and ``chunked_softmax_xent`` against the tied embedding or
+        ``head`` (the reference's ``StackedLM.loss_fn``)."""
+        x, _, _ = self._blocks(params, batch["tokens"], train=True)
+        x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
+        w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
+        return L.chunked_softmax_xent(x, w, batch["labels"],
+                                      label_mask=batch.get("label_mask"))
+
+    # -- public: batched right-padded prefill --------------------------------
+    def _prefill(self, params, tokens: torch.Tensor):
+        """Every block over right-padded prompts ``tokens`` [B, S]. Returns
+        (x [B, S, d] after the final norm, {"blocks": (k, v)} with k, v
+        [L, B, KVH, S, D])."""
+        x, ks, vs = self._blocks(params, tokens)
+        x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
         return x, {SEGMENT: (torch.stack(ks), torch.stack(vs))}
 
     def prefill_at_fn(self, params, batch):

@@ -1,4 +1,5 @@
-"""Carry a parameter tree across from the JAX package.
+"""Carry a parameter tree, or an optimizer state, across from the JAX
+package.
 
 The port keeps the reference's parameter tree and layouts, so conversion
 is a leaf-by-leaf copy. JAX bf16 leaves come out of ``np.asarray`` as
@@ -40,3 +41,13 @@ def params_from_jax(tree: Any, device: Optional[Union[str, torch.device]]
         return t.to(dev)
 
     return conv(tree)
+
+
+def opt_state_from_jax(state: Any, device: Optional[Union[str, torch.device]]
+                       = None):
+    """The JAX package's ``AdamWState(master, m, v)`` (each a tree of
+    arrays) -> the port's ``AdamWState`` of tensors on ``device``, bits
+    unchanged."""
+    from repro_torch.optim.adamw import AdamWState
+    return AdamWState(*(params_from_jax(getattr(state, f), device)
+                        for f in AdamWState._fields))

@@ -48,11 +48,14 @@ def _no_card():
         pytest.skip("this host has a CUDA device")
 
 
-def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
+def test_entry_points_raise_without_a_card_unless_cpu_is_asked(tmp_path):
     _no_card()
-    from repro_torch.configs import get_arch, reduced
-    from repro_torch.launch import serve
+    from repro_torch.checkpoint import CheckpointManager, TensorSpec
+    from repro_torch.configs import ShapeConfig, get_arch, reduced
+    from repro_torch.launch import serve, train
     from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.steps import make_train_step
     from repro_torch.serving import EngineConfig, ServingEngine
     from repro_torch.weights import params_from_jax
     cfg = reduced(get_arch("llama3.2-1b"))
@@ -69,6 +72,21 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
         params_from_jax({"w": [1.0]})
     eng = ServingEngine(api, EngineConfig(), device="cpu")
     assert eng.device.type == "cpu"
+    # training: the launcher, the step and a restore onto the card
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "llama3.2-1b", "--reduced", "--steps", "1"])
+    shape = ShapeConfig("t", 8, 2, "train")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(api, AdamWConfig(), shape)
+    assert callable(make_train_step(api, AdamWConfig(), shape, device="cpu"))
+    ck = CheckpointManager(str(tmp_path), async_save=False)
+    ck.save(1, {"w": torch.ones(2)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ck.restore(1, {"w": TensorSpec((2,), torch.float32, "cuda")})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ck.restore(1, {"w": TensorSpec((2,), torch.float32)})
+    assert torch.equal(ck.restore(1, {"w": torch.zeros(2)})["w"],
+                       torch.ones(2))
 
 
 def test_serve_cli_runs_on_cpu_when_asked():
