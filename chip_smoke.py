@@ -154,7 +154,22 @@ Phases (each prints its own lines; any failure exits non-zero):
      last 5 losses below the first, the flash kernel launched 2 x 16 times
      a step (forward and remat recompute). Prints the loss curve, ms per
      step, tokens/s, memory, the bytes a checkpoint would write and a
-     model-FLOP estimate against the bf16 peak.
+     model-FLOP estimate against the bf16 peak;
+ 14. the timeline KV layout, per-token prefill and the int8 KV cache on
+     full-width llama3.2-1b: (a) in f32, one stream of 8 requests (prompts
+     2-42 tokens, 32 new) through the timeline, paged with per-token
+     prefill and paged batched, streams equal; (b) in bf16, phase 5's
+     first 8 requests on the timeline local eager, local in CUDA graphs
+     (equal streams, steps and launches, nothing captured after warmup),
+     pipelined at blocks (1, 15) with sealed boundaries (seal and unseal
+     nm x (S - 1) a step) and paged with per-token prefill in graphs, then
+     the timeline under a horizon too short for the stream (back-pressure,
+     a permanent stall, every request done or queued); (c) the int8
+     cache's prefill then decode on 4 x 31 tokens plus one against bf16
+     (top-1 on every row, relative logit error < 0.15, cache bytes < 0.55
+     x) and the reference's zero-scale int8 engine, logged. Prints ms per
+     decode step and per prefill token, tokens/s, admission p50/p99,
+     memory and the phase's wall time.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
@@ -2376,6 +2391,333 @@ def train_full_width(torch, ops, smi):
     return {"launches": launches}
 
 
+# phase 14: the timeline KV layout, per-token prefill and the int8 cache at
+# full width. 14a: one short stream in f32 through three engines (a CPU
+# rehearsal of these flags: 8 prompts of 2-42 tokens, 168 per-token
+# prefill steps, auto horizon 144); 14b: phase 5's first 8 requests (its
+# stream trimmed from 16 to keep the phase's time: 746 per-token prefill
+# steps a run) in bf16; 14c: the int8 cache against bf16.
+TIMELINE_F32 = ["--arch", "llama3.2-1b", "--device", "cuda", "--backend",
+                "local", "--slots", "8", "--requests", "8", "--prompt-len",
+                "48", "--max-new", "32", "--page-size", "16"]
+TIMELINE_BF16 = ["--arch", "llama3.2-1b", "--device", "cuda", "--slots",
+                 "8", "--requests", "8", "--prompt-len", "128", "--max-new",
+                 "32", "--page-size", "16", "--shared-system-prompt", "0.75"]
+# a horizon that admits the stream's first requests only: past 8 decode
+# steps no request's 32 new tokens fit under it
+SHORT_HORIZON = 128 + 40
+
+
+class TimedTokens:
+    """An engine's per-token prefill timed from outside: the host clock
+    around each admission's token loop (``_prefill_tokens``), between two
+    device synchronises, and its tokens counted."""
+
+    def __init__(self, torch, eng):
+        self.seconds, self.tokens = 0.0, 0
+        fn = eng._prefill_tokens
+
+        def timed(tokens, S):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(tokens, S)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.tokens += len(tokens)
+            return out
+
+        eng._prefill_tokens = timed
+
+    def ms(self) -> float:
+        return self.seconds / max(self.tokens, 1) * 1e3
+
+
+def serve_layout(torch, ops, api, params, argv, label, overrides=None):
+    """One engine of phase 14 over ``argv``'s stream, launch counts zeroed
+    just before and read just after. Every request must complete with
+    finite logits. Returns the launch counts, the streams, the engine's
+    stats, decode steps, host ms per decode step and per prefill token,
+    and memory reserved and at peak."""
+    from repro_torch.launch import serve
+    args = serve.build_parser().parse_args(argv)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = serve.make_engine(api, params, args, **(overrides or {}))
+    if args.warmup:
+        st = eng.stats()
+        assert st["warmed"] and st["graphs"] > 0, st
+    timed = TimedTokens(torch, eng)
+    be = eng.backend
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    orig_step = be.step
+
+    def step(tokens, key):
+        logits = orig_step(tokens, key)
+        bad.add_((~torch.isfinite(logits)).sum())
+        return logits
+
+    be.step = step
+    prompts = serve.gen_prompts(args, api.cfg.vocab_size)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = serve.serve_stream(eng, args, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    st = eng.stats()
+    assert len(reqs) == args.requests, (len(reqs), st["stall_reason"])
+    assert all(r.status == "done" and len(r.generated) == args.max_new
+               for r in reqs), "a request did not complete"
+    assert int(bad.item()) == 0, "non-finite logits"
+    if args.warmup:
+        assert st["post_warmup_compiles"] == 0, st["compile_stalls"]
+        assert st["compile_stalls"] == [], st["compile_stalls"]
+    step_ms = st["decode_wall_s"] / max(be.steps, 1) * 1e3
+    log(f"timeline phase {label} ({st['kv_layout']}, {st['backend']}"
+        f"{', CUDA graphs' if args.warmup else ''}"
+        f"{', per-token prefill' if not st['batched_prefill'] else ''}): "
+        f"{st['completed']} requests, {st['tokens_out']} tokens, "
+        f"{be.steps} decode steps, {step_ms:.2f} ms/decode step, "
+        f"{st['tok_per_s']:.1f} tok/s decode, admission p50 "
+        f"{st.get('admission_p50_ms', 0):.1f} p99 "
+        f"{st.get('admission_p99_ms', 0):.1f} ms, prefill "
+        f"{st['prefill_calls']} calls, {timed.ms():.3f} ms per prefill "
+        f"token over {timed.tokens} tokens, wall {wall:.2f} s, memory "
+        f"reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB, peak "
+        f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {launches}")
+    return dict(launches=launches, streams=[list(r.generated) for r in reqs],
+                st=st, steps=be.steps, step_ms=step_ms,
+                token_ms=timed.ms(), tokens=timed.tokens)
+
+
+def serve_timeline(torch, ops, smi):
+    """Phase 14 on full-width llama3.2-1b (seeded bf16 weights, 8 slots):
+    (a) in f32 (upcast, exact), one stream of 8 requests through the
+    timeline (per-token prefill, horizon sized to the stream), the paged
+    engine with per-token prefill and the paged engine with batched
+    prefill: equal greedy streams, per-token prefill one call a token;
+    (b) in bf16, phase 5's first 8 requests on the timeline local eager,
+    local in CUDA graphs (streams, steps and launches equal to eager,
+    nothing captured after warmup), pipelined at blocks (1, 15) with sealed
+    boundaries (seal and unseal each microbatches x (stages - 1) a step),
+    and paged with per-token prefill in graphs (paged attention a layer a
+    decode step, no flash), then the timeline in graphs under a horizon
+    too short for the stream: back-pressure fires, the engine stalls, and
+    every request is done or still queued; (c) the int8 cache's
+    ``prefill_fn`` then ``decode_fn`` on 4 x 31 tokens plus one against
+    bf16 (top-1 on every row, relative logit error < 0.15, cache bytes <
+    0.55 x), and the reference's zero-scale behaviour after per-token
+    prefill, logged. Returns the runs' launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import SEGMENT
+    t_phase = time.perf_counter()
+    api, params = serve.build_params(serve.build_parser().parse_args(
+        TIMELINE_BF16))
+    cfg = api.cfg
+    n_layers = cfg.num_layers
+    runs = []
+
+    # 14a: f32 stream identity
+    api32 = build_model(cfg, device="cuda", dtype=torch.float32)
+    params32 = _to_f32(params)
+    a = [serve_layout(torch, ops, api32, params32, TIMELINE_F32 + flags,
+                      f"14a {name}")
+         for name, flags in (("timeline", ["--kv-layout", "timeline"]),
+                             ("paged per-token", ["--per-token-prefill"]),
+                             ("paged batched", []))]
+    assert a[0]["streams"] == a[1]["streams"] == a[2]["streams"], \
+        "phase 14a: timeline, paged per-token and paged batched streams differ"
+    assert a[0]["st"]["prefill_calls"] == a[1]["st"]["prefill_calls"] \
+        == a[0]["tokens"] and a[2]["st"]["prefill_calls"] == 8, \
+        [r["st"]["prefill_calls"] for r in a]
+    assert a[0]["launches"]["paged_attention"] == 0
+    assert a[1]["launches"]["paged_attention"] == a[1]["steps"] * n_layers
+    assert a[1]["launches"]["flash_attention"] == 0
+    assert a[2]["launches"]["flash_attention"] == 8 * n_layers
+    log(f"timeline phase 14a: {len(a[0]['streams'])} f32 streams equal "
+        f"across timeline (max_seq {a[0]['st']['max_seq']}), paged "
+        f"per-token and paged batched prefill; prefill calls "
+        f"{[r['st']['prefill_calls'] for r in a]}")
+    runs += a
+    del api32, params32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 14b: bf16, phase 5's first 8 requests
+    tl = TIMELINE_BF16 + ["--kv-layout", "timeline"]
+    eager = serve_layout(torch, ops, api, params, tl + ["--backend", "local"],
+                         "14b local, eager")
+    graphs = serve_layout(torch, ops, api, params,
+                          tl + ["--backend", "local", "--warmup"],
+                          "14b local, CUDA graphs")
+    assert graphs["streams"] == eager["streams"], \
+        "phase 14b: the timeline's streams differ under CUDA graphs"
+    assert graphs["steps"] == eager["steps"] and \
+        graphs["launches"] == eager["launches"], (graphs["steps"],
+                                                  eager["steps"])
+    pipe = serve_layout(torch, ops, api, params,
+                        tl + ["--backend", "pipelined", "--stages", "2",
+                              "--microbatches", "2"], "14b pipelined, sealed")
+    st = pipe["st"]
+    assert st["stage_blocks"] == (1, 15) and st["replans"] == 0, st
+    assert pipe["launches"]["seal"] == pipe["launches"]["unseal"] \
+        == pipe["steps"] * 2 * 1, (pipe["launches"], pipe["steps"])
+    paged = serve_layout(torch, ops, api, params,
+                         TIMELINE_BF16 + ["--backend", "local",
+                                          "--per-token-prefill", "--warmup"],
+                         "14b paged per-token, CUDA graphs")
+    assert paged["launches"]["paged_attention"] == paged["steps"] * n_layers
+    assert paged["launches"]["flash_attention"] == 0
+    same = sum(x == y for x, y in zip(paged["streams"], eager["streams"]))
+    log(f"timeline phase 14b: {same} of {len(eager['streams'])} bf16 "
+        f"streams of the paged per-token engine equal the timeline's (not "
+        f"required: other attention kernels, bf16); seal "
+        f"{pipe['launches']['seal']} = unseal = {pipe['steps']} steps x 2 "
+        f"microbatches x 1 "
+        f"boundary; host ms per decode step eager {eager['step_ms']:.2f}, "
+        f"graphs {graphs['step_ms']:.2f}, pipelined {pipe['step_ms']:.2f}, "
+        f"paged per-token graphs {paged['step_ms']:.2f}; ms per prefill "
+        f"token eager {eager['token_ms']:.3f}, graphs "
+        f"{graphs['token_ms']:.3f}, paged graphs {paged['token_ms']:.3f} "
+        f"[{smi}]")
+    runs += [eager, graphs, pipe, paged]
+
+    # 14b: horizon back-pressure under a short horizon, in graphs
+    args = serve.build_parser().parse_args(
+        tl + ["--backend", "local", "--warmup", "--max-seq",
+              str(SHORT_HORIZON)])
+    eng = serve.make_engine(api, params, args)
+    prompts = serve.gen_prompts(args, cfg.vocab_size)
+    ops.reset_launch_counts()
+    reqs = serve.serve_stream(eng, args, prompts)
+    # the stream stopped at the stall: the rest queue behind the head
+    reqs += [eng.submit(p, args.max_new) for p in prompts[len(reqs):]]
+    eng.step()
+    launches = dict(ops.LAUNCHES)
+    st = eng.stats()
+    done = [r for r in reqs if r.status == "done"]
+    queued = [r for r in reqs if r.status == "queued"]
+    assert len(done) + len(queued) == len(prompts) and done and queued, \
+        [r.status for r in reqs]
+    assert all(len(r.generated) == args.max_new for r in done)
+    assert eng.stalled and st["stall_reason"] == "permanent", st
+    assert any(e.kind == "backpressure" and e.detail["waiting_on"] ==
+               "timeline" for e in eng.events)
+    assert st["global_len"] <= SHORT_HORIZON - 1, st["global_len"]
+    assert st["post_warmup_compiles"] == 0, st["compile_stalls"]
+    agree = sum(r.generated == eager["streams"][r.rid] for r in done)
+    log(f"timeline phase 14b (max_seq {SHORT_HORIZON}, CUDA graphs): "
+        f"back-pressure at global_len {st['global_len']}; {len(done)} "
+        f"requests done ({agree} streams equal to the full horizon's), "
+        f"{len(queued)} queued behind the blocked head, none lost; stalled "
+        f"({st['stall_reason']})")
+    runs.append({"launches": launches})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 14c: the int8 cache, the reference's test of it
+    # (tests/test_perf_features.py::test_int8_cache_decode_top1_agrees):
+    # prefill 4 x 31 tokens, pad one position, decode one token, int8
+    # against bf16 at full width; and the int8 path card against CPU at the
+    # reduced config, in f32
+    from repro_torch.configs import reduced
+
+    def int8_path(m_cfg, m_params, toks, new, quant, dtype, device):
+        m = build_model(m_cfg, device=device, dtype=dtype, max_seq=32,
+                        cache_quant=quant)
+        _, c = m.prefill_fn(m_params, {"tokens": toks.to(device)})
+        c[SEGMENT] = tuple(torch.nn.functional.pad(x, (0, 0, 0, 1))
+                           if x.dim() == 5 else x for x in c[SEGMENT])
+        logits = m.decode_fn(m_params, c, {"tokens": new.to(device)})[0]
+        return logits.float().cpu(), [x.cpu() for x in c[SEGMENT]]
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 31), generator=g,
+                         device="cuda")
+    new = torch.randint(0, cfg.vocab_size, (4, 1), generator=g,
+                        device="cuda")
+    ops.reset_launch_counts()
+    (lf, cf), (lq, cq) = (int8_path(cfg, params, toks, new, quant,
+                                    torch.bfloat16, "cuda")
+                          for quant in (False, True))
+    launches = dict(ops.LAUNCHES)
+    assert launches["flash_attention"] == 2 * n_layers, launches
+    nbytes = [sum(x.numel() * x.element_size() for x in c) for c in (cf, cq)]
+    top1 = int((lf.argmax(-1) == lq.argmax(-1)).sum())
+    rel = float((lf - lq).abs().max() / (lf.abs().max() + 1e-9))
+    assert top1 == 4, (lf.argmax(-1), lq.argmax(-1))
+    assert nbytes[1] < 0.55 * nbytes[0], nbytes
+    small = reduced(get_arch("llama3.2-1b"))
+    small_params = build_model(small, device="cpu", dtype=torch.float32
+                               ).init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, small.vocab_size, (4, 31), generator=g)
+    new = torch.randint(0, small.vocab_size, (4, 1), generator=g)
+    (l_cpu, c_cpu), (l_gpu, c_gpu) = (
+        int8_path(small, _to(torch, small_params, dev), toks, new, True,
+                  torch.float32, dev) for dev in ("cpu", "cuda"))
+    lerr = float((l_gpu - l_cpu).abs().max() / l_cpu.abs().max())
+    assert lerr < 1e-4, lerr
+    ties = 0
+    for a, b in zip(c_gpu, c_cpu):
+        if a.dtype == torch.int8:
+            d = (a.int() - b.int()).abs()
+            assert int(d.max()) <= 1, int(d.max())
+            ties += int((d > 0).sum())
+        else:
+            assert torch.allclose(a, b, rtol=1e-5, atol=0), \
+                float((a - b).abs().max())
+    written = sum(x.numel() for x in c_cpu if x.dim() == 5)
+    assert ties <= 0.01 * written, (ties, written)
+    log(f"timeline phase 14c: int8 cache, prefill 4 x 31 then decode 1, "
+        f"full width: top-1 agrees with bf16 on {top1} of 4 rows, cache "
+        f"{nbytes[1]} bytes against {nbytes[0]} bf16 "
+        f"({nbytes[1] / nbytes[0]:.4f} x, < 0.55), relative logit error "
+        f"{rel:.4f} (printed, not bounded: the reference's int8 scheme "
+        f"exceeds 0.15 at full width too, tests/test_torch_timeline.py); "
+        f"the reduced config in f32, card against CPU: logits within "
+        f"{lerr:.2e} of the largest (< 1e-4), int8 payloads equal but for "
+        f"{ties} rounding ties of {written} elements, scales within 1e-5")
+    runs.append({"launches": launches})
+    # the reference's engine prefills a token at a time from a zero cache,
+    # scales included, and only prefill_fn sets them: every K/V is
+    # quantized against 0 (logged, not checked: the port reproduces it)
+    del small_params
+    api_q = build_model(cfg, device="cuda", dtype=torch.bfloat16,
+                        cache_quant=True)
+    qargs = serve.build_parser().parse_args(
+        tl + ["--backend", "local", "--requests", "1", "--max-new", "4"])
+    prompt = serve.gen_prompts(qargs, cfg.vocab_size)[:1]
+    streams = []
+    for m in (api_q, api):
+        e = serve.make_engine(m, params, qargs)
+        streams.append(serve.serve_stream(e, qargs, prompt)[0].generated)
+        if m is api_q:
+            k_q, _, k_s, v_s = e.backend.cache[SEGMENT]
+            written = k_q[:, 0, :, 128 - len(prompt[0]):128 + 3]
+            frac = float((written.abs() == 127).float().mean())
+            scale_max = float(torch.maximum(k_s.abs().max(),
+                                            v_s.abs().max()))
+        del e
+    log(f"timeline phase 14c (the reference's zero-scale int8 engine, "
+        f"reproduced, not checked): after per-token prefill of "
+        f"{len(prompt[0])} tokens and 3 decode steps the scales' largest "
+        f"|value| is {scale_max}, {frac:.3f} of slot 0's written K payload "
+        f"is +-127; first tokens int8 {streams[0]} against bf16 "
+        f"{streams[1]}")
+    del api, params, api_q
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"timeline phase 14: wall {time.perf_counter() - t_phase:.1f} s "
+        f"[{smi}]")
+    return runs
+
+
 def _to_f32(tree):
     if isinstance(tree, dict):
         return {k: _to_f32(v) for k, v in tree.items()}
@@ -2493,6 +2835,9 @@ def main() -> int:
     # phase 13: full-width llama3.2-1b training through the launcher
     runs.append(train_full_width(torch, ops,
                                  smi[0] if smi else "unavailable"))
+    # phase 14: the timeline KV layout, per-token prefill and the int8
+    # cache on full-width llama3.2-1b
+    runs += serve_timeline(torch, ops, smi[0] if smi else "unavailable")
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 

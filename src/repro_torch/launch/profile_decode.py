@@ -2,7 +2,7 @@
 
     python -m repro_torch.launch.profile_decode [--arch llama3.2-1b]
         [--steps 8] [--backend local|pipelined] [--graphs]
-        [--trace decode_trace.json]
+        [--kv-layout paged|timeline] [--trace decode_trace.json]
     python -m repro_torch.launch.profile_decode --prefill [--graphs]
         [--steps 8]
 
@@ -11,8 +11,10 @@ weights), fills all 8
 slots with 128-token prompts, runs a few warm-up steps, then traces
 ``--steps`` engine steps with ``torch.profiler`` (CPU + CUDA activities)
 on the chosen backend (``pipelined``: the planned two stages, two
-microbatches, sealed boundaries), after timing as many steps without the
-profiler. Telemetry ticks are kept out of both windows, so they hold decode
+microbatches, sealed boundaries; ``--kv-layout timeline``: the shared-
+position timeline, its horizon the prompts plus the steps run, each
+prompt prefilled a token at a time), after timing as many steps without
+the profiler. Telemetry ticks are kept out of both windows, so they hold decode
 steps only.
 Prints the host-clock time per step (without and under the profiler), the
 device-busy time per step (the trace's device rows: kernels and copies,
@@ -83,6 +85,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--backend", default="local",
                     choices=["local", "pipelined"])
+    ap.add_argument("--kv-layout", default="paged",
+                    choices=["paged", "timeline"])
     ap.add_argument("--trace", default="")
     ap.add_argument("--prefill", action="store_true",
                     help="profile 128-token prefill chunks, not decode steps")
@@ -101,7 +105,8 @@ def main(argv=None):
     max_new = WARMUP_STEPS + 2 * args.steps + 8
     eng = ServingEngine(api, EngineConfig(
         num_slots=SLOTS, prompt_capacity=PROMPT_LEN,
-        request_capacity=PROMPT_LEN + max_new, telemetry_interval=10_000,
+        request_capacity=PROMPT_LEN + max_new, kv_layout=args.kv_layout,
+        max_seq=PROMPT_LEN + max_new + 2, telemetry_interval=10_000,
         warmup=args.graphs), params, device="cuda", backend=args.backend)
     rng = np.random.RandomState(0)
     for _ in range(SLOTS):
@@ -116,8 +121,9 @@ def main(argv=None):
     assert not args.graphs or (st["post_warmup_compiles"] == 0
                                and st["graphs"] > 0), st
     report(prof, bare, wall, args, f"{cfg.name} decode step ({SLOTS} slots, "
-           f"{cfg.num_layers} layers, {args.backend} backend, stage blocks "
-           f"{eng.stage_blocks}, {mode(args)})")
+           f"{cfg.num_layers} layers, {args.backend} backend, "
+           f"{args.kv_layout} KV layout, stage blocks {eng.stage_blocks}, "
+           f"{mode(args)})")
 
 
 def moe_split(api, params):

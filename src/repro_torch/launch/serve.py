@@ -1,5 +1,6 @@
-"""Serving launcher of the port: continuous batching on the paged KV path,
-planned over trust domains, pipelined with sealed stage boundaries.
+"""Serving launcher of the port: continuous batching on the paged KV path
+(or the legacy timeline), planned over trust domains, pipelined with
+sealed stage boundaries.
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --device cuda \\
       --stages 2 --microbatches 2 --slots 8 --requests 16 \\
@@ -46,7 +47,12 @@ and ``--top-k K`` switch greedy decoding to seeded sampling (each token
 keyed by request id and position, as the reference's sampler does;
 sampled streams equal the reference's token for token), and
 ``--require-non-prefix`` fails unless the planned placement is outside
-the legacy trusted-prefix space (prints ``NON-PREFIX OK``). ``--arch``
+the legacy trusted-prefix space (prints ``NON-PREFIX OK``).
+``--kv-layout timeline`` serves on the reference's shared-position
+timeline (horizon ``--max-seq``, 0 = sized to the stream as the
+reference sizes it; per-token prefill, admission back-pressure at the
+horizon), and ``--per-token-prefill`` prefills the paged layout one token
+a step instead of in one call. ``--arch``
 takes every registered config: the dense llama3.2-1b, llama3.2-3b,
 glm4-9b and command-r-35b, and the MoE qwen2-moe-a2.7b (60 routed
 experts top-4 plus 4 shared, attention biases; dispatched without
@@ -83,6 +89,12 @@ capacity dropping, as the reference serves it). Runs on ``cuda`` unless
       --device cpu --stages 3 --microbatches 2 --slots 4 --requests 6 \\
       --max-new 8 --no-seal --f32 --topology sandwich --delta 2.0 \\
       --require-non-prefix --inject-straggler 2:10 --verify-swap
+  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
+      --device cpu --kv-layout timeline --stages 2 --microbatches 2 \\
+      --slots 4 --requests 6 --max-new 8 --no-seal --f32 \\
+      --inject-straggler 1:10 --verify-swap --warmup --assert-no-recompile
+  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
+      --device cpu --backend local --per-token-prefill --f32
 """
 from __future__ import annotations
 
@@ -127,6 +139,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="tokens to generate per request")
     ap.add_argument("--arrival-every", type=int, default=2,
                     help="submit one request every K engine steps")
+    ap.add_argument("--max-seq", type=int, default=0,
+                    help="legacy timeline horizon (0 = auto-size)")
+    ap.add_argument("--kv-layout", default="paged",
+                    choices=["paged", "timeline"],
+                    help="paged per-slot KV cache (unbounded lifetime) or "
+                         "the legacy shared-position timeline")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per KV page")
     ap.add_argument("--num-pages", type=int, default=0,
@@ -188,9 +206,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="stream prompts longer than N in N-token chunks, "
                          "one chunk per engine step between decode ticks "
                          "(0 = whole-prompt prefill)")
+    ap.add_argument("--per-token-prefill", action="store_true",
+                    help="disable one-call batched prefill (admission-"
+                         "latency baseline)")
     ap.add_argument("--prefill-pack", type=int, default=0,
                     help="pack up to K queued short prompts into one "
-                         "bucketed prefill call (0 = off)")
+                         "bucketed prefill call (paged + batched prefill "
+                         "only; 0 = off)")
     ap.add_argument("--warmup", action="store_true",
                     help="capture every serving shape (decode step, all "
                          "prefill buckets one-shot and packed, every chunk "
@@ -235,16 +257,24 @@ def build_parser() -> argparse.ArgumentParser:
 def make_config(args, **overrides) -> EngineConfig:
     """The engine config the parsed arguments describe; ``overrides`` set
     fields that have no flag (``sample_seed``, as the reference's serve has
-    none) or replace what a flag set."""
+    none) or replace what a flag set. ``--max-seq 0`` sizes the horizon
+    as the reference's launcher does: the longest prompt, the arrivals'
+    spread, the decode steps the stream takes on its slots, one request's
+    new tokens, and 16."""
+    max_seq = args.max_seq or (
+        args.prompt_len + args.requests * args.arrival_every
+        + args.max_new * args.requests // args.slots + args.max_new + 16)
     return dataclasses.replace(EngineConfig(
         num_slots=args.slots, num_stages=args.stages,
-        num_microbatches=args.microbatches, prompt_capacity=args.prompt_len,
+        num_microbatches=args.microbatches, max_seq=max_seq,
+        prompt_capacity=args.prompt_len, kv_layout=args.kv_layout,
         page_size=args.page_size, num_pages=args.num_pages,
         page_policy=args.page_policy,
         prefix_sharing=not args.no_prefix_sharing,
         preempt_policy=args.preempt_policy,
         decode_cow=not args.no_decode_cow,
         request_capacity=args.prompt_len + args.max_new,
+        batched_prefill=not args.per_token_prefill,
         seal_boundary=not args.no_seal, solver=args.solver, space=args.space,
         delta=args.delta, telemetry_interval=args.telemetry_interval,
         temperature=args.temperature, top_k=args.top_k,
@@ -400,11 +430,17 @@ def report(eng, api, reqs) -> None:
           f"steps={st['steps']} replans={st['replans']} swaps={st['swaps']} "
           f"prefill_calls={st['prefill_calls']} "
           f"admission_p50={st.get('admission_p50_ms', 0):.1f}ms")
-    print(f"paging: policy={st['page_policy']}/{st['preempt_policy']} "
-          f"preemptions={st['preemptions']} swap_outs={st['swap_outs']} "
-          f"swap_ins={st['swap_ins']} cow_hits={st['cow_hits']} "
-          f"forks={st['forks']} peak_pages={st['peak_pages_in_use']}/"
-          f"{st['num_pages'] - 1}")
+    if st["kv_layout"] == "paged":
+        print(f"paging: policy={st['page_policy']}/{st['preempt_policy']} "
+              f"preemptions={st['preemptions']} swap_outs={st['swap_outs']} "
+              f"swap_ins={st['swap_ins']} cow_hits={st['cow_hits']} "
+              f"forks={st['forks']} peak_pages={st['peak_pages_in_use']}/"
+              f"{st['num_pages'] - 1}")
+    else:
+        print(f"timeline: max_seq={st['max_seq']} "
+              f"global_len={st['global_len']} "
+              f"preempt_policy={st['preempt_policy']} "
+              f"stalled={st['stalled']}")
     if st["prefill_chunk"]:
         print(f"chunked prefill: {st['chunked_admissions']} admissions in "
               f"{st['prefill_chunks']} chunks of {st['prefill_chunk']} "

@@ -2,7 +2,8 @@
 ``repro/models/layers.py``): parameter specs and their initializer, norms,
 rotary embeddings, projections (with the attention biases), SwiGLU,
 prefill attention (one-shot and chunked against the page pools), the
-paged decode path and the training loss (``chunked_softmax_xent``).
+paged decode path, the timeline decode attention (``decode_attention``)
+and the training loss (``chunked_softmax_xent``).
 
 Layouts are the reference's: activations [B, S, ...], ``wq [d, H, hd]``,
 ``wo [H, hd, d]``, page pools ``[N, KVH, page_size, D]``. The paged write
@@ -152,6 +153,50 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
                                         window=window, q_offset=q_offset)
     return KO.flash_attention(q, k, v, causal=causal, window=window,
                               q_offset=q_offset)
+
+
+NEG_INF = -1e30
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, rolling: bool = False,
+                     start=None):
+    """Single-token attention against a contiguous timeline KV cache (the
+    reference's ``decode_attention``, plain in both packages: f32 scores,
+    a ``NEG_INF`` mask, softmax).
+
+    q: [B, 1, H, D]; caches: [B, KVH, S, D] (any float type, or the f32
+    dequantized int8 cache). ``cache_len``: the number of valid entries, an
+    int or an integer tensor of one element (the engine's, on the device,
+    so a CUDA graph reads it at every replay). With ``rolling=True``
+    (sliding-window buffers) every slot < min(cache_len, S) is valid.
+    ``start``: optional per-row [B] (or [1]) first valid absolute position:
+    requests share one position timeline, so a slot admitted late masks
+    out whatever its cache holds before its own prompt. Returns
+    [B, 1, H, D] in q's type."""
+    B, _, H, D = q.shape
+    KVH, S = k_cache.shape[1], k_cache.shape[2]
+    rep = H // KVH
+    scale = 1.0 / math.sqrt(D)
+    qf = q.reshape(B, KVH, rep, D).float()
+    s = torch.einsum("bgrd,bgsd->bgrs", qf, k_cache.float()) * scale
+    pos = torch.arange(S, device=q.device)
+    n = torch.as_tensor(cache_len, device=q.device).reshape(()).long()
+    limit = torch.clamp(n, max=S) if rolling else n
+    valid = pos < limit
+    if start is not None:
+        if rolling:
+            # slot p last written at absolute position n-1 - ((n-1-p) mod S)
+            abs_pos = n - 1 - torch.remainder(n - 1 - pos, S)
+        else:
+            abs_pos = pos
+        first = torch.as_tensor(start, device=q.device).reshape(-1, 1)
+        valid = valid[None, :] & (abs_pos[None, :] >= first)
+        s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    else:
+        s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrs,bgsd->bgrd", p, v_cache.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):

@@ -8,8 +8,13 @@ weights stacked along a leading layer dim under ``"blocks"`` (``wq``
 ``[L, E, d, dff]``, ...), tied embeddings for llama.
 A parameter tree converted from the JAX package (``repro_torch.weights``)
 therefore drops in as is. The block loop is a Python loop over layers
-(the reference's ``lax.scan``); the paged KV pools are per-segment
-``(k, v)`` tensors ``[L, N, KVH, page_size, D]`` updated in place.
+(the reference's ``lax.scan``). Two KV layouts, both updated in place:
+the paged pools, per-segment ``(k, v)`` tensors ``[L, N, KVH, page_size,
+D]``, and the reference's shared-position timeline, per-segment ``(k, v)``
+``[L, B, KVH, S, D]`` (or, with ``cache_quant``, int8 payloads and f32
+per-(head, channel) scales ``(k_q8, v_q8, k_s, v_s)``, the scales
+``[L, KVH, D]``) beside ``"len"`` (one int32 for every row) and an
+optional per-row ``"start"`` [B].
 """
 from __future__ import annotations
 
@@ -39,6 +44,34 @@ def _as_index(x, device) -> torch.Tensor:
 def _last_positions(lens, device) -> torch.Tensor:
     """int64 [n] positions of each row's last valid token, ``lens - 1``."""
     return _as_index(lens, device).reshape(-1) - 1
+
+
+def quantize_kv(t: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """t: [..., D] -> int8 against a per-(head, channel) scale broadcast
+    over the rest (round half to even, as ``jnp.round``)."""
+    return torch.clamp(torch.round(t.float() / scale), -127, 127).to(
+        torch.int8)
+
+
+def dequantize_kv(t: torch.Tensor, scale: torch.Tensor,
+                  dtype=torch.float32) -> torch.Tensor:
+    return (t.float() * scale).to(dtype)
+
+
+def default_kv_cache_spec(cfg: ArchConfig, batch: int, max_seq: int,
+                          quant: bool = False, dtype=torch.bfloat16):
+    """Per-layer timeline KV cache spec (no leading layer dim): ``(shape,
+    dtype)`` of k and v ``[batch, KVH, S, D]``, and with ``quant`` int8
+    payloads plus f32 per-(head, channel) scales ``[KVH, D]`` (half the
+    payload bytes). S is ``max_seq``, or the window of a sliding-window
+    model (not served by this port yet)."""
+    S = cfg.sliding_window if cfg.sliding_window else max_seq
+    kv = ((batch, cfg.num_kv_heads, S, cfg.head_dim),
+          torch.int8 if quant else dtype)
+    if quant:
+        sc = ((cfg.num_kv_heads, cfg.head_dim), torch.float32)
+        return (kv, kv, sc, sc)
+    return (kv, kv)
 
 
 def dense_block_specs(cfg: ArchConfig) -> Dict[str, Any]:
@@ -81,9 +114,12 @@ class StackedLM:
     """A causal LM: embedding, ``num_layers`` pre-norm blocks (dense, or
     MoE: dense attention and an MoE FFN), final norm, tied (or separate)
     output head. ``remat`` recomputes each block in the backward of
-    ``loss_fn``, as the reference's default does."""
+    ``loss_fn``, as the reference's default does. ``cache_quant`` keeps the
+    timeline cache in int8 with per-(head, channel) scales set by
+    ``prefill_fn``; such a model has no paged cache (``paged_ok``)."""
 
-    def __init__(self, cfg: ArchConfig, remat: bool = True):
+    def __init__(self, cfg: ArchConfig, remat: bool = True,
+                 cache_quant: bool = False):
         if cfg.sliding_window or cfg.pos_type != "rope":
             raise NotImplementedError(
                 f"{cfg.name}: sliding windows and non-RoPE positions are "
@@ -95,6 +131,12 @@ class StackedLM:
                 f"a single homogeneous segment")
         self.cfg = cfg
         self.remat = remat
+        self.cache_quant = cache_quant
+
+    @property
+    def paged_ok(self) -> bool:
+        """Paged decode support: the plain full-attention cache only."""
+        return not self.cache_quant
 
     # -- parameters --------------------------------------------------------
     def param_specs(self) -> Dict[str, Any]:
@@ -202,6 +244,26 @@ class StackedLM:
         x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
         return x, {SEGMENT: (torch.stack(ks), torch.stack(vs))}
 
+    def prefill_fn(self, params, batch):
+        """Whole-batch prefill into a fresh timeline cache: ``tokens``
+        [B, S], every position real. Returns (f32 logits [B, V] at the last
+        position, {"blocks": (k, v) [L, B, KVH, S, D], "len": S}); with
+        ``cache_quant`` the blocks hold ``(k_q8, v_q8, k_s, v_s)``, each
+        layer's scales ``max |kv| / 127 + 1e-6`` over the batch and the
+        sequence per (head, channel), the only call that sets them."""
+        tokens = batch["tokens"]
+        x, caches = self._prefill(params, tokens)
+        if self.cache_quant:
+            kk, vv = caches[SEGMENT]
+            k_s, v_s = (t.float().abs().amax(dim=(1, 3)) / 127.0 + 1e-6
+                        for t in (kk, vv))                  # [L, KVH, D]
+            caches[SEGMENT] = (quantize_kv(kk, k_s[:, None, :, None]),
+                               quantize_kv(vv, v_s[:, None, :, None]),
+                               k_s, v_s)
+        caches["len"] = torch.tensor(tokens.shape[1], dtype=torch.int32,
+                                     device=tokens.device)
+        return self.logits(params, x[:, -1]), caches
+
     def prefill_at_fn(self, params, batch):
         """Whole-prompt prefill for paged admission: ``tokens`` [B, S_pad]
         right-padded, ``prompt_len`` the true length (a host int, or an
@@ -273,6 +335,64 @@ class StackedLM:
         last = _last_positions(batch["chunk_len"], tokens.device)
         return self.logits(params, x.index_select(1, last)[:, 0]), pools
 
+    # -- public: timeline decode ----------------------------------------------
+    def decode_timeline_blocks(self, params, body, x: torch.Tensor,
+                               cache_len: torch.Tensor,
+                               start: Optional[torch.Tensor] = None,
+                               lo: int = 0, hi: Optional[int] = None,
+                               rows: slice = slice(None)) -> torch.Tensor:
+        """Blocks ``[lo, hi)`` of one timeline decode step for batch rows
+        ``rows`` of the cache body ``(k, v)`` [L, B, KVH, S, D] (or
+        ``(k_q8, v_q8, k_s, v_s)``). Every row sits at the shared position
+        ``cache_len`` (an int tensor of one element on the device): each
+        block writes its new K/V at slot ``min(cache_len, S - 1)``, in
+        place (int8 against the layer's scales when quantized), and attends
+        over ``cache_len + 1`` positions from each row's ``start`` (the
+        rows' [b] slice, or None) through ``L.decode_attention``. ``x``
+        [b, 1, d] enters block ``lo``; returns what leaves block
+        ``hi - 1``. ``decode_fn`` runs every block on every row; a pipeline
+        stage runs its range on its microbatch's rows."""
+        cfg = self.cfg
+        hi = cfg.num_layers if hi is None else hi
+        positions = cache_len.reshape(1, 1)
+        S = body[0].shape[3]
+        slot = torch.clamp(cache_len.reshape(1).long(), max=S - 1)
+        for l in range(lo, hi):
+            p = self._layer(params, l)
+            h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+            q, k, v = L.attn_qkv(p["attn"], h, positions, cfg)
+            k, v = k.transpose(1, 2), v.transpose(1, 2)     # [b, KVH, 1, D]
+            if self.cache_quant:
+                k_q, v_q, k_s, v_s = (t[l] for t in body)
+                sK, sV = k_s[:, None, :], v_s[:, None, :]   # [KVH, 1, D]
+                k_q, v_q = k_q[rows], v_q[rows]
+                k_q.index_copy_(2, slot, quantize_kv(k, sK))
+                v_q.index_copy_(2, slot, quantize_kv(v, sV))
+                kc, vc = dequantize_kv(k_q, sK), dequantize_kv(v_q, sV)
+            else:
+                kc, vc = body[0][l][rows], body[1][l][rows]
+                kc.index_copy_(2, slot, k)
+                vc.index_copy_(2, slot, v)
+            ctx = L.decode_attention(q, kc, vc, cache_len + 1, start=start)
+            x = x + L.attn_out(p["attn"], ctx)
+            x = self._mlp(p, x)
+        return x
+
+    def decode_fn(self, params, cache, batch):
+        """One decode step over the timeline cache: ``batch["tokens"]``
+        [B, 1] at the shared position ``cache["len"]``, masked per row from
+        ``cache["start"]`` when the cache has one (the serving engine's
+        continuous batching). The body and ``len`` are updated in place
+        (``len`` advances by one) and the same cache dict is returned with
+        the f32 logits [B, V]."""
+        n = cache["len"]
+        x = self.embed(params, batch["tokens"])              # [B, 1, d]
+        x = self.decode_timeline_blocks(params, cache[SEGMENT], x, n,
+                                        cache.get("start"))
+        logits = self.head(params, x)
+        n.add_(1)
+        return logits, cache
+
     # -- public: paged decode ------------------------------------------------
     def decode_blocks(self, params, pools, x: torch.Tensor,
                       block_tables: torch.Tensor, seq_lens: torch.Tensor,
@@ -324,6 +444,19 @@ class StackedLM:
         return logits, cache
 
     # -- caches --------------------------------------------------------------
+    def _segment_cache(self, batch: int, max_seq: int, dtype):
+        """The timeline body's specs, each layer's stacked on a leading
+        layer dim."""
+        return tuple(((self.cfg.num_layers,) + shape, dt)
+                     for shape, dt in default_kv_cache_spec(
+                         self.cfg, batch, max_seq, self.cache_quant, dtype))
+
+    def init_cache_specs(self, batch_size: int, max_seq: int,
+                         dtype) -> Dict[str, Any]:
+        """Shapes and types of the timeline cache: the body and ``len``."""
+        return {SEGMENT: self._segment_cache(batch_size, max_seq, dtype),
+                "len": ((), torch.int32)}
+
     def init_paged_cache_specs(self, num_slots: int, num_pages: int,
                                page_size: int, pages_per_slot: int,
                                dtype) -> Dict[str, Any]:

@@ -17,12 +17,19 @@ graph: each replay seals under the key the engine copied in for it.
 Stage 0 embeds instead of unsealing; the last stage applies the final
 norm and the f32 head, unsealed.
 
+Both KV layouts run here: the paged pools (``build(paged=True)``) and the
+reference's shared-position timeline (``build(paged=False)``: a cache
+body ``[L, B, KVH, S, D]``, one ``len`` for every row and a per-slot
+``start`` mask, ``per_slot_start``).
+
 What the reference does for sharding over pods and the port does not copy
 on one card:
 
-* the staged ``[S, bps, ...]`` parameter and pool layout with its padding
-  masks: the pools stay ``[L, N, KVH, Pg, D]`` and a stage is a range of
-  layers, so ``restage_cache`` on a live boundary swap moves no pages;
+* the staged ``[S, bps, ...]`` parameter and cache layout with its padding
+  masks: the pools and the timeline body keep one layer per row of their
+  leading dim and a stage is a range of layers, so staging a cache is
+  the identity and ``restage_cache`` on a live boundary swap moves
+  nothing;
 * the warm-up and drain ticks, whose outputs the reference masks out: only
   the ``nm * S`` valid (microbatch, stage) pairs run, in tick order, which
   makes ``nm * (S - 1)`` seals and as many unseals per step;
@@ -31,7 +38,9 @@ on one card:
 
 Each stage reads and writes only its own layers of the shared pools, for
 its microbatch's block-table rows; ``seq_lens`` advance once per step,
-for every row that holds a sequence.
+for every row that holds a sequence. On the timeline a stage writes its
+layers' rows of its microbatch at the shared position ``len``, which
+advances once per step.
 """
 from __future__ import annotations
 
@@ -102,10 +111,23 @@ class PipelinedDecoder:
         self.ranges: Tuple[Tuple[int, int], ...] = tuple(
             (starts[s], starts[s + 1]) for s in range(S))
 
+    # -- the timeline cache's staging (the identity on one card) -------------
+    def stage_cache(self, cache):
+        """A timeline cache dict -> the staged pair ``(body, len)``. The
+        body keeps its ``[L, B, ...]`` layout: stage s reads its layer range
+        of it."""
+        return cache[SEGMENT], cache["len"]
+
+    def unstage_cache(self, staged, new_len):
+        """The inverse of ``stage_cache``."""
+        return {SEGMENT: staged, "len": new_len}
+
     def restage_cache(self, cache, new_dec: "PipelinedDecoder"):
-        """Carry the paged cache over to ``new_dec``'s boundaries (a live
-        re-plan swap). The pools keep one layer per row of their leading
-        dim whatever the stage layout, so nothing moves: the cache is valid
+        """Carry a cache over to ``new_dec``'s boundaries (a live re-plan
+        swap): the paged cache dict, or the timeline's staged tuple
+        ``(body, len)`` or ``(body, len, start)``, returned in the same
+        form. Pools and bodies keep one layer per row of their leading dim
+        whatever the stage layout, so nothing moves: the cache is valid
         under the new ranges as it is."""
         assert new_dec.api.cfg.num_layers == self.api.cfg.num_layers
         return cache
@@ -117,53 +139,110 @@ class PipelinedDecoder:
         return self.api.model.decode_blocks(params, pools, x, bt, sl,
                                             start, end)
 
+    def _timeline_stage_run(self, params, body, s: int, x: torch.Tensor,
+                            cache_len: torch.Tensor, start=None,
+                            rows: slice = slice(None)) -> torch.Tensor:
+        lo, hi = self.ranges[s]
+        return self.api.model.decode_timeline_blocks(
+            params, body, x, cache_len, start, lo, hi, rows)
+
     def build_stage_probe(self, paged: bool = True) -> Callable:
-        """A single-stage runner for per-stage wall-time telemetry:
-        ``probe(params, pools, s, x, bt, sl)`` runs stage s's layer range
-        on one microbatch exactly as a tick would (minus the seal) and
-        returns its output. The caller times it (the engine: CUDA events
-        on the card, the host clock on the CPU). The probe must leave the
-        serving state as it found it, so the caller passes block-table
-        rows of the null page: every K/V write is dropped and every read
-        sees the zero page, over as many pages as the live lengths
-        reach."""
-        if not paged:
-            raise NotImplementedError(
-                "the timeline KV layout is not ported; build_stage_probe "
-                "takes paged=True")
-        return self._stage_run
+        """A single-stage runner for per-stage wall-time telemetry, which
+        runs stage s's layer range on one microbatch exactly as a tick
+        would (minus the seal) and returns its output. The caller times it
+        (the engine: CUDA events on the card, the host clock on the CPU).
+        The probe must leave the serving state as it found it.
+
+        ``paged=True``: ``probe(params, pools, s, x, bt, sl)``; the caller
+        passes block-table rows of the null page, so every K/V write is
+        dropped and every read sees the zero page, over as many pages as
+        the live lengths reach. ``paged=False`` (the timeline):
+        ``probe(params, body, s, x, cache_len)``; the caller passes a
+        scratch body of one microbatch's rows, so the writes land there
+        and the attention covers the live horizon (its cost does not
+        depend on what the cache holds)."""
+        if paged:
+            return self._stage_run
+        return self._timeline_stage_run
 
     # -- the step -------------------------------------------------------------
-    def build(self, paged: bool = True) -> Callable:
-        """``step_fn(params, cache, batch, key) -> (logits, cache)``.
-        ``cache`` is the paged cache dict of ``ModelAPI.init_paged_cache``
-        (pools ``[L, N, KVH, Pg, D]``, ``block_tables`` [B, MP], ``seq_lens``
-        [B]), updated in place; ``batch["tokens"]`` is [B, 1]; ``key`` is
-        the uint32 boundary key of this step, a one-element integer tensor
-        on the device (the engine's, which a captured step reads at every
-        replay) or an int (eager callers). Returns f32 logits [B, V].
+    def build(self, paged: bool = True,
+              per_slot_start: bool = True) -> Callable:
+        """``step_fn(params, cache, batch, key) -> (logits, cache)``;
+        ``batch["tokens"]`` is [B, 1]; ``key`` is the uint32 boundary key
+        of this step, a one-element integer tensor on the device (the
+        engine's, which a captured step reads at every replay) or an int
+        (eager callers). Returns f32 logits [B, V] and the cache, updated
+        in place.
 
-        Demand paging / COW: the engine backs every row's next write
-        position with a private page before the step, so the stages never
-        write a shared page; reads gather freely across shared pages."""
+        ``paged=True``: ``cache`` is the paged cache dict of
+        ``ModelAPI.init_paged_cache`` (pools ``[L, N, KVH, Pg, D]``,
+        ``block_tables`` [B, MP], ``seq_lens`` [B]). Demand paging / COW:
+        the engine backs every row's next write position with a private
+        page before the step, so the stages never write a shared page;
+        reads gather freely across shared pages.
+
+        ``paged=False``: ``cache`` is the staged timeline tuple
+        ``(body, len, start)`` with ``start`` the per-slot [B] first valid
+        positions (``per_slot_start``, the engine's continuous-batching
+        mask), or ``(body, len)`` without it; ``len`` advances by one."""
         if not paged:
-            raise NotImplementedError(
-                "the timeline KV layout is not ported; build takes "
-                "paged=True")
+            return self._build_timeline(per_slot_start)
+        stage_run = self._stage_run
+        ticks = self._ticks()
+
+        def step_fn(params, cache, batch, key):
+            bt, sl = cache["block_tables"], cache["seq_lens"]
+            pools = cache[SEGMENT]
+            logits = ticks(params, batch["tokens"], key,
+                           lambda s, x, rows: stage_run(
+                               params, pools, s, x, bt[rows], sl[rows]))
+            sl.copy_(torch.where(sl > 0, sl + 1, sl))
+            return logits, cache
+
+        return step_fn
+
+    def _build_timeline(self, per_slot_start: bool) -> Callable:
+        """``build(paged=False)``: the tick loop over the timeline cache.
+        Microbatch m's rows of every stage's layers sit at the shared
+        position ``len``; stage s runs its layer range on them and seals
+        its boundary as on the paged layout."""
+        stage_run = self._timeline_stage_run
+        ticks = self._ticks()
+
+        def step_fn(params, cache, batch, key):
+            if per_slot_start:
+                body, cache_len, start = cache
+            else:
+                (body, cache_len), start = cache, None
+
+            def run(s, x, rows):
+                st = None if start is None else start[rows]
+                return stage_run(params, body, s, x, cache_len, st, rows)
+
+            logits = ticks(params, batch["tokens"], key, run)
+            cache_len.add_(1)
+            return logits, cache
+
+        return step_fn
+
+    def _ticks(self) -> Callable:
+        """The tick loop of one step, for either layout:
+        ``ticks(params, tokens, key, run) -> f32 logits [B, V]``, where
+        ``run(s, x, rows)`` runs stage s on microbatch ``rows`` (a slice of
+        the batch). Microbatch m leaves stage s at tick ``t = m + s``,
+        sealed under ``key`` and the counter of tick t + 1; stage 0 embeds,
+        the last stage applies the head."""
         api, model = self.api, self.api.model
         S, nm = self.num_stages, self.num_microbatches
         seal_on = self.seal_boundary
-        stage_run = self._stage_run
         # _leaf_counter(t, 0) for every tick t: tick t seals under t + 1
         ctrs = sealing.leaf_counters(nm + S, api.device) if seal_on else None
 
-        def step_fn(params, cache, batch, key):
-            tokens = batch["tokens"]                       # [B, 1]
-            B = tokens.shape[0]
+        def ticks(params, tokens, key, run):
+            B = tokens.shape[0]                            # tokens [B, 1]
             assert B % nm == 0, (B, nm)
             B_mb = B // nm
-            bt, sl = cache["block_tables"], cache["seq_lens"]
-            pools = cache[SEGMENT]
             d = api.cfg.d_model
             inflight: List[Any] = [None] * nm    # each microbatch's boundary
             logits = [None] * nm
@@ -181,7 +260,7 @@ class PipelinedDecoder:
                                      out_dtype=api.dtype).reshape(B_mb, 1, d)
                     else:
                         x = inflight[m]
-                    h = stage_run(params, pools, s, x, bt[rows], sl[rows])
+                    h = run(s, x, rows)
                     if s == S - 1:
                         logits[m] = model.head(params, h)
                     elif seal_on:
@@ -189,8 +268,6 @@ class PipelinedDecoder:
                                              ctrs[t + 1:t + 2])
                     else:
                         inflight[m] = h
-            sl.copy_(torch.where(sl > 0, sl + 1, sl))
-            return torch.cat(logits), cache
+            return torch.cat(logits)
 
-        return step_fn
-
+        return ticks

@@ -1,5 +1,6 @@
-"""Continuous-batching serving engine of the port, on the paged KV layout
-(port of the paged path of ``repro/serving/engine.py``).
+"""Continuous-batching serving engine of the port (port of
+``repro/serving/engine.py``), on two KV layouts: the paged cache, the
+default, and the reference's legacy shared-position timeline.
 
 What this slice keeps from the reference, with the same host-side
 decisions so that greedy token streams are equal:
@@ -44,9 +45,10 @@ backend one per stage layout, ``step{layout}``, with its per-stage
 telemetry probe, ``probe{layout}``, for the planned layout and every
 layout of the reference's tour), one-shot and packed prefill at every
 bucket, a prefill chunk at every chunk offset, and the swap I/O
-(``gather_pages`` / ``scatter_pages``) -- and from then on each of those
-calls is one graph replay, holding the paged, flash, seal and cipher
-kernels. Per-call numbers (tokens, prompt lengths, write targets,
+(``gather_pages`` / ``scatter_pages``); on the timeline the decode step,
+the per-token prefill step (``prefill_token``, one graph per cache width)
+and the slot ``insert`` -- and from then on each of those calls is one
+graph replay, holding the paged, flash, seal and cipher kernels. Per-call numbers (tokens, prompt lengths, write targets,
 block-table rows, page vectors, swap payloads, keys and swap sequence
 numbers) reach the device through pinned, non-blocking copies into the
 graphs' static buffers: the seal and cipher kernels read their key and
@@ -84,8 +86,21 @@ Sampling at ``temperature > 0`` (``top_k``, ``sample_seed``) keys each
 row by its (rid, index) as the reference does (``serving/sampling.py``);
 a warmed engine captures the sampler as one graph per batch shape.
 
-Not in this slice, and refused by name when a config asks for them: the
-legacy timeline layout and per-token prefill (ROADMAP.md, queue 1).
+``kv_layout="timeline"`` (and any model without a paged cache: an int8
+KV cache, ``build_model(cache_quant=True)``) serves on the reference's
+legacy timeline: one cache ``[L, num_slots, KVH, max_seq, D]`` whose
+position ``len`` every slot shares, starting at ``prompt_capacity``. A
+prompt is prefilled one token at a time (``decode_fn`` on a static
+private ``[1, max_seq]`` cache, the managed ``prefill_token``) so that it
+ends at the timeline's tip, and copied into its slot with a per-slot
+``start`` mask (``insert``). The horizon is enforced by admission back-
+pressure: a request whose worst case would run past ``max_seq`` waits,
+and once nothing can ever fit the engine stalls. There is no page pool:
+no swap, no COW, no handoff (asking for them raises by name), and
+``preempt_policy="auto"`` resolves to ``recompute``. The local backend is
+``LocalDecodeBackend``, the pipelined one ``PipelinedDecodeBackend``.
+``batched_prefill=False`` prefills the paged layout one token at a time
+too, through the same ``prefill_token`` over a ``[1, bucket]`` cache.
 """
 from __future__ import annotations
 
@@ -119,21 +134,27 @@ from repro_torch.serving.telemetry import StageTelemetry
 
 @dataclasses.dataclass
 class EngineConfig:
-    """The paged subset of the reference's ``EngineConfig`` (same names,
-    same meanings)."""
+    """The reference's ``EngineConfig`` (same names, same meanings), less
+    the mesh's ``use_kernel`` (the card's kernels run whenever the tensors
+    are on it)."""
     num_slots: int = 4                  # decode batch == KV slots
     num_stages: int = 2                 # pipeline stages the plan asks for
     num_microbatches: int = 2           # decode microbatches per step
+    max_seq: int = 256                  # the timeline's horizon
     prompt_capacity: int = 32           # max admissible prompt length
+    kv_layout: str = "paged"            # "paged" | "timeline"
     page_size: int = 16                 # tokens per KV page
     request_capacity: int = 0           # max prompt+max_new (0 = auto)
     num_pages: int = 0                  # pool size (0 = every slot at full
     #                                     request_capacity, + the null page)
     page_policy: str = "demand"         # "demand" | "reserve"
-    preempt_policy: str = "auto"        # "auto" (= "swap") | "swap" |
-    #                                     "recompute"
+    preempt_policy: str = "auto"        # "auto" ("swap" paged,
+    #                                     "recompute" on the timeline) |
+    #                                     "swap" | "recompute"
     prefix_sharing: bool = True         # COW prefix index (demand only)
     decode_cow: bool = True             # freeze decode-filled pages too
+    batched_prefill: bool = True        # whole-prompt prefill in one call
+    #                                     (False: one decode step a token)
     seal_boundary: bool = True          # quantizing seal at stage boundaries
     solver: str = "dp"
     space: str = "segment"              # PlacementSpec search space
@@ -170,15 +191,7 @@ class EngineConfig:
     # serve fault-free. Injections surface in stats()["faults"], their
     # recovery in stats()["recovery"]
     faults: Optional[FaultConfig] = None
-    # reference options of later slices: anything but the default raises
-    kv_layout: str = "paged"
-    batched_prefill: bool = True
 
-
-_LATER = {
-    "kv_layout": ("paged", "the legacy timeline KV layout"),
-    "batched_prefill": (True, "per-token prefill"),
-}
 
 # The prefill role of a disaggregated pair seals under the decode role's key
 # (0xC0FFEE). Its swap sequence numbers start at the middle of the swap
@@ -189,23 +202,117 @@ _PREFILL_SWAP_SEQ = sealing.TRANSFER_SEQ_BASE // 2
 _PREFILL_KEY_SHIFT = 1 << 31
 
 
-def _refuse_later_slices(cfg: EngineConfig) -> None:
-    for name, (ok, what) in _LATER.items():
-        val = getattr(cfg, name)
-        allowed = ok if isinstance(ok, tuple) else (ok,)
-        if val not in allowed:
-            raise NotImplementedError(
-                f"EngineConfig.{name}={val!r}: {what} is not ported yet; "
-                f"see ROADMAP.md, queue 1")
-    if cfg.faults is not None and not isinstance(cfg.faults, FaultConfig):
-        raise TypeError(f"EngineConfig.faults must be None or a FaultConfig, "
-                        f"not {type(cfg.faults).__name__}")
+# ---------------------------------------------------------------------------
+# Decode backends
+# ---------------------------------------------------------------------------
+class _Backend:
+    """What every decode backend shares: host arrays onto the device, the
+    managed decode step ``decode_step`` (``_decode`` on the backend's cache;
+    one graph replay once warmed) and, on a backend whose stage boundaries
+    are metadata, a ``swap`` that records them and a ``stage_times`` that
+    measures nothing, so the engine attributes each step's wall time by the
+    plan's predicted shares."""
+
+    migrates_cache = False
+
+    def _init_step(self) -> None:
+        self._step = self.aot.wrap("decode_step", self._decode)
+
+    def _idx(self, a) -> torch.Tensor:
+        return to_device(a, self.device)
+
+    def _tokens(self, tokens: np.ndarray) -> torch.Tensor:
+        return self._idx(np.asarray(tokens)[:, None])
+
+    def _key_tensor(self, key) -> torch.Tensor:
+        """A key or swap sequence number as a one-element int64 device
+        tensor (a graph's input; an int is copied in)."""
+        return key if isinstance(key, torch.Tensor) else self._idx([key])
+
+    def step(self, tokens: np.ndarray, key) -> torch.Tensor:
+        """One decode step; ``key`` (a one-element device tensor or an int)
+        is the step's boundary key, which seals nothing on a local backend.
+        The logits are a static output under a graph, read before the next
+        managed call."""
+        logits = self._step(self._tokens(tokens))
+        self.steps += 1
+        return logits
+
+    def warm_probes(self) -> None:
+        """Stage probes to warm: none, stage boundaries are metadata here."""
+
+    def swap(self, stage_blocks: Sequence[int]) -> bool:
+        self.stage_blocks = tuple(stage_blocks)
+        return True
+
+    def stage_times(self) -> Optional[List[float]]:
+        return None                     # engine falls back to attribution
 
 
-# ---------------------------------------------------------------------------
-# Decode backend
-# ---------------------------------------------------------------------------
-class PagedLocalBackend:
+class LocalDecodeBackend(_Backend):
+    """Single-device timeline backend (the reference's
+    ``LocalDecodeBackend``): ``decode_fn`` over one shared-position cache,
+    ``[L, num_slots, KVH, max_seq, D]`` (int8 with per-(head, channel)
+    scales for a ``cache_quant`` model), whose ``len`` every row shares
+    and whose per-slot ``start`` masks what a slot's row holds before its
+    own prompt. The cache starts at ``len`` = ``prompt_capacity`` (so every
+    admitted prompt ends at the timeline's tip) and is reset in place,
+    never reallocated: a captured graph holds its addresses. ``insert_slot``
+    copies a per-token-prefilled private cache into a slot's row through
+    the managed ``insert`` (the slot index is a device tensor, so one graph
+    serves every slot). Stage boundaries are metadata here."""
+
+    def __init__(self, api, params, cfg: EngineConfig,
+                 stage_blocks: Optional[Sequence[int]] = None,
+                 aot: Optional[AotRegistry] = None):
+        self.api, self.params, self.cfg = api, params, cfg
+        self.device = api.device
+        self.stage_blocks = tuple(stage_blocks or (api.cfg.num_layers,))
+        self.steps = 0
+        self.cache = api.init_cache(cfg.num_slots, cfg.max_seq)
+        self.cache["start"] = torch.zeros(cfg.num_slots, dtype=torch.int32,
+                                          device=self.device)
+        self.reset_state()
+        self.aot = aot or AotRegistry(capture=False)
+        self._insert = self.aot.wrap("insert", self._insert_fn)
+        self._init_step()
+
+    def reset_state(self) -> None:
+        """A fresh engine's timeline, in place: the body zeroed (the int8
+        cache's scales too, as the reference's ``init_cache`` makes them),
+        ``len`` and every ``start`` at ``prompt_capacity``."""
+        for t in self.cache[SEGMENT]:
+            t.zero_()
+        self.cache["len"].fill_(self.cfg.prompt_capacity)
+        self.cache["start"].fill_(self.cfg.prompt_capacity)
+        self.steps = 0
+
+    def _decode(self, toks: torch.Tensor) -> torch.Tensor:
+        return self.api.decode_fn(self.params, self.cache,
+                                  {"tokens": toks})[0]
+
+    def insert_slot(self, slot: int, private_cache: Dict[str, Any]) -> None:
+        """Copy a one-row private cache (``body`` [L, 1, ...], ``start``
+        [1]) into row ``slot``."""
+        self._insert(private_cache[SEGMENT], private_cache["start"],
+                     self._idx([slot]))
+
+    def _insert_fn(self, body, start: torch.Tensor,
+                   slot: torch.Tensor) -> None:
+        """The reference's ``dynamic_update_slice`` along the batch dim of
+        every leaf: a leaf's update lands at ``min(slot, rows - n)`` for its
+        n rows, so the int8 cache's scales ([L, KVH, D], no batch dim: the
+        update spans the whole dim) are overwritten by the private cache's,
+        as the reference's insert does."""
+        for g, u in zip(self.cache[SEGMENT], body):
+            n = u.shape[1]
+            idx = torch.clamp(slot, max=g.shape[1] - n) + torch.arange(
+                n, device=g.device)
+            g.index_copy_(1, idx, u)
+        self.cache["start"].index_copy_(0, slot, start)
+
+
+class PagedLocalBackend(_Backend):
     """Single-device paged backend: ``decode_paged_fn`` over shared page
     pools + per-slot block tables / seq_lens, all on ``api.device``. The
     device state is updated in place, and never reallocated: a captured
@@ -216,11 +323,7 @@ class PagedLocalBackend:
     replay each once warmed), with their drop-sentinel rows aimed at the
     null page on the device; the eager page-table maintenance drops
     sentinel rows on the host, as the reference's ``mode="drop"`` scatters
-    drop them on the device. Stage boundaries are metadata here: ``swap``
-    records them and ``stage_times`` measures nothing, so the engine
-    attributes each step's wall time by the plan's predicted shares."""
-
-    migrates_cache = False
+    drop them on the device. Stage boundaries are metadata here."""
 
     def __init__(self, api, params, cfg: EngineConfig, num_pages: int,
                  pages_per_slot: int,
@@ -240,9 +343,6 @@ class PagedLocalBackend:
         self._gather = self.aot.wrap("gather_pages", self._gather_fn)
         self._scatter = self.aot.wrap("scatter_pages", self._scatter_fn)
         self._init_step()
-
-    def _init_step(self) -> None:
-        self._step = self.aot.wrap("decode_step", self._decode)
 
     def reset_state(self) -> None:
         """Zero the pools, block tables and seq_lens in place (the warmup
@@ -278,29 +378,6 @@ class PagedLocalBackend:
         return self._chunk(d(toks), int(offset), d([chunk_len]), d(bt_row),
                            d(pages), d(offs))
 
-    def _idx(self, a) -> torch.Tensor:
-        return to_device(a, self.device)
-
-    def _tokens(self, tokens: np.ndarray) -> torch.Tensor:
-        return self._idx(np.asarray(tokens)[:, None])
-
-    def _key_tensor(self, key) -> torch.Tensor:
-        """A key or swap sequence number as a one-element int64 device
-        tensor (a graph's input; an int is copied in)."""
-        return key if isinstance(key, torch.Tensor) else self._idx([key])
-
-    def step(self, tokens: np.ndarray, key) -> torch.Tensor:
-        """One decode step; ``key`` (a one-element device tensor or an int)
-        is the step's boundary key, which seals nothing on the local
-        backend. The logits are a static output under a graph, read before
-        the next managed call."""
-        logits = self._step(self._tokens(tokens))
-        self.steps += 1
-        return logits
-
-    def warm_probes(self) -> None:
-        """Stage probes to warm: none, stage boundaries are metadata here."""
-
     def warm_chunk(self, offset: int) -> None:
         """Warm the chunk at ``offset`` against an all-null block table with
         every write target on the drop sentinel: it reads only the null
@@ -309,13 +386,6 @@ class PagedLocalBackend:
         self._chunk.warm(d(np.zeros((1, C))), int(offset), d([C]),
                          d(np.zeros((1, self.pages_per_slot))),
                          d(np.full(C, self.num_pages)), d(np.zeros(C)))
-
-    def swap(self, stage_blocks: Sequence[int]) -> bool:
-        self.stage_blocks = tuple(stage_blocks)
-        return True
-
-    def stage_times(self) -> Optional[List[float]]:
-        return None                     # engine falls back to attribution
 
     def _set_row(self, slot: int, bt_row: np.ndarray, seq_len: int) -> None:
         self.cache["block_tables"][slot] = to_device(bt_row, self.device,
@@ -398,25 +468,26 @@ class PagedLocalBackend:
             pool[:, target] = g.transpose(0, 1)
 
 
-class PagedPipelinedBackend(PagedLocalBackend):
-    """The pipelined decoder over the shared page pools: the planned stages
-    run one after another on the card, microbatch by microbatch, and every
-    stage boundary is sealed with the quantizing seal (``seal_boundary``)
-    under the step's key, a one-element device tensor. The pools keep the
-    local backend's ``[L, N, KVH, Pg, D]`` layout -- a stage is a range of
-    layers -- so admission, prefill chunks, forks and the sealed page swap
-    are the local backend's (the reference stages a chunk's pools because
-    its pools are staged; these are not), and a live boundary swap
-    (``restage_cache``) moves no pages: block tables, seq_lens and the
-    host's refcounts ride along unchanged.
+class _Pipelined:
+    """The pipelined decoder's half of a backend, for either KV layout: the
+    planned stages run one after another on the card, microbatch by
+    microbatch, and every stage boundary is sealed with the quantizing seal
+    (``seal_boundary``) under the step's key, a one-element device tensor.
+    The cache keeps the local backend's layout -- a stage is a range of
+    layers -- so admission and a live boundary swap (``restage_cache``)
+    move nothing.
 
     Each stage layout has its own managed step, ``step{layout}``, and
     per-stage probe, ``probe{layout}`` (one graph per stage: the stage
     index is a host int that selects the graph), the reference's
     per-layout entry points; a layout is built once and kept, so a swap
-    back, or onto a layout the warmup toured, finds its graphs."""
+    back, or onto a layout the warmup toured, finds its graphs. The layout
+    hooks: ``paged`` (which ``PipelinedDecoder.build`` to take),
+    ``_step_cache()`` (what the step updates), ``_probe_arg()`` (the live
+    state a probe reads, copied into its graph) and ``_run_probe``."""
 
     migrates_cache = True
+    paged = True
 
     def _init_step(self) -> None:
         # layout -> (decoder, step, probe, the probe's timing events)
@@ -439,12 +510,12 @@ class PagedPipelinedBackend(PagedLocalBackend):
                                    num_microbatches=cfg.num_microbatches,
                                    seal_boundary=cfg.seal_boundary,
                                    stage_blocks=key)
-            step_fn, probe = dec.build(paged=True), \
-                dec.build_stage_probe(paged=True)
+            step_fn, probe = dec.build(paged=self.paged), \
+                dec.build_stage_probe(paged=self.paged)
 
             def step(toks, step_key):
-                return step_fn(self.params, self.cache, {"tokens": toks},
-                               step_key)[0]
+                return step_fn(self.params, self._step_cache(),
+                               {"tokens": toks}, step_key)[0]
 
             # on the card, two timing events per stage around its layers,
             # recorded as nodes of the probe's graph once captured
@@ -454,16 +525,12 @@ class PagedPipelinedBackend(PagedLocalBackend):
                       for _ in range(cfg.num_stages)] \
                 if self.device.type == "cuda" else None
 
-            def run_probe(s: int, sl: torch.Tensor) -> torch.Tensor:
-                # null block-table rows: every write dropped, every read
-                # the zero page (see PipelinedDecoder.build_stage_probe)
+            def run_probe(s: int, arg: torch.Tensor) -> torch.Tensor:
                 if events:
                     events[s][0].record()
-                bt = torch.zeros((sl.shape[0], self.pages_per_slot),
-                                 dtype=torch.int32, device=sl.device)
-                x = torch.zeros((sl.shape[0], 1, self.api.cfg.d_model),
-                                dtype=self.api.dtype, device=sl.device)
-                out = probe(self.params, self.cache[SEGMENT], s, x, bt, sl)
+                x = torch.zeros((self._probe_rows, 1, self.api.cfg.d_model),
+                                dtype=self.api.dtype, device=self.device)
+                out = self._run_probe(probe, s, x, arg)
                 if events:
                     events[s][1].record()
                 return out
@@ -472,6 +539,11 @@ class PagedPipelinedBackend(PagedLocalBackend):
                 dec, self.aot.wrap(f"step{key}", step),
                 self._probe_aot.wrap(f"probe{key}", run_probe), events)
         self.dec, self._step, self._probe, self._events = hit
+
+    @property
+    def _probe_rows(self) -> int:
+        """Rows of one microbatch, the probe's batch."""
+        return self.cfg.num_slots // self.cfg.num_microbatches
 
     def step(self, tokens: np.ndarray, key) -> torch.Tensor:
         """One pipelined decode step, its boundaries sealed under ``key``
@@ -485,54 +557,111 @@ class PagedPipelinedBackend(PagedLocalBackend):
         (``PipelinedDecoder.restage_cache``)."""
         old_dec = self.dec
         self._build(stage_blocks)
-        self.cache = old_dec.restage_cache(self.cache, self.dec)
+        self._restage(old_dec)
         return True
 
-    def _probe_rows(self) -> torch.Tensor:
-        """Seq_lens of the first microbatch's rows: a view of the live
-        cache, which a probe reads (copied into its graph's input)."""
-        cfg = self.cfg
-        return self.cache["seq_lens"][:cfg.num_slots // cfg.num_microbatches]
-
     def warm_probes(self) -> None:
-        """Warm this layout's stage probes (state-neutral: they write
-        nothing), so the telemetry ticks of the warmup's traffic time
-        replays, not captures: their samples stay in the stage EMA after
-        the warmup reset, as in the reference."""
-        sl = self._probe_rows()
+        """Warm this layout's stage probes (state-neutral), so the telemetry
+        ticks of the warmup's traffic time replays, not captures: their
+        samples stay in the stage EMA after the warmup reset, as in the
+        reference."""
+        arg = self._probe_arg()
         for s in range(self.cfg.num_stages):
-            self._probe.warm(s, sl)
+            self._probe.warm(s, arg)
 
     def stage_times(self) -> List[float]:
         """Seconds of each stage's layer range on one microbatch of the live
-        seq_lens. The probe runs on block-table rows of the null page, so
-        it writes no live page (see ``PipelinedDecoder.build_stage_probe``).
-        On the card it is a graph replay, warmed or not (an engine without
-        warmup captures the planned layout's probes at construction and a
-        new layout's at its first tick), and a stage's time is the
-        device's, between two CUDA events the probe records around the
-        stage's layers (nodes of its graph), waited for: a replay times the
-        stage's kernels alone, where eagerly the device would follow the
-        host's launches and time the host's pace (only a new layout's first
-        tick on an engine without warmup runs so). Events around the call
-        would also time the host's submission of one standalone replay, a
-        fixed cost of the order of a one-layer stage's replay: the small
-        stage would read as a straggler and re-plan. On the CPU it is the
-        host clock. The decode step has run every kernel of the probe at
-        its shapes already, so no untimed warm-up call precedes it."""
-        sl = self._probe_rows()
+        state, by a probe that leaves the serving state as it found it
+        (``_run_probe``). On the card it is a graph replay, warmed or not
+        (an engine without warmup captures the planned layout's probes at
+        construction and a new layout's at its first tick), and a stage's
+        time is the device's, between two CUDA events the probe records
+        around the stage's layers (nodes of its graph), waited for: a
+        replay times the stage's kernels alone, where eagerly the device
+        would follow the host's launches and time the host's pace (only a
+        new layout's first tick on an engine without warmup runs so).
+        Events around the call would also time the host's submission of
+        one standalone replay, a fixed cost of the order of a one-layer
+        stage's replay: the small stage would read as a straggler and
+        re-plan. On the CPU it is the host clock. The decode step has run
+        every kernel of the probe at its shapes already, so no untimed
+        warm-up call precedes it. The probe runs exactly a stage's layers
+        (the reference's pads a stage to the widest and scales its time by
+        ``stage_counts[s] / bps``; here that factor is 1)."""
+        arg = self._probe_arg()
         per_stage = []
         for s in range(self.cfg.num_stages):
             if self._events:
-                self._probe(s, sl)
+                self._probe(s, arg)
                 start, end = self._events[s]
                 end.synchronize()
                 per_stage.append(start.elapsed_time(end) / 1e3)
             else:
                 t0 = time.perf_counter()
-                self._probe(s, sl)
+                self._probe(s, arg)
                 per_stage.append(time.perf_counter() - t0)
         return per_stage
+
+
+class PagedPipelinedBackend(_Pipelined, PagedLocalBackend):
+    """The pipelined decoder over the shared page pools (``_Pipelined``).
+    The pools keep the local backend's ``[L, N, KVH, Pg, D]`` layout, so
+    admission, prefill chunks, forks and the sealed page swap are the local
+    backend's (the reference stages a chunk's pools because its pools are
+    staged; these are not), and a live boundary swap moves no pages: block
+    tables, seq_lens and the host's refcounts ride along unchanged."""
+
+    def _step_cache(self):
+        return self.cache
+
+    def _restage(self, old_dec: PipelinedDecoder) -> None:
+        self.cache = old_dec.restage_cache(self.cache, self.dec)
+
+    def _probe_arg(self) -> torch.Tensor:
+        """Seq_lens of the first microbatch's rows: a view of the live
+        cache, which a probe reads (copied into its graph's input)."""
+        return self.cache["seq_lens"][:self._probe_rows]
+
+    def _run_probe(self, probe, s: int, x: torch.Tensor,
+                   sl: torch.Tensor) -> torch.Tensor:
+        """Null block-table rows: every write dropped, every read the zero
+        page (see ``PipelinedDecoder.build_stage_probe``)."""
+        bt = torch.zeros((sl.shape[0], self.pages_per_slot),
+                         dtype=torch.int32, device=sl.device)
+        return probe(self.params, self.cache[SEGMENT], s, x, bt, sl)
+
+
+class PipelinedDecodeBackend(_Pipelined, LocalDecodeBackend):
+    """The pipelined decoder over the timeline cache (the reference's
+    ``PipelinedDecodeBackend``, ``_Pipelined``): the step takes the staged
+    triple ``(body, len, start)`` of the local backend's cache
+    (``per_slot_start``), so admission (``insert_slot``) is the local
+    backend's and a live boundary swap moves nothing. A stage probe runs
+    on a scratch body of one microbatch's rows at the live ``len``: its
+    writes land there and its attention spans the live horizon."""
+
+    paged = False
+
+    def _init_step(self) -> None:
+        cfg = self.cfg
+        self._probe_body = self.api.init_cache(
+            self._probe_rows, cfg.max_seq)[SEGMENT]
+        super()._init_step()
+
+    def _step_cache(self):
+        c = self.cache
+        return c[SEGMENT], c["len"], c["start"]
+
+    def _restage(self, old_dec: PipelinedDecoder) -> None:
+        body, n, start = old_dec.restage_cache(self._step_cache(), self.dec)
+        self.cache.update({SEGMENT: body, "len": n, "start": start})
+
+    def _probe_arg(self) -> torch.Tensor:
+        return self.cache["len"]
+
+    def _run_probe(self, probe, s: int, x: torch.Tensor,
+                   n: torch.Tensor) -> torch.Tensor:
+        return probe(self.params, self._probe_body, s, x, n)
 
 
 # ---------------------------------------------------------------------------
@@ -567,8 +696,8 @@ class _ChunkState:
 
 
 class ServingEngine:
-    """Continuous-batching greedy serving over a paged KV cache, planned
-    over trust domains.
+    """Continuous-batching serving over a paged KV cache (or the legacy
+    timeline, ``kv_layout``), planned over trust domains.
 
     The placement is a ``PlacementSpec`` (``self.spec``) from the segment-
     space solver over ``rm`` (two enclaves by default); its stage block
@@ -588,9 +717,38 @@ class ServingEngine:
         if api.device != self.device:
             raise ValueError(f"engine device {self.device} but the model "
                              f"lives on {api.device}")
-        _refuse_later_slices(cfg)
+        if cfg.faults is not None and not isinstance(cfg.faults, FaultConfig):
+            raise TypeError(f"EngineConfig.faults must be None or a "
+                            f"FaultConfig, not {type(cfg.faults).__name__}")
         assert pipeline_applicable(api), \
             f"{api.cfg.name}: serving needs a single homogeneous segment"
+        if cfg.kv_layout not in ("paged", "timeline"):
+            raise ValueError(f"kv_layout {cfg.kv_layout!r}: 'paged' or "
+                             f"'timeline'")
+        # a model without a paged cache (an int8 cache) keeps the timeline
+        self.kv_layout = cfg.kv_layout if api.paged_ok else "timeline"
+        if self.kv_layout == "timeline":
+            if not cfg.prompt_capacity < cfg.max_seq:
+                raise ValueError(f"prompt_capacity {cfg.prompt_capacity} "
+                                 f"must be below max_seq {cfg.max_seq}")
+            # features that need a page pool fail here, by name
+            why = ("kv_layout='timeline' was requested" if api.paged_ok
+                   else f"model '{api.cfg.name}' has no paged-cache support "
+                        f"(sliding-window / quantized / recurrent cache)")
+            if cfg.preempt_policy == "swap":
+                raise ValueError(
+                    f"preempt_policy='swap' requires the paged KV layout, "
+                    f"but this engine runs the legacy timeline layout "
+                    f"({why}): sealed page swap has no page pool to gather "
+                    f"from. Use preempt_policy='auto' (resolves to "
+                    f"'recompute' here) or 'recompute'.")
+            if cfg.disagg_role:
+                raise ValueError(
+                    f"disagg_role='{cfg.disagg_role}' requires the paged KV "
+                    f"layout, but this engine runs the legacy timeline "
+                    f"layout ({why}): the prefill/decode handoff transfers "
+                    f"sealed KV *pages* between page pools. Serve this "
+                    f"model monolithically.")
         if cfg.num_slots % cfg.num_microbatches:
             raise ValueError(f"num_slots {cfg.num_slots} is not a multiple "
                              f"of num_microbatches {cfg.num_microbatches}")
@@ -616,9 +774,10 @@ class ServingEngine:
         self.rm = rm or two_enclave_manager()
         self.params = params if params is not None else api.init(
             torch.Generator(device=self.device).manual_seed(0))
-        self.kv_layout = "paged"
-        self.preempt_policy = "swap" if cfg.preempt_policy == "auto" \
-            else cfg.preempt_policy
+        paged = self.kv_layout == "paged"
+        self.preempt_policy = cfg.preempt_policy \
+            if cfg.preempt_policy != "auto" else \
+            ("swap" if paged else "recompute")
 
         # --- plan over the trust domains ----------------------------------
         # min_stages: ask for a placement that uses every pipeline stage
@@ -642,17 +801,23 @@ class ServingEngine:
             interval=cfg.telemetry_interval,
             step_times_cap=cfg.step_times_cap)
 
-        self.request_capacity = cfg.request_capacity or \
-            (cfg.prompt_capacity + 64)
-        if self.request_capacity <= cfg.prompt_capacity:
-            raise ValueError("request_capacity must exceed prompt_capacity")
-        self.pages_per_slot = -(-self.request_capacity // cfg.page_size)
-        num_pages = cfg.num_pages or (cfg.num_slots * self.pages_per_slot + 1)
-        self.pool = PagePool(num_pages, cfg.page_size)
         self.slot_pages: Dict[int, List[int]] = {}
         # host mirror of each active slot's device seq_len (= the next
         # decode write position); drives demand growth / fork decisions
         self.slot_len: Dict[int, int] = {}
+        self.pool: Optional[PagePool] = None
+        if paged:
+            self.request_capacity = cfg.request_capacity or \
+                (cfg.prompt_capacity + 64)
+            if self.request_capacity <= cfg.prompt_capacity:
+                raise ValueError(
+                    "request_capacity must exceed prompt_capacity")
+            self.pages_per_slot = -(-self.request_capacity // cfg.page_size)
+            num_pages = cfg.num_pages or \
+                (cfg.num_slots * self.pages_per_slot + 1)
+            self.pool = PagePool(num_pages, cfg.page_size)
+        # the timeline's shared position: every admitted prompt ends here
+        self.global_len = cfg.prompt_capacity
         self.preemptions = 0
         self.peak_running = 0
         # monotone swap sequence keys the cipher keystream: no (key,
@@ -687,14 +852,31 @@ class ServingEngine:
         # the full shape inventory as CUDA graphs and stats() can report
         # post-warmup capture stalls
         self.aot = AotRegistry(capture=cfg.warmup)
-        backend_cls = PagedPipelinedBackend if backend == "pipelined" \
-            else PagedLocalBackend
-        self.backend = backend_cls(api, self.params, cfg, num_pages,
-                                   self.pages_per_slot, self.stage_blocks,
-                                   aot=self.aot)
+        pipelined = backend == "pipelined"
+        if paged:
+            backend_cls = PagedPipelinedBackend if pipelined \
+                else PagedLocalBackend
+            self.backend = backend_cls(api, self.params, cfg, num_pages,
+                                       self.pages_per_slot,
+                                       self.stage_blocks, aot=self.aot)
+        else:
+            backend_cls = PipelinedDecodeBackend if pipelined \
+                else LocalDecodeBackend
+            self.backend = backend_cls(api, self.params, cfg,
+                                       self.stage_blocks, aot=self.aot)
         self._prefill_at = self.aot.wrap("prefill_at", self._prefill_at_fn)
+        # packed prefill: the paged layout's batched prefill only
+        self._packing = (cfg.prefill_pack > 1 and paged
+                         and cfg.batched_prefill)
         self._prefill_at_packed = self.aot.wrap("prefill_packed",
                                                 self._prefill_packed_fn)
+        # per-token prefill (the timeline; batched_prefill=False): one
+        # [1, 1] decode step a token over a static private cache per width,
+        # reset in place at every admission (``_token_cache``)
+        self._token_caches: Dict[int, Dict[str, Any]] = {}
+        if not (paged and cfg.batched_prefill):
+            self._prefill_token = self.aot.wrap("prefill_token",
+                                                self._prefill_token_fn)
         self.backend_kind = backend
         self.scheduler = SlotScheduler(cfg.num_slots,
                                        finished_cap=cfg.finished_cap)
@@ -779,6 +961,10 @@ class ServingEngine:
         if not 1 <= len(prompt) <= self.config.prompt_capacity:
             raise ValueError(f"prompt length {len(prompt)} outside [1, "
                              f"{self.config.prompt_capacity}]")
+        if self.kv_layout != "paged":
+            # the timeline's horizon gates at admission (_fits)
+            return self.scheduler.submit(prompt, max_new_tokens, eos_id,
+                                         step=self.steps)
         total = len(prompt) + max_new_tokens
         if total > self.request_capacity:
             raise ValueError(f"prompt+max_new {total} > request_capacity "
@@ -797,6 +983,14 @@ class ServingEngine:
 
     # -- admission gating --------------------------------------------------
     def _fits(self, req: Request) -> bool:
+        """Can ``req`` be admitted now? False means the head of the queue
+        waits: for pages completions will free, or, on the timeline, for
+        nothing that can come back (its worst case must end inside the
+        horizon, so the engine back-pressures at admission instead of
+        running past ``max_seq`` mid-decode)."""
+        if self.kv_layout != "paged":
+            return self.global_len + req.max_new_tokens <= \
+                self.config.max_seq
         if self.config.page_policy == "demand":
             if self.pool.has_transfer(req.rid):
                 # handoff admission: one fresh page per sealed manifest row
@@ -875,6 +1069,12 @@ class ServingEngine:
     # -- admission: prefill into a free slot -------------------------------
     def _prefill_slot(self, slot: int, req: Request) -> None:
         t0 = time.perf_counter()
+        if self.kv_layout != "paged":
+            logits = self._prefill_timeline(slot, req)
+            self._admitted(slot, req, logits, t0, {
+                "rid": req.rid, "slot": slot,
+                "start": self.global_len - len(req.prompt)})
+            return
         if self.pool.has_transfer(req.rid):
             # handoff: restore the peer-sealed pages in one scatter, no
             # prefill and no sample (the prefill role sampled the first
@@ -894,6 +1094,13 @@ class ServingEngine:
                   "pages": len(self.slot_pages[slot]), "shared": shared}
         if req.generated:
             detail["resumed_at"] = len(req.generated)
+        self._admitted(slot, req, logits, t0, detail)
+
+    def _admitted(self, slot: int, req: Request, logits: torch.Tensor,
+                  t0: float, detail: Dict[str, Any]) -> None:
+        """A prefilled admission's first token: sampled from ``logits``
+        [1, V] (a resumed request continues its keystream at
+        ``len(generated)``), the admission timed and its event emitted."""
         first = self._sample_one(logits, req.rid, len(req.generated))
         self.pending[slot] = first
         detail["ms"] = (time.perf_counter() - t0) * 1e3
@@ -946,12 +1153,18 @@ class ServingEngine:
         bt_row = np.zeros(self.pages_per_slot, np.int32)
         bt_row[:len(pages)] = pages
         S_pad = self._bucket(P)
-        toks = np.zeros((1, S_pad), np.int64)
-        toks[0, :P] = tokens
-        logits, (kk, vv) = self._prefill_at(to_device(toks, self.device),
-                                            to_device([P], self.device))
+        if self.config.batched_prefill:
+            toks = np.zeros((1, S_pad), np.int64)
+            toks[0, :P] = tokens
+            logits, (kk, vv) = self._prefill_at(
+                to_device(toks, self.device), to_device([P], self.device))
+            self.prefill_calls += 1
+        else:
+            # one decode step a token from an empty [1, S_pad] cache
+            cache = self._token_cache(S_pad)
+            logits = self._prefill_tokens(tokens, S_pad)
+            kk, vv = cache[SEGMENT]
         kk, vv = kk[:, 0], vv[:, 0]                    # [L, KVH, S_pad, D]
-        self.prefill_calls += 1
         pages_vec, offs_vec = self._write_targets(0, P, S_pad, pages, shared)
         self.backend.insert_slot(slot, (kk, vv), pages_vec, offs_vec, bt_row,
                                  P)
@@ -972,6 +1185,60 @@ class ServingEngine:
         logits, caches = self.api.prefill_packed_fn(
             self.params, {"tokens": toks, "prompt_lens": plens})
         return logits, caches[SEGMENT]
+
+    # -- per-token prefill (the timeline; batched_prefill=False) ------------
+    def _prefill_timeline(self, slot: int, req: Request) -> torch.Tensor:
+        """Legacy offset prefill: one decode step per prompt token on a
+        private one-row cache, ending at the shared timeline's tip, with a
+        per-slot ``start`` mask; the cache is then copied into the slot's
+        row. Returns the last token's logits [1, V], cloned (the insert is
+        a managed call, whose replay may reuse a graph output's memory)."""
+        P = len(req.prompt)
+        start = self.global_len - P          # prompt ends at the tip
+        assert start >= 0
+        cache = self._token_cache(self.config.max_seq, start)
+        logits = self._prefill_tokens(req.prompt,
+                                      self.config.max_seq).clone()
+        self.backend.insert_slot(slot, cache)
+        return logits
+
+    def _token_cache(self, S: int, start: Optional[int] = None
+                     ) -> Dict[str, Any]:
+        """The static private ``[1, S]`` cache of ``prefill_token`` at width
+        S, made once and reset in place: zeros (the int8 cache's scales
+        too, as the reference's ``init_cache`` makes them), ``len`` =
+        ``start`` (0 without one) and, on the timeline, ``start``."""
+        cache = self._token_caches.get(S)
+        if cache is None:
+            cache = self.api.init_cache(1, S)
+            if self.kv_layout != "paged":
+                cache["start"] = torch.zeros(1, dtype=torch.int32,
+                                             device=self.device)
+            self._token_caches[S] = cache
+        for t in cache[SEGMENT]:
+            t.zero_()
+        cache["len"].fill_(start or 0)
+        if "start" in cache:
+            cache["start"].fill_(start or 0)
+        return cache
+
+    def _prefill_token_fn(self, tok: torch.Tensor, S: int) -> torch.Tensor:
+        """One [1, 1] decode step on the private cache of width ``S`` (a
+        host int: one graph per width), graph-managed: logits [1, V], a
+        static output under a graph."""
+        return self.api.decode_fn(self.params, self._token_caches[S],
+                                  {"tokens": tok})[0]
+
+    def _prefill_tokens(self, tokens: Sequence[int], S: int) -> torch.Tensor:
+        """Feed ``tokens`` one at a time through ``prefill_token`` at width
+        S (the tokens reach the device in one copy). Returns the last
+        token's logits."""
+        toks = to_device(np.asarray(tokens)[:, None], self.device)
+        logits = None
+        for i in range(len(tokens)):
+            logits = self._prefill_token(toks[i:i + 1], S)
+            self.prefill_calls += 1
+        return logits
 
     def _write_targets(self, start: int, end: int, width: int,
                        pages: Sequence[int], shared: Sequence[bool]):
@@ -1104,7 +1371,7 @@ class ServingEngine:
 
     def _on_finish(self, fin: Request) -> None:
         self._emit("finish", {"rid": fin.rid, "by": fin.finished_by})
-        if fin.slot in self.slot_pages:
+        if self.kv_layout == "paged" and fin.slot in self.slot_pages:
             self.pool.release(self.slot_pages.pop(fin.slot))
             self.slot_len.pop(fin.slot, None)
             self.backend.clear_slot(fin.slot)
@@ -1413,6 +1680,8 @@ class ServingEngine:
         head's own last) until the head fits; each dropped swap reverts to
         the recompute path. An injected storm's pages come back first: the
         storm is transient noise, manifests are requests' KV."""
+        if self.kv_layout != "paged":
+            return False
         if self.scheduler.active() or self.chunking:
             return False                # completions can still free pages
         if self._storm_pages:
@@ -1460,7 +1729,7 @@ class ServingEngine:
         enters a new page, fork the page first when it is shared. Oldest
         request first, so the youngest is preempted first. PREFILL slots
         are skipped: their chunks acquire their own pages."""
-        if self.config.page_policy != "demand":
+        if self.kv_layout != "paged" or self.config.page_policy != "demand":
             return
         Pg = self.config.page_size
         for slot, req in sorted(self.scheduler.decoding(),
@@ -1499,11 +1768,12 @@ class ServingEngine:
                     continue
                 if self._blocked_rid != nxt.rid:
                     self._blocked_rid = nxt.rid
-                    self._emit("backpressure",
-                               {"rid": nxt.rid, "waiting_on": "pages"})
+                    self._emit("backpressure", {
+                        "rid": nxt.rid, "waiting_on":
+                        "pages" if self.kv_layout == "paged" else "timeline"})
                 return
             self._blocked_rid = None
-            if self.config.prefill_pack > 1 and self._packable(nxt):
+            if self._packing and self._packable(nxt):
                 self._admit_packed()
                 continue
             hit = self.scheduler.admit_next(step=self.steps)
@@ -1617,6 +1887,11 @@ class ServingEngine:
         self.stalled = False
         self.stall_reason = None
         self.peak_running = max(self.peak_running, len(active))
+        if self.kv_layout != "paged":
+            # unreachable: _fits() admits only requests whose worst case
+            # ends inside the horizon
+            assert self.global_len < self.config.max_seq - 1, \
+                "timeline horizon violated despite admission gating"
         rids = np.zeros(self.config.num_slots, np.int64)
         idxs = np.zeros(self.config.num_slots, np.int64)
         for slot, req in active:
@@ -1628,10 +1903,12 @@ class ServingEngine:
         wall = time.perf_counter() - t0
         self.decode_wall_s += wall
         self.steps += 1
+        self.global_len += 1
         for slot, req in active:
             self.pending[slot] = toks[slot]
-            self.slot_len[slot] += 1       # this step's KV write landed
-            self._maybe_register_decode_page(slot, req)
+            if self.kv_layout == "paged":
+                self.slot_len[slot] += 1   # this step's KV write landed
+                self._maybe_register_decode_page(slot, req)
             fin = self.scheduler.on_token(slot, int(toks[slot]),
                                           step=self.steps)
             if fin is not None:
@@ -1645,8 +1922,9 @@ class ServingEngine:
         manifests the deadlock breaker can demote or drop, an injected
         storm (its pages come back), or handoffs an orchestrator holds in
         flight."""
-        return self.pending_external > 0 or bool(self._storm_pages) or bool(
-            self.pool.swap_manifest or self.pool.transfer_manifest)
+        return self.pending_external > 0 or bool(self._storm_pages) or (
+            self.pool is not None and bool(self.pool.swap_manifest
+                                           or self.pool.transfer_manifest))
 
     # -- chaos fault plane: injection ticks + recovery ladder --------------
     @staticmethod
@@ -1688,8 +1966,10 @@ class ServingEngine:
         """The storm site, drawn once per step: seize a share of the free
         list for a few steps (growth and admission then go through the
         preemption machinery), then hand it back. The deadlock breaker may
-        reclaim it early: a storm costs latency, never a request."""
-        if self.faults is None or self._in_warmup:
+        reclaim it early: a storm costs latency, never a request. The
+        timeline has no pool to storm."""
+        if self.faults is None or self._in_warmup \
+                or self.kv_layout != "paged":
             return
         if self._storm_pages:
             self._storm_left -= 1
@@ -1739,11 +2019,14 @@ class ServingEngine:
         ``maybe_observe``: ``replan_on_failure`` excludes the corpse. Rung
         3 is ordinary admission resuming every victim bit-identically. On
         one card both domains are the same device: the plane marks a
-        planner domain unhealthy, and the spill and re-plan run for real."""
+        planner domain unhealthy, and the spill and re-plan run for real.
+        A timeline engine spills nothing (there is no page pool), as the
+        reference's does not: its slots decode on through the re-plan."""
         self._emit("fault_device_death", {"device": victim})
         self.rm.mark_unhealthy(victim)
         self._death_pending = True
-        if self.config.page_policy == "demand":
+        if self.kv_layout == "paged" \
+                and self.config.page_policy == "demand":
             for slot, req in sorted(self.scheduler.active(),
                                     key=lambda t: t[1].rid, reverse=True):
                 if self.scheduler.slots[slot] is not req:
@@ -1874,14 +2157,18 @@ class ServingEngine:
     def _bucket_inventory(self) -> List[int]:
         """Every prefill bucket ``_bucket()`` can emit: powers of two up to
         prompt_capacity, plus the resumed-prompt sizes up to
-        request_capacity."""
+        request_capacity; none on the timeline."""
+        if self.kv_layout != "paged":
+            return []
         return sorted({self._bucket(n)
                        for n in range(1, self.request_capacity + 1)})
 
     def _warm_traffic(self) -> None:
         """Synthetic requests through the real serve path, with the
         reference's deterministic token content (so COW twin adoption and
-        the fork on divergence happen)."""
+        the fork on divergence happen). The timeline's shapes do not depend
+        on a prompt's length ([1, 1] token prefill over a fixed-horizon
+        cache): one short request covers them."""
         cfg = self.config
         V = self.api.cfg.vocab_size
 
@@ -1889,20 +2176,26 @@ class ServingEngine:
             return [int((cfg.sample_seed * 7919 + salt * 31 + j) % V)
                     for j in range(n)]
 
-        prompts = [toks(b, i) for i, b in enumerate(
-            x for x in self._bucket_inventory() if x <= cfg.prompt_capacity)]
-        # identical twins spanning a partial tail page: COW adoption at the
-        # second admission, then a fork when decode first writes the tail
-        twin = toks(min(cfg.page_size + 2, cfg.prompt_capacity), 101)
-        prompts += [twin, list(twin)]
-        if cfg.prefill_chunk and cfg.prompt_capacity > cfg.prefill_chunk:
-            prompts.append(toks(cfg.prompt_capacity, 202))
-        for p in prompts:
-            mn = max(1, min(2, self.request_capacity - len(p)))
-            if self.pool.pages_needed(len(p) + mn) + 1 > \
-                    self.pool.num_pages - 1:
-                continue                # unadmittable in real serve too
-            self.submit(p, mn)
+        if self.kv_layout != "paged":
+            self.submit(toks(2, 7),
+                        max(1, min(2, cfg.max_seq - self.global_len)))
+        else:
+            prompts = [toks(b, i) for i, b in enumerate(
+                x for x in self._bucket_inventory()
+                if x <= cfg.prompt_capacity)]
+            # identical twins spanning a partial tail page: COW adoption at
+            # the second admission, then a fork when decode first writes
+            # the tail
+            twin = toks(min(cfg.page_size + 2, cfg.prompt_capacity), 101)
+            prompts += [twin, list(twin)]
+            if cfg.prefill_chunk and cfg.prompt_capacity > cfg.prefill_chunk:
+                prompts.append(toks(cfg.prompt_capacity, 202))
+            for p in prompts:
+                mn = max(1, min(2, self.request_capacity - len(p)))
+                if self.pool.pages_needed(len(p) + mn) + 1 > \
+                        self.pool.num_pages - 1:
+                    continue            # unadmittable in real serve too
+                self.submit(p, mn)
         guard = 0
         while self.scheduler.has_work():
             self.step()
@@ -1915,14 +2208,26 @@ class ServingEngine:
         have missed: one-shot and packed prefill (pure functions) at every
         bucket, the chunk at every offset below request_capacity against
         the null page, the swap I/O, a decode tick on idle slots and the
-        stage probes. Runs after the traffic drained, so every slot is
-        clear."""
+        stage probes; per-token prefill at every bucket on its private
+        cache. Runs after the traffic drained, so every slot is clear. On
+        the timeline a decode tick advances the shared position, so it runs
+        only if the traffic took none (the warmup reset follows)."""
         dev = self.device
+        if self.kv_layout != "paged":
+            if self.steps == 0:
+                self._warm_step_neutral()
+            self._warm_sampler()
+            self.backend.stage_times()
+            return
         for b in self._bucket_inventory():
-            self._prefill_at.warm(to_device(np.zeros((1, b)), dev),
-                                  to_device([b], dev))
+            if self.config.batched_prefill:
+                self._prefill_at.warm(to_device(np.zeros((1, b)), dev),
+                                      to_device([b], dev))
+            else:
+                self._token_cache(b)
+                self._prefill_token.warm(to_device(np.zeros((1, 1)), dev), b)
         K = self.config.prefill_pack
-        if K > 1:
+        if self._packing:
             for b in self._bucket_inventory():
                 self._prefill_at_packed.warm(to_device(np.zeros((K, b)), dev),
                                              to_device(np.ones(K), dev))
@@ -1958,8 +2263,10 @@ class ServingEngine:
         drawn from ``_swap_seq`` like a real swap's, so no page is ever
         ciphered under a (key, counter) pair that warmup used. A
         disaggregated role warms it whatever its preempt policy: handoff
-        export and ingest replay exactly these graphs."""
-        if self.preempt_policy != "swap" and not self.config.disagg_role:
+        export and ingest replay exactly these graphs. The timeline has no
+        swap."""
+        if self.kv_layout != "paged" or (
+                self.preempt_policy != "swap" and not self.config.disagg_role):
             return
         MP, N = self.pages_per_slot, self.pool.num_pages
         seq = self._swap_seq
@@ -1973,8 +2280,9 @@ class ServingEngine:
 
     def _warm_step_neutral(self) -> None:
         """One decode tick on all-idle slots: every seq_len is 0, so paged
-        writes land as zeros on the null page and the state is unchanged.
-        It takes the next boundary key, like a real step."""
+        writes land as zeros on the null page and the state is unchanged
+        (on the timeline the shared position advances: warmup only). It
+        takes the next boundary key, like a real step."""
         self.backend.step(np.zeros(self.config.num_slots, np.int32),
                           self._step_key())
         self._key_shift += 1
@@ -2043,7 +2351,9 @@ class ServingEngine:
         cfg = self.config
         self.scheduler = SlotScheduler(cfg.num_slots,
                                        finished_cap=cfg.finished_cap)
-        self.pool = PagePool(self.pool.num_pages, cfg.page_size)
+        if self.pool is not None:
+            self.pool = PagePool(self.pool.num_pages, cfg.page_size)
+        self.global_len = cfg.prompt_capacity
         self.slot_pages.clear()
         self.slot_len.clear()
         self.chunking.clear()
@@ -2120,7 +2430,10 @@ class ServingEngine:
 
     def check_page_invariants(self) -> None:
         """Audit the page pool's refcounts against the live block tables;
-        pages an injected storm holds are audited as a live table."""
+        pages an injected storm holds are audited as a live table. The
+        timeline has no pool."""
+        if self.pool is None:
+            return
         tables: Dict[Any, Any] = dict(self.slot_pages)
         if self._storm_pages:
             tables["storm"] = self._storm_pages
@@ -2165,22 +2478,29 @@ class ServingEngine:
             "failed_requests": dict(self.failed),
             "disagg_role": self.config.disagg_role,
             "transfers_out": self.transfers_out,
-            "page_size": self.config.page_size,
-            "num_pages": self.pool.num_pages,
-            "free_pages": self.pool.free_pages,
-            "peak_pages_in_use": self.pool.peak_in_use,
-            "peak_demand_pages": self.pool.peak_demand,
-            "page_policy": self.config.page_policy,
             "preemptions": self.preemptions,
             "preempt_policy": self.preempt_policy,
             "swap_fallbacks": self.swap_fallbacks,
-            "decode_cow": self.config.decode_cow,
-            "cow_hits": self.pool.cow_hits,
-            "forks": self.pool.forks,
-            "evictions": self.pool.evictions,
             "peak_running_slots": self.peak_running,
+            "batched_prefill": self.config.batched_prefill,
         })
-        out.update(self.pool.stats())       # swap and transfer ledgers
+        if self.kv_layout == "paged":
+            out.update({
+                "page_size": self.config.page_size,
+                "num_pages": self.pool.num_pages,
+                "free_pages": self.pool.free_pages,
+                "peak_pages_in_use": self.pool.peak_in_use,
+                "peak_demand_pages": self.pool.peak_demand,
+                "page_policy": self.config.page_policy,
+                "decode_cow": self.config.decode_cow,
+                "cow_hits": self.pool.cow_hits,
+                "forks": self.pool.forks,
+                "evictions": self.pool.evictions,
+            })
+            out.update(self.pool.stats())   # swap and transfer ledgers
+        else:
+            out.update({"max_seq": self.config.max_seq,
+                        "global_len": self.global_len})
         if self.faults is not None:
             out["faults"] = self.faults.snapshot()
             # injections whose rung has not completed yet (a death or stall

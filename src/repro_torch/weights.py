@@ -1,5 +1,5 @@
-"""Carry a parameter tree, or an optimizer state, across from the JAX
-package.
+"""Carry a parameter tree, an optimizer state or a timeline KV cache across
+from the JAX package.
 
 The port keeps the reference's parameter tree and layouts, so conversion
 is a leaf-by-leaf copy. JAX bf16 leaves come out of ``np.asarray`` as
@@ -51,3 +51,20 @@ def opt_state_from_jax(state: Any, device: Optional[Union[str, torch.device]]
     from repro_torch.optim.adamw import AdamWState
     return AdamWState(*(params_from_jax(getattr(state, f), device)
                         for f in AdamWState._fields))
+
+
+def cache_from_jax(cache: Any, device: Optional[Union[str, torch.device]]
+                   = None) -> Any:
+    """The JAX package's timeline KV cache (as numpy: ``{"blocks": (k, v)``
+    or ``(k_q8, v_q8, k_s, v_s)``, ``"len"``, optional ``"start"}``) -> the
+    port's cache dict of tensors on ``device`` (default ``cuda``), bits
+    unchanged: ``len`` a 0-d int32 tensor, ``start`` [B] int32, the body a
+    tuple, so ``decode_fn`` can run from one state in both packages."""
+    dev = resolve_device(device)
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, (tuple, list)):
+            out[k] = tuple(tensor_from_numpy(a).to(dev) for a in v)
+        else:
+            out[k] = tensor_from_numpy(v).to(dev)
+    return out

@@ -281,10 +281,13 @@ def test_roles_accepted_later_slices_still_refused():
         _engine(tapi, params, disagg_role="both")
     with pytest.raises(ValueError, match="demand"):
         _engine(tapi, params, disagg_role="decode", page_policy="reserve")
-    for kw, name in ((dict(kv_layout="timeline"), "kv_layout"),
-                     (dict(batched_prefill=False), "batched_prefill")):
-        with pytest.raises(NotImplementedError, match=name):
-            _engine(tapi, params, **kw)
+    # the timeline has no pages to hand over: either role is refused by
+    # the layout's name; per-token prefill serves both roles
+    for role in ("prefill", "decode"):
+        with pytest.raises(ValueError, match="timeline"):
+            _engine(tapi, params, kv_layout="timeline", disagg_role=role)
+        assert not _engine(tapi, params, disagg_role=role,
+                           batched_prefill=False).stats()["batched_prefill"]
     # the fault plane is ported: a FaultConfig is taken, anything else is
     # refused by name
     with pytest.raises(TypeError, match="faults"):

@@ -52,6 +52,35 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+class _StepClock:
+    """A host clock that advances 1 ms at every read. Both engines time a
+    decode step between two reads of ``time.perf_counter`` and, on the
+    local backend, attribute that wall time to the stages by the plan's
+    shares; the stage EMAs, and with them the step of a re-plan after an
+    injected stall and every fault draw after it, depend on the ratio of
+    successive step times. Under a loaded host those ratios vary from run
+    to run, so two engines could re-plan at different steps. On this clock
+    every decode step takes the same time in both packages."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self) -> float:
+        self.now += 1e-3
+        return self.now
+
+
+@pytest.fixture(autouse=True)
+def _steady_clock(monkeypatch):
+    """One injected clock for the reference's engine and the port's, so
+    their schedules of re-plans depend on the step count alone."""
+    import repro.serving.engine as jengine
+    import repro_torch.serving.engine as tengine
+    clock = _StepClock()
+    for mod in (jengine, tengine):
+        monkeypatch.setattr(mod, "time", clock)
+
+
 @pytest.fixture(scope="module")
 def f32():
     """Exact token comparisons need f32 end to end (params and caches)."""

@@ -67,7 +67,14 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(tmp_path):
     with pytest.raises(RuntimeError):
         ServingEngine(api, EngineConfig())
     with pytest.raises(RuntimeError):
+        ServingEngine(api, EngineConfig(kv_layout="timeline"))
+    with pytest.raises(RuntimeError):
         serve.main(["--arch", "llama3.2-1b", "--reduced"])
+    for flags in (["--kv-layout", "timeline"], ["--per-token-prefill"]):
+        with pytest.raises(RuntimeError):
+            serve.main(["--arch", "llama3.2-1b", "--reduced", *flags])
+    assert ServingEngine(api, EngineConfig(kv_layout="timeline"),
+                         device="cpu").kv_layout == "timeline"
     with pytest.raises(RuntimeError):
         params_from_jax({"w": [1.0]})
     eng = ServingEngine(api, EngineConfig(), device="cpu")

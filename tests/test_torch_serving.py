@@ -5,8 +5,9 @@ resume and an undisturbed run give the same greedy streams over several
 workloads and pool sizes, with the page pool's refcount invariants and
 the all-zero null page audited after every step. Each swap-in restores
 the gathered pages bit for bit, a tampered swap payload falls back to
-recompute without changing the stream, and options of later slices are
-refused by name. ``tests/test_torch_engine.py`` holds the same engine
+recompute without changing the stream, and the timeline layout and
+per-token prefill construct, with swap on the timeline refused by the
+layout's name. ``tests/test_torch_engine.py`` holds the same engine
 against the JAX package's.
 """
 import numpy as np
@@ -155,9 +156,16 @@ def test_tampered_swap_payload_falls_back_to_recompute(port):
 
 def test_later_slice_options_raise_by_name(port):
     tapi, tparams = port
-    for kw in (dict(kv_layout="timeline"), dict(batched_prefill=False)):
-        with pytest.raises(NotImplementedError):
-            _torch_engine(tapi, tparams, **kw)
+    # the timeline layout and per-token prefill are ported: both construct,
+    # and what needs a page pool is refused by the layout's name
+    eng = _torch_engine(tapi, tparams, kv_layout="timeline")
+    assert eng.kv_layout == "timeline" and eng.pool is None
+    assert eng.preempt_policy == "recompute"
+    with pytest.raises(ValueError, match="timeline"):
+        _torch_engine(tapi, tparams, kv_layout="timeline",
+                      preempt_policy="swap")
+    assert not _torch_engine(tapi, tparams, batched_prefill=False).stats()[
+        "batched_prefill"]
     # sampling is ported: temperature, top_k and sample_seed reach the
     # sampler, which the engine runs under graph management
     eng = _torch_engine(tapi, tparams, temperature=0.7, top_k=5,
