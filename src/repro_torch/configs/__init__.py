@@ -1,8 +1,10 @@
 """Config registry of the port: ``get_arch(name)``, ``reduced``,
-``ShapeConfig``."""
+``ShapeConfig`` and the reference's input-shape cells (``SHAPES``,
+``get_shape``, ``shape_applicable``)."""
 from __future__ import annotations
 
-from .base import DENSE, MOE, ArchConfig, ShapeConfig, reduced
+from .base import (CNN, DENSE, ENCDEC, HYBRID, MOE, SHAPES, SSM, VLM,
+                   ArchConfig, ShapeConfig, reduced, shape_applicable)
 from .command_r_35b import CONFIG as _command_r
 from .glm4_9b import CONFIG as _glm4
 from .llama3_2_1b import CONFIG as _llama1b
@@ -25,5 +27,12 @@ def get_arch(name: str) -> ArchConfig:
     return ARCHS[name]
 
 
-__all__ = ["ArchConfig", "ARCHS", "DENSE", "MOE", "ShapeConfig", "get_arch",
-           "reduced"]
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; available: {sorted(SHAPES)}")
+    return SHAPES[name]
+
+
+__all__ = ["ArchConfig", "ARCHS", "SHAPES", "ShapeConfig", "get_arch",
+           "get_shape", "reduced", "shape_applicable",
+           "DENSE", "MOE", "SSM", "HYBRID", "ENCDEC", "VLM", "CNN"]

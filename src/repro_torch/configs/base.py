@@ -10,10 +10,17 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 DENSE = "dense"
 MOE = "moe"
+# the reference's other families, named so that host code copied from it
+# (``utils/analytic_cost.py``) reads the same; no port config has them yet
+SSM = "ssm"
+HYBRID = "hybrid"
+ENCDEC = "encdec"   # audio backbone (whisper): stub conv frontend
+VLM = "vlm"         # vision-language backbone: stub patch frontend
+CNN = "cnn"         # the paper's own model family (Serdab evaluation)
 FAMILIES = (DENSE, MOE)
 
 
@@ -60,6 +67,11 @@ class ArchConfig:
     @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """True when decode cost is independent of context length."""
+        return self.family in (SSM, HYBRID)
 
     @property
     def q_per_kv(self) -> int:
@@ -166,3 +178,18 @@ class ShapeConfig:
         if self.kind == "decode":
             return self.global_batch  # one new token per sequence
         return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch, shape) cell runs, and why not when skipped."""
+    if shape.name == "long_500k" and not arch.is_subquadratic:
+        return False, "long_500k needs sub-quadratic attention; %s is full-attention" % arch.name
+    return True, ""

@@ -20,8 +20,8 @@ Four decoupled layers:
    (enclave.domain) re-solves over the surviving domains, reusing cached
    tables, and returns the ``PlacementSpec`` the pipelined runtime consumes.
 
-A copy of ``repro/core/planner`` (host code, no device work); the port
-keeps no ``core/placement.py`` shim.
+A copy of ``repro/core/planner`` (host code, no device work);
+``core/placement.py`` keeps the legacy import surface and ``solve()``.
 """
 from .evaluation import (Evaluation, Placement, SolveResult, Stage, evaluate)
 from .profiling import (BoundedCache, CostTables, DeviceTable, LayerProfile,

@@ -1,6 +1,6 @@
 """Sealing (port of ``repro/enclave/sealing.py``): the quantizing seal of
-stage-boundary activations, the lossless page seal of the swap tier, and
-integrity tags.
+stage-boundary activations, the lossless page seal of the swap tier,
+integrity tags and the attestation stub (``measure`` / ``verify``).
 
 Activation boundaries use ``_leaf_counter(step, leaf) = step * 65537 +
 leaf`` (uint32) and the quantizing ``seal`` / ``unseal`` kernels
@@ -241,3 +241,16 @@ def verify_payload(payload: Any, digest: Any, *,
             f"{context}: sealed payload digest mismatch "
             f"(expected {expected.hex()[:16]}…, got {actual.hex()[:16]}…) — "
             f"payload was tampered with in transit")
+
+
+# ---------------------------------------------------------------------------
+# Attestation stub (the protocol endpoints exist; the quote is a hash chain)
+# ---------------------------------------------------------------------------
+def measure(code: bytes, params_digest: bytes) -> bytes:
+    """Enclave measurement = H(code || params). Stands in for the SGX quote
+    (paper Sec. II: users attest via Intel's remote-attestation service)."""
+    return hashlib.sha256(code + params_digest).digest()
+
+
+def verify(measurement: bytes, expected: bytes) -> bool:
+    return measurement == expected

@@ -198,29 +198,36 @@ class StackedLM:
     def _train_block(self, p, x, positions):
         return self._block(p, x, positions, train=True)[0]
 
-    def _blocks(self, params, tokens: torch.Tensor, train: bool = False):
+    def _blocks(self, params, tokens: torch.Tensor, train: bool = False,
+                hidden: Optional[list] = None):
         """Embed ``tokens`` [B, S] at positions 0..S-1 and run every block.
         Returns (x [B, S, d] before the final norm, [k], [v]) with each
         layer's k, v [B, KVH, S, D] when serving, empty lists in training.
         In training with ``remat`` each block runs under
         ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
-        each scan step): its activations are recomputed in the backward,
-        so the flash kernel runs twice a layer. The stacked block weights
-        are unbound once, so their gradient is one stack of the layers'."""
+        each scan step) while autograd records: its activations are
+        recomputed in the backward, so the flash kernel runs twice a layer.
+        The stacked block weights are unbound once, so their gradient is
+        one stack of the layers'. ``hidden``, when given, receives the
+        embedding and then each block's output."""
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)[None, :]
         x = self.embed(params, tokens)
+        if hidden is not None:
+            hidden.append(x)
         ks, vs = [], []
         for p in _unbind(params[SEGMENT], self.cfg.num_layers):
             if not train:
                 x, k, v = self._block(p, x, positions)
                 ks.append(k.transpose(1, 2))
                 vs.append(v.transpose(1, 2))
-            elif self.remat:
+            elif self.remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(
                     self._train_block, p, x, positions, use_reentrant=False)
             else:
                 x = self._train_block(p, x, positions)
+            if hidden is not None:
+                hidden.append(x)
         return x, ks, vs
 
     # -- public: loss ----------------------------------------------------------
@@ -234,6 +241,21 @@ class StackedLM:
         w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
         return L.chunked_softmax_xent(x, w, batch["labels"],
                                       label_mask=batch.get("label_mask"))
+
+    # -- public: per-layer hidden states (privacy profiling) ------------------
+    @torch.no_grad()
+    def hidden_states_fn(self, params, batch):
+        """[L+1, B, S, D] hidden states of ``batch["tokens"]`` [B, S] in the
+        param dtype: the embedding, then each block's output, every block in
+        train mode (an MoE block drops at capacity) and no final norm, as
+        the reference's code computes them (its docstring says
+        ``[total_blocks, ...]``; its code prepends the embedding, which
+        ``core.privacy.lm_similarity_profile`` reads as entry 0). Runs
+        without autograd, so each layer's attention is the flash kernel's
+        forward on a CUDA tensor."""
+        hidden = []
+        self._blocks(params, batch["tokens"], train=True, hidden=hidden)
+        return torch.stack(hidden)
 
     # -- public: batched right-padded prefill --------------------------------
     def _prefill(self, params, tokens: torch.Tensor):

@@ -1,5 +1,5 @@
-"""Carry a parameter tree, an optimizer state or a timeline KV cache across
-from the JAX package.
+"""Carry a parameter tree, an optimizer state, a timeline KV cache or a
+``TinyCNN``'s kernels across from the JAX package.
 
 The port keeps the reference's parameter tree and layouts, so conversion
 is a leaf-by-leaf copy. JAX bf16 leaves come out of ``np.asarray`` as
@@ -68,3 +68,14 @@ def cache_from_jax(cache: Any, device: Optional[Union[str, torch.device]]
         else:
             out[k] = tensor_from_numpy(v).to(dev)
     return out
+
+
+def cnn_from_jax(kernels: Any, device: Optional[Union[str, torch.device]]
+                 = None) -> list:
+    """The reference's ``TinyCNN.kernels`` (HWIO ``[3, 3, in, out]`` arrays)
+    -> the port's OIHW ``[out, in, 3, 3]`` tensors on ``device`` (default
+    ``cuda``), values unchanged: ``TinyCNN(table, kernels=...)`` then
+    computes what the reference's computes."""
+    dev = resolve_device(device)
+    return [tensor_from_numpy(w).permute(3, 2, 0, 1).contiguous().to(dev)
+            for w in kernels]

@@ -13,7 +13,10 @@ under swap preemption equal the reference engine's. ``reduced`` keeps at
 most 4
 heads, so two variants restore the full configs' grouping: rep 3
 (llama3.2-3b: 6 query heads over 2 KV heads) and rep 16 over 2 KV heads
-with an untied head (glm4-9b: 32 query heads).
+with an untied head (glm4-9b: 32 query heads). The reference's input-shape
+cells (``SHAPES``, ``get_shape``, ``shape_applicable``) and its analytic
+FLOP and byte model (``utils/analytic_cost.estimate``) must give the
+reference's values exactly for every registered config and shape.
 """
 import dataclasses
 
@@ -91,8 +94,14 @@ def test_registry_holds_the_dense_configs():
 
 
 def _models(variant):
+    return _pair(*VARIANTS[variant])
+
+
+def _pair(arch, kw):
+    """Both packages' reduced ``arch`` (fields ``kw`` replaced) on one set
+    of f32 parameters drawn by the JAX package: (japi, jparams, tapi,
+    tparams)."""
     from repro.models.api import build_model as jax_build
-    arch, kw = VARIANTS[variant]
     jcfg = dataclasses.replace(jax_reduced(jax_get_arch(arch)), **kw)
     tcfg = dataclasses.replace(reduced(get_arch(arch)), **kw)
     _same_fields(tcfg, jcfg)
@@ -130,3 +139,60 @@ def test_reduced_model_matches_reference(f32, variant):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     st = _both(models, _workload(1, 10, shared_ratio=0.5), num_pages=12)
     assert st["swap_outs"] > 0 and st["cow_hits"] > 0
+
+
+def test_shapes_and_families_equal_reference():
+    from repro import configs as JC
+    from repro_torch import configs as C
+    assert {k: dataclasses.astuple(v) for k, v in C.SHAPES.items()} == \
+        {k: dataclasses.astuple(v) for k, v in JC.SHAPES.items()}
+    for name in C.SHAPES:
+        assert dataclasses.astuple(C.get_shape(name)) == \
+            dataclasses.astuple(JC.get_shape(name))
+        assert C.get_shape(name).tokens == JC.get_shape(name).tokens
+    with pytest.raises(KeyError):
+        C.get_shape("train_8k")
+    for fam in ("DENSE", "MOE", "SSM", "HYBRID", "ENCDEC", "VLM", "CNN"):
+        assert getattr(C, fam) == getattr(JC, fam)
+    assert C.base.FAMILIES == (C.DENSE, C.MOE)
+
+
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_analytic_cost_equals_reference(name):
+    from repro import configs as JC
+    from repro.utils import analytic_cost as JA
+    from repro_torch import configs as C
+    from repro_torch.utils import analytic_cost as A
+    tcfg, jcfg = get_arch(name), jax_get_arch(name)
+    assert tcfg.is_subquadratic == jcfg.is_subquadratic is False
+    ran = 0
+    for sname, shape in C.SHAPES.items():
+        ok = C.shape_applicable(tcfg, shape)
+        assert ok == JC.shape_applicable(jcfg, JC.SHAPES[sname])
+        if not ok[0]:
+            continue
+        for kw in ({}, dict(cache_bytes=1), dict(state_bytes=2)):
+            got = A.estimate(tcfg, shape, **kw)
+            want = JA.estimate(jcfg, JC.SHAPES[sname], **kw)
+            assert dataclasses.astuple(got) == dataclasses.astuple(want), \
+                (name, sname, kw)
+            assert got.useful_ratio == want.useful_ratio
+        ran += 1
+    assert ran == 3                     # long_500k needs sub-quadratic
+
+
+def test_analytic_cost_reflects_quant():
+    """The reference's test (tests/test_perf_features.py) on the port."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.utils.analytic_cost import estimate
+    cfg = get_arch("command-r-35b")
+    shape = ShapeConfig("d", 32768, 128, "decode")
+    base = estimate(cfg, shape, cache_bytes=2)
+    opt = estimate(cfg, shape, cache_bytes=1)
+    assert opt.hbm_bytes < 0.62 * base.hbm_bytes
+    from repro.configs import ShapeConfig as JShape
+    from repro.utils.analytic_cost import estimate as jestimate
+    for cb, got in ((2, base), (1, opt)):
+        want = jestimate(jax_get_arch("command-r-35b"),
+                         JShape("d", 32768, 128, "decode"), cache_bytes=cb)
+        assert dataclasses.astuple(got) == dataclasses.astuple(want)

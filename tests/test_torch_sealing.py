@@ -5,7 +5,8 @@ the same ``payload_digest`` in both packages; a payload sealed by either
 unseals under the other to the same bits; the engine backends lay pages
 out as the same ``[MP, L*KVH*Pg*D]`` rows, so a swap payload gathered by
 one restores under the other. On a card (marker ``cuda``) the CUDA cipher
-gives the CPU plain version's bytes.
+gives the CPU plain version's bytes. The attestation stub's measurement
+is the reference's, byte for byte, and ``verify`` fails on any change.
 """
 import types
 
@@ -166,3 +167,32 @@ def test_seal_pages_on_card_gives_cpu_bytes(cuda, dtype):
                                        else torch.int32),
                        t.view(torch.int16 if dtype == "bfloat16"
                               else torch.int32))
+
+
+@pytest.mark.parametrize("code,params", [
+    (b"code", b"params"), (b"", b""), (b"\x00" * 7, bytes(range(256))),
+    (b"serdab-enclave-v1", bytes(32))])
+def test_attestation_measure_equals_reference(jx, code, params):
+    m = sealing.measure(code, params)
+    assert m == jx.sealing.measure(code, params) and len(m) == 32
+    assert sealing.verify(m, jx.sealing.measure(code, params))
+    assert sealing.verify(m, m) == jx.sealing.verify(m, m)
+
+
+def test_attestation_stub_rejects_changed_code_or_params(jx):
+    """The reference's ``test_attestation_stub`` on the port, and a
+    measurement over a sealed payload's digest that one flipped byte
+    breaks."""
+    m = sealing.measure(b"code", b"params")
+    assert sealing.verify(m, sealing.measure(b"code", b"params"))
+    assert not sealing.verify(m, sealing.measure(b"code2", b"params"))
+    assert not sealing.verify(m, sealing.measure(b"code", b"params2"))
+    x, _ = _pages("float32")
+    payload = (x.view(np.uint32), np.arange(5, dtype=np.int32))
+    _, d = sealing.payload_digest(payload)
+    assert d == jx.sealing.payload_digest(payload)[1]
+    good = sealing.measure(b"code", d)
+    bad = x.copy()
+    bad.view(np.uint8).reshape(-1)[17] ^= 1
+    _, d2 = sealing.payload_digest((bad.view(np.uint32), payload[1]))
+    assert not sealing.verify(sealing.measure(b"code", d2), good)
