@@ -183,7 +183,27 @@ Phases (each prints its own lines; any failure exits non-zero):
      planner with the paper's claims asserted, ``simulate_pipeline`` =
      Eq. 1-2 on every chosen plan, and the attestation stub over the
      full-width params' payload digest. Prints the forward's host ms, the
-     profile, the plans, the speedups and the phase's wall time.
+     profile, the plans, the speedups and the phase's wall time;
+ 16. three more model families and glm4-9b: first the kernels at their
+     new shapes against their plain versions, timed (flash at qwen2-vl's
+     prefill, 28 heads over 4 at D=128, at hymba's, 25 over 5 at D=64
+     with its 2048-token window biting at S=4096, and at moonshot's; paged
+     at qwen2-vl's decode, rep 7); (a) qwen2-vl-7b (``VlmLM``: M-RoPE,
+     patch embeddings), reduced f32 card against CPU, then full width:
+     prefill of 2 x (1024 patches + 128 tokens), prefill S+1 against
+     decode one, 16 greedy steps on the timeline and on pages held
+     against each other, the runtime pipelined decoder unsealed and
+     sealed; (b) hymba-1.5b (attention + selective SSM), reduced through
+     the engine card against CPU (local, pipelined, sealed and unsealed),
+     then full width: prefill of 4096 tokens, the rolling window's
+     eviction, prefill S+1 against decode one, and 6 requests on the
+     timeline local eager, in CUDA graphs, pipelined unsealed (= local)
+     and sealed; (d) glm4-9b served at full width on the paged local
+     engine, eager and in CUDA graphs (rep 16); (c) moonshot-v1-16b-a3b
+     at full width (52.9 GiB of bf16 weights drawn on the card; a dense
+     stem segment, then 47 MoE blocks): prefill, prefill S+1 against
+     decode one, 8 greedy steps on each layout held against each other,
+     the engine's refusal by name, peak memory.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
@@ -731,51 +751,63 @@ def visible_keys(torch, case) -> float:
     return float(mask.sum().item())
 
 
+def time_flash_case(torch, ops, ref, F, name, case):
+    """ms of the prefill kernel, its plain version and SDPA at one shape
+    in bf16, eagerly and in a graph, with the bound."""
+    B, Sq, Sk, H, KVH, D, causal, window, off = case
+    q, k, v = flash_inputs(torch, case, torch.bfloat16, seed=5)
+
+    def kernel():
+        return ops.flash_attention(q, k, v, window=window, q_offset=off)
+
+    ms = time_ms(kernel)
+    in_graph = graph_ms(kernel)
+    plain = time_ms(lambda: flash_plain(ref, q, k, v, window=window,
+                                        q_offset=off), 20)
+    # library yardstick: SDPA with heads ahead and KV heads repeated
+    # beforehand (not timed); is_causal aligns top-left, so the offset and
+    # windowed cases take an explicit mask
+    qh = q.transpose(1, 2).contiguous()
+    kh = k.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
+    vh = v.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
+    if off == 0 and Sq == Sk and not window:
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True))
+    else:
+        kp = torch.arange(Sk, device="cuda")[None, :]
+        qp = off + torch.arange(Sq, device="cuda")[:, None]
+        mask = kp <= qp
+        if window:
+            mask &= kp > qp - window
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask))
+    esz = q.element_size()
+    nbytes = esz * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4.0 * B * H * D * visible_keys(torch, case)
+    b_ms, b_by = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
+    log(f"time flash_attention {name} bf16 B={B} Sq={Sq} Sk={Sk} H={H} "
+        f"KVH={KVH} D={D} q_offset={off}"
+        f"{f' window={window}' if window else ''}: kernel "
+        f"{ms * 1e3:.2f} us, in a graph {in_graph * 1e3:.2f} us, plain "
+        f"{plain * 1e3:.1f} us, sdpa {lib * 1e3:.1f} us, bound "
+        f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes / 1e6:.2f} MB, "
+        f"{flops / 1e9:.3f} GFLOP)")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes, flops=flops, graph_ms=in_graph)
+
+
 def time_flash(torch, ops, ref, F):
-    """ms of the prefill kernel, its plain version and SDPA at the three
-    path shapes and phase 11's head_dim-128 one-shot shape in bf16, with
-    the bound."""
-    out = {}
-    for name, case in {**FLASH_PATH, **FLASH_D128}.items():
-        B, Sq, Sk, H, KVH, D, causal, window, off = case
-        q, k, v = flash_inputs(torch, case, torch.bfloat16, seed=5)
-        ms = time_ms(lambda: ops.flash_attention(q, k, v, q_offset=off))
-        in_graph = graph_ms(lambda: ops.flash_attention(q, k, v,
-                                                        q_offset=off))
-        plain = time_ms(lambda: flash_plain(ref, q, k, v, q_offset=off), 20)
-        # library yardstick: SDPA with heads ahead and KV heads repeated
-        # beforehand (not timed); is_causal aligns top-left, so the
-        # offset case takes an explicit mask
-        qh = q.transpose(1, 2).contiguous()
-        kh = k.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
-        vh = v.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
-        if off == 0 and Sq == Sk:
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True))
-        else:
-            mask = (torch.arange(Sk, device="cuda")[None, :]
-                    <= off + torch.arange(Sq, device="cuda")[:, None])
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask))
-        esz = q.element_size()
-        nbytes = esz * (2 * q.numel() + k.numel() + v.numel())
-        flops = 4.0 * B * H * D * visible_keys(torch, case)
-        b_ms, b_by = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
-        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                         bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-                         flops=flops, graph_ms=in_graph)
-        log(f"time flash_attention {name} bf16 B={B} Sq={Sq} Sk={Sk} H={H} "
-            f"KVH={KVH} D={D} q_offset={off}: kernel {ms * 1e3:.2f} us, "
-            f"in a graph {in_graph * 1e3:.2f} us, plain {plain * 1e3:.1f} "
-            f"us, sdpa {lib * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us "
-            f"({b_by}, {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
-    return out
+    """``time_flash_case`` at the three path shapes and phases 11's and
+    12's head_dim-128 one-shot shapes."""
+    return {name: time_flash_case(torch, ops, ref, F, name, case)
+            for name, case in {**FLASH_PATH, **FLASH_D128}.items()}
 
 
-def time_paged(torch, ops, ref, F, shape):
+def time_paged(torch, ops, ref, F, shape, inputs=None):
     """ms of the paged decode kernel, its plain version and SDPA over K/V
-    gathered beforehand, in bf16, with the bound."""
-    q, k, v, bt, sl = paged_inputs(torch, torch.bfloat16, **shape)
+    gathered beforehand, in bf16, with the bound, at ``paged_inputs``'s
+    ``shape`` or on the given ``inputs``."""
+    q, k, v, bt, sl = inputs or paged_inputs(torch, torch.bfloat16, **shape)
     B, H, D = q.shape
     N, KVH, Pg, _ = k.shape
     MP = bt.shape[1]
@@ -2464,7 +2496,7 @@ def serve_layout(torch, ops, api, params, argv, label, overrides=None):
         assert st["warmed"] and st["graphs"] > 0, st
     timed = TimedTokens(torch, eng)
     be = eng.backend
-    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    bad = torch.zeros((), dtype=torch.int64, device=api.device)
     orig_step = be.step
 
     def step(tokens, key):
@@ -3096,6 +3128,748 @@ def plan_privacy(torch, ops, smi):
     return runs
 
 
+
+# ---------------------------------------------------------------------------
+# phase 16: three more families at full width (qwen2-vl-7b, hymba-1.5b,
+# moonshot-v1-16b-a3b) and glm4-9b served. Device, configs and sizes are
+# names here so that a CPU rehearsal can run the same code at reduced width.
+DEV = "cuda"
+FAMILY_ARCH = None          # None: the full configs; a callable maps them
+# prefill attention at the three families' prefill shapes: B, Sq, Sk, H,
+# KVH, D, causal, window, q_offset
+FLASH_FAMILIES = {
+    # 16a: qwen2-vl-7b, 1024 patches + 128 text tokens, 28 heads over 4
+    "vlm d128 rep7": (2, 1152, 1152, 28, 4, 128, 1, 0, 0),
+    # 16b: hymba-1.5b, 25 heads over 5, its 2048-token window biting
+    "hymba d64 rep5 window": (1, 4096, 4096, 25, 5, 64, 1, 2048, 0),
+    # 16c: moonshot-v1-16b-a3b, 16 heads over 16 behind the dense stem
+    "moonshot d128 rep1": (2, 256, 256, 16, 16, 128, 1, 0, 0)}
+# paged attention at 16a's decode: 2 rows of 1152..1167 tokens over tables
+# of 73 pages of 16 (their own pages), 28 heads over 4 KV heads (rep 7)
+PAGED_VLM = dict(B=2, KVH=4, rep=7, D=128, Pg=16, lens=(1160, 1167), MP=73)
+VLM_TEXT, VLM_B, VLM_STEPS, VLM_PIPE_STEPS = 128, 2, 16, 8
+HYMBA_S, HYMBA_EVICT_S = 4096, 2048
+MOON_B, MOON_S, MOON_STEPS = 2, 256, 8
+PAGE = 16
+# the reduced configs card against CPU, f32 on both (TF32 off)
+F32_LOGIT_TOL = 1e-4
+# f32 paths held against each other at full width (sums in other orders
+# over 28-48 layers; an error of the port would show as order one)
+F32_FULL_TOL = 1e-3
+# 16b: 6 requests of 2-48 tokens, 16 new each, on 4 timeline slots; the
+# pipelined runs take one microbatch, so their GEMMs have the local run's
+# shapes and the unsealed run's arithmetic is the local run's
+HYMBA_SERVE = ["--arch", "hymba-1.5b", "--device", "cuda", "--slots", "4",
+               "--requests", "6", "--prompt-len", "48", "--max-new", "16",
+               "--telemetry-interval", "1000"]
+HYMBA_REDUCED = ["--arch", "hymba-1.5b", "--reduced", "--device", "cpu",
+                 "--slots", "4", "--requests", "6", "--prompt-len", "40",
+                 "--max-new", "8", "--f32", "--telemetry-interval", "1000"]
+# 16d: phase 5's flags, 6 requests, glm4-9b
+GLM4_SERVE = ["--arch", "glm4-9b", "--device", "cuda", "--slots", "8",
+              "--requests", "6", "--prompt-len", "128", "--max-new", "32",
+              "--page-size", "16", "--num-pages", "30",
+              "--shared-system-prompt", "0.75"]
+
+
+def _family_cfg(name):
+    from repro_torch.configs import get_arch
+    cfg = get_arch(name)
+    return FAMILY_ARCH(cfg) if FAMILY_ARCH else cfg
+
+
+def _sync(torch):
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def _mem(torch) -> str:
+    if DEV != "cuda":
+        return "memory not measured (CPU)"
+    return (f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} "
+            f"GiB, peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            f" GiB, reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+
+
+def _free(torch):
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def served_paged_inputs(torch, dtype, B, KVH, rep, D, Pg, lens, MP, seed=3):
+    """Paged-attention inputs as a served decode lays them out: each row on
+    its own pages (1 + b * MP onwards), tables of MP pages, page 0 null."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    N = 1 + B * MP
+    q = torch.randn(B, KVH * rep, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(N, KVH, Pg, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(N, KVH, Pg, D, generator=g, device="cuda").to(dtype)
+    k[0] = 0
+    v[0] = 0
+    bt = (1 + torch.arange(B * MP, device="cuda", dtype=torch.int32)
+          ).reshape(B, MP)
+    sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, k, v, bt, sl
+
+
+def check_family_kernels(torch, ops, ref, F):
+    """Phase 16's kernel shapes, each against its plain version on the
+    card (bf16 within atol 1e-3 + rtol 1e-2, phase 2's tolerance) and
+    timed as phase 3 times: flash at qwen2-vl-7b's prefill (rep 7),
+    hymba-1.5b's (rep 5, window 2048 of 4096: the windowed kernel and the
+    full-causal one each match their plain version, and the two plain
+    versions differ beyond that tolerance on the queries past the window,
+    so the window bites) and moonshot's (rep 1); paged at qwen2-vl's
+    decode (rep 7, 73-page tables, each row on its own pages). A repeat
+    call gives the same bits. These launches are checks, outside every
+    counted run. Returns the timings."""
+    tol = dict(atol=1e-3, rtol=1e-2)
+    out = {}
+    for name, case in FLASH_FAMILIES.items():
+        causal, window, off = bool(case[6]), case[7], case[8]
+        q, k, v = flash_inputs(torch, case, torch.bfloat16)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  q_offset=off)
+        again = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                    q_offset=off)
+        want = flash_plain(ref, q, k, v, causal, window, off)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"{name}: repeat not bit-equal"
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), **tol,
+                                   msg=lambda m: f"{name}: {m}")
+        note = ""
+        if window:
+            full = ops.flash_attention(q, k, v, causal=causal, q_offset=off)
+            full_want = flash_plain(ref, q, k, v, causal, 0, off)
+            torch.testing.assert_close(full.float(), full_want.float(),
+                                       **tol)
+            late, early = slice(window, None), slice(0, window)
+            bite = (full_want[:, late].float()
+                    - want[:, late].float()).abs().max().item()
+            assert not torch.allclose(full_want[:, late].float(),
+                                      want[:, late].float(), **tol), \
+                f"{name}: the window does not bite"
+            torch.testing.assert_close(full[:, early].float(),
+                                       got[:, early].float(), **tol)
+            note = (f"; the window bites: queries {window}.. differ from "
+                    f"full causal by up to {bite:.4f}, earlier ones agree")
+            del full, full_want
+        log(f"check flash_attention bf16 {name} (B={case[0]}, S={case[1]}, "
+            f"H={case[3]}, KVH={case[4]}, D={case[5]}, window={window}): "
+            f"max_abs_err={err:.3e} ({tol}), repeat bit-equal{note}")
+        del q, k, v, got, again, want
+        torch.cuda.empty_cache()
+        out[f"flash {name}"] = dict(
+            time_flash_case(torch, ops, ref, F, name, case),
+            max_abs_err=err)
+    inputs = served_paged_inputs(torch, torch.bfloat16, **PAGED_VLM)
+    q, k, v, bt, sl = inputs
+    got = ops.paged_attention(q, k, v, bt, sl)
+    again = ops.paged_attention(q, k, v, bt, sl)
+    want = ref.paged_attention_ref(q, k, v, bt, sl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), "paged rep 7: repeat not bit-equal"
+    err = (got.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    log(f"check paged_attention bf16 vlm d128 rep7 ({PAGED_VLM}): "
+        f"max_abs_err={err:.3e} ({tol}), repeat bit-equal")
+    out["paged vlm d128 rep7"] = dict(
+        time_paged(torch, ops, ref, F, None, inputs=inputs),
+        max_abs_err=err)
+    return out
+
+
+def _grow(torch, body, extra):
+    """A prefill's timeline cache tree with ``extra`` more zero positions
+    on every [L, B, KVH, S, D] leaf (new tensors: the prefill's stay)."""
+    if isinstance(body, tuple):
+        return tuple(_grow(torch, t, extra) for t in body)
+    return torch.nn.functional.pad(body, (0, 0, 0, extra))
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_clone(t) for t in tree)
+    return tree.clone()
+
+
+def _paged_from(torch, api, caches, S, steps):
+    """A paged cache holding a prefill's K/V (every segment's (k, v)
+    [L, B, KVH, S, D], S a multiple of the page size): row b on pages
+    1 + b * MP onwards, tables of MP pages for S + steps tokens, seq_lens
+    S, page 0 null."""
+    B = caches[api.model.segments[0].name][0].shape[1]
+    assert S % PAGE == 0, S
+    MP = -(-(S + steps) // PAGE)
+    cache = api.init_paged_cache(B, 1 + B * MP, PAGE, MP)
+    cache["block_tables"].copy_(1 + torch.arange(
+        B * MP, dtype=torch.int32, device=api.device).reshape(B, MP))
+    cache["seq_lens"].fill_(S)
+    n = S // PAGE
+    for seg in api.model.segments:
+        for pool, kv in zip(cache[seg.name], caches[seg.name]):
+            L, _, KVH, _, D = kv.shape
+            for b in range(B):
+                pool[:, 1 + b * MP:1 + b * MP + n] = kv[:, b].reshape(
+                    L, KVH, n, PAGE, D).transpose(1, 2)
+    return cache
+
+
+def _text_pos3(torch, B, pos, device):
+    return torch.full((B, 1, 3), pos, dtype=torch.int32, device=device)
+
+
+def decode_paths(torch, api, params, caches, S, first, steps):
+    """Greedy decodes from one prefill (its caches, its greedy tokens
+    ``first`` [B]): ``decode_fn`` over the timeline cache grown by
+    ``steps`` positions, and ``decode_paged_fn`` over pages holding the
+    same K/V; a VLM decodes at text positions (p, p, p). Returns
+    ((timeline logits, tokens), (paged logits, tokens)), each a list of
+    [B, V] f32 and [B] over the steps."""
+    mrope = api.cfg.pos_type == "mrope"
+    B = first.shape[0]
+    tl = {name: _grow(torch, body, steps) for name, body in caches.items()
+          if name != "len"}
+    tl["len"] = caches["len"].clone()
+    pg = _paged_from(torch, api, caches, S, steps)
+    out = []
+    for cache, fn in ((tl, api.decode_fn), (pg, api.decode_paged_fn)):
+        tok, logits, toks = first, [], []
+        for i in range(steps):
+            batch = {"tokens": tok[:, None]}
+            if mrope:
+                batch["pos3"] = _text_pos3(torch, B, S + i, api.device)
+            lg, cache = fn(params, cache, batch)
+            tok = lg.argmax(-1)
+            logits.append(lg)
+            toks.append(tok)
+        out.append((logits, toks))
+    return out
+
+
+def hold_paths(a, b, tol, what):
+    """Two greedy decodes from one state, row by row: while a row's inputs
+    agree (equal tokens so far) its logits must agree within ``tol`` of
+    the largest |logit|; where its argmaxes part, ``a``'s top-two margin
+    must be within twice that step's largest difference (a near-tie,
+    which rounding may break either way). Returns (rows whose streams are
+    equal, the largest relative difference, the partings as (row, step,
+    margin / scale))."""
+    (la, ta), (lb, tb) = a, b
+    B = ta[0].shape[0]
+    scale = max(float(x.abs().max()) for x in la)
+    worst, equal, parts = 0.0, 0, []
+    for r in range(B):
+        for i in range(len(la)):
+            d = float((la[i][r] - lb[i][r]).abs().max())
+            worst = max(worst, d / scale)
+            assert d <= tol * scale, (what, r, i, d, scale)
+            if int(ta[i][r]) != int(tb[i][r]):
+                top = la[i][r].topk(2).values
+                margin = float(top[0] - top[1])
+                assert margin <= 2 * d + 1e-6 * scale, \
+                    (what, "parted off a near-tie", r, i, margin, d)
+                parts.append((r, i, margin / scale))
+                break
+        else:
+            equal += 1
+    return equal, worst, parts
+
+
+def pipelined_paths(torch, ops, api, params, caches, first, tl_tokens,
+                    steps):
+    """The runtime ``PipelinedDecoder`` over two stages and two
+    microbatches on the timeline, from a prefill's caches, fed ``first``
+    then the timeline's greedy tokens: unsealed, then with sealed stage
+    boundaries (the seal and unseal kernels on the card). Returns the two
+    runs' logits and the sealed run's seal and unseal launches."""
+    from repro_torch.runtime.pipeline import PipelinedDecoder
+    from repro_torch.models.transformer import SEGMENT
+    res = {}
+    for seal in (False, True):
+        dec = PipelinedDecoder(api, num_stages=2, num_microbatches=2,
+                               seal_boundary=seal)
+        step = dec.build(paged=False, per_slot_start=False)
+        body = (_grow(torch, caches[SEGMENT], steps), caches["len"].clone())
+        before = dict(ops.LAUNCHES)
+        tok, logits = first, []
+        for i in range(steps):
+            lg, body = step(params, body, {"tokens": tok[:, None]},
+                            0xC0FFEE + i)
+            logits.append(lg)
+            tok = tl_tokens[i]
+        _sync(torch)
+        res[seal] = (logits, {k: ops.LAUNCHES[k] - before[k]
+                              for k in ("seal", "unseal")})
+    return res
+
+
+def vlm_run(torch, ops, api, params, text, steps, pipe_steps, seed=1):
+    """16a's path on one model: seeded tokens, patch embeddings and
+    (t, h, w) positions (the P patches on a square grid at t = 0, then
+    text at (p, p, p)); ``prefill_fn``; ``prefill_fn`` of S + 1 tokens
+    against the first decode step; both greedy decodes; the pipelined
+    decoder unsealed and sealed."""
+    cfg, dev = api.cfg, api.device
+    P = cfg.num_patches
+    S = P + text
+    side = int(math.ceil(math.sqrt(P)))
+    # drawn on the host, so that the card and the CPU get the same inputs
+    g = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (VLM_B, S),
+                           generator=g).to(dev)
+    patches = torch.randn(VLM_B, P, cfg.d_model, generator=g).to(
+        dev, api.dtype)
+    i = torch.arange(P, device=dev)
+    img = torch.stack([torch.zeros_like(i), i // side, i % side], -1)
+    p = torch.arange(P, S + 1, device=dev)
+    txt = torch.stack([p, p, p], -1)
+    pos3 = torch.cat([img, txt])[None].expand(VLM_B, S + 1, 3).to(
+        torch.int32).contiguous()
+    batch = {"tokens": tokens, "patches": patches, "pos3": pos3[:, :S]}
+    logits, caches = api.prefill_fn(params, batch)
+    first = logits.argmax(-1)
+    longer, _ = api.prefill_fn(params, {
+        "tokens": torch.cat([tokens, first[:, None]], 1),
+        "patches": patches, "pos3": pos3})
+    tl, pg = decode_paths(torch, api, params, caches, S, first, steps)
+    pipe = pipelined_paths(torch, ops, api, params, caches, first, tl[1],
+                           pipe_steps)
+    _sync(torch)
+    return dict(S=S, logits=logits, longer=longer, tl=tl, pg=pg, pipe=pipe)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _vlm_report(r, tol):
+    """16a's cross-path numbers of one run, each asserted below ``tol`` of
+    the largest |logit| when ``tol`` is given: prefill S+1 against decode
+    one, timeline against paged decode (``hold_paths``), pipelined
+    unsealed against unpipelined; sealed against unsealed, printed."""
+    cons = _rel(r["tl"][0][0], r["longer"])
+    paths = hold_paths(r["tl"], r["pg"], tol or float("inf"), "16a")
+    (ul, _), (sl, sealed) = r["pipe"][False], r["pipe"][True]
+    unsealed = max(_rel(ul[i], r["tl"][0][i]) for i in range(len(ul)))
+    seal_diff = max(_rel(sl[i], ul[i]) for i in range(len(sl)))
+    if tol:
+        assert cons < tol and unsealed < tol, (cons, unsealed, tol)
+    return (f"prefill S+1 vs decode one {cons:.2e}; timeline vs paged "
+            f"({len(r['tl'][0])} steps): {paths[0]} of {VLM_B} streams "
+            f"equal, largest difference {paths[1]:.2e}, partings "
+            f"{paths[2]}; pipelined (2 stages, 2 microbatches) unsealed vs "
+            f"unpipelined {unsealed:.2e}, sealed vs unsealed {seal_diff:.2e}"
+            f" ({sealed['seal']} seals, {sealed['unseal']} unseals)")
+
+
+def family_vlm(torch, ops, smi):
+    """16a. qwen2-vl-7b (``VlmLM``: M-RoPE, the stub patch frontend),
+    first reduced in f32 card against CPU (logits within F32_LOGIT_TOL of
+    the largest, the greedy streams of both decode layouts equal, on both
+    devices), then at full width from a seeded generator, in bf16 and in
+    f32 (the same weights upcast, exactly): one prefill of 2 x (1024
+    patches + 128 text tokens), 28 flash launches at D=128, 28 heads over
+    4; prefill of S + 1 against decode one; 16 greedy steps of
+    ``decode_fn`` (timeline) and of ``decode_paged_fn`` (the paged kernel
+    at rep 7) held against each other (``hold_paths``); the runtime
+    pipelined decoder, 2 stages, unsealed against the unpipelined decode,
+    and sealed (the seal kernels), its largest difference printed. The
+    f32 run asserts these within F32_FULL_TOL; the bf16 run's rounding
+    through 28 layers of random weights reaches a few percent of the
+    largest logit, so it prints them. Returns both runs' launch
+    counts."""
+    from repro_torch.configs import reduced
+    from repro_torch.models.api import build_model
+    t_phase = time.perf_counter()
+    cfg = _family_cfg("qwen2-vl-7b")
+    rcfg = reduced(cfg)
+    g = torch.Generator().manual_seed(0)
+    rparams = build_model(rcfg, device="cpu", dtype=torch.float32).init(g)
+    for b in ("bq", "bk", "bv"):
+        rparams["blocks"]["attn"][b].normal_(generator=g)
+    small = {}
+    for device in ("cpu", DEV):
+        api = build_model(rcfg, device=device, dtype=torch.float32)
+        small[device] = vlm_run(torch, ops, api, _to(torch, rparams, device),
+                                text=8, steps=6, pipe_steps=4)
+    c, d = small["cpu"], small[DEV]
+    worst = 0.0
+    for x, y in ([(d["logits"], c["logits"]), (d["longer"], c["longer"])]
+                 + list(zip(d["tl"][0] + d["pg"][0] + d["pipe"][False][0],
+                            c["tl"][0] + c["pg"][0]
+                            + c["pipe"][False][0]))):
+        worst = max(worst, _rel(x.cpu(), y))
+    assert worst < F32_LOGIT_TOL, worst
+    assert [t.tolist() for t in d["tl"][1]] == \
+        [t.tolist() for t in c["tl"][1]], "reduced: card vs CPU streams"
+    log(f"family phase 16a reduced qwen2-vl-7b ({rcfg.num_layers} layers, "
+        f"{rcfg.num_patches} patches, f32): card = CPU, largest logit "
+        f"difference {worst:.2e} of the largest |logit| (< "
+        f"{F32_LOGIT_TOL}); on the card: {_vlm_report(d, F32_FULL_TOL)}")
+    del small, rparams
+    _free(torch)
+
+    t0 = time.perf_counter()
+    api = build_model(cfg, device=DEV, dtype=torch.bfloat16)
+    params = api.init(torch.Generator(device=DEV).manual_seed(0))
+    _sync(torch)
+    n_params = sum(t.numel() for t in _leaves(params))
+    init_s = time.perf_counter() - t0
+    _free(torch)
+    L = cfg.num_layers
+    runs, notes = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        if dtype == torch.float32:
+            params = _to_f32(params)
+            api = build_model(cfg, device=DEV, dtype=dtype)
+            _free(torch)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = vlm_run(torch, ops, api, params, text=VLM_TEXT, steps=VLM_STEPS,
+                    pipe_steps=VLM_PIPE_STEPS)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        assert launches["flash_attention"] == 2 * L, launches
+        assert launches["paged_attention"] == VLM_STEPS * L, launches
+        assert launches["seal"] == launches["unseal"] \
+            == VLM_PIPE_STEPS * 2, launches
+        assert all(torch.isfinite(x).all() for x in
+                   [r["logits"], r["longer"]] + r["tl"][0] + r["pg"][0]
+                   + r["pipe"][True][0])
+        f32 = dtype == torch.float32
+        notes.append(f"{'f32' if f32 else 'bf16'}: "
+                     f"{_vlm_report(r, F32_FULL_TOL if f32 else None)}; "
+                     f"launches {launches}; wall {wall:.2f} s, "
+                     f"{_mem(torch)}")
+        runs.append({"launches": launches})
+        del r
+    log(f"family phase 16a qwen2-vl-7b full width: {L} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} KV "
+        f"heads, head_dim {cfg.head_dim}, vocab {cfg.vocab_size}, "
+        f"{n_params / 1e9:.3f} B params (config count "
+        f"{cfg.total_params() / 1e9:.3f} B without biases), bf16 init "
+        f"{init_s:.1f} s; prefill B={VLM_B} S={cfg.num_patches + VLM_TEXT} "
+        f"({cfg.num_patches} patches + {VLM_TEXT} text), "
+        f"{VLM_STEPS} decode steps, {VLM_PIPE_STEPS} pipelined; "
+        + "; ".join(notes) + f" [{smi}]")
+    log(f"family phase 16a: {time.perf_counter() - t_phase:.1f} s")
+    del api, params
+    _free(torch)
+    return runs
+
+
+def _engine_streams(torch, api, params, argv, label):
+    """One engine over ``argv``'s stream on the model's device: the greedy
+    streams and the stats."""
+    from repro_torch.launch import serve
+    args = serve.build_parser().parse_args(argv)
+    eng = serve.make_engine(api, params, args)
+    reqs = serve.serve_stream(eng, args, serve.gen_prompts(
+        args, api.cfg.vocab_size))
+    st = eng.stats()
+    assert st["kv_layout"] == "timeline" and st["completed"] == len(reqs), \
+        (label, st["kv_layout"], st["completed"])
+    return [list(r.generated) for r in reqs], st
+
+
+def family_hymba(torch, ops, smi):
+    """16b. hymba-1.5b (parallel attention + selective SSM, window 2048):
+    the reduced config in f32 served through ``ServingEngine`` on the
+    timeline, local and pipelined, unsealed and sealed, card against CPU
+    (streams equal); then at full width in bf16: ``prefill_fn`` at B=1,
+    S=4096 (32 flash launches, D=64, 25 heads over 5, the window biting),
+    a prefill of 2048 then one decode step (only slot 0 of the rolling
+    buffer changes: the oldest token evicted) against a prefill of 2049,
+    in bf16 (printed) and f32 (within F32_FULL_TOL);
+    then 6 requests on 4 timeline slots: local eager, local in CUDA graphs
+    (equal streams, steps and launches), pipelined over 2 stages with one
+    microbatch unsealed (= local) and sealed (its first parting from local
+    printed; seals = unseals = decode steps). Returns the runs' launch
+    counts."""
+    from repro_torch.configs import reduced
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import SEGMENT
+    t_phase = time.perf_counter()
+    cfg = _family_cfg("hymba-1.5b")
+    rcfg = reduced(cfg)
+    rparams = build_model(rcfg, device="cpu", dtype=torch.float32).init(
+        torch.Generator().manual_seed(0))
+    for seal in ([], ["--no-seal"]):
+        for backend in ("local", "pipelined"):
+            if backend == "local" and not seal:
+                continue
+            argv = HYMBA_REDUCED + ["--backend", backend] + seal
+            got = {}
+            for device in ("cpu", DEV):
+                api = build_model(rcfg, device=device, dtype=torch.float32,
+                                  max_seq=64)
+                got[device] = _engine_streams(
+                    torch, api, _to(torch, rparams, device),
+                    [a if a != "cpu" else device for a in argv],
+                    f"16b reduced {backend}")
+            assert got["cpu"][0] == got[DEV][0], \
+                f"16b reduced {backend} {seal}: streams differ card vs CPU"
+            log(f"family phase 16b reduced hymba-1.5b ({backend}"
+                f"{', unsealed' if seal else ', sealed'}, f32): "
+                f"{len(got['cpu'][0])} streams equal card vs CPU, stage "
+                f"blocks {got[DEV][1]['stage_blocks']}")
+    del rparams
+
+    t0 = time.perf_counter()
+    api, params = serve.build_params(serve.build_parser().parse_args(
+        [a if a != "cuda" else DEV for a in HYMBA_SERVE]
+        + (["--reduced"] if FAMILY_ARCH else [])))
+    _sync(torch)
+    cfg = api.cfg
+    L = cfg.num_layers
+    n_params = sum(t.numel() for t in _leaves(params))
+    init_s = time.perf_counter() - t0
+    _free(torch)
+    g = torch.Generator(device=DEV).manual_seed(1)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = torch.randint(0, cfg.vocab_size, (1, HYMBA_S), generator=g,
+                         device=DEV)
+    logits, cache = api.prefill_fn(params, {"tokens": toks})
+    assert tuple(cache[SEGMENT][0][0].shape) == \
+        (L, 1, cfg.num_kv_heads, cfg.sliding_window, cfg.head_dim)
+    assert torch.isfinite(logits).all()
+    _sync(torch)
+    long_s = time.perf_counter() - t0
+    long_peak = _mem(torch)
+    del cache
+    # the window's eviction, and prefill S then decode one against prefill
+    # S + 1, at the window's length: bf16 printed, f32 (the same weights
+    # upcast, exactly) asserted
+    S = HYMBA_EVICT_S
+    _, cache = api.prefill_fn(params, {"tokens": toks[:, :S]})
+    k_before = cache[SEGMENT][0][0][0, 0].clone()
+    dec, cache = api.decode_fn(params, cache, {"tokens": toks[:, S:S + 1]})
+    k_after = cache[SEGMENT][0][0][0, 0]
+    changed = ((k_after.float() - k_before.float()).abs().amax(dim=(0, 2))
+               > 0).nonzero().flatten().tolist()
+    assert changed == [S % cfg.sliding_window], changed
+    longer, _ = api.prefill_fn(params, {"tokens": toks[:, :S + 1]})
+    cons16 = _rel(dec, longer)
+    del cache
+    api32 = build_model(cfg, device=DEV, dtype=torch.float32)
+    p32 = _to_f32(params)
+    _, cache = api32.prefill_fn(p32, {"tokens": toks[:, :S]})
+    dec, _ = api32.decode_fn(p32, cache, {"tokens": toks[:, S:S + 1]})
+    longer, _ = api32.prefill_fn(p32, {"tokens": toks[:, :S + 1]})
+    cons = _rel(dec, longer)
+    assert cons < F32_FULL_TOL, cons
+    del api32, p32
+    _sync(torch)
+    launches = dict(ops.LAUNCHES)
+    assert launches["flash_attention"] == 5 * L, launches
+    del cache
+    _free(torch)
+    log(f"family phase 16b hymba-1.5b full width: {L} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} KV "
+        f"heads, head_dim {cfg.head_dim}, window {cfg.sliding_window}, SSM "
+        f"state {cfg.ssm_state}, {n_params / 1e9:.3f} B params bf16, init "
+        f"{init_s:.1f} s; prefill B=1 S={HYMBA_S} {long_s * 1e3:.1f} ms "
+        f"(first call, with the scan), {long_peak}; prefill {S} + decode "
+        f"one: only slot {changed} of layer 0's K changed (the oldest "
+        f"token evicted), against prefill {S + 1}: {cons16:.2e} in bf16, "
+        f"{cons:.2e} in f32 (< {F32_FULL_TOL}); launches {launches} "
+        f"[{smi}]")
+    runs = [{"launches": launches}]
+    argv = [a if a != "cuda" else DEV for a in HYMBA_SERVE] \
+        + (["--reduced"] if FAMILY_ARCH else [])
+    local = serve_layout(torch, ops, api, params,
+                         argv + ["--backend", "local"], "16b local, eager")
+    graphs = serve_layout(torch, ops, api, params,
+                          argv + ["--backend", "local", "--warmup"],
+                          "16b local, CUDA graphs")
+    assert graphs["streams"] == local["streams"], \
+        "16b: the local streams differ under CUDA graphs"
+    assert graphs["steps"] == local["steps"] and \
+        graphs["launches"] == local["launches"]
+    pipe = ["--backend", "pipelined", "--stages", "2", "--microbatches", "1"]
+    plain = serve_layout(torch, ops, api, params, argv + pipe + ["--no-seal"],
+                         "16b pipelined, unsealed")
+    assert plain["streams"] == local["streams"], \
+        "16b: unsealed pipelined streams differ from local"
+    sealed = serve_layout(torch, ops, api, params, argv + pipe,
+                          "16b pipelined, sealed")
+    assert sealed["launches"]["seal"] == sealed["launches"]["unseal"] \
+        == sealed["steps"], (sealed["launches"], sealed["steps"])
+    part = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+            for a, b in zip(sealed["streams"], local["streams"])]
+    log(f"family phase 16b serving: local eager = local graphs = "
+        f"pipelined unsealed ({len(local['streams'])} streams, stage "
+        f"blocks {plain['st']['stage_blocks']}); sealed run's first "
+        f"parting from local per request {part}; ms per decode step "
+        f"eager {local['step_ms']:.2f}, graphs {graphs['step_ms']:.2f}, "
+        f"pipelined unsealed {plain['step_ms']:.2f}, sealed "
+        f"{sealed['step_ms']:.2f}; ms per prefill token eager "
+        f"{local['token_ms']:.3f}, graphs {graphs['token_ms']:.3f} [{smi}]")
+    log(f"family phase 16b: {time.perf_counter() - t_phase:.1f} s")
+    runs += [local, graphs, plain, sealed]
+    del api, params
+    _free(torch)
+    return runs
+
+
+def family_glm4(torch, ops, smi, phase5_ms):
+    """16d. glm4-9b at full width (40 layers, 2 KV heads, rep 16, untied
+    head), phase 5's flags with 6 requests on the paged local engine,
+    eager and warmed as CUDA graphs: equal streams, steps and launches
+    (paged attention at rep 16 a layer a decode step). Returns the runs'
+    launch counts."""
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    argv = [a if a != "cuda" else DEV for a in GLM4_SERVE] \
+        + (["--reduced"] if FAMILY_ARCH else [])
+    t0 = time.perf_counter()
+    api, params = serve.build_params(serve.build_parser().parse_args(argv))
+    _sync(torch)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    _free(torch)
+    eager = serve_layout(torch, ops, api, params, argv + ["--backend",
+                                                         "local"],
+                         "16d glm4-9b local, eager")
+    graphs = serve_layout(torch, ops, api, params,
+                          argv + ["--backend", "local", "--warmup"],
+                          "16d glm4-9b local, CUDA graphs")
+    assert graphs["streams"] == eager["streams"], \
+        "16d: glm4-9b's streams differ under CUDA graphs"
+    assert graphs["launches"] == eager["launches"]
+    L = api.cfg.num_layers
+    assert eager["launches"]["paged_attention"] == eager["steps"] * L
+    log(f"family phase 16d glm4-9b full width: {L} layers, "
+        f"{api.cfg.num_heads} heads over {api.cfg.num_kv_heads} KV heads "
+        f"(rep {api.cfg.q_per_kv}), {n_params / 1e9:.3f} B params bf16, "
+        f"init {init_s:.1f} s; {eager['steps']} decode steps, ms per step "
+        f"eager {eager['step_ms']:.2f}, graphs {graphs['step_ms']:.2f} "
+        f"(phase 5's llama3.2-1b: {phase5_ms:.2f} eager), tok/s "
+        f"{eager['st']['tok_per_s']:.1f} / {graphs['st']['tok_per_s']:.1f}; "
+        f"paged launches {eager['launches']['paged_attention']} a run "
+        f"[{smi}]")
+    log(f"family phase 16d: {time.perf_counter() - t_phase:.1f} s")
+    del api, params
+    _free(torch)
+    return [eager, graphs]
+
+
+def moon_run(torch, api, params, S, steps):
+    """16c's path on one model: seeded tokens [MOON_B, S + 1] drawn on
+    the card; ``prefill_fn`` of S, of S + 1 against decode one, and both
+    greedy decodes (``decode_paths``)."""
+    g = torch.Generator(device=DEV).manual_seed(1)
+    toks = torch.randint(0, api.cfg.vocab_size, (MOON_B, S + 1),
+                         generator=g, device=DEV)
+    logits, caches = api.prefill_fn(params, {"tokens": toks[:, :S]})
+    first = logits.argmax(-1)
+    longer, _ = api.prefill_fn(params, {"tokens": torch.cat(
+        [toks[:, :S], first[:, None]], 1)})
+    tl, pg = decode_paths(torch, api, params, caches, S, first, steps)
+    _sync(torch)
+    assert all(torch.isfinite(x).all() for x in [logits, longer] + tl[0]
+               + pg[0])
+    return dict(longer=longer, tl=tl, pg=pg)
+
+
+def _moon_report(r, tol):
+    cons = _rel(r["tl"][0][0], r["longer"])
+    equal, worst, parts = hold_paths(r["tl"], r["pg"], tol or float("inf"),
+                                     "16c timeline vs paged")
+    if tol:
+        assert cons < tol, (cons, tol)
+    return (f"prefill S+1 vs decode one {cons:.2e}; timeline vs paged "
+            f"({len(r['tl'][0])} steps): {equal} of {MOON_B} streams equal,"
+            f" largest difference {worst:.2e}, partings {parts}")
+
+
+def family_moonshot(torch, ops, smi):
+    """16c. moonshot-v1-16b-a3b (a dense stem block, then 47 MoE blocks of
+    64 experts top-6 plus 2 shared; 28.4 B parameters, 52.9 GiB in bf16).
+    First at full width in f32 with the depth cut to the stem and 3 MoE
+    blocks (f32 at full depth would need 106 GiB): prefill of S + 1
+    against decode one, and 8 greedy steps of ``decode_fn`` and of
+    ``decode_paged_fn`` held against each other, within F32_FULL_TOL.
+    Then every earlier tensor freed and the full model in bf16, each
+    weight drawn on the card: ``prefill_fn`` at B=2, S=256 through both
+    segments (48 flash launches, D=128, rep 1), the same checks printed
+    (bf16 rounding through 48 layers), the serving engine's refusal of
+    the two-segment model by name, the peak memory. Returns both runs'
+    launch counts."""
+    import dataclasses
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import EngineConfig, ServingEngine
+    t_phase = time.perf_counter()
+    _free(torch)
+    cfg = _family_cfg("moonshot-v1-16b-a3b")
+    runs, notes = [], []
+    cut = dataclasses.replace(cfg, num_layers=cfg.first_k_dense + 3)
+    api = build_model(cut, device=DEV, dtype=torch.float32)
+    params = api.init(torch.Generator(device=DEV).manual_seed(0))
+    ops.reset_launch_counts()
+    r = moon_run(torch, api, params, MOON_S, MOON_STEPS)
+    launches = dict(ops.LAUNCHES)
+    assert launches["flash_attention"] == 2 * cut.num_layers, launches
+    assert launches["paged_attention"] == MOON_STEPS * cut.num_layers, \
+        launches
+    notes.append(f"f32, {cut.num_layers} layers (stem + 3 MoE): "
+                 f"{_moon_report(r, F32_FULL_TOL)}")
+    runs.append({"launches": launches})
+    del api, params, r
+    _free(torch)
+
+    before = _mem(torch)
+    t0 = time.perf_counter()
+    api = build_model(cfg, device=DEV, dtype=torch.bfloat16)
+    params = api.init(torch.Generator(device=DEV).manual_seed(0))
+    _sync(torch)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    assert [s.name for s in api.model.segments] == ["stem", "blocks"]
+    try:
+        ServingEngine(api, EngineConfig(), params, device=DEV)
+    except ValueError as e:
+        assert "single homogeneous segment" in str(e), e
+        refused = str(e)
+    else:
+        raise AssertionError("16c: the engine served a two-segment model")
+    _free(torch)
+    after_init = _mem(torch)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = moon_run(torch, api, params, MOON_S, MOON_STEPS)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    L = cfg.num_layers
+    assert launches["flash_attention"] == 2 * L, launches
+    assert launches["paged_attention"] == MOON_STEPS * L, launches
+    notes.append(f"bf16, {L} layers: {_moon_report(r, None)}; wall "
+                 f"{wall:.2f} s, {_mem(torch)}")
+    runs.append({"launches": launches})
+    log(f"family phase 16c moonshot-v1-16b-a3b full width: segments "
+        f"{[(s.name, s.n) for s in api.model.segments]}, d_model "
+        f"{cfg.d_model}, {cfg.num_experts} experts top-"
+        f"{cfg.num_experts_per_tok} + {cfg.num_shared_experts} shared, "
+        f"stem d_ff {cfg.dense_stem_d_ff}, vocab {cfg.vocab_size}, "
+        f"{n_params / 1e9:.3f} B params bf16 (config count "
+        f"{cfg.total_params() / 1e9:.3f} B), init {init_s:.1f} s; {before} "
+        f"before init, {after_init} after; prefill B={MOON_B} S={MOON_S}, "
+        f"{MOON_STEPS} decode steps; " + "; ".join(notes)
+        + f"; engine refused: {refused!r}; launches {runs} [{smi}]")
+    log(f"family phase 16c: {time.perf_counter() - t_phase:.1f} s")
+    del api, params, r
+    _free(torch)
+    return runs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3206,6 +3980,16 @@ def main() -> int:
     # profile of full-width llama3.2-1b (flash a layer), TinyCNN and the
     # image metric, the Fig. 12 claims, the attestation stub
     runs += plan_privacy(torch, ops, smi[0] if smi else "unavailable")
+    # phase 16: qwen2-vl-7b, hymba-1.5b and moonshot-v1-16b-a3b at full
+    # width, and glm4-9b served; the new kernel shapes first
+    t16 = time.perf_counter()
+    smi0 = smi[0] if smi else "unavailable"
+    check_family_kernels(torch, ops, ref, F)
+    runs += family_vlm(torch, ops, smi0)
+    runs += family_hymba(torch, ops, smi0)
+    runs += family_glm4(torch, ops, smi0, runs[0]["step_ms"])
+    runs += family_moonshot(torch, ops, smi0)
+    log(f"phase 16: {time.perf_counter() - t16:.1f} s")
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 

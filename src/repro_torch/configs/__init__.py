@@ -7,17 +7,21 @@ from .base import (CNN, DENSE, ENCDEC, HYBRID, MOE, SHAPES, SSM, VLM,
                    ArchConfig, ShapeConfig, reduced, shape_applicable)
 from .command_r_35b import CONFIG as _command_r
 from .glm4_9b import CONFIG as _glm4
+from .hymba_1_5b import CONFIG as _hymba
 from .llama3_2_1b import CONFIG as _llama1b
 from .llama3_2_3b import CONFIG as _llama3b
+from .moonshot_v1_16b_a3b import CONFIG as _moonshot
 from .qwen2_moe_a2_7b import CONFIG as _qwen2_moe
+from .qwen2_vl_7b import CONFIG as _qwen2_vl
 
-# the reference's configs that its engine serves on the paged path and
-# StackedLM serves here (RoPE, full attention, one homogeneous segment);
-# moonshot-v1-16b-a3b (a dense stem segment, which the reference's engine
-# refuses), the VLM, xLSTM, Hymba and Whisper families are ROADMAP queue
-# 1, item 9
-ARCHS = {c.name: c for c in [_llama1b, _llama3b, _glm4, _command_r,
-                             _qwen2_moe]}
+# the reference's configs whose families the port builds: the dense and
+# MoE stacks (moonshot-v1-16b-a3b with its dense stem segment, which the
+# serving engine refuses, as the reference's does), the VLM backbone
+# (M-RoPE, a stub patch frontend) and Hymba (attention + selective SSM,
+# served on the timeline); xlstm-125m and whisper-small are ROADMAP
+# queue 1, items 9c and 9e
+ARCHS = {c.name: c for c in [_moonshot, _qwen2_moe, _glm4, _command_r,
+                             _llama3b, _llama1b, _hymba, _qwen2_vl]}
 
 
 def get_arch(name: str) -> ArchConfig:
@@ -27,6 +31,10 @@ def get_arch(name: str) -> ArchConfig:
     return ARCHS[name]
 
 
+def list_archs():
+    return sorted(ARCHS)
+
+
 def get_shape(name: str) -> ShapeConfig:
     if name not in SHAPES:
         raise KeyError(f"unknown shape {name!r}; available: {sorted(SHAPES)}")
@@ -34,5 +42,5 @@ def get_shape(name: str) -> ShapeConfig:
 
 
 __all__ = ["ArchConfig", "ARCHS", "SHAPES", "ShapeConfig", "get_arch",
-           "get_shape", "reduced", "shape_applicable",
+           "get_shape", "list_archs", "reduced", "shape_applicable",
            "DENSE", "MOE", "SSM", "HYBRID", "ENCDEC", "VLM", "CNN"]

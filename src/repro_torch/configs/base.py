@@ -1,10 +1,11 @@
-"""Architecture configuration for the PyTorch port (dense and MoE families).
+"""Architecture configuration for the PyTorch port (the dense, MoE, VLM
+and hybrid families).
 
-A copy of the dense and MoE subset of ``repro.configs.base``: the port
-imports nothing of the JAX package, so it keeps its own ``ArchConfig``
-and ``reduced()``. Field names, parameter counts and the shrink rule are
-the reference's, so a config built here describes the same model as its
-JAX counterpart and the planner places it the same way.
+A copy of ``repro.configs.base``: the port imports nothing of the JAX
+package, so it keeps its own ``ArchConfig`` and ``reduced()``. Every field
+of the reference's is here, with its parameter counts and shrink rules,
+so a config built here describes the same model as its JAX counterpart,
+field for field, and the planner places it the same way.
 """
 from __future__ import annotations
 
@@ -14,19 +15,19 @@ from typing import Optional, Tuple
 
 DENSE = "dense"
 MOE = "moe"
-# the reference's other families, named so that host code copied from it
-# (``utils/analytic_cost.py``) reads the same; no port config has them yet
 SSM = "ssm"
 HYBRID = "hybrid"
 ENCDEC = "encdec"   # audio backbone (whisper): stub conv frontend
 VLM = "vlm"         # vision-language backbone: stub patch frontend
 CNN = "cnn"         # the paper's own model family (Serdab evaluation)
-FAMILIES = (DENSE, MOE)
+# the families the port builds; xLSTM (SSM) and Whisper (ENCDEC) are
+# ROADMAP queue 1, items 9c and 9e
+FAMILIES = (DENSE, MOE, VLM, HYBRID)
 
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """A decoder-only transformer, dense or MoE (exact published dims)."""
+    """A transformer-family architecture (exact published dims)."""
 
     name: str
     family: str
@@ -46,9 +47,24 @@ class ArchConfig:
     moe_d_ff: int = 0                   # expert hidden dim (0 -> d_ff)
     dense_stem_d_ff: int = 0            # hidden dim of the dense stem blocks
 
+    # --- SSM / hybrid ---
+    ssm_state: int = 0                  # mamba-style state size
+    conv_kernel: int = 4
     sliding_window: int = 0             # 0 = full attention
-    pos_type: str = "rope"
+    slstm_every: int = 0                # xLSTM: every k-th block is sLSTM
+
+    # --- positions ---
+    pos_type: str = "rope"              # rope | mrope | learned | none
     rope_theta: float = 10_000.0
+
+    # --- enc-dec (whisper) ---
+    encoder_layers: int = 0
+    encoder_seq: int = 0                # stub frontend output length
+
+    # --- vlm ---
+    num_patches: int = 0                # stub patch-embedding count
+
+    # --- misc ---
     use_bias: bool = False
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
@@ -74,6 +90,10 @@ class ArchConfig:
         return self.family in (SSM, HYBRID)
 
     @property
+    def has_decoder(self) -> bool:
+        return True  # all assigned archs decode (whisper via its decoder)
+
+    @property
     def q_per_kv(self) -> int:
         return max(1, self.num_heads // max(1, self.num_kv_heads))
 
@@ -90,10 +110,15 @@ class ArchConfig:
         return 3 * self.d_model * dff  # gated (SwiGLU-style): up, gate, down
 
     def block_params(self, layer_idx: int = 0) -> int:
-        """Parameters of one block: attention, MLP or router and experts,
-        two norms."""
+        """Parameters of one block (family aware)."""
         d = self.d_model
         norms = 2 * d
+        if self.family == SSM:
+            # xLSTM block: qkv+gates projections, ~4x expansion round-trip
+            return 8 * d * d + norms
+        if self.family == HYBRID:
+            ssm = 2 * d * (2 * d) + 2 * d * self.ssm_state * 2 + 2 * d
+            return self.attn_params() + ssm + self.mlp_params() + norms
         if self.family == MOE:
             if layer_idx < self.first_k_dense:
                 return (self.attn_params()
@@ -121,20 +146,32 @@ class ArchConfig:
             n *= 2  # separate LM head
         return n
 
+    def _encdec_params(self) -> int:
+        """Whisper's encoder blocks (attention + MLP, no cross-attention)
+        and its decoder's cross-attention."""
+        if self.family != ENCDEC:
+            return 0
+        enc = self.encoder_layers * (self.attn_params() + self.mlp_params()
+                                     + 2 * self.d_model)
+        return enc + self.num_layers * self.attn_params()
+
     def total_params(self) -> int:
         blocks = sum(self.block_params(i) for i in range(self.num_layers))
-        return blocks + self.embed_params() + self.d_model
+        return (blocks + self._encdec_params() + self.embed_params()
+                + self.d_model)
 
     def total_active_params(self) -> int:
         blocks = sum(self.block_active_params(i)
                      for i in range(self.num_layers))
-        return blocks + self.embed_params() + self.d_model
+        return (blocks + self._encdec_params() + self.embed_params()
+                + self.d_model)
 
 
 def reduced(cfg: ArchConfig) -> ArchConfig:
     """Shrink an arch to CPU-smoke size, as ``repro.configs.base.reduced``
-    does for the dense and MoE families (GQA grouping preserved where it
-    divides; MoE keeps routing, top-k and shared experts at 8 experts)."""
+    does, preserving family structure (GQA grouping where it divides; MoE
+    keeps routing, top-k, shared experts and a one-block dense stem at 8
+    experts; SSM state at most 8; a window of 32; 8 patches)."""
     heads = min(cfg.num_heads, 4)
     kv = max(1, min(cfg.num_kv_heads, heads))
     while heads % kv:
@@ -155,8 +192,14 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
                        num_shared_experts=min(1, cfg.num_shared_experts),
                        moe_d_ff=64, first_k_dense=min(1, cfg.first_k_dense),
                        dense_stem_d_ff=128 if cfg.first_k_dense else 0)
+    if cfg.family in (SSM, HYBRID):
+        changes.update(ssm_state=min(cfg.ssm_state or 8, 8))
     if cfg.sliding_window:
         changes.update(sliding_window=32)
+    if cfg.family == ENCDEC:
+        changes.update(encoder_layers=2, encoder_seq=24)
+    if cfg.family == VLM:
+        changes.update(num_patches=8)
     return dataclasses.replace(cfg, **changes)
 
 

@@ -243,16 +243,18 @@ def profiles_from_arch(cfg, seq_len: int, similarities: Optional[Sequence[float]
     """Per-block profiles for an assigned LM arch (decode-token costs).
 
     similarities: per-block representation similarity; defaults to a
-    geometric decay fit. ``calibrate_from_hlo`` (and its ``compiled`` /
-    ``compiled_batch`` arguments) read an XLA cost analysis in the
-    reference; the port has no XLA artifact, so asking for it raises
-    ``NotImplementedError``.
+    geometric decay fit. ``calibrate_from_hlo`` (with its ``compiled`` /
+    ``compiled_batch`` arguments) reads an XLA cost analysis in the
+    reference, which falls back to the constant defaults when no artifact
+    is given; so does the port. A ``compiled`` artifact raises
+    ``NotImplementedError``: the port has no counterpart of
+    ``hlo_calibration`` yet (ROADMAP queue 1, item 12).
     """
-    if calibrate_from_hlo:
+    if calibrate_from_hlo and compiled is not None:
         raise NotImplementedError(
-            "profiles_from_arch(calibrate_from_hlo=True): hlo_calibration "
-            "reads an XLA cost analysis, which the PyTorch port has no "
-            "counterpart for")
+            "profiles_from_arch(calibrate_from_hlo=True, compiled=...): "
+            "hlo_calibration reads an XLA cost analysis, which the PyTorch "
+            "port has no counterpart for (ROADMAP queue 1, item 12)")
     eff, act_scale = 1.0, 1.0
     out = []
     for i in range(cfg.num_layers):

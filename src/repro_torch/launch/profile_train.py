@@ -99,7 +99,7 @@ def main(argv=None):
             return loss_and_grad()
 
     with torch.no_grad():
-        x, _, _ = api.model._blocks(params, batch["tokens"], train=True)
+        x, _ = api.model._blocks(params, batch, train=True)
         h = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
 

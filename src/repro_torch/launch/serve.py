@@ -54,10 +54,14 @@ reference sizes it; per-token prefill, admission back-pressure at the
 horizon), and ``--per-token-prefill`` prefills the paged layout one token
 a step instead of in one call. ``--arch``
 takes every registered config: the dense llama3.2-1b, llama3.2-3b,
-glm4-9b and command-r-35b, and the MoE qwen2-moe-a2.7b (60 routed
-experts top-4 plus 4 shared, attention biases; dispatched without
-capacity dropping, as the reference serves it). Runs on ``cuda`` unless
-``--device cpu`` is given; without a card it raises.
+glm4-9b and command-r-35b, the MoE qwen2-moe-a2.7b (60 routed experts
+top-4 plus 4 shared, attention biases; dispatched without capacity
+dropping, as the reference serves it) and hymba-1.5b (served on the
+timeline: rolling window, conv and SSM state). The engine refuses
+moonshot-v1-16b-a3b (two segments) and qwen2-vl-7b (no ``pos3`` in
+serving) by name, as the reference's engine cannot serve them either.
+Runs on ``cuda`` unless ``--device cpu`` is given; without a card it
+raises.
 
   python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
       --device cpu --prompt-len 24 --prefill-chunk 5 --prefill-pack 3 \\

@@ -1,17 +1,21 @@
-"""Model API of the port (dense and MoE families of ``repro/models/api.py``):
-``build_model(cfg, device=..., dtype=..., max_seq=..., cache_quant=...)``
-returns a ``ModelAPI`` whose closures the serving engine and the train
-step call."""
+"""Model API of the port (``repro/models/api.py`` for the dense, MoE, VLM
+and hybrid families): ``build_model(cfg, device=..., dtype=...,
+max_seq=..., cache_quant=...)`` returns a ``ModelAPI`` whose closures the
+serving engine and the train step call, with the reference's
+``input_specs`` / ``make_inputs`` for a shape cell."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import (DENSE, HYBRID, MOE, VLM, ArchConfig,
+                                      ShapeConfig)
 from repro_torch.device import resolve_device
-from .transformer import SEGMENT, StackedLM
+from .hymba import build_hymba
+from .moe import build_moe
+from .transformer import StackedLM, build_dense, build_vlm, map_specs
 
 
 @dataclasses.dataclass
@@ -49,22 +53,24 @@ class ModelAPI:
         return self.model.init_cache_specs(batch, max_seq or self.max_seq,
                                            self.dtype)
 
+    def _zeros(self, specs):
+        return map_specs(lambda s: torch.zeros(s[0], dtype=s[1],
+                                               device=self.device), specs)
+
     def init_cache(self, batch: int, max_seq: Optional[int] = None,
                    fill_len: int = 0) -> Dict[str, Any]:
-        """A zero timeline cache (the int8 cache's scales zero too) with
-        ``len`` = ``fill_len``, on ``self.device``."""
-        specs = self.init_cache_specs(batch, max_seq)
-        cache = {SEGMENT: tuple(torch.zeros(shape, dtype=dt,
-                                            device=self.device)
-                                for shape, dt in specs[SEGMENT])}
-        cache["len"] = torch.tensor(fill_len, dtype=torch.int32,
-                                    device=self.device)
+        """A zero timeline cache (the int8 cache's scales and Hymba's
+        recurrent state zero too) with ``len`` = ``fill_len``, on
+        ``self.device``."""
+        cache = self._zeros(self.init_cache_specs(batch, max_seq))
+        cache["len"].fill_(fill_len)
         return cache
 
     @property
     def paged_ok(self) -> bool:
-        """Paged decode support: false for an int8-cache model, which keeps
-        the timeline layout."""
+        """Paged decode support (dense, MoE and VLM with a plain
+        full-attention KV cache); an int8-cache or sliding-window model
+        and Hymba's recurrent state keep the timeline layout."""
         return self.model.paged_ok
 
     # -- paged per-slot KV cache (serving hot path) ---------------------------
@@ -75,15 +81,8 @@ class ModelAPI:
 
     def init_paged_cache(self, num_slots: int, num_pages: int,
                          page_size: int, pages_per_slot: int):
-        specs = self.init_paged_cache_specs(num_slots, num_pages, page_size,
-                                            pages_per_slot)
-
-        def zeros(spec):
-            shape, dtype = spec
-            return torch.zeros(shape, dtype=dtype, device=self.device)
-
-        return {k: (tuple(zeros(s) for s in v) if k == SEGMENT else zeros(v))
-                for k, v in specs.items()}
+        return self._zeros(self.init_paged_cache_specs(
+            num_slots, num_pages, page_size, pages_per_slot))
 
     def decode_paged_fn(self, params, cache, batch):
         return self.model.decode_paged_fn(params, cache, batch)
@@ -102,20 +101,70 @@ class ModelAPI:
         in place (see StackedLM.prefill_chunk_fn)."""
         return self.model.prefill_chunk_fn(params, pools, batch)
 
+    # -- inputs of a shape cell -------------------------------------------------
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """``(shape, dtype)`` of every model input of a shape cell (the
+        reference's ``input_specs``): ``tokens`` (and ``labels`` to train),
+        and for a VLM ``patches`` [B, P, d] outside decode and ``pos3``
+        [B, S, 3]. ``torch.empty(shape, dtype=dtype, device="meta")`` makes a
+        stand-in that holds no memory."""
+        c = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        tok_len = 1 if shape.kind == "decode" else S
+        specs: Dict[str, Any] = {"tokens": ((B, tok_len), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = ((B, S), torch.int32)
+        if c.family == VLM:
+            if shape.kind != "decode":
+                specs["patches"] = ((B, c.num_patches, c.d_model),
+                                    self.dtype)
+            specs["pos3"] = ((B, tok_len, 3), torch.int32)
+        return specs
+
+    def make_inputs(self, shape: ShapeConfig,
+                    generator: torch.Generator) -> Dict[str, Any]:
+        """Concrete (small) inputs matching ``input_specs``, drawn from
+        ``generator`` (on ``self.device``) in the specs' order, as the
+        reference draws them: integers uniform in [0, vocab) for tokens and
+        labels and in [0, 4) otherwise, floats standard normal in f32, then
+        cast."""
+        out = {}
+        for name, (shp, dt) in self.input_specs(shape).items():
+            if not dt.is_floating_point:
+                hi = self.cfg.vocab_size if name in ("tokens", "labels") \
+                    else 4
+                out[name] = torch.randint(0, hi, shp, generator=generator,
+                                          device=self.device, dtype=dt)
+            else:
+                out[name] = torch.randn(shp, generator=generator,
+                                        device=self.device,
+                                        dtype=torch.float32).to(dt)
+        return out
+
+
+BUILDERS: Dict[str, Callable] = {
+    DENSE: lambda cfg, remat, q: build_dense(cfg, remat, cache_quant=q),
+    MOE: lambda cfg, remat, q: build_moe(cfg, remat, cache_quant=q),
+    HYBRID: lambda cfg, remat, q: build_hymba(cfg, remat),
+    VLM: lambda cfg, remat, q: build_vlm(cfg, remat, cache_quant=q),
+}
+
 
 def build_model(cfg: ArchConfig, *,
                 device: Optional[Union[str, torch.device]] = None,
                 dtype: torch.dtype = torch.bfloat16,
                 remat: bool = True, max_seq: int = 4096,
                 cache_quant: bool = False) -> ModelAPI:
-    """Dense and MoE families (an MoE config with a dense stem,
-    ``first_k_dense > 0``, is refused by name, as the reference's engine
-    refuses to serve it). ``device`` defaults to ``cuda`` and raises
-    without a card; pass ``device="cpu"`` for the CPU reference path.
-    ``remat`` recomputes each block in the backward of ``loss_fn`` (the
-    reference's default). ``max_seq`` is the timeline cache's default
-    horizon; ``cache_quant`` keeps the timeline cache in int8 (no paged
-    cache then, as in the reference)."""
+    """The family's builder (``BUILDERS``, keyed by family as the
+    reference's). ``device`` defaults to ``cuda`` and raises without a
+    card; pass ``device="cpu"`` for the CPU reference path. ``remat``
+    recomputes each block in the backward of ``loss_fn`` (the reference's
+    default). ``max_seq`` is the timeline cache's default horizon;
+    ``cache_quant`` keeps the timeline cache in int8 (dense, MoE and VLM;
+    no paged cache then, as in the reference; Hymba's recurrent state
+    ignores it, as the reference's does)."""
+    if cfg.family not in BUILDERS:
+        raise ValueError(f"no builder for family {cfg.family!r}")
     dev = resolve_device(device)
-    return ModelAPI(cfg, StackedLM(cfg, remat=remat, cache_quant=cache_quant),
+    return ModelAPI(cfg, BUILDERS[cfg.family](cfg, remat, cache_quant),
                     dev, dtype, max_seq)

@@ -1,6 +1,7 @@
-"""Model substrate of the port (the dense and MoE subset of
-``repro/models/layers.py``): parameter specs and their initializer, norms,
-rotary embeddings, projections (with the attention biases), SwiGLU,
+"""Model substrate of the port (``repro/models/layers.py`` for the dense,
+MoE, VLM and hybrid families): parameter specs and their initializer,
+norms, rotary embeddings (RoPE and Qwen2-VL's M-RoPE), projections (with
+the attention biases), SwiGLU, the rolling window buffer,
 prefill attention (one-shot and chunked against the page pools), the
 paged decode path, the timeline decode attention (``decode_attention``)
 and the training loss (``chunked_softmax_xent``).
@@ -36,6 +37,12 @@ class ParamSpec:
     scale: float = 1.0      # fan-in style scale multiplier
 
 
+# bytes of the largest f32 draw init_one makes at once: a larger leaf (the
+# 47 stacked expert stacks of moonshot-v1-16b-a3b, 34.7 GB in f32 beside
+# their 17.3 GB in bf16) is drawn a leading slice at a time
+MAX_F32_DRAW = 1 << 34
+
+
 def init_one(spec: ParamSpec, generator: torch.Generator, device,
              dtype) -> torch.Tensor:
     """The reference's initializer (``repro.models.layers._init_one``):
@@ -43,16 +50,23 @@ def init_one(spec: ParamSpec, generator: torch.Generator, device,
     sqrt(fan_in)) with fan_in = the spec's leading dim. For stacked block
     weights that leading dim is the layer count, as in the reference, so
     random-weight runs of the two packages sit in the same numeric range.
-    Draws in f32 from ``generator`` (on ``device``), then casts."""
+    Draws in f32 from ``generator`` (on ``device``), then casts; past
+    ``MAX_F32_DRAW`` bytes, one leading slice a draw."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, device=device, dtype=dtype)
     if spec.init == "ones":
         return torch.ones(spec.shape, device=device, dtype=dtype)
     fan_in = spec.shape[0] if len(spec.shape) > 1 else max(spec.shape[-1], 1)
     std = 0.02 if spec.init == "embed" else spec.scale / math.sqrt(fan_in)
-    w = torch.randn(spec.shape, generator=generator, device=device,
-                    dtype=torch.float32)
-    return w.mul_(std).to(dtype)
+    if 4 * math.prod(spec.shape) <= MAX_F32_DRAW:
+        w = torch.randn(spec.shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return w.mul_(std).to(dtype)
+    out = torch.empty(spec.shape, device=device, dtype=dtype)
+    for i in range(spec.shape[0]):
+        out[i] = torch.randn(spec.shape[1:], generator=generator,
+                             device=device, dtype=torch.float32).mul_(std)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -89,10 +103,63 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     freqs = _device_freqs(d, theta, x.device)                       # [D/2]
     angles = positions[..., :, None].float() * freqs        # [..., S, D/2]
     angles = angles[..., :, None, :]                        # [..., S, 1, D/2]
+    return _rotate(x, angles)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate the two halves of x's last dim by ``angles`` [..., S, 1,
+    D/2] in f32, and cast back."""
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_sections(head_dim: int, sections=(16, 24, 24)) -> list:
+    """The reference's split of the ``head_dim / 2`` frequency slots into
+    the (t, h, w) sections: each scaled by ``half // sum`` in integers, the
+    remainder to the last ([16, 24, 24] at head_dim 128, [2, 3, 3] at
+    16)."""
+    half = head_dim // 2
+    sec = [s * half // sum(sections) for s in sections]
+    sec[-1] = half - sum(sec[:-1])
+    return sec
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections=(16, 24, 24)):
+    """Multimodal RoPE (Qwen2-VL): x [..., S, H, D], positions3 [..., S, 3]
+    the (t, h, w) ids. Section i of the D/2 frequencies rotates by
+    position stream i; with (p, p, p) it is RoPE at p."""
+    d = x.shape[-1]
+    freqs = _device_freqs(d, theta, x.device)                       # [D/2]
+    parts, lo = [], 0
+    for i, width in enumerate(mrope_sections(d, sections)):
+        parts.append(positions3[..., :, i][..., :, None].float()
+                     * freqs[lo:lo + width])
+        lo += width
+    return _rotate(x, torch.cat(parts, dim=-1)[..., :, None, :])
+
+
+def pick_chunk(seq: int, target: int) -> int:
+    """Largest power-of-two-ish chunk <= target that divides seq."""
+    c = min(seq, target)
+    while seq % c:
+        c //= 2
+    return max(c, 1)
+
+
+def roll_into_window(kv_hd: torch.Tensor, total_len: int,
+                     window: int) -> torch.Tensor:
+    """The last W = min(window, total_len) tokens of [B, KVH, W, D] into a
+    [B, KVH, window, D] rolling buffer at slot (absolute index % window),
+    so a decode step at position ``len`` (writing slot ``len % window``)
+    evicts exactly the oldest cached token."""
+    B, KVH, W, D = kv_hd.shape
+    slots = torch.arange(total_len - W, total_len,
+                         device=kv_hd.device) % window
+    buf = kv_hd.new_zeros((B, KVH, window, D))
+    return buf.index_copy_(2, slots, kv_hd)
 
 
 # ---------------------------------------------------------------------------
@@ -117,16 +184,25 @@ def attn_specs(cfg) -> Dict[str, ParamSpec]:
     return s
 
 
-def attn_qkv(p, x, positions, cfg):
+def attn_qkv(p, x, positions, cfg, pos3=None):
     """Project to q, k, v, add the biases where the block has them, and
-    apply RoPE. x: [B, S, d] -> q [B, S, H, hd], k and v [B, S, KVH, hd]."""
+    rotate: RoPE at ``positions``, or M-RoPE at ``pos3`` [B, S, 3] for
+    ``pos_type == "mrope"`` (which raises without them, as the reference
+    asserts). x: [B, S, d] -> q [B, S, H, hd], k and v [B, S, KVH, hd]."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dgk->bsgk", x, p["wk"])
     v = torch.einsum("bsd,dgk->bsgk", x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.pos_type == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.pos_type == "mrope":
+        if pos3 is None:
+            raise ValueError(f"{cfg.name}: mrope needs 3-component "
+                             f"positions (pos3)")
+        q = apply_mrope(q, pos3, cfg.rope_theta)
+        k = apply_mrope(k, pos3, cfg.rope_theta)
     return q, k, v
 
 
@@ -319,9 +395,7 @@ def chunked_softmax_xent(h, w_head, labels, *, chunk: int = 512,
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), and
     the chunks' sums are added in order."""
     B, S, D = h.shape
-    c = min(chunk, S)
-    while S % c:
-        c //= 2
+    c = pick_chunk(S, chunk)
     if label_mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
     else:

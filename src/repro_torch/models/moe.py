@@ -1,6 +1,8 @@
 """Mixture-of-Experts blocks of the port (``repro/models/moe.py``): top-k
 routing with capacity-based scatter/gather dispatch into ``[E, C, D]``
-buffers, a gated FFN per expert, Qwen-MoE-style always-on shared experts.
+buffers, a gated FFN per expert, Qwen-MoE-style always-on shared experts,
+and DeepSeek/Moonlight-style dense stem blocks (``first_k_dense``: a
+``"stem"`` segment ahead of the MoE ``"blocks"``).
 
 The serving path dispatches without dropping (``drop_tokens=False``): C
 is then ``ceil8(T * K)``, a function of the token count T alone, so a
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from . import layers as L
 from .layers import ParamSpec
+from .transformer import SEGMENT, StackedLM, _attn_segment
 
 CAPACITY_FACTOR = 1.25
 
@@ -134,3 +137,33 @@ def moe_block_specs(cfg: ArchConfig) -> Dict[str, Any]:
         "attn": L.attn_specs(cfg),
         "moe": moe_mlp_specs(cfg),
     }
+
+
+def moe_ffn(cfg: ArchConfig):
+    """An MoE block's FFN for ``AttnBlock``: inference dispatches without
+    capacity dropping, as the reference's ``moe_block_apply`` does outside
+    training; training drops at capacity and discards the aux loss, as it
+    does."""
+    def ffn(p, h, train: bool):
+        out, _ = moe_mlp_apply(cfg, p["moe"], h, drop_tokens=train,
+                               aux=False)
+        return out
+    return ffn
+
+
+def build_moe(cfg: ArchConfig, remat: bool = True,
+              cache_quant: bool = False) -> StackedLM:
+    """The reference's ``build_moe``: with ``first_k_dense`` a ``"stem"``
+    segment of that many dense blocks (SwiGLU of ``dense_stem_d_ff``, or
+    ``d_ff``), then ``num_layers - first_k_dense`` MoE blocks under
+    ``"blocks"``."""
+    segments = []
+    if cfg.first_k_dense:
+        segments.append(_attn_segment(cfg, "stem", cfg.first_k_dense,
+                                      cache_quant,
+                                      d_ff=cfg.dense_stem_d_ff or cfg.d_ff))
+    segments.append(_attn_segment(
+        cfg, SEGMENT, cfg.num_layers - cfg.first_k_dense, cache_quant,
+        ffn=moe_ffn(cfg), specs_fn=lambda: moe_block_specs(cfg)))
+    return StackedLM(cfg, segments, remat, cache_quant,
+                     paged_ok=not (cache_quant or cfg.sliding_window))

@@ -1,24 +1,31 @@
-"""Decoder stack of the port (the dense family of
-``repro/models/transformer.py`` and the MoE family's blocks of
-``repro/models/moe.py``, one homogeneous segment).
+"""Decoder stacks of the port (``repro/models/transformer.py``): the
+generic ``StackedLM`` over one or more homogeneous segments, the dense
+family, and the VLM backbone (``VlmLM``: M-RoPE and a stub patch
+frontend). The MoE family (``models/moe.py``, with its dense stem) and
+Hymba (``models/hymba.py``) build on the same machinery.
 
-Parameters are a plain dict with the reference's tree and layouts: block
-weights stacked along a leading layer dim under ``"blocks"`` (``wq``
-``[L, d, H, hd]``, ``wo [L, H, hd, d]``, an MoE block's ``moe.wi``
-``[L, E, d, dff]``, ...), tied embeddings for llama.
-A parameter tree converted from the JAX package (``repro_torch.weights``)
-therefore drops in as is. The block loop is a Python loop over layers
-(the reference's ``lax.scan``). Two KV layouts, both updated in place:
-the paged pools, per-segment ``(k, v)`` tensors ``[L, N, KVH, page_size,
-D]``, and the reference's shared-position timeline, per-segment ``(k, v)``
-``[L, B, KVH, S, D]`` (or, with ``cache_quant``, int8 payloads and f32
-per-(head, channel) scales ``(k_q8, v_q8, k_s, v_s)``, the scales
-``[L, KVH, D]``) beside ``"len"`` (one int32 for every row) and an
-optional per-row ``"start"`` [B].
+Parameters are a plain dict with the reference's tree and layouts: each
+segment's block weights stacked along a leading layer dim under its name
+(``"blocks"``, and ``"stem"`` ahead of it for a DeepSeek-style MoE;
+``wq [L, d, H, hd]``, ``wo [L, H, hd, d]``, an MoE block's ``moe.wi``
+``[L, E, d, dff]``, ...), tied embeddings for llama. A parameter tree
+converted from the JAX package (``repro_torch.weights``) therefore drops
+in as is. The block loop is a Python loop over segments and layers (the
+reference's ``lax.scan`` per segment). Caches are keyed by segment name
+too, each updated in place: the paged pools, per-segment ``(k, v)``
+tensors ``[L, N, KVH, page_size, D]``, and the reference's
+shared-position timeline, a per-segment tree of per-layer leaves stacked
+on a leading layer dim: ``(k, v)`` ``[L, B, KVH, S, D]`` (or, with
+``cache_quant``, int8 payloads and f32 per-(head, channel) scales
+``(k_q8, v_q8, k_s, v_s)``, the scales ``[L, KVH, D]``; a Hymba layer adds
+its recurrent state), beside ``"len"`` (one int32 for every row) and an
+optional per-row ``"start"`` [B]. A sliding-window model's timeline
+buffers hold the window, written at ``len % window``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -27,7 +34,6 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig
 from . import layers as L
 from .layers import ParamSpec, init_one
-from .moe import moe_block_specs, moe_mlp_apply
 
 SEGMENT = "blocks"          # the reference's name for the served segment
 
@@ -64,7 +70,7 @@ def default_kv_cache_spec(cfg: ArchConfig, batch: int, max_seq: int,
     dtype)`` of k and v ``[batch, KVH, S, D]``, and with ``quant`` int8
     payloads plus f32 per-(head, channel) scales ``[KVH, D]`` (half the
     payload bytes). S is ``max_seq``, or the window of a sliding-window
-    model (not served by this port yet)."""
+    model (rolling slots: absolute index % window)."""
     S = cfg.sliding_window if cfg.sliding_window else max_seq
     kv = ((batch, cfg.num_kv_heads, S, cfg.head_dim),
           torch.int8 if quant else dtype)
@@ -74,8 +80,10 @@ def default_kv_cache_spec(cfg: ArchConfig, batch: int, max_seq: int,
     return (kv, kv)
 
 
-def dense_block_specs(cfg: ArchConfig) -> Dict[str, Any]:
-    d, ff = cfg.d_model, cfg.d_ff
+def dense_block_specs(cfg: ArchConfig,
+                      d_ff: Optional[int] = None) -> Dict[str, Any]:
+    d = cfg.d_model
+    ff = cfg.d_ff if d_ff is None else d_ff
     return {
         "ln1": ParamSpec((d,), "ones"),
         "ln2": ParamSpec((d,), "ones"),
@@ -95,9 +103,12 @@ def _map_specs(fn, tree):
 
 
 def _at(tree, l: int):
-    """Layer ``l`` of a tree of stacked block weights."""
+    """Layer ``l`` of a tree of stacked leaves (block weights, or a
+    segment's cache), as views."""
     if isinstance(tree, dict):
         return {k: _at(v, l) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_at(v, l) for v in tree)
     return tree[l]
 
 
@@ -110,33 +121,195 @@ def _unbind(tree, n: int):
     return torch.unbind(tree, 0)
 
 
-class StackedLM:
-    """A causal LM: embedding, ``num_layers`` pre-norm blocks (dense, or
-    MoE: dense attention and an MoE FFN), final norm, tied (or separate)
-    output head. ``remat`` recomputes each block in the backward of
-    ``loss_fn``, as the reference's default does. ``cache_quant`` keeps the
-    timeline cache in int8 with per-(head, channel) scales set by
-    ``prefill_fn``; such a model has no paged cache (``paged_ok``)."""
+def _stack(layers: List[Any]):
+    """Per-layer cache trees (tuples of tensors) -> one tree of leaves
+    stacked on a new leading layer dim."""
+    first = layers[0]
+    if isinstance(first, (tuple, list)):
+        return tuple(_stack([t[i] for t in layers])
+                     for i in range(len(first)))
+    return torch.stack(layers)
 
-    def __init__(self, cfg: ArchConfig, remat: bool = True,
-                 cache_quant: bool = False):
-        if cfg.sliding_window or cfg.pos_type != "rope":
-            raise NotImplementedError(
-                f"{cfg.name}: sliding windows and non-RoPE positions are "
-                f"not ported yet (ROADMAP queue 1, item 9)")
-        if cfg.first_k_dense:
-            raise NotImplementedError(
-                f"{cfg.name}: a dense stem segment ahead of the MoE blocks "
-                f"is not served; the reference's engine also serves only "
-                f"a single homogeneous segment")
+
+def is_spec(x) -> bool:
+    """A cache spec's leaf: ``(shape, dtype)``."""
+    return isinstance(x, tuple) and len(x) == 2 and \
+        isinstance(x[1], torch.dtype)
+
+
+def map_specs(fn, tree):
+    """``fn`` over the ``(shape, dtype)`` leaves of a cache spec tree."""
+    if is_spec(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v) for k, v in tree.items()}
+    return tuple(map_specs(fn, v) for v in tree)
+
+
+def _window_kv(k: torch.Tensor, v: torch.Tensor, window: int):
+    """A prefill's k, v [B, S, KVH, D] -> the layer's timeline cache
+    entries [B, KVH, S, D]; with a window, the last ``min(window, S)``
+    positions rolled into a [B, KVH, window, D] buffer."""
+    S = k.shape[1]
+    kk, vv = k.transpose(1, 2), v.transpose(1, 2)
+    if window:
+        keep = min(window, S)
+        kk = L.roll_into_window(kk[:, :, S - keep:], S, window)
+        vv = L.roll_into_window(vv[:, :, S - keep:], S, window)
+    return kk, vv
+
+
+class AttnBlock:
+    """One pre-norm block of the dense, MoE and VLM families (and of the
+    MoE family's dense stem): attention (RoPE or M-RoPE, GQA, an optional
+    sliding window), then the FFN, SwiGLU or ``ffn(p, h, train)`` (the MoE
+    FFN). One method a path; each writes its layer of a cache in place.
+    ``cache_quant`` keeps the timeline cache in int8 with per-(head,
+    channel) scales."""
+
+    paged = True                # has the paged-cache paths
+
+    def __init__(self, cfg: ArchConfig, cache_quant: bool = False,
+                 ffn: Optional[Callable] = None):
+        self.cfg, self.cache_quant, self.ffn = cfg, cache_quant, ffn
+        self.window = cfg.sliding_window
+        self.rolling = bool(self.window)
+
+    def mlp(self, p, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = L.rmsnorm(x, p["ln2"], self.cfg.norm_eps)
+        if self.ffn is not None:
+            return x + self.ffn(p, h, train)
+        m = p["mlp"]
+        return x + L.swiglu(h, m["wi"], m["wg"], m["wo"])
+
+    def forward(self, p, x, positions, pos3=None, train: bool = False):
+        """The block over a whole sequence: causal (windowed) attention
+        through ``L.chunked_attention`` (the flash kernel on the card),
+        then the FFN. Returns (x, k, v) with k, v [B, S, KVH, D]."""
+        cfg = self.cfg
+        h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = L.attn_qkv(p["attn"], h, positions, cfg, pos3)
+        ctx = L.chunked_attention(q, k, v, causal=True, window=self.window)
+        x = x + L.attn_out(p["attn"], ctx)
+        return self.mlp(p, x, train), k, v
+
+    def train(self, p, x, positions, pos3=None) -> torch.Tensor:
+        return self.forward(p, x, positions, pos3, train=True)[0]
+
+    def prefill(self, p, x, positions, pos3=None):
+        """(x, the layer's timeline cache entries ``(k, v)`` [B, KVH, S, D],
+        windowed as ``_window_kv``)."""
+        x, k, v = self.forward(p, x, positions, pos3)
+        return x, _window_kv(k, v, self.window)
+
+    # -- the timeline decode ---------------------------------------------------
+    @staticmethod
+    def kv_of(cache):
+        """The KV part of a layer's (or a segment's) timeline cache."""
+        return cache
+
+    def decode_slot(self, cache_len: torch.Tensor, S: int) -> torch.Tensor:
+        """The [1] slot a decode step at position ``cache_len`` writes:
+        ``len % S`` in a rolling window buffer, else ``min(len, S - 1)``."""
+        n = cache_len.reshape(1).long()
+        return torch.remainder(n, S) if self.rolling else \
+            torch.clamp(n, max=S - 1)
+
+    def attend_decode(self, q, k, v, kv, cache_len, slot, start, rows):
+        """Write this step's k, v [b, 1, KVH, D] at ``slot`` of the layer's
+        ``kv`` rows ``rows`` (int8 against the layer's scales when
+        quantized), in place, and attend over ``cache_len + 1`` positions
+        from each row's ``start`` (``L.decode_attention``)."""
+        k, v = k.transpose(1, 2), v.transpose(1, 2)         # [b, KVH, 1, D]
+        if self.cache_quant:
+            k_q, v_q, k_s, v_s = kv
+            sK, sV = k_s[:, None, :], v_s[:, None, :]       # [KVH, 1, D]
+            k_q, v_q = k_q[rows], v_q[rows]
+            k_q.index_copy_(2, slot, quantize_kv(k, sK))
+            v_q.index_copy_(2, slot, quantize_kv(v, sV))
+            kc, vc = dequantize_kv(k_q, sK), dequantize_kv(v_q, sV)
+        else:
+            kc, vc = kv[0][rows], kv[1][rows]
+            kc.index_copy_(2, slot, k)
+            vc.index_copy_(2, slot, v)
+        return L.decode_attention(q, kc, vc, cache_len + 1,
+                                  rolling=self.rolling, start=start)
+
+    def decode(self, p, x, positions, pos3, cache, cache_len, slot, start,
+               rows):
+        """One timeline decode step of rows ``rows`` of this layer's cache
+        ``cache`` (views into the segment's stacked leaves)."""
+        cfg = self.cfg
+        h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = L.attn_qkv(p["attn"], h, positions, cfg, pos3)
+        ctx = self.attend_decode(q, k, v, cache, cache_len, slot, start,
+                                 rows)
+        x = x + L.attn_out(p["attn"], ctx)
+        return self.mlp(p, x)
+
+    # -- the paged paths -------------------------------------------------------
+    def decode_paged(self, p, x, positions, pos3, pools, bt, sl, sl_next):
+        """One paged decode step: write the new K/V into this layer's
+        pools ``(k, v)`` [N, KVH, Pg, D] in place and attend over
+        ``sl_next`` tokens (the paged kernel on the card)."""
+        cfg = self.cfg
+        h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = L.attn_qkv(p["attn"], h, positions, cfg, pos3)
+        L.paged_write(pools[0], pools[1], k[:, 0], v[:, 0], bt, sl)
+        ctx = L.paged_decode_attention(q, pools[0], pools[1], bt, sl_next)
+        x = x + L.attn_out(p["attn"], ctx)
+        return self.mlp(p, x)
+
+    def prefill_chunk(self, p, x, positions, pos3, pools, bt, offset: int,
+                      targets):
+        """One prefill chunk: attend over the gathered prefix plus the chunk
+        (``L.chunk_prefill_attention``), then write the chunk's KV into
+        this layer's pools, in place."""
+        cfg = self.cfg
+        h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = L.attn_qkv(p["attn"], h, positions, cfg, pos3)
+        ctx = L.chunk_prefill_attention(q, k, v, pools[0], pools[1], bt,
+                                        offset)
+        L.paged_write_chunk(pools[0], pools[1], k[0], v[0], targets)
+        x = x + L.attn_out(p["attn"], ctx)
+        return self.mlp(p, x)
+
+
+@dataclasses.dataclass
+class Segment:
+    """A homogeneous run of ``n`` blocks with stacked params (the
+    reference's ``Segment``): ``name`` keys its params and its caches,
+    ``specs_fn()`` gives one block's param specs, ``block`` runs one block
+    on every path, ``cache_spec_fn(batch, max_seq, dtype)`` one layer's
+    timeline cache spec (a tree of ``(shape, dtype)``)."""
+
+    name: str
+    n: int
+    specs_fn: Callable[[], Dict[str, Any]]
+    block: AttnBlock
+    cache_spec_fn: Callable
+
+
+class StackedLM:
+    """A causal LM whose body is one or more homogeneous segments
+    (the reference's ``StackedLM``): embedding (and, for a VLM, its
+    frontend), each segment's blocks in order, final norm, tied (or
+    separate) output head. ``remat`` recomputes each block in the backward
+    of ``loss_fn``, as the reference's default does. ``cache_quant`` keeps
+    the timeline cache in int8 with per-(head, channel) scales set by
+    ``prefill_fn``. ``paged_ok`` (set by the builders, as the reference's)
+    says whether the paged-cache paths apply."""
+
+    def __init__(self, cfg: ArchConfig, segments: List[Segment],
+                 remat: bool = True, cache_quant: bool = False,
+                 paged_ok: bool = False):
         self.cfg = cfg
+        self.segments = segments
         self.remat = remat
         self.cache_quant = cache_quant
-
-    @property
-    def paged_ok(self) -> bool:
-        """Paged decode support: the plain full-attention cache only."""
-        return not self.cache_quant
+        self.paged_ok = paged_ok
+        # layer l of the whole stack -> (its segment, its index there)
+        self._where = [(seg, i) for seg in segments for i in range(seg.n)]
 
     # -- parameters --------------------------------------------------------
     def param_specs(self) -> Dict[str, Any]:
@@ -147,19 +320,24 @@ class StackedLM:
         }
         if not c.tie_embeddings:
             specs["head"] = ParamSpec((c.d_model, c.vocab_size))
-        block = moe_block_specs(c) if c.is_moe else dense_block_specs(c)
-        specs[SEGMENT] = _map_specs(
-            lambda s: ParamSpec((c.num_layers,) + s.shape, s.init, s.scale),
-            block)
+        for seg in self.segments:
+            specs[seg.name] = _map_specs(
+                lambda s, n=seg.n: ParamSpec((n,) + s.shape, s.init,
+                                             s.scale), seg.specs_fn())
         return specs
 
     def init_params(self, generator: torch.Generator, device, dtype):
         return _map_specs(lambda s: init_one(s, generator, device, dtype),
                           self.param_specs())
 
-    # -- embedding / head --------------------------------------------------
+    # -- embedding / frontend / head -----------------------------------------
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens.long()]
+
+    def _fuse_frontend(self, params, x: torch.Tensor, batch) -> torch.Tensor:
+        """A modality frontend's fusion into the embedded tokens (none
+        here; ``VlmLM`` adds its patches)."""
+        return x
 
     def logits(self, params, h: torch.Tensor) -> torch.Tensor:
         """h [B, d] -> f32 logits [B, V]. The reference asks XLA for f32
@@ -168,75 +346,81 @@ class StackedLM:
         w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
         return h.float() @ w.float()
 
-    @staticmethod
-    def _layer(params, l: int) -> Dict[str, Any]:
-        return _at(params[SEGMENT], l)
+    def head(self, params, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and output head at the last position: x [B, S, d] ->
+        f32 logits [B, V]."""
+        x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
+        return self.logits(params, x[:, -1])
 
-    def _mlp(self, p, x, train: bool = False):
-        h = L.rmsnorm(x, p["ln2"], self.cfg.norm_eps)
-        if "moe" in p:
-            # inference dispatches without capacity dropping, as the
-            # reference's moe_block_apply does outside training; training
-            # drops at capacity and discards the aux loss, as it does
-            out, _ = moe_mlp_apply(self.cfg, p["moe"], h, drop_tokens=train,
-                                   aux=False)
-            return x + out
-        m = p["mlp"]
-        return x + L.swiglu(h, m["wi"], m["wg"], m["wo"])
+    def _layer(self, params, l: int) -> Dict[str, Any]:
+        """Layer ``l`` of the whole stack's block weights."""
+        seg, i = self._where[l]
+        return _at(params[seg.name], i)
 
-    def _block(self, p, x, positions, train: bool = False):
-        """One block over a whole sequence: causal attention through
-        ``L.chunked_attention`` (the flash kernel on the card), then the
-        FFN. Returns (x, k, v) with k, v [B, S, KVH, D]."""
-        cfg = self.cfg
-        h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = L.attn_qkv(p["attn"], h, positions, cfg)
-        ctx = L.chunked_attention(q, k, v, causal=True)
-        x = x + L.attn_out(p["attn"], ctx)
-        return self._mlp(p, x, train), k, v
+    def _only_segment(self) -> Segment:
+        if len(self.segments) != 1:
+            raise ValueError(
+                f"{self.cfg.name}: a layer range of one cache body needs a "
+                f"single homogeneous segment, not "
+                f"{[s.name for s in self.segments]}")
+        return self.segments[0]
 
-    def _train_block(self, p, x, positions):
-        return self._block(p, x, positions, train=True)[0]
+    def _block(self, p, x, positions, train: bool = False, pos3=None):
+        """One block of the ``"blocks"`` segment over a whole sequence:
+        (x, k, v), k and v [B, S, KVH, D] (``AttnBlock.forward``)."""
+        seg = next(s for s in self.segments if s.name == SEGMENT)
+        return seg.block.forward(p, x, positions, pos3, train)
 
-    def _blocks(self, params, tokens: torch.Tensor, train: bool = False,
+    def _blocks(self, params, batch, train: bool = False,
                 hidden: Optional[list] = None):
-        """Embed ``tokens`` [B, S] at positions 0..S-1 and run every block.
-        Returns (x [B, S, d] before the final norm, [k], [v]) with each
-        layer's k, v [B, KVH, S, D] when serving, empty lists in training.
-        In training with ``remat`` each block runs under
-        ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
-        each scan step) while autograd records: its activations are
-        recomputed in the backward, so the flash kernel runs twice a layer.
-        The stacked block weights are unbound once, so their gradient is
-        one stack of the layers'. ``hidden``, when given, receives the
-        embedding and then each block's output."""
-        B, S = tokens.shape
-        positions = torch.arange(S, device=tokens.device)[None, :]
-        x = self.embed(params, tokens)
+        """Embed ``batch["tokens"]`` [B, S] (with the frontend's
+        ``patches``), at ``batch["positions"]`` or 0..S-1 (and ``pos3`` for
+        M-RoPE), and run every segment's blocks. Returns (x [B, S, d]
+        before the final norm, {segment: [each layer's timeline cache]})
+        when serving, an empty dict in training. In training with
+        ``remat`` each block runs under ``torch.utils.checkpoint`` (the
+        reference's ``jax.checkpoint`` of each scan step) while autograd
+        records: its activations are recomputed in the backward, so the
+        flash kernel runs twice a layer. The stacked block weights are
+        unbound once, so their gradient is one stack of the layers'.
+        ``hidden``, when given, receives the embedding and then each
+        block's output."""
+        tokens = batch["tokens"]
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(tokens.shape[1],
+                                     device=tokens.device)[None, :]
+        pos3 = batch.get("pos3")
+        x = self._fuse_frontend(params, self.embed(params, tokens), batch)
         if hidden is not None:
             hidden.append(x)
-        ks, vs = [], []
-        for p in _unbind(params[SEGMENT], self.cfg.num_layers):
-            if not train:
-                x, k, v = self._block(p, x, positions)
-                ks.append(k.transpose(1, 2))
-                vs.append(v.transpose(1, 2))
-            elif self.remat and torch.is_grad_enabled():
-                x = torch.utils.checkpoint.checkpoint(
-                    self._train_block, p, x, positions, use_reentrant=False)
-            else:
-                x = self._train_block(p, x, positions)
-            if hidden is not None:
-                hidden.append(x)
-        return x, ks, vs
+        caches = {}
+        for seg in self.segments:
+            blk, layers = seg.block, []
+            for p in _unbind(params[seg.name], seg.n):
+                if not train:
+                    x, c = blk.prefill(p, x, positions, pos3)
+                    layers.append(c)
+                elif self.remat and torch.is_grad_enabled():
+                    x = torch.utils.checkpoint.checkpoint(
+                        blk.train, p, x, positions, pos3,
+                        use_reentrant=False)
+                else:
+                    x = blk.train(p, x, positions, pos3)
+                if hidden is not None:
+                    hidden.append(x)
+            if layers:
+                caches[seg.name] = layers
+        return x, caches
 
     # -- public: loss ----------------------------------------------------------
     def loss_fn(self, params, batch):
         """Mean next-token nll of ``batch`` (``tokens``, ``labels`` [B, S],
-        optional ``label_mask``): every block in train mode, the final
-        norm, and ``chunked_softmax_xent`` against the tied embedding or
-        ``head`` (the reference's ``StackedLM.loss_fn``)."""
-        x, _, _ = self._blocks(params, batch["tokens"], train=True)
+        optional ``label_mask``, ``positions``, and a VLM's ``patches`` /
+        ``pos3``): every block in train mode, the final norm, and
+        ``chunked_softmax_xent`` against the tied embedding or ``head``
+        (the reference's ``StackedLM.loss_fn``)."""
+        x, _ = self._blocks(params, batch, train=True)
         x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
         w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
         return L.chunked_softmax_xent(x, w, batch["labels"],
@@ -246,42 +430,45 @@ class StackedLM:
     @torch.no_grad()
     def hidden_states_fn(self, params, batch):
         """[L+1, B, S, D] hidden states of ``batch["tokens"]`` [B, S] in the
-        param dtype: the embedding, then each block's output, every block in
-        train mode (an MoE block drops at capacity) and no final norm, as
-        the reference's code computes them (its docstring says
-        ``[total_blocks, ...]``; its code prepends the embedding, which
-        ``core.privacy.lm_similarity_profile`` reads as entry 0). Runs
-        without autograd, so each layer's attention is the flash kernel's
-        forward on a CUDA tensor."""
+        param dtype: the embedding (with the frontend), then each block's
+        output over every segment, every block in train mode (an MoE block
+        drops at capacity) and no final norm, as the reference's code
+        computes them (its docstring says ``[total_blocks, ...]``; its code
+        prepends the embedding, which ``core.privacy.lm_similarity_profile``
+        reads as entry 0). Runs without autograd, so each layer's attention
+        is the flash kernel's forward on a CUDA tensor."""
         hidden = []
-        self._blocks(params, batch["tokens"], train=True, hidden=hidden)
+        self._blocks(params, {k: v for k, v in batch.items()
+                              if k != "positions"}, train=True, hidden=hidden)
         return torch.stack(hidden)
 
     # -- public: batched right-padded prefill --------------------------------
-    def _prefill(self, params, tokens: torch.Tensor):
-        """Every block over right-padded prompts ``tokens`` [B, S]. Returns
-        (x [B, S, d] after the final norm, {"blocks": (k, v)} with k, v
-        [L, B, KVH, S, D])."""
-        x, ks, vs = self._blocks(params, tokens)
+    def _prefill(self, params, batch):
+        """Every block over right-padded prompts ``batch["tokens"]`` [B, S].
+        Returns (x [B, S, d] after the final norm, {segment: its timeline
+        cache, each leaf stacked on a leading layer dim}): an attention
+        segment's ``(k, v)`` [L, B, KVH, S, D]."""
+        x, layers = self._blocks(params, batch)
         x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
-        return x, {SEGMENT: (torch.stack(ks), torch.stack(vs))}
+        return x, {name: _stack(ls) for name, ls in layers.items()}
 
     def prefill_fn(self, params, batch):
         """Whole-batch prefill into a fresh timeline cache: ``tokens``
-        [B, S], every position real. Returns (f32 logits [B, V] at the last
-        position, {"blocks": (k, v) [L, B, KVH, S, D], "len": S}); with
-        ``cache_quant`` the blocks hold ``(k_q8, v_q8, k_s, v_s)``, each
-        layer's scales ``max |kv| / 127 + 1e-6`` over the batch and the
-        sequence per (head, channel), the only call that sets them."""
+        [B, S], every position real (a VLM's ``patches`` and ``pos3`` with
+        them). Returns (f32 logits [B, V] at the last position, {segment:
+        its cache, "len": S}); with ``cache_quant`` each segment holds
+        ``(k_q8, v_q8, k_s, v_s)``, each layer's scales ``max |kv| / 127 +
+        1e-6`` over the batch and the sequence per (head, channel), the
+        only call that sets them."""
         tokens = batch["tokens"]
-        x, caches = self._prefill(params, tokens)
+        x, caches = self._prefill(params, batch)
         if self.cache_quant:
-            kk, vv = caches[SEGMENT]
-            k_s, v_s = (t.float().abs().amax(dim=(1, 3)) / 127.0 + 1e-6
-                        for t in (kk, vv))                  # [L, KVH, D]
-            caches[SEGMENT] = (quantize_kv(kk, k_s[:, None, :, None]),
-                               quantize_kv(vv, v_s[:, None, :, None]),
-                               k_s, v_s)
+            for name, (kk, vv) in list(caches.items()):
+                k_s, v_s = (t.float().abs().amax(dim=(1, 3)) / 127.0 + 1e-6
+                            for t in (kk, vv))              # [L, KVH, D]
+                caches[name] = (quantize_kv(kk, k_s[:, None, :, None]),
+                                quantize_kv(vv, v_s[:, None, :, None]),
+                                k_s, v_s)
         caches["len"] = torch.tensor(tokens.shape[1], dtype=torch.int32,
                                      device=tokens.device)
         return self.logits(params, x[:, -1]), caches
@@ -292,11 +479,11 @@ class StackedLM:
         int64 tensor of one element on the tokens' device, as the engine
         passes it so that a CUDA graph per bucket serves every length).
         Causal attention hides the padding; logits are read at
-        ``prompt_len - 1``. Returns (logits [B, V] f32, {"blocks": (k, v)})
+        ``prompt_len - 1``. Returns (logits [B, V] f32, {segment: (k, v)})
         with k, v [L, B, KVH, S_pad, D] — only the first ``prompt_len``
         positions are meaningful."""
         tokens = batch["tokens"]
-        x, caches = self._prefill(params, tokens)
+        x, caches = self._prefill(params, batch)
         last = _last_positions(batch["prompt_len"], tokens.device)
         return self.logits(params, x.index_select(1, last)[:, 0]), caches
 
@@ -310,7 +497,7 @@ class StackedLM:
         ``prefill_at_fn`` call at the same bucket."""
         tokens = batch["tokens"]
         K, S = tokens.shape
-        x, caches = self._prefill(params, tokens)
+        x, caches = self._prefill(params, batch)
         rows = torch.arange(K, device=tokens.device) * S
         last = rows + _last_positions(batch["prompt_lens"], tokens.device)
         return self.logits(params, x.flatten(0, 1).index_select(0, last)), \
@@ -320,7 +507,7 @@ class StackedLM:
     def prefill_chunk_fn(self, params, pools, batch):
         """One prefill chunk against the paged cache: ``tokens`` [1, C] is
         chunk [offset, offset + chunk_len) of a prompt, right-padded to the
-        engine's chunk size C; ``pools`` ``{"blocks": (k, v)}`` the
+        engine's chunk size C; ``pools`` {segment: (k, v)} the
         [L, N, KVH, Pg, D] pools already holding positions < ``offset``
         (earlier chunks, or adopted COW-shared pages); ``bt_row`` [1, MP]
         the slot's block table so far; ``pages``/``offs`` [C] write targets
@@ -333,27 +520,24 @@ class StackedLM:
         the chunk (``L.chunk_prefill_attention``) and then writes the
         chunk's KV into its layer of the pools, in place. Returns (f32
         logits [1, V] at the chunk's last valid token, the same pools)."""
-        cfg = self.cfg
         tokens = batch["tokens"]
         C = tokens.shape[1]
         offset = int(batch["offset"])
         positions = offset + torch.arange(C, device=tokens.device)[None, :]
-        k_pool, v_pool = pools[SEGMENT]
+        pos3 = batch.get("pos3")
         bt = batch["bt_row"]
         targets = L.chunk_write_targets(
             _as_index(batch["pages"], tokens.device),
-            _as_index(batch["offs"], tokens.device), k_pool.shape[1])
+            _as_index(batch["offs"], tokens.device),
+            pools[self.segments[0].name][0].shape[1])
         x = self.embed(params, tokens)
-        for l in range(cfg.num_layers):
-            p = self._layer(params, l)
-            h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-            q, k, v = L.attn_qkv(p["attn"], h, positions, cfg)
-            ctx = L.chunk_prefill_attention(q, k, v, k_pool[l], v_pool[l], bt,
-                                            offset)
-            L.paged_write_chunk(k_pool[l], v_pool[l], k[0], v[0], targets)
-            x = x + L.attn_out(p["attn"], ctx)
-            x = self._mlp(p, x)
-        x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        for seg in self.segments:
+            pool = pools[seg.name]
+            for l in range(seg.n):
+                x = seg.block.prefill_chunk(
+                    _at(params[seg.name], l), x, positions, pos3,
+                    _at(pool, l), bt, offset, targets)
+        x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
         last = _last_positions(batch["chunk_len"], tokens.device)
         return self.logits(params, x.index_select(1, last)[:, 0]), pools
 
@@ -362,55 +546,45 @@ class StackedLM:
                                cache_len: torch.Tensor,
                                start: Optional[torch.Tensor] = None,
                                lo: int = 0, hi: Optional[int] = None,
-                               rows: slice = slice(None)) -> torch.Tensor:
-        """Blocks ``[lo, hi)`` of one timeline decode step for batch rows
-        ``rows`` of the cache body ``(k, v)`` [L, B, KVH, S, D] (or
-        ``(k_q8, v_q8, k_s, v_s)``). Every row sits at the shared position
-        ``cache_len`` (an int tensor of one element on the device): each
-        block writes its new K/V at slot ``min(cache_len, S - 1)``, in
-        place (int8 against the layer's scales when quantized), and attends
-        over ``cache_len + 1`` positions from each row's ``start`` (the
-        rows' [b] slice, or None) through ``L.decode_attention``. ``x``
-        [b, 1, d] enters block ``lo``; returns what leaves block
-        ``hi - 1``. ``decode_fn`` runs every block on every row; a pipeline
-        stage runs its range on its microbatch's rows."""
-        cfg = self.cfg
-        hi = cfg.num_layers if hi is None else hi
+                               rows: slice = slice(None), pos3=None,
+                               seg: Optional[Segment] = None
+                               ) -> torch.Tensor:
+        """Blocks ``[lo, hi)`` of segment ``seg`` (default: the only one)
+        in one timeline decode step, for batch rows ``rows`` of the
+        segment's cache ``body`` (``(k, v)`` [L, B, KVH, S, D],
+        ``(k_q8, v_q8, k_s, v_s)``, or a Hymba layer's tree). Every row
+        sits at the shared position ``cache_len`` (an int tensor of one
+        element on the device; ``pos3`` [b, 1, 3] for M-RoPE): each block
+        writes its new K/V at the slot ``decode_slot`` names, in place, and
+        attends over ``cache_len + 1`` positions from each row's ``start``
+        (the rows' [b] slice, or None). ``x`` [b, 1, d] enters block
+        ``lo``; returns what leaves block ``hi - 1``. ``decode_fn`` runs
+        every segment on every row; a pipeline stage runs its range of a
+        single-segment model on its microbatch's rows."""
+        seg = seg or self._only_segment()
+        blk = seg.block
+        hi = seg.n if hi is None else hi
         positions = cache_len.reshape(1, 1)
-        S = body[0].shape[3]
-        slot = torch.clamp(cache_len.reshape(1).long(), max=S - 1)
+        slot = blk.decode_slot(cache_len, blk.kv_of(body)[0].shape[3])
         for l in range(lo, hi):
-            p = self._layer(params, l)
-            h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-            q, k, v = L.attn_qkv(p["attn"], h, positions, cfg)
-            k, v = k.transpose(1, 2), v.transpose(1, 2)     # [b, KVH, 1, D]
-            if self.cache_quant:
-                k_q, v_q, k_s, v_s = (t[l] for t in body)
-                sK, sV = k_s[:, None, :], v_s[:, None, :]   # [KVH, 1, D]
-                k_q, v_q = k_q[rows], v_q[rows]
-                k_q.index_copy_(2, slot, quantize_kv(k, sK))
-                v_q.index_copy_(2, slot, quantize_kv(v, sV))
-                kc, vc = dequantize_kv(k_q, sK), dequantize_kv(v_q, sV)
-            else:
-                kc, vc = body[0][l][rows], body[1][l][rows]
-                kc.index_copy_(2, slot, k)
-                vc.index_copy_(2, slot, v)
-            ctx = L.decode_attention(q, kc, vc, cache_len + 1, start=start)
-            x = x + L.attn_out(p["attn"], ctx)
-            x = self._mlp(p, x)
+            x = blk.decode(_at(params[seg.name], l), x, positions, pos3,
+                           _at(body, l), cache_len, slot, start, rows)
         return x
 
     def decode_fn(self, params, cache, batch):
         """One decode step over the timeline cache: ``batch["tokens"]``
-        [B, 1] at the shared position ``cache["len"]``, masked per row from
-        ``cache["start"]`` when the cache has one (the serving engine's
-        continuous batching). The body and ``len`` are updated in place
-        (``len`` advances by one) and the same cache dict is returned with
-        the f32 logits [B, V]."""
+        [B, 1] at the shared position ``cache["len"]`` (``batch["pos3"]``
+        [B, 1, 3] for M-RoPE), masked per row from ``cache["start"]`` when
+        the cache has one (the serving engine's continuous batching). Every
+        segment's body and ``len`` are updated in place (``len`` advances
+        by one) and the same cache dict is returned with the f32 logits
+        [B, V]."""
         n = cache["len"]
         x = self.embed(params, batch["tokens"])              # [B, 1, d]
-        x = self.decode_timeline_blocks(params, cache[SEGMENT], x, n,
-                                        cache.get("start"))
+        for seg in self.segments:
+            x = self.decode_timeline_blocks(
+                params, cache[seg.name], x, n, cache.get("start"),
+                pos3=batch.get("pos3"), seg=seg)
         logits = self.head(params, x)
         n.add_(1)
         return logits, cache
@@ -418,66 +592,57 @@ class StackedLM:
     # -- public: paged decode ------------------------------------------------
     def decode_blocks(self, params, pools, x: torch.Tensor,
                       block_tables: torch.Tensor, seq_lens: torch.Tensor,
-                      start: int = 0, end: Optional[int] = None
-                      ) -> torch.Tensor:
-        """Blocks ``[start, end)`` of one paged decode step for the rows of
-        ``block_tables`` [B, MP] / ``seq_lens`` [B] (positions are the
-        per-row ``seq_lens``, 0-based). ``x`` [B, 1, d] is the residual
-        stream entering block ``start``; returns the one leaving block
-        ``end - 1``. Each block writes its new K/V into its own layer of the
-        pools ``(k, v)`` [L, N, KVH, Pg, D] in place and attends over
-        ``seq_lens + 1`` tokens. ``decode_paged_fn`` runs every block; a
-        pipeline stage runs its own range on its microbatch's rows."""
-        cfg = self.cfg
-        end = cfg.num_layers if end is None else end
+                      start: int = 0, end: Optional[int] = None, pos3=None,
+                      seg: Optional[Segment] = None) -> torch.Tensor:
+        """Blocks ``[start, end)`` of segment ``seg`` (default: the only
+        one) in one paged decode step, for the rows of ``block_tables``
+        [B, MP] / ``seq_lens`` [B] (positions are the per-row ``seq_lens``,
+        0-based; ``pos3`` [B, 1, 3] for M-RoPE). ``x`` [B, 1, d] is the
+        residual stream entering block ``start``; returns the one leaving
+        block ``end - 1``. Each block writes its new K/V into its own layer
+        of the segment's pools ``(k, v)`` [L, N, KVH, Pg, D] in place and
+        attends over ``seq_lens + 1`` tokens. ``decode_paged_fn`` runs
+        every segment; a pipeline stage runs its own range on its
+        microbatch's rows."""
+        seg = seg or self._only_segment()
+        end = seg.n if end is None else end
         positions = seq_lens[:, None]
         sl_next = seq_lens + 1
-        k_pool, v_pool = pools
         for l in range(start, end):
-            p = self._layer(params, l)
-            h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-            q, k, v = L.attn_qkv(p["attn"], h, positions, cfg)
-            L.paged_write(k_pool[l], v_pool[l], k[:, 0], v[:, 0],
-                          block_tables, seq_lens)
-            ctx = L.paged_decode_attention(q, k_pool[l], v_pool[l],
-                                           block_tables, sl_next)
-            x = x + L.attn_out(p["attn"], ctx)
-            x = self._mlp(p, x)
+            x = seg.block.decode_paged(_at(params[seg.name], l), x,
+                                       positions, pos3, _at(pools, l),
+                                       block_tables, seq_lens, sl_next)
         return x
 
-    def head(self, params, x: torch.Tensor) -> torch.Tensor:
-        """Final norm and output head at the last position: x [B, S, d] ->
-        f32 logits [B, V]."""
-        x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
-        return self.logits(params, x[:, -1])
-
     def decode_paged_fn(self, params, cache, batch):
-        """One decode step over the paged cache. ``cache`` holds the pools
-        ``{"blocks": (k, v)}`` ``[L, N, KVH, Pg, D]``, ``block_tables``
+        """One decode step over the paged cache. ``cache`` holds each
+        segment's pools ``(k, v)`` ``[L, N, KVH, Pg, D]``, ``block_tables``
         [B, MP] and ``seq_lens`` [B] (int32). Positions are per-row and
-        0-based. The pools and ``seq_lens`` are updated in place (rows that
-        hold a sequence advance by one; idle rows stay 0) and the same
-        cache dict is returned with the f32 logits."""
+        0-based (``batch["pos3"]`` for M-RoPE). The pools and ``seq_lens``
+        are updated in place (rows that hold a sequence advance by one;
+        idle rows stay 0) and the same cache dict is returned with the f32
+        logits."""
         bt, sl = cache["block_tables"], cache["seq_lens"]
         x = self.embed(params, batch["tokens"])          # [B, 1, d]
-        x = self.decode_blocks(params, cache[SEGMENT], x, bt, sl)
+        for seg in self.segments:
+            x = self.decode_blocks(params, cache[seg.name], x, bt, sl,
+                                   pos3=batch.get("pos3"), seg=seg)
         logits = self.head(params, x)
         sl.copy_(torch.where(sl > 0, sl + 1, sl))
         return logits, cache
 
     # -- caches --------------------------------------------------------------
-    def _segment_cache(self, batch: int, max_seq: int, dtype):
-        """The timeline body's specs, each layer's stacked on a leading
-        layer dim."""
-        return tuple(((self.cfg.num_layers,) + shape, dt)
-                     for shape, dt in default_kv_cache_spec(
-                         self.cfg, batch, max_seq, self.cache_quant, dtype))
-
     def init_cache_specs(self, batch_size: int, max_seq: int,
                          dtype) -> Dict[str, Any]:
-        """Shapes and types of the timeline cache: the body and ``len``."""
-        return {SEGMENT: self._segment_cache(batch_size, max_seq, dtype),
-                "len": ((), torch.int32)}
+        """Shapes and types of the timeline cache: each segment's tree, its
+        leaves stacked on a leading layer dim, and ``len``."""
+        specs: Dict[str, Any] = {
+            seg.name: map_specs(lambda s, n=seg.n: ((n,) + s[0], s[1]),
+                                seg.cache_spec_fn(batch_size, max_seq,
+                                                  dtype))
+            for seg in self.segments}
+        specs["len"] = ((), torch.int32)
+        return specs
 
     def init_paged_cache_specs(self, num_slots: int, num_pages: int,
                                page_size: int, pages_per_slot: int,
@@ -486,9 +651,69 @@ class StackedLM:
         (stacked layer dim), one block table [num_slots, pages_per_slot]
         and per-slot seq_lens. Page 0 is the reserved null page."""
         c = self.cfg
-        pool = ((c.num_layers, num_pages, c.num_kv_heads, page_size,
-                 c.head_dim), dtype)
-        return {SEGMENT: (pool, pool),
-                "block_tables": ((num_slots, pages_per_slot), torch.int32),
-                "seq_lens": ((num_slots,), torch.int32)}
+        specs: Dict[str, Any] = {}
+        for seg in self.segments:
+            pool = ((seg.n, num_pages, c.num_kv_heads, page_size,
+                     c.head_dim), dtype)
+            specs[seg.name] = (pool, pool)
+        specs["block_tables"] = ((num_slots, pages_per_slot), torch.int32)
+        specs["seq_lens"] = ((num_slots,), torch.int32)
+        return specs
 
+
+# ---------------------------------------------------------------------------
+# Dense family
+# ---------------------------------------------------------------------------
+def _attn_segment(cfg: ArchConfig, name: str, n: int, cache_quant: bool,
+                  d_ff: Optional[int] = None,
+                  ffn: Optional[Callable] = None,
+                  specs_fn: Optional[Callable] = None) -> Segment:
+    """A segment of attention blocks (dense SwiGLU, or ``ffn``)."""
+    def cache_fn(batch, max_seq, dtype):
+        return default_kv_cache_spec(cfg, batch, max_seq, cache_quant, dtype)
+
+    return Segment(name, n, specs_fn or (lambda: dense_block_specs(cfg,
+                                                                   d_ff)),
+                   AttnBlock(cfg, cache_quant, ffn), cache_fn)
+
+
+def build_dense(cfg: ArchConfig, remat: bool = True,
+                cache_quant: bool = False) -> StackedLM:
+    return StackedLM(cfg, [_attn_segment(cfg, SEGMENT, cfg.num_layers,
+                                         cache_quant)],
+                     remat, cache_quant,
+                     paged_ok=not (cache_quant or cfg.sliding_window))
+
+
+# ---------------------------------------------------------------------------
+# VLM backbone: dense blocks + patch-embedding fusion + M-RoPE
+# ---------------------------------------------------------------------------
+class VlmLM(StackedLM):
+    """The reference's ``VlmLM``: dense blocks with M-RoPE (``pos3``
+    [B, S, 3] reaches every block's ``attn_qkv``), and precomputed patch
+    embeddings ``patches`` [B, P, d] (the modality frontend is a stub in
+    the reference too), projected by ``patch_proj`` [d, d] and added to
+    the first P positions, in ``loss_fn``, ``hidden_states_fn`` and every
+    prefill. Decode has no patches."""
+
+    def param_specs(self) -> Dict[str, Any]:
+        specs = super().param_specs()
+        specs["patch_proj"] = ParamSpec((self.cfg.d_model, self.cfg.d_model))
+        return specs
+
+    def _fuse_frontend(self, params, x, batch):
+        patches = batch.get("patches")
+        if patches is None:
+            return x
+        p = torch.einsum("bpd,de->bpe", patches.to(x.dtype),
+                         params["patch_proj"])
+        P = p.shape[1]
+        return torch.cat([x[:, :P] + p, x[:, P:]], dim=1)
+
+
+def build_vlm(cfg: ArchConfig, remat: bool = True,
+              cache_quant: bool = False) -> VlmLM:
+    return VlmLM(cfg, [_attn_segment(cfg, SEGMENT, cfg.num_layers,
+                                     cache_quant)],
+                 remat, cache_quant,
+                 paged_ok=not (cache_quant or cfg.sliding_window))

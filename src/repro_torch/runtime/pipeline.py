@@ -56,8 +56,10 @@ from repro_torch.models.transformer import SEGMENT
 
 
 def pipeline_applicable(api: ModelAPI) -> bool:
-    """The port's dense stack is one homogeneous block segment."""
-    return hasattr(api.model, "decode_blocks")
+    """The reference's test: a model of one homogeneous segment (not
+    moonshot's dense stem ahead of its MoE blocks)."""
+    model = api.model
+    return hasattr(model, "segments") and len(model.segments) == 1
 
 
 @dataclasses.dataclass
@@ -133,18 +135,31 @@ class PipelinedDecoder:
         return cache
 
     # -- one stage on one microbatch (the tick body and the probe) ----------
+    def _pos3(self, pos: torch.Tensor, rows: int):
+        """Text-only M-RoPE positions (p, p, p) [rows, 1, 3] at ``pos`` (a
+        per-row [rows] or one shared position), as the reference's stage
+        run builds them; None for RoPE."""
+        if self.api.cfg.pos_type != "mrope":
+            return None
+        return pos.reshape(-1, 1, 1).expand(rows, 1, 3)
+
     def _stage_run(self, params, pools, s: int, x: torch.Tensor,
                    bt: torch.Tensor, sl: torch.Tensor) -> torch.Tensor:
         start, end = self.ranges[s]
         return self.api.model.decode_blocks(params, pools, x, bt, sl,
-                                            start, end)
+                                            start, end,
+                                            pos3=self._pos3(sl, x.shape[0]))
 
     def _timeline_stage_run(self, params, body, s: int, x: torch.Tensor,
                             cache_len: torch.Tensor, start=None,
                             rows: slice = slice(None)) -> torch.Tensor:
+        """Stage s's layers on the timeline rows ``rows``, carrying every
+        layer's cache tree (a Hymba layer's rolling KV, conv window and SSM
+        state) in place."""
         lo, hi = self.ranges[s]
         return self.api.model.decode_timeline_blocks(
-            params, body, x, cache_len, start, lo, hi, rows)
+            params, body, x, cache_len, start, lo, hi, rows,
+            pos3=self._pos3(cache_len, x.shape[0]))
 
     def build_stage_probe(self, paged: bool = True) -> Callable:
         """A single-stage runner for per-stage wall-time telemetry, which

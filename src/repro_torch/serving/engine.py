@@ -130,6 +130,15 @@ from repro_torch.serving.scheduler import (QUEUED, RUNNING, PagePool,
                                            Request, SlotScheduler,
                                            TransferManifest)
 from repro_torch.serving.telemetry import StageTelemetry
+from repro_torch.tree import leaves
+
+
+def pipelined_backend_available() -> bool:
+    """Whether ``backend="pipelined"`` can run here. The reference's
+    needs JAX's shard_map APIs; the port's pipelined backends run their
+    stages in sequence on one device with nothing optional behind them,
+    so on one card (or the CPU) the answer is always True."""
+    return True
 
 
 @dataclasses.dataclass
@@ -279,9 +288,10 @@ class LocalDecodeBackend(_Backend):
 
     def reset_state(self) -> None:
         """A fresh engine's timeline, in place: the body zeroed (the int8
-        cache's scales too, as the reference's ``init_cache`` makes them),
-        ``len`` and every ``start`` at ``prompt_capacity``."""
-        for t in self.cache[SEGMENT]:
+        cache's scales and Hymba's conv and SSM state too, as the
+        reference's ``init_cache`` makes them), ``len`` and every ``start``
+        at ``prompt_capacity``."""
+        for t in leaves(self.cache[SEGMENT]):
             t.zero_()
         self.cache["len"].fill_(self.cfg.prompt_capacity)
         self.cache["start"].fill_(self.cfg.prompt_capacity)
@@ -292,19 +302,21 @@ class LocalDecodeBackend(_Backend):
                                   {"tokens": toks})[0]
 
     def insert_slot(self, slot: int, private_cache: Dict[str, Any]) -> None:
-        """Copy a one-row private cache (``body`` [L, 1, ...], ``start``
-        [1]) into row ``slot``."""
+        """Copy a one-row private cache (every leaf of the body [L, 1, ...],
+        ``start`` [1]) into row ``slot``."""
         self._insert(private_cache[SEGMENT], private_cache["start"],
                      self._idx([slot]))
 
     def _insert_fn(self, body, start: torch.Tensor,
                    slot: torch.Tensor) -> None:
         """The reference's ``dynamic_update_slice`` along the batch dim of
-        every leaf: a leaf's update lands at ``min(slot, rows - n)`` for its
-        n rows, so the int8 cache's scales ([L, KVH, D], no batch dim: the
-        update spans the whole dim) are overwritten by the private cache's,
-        as the reference's insert does."""
-        for g, u in zip(self.cache[SEGMENT], body):
+        every leaf of the body tree: a leaf's update lands at ``min(slot,
+        rows - n)`` for its n rows, so the int8 cache's scales ([L, KVH,
+        D], no batch dim: the update spans the whole dim) are overwritten
+        by the private cache's, as the reference's insert does, and
+        Hymba's conv and SSM state (no time axis) are copied whole into the
+        slot's row: a reused slot starts from its own prefill's state."""
+        for g, u in zip(leaves(self.cache[SEGMENT]), leaves(body)):
             n = u.shape[1]
             idx = torch.clamp(slot, max=g.shape[1] - n) + torch.arange(
                 n, device=g.device)
@@ -720,8 +732,17 @@ class ServingEngine:
         if cfg.faults is not None and not isinstance(cfg.faults, FaultConfig):
             raise TypeError(f"EngineConfig.faults must be None or a "
                             f"FaultConfig, not {type(cfg.faults).__name__}")
-        assert pipeline_applicable(api), \
-            f"{api.cfg.name}: serving needs a single homogeneous segment"
+        if not pipeline_applicable(api):
+            raise ValueError(f"{api.cfg.name}: serving needs a single "
+                             f"homogeneous segment")
+        if api.cfg.pos_type == "mrope":
+            # the reference's engine builds no pos3 and fails at the first
+            # admission (attn_qkv: "mrope needs 3-component positions");
+            # the port refuses at construction
+            raise ValueError(f"{api.cfg.name}: serving a VLM (M-RoPE) needs "
+                             f"3-component positions, which the engine "
+                             f"does not build; run it through the model API "
+                             f"or runtime.pipeline.PipelinedDecoder")
         if cfg.kv_layout not in ("paged", "timeline"):
             raise ValueError(f"kv_layout {cfg.kv_layout!r}: 'paged' or "
                              f"'timeline'")
@@ -1215,7 +1236,7 @@ class ServingEngine:
                 cache["start"] = torch.zeros(1, dtype=torch.int32,
                                              device=self.device)
             self._token_caches[S] = cache
-        for t in cache[SEGMENT]:
+        for t in leaves(cache[SEGMENT]):
             t.zero_()
         cache["len"].fill_(start or 0)
         if "start" in cache:

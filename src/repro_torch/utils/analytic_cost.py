@@ -19,8 +19,10 @@ Formulas (bf16 compute, f32 optimizer):
   decode HBM          = active params (2B) + full KV cache read + write slice
 
 The port's copy of ``repro/utils/analytic_cost.py``, on
-``repro_torch.configs``. Its SSM, HYBRID and ENCDEC branches are kept as
-the reference's; no registered port config reaches them yet.
+``repro_torch.configs``. The HYBRID branch (hymba-1.5b: SSM state and
+conv window beside the rolling KV) reads ``ssm_state`` and
+``conv_kernel``; the SSM and ENCDEC branches are kept as the reference's,
+and no registered port config reaches them yet (xLSTM, Whisper).
 """
 from __future__ import annotations
 

@@ -1,5 +1,8 @@
-"""Carry a parameter tree, an optimizer state, a timeline KV cache or a
-``TinyCNN``'s kernels across from the JAX package.
+"""Carry a parameter tree (any family's: the segments ``stem`` and
+``blocks``, a VLM's ``patch_proj``, Hymba's ``ssm`` leaves with the
+depthwise ``conv_w`` in the reference's ``[k, di]`` layout), an optimizer
+state, a timeline cache or a ``TinyCNN``'s kernels across from the JAX
+package.
 
 The port keeps the reference's parameter tree and layouts, so conversion
 is a leaf-by-leaf copy. JAX bf16 leaves come out of ``np.asarray`` as
@@ -55,19 +58,21 @@ def opt_state_from_jax(state: Any, device: Optional[Union[str, torch.device]]
 
 def cache_from_jax(cache: Any, device: Optional[Union[str, torch.device]]
                    = None) -> Any:
-    """The JAX package's timeline KV cache (as numpy: ``{"blocks": (k, v)``
-    or ``(k_q8, v_q8, k_s, v_s)``, ``"len"``, optional ``"start"}``) -> the
-    port's cache dict of tensors on ``device`` (default ``cuda``), bits
-    unchanged: ``len`` a 0-d int32 tensor, ``start`` [B] int32, the body a
-    tuple, so ``decode_fn`` can run from one state in both packages."""
+    """The JAX package's timeline cache (as numpy: each segment's body,
+    ``(k, v)``, ``(k_q8, v_q8, k_s, v_s)`` or Hymba's ``((k, v), (conv,
+    ssm))``, beside ``"len"`` and an optional ``"start"``) -> the port's
+    cache dict of tensors on ``device`` (default ``cuda``), bits
+    unchanged: ``len`` a 0-d int32 tensor, ``start`` [B] int32, each body
+    a tree of tuples, so ``decode_fn`` can run from one state in both
+    packages."""
     dev = resolve_device(device)
-    out = {}
-    for k, v in cache.items():
-        if isinstance(v, (tuple, list)):
-            out[k] = tuple(tensor_from_numpy(a).to(dev) for a in v)
-        else:
-            out[k] = tensor_from_numpy(v).to(dev)
-    return out
+
+    def conv(x):
+        if isinstance(x, (tuple, list)):
+            return tuple(conv(a) for a in x)
+        return tensor_from_numpy(x).to(dev)
+
+    return {k: conv(v) for k, v in cache.items()}
 
 
 def cnn_from_jax(kernels: Any, device: Optional[Union[str, torch.device]]

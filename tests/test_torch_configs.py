@@ -3,8 +3,13 @@
 llama3.2-3b, glm4-9b and command-r-35b are the reference's dense configs
 that ``StackedLM`` serves (RoPE, full attention, no bias), qwen2-moe-a2.7b
 its MoE config (attention biases, 60 experts top-4 plus 4 shared; reduced:
-8 experts top-2 plus 1 shared). Their fields, and those of their
-``reduced`` forms, must equal the reference's. On the same parameters
+8 experts top-2 plus 1 shared); qwen2-vl-7b (VLM), moonshot-v1-16b-a3b
+(MoE with a dense stem) and hymba-1.5b (hybrid) are held in their own
+files (``test_torch_vlm.py``, ``test_torch_segments.py``,
+``test_torch_hymba.py``) and here by their fields, parameter counts,
+analytic costs and the reference's per-family smoke. Every registered
+config's fields, and those of its ``reduced`` form, must equal the
+reference's. On the same parameters
 (drawn by the JAX package, attention biases drawn nonzero there, and
 carried across with ``params_from_jax``, untied heads included), each
 reduced model's prefill logits agree within atol = rtol = 1e-4 (f32 sums
@@ -16,7 +21,8 @@ heads, so two variants restore the full configs' grouping: rep 3
 with an untied head (glm4-9b: 32 query heads). The reference's input-shape
 cells (``SHAPES``, ``get_shape``, ``shape_applicable``) and its analytic
 FLOP and byte model (``utils/analytic_cost.estimate``) must give the
-reference's values exactly for every registered config and shape.
+reference's values exactly for every registered config and shape
+(hymba-1.5b, sub-quadratic, also at ``long_500k``).
 """
 import dataclasses
 
@@ -36,6 +42,7 @@ from test_torch_serving import _workload
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 NEW = ["llama3.2-3b", "glm4-9b", "command-r-35b", "qwen2-moe-a2.7b"]
+FAMILY_NEW = ["qwen2-vl-7b", "moonshot-v1-16b-a3b", "hymba-1.5b"]
 # name -> (arch, fields replaced on both packages' reduced config)
 VARIANTS = {
     "llama3.2-3b": ("llama3.2-3b", {}),
@@ -81,7 +88,14 @@ def test_config_and_reduced_equal_reference(name):
 
 
 def test_registry_holds_the_dense_configs():
-    assert sorted(ARCHS) == sorted(["llama3.2-1b"] + NEW)
+    """The dense and MoE configs of earlier slices, and this slice's
+    qwen2-vl-7b (VLM), moonshot-v1-16b-a3b (MoE with a dense stem) and
+    hymba-1.5b (hybrid): every reference config but xlstm-125m and
+    whisper-small (ROADMAP items 9c, 9e)."""
+    from repro.configs import list_archs as jax_list_archs
+    assert sorted(ARCHS) == sorted(["llama3.2-1b"] + NEW + FAMILY_NEW)
+    assert sorted(set(jax_list_archs()) - set(ARCHS)) == \
+        ["whisper-small", "xlstm-125m"]
     assert (get_arch("llama3.2-3b").head_dim,
             get_arch("llama3.2-3b").q_per_kv) == (128, 3)
     assert get_arch("glm4-9b").q_per_kv == 16
@@ -89,8 +103,8 @@ def test_registry_holds_the_dense_configs():
     moe = get_arch("qwen2-moe-a2.7b")
     assert (moe.is_moe, moe.use_bias, moe.q_per_kv, moe.head_dim) == \
         (True, True, 1, 128)
-    assert not any(c.is_moe or c.use_bias for n, c in ARCHS.items()
-                   if n != "qwen2-moe-a2.7b")
+    assert {n for n, c in ARCHS.items() if c.is_moe or c.use_bias} == \
+        {"qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "qwen2-vl-7b"}
 
 
 def _models(variant):
@@ -154,7 +168,7 @@ def test_shapes_and_families_equal_reference():
         C.get_shape("train_8k")
     for fam in ("DENSE", "MOE", "SSM", "HYBRID", "ENCDEC", "VLM", "CNN"):
         assert getattr(C, fam) == getattr(JC, fam)
-    assert C.base.FAMILIES == (C.DENSE, C.MOE)
+    assert C.base.FAMILIES == (C.DENSE, C.MOE, C.VLM, C.HYBRID)
 
 
 @pytest.mark.parametrize("name", sorted(ARCHS))
@@ -164,7 +178,8 @@ def test_analytic_cost_equals_reference(name):
     from repro_torch import configs as C
     from repro_torch.utils import analytic_cost as A
     tcfg, jcfg = get_arch(name), jax_get_arch(name)
-    assert tcfg.is_subquadratic == jcfg.is_subquadratic is False
+    assert tcfg.is_subquadratic == jcfg.is_subquadratic == \
+        (name == "hymba-1.5b")
     ran = 0
     for sname, shape in C.SHAPES.items():
         ok = C.shape_applicable(tcfg, shape)
@@ -178,7 +193,8 @@ def test_analytic_cost_equals_reference(name):
                 (name, sname, kw)
             assert got.useful_ratio == want.useful_ratio
         ran += 1
-    assert ran == 3                     # long_500k needs sub-quadratic
+    # long_500k needs sub-quadratic decode: Hymba (SSM state + window)
+    assert ran == (4 if tcfg.is_subquadratic else 3)
 
 
 def test_analytic_cost_reflects_quant():
@@ -196,3 +212,39 @@ def test_analytic_cost_reflects_quant():
         want = jestimate(jax_get_arch("command-r-35b"),
                          JShape("d", 32768, 128, "decode"), cache_bytes=cb)
         assert dataclasses.astuple(got) == dataclasses.astuple(want)
+
+
+def test_list_archs_and_has_decoder_equal_reference():
+    from repro import configs as JC
+    from repro_torch import configs as C
+    assert C.list_archs() == sorted(C.ARCHS)
+    assert set(C.list_archs()) <= set(JC.list_archs())
+    for name in C.list_archs():
+        assert get_arch(name).has_decoder == jax_get_arch(name).has_decoder \
+            is True
+
+
+@pytest.mark.parametrize("name", FAMILY_NEW)
+def test_models_smoke_on_port(name):
+    """``tests/test_models_smoke.py`` on the port for the three families of
+    this slice: a train loss of ~ln(vocab) at init, finite prefill and
+    decode logits from ``make_inputs``, ``len`` advanced by one (the decode
+    writes into the prefill's full cache at its last slot, as the
+    reference's smoke does)."""
+    from repro_torch.configs import ShapeConfig
+    api = build_model(reduced(get_arch(name)), device="cpu", max_seq=32)
+    gen = torch.Generator().manual_seed(0)
+    params = api.init(gen)
+    loss = api.loss_fn(params, api.make_inputs(ShapeConfig("t", 32, 2,
+                                                           "train"), gen))
+    assert loss.shape == () and 1.0 < float(loss) < 15.0
+    logits, cache = api.prefill_fn(params, api.make_inputs(
+        ShapeConfig("p", 32, 2, "prefill"), gen))
+    assert tuple(logits.shape) == (2, api.cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    n = int(cache["len"])
+    logits2, cache = api.decode_fn(params, cache, api.make_inputs(
+        ShapeConfig("d", 32, 2, "decode"), gen))
+    assert tuple(logits2.shape) == (2, api.cfg.vocab_size)
+    assert torch.isfinite(logits2).all()
+    assert int(cache["len"]) == n + 1

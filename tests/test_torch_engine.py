@@ -117,3 +117,20 @@ def test_gqa_streams_match_reference_under_swap():
     finally:
         L.DEFAULT_DTYPE = old
     assert st["swap_ins"] > 0 and st["cow_hits"] > 0
+
+
+def test_serving_exports_equal_reference():
+    """``repro_torch.serving`` exports every name the reference's
+    ``serving/__init__.py`` does, less its XLA compile monitor (``AotFn``,
+    ``CompileMonitor``, ``MONITOR``; the port's ``GraphFn`` captures CUDA
+    graphs instead), and ``pipelined_backend_available`` answers as the
+    reference's does where JAX has its shard_map APIs: True (the port's
+    pipelined backends need nothing optional)."""
+    import repro.serving as JS
+    import repro_torch.serving as TS
+    xla = {"AotFn", "CompileMonitor", "MONITOR"}
+    assert set(JS.__all__) - xla <= set(TS.__all__)
+    for name in TS.__all__:
+        assert hasattr(TS, name), name
+    assert TS.pipelined_backend_available() is True
+    assert JS.pipelined_backend_available() is True

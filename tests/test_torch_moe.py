@@ -220,17 +220,23 @@ def test_parameter_counts_equal_reference(name):
 
 def test_moonshot_refused_by_name():
     """moonshot-v1-16b-a3b has a dense stem block ahead of its MoE blocks:
-    two segments, which the reference's engine refuses to serve. The port
-    neither registers nor builds it."""
+    two segments. The port registers and builds it (``stem`` + ``blocks``,
+    as the reference's ``build_moe``), ``pipeline_applicable`` is False as
+    in the reference, and the engine, and so ``serve``, refuse it by name,
+    as the reference's engine refuses to serve it."""
+    from repro_torch.runtime.pipeline import pipeline_applicable
+    from repro_torch.serving import EngineConfig, ServingEngine
     name = "moonshot-v1-16b-a3b"
     jcfg = jax_get_arch(name)
-    cfg = ArchConfig(**{f.name: getattr(jcfg, f.name)
-                        for f in dataclasses.fields(ArchConfig)})
+    cfg = get_arch(name)
+    assert all(getattr(cfg, f.name) == getattr(jcfg, f.name)
+               for f in dataclasses.fields(ArchConfig))
     assert cfg.total_params() == jcfg.total_params()
-    with pytest.raises(NotImplementedError,
-                       match=f"{name}: a dense stem segment"):
-        build_model(cfg, device="cpu")
-    with pytest.raises(KeyError, match=name):
-        get_arch(name)
-    with pytest.raises(SystemExit):
-        serve.build_parser().parse_args(["--arch", name])
+    api = build_model(reduced(cfg), device="cpu", dtype=torch.float32)
+    assert [s.name for s in api.model.segments] == ["stem", "blocks"]
+    assert not pipeline_applicable(api)
+    with pytest.raises(ValueError, match=f"{name}-reduced: serving needs "
+                                         f"a single homogeneous segment"):
+        ServingEngine(api, EngineConfig(), device="cpu")
+    with pytest.raises(ValueError, match="single homogeneous segment"):
+        serve.main(["--arch", name, "--reduced", "--device", "cpu"])

@@ -94,9 +94,17 @@ def test_profiles_from_arch_equal(J):
             want = J.profiles_from_arch(jcfg, seq_len=seq_len)
             assert [dataclasses.astuple(p) for p in got] == \
                 [dataclasses.astuple(p) for p in want]
+    # the reference's fallback (tests/test_serving.py): the flag without
+    # an artifact gives the constants; an artifact still raises by name
+    for cfg, jcfg in _archs(J):
+        got = profiles_from_arch(cfg, 1, calibrate_from_hlo=True)
+        want = J.profiles_from_arch(jcfg, 1, calibrate_from_hlo=True)
+        assert [dataclasses.astuple(p) for p in got] == \
+            [dataclasses.astuple(p) for p in want] == \
+            [dataclasses.astuple(p) for p in profiles_from_arch(cfg, 1)]
     with pytest.raises(NotImplementedError, match="hlo_calibration"):
         profiles_from_arch(get_arch("llama3.2-1b"), 1,
-                           calibrate_from_hlo=True)
+                           calibrate_from_hlo=True, compiled=object())
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3, 4])
