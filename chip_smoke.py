@@ -203,7 +203,31 @@ Phases (each prints its own lines; any failure exits non-zero):
      at full width (52.9 GiB of bf16 weights drawn on the card; a dense
      stem segment, then 47 MoE blocks): prefill, prefill S+1 against
      decode one, 8 greedy steps on each layout held against each other,
-     the engine's refusal by name, peak memory.
+     the engine's refusal by name, peak memory; (the kernel checks also
+     hold flash at whisper-small's three shapes: its encoder, B=2 over
+     1500 frames, and its cross-attention, 224 queries over 1500 keys,
+     both non-causal, and its causal decoder self-attention at 224);
+ 17. the last two families: (a) xlstm-125m, first reduced in f32, card
+     against CPU (every path, the engine's streams local and pipelined,
+     sealed and unsealed), then at full width (6 sLSTM/mLSTM pairs,
+     recurrent state, no attention): prefill of 2 x 1024 tokens, prefill
+     S+1 against decode one (bf16 printed; f32 on the reference's init
+     printed at S = 8 to 1024 beside an embedding nudge's effect, since
+     that init amplifies rounding to order one; f32 on the weights
+     rescaled to their contraction's fan-in held within 1e-3), block 0's
+     sLSTM scan against its steps and mLSTM chunks against steps held
+     tightly, the sealed pipelined step against the plain int8 round trip
+     at its boundary, the bf16 state of ``cache_quant`` against the f32
+     state over 16 steps (top-1 agreement printed), then phase 5's first
+     8 requests on the timeline: local eager, in CUDA graphs, pipelined
+     over 2 stages in graphs unsealed (all three streams equal) and
+     sealed (seal = unseal = one a step);
+     (b) whisper-small, first reduced in f32, card against CPU, then at
+     full width (12 + 12 blocks) in bf16 and f32: encode, prefill of
+     2 x 224 tokens over 1500 frames (36 flash launches), 16 decode steps
+     on a grown cache, prefill S+1 against decode one (printed; f32 held
+     within 1e-3 on the rescaled weights), decoder block 0 alone held
+     tightly; prints encoder, prefill and decode-step ms.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
@@ -632,7 +656,12 @@ FLASH_CASES = ([(B, S, S, H, H, D, int(c), w, 0) for B, H, S, D, w, c in (
     # (qwen2-moe-a2.7b, 16 heads over 16)
     + [(1, 128, 128, 24, 8, 128, 1, 0, 0), (1, 160, 160, 24, 8, 128, 1, 0, 0),
        (1, 128, 128, 32, 2, 128, 1, 0, 0),
-       (1, 128, 128, 16, 16, 128, 1, 0, 0)])
+       (1, 128, 128, 16, 16, 128, 1, 0, 0)]
+    # phase 17's whisper-small: its encoder and cross-attention over 1500
+    # frames (non-causal, a 28-key tail) and its causal decoder
+    + [(2, 1500, 1500, 12, 12, 64, 0, 0, 0),
+       (2, 224, 1500, 12, 12, 64, 0, 0, 0),
+       (2, 224, 224, 12, 12, 64, 1, 0, 0)])
 # phases 11's and 12's one-shot prefill shapes, timed beside FLASH_PATH's
 FLASH_D128 = {"one-shot d128": (1, 128, 128, 24, 8, 128, 1, 0, 0),
               "one-shot d128 mha": (1, 128, 128, 16, 16, 128, 1, 0, 0)}
@@ -755,28 +784,32 @@ def time_flash_case(torch, ops, ref, F, name, case):
     """ms of the prefill kernel, its plain version and SDPA at one shape
     in bf16, eagerly and in a graph, with the bound."""
     B, Sq, Sk, H, KVH, D, causal, window, off = case
+    causal = bool(causal)
     q, k, v = flash_inputs(torch, case, torch.bfloat16, seed=5)
 
     def kernel():
-        return ops.flash_attention(q, k, v, window=window, q_offset=off)
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=off)
 
     ms = time_ms(kernel)
     in_graph = graph_ms(kernel)
-    plain = time_ms(lambda: flash_plain(ref, q, k, v, window=window,
-                                        q_offset=off), 20)
+    plain = time_ms(lambda: flash_plain(ref, q, k, v, causal=causal,
+                                        window=window, q_offset=off), 20)
     # library yardstick: SDPA with heads ahead and KV heads repeated
     # beforehand (not timed); is_causal aligns top-left, so the offset and
-    # windowed cases take an explicit mask
+    # windowed cases take an explicit mask; non-causal takes none
     qh = q.transpose(1, 2).contiguous()
     kh = k.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
     vh = v.repeat_interleave(H // KVH, 2).transpose(1, 2).contiguous()
-    if off == 0 and Sq == Sk and not window:
+    if not causal and not window:
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    elif off == 0 and Sq == Sk and not window:
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=True))
     else:
         kp = torch.arange(Sk, device="cuda")[None, :]
         qp = off + torch.arange(Sq, device="cuda")[:, None]
-        mask = kp <= qp
+        mask = kp <= qp if causal else torch.ones_like(kp <= qp)
         if window:
             mask &= kp > qp - window
         lib = time_ms(lambda: F.scaled_dot_product_attention(
@@ -786,7 +819,7 @@ def time_flash_case(torch, ops, ref, F, name, case):
     flops = 4.0 * B * H * D * visible_keys(torch, case)
     b_ms, b_by = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
     log(f"time flash_attention {name} bf16 B={B} Sq={Sq} Sk={Sk} H={H} "
-        f"KVH={KVH} D={D} q_offset={off}"
+        f"KVH={KVH} D={D} q_offset={off}{'' if causal else ' non-causal'}"
         f"{f' window={window}' if window else ''}: kernel "
         f"{ms * 1e3:.2f} us, in a graph {in_graph * 1e3:.2f} us, plain "
         f"{plain * 1e3:.1f} us, sdpa {lib * 1e3:.1f} us, bound "
@@ -2560,7 +2593,7 @@ def serve_timeline(torch, ops, smi):
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve
     from repro_torch.models.api import build_model
-    from repro_torch.models.transformer import SEGMENT
+    SEGMENT = "blocks"                  # llama's served segment
     t_phase = time.perf_counter()
     api, params = serve.build_params(serve.build_parser().parse_args(
         TIMELINE_BF16))
@@ -2772,8 +2805,8 @@ def _to_f32(tree):
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    if isinstance(tree, (dict, tuple)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from _leaves(v)
     else:
         yield tree
@@ -3143,7 +3176,14 @@ FLASH_FAMILIES = {
     # 16b: hymba-1.5b, 25 heads over 5, its 2048-token window biting
     "hymba d64 rep5 window": (1, 4096, 4096, 25, 5, 64, 1, 2048, 0),
     # 16c: moonshot-v1-16b-a3b, 16 heads over 16 behind the dense stem
-    "moonshot d128 rep1": (2, 256, 256, 16, 16, 128, 1, 0, 0)}
+    "moonshot d128 rep1": (2, 256, 256, 16, 16, 128, 1, 0, 0),
+    # 17b: whisper-small, 12 heads over 12: the encoder over 1500 frames
+    # and the cross-attention of 224 decoder tokens over them, both
+    # non-causal (a 28-key tail past 23 tiles of 64), and the decoder's
+    # causal self-attention
+    "whisper encoder": (2, 1500, 1500, 12, 12, 64, 0, 0, 0),
+    "whisper cross": (2, 224, 1500, 12, 12, 64, 0, 0, 0),
+    "whisper decoder": (2, 224, 224, 12, 12, 64, 1, 0, 0)}
 # paged attention at 16a's decode: 2 rows of 1152..1167 tokens over tables
 # of 73 pages of 16 (their own pages), 28 heads over 4 KV heads (rep 7)
 PAGED_VLM = dict(B=2, KVH=4, rep=7, D=128, Pg=16, lens=(1160, 1167), MP=73)
@@ -3221,10 +3261,12 @@ def check_family_kernels(torch, ops, ref, F):
     hymba-1.5b's (rep 5, window 2048 of 4096: the windowed kernel and the
     full-causal one each match their plain version, and the two plain
     versions differ beyond that tolerance on the queries past the window,
-    so the window bites) and moonshot's (rep 1); paged at qwen2-vl's
-    decode (rep 7, 73-page tables, each row on its own pages). A repeat
-    call gives the same bits. These launches are checks, outside every
-    counted run. Returns the timings."""
+    so the window bites), moonshot's (rep 1) and phase 17's whisper-small
+    (its encoder over 1500 frames and its cross-attention of 224 queries
+    over them, both non-causal, and its decoder's causal self-attention);
+    paged at qwen2-vl's decode (rep 7, 73-page tables, each row on its own
+    pages). A repeat call gives the same bits. These launches are checks,
+    outside every counted run. Returns the timings."""
     tol = dict(atol=1e-3, rtol=1e-2)
     out = {}
     for name, case in FLASH_FAMILIES.items():
@@ -3257,8 +3299,9 @@ def check_family_kernels(torch, ops, ref, F):
             note = (f"; the window bites: queries {window}.. differ from "
                     f"full causal by up to {bite:.4f}, earlier ones agree")
             del full, full_want
-        log(f"check flash_attention bf16 {name} (B={case[0]}, S={case[1]}, "
-            f"H={case[3]}, KVH={case[4]}, D={case[5]}, window={window}): "
+        log(f"check flash_attention bf16 {name} (B={case[0]}, Sq={case[1]}, "
+            f"Sk={case[2]}, H={case[3]}, KVH={case[4]}, D={case[5]}, "
+            f"causal={causal}, window={window}): "
             f"max_abs_err={err:.3e} ({tol}), repeat bit-equal{note}")
         del q, k, v, got, again, want
         torch.cuda.empty_cache()
@@ -3389,13 +3432,13 @@ def pipelined_paths(torch, ops, api, params, caches, first, tl_tokens,
     boundaries (the seal and unseal kernels on the card). Returns the two
     runs' logits and the sealed run's seal and unseal launches."""
     from repro_torch.runtime.pipeline import PipelinedDecoder
-    from repro_torch.models.transformer import SEGMENT
     res = {}
     for seal in (False, True):
         dec = PipelinedDecoder(api, num_stages=2, num_microbatches=2,
                                seal_boundary=seal)
         step = dec.build(paged=False, per_slot_start=False)
-        body = (_grow(torch, caches[SEGMENT], steps), caches["len"].clone())
+        body = (_grow(torch, caches[api.model.served_segment.name], steps),
+                caches["len"].clone())
         before = dict(ops.LAUNCHES)
         tok, logits = first, []
         for i in range(steps):
@@ -3595,7 +3638,7 @@ def family_hymba(torch, ops, smi):
     from repro_torch.configs import reduced
     from repro_torch.launch import serve
     from repro_torch.models.api import build_model
-    from repro_torch.models.transformer import SEGMENT
+    SEGMENT = "blocks"                  # Hymba's served segment
     t_phase = time.perf_counter()
     cfg = _family_cfg("hymba-1.5b")
     rcfg = reduced(cfg)
@@ -3870,6 +3913,626 @@ def family_moonshot(torch, ops, smi):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the last two families at full width: xlstm-125m (sLSTM/mLSTM
+# pairs, recurrent state, served on the timeline) and whisper-small
+# (encoder-decoder through the model API, its three attentions on the flash
+# kernel). Sizes are names, as phase 16's, for a CPU rehearsal.
+XLSTM_B, XLSTM_S, XLSTM_STEPS, XLSTM_SHORT = 2, 1024, 16, 16
+# The reference's initializer takes a weight's leading axis as its fan-in.
+# For a stacked block weight that axis is the block count, so every block
+# projection draws at std 1/sqrt(6) (xLSTM's pairs) or 1/sqrt(12)
+# (Whisper's blocks): 6 to 16 times the usual 1/sqrt(fan-in). At full
+# width the whole model then amplifies f32 rounding until two correct
+# paths part by about what an embedding scaled by 1 + 1e-6 does to the
+# logits, so no tolerance there tells a fault from rounding. 17a prints
+# that model-level reading at each length of XLSTM_SWEEP, beside the
+# nudge's. What phase 17 asserts in f32:
+# * the reduced configs, card against CPU, within F32_LOGIT_TOL (Whisper's
+#   on the contraction-scaled weights below, its reference init printed);
+# * one block at full width on the reference's weights: the sLSTM's scan
+#   against its steps over XLSTM_SHORT tokens and Whisper's decoder block
+#   0, prefill S+1 against prefill S then decode one, within BLOCK_TOL;
+#   the mLSTM's chunks against its steps over XLSTM_S tokens, C and n
+#   within MLSTM_STATE_TOL;
+# * a sealed pipelined step against the unpipelined step with the plain
+#   int8 round trip (``seal_ref``, ``unseal_ref``) at the same boundary,
+#   within F32_LOGIT_TOL;
+# * the whole model at full width on the same weights with each stacked
+#   one rescaled to std 1/sqrt(the count its product contracts)
+#   (``_contraction_scaled``): prefill S then decode one against prefill
+#   S+1 within F32_FULL_TOL.
+XLSTM_SWEEP = (8, 16, 64, 256, 1024)
+# one block on the reference's weights: within this share of the largest
+# |value|, the CPU tests' bound for Whisper's prefill (PREFILL_REL in
+# tests/test_torch_whisper.py): its scores reach 150 under that init, so
+# an ulp of a score moves its softmax weight by about 1e-5
+BLOCK_TOL = 2e-4
+# the mLSTM's matrix memory and normalizer, chunks of 256 against single
+# steps: within this share of their largest |value| (sums in another order)
+MLSTM_STATE_TOL = 1e-4
+# phase 5's first 8 requests (up to 128 tokens, 32 new, 8 slots; about
+# 700 per-token prefill steps) on the timeline; telemetry off so that no
+# re-plan moves a pipelined run's stage boundaries
+XLSTM_SERVE = ["--arch", "xlstm-125m", "--device", "cuda", "--slots", "8",
+               "--requests", "8", "--prompt-len", "128", "--max-new", "32",
+               "--shared-system-prompt", "0.75",
+               "--telemetry-interval", "1000"]
+XLSTM_REDUCED = ["--arch", "xlstm-125m", "--reduced", "--device", "cpu",
+                 "--slots", "4", "--requests", "6", "--prompt-len", "24",
+                 "--max-new", "8", "--f32", "--telemetry-interval", "1000"]
+# the reduced configs' prompts, card against CPU
+SMALL_B, SMALL_S = 2, 20
+WHISPER_B, WHISPER_S, WHISPER_STEPS, WHISPER_MAX_SEQ = 2, 224, 16, 448
+
+
+def _at0(tree):
+    """Layer 0 of a tree of stacked block weights."""
+    if isinstance(tree, dict):
+        return {k: _at0(v) for k, v in tree.items()}
+    return tree[0]
+
+
+def _contraction_scaled(params, stacks):
+    """``params`` with every stacked block weight under the keys
+    ``stacks`` (rank 3 and up: [n blocks, ...]) rescaled from the
+    reference's std 1/sqrt(n) to 1/sqrt(k), k the count its product
+    contracts: all but the last axis for an output projection ``wo``, the
+    input axis for the sLSTM's recurrent ``r`` [4, H, dh, dh], the first
+    axis after the stack for the others. Zero leaves stay zero."""
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if tree.dim() < 3:
+            return tree
+        shape = tree.shape[1:]
+        k = math.prod(shape[:-1]) if name == "wo" else \
+            shape[-2] if name == "r" else shape[0]
+        return tree * math.sqrt(tree.shape[0] / k)
+    return {k: walk(v, k) if k in stacks else v for k, v in params.items()}
+
+
+def _draw_zeros(torch, tree, names, g, std):
+    """``tree`` with its all-zero leaves whose key is in ``names`` (the
+    gates and biases the initializer zeroes) drawn N(0, std^2) from
+    ``g``."""
+    if isinstance(tree, dict):
+        return {k: (torch.randn(v.shape, generator=g) * std
+                    if k in names and not isinstance(v, dict)
+                    and not v.any() else _draw_zeros(torch, v, names, g, std))
+                for k, v in tree.items()}
+    return tree
+
+
+def pipe_step_mirror(torch, api, params, cache, tok, key=0xC0FFEE):
+    """One decode step of ``tok`` [B, 1] from copies of a timeline cache
+    (a prefill's): the runtime ``PipelinedDecoder`` over 2 stages and one
+    microbatch, unsealed then sealed (the seal kernels at the boundary),
+    and the same step unpipelined with the boundary activation through
+    the plain int8 round trip (``seal_ref`` then ``unseal_ref``, in the
+    model's type). Returns (unsealed, sealed, mirrored) logits."""
+    from repro_torch.enclave import sealing
+    from repro_torch.kernels import ref
+    from repro_torch.runtime.pipeline import PipelinedDecoder
+    model, name = api.model, api.model.served_segment.name
+    out = []
+    for seal in (False, True):
+        dec = PipelinedDecoder(api, num_stages=2, num_microbatches=1,
+                               seal_boundary=seal)
+        step = dec.build(paged=False, per_slot_start=False)
+        out.append(step(params, (_clone(cache[name]), cache["len"].clone()),
+                        {"tokens": tok}, key)[0])
+    body, n, k = _clone(cache[name]), cache["len"].clone(), dec.ranges[0][1]
+    h = model.decode_timeline_blocks(params, body, model.embed(params, tok),
+                                     n, None, 0, k)
+    ctr = sealing.leaf_counters(2, api.device)[1:2]   # tick 0 seals at 1
+    flat = h.reshape(-1, api.cfg.d_model)
+    h = ref.unseal_ref(*ref.seal_ref(flat, key, ctr), key, ctr,
+                       out_dtype=api.dtype).reshape(h.shape)
+    h = model.decode_timeline_blocks(params, body, h, n, None, k)
+    out.append(model.head(params, h))
+    return out
+
+
+def xlstm_small_run(torch, api, params, toks):
+    """17a's paths on one reduced model: prefill S, decode one from its
+    cache, prefill S+1, S+1 decode steps from ``init_cache`` (the engine's
+    m = 0 start), and ``pipe_step_mirror`` from the prefill's state."""
+    S = toks.shape[1] - 1
+    logits, cache = api.prefill_fn(params, {"tokens": toks[:, :S]})
+    pipe = pipe_step_mirror(torch, api, params, cache, toks[:, S:])
+    dec, _ = api.decode_fn(params, _clone(cache), {"tokens": toks[:, S:]})
+    longer, _ = api.prefill_fn(params, {"tokens": toks})
+    c0 = api.init_cache(toks.shape[0])
+    for t in range(S + 1):
+        zero, c0 = api.decode_fn(params, c0, {"tokens": toks[:, t:t + 1]})
+    return dict(logits=logits, dec=dec, longer=longer, zero=zero,
+                state=list(_leaves(cache["pairs"])), pipe=pipe)
+
+
+def xlstm_reduced(torch, ops, cfg):
+    """17a on the reduced config in f32 (2 pairs; the mLSTM gates and
+    sLSTM bias the initializer zeroes drawn N(0, 0.2^2), as the CPU tests
+    draw them), card against CPU: every path of ``xlstm_small_run``
+    within F32_LOGIT_TOL of the largest |value|; on the card, decode one
+    against prefill S+1 and the unsealed pipelined step against it within
+    F32_LOGIT_TOL, the sealed step against its mirror within
+    F32_LOGIT_TOL; then ``ServingEngine`` on the timeline, local and
+    pipelined over 2 stages, unsealed and sealed: streams equal card
+    against CPU."""
+    from repro_torch.configs import reduced
+    from repro_torch.models.api import build_model
+    rcfg = reduced(cfg)
+    g = torch.Generator().manual_seed(0)
+    rparams = build_model(rcfg, device="cpu", dtype=torch.float32).init(g)
+    rparams = _draw_zeros(torch, rparams, ("wi", "wf", "b"), g, 0.2)
+    toks = torch.randint(0, rcfg.vocab_size, (SMALL_B, SMALL_S + 1),
+                         generator=g)
+    small = {}
+    for device in ("cpu", DEV):
+        api = build_model(rcfg, device=device, dtype=torch.float32,
+                          max_seq=64)
+        small[device] = xlstm_small_run(torch, api,
+                                        _to(torch, rparams, device),
+                                        toks.to(device))
+    c, d = small["cpu"], small[DEV]
+    worst = 0.0
+    for x, y in ([(d[k], c[k]) for k in ("logits", "dec", "longer", "zero")]
+                 + list(zip(d["state"], c["state"]))
+                 + list(zip(d["pipe"], c["pipe"]))):
+        worst = max(worst, _rel(x.cpu(), y))
+    assert worst < F32_LOGIT_TOL, worst
+    cons, plain = _rel(d["dec"], d["longer"]), _rel(d["pipe"][0], d["dec"])
+    mirror = _rel(d["pipe"][1], d["pipe"][2])
+    assert max(cons, plain, mirror) < F32_LOGIT_TOL, (cons, plain, mirror)
+    sealed = _rel(d["pipe"][1], d["pipe"][0])
+    log(f"family phase 17a reduced xlstm-125m ({rcfg.num_layers // 2} "
+        f"pairs, d_model {rcfg.d_model}, f32, S={SMALL_S}): card = CPU, "
+        f"largest difference {worst:.2e} of the largest |value| over "
+        f"prefill, decode one, prefill S+1, decode from init_cache (m = "
+        f"0), the state and the pipelined steps (< {F32_LOGIT_TOL}); on "
+        f"the card: prefill S + decode one against prefill S+1 {cons:.2e}, "
+        f"pipelined (2 stages) unsealed against unpipelined {plain:.2e}, "
+        f"sealed against the plain int8 round trip at its boundary "
+        f"{mirror:.2e} (each < {F32_LOGIT_TOL}), sealed against unsealed "
+        f"{sealed:.2e}")
+    del small
+    for seal in ([], ["--no-seal"]):
+        for backend in ("local", "pipelined"):
+            if backend == "local" and not seal:
+                continue
+            argv = XLSTM_REDUCED + ["--backend", backend] + seal
+            got = {}
+            for device in ("cpu", DEV):
+                api = build_model(rcfg, device=device, dtype=torch.float32,
+                                  max_seq=64)
+                got[device] = _engine_streams(
+                    torch, api, _to(torch, rparams, device),
+                    [a if a != "cpu" else device for a in argv],
+                    f"17a reduced {backend}")
+            assert got["cpu"][0] == got[DEV][0], \
+                f"17a reduced {backend} {seal}: streams differ card vs CPU"
+            log(f"family phase 17a reduced xlstm-125m ({backend}"
+                f"{', unsealed' if seal else ', sealed'}, f32): "
+                f"{len(got['cpu'][0])} streams equal card vs CPU, stage "
+                f"blocks {got[DEV][1]['stage_blocks']}")
+    _free(torch)
+
+
+def family_xlstm(torch, ops, smi):
+    """17a. xlstm-125m: first ``xlstm_reduced`` (f32, card against CPU),
+    then at full width in bf16 (6 (sLSTM, mLSTM) pairs, d 768, 4 heads x
+    192, untied head): ``prefill_fn`` at B=2, S=1024 (mLSTM chunks of
+    256), prefill S then decode one against prefill S+1 (S+1 = 1025 runs
+    chunks of 1) in bf16, printed; in f32 on the same weights upcast, the
+    same at each S of XLSTM_SWEEP beside an embedding nudge's effect,
+    printed; block 0 alone in f32: the sLSTM over XLSTM_SHORT tokens, scan
+    against steps (output and state within BLOCK_TOL; over 1024 printed),
+    the mLSTM over 1024, chunks against steps (C and n within
+    MLSTM_STATE_TOL); the model with ``_contraction_scaled`` weights in
+    f32 at S = 16 and 1024 (within F32_FULL_TOL); the bf16 recurrent state
+    of ``cache_quant`` against the f32 state over 16 decode steps fed the
+    f32 run's greedy tokens (top-1 agreement printed); the sealed
+    pipelined step against its mirror (``pipe_step_mirror``) in bf16 and
+    f32; then phase 5's first 8 requests through ``ServingEngine`` on the
+    timeline: local eager, local in CUDA graphs (equal streams, steps and
+    launches), pipelined over 2 stages with one microbatch in CUDA graphs,
+    unsealed (= local) and sealed (seal = unseal = one a decode step).
+    Returns the runs' launch counts."""
+    from repro_torch.launch import serve
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.api import build_model
+    from repro_torch.tree import leaves
+    t_phase = time.perf_counter()
+    xlstm_reduced(torch, ops, _family_cfg("xlstm-125m"))
+    t_reduced = time.perf_counter() - t_phase
+    argv = [a if a != "cuda" else DEV for a in XLSTM_SERVE] \
+        + (["--reduced"] if FAMILY_ARCH else [])
+    t0 = time.perf_counter()
+    api, params = serve.build_params(serve.build_parser().parse_args(argv))
+    _sync(torch)
+    cfg = api.cfg
+    seg = api.model.served_segment
+    n_params = sum(t.numel() for t in _leaves(params))
+    init_s = time.perf_counter() - t0
+    _free(torch)
+    B, S = XLSTM_B, XLSTM_S
+    H, dh = cfg.num_heads, cfg.head_dim
+    g = torch.Generator(device=DEV).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                         device=DEV)
+    ops.reset_launch_counts()
+    _sync(torch)
+    t0 = time.perf_counter()
+    logits, cache = api.prefill_fn(params, {"tokens": toks[:, :S]})
+    _sync(torch)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    assert seg.name == "pairs" and seg.n == cfg.num_layers // 2
+    s_state, m_state = cache["pairs"]
+    assert tuple(m_state[0].shape) == (seg.n, B, H, dh, dh)
+    assert tuple(m_state[2].shape) == (seg.n, B, H)
+    assert all(t.dtype == torch.float32 for t in s_state + m_state)
+    assert torch.isfinite(logits).all()
+    peak = _mem(torch)
+    pipe16 = pipe_step_mirror(torch, api, params, cache, toks[:, S:])
+    dec, _ = api.decode_fn(params, cache, {"tokens": toks[:, S:]})
+    longer, _ = api.prefill_fn(params, {"tokens": toks})
+    cons16 = _rel(dec, longer)
+    del cache
+    # f32 on the same weights upcast: the reference init's model-level
+    # readings, printed
+    api32 = build_model(cfg, device=DEV, dtype=torch.float32)
+    p32 = _to_f32(params)
+    nudged = dict(p32, embed=p32["embed"] * (1 + 1e-6))
+    sweep = []
+    for n in XLSTM_SWEEP:
+        _, cache = api32.prefill_fn(p32, {"tokens": toks[:, :n]})
+        dec, _ = api32.decode_fn(p32, cache, {"tokens": toks[:, n:n + 1]})
+        longer, _ = api32.prefill_fn(p32, {"tokens": toks[:, :n + 1]})
+        moved, _ = api32.prefill_fn(nudged, {"tokens": toks[:, :n + 1]})
+        sweep.append(f"S={n} {_rel(dec, longer):.2e} (nudge "
+                     f"{_rel(moved, longer):.2e})")
+    del nudged, moved
+    _, cache = api32.prefill_fn(p32, {"tokens": toks[:, :S]})
+    pipe32 = pipe_step_mirror(torch, api32, p32, cache, toks[:, S:])
+    mirror32 = _rel(pipe32[1], pipe32[2])
+    assert mirror32 < F32_LOGIT_TOL, mirror32
+    # block 0 alone in f32 on seeded normal inputs: the sLSTM's scan
+    # against its steps (GEMMs of S rows and of one), the mLSTM's chunks
+    # of 256 against single steps
+    x = torch.randn(B, S, cfg.d_model, generator=g, device=DEV)
+    blocks = []
+    for kind, fn, n in (("slstm", X.slstm_apply, XLSTM_SHORT),
+                        ("slstm", X.slstm_apply, S),
+                        ("mlstm", X.mlstm_apply, S)):
+        pb = _at0(p32["pairs"][kind])
+        full, st_full = fn(cfg, pb, x[:, :n], mode="train")
+        st, outs = None, []
+        for t in range(n):
+            o, st = fn(cfg, pb, x[:, t:t + 1], mode="decode", state=st)
+            outs.append(o)
+        out_err = _rel(torch.cat(outs, 1), full)
+        errs = [_rel(a, b) for a, b in zip(st, st_full)]
+        if kind == "mlstm":
+            assert max(errs[:2]) < MLSTM_STATE_TOL, errs
+        elif n == XLSTM_SHORT:
+            assert max(errs + [out_err]) < BLOCK_TOL, (out_err, errs)
+        blocks.append(f"{kind} over {n}: output {out_err:.2e}, state "
+                      + ", ".join(f"{e:.2e}" for e in errs))
+    del x, full, outs
+    # the model on the contraction-scaled weights
+    pc = _contraction_scaled(p32, ("pairs",))
+    nudged = dict(pc, embed=pc["embed"] * (1 + 1e-6))
+    scaled = []
+    for n in (XLSTM_SHORT, S):
+        _, cache = api32.prefill_fn(pc, {"tokens": toks[:, :n]})
+        dec, _ = api32.decode_fn(pc, cache, {"tokens": toks[:, n:n + 1]})
+        longer, _ = api32.prefill_fn(pc, {"tokens": toks[:, :n + 1]})
+        moved, _ = api32.prefill_fn(nudged, {"tokens": toks[:, :n + 1]})
+        cons = _rel(dec, longer)
+        assert cons < F32_FULL_TOL, (n, cons)
+        scaled.append(f"S={n} {cons:.2e} (nudge {_rel(moved, longer):.2e})")
+    del api32, p32, pc, nudged, cache, moved
+    # the bf16 state against the f32 state, fed the same tokens
+    apiq = build_model(cfg, device=DEV, dtype=api.dtype, cache_quant=True)
+    _, cache = api.prefill_fn(params, {"tokens": toks[:, :S]})
+    qcache = apiq.init_cache(B)
+    for dst, src in zip(leaves(qcache["pairs"]), leaves(cache["pairs"])):
+        dst.copy_(src)                  # each leaf keeps its own dtype
+    qcache["len"].fill_(S)
+    assert qcache["pairs"][1][0].dtype == torch.bfloat16 and \
+        qcache["pairs"][1][2].dtype == torch.float32
+    tok, agree, worst = toks[:, S], 0, 0.0
+    for _ in range(XLSTM_STEPS):
+        lf, cache = api.decode_fn(params, cache, {"tokens": tok[:, None]})
+        lq, qcache = apiq.decode_fn(params, qcache, {"tokens": tok[:, None]})
+        top = lf.argmax(-1)
+        agree += int((lq.argmax(-1) == top).sum())
+        worst = max(worst, _rel(lq, lf))
+        tok = top
+    _sync(torch)
+    launches = dict(ops.LAUNCHES)
+    assert launches["flash_attention"] == 0, launches   # no attention
+    del cache, qcache, apiq
+    _free(torch)
+    log(f"family phase 17a xlstm-125m full width: {seg.n} pairs "
+        f"({cfg.num_layers} blocks), d_model {cfg.d_model}, {H} heads x "
+        f"{dh}, vocab {cfg.vocab_size}, {n_params / 1e6:.1f} M params bf16, "
+        f"init {init_s:.1f} s; prefill B={B} S={S} {prefill_ms:.1f} ms "
+        f"(first call), {peak}; prefill S + decode one against prefill "
+        f"S+1: S={S} {cons16:.2e} in bf16; in f32, the reference's init "
+        f"(printed): " + ", ".join(sweep) + "; block 0 in f32, whole "
+        f"sequence against one step at a time: " + "; ".join(blocks)
+        + f" (sLSTM over {XLSTM_SHORT} < {BLOCK_TOL}, mLSTM C, n < "
+        f"{MLSTM_STATE_TOL}); contraction-scaled weights in f32: "
+        + ", ".join(scaled) + f" (< {F32_FULL_TOL}); pipelined step from "
+        f"prefill {S} (2 stages): sealed against the plain int8 round trip "
+        f"{_rel(pipe16[1], pipe16[2]):.2e} bf16, {mirror32:.2e} f32 (< "
+        f"{F32_LOGIT_TOL}), sealed against unsealed "
+        f"{_rel(pipe16[1], pipe16[0]):.2e} bf16, "
+        f"{_rel(pipe32[1], pipe32[0]):.2e} f32; the bf16 state (cache_quant) "
+        f"against the f32 state over {XLSTM_STEPS} steps fed the same "
+        f"tokens: top-1 agreement {agree}/{B * XLSTM_STEPS}, largest logit "
+        f"difference {worst:.2e} of the largest |logit|; launches "
+        f"{launches}; reduced checks {t_reduced:.1f} s [{smi}]")
+    del pipe16, pipe32
+    runs = [{"launches": launches}]
+    local = serve_layout(torch, ops, api, params,
+                         argv + ["--backend", "local"], "17a local, eager")
+    graphs = serve_layout(torch, ops, api, params,
+                          argv + ["--backend", "local", "--warmup"],
+                          "17a local, CUDA graphs")
+    assert graphs["streams"] == local["streams"], \
+        "17a: the local streams differ under CUDA graphs"
+    assert graphs["steps"] == local["steps"] and \
+        graphs["launches"] == local["launches"]
+    pipe = ["--backend", "pipelined", "--stages", "2", "--microbatches", "1",
+            "--warmup"]
+    plain = serve_layout(torch, ops, api, params, argv + pipe + ["--no-seal"],
+                         "17a pipelined, unsealed, CUDA graphs")
+    assert plain["streams"] == local["streams"], \
+        "17a: unsealed pipelined streams differ from local"
+    assert sum(plain["st"]["stage_blocks"]) == seg.n, plain["st"]
+    sealed = serve_layout(torch, ops, api, params, argv + pipe,
+                          "17a pipelined, sealed, CUDA graphs")
+    assert sealed["launches"]["seal"] == sealed["launches"]["unseal"] \
+        == sealed["steps"] > 0, (sealed["launches"], sealed["steps"])
+    part = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+            for a, b in zip(sealed["streams"], local["streams"])]
+    log(f"family phase 17a serving: local eager = local graphs = "
+        f"pipelined unsealed ({len(local['streams'])} streams, stage "
+        f"blocks {plain['st']['stage_blocks']} of {seg.n} pairs); sealed "
+        f"run's first parting from local per request {part}; seal / unseal "
+        f"launches {sealed['launches']['seal']} / "
+        f"{sealed['launches']['unseal']} over {sealed['steps']} steps; ms "
+        f"per decode step eager {local['step_ms']:.2f}, graphs "
+        f"{graphs['step_ms']:.2f}, pipelined in graphs unsealed "
+        f"{plain['step_ms']:.2f}, sealed {sealed['step_ms']:.2f}; tok/s "
+        f"eager {local['st']['tok_per_s']:.1f}, graphs "
+        f"{graphs['st']['tok_per_s']:.1f}; admission p50 / p99 ms eager "
+        f"{local['st'].get('admission_p50_ms', 0):.1f} / "
+        f"{local['st'].get('admission_p99_ms', 0):.1f}, graphs "
+        f"{graphs['st'].get('admission_p50_ms', 0):.1f} / "
+        f"{graphs['st'].get('admission_p99_ms', 0):.1f}; ms per prefill "
+        f"token eager {local['token_ms']:.3f}, graphs "
+        f"{graphs['token_ms']:.3f} [{smi}]")
+    log(f"family phase 17a: {time.perf_counter() - t_phase:.1f} s")
+    runs += [local, graphs, plain, sealed]
+    del api, params
+    _free(torch)
+    return runs
+
+
+def whisper_small_run(torch, api, params, toks, frames):
+    """17b's paths on one reduced model: encode, prefill S (logits and
+    both caches), decode one on the cache grown by 8 positions and on the
+    prefill's own cache (the clamp), prefill S+1."""
+    S = toks.shape[1] - 1
+    mem = api.model.encode(params, frames)
+    logits, cache = api.prefill_fn(params, {"tokens": toks[:, :S],
+                                            "frames": frames})
+    caches = list(_leaves({"kv": cache["kv"], "xkv": cache["xkv"]}))
+    grown = dict(_clone(cache), kv=_grow(torch, cache["kv"], 8))
+    dec, _ = api.decode_fn(params, grown, {"tokens": toks[:, S:]})
+    clamped, _ = api.decode_fn(params, _clone(cache), {"tokens": toks[:, S:]})
+    longer, _ = api.prefill_fn(params, {"tokens": toks, "frames": frames})
+    return dict(mem=mem, logits=logits, dec=dec, clamped=clamped,
+                longer=longer, caches=caches)
+
+
+def whisper_reduced(torch, cfg):
+    """17b on the reduced config in f32 (2 encoder and 4 decoder blocks,
+    24 frames; the MLP biases drawn N(0, 0.1^2), as the CPU tests draw
+    them), card against CPU, on the reference's init (printed: its
+    stacked weights draw at std 1/sqrt(2) and 1/sqrt(4)) and on the same
+    weights ``_contraction_scaled``: there ``whisper_small_run``'s
+    outputs within F32_LOGIT_TOL of their largest |value|, and on the
+    card decode on the grown cache against prefill S+1 within
+    F32_LOGIT_TOL."""
+    from repro_torch.configs import reduced
+    from repro_torch.models.api import build_model
+    rcfg = reduced(cfg)
+    g = torch.Generator().manual_seed(0)
+    rparams = build_model(rcfg, device="cpu", dtype=torch.float32,
+                          max_seq=64).init(g)
+    rparams = _draw_zeros(torch, rparams, ("bi", "bo"), g, 0.1)
+    toks = torch.randint(0, rcfg.vocab_size, (SMALL_B, SMALL_S + 1),
+                         generator=g)
+    frames = torch.randn(SMALL_B, rcfg.encoder_seq, rcfg.d_model,
+                         generator=g)
+    notes = []
+    for label, p in (("reference init", rparams),
+                     ("contraction-scaled",
+                      _contraction_scaled(rparams, ("enc", "dec")))):
+        small = {}
+        for device in ("cpu", DEV):
+            api = build_model(rcfg, device=device, dtype=torch.float32,
+                              max_seq=64)
+            small[device] = whisper_small_run(
+                torch, api, _to(torch, p, device), toks.to(device),
+                frames.to(device))
+        c, d = small["cpu"], small[DEV]
+        worst = 0.0
+        for x, y in ([(d[k], c[k]) for k in ("mem", "logits", "dec",
+                                             "clamped", "longer")]
+                     + list(zip(d["caches"], c["caches"]))):
+            worst = max(worst, _rel(x.cpu(), y))
+        cons = _rel(d["dec"], d["longer"])
+        if label != "reference init":
+            assert worst < F32_LOGIT_TOL and cons < F32_LOGIT_TOL, \
+                (worst, cons)
+        notes.append(f"{label}: card = CPU within {worst:.2e} of the "
+                     f"largest |value|, on the card prefill S + decode one "
+                     f"on the grown cache against prefill S+1 {cons:.2e}, "
+                     f"on the prefill's own cache (the clamp) "
+                     f"{_rel(d['clamped'], d['longer']):.2e}")
+        del small
+    log(f"family phase 17b reduced whisper-small ({rcfg.encoder_layers} + "
+        f"{rcfg.num_layers} blocks, d_model {rcfg.d_model}, "
+        f"{rcfg.encoder_seq} frames, f32, S={SMALL_S}), over encode, "
+        f"prefill logits and caches, decode on the grown cache and on the "
+        f"prefill's own, prefill S+1: " + "; ".join(notes)
+        + f" (contraction-scaled < {F32_LOGIT_TOL})")
+    del rparams
+    _free(torch)
+
+
+def whisper_block(torch, model, p, mem, g, S):
+    """Decoder block 0 in f32 on seeded normal inputs [B, S+1, d] against
+    ``mem``: prefill S then decode one on the self-attention cache grown
+    by 8 positions, against prefill S+1 (its last position, and the first
+    S). Returns the two relative differences."""
+    B = mem.shape[0]
+    x = torch.randn(B, S + 1, mem.shape[2], generator=g, device=mem.device)
+    pos = torch.arange(S + 1, device=mem.device)[None, :]
+    want = model._dec_block(p, x, pos, mem, mode="train")
+    part, ((k, v), xkv) = model._dec_block(p, x[:, :S], pos[:, :S], mem,
+                                           mode="prefill")
+    kv = _grow(torch, (k, v), 8)
+    xkv = tuple(t.contiguous() for t in xkv)
+    n = torch.tensor(S, dtype=torch.int32, device=mem.device)
+    got = model._dec_block(p, x[:, S:], pos[:, S:], None, mode="decode",
+                           cache=kv, cache_len=n, xkv=xkv)
+    return _rel(got[:, 0], want[:, S]), _rel(part, want[:, :S])
+
+
+def family_whisper(torch, ops, smi):
+    """17b. whisper-small: first ``whisper_reduced`` (f32, card against
+    CPU), then at full width (12 encoder + 12 decoder blocks, d 768, 12
+    heads x 64, vocab 51,865, 1500 frames, ``max_seq`` 448), bf16 then the
+    same weights in f32: ``encode`` of B=2 seeded frame embeddings alone
+    (12 flash launches, non-causal over 1500 frames), then ``prefill_fn``
+    of 224 tokens (36 flash launches: the encoder's, the decoder's causal
+    self-attention and its non-causal cross-attention of 224 queries over
+    1500 keys), 16 greedy decode steps on the cache grown by 16 positions
+    (decode writes at ``min(len, S - 1)``, so the prefill's own cache,
+    exactly S long, would overwrite the prompt's last position), the first
+    against prefill S+1, printed beside an embedding nudge's effect in
+    f32. In f32 also: decoder block 0 alone (``whisper_block``, within
+    BLOCK_TOL) and the model with ``_contraction_scaled`` weights, prefill
+    S then decode one on the grown cache against prefill S+1 within
+    F32_FULL_TOL. Prints encoder ms, prefill ms and ms per decode step.
+    Returns the runs' launch counts."""
+    from repro_torch.models.api import build_model
+    t_phase = time.perf_counter()
+    cfg = _family_cfg("whisper-small")
+    whisper_reduced(torch, cfg)
+    t_reduced = time.perf_counter() - t_phase
+    api = build_model(cfg, device=DEV, dtype=torch.bfloat16,
+                      max_seq=WHISPER_MAX_SEQ)
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=DEV).manual_seed(0))
+    _sync(torch)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    B, S, L = WHISPER_B, WHISPER_S, cfg.num_layers
+    g = torch.Generator(device=DEV).manual_seed(2)
+    frames = torch.randn(B, cfg.encoder_seq, cfg.d_model, generator=g,
+                         device=DEV)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g,
+                         device=DEV)
+    runs, notes = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        a = api if dtype == torch.bfloat16 else build_model(
+            cfg, device=DEV, dtype=dtype, max_seq=WHISPER_MAX_SEQ)
+        p = params if dtype == torch.bfloat16 else _to_f32(params)
+        batch = {"tokens": toks[:, :S], "frames": frames}
+        a.prefill_fn(p, batch)                     # first call, untimed
+        ops.reset_launch_counts()
+        _sync(torch)
+        t0 = time.perf_counter()
+        mem = a.model.encode(p, frames)
+        _sync(torch)
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        assert tuple(mem.shape) == (B, cfg.encoder_seq, cfg.d_model)
+        assert torch.isfinite(mem).all()
+        assert ops.LAUNCHES["flash_attention"] == cfg.encoder_layers
+        t0 = time.perf_counter()
+        logits, cache = a.prefill_fn(p, batch)
+        _sync(torch)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        n_flash = ops.LAUNCHES["flash_attention"] - cfg.encoder_layers
+        assert n_flash == cfg.encoder_layers + 2 * L, n_flash
+        assert torch.isfinite(logits).all()
+        assert [tuple(t.shape) for t in cache["xkv"]] == \
+            [(L, B, cfg.num_kv_heads, cfg.encoder_seq, cfg.head_dim)] * 2
+        longer, _ = a.prefill_fn(p, {"tokens": toks, "frames": frames})
+        grown = dict(cache, kv=_grow(torch, cache["kv"], WHISPER_STEPS))
+        tok, step_s = toks[:, S], 0.0
+        for i in range(WHISPER_STEPS):
+            _sync(torch)
+            t0 = time.perf_counter()
+            lg, grown = a.decode_fn(p, grown, {"tokens": tok[:, None]})
+            _sync(torch)
+            step_s += time.perf_counter() - t0
+            assert torch.isfinite(lg).all()
+            if i == 0:
+                cons = _rel(lg, longer)
+            tok = lg.argmax(-1)
+        assert int(grown["len"]) == S + WHISPER_STEPS
+        _sync(torch)
+        launches = dict(ops.LAUNCHES)
+        runs.append({"launches": launches})
+        more = ""
+        if dtype == torch.float32:
+            moved, _ = a.prefill_fn(dict(p, embed=p["embed"] * (1 + 1e-6)),
+                                    {"tokens": toks, "frames": frames})
+            blk = whisper_block(torch, a.model, _at0(p["dec"]), mem, g, S)
+            assert max(blk) < BLOCK_TOL, blk
+            pc = _contraction_scaled(p, ("enc", "dec"))
+            _, c2 = a.prefill_fn(pc, batch)
+            c2 = dict(c2, kv=_grow(torch, c2["kv"], 8))
+            d2, _ = a.decode_fn(pc, c2, {"tokens": toks[:, S:]})
+            l2, _ = a.prefill_fn(pc, {"tokens": toks, "frames": frames})
+            cons_c = _rel(d2, l2)
+            assert cons_c < F32_FULL_TOL, cons_c
+            more = (f" (an embedding nudged by 1e-6 moves prefill {S + 1} "
+                    f"by {_rel(moved, longer):.2e}: printed); decoder block "
+                    f"0 alone, decode one on the grown cache against "
+                    f"prefill S+1 {blk[0]:.2e}, prefixes {blk[1]:.2e} (< "
+                    f"{BLOCK_TOL}); contraction-scaled weights: {cons_c:.2e}"
+                    f" (< {F32_FULL_TOL})")
+            del moved, pc, c2, d2, l2
+        notes.append(
+            f"{str(dtype).split('.')[-1]}: encode {enc_ms:.2f} ms, prefill "
+            f"(encode + decoder) {prefill_ms:.2f} ms, {n_flash} flash "
+            f"launches a prefill, {step_s / WHISPER_STEPS * 1e3:.2f} ms per "
+            f"decode step (eager), prefill {S} + decode one against prefill "
+            f"{S + 1}: {cons:.2e}" + more + f"; launches {launches}")
+        del a, p, cache, grown, longer, mem
+        _free(torch)
+    log(f"family phase 17b whisper-small full width: {cfg.encoder_layers} "
+        f"+ {L} blocks, d_model {cfg.d_model}, {cfg.num_heads} heads x "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}, {cfg.encoder_seq} frames, "
+        f"max_seq {WHISPER_MAX_SEQ}, {n_params / 1e6:.1f} M params bf16, "
+        f"init {init_s:.1f} s; B={B} S={S}; " + "; ".join(notes)
+        + f"; reduced checks {t_reduced:.1f} s [{smi}]")
+    log(f"family phase 17b: {time.perf_counter() - t_phase:.1f} s")
+    del api, params
+    _free(torch)
+    return runs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3990,6 +4653,13 @@ def main() -> int:
     runs += family_glm4(torch, ops, smi0, runs[0]["step_ms"])
     runs += family_moonshot(torch, ops, smi0)
     log(f"phase 16: {time.perf_counter() - t16:.1f} s")
+    # phase 17: xlstm-125m served on the timeline and whisper-small through
+    # the model API at full width (Whisper's flash shapes were held in
+    # phase 16's kernel checks)
+    t17 = time.perf_counter()
+    runs += family_xlstm(torch, ops, smi0)
+    runs += family_whisper(torch, ops, smi0)
+    log(f"phase 17: {time.perf_counter() - t17:.1f} s")
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 

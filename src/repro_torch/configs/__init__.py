@@ -13,20 +13,23 @@ from .llama3_2_3b import CONFIG as _llama3b
 from .moonshot_v1_16b_a3b import CONFIG as _moonshot
 from .qwen2_moe_a2_7b import CONFIG as _qwen2_moe
 from .qwen2_vl_7b import CONFIG as _qwen2_vl
+from .whisper_small import CONFIG as _whisper
+from .xlstm_125m import CONFIG as _xlstm
 
-# the reference's configs whose families the port builds: the dense and
-# MoE stacks (moonshot-v1-16b-a3b with its dense stem segment, which the
-# serving engine refuses, as the reference's does), the VLM backbone
-# (M-RoPE, a stub patch frontend) and Hymba (attention + selective SSM,
-# served on the timeline); xlstm-125m and whisper-small are ROADMAP
-# queue 1, items 9c and 9e
+# every config of the reference: the dense and MoE stacks (moonshot-v1-
+# 16b-a3b with its dense stem segment, which the serving engine refuses,
+# as the reference's does), the VLM backbone (M-RoPE, a stub patch
+# frontend), Hymba (attention + selective SSM) and xLSTM (sLSTM/mLSTM
+# pairs), both served on the timeline, and Whisper (encoder-decoder, run
+# through the model API; the engine refuses it, as the reference's does)
 ARCHS = {c.name: c for c in [_moonshot, _qwen2_moe, _glm4, _command_r,
-                             _llama3b, _llama1b, _hymba, _qwen2_vl]}
+                             _llama3b, _llama1b, _xlstm, _hymba, _whisper,
+                             _qwen2_vl]}
 
 
 def get_arch(name: str) -> ArchConfig:
     if name not in ARCHS:
-        raise KeyError(f"unknown or not yet ported arch {name!r}; "
+        raise KeyError(f"unknown arch {name!r}; "
                        f"available: {sorted(ARCHS)}")
     return ARCHS[name]
 

@@ -1,5 +1,5 @@
-"""Architecture configuration for the PyTorch port (the dense, MoE, VLM
-and hybrid families).
+"""Architecture configuration for the PyTorch port (every family the
+reference builds: dense, MoE, xLSTM, hybrid, Whisper and the VLM).
 
 A copy of ``repro.configs.base``: the port imports nothing of the JAX
 package, so it keeps its own ``ArchConfig`` and ``reduced()``. Every field
@@ -20,9 +20,7 @@ HYBRID = "hybrid"
 ENCDEC = "encdec"   # audio backbone (whisper): stub conv frontend
 VLM = "vlm"         # vision-language backbone: stub patch frontend
 CNN = "cnn"         # the paper's own model family (Serdab evaluation)
-# the families the port builds; xLSTM (SSM) and Whisper (ENCDEC) are
-# ROADMAP queue 1, items 9c and 9e
-FAMILIES = (DENSE, MOE, VLM, HYBRID)
+FAMILIES = (DENSE, MOE, SSM, HYBRID, ENCDEC, VLM, CNN)
 
 
 @dataclass(frozen=True)
@@ -72,8 +70,7 @@ class ArchConfig:
 
     def __post_init__(self):
         if self.family not in FAMILIES:
-            raise ValueError(f"family {self.family!r} is not ported yet "
-                             f"(ported: {FAMILIES})")
+            raise ValueError(f"unknown family {self.family!r}")
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim",
                                self.d_model // self.num_heads)

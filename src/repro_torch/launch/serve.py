@@ -56,10 +56,12 @@ a step instead of in one call. ``--arch``
 takes every registered config: the dense llama3.2-1b, llama3.2-3b,
 glm4-9b and command-r-35b, the MoE qwen2-moe-a2.7b (60 routed experts
 top-4 plus 4 shared, attention biases; dispatched without capacity
-dropping, as the reference serves it) and hymba-1.5b (served on the
-timeline: rolling window, conv and SSM state). The engine refuses
-moonshot-v1-16b-a3b (two segments) and qwen2-vl-7b (no ``pos3`` in
-serving) by name, as the reference's engine cannot serve them either.
+dropping, as the reference serves it), hymba-1.5b (served on the
+timeline: rolling window, conv and SSM state) and xlstm-125m (served on
+the timeline: each slot's sLSTM/mLSTM state). The engine refuses
+moonshot-v1-16b-a3b (two segments), whisper-small (no segments: an
+encoder-decoder) and qwen2-vl-7b (no ``pos3`` in serving) by name, as
+the reference's engine cannot serve them either.
 Runs on ``cuda`` unless ``--device cpu`` is given; without a card it
 raises.
 

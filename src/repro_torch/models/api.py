@@ -1,8 +1,9 @@
-"""Model API of the port (``repro/models/api.py`` for the dense, MoE, VLM
-and hybrid families): ``build_model(cfg, device=..., dtype=...,
-max_seq=..., cache_quant=...)`` returns a ``ModelAPI`` whose closures the
-serving engine and the train step call, with the reference's
-``input_specs`` / ``make_inputs`` for a shape cell."""
+"""Model API of the port (``repro/models/api.py``, every family):
+``build_model(cfg, device=..., dtype=..., max_seq=..., cache_quant=...)``
+returns a ``ModelAPI`` whose closures the serving engine and the train
+step call, with the reference's ``input_specs`` / ``make_inputs`` for a
+shape cell. ``ModelAPI.model`` is a ``StackedLM`` (dense, MoE, VLM,
+Hymba, xLSTM) or a ``WhisperModel``."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,18 +11,20 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
-from repro_torch.configs.base import (DENSE, HYBRID, MOE, VLM, ArchConfig,
-                                      ShapeConfig)
+from repro_torch.configs.base import (DENSE, ENCDEC, HYBRID, MOE, SSM, VLM,
+                                      ArchConfig, ShapeConfig)
 from repro_torch.device import resolve_device
 from .hymba import build_hymba
 from .moe import build_moe
-from .transformer import StackedLM, build_dense, build_vlm, map_specs
+from .transformer import build_dense, build_vlm, map_specs
+from .whisper import WhisperModel
+from .xlstm import build_xlstm
 
 
 @dataclasses.dataclass
 class ModelAPI:
     cfg: ArchConfig
-    model: StackedLM
+    model: Any                          # a StackedLM or a WhisperModel
     device: torch.device
     dtype: torch.dtype
     max_seq: int = 4096                 # the timeline cache's default horizon
@@ -59,9 +62,9 @@ class ModelAPI:
 
     def init_cache(self, batch: int, max_seq: Optional[int] = None,
                    fill_len: int = 0) -> Dict[str, Any]:
-        """A zero timeline cache (the int8 cache's scales and Hymba's
-        recurrent state zero too) with ``len`` = ``fill_len``, on
-        ``self.device``."""
+        """A zero timeline cache (the int8 cache's scales, Hymba's and
+        xLSTM's recurrent state zero too, xLSTM's stabilizers included)
+        with ``len`` = ``fill_len``, on ``self.device``."""
         cache = self._zeros(self.init_cache_specs(batch, max_seq))
         cache["len"].fill_(fill_len)
         return cache
@@ -69,8 +72,9 @@ class ModelAPI:
     @property
     def paged_ok(self) -> bool:
         """Paged decode support (dense, MoE and VLM with a plain
-        full-attention KV cache); an int8-cache or sliding-window model
-        and Hymba's recurrent state keep the timeline layout."""
+        full-attention KV cache); an int8-cache or sliding-window model,
+        Hymba's and xLSTM's recurrent state and Whisper keep the timeline
+        layout."""
         return self.model.paged_ok
 
     # -- paged per-slot KV cache (serving hot path) ---------------------------
@@ -105,8 +109,9 @@ class ModelAPI:
     def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
         """``(shape, dtype)`` of every model input of a shape cell (the
         reference's ``input_specs``): ``tokens`` (and ``labels`` to train),
-        and for a VLM ``patches`` [B, P, d] outside decode and ``pos3``
-        [B, S, 3]. ``torch.empty(shape, dtype=dtype, device="meta")`` makes a
+        for a VLM ``patches`` [B, P, d] outside decode and ``pos3``
+        [B, S, 3], for Whisper ``frames`` [B, encoder_seq, d] outside
+        decode. ``torch.empty(shape, dtype=dtype, device="meta")`` makes a
         stand-in that holds no memory."""
         c = self.cfg
         B, S = shape.global_batch, shape.seq_len
@@ -119,6 +124,8 @@ class ModelAPI:
                 specs["patches"] = ((B, c.num_patches, c.d_model),
                                     self.dtype)
             specs["pos3"] = ((B, tok_len, 3), torch.int32)
+        if c.family == ENCDEC and shape.kind != "decode":
+            specs["frames"] = ((B, c.encoder_seq, c.d_model), self.dtype)
         return specs
 
     def make_inputs(self, shape: ShapeConfig,
@@ -143,10 +150,14 @@ class ModelAPI:
 
 
 BUILDERS: Dict[str, Callable] = {
-    DENSE: lambda cfg, remat, q: build_dense(cfg, remat, cache_quant=q),
-    MOE: lambda cfg, remat, q: build_moe(cfg, remat, cache_quant=q),
-    HYBRID: lambda cfg, remat, q: build_hymba(cfg, remat),
-    VLM: lambda cfg, remat, q: build_vlm(cfg, remat, cache_quant=q),
+    DENSE: lambda cfg, max_seq, remat, q: build_dense(cfg, remat,
+                                                      cache_quant=q),
+    MOE: lambda cfg, max_seq, remat, q: build_moe(cfg, remat, cache_quant=q),
+    SSM: lambda cfg, max_seq, remat, q: build_xlstm(
+        cfg, remat, state_dtype=torch.bfloat16 if q else torch.float32),
+    HYBRID: lambda cfg, max_seq, remat, q: build_hymba(cfg, remat),
+    VLM: lambda cfg, max_seq, remat, q: build_vlm(cfg, remat, cache_quant=q),
+    ENCDEC: lambda cfg, max_seq, remat, q: WhisperModel(cfg, max_seq, remat),
 }
 
 
@@ -159,12 +170,15 @@ def build_model(cfg: ArchConfig, *,
     reference's). ``device`` defaults to ``cuda`` and raises without a
     card; pass ``device="cpu"`` for the CPU reference path. ``remat``
     recomputes each block in the backward of ``loss_fn`` (the reference's
-    default). ``max_seq`` is the timeline cache's default horizon;
-    ``cache_quant`` keeps the timeline cache in int8 (dense, MoE and VLM;
-    no paged cache then, as in the reference; Hymba's recurrent state
-    ignores it, as the reference's does)."""
+    default). ``max_seq`` is the timeline cache's default horizon (and the
+    length of Whisper's learned decoder positions); ``cache_quant`` keeps
+    the timeline cache in int8 (dense, MoE and VLM; no paged cache then,
+    as in the reference), xLSTM's recurrent state in bf16 (its mLSTM
+    stabilizer in f32); Hymba and Whisper ignore it, as the reference's
+    do."""
     if cfg.family not in BUILDERS:
         raise ValueError(f"no builder for family {cfg.family!r}")
     dev = resolve_device(device)
-    return ModelAPI(cfg, BUILDERS[cfg.family](cfg, remat, cache_quant),
+    return ModelAPI(cfg, BUILDERS[cfg.family](cfg, max_seq, remat,
+                                              cache_quant),
                     dev, dtype, max_seq)

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from . import layers as L
 from .layers import ParamSpec
-from .transformer import (SEGMENT, AttnBlock, Segment, StackedLM,
+from .transformer import (AttnBlock, Segment, StackedLM,
                           _window_kv, default_kv_cache_spec)
 
 SSM_CHUNK = 256
@@ -281,6 +281,6 @@ def build_hymba(cfg: ArchConfig, remat: bool = True) -> StackedLM:
     def cache_fn(batch, max_seq, dtype):
         return hymba_cache_spec(cfg, batch, max_seq, dtype)
 
-    return StackedLM(cfg, [Segment(SEGMENT, cfg.num_layers,
+    return StackedLM(cfg, [Segment("blocks", cfg.num_layers,
                                    lambda: hymba_block_specs(cfg),
                                    HymbaBlock(cfg), cache_fn)], remat)

@@ -1,7 +1,7 @@
-"""Model substrate of the port (``repro/models/layers.py`` for the dense,
-MoE, VLM and hybrid families): parameter specs and their initializer,
-norms, rotary embeddings (RoPE and Qwen2-VL's M-RoPE), projections (with
-the attention biases), SwiGLU, the rolling window buffer,
+"""Model substrate of the port (``repro/models/layers.py``): parameter
+specs and their initializer, norms, rotary embeddings (RoPE and
+Qwen2-VL's M-RoPE), projections (with the attention biases), SwiGLU and
+the GELU MLP, the rolling window buffer,
 prefill attention (one-shot and chunked against the page pools), the
 paged decode path, the timeline decode attention (``decode_attention``)
 and the training loss (``chunked_softmax_xent``).
@@ -78,6 +78,17 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5):
+    """LayerNorm with the reference's rounding: f32 mean and (population)
+    variance, cast back before the scale and bias. No model of the
+    reference calls it."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    return (xf - mu).mul(torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
 
 
 # ---------------------------------------------------------------------------
@@ -165,11 +176,26 @@ def roll_into_window(kv_hd: torch.Tensor, total_len: int,
 # ---------------------------------------------------------------------------
 # Projections / MLP
 # ---------------------------------------------------------------------------
+def linear(x, w, b=None):
+    y = x @ w
+    return y if b is None else y + b
+
+
 def swiglu(x, wi, wg, wo):
     return (F.silu(x @ wg) * (x @ wi)) @ wo
 
 
-def attn_specs(cfg) -> Dict[str, ParamSpec]:
+def gelu_mlp(x, wi, wo, bi=None, bo=None):
+    """GELU MLP (Whisper). ``jax.nn.gelu`` defaults to the tanh
+    approximation, torch's ``gelu`` to the exact erf form: the tanh form
+    is asked for by name."""
+    return linear(F.gelu(linear(x, wi, bi), approximate="tanh"), wo, bo)
+
+
+def attn_specs(cfg, prefix_bias: bool = False) -> Dict[str, ParamSpec]:
+    """q, k, v, o projections; the q/k/v biases with ``cfg.use_bias`` or
+    ``prefix_bias`` (Whisper's blocks have them whatever the config
+    says)."""
     d, H, KVH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = {
         "wq": ParamSpec((d, H, hd)),
@@ -177,7 +203,7 @@ def attn_specs(cfg) -> Dict[str, ParamSpec]:
         "wv": ParamSpec((d, KVH, hd)),
         "wo": ParamSpec((H, hd, d)),
     }
-    if cfg.use_bias:
+    if cfg.use_bias or prefix_bias:
         s.update({"bq": ParamSpec((H, hd), "zeros"),
                   "bk": ParamSpec((KVH, hd), "zeros"),
                   "bv": ParamSpec((KVH, hd), "zeros")})

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from . import layers as L
 from .layers import ParamSpec
-from .transformer import SEGMENT, StackedLM, _attn_segment
+from .transformer import StackedLM, _attn_segment
 
 CAPACITY_FACTOR = 1.25
 
@@ -163,7 +163,7 @@ def build_moe(cfg: ArchConfig, remat: bool = True,
                                       cache_quant,
                                       d_ff=cfg.dense_stem_d_ff or cfg.d_ff))
     segments.append(_attn_segment(
-        cfg, SEGMENT, cfg.num_layers - cfg.first_k_dense, cache_quant,
+        cfg, "blocks", cfg.num_layers - cfg.first_k_dense, cache_quant,
         ffn=moe_ffn(cfg), specs_fn=lambda: moe_block_specs(cfg)))
     return StackedLM(cfg, segments, remat, cache_quant,
                      paged_ok=not (cache_quant or cfg.sliding_window))

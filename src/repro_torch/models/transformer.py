@@ -1,8 +1,9 @@
 """Decoder stacks of the port (``repro/models/transformer.py``): the
 generic ``StackedLM`` over one or more homogeneous segments, the dense
 family, and the VLM backbone (``VlmLM``: M-RoPE and a stub patch
-frontend). The MoE family (``models/moe.py``, with its dense stem) and
-Hymba (``models/hymba.py``) build on the same machinery.
+frontend). The MoE family (``models/moe.py``, with its dense stem),
+Hymba (``models/hymba.py``) and xLSTM (``models/xlstm.py``, one segment
+``"pairs"`` of recurrent blocks) build on the same machinery.
 
 Parameters are a plain dict with the reference's tree and layouts: each
 segment's block weights stacked along a leading layer dim under its name
@@ -35,7 +36,6 @@ from repro_torch.configs.base import ArchConfig
 from . import layers as L
 from .layers import ParamSpec, init_one
 
-SEGMENT = "blocks"          # the reference's name for the served segment
 
 
 def _as_index(x, device) -> torch.Tensor:
@@ -208,9 +208,11 @@ class AttnBlock:
         """The KV part of a layer's (or a segment's) timeline cache."""
         return cache
 
-    def decode_slot(self, cache_len: torch.Tensor, S: int) -> torch.Tensor:
-        """The [1] slot a decode step at position ``cache_len`` writes:
-        ``len % S`` in a rolling window buffer, else ``min(len, S - 1)``."""
+    def decode_slot(self, cache_len: torch.Tensor, body) -> torch.Tensor:
+        """The [1] slot a decode step at position ``cache_len`` writes into
+        the segment's cache ``body`` of S positions: ``len % S`` in a
+        rolling window buffer, else ``min(len, S - 1)``."""
+        S = self.kv_of(body)[0].shape[3]
         n = cache_len.reshape(1).long()
         return torch.remainder(n, S) if self.rolling else \
             torch.clamp(n, max=S - 1)
@@ -357,7 +359,10 @@ class StackedLM:
         seg, i = self._where[l]
         return _at(params[seg.name], i)
 
-    def _only_segment(self) -> Segment:
+    @property
+    def served_segment(self) -> Segment:
+        """The segment a serving engine, its backends and a pipeline stage
+        run: the model's only one (its name keys the cache body)."""
         if len(self.segments) != 1:
             raise ValueError(
                 f"{self.cfg.name}: a layer range of one cache body needs a "
@@ -366,10 +371,10 @@ class StackedLM:
         return self.segments[0]
 
     def _block(self, p, x, positions, train: bool = False, pos3=None):
-        """One block of the ``"blocks"`` segment over a whole sequence:
-        (x, k, v), k and v [B, S, KVH, D] (``AttnBlock.forward``)."""
-        seg = next(s for s in self.segments if s.name == SEGMENT)
-        return seg.block.forward(p, x, positions, pos3, train)
+        """One block of the last segment (the served one) over a whole
+        sequence: ``AttnBlock.forward``'s (x, k, v), k and v
+        [B, S, KVH, D]."""
+        return self.segments[-1].block.forward(p, x, positions, pos3, train)
 
     def _blocks(self, params, batch, train: bool = False,
                 hidden: Optional[list] = None):
@@ -552,20 +557,21 @@ class StackedLM:
         """Blocks ``[lo, hi)`` of segment ``seg`` (default: the only one)
         in one timeline decode step, for batch rows ``rows`` of the
         segment's cache ``body`` (``(k, v)`` [L, B, KVH, S, D],
-        ``(k_q8, v_q8, k_s, v_s)``, or a Hymba layer's tree). Every row
-        sits at the shared position ``cache_len`` (an int tensor of one
-        element on the device; ``pos3`` [b, 1, 3] for M-RoPE): each block
-        writes its new K/V at the slot ``decode_slot`` names, in place, and
+        ``(k_q8, v_q8, k_s, v_s)``, a Hymba layer's tree or an xLSTM pair's
+        state). Every row sits at the shared position ``cache_len`` (an int
+        tensor of one element on the device; ``pos3`` [b, 1, 3] for
+        M-RoPE): each block writes its new K/V at the slot ``decode_slot``
+        names (None for a block without KV), in place, and
         attends over ``cache_len + 1`` positions from each row's ``start``
         (the rows' [b] slice, or None). ``x`` [b, 1, d] enters block
         ``lo``; returns what leaves block ``hi - 1``. ``decode_fn`` runs
         every segment on every row; a pipeline stage runs its range of a
         single-segment model on its microbatch's rows."""
-        seg = seg or self._only_segment()
+        seg = seg or self.served_segment
         blk = seg.block
         hi = seg.n if hi is None else hi
         positions = cache_len.reshape(1, 1)
-        slot = blk.decode_slot(cache_len, blk.kv_of(body)[0].shape[3])
+        slot = blk.decode_slot(cache_len, body)
         for l in range(lo, hi):
             x = blk.decode(_at(params[seg.name], l), x, positions, pos3,
                            _at(body, l), cache_len, slot, start, rows)
@@ -604,7 +610,7 @@ class StackedLM:
         attends over ``seq_lens + 1`` tokens. ``decode_paged_fn`` runs
         every segment; a pipeline stage runs its own range on its
         microbatch's rows."""
-        seg = seg or self._only_segment()
+        seg = seg or self.served_segment
         end = seg.n if end is None else end
         positions = seq_lens[:, None]
         sl_next = seq_lens + 1
@@ -679,7 +685,7 @@ def _attn_segment(cfg: ArchConfig, name: str, n: int, cache_quant: bool,
 
 def build_dense(cfg: ArchConfig, remat: bool = True,
                 cache_quant: bool = False) -> StackedLM:
-    return StackedLM(cfg, [_attn_segment(cfg, SEGMENT, cfg.num_layers,
+    return StackedLM(cfg, [_attn_segment(cfg, "blocks", cfg.num_layers,
                                          cache_quant)],
                      remat, cache_quant,
                      paged_ok=not (cache_quant or cfg.sliding_window))
@@ -713,7 +719,7 @@ class VlmLM(StackedLM):
 
 def build_vlm(cfg: ArchConfig, remat: bool = True,
               cache_quant: bool = False) -> VlmLM:
-    return VlmLM(cfg, [_attn_segment(cfg, SEGMENT, cfg.num_layers,
+    return VlmLM(cfg, [_attn_segment(cfg, "blocks", cfg.num_layers,
                                      cache_quant)],
                  remat, cache_quant,
                  paged_ok=not (cache_quant or cfg.sliding_window))

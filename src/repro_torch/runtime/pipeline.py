@@ -52,7 +52,6 @@ import torch
 from repro_torch.enclave import sealing
 from repro_torch.kernels import ops as K
 from repro_torch.models.api import ModelAPI
-from repro_torch.models.transformer import SEGMENT
 
 
 def pipeline_applicable(api: ModelAPI) -> bool:
@@ -80,8 +79,9 @@ class PipelinedDecoder:
         """A decoder straight from a planner ``PlacementSpec``: stage s runs
         segment s (``spec.segments[s]``). The spec's device order is the
         pipeline order; the trust domain changes what the cost model
-        charged, not how a stage runs."""
-        n = api.cfg.num_layers
+        charged, not how a stage runs. The spec places the served
+        segment's blocks (the engine's ``block_profiles``)."""
+        n = api.model.served_segment.n
         assert spec.num_layers == n, (spec.num_layers, n)
         return cls(api, num_stages=spec.num_segments,
                    num_microbatches=num_microbatches,
@@ -91,7 +91,7 @@ class PipelinedDecoder:
     def __post_init__(self):
         assert pipeline_applicable(self.api), \
             "pipelined serve needs a single homogeneous segment"
-        n, S = self.api.cfg.num_layers, self.num_stages
+        n, S = self.api.model.served_segment.n, self.num_stages
         if self.stage_blocks is None:
             assert n % S == 0, \
                 f"{n} blocks not divisible into {S} stages; pass " \
@@ -118,11 +118,11 @@ class PipelinedDecoder:
         """A timeline cache dict -> the staged pair ``(body, len)``. The
         body keeps its ``[L, B, ...]`` layout: stage s reads its layer range
         of it."""
-        return cache[SEGMENT], cache["len"]
+        return cache[self.api.model.served_segment.name], cache["len"]
 
     def unstage_cache(self, staged, new_len):
         """The inverse of ``stage_cache``."""
-        return {SEGMENT: staged, "len": new_len}
+        return {self.api.model.served_segment.name: staged, "len": new_len}
 
     def restage_cache(self, cache, new_dec: "PipelinedDecoder"):
         """Carry a cache over to ``new_dec``'s boundaries (a live re-plan
@@ -131,7 +131,8 @@ class PipelinedDecoder:
         form. Pools and bodies keep one layer per row of their leading dim
         whatever the stage layout, so nothing moves: the cache is valid
         under the new ranges as it is."""
-        assert new_dec.api.cfg.num_layers == self.api.cfg.num_layers
+        n = self.api.model.served_segment.n
+        assert new_dec.api.model.served_segment.n == n
         return cache
 
     # -- one stage on one microbatch (the tick body and the probe) ----------
@@ -155,7 +156,7 @@ class PipelinedDecoder:
                             rows: slice = slice(None)) -> torch.Tensor:
         """Stage s's layers on the timeline rows ``rows``, carrying every
         layer's cache tree (a Hymba layer's rolling KV, conv window and SSM
-        state) in place."""
+        state, an xLSTM pair's recurrent state) in place."""
         lo, hi = self.ranges[s]
         return self.api.model.decode_timeline_blocks(
             params, body, x, cache_len, start, lo, hi, rows,
@@ -208,7 +209,7 @@ class PipelinedDecoder:
 
         def step_fn(params, cache, batch, key):
             bt, sl = cache["block_tables"], cache["seq_lens"]
-            pools = cache[SEGMENT]
+            pools = cache[self.api.model.served_segment.name]
             logits = ticks(params, batch["tokens"], key,
                            lambda s, x, rows: stage_run(
                                params, pools, s, x, bt[rows], sl[rows]))

@@ -114,13 +114,12 @@ from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core.planner import (InfeasibleError, PlacementSpec,
-                                      profiles_from_arch)
+from repro_torch.core.planner import (InfeasibleError, LayerProfile,
+                                      PlacementSpec, profiles_from_arch)
 from repro_torch.core.privacy import LM_SIM_DELTA
 from repro_torch.device import resolve_device, to_device
 from repro_torch.enclave import sealing
 from repro_torch.enclave.domain import ResourceManager, two_enclave_manager
-from repro_torch.models.transformer import SEGMENT
 from repro_torch.runtime.ft import HeartbeatMonitor, OnlineReplanner
 from repro_torch.runtime.pipeline import PipelinedDecoder, pipeline_applicable
 from repro_torch.serving.aot import AotRegistry
@@ -211,6 +210,34 @@ _PREFILL_SWAP_SEQ = sealing.TRANSFER_SEQ_BASE // 2
 _PREFILL_KEY_SHIFT = 1 << 31
 
 
+def block_profiles(profiles: Sequence[LayerProfile],
+                   n: int) -> List[LayerProfile]:
+    """The planner's per-layer profiles (``profiles_from_arch``, one per
+    layer of the config) as ``n`` profiles, one per block of the served
+    segment: the identity when every block is one layer; an xLSTM block
+    is an (sLSTM, mLSTM) pair, two layers. A block adds its layers'
+    FLOPs, parameter and activation bytes, and keeps its last layer's
+    output bytes, similarity and efficiency (what leaves the block). The
+    reference plans over layers, so its pipelined decoder cannot run
+    xLSTM's six pairs (its stage sizes sum to 12); its local engine only
+    records them."""
+    k, rem = divmod(len(profiles), n)
+    if rem:
+        raise ValueError(f"{len(profiles)} layer profiles do not group "
+                         f"into {n} blocks")
+    if k == 1:
+        return list(profiles)
+    out = []
+    for b in range(n):
+        part = profiles[b * k:(b + 1) * k]
+        last = part[-1]
+        out.append(dataclasses.replace(
+            last, name=f"block{b}", flops=sum(p.flops for p in part),
+            params_bytes=sum(p.params_bytes for p in part),
+            act_bytes=sum(p.traffic() for p in part)))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Decode backends
 # ---------------------------------------------------------------------------
@@ -223,6 +250,12 @@ class _Backend:
     plan's predicted shares."""
 
     migrates_cache = False
+
+    @property
+    def body(self):
+        """The cache body of the model's ``served_segment`` (``"blocks"``,
+        or xLSTM's ``"pairs"``)."""
+        return self.cache[self.api.model.served_segment.name]
 
     def _init_step(self) -> None:
         self._step = self.aot.wrap("decode_step", self._decode)
@@ -276,7 +309,8 @@ class LocalDecodeBackend(_Backend):
                  aot: Optional[AotRegistry] = None):
         self.api, self.params, self.cfg = api, params, cfg
         self.device = api.device
-        self.stage_blocks = tuple(stage_blocks or (api.cfg.num_layers,))
+        self.stage_blocks = tuple(stage_blocks
+                                  or (api.model.served_segment.n,))
         self.steps = 0
         self.cache = api.init_cache(cfg.num_slots, cfg.max_seq)
         self.cache["start"] = torch.zeros(cfg.num_slots, dtype=torch.int32,
@@ -291,7 +325,7 @@ class LocalDecodeBackend(_Backend):
         cache's scales and Hymba's conv and SSM state too, as the
         reference's ``init_cache`` makes them), ``len`` and every ``start``
         at ``prompt_capacity``."""
-        for t in leaves(self.cache[SEGMENT]):
+        for t in leaves(self.body):
             t.zero_()
         self.cache["len"].fill_(self.cfg.prompt_capacity)
         self.cache["start"].fill_(self.cfg.prompt_capacity)
@@ -304,8 +338,8 @@ class LocalDecodeBackend(_Backend):
     def insert_slot(self, slot: int, private_cache: Dict[str, Any]) -> None:
         """Copy a one-row private cache (every leaf of the body [L, 1, ...],
         ``start`` [1]) into row ``slot``."""
-        self._insert(private_cache[SEGMENT], private_cache["start"],
-                     self._idx([slot]))
+        self._insert(private_cache[self.api.model.served_segment.name],
+                     private_cache["start"], self._idx([slot]))
 
     def _insert_fn(self, body, start: torch.Tensor,
                    slot: torch.Tensor) -> None:
@@ -316,7 +350,7 @@ class LocalDecodeBackend(_Backend):
         by the private cache's, as the reference's insert does, and
         Hymba's conv and SSM state (no time axis) are copied whole into the
         slot's row: a reused slot starts from its own prefill's state."""
-        for g, u in zip(leaves(self.cache[SEGMENT]), leaves(body)):
+        for g, u in zip(leaves(self.body), leaves(body)):
             n = u.shape[1]
             idx = torch.clamp(slot, max=g.shape[1] - n) + torch.arange(
                 n, device=g.device)
@@ -345,7 +379,8 @@ class PagedLocalBackend(_Backend):
         self.device = api.device
         self.num_pages = num_pages
         self.pages_per_slot = pages_per_slot
-        self.stage_blocks = tuple(stage_blocks or (api.cfg.num_layers,))
+        self.stage_blocks = tuple(stage_blocks
+                                  or (api.model.served_segment.n,))
         self._shape = (cfg.num_slots, num_pages, cfg.page_size,
                        pages_per_slot)
         self.steps = 0                  # decode steps run on this backend
@@ -359,7 +394,7 @@ class PagedLocalBackend(_Backend):
     def reset_state(self) -> None:
         """Zero the pools, block tables and seq_lens in place (the warmup
         reset): graphs captured over them stay valid."""
-        for pool in self.cache[SEGMENT]:
+        for pool in self.body:
             pool.zero_()
         self.cache["block_tables"].zero_()
         self.cache["seq_lens"].zero_()
@@ -372,7 +407,7 @@ class PagedLocalBackend(_Backend):
     def _prefill_chunk(self, toks, offset: int, chunk_len, bt_row, pages,
                        offs) -> torch.Tensor:
         return self.api.prefill_chunk_fn(
-            self.params, {SEGMENT: self.cache[SEGMENT]},
+            self.params, {self.api.model.served_segment.name: self.body},
             {"tokens": toks, "offset": offset, "chunk_len": chunk_len,
              "bt_row": bt_row, "pages": pages, "offs": offs})[0]
 
@@ -413,7 +448,7 @@ class PagedLocalBackend(_Backend):
         keep = np.nonzero(np.asarray(pages) < self.num_pages)[0]
         pos, pg, off = (self._idx(keep), self._idx(pages[keep]),
                         self._idx(offs[keep]))
-        k_pool, v_pool = self.cache[SEGMENT]
+        k_pool, v_pool = self.body
         # advanced indices split by the head slice: [n, L, KVH, D]
         k_pool[:, pg, :, off] = kk[:, :, pos].permute(2, 0, 1, 3)
         v_pool[:, pg, :, off] = vv[:, :, pos].permute(2, 0, 1, 3)
@@ -432,7 +467,7 @@ class PagedLocalBackend(_Backend):
 
     def copy_page(self, dst: int, src: int) -> None:
         """Fork: clone one physical page across every layer."""
-        for pool in self.cache[SEGMENT]:
+        for pool in self.body:
             pool[:, dst] = pool[:, src]
 
     def gather_pages(self, pages: np.ndarray, key: int, ctr: int):
@@ -449,7 +484,7 @@ class PagedLocalBackend(_Backend):
     def _gather_fn(self, pg: torch.Tensor, key: torch.Tensor,
                    seq: torch.Tensor):
         out = []
-        for part, pool in enumerate(self.cache[SEGMENT]):
+        for part, pool in enumerate(self.body):
             rows = pool[:, pg].transpose(0, 1).reshape(pg.shape[0], -1)
             out.append(sealing.seal_pages(rows, key, seq, part=part))
         return tuple(out)
@@ -472,7 +507,7 @@ class PagedLocalBackend(_Backend):
         Live rows name distinct fresh pages."""
         keep = pages < self.num_pages
         target = torch.where(keep, pages, torch.zeros_like(pages))
-        for part, (pool, c) in enumerate(zip(self.cache[SEGMENT], (ck, cv))):
+        for part, (pool, c) in enumerate(zip(self.body, (ck, cv))):
             rows = sealing.unseal_pages(c, key, seq, pool.dtype, part=part)
             g = rows.reshape(pages.shape[0], pool.shape[0], *pool.shape[2:])
             g = torch.where(keep.view(-1, *[1] * (g.dim() - 1)), g,
@@ -640,7 +675,7 @@ class PagedPipelinedBackend(_Pipelined, PagedLocalBackend):
         page (see ``PipelinedDecoder.build_stage_probe``)."""
         bt = torch.zeros((sl.shape[0], self.pages_per_slot),
                          dtype=torch.int32, device=sl.device)
-        return probe(self.params, self.cache[SEGMENT], s, x, bt, sl)
+        return probe(self.params, self.body, s, x, bt, sl)
 
 
 class PipelinedDecodeBackend(_Pipelined, LocalDecodeBackend):
@@ -657,16 +692,16 @@ class PipelinedDecodeBackend(_Pipelined, LocalDecodeBackend):
     def _init_step(self) -> None:
         cfg = self.cfg
         self._probe_body = self.api.init_cache(
-            self._probe_rows, cfg.max_seq)[SEGMENT]
+            self._probe_rows, cfg.max_seq)[self.api.model.served_segment.name]
         super()._init_step()
 
     def _step_cache(self):
-        c = self.cache
-        return c[SEGMENT], c["len"], c["start"]
+        return self.body, self.cache["len"], self.cache["start"]
 
     def _restage(self, old_dec: PipelinedDecoder) -> None:
         body, n, start = old_dec.restage_cache(self._step_cache(), self.dec)
-        self.cache.update({SEGMENT: body, "len": n, "start": start})
+        self.cache.update({self.api.model.served_segment.name: body,
+                           "len": n, "start": start})
 
     def _probe_arg(self) -> torch.Tensor:
         return self.cache["len"]
@@ -803,7 +838,8 @@ class ServingEngine:
         # --- plan over the trust domains ----------------------------------
         # min_stages: ask for a placement that uses every pipeline stage
         # (falls back when the topology cannot supply that many)
-        self.profiles = profiles_from_arch(api.cfg, seq_len=1)
+        self.profiles = block_profiles(
+            profiles_from_arch(api.cfg, seq_len=1), api.model.served_segment.n)
         self.replanner = OnlineReplanner(
             self.rm, self.profiles, n=cfg.plan_n, delta=cfg.delta,
             deviation_threshold=cfg.deviation_threshold, solver=cfg.solver,
@@ -941,7 +977,7 @@ class ServingEngine:
 
     def _blocks_from(self, spec: PlacementSpec) -> Tuple[int, ...]:
         planned = spec.stage_sizes()
-        n, S = self.api.cfg.num_layers, self.config.num_stages
+        n, S = self.api.model.served_segment.n, self.config.num_stages
         if len(planned) == S:
             return planned
         assert n % S == 0, \
@@ -1184,7 +1220,7 @@ class ServingEngine:
             # one decode step a token from an empty [1, S_pad] cache
             cache = self._token_cache(S_pad)
             logits = self._prefill_tokens(tokens, S_pad)
-            kk, vv = cache[SEGMENT]
+            kk, vv = cache[self.api.model.served_segment.name]
         kk, vv = kk[:, 0], vv[:, 0]                    # [L, KVH, S_pad, D]
         pages_vec, offs_vec = self._write_targets(0, P, S_pad, pages, shared)
         self.backend.insert_slot(slot, (kk, vv), pages_vec, offs_vec, bt_row,
@@ -1198,14 +1234,14 @@ class ServingEngine:
         call."""
         logits, caches = self.api.prefill_at_fn(
             self.params, {"tokens": toks, "prompt_len": plen})
-        return logits, caches[SEGMENT]
+        return logits, caches[self.api.model.served_segment.name]
 
     def _prefill_packed_fn(self, toks: torch.Tensor, plens: torch.Tensor):
         """Packed prefill, graph-managed per bucket at width K (see
         ``_prefill_at_fn``)."""
         logits, caches = self.api.prefill_packed_fn(
             self.params, {"tokens": toks, "prompt_lens": plens})
-        return logits, caches[SEGMENT]
+        return logits, caches[self.api.model.served_segment.name]
 
     # -- per-token prefill (the timeline; batched_prefill=False) ------------
     def _prefill_timeline(self, slot: int, req: Request) -> torch.Tensor:
@@ -1236,7 +1272,7 @@ class ServingEngine:
                 cache["start"] = torch.zeros(1, dtype=torch.int32,
                                              device=self.device)
             self._token_caches[S] = cache
-        for t in leaves(cache[SEGMENT]):
+        for t in leaves(cache[self.api.model.served_segment.name]):
             t.zero_()
         cache["len"].fill_(start or 0)
         if "start" in cache:
@@ -2095,7 +2131,7 @@ class ServingEngine:
         if blocks == self.stage_blocks:
             return False
         if len(blocks) != self.config.num_stages or \
-                sum(blocks) != self.api.cfg.num_layers:
+                sum(blocks) != self.api.model.served_segment.n:
             self._emit("swap_skipped", {"blocks": blocks})
             return False
         migrated = self.backend.swap(blocks)
@@ -2314,7 +2350,7 @@ class ServingEngine:
         enough, else the adjacent single-block shifts of the planned
         layout (the replanner's most likely moves), capped at
         ``warmup_layouts``."""
-        n = self.api.cfg.num_layers
+        n = self.api.model.served_segment.n
         S = self.config.num_stages
         planned = self.stage_blocks
         if S <= 1 or n < S:

@@ -1,8 +1,9 @@
 """Carry a parameter tree (any family's: the segments ``stem`` and
 ``blocks``, a VLM's ``patch_proj``, Hymba's ``ssm`` leaves with the
-depthwise ``conv_w`` in the reference's ``[k, di]`` layout), an optimizer
-state, a timeline cache or a ``TinyCNN``'s kernels across from the JAX
-package.
+depthwise ``conv_w`` in the reference's ``[k, di]`` layout, xLSTM's
+``pairs`` with their ``slstm`` and ``mlstm`` subtrees, Whisper's ``enc``
+and ``dec`` stacks), an optimizer state, a timeline cache or a
+``TinyCNN``'s kernels across from the JAX package.
 
 The port keeps the reference's parameter tree and layouts, so conversion
 is a leaf-by-leaf copy. JAX bf16 leaves come out of ``np.asarray`` as
@@ -59,12 +60,13 @@ def opt_state_from_jax(state: Any, device: Optional[Union[str, torch.device]]
 def cache_from_jax(cache: Any, device: Optional[Union[str, torch.device]]
                    = None) -> Any:
     """The JAX package's timeline cache (as numpy: each segment's body,
-    ``(k, v)``, ``(k_q8, v_q8, k_s, v_s)`` or Hymba's ``((k, v), (conv,
-    ssm))``, beside ``"len"`` and an optional ``"start"``) -> the port's
-    cache dict of tensors on ``device`` (default ``cuda``), bits
-    unchanged: ``len`` a 0-d int32 tensor, ``start`` [B] int32, each body
-    a tree of tuples, so ``decode_fn`` can run from one state in both
-    packages."""
+    ``(k, v)``, ``(k_q8, v_q8, k_s, v_s)``, Hymba's ``((k, v), (conv,
+    ssm))`` or xLSTM's ``"pairs"`` state ``((h, c, n, m), (C, n, m))``,
+    or Whisper's ``"kv"`` and ``"xkv"`` pairs, beside ``"len"`` and an
+    optional ``"start"``) -> the port's cache dict of tensors on
+    ``device`` (default ``cuda``), bits unchanged: ``len`` a 0-d int32
+    tensor, ``start`` [B] int32, each body a tree of tuples, so
+    ``decode_fn`` can run from one state in both packages."""
     dev = resolve_device(device)
 
     def conv(x):

@@ -4,12 +4,14 @@ llama3.2-3b, glm4-9b and command-r-35b are the reference's dense configs
 that ``StackedLM`` serves (RoPE, full attention, no bias), qwen2-moe-a2.7b
 its MoE config (attention biases, 60 experts top-4 plus 4 shared; reduced:
 8 experts top-2 plus 1 shared); qwen2-vl-7b (VLM), moonshot-v1-16b-a3b
-(MoE with a dense stem) and hymba-1.5b (hybrid) are held in their own
-files (``test_torch_vlm.py``, ``test_torch_segments.py``,
-``test_torch_hymba.py``) and here by their fields, parameter counts,
-analytic costs and the reference's per-family smoke. Every registered
-config's fields, and those of its ``reduced`` form, must equal the
-reference's. On the same parameters
+(MoE with a dense stem), hymba-1.5b (hybrid), xlstm-125m (SSM) and
+whisper-small (encoder-decoder) are held in their own files
+(``test_torch_vlm.py``, ``test_torch_segments.py``,
+``test_torch_hymba.py``, ``test_torch_xlstm.py``,
+``test_torch_whisper.py``) and here by their fields, parameter counts,
+analytic costs and the reference's per-family smoke. The registry is the
+reference's, and every config's fields, and those of its ``reduced``
+form, must equal the reference's. On the same parameters
 (drawn by the JAX package, attention biases drawn nonzero there, and
 carried across with ``params_from_jax``, untied heads included), each
 reduced model's prefill logits agree within atol = rtol = 1e-4 (f32 sums
@@ -22,7 +24,7 @@ with an untied head (glm4-9b: 32 query heads). The reference's input-shape
 cells (``SHAPES``, ``get_shape``, ``shape_applicable``) and its analytic
 FLOP and byte model (``utils/analytic_cost.estimate``) must give the
 reference's values exactly for every registered config and shape
-(hymba-1.5b, sub-quadratic, also at ``long_500k``).
+(hymba-1.5b and xlstm-125m, sub-quadratic, also at ``long_500k``).
 """
 import dataclasses
 
@@ -34,7 +36,7 @@ import torch
 
 from repro.configs import get_arch as jax_get_arch
 from repro.configs import reduced as jax_reduced
-from repro_torch.configs import ARCHS, get_arch, reduced
+from repro_torch.configs import ARCHS, get_arch, list_archs, reduced
 from repro_torch.models.api import build_model
 from repro_torch.weights import params_from_jax, tensor_from_numpy
 from test_torch_engine import _both
@@ -43,6 +45,8 @@ from test_torch_serving import _workload
 TOL = dict(atol=1e-4, rtol=1e-4)
 NEW = ["llama3.2-3b", "glm4-9b", "command-r-35b", "qwen2-moe-a2.7b"]
 FAMILY_NEW = ["qwen2-vl-7b", "moonshot-v1-16b-a3b", "hymba-1.5b"]
+LAST_NEW = ["xlstm-125m", "whisper-small"]
+SUBQUADRATIC = ("hymba-1.5b", "xlstm-125m")
 # name -> (arch, fields replaced on both packages' reduced config)
 VARIANTS = {
     "llama3.2-3b": ("llama3.2-3b", {}),
@@ -88,14 +92,14 @@ def test_config_and_reduced_equal_reference(name):
 
 
 def test_registry_holds_the_dense_configs():
-    """The dense and MoE configs of earlier slices, and this slice's
-    qwen2-vl-7b (VLM), moonshot-v1-16b-a3b (MoE with a dense stem) and
-    hymba-1.5b (hybrid): every reference config but xlstm-125m and
-    whisper-small (ROADMAP items 9c, 9e)."""
+    """The dense and MoE configs, qwen2-vl-7b (VLM), moonshot-v1-16b-a3b
+    (MoE with a dense stem), hymba-1.5b (hybrid), xlstm-125m (SSM) and
+    whisper-small (encoder-decoder): the port's registry is the
+    reference's."""
     from repro.configs import list_archs as jax_list_archs
-    assert sorted(ARCHS) == sorted(["llama3.2-1b"] + NEW + FAMILY_NEW)
-    assert sorted(set(jax_list_archs()) - set(ARCHS)) == \
-        ["whisper-small", "xlstm-125m"]
+    assert sorted(ARCHS) == sorted(["llama3.2-1b"] + NEW + FAMILY_NEW
+                                   + LAST_NEW)
+    assert list_archs() == jax_list_archs()
     assert (get_arch("llama3.2-3b").head_dim,
             get_arch("llama3.2-3b").q_per_kv) == (128, 3)
     assert get_arch("glm4-9b").q_per_kv == 16
@@ -104,7 +108,8 @@ def test_registry_holds_the_dense_configs():
     assert (moe.is_moe, moe.use_bias, moe.q_per_kv, moe.head_dim) == \
         (True, True, 1, 128)
     assert {n for n, c in ARCHS.items() if c.is_moe or c.use_bias} == \
-        {"qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "qwen2-vl-7b"}
+        {"qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "qwen2-vl-7b",
+         "whisper-small"}
 
 
 def _models(variant):
@@ -168,7 +173,7 @@ def test_shapes_and_families_equal_reference():
         C.get_shape("train_8k")
     for fam in ("DENSE", "MOE", "SSM", "HYBRID", "ENCDEC", "VLM", "CNN"):
         assert getattr(C, fam) == getattr(JC, fam)
-    assert C.base.FAMILIES == (C.DENSE, C.MOE, C.VLM, C.HYBRID)
+    assert C.base.FAMILIES == JC.base.FAMILIES
 
 
 @pytest.mark.parametrize("name", sorted(ARCHS))
@@ -179,7 +184,7 @@ def test_analytic_cost_equals_reference(name):
     from repro_torch.utils import analytic_cost as A
     tcfg, jcfg = get_arch(name), jax_get_arch(name)
     assert tcfg.is_subquadratic == jcfg.is_subquadratic == \
-        (name == "hymba-1.5b")
+        (name in SUBQUADRATIC)
     ran = 0
     for sname, shape in C.SHAPES.items():
         ok = C.shape_applicable(tcfg, shape)
@@ -194,6 +199,7 @@ def test_analytic_cost_equals_reference(name):
             assert got.useful_ratio == want.useful_ratio
         ran += 1
     # long_500k needs sub-quadratic decode: Hymba (SSM state + window)
+    # and xLSTM (recurrent state)
     assert ran == (4 if tcfg.is_subquadratic else 3)
 
 
@@ -217,20 +223,20 @@ def test_analytic_cost_reflects_quant():
 def test_list_archs_and_has_decoder_equal_reference():
     from repro import configs as JC
     from repro_torch import configs as C
-    assert C.list_archs() == sorted(C.ARCHS)
-    assert set(C.list_archs()) <= set(JC.list_archs())
+    assert C.list_archs() == sorted(C.ARCHS) == JC.list_archs()
     for name in C.list_archs():
         assert get_arch(name).has_decoder == jax_get_arch(name).has_decoder \
             is True
 
 
-@pytest.mark.parametrize("name", FAMILY_NEW)
+@pytest.mark.parametrize("name", FAMILY_NEW + LAST_NEW)
 def test_models_smoke_on_port(name):
-    """``tests/test_models_smoke.py`` on the port for the three families of
-    this slice: a train loss of ~ln(vocab) at init, finite prefill and
-    decode logits from ``make_inputs``, ``len`` advanced by one (the decode
-    writes into the prefill's full cache at its last slot, as the
-    reference's smoke does)."""
+    """``tests/test_models_smoke.py`` on the port for the VLM, moonshot,
+    Hymba, xLSTM and Whisper: a train loss of ~ln(vocab) at init, finite
+    prefill and decode logits from ``make_inputs`` (Whisper's with
+    ``frames``), ``len`` advanced by one (the decode writes into the
+    prefill's full cache at its last slot, as the reference's smoke
+    does)."""
     from repro_torch.configs import ShapeConfig
     api = build_model(reduced(get_arch(name)), device="cpu", max_seq=32)
     gen = torch.Generator().manual_seed(0)

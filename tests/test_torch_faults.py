@@ -31,6 +31,7 @@ from repro_torch.serving import (EngineConfig, FaultConfig, FaultPlane,
                                  ServingEngine, build_disagg)
 from repro_torch.serving.scheduler import DONE
 from test_torch_chunked_prefill import _models
+from test_torch_timeline import _StepClock
 
 # the reference test's engine (tests/test_faults.py::_engine), less the
 # timeline horizon, which the paged port has no use for
@@ -50,24 +51,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-class _StepClock:
-    """A host clock that advances 1 ms at every read. Both engines time a
-    decode step between two reads of ``time.perf_counter`` and, on the
-    local backend, attribute that wall time to the stages by the plan's
-    shares; the stage EMAs, and with them the step of a re-plan after an
-    injected stall and every fault draw after it, depend on the ratio of
-    successive step times. Under a loaded host those ratios vary from run
-    to run, so two engines could re-plan at different steps. On this clock
-    every decode step takes the same time in both packages."""
-
-    def __init__(self):
-        self.now = 0.0
-
-    def perf_counter(self) -> float:
-        self.now += 1e-3
-        return self.now
 
 
 @pytest.fixture(autouse=True)

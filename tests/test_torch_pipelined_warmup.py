@@ -91,11 +91,12 @@ PLANS = [(n, S, planned) for n in (4, 16) for S in (2, 3)
 def test_swap_targets_equal_the_reference(n, S, planned, warmup_layouts):
     pytest.importorskip("jax")
     from repro.serving.engine import ServingEngine as JEngine
+    seg = types.SimpleNamespace(n=n)
     stub = types.SimpleNamespace(
         api=types.SimpleNamespace(
             cfg=types.SimpleNamespace(num_layers=n),
-            model=types.SimpleNamespace(
-                segments=[types.SimpleNamespace(n=n)])),
+            model=types.SimpleNamespace(segments=[seg],
+                                        served_segment=seg)),
         config=types.SimpleNamespace(num_stages=S,
                                      warmup_layouts=warmup_layouts),
         stage_blocks=planned)

@@ -200,7 +200,7 @@ def test_hidden_states_run_every_block_without_autograd(f32):
 
 
 def test_moe_hidden_states_equal_reference_block_by_block(f32):
-    from repro_torch.models.transformer import SEGMENT, _unbind
+    from repro_torch.models.transformer import _unbind
     japi, jparams, tapi, tparams = _models("qwen2-moe-a2.7b")
     cfg = tapi.cfg
     toks = _tokens(cfg.vocab_size, B=2, S=32)
@@ -211,7 +211,7 @@ def test_moe_hidden_states_equal_reference_block_by_block(f32):
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got[0].numpy(), want[0], rtol=0, atol=0)
     positions = torch.arange(toks.shape[1])[None, :]
-    blocks = _unbind(tparams[SEGMENT], cfg.num_layers)
+    blocks = _unbind(tparams["blocks"], cfg.num_layers)
     with torch.no_grad():
         for l, p in enumerate(blocks):
             x = torch.from_numpy(want[l].copy())

@@ -39,8 +39,7 @@ from repro_torch.configs import get_arch, reduced
 from repro_torch.launch import serve
 from repro_torch.models import layers as L
 from repro_torch.models.api import build_model
-from repro_torch.models.transformer import (SEGMENT, dequantize_kv,
-                                            quantize_kv)
+from repro_torch.models.transformer import dequantize_kv, quantize_kv
 from repro_torch.serving import EngineConfig, ServingEngine
 from repro_torch.serving.scheduler import DONE
 from repro_torch.weights import cache_from_jax, params_from_jax
@@ -121,6 +120,38 @@ def _jengine(japi, jparams, backend="local", **kw):
 def _engine(tapi, tparams, backend="local", **kw):
     return ServingEngine(tapi, EngineConfig(**{**ENGINE, **kw}), tparams,
                          device="cpu", backend=backend)
+
+
+class _StepClock:
+    """A host clock that advances 1 ms at every read. Both engines time a
+    decode step between two reads of ``time.perf_counter`` and, on the
+    local backend, attribute that wall time to the stages by the plan's
+    shares; the stage EMAs, and with them the step of a re-plan after an
+    injected stall and every fault draw after it, depend on the ratio of
+    successive step times. Under a loaded host those ratios vary from run
+    to run, so two engines could re-plan at different steps. On this clock
+    every decode step takes the same time in both packages."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self) -> float:
+        self.now += 1e-3
+        return self.now
+
+
+@pytest.fixture
+def steady_clock(monkeypatch):
+    """One ``_StepClock`` for the reference's engine module and the
+    port's: on the CPU a pipelined backend times its stage probes on the
+    host clock, and a loaded host's jitter could re-plan a run meant to
+    stay calm. With it every probe reads 1 ms and re-plans follow the
+    injected straggler alone."""
+    import repro.serving.engine as jengine
+    import repro_torch.serving.engine as tengine
+    clock = _StepClock()
+    monkeypatch.setattr(tengine, "time", clock)
+    monkeypatch.setattr(jengine, "time", clock)
 
 
 def _drive(eng, wl):
@@ -230,7 +261,7 @@ def test_prefill_then_decode_matches_reference(kind, f32):
                                  {"tokens": torch.from_numpy(toks).long()})
         _close(_to_np(tl), jl, tol)
         assert int(tc["len"]) == int(jc["len"]) == 11
-        for got, want in zip(tc[SEGMENT], jc["blocks"]):
+        for got, want in zip(tc["blocks"], jc["blocks"]):
             if got.dtype == torch.int8:
                 _payload_ties(got.numpy(), want, want.size)
             else:
@@ -249,7 +280,7 @@ def test_prefill_then_decode_matches_reference(kind, f32):
             assert int(tcache["len"]) == int(jcache["len"]) == 12 + step
             assert np.array_equal(tcache["start"].numpy(),
                                   np.asarray(jcache["start"]))
-            for got, want in zip(tcache[SEGMENT], jcache["blocks"]):
+            for got, want in zip(tcache["blocks"], jcache["blocks"]):
                 want = np.asarray(want)
                 if got.dtype == torch.int8:
                     # written: one position per (layer, row, head, channel)
@@ -297,8 +328,8 @@ def test_int8_cache_decode_top1_agrees(f32):
     out = []
     for api in (api_f, api_q):
         _, c = api.prefill_fn(params, {"tokens": toks})
-        c[SEGMENT] = tuple(torch.nn.functional.pad(a, (0, 0, 0, 1))
-                           if a.dim() == 5 else a for a in c[SEGMENT])
+        c["blocks"] = tuple(torch.nn.functional.pad(a, (0, 0, 0, 1))
+                           if a.dim() == 5 else a for a in c["blocks"])
         out.append(api.decode_fn(params, c, {"tokens": new})[0].numpy())
     a, b = out
     assert (a.argmax(-1) == b.argmax(-1)).all()
@@ -337,8 +368,8 @@ def test_int8_decode_error_equals_reference_at_full_width():
                            cache_quant=quant)
         _, c = tapi.prefill_fn(tparams, {"tokens": torch.from_numpy(
             np.array(toks)).long()})
-        c[SEGMENT] = tuple(torch.nn.functional.pad(a, (0, 0, 0, 1))
-                           if a.dim() == 5 else a for a in c[SEGMENT])
+        c["blocks"] = tuple(torch.nn.functional.pad(a, (0, 0, 0, 1))
+                           if a.dim() == 5 else a for a in c["blocks"])
         tout.append(tapi.decode_fn(tparams, c, {"tokens": torch.from_numpy(
             np.array(new)).long()})[0].float().numpy())
     rel = [np.abs(a - b).max() / np.abs(a).max() for a, b in (jout, tout)]
@@ -358,7 +389,7 @@ def test_int8_cache_shrinks_cache_specs():
                           cache_quant=quant)
         specs = api.init_cache_specs(4)
         sizes.append(sum(int(np.prod(shape)) * torch.empty(
-            (), dtype=dt).element_size() for shape, dt in specs[SEGMENT]))
+            (), dtype=dt).element_size() for shape, dt in specs["blocks"]))
         assert specs["len"] == ((), torch.int32)
         assert api.paged_ok == (not quant)
     assert sizes[1] < 0.55 * sizes[0]
@@ -416,8 +447,8 @@ def test_pipelined_decoder_timeline_equals_decode_fn(llama, per_slot_start):
     _, _, tapi, tparams = llama
     rng = np.random.RandomState(5)
     cache = tapi.init_cache(4, 16, fill_len=9)
-    cache[SEGMENT] = tuple(torch.from_numpy(rng.randn(*t.shape).astype(
-        np.float32)) for t in cache[SEGMENT])
+    cache["blocks"] = tuple(torch.from_numpy(rng.randn(*t.shape).astype(
+        np.float32)) for t in cache["blocks"])
     if per_slot_start:
         cache["start"] = torch.tensor([0, 3, 8, 9], dtype=torch.int32)
     toks = torch.from_numpy(rng.randint(0, tapi.cfg.vocab_size, (4, 1)))
@@ -425,7 +456,7 @@ def test_pipelined_decoder_timeline_equals_decode_fn(llama, per_slot_start):
                            seal_boundary=False, stage_blocks=(1, 3))
     body, n = dec.stage_cache(cache)
     back = dec.unstage_cache(body, n)
-    assert back[SEGMENT] is cache[SEGMENT] and back["len"] is cache["len"]
+    assert back["blocks"] is cache["blocks"] and back["len"] is cache["len"]
     staged = (tuple(t.clone() for t in body), n.clone())
     if per_slot_start:
         staged += (cache["start"],)
@@ -438,7 +469,7 @@ def test_pipelined_decoder_timeline_equals_decode_fn(llama, per_slot_start):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
                                rtol=1e-5)
     assert int(staged[1]) == int(cache["len"]) == 10
-    for a, b in zip(staged[0], cache[SEGMENT]):
+    for a, b in zip(staged[0], cache["blocks"]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
 
 
@@ -475,11 +506,13 @@ def _pipe_run(tapi, tparams, backend, inject, **kw):
     return eng, [list(r.generated) for r in reqs]
 
 
-def test_pipelined_timeline_equals_local_and_reference(llama):
+def test_pipelined_timeline_equals_local_and_reference(llama,
+                                                       steady_clock):
     """``tests/test_serving.py::test_engine_pipelined_matches_local`` and
     ``..._live_swap_token_exact`` on the timeline: the pipelined backend
     (undisturbed, and with a straggler that forces a live swap) gives the
-    local backend's streams, which are the reference's."""
+    local backend's streams, which are the reference's. Both engines read
+    the steady clock, so only the straggler re-plans."""
     japi, jparams, tapi, tparams = llama
     _, local = _pipe_run(tapi, tparams, "local", False)
     jeng = _jengine(japi, jparams, kv_layout="timeline")
@@ -560,7 +593,7 @@ def test_quantized_engine_streams_equal_reference(llama_q8):
     for backend in ("local", "pipelined"):
         eng = _engine(tapi, tparams, backend)
         assert _drive(eng, wl) == want, backend
-        k_q, v_q, k_s, v_s = eng.backend.cache[SEGMENT]
+        k_q, v_q, k_s, v_s = eng.backend.cache["blocks"]
         assert k_q.dtype == torch.int8 and not k_s.any() and not v_s.any()
         assert int((k_q.abs() == 127).sum()) > 0
 
@@ -666,7 +699,7 @@ def test_timeline_graphs_equal_eager_on_the_card(cuda, backend):
                "allow_swap": False}), params, device=cuda, backend=backend)
         streams = _drive(eng, wl)
         runs.append((streams, [t.clone() for t in
-                               eng.backend.cache[SEGMENT]]))
+                               eng.backend.cache["blocks"]]))
         if warm:
             assert eng.stats()["post_warmup_compiles"] == 0
     (a, ca), (b, cb) = runs

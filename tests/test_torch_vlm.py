@@ -49,16 +49,19 @@ def f32():
     JL.DEFAULT_DTYPE = old
 
 
-def pair(arch, seed=0, max_seq=64, nonzero_bias=True):
+def pair(arch, seed=0, max_seq=64, nonzero_bias=True, jit_init=False):
     """(japi, jparams, tapi, tparams): reduced ``arch`` in f32, the JAX
     package's parameters (biases and zero-initialized SSM leaves drawn
-    nonzero, which the initializer's zeros would hide) carried across."""
+    nonzero, which the initializer's zeros would hide) carried across.
+    ``jit_init`` draws them in one compiled call (a few seconds faster
+    than leaf by leaf; the bits may differ by a bf16 ulp)."""
     from repro.configs import get_arch as jax_get_arch
     from repro.configs import reduced as jax_reduced
     from repro.models.api import build_model as jax_build
     japi = jax_build(jax_reduced(jax_get_arch(arch)), max_seq=max_seq)
+    init = jax.jit(japi.init) if jit_init else japi.init
     jparams = jax.tree.map(lambda x: x.astype(jnp.float32),
-                           japi.init(jax.random.PRNGKey(seed)))
+                           init(jax.random.PRNGKey(seed)))
     if nonzero_bias:
         rng = np.random.RandomState(seed + 100)
 
