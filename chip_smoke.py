@@ -227,7 +227,20 @@ Phases (each prints its own lines; any failure exits non-zero):
      2 x 224 tokens over 1500 frames (36 flash launches), 16 decode steps
      on a grown cache, prefill S+1 against decode one (printed; f32 held
      within 1e-3 on the rescaled weights), decoder block 0 alone held
-     tightly; prints encoder, prefill and decode-step ms.
+     tightly; prints encoder, prefill and decode-step ms;
+ 18. the mesh, the sharding trees, the serve steps, the calibration and
+     the dry-run on full-width llama3.2-1b in bf16: (a) ``make_mesh((1,
+     1), ("data", "model"))`` is a real one-rank ``DeviceMesh`` on the
+     card, every param, cache and batch leaf resolves to replicated and
+     the per-device argument bytes equal the total; (b) ``make_prefill_step``
+     on 8 x 512 tokens (16 flash launches) and ``make_decode_step`` for 16
+     greedy steps, logits and caches bit-equal to ``prefill_fn`` /
+     ``decode_fn`` on a copy, host ms per prefill and decode step; (c) the
+     decode step at batch 1 counted on meta tensors, ``hlo_calibration``
+     equal to the CPU's (eff, act_scale), the same step counted on the
+     card's tensors equal, and the engine's plan with and without the
+     calibration; (d) ``dryrun.main`` over every llama3.2-1b cell on the
+     logical 16 x 16 mesh, rc 0.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
@@ -4533,6 +4546,203 @@ def family_whisper(torch, ops, smi):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the mesh, the sharding trees, the serve steps, the calibration
+# and the dry-run (ROADMAP item 12) on full-width llama3.2-1b. Sizes are
+# names, for a CPU rehearsal as phases 16 and 17.
+MESH_B, MESH_S, MESH_STEPS = 8, 512, 16
+# (eff, act_scale) of ``hlo_calibration(cfg, 1, count)`` for the decode
+# step of full-width llama3.2-1b at batch 1 over a cache of MESH_S +
+# MESH_STEPS positions, counted on meta tensors on the CPU
+# (``utils.cost_analysis.cost_summary``; the count reads shapes only, so
+# the card's meta count must give these bits)
+CALIB_CPU = (0.7660441601320677, 2.6914203317162406)
+
+
+def _tree_equal(torch, a, b) -> bool:
+    la, lb = list(_leaves(a)), list(_leaves(b))
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+def mesh_steps(torch, ops, smi):
+    """18. The mesh and the serve steps on full-width llama3.2-1b in bf16
+    (seeded weights): (a) ``make_mesh((1, 1), ("data", "model"))`` is a
+    real one-rank ``DeviceMesh`` on the card; every param, cache and batch
+    leaf resolves to replicated and the per-device argument bytes equal
+    the tensors' total; (b) ``make_prefill_step`` at ``ShapeConfig("p18",
+    MESH_S, MESH_B, "prefill")`` (16 flash launches), then
+    ``make_decode_step`` for MESH_STEPS greedy steps on the cache grown by
+    MESH_STEPS positions: logits and caches bit-equal to
+    ``api.prefill_fn`` / ``api.decode_fn`` called on a copy, host ms per
+    prefill and per decode step between synchronises; (c) the decode step
+    at batch 1 counted on meta tensors: ``hlo_calibration`` must give
+    CALIB_CPU, and the same step counted on the card's tensors the same
+    FLOPs; the engine's plan over its default topology with and without
+    the calibration; (d) ``dryrun.main`` over every llama3.2-1b cell on
+    the logical 16 x 16 mesh, rc 0. Returns the step run's launch counts
+    (the prefill and decode steps only)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.planner.profiling import (hlo_calibration,
+                                                    profiles_from_arch)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.runtime import steps as S
+    from repro_torch.runtime.ft import OnlineReplanner
+    from repro_torch.serving import EngineConfig
+    from repro_torch.serving.engine import block_profiles
+    from repro_torch.enclave.domain import two_enclave_manager
+    from repro_torch.sharding import rules as R
+    from repro_torch.utils.cost_analysis import cost_summary
+    t_phase = time.perf_counter()
+    cfg = _family_cfg("llama3.2-1b")
+    B, Sq, steps, L = MESH_B, MESH_S, MESH_STEPS, cfg.num_layers
+    # (a) the mesh and the trees
+    mesh = make_mesh((1, 1), ("data", "model"), device=DEV)
+    assert isinstance(mesh, DeviceMesh) and mesh.device_type == DEV, mesh
+    assert dist.get_world_size() == 1, dist.get_world_size()
+    api = build_model(cfg, device=DEV, dtype=torch.bfloat16,
+                      max_seq=Sq + steps)
+    params = api.init(torch.Generator(device=DEV).manual_seed(0))
+    pre_shape = ShapeConfig("p18", Sq, B, "prefill")
+    dec_shape = ShapeConfig("d18", Sq + steps, B, "decode")
+    trees = [S.param_shardings(api, mesh),
+             S.batch_shardings(api, pre_shape, mesh),
+             S.batch_shardings(api, dec_shape, mesh),
+             S.zip_specs(lambda s, a: R.logical_sharding(
+                 s[0], a, mesh, R.ACT_RULES),
+                 api.init_cache_specs(B, Sq + steps),
+                 api.init_cache_axes(B, Sq + steps))]
+    n_leaves = 0
+    for tree in trees:
+        for sh in _sharding_leaves(tree):
+            assert sh.is_replicated, sh
+            n_leaves += 1
+    g = torch.Generator(device=DEV).manual_seed(18)
+    toks = torch.randint(0, cfg.vocab_size, (B, Sq), generator=g,
+                         device=DEV, dtype=torch.int32)
+    batch = {"tokens": toks}
+    total = sum(t.numel() * t.element_size() for t in _leaves(params))
+    mem = dryrun.memory(api, pre_shape, mesh, R.ACT_RULES, R.PARAM_RULES)
+    assert mem["argument_bytes"] == total + toks.numel() * 4, \
+        (mem["argument_bytes"], total)
+    # (b) the serve steps against the direct calls on a copy
+    prefill_step = S.make_prefill_step(api, mesh, pre_shape)
+    decode_step = S.make_decode_step(api, mesh, dec_shape)
+    prefill_step(params, batch)                    # first call, untimed
+    _sync(torch)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, batch)
+    _sync(torch)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    assert ops.LAUNCHES["flash_attention"] == L, ops.LAUNCHES
+    prefill_out = (logits.clone(), _clone(cache))
+    cache = dict(cache, blocks=_grow(torch, cache["blocks"], steps))
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    # first call, untimed, on a copy (the timeline decode runs no kernel)
+    decode_step(params, _clone(cache), {"tokens": tok})
+    step_logits, step_s = [], 0.0
+    for _ in range(steps):
+        _sync(torch)
+        t0 = time.perf_counter()
+        lg, cache = decode_step(params, cache, {"tokens": tok})
+        _sync(torch)
+        step_s += time.perf_counter() - t0
+        assert torch.isfinite(lg).all()
+        step_logits.append(lg.clone())
+        tok = lg.argmax(-1)[:, None].to(torch.int32)
+    launches = dict(ops.LAUNCHES)
+    assert launches["flash_attention"] == L, launches
+    ref_logits, ref_cache = api.prefill_fn(params, batch)
+    assert torch.equal(ref_logits, prefill_out[0])
+    assert _tree_equal(torch, ref_cache, prefill_out[1])
+    ref_cache = dict(ref_cache, blocks=_grow(torch, ref_cache["blocks"],
+                                             steps))
+    tok = ref_logits.argmax(-1)[:, None].to(torch.int32)
+    for lg_step in step_logits:
+        lg, ref_cache = api.decode_fn(params, ref_cache, {"tokens": tok})
+        assert torch.equal(lg, lg_step)
+        tok = lg.argmax(-1)[:, None].to(torch.int32)
+    assert _tree_equal(torch, ref_cache, cache)
+    assert int(cache["len"]) == Sq + steps
+    del ref_cache, prefill_out, step_logits
+    # (c) calibration: the decode step at batch 1, counted
+    c_shape = ShapeConfig("c18", Sq + steps, 1, "decode")
+    meta_api = build_model(cfg, device="meta", max_seq=Sq + steps)
+    ab = S.abstract_inputs(meta_api, c_shape)
+    count = cost_summary(S.make_decode_step(meta_api, None, c_shape),
+                         ab["params"], ab["cache"], ab["batch"])
+    calib = hlo_calibration(cfg, 1, count)
+    if FAMILY_ARCH is None:
+        assert calib == CALIB_CPU, (calib, CALIB_CPU)
+    # the same step on the card's tensors: nothing of it runs a ctypes
+    # kernel (timeline decode attention is plain), so the count is equal
+    one = api.init_cache(1, Sq + steps, fill_len=Sq)
+    on_dev = cost_summary(S.make_decode_step(api, mesh, c_shape), params,
+                          one, {"tokens": tok[:1]})
+    assert on_dev == count, (on_dev, count)
+    ec = EngineConfig()
+    profiles = {}
+    for name, kw in (("constants", {}),
+                     ("calibrated", {"calibrate_from_hlo": True,
+                                     "compiled": count})):
+        profiles[name] = block_profiles(
+            profiles_from_arch(cfg, seq_len=1, **kw), L)
+    plans = {}
+    for name, prof in profiles.items():
+        rp = OnlineReplanner(two_enclave_manager(), prof, n=ec.plan_n,
+                             delta=ec.delta, solver=ec.solver,
+                             space=ec.space, min_stages=ec.num_stages)
+        spec = rp.plan()
+        assert rp.current.feasible, (name, rp.current)
+        plans[name] = f"{spec.describe()}, t_chunk {rp.current.t_chunk!r} s"
+    assert profiles["calibrated"][0].eff == calib[0]
+    # (d) the dry-run over every llama3.2-1b cell on the 16 x 16 mesh
+    t0 = time.perf_counter()
+    assert R.mesh_size(make_production_mesh()) == 256
+    dryrun.main(["--arch", "llama3.2-1b", "--shape", "all"])
+    dry_s = time.perf_counter() - t0
+    log(f"phase 18 mesh + serve steps, llama3.2-1b ({L} layers, "
+        f"{cfg.d_model} wide) bf16: mesh {mesh} on {DEV}, {n_leaves} "
+        f"leaves replicated, per-device argument bytes "
+        f"{mem['argument_bytes']} = total; prefill step B={B} S={Sq}: "
+        f"{prefill_ms:.2f} ms host, "
+        f"{launches['flash_attention']} flash launches; {steps} decode "
+        f"steps: {step_s / steps * 1e3:.3f} ms per step host; logits and "
+        f"caches bit-equal to prefill_fn / decode_fn [{smi}]")
+    log(f"phase 18c calibration: decode step B=1 over {Sq + steps} "
+        f"positions counted on meta: {count['flops']:.6e} FLOPs, "
+        f"{count['bytes']:.6e} bytes (the card's tensors: equal); "
+        f"(eff, act_scale) = {calib} (CPU {CALIB_CPU}); plan with the "
+        f"constants: {plans['constants']}; calibrated: "
+        f"{plans['calibrated']} (model outputs on the reference's device "
+        f"profiles, not measurements)")
+    log(f"phase 18d dry-run llama3.2-1b on the logical 16 x 16 mesh: rc 0, "
+        f"{dry_s:.1f} s")
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    del api, params, cache, one
+    dist.destroy_process_group()
+    _free(torch)
+    return [{"launches": launches}]
+
+
+def _sharding_leaves(tree):
+    from repro_torch.sharding.rules import NamedSharding
+    if isinstance(tree, NamedSharding):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _sharding_leaves(v)
+    else:
+        for v in tree:
+            yield from _sharding_leaves(v)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4660,6 +4870,9 @@ def main() -> int:
     runs += family_xlstm(torch, ops, smi0)
     runs += family_whisper(torch, ops, smi0)
     log(f"phase 17: {time.perf_counter() - t17:.1f} s")
+    # phase 18: the mesh, the sharding trees, the serve steps, the
+    # calibration and the dry-run on full-width llama3.2-1b
+    runs += mesh_steps(torch, ops, smi0)
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 

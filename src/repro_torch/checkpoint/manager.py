@@ -11,7 +11,10 @@ dict keys sorted, sequence indices, and ``.field`` for a NamedTuple field
 cannot hold, is widened to f32 on save (lossless) and cast back on
 restore. Restore takes a tree of tensors (or ``TensorSpec``s, the
 reference's ``ShapeDtypeStruct``) and puts each leaf on that leaf's device
-in its dtype; re-sharding onto a mesh comes with ROADMAP item 12.
+in its dtype. Its ``shardings`` (the reference's elastic re-shard) takes a
+tree of ``repro_torch.sharding.NamedSharding``: on a mesh of one device it
+places nothing; a mesh of several devices is refused by name (ROADMAP
+item 10).
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.tree import map_tree, named_leaves
+from repro_torch.tree import leaves, map_tree, named_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,10 +126,26 @@ class CheckpointManager:
             s = int(f.read().strip())
         return s if s in self.all_steps() else (self.all_steps() or [None])[-1]
 
-    def restore(self, step: int, like: Any, verify: bool = True) -> Any:
+    def restore(self, step: int, like: Any, shardings: Any = None,
+                verify: bool = True) -> Any:
         """``like``: a tree of tensors or ``TensorSpec``s giving structure,
         and each leaf's shape, dtype and device (a CUDA device without a
-        card raises). Returns a new tree of tensors."""
+        card raises). ``shardings``: a matching tree of ``NamedSharding``s
+        (``runtime.steps.param_shardings`` and the like), accepted on a
+        mesh of one device, where it places nothing. Returns a new tree of
+        tensors."""
+        if shardings is not None:
+            from repro_torch.sharding.rules import NamedSharding, mesh_size
+            for sh in leaves(shardings):
+                if not isinstance(sh, NamedSharding):
+                    raise TypeError(f"restore: shardings holds {sh!r}, not "
+                                    f"a NamedSharding")
+                if mesh_size(sh.mesh) != 1:
+                    raise NotImplementedError(
+                        f"restore(shardings=...): a mesh of "
+                        f"{mesh_size(sh.mesh)} devices would re-shard over "
+                        f"several ranks; the port restores onto one device "
+                        f"(ROADMAP queue 1, item 10)")
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "manifest.json"), "rb") as f:
             blob = f.read()

@@ -23,14 +23,15 @@ the prefix-sum trick is exact, not an approximation:
 Solvers (layer 2, ``solvers.py``) evaluate tens of thousands of candidate
 stages; with these tables each costs O(1) instead of O(layers).
 
-A copy of ``repro/core/planner/profiling.py`` without ``hlo_calibration``,
-which reads an XLA artifact.
+A copy of ``repro/core/planner/profiling.py``; its ``hlo_calibration``
+reads a ``utils.cost_analysis`` count where the reference's reads an XLA
+artifact.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 from ..cost_model import (RUNTIME_FOOTPRINT, DeviceProfile, LinkProfile,
                           layer_exec_time, paging_factor, seal_time,
@@ -235,6 +236,51 @@ def profiles_from_cnn(table, input_resolution: int = 224) -> List[LayerProfile]:
     return out
 
 
+def _cost_of(compiled) -> Optional[Mapping]:
+    """The ``{"flops", "bytes"}`` count an artifact carries: the dict
+    itself, or an object's ``cost`` (a dry-run record's
+    ``raw_cost_analysis``, ``utils.cost_analysis.cost_summary``'s)."""
+    if isinstance(compiled, Mapping):
+        return compiled
+    cost = getattr(compiled, "cost", None)
+    return cost if isinstance(cost, Mapping) else None
+
+
+def hlo_calibration(cfg, seq_len: int, compiled,
+                    compiled_batch: int = 1) -> Optional[Tuple[float, float]]:
+    """(eff, act_scale) for ``profiles_from_arch`` from a counted step (the
+    reference's formula and clamps; it reads XLA's ``cost_analysis()``).
+
+    ``compiled`` is a ``utils.cost_analysis.cost_summary`` count, ``{"flops",
+    "bytes"}``, or an object that carries one as ``cost``. When the count
+    holds more FLOPs than the analytic per-sequence model, the device's
+    effective efficiency on this model is proportionally lower (eff < 1),
+    and activation traffic is rescaled by the counted bytes-to-analytic
+    ratio. ``compiled_batch`` names the count's batch size: its totals
+    cover the whole batch while a profile models one sequence. Returns
+    None, and callers fall back to the constant defaults, when no count is
+    given, it cannot be read, or it is degenerate (no FLOPs)."""
+    cs = _cost_of(compiled) if compiled is not None else None
+    if cs is None:
+        return None
+    analytic_flops = sum(2.0 * cfg.block_active_params(i) * seq_len
+                         for i in range(cfg.num_layers))
+    analytic_bytes = sum(cfg.block_params(i) * 2.0 + cfg.d_model * seq_len * 2
+                         for i in range(cfg.num_layers))
+    batch = max(1, compiled_batch)
+    measured_flops = cs.get("flops", 0.0) / batch
+    measured_bytes = cs.get("bytes", 0.0) / batch
+    if measured_flops <= 0.0 or analytic_flops <= 0.0:
+        return None
+    # eff multiplies flops_per_s in the roofline, so extra counted work
+    # (beyond the embed/head share the block model ignores) lowers it
+    eff = min(1.0, max(0.05, analytic_flops / measured_flops))
+    act_scale = 1.0
+    if measured_bytes > 0.0 and analytic_bytes > 0.0:
+        act_scale = min(100.0, max(0.1, measured_bytes / analytic_bytes))
+    return eff, act_scale
+
+
 def profiles_from_arch(cfg, seq_len: int, similarities: Optional[Sequence[float]]
                        = None, bytes_per_el: int = 1, *,
                        calibrate_from_hlo: bool = False,
@@ -243,19 +289,20 @@ def profiles_from_arch(cfg, seq_len: int, similarities: Optional[Sequence[float]
     """Per-block profiles for an assigned LM arch (decode-token costs).
 
     similarities: per-block representation similarity; defaults to a
-    geometric decay fit. ``calibrate_from_hlo`` (with its ``compiled`` /
-    ``compiled_batch`` arguments) reads an XLA cost analysis in the
-    reference, which falls back to the constant defaults when no artifact
-    is given; so does the port. A ``compiled`` artifact raises
-    ``NotImplementedError``: the port has no counterpart of
-    ``hlo_calibration`` yet (ROADMAP queue 1, item 12).
+    geometric decay fit. ``calibrate_from_hlo`` with ``compiled`` (a
+    ``cost_summary`` count of a decode step, e.g. from
+    ``cost_summary(make_decode_step(...), *args)`` on meta tensors) sets
+    ``LayerProfile.eff`` and the activation traffic from
+    ``hlo_calibration``; without a usable count it falls back to the
+    constant defaults, as the reference's does. ``compiled_batch`` names
+    the count's batch size (batch 1 calibrates most faithfully).
     """
-    if calibrate_from_hlo and compiled is not None:
-        raise NotImplementedError(
-            "profiles_from_arch(calibrate_from_hlo=True, compiled=...): "
-            "hlo_calibration reads an XLA cost analysis, which the PyTorch "
-            "port has no counterpart for (ROADMAP queue 1, item 12)")
     eff, act_scale = 1.0, 1.0
+    if calibrate_from_hlo:
+        calib = hlo_calibration(cfg, seq_len, compiled,
+                                compiled_batch=compiled_batch)
+        if calib is not None:
+            eff, act_scale = calib
     out = []
     for i in range(cfg.num_layers):
         sim = (similarities[i] if similarities is not None

@@ -16,14 +16,16 @@ import torch
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """``None`` means ``cuda``. A CUDA device without a card raises."""
+    """``None`` means ``cuda``. A CUDA device without a card raises.
+    ``meta`` (tensors with shapes and types and no memory) is taken only
+    when asked for by name: the dry-run and the cost counts run on it."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on a CUDA device by default, but "
             "torch.cuda.is_available() is False; pass device='cpu' to run "
             "the plain PyTorch reference path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 
@@ -37,5 +39,5 @@ def to_device(a, device: torch.device, dtype=np.int64) -> torch.Tensor:
     run."""
     t = torch.from_numpy(np.ascontiguousarray(a, dtype))
     if device.type != "cuda":
-        return t
+        return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)

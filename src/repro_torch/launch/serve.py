@@ -92,9 +92,9 @@ raises.
   python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --reduced \\
       --device cpu --backend local --f32
   python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
-      --device cpu --stages 3 --microbatches 2 --slots 4 --requests 6 \\
-      --max-new 8 --no-seal --f32 --topology sandwich --delta 2.0 \\
-      --require-non-prefix --inject-straggler 2:10 --verify-swap
+      --device cpu --mesh 3x1 --stages 3 --microbatches 2 --slots 4 \\
+      --requests 6 --max-new 8 --no-seal --f32 --topology sandwich \\
+      --delta 2.0 --require-non-prefix --inject-straggler 2:10 --verify-swap
   python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
       --device cpu --kv-layout timeline --stages 2 --microbatches 2 \\
       --slots 4 --requests 6 --max-new 8 --no-seal --f32 \\
@@ -202,6 +202,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "local", "pipelined"],
                     help="auto: pipelined when --stages > 1")
+    ap.add_argument("--mesh", default="2x1",
+                    help="pod x data, as the reference's: one card runs "
+                         "the pods' stages in sequence and computes the "
+                         "data axis whole (see check_mesh)")
     ap.add_argument("--telemetry-interval", type=int, default=4)
     ap.add_argument("--inject-straggler", default=None, metavar="STAGE:FACTOR",
                     help="multiply stage STAGE's measured time by FACTOR")
@@ -309,6 +313,33 @@ def assert_recovery_accounted(st) -> None:
 
 def _rungs(st) -> dict:
     return {k: v for k, v in st["recovery"].items() if v}
+
+
+def check_mesh(args):
+    """``--mesh`` as (pods, data). The reference's pipelined serve runs
+    stage s on pod s of a ``pod x data`` mesh (its engine asserts a mesh
+    for the pipelined backend, src/repro/serving/engine.py:1013-1025, and
+    its decoder one stage per pod, src/repro/runtime/pipeline.py:95-106),
+    so there the pods must equal ``--stages``. One card runs those stages
+    in sequence, as every pipelined serve of the port does; the data axis
+    is a layout of the batch that one card computes whole, so the streams
+    do not depend on it. Refused by name: a mesh that is not ``P`` or
+    ``PxD`` with positive sizes, and pods other than ``--stages`` on the
+    pipelined backend. The local backend ignores the mesh, as the
+    reference's does."""
+    try:
+        dims = tuple(int(x) for x in args.mesh.split("x"))
+    except ValueError:
+        dims = ()
+    if not 1 <= len(dims) <= 2 or min(dims) < 1:
+        raise ValueError(f"--mesh {args.mesh}: the serving mesh is pod x "
+                         f"data (e.g. 2x1), positive sizes")
+    pods, data = dims[0], (dims[1] if len(dims) > 1 else 1)
+    if backend_of(args) == "pipelined" and pods != args.stages:
+        raise ValueError(f"--mesh {args.mesh}: {pods} pods but --stages "
+                         f"{args.stages}; the pipelined serve runs stage s "
+                         f"on pod s")
+    return pods, data
 
 
 def backend_of(args) -> str:
@@ -550,6 +581,10 @@ def disagg_main(api, params, args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    pods, data = check_mesh(args)
+    if backend_of(args) == "pipelined":
+        print(f"mesh {args.mesh}: {pods} pods x {data} data on one card "
+              f"(stages in sequence, the data axis computed whole)")
     if args.disagg:
         return disagg_main(*build_params(args), args)
     inject = parse_straggler(args.inject_straggler)

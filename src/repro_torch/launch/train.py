@@ -33,10 +33,12 @@ from repro_torch.runtime.train_loop import TrainLoop, TrainLoopConfig
 SEED = 0          # the reference draws its weights from PRNGKey(0)
 
 _REFUSED = {
-    "production_mesh": "--production-mesh needs a device mesh "
-                       "(ROADMAP queue 1, item 12)",
+    "production_mesh": "--production-mesh: the 16x16 production mesh is "
+                       "logical on one card (launch/mesh.py); training on "
+                       "it needs DTensor execution over several ranks "
+                       "(ROADMAP queue 1, item 10)",
     "multi_pod": "--multi-pod needs several pods of cards "
-                 "(ROADMAP queue 1, items 10 and 12)",
+                 "(ROADMAP queue 1, item 10)",
     "compress_pod_grads": "--compress-pod-grads (optim/compression.py) "
                           "exists only across pods (ROADMAP queue 1, "
                           "item 10)",
@@ -68,8 +70,8 @@ def check_args(args) -> None:
     """Refuse the reference's multi-device options by name."""
     if args.mesh and tuple(args.mesh.split("x")) != ("1", "1"):
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains on one device; meshes "
-            f"come with ROADMAP queue 1, items 10 and 12")
+            f"--mesh {args.mesh}: the port trains on one device; a mesh "
+            f"of several devices comes with ROADMAP queue 1, item 10")
     for flag, why in _REFUSED.items():
         if getattr(args, flag):
             raise NotImplementedError(why)

@@ -14,6 +14,7 @@ import torch
 from repro_torch.configs.base import (DENSE, ENCDEC, HYBRID, MOE, SSM, VLM,
                                       ArchConfig, ShapeConfig)
 from repro_torch.device import resolve_device
+from repro_torch.tree import map_tree
 from .hymba import build_hymba
 from .moe import build_moe
 from .transformer import build_dense, build_vlm, map_specs
@@ -31,6 +32,14 @@ class ModelAPI:
 
     def param_specs(self):
         return self.model.param_specs()
+
+    def abstract_params(self) -> Dict[str, Any]:
+        """The parameter tree as meta tensors: the specs' shapes in
+        ``self.dtype``, holding no memory (the reference's
+        ``ShapeDtypeStruct`` stand-ins)."""
+        return map_tree(lambda s: torch.empty(s.shape, dtype=self.dtype,
+                                              device="meta"),
+                        self.param_specs())
 
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
         """Random parameters drawn from ``generator`` (which must live on
@@ -55,6 +64,14 @@ class ModelAPI:
     def init_cache_specs(self, batch: int, max_seq: Optional[int] = None):
         return self.model.init_cache_specs(batch, max_seq or self.max_seq,
                                            self.dtype)
+
+    def init_cache_axes(self, batch: int, max_seq: Optional[int] = None):
+        """Logical axes of ``init_cache_specs(batch, max_seq)``'s leaves, in
+        its tree. The reference's ``init_cache_specs`` returns ``(specs,
+        axes)``; the port's returns the specs alone (the engine and the
+        tests call it), and this gives the axes. They do not depend on the
+        sizes, which are taken for the reference's signature."""
+        return self.model.init_cache_axes()
 
     def _zeros(self, specs):
         return map_specs(lambda s: torch.zeros(s[0], dtype=s[1],
@@ -127,6 +144,20 @@ class ModelAPI:
         if c.family == ENCDEC and shape.kind != "decode":
             specs["frames"] = ((B, c.encoder_seq, c.d_model), self.dtype)
         return specs
+
+    def input_axes(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """Logical axes matching ``input_specs`` (the reference's)."""
+        c = self.cfg
+        axes: Dict[str, Any] = {"tokens": ("act_batch", None)}
+        if shape.kind == "train":
+            axes["labels"] = ("act_batch", None)
+        if c.family == VLM:
+            if shape.kind != "decode":
+                axes["patches"] = ("act_batch", None, "act_embed")
+            axes["pos3"] = ("act_batch", None, None)
+        if c.family == ENCDEC and shape.kind != "decode":
+            axes["frames"] = ("act_batch", None, "act_embed")
+        return axes
 
     def make_inputs(self, shape: ShapeConfig,
                     generator: torch.Generator) -> Dict[str, Any]:

@@ -25,7 +25,8 @@ from repro_torch.configs.base import ArchConfig
 from . import layers as L
 from .layers import ParamSpec
 from .transformer import (AttnBlock, Segment, StackedLM,
-                          _window_kv, default_kv_cache_spec)
+                          _window_kv, default_kv_cache_axes,
+                          default_kv_cache_spec)
 
 SSM_CHUNK = 256
 
@@ -43,16 +44,16 @@ def mamba_specs(cfg: ArchConfig) -> Dict[str, Any]:
     n = cfg.ssm_state
     r = _dt_rank(cfg)
     return {
-        "in_x": ParamSpec((d, di)),
-        "in_z": ParamSpec((d, di)),
-        "conv_w": ParamSpec((cfg.conv_kernel, di)),
-        "conv_b": ParamSpec((di,), "zeros"),
-        "x_proj": ParamSpec((di, r + 2 * n)),
-        "dt_proj": ParamSpec((r, di)),
-        "dt_bias": ParamSpec((di,), "zeros"),
-        "a_log": ParamSpec((di, n), "zeros"),
-        "d_skip": ParamSpec((di,), "ones"),
-        "out": ParamSpec((di, d)),
+        "in_x": ParamSpec((d, di), axes=("embed", "mlp")),
+        "in_z": ParamSpec((d, di), axes=("embed", "mlp")),
+        "conv_w": ParamSpec((cfg.conv_kernel, di), axes=("conv", "mlp")),
+        "conv_b": ParamSpec((di,), "zeros", axes=("mlp",)),
+        "x_proj": ParamSpec((di, r + 2 * n), axes=("mlp", None)),
+        "dt_proj": ParamSpec((r, di), axes=(None, "mlp")),
+        "dt_bias": ParamSpec((di,), "zeros", axes=("mlp",)),
+        "a_log": ParamSpec((di, n), "zeros", axes=("mlp", "state")),
+        "d_skip": ParamSpec((di,), "ones", axes=("mlp",)),
+        "out": ParamSpec((di, d), axes=("mlp", "embed")),
     }
 
 
@@ -118,12 +119,12 @@ def _ssm_scan_chunked(g: torch.Tensor, u: torch.Tensor, h0: torch.Tensor):
     c = L.pick_chunk(S, SSM_CHUNK)
     G, U = _associative_scan(g.reshape(B, S // c, c, di, n),
                              u.reshape(B, S // c, c, di, n), axis=2)
-    hs = torch.empty_like(U)
-    h = h0
+    # each chunk a new tensor, stacked once: autograd refuses out=
+    outs, h = [], h0
     for i in range(S // c):
-        torch.add(G[:, i] * h[:, None], U[:, i], out=hs[:, i])
-        h = hs[:, i, -1]
-    return hs.reshape(B, S, di, n), h
+        outs.append(G[:, i] * h[:, None] + U[:, i])
+        h = outs[-1][:, -1]
+    return torch.stack(outs, 1).reshape(B, S, di, n), h
 
 
 def mamba_apply(cfg: ArchConfig, p, h: torch.Tensor, *, mode: str,
@@ -187,16 +188,16 @@ def mamba_apply(cfg: ArchConfig, p, h: torch.Tensor, *, mode: str,
 def hymba_block_specs(cfg: ArchConfig) -> Dict[str, Any]:
     d = cfg.d_model
     return {
-        "ln1": ParamSpec((d,), "ones"),
-        "ln2": ParamSpec((d,), "ones"),
-        "ln_attn": ParamSpec((d,), "ones"),
-        "ln_ssm": ParamSpec((d,), "ones"),
+        "ln1": ParamSpec((d,), "ones", axes=("embed",)),
+        "ln2": ParamSpec((d,), "ones", axes=("embed",)),
+        "ln_attn": ParamSpec((d,), "ones", axes=("embed",)),
+        "ln_ssm": ParamSpec((d,), "ones", axes=("embed",)),
         "attn": L.attn_specs(cfg),
         "ssm": mamba_specs(cfg),
         "mlp": {
-            "wi": ParamSpec((d, cfg.d_ff)),
-            "wg": ParamSpec((d, cfg.d_ff)),
-            "wo": ParamSpec((cfg.d_ff, d)),
+            "wi": ParamSpec((d, cfg.d_ff), axes=("embed", "mlp")),
+            "wg": ParamSpec((d, cfg.d_ff), axes=("embed", "mlp")),
+            "wo": ParamSpec((cfg.d_ff, d), axes=("mlp", "embed")),
         },
     }
 
@@ -277,10 +278,17 @@ def hymba_cache_spec(cfg: ArchConfig, batch: int, max_seq: int,
             (((batch, k - 1, di), dtype), ((batch, di, n), torch.float32)))
 
 
+# logical axes of one layer's ``hymba_cache_spec``, the reference's
+HYMBA_CACHE_AXES = (default_kv_cache_axes(),
+                    (("act_kv_batch", None, "act_mlp"),
+                     ("act_kv_batch", "act_mlp", None)))
+
+
 def build_hymba(cfg: ArchConfig, remat: bool = True) -> StackedLM:
     def cache_fn(batch, max_seq, dtype):
         return hymba_cache_spec(cfg, batch, max_seq, dtype)
 
     return StackedLM(cfg, [Segment("blocks", cfg.num_layers,
                                    lambda: hymba_block_specs(cfg),
-                                   HymbaBlock(cfg), cache_fn)], remat)
+                                   HymbaBlock(cfg), cache_fn,
+                                   HYMBA_CACHE_AXES)], remat)

@@ -17,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,9 +32,26 @@ from repro_torch.kernels import ops as KO
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
+    """A parameter's shape, initializer and logical axes (the reference's
+    ``ParamSpec``). ``axes`` names each dim for the sharding rules
+    (``repro_torch.sharding``), one name or ``None`` a dim; it does not
+    enter ``init_one``, whose fan-in is the shape's leading dim."""
     shape: Tuple[int, ...]
     init: str = "normal"    # normal | zeros | ones | embed
     scale: float = 1.0      # fan-in style scale multiplier
+    axes: Tuple[Optional[str], ...] = ()
+
+    def __post_init__(self):
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"ParamSpec: axes {self.axes} for shape "
+                             f"{self.shape}")
+
+
+def stacked(spec: ParamSpec, n: int, axis_name: str = "layers") -> ParamSpec:
+    """``spec`` stacked ``n`` times along a leading dim named
+    ``axis_name`` (a segment's block weights)."""
+    return ParamSpec((n,) + tuple(spec.shape), spec.init, spec.scale,
+                     (axis_name,) + tuple(spec.axes))
 
 
 # bytes of the largest f32 draw init_one makes at once: a larger leaf (the
@@ -198,15 +215,18 @@ def attn_specs(cfg, prefix_bias: bool = False) -> Dict[str, ParamSpec]:
     says)."""
     d, H, KVH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = {
-        "wq": ParamSpec((d, H, hd)),
-        "wk": ParamSpec((d, KVH, hd)),
-        "wv": ParamSpec((d, KVH, hd)),
-        "wo": ParamSpec((H, hd, d)),
+        "wq": ParamSpec((d, H, hd), axes=("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, KVH, hd), axes=("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, KVH, hd), axes=("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((H, hd, d), axes=("heads", "head_dim", "embed")),
     }
     if cfg.use_bias or prefix_bias:
-        s.update({"bq": ParamSpec((H, hd), "zeros"),
-                  "bk": ParamSpec((KVH, hd), "zeros"),
-                  "bv": ParamSpec((KVH, hd), "zeros")})
+        s.update({"bq": ParamSpec((H, hd), "zeros",
+                                  axes=("heads", "head_dim")),
+                  "bk": ParamSpec((KVH, hd), "zeros",
+                                  axes=("kv_heads", "head_dim")),
+                  "bv": ParamSpec((KVH, hd), "zeros",
+                                  axes=("kv_heads", "head_dim"))})
     return s
 
 

@@ -35,16 +35,16 @@ CAPACITY_FACTOR = 1.25
 def moe_mlp_specs(cfg: ArchConfig) -> Dict[str, Any]:
     d, dff, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
     s: Dict[str, Any] = {
-        "router": ParamSpec((d, E), scale=1.0),
-        "wi": ParamSpec((E, d, dff)),
-        "wg": ParamSpec((E, d, dff)),
-        "wo": ParamSpec((E, dff, d)),
+        "router": ParamSpec((d, E), scale=1.0, axes=("embed", None)),
+        "wi": ParamSpec((E, d, dff), axes=("experts", "embed", "mlp")),
+        "wg": ParamSpec((E, d, dff), axes=("experts", "embed", "mlp")),
+        "wo": ParamSpec((E, dff, d), axes=("experts", "mlp", "embed")),
     }
     if cfg.num_shared_experts:
         sdff = cfg.num_shared_experts * dff
-        s["shared"] = {"wi": ParamSpec((d, sdff)),
-                       "wg": ParamSpec((d, sdff)),
-                       "wo": ParamSpec((sdff, d))}
+        s["shared"] = {"wi": ParamSpec((d, sdff), axes=("embed", "mlp")),
+                       "wg": ParamSpec((d, sdff), axes=("embed", "mlp")),
+                       "wo": ParamSpec((sdff, d), axes=("mlp", "embed"))}
     return s
 
 
@@ -132,8 +132,8 @@ def moe_mlp_apply(cfg: ArchConfig, p, x: torch.Tensor, *,
 def moe_block_specs(cfg: ArchConfig) -> Dict[str, Any]:
     d = cfg.d_model
     return {
-        "ln1": ParamSpec((d,), "ones"),
-        "ln2": ParamSpec((d,), "ones"),
+        "ln1": ParamSpec((d,), "ones", axes=("embed",)),
+        "ln2": ParamSpec((d,), "ones", axes=("embed",)),
         "attn": L.attn_specs(cfg),
         "moe": moe_mlp_specs(cfg),
     }

@@ -80,18 +80,31 @@ def default_kv_cache_spec(cfg: ArchConfig, batch: int, max_seq: int,
     return (kv, kv)
 
 
+# logical axes of one layer's timeline k or v [B, KVH, S, D] (the
+# reference's), and of the int8 cache's per-(head, channel) scales
+KV_AXES = ("act_kv_batch", "act_kv_heads", "act_kv_seq", None)
+KV_SCALE_AXES = ("act_kv_heads", None)
+
+
+def default_kv_cache_axes(quant: bool = False):
+    """Logical axes of ``default_kv_cache_spec``'s leaves, in its tree."""
+    if quant:
+        return (KV_AXES, KV_AXES, KV_SCALE_AXES, KV_SCALE_AXES)
+    return (KV_AXES, KV_AXES)
+
+
 def dense_block_specs(cfg: ArchConfig,
                       d_ff: Optional[int] = None) -> Dict[str, Any]:
     d = cfg.d_model
     ff = cfg.d_ff if d_ff is None else d_ff
     return {
-        "ln1": ParamSpec((d,), "ones"),
-        "ln2": ParamSpec((d,), "ones"),
+        "ln1": ParamSpec((d,), "ones", axes=("embed",)),
+        "ln2": ParamSpec((d,), "ones", axes=("embed",)),
         "attn": L.attn_specs(cfg),
         "mlp": {
-            "wi": ParamSpec((d, ff)),
-            "wg": ParamSpec((d, ff)),
-            "wo": ParamSpec((ff, d)),
+            "wi": ParamSpec((d, ff), axes=("embed", "mlp")),
+            "wg": ParamSpec((d, ff), axes=("embed", "mlp")),
+            "wo": ParamSpec((ff, d), axes=("mlp", "embed")),
         },
     }
 
@@ -144,6 +157,21 @@ def map_specs(fn, tree):
     if isinstance(tree, dict):
         return {k: map_specs(fn, v) for k, v in tree.items()}
     return tuple(map_specs(fn, v) for v in tree)
+
+
+def is_axes(x) -> bool:
+    """A cache axes tree's leaf: a tuple of axis names (or ``None``)."""
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str)
+                                        for a in x)
+
+
+def map_axes(fn, tree):
+    """``fn`` over the leaves of a cache axes tree."""
+    if is_axes(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_axes(fn, v) for k, v in tree.items()}
+    return tuple(map_axes(fn, v) for v in tree)
 
 
 def _window_kv(k: torch.Tensor, v: torch.Tensor, window: int):
@@ -283,13 +311,15 @@ class Segment:
     reference's ``Segment``): ``name`` keys its params and its caches,
     ``specs_fn()`` gives one block's param specs, ``block`` runs one block
     on every path, ``cache_spec_fn(batch, max_seq, dtype)`` one layer's
-    timeline cache spec (a tree of ``(shape, dtype)``)."""
+    timeline cache spec (a tree of ``(shape, dtype)``), ``cache_axes`` its
+    logical axes in the same tree (shape-free, as the reference's)."""
 
     name: str
     n: int
     specs_fn: Callable[[], Dict[str, Any]]
     block: AttnBlock
     cache_spec_fn: Callable
+    cache_axes: Any
 
 
 class StackedLM:
@@ -317,15 +347,16 @@ class StackedLM:
     def param_specs(self) -> Dict[str, Any]:
         c = self.cfg
         specs: Dict[str, Any] = {
-            "embed": ParamSpec((c.vocab_size, c.d_model), "embed"),
-            "ln_f": ParamSpec((c.d_model,), "ones"),
+            "embed": ParamSpec((c.vocab_size, c.d_model), "embed",
+                               axes=("vocab", "embed")),
+            "ln_f": ParamSpec((c.d_model,), "ones", axes=("embed",)),
         }
         if not c.tie_embeddings:
-            specs["head"] = ParamSpec((c.d_model, c.vocab_size))
+            specs["head"] = ParamSpec((c.d_model, c.vocab_size),
+                                      axes=("embed", "vocab"))
         for seg in self.segments:
             specs[seg.name] = _map_specs(
-                lambda s, n=seg.n: ParamSpec((n,) + s.shape, s.init,
-                                             s.scale), seg.specs_fn())
+                lambda s, n=seg.n: L.stacked(s, n), seg.specs_fn())
         return specs
 
     def init_params(self, generator: torch.Generator, device, dtype):
@@ -650,6 +681,16 @@ class StackedLM:
         specs["len"] = ((), torch.int32)
         return specs
 
+    def init_cache_axes(self) -> Dict[str, Any]:
+        """Logical axes of ``init_cache_specs``'s leaves, in its tree (the
+        second half of the reference's ``init_cache_specs``): each layer's
+        axes behind ``"layers"``, and ``()`` for ``len``."""
+        axes: Dict[str, Any] = {
+            seg.name: map_axes(lambda a: ("layers",) + a, seg.cache_axes)
+            for seg in self.segments}
+        axes["len"] = ()
+        return axes
+
     def init_paged_cache_specs(self, num_slots: int, num_pages: int,
                                page_size: int, pages_per_slot: int,
                                dtype) -> Dict[str, Any]:
@@ -680,7 +721,8 @@ def _attn_segment(cfg: ArchConfig, name: str, n: int, cache_quant: bool,
 
     return Segment(name, n, specs_fn or (lambda: dense_block_specs(cfg,
                                                                    d_ff)),
-                   AttnBlock(cfg, cache_quant, ffn), cache_fn)
+                   AttnBlock(cfg, cache_quant, ffn), cache_fn,
+                   default_kv_cache_axes(cache_quant))
 
 
 def build_dense(cfg: ArchConfig, remat: bool = True,
@@ -704,7 +746,8 @@ class VlmLM(StackedLM):
 
     def param_specs(self) -> Dict[str, Any]:
         specs = super().param_specs()
-        specs["patch_proj"] = ParamSpec((self.cfg.d_model, self.cfg.d_model))
+        specs["patch_proj"] = ParamSpec((self.cfg.d_model, self.cfg.d_model),
+                                        axes=("embed", None))
         return specs
 
     def _fuse_frontend(self, params, x, batch):

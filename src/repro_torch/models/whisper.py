@@ -38,28 +38,27 @@ from .transformer import _at, _map_specs, _unbind
 def enc_block_specs(cfg: ArchConfig) -> Dict[str, Any]:
     d = cfg.d_model
     return {
-        "ln1": ParamSpec((d,), "ones"),
-        "ln2": ParamSpec((d,), "ones"),
+        "ln1": ParamSpec((d,), "ones", axes=("embed",)),
+        "ln2": ParamSpec((d,), "ones", axes=("embed",)),
         "attn": L.attn_specs(cfg, prefix_bias=True),
         "mlp": {
-            "wi": ParamSpec((d, cfg.d_ff)),
-            "bi": ParamSpec((cfg.d_ff,), "zeros"),
-            "wo": ParamSpec((cfg.d_ff, d)),
-            "bo": ParamSpec((d,), "zeros"),
+            "wi": ParamSpec((d, cfg.d_ff), axes=("embed", "mlp")),
+            "bi": ParamSpec((cfg.d_ff,), "zeros", axes=("mlp",)),
+            "wo": ParamSpec((cfg.d_ff, d), axes=("mlp", "embed")),
+            "bo": ParamSpec((d,), "zeros", axes=("embed",)),
         },
     }
 
 
 def dec_block_specs(cfg: ArchConfig) -> Dict[str, Any]:
     s = enc_block_specs(cfg)
-    s["ln_x"] = ParamSpec((cfg.d_model,), "ones")
+    s["ln_x"] = ParamSpec((cfg.d_model,), "ones", axes=("embed",))
     s["xattn"] = L.attn_specs(cfg, prefix_bias=True)
     return s
 
 
 def _stacked(specs, n: int):
-    return _map_specs(lambda s: ParamSpec((n,) + s.shape, s.init, s.scale),
-                      specs)
+    return _map_specs(lambda s: L.stacked(s, n), specs)
 
 
 def _mlp(p, h):
@@ -85,11 +84,14 @@ class WhisperModel:
     def param_specs(self) -> Dict[str, Any]:
         c = self.cfg
         return {
-            "embed": ParamSpec((c.vocab_size, c.d_model), "embed"),
-            "pos_dec": ParamSpec((self.max_seq, c.d_model), "embed"),
-            "pos_enc": ParamSpec((c.encoder_seq, c.d_model), "embed"),
-            "ln_f": ParamSpec((c.d_model,), "ones"),
-            "ln_enc": ParamSpec((c.d_model,), "ones"),
+            "embed": ParamSpec((c.vocab_size, c.d_model), "embed",
+                               axes=("vocab", "embed")),
+            "pos_dec": ParamSpec((self.max_seq, c.d_model), "embed",
+                                 axes=(None, "embed")),
+            "pos_enc": ParamSpec((c.encoder_seq, c.d_model), "embed",
+                                 axes=(None, "embed")),
+            "ln_f": ParamSpec((c.d_model,), "ones", axes=("embed",)),
+            "ln_enc": ParamSpec((c.d_model,), "ones", axes=("embed",)),
             "enc": _stacked(enc_block_specs(c), c.encoder_layers),
             "dec": _stacked(dec_block_specs(c), c.num_layers),
         }
@@ -260,3 +262,8 @@ class WhisperModel:
         xkv = ((c.num_layers, batch_size, c.num_kv_heads, c.encoder_seq,
                 c.head_dim), dtype)
         return {"kv": (kv, kv), "xkv": (xkv, xkv), "len": ((), torch.int32)}
+
+    def init_cache_axes(self) -> Dict[str, Any]:
+        """Logical axes of ``init_cache_specs``'s leaves (the reference's)."""
+        ax = ("layers", "act_kv_batch", "act_kv_heads", "act_kv_seq", None)
+        return {"kv": (ax, ax), "xkv": (ax, ax), "len": ()}

@@ -6,7 +6,9 @@ mLSTM blocks (Beck et al., 2024), scanned as (sLSTM, mLSTM) pairs.
   intra-chunk decay matrices), chunks of ``pick_chunk(S, 256)`` in order;
   decode is one chunk of one step.
 * sLSTM: scalar cell with head-block-diagonal recurrent weights, run one
-  step at a time over the sequence (the reference's ``lax.scan``).
+  step at a time over the sequence (the reference's ``lax.scan``); on
+  meta tensors, for the dry-run's counts, one step counted by the trip
+  count (``_SlstmMetaScan``).
 
 All plain PyTorch, as the reference computes it with ``jnp`` and ``lax``
 (no Pallas call). Decode carries O(1) recurrent state, no KV cache: a
@@ -32,6 +34,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.utils.cost_analysis import repeat
 from . import layers as L
 from .layers import ParamSpec
 from .transformer import Segment, StackedLM
@@ -52,15 +55,16 @@ def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
 def mlstm_specs(cfg: ArchConfig) -> Dict[str, Any]:
     d, H, dh = cfg.d_model, cfg.num_heads, cfg.head_dim
     return {
-        "ln": ParamSpec((d,), "ones"),
-        "wq": ParamSpec((d, H, dh)),
-        "wk": ParamSpec((d, H, dh)),
-        "wv": ParamSpec((d, H, dh)),
-        "wi": ParamSpec((d, H), "zeros"),
-        "wf": ParamSpec((d, H), "zeros"),
-        "bf": ParamSpec((H,), "ones"),        # bias > 0: remember by default
-        "wz": ParamSpec((d, d)),
-        "wo": ParamSpec((H, dh, d)),
+        "ln": ParamSpec((d,), "ones", axes=("embed",)),
+        "wq": ParamSpec((d, H, dh), axes=("embed", "heads", "head_dim")),
+        "wk": ParamSpec((d, H, dh), axes=("embed", "heads", "head_dim")),
+        "wv": ParamSpec((d, H, dh), axes=("embed", "heads", "head_dim")),
+        "wi": ParamSpec((d, H), "zeros", axes=("embed", "heads")),
+        "wf": ParamSpec((d, H), "zeros", axes=("embed", "heads")),
+        # bias > 0: remember by default
+        "bf": ParamSpec((H,), "ones", axes=("heads",)),
+        "wz": ParamSpec((d, d), axes=("embed", None)),
+        "wo": ParamSpec((H, dh, d), axes=("heads", "head_dim", "embed")),
     }
 
 
@@ -165,15 +169,16 @@ def slstm_specs(cfg: ArchConfig) -> Dict[str, Any]:
     d, H, dh = cfg.d_model, cfg.num_heads, cfg.head_dim
     ff = int(d * 4 / 3) // 8 * 8
     return {
-        "ln": ParamSpec((d,), "ones"),
-        "w": ParamSpec((d, 4, H, dh)),
-        "r": ParamSpec((4, H, dh, dh)),
-        "b": ParamSpec((4, H, dh), "zeros"),
-        "ln_out": ParamSpec((d,), "ones"),
+        "ln": ParamSpec((d,), "ones", axes=("embed",)),
+        "w": ParamSpec((d, 4, H, dh),
+                       axes=("embed", None, "heads", "head_dim")),
+        "r": ParamSpec((4, H, dh, dh), axes=(None, "heads", "head_dim", None)),
+        "b": ParamSpec((4, H, dh), "zeros", axes=(None, "heads", "head_dim")),
+        "ln_out": ParamSpec((d,), "ones", axes=("embed",)),
         "ffn": {
-            "wi": ParamSpec((d, ff)),
-            "wg": ParamSpec((d, ff)),
-            "wo": ParamSpec((ff, d)),
+            "wi": ParamSpec((d, ff), axes=("embed", "mlp")),
+            "wg": ParamSpec((d, ff), axes=("embed", "mlp")),
+            "wo": ParamSpec((ff, d), axes=("mlp", "embed")),
         },
     }
 
@@ -196,6 +201,64 @@ def _slstm_cell(st, pre_t, r, bias):
     n_t = f_p * n_prev + i_p
     h_t = o_t * c_t / torch.clamp(n_t, min=1e-6)
     return h_t, c_t, n_t, m_t
+
+
+class _SlstmMetaScan(torch.autograd.Function):
+    """The sLSTM's time loop on meta tensors, which hold shapes and no
+    values, for the cost counts (``utils/cost_analysis.py``): op by op on
+    meta, 32,768 steps of six pairs would take an hour, and every step has
+    one step's shapes. So step 0 runs as the loop runs it, then one later
+    step (its state a function of the inputs) is counted ``S - 1`` times
+    (``repeat``); the backward rebuilds each one's graph uncounted
+    (``repeat(0)``) and takes its gradient, counted as often. The outputs
+    take the loop's shapes."""
+
+    @staticmethod
+    def forward(ctx, pre, r, bias, *state):
+        B, S = pre.shape[:2]
+        hs = pre.new_empty((B, S) + tuple(state[0].shape[1:]))
+        runs, st = [(1, state)], state
+        with repeat(1):
+            st = _slstm_cell(st, pre[:, 0], r, bias)
+            hs[:, 0] = st[0]
+        if S > 1:
+            runs.append((S - 1, st))
+            with repeat(S - 1):
+                st = _slstm_cell(st, pre[:, 0], r, bias)
+                hs[:, 0] = st[0]
+        ctx.counts = [n for n, _ in runs]
+        ctx.save_for_backward(pre, r, bias, *[t for _, s in runs
+                                              for t in s])
+        return (hs,) + tuple(st)
+
+    @staticmethod
+    def backward(ctx, g_hs, *g_state):
+        pre, r, bias, *states = ctx.saved_tensors
+        grad = ctx.needs_input_grad
+        g_r = g_bias = None
+        g_st = g_state
+        for i in reversed(range(len(ctx.counts))):
+            n, st = ctx.counts[i], states[4 * i:4 * i + 4]
+            # step 0's state needs a gradient only if the caller's does;
+            # a later step's depends on the inputs
+            st_grad = grad[3:] if i == 0 else (any(grad[:3]),) * 4
+            with repeat(0), torch.enable_grad():
+                ins = [t.detach().requires_grad_(g) for t, g in zip(
+                    (pre[:, 0], r, bias, *st), grad[:3] + tuple(st_grad))]
+                new = _slstm_cell(tuple(ins[3:]), *ins[:3])
+            want = [t for t in ins if t.requires_grad]
+            with repeat(n):
+                g = (g_st[0] + g_hs[:, 0],) + tuple(g_st[1:])
+                got = iter(torch.autograd.grad(new, want, g,
+                                               allow_unused=True))
+                grads = [next(got) if t.requires_grad else None
+                         for t in ins]
+            g_st = [x if x is not None else torch.zeros_like(t)
+                    for x, t in zip(grads[3:], ins[3:])]
+            g_r = grads[1] if g_r is None else g_r + grads[1]
+            g_bias = grads[2] if g_bias is None else g_bias + grads[2]
+        g_pre = torch.empty_like(pre) if grad[0] else None
+        return (g_pre, g_r, g_bias, *grads[3:])
 
 
 def slstm_apply(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str,
@@ -225,6 +288,9 @@ def slstm_apply(cfg: ArchConfig, p, x: torch.Tensor, *, mode: str,
         st = _slstm_cell(tuple(a.float() for a in state), pre[:, 0], r, bias)
         hs = st[0][:, None]
         new_state = tuple(a.to(dt) for a, dt in zip(st, dtypes))
+    elif pre.is_meta:
+        hs, *new_state = _SlstmMetaScan.apply(pre, r, bias, *state)
+        new_state = tuple(new_state)
     else:
         hs = pre.new_empty((B, S, H, dh))
         new_state = state
@@ -316,6 +382,13 @@ def pair_cache_spec(cfg: ArchConfig, batch: int,
              ((batch, H), torch.float32)))
 
 
+_AX_BHD = ("act_kv_batch", "act_kv_heads", None)
+# logical axes of one pair's ``pair_cache_spec``, the reference's
+PAIR_CACHE_AXES = ((_AX_BHD,) * 4,
+                   (("act_kv_batch", "act_kv_heads", None, None), _AX_BHD,
+                    ("act_kv_batch", "act_kv_heads")))
+
+
 def build_xlstm(cfg: ArchConfig, remat: bool = True,
                 state_dtype=torch.float32) -> StackedLM:
     """``num_layers / 2`` pairs in one segment ``"pairs"``, untied head.
@@ -330,4 +403,4 @@ def build_xlstm(cfg: ArchConfig, remat: bool = True,
 
     return StackedLM(cfg, [Segment("pairs", cfg.num_layers // 2,
                                    lambda: pair_specs(cfg), PairBlock(cfg),
-                                   cache_fn)], remat)
+                                   cache_fn, PAIR_CACHE_AXES)], remat)

@@ -295,10 +295,11 @@ def test_injected_straggler_swaps_live_and_streams_stay():
 
 def test_non_prefix_plan_swaps_live_and_streams_stay():
     """The reference's non-prefix CI line (serve's ``--require-non-prefix``)
-    through the port, less its ``--mesh 3x1`` and XLA flag: the sandwich
-    topology plans T|U|U, which the trusted-prefix space cannot express,
-    and a straggler then moves a boundary live with the streams kept."""
+    through the port, less its XLA flag: the sandwich topology plans
+    T|U|U, which the trusted-prefix space cannot express, and a straggler
+    then moves a boundary live with the streams kept."""
     argv = ["--arch", "llama3.2-1b", "--reduced", "--device", "cpu",
+            "--mesh", "3x1",
             "--stages", "3", "--microbatches", "2", "--slots", "4",
             "--requests", "6", "--max-new", "8", "--no-seal", "--f32",
             "--topology", "sandwich", "--delta", "2.0",
@@ -309,7 +310,7 @@ def test_non_prefix_plan_swaps_live_and_streams_stay():
     assert len(st["stage_blocks"]) == 3 and st["completed"] == 6
     with pytest.raises(AssertionError, match="prefix-expressible"):
         serve.main(argv[:argv.index("--topology")] + [
-            "--stages", "2", "--require-non-prefix"])
+            "--mesh", "2x1", "--stages", "2", "--require-non-prefix"])
 
 
 def test_swap_mid_stream_keeps_engine_streams(models):
