@@ -240,7 +240,22 @@ Phases (each prints its own lines; any failure exits non-zero):
      equal to the CPU's (eff, act_scale), the same step counted on the
      card's tensors equal, and the engine's plan with and without the
      calibration; (d) ``dryrun.main`` over every llama3.2-1b cell on the
-     logical 16 x 16 mesh, rc 0.
+     logical 16 x 16 mesh, rc 0;
+ 19. the pod axis over ranks: processes spawned on the card, joined by
+     gloo (NCCL refuses two ranks on one device), the parent's models
+     freed first: (a) full-width llama3.2-1b in bf16, 8 slots, 4
+     microbatches, paged, sealed, 16 greedy decode steps with stage s on
+     rank s at blocks (8, 8) and (1, 15): logits and tokens bit-equal to
+     the one-card sealed ``PipelinedDecoder``, seal launches on stage 0 and
+     unseal launches on stage 1 each 4 x 16, paged launches the stage's
+     layers x 4 x 16, host ms a step, sealed bytes a boundary and one
+     boundary crossing's host ms; (b) the compressed train step of
+     full-width llama3.2-1b at pods 2 x data 1, batch 8 x 128, 5 steps:
+     finite losses, both ranks' params the same bits after every step,
+     the error feedback finite and nonzero, 2 x 16 x 5 flash launches a
+     rank, int8 bytes exchanged a step against f32's, host ms a step, each
+     rank's peak memory; (c) reduced llama3.2-1b in f32 on (2, 2) ranks,
+     plain and compressed, the card against the CPU.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
@@ -4731,6 +4746,280 @@ def mesh_steps(torch, ops, smi):
     return [{"launches": launches}]
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the pod axis over ranks (ROADMAP item 10a). Ranks are processes
+# on the one card (``launch.ranks.spawn``), joined by gloo: NCCL refuses
+# two ranks on one device. Sizes are names, for a CPU rehearsal as phases
+# 16 to 18.
+RANKS_SLOTS, RANKS_NM, RANKS_PROMPT, RANKS_STEPS = 8, 4, 128, 16
+RANKS_LAYOUTS = ((8, 8), (1, 15))      # even, and the planner's (phase 6)
+RANKS_KEY = 0xC0FFEE
+RANKS_PING = 50                        # round trips of one boundary
+# 19b: the compressed step at pods 2 x data 1 over a global batch of
+# 8 x 128 (4 rows a pod)
+RANKS_TRAIN = dict(steps=5, batch=8, seq=128)
+# 19c: reduced llama3.2-1b in f32 on (2, 2) ranks, card against CPU
+RANKS_SMALL = dict(steps=3, batch=8, seq=32)
+# card against CPU: losses within rtol RANKS_TOL at every step. The plain
+# step's params within RANKS_TOL of each leaf's largest |value| at all but
+# RANKS_SHARE of its elements: AdamW's first steps move an element by
+# about lr whatever its gradient's size, so a rounding-level gradient (an
+# embedding row of a rare token) can point either way (0.452% of the
+# embedding on an H100 against its machine's CPU). The compressed step's
+# int8 exchange turns rounding-level gradient differences into whole
+# quantization steps at rounding ties, which AdamW's next steps move by
+# up to lr (on the CPU a 1e-7 nudge of the weights moves 3% of a norm's
+# elements past 1e-4 in three steps), so its params are held within
+# twice the CPU run's largest move, and its error feedback after step 1
+# (equal weights: lr is 0 at step 0) within RANKS_EF_TOL of its largest
+# |value| at all but RANKS_EF_SHARE of the elements (a tie moves one by
+# a whole scale)
+RANKS_TOL, RANKS_SHARE = 1e-4, 1e-2
+RANKS_EF_TOL, RANKS_EF_SHARE = 2.5e-2, 5e-3
+
+
+def _ranks_decode(torch, api, params, layouts, steps):
+    """19a's one-card path: a prefill of RANKS_SLOTS x RANKS_PROMPT seeded
+    tokens, its K/V on pages, then for each layout RANKS_STEPS greedy
+    steps of the sealed one-card ``PipelinedDecoder`` from a copy of the
+    pages. Returns (first tokens, the CPU pages, {layout: (logits,
+    tokens, host ms a step)})."""
+    from repro_torch.runtime.pipeline import PipelinedDecoder
+    g = torch.Generator(device=DEV).manual_seed(19)
+    toks = torch.randint(0, api.cfg.vocab_size, (RANKS_SLOTS, RANKS_PROMPT),
+                         generator=g, device=DEV, dtype=torch.int32)
+    logits, caches = api.prefill_fn(params, {"tokens": toks})
+    first = logits.argmax(-1)[:, None].to(torch.int32)
+    pages = _paged_from(torch, api, caches, RANKS_PROMPT, steps)
+    del caches
+    out = {}
+    for blocks in layouts:
+        dec = PipelinedDecoder(api, num_stages=2,
+                               num_microbatches=RANKS_NM,
+                               seal_boundary=True, stage_blocks=blocks)
+        step = dec.build(paged=True)
+        cache = _clone(pages)
+        tok, lgs, tks, ms = first, [], [], []
+        for i in range(steps):
+            _sync(torch)
+            t0 = time.perf_counter()
+            lg, cache = step(params, cache, {"tokens": tok}, RANKS_KEY + i)
+            _sync(torch)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            tok = lg.argmax(-1)[:, None].to(torch.int32)
+            lgs.append(lg.cpu())
+            tks.append(tok[:, 0].cpu())
+        out[blocks] = (lgs, tks, ms)
+        del cache
+    return first.cpu(), {k: (tuple(t.cpu() for t in v)
+                             if isinstance(v, tuple) else v.cpu())
+                         for k, v in pages.items()}, out
+
+
+def _held_share(torch, got, want, tol, share, what):
+    """``got`` within ``tol`` of each leaf's largest |value| of ``want``
+    at all but ``share`` of the elements; returns the worst share."""
+    worst = 0.0
+    for g, w in zip(_leaves(got), _leaves(want)):
+        g, w = g.double(), w.double()
+        off = float(((g - w).abs() > tol * w.abs().max()).double().mean())
+        assert off <= share, (what, off)
+        worst = max(worst, off)
+    return worst
+
+
+def pod_ranks(torch, ops, smi):
+    """19. The pod axis over ranks on the card, ranks spawned on ``cuda:0``
+    over gloo (the parent's models freed first):
+    (a) full-width llama3.2-1b in bf16 (seeded weights, every rank draws
+    the same), 8 slots, 4 microbatches, paged, sealed, RANKS_STEPS greedy
+    decode steps on 2 pod ranks at stage blocks (8, 8) and (1, 15) from
+    one prefill (the parent's): logits and tokens bit-equal to the
+    one-card sealed ``PipelinedDecoder``; seal launches on stage 0 and
+    unseal launches on stage 1 each microbatches x steps, paged launches
+    the stage's layers x microbatches x steps; host ms a step, sealed
+    bytes a boundary a step and one boundary crossing's host ms;
+    (b) the compressed train step of full-width llama3.2-1b in bf16 at
+    pods 2 x data 1, global batch 8 x 128, 5 steps: losses finite, both
+    ranks' params the same bits after every step (``param_digest``), the
+    error feedback finite and nonzero, flash launches a rank 2 x 16 x
+    steps, bytes sent a step sum(numel + 4) against 4 x sum(numel)
+    uncompressed, host ms a step and each rank's peak memory;
+    (c) reduced llama3.2-1b in f32 on (2, 2) ranks, the plain and the
+    compressed step: the card against the same ranks on the CPU, held as
+    the constants above say. Returns the runs' launch counts (the ranks'
+    own, summed)."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import rank_jobs
+    from repro_torch.launch.ranks import spawn
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import exchanged_bytes
+    t_phase = time.perf_counter()
+    backend = "gloo"
+    log(f"phase 19: ranks are processes on {DEV} (cuda:0 on the card), "
+        f"backend={backend} (NCCL refuses two ranks on one device)")
+    _free(torch)
+    cfg = _family_cfg("llama3.2-1b")
+    L = cfg.num_layers
+    layouts = RANKS_LAYOUTS if FAMILY_ARCH is None else ((L // 2, L // 2),
+                                                         (1, L - 1))
+    # (a) the one-card reference, then the ranks
+    api = build_model(cfg, device=DEV, dtype=torch.bfloat16)
+    params = api.init(torch.Generator(device=DEV).manual_seed(0))
+    first, pages, one = _ranks_decode(torch, api, params, layouts,
+                                      RANKS_STEPS)
+    del api, params
+    _free(torch)
+    t0 = time.perf_counter()
+    job = rank_jobs.DecodeJob(cfg, ((2, 1), ("pod", "data")), pages, first,
+                              layouts=layouts, seals=(True,),
+                              num_microbatches=RANKS_NM, steps=RANKS_STEPS,
+                              key=RANKS_KEY, dtype=torch.bfloat16, seed=0,
+                              ping_iters=RANKS_PING)
+    dec_ranks = spawn(rank_jobs.decode, 2, backend=backend, device=DEV,
+                      args=(job,))
+    a_s = time.perf_counter() - t0
+    launches = {k: 0 for k in ops.LAUNCHES}
+    rows = RANKS_SLOTS // RANKS_NM
+    for li, blocks in enumerate(layouts):
+        lgs, tks, ms = one[blocks]
+        per_rank = []
+        for rank, res in enumerate(dec_ranks):
+            r = res[li]
+            assert r["stage"] == rank and r["range"][1] - r["range"][0] \
+                == blocks[rank], (r["stage"], r["range"], blocks)
+            for i in range(RANKS_STEPS):
+                assert torch.equal(r["logits"][i], lgs[i]), \
+                    ("19a: logits differ from the one-card decoder",
+                     blocks, rank, i)
+                assert torch.equal(r["tokens"][i], tks[i]), (blocks, rank, i)
+            n = RANKS_NM * RANKS_STEPS
+            lc = r["launches"]
+            if DEV == "cuda":
+                assert lc["seal"] == (n if rank == 0 else 0), lc
+                assert lc["unseal"] == (n if rank == 1 else 0), lc
+                assert lc["paged_attention"] == blocks[rank] * n, lc
+            for k in launches:
+                launches[k] += lc[k]
+            want_bytes = RANKS_NM * rows * (cfg.d_model + 4) \
+                if rank == 0 else 0
+            assert r["sent_per_step"] == want_bytes, r["sent_per_step"]
+            per_rank.append(sum(r["host_ms"][1:]) / (RANKS_STEPS - 1))
+        log(f"phase 19a llama3.2-1b ({L} layers) bf16, stage blocks "
+            f"{blocks} on 2 ranks, {RANKS_NM} microbatches of {rows} rows, "
+            f"paged, sealed, {RANKS_STEPS} steps: logits and tokens "
+            f"bit-equal to the one-card PipelinedDecoder; host ms a step "
+            f"(steps 2-{RANKS_STEPS}) rank 0 {per_rank[0]:.3f}, rank 1 "
+            f"{per_rank[1]:.3f}, one card {sum(ms[1:]) / (len(ms) - 1):.3f};"
+            f" sealed bytes a boundary a step "
+            f"{RANKS_NM * rows * (cfg.d_model + 4)} (raw bf16 would be "
+            f"{RANKS_NM * rows * cfg.d_model * 2}); launches rank 0 "
+            f"{dec_ranks[0][li]['launches']}, rank 1 "
+            f"{dec_ranks[1][li]['launches']} [{smi}]")
+    ping = [res[-1]["boundary"] for res in dec_ranks]
+    copies = " / ".join(f"{p['copy_ms']:.4f} ms" for p in ping
+                        if "copy_ms" in p) or "not measured (CPU)"
+    log(f"phase 19a: one sealed microbatch ({rows} x {cfg.d_model} cipher "
+        f"bytes + {rows} scales) across the boundary, card to pinned host "
+        f"to gloo to pinned host to card: {ping[0]['ms']:.4f} / "
+        f"{ping[1]['ms']:.4f} ms (rank 0 / rank 1, mean of {RANKS_PING} "
+        f"round trips); the same message between host tensors (gloo "
+        f"alone) {ping[0]['host_ms']:.4f} / {ping[1]['host_ms']:.4f} ms; "
+        f"the card-to-pinned and pinned-to-card copies of it {copies}; "
+        f"the spawn with its {len(layouts)} runs {a_s:.1f} s")
+    del dec_ranks, one, pages
+    # (b) the compressed step at full width over two pods
+    t0 = time.perf_counter()
+    tj = rank_jobs.TrainJob(
+        cfg, ((2, 1), ("pod", "data")), RANKS_TRAIN["steps"],
+        RANKS_TRAIN["batch"], RANKS_TRAIN["seq"],
+        opt=AdamWConfig(lr=1e-3, warmup_steps=1,
+                        total_steps=RANKS_TRAIN["steps"]),
+        compressed=True, dtype=torch.bfloat16, seed=0, keep_state=False)
+    tr = spawn(rank_jobs.train, 2, backend=backend, device=DEV, args=(tj,))
+    b_s = time.perf_counter() - t0
+    meta = build_model(cfg, device="meta", dtype=torch.float32)
+    numel = sum(p.numel() for p in _leaves(meta.abstract_params()))
+    sent = exchanged_bytes(meta.abstract_params())
+    for rank, r in enumerate(tr):
+        assert all(math.isfinite(x) for x in r["losses"]), r["losses"]
+        assert r["digests"] == tr[0]["digests"], \
+            ("19b: the pods' params differ", rank)
+        assert r["losses"] == tr[0]["losses"]
+        assert r["ef_finite"] and r["ef_nonzero"] > 0, r
+        if DEV == "cuda":
+            assert r["launches"]["flash_attention"] == \
+                2 * L * RANKS_TRAIN["steps"], r["launches"]
+        assert r["sent_per_step"] == sent, (r["sent_per_step"], sent)
+        for k in launches:
+            launches[k] += r["launches"][k]
+    peaks = [r.get("peak_bytes", 0) / 2**30 for r in tr]
+    log(f"phase 19b compressed train step, llama3.2-1b full width bf16 "
+        f"(new params f32 from step 1, as the reference's update casts to "
+        f"the reduced gradient's dtype), pods 2 x data 1, global batch "
+        f"{RANKS_TRAIN['batch']} x {RANKS_TRAIN['seq']}, "
+        f"{RANKS_TRAIN['steps']} steps: losses "
+        f"{[round(x, 4) for x in tr[0]['losses']]}, both ranks' params "
+        f"equal after every step, ef max |value| {tr[0]['ef_absmax']:.3e}, "
+        f"{tr[0]['ef_nonzero']} of {numel} nonzero; bytes sent a step "
+        f"{sent} (int8 + a scale a leaf) against {4 * numel} in f32; "
+        f"host ms a step rank 0 {[round(x, 1) for x in tr[0]['host_ms']]}, "
+        f"rank 1 {[round(x, 1) for x in tr[1]['host_ms']]}; flash "
+        f"launches a rank {tr[0]['launches']['flash_attention']}; peak "
+        f"allocated {peaks[0]:.2f} / {peaks[1]:.2f} GiB; the spawn "
+        f"{b_s:.1f} s [{smi}]")
+    del tr
+    # (c) reduced, f32, (2, 2) ranks: the card against the CPU
+    t0 = time.perf_counter()
+    small = reduced(get_arch("llama3.2-1b"))
+    sapi = build_model(small, device="cpu", dtype=torch.float32)
+    sparams = sapi.init(torch.Generator().manual_seed(0))
+    jobs = [rank_jobs.TrainJob(
+        small, ((2, 2), ("pod", "data")), RANKS_SMALL["steps"],
+        RANKS_SMALL["batch"], RANKS_SMALL["seq"],
+        opt=AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=10),
+        compressed=c, params=sparams) for c in (False, True)]
+    on_card = spawn(rank_jobs.train_each, 4, backend=backend, device=DEV,
+                    args=(jobs,))
+    on_cpu = spawn(rank_jobs.train_each, 4, backend=backend, device="cpu",
+                   args=(jobs,))
+    worst, ef_worst, moved = {}, 0.0, 0.0
+    for i, c in enumerate((False, True)):
+        for rank in range(4):
+            card, cpu = on_card[rank][i], on_cpu[rank][i]
+            for x, y in zip(card["losses"], cpu["losses"]):
+                assert abs(x - y) <= RANKS_TOL * abs(y), (c, rank, x, y)
+            worst[c] = max(worst.get(c, 0.0), _held_share(
+                torch, card["params"], cpu["params"], RANKS_TOL,
+                1.0 if c else RANKS_SHARE, f"19c compressed={c} {rank}"))
+            for k in launches:
+                launches[k] += card["launches"][k]
+            if not c:
+                continue
+            ef_worst = max(ef_worst, _held_share(
+                torch, card["ef_steps"][0], cpu["ef_steps"][0],
+                RANKS_EF_TOL, RANKS_EF_SHARE, f"19c ef, rank {rank}"))
+            for g, w, p0 in zip(_leaves(card["params"]),
+                                _leaves(cpu["params"]), _leaves(sparams)):
+                d, m = float((g - w).abs().max()), float((w - p0).abs().max())
+                assert d <= 2 * m, ("19c: compressed params apart", d, m)
+                moved = max(moved, d / m)
+    log(f"phase 19c reduced llama3.2-1b f32 on (2, 2) pod x data ranks, "
+        f"{RANKS_SMALL['steps']} steps of batch {RANKS_SMALL['batch']} x "
+        f"{RANKS_SMALL['seq']}: card against CPU, losses within rtol "
+        f"{RANKS_TOL} (plain {on_card[0][0]['losses']} vs "
+        f"{on_cpu[0][0]['losses']}; compressed {on_card[0][1]['losses']} vs "
+        f"{on_cpu[0][1]['losses']}); params past {RANKS_TOL} of their "
+        f"leaf's largest |value| at {worst[False]:.5f} (plain) and "
+        f"{worst[True]:.5f} (compressed, at most {moved:.3f} of the CPU "
+        f"run's largest move) of a leaf's elements at most; the compressed "
+        f"step's error feedback after step 1 past {RANKS_EF_TOL} at "
+        f"{ef_worst:.5f}; {time.perf_counter() - t0:.1f} s")
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+    return [{"launches": launches}]
+
+
 def _sharding_leaves(tree):
     from repro_torch.sharding.rules import NamedSharding
     if isinstance(tree, NamedSharding):
@@ -4873,6 +5162,9 @@ def main() -> int:
     # phase 18: the mesh, the sharding trees, the serve steps, the
     # calibration and the dry-run on full-width llama3.2-1b
     runs += mesh_steps(torch, ops, smi0)
+    # phase 19: the pod axis over ranks on the card (gloo): the pipelined
+    # decoder one stage a rank, the compressed train step over two pods
+    runs += pod_ranks(torch, ops, smi0)
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 

@@ -84,12 +84,12 @@ def _leaf_counter(step, leaf_idx: int):
     return (u32(step) * 65537 + int(leaf_idx)) & 0xFFFFFFFF
 
 
-def leaf_counters(steps: int, device) -> torch.Tensor:
-    """``_leaf_counter(t, 0)`` for every t < ``steps``, as one int64 tensor
-    on ``device``. A pipelined step slices its per-tick boundary counters
-    out of it: built once, since a host-to-device copy cannot be captured
-    in a CUDA graph."""
-    return torch.tensor([_leaf_counter(t, 0) for t in range(steps)],
+def leaf_counters(steps: int, device, leaf: int = 0) -> torch.Tensor:
+    """``_leaf_counter(t, leaf)`` for every t < ``steps``, as one int64
+    tensor on ``device``. A pipelined step slices its per-tick boundary
+    counters out of it: built once, since a host-to-device copy cannot be
+    captured in a CUDA graph."""
+    return torch.tensor([_leaf_counter(t, leaf) for t in range(steps)],
                         dtype=torch.int64, device=device)
 
 

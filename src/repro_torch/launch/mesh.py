@@ -1,13 +1,16 @@
 """Mesh construction (the port of ``repro/launch/mesh.py``).
 
 ``make_mesh(shape, axes)`` gives a ``torch.distributed`` ``DeviceMesh``
-where the process has as many ranks as the mesh has devices: on one card
-that is a mesh of one, over a one-rank process group that ``make_mesh``
-sets up itself when none exists (an in-process store: no address, no
-network). Any other mesh, the production meshes among them, is a
-``LogicalMesh``: axis names and sizes, no devices. The sharding rules and
-the dry-run read a logical mesh; a step that would have to place tensors
-on one refuses it by name (multi-card execution is ROADMAP item 10).
+where the process group has as many ranks as the mesh has devices: on one
+card with no group that is a mesh of one, over a one-rank process group
+that ``make_mesh`` sets up itself (an in-process store: no address, no
+network); in a rank that ``launch.ranks.spawn`` started, a mesh of the
+world's ranks, pod-major (rank ``p * data + d`` is pod p, data index d),
+with one process group per axis (``rank_axes``). Any other mesh, the
+production meshes among them, is a ``LogicalMesh``: axis names and sizes,
+no devices. The sharding rules and the dry-run read a logical mesh; a
+step that would have to place tensors on one refuses it by name (ROADMAP
+item 10).
 ``make_production_mesh`` is a function, as in the reference, so importing
 this module touches no device state.
 """
@@ -16,7 +19,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -69,6 +72,37 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
     from torch.distributed.device_mesh import DeviceMesh
     return DeviceMesh(dev.type, torch.arange(n).reshape(shape),
                       mesh_dim_names=axes)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankAxes:
+    """This rank's place on a mesh of ranks: its coordinate and the
+    process group along each axis (the ranks that differ from it on that
+    axis only). An axis the mesh lacks has size 1, index 0, no group."""
+
+    coords: Dict[str, int]
+    sizes: Dict[str, int]
+    groups: Dict[str, Any]
+
+    def index(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+    def size(self, axis: str) -> int:
+        return self.sizes.get(axis, 1)
+
+    def group(self, axis: str):
+        return self.groups.get(axis)
+
+
+def rank_axes(mesh) -> RankAxes:
+    """``RankAxes`` of this process on a ``DeviceMesh``."""
+    names = tuple(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError(f"rank_axes: this rank is not on {mesh}")
+    return RankAxes(dict(zip(names, (int(c) for c in coord))),
+                    dict(zip(names, tuple(mesh.mesh.shape))),
+                    {n: mesh.get_group(n) for n in names})
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:

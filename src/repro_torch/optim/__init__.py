@@ -1,4 +1,5 @@
-"""Optimizer of the port. ``optim/compression.py`` (the compressed
-cross-pod gradient exchange) exists only across pods and comes with
-multi-card placement (ROADMAP queue 1, item 10)."""
+"""Optimizer of the port: AdamW (``adamw``) and the compressed cross-pod
+gradient exchange with error feedback (``compression``), which runs
+between ranks, one a pod (``launch.ranks``)."""
 from .adamw import AdamWConfig, AdamWState, init, update, schedule, global_norm
+from .compression import compressed_psum_pod, init_error_feedback

@@ -1,4 +1,5 @@
-"""Serdab pipelined serving, stages in sequence on one card.
+"""Serdab pipelined serving: stages in sequence on one card, or one stage
+per rank.
 
 Port of ``repro/runtime/pipeline.py``. The block stack is split into
 ``num_stages`` contiguous stages (block counts from the placement
@@ -23,7 +24,7 @@ body ``[L, B, KVH, S, D]``, one ``len`` for every row and a per-slot
 ``start`` mask, ``per_slot_start``).
 
 What the reference does for sharding over pods and the port does not copy
-on one card:
+on one card (without ``mesh``):
 
 * the staged ``[S, bps, ...]`` parameter and cache layout with its padding
   masks: the pools and the timeline body keep one layer per row of their
@@ -35,6 +36,28 @@ on one card:
   makes ``nm * (S - 1)`` seals and as many unseals per step;
 * the ``ppermute`` ring between pods: a sealed payload stays on the card
   between its seal and its unseal.
+
+With ``mesh=`` (a ``DeviceMesh`` of the world's ranks from ``make_mesh``
+inside ranks that ``launch.ranks.spawn`` started: axes ``pod`` and
+``data``, ``pod`` of ``num_stages``) stage s runs on the ranks of pod s,
+the reference's layout. ``stage_params`` / ``stage_cache`` /
+``stage_paged_cache`` keep a rank's own layers only (and the embedding on
+stage 0, the final norm and head on the last). Microbatch m still meets
+stage s at tick ``m + s``: stage s takes its microbatches in order,
+receives each from stage s - 1, runs it, and posts it to stage s + 1
+sealed under the step's key and the counter of tick ``m + s + 1`` (raw
+without sealing) as a message (``launch.ranks``: through pinned host
+memory under gloo), so a payload leaves its enclave only as cipher text.
+The ``data`` ranks of a pod split each microbatch's rows evenly: data
+rank d takes the d-th block of ``B_mb / data`` rows and seals it under
+the leaf counter ``_leaf_counter(t + 1, d)``, so two data ranks never
+share a (key, counter) pair (with one data rank the counters, and the
+cipher, are the one-card path's). A data rank keeps its stage's whole
+cache and reads and writes only its rows (its rows' pages in the pools).
+The last stage's logits reach every rank (a broadcast over ``pod``, then a
+gather over ``data``), so the step returns the one-card path's [B, V].
+The rank step runs eagerly: a step that messages through the host is not
+captured in a CUDA graph.
 
 Each stage reads and writes only its own layers of the shared pools, for
 its microbatch's block-table rows; ``seq_lens`` advance once per step,
@@ -51,7 +74,9 @@ import torch
 
 from repro_torch.enclave import sealing
 from repro_torch.kernels import ops as K
+from repro_torch.launch import ranks as RK
 from repro_torch.models.api import ModelAPI
+from repro_torch.tree import map_tree
 
 
 def pipeline_applicable(api: ModelAPI) -> bool:
@@ -63,8 +88,9 @@ def pipeline_applicable(api: ModelAPI) -> bool:
 
 @dataclasses.dataclass
 class PipelinedDecoder:
-    """Builds the pipelined decode step of one stage layout (no mesh: the
-    stages run one after another on ``api.device``)."""
+    """Builds the pipelined decode step of one stage layout: with no mesh
+    the stages run one after another on ``api.device``; with a mesh of
+    ranks this rank runs its pod's stage (see the module's docstring)."""
 
     api: ModelAPI
     num_stages: int
@@ -72,10 +98,11 @@ class PipelinedDecoder:
     seal_boundary: bool = True
     stage_blocks: Optional[Sequence[int]] = None   # per-stage block counts
     stage_devices: Optional[Sequence[str]] = None  # per-stage device names
+    mesh: Any = None                               # a DeviceMesh of ranks
 
     @classmethod
-    def from_spec(cls, api: ModelAPI, spec, num_microbatches: int,
-                  **kw) -> "PipelinedDecoder":
+    def from_spec(cls, api: ModelAPI, spec, num_microbatches: int, *,
+                  mesh=None, **kw) -> "PipelinedDecoder":
         """A decoder straight from a planner ``PlacementSpec``: stage s runs
         segment s (``spec.segments[s]``). The spec's device order is the
         pipeline order; the trust domain changes what the cost model
@@ -86,7 +113,7 @@ class PipelinedDecoder:
         return cls(api, num_stages=spec.num_segments,
                    num_microbatches=num_microbatches,
                    stage_blocks=spec.stage_sizes(),
-                   stage_devices=spec.devices(), **kw)
+                   stage_devices=spec.devices(), mesh=mesh, **kw)
 
     def __post_init__(self):
         assert pipeline_applicable(self.api), \
@@ -112,13 +139,71 @@ class PipelinedDecoder:
         # stage s runs layers [ranges[s][0], ranges[s][1])
         self.ranges: Tuple[Tuple[int, int], ...] = tuple(
             (starts[s], starts[s + 1]) for s in range(S))
+        if self.mesh is not None:
+            self._place_on_ranks()
+
+    # -- a stage per rank ----------------------------------------------------
+    def _place_on_ranks(self) -> None:
+        from repro_torch.launch.mesh import rank_axes
+        from repro_torch.sharding import rules as R
+        sizes = R.mesh_axis_sizes(self.mesh)
+        if not R.is_device_mesh(self.mesh) \
+                or any(k > 1 for a, k in sizes.items()
+                       if a not in ("pod", "data")) \
+                or sizes.get("pod") != self.num_stages:
+            raise ValueError(
+                f"PipelinedDecoder(mesh=): a DeviceMesh of ranks over pod "
+                f"(= num_stages {self.num_stages}) and data, got {sizes} "
+                f"(a model axis is ROADMAP item 10b)")
+        ax = rank_axes(self.mesh)
+        self.stage, self.data = ax.index("pod"), ax.index("data")
+        self.num_data = ax.size("data")
+        self._pod_group, self._data_group = ax.group("pod"), ax.group("data")
+        self._pod_ranks = RK.group_ranks(self._pod_group)
+        self.staging = RK.Staging()
+
+    def _local(self, s: int) -> Tuple[int, int]:
+        """Stage s's layer range in the params and cache it runs on: its
+        range of the whole stack on one card, its own layers (from 0) on a
+        rank."""
+        if self.mesh is None:
+            return self.ranges[s]
+        return 0, self.stage_counts[s]
+
+    def _cut(self, tree):
+        lo, hi = self.ranges[self.stage]
+        return map_tree(lambda t: t[lo:hi].clone(), tree)
+
+    def stage_params(self, params):
+        """This rank's params: its stage's layers of the served segment,
+        the embedding on stage 0 (and on the last stage when the head is
+        tied to it), the final norm and head on the last stage, anything
+        else (a frontend) on stage 0. The whole tree on one card."""
+        if self.mesh is None:
+            return params
+        seg = self.api.model.served_segment.name
+        first, last = self.stage == 0, self.stage == self.num_stages - 1
+        keep = {"embed": first or (last and self.api.cfg.tie_embeddings),
+                "ln_f": last, "head": last}
+        return {k: self._cut(v) if k == seg else v
+                for k, v in params.items()
+                if k == seg or keep.get(k, first)}
+
+    def stage_paged_cache(self, cache):
+        """This rank's paged cache: its stage's layers of the pools, the
+        whole block tables and seq_lens. The dict itself on one card."""
+        if self.mesh is None:
+            return cache
+        seg = self.api.model.served_segment.name
+        return dict(cache, **{seg: self._cut(cache[seg])})
 
     # -- the timeline cache's staging (the identity on one card) -------------
     def stage_cache(self, cache):
         """A timeline cache dict -> the staged pair ``(body, len)``. The
         body keeps its ``[L, B, ...]`` layout: stage s reads its layer range
-        of it."""
-        return cache[self.api.model.served_segment.name], cache["len"]
+        of it. On a rank, the body holds the stage's layers only."""
+        body = cache[self.api.model.served_segment.name]
+        return (body if self.mesh is None else self._cut(body)), cache["len"]
 
     def unstage_cache(self, staged, new_len):
         """The inverse of ``stage_cache``."""
@@ -131,6 +216,10 @@ class PipelinedDecoder:
         form. Pools and bodies keep one layer per row of their leading dim
         whatever the stage layout, so nothing moves: the cache is valid
         under the new ranges as it is."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "restage_cache over ranks would move layers between pods "
+                "(a live swap over ranks is ROADMAP queue 1, item 10b)")
         n = self.api.model.served_segment.n
         assert new_dec.api.model.served_segment.n == n
         return cache
@@ -146,7 +235,7 @@ class PipelinedDecoder:
 
     def _stage_run(self, params, pools, s: int, x: torch.Tensor,
                    bt: torch.Tensor, sl: torch.Tensor) -> torch.Tensor:
-        start, end = self.ranges[s]
+        start, end = self._local(s)
         return self.api.model.decode_blocks(params, pools, x, bt, sl,
                                             start, end,
                                             pos3=self._pos3(sl, x.shape[0]))
@@ -157,7 +246,7 @@ class PipelinedDecoder:
         """Stage s's layers on the timeline rows ``rows``, carrying every
         layer's cache tree (a Hymba layer's rolling KV, conv window and SSM
         state, an xLSTM pair's recurrent state) in place."""
-        lo, hi = self.ranges[s]
+        lo, hi = self._local(s)
         return self.api.model.decode_timeline_blocks(
             params, body, x, cache_len, start, lo, hi, rows,
             pos3=self._pos3(cache_len, x.shape[0]))
@@ -205,7 +294,7 @@ class PipelinedDecoder:
         if not paged:
             return self._build_timeline(per_slot_start)
         stage_run = self._stage_run
-        ticks = self._ticks()
+        ticks = self._ticks() if self.mesh is None else self._rank_ticks()
 
         def step_fn(params, cache, batch, key):
             bt, sl = cache["block_tables"], cache["seq_lens"]
@@ -224,7 +313,7 @@ class PipelinedDecoder:
         position ``len``; stage s runs its layer range on them and seals
         its boundary as on the paged layout."""
         stage_run = self._timeline_stage_run
-        ticks = self._ticks()
+        ticks = self._ticks() if self.mesh is None else self._rank_ticks()
 
         def step_fn(params, cache, batch, key):
             if per_slot_start:
@@ -285,5 +374,68 @@ class PipelinedDecoder:
                     else:
                         inflight[m] = h
             return torch.cat(logits)
+
+        return ticks
+
+    def _rank_ticks(self) -> Callable:
+        """``_ticks`` on a rank: this rank's stage over the microbatches in
+        order, its rows of each (``data`` ranks split them), inputs
+        received from the previous stage's rank of this data index and
+        outputs posted to the next one's; then the last stage's logits to
+        every rank."""
+        api, model = self.api, self.api.model
+        S, nm, s = self.num_stages, self.num_microbatches, self.stage
+        D, d = self.num_data, self.data
+        seal_on = self.seal_boundary
+        ctrs = sealing.leaf_counters(nm + S, api.device, leaf=d) \
+            if seal_on else None
+        prev = self._pod_ranks[s - 1] if s > 0 else None
+        nxt = self._pod_ranks[s + 1] if s < S - 1 else None
+        staging, pod_g = self.staging, self._pod_group
+        dm, V = api.cfg.d_model, api.cfg.vocab_size
+
+        def ticks(params, tokens, key, run):
+            B = tokens.shape[0]                            # tokens [B, 1]
+            assert B % (nm * D) == 0, (B, nm, D)
+            B_mb = B // nm
+            b = B_mb // D
+            dev = tokens.device
+            if seal_on:
+                likes = (torch.empty((b, dm), dtype=torch.uint8, device=dev),
+                         torch.empty((b, 1), dtype=torch.float32,
+                                     device=dev))
+            else:
+                likes = (torch.empty((b, 1, dm), dtype=api.dtype,
+                                     device=dev),)
+            logits = torch.empty((nm, b, V), dtype=torch.float32,
+                                 device=dev)
+            posted = []
+            for m in range(nm):
+                t = m + s                          # the reference's tick
+                rows = slice(m * B_mb + d * b, m * B_mb + (d + 1) * b)
+                if s == 0:
+                    x = model.embed(params, tokens[rows])
+                else:
+                    got = RK.recv(staging, likes, prev, pod_g,
+                                  tag="in").wait()
+                    x = K.unseal(got[0], got[1], key, ctrs[t:t + 1],
+                                 out_dtype=api.dtype).reshape(b, 1, dm) \
+                        if seal_on else got[0]
+                h = run(s, x, rows)
+                if nxt is None:
+                    logits[m] = model.head(params, h)
+                else:
+                    payload = K.seal(h.reshape(-1, dm), key,
+                                     ctrs[t + 1:t + 2]) if seal_on else (h,)
+                    posted.append(RK.send(staging, payload, nxt, pod_g,
+                                          tag=("out", m)))
+            for p in posted:
+                p.wait()
+            RK.broadcast(staging, logits, self._pod_ranks[-1], pod_g,
+                         tag="logits")
+            every = logits[None] if D == 1 else RK.all_gather(
+                staging, logits, self._data_group, tag="logits")
+            # every: [D, nm, b, V]; row m * B_mb + d * b + j is [d, m, j]
+            return every.transpose(0, 1).reshape(B, V)
 
         return ticks

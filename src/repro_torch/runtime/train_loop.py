@@ -10,6 +10,13 @@
 
 The loop reads the loss back each step (``float(loss)``), the one host
 sync of a step; the step's time therefore covers its device work.
+
+Over ranks (``launch.ranks``) every rank runs the loop on its own state;
+rank 0 alone writes checkpoints, and every rank restores from them. The
+compressed step's error-feedback buffer rides in ``extra_step_args``
+(passed ahead of the batch, replaced by what the step returns) and, as in
+the reference, is not checkpointed: a resumed compressed run restarts it
+from zeros.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 
@@ -37,7 +45,8 @@ class TrainLoop:
                  ckpt: Optional[CheckpointManager] = None,
                  cfg: TrainLoopConfig = TrainLoopConfig(),
                  on_straggler: Optional[Callable[[int, float, float],
-                                                 None]] = None):
+                                                 None]] = None,
+                 extra_step_args: tuple = ()):
         self.train_step = train_step
         self.params = params
         self.opt_state = opt_state
@@ -45,6 +54,7 @@ class TrainLoop:
         self.ckpt = ckpt
         self.cfg = cfg
         self.on_straggler = on_straggler
+        self.extra_step_args = extra_step_args
         self.step = 0
         self.losses: list = []
         self.gnorms: list = []
@@ -71,7 +81,8 @@ class TrainLoop:
         return {"params": self.params, "opt": self.opt_state}
 
     def save(self, block: bool = False):
-        if self.ckpt is None:
+        if self.ckpt is None or (dist.is_initialized()
+                                 and dist.get_rank() != 0):
             return
         extra = {"data": self.data.state_dict()
                  if hasattr(self.data, "state_dict") else {},
@@ -101,8 +112,14 @@ class TrainLoop:
         while self.step < end and not self._preempted:
             t0 = time.monotonic()      # include the input pipeline: a slow
             batch = next(self.data)    # host data feed is also a straggler
-            loss, self.params, self.opt_state, gnorm = self.train_step(
-                self.params, self.opt_state, batch, np.int32(self.step))
+            out = self.train_step(self.params, self.opt_state,
+                                  *self.extra_step_args, batch,
+                                  np.int32(self.step))
+            if len(out) == 4:
+                loss, self.params, self.opt_state, gnorm = out
+            else:              # the compressed step returns its ef too
+                loss, self.params, self.opt_state, ef, gnorm = out
+                self.extra_step_args = (ef,)
             loss = float(loss)
             dt = time.monotonic() - t0
             # straggler detection on steady-state steps; the first measured

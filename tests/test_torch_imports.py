@@ -29,6 +29,9 @@ def test_port_and_chip_smoke_import_no_jax_and_nothing_of_repro():
             repro_torch.__path__, "repro_torch.")]
         for n in names:
             importlib.import_module(n)
+        # the modules of the pod axis over ranks among them
+        assert {"repro_torch.launch.ranks", "repro_torch.launch.rank_jobs",
+                "repro_torch.optim.compression"} <= set(names), names
         spec = importlib.util.spec_from_file_location(
             "chip_smoke", "chip_smoke.py")
         importlib.util.module_from_spec(spec)

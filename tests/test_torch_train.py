@@ -520,9 +520,8 @@ def test_straggler_hook(setup):
 
 
 @pytest.mark.parametrize("flags,names", [
-    (["--mesh", "2x1"], "item"), (["--production-mesh"], "--production-mesh"),
-    (["--multi-pod"], "--multi-pod"),
-    (["--compress-pod-grads"], "--compress-pod-grads")])
+    (["--production-mesh"], "--production-mesh"),
+    (["--mesh", "1x2"], "model axis")])
 def test_launcher_refuses_meshes_by_name(flags, names):
     with pytest.raises(NotImplementedError, match=names) as e:
         train.main(["--arch", "llama3.2-1b", "--reduced", "--device", "cpu",
@@ -530,3 +529,32 @@ def test_launcher_refuses_meshes_by_name(flags, names):
     assert "ROADMAP" in str(e.value)
     train.check_args(train.build_parser().parse_args(
         ["--arch", "x", "--mesh", "1x1"]))
+
+
+# the launcher's meshes that run (they were refused before meshes ran over
+# ranks), each against the plain one-device run of the same flags: alone,
+# --multi-pod and --compress-pod-grads leave no pod axis and run the plain
+# step, as the reference's launcher does (its default mesh is (1, 1) over
+# data and model), so their losses are the plain run's bit for bit; a 2x1
+# (data x model) mesh is data parallelism over two gloo ranks, the
+# reference's GSPMD batch sharding, equal to one device within rtol 1e-5
+SHORT = ["--arch", "llama3.2-1b", "--reduced", "--device", "cpu", "--steps",
+         "3", "--batch", "4", "--seq", "32", "--f32"]
+
+
+@pytest.fixture(scope="module")
+def plain_run():
+    return train.main(SHORT)["losses"]
+
+
+@pytest.mark.parametrize("flags,rtol", [
+    (["--mesh", "2x1", "--backend", "gloo"], 1e-5),
+    (["--multi-pod"], 0.0),
+    (["--compress-pod-grads"], 0.0)])
+def test_launcher_meshes_run_as_the_reference_does(plain_run, flags, rtol):
+    losses = train.main(SHORT + flags)["losses"]
+    assert len(losses) == 3
+    if rtol:
+        np.testing.assert_allclose(losses, plain_run, rtol=rtol)
+    else:
+        assert losses == plain_run
