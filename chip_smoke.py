@@ -255,7 +255,17 @@ Phases (each prints its own lines; any failure exits non-zero):
      the error feedback finite and nonzero, 2 x 16 x 5 flash launches a
      rank, int8 bytes exchanged a step against f32's, host ms a step, each
      rank's peak memory; (c) reduced llama3.2-1b in f32 on (2, 2) ranks,
-     plain and compressed, the card against the CPU.
+     plain and compressed, the card against the CPU;
+ 20. the serving engine over pod ranks (``ServingEngine(mesh=)``): phase
+     6's stream on two ranks spawned on the card over gloo, each holding
+     its stage's layers of params and pools: (a) sealed, streams bit-equal
+     to phase 6's, swap-outs with every swap-in restored bit-exactly,
+     launches per rank as its layers say; (b) unsealed, with and without
+     ``--inject-straggler 1:10``: a swap migrates layers between the
+     ranks, the streams stay; (c) the ranks' first swap-out parts side by
+     side are phase 6's payload with its digest; (d) no (key, counter)
+     pair ciphers twice; host ms a decode step, admission, a prefill
+     crossing, a restage, swap-out and swap-in.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
@@ -535,6 +545,48 @@ def check_cipher(torch, ops, ref, sealing, cols, MP=10):
         log(f"check seal_bits/unseal_bits {dtype}: {len(cases)} odd and "
             f"unaligned cases bit-exact (tails of 1..7, offset by one "
             f"element at [{MP}, {cols}] and [3, 2047])")
+
+
+# a pipeline rank's window of llama3.2-1b's swap row at stage (1, 15): its
+# layers' columns of [pages_per_slot, 16 x 8 x 16 x 64]
+WINDOW_LAYER = 8 * 16 * 64
+WINDOW_STAGES = ((0, 1), (1, 16))
+
+
+def check_cipher_window(torch, ops, ref, sealing, MP=10):
+    """Page cipher over a window of a row (a rank's layers of a swap row)
+    against its plain version: bit-exact cipher at each stage's window,
+    equal to those columns of the whole row's cipher, and a bit-exact
+    round trip; also a window one element past a 16-byte boundary (the
+    scalar path)."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    row = 16 * WINDOW_LAYER
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(MP, row, generator=g, device="cuda").to(dtype)
+        idt = torch.int32 if dtype == torch.float32 else torch.int16
+        ctr = sealing._swap_counter(11, 1)
+        whole = ops.seal_bits(x, 0xC0FFEE, ctr)
+        for lo, hi in WINDOW_STAGES:
+            part = x[:, lo * WINDOW_LAYER:hi * WINDOW_LAYER].contiguous()
+            args = (0xC0FFEE, ctr, lo * WINDOW_LAYER, row)
+            ck = ops.seal_bits(part, *args)
+            assert torch.equal(ck, ref.seal_bits_ref(part, *args)), \
+                f"seal_bits window {dtype} {lo, hi}: differs from ref"
+            assert torch.equal(
+                ck, whole[:, lo * WINDOW_LAYER:hi * WINDOW_LAYER]), \
+                "a window's cipher is not the whole row's columns"
+            back = ops.unseal_bits(ck, 0xC0FFEE, ctr, dtype,
+                                   lo * WINDOW_LAYER, row)
+            assert torch.equal(back.view(idt), part.view(idt))
+        odd = torch.empty(MP * WINDOW_LAYER + 1, dtype=dtype,
+                          device="cuda")[1:].view(MP, WINDOW_LAYER)
+        odd.copy_(x[:, :WINDOW_LAYER])
+        args = (0xC0FFEE, ctr, 3 * WINDOW_LAYER, row)
+        assert torch.equal(ops.seal_bits(odd, *args),
+                           ref.seal_bits_ref(odd, *args))
+        log(f"check seal_bits/unseal_bits window {dtype}: stages "
+            f"{WINDOW_STAGES} of [{MP}, {row}] bit-exact, each the whole "
+            f"row's columns, and an unaligned window")
 
 
 # (shape, dtype, offset): offset 1 is a contiguous tensor that starts one
@@ -950,6 +1002,41 @@ def time_kernels(torch, ops, ref, sealing, F):
                 f"{ms * 1e3:.2f} us, in a graph {in_graph * 1e3:.2f} us, "
                 f"plain {plain * 1e3:.1f} us, xor {lib * 1e3:.2f} us, bound "
                 f"{b_ms * 1e3:.2f} us ({b_by}, {nbytes / 1e6:.2f} MB)")
+
+    # the windowed cipher at stage (1, 15)'s rank 1: [10, 15 layers] of
+    # llama3.2-1b's swap row
+    lo, hi = WINDOW_STAGES[1]
+    row = 16 * WINDOW_LAYER
+    x = torch.randn(10, (hi - lo) * WINDOW_LAYER, generator=g,
+                    device="cuda").to(torch.bfloat16)
+    kt = torch.tensor([0xC0FFEE], device="cuda")
+    ctr = torch.tensor([sealing._swap_counter(3, 0)], device="cuda")
+    win = (lo * WINDOW_LAYER, row)
+    c = ops.seal_bits(x, kt, ctr, *win)
+    ks = ref.seal_bits_ref(torch.zeros_like(x), kt, ctr, *win)
+    xi = x.view(torch.int16)
+    nbytes = 2.0 * x.numel() * x.element_size()
+    b_ms, b_by = bound(nbytes, KEYSTREAM_OPS * x.numel(), INT32_OP_PER_S)
+    lib = time_ms(lambda: torch.bitwise_xor(xi, ks))
+    for name, fn, plain_fn in (
+            ("seal_bits_window", lambda: ops.seal_bits(x, kt, ctr, *win),
+             lambda: ref.seal_bits_ref(x, kt, ctr, *win)),
+            ("unseal_bits_window",
+             lambda: ops.unseal_bits(c, kt, ctr, torch.bfloat16, *win),
+             lambda: ref.unseal_bits_ref(c, kt, ctr, torch.bfloat16,
+                                         *win))):
+        ms = time_ms(fn)
+        in_graph = graph_ms(fn)
+        plain = time_ms(plain_fn, 20)
+        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                         graph_ms=in_graph)
+        log(f"time {name} bf16 [10, {x.shape[1]}] (rank 1's window of "
+            f"llama3.2-1b's row at stage (1, 15), from column {win[0]} of "
+            f"{row}): kernel {ms * 1e3:.2f} us, in a graph "
+            f"{in_graph * 1e3:.2f} us, plain {plain * 1e3:.1f} us, xor "
+            f"{lib * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us ({b_by}, "
+            f"{nbytes / 1e6:.2f} MB)")
 
     # quantizing seal at the stage boundary: [B_mb = 4, d_model = 2048] bf16
     x = torch.randn(4, 2048, generator=g, device="cuda").to(torch.bfloat16)
@@ -1485,16 +1572,21 @@ def serve_full_width(torch, ops, api, params, argv, phase, overrides=None,
     sampler = SamplerTimes(torch, eng) if time_sampler else None
     planned = eng.stage_blocks
     be = eng.backend
-    gathered, restored = {}, []
+    gathered, restored, first_swap = {}, [], {}
     bad = torch.zeros((), dtype=torch.int64, device="cuda")
     probe_layers = [0]
     orig_gather, orig_scatter, orig_step = (be.gather_pages,
                                             be.scatter_pages, be.step)
 
     def gather(pages, key, ctr):
+        from repro_torch.enclave import sealing
         pg = torch.from_numpy(pages.astype("int64")).cuda()
         gathered[ctr] = [pool[:, pg].clone() for pool in be.cache["blocks"]]
-        return orig_gather(pages, key, ctr)
+        out = orig_gather(pages, key, ctr)
+        if not first_swap:          # phase 20 holds the ranks' parts to it
+            first_swap.update(counter=ctr, payload=tuple(
+                sealing.cipher_to_host(c) for c in out))
+        return out
 
     def scatter(ck, cv, pages, key, ctr):
         orig_scatter(ck, cv, pages, key, ctr)
@@ -1620,6 +1712,7 @@ def serve_full_width(torch, ops, api, params, argv, phase, overrides=None,
     if sampler is not None:
         log(f"serve phase {phase}: sampler {sampler.describe()}")
     return dict(launches=launches, streams=[list(r.generated) for r in reqs],
+                first_swap=first_swap,
                 schedule={k: st[k] for k in SCHEDULE}, steps=be.steps,
                 step_ms=step_ms, chunk_ms=chunk_ms, tok_per_s=st["tok_per_s"],
                 admission=(st.get("admission_p50_ms", 0.0),
@@ -5020,6 +5113,204 @@ def pod_ranks(torch, ops, smi):
     return [{"launches": launches}]
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the serving engine over pod ranks (ROADMAP item 10b, first
+# half): phase 6's stream with stage s on rank s, gloo on the one card
+RANKS_SERVE = FULL_WIDTH + ["--backend", "pipelined"]      # phase 6's flags
+RANKS_STRAGGLER = (1, 10.0)          # serve's --inject-straggler 1:10
+
+
+def _p50(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def serve_ranks(torch, ops, smi, phase6=None):
+    """20. ``ServingEngine(mesh=)``: phase 6's stream (full-width
+    llama3.2-1b in bf16, pipelined, 8 slots, 30 pages, stage blocks
+    (1, 15)) on two pod ranks spawned on the card over gloo, each rank
+    holding its stage's layers of the params and the pools, in one spawn:
+    (a) sealed: streams bit-equal to phase 6's one-card engine (``phase6``,
+    or run here first when the phase runs alone); swap-outs > 0 and every
+    swap-in restored bit for bit; per rank paged launches = its layers x
+    (microbatches x decode steps + its stage probes), flash = its layers x
+    prefill calls; seals on rank 0 = unseals on rank 1 = microbatches x
+    steps; the windowed cipher 2 x swap-outs and 2 x swap-ins, the prefill
+    crossings (the page cipher) one a prefill call; (b) unsealed, without
+    and with ``--inject-straggler 1:10``: a swap that migrates layers
+    between the ranks, other final stage blocks, the same streams (the
+    quantizing seal makes streams depend on the boundary, which is why
+    serve's ``--verify-swap`` runs unsealed; a sealed run with the
+    straggler is read against (a)); (c) the ranks' parts of the
+    first swap-out, side by side, byte-equal to phase 6's first payload
+    with its ``payload_digest``; (d) no (key, counter) pair sealed twice
+    on a rank, nor on both but as the two windows of one row; every rank's
+    events and stats the same. Prints host ms a decode step on each rank
+    beside phase 6's, admission p50/p99, a prefill crossing's and a
+    restage's host ms and bytes, swap-out and swap-in host ms, and how
+    many of (a)'s streams a sealed run with the straggler keeps (read,
+    not held). Returns the ranks' launch counts, summed."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.enclave import sealing
+    from repro_torch.launch import rank_jobs, serve
+    from repro_torch.launch.ranks import spawn
+    t_phase = time.perf_counter()
+    _free(torch)
+    argv = [DEV if a == "cuda" else a for a in RANKS_SERVE]
+    args = serve.build_parser().parse_args(argv)
+    cfg = _family_cfg("llama3.2-1b")
+    if phase6 is None:                    # run alone: phase 6 first
+        from repro_torch.models.api import build_model
+        api = build_model(cfg, device=DEV, dtype=torch.bfloat16)
+        params = api.init(torch.Generator(device=DEV).manual_seed(
+            args.seed))
+        phase6 = serve_full_width(torch, ops, api, params, argv, 6,
+                                  plan=(1, cfg.num_layers - 1))
+        del api, params
+        _free(torch)
+    L, nm = cfg.num_layers, args.microbatches
+    reqs = [(p, args.max_new)
+            for p in serve.gen_prompts(args, cfg.vocab_size)]
+    sealed = serve.make_config(args)
+    calm = dataclasses.replace(sealed, seal_boundary=False)
+    runs = [rank_jobs.ServeRun(c, reqs, every=args.arrival_every,
+                               inject=inject, check_swaps=True)
+            for c, inject in ((sealed, None), (calm, None),
+                              (calm, RANKS_STRAGGLER),
+                              (sealed, RANKS_STRAGGLER))]
+    t0 = time.perf_counter()
+    out = spawn(rank_jobs.serve, 2, backend="gloo", device=DEV, args=(
+        rank_jobs.ServeJob(cfg, runs, dtype=torch.bfloat16,
+                           seed=args.seed),))
+    spawn_s = time.perf_counter() - t0
+    launches = {k: 0 for k in ops.LAUNCHES}
+    for res in out:
+        for r in res:
+            for k in launches:
+                launches[k] += r["launches"][k]
+    for i in range(len(runs)):            # (d), and one decision a step
+        r0, r1 = out[0][i], out[1][i]
+        assert r0["events"] == r1["events"] and r0["stats"] == r1["stats"]
+        bad = rank_jobs.keystream_reuse([r0["keys"], r1["keys"]])
+        assert not bad, ("20d: a (key, counter) pair ciphered twice",
+                         bad[:3])
+    # (a) phase 6's stream on ranks, sealed
+    a = [res[0] for res in out]
+    st = a[0]["stats"]
+    # phase 6's plan, and no live swap: a sealed boundary moved would
+    # change the streams (a re-plan to the same blocks moves nothing)
+    assert st["stage_blocks"] == (1, L - 1) and st["swaps"] == 0, st
+    assert st["swap_outs"] > 0 and st["swap_ins"] > 0, st
+    for rank, r in enumerate(a):
+        assert r["status"] == ["done"] * len(reqs), r["status"]
+        assert r["streams"] == phase6["streams"], \
+            ("20a: streams differ from phase 6's one-card engine", rank)
+        assert r["restored"] > 0 and r["moved"] == 0, r["restored"]
+        lo, hi = r["range"]
+        steps, lc = r["decode_steps"], r["launches"]
+        if DEV == "cuda":
+            assert lc["paged_attention"] == (hi - lo) * (
+                nm * steps + r["probes"]), (rank, lc, steps, r["probes"])
+            assert lc["flash_attention"] == (hi - lo) * st["prefill_calls"]
+            assert lc["seal"] == (nm * steps if rank == 0 else 0), lc
+            assert lc["unseal"] == (nm * steps if rank == 1 else 0), lc
+            assert lc["seal_bits_window"] == 2 * st["swap_outs"], lc
+            assert lc["unseal_bits_window"] == 2 * st["swap_ins"], lc
+            assert lc["seal_bits"] == (st["prefill_calls"] if rank == 0
+                                       else 0), lc
+            assert lc["unseal_bits"] == (st["prefill_calls"] if rank == 1
+                                         else 0), lc
+    cross = a[0]["crossings"]
+    log(f"phase 20a llama3.2-1b ({L} layers) bf16, phase 6's stream on 2 "
+        f"pod ranks (stage blocks {st['stage_blocks']}: rank 0 layers "
+        f"{a[0]['range']}, rank 1 {a[1]['range']}), sealed: streams "
+        f"bit-equal to phase 6's one-card engine; {st['completed']} "
+        f"requests, {a[0]['decode_steps']} decode steps, swap-outs "
+        f"{st['swap_outs']}, swap-ins {st['swap_ins']} ({a[0]['restored']} "
+        f"/ {a[1]['restored']} pages restored bit-exact on rank 0 / 1); "
+        f"host ms a decode step p50 rank 0 {_p50(a[0]['step_ms']):.3f}, "
+        f"rank 1 {_p50(a[1]['step_ms']):.3f}, mean "
+        f"{sum(a[0]['step_ms']) / len(a[0]['step_ms']):.3f} / "
+        f"{sum(a[1]['step_ms']) / len(a[1]['step_ms']):.3f} (phase 6 one "
+        f"card {phase6['step_ms']:.3f} mean); admission p50 / p99 "
+        f"{st['admission_p50_ms']:.1f} / {st['admission_p99_ms']:.1f} ms "
+        f"(phase 6 {phase6['admission'][0]:.1f} / "
+        f"{phase6['admission'][1]:.1f}) [{smi}]")
+    log(f"phase 20a: a prefill crossing (rank 0 -> 1, sealed with the page "
+        f"cipher): host ms p50 {_p50([c[0] for c in cross]):.4f} over "
+        f"{len(cross)}, bytes {cross[0][1]} for the first "
+        f"({cross[0][1] // (2 * cfg.d_model)} positions), "
+        f"{sum(c[1] for c in cross)} in all; swap-out host ms p50 rank 0 "
+        f"{_p50(a[0]['swap_out_ms']):.3f}, rank 1 "
+        f"{_p50(a[1]['swap_out_ms']):.3f}; swap-in "
+        f"{_p50(a[0]['swap_in_ms']):.3f} / {_p50(a[1]['swap_in_ms']):.3f}; "
+        f"decode bytes sent a step p50 rank 0 {_p50(a[0]['step_bytes'])}; "
+        f"launches rank 0 {a[0]['launches']}, rank 1 {a[1]['launches']}")
+    # (c) the first swap-out's parts, side by side, are phase 6's payload
+    want = phase6["first_swap"]
+    parts = [r["first_swap"] for r in a]
+    assert all(p["counter"] == want["counter"] for p in parts), parts
+    whole = tuple(np.concatenate([p["payload"][i] for p in parts], axis=1)
+                  for i in range(2))
+    for got, exp in zip(whole, want["payload"]):
+        assert got.dtype == exp.dtype and got.shape == exp.shape and \
+            bytes(got.tobytes()) == bytes(exp.tobytes()), \
+            "20c: the ranks' parts are not phase 6's payload"
+    digest = sealing.payload_digest(whole)
+    assert digest == sealing.payload_digest(want["payload"])
+    log(f"phase 20c: first swap-out (counter {want['counter']}): rank 0's "
+        f"part {parts[0]['payload'][0].shape} and rank 1's "
+        f"{parts[1]['payload'][0].shape} per plane, side by side, "
+        f"byte-equal to phase 6's {want['payload'][0].shape} with the same "
+        f"payload_digest")
+    # (b) a live re-plan over the ranks, unsealed
+    b0, b1 = out[0][1], out[0][2]
+    for rank in range(2):
+        assert out[rank][2]["streams"] == out[rank][1]["streams"], \
+            ("20b: streams differ across the live swap", rank)
+    s0, s1 = b0["stats"], b1["stats"]
+    assert s1["swaps"] >= 1 and s1["stage_blocks"] != s0["stage_blocks"]
+    assert any(kind == "swap" and d["migrated"]
+               for _, kind, d in b1["events"]), b1["events"]
+    rest = [res[2]["restages"] for res in out]
+    swaps = ", ".join(f"{d['from']}->{d['to']}" for _, kind, d
+                      in b1["events"] if kind == "swap")
+    log(f"phase 20b: unsealed, with --inject-straggler 1:10: {s1['swaps']} "
+        f"live swaps ({swaps}), final stage blocks {s1['stage_blocks']} against "
+        f"{s0['stage_blocks']} undisturbed, streams equal; a restage's host "
+        f"ms and bytes sent, rank 0 "
+        f"{[(round(m, 2), n) for m, n in rest[0]]}, rank 1 "
+        f"{[(round(m, 2), n) for m, n in rest[1]]}; swap-ins across a "
+        f"re-plan {b1['relayouts']}; host ms a decode step p50 "
+        f"{_p50(b0['step_ms']):.3f} undisturbed")
+    # the same straggler with the boundary sealed: the int8 seal moves
+    # with the boundary, so the streams may part from (a)'s at near-ties
+    # of the logits (read, not held)
+    d = out[0][3]
+    assert d["stats"]["swaps"] >= 1 and any(
+        kind == "swap" and e["migrated"] for _, kind, e in d["events"])
+    same = sum(x == y for x, y in zip(d["streams"], a[0]["streams"]))
+    first = min((i for x, y in zip(d["streams"], a[0]["streams"])
+                 for i, (p, q) in enumerate(zip(x, y)) if p != q),
+                default=None)
+    log(f"phase 20b, sealed with the straggler (final stage blocks "
+        f"{d['stats']['stage_blocks']}): {same} of {len(reqs)} streams "
+        f"equal 20a's; the earliest parting at token {first} (the int8 "
+        f"boundary moved; not held)")
+    log(f"phase 20d: (key, counter) pairs sealed under, rank 0 / rank 1: "
+        f"{len(a[0]['keys'])} / {len(a[1]['keys'])} (20a), "
+        f"{len(b1['keys'])} / {len(out[1][2]['keys'])} (20b straggler); "
+        f"none twice, the swaps' shared by the two ranks only as disjoint "
+        f"windows of one row; every rank's events and stats equal")
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s (the spawn "
+        f"{spawn_s:.1f} s)")
+    del out
+    return [{"launches": launches}]
+
+
 def _sharding_leaves(tree):
     from repro_torch.sharding.rules import NamedSharding
     if isinstance(tree, NamedSharding):
@@ -5079,6 +5370,7 @@ def main() -> int:
     pa_err = check_paged_attention(torch, ops, ref)
     for cols in CIPHER_COLS.values():
         check_cipher(torch, ops, ref, sealing, cols=cols)
+    check_cipher_window(torch, ops, ref, sealing)
     q8_err = check_seal_q8(torch, ops, ref)
     check_captured_keys(torch, ops, ref, sealing)
     fa_err = check_flash_attention(torch, ops, ref)
@@ -5165,6 +5457,8 @@ def main() -> int:
     # phase 19: the pod axis over ranks on the card (gloo): the pipelined
     # decoder one stage a rank, the compressed train step over two pods
     runs += pod_ranks(torch, ops, smi0)
+    # phase 20: the serving engine over pod ranks, phase 6's stream
+    runs += serve_ranks(torch, ops, smi0, runs[1])
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 
@@ -5177,6 +5471,10 @@ def main() -> int:
             ("seal_bits", src + "seal_bits.cu",
              "src/repro/kernels/seal.py:106", 0.0),
             ("unseal_bits", src + "seal_bits.cu",
+             "src/repro/kernels/seal.py:106", 0.0),
+            ("seal_bits_window", src + "seal_bits.cu",
+             "src/repro/kernels/seal.py:106", 0.0),
+            ("unseal_bits_window", src + "seal_bits.cu",
              "src/repro/kernels/seal.py:106", 0.0),
             ("seal", src + "seal_q8.cu", "src/repro/kernels/seal.py:48",
              q8_err),

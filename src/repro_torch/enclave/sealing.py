@@ -15,6 +15,16 @@ sequence through ``transfer_seq`` into ``[TRANSFER_SEQ_BASE,
 counter does. The same (key, seq, part) gives the same cipher bytes in both
 packages, so a payload sealed by one unseals under the other.
 
+An engine whose pipeline stages are ranks (``ServingEngine(mesh=)``) moves
+with the page cipher what the reference moves inside one program, each
+under sequence numbers of its own, carved out of the swap space below the
+half the prefill role of a disaggregated pair draws from (a rank engine
+has no such role): a prefill's hidden state crossing a stage boundary
+(``crossing_seq``) and the layers a live re-plan moves between ranks
+(``restage_seq``). A rank seals its own layers of a swap row as a window
+of the row (``seal_pages(col0=, row_cols=)``): the ranks' windows side by
+side are the one-card payload, under the one-card (key, counter).
+
 Keys, sequence numbers, steps and counters are Python ints or one-element
 integer tensors (``kernels.seal.u32``): a tensor stays on its device and
 the counter arithmetic runs there, with the same uint32 wrap, so a swap or
@@ -54,6 +64,32 @@ def transfer_seq(n: int) -> int:
     return TRANSFER_SEQ_BASE + n
 
 
+# the rank engine's sequence spaces: swaps of a decode engine stay below
+# CROSSING_SEQ_BASE (2^28 of them), the prefill role of a pair starts at
+# TRANSFER_SEQ_BASE // 2
+CROSSING_SEQ_BASE = TRANSFER_SEQ_BASE // 4
+RESTAGE_SEQ_BASE = 3 * TRANSFER_SEQ_BASE // 8
+
+
+def _in_space(name: str, base: int, n: int) -> int:
+    size = TRANSFER_SEQ_BASE // 8
+    if not 0 <= n < size:
+        raise ValueError(f"{name} {n} outside [0, {size})")
+    return base + n
+
+
+def crossing_seq(n: int) -> int:
+    """The swap sequence number of the n-th prefill crossing between two
+    pipeline ranks (part 0)."""
+    return _in_space("crossing", CROSSING_SEQ_BASE, n)
+
+
+def restage_seq(n: int) -> int:
+    """The swap sequence number of the n-th tensor a live re-plan moves
+    between two pipeline ranks (part 0)."""
+    return _in_space("restage message", RESTAGE_SEQ_BASE, n)
+
+
 def _swap_counter(swap_seq, part: int):
     """uint32 ``0xA5A50000 ^ (2 * seq + part)``, wrapped like JAX's uint32;
     an int for an int ``swap_seq``, an int64 scalar tensor on its device
@@ -61,17 +97,28 @@ def _swap_counter(swap_seq, part: int):
     return 0xA5A50000 ^ ((u32(swap_seq) * 2 + int(part)) & 0xFFFFFFFF)
 
 
-def seal_pages(pages: torch.Tensor, key, swap_seq, *,
-               part: int = 0) -> torch.Tensor:
+def seal_pages(pages: torch.Tensor, key, swap_seq, *, part: int = 0,
+               col0: int = 0, row_cols=None) -> torch.Tensor:
     """pages [n_pages, row_elems] float -> cipher int16/int32 on the same
-    device (the CUDA kernel for a CUDA tensor)."""
-    return K.seal_bits(pages, key, _swap_counter(swap_seq, part))
+    device (the CUDA kernel for a CUDA tensor). With ``col0`` and
+    ``row_cols``, ``pages`` is columns [col0, col0 + row_elems) of rows
+    ``row_cols`` wide, and the cipher those columns of the whole rows'."""
+    return K.seal_bits(pages, key, _swap_counter(swap_seq, part),
+                       **_window(col0, row_cols))
 
 
 def unseal_pages(cipher: torch.Tensor, key, swap_seq,
-                 out_dtype: torch.dtype, *, part: int = 0) -> torch.Tensor:
+                 out_dtype: torch.dtype, *, part: int = 0, col0: int = 0,
+                 row_cols=None) -> torch.Tensor:
     return K.unseal_bits(cipher, key, _swap_counter(swap_seq, part),
-                         out_dtype=out_dtype)
+                         out_dtype=out_dtype, **_window(col0, row_cols))
+
+
+def _window(col0: int, row_cols) -> dict:
+    """The cipher's window arguments; none for a whole row."""
+    if col0 == 0 and row_cols is None:
+        return {}
+    return {"col0": col0, "row_cols": row_cols}
 
 
 # ---------------------------------------------------------------------------

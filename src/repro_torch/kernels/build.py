@@ -39,7 +39,7 @@ SIGNATURES = {
     # the cipher kernels read key and counter from device memory: two
     # pointers, each to one int64
     "seal_bits": ("seal_bits", "repro_bits_xor",
-                  [_P, _P, _LL, _P, _P] + [_I] * 4 + [_P]),
+                  [_P, _P, _LL, _P, _P, _I, _I, _LL, _LL, _LL, _I, _I, _P]),
     "seal_q8": ("seal_q8", "repro_seal_q8", [_P, _P, _P, _I, _I, _P, _P]
                 + [_I] * 3 + [_P]),
     "unseal_q8": ("seal_q8", "repro_unseal_q8", [_P, _P, _P, _I, _I, _P, _P]

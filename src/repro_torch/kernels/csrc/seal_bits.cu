@@ -41,6 +41,13 @@
 //   - Up to VEC - 1 tail elements past the last whole vector go to the
 //     first threads, one each. When a pointer is not 16-byte aligned the
 //     item is one element (scalar loads) and there is no tail.
+//   - A window: the tensor may be columns [col0, col0 + cols) of rows
+//     row_cols wide (a pipeline rank's layers of a swap row). Element
+//     (row, j) then takes index row * row_cols + col0 + j, so the ranks'
+//     windows, side by side, are the whole row's cipher text. The wrapper
+//     passes cols a multiple of 8, so a 16-byte vector never straddles
+//     two rows and only a thread's first index changes (one 64-bit
+//     division a thread). cols == 0 is the whole row: the flat index.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -79,44 +86,59 @@ __device__ __forceinline__ void xor_vector(const KeystreamConsts& kc,
   }
 }
 
+// Where the tensor sits in the rows it is a window of (see the design
+// notes): cols == 0 for a whole row.
+struct Window {
+  long long cols, row_cols, col0;
+};
+
+// The keystream index of flat element `flat` of the tensor, modulo 2**32.
+__device__ __forceinline__ uint32_t key_index(long long flat,
+                                              const Window& w) {
+  if (w.cols == 0) return (uint32_t)flat;
+  const long long row = flat / w.cols;
+  return (uint32_t)(row * w.row_cols + w.col0 + (flat - row * w.cols));
+}
+
 // Thread g XORs item g (a 16-byte vector when VEC, else one element) and,
 // when g < tail, tail element items * VEC + g.
 template <typename T, bool VEC>
 __global__ void bits_xor_kernel(const T* __restrict__ in, T* __restrict__ out,
                                 int items, int tail,
                                 const long long* __restrict__ key,
-                                const long long* __restrict__ ctr) {
+                                const long long* __restrict__ ctr,
+                                Window w) {
   constexpr uint32_t kPer = VEC ? 16 / sizeof(T) : 1;  // elements per item
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g < items) {
     if constexpr (VEC) {
       uint4 v = reinterpret_cast<const uint4*>(in)[g];
       const KeystreamConsts kc = load_keystream_consts(key, ctr);
-      xor_vector<T>(kc, (uint32_t)g * kPer, v);
+      xor_vector<T>(kc, key_index((long long)g * kPer, w), v);
       reinterpret_cast<uint4*>(out)[g] = v;
     } else {
       const T x = in[g];
       out[g] = x ^ keystream_elem<T>(load_keystream_consts(key, ctr),
-                                     (uint32_t)g);
+                                     key_index(g, w));
     }
   }
   if (g < tail) {
     const long long i = (long long)items * kPer + g;
     out[i] = in[i] ^ keystream_elem<T>(load_keystream_consts(key, ctr),
-                                       (uint32_t)i);
+                                       key_index(i, w));
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* in, void* out, int items, int tail,
                    const long long* key, const long long* ctr, bool vec,
-                   int threads, int blocks, cudaStream_t s) {
+                   Window w, int threads, int blocks, cudaStream_t s) {
   if (vec)
     bits_xor_kernel<T, true><<<blocks, threads, 0, s>>>(
-        (const T*)in, (T*)out, items, tail, key, ctr);
+        (const T*)in, (T*)out, items, tail, key, ctr, w);
   else
     bits_xor_kernel<T, false><<<blocks, threads, 0, s>>>(
-        (const T*)in, (T*)out, items, tail, key, ctr);
+        (const T*)in, (T*)out, items, tail, key, ctr, w);
   return cudaGetLastError();
 }
 
@@ -125,15 +147,22 @@ cudaError_t launch(const void* in, void* out, int items, int tail,
 // Plain C entry (loaded with ctypes). `in` and `out` hold n contiguous
 // elements of elem_bytes (2 or 4) each; `key` and `ctr` each point at one
 // int64 in device memory, read by the kernel (its low 32 bits); vec_ok != 0
-// promises both data pointers are 16-byte aligned. The plan (threads per block, blocks) must give a
-// thread to every item and tail element, with fewer than 2**31 threads; it
-// is checked here. Returns the launch's cudaError_t.
+// promises both data pointers are 16-byte aligned. cols, row_cols and col0
+// place the tensor as a window of wider rows (cols == 0: whole rows); a
+// window's cols must be a multiple of 8. The plan (threads per block,
+// blocks) must give a thread to every item and tail element, with fewer
+// than 2**31 threads; it is checked here. Returns the launch's cudaError_t.
 extern "C" int repro_bits_xor(const void* in, void* out, long long n,
                               const void* key, const void* ctr,
-                              int elem_bytes, int vec_ok, int threads,
+                              int elem_bytes, int vec_ok, long long cols,
+                              long long row_cols, long long col0, int threads,
                               int blocks, void* stream) {
   if (n <= 0) return 0;
   if (elem_bytes != 2 && elem_bytes != 4) return (int)cudaErrorInvalidValue;
+  if (cols < 0 || (cols > 0 && (cols % 8 || n % cols || col0 < 0 ||
+                                col0 + cols > row_cols)))
+    return (int)cudaErrorInvalidValue;
+  const Window w{cols, row_cols, col0};
   if (!key || !ctr || (uintptr_t)key % 8 || (uintptr_t)ctr % 8)
     return (int)cudaErrorInvalidValue;
   const long long* k = (const long long*)key;
@@ -148,7 +177,7 @@ extern "C" int repro_bits_xor(const void* in, void* out, long long n,
   cudaStream_t s = (cudaStream_t)stream;
   if (elem_bytes == 4)
     return (int)launch<uint32_t>(in, out, (int)items, tail, k, c, vec_ok != 0,
-                                 threads, blocks, s);
+                                 w, threads, blocks, s);
   return (int)launch<uint16_t>(in, out, (int)items, tail, k, c, vec_ok != 0,
-                               threads, blocks, s);
+                               w, threads, blocks, s);
 }

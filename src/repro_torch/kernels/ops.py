@@ -22,7 +22,8 @@ from . import ref
 from .seal import check_key_tensor, int_dtype_of, u32
 
 LAUNCHES: Dict[str, int] = {"paged_attention": 0, "seal_bits": 0,
-                            "unseal_bits": 0, "seal": 0, "unseal": 0,
+                            "unseal_bits": 0, "seal_bits_window": 0,
+                            "unseal_bits_window": 0, "seal": 0, "unseal": 0,
                             "flash_attention": 0}
 
 
@@ -269,49 +270,81 @@ def unseal(cipher: torch.Tensor, scales: torch.Tensor, key: KeyArg,
 # ---------------------------------------------------------------------------
 # Lossless page cipher
 # ---------------------------------------------------------------------------
+def _window(name: str, x: torch.Tensor, col0: int, row_cols):
+    """``(col0, row_cols)`` checked, or None for a whole row (the
+    defaults, or a window that is the whole row)."""
+    if x.dim() != 2:
+        raise ValueError(f"{name} takes [rows, cols], got {tuple(x.shape)}")
+    cols = x.shape[1]
+    row_cols = cols if row_cols is None else int(row_cols)
+    col0 = int(col0)
+    if col0 == 0 and row_cols == cols:
+        return None
+    if col0 < 0 or col0 + cols > row_cols:
+        raise ValueError(f"{name}: columns [{col0}, {col0 + cols}) outside "
+                         f"rows of {row_cols}")
+    if cols % 8:
+        raise ValueError(f"{name}: a window of {cols} columns; the kernel "
+                         f"takes a multiple of 8, so that no 16-byte vector "
+                         f"straddles two rows")
+    return col0, row_cols
+
+
 def _bits_xor(x: torch.Tensor, key: KeyArg, counter: KeyArg,
-              out_dtype: torch.dtype) -> torch.Tensor:
+              out_dtype: torch.dtype, window) -> torch.Tensor:
     from .build import entry
     _check_cuda("seal_bits", x)
-    if x.dim() != 2:
-        raise ValueError(f"seal_bits takes [rows, cols], got {tuple(x.shape)}")
     kt, ct = _keys("seal_bits", x.device, key, counter)
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     vec_ok = int(x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     plan = _cipher_plan(x.numel(), x.element_size(), bool(vec_ok))
+    cols, (col0, row_cols) = (0, (0, 0)) if window is None \
+        else (x.shape[1], window)
     with torch.cuda.device(x.device):
         rc = entry("seal_bits")(
             x.data_ptr(), out.data_ptr(), x.numel(), kt.data_ptr(),
-            ct.data_ptr(), x.element_size(), vec_ok, *plan, _stream(x.device))
+            ct.data_ptr(), x.element_size(), vec_ok, cols, row_cols, col0,
+            *plan, _stream(x.device))
     if rc:
         raise _launch_failed("seal_bits", rc)
     return out
 
 
-def seal_bits(x: torch.Tensor, key: KeyArg, counter: KeyArg) -> torch.Tensor:
+def seal_bits(x: torch.Tensor, key: KeyArg, counter: KeyArg, col0: int = 0,
+              row_cols=None) -> torch.Tensor:
     """Losslessly cipher a 2D float tensor (f32 or bf16) -> int32/int16 of
     the same bit width; ``unseal_bits`` restores it bit for bit. ``key``
-    and ``counter``: ints or one-element integer tensors on x's device."""
+    and ``counter``: ints or one-element integer tensors on x's device.
+    ``col0`` and ``row_cols`` place x as columns [col0, col0 + cols) of
+    rows ``row_cols`` wide (a pipeline rank's layers of a swap row): its
+    cipher is those columns of the whole row's. The defaults are the whole
+    row. A window's launches count as ``seal_bits_window``."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"seal_bits takes float32 or bfloat16, got {x.dtype}")
+    window = _window("seal_bits", x, col0, row_cols)
     if not x.is_cuda:
         _check_plain_keys("seal_bits", x.device, key, counter)
-        return ref.seal_bits_ref(x, key, counter)
-    out = _bits_xor(x, key, counter, int_dtype_of(x.dtype))
-    LAUNCHES["seal_bits"] += 1
+        return ref.seal_bits_ref(x, key, counter, col0, row_cols)
+    out = _bits_xor(x, key, counter, int_dtype_of(x.dtype), window)
+    LAUNCHES["seal_bits" if window is None else "seal_bits_window"] += 1
     return out
 
 
 def unseal_bits(cipher: torch.Tensor, key: KeyArg, counter: KeyArg,
-                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                out_dtype: torch.dtype = torch.bfloat16, col0: int = 0,
+                row_cols=None) -> torch.Tensor:
+    """The inverse of ``seal_bits`` under the same key, counter and
+    window."""
     if cipher.dtype != int_dtype_of(out_dtype):
         raise TypeError(f"cipher dtype {cipher.dtype} does not carry "
                         f"{out_dtype} bits")
+    window = _window("unseal_bits", cipher, col0, row_cols)
     if not cipher.is_cuda:
         _check_plain_keys("unseal_bits", cipher.device, key, counter)
-        return ref.unseal_bits_ref(cipher, key, counter, out_dtype)
-    out = _bits_xor(cipher, key, counter, out_dtype)
-    LAUNCHES["unseal_bits"] += 1
+        return ref.unseal_bits_ref(cipher, key, counter, out_dtype, col0,
+                                   row_cols)
+    out = _bits_xor(cipher, key, counter, out_dtype, window)
+    LAUNCHES["unseal_bits" if window is None else "unseal_bits_window"] += 1
     return out
 
 

@@ -13,12 +13,16 @@ import torch
 from .seal import int_dtype_of, keystream_u32, to_signed
 
 
-def _flat_index(shape, device) -> torch.Tensor:
+def _flat_index(shape, device, col0: int = 0,
+                row_cols=None) -> torch.Tensor:
     """int64 row-major element index of a [rows, cols] array (the keystream
-    takes it modulo 2**32, as JAX's uint32 ``row * cols + col`` wraps)."""
+    takes it modulo 2**32, as JAX's uint32 ``row * cols + col`` wraps); of
+    columns [col0, col0 + cols) of rows ``row_cols`` wide when the array
+    is such a window: ``row * row_cols + col0 + col``."""
     rows, cols = shape
+    row_cols = cols if row_cols is None else row_cols
     return (torch.arange(rows, dtype=torch.int64, device=device)[:, None]
-            * cols
+            * row_cols + col0
             + torch.arange(cols, dtype=torch.int64, device=device)[None, :])
 
 
@@ -60,24 +64,30 @@ def unseal_ref(cipher: torch.Tensor, scales: torch.Tensor, key,
 # ---------------------------------------------------------------------------
 # seal_bits / unseal_bits — lossless bitcast + XOR (KV swap tier)
 # ---------------------------------------------------------------------------
-def _bits_keystream(shape, key, counter, bits: int,
-                    device) -> torch.Tensor:
-    return to_signed(keystream_u32(key, counter, _flat_index(shape, device)),
-                     bits)
+def _bits_keystream(shape, key, counter, bits: int, device, col0: int = 0,
+                    row_cols=None) -> torch.Tensor:
+    return to_signed(keystream_u32(key, counter, _flat_index(
+        shape, device, col0, row_cols)), bits)
 
 
-def seal_bits_ref(x: torch.Tensor, key, counter) -> torch.Tensor:
+def seal_bits_ref(x: torch.Tensor, key, counter, col0: int = 0,
+                  row_cols=None) -> torch.Tensor:
     """x [rows, cols] float -> cipher int16/int32 of the same bit width:
     the float bits XOR the keystream at flat index ``row*cols + col``
-    (modulo 2**32), truncated to the width (low 16 bits for bf16)."""
+    (modulo 2**32), truncated to the width (low 16 bits for bf16). With a
+    window (``col0``, ``row_cols``: x is columns [col0, col0 + cols) of
+    rows ``row_cols`` wide) the index is ``row*row_cols + col0 + col``, so
+    windows side by side give the whole row's cipher."""
     idt = int_dtype_of(x.dtype)
     u = x.view(idt)
     bits = 8 * x.element_size()
-    return u ^ _bits_keystream(x.shape, key, counter, bits, x.device)
+    return u ^ _bits_keystream(x.shape, key, counter, bits, x.device, col0,
+                               row_cols)
 
 
 def unseal_bits_ref(cipher: torch.Tensor, key, counter,
-                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                    out_dtype: torch.dtype = torch.bfloat16, col0: int = 0,
+                    row_cols=None) -> torch.Tensor:
     """Inverse of ``seal_bits_ref`` (XOR is an involution): bit-exact."""
     idt = int_dtype_of(out_dtype)
     if cipher.dtype != idt:
@@ -85,7 +95,7 @@ def unseal_bits_ref(cipher: torch.Tensor, key, counter,
                         f"{out_dtype} bits (expected {idt})")
     bits = 8 * cipher.element_size()
     u = cipher ^ _bits_keystream(cipher.shape, key, counter, bits,
-                                 cipher.device)
+                                 cipher.device, col0, row_cols)
     return u.view(out_dtype)
 
 

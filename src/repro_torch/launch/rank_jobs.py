@@ -1,10 +1,14 @@
 """Rank bodies for ``launch.ranks.spawn``: the pipelined decoder with one
-stage per pod rank, and the train step (plain or compressed) over a mesh
-of pod and data ranks, each driven for a few steps from inputs the caller
-hands over on the CPU, or from seeded weights drawn on the rank's device.
+stage per pod rank, the serving engine with one stage per pod rank, and
+the train step (plain or compressed) over a mesh of pod and data ranks,
+each driven for a few steps from inputs the caller hands over on the CPU,
+or from seeded weights drawn on the rank's device.
 
     outs = spawn(rank_jobs.decode, 4, backend="gloo", device="cpu",
                  args=(DecodeJob(cfg, ((2, 2), ("pod", "data")), ...),))
+    outs = spawn(rank_jobs.serve, 2, backend="gloo", device="cpu",
+                 args=(ServeJob(cfg, [ServeRun(EngineConfig(...),
+                                               requests)]),))
 
 Each body returns, per rank, what it computed (logits, tokens, losses,
 the rank's cache or params), the kernel launches it made (``ops.LAUNCHES``
@@ -33,6 +37,7 @@ from repro_torch.optim.compression import (compressed_psum_pod,
                                            init_error_feedback)
 from repro_torch.runtime import steps as S
 from repro_torch.runtime.pipeline import PipelinedDecoder
+from repro_torch.serving.engine import EngineConfig, ServingEngine
 from repro_torch.tree import leaves, map_tree
 
 Mesh = Tuple[Tuple[int, ...], Tuple[str, ...]]
@@ -210,6 +215,282 @@ def _ping(ctx: RankContext, dec: PipelinedDecoder, job: DecodeJob) -> dict:
                 c.copy_(h)
         _sync(ctx.device)
         out["copy_ms"] = (time.perf_counter() - t0) * 1e3 / job.ping_iters
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The serving engine over ranks
+# ---------------------------------------------------------------------------
+class KeyLedger:
+    """Every (key, counter) this process seals under while it is open, with
+    the window of the row each seal covers: ``ops.seal`` (a stage
+    boundary) and ``ops.seal_bits`` (swaps, restages, prefill crossings)
+    are wrapped, keys and counters kept as given (device tensors cloned,
+    read back at ``close``, so recording adds no host sync)."""
+
+    def __init__(self):
+        self.records: List[tuple] = []
+        self._raw: List[tuple] = []
+
+    def __enter__(self):
+        self._real = (ops.seal, ops.seal_bits)
+        real_seal, real_bits = self._real
+
+        def keep(v):
+            return v.detach().clone() if isinstance(v, torch.Tensor) else v
+
+        def seal(x, key, counter, *a, **kw):
+            self._raw.append(("seal", keep(key), keep(counter), 0,
+                              x.shape[1], x.shape[1]))
+            return real_seal(x, key, counter, *a, **kw)
+
+        def seal_bits(x, key, counter, col0=0, row_cols=None):
+            self._raw.append(("seal_bits", keep(key), keep(counter),
+                              int(col0), x.shape[1],
+                              x.shape[1] if row_cols is None
+                              else int(row_cols)))
+            return real_bits(x, key, counter, col0=col0, row_cols=row_cols)
+
+        ops.seal, ops.seal_bits = seal, seal_bits
+        return self
+
+    def __exit__(self, *exc):
+        ops.seal, ops.seal_bits = self._real
+        self.records += [(kind, int(key) & 0xFFFFFFFF,
+                          int(ctr) & 0xFFFFFFFF, col0, cols, row_cols)
+                         for kind, key, ctr, col0, cols, row_cols
+                         in self._raw]
+        self._raw = []
+
+
+def keystream_reuse(ledgers: Sequence[Sequence[tuple]]) -> List[tuple]:
+    """The (key, counter) pairs of ``KeyLedger`` records, one list a rank,
+    that cipher two things under one keystream: a pair sealed twice on one
+    rank, or on several ranks other than as disjoint column windows of one
+    row width (the ranks' parts of one swap payload). Empty when none."""
+    by_pair = {}
+    for rank, recs in enumerate(ledgers):
+        for kind, key, ctr, col0, cols, row_cols in recs:
+            by_pair.setdefault((key, ctr), []).append(
+                (rank, kind, col0, cols, row_cols))
+    bad = []
+    for pair, uses in by_pair.items():
+        ranks = [u[0] for u in uses]
+        spans = sorted((u[2], u[2] + u[3]) for u in uses)
+        if len(set(ranks)) != len(ranks) \
+                or len({(u[1], u[4]) for u in uses}) != 1 \
+                or any(a[1] > b[0] for a, b in zip(spans, spans[1:])):
+            bad.append((pair, uses))
+    return bad
+
+
+@dataclasses.dataclass
+class ServeRun:
+    """One engine over one request stream: ``requests`` ``(prompt,
+    max_new)``; with ``every`` > 0 one is submitted whenever the engine's
+    step count is a multiple of ``every`` (the serve launcher's stream),
+    with ``every`` 0 all up front and then ``run``. ``inject`` is a
+    straggler ``(stage, factor)``; ``keep_logits`` keeps each decode step's
+    logits; ``topology`` names a ``launch.serve.TOPOLOGIES`` entry."""
+
+    config: EngineConfig
+    requests: Sequence[Tuple[Sequence[int], int]]
+    every: int = 0
+    inject: Optional[Tuple[int, float]] = None
+    keep_logits: bool = False
+    topology: str = "two-enclave"
+    max_steps: int = 2000
+    check_swaps: bool = False
+
+
+@dataclasses.dataclass
+class ServeJob:
+    """``ServingEngine(mesh=)`` on each rank, over each of ``runs`` in
+    turn. ``params`` on the CPU, or None to draw them from ``seed`` on the
+    rank's device (every rank draws the same bits)."""
+
+    cfg: ArchConfig
+    runs: Sequence[ServeRun]
+    dtype: torch.dtype = torch.float32
+    params: Any = None
+    seed: int = 0
+    max_seq: int = 4096
+
+
+def drive(eng, run: ServeRun):
+    """Serve ``run``'s stream on ``eng``; returns the requests."""
+    reqs, k, n = [], 0, len(run.requests)
+    if run.every == 0:
+        reqs = [eng.submit(list(p), m) for p, m in run.requests]
+        eng.run(max_steps=run.max_steps)
+        return reqs
+    while k < n or eng.scheduler.has_work():
+        if k < n and eng.steps % run.every == 0:
+            reqs.append(eng.submit(list(run.requests[k][0]),
+                                   run.requests[k][1]))
+            k += 1
+        moved = eng.step()
+        if eng.stalled:
+            break
+        if k < n and not moved and not eng.scheduler.has_work():
+            reqs.append(eng.submit(list(run.requests[k][0]),
+                                   run.requests[k][1]))
+            k += 1
+        assert eng.steps < run.max_steps, "the stream did not drain"
+    return reqs
+
+
+class Probe:
+    """An engine instrumented from outside for a ``serve`` run: host ms
+    and bytes sent of each decode step (the backend's step and its
+    sampling, between device synchronises), each decode step's logits
+    (``keep``), the stage probes run (``probes``), host ms of each
+    swap-out and swap-in, the first swap-out's payload, digest, layout
+    and counter, and (``check``) every swap-in's pages against the rows
+    gathered at its swap-out, bit for bit (``restored`` pages; a swap-in
+    whose stage layout moved since is counted in ``moved`` instead)."""
+
+    def __init__(self, eng, keep: bool, check: bool = False):
+        self.step_ms, self.step_bytes, self.logits = [], [], []
+        self.swap_out_ms, self.swap_in_ms = [], []
+        self.first_swap = None
+        self.probes = self.restored = self.moved = 0
+        be, dev = eng.backend, eng.device
+        staging = getattr(be, "staging", None)
+        step, sample, times = be.step, eng._sample, be.stage_times
+        pending = []
+
+        def timed_step(tokens, key):
+            _sync(dev)
+            pending[:] = [time.perf_counter(),
+                          staging.sent if staging else 0]
+            out = step(tokens, key)
+            if keep:
+                self.logits.append(out.detach().cpu())
+            return out
+
+        def timed_sample(logits, rids, idxs):
+            out = sample(logits, rids, idxs)
+            if pending:
+                self.step_ms.append((time.perf_counter() - pending[0]) * 1e3)
+                self.step_bytes.append(
+                    (staging.sent if staging else 0) - pending[1])
+                pending.clear()
+            return out
+
+        def counted_times():
+            self.probes += 1
+            return times()
+
+        swap_out, swap_in = eng._preempt_swap, eng._swap_in
+
+        def timed_out(slot, req):
+            t0 = time.perf_counter()
+            swap_out(slot, req)
+            self.swap_out_ms.append((time.perf_counter() - t0) * 1e3)
+            if self.first_swap is None:
+                man = eng.pool.swap_manifest[req.rid]
+                self.first_swap = dict(payload=tuple(man.payload),
+                                       digest=man.digest,
+                                       layout=man.layout,
+                                       counter=man.counter)
+
+        def timed_in(slot, req, t0):
+            t = time.perf_counter()
+            ok = swap_in(slot, req, t0)
+            self.swap_in_ms.append((time.perf_counter() - t) * 1e3)
+            return ok
+
+        be.step, eng._sample, be.stage_times = (timed_step, timed_sample,
+                                                counted_times)
+        eng._preempt_swap, eng._swap_in = timed_out, timed_in
+        if check:
+            self._check_swaps(be)
+
+    def _check_swaps(self, be) -> None:
+        gather, scatter = be.gather_pages, be.scatter_pages
+        gathered = {}
+
+        def current():
+            return getattr(be, "dec", None) and be.dec.ranges
+
+        def checked_gather(pages, key, ctr):
+            pg = torch.as_tensor(np.asarray(pages, np.int64),
+                                 device=be.device)
+            gathered[ctr] = (current(), [pool[:, pg].clone()
+                                         for pool in be.body])
+            return gather(pages, key, ctr)
+
+        def checked_scatter(ck, cv, pages, key, ctr, **layout):
+            scatter(ck, cv, pages, key, ctr, **layout)
+            then, rows = gathered.pop(ctr)
+            if then != current():
+                self.moved += 1
+                return
+            for i, pg in enumerate(pages):
+                if pg < be.num_pages:
+                    for pool, r in zip(be.body, rows):
+                        assert torch.equal(pool[:, int(pg)], r[:, i]), \
+                            f"swap-in of page {pg} (row {i}) not bit-exact"
+                    self.restored += 1
+
+        be.gather_pages, be.scatter_pages = checked_gather, checked_scatter
+
+
+def _events(eng) -> List[tuple]:
+    return [(e.step, e.kind, e.detail) for e in eng.events]
+
+
+def serve(ctx: RankContext, job: ServeJob) -> List[dict]:
+    """One result a run: ``streams``, ``events`` and ``stats()``; the
+    rank's ``stage`` and final ``range``; ``launches`` over the run; host
+    ``step_ms`` and ``step_bytes`` a decode step (``Probe``), the engine's
+    admission ms (rank 0's, as every rank records them); ``crossings`` and
+    ``restages`` (host ms, bytes this rank sent) each; swap-out and
+    swap-in host ms; the first swap-out (``first_swap``: this rank's
+    payload part, its digest, layout and counter); the decode ``logits``
+    with ``keep_logits``; ``probes`` (stage-probe runs), ``restored`` and
+    ``moved`` (``Probe``), ``decode_steps``, ``relayouts``; and ``keys``, every (kind, key, counter, col0,
+    cols, row_cols) this rank sealed under (``KeyLedger``)."""
+    from repro_torch.launch.serve import TOPOLOGIES
+    api, params = _model(ctx, job.cfg, job.dtype, job.params, job.seed,
+                         job.max_seq)
+    params = map_tree(lambda t: t.cpu(), params)
+    _sync(ctx.device)
+    mesh = make_mesh((ctx.world, 1), ("pod", "data"), device=ctx.device)
+    out = []
+    for run in job.runs:
+        with KeyLedger() as ledger:
+            eng = ServingEngine(api, run.config, params, device=ctx.device,
+                                rm=TOPOLOGIES[run.topology](
+                                    run.config.num_stages),
+                                backend="pipelined", mesh=mesh)
+            if run.inject:
+                eng.telemetry.inject(*run.inject)
+            probe = Probe(eng, run.keep_logits, run.check_swaps)
+            _sync(ctx.device)
+            ops.reset_launch_counts()
+            reqs = drive(eng, run)
+            _sync(ctx.device)
+            launches = dict(ops.LAUNCHES)
+        be = eng.backend
+        out.append({
+            "streams": [list(r.generated) for r in reqs],
+            "status": [r.status for r in reqs],
+            "events": _events(eng), "stats": eng.stats(),
+            "stage": be.stage, "range": be.dec.ranges[be.stage],
+            "launches": launches, "step_ms": probe.step_ms,
+            "step_bytes": probe.step_bytes,
+            "admission_ms": list(eng.admission_ms),
+            "crossings": list(be.crossings), "restages": list(be.restages),
+            "relayouts": getattr(be, "relayouts", 0),
+            "swap_out_ms": probe.swap_out_ms,
+            "swap_in_ms": probe.swap_in_ms,
+            "first_swap": probe.first_swap, "logits": probe.logits,
+            "probes": probe.probes, "restored": probe.restored,
+            "moved": probe.moved, "decode_steps": be.steps,
+            "keys": ledger.records})
+        del eng, be, probe
     return out
 
 

@@ -27,6 +27,13 @@ below (``send``, ``recv``, ``exchange``, ``all_reduce``, ``broadcast``,
 crosses host memory between two enclaves, as the paper's boundaries do.
 Under NCCL, or with tensors already on the CPU, they pass tensors as they
 are.
+
+An engine whose stages are ranks runs the same host logic on every rank,
+so what that logic reads must agree: ``share`` gives every rank one
+rank's host numbers (a clock reading, a verdict vector), and
+``transfer`` posts a set of point-to-point
+messages of sizes both sides know (a stage's KV rows on a live re-plan, a
+swap payload's columns) and completes them together.
 """
 from __future__ import annotations
 
@@ -299,3 +306,44 @@ def peer_of(group) -> int:
     if len(ranks) != 2 or me not in ranks:
         raise ValueError(f"peer_of: rank {me} in group {ranks}")
     return ranks[1 - ranks.index(me)]
+
+
+# ---------------------------------------------------------------------------
+# Host values every rank must agree on, and sets of messages
+# ---------------------------------------------------------------------------
+def message_device(group) -> torch.device:
+    """Where a host value travels: the rank's card under NCCL (which moves
+    only device memory), else the host."""
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def share(values: Sequence[float], src: int, group=None) -> List[float]:
+    """Global rank ``src``'s ``values`` (floats, exact as float64) on every
+    rank of ``group``; each rank passes a sequence of the same length."""
+    t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                     device=message_device(group))
+    if dist.get_world_size(group) > 1:
+        dist.broadcast(t, src, group=group)
+    return t.tolist()
+
+
+def transfer(staging: Staging, outgoing: Sequence[Tuple[int, Sequence]],
+             incoming: Sequence[Tuple[int, Sequence]], group=None,
+             tag="transfer") -> List[List[torch.Tensor]]:
+    """Post every receive of ``incoming`` (``(src, likes)`` each, the
+    tensors' shapes and types known here) and every send of ``outgoing``
+    (``(dst, tensors)``), then complete them all; returns what each
+    receive got, in order. Two ranks must list their messages to each
+    other in the same order (the transport matches them in order);
+    posting all before waiting on any means no order of the pairs can
+    deadlock."""
+    recvs = [recv(staging, likes, src, group, (tag, "in", i))
+             for i, (src, likes) in enumerate(incoming)]
+    sends = [send(staging, tensors, dst, group, (tag, "out", i))
+             for i, (dst, tensors) in enumerate(outgoing)]
+    got = [r.wait() for r in recvs]
+    for p in sends:
+        p.wait()
+    return got

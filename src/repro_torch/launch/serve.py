@@ -48,6 +48,11 @@ keyed by request id and position, as the reference's sampler does;
 sampled streams equal the reference's token for token), and
 ``--require-non-prefix`` fails unless the planned placement is outside
 the legacy trusted-prefix space (prints ``NON-PREFIX OK``).
+``--ranks gloo`` (or ``nccl``, one card a rank) runs the pipelined serve
+with one process a pod of ``--mesh`` (pods = ``--stages``, data 1), stage
+s on rank s (``ServingEngine(mesh=)``, ``serving/ranked.py``); rank 0
+prints, every ``--verify-*`` check included. Without it the stages run in
+sequence on one device.
 ``--kv-layout timeline`` serves on the reference's shared-position
 timeline (horizon ``--max-seq``, 0 = sized to the stream as the
 reference sizes it; per-token prefill, admission back-pressure at the
@@ -101,6 +106,10 @@ raises.
       --inject-straggler 1:10 --verify-swap --warmup --assert-no-recompile
   python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
       --device cpu --backend local --per-token-prefill --f32
+  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
+      --device cpu --stages 2 --mesh 2x1 --ranks gloo --microbatches 2 \\
+      --slots 4 --requests 6 --max-new 8 --no-seal --f32 \\
+      --inject-straggler 1:10 --verify-swap
 """
 from __future__ import annotations
 
@@ -205,7 +214,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default="2x1",
                     help="pod x data, as the reference's: one card runs "
                          "the pods' stages in sequence and computes the "
-                         "data axis whole (see check_mesh)")
+                         "data axis whole; with --ranks one process a pod "
+                         "(see check_mesh)")
+    ap.add_argument("--ranks", default=None, choices=["gloo", "nccl"],
+                    help="serve with one rank a pipeline stage over this "
+                         "process-group backend (pipelined backend, data "
+                         "axis 1)")
     ap.add_argument("--telemetry-interval", type=int, default=4)
     ap.add_argument("--inject-straggler", default=None, metavar="STAGE:FACTOR",
                     help="multiply stage STAGE's measured time by FACTOR")
@@ -326,7 +340,8 @@ def check_mesh(args):
     do not depend on it. Refused by name: a mesh that is not ``P`` or
     ``PxD`` with positive sizes, and pods other than ``--stages`` on the
     pipelined backend. The local backend ignores the mesh, as the
-    reference's does."""
+    reference's does. With ``--ranks``, pod s is a process (data 1: a
+    data axis over ranks is ROADMAP item 10d)."""
     try:
         dims = tuple(int(x) for x in args.mesh.split("x"))
     except ValueError:
@@ -339,6 +354,14 @@ def check_mesh(args):
         raise ValueError(f"--mesh {args.mesh}: {pods} pods but --stages "
                          f"{args.stages}; the pipelined serve runs stage s "
                          f"on pod s")
+    if args.ranks:
+        if backend_of(args) != "pipelined":
+            raise ValueError("--ranks runs one rank a stage of the "
+                             "pipelined backend")
+        if data > 1:
+            raise NotImplementedError(
+                f"--mesh {args.mesh} --ranks: a data axis of {data} over "
+                f"ranks (ROADMAP item 10d)")
     return pods, data
 
 
@@ -354,7 +377,8 @@ def make_engine(api, params, args, **overrides) -> ServingEngine:
     return ServingEngine(api, make_config(args, **overrides), params,
                          device=api.device,
                          rm=TOPOLOGIES[args.topology](args.stages),
-                         backend=backend_of(args))
+                         backend=backend_of(args),
+                         mesh=getattr(args, "rank_mesh", None))
 
 
 def gen_prompts(args, vocab_size: int):
@@ -579,12 +603,41 @@ def disagg_main(api, params, args):
     return st
 
 
+def _rank_main(ctx, argv):
+    """``main`` on one rank of ``--ranks``: the engines take the pod mesh
+    of the world's ranks; rank 0 prints."""
+    import contextlib
+    import os
+    from repro_torch.launch.mesh import make_mesh
+    args = build_parser().parse_args(argv)
+    args.rank_mesh = make_mesh((ctx.world, 1), ("pod", "data"),
+                               device=ctx.device)
+    if ctx.rank == 0:
+        return serve_main(args)
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        return serve_main(args)
+
+
 def main(argv=None):
+    import sys
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     pods, data = check_mesh(args)
+    if args.ranks:
+        from repro_torch.launch.ranks import spawn
+        print(f"mesh {args.mesh}: {pods} pods x {data} data, one rank a "
+              f"pod over {args.ranks} (stage s on rank s)")
+        return spawn(_rank_main, pods, backend=args.ranks,
+                     device=args.device, args=(argv,))[0]
     if backend_of(args) == "pipelined":
         print(f"mesh {args.mesh}: {pods} pods x {data} data on one card "
               f"(stages in sequence, the data axis computed whole)")
+    return serve_main(args)
+
+
+def serve_main(args):
+    """Serve the parsed arguments' stream and run the checks they ask for;
+    returns the engine's stats."""
     if args.disagg:
         return disagg_main(*build_params(args), args)
     inject = parse_straggler(args.inject_straggler)

@@ -56,10 +56,10 @@ class ModelAPI:
         StackedLM.prefill_fn)."""
         return self.model.prefill_fn(params, batch)
 
-    def decode_fn(self, params, cache, batch):
+    def decode_fn(self, params, cache, batch, **layers):
         """One decode step over the timeline cache, updated in place (see
-        StackedLM.decode_fn)."""
-        return self.model.decode_fn(params, cache, batch)
+        StackedLM.decode_fn; ``start`` / ``end``: a layer range)."""
+        return self.model.decode_fn(params, cache, batch, **layers)
 
     def init_cache_specs(self, batch: int, max_seq: Optional[int] = None):
         return self.model.init_cache_specs(batch, max_seq or self.max_seq,
@@ -108,19 +108,20 @@ class ModelAPI:
     def decode_paged_fn(self, params, cache, batch):
         return self.model.decode_paged_fn(params, cache, batch)
 
-    def prefill_at_fn(self, params, batch):
-        """Right-padded whole-prompt prefill (see StackedLM.prefill_at_fn)."""
-        return self.model.prefill_at_fn(params, batch)
+    def prefill_at_fn(self, params, batch, **layers):
+        """Right-padded whole-prompt prefill (see StackedLM.prefill_at_fn;
+        ``start`` / ``end``: a layer range)."""
+        return self.model.prefill_at_fn(params, batch, **layers)
 
-    def prefill_packed_fn(self, params, batch):
+    def prefill_packed_fn(self, params, batch, **layers):
         """K right-padded prompts in one call, logits per row at its own
         last position (see StackedLM.prefill_packed_fn)."""
-        return self.model.prefill_packed_fn(params, batch)
+        return self.model.prefill_packed_fn(params, batch, **layers)
 
-    def prefill_chunk_fn(self, params, pools, batch):
+    def prefill_chunk_fn(self, params, pools, batch, **layers):
         """One prefill chunk against the live page pools, which it updates
         in place (see StackedLM.prefill_chunk_fn)."""
-        return self.model.prefill_chunk_fn(params, pools, batch)
+        return self.model.prefill_chunk_fn(params, pools, batch, **layers)
 
     # -- inputs of a shape cell -------------------------------------------------
     def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:

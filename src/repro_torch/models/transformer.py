@@ -33,6 +33,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.tree import leaves
 from . import layers as L
 from .layers import ParamSpec, init_one
 
@@ -401,6 +402,33 @@ class StackedLM:
                 f"{[s.name for s in self.segments]}")
         return self.segments[0]
 
+    def _span(self, tree, start: int, end: Optional[int]):
+        """``(start, end, at)`` for layers [start, end) of the served
+        segment (``end`` None: to its last), where ``tree`` -- the
+        segment's block weights or cache body -- holds either every layer
+        or exactly those (a pipeline rank's own, from
+        ``PipelinedDecoder.stage_params``): layer l sits at ``l - at``."""
+        n = self.served_segment.n
+        end = n if end is None else end
+        if not 0 <= start < end <= n:
+            raise ValueError(f"layer range [{start}, {end}) of {n}")
+        have = leaves(tree)[0].shape[0]
+        if have == n:
+            return start, end, 0
+        if have == end - start:
+            return start, end, start
+        raise ValueError(f"layers [{start}, {end}) of a stack of {have}")
+
+    def _entry(self, params, batch) -> torch.Tensor:
+        """What enters the first layer of a range: the embedded tokens
+        (with the frontend) at layer 0, else ``batch["hidden"]``, the
+        hidden state the previous range returned."""
+        if "hidden" in batch:
+            return batch["hidden"]
+        return self._fuse_frontend(params, self.embed(params,
+                                                      batch["tokens"]),
+                                   batch)
+
     def _block(self, p, x, positions, train: bool = False, pos3=None):
         """One block of the last segment (the served one) over a whole
         sequence: ``AttnBlock.forward``'s (x, k, v), k and v
@@ -408,12 +436,16 @@ class StackedLM:
         return self.segments[-1].block.forward(p, x, positions, pos3, train)
 
     def _blocks(self, params, batch, train: bool = False,
-                hidden: Optional[list] = None):
+                hidden: Optional[list] = None, start: int = 0,
+                end: Optional[int] = None):
         """Embed ``batch["tokens"]`` [B, S] (with the frontend's
         ``patches``), at ``batch["positions"]`` or 0..S-1 (and ``pos3`` for
         M-RoPE), and run every segment's blocks. Returns (x [B, S, d]
         before the final norm, {segment: [each layer's timeline cache]})
-        when serving, an empty dict in training. In training with
+        when serving, an empty dict in training. With a layer range
+        ``[start, end)`` other than the whole stack (one segment only;
+        see ``_span``), only those layers run: from ``batch["hidden"]``
+        where ``start > 0``, and the cache holds those layers. In training with
         ``remat`` each block runs under ``torch.utils.checkpoint`` (the
         reference's ``jax.checkpoint`` of each scan step) while autograd
         records: its activations are recomputed in the backward, so the
@@ -427,13 +459,22 @@ class StackedLM:
             positions = torch.arange(tokens.shape[1],
                                      device=tokens.device)[None, :]
         pos3 = batch.get("pos3")
-        x = self._fuse_frontend(params, self.embed(params, tokens), batch)
+        x = self._entry(params, batch)
         if hidden is not None:
             hidden.append(x)
         caches = {}
+        span = None if start == 0 and end is None else \
+            self._span(params[self.served_segment.name], start, end)
         for seg in self.segments:
             blk, layers = seg.block, []
-            for p in _unbind(params[seg.name], seg.n):
+            if span is None:
+                stack = _unbind(params[seg.name], seg.n)
+            else:
+                lo, hi, at = span
+                stack = _unbind(params[seg.name],
+                                leaves(params[seg.name])[0].shape[0])
+                stack = stack[lo - at:hi - at]
+            for p in stack:
                 if not train:
                     x, c = blk.prefill(p, x, positions, pos3)
                     layers.append(c)
@@ -479,14 +520,21 @@ class StackedLM:
         return torch.stack(hidden)
 
     # -- public: batched right-padded prefill --------------------------------
-    def _prefill(self, params, batch):
+    def _prefill(self, params, batch, start: int = 0,
+                 end: Optional[int] = None):
         """Every block over right-padded prompts ``batch["tokens"]`` [B, S].
         Returns (x [B, S, d] after the final norm, {segment: its timeline
         cache, each leaf stacked on a leading layer dim}): an attention
-        segment's ``(k, v)`` [L, B, KVH, S, D]."""
-        x, layers = self._blocks(params, batch)
-        x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
+        segment's ``(k, v)`` [L, B, KVH, S, D]. Over a layer range
+        (``_blocks``) that stops short of the last layer, x is the hidden
+        state that leaves the range, without the norm."""
+        x, layers = self._blocks(params, batch, start=start, end=end)
+        if self._is_last(end):
+            x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
         return x, {name: _stack(ls) for name, ls in layers.items()}
+
+    def _is_last(self, end: Optional[int]) -> bool:
+        return end is None or end == self.served_segment.n
 
     def prefill_fn(self, params, batch):
         """Whole-batch prefill into a fresh timeline cache: ``tokens``
@@ -509,7 +557,8 @@ class StackedLM:
                                      device=tokens.device)
         return self.logits(params, x[:, -1]), caches
 
-    def prefill_at_fn(self, params, batch):
+    def prefill_at_fn(self, params, batch, start: int = 0,
+                      end: Optional[int] = None):
         """Whole-prompt prefill for paged admission: ``tokens`` [B, S_pad]
         right-padded, ``prompt_len`` the true length (a host int, or an
         int64 tensor of one element on the tokens' device, as the engine
@@ -517,30 +566,41 @@ class StackedLM:
         Causal attention hides the padding; logits are read at
         ``prompt_len - 1``. Returns (logits [B, V] f32, {segment: (k, v)})
         with k, v [L, B, KVH, S_pad, D] — only the first ``prompt_len``
-        positions are meaningful."""
+        positions are meaningful. ``[start, end)`` runs those layers only
+        (a pipeline stage's, ``_blocks``): the embedding only where
+        ``start == 0``, the norm and head only where ``end`` is the last
+        layer, else it returns the hidden state [B, S_pad, d] in place of
+        the logits; the whole range is the whole function."""
         tokens = batch["tokens"]
-        x, caches = self._prefill(params, batch)
+        x, caches = self._prefill(params, batch, start, end)
+        if not self._is_last(end):
+            return x, caches
         last = _last_positions(batch["prompt_len"], tokens.device)
         return self.logits(params, x.index_select(1, last)[:, 0]), caches
 
-    def prefill_packed_fn(self, params, batch):
+    def prefill_packed_fn(self, params, batch, start: int = 0,
+                          end: Optional[int] = None):
         """``prefill_at_fn`` over K prompts at once: ``tokens`` [K, S_pad]
         holds K right-padded prompts, ``prompt_lens`` their true lengths
         (K host ints, or an int64 [K] tensor on the tokens' device). Rows
         never attend to each other and causal attention hides each row's
         padding, so row b's logits — read at its own ``prompt_lens[b] - 1``
         — and cache positions < ``prompt_lens[b]`` are those of a solo
-        ``prefill_at_fn`` call at the same bucket."""
+        ``prefill_at_fn`` call at the same bucket. ``[start, end)`` as in
+        ``prefill_at_fn``."""
         tokens = batch["tokens"]
         K, S = tokens.shape
-        x, caches = self._prefill(params, batch)
+        x, caches = self._prefill(params, batch, start, end)
+        if not self._is_last(end):
+            return x, caches
         rows = torch.arange(K, device=tokens.device) * S
         last = rows + _last_positions(batch["prompt_lens"], tokens.device)
         return self.logits(params, x.flatten(0, 1).index_select(0, last)), \
             caches
 
     # -- public: chunked prefill (resume at an offset, pools carried in) -----
-    def prefill_chunk_fn(self, params, pools, batch):
+    def prefill_chunk_fn(self, params, pools, batch, start: int = 0,
+                         end: Optional[int] = None):
         """One prefill chunk against the paged cache: ``tokens`` [1, C] is
         chunk [offset, offset + chunk_len) of a prompt, right-padded to the
         engine's chunk size C; ``pools`` {segment: (k, v)} the
@@ -555,7 +615,9 @@ class StackedLM:
         under a graph). Each block attends over the gathered prefix plus
         the chunk (``L.chunk_prefill_attention``) and then writes the
         chunk's KV into its layer of the pools, in place. Returns (f32
-        logits [1, V] at the chunk's last valid token, the same pools)."""
+        logits [1, V] at the chunk's last valid token, the same pools).
+        ``[start, end)`` as in ``prefill_at_fn`` (params and pools may
+        hold those layers only)."""
         tokens = batch["tokens"]
         C = tokens.shape[1]
         offset = int(batch["offset"])
@@ -566,13 +628,20 @@ class StackedLM:
             _as_index(batch["pages"], tokens.device),
             _as_index(batch["offs"], tokens.device),
             pools[self.segments[0].name][0].shape[1])
-        x = self.embed(params, tokens)
+        x = batch["hidden"] if "hidden" in batch else \
+            self.embed(params, tokens)
         for seg in self.segments:
             pool = pools[seg.name]
-            for l in range(seg.n):
+            lo, hi, at_p = (0, seg.n, 0) if start == 0 and end is None \
+                else self._span(params[seg.name], start, end)
+            at_c = 0 if (lo, hi) == (0, seg.n) \
+                else self._span(pool, lo, hi)[2]
+            for l in range(lo, hi):
                 x = seg.block.prefill_chunk(
-                    _at(params[seg.name], l), x, positions, pos3,
-                    _at(pool, l), bt, offset, targets)
+                    _at(params[seg.name], l - at_p), x, positions, pos3,
+                    _at(pool, l - at_c), bt, offset, targets)
+        if not self._is_last(end):
+            return x, pools
         x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
         last = _last_positions(batch["chunk_len"], tokens.device)
         return self.logits(params, x.index_select(1, last)[:, 0]), pools
@@ -608,20 +677,39 @@ class StackedLM:
                            _at(body, l), cache_len, slot, start, rows)
         return x
 
-    def decode_fn(self, params, cache, batch):
+    def decode_fn(self, params, cache, batch, start: int = 0,
+                  end: Optional[int] = None):
         """One decode step over the timeline cache: ``batch["tokens"]``
         [B, 1] at the shared position ``cache["len"]`` (``batch["pos3"]``
         [B, 1, 3] for M-RoPE), masked per row from ``cache["start"]`` when
         the cache has one (the serving engine's continuous batching). Every
         segment's body and ``len`` are updated in place (``len`` advances
         by one) and the same cache dict is returned with the f32 logits
-        [B, V]."""
+        [B, V]. ``[start, end)`` runs those layers of the served segment
+        only (params and body may hold those layers only): from
+        ``batch["hidden"]`` where ``start > 0``, and returning the hidden
+        state [B, 1, d] in place of the logits where ``end`` is not the
+        last layer; ``len`` advances either way."""
         n = cache["len"]
-        x = self.embed(params, batch["tokens"])              # [B, 1, d]
-        for seg in self.segments:
+        if start == 0 and end is None:
+            x = self.embed(params, batch["tokens"])              # [B, 1, d]
+            for seg in self.segments:
+                x = self.decode_timeline_blocks(
+                    params, cache[seg.name], x, n, cache.get("start"),
+                    pos3=batch.get("pos3"), seg=seg)
+        else:
+            seg = self.served_segment
+            lo, hi, at = self._span(params[seg.name], start, end)
+            if self._span(cache[seg.name], lo, hi)[2] != at:
+                raise ValueError("params and cache hold different layers")
+            x = batch["hidden"] if lo > 0 else \
+                self.embed(params, batch["tokens"])
             x = self.decode_timeline_blocks(
                 params, cache[seg.name], x, n, cache.get("start"),
-                pos3=batch.get("pos3"), seg=seg)
+                lo - at, hi - at, pos3=batch.get("pos3"), seg=seg)
+            if not self._is_last(end):
+                n.add_(1)
+                return x, cache
         logits = self.head(params, x)
         n.add_(1)
         return logits, cache

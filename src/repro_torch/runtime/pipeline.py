@@ -59,6 +59,23 @@ gather over ``data``), so the step returns the one-card path's [B, V].
 The rank step runs eagerly: a step that messages through the host is not
 captured in a CUDA graph.
 
+Two more pieces serve an engine whose stages are ranks
+(``ServingEngine(mesh=)``), with one pod rank per stage and no data axis:
+
+* ``rank_forward`` runs this rank's layers of a prefill (one-shot, packed,
+  chunked or one token) between its neighbours: it takes the hidden
+  state from stage s - 1 and posts its own to stage s + 1, each crossing
+  sealed with the lossless page cipher under a counter of its own
+  (``sealing.crossing_seq``), never with the int8 seal: the reference runs
+  its prefill on the whole params, so a lossy crossing would change its
+  streams. Unsealed with ``seal_boundary`` off, as the decode boundary.
+  The last stage's logits reach every rank.
+* ``restage_cache`` on a live re-plan moves the layers that change owner
+  between the ranks: their pool rows (paged) or body rows (timeline) go
+  sealed with the page cipher under counters of their own
+  (``sealing.restage_seq``); what a rank keeps stays in place. The result
+  is the cache staged directly under the new boundaries.
+
 Each stage reads and writes only its own layers of the shared pools, for
 its microbatch's block-table rows; ``seq_lens`` advance once per step,
 for every row that holds a sequence. On the timeline a stage writes its
@@ -68,15 +85,55 @@ advances once per step.
 from __future__ import annotations
 
 import dataclasses
+import math
+import time
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.enclave import sealing
 from repro_torch.kernels import ops as K
+from repro_torch.kernels.seal import int_dtype_of
 from repro_torch.launch import ranks as RK
 from repro_torch.models.api import ModelAPI
-from repro_torch.tree import map_tree
+from repro_torch.tree import leaves, map_tree
+
+
+# restage sequence numbers one restage may take (``restage_cache``)
+RESTAGE_SEQS = 256
+
+
+def _cipher_dtype(t: torch.Tensor) -> torch.dtype:
+    """The float type whose bits the page cipher moves ``t`` as: its own
+    for f32 and bf16, bf16 (two bytes an element) for anything else."""
+    return t.dtype if t.dtype in (torch.float32, torch.bfloat16) \
+        else torch.bfloat16
+
+
+def _cipher_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [rows, ...] as a contiguous 2D float view of its bits."""
+    t = t.contiguous()
+    if t.dtype in (torch.float32, torch.bfloat16):
+        return t.reshape(t.shape[0], -1)
+    return t.view(torch.uint8).reshape(t.shape[0], -1).view(torch.bfloat16)
+
+
+def _cipher_like(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """An empty cipher of ``rows`` layers of ``t``'s kind (a receive's
+    shape and type)."""
+    per = _cipher_rows(t[:1]).shape[1]
+    return torch.empty((rows, per), device=t.device,
+                       dtype=int_dtype_of(_cipher_dtype(t)))
+
+
+def _from_cipher(rows: torch.Tensor, like: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """The inverse of ``_cipher_rows``: opened rows back to ``n`` layers
+    shaped and typed as ``like``'s."""
+    shape = (n,) + tuple(like.shape[1:])
+    if like.dtype in (torch.float32, torch.bfloat16):
+        return rows.reshape(shape)
+    return rows.view(torch.uint8).view(like.dtype).reshape(shape)
 
 
 def pipeline_applicable(api: ModelAPI) -> bool:
@@ -154,7 +211,7 @@ class PipelinedDecoder:
             raise ValueError(
                 f"PipelinedDecoder(mesh=): a DeviceMesh of ranks over pod "
                 f"(= num_stages {self.num_stages}) and data, got {sizes} "
-                f"(a model axis is ROADMAP item 10b)")
+                f"(a model axis is ROADMAP item 10d)")
         ax = rank_axes(self.mesh)
         self.stage, self.data = ax.index("pod"), ax.index("data")
         self.num_data = ax.size("data")
@@ -170,22 +227,26 @@ class PipelinedDecoder:
             return self.ranges[s]
         return 0, self.stage_counts[s]
 
-    def _cut(self, tree):
+    def _cut(self, tree, device=None):
         lo, hi = self.ranges[self.stage]
-        return map_tree(lambda t: t[lo:hi].clone(), tree)
+        return map_tree(lambda t: t[lo:hi].to(device or t.device,
+                                              copy=True), tree)
 
-    def stage_params(self, params):
+    def stage_params(self, params, device=None):
         """This rank's params: its stage's layers of the served segment,
         the embedding on stage 0 (and on the last stage when the head is
         tied to it), the final norm and head on the last stage, anything
-        else (a frontend) on stage 0. The whole tree on one card."""
+        else (a frontend) on stage 0; copied to ``device`` when given (a
+        rank engine cuts them from its host copy of the whole tree). The
+        whole tree on one card."""
         if self.mesh is None:
             return params
         seg = self.api.model.served_segment.name
         first, last = self.stage == 0, self.stage == self.num_stages - 1
         keep = {"embed": first or (last and self.api.cfg.tie_embeddings),
                 "ln_f": last, "head": last}
-        return {k: self._cut(v) if k == seg else v
+        return {k: self._cut(v, device) if k == seg
+                else map_tree(lambda t: t.to(device or t.device), v)
                 for k, v in params.items()
                 if k == seg or keep.get(k, first)}
 
@@ -209,20 +270,140 @@ class PipelinedDecoder:
         """The inverse of ``stage_cache``."""
         return {self.api.model.served_segment.name: staged, "len": new_len}
 
-    def restage_cache(self, cache, new_dec: "PipelinedDecoder"):
+    def restage_cache(self, cache, new_dec: "PipelinedDecoder", *,
+                      key: int = 0, seq: int = 0):
         """Carry a cache over to ``new_dec``'s boundaries (a live re-plan
         swap): the paged cache dict, or the timeline's staged tuple
         ``(body, len)`` or ``(body, len, start)``, returned in the same
-        form. Pools and bodies keep one layer per row of their leading dim
-        whatever the stage layout, so nothing moves: the cache is valid
-        under the new ranges as it is."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "restage_cache over ranks would move layers between pods "
-                "(a live swap over ranks is ROADMAP queue 1, item 10b)")
+        form. On one card pools and bodies keep one layer per row of their
+        leading dim whatever the stage layout, so nothing moves: the cache
+        is valid under the new ranges as it is. On ranks this rank's
+        layers of the pools or body become its layers under the new
+        ranges (``_move_layers``), sealed under ``key`` and the restage
+        sequence numbers ``seq``, ``seq + 1``, ... (at most
+        ``RESTAGE_SEQS`` of them); block tables, seq_lens, ``len`` and
+        ``start`` are whole on every rank and stay."""
         n = self.api.model.served_segment.n
         assert new_dec.api.model.served_segment.n == n
-        return cache
+        if self.mesh is None:
+            return cache
+        assert new_dec.mesh is not None and new_dec.stage == self.stage
+        seg = self.api.model.served_segment.name
+        if isinstance(cache, dict):
+            return dict(cache, **{seg: self._move_layers(cache[seg], new_dec,
+                                                         key, seq)})
+        return (self._move_layers(cache[0], new_dec, key, seq),) + \
+            tuple(cache[1:])
+
+    def _moves(self, new_dec: "PipelinedDecoder"):
+        """Every (source stage, destination stage, first layer, end layer)
+        of a restage to ``new_dec``: the layers the source owns now and the
+        destination owns after, in one order every rank computes."""
+        out = []
+        for a, (alo, ahi) in enumerate(self.ranges):
+            for b, (blo, bhi) in enumerate(new_dec.ranges):
+                lo, hi = max(alo, blo), min(ahi, bhi)
+                if a != b and lo < hi:
+                    out.append((a, b, lo, hi))
+        return out
+
+    def _move_layers(self, tree, new_dec: "PipelinedDecoder", key: int,
+                     seq: int):
+        """This rank's tree of stacked layer leaves (its old range) ->
+        the same tree over its new range: the layers it keeps stay, the
+        ones it loses go to their new owners and the ones it gains come
+        from their old owners, each leaf's slab of a message sealed with
+        the page cipher (its bytes viewed as bf16 rows when it is not a
+        float: an int8 cache) under its own restage counter."""
+        s = self.stage
+        (olo, ohi), (nlo, nhi) = self.ranges[s], new_dec.ranges[s]
+        flat = leaves(tree)
+        moves = self._moves(new_dec)
+        assert len(moves) * len(flat) <= RESTAGE_SEQS, \
+            (len(moves), len(flat))
+
+        def ctr(m: int, j: int):
+            return sealing._swap_counter(
+                sealing.restage_seq(seq + m * len(flat) + j), 0)
+
+        outgoing, incoming = [], []
+        for m, (a, b, lo, hi) in enumerate(moves):
+            if a == s:
+                outgoing.append((self._pod_ranks[b], [
+                    K.seal_bits(_cipher_rows(t[lo - olo:hi - olo]), key,
+                                ctr(m, j)) for j, t in enumerate(flat)]))
+            elif b == s:
+                incoming.append((self._pod_ranks[a], [
+                    _cipher_like(t, hi - lo) for t in flat]))
+        got = iter(RK.transfer(self.staging, outgoing, incoming,
+                               self._pod_group, tag="restage"))
+        pieces = {}                        # first layer -> its leaves
+        for m, (a, b, lo, hi) in enumerate(moves):
+            if b == s:
+                pieces[lo] = [_from_cipher(K.unseal_bits(
+                    c, key, ctr(m, j), out_dtype=_cipher_dtype(t)), t,
+                    hi - lo) for j, (c, t) in enumerate(zip(next(got),
+                                                            flat))]
+        keep_lo, keep_hi = max(olo, nlo), min(ohi, nhi)
+        if keep_lo < keep_hi:
+            pieces[keep_lo] = [t[keep_lo - olo:keep_hi - olo] for t in flat]
+        new = [torch.cat([pieces[lo][j] for lo in sorted(pieces)])
+               for j in range(len(flat))]
+        assert all(t.shape[0] == nhi - nlo for t in new), (nlo, nhi)
+        it = iter(new)
+        return map_tree(lambda _: next(it), tree)
+
+    # -- a prefill stage on a rank --------------------------------------------
+    def rank_forward(self, run: Callable, shape: Tuple[int, ...],
+                     logits_rows: int, key, seq: int) -> torch.Tensor:
+        """This rank's layers of one prefill call between its neighbours:
+        ``run(x)`` runs them, with ``x`` the hidden state [*shape, d_model]
+        from stage s - 1 (None on stage 0, which embeds), and returns what
+        leaves them: the hidden state, or the f32 logits [logits_rows, V]
+        on the last stage. The hidden state crossing from stage s to s + 1
+        is sealed with the page cipher under ``key`` and the crossing
+        sequence number ``seq + s`` (``sealing.crossing_seq``; one call
+        takes ``num_stages - 1`` of them), raw with ``seal_boundary`` off.
+        Returns the last stage's logits on every rank. A rank that sends a
+        crossing keeps its host ms (from its hidden state ready on the
+        device to the send complete: seal, staging, transport) and bytes
+        in ``last_crossing``."""
+        api, S, s = self.api, self.num_stages, self.stage
+        d, V = api.cfg.d_model, api.cfg.vocab_size
+        dev = api.device
+
+        def ctr(i: int):
+            return sealing._swap_counter(sealing.crossing_seq(seq + i), 0)
+
+        x = None
+        if s > 0:
+            rows = math.prod(shape)
+            like = torch.empty((rows, d), device=dev, dtype=(
+                int_dtype_of(api.dtype) if self.seal_boundary
+                else api.dtype))
+            got = RK.recv(self.staging, [like], self._pod_ranks[s - 1],
+                          self._pod_group, tag="hidden_in").wait()[0]
+            if self.seal_boundary:
+                got = K.unseal_bits(got, key, ctr(s - 1),
+                                    out_dtype=api.dtype)
+            x = got.reshape(*shape, d)
+        out = run(x)
+        if s < S - 1:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0, sent0 = time.perf_counter(), self.staging.sent
+            h = out.reshape(-1, d)
+            payload = K.seal_bits(h, key, ctr(s)) if self.seal_boundary \
+                else h
+            RK.send(self.staging, [payload], self._pod_ranks[s + 1],
+                    self._pod_group, tag="hidden_out").wait()
+            self.last_crossing = ((time.perf_counter() - t0) * 1e3,
+                                  self.staging.sent - sent0)
+            out = torch.empty((logits_rows, V), dtype=torch.float32,
+                              device=dev)
+        RK.broadcast(self.staging, out, self._pod_ranks[-1], self._pod_group,
+                     tag="prefill_logits")
+        return out
 
     # -- one stage on one microbatch (the tick body and the probe) ----------
     def _pos3(self, pos: torch.Tensor, rows: int):

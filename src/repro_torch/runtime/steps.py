@@ -26,7 +26,7 @@ pod's gradient as int8 with error feedback over ``pod``
 (``optim.compression``) and takes the pods' mean loss. A ``model`` axis
 above 1 (tensor parallelism), the serve steps over ranks and a logical
 mesh of several devices in a process of one rank are refused by name
-(ROADMAP item 10b and item 10).
+(ROADMAP item 10d and item 10).
 
 On the card the train step runs under ``torch.use_deterministic_algorithms``,
 so a run repeats its bits and a resumed run ends where a straight one
@@ -147,16 +147,17 @@ def check_mesh(api: ModelAPI, mesh, what: str, ranks: bool = False
         if not ranks:
             raise NotImplementedError(
                 f"{what}: a mesh of {n} ranks {sizes}: the serve steps run "
-                f"on one device; serving over ranks is the pipelined "
-                f"decoder (runtime/pipeline.py, mesh=) or ROADMAP queue 1, "
-                f"item 10b")
+                f"on one device; serving over pod ranks is the engine "
+                f"(ServingEngine(mesh=), serving/ranked.py) and the "
+                f"pipelined decoder (runtime/pipeline.py, mesh=); the serve "
+                f"steps over data ranks are ROADMAP queue 1, item 10d")
         wide = {a: k for a, k in sizes.items()
                 if a not in ("pod", "data") and k > 1}
         if wide:
             raise NotImplementedError(
                 f"{what}: mesh axes {wide} would be tensor parallelism "
                 f"(the constrain call sites); ranks run over pod and data "
-                f"only (ROADMAP queue 1, item 10b)")
+                f"only (ROADMAP queue 1, item 10d)")
         return
     raise NotImplementedError(
         f"{what}: a logical mesh of {n} devices {sizes} in a process of "

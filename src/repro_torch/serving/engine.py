@@ -120,6 +120,7 @@ from repro_torch.core.privacy import LM_SIM_DELTA
 from repro_torch.device import resolve_device, to_device
 from repro_torch.enclave import sealing
 from repro_torch.enclave.domain import ResourceManager, two_enclave_manager
+from repro_torch.launch import ranks as RK
 from repro_torch.runtime.ft import HeartbeatMonitor, OnlineReplanner
 from repro_torch.runtime.pipeline import PipelinedDecoder, pipeline_applicable
 from repro_torch.serving.aot import AotRegistry
@@ -282,6 +283,12 @@ class _Backend:
 
     def warm_probes(self) -> None:
         """Stage probes to warm: none, stage boundaries are metadata here."""
+
+    def swap_layout(self):
+        """The stage layout a swap payload is sealed under where each rank
+        holds its own layers' columns (``serving/ranked.py``); None on one
+        device, which seals whole rows."""
+        return None
 
     def swap(self, stage_blocks: Sequence[int]) -> bool:
         self.stage_blocks = tuple(stage_blocks)
@@ -758,7 +765,7 @@ class ServingEngine:
                  params=None,
                  device: Optional[Union[str, torch.device]] = None,
                  rm: Optional[ResourceManager] = None,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None, mesh=None):
         cfg = config or EngineConfig()
         self.device = resolve_device(device)
         if api.device != self.device:
@@ -823,13 +830,23 @@ class ServingEngine:
         if cfg.prefill_chunk < 0 or cfg.prefill_pack < 0:
             raise ValueError(f"prefill_chunk {cfg.prefill_chunk} and "
                              f"prefill_pack {cfg.prefill_pack} must be >= 0")
-        backend = backend or "local"
+        backend = backend or ("pipelined" if mesh is not None
+                              and cfg.num_stages > 1 else "local")
         if backend not in ("local", "pipelined"):
             raise ValueError(f"backend {backend!r}: 'local' or 'pipelined'")
+        # a mesh of ranks: stage s on rank s (serving/ranked.py)
+        self.mesh = mesh
+        if mesh is not None:
+            from repro_torch.serving import ranked
+            ranked.check_rank_mesh(mesh, cfg, backend)
         self.api, self.config = api, cfg
         self.rm = rm or two_enclave_manager()
         self.params = params if params is not None else api.init(
             torch.Generator(device=self.device).manual_seed(0))
+        if mesh is not None:
+            # the whole tree on the host; the backend cuts its stage's
+            # layers onto the device, at construction and at every swap
+            self.params = ranked.host_copy(self.params)
         paged = self.kv_layout == "paged"
         self.preempt_policy = cfg.preempt_policy \
             if cfg.preempt_policy != "auto" else \
@@ -851,10 +868,17 @@ class ServingEngine:
             spec = self.replanner.plan()
         self.spec = spec
         self.stage_blocks = self._blocks_from(spec)
+        if mesh is None:
+            monitor = HeartbeatMonitor(self.rm,
+                                       timeout_s=cfg.heartbeat_timeout_s)
+        else:
+            pods = mesh.get_group("pod")
+            monitor = ranked.AgreedMonitor(
+                self.rm, timeout_s=cfg.heartbeat_timeout_s, group=pods,
+                src=RK.group_ranks(pods)[0])
         self.telemetry = StageTelemetry(
             self.replanner,
-            monitor=HeartbeatMonitor(self.rm,
-                                     timeout_s=cfg.heartbeat_timeout_s),
+            monitor=monitor,
             interval=cfg.telemetry_interval,
             step_times_cap=cfg.step_times_cap)
 
@@ -909,8 +933,19 @@ class ServingEngine:
         # the full shape inventory as CUDA graphs and stats() can report
         # post-warmup capture stalls
         self.aot = AotRegistry(capture=cfg.warmup)
+        # uint32 key: swap pages seal under it, and the n-th decode tick
+        # since construction seals its stage boundaries under key + n
+        # (``_step_key``)
+        self._key = 0xC0FFEE
         pipelined = backend == "pipelined"
-        if paged:
+        if mesh is not None:
+            self.backend = ranked.RankPagedBackend(
+                api, self.params, cfg, num_pages, self.pages_per_slot,
+                self.stage_blocks, self.aot, mesh, self._key) if paged \
+                else ranked.RankTimelineBackend(
+                    api, self.params, cfg, self.stage_blocks, self.aot,
+                    mesh, self._key)
+        elif paged:
             backend_cls = PagedPipelinedBackend if pipelined \
                 else PagedLocalBackend
             self.backend = backend_cls(api, self.params, cfg, num_pages,
@@ -957,10 +992,6 @@ class ServingEngine:
         self.decode_wall_s = 0.0
         self.events: Deque[EngineEvent] = deque(maxlen=cfg.events_cap)
         self._step_events: List[EngineEvent] = []
-        # uint32 key: swap pages seal under it, and the n-th decode tick
-        # since construction seals its stage boundaries under key + n
-        # (``_step_key``)
-        self._key = 0xC0FFEE
         # ticks not counted by self.steps (the prefill role of a pair
         # starts 2^31 ticks on)
         self._key_shift = _PREFILL_KEY_SHIFT if prefill else 0
@@ -1006,6 +1037,33 @@ class ServingEngine:
     def _sample_one(self, logits: torch.Tensor, rid: int, index: int) -> int:
         """An admission's first token from logits [1, V]."""
         return int(self._sample(logits[:1], [rid], [index])[0])
+
+    def _agreed(self, value: float) -> float:
+        """A host clock reading as the engine records it: its own on one
+        device; rank 0's on every rank of a rank engine, whose host
+        decisions (re-plans read the step's wall time) and events must
+        agree."""
+        if self.mesh is None:
+            return value
+        return self.backend.share_first([value])[0]
+
+    def _ms_since(self, t0: float) -> float:
+        return self._agreed((time.perf_counter() - t0) * 1e3)
+
+    def _agreed_integrity(self, err: Optional[Exception], context: str,
+                          check: str) -> Optional[Exception]:
+        """A swap-in check's failure, or None. On a rank engine each rank
+        checks its own part of the payload and the verdict is every
+        rank's: one failing part fails the swap-in on every rank, with one
+        message, so that every rank takes the same rung."""
+        if self.mesh is None:
+            return err
+        oks = self.backend.verdicts(err is None)
+        if all(oks):
+            return None
+        return sealing.SealIntegrityError(
+            f"{context}: the {check} of the part on rank(s) "
+            f"{[r for r, ok in enumerate(oks) if not ok]} failed")
 
     def _emit(self, kind: str, detail: Any = None) -> None:
         ev = EngineEvent(self.steps, kind, detail)
@@ -1160,7 +1218,7 @@ class ServingEngine:
         ``len(generated)``), the admission timed and its event emitted."""
         first = self._sample_one(logits, req.rid, len(req.generated))
         self.pending[slot] = first
-        detail["ms"] = (time.perf_counter() - t0) * 1e3
+        detail["ms"] = self._ms_since(t0)
         self.admission_ms.append(detail["ms"])
         self.admissions += 1
         self._emit("admit", detail)
@@ -1232,6 +1290,9 @@ class ServingEngine:
         (k, v) [L, 1, KVH, S_pad, D]), static outputs under a graph that
         the caller consumes (insert, sample) before its next managed
         call."""
+        if self.mesh is not None:
+            return self.backend.prefill(self.api.prefill_at_fn, toks,
+                                        {"prompt_len": plen})
         logits, caches = self.api.prefill_at_fn(
             self.params, {"tokens": toks, "prompt_len": plen})
         return logits, caches[self.api.model.served_segment.name]
@@ -1239,6 +1300,9 @@ class ServingEngine:
     def _prefill_packed_fn(self, toks: torch.Tensor, plens: torch.Tensor):
         """Packed prefill, graph-managed per bucket at width K (see
         ``_prefill_at_fn``)."""
+        if self.mesh is not None:
+            return self.backend.prefill(self.api.prefill_packed_fn, toks,
+                                        {"prompt_lens": plens})
         logits, caches = self.api.prefill_packed_fn(
             self.params, {"tokens": toks, "prompt_lens": plens})
         return logits, caches[self.api.model.served_segment.name]
@@ -1268,6 +1332,9 @@ class ServingEngine:
         cache = self._token_caches.get(S)
         if cache is None:
             cache = self.api.init_cache(1, S)
+            if self.mesh is not None:
+                seg = self.api.model.served_segment.name
+                cache[seg] = self.backend.own_layers(cache[seg])
             if self.kv_layout != "paged":
                 cache["start"] = torch.zeros(1, dtype=torch.int32,
                                              device=self.device)
@@ -1283,6 +1350,8 @@ class ServingEngine:
         """One [1, 1] decode step on the private cache of width ``S`` (a
         host int: one graph per width), graph-managed: logits [1, V], a
         static output under a graph."""
+        if self.mesh is not None:
+            return self.backend.prefill_token(tok, self._token_caches[S])
         return self.api.decode_fn(self.params, self._token_caches[S],
                                   {"tokens": tok})[0]
 
@@ -1414,7 +1483,7 @@ class ServingEngine:
         self.scheduler.mark_running(slot)
         first = self._sample_one(cs.logits, req.rid, len(req.generated))
         self.pending[slot] = first
-        ms = (time.perf_counter() - cs.t0) * 1e3
+        ms = self._ms_since(cs.t0)
         self.admission_ms.append(ms)
         self.admissions += 1
         self.chunked_admissions += 1
@@ -1494,7 +1563,8 @@ class ServingEngine:
         # release() drops their last reference below
         payload = (sealing.cipher_to_host(ck), sealing.cipher_to_host(cv))
         self.pool.swap_out(req.rid, entries, payload, n_tokens, seq,
-                           digest=sealing.payload_digest(payload))
+                           digest=sealing.payload_digest(payload),
+                           layout=self.backend.swap_layout())
         self.pool.release(pages)
         self.backend.clear_slot(slot)
         self.scheduler.preempt(slot, swapped=True)
@@ -1535,17 +1605,25 @@ class ServingEngine:
         ``verify_structure`` and never reaches the scatter (a captured
         graph's static input has the full shape)."""
         man = self.pool.swap_manifest[req.rid]
+        context = f"swap-in rid {req.rid}"
         if self.faults is not None and not self._in_warmup:
-            tampered, mode = self.faults.maybe_tamper_swap(man.payload)
+            window = None if man.layout is None else \
+                self.backend.cipher_window(man.layout)
+            tampered, mode = self.faults.maybe_tamper_swap(man.payload,
+                                                           window)
             if mode is not None:
                 man.payload = tampered
                 self._emit("fault_tamper", {"rid": req.rid, "path": "swap",
                                             "mode": mode})
+        err = None
         try:
             sealing.verify_structure(man.payload, man.digest,
-                                     context=f"swap-in rid {req.rid}")
+                                     context=context)
         except sealing.SealIntegrityError as e:
-            return self._integrity_reject(req, "swap", [], e)
+            err = e
+        err = self._agreed_integrity(err, context, "structure")
+        if err is not None:
+            return self._integrity_reject(req, "swap", [], err)
         N = self.pool.num_pages
         pages: List[int] = []
         fresh: List[int] = []
@@ -1563,13 +1641,18 @@ class ServingEngine:
                   for a in man.payload)
         # the host re-hash below overlaps the asynchronously launched
         # unseal + scatter; the block table commits only after it matches
+        # a rank engine's part says which layers it holds (``swap_layout``)
         self.backend.scatter_pages(ck, cv, scatter_vec, self._key,
-                                   man.counter)
+                                   man.counter, **({} if man.layout is None
+                                                   else {"layout": man.layout}))
+        err = None
         try:
-            sealing.verify_payload(man.payload, man.digest,
-                                   context=f"swap-in rid {req.rid}")
+            sealing.verify_payload(man.payload, man.digest, context=context)
         except sealing.SealIntegrityError as e:
-            return self._integrity_reject(req, "swap", fresh, e)
+            err = e
+        err = self._agreed_integrity(err, context, "digest")
+        if err is not None:
+            return self._integrity_reject(req, "swap", fresh, err)
         man = self.pool.swap_in(req.rid)
         bt_row = np.zeros(self.pages_per_slot, np.int32)
         bt_row[:len(pages)] = pages
@@ -1577,7 +1660,7 @@ class ServingEngine:
         self.slot_pages[slot] = pages
         self.slot_len[slot] = man.n_tokens
         self.pending[slot] = req.generated[-1]
-        ms = (time.perf_counter() - t0) * 1e3
+        ms = self._ms_since(t0)
         self.admission_ms.append(ms)
         self.admissions += 1
         self._emit("admit", {"rid": req.rid, "slot": slot,
@@ -1900,7 +1983,7 @@ class ServingEngine:
             first = self._sample_one(logits[b:b + 1], req.rid,
                                      len(req.generated))
             self.pending[slot] = first
-            ms = (time.perf_counter() - t0) * 1e3
+            ms = self._ms_since(t0)
             self.admission_ms.append(ms)
             self.admissions += 1
             self.packed_admissions += 1
@@ -1957,7 +2040,7 @@ class ServingEngine:
         t0 = time.perf_counter()
         logits = self.backend.step(self.pending, self._step_key())
         toks = self._sample(logits, rids, idxs)    # waits for the step
-        wall = time.perf_counter() - t0
+        wall = self._agreed(time.perf_counter() - t0)
         self.decode_wall_s += wall
         self.steps += 1
         self.global_len += 1
@@ -2135,6 +2218,9 @@ class ServingEngine:
             self._emit("swap_skipped", {"blocks": blocks})
             return False
         migrated = self.backend.swap(blocks)
+        if self.mesh is not None:
+            # the private prefill caches hold the old layout's layers
+            self._token_caches.clear()
         self._emit("swap", {"from": self.stage_blocks, "to": blocks,
                             "migrated": migrated and
                             self.backend.migrates_cache})

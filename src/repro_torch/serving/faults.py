@@ -146,11 +146,16 @@ class FaultPlane:
 
     # -- site: sealed-payload tampering ---------------------------------
     def _tamper(self, payload: Any, corrupt_p: float, truncate_p: float,
-                kind: str) -> Tuple[Any, Optional[str]]:
+                kind: str, window=None) -> Tuple[Any, Optional[str]]:
         """``(payload', mode)``: mode None (untouched), "corrupt" (one bit
         flipped) or "truncate" (one trailing row cut). Works on copies:
         the manifest's holder swaps the tampered payload in, as a
-        man-in-the-middle would, and the original buffers are untouched."""
+        man-in-the-middle would, and the original buffers are untouched.
+        ``window`` ``(col0, row_cols)``: each part of ``payload`` is
+        columns [col0, col0 + cols) of rows ``row_cols`` wide (a pipeline
+        rank's share of the payload). The byte is drawn over the whole
+        rows, so every rank draws as one device would, and flipped on the
+        rank whose columns hold it."""
         mode = None
         if self._fire(corrupt_p):
             mode = "corrupt"
@@ -162,9 +167,15 @@ class FaultPlane:
         if mode == "corrupt":
             which = self.rng.randrange(len(parts))
             arr = np.array(parts[which], copy=True)
-            flat = arr.reshape(-1).view(np.uint8)
-            byte = self.rng.randrange(flat.size)
-            flat[byte] ^= np.uint8(1 << self.rng.randrange(8))
+            col0, row_cols = window or (0, arr.shape[-1])
+            size = arr.itemsize
+            byte = self.rng.randrange(arr.shape[0] * row_cols * size)
+            bit = np.uint8(1 << self.rng.randrange(8))
+            row, col = divmod(byte, row_cols * size)
+            col -= col0 * size
+            mine = arr.reshape(arr.shape[0], -1).view(np.uint8)
+            if 0 <= col < mine.shape[1]:
+                mine[row, col] ^= bit
             parts[which] = arr
         else:
             rows = max(1, parts[0].shape[0] - 1)
@@ -172,9 +183,10 @@ class FaultPlane:
         self.injected[f"{mode}_{kind}"] += 1
         return tuple(parts), mode
 
-    def maybe_tamper_swap(self, payload: Any) -> Tuple[Any, Optional[str]]:
+    def maybe_tamper_swap(self, payload: Any, window=None
+                          ) -> Tuple[Any, Optional[str]]:
         return self._tamper(payload, self.config.corrupt_swap,
-                            self.config.truncate_swap, "swap")
+                            self.config.truncate_swap, "swap", window)
 
     def maybe_tamper_transfer(self, payload: Any
                               ) -> Tuple[Any, Optional[str]]:

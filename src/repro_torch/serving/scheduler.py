@@ -262,6 +262,9 @@ class SwapManifest:
     (enclave.sealing.payload_digest) — the engine verifies it before
     unsealing, because the XOR keystream cipher is malleable and would
     otherwise scatter tampered bits straight into the KV pool.
+    ``layout`` is, on an engine whose pipeline stages are ranks, the stage
+    layer ranges the payload was sealed under (each rank holds its own
+    layers' columns); None on one device.
     """
 
     rid: int
@@ -270,6 +273,7 @@ class SwapManifest:
     payload: Any
     counter: int
     digest: Any = None
+    layout: Any = None
 
     @property
     def sealed_pages(self) -> int:
@@ -481,7 +485,7 @@ class PagePool:
 
     def swap_out(self, rid: int, entries: Sequence[Tuple[str, Any]],
                  payload: Any, n_tokens: int, counter: int,
-                 digest: Any = None) -> SwapManifest:
+                 digest: Any = None, layout: Any = None) -> SwapManifest:
         """Record a victim's sealed spill. The caller has already gathered
         and sealed the private pages into ``payload`` (and will release the
         slot's page references afterwards); this pins every shared page with
@@ -489,7 +493,7 @@ class PagePool:
         request is swapped out — re-adoption at swap-in is guaranteed."""
         assert rid not in self.swap_manifest, rid
         man = SwapManifest(rid, n_tokens, list(entries), payload, counter,
-                           digest)
+                           digest, layout)
         for tag, val in man.entries:
             if tag == "shared":
                 key, page = val

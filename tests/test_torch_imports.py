@@ -31,7 +31,8 @@ def test_port_and_chip_smoke_import_no_jax_and_nothing_of_repro():
             importlib.import_module(n)
         # the modules of the pod axis over ranks among them
         assert {"repro_torch.launch.ranks", "repro_torch.launch.rank_jobs",
-                "repro_torch.optim.compression"} <= set(names), names
+                "repro_torch.optim.compression",
+                "repro_torch.serving.ranked"} <= set(names), names
         spec = importlib.util.spec_from_file_location(
             "chip_smoke", "chip_smoke.py")
         importlib.util.module_from_spec(spec)

@@ -204,7 +204,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert torch.equal(ops.flash_attention(qa, ka, va, q_offset=3),
                        want.transpose(1, 2))
     assert ops.LAUNCHES == {"paged_attention": 0, "seal_bits": 0,
-                            "unseal_bits": 0, "seal": 0, "unseal": 0,
+                            "unseal_bits": 0, "seal_bits_window": 0,
+                            "unseal_bits_window": 0, "seal": 0, "unseal": 0,
                             "flash_attention": 0}
 
 
