@@ -196,7 +196,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      sealed; (b) hymba-1.5b (attention + selective SSM), reduced through
      the engine card against CPU (local, pipelined, sealed and unsealed),
      then full width: prefill of 4096 tokens, the rolling window's
-     eviction, prefill S+1 against decode one, and 6 requests on the
+     eviction, prefill S+1 against decode one, and 3 requests on the
      timeline local eager, in CUDA graphs, pipelined unsealed (= local)
      and sealed; (d) glm4-9b served at full width on the paged local
      engine, eager and in CUDA graphs (rep 16); (c) moonshot-v1-16b-a3b
@@ -219,7 +219,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      tightly, the sealed pipelined step against the plain int8 round trip
      at its boundary, the bf16 state of ``cache_quant`` against the f32
      state over 16 steps (top-1 agreement printed), then phase 5's first
-     8 requests on the timeline: local eager, in CUDA graphs, pipelined
+     4 requests on the timeline: local eager, in CUDA graphs, pipelined
      over 2 stages in graphs unsealed (all three streams equal) and
      sealed (seal = unseal = one a step);
      (b) whisper-small, first reduced in f32, card against CPU, then at
@@ -265,7 +265,20 @@ Phases (each prints its own lines; any failure exits non-zero):
      ranks, the streams stay; (c) the ranks' first swap-out parts side by
      side are phase 6's payload with its digest; (d) no (key, counter)
      pair ciphers twice; host ms a decode step, admission, a prefill
-     crossing, a restage, swap-out and swap-in.
+     crossing, a restage, swap-out and swap-in;
+ 21. the data axis over ranks, a 2 x 2 pod x data mesh of four gloo ranks
+     on the card in one spawn (the reference's engine layout): one stage's
+     decode step at 4 rows held against its 2-row halves first; (a) phase
+     6's stream sealed through ``ServingEngine(mesh=)``, 2 rows a data rank
+     a microbatch: streams equal phase 6's (or, if the 2-row products
+     differ, each data rank's first step equal to the one-card 2-row run),
+     swap-ins bit-exact on every rank, the data ranks of each pod with
+     equal cache digests, no (key, counter) pair twice over the four
+     ranks, launches per rank as its layers and data index say; (b) the
+     prefill and decode serve steps over the same ranks at phase 18's
+     shapes, each rank bit-equal to the one-card step on its rows; host ms
+     a decode step, admission, the KV exchange's bytes and host ms, a
+     crossing, swap-out and swap-in, the serve steps.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
@@ -300,8 +313,13 @@ UNSEAL_INT_OPS, UNSEAL_F32_OPS = KEYSTREAM_OPS + 3, 2
 BF16_TC_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` on its own line behind the seconds since the script
+    started, so each phase's share of the time limit shows."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -3317,11 +3335,12 @@ F32_LOGIT_TOL = 1e-4
 # f32 paths held against each other at full width (sums in other orders
 # over 28-48 layers; an error of the port would show as order one)
 F32_FULL_TOL = 1e-3
-# 16b: 6 requests of 2-48 tokens, 16 new each, on 4 timeline slots; the
+# 16b: 3 requests of 2-48 tokens, 16 new each, on 4 timeline slots (the
+# stream trimmed from 6 to keep the whole script's time); the
 # pipelined runs take one microbatch, so their GEMMs have the local run's
 # shapes and the unsealed run's arithmetic is the local run's
 HYMBA_SERVE = ["--arch", "hymba-1.5b", "--device", "cuda", "--slots", "4",
-               "--requests", "6", "--prompt-len", "48", "--max-new", "16",
+               "--requests", "3", "--prompt-len", "48", "--max-new", "16",
                "--telemetry-interval", "1000"]
 HYMBA_REDUCED = ["--arch", "hymba-1.5b", "--reduced", "--device", "cpu",
                  "--slots", "4", "--requests", "6", "--prompt-len", "40",
@@ -3751,7 +3770,7 @@ def family_hymba(torch, ops, smi):
     a prefill of 2048 then one decode step (only slot 0 of the rolling
     buffer changes: the oldest token evicted) against a prefill of 2049,
     in bf16 (printed) and f32 (within F32_FULL_TOL);
-    then 6 requests on 4 timeline slots: local eager, local in CUDA graphs
+    then 3 requests on 4 timeline slots: local eager, local in CUDA graphs
     (equal streams, steps and launches), pipelined over 2 stages with one
     microbatch unsealed (= local) and sealed (its first parting from local
     printed; seals = unseals = decode steps). Returns the runs' launch
@@ -4063,7 +4082,7 @@ XLSTM_B, XLSTM_S, XLSTM_STEPS, XLSTM_SHORT = 2, 1024, 16, 16
 #   one rescaled to std 1/sqrt(the count its product contracts)
 #   (``_contraction_scaled``): prefill S then decode one against prefill
 #   S+1 within F32_FULL_TOL.
-XLSTM_SWEEP = (8, 16, 64, 256, 1024)
+XLSTM_SWEEP = (8, 16, 64, 256)
 # one block on the reference's weights: within this share of the largest
 # |value|, the CPU tests' bound for Whisper's prefill (PREFILL_REL in
 # tests/test_torch_whisper.py): its scores reach 150 under that init, so
@@ -4072,11 +4091,12 @@ BLOCK_TOL = 2e-4
 # the mLSTM's matrix memory and normalizer, chunks of 256 against single
 # steps: within this share of their largest |value| (sums in another order)
 MLSTM_STATE_TOL = 1e-4
-# phase 5's first 8 requests (up to 128 tokens, 32 new, 8 slots; about
-# 700 per-token prefill steps) on the timeline; telemetry off so that no
+# phase 5's first 4 requests (up to 128 tokens, 32 new, 8 slots; about
+# 350 per-token prefill steps; the stream trimmed from 8 to keep the
+# whole script's time) on the timeline; telemetry off so that no
 # re-plan moves a pipelined run's stage boundaries
 XLSTM_SERVE = ["--arch", "xlstm-125m", "--device", "cuda", "--slots", "8",
-               "--requests", "8", "--prompt-len", "128", "--max-new", "32",
+               "--requests", "4", "--prompt-len", "128", "--max-new", "32",
                "--shared-system-prompt", "0.75",
                "--telemetry-interval", "1000"]
 XLSTM_REDUCED = ["--arch", "xlstm-125m", "--reduced", "--device", "cpu",
@@ -4255,7 +4275,7 @@ def family_xlstm(torch, ops, smi):
     of ``cache_quant`` against the f32 state over 16 decode steps fed the
     f32 run's greedy tokens (top-1 agreement printed); the sealed
     pipelined step against its mirror (``pipe_step_mirror``) in bf16 and
-    f32; then phase 5's first 8 requests through ``ServingEngine`` on the
+    f32; then phase 5's first 4 requests through ``ServingEngine`` on the
     timeline: local eager, local in CUDA graphs (equal streams, steps and
     launches), pipelined over 2 stages with one microbatch in CUDA graphs,
     unsealed (= local) and sealed (seal = unseal = one a decode step).
@@ -5307,7 +5327,279 @@ def serve_ranks(torch, ops, smi, phase6=None):
         f"windows of one row; every rank's events and stats equal")
     log(f"phase 20: {time.perf_counter() - t_phase:.1f} s (the spawn "
         f"{spawn_s:.1f} s)")
+    step_p50 = [_p50(r["step_ms"]) for r in a]
     del out
+    return [{"launches": launches, "step_ms_p50": step_p50}]
+
+
+# phase 21: the data axis over ranks (ROADMAP item 10d, steps 1-2): phase
+# 6's stream on a 2 x 2 pod x data mesh, the reference's engine layout,
+# and the serve steps over the same mesh at phase 18's shapes; four gloo
+# ranks on the one card, in one spawn
+DATA_MESH = (2, 2)
+# 21's check of the row split: one stage's decode step at 4 rows (phase
+# 6's microbatch) against its two 2-row halves (a data rank's), after a
+# prefill of DATA_PROMPT tokens a row
+DATA_PROMPT = 32
+
+
+def _split_bits(torch, api, params):
+    """Whether one stage's decode step at 4 rows equals its two 2-row
+    halves bit for bit: stage 0 (layer 0) and stage 1 (layers 1-15) of
+    phase 6's plan over a paged cache from a prefill of 4 seeded prompts,
+    then the f32 head (cuBLAS may take another kernel for a 2-row
+    product than for a 4-row one). Returns the count of differing
+    elements and the largest difference of the outputs, per part."""
+    from repro_torch.runtime.pipeline import PipelinedDecoder
+    L = api.cfg.num_layers
+    g = torch.Generator(device=DEV).manual_seed(21)
+    toks = torch.randint(0, api.cfg.vocab_size, (4, DATA_PROMPT),
+                         generator=g, device=DEV, dtype=torch.int32)
+    _, caches = api.prefill_fn(params, {"tokens": toks})
+    pages = _paged_from(torch, api, caches, DATA_PROMPT, 1)
+    del caches
+    dec = PipelinedDecoder(api, 2, 1, stage_blocks=(1, L - 1))
+    run = dec.build_stage_probe(paged=True)
+    seg = api.model.served_segment.name
+    x = api.model.embed(params, toks[:, -1:])
+    out = {}
+    for s in range(2):
+        whole = run(params, _clone(pages)[seg], s, x,
+                    pages["block_tables"], pages["seq_lens"])
+        halves = torch.cat([run(params, _clone(pages)[seg], s, x[i:i + 2],
+                                pages["block_tables"][i:i + 2],
+                                pages["seq_lens"][i:i + 2])
+                            for i in (0, 2)])
+        out[f"stage {s}"] = whole, halves
+        x = whole
+    head = api.model.head(params, x)
+    out["head"] = head, torch.cat([api.model.head(params, x[i:i + 2])
+                                   for i in (0, 2)])
+    return {k: (int((a != b).sum()), float((a.float() - b.float()).abs()
+                                           .max()))
+            for k, (a, b) in out.items()}
+
+
+def _first_step_logits(torch, api, params, argv, microbatches):
+    """The one-card pipelined engine on ``argv``'s stream at
+    ``microbatches`` microbatches, driven to its first decode step:
+    that step's logits (on the CPU)."""
+    from repro_torch.launch import rank_jobs, serve
+    args = serve.build_parser().parse_args(
+        argv + ["--microbatches", str(microbatches)])
+    eng = serve.make_engine(api, params, args)
+    probe = rank_jobs.Probe(eng, 1)
+    prompts = serve.gen_prompts(args, api.cfg.vocab_size)
+    k = 0
+    while not probe.logits:
+        if k < len(prompts) and eng.steps % args.arrival_every == 0:
+            eng.submit(prompts[k], args.max_new)
+            k += 1
+        eng.step()
+    return probe.logits[0]
+
+
+def serve_data_ranks(torch, ops, smi, phase6=None, phase20=None):
+    """21. The data axis over ranks, ``make_mesh((2, 2), ("pod",
+    "data"))`` on four gloo ranks spawned on the card in one spawn (the
+    reference's own engine layout, ``tests/test_serving.py:392``):
+    (a) ``ServingEngine(mesh=)`` serves phase 6's stream (full-width
+    llama3.2-1b in bf16, pipelined (1, 15), sealed, 8 slots, 2
+    microbatches, so 2 rows a data rank, 30 pages): swap-outs > 0 and
+    every swap-in restored bit for bit on every rank; the two data ranks
+    of each pod end with equal cache digests; no (key, counter) pair
+    sealed twice over the four ranks; seals on (pod 0, d) = unseals on
+    (pod 1, d) = microbatches x decode steps; per rank paged launches =
+    its layers x (microbatches x steps, + its stage probes on data rank
+    0), flash = its layers x prefill calls, the windowed cipher 2 x
+    swap-outs on data rank 0 and its inverse 2 x swap-ins on every rank,
+    the whole-row cipher one crossing a prefill call on pod 0 plus one KV
+    exchange a decode step (its inverse the same on pod 1's side). The
+    streams: the phase first holds one stage's decode step at 4 rows
+    against its 2-row halves (``_split_bits``); if they agree the streams
+    must equal phase 6's; if not, each data rank's first decode step's
+    logits must equal the one-card engine's at 4 microbatches (2-row
+    stage calls) bit for bit, and the phase prints how many of the 16
+    streams equal phase 6's. (b) ``make_prefill_step`` at 8 x MESH_S and
+    MESH_STEPS ``make_decode_step`` calls over MESH_S + MESH_STEPS
+    positions over the same ranks: each rank's logits rows and cache rows
+    bit-equal to the one-card ``prefill_fn`` / ``decode_fn`` on its 2
+    rows, the whole [8, V] logits the same on every rank. Prints host ms
+    a decode step on each rank beside phase 20's and phase 6's,
+    admission p50 / p99, the KV exchange's bytes and host ms a step, a
+    prefill crossing's host ms and bytes, swap-out and swap-in host ms a
+    rank and the serve steps' host ms. Returns the ranks' launch counts,
+    summed."""
+    from repro_torch.launch import rank_jobs, serve
+    from repro_torch.launch.ranks import spawn
+    from repro_torch.models.api import build_model
+    from repro_torch.tree import map_tree
+    t_phase = time.perf_counter()
+    _free(torch)
+    argv = [DEV if a == "cuda" else a for a in RANKS_SERVE]
+    args = serve.build_parser().parse_args(argv)
+    cfg = _family_cfg("llama3.2-1b")
+    api = build_model(cfg, device=DEV, dtype=torch.bfloat16)
+    params = api.init(torch.Generator(device=DEV).manual_seed(args.seed))
+    if phase6 is None:                    # run alone: phase 6 first
+        phase6 = serve_full_width(torch, ops, api, params, argv, 6,
+                                  plan=(1, cfg.num_layers - 1))
+    L, nm = cfg.num_layers, args.microbatches
+    P, D = DATA_MESH
+    split = _split_bits(torch, api, params)
+    halves_equal = all(n == 0 for n, _ in split.values())
+    log(f"phase 21: one stage's decode step at 4 rows against its two "
+        f"2-row halves (differing elements, largest difference): "
+        f"{split}; {'bit-equal' if halves_equal else 'NOT bit-equal'}")
+    reqs = [(p, args.max_new)
+            for p in serve.gen_prompts(args, cfg.vocab_size)]
+    run = rank_jobs.ServeRun(serve.make_config(args), reqs,
+                             every=args.arrival_every, check_swaps=True,
+                             keep_logits=1)
+    g = torch.Generator(device=DEV).manual_seed(18)
+    toks = torch.randint(0, cfg.vocab_size, (MESH_B, MESH_S), generator=g,
+                         device=DEV, dtype=torch.int32)
+    steps_job = rank_jobs.StepsJob(cfg, (DATA_MESH, ("pod", "data")),
+                                   toks.cpu(), steps=MESH_STEPS,
+                                   dtype=torch.bfloat16, seed=args.seed)
+    _free(torch)
+    t0 = time.perf_counter()
+    out = spawn(rank_jobs.chain, P * D, backend="gloo", device=DEV, args=([
+        (rank_jobs.serve, rank_jobs.ServeJob(cfg, [run],
+                                             dtype=torch.bfloat16,
+                                             seed=args.seed, data=D)),
+        (rank_jobs.serve_steps, steps_job)],))
+    spawn_s = time.perf_counter() - t0
+    a = [res[0][0] for res in out]
+    b = [res[1] for res in out]
+    launches = {k: 0 for k in ops.LAUNCHES}
+    for r in a + b:
+        for k in launches:
+            launches[k] += r["launches"][k]
+    # (a) phase 6's stream on the 2 x 2 ranks
+    assert [(r["stage"], r["data"]) for r in a] == [(0, 0), (0, 1), (1, 0),
+                                                  (1, 1)]
+    st = a[0]["stats"]
+    for r in a[1:]:
+        assert r["events"] == a[0]["events"] and r["stats"] == st
+    bad = rank_jobs.keystream_reuse([r["keys"] for r in a])
+    assert not bad, ("21a: a (key, counter) pair ciphered twice", bad[:3])
+    assert st["stage_blocks"] == (1, L - 1) and st["swaps"] == 0, st
+    assert st["swap_outs"] > 0 and st["swap_ins"] > 0, st
+    for pod in range(P):
+        digests = {r["data"]: r["cache_digest"] for r in a
+                   if r["stage"] == pod}
+        assert digests[0] == digests[1], ("21a: the data ranks of pod "
+                                          f"{pod} hold other caches")
+    for r in a:
+        assert r["status"] == ["done"] * len(reqs), r["status"]
+        assert r["restored"] > 0 and r["moved"] == 0, r["restored"]
+        lo, hi = r["range"]
+        steps, lc, d = r["decode_steps"], r["launches"], r["data"]
+        if DEV == "cuda":
+            first, last = r["stage"] == 0, r["stage"] == P - 1
+            assert lc["paged_attention"] == (hi - lo) * (
+                nm * steps + (r["probes"] if d == 0 else 0)), \
+                (r["stage"], d, lc, steps, r["probes"])
+            assert lc["flash_attention"] == (hi - lo) * st["prefill_calls"]
+            assert lc["seal"] == (nm * steps if first else 0), lc
+            assert lc["unseal"] == (nm * steps if last else 0), lc
+            assert lc["seal_bits_window"] == (
+                2 * st["swap_outs"] if d == 0 else 0), lc
+            assert lc["unseal_bits_window"] == 2 * st["swap_ins"], lc
+            assert lc["seal_bits"] == steps + (
+                st["prefill_calls"] if first else 0), lc
+            assert lc["unseal_bits"] == (D - 1) * steps + (
+                st["prefill_calls"] if last else 0), lc
+    same = sum(x == y for x, y in zip(a[0]["streams"], phase6["streams"]))
+    if halves_equal:
+        assert same == len(reqs), \
+            ("21a: streams differ from phase 6's one-card engine", same)
+    else:
+        want = _first_step_logits(torch, api, params, argv, nm * D)
+        for r in a:
+            assert torch.equal(r["logits"][0], want), \
+                ("21a: first decode step differs from the one-card 2-row "
+                 "run", r["stage"], r["data"])
+    cross = a[0]["crossings"]
+    p20 = ", ".join(f"{t:.3f}" for t in phase20) if phase20 else "not run"
+    step_p50 = ", ".join(f"{_p50(r['step_ms']):.3f}" for r in a)
+    parity = "" if halves_equal else (
+        " (not held: the 2-row products differ; each data rank's first "
+        "decode step bit-equal to the one-card 2-row run)")
+    log(f"phase 21a llama3.2-1b ({L} layers) bf16, phase 6's stream on "
+        f"2 x 2 pod x data ranks (stage blocks {st['stage_blocks']}), "
+        f"sealed: {same} of {len(reqs)} streams equal phase 6's{parity}; "
+        f"{st['completed']} requests, {a[0]['decode_steps']} decode "
+        f"steps, swap-outs {st['swap_outs']}, swap-ins {st['swap_ins']} "
+        f"(pages restored bit-exact {[r['restored'] for r in a]}); cache "
+        f"digests equal within each pod; host ms a decode step p50 "
+        f"(pod, data) order {step_p50} (phase 20, 2 pod ranks: {p20}; "
+        f"phase 6 one card {phase6['step_ms']:.3f} mean); "
+        f"admission p50 / p99 {st['admission_p50_ms']:.1f} / "
+        f"{st['admission_p99_ms']:.1f} ms (phase 6 "
+        f"{phase6['admission'][0]:.1f} / {phase6['admission'][1]:.1f}) "
+        f"[{smi}]")
+    ex_ms = [[m for m, _ in r["exchanges"]] for r in a]
+    ex_bytes = [{n for _, n in r["exchanges"]} for r in a]
+    # one exchange a decode step, of one size a rank (its layers' K and V
+    # of its rows)
+    assert all(len(n) == 1 for n in ex_bytes) and all(
+        len(e) == a[0]["decode_steps"] for e in ex_ms), ex_bytes
+    def p50s(key, digits=3):
+        return ", ".join(f"{_p50(r[key]):.{digits}f}" for r in a)
+
+    log(f"phase 21a: the KV exchange between the data ranks of a pod (page "
+        f"cipher, one a decode step), (pod, data) order: bytes a step "
+        f"{[n.pop() for n in ex_bytes]}, host ms p50 "
+        f"{', '.join(f'{_p50(e):.4f}' for e in ex_ms)}; a prefill "
+        f"crossing (pod 0 -> 1, data rank 0): host ms p50 {_p50([c[0] for c in cross]):.4f} over {len(cross)}, "
+        f"bytes {cross[0][1]} for the first; swap-out host ms p50 "
+        f"{p50s('swap_out_ms')}; swap-in {p50s('swap_in_ms')}; (key, "
+        f"counter) pairs sealed a rank {[len(r['keys']) for r in a]}, none "
+        f"twice; launches {[r['launches'] for r in a]}")
+    # (b) the serve steps over the same ranks, each against one card on
+    # its rows
+
+    def on_cpu(tree):
+        return map_tree(lambda t: t.cpu(), tree)
+
+    for rank, r in enumerate(b):
+        assert r["rows"] == slice(rank * MESH_B // (P * D),
+                                  (rank + 1) * MESH_B // (P * D)), r["rows"]
+        for x, y in zip(r["logits"], b[0]["logits"]):
+            assert torch.equal(x, y), "21b: the ranks' [B, V] logits differ"
+        rows = r["rows"]
+        lg, cache = api.prefill_fn(params, {"tokens": toks[rows]})
+        assert torch.equal(r["logits"][0][rows], lg.cpu()), \
+            ("21b: prefill logits", rank)
+        assert _tree_equal(torch, r["prefill_cache"], on_cpu(cache)), \
+            ("21b: prefill cache", rank)
+        cache = rank_jobs.grow_cache(api, cache, MESH_STEPS)
+        for i in range(MESH_STEPS):
+            tok = r["logits"][i].argmax(-1)[:, None].to(torch.int32)
+            lg, cache = api.decode_fn(params, cache,
+                                      {"tokens": tok[rows].to(DEV)})
+            assert torch.equal(r["logits"][i + 1][rows], lg.cpu()), \
+                ("21b: decode logits", rank, i)
+        assert _tree_equal(torch, r["cache"], on_cpu(cache)), \
+            ("21b: decode cache", rank)
+        if DEV == "cuda":
+            assert r["launches"]["flash_attention"] == L, r["launches"]
+    prefill_ms = ", ".join(f"{r['prefill_ms']:.2f}" for r in b)
+    decode_ms = ", ".join(f"{_p50(r['decode_ms']):.3f}" for r in b)
+    log(f"phase 21b serve steps over the 2 x 2 ranks, {MESH_B} x {MESH_S} "
+        f"prefill and {MESH_STEPS} decode steps over "
+        f"{MESH_S + MESH_STEPS} positions, {MESH_B // (P * D)} rows a "
+        f"rank: each rank's logits and cache rows bit-equal to the "
+        f"one-card prefill_fn / decode_fn on its rows, the [{MESH_B}, V] "
+        f"logits equal on every rank; host ms, rank order, prefill "
+        f"{prefill_ms}, a decode step p50 {decode_ms} (with the logits' "
+        f"gather) [{smi}]")
+    log(f"phase 21: {time.perf_counter() - t_phase:.1f} s (the spawn "
+        f"{spawn_s:.1f} s)")
+    del api, params, out, a, b
+    _free(torch)
     return [{"launches": launches}]
 
 
@@ -5459,6 +5751,10 @@ def main() -> int:
     runs += pod_ranks(torch, ops, smi0)
     # phase 20: the serving engine over pod ranks, phase 6's stream
     runs += serve_ranks(torch, ops, smi0, runs[1])
+    # phase 21: the data axis over ranks: phase 6's stream and the serve
+    # steps on a 2 x 2 pod x data mesh
+    runs += serve_data_ranks(torch, ops, smi0, runs[1],
+                             runs[-1]["step_ms_p50"])
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 

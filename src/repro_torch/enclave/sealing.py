@@ -20,10 +20,12 @@ with the page cipher what the reference moves inside one program, each
 under sequence numbers of its own, carved out of the swap space below the
 half the prefill role of a disaggregated pair draws from (a rank engine
 has no such role): a prefill's hidden state crossing a stage boundary
-(``crossing_seq``) and the layers a live re-plan moves between ranks
-(``restage_seq``). A rank seals its own layers of a swap row as a window
-of the row (``seal_pages(col0=, row_cols=)``): the ranks' windows side by
-side are the one-card payload, under the one-card (key, counter).
+(``crossing_seq``), the layers a live re-plan moves between ranks
+(``restage_seq``) and the KV entries the data ranks of a pod exchange
+after each decode step (``exchange_seq``). A rank seals its own layers
+of a swap row as a window of the row (``seal_pages(col0=, row_cols=)``):
+the ranks' windows side by side are the one-card payload, under the
+one-card (key, counter).
 
 Keys, sequence numbers, steps and counters are Python ints or one-element
 integer tensors (``kernels.seal.u32``): a tensor stays on its device and
@@ -65,8 +67,9 @@ def transfer_seq(n: int) -> int:
 
 
 # the rank engine's sequence spaces: swaps of a decode engine stay below
-# CROSSING_SEQ_BASE (2^28 of them), the prefill role of a pair starts at
+# EXCHANGE_SEQ_BASE (2^27 of them), the prefill role of a pair starts at
 # TRANSFER_SEQ_BASE // 2
+EXCHANGE_SEQ_BASE = TRANSFER_SEQ_BASE // 8
 CROSSING_SEQ_BASE = TRANSFER_SEQ_BASE // 4
 RESTAGE_SEQ_BASE = 3 * TRANSFER_SEQ_BASE // 8
 
@@ -88,6 +91,12 @@ def restage_seq(n: int) -> int:
     """The swap sequence number of the n-th tensor a live re-plan moves
     between two pipeline ranks (part 0)."""
     return _in_space("restage message", RESTAGE_SEQ_BASE, n)
+
+
+def exchange_seq(n: int) -> int:
+    """The swap sequence number of the n-th KV exchange a data rank of a
+    pod seals for the others after a decode step (part 0)."""
+    return _in_space("exchange", EXCHANGE_SEQ_BASE, n)
 
 
 def _swap_counter(swap_seq, part: int):

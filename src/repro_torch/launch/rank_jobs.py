@@ -1,8 +1,9 @@
-"""Rank bodies for ``launch.ranks.spawn``: the pipelined decoder with one
-stage per pod rank, the serving engine with one stage per pod rank, and
-the train step (plain or compressed) over a mesh of pod and data ranks,
-each driven for a few steps from inputs the caller hands over on the CPU,
-or from seeded weights drawn on the rank's device.
+"""Rank bodies for ``launch.ranks.spawn``: the pipelined decoder and the
+serving engine with one stage per pod (its data ranks splitting each
+microbatch's rows), the prefill and decode serve steps and the train step
+(plain or compressed) over a mesh of pod and data ranks, each driven for
+a few steps from inputs the caller hands over on the CPU, or from seeded
+weights drawn on the rank's device.
 
     outs = spawn(rank_jobs.decode, 4, backend="gloo", device="cpu",
                  args=(DecodeJob(cfg, ((2, 2), ("pod", "data")), ...),))
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,7 +37,7 @@ from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.compression import (compressed_psum_pod,
                                            init_error_feedback)
 from repro_torch.runtime import steps as S
-from repro_torch.runtime.pipeline import PipelinedDecoder
+from repro_torch.runtime.pipeline import PipelinedDecoder, axes_leaves
 from repro_torch.serving.engine import EngineConfig, ServingEngine
 from repro_torch.tree import leaves, map_tree
 
@@ -152,7 +153,9 @@ def decode(ctx: RankContext, job: DecodeJob) -> List[dict]:
         ops.reset_launch_counts()
         for i in range(job.steps):
             t0 = time.perf_counter()
-            lg, cache = step(mine, cache, {"tokens": tok}, job.key + i)
+            lg, cache = step(mine, cache, {"tokens": tok,
+                                           "exchange": (job.key, i)},
+                             job.key + i)
             _sync(ctx.device)
             host_ms.append((time.perf_counter() - t0) * 1e3)
             tok = lg.argmax(-1)[:, None].to(torch.int32)
@@ -291,23 +294,27 @@ class ServeRun:
     step count is a multiple of ``every`` (the serve launcher's stream),
     with ``every`` 0 all up front and then ``run``. ``inject`` is a
     straggler ``(stage, factor)``; ``keep_logits`` keeps each decode step's
-    logits; ``topology`` names a ``launch.serve.TOPOLOGIES`` entry."""
+    logits (True) or the first N steps' (an int N); ``topology`` names a
+    ``launch.serve.TOPOLOGIES`` entry; ``digest_steps`` digests the
+    rank's cache after every engine step."""
 
     config: EngineConfig
     requests: Sequence[Tuple[Sequence[int], int]]
     every: int = 0
     inject: Optional[Tuple[int, float]] = None
-    keep_logits: bool = False
+    keep_logits: Union[bool, int] = False
     topology: str = "two-enclave"
     max_steps: int = 2000
     check_swaps: bool = False
+    digest_steps: bool = False
 
 
 @dataclasses.dataclass
 class ServeJob:
-    """``ServingEngine(mesh=)`` on each rank, over each of ``runs`` in
-    turn. ``params`` on the CPU, or None to draw them from ``seed`` on the
-    rank's device (every rank draws the same bits)."""
+    """``ServingEngine(mesh=)`` on each rank of a ``(world / data, data)``
+    pod x data mesh, over each of ``runs`` in turn. ``params`` on the CPU,
+    or None to draw them from ``seed`` on the rank's device (every rank
+    draws the same bits)."""
 
     cfg: ArchConfig
     runs: Sequence[ServeRun]
@@ -315,6 +322,7 @@ class ServeJob:
     params: Any = None
     seed: int = 0
     max_seq: int = 4096
+    data: int = 1
 
 
 def drive(eng, run: ServeRun):
@@ -344,16 +352,20 @@ class Probe:
     """An engine instrumented from outside for a ``serve`` run: host ms
     and bytes sent of each decode step (the backend's step and its
     sampling, between device synchronises), each decode step's logits
-    (``keep``), the stage probes run (``probes``), host ms of each
-    swap-out and swap-in, the first swap-out's payload, digest, layout
-    and counter, and (``check``) every swap-in's pages against the rows
+    (``keep`` True, or the first ``keep`` steps'), the stage probes run
+    (``probes``), host ms of each swap-out and swap-in, the first
+    swap-out's payload, digest, layout and counter, and (``check``) every
+    swap-in's pages against the rows
     gathered at its swap-out, bit for bit (``restored`` pages; a swap-in
-    whose stage layout moved since is counted in ``moved`` instead)."""
+    whose stage layout moved since is counted in ``moved`` instead); with
+    ``digest``, a ``param_digest`` of the backend's cache after every
+    engine step (``digests``)."""
 
-    def __init__(self, eng, keep: bool, check: bool = False):
+    def __init__(self, eng, keep: bool, check: bool = False,
+                 digest: bool = False):
         self.step_ms, self.step_bytes, self.logits = [], [], []
         self.swap_out_ms, self.swap_in_ms = [], []
-        self.first_swap = None
+        self.first_swap, self.digests = None, []
         self.probes = self.restored = self.moved = 0
         be, dev = eng.backend, eng.device
         staging = getattr(be, "staging", None)
@@ -365,7 +377,7 @@ class Probe:
             pending[:] = [time.perf_counter(),
                           staging.sent if staging else 0]
             out = step(tokens, key)
-            if keep:
+            if keep is True or len(self.logits) < keep:
                 self.logits.append(out.detach().cpu())
             return out
 
@@ -406,6 +418,15 @@ class Probe:
         eng._preempt_swap, eng._swap_in = timed_out, timed_in
         if check:
             self._check_swaps(be)
+        if digest:
+            engine_step = eng.step
+
+            def digested_step():
+                out = engine_step()
+                self.digests.append(param_digest(be.cache))
+                return out
+
+            eng.step = digested_step
 
     def _check_swaps(self, be) -> None:
         gather, scatter = be.gather_pages, be.scatter_pages
@@ -450,14 +471,19 @@ def serve(ctx: RankContext, job: ServeJob) -> List[dict]:
     swap-in host ms; the first swap-out (``first_swap``: this rank's
     payload part, its digest, layout and counter); the decode ``logits``
     with ``keep_logits``; ``probes`` (stage-probe runs), ``restored`` and
-    ``moved`` (``Probe``), ``decode_steps``, ``relayouts``; and ``keys``, every (kind, key, counter, col0,
-    cols, row_cols) this rank sealed under (``KeyLedger``)."""
+    ``moved`` (``Probe``), ``decode_steps``, ``relayouts``; ``keys``,
+    every (kind, key, counter, col0, cols, row_cols) this rank sealed
+    under (``KeyLedger``); its ``data`` index (``stage`` is its pod's); the KV
+    ``exchanges`` between data ranks (host ms, bytes sent) a decode step;
+    a ``param_digest`` of its cache after the run (``cache_digest``) and,
+    with ``digest_steps``, after every engine step (``digests``)."""
     from repro_torch.launch.serve import TOPOLOGIES
     api, params = _model(ctx, job.cfg, job.dtype, job.params, job.seed,
                          job.max_seq)
     params = map_tree(lambda t: t.cpu(), params)
     _sync(ctx.device)
-    mesh = make_mesh((ctx.world, 1), ("pod", "data"), device=ctx.device)
+    mesh = make_mesh((ctx.world // job.data, job.data), ("pod", "data"),
+                     device=ctx.device)
     out = []
     for run in job.runs:
         with KeyLedger() as ledger:
@@ -467,7 +493,8 @@ def serve(ctx: RankContext, job: ServeJob) -> List[dict]:
                                 backend="pipelined", mesh=mesh)
             if run.inject:
                 eng.telemetry.inject(*run.inject)
-            probe = Probe(eng, run.keep_logits, run.check_swaps)
+            probe = Probe(eng, run.keep_logits, run.check_swaps,
+                          run.digest_steps)
             _sync(ctx.device)
             ops.reset_launch_counts()
             reqs = drive(eng, run)
@@ -478,7 +505,8 @@ def serve(ctx: RankContext, job: ServeJob) -> List[dict]:
             "streams": [list(r.generated) for r in reqs],
             "status": [r.status for r in reqs],
             "events": _events(eng), "stats": eng.stats(),
-            "stage": be.stage, "range": be.dec.ranges[be.stage],
+            "stage": be.stage, "data": be.data,
+            "range": be.dec.ranges[be.stage],
             "launches": launches, "step_ms": probe.step_ms,
             "step_bytes": probe.step_bytes,
             "admission_ms": list(eng.admission_ms),
@@ -489,9 +517,111 @@ def serve(ctx: RankContext, job: ServeJob) -> List[dict]:
             "first_swap": probe.first_swap, "logits": probe.logits,
             "probes": probe.probes, "restored": probe.restored,
             "moved": probe.moved, "decode_steps": be.steps,
-            "keys": ledger.records})
+            "exchanges": list(be.exchanges),
+            "cache_digest": param_digest(be.cache),
+            "digests": probe.digests, "keys": ledger.records})
         del eng, be, probe
     return out
+
+
+# ---------------------------------------------------------------------------
+# The serve steps over ranks
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class StepsJob:
+    """The prefill and decode serve steps (``runtime.steps``) over a mesh
+    of pod and data ranks: ``make_prefill_step`` at ``ShapeConfig("p",
+    seq, batch, "prefill")`` on ``tokens`` [batch, seq] (on the CPU),
+    then ``steps`` greedy ``make_decode_step`` calls at ``ShapeConfig("d",
+    seq + steps, batch, "decode")`` on the prefilled cache grown by
+    ``steps`` positions (``grow_cache``). ``params`` on the CPU, or None to
+    draw them from ``seed`` on the rank's device. ``indivisible``, when
+    not 0, is a global batch the steps must refuse by name."""
+
+    cfg: ArchConfig
+    mesh: Mesh
+    tokens: torch.Tensor
+    steps: int = 1
+    dtype: torch.dtype = torch.float32
+    params: Any = None
+    seed: int = 0
+    max_seq: int = 4096
+    indivisible: int = 0
+
+
+def grow_cache(api, cache, n: int):
+    """A timeline cache from a prefill with ``n`` more zero positions on
+    every leaf's KV time axis (new tensors)."""
+    seg = api.model.served_segment.name
+    axes = iter(axes_leaves(api.model.init_cache_axes()[seg]))
+
+    def grow(t):
+        ax = next(axes)
+        if "act_kv_seq" not in ax:
+            return t.clone()
+        pad = [0, 0] * (t.dim() - 1 - ax.index("act_kv_seq")) + [0, n]
+        return torch.nn.functional.pad(t, pad)
+
+    return dict(cache, **{seg: map_tree(grow, cache[seg])})
+
+
+def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
+    """This rank's ``rows`` (a slice of the global batch), the whole [B, V]
+    ``logits`` of the prefill and of each decode step, its
+    ``prefill_cache`` and its final ``cache`` (its rows), host ms of the
+    prefill and of each decode step (``prefill_ms``, ``decode_ms``; a
+    first prefill and decode step run untimed before them),
+    ``launches`` over them and, with ``indivisible``, the refusal's
+    message (``refusal``)."""
+    B, Sq = tuple(job.tokens.shape)
+    api, params = _model(ctx, job.cfg, job.dtype, job.params, job.seed,
+                         job.max_seq)
+    mesh = make_mesh(*job.mesh, device=ctx.device)
+    pre = S.make_prefill_step(api, mesh, ShapeConfig("p", Sq, B, "prefill"))
+    dec = S.make_decode_step(api, mesh, ShapeConfig("d", Sq + job.steps, B,
+                                                     "decode"))
+    idx, count = S._rank_rows(mesh, ("pod", "data"), B)
+    out = {"rows": slice(idx * B // count, (idx + 1) * B // count),
+           "logits": [], "decode_ms": []}
+    tok = job.tokens.to(ctx.device)
+    # first calls, untimed (the rank's first cuBLAS calls and kernel
+    # loads), on copies
+    logits, cache = pre(params, {"tokens": tok})
+    dec(params, grow_cache(api, cache, job.steps),
+        {"tokens": logits.argmax(-1)[:, None].to(torch.int32)})
+    del logits, cache
+    _sync(ctx.device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = pre(params, {"tokens": tok})
+    _sync(ctx.device)
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["logits"].append(logits)
+    out["prefill_cache"] = map_tree(lambda t: t.clone(), cache)
+    cache = grow_cache(api, cache, job.steps)
+    for _ in range(job.steps):
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        t0 = time.perf_counter()
+        logits, cache = dec(params, cache, {"tokens": tok})
+        _sync(ctx.device)
+        out["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["logits"].append(logits)
+    out["cache"] = cache
+    out["launches"] = dict(ops.LAUNCHES)
+    if job.indivisible:
+        try:
+            S.make_prefill_step(api, mesh, ShapeConfig(
+                "p", Sq, job.indivisible, "prefill"))
+        except ValueError as e:
+            out["refusal"] = str(e)
+    return out
+
+
+def chain(ctx: RankContext, calls: Sequence[Tuple[Callable, Any]]
+          ) -> List[Any]:
+    """``fn(ctx, job)`` for each ``(fn, job)`` of ``calls`` in turn, in one
+    set of ranks (each ``fn`` a body of this module)."""
+    return [fn(ctx, job) for fn, job in calls]
 
 
 # ---------------------------------------------------------------------------

@@ -49,8 +49,9 @@ sampled streams equal the reference's token for token), and
 ``--require-non-prefix`` fails unless the planned placement is outside
 the legacy trusted-prefix space (prints ``NON-PREFIX OK``).
 ``--ranks gloo`` (or ``nccl``, one card a rank) runs the pipelined serve
-with one process a pod of ``--mesh`` (pods = ``--stages``, data 1), stage
-s on rank s (``ServingEngine(mesh=)``, ``serving/ranked.py``); rank 0
+with one process a device of ``--mesh PxD`` (pods = ``--stages``): stage
+s on the D data ranks of pod s, which split each microbatch's rows and
+keep one cache (``ServingEngine(mesh=)``, ``serving/ranked.py``); rank 0
 prints, every ``--verify-*`` check included. Without it the stages run in
 sequence on one device.
 ``--kv-layout timeline`` serves on the reference's shared-position
@@ -108,6 +109,10 @@ raises.
       --device cpu --backend local --per-token-prefill --f32
   python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
       --device cpu --stages 2 --mesh 2x1 --ranks gloo --microbatches 2 \\
+      --slots 4 --requests 6 --max-new 8 --no-seal --f32 \\
+      --inject-straggler 1:10 --verify-swap
+  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
+      --device cpu --mesh 2x2 --stages 2 --ranks gloo --microbatches 2 \\
       --slots 4 --requests 6 --max-new 8 --no-seal --f32 \\
       --inject-straggler 1:10 --verify-swap
 """
@@ -214,12 +219,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default="2x1",
                     help="pod x data, as the reference's: one card runs "
                          "the pods' stages in sequence and computes the "
-                         "data axis whole; with --ranks one process a pod "
-                         "(see check_mesh)")
+                         "data axis whole; with --ranks one process a "
+                         "device (see check_mesh)")
     ap.add_argument("--ranks", default=None, choices=["gloo", "nccl"],
-                    help="serve with one rank a pipeline stage over this "
-                         "process-group backend (pipelined backend, data "
-                         "axis 1)")
+                    help="serve with one rank a device of --mesh over this "
+                         "process-group backend (pipelined backend)")
     ap.add_argument("--telemetry-interval", type=int, default=4)
     ap.add_argument("--inject-straggler", default=None, metavar="STAGE:FACTOR",
                     help="multiply stage STAGE's measured time by FACTOR")
@@ -340,8 +344,9 @@ def check_mesh(args):
     do not depend on it. Refused by name: a mesh that is not ``P`` or
     ``PxD`` with positive sizes, and pods other than ``--stages`` on the
     pipelined backend. The local backend ignores the mesh, as the
-    reference's does. With ``--ranks``, pod s is a process (data 1: a
-    data axis over ranks is ROADMAP item 10d)."""
+    reference's does. With ``--ranks``, each of the ``P x D`` devices is a
+    process: the D data ranks of pod s run stage s on their rows of each
+    microbatch."""
     try:
         dims = tuple(int(x) for x in args.mesh.split("x"))
     except ValueError:
@@ -354,14 +359,9 @@ def check_mesh(args):
         raise ValueError(f"--mesh {args.mesh}: {pods} pods but --stages "
                          f"{args.stages}; the pipelined serve runs stage s "
                          f"on pod s")
-    if args.ranks:
-        if backend_of(args) != "pipelined":
-            raise ValueError("--ranks runs one rank a stage of the "
-                             "pipelined backend")
-        if data > 1:
-            raise NotImplementedError(
-                f"--mesh {args.mesh} --ranks: a data axis of {data} over "
-                f"ranks (ROADMAP item 10d)")
+    if args.ranks and backend_of(args) != "pipelined":
+        raise ValueError("--ranks runs the stages of the pipelined backend "
+                         "on ranks")
     return pods, data
 
 
@@ -604,13 +604,13 @@ def disagg_main(api, params, args):
 
 
 def _rank_main(ctx, argv):
-    """``main`` on one rank of ``--ranks``: the engines take the pod mesh
-    of the world's ranks; rank 0 prints."""
+    """``main`` on one rank of ``--ranks``: the engines take the pod x
+    data mesh of the world's ranks; rank 0 prints."""
     import contextlib
     import os
     from repro_torch.launch.mesh import make_mesh
     args = build_parser().parse_args(argv)
-    args.rank_mesh = make_mesh((ctx.world, 1), ("pod", "data"),
+    args.rank_mesh = make_mesh(check_mesh(args), ("pod", "data"),
                                device=ctx.device)
     if ctx.rank == 0:
         return serve_main(args)
@@ -626,8 +626,8 @@ def main(argv=None):
     if args.ranks:
         from repro_torch.launch.ranks import spawn
         print(f"mesh {args.mesh}: {pods} pods x {data} data, one rank a "
-              f"pod over {args.ranks} (stage s on rank s)")
-        return spawn(_rank_main, pods, backend=args.ranks,
+              f"device over {args.ranks} (stage s on the ranks of pod s)")
+        return spawn(_rank_main, pods * data, backend=args.ranks,
                      device=args.device, args=(argv,))[0]
     if backend_of(args) == "pipelined":
         print(f"mesh {args.mesh}: {pods} pods x {data} data on one card "

@@ -25,7 +25,7 @@ rank); each rank trains on its rows of the global batch and rank 0 prints
 and writes checkpoints. ``--compress-pod-grads`` on a mesh with pods runs
 the compressed step (int8 error-feedback exchange between pods); without
 a pod axis it is the plain step, as in the reference. A ``model`` axis
-above 1 (tensor parallelism, ROADMAP item 10b) and ``--production-mesh``
+above 1 (tensor parallelism, ROADMAP item 10d) and ``--production-mesh``
 (512 chips) are refused by name.
 """
 from __future__ import annotations
@@ -106,13 +106,13 @@ def check_args(args) -> None:
         raise NotImplementedError(
             "--production-mesh: the 16x16 (512-chip with --multi-pod) "
             "production mesh is logical here (launch/mesh.py); the port "
-            "trains over ranks of pod and data (ROADMAP queue 1, item 10b)")
+            "trains over ranks of pod and data (ROADMAP queue 1, item 10d)")
     dims, names = mesh_axes(args)
     sizes = dict(zip(names, dims))
     if sizes.get("model", 1) > 1:
         raise NotImplementedError(
             f"--mesh {args.mesh}: a model axis of {sizes['model']} is "
-            f"tensor parallelism (ROADMAP queue 1, item 10b)")
+            f"tensor parallelism (ROADMAP queue 1, item 10d)")
     n = math.prod(dims)
     if n > 1:
         if args.backend is None:

@@ -332,6 +332,20 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
     return out.reshape(B, 1, H, D)
 
 
+def paged_write_targets(block_tables, seq_lens, Pg: int):
+    """(page, offset, keep) [B] of ``paged_write``'s rows: the position
+    ``seq_lens[b]`` in its page of ``block_tables[b]``, or (0, 0) and keep
+    False for a dropped row (see ``paged_write``)."""
+    MP = block_tables.shape[1]
+    idx = (seq_lens // Pg).long()
+    in_table = idx < MP
+    page = block_tables.gather(1, idx.clamp(max=MP - 1)[:, None])[:, 0].long()
+    keep = in_table & (page != 0)
+    page = torch.where(keep, page, torch.zeros_like(page))
+    off = torch.where(keep, (seq_lens % Pg).long(), torch.zeros_like(page))
+    return page, off, keep
+
+
 def paged_write(k_pages, v_pages, k_new, v_new, block_tables, seq_lens):
     """Write one new token per row into the page pools, in place.
 
@@ -345,14 +359,8 @@ def paged_write(k_pages, v_pages, k_new, v_new, block_tables, seq_lens):
     data-dependent row count (no device sync) and page 0 stays all-zero for
     the pool's whole life. Rows that do write never share a target: the
     engine forks any shared page before it can be named here."""
-    _, _, Pg, _ = k_pages.shape
-    MP = block_tables.shape[1]
-    idx = (seq_lens // Pg).long()
-    in_table = idx < MP
-    page = block_tables.gather(1, idx.clamp(max=MP - 1)[:, None])[:, 0].long()
-    keep = in_table & (page != 0)
-    page = torch.where(keep, page, torch.zeros_like(page))
-    off = torch.where(keep, (seq_lens % Pg).long(), torch.zeros_like(page))
+    page, off, keep = paged_write_targets(block_tables, seq_lens,
+                                          k_pages.shape[2])
     keep3 = keep[:, None, None]
     # advanced indices split by the head slice put the batch dim first
     k_pages[page, :, off] = torch.where(keep3, k_new, torch.zeros_like(k_new))

@@ -8,10 +8,13 @@ solver, uneven ones included) and the decode batch into
 form microbatch m, with ``B_mb = num_slots / num_microbatches``.
 Microbatch m leaves stage s at tick ``t = m + s``; its ``[B_mb, 1, d]``
 activation is sealed there under the step's key and the counter
-``_leaf_counter(t + 1, 0)`` (int8 quantize + keystream XOR, the paper's
-enclave-to-enclave discipline, as the reference's
-``seal_array(h, key, t + 1)``) and opened by stage s + 1 under the same
-pair. The step takes its key as a one-element device tensor, and the
+``_leaf_counter(t + 1, s)`` (int8 quantize + keystream XOR, the paper's
+enclave-to-enclave discipline) and opened by stage s + 1 under the same
+pair. With two stages that is the reference's ``seal_array(h, key, t +
+1)``, byte for byte; with three or more the reference seals every stage
+under leaf 0, so stage s's microbatch m + 1 and stage s + 1's microbatch
+m would share a keystream, and the port gives each stage a leaf of its
+own. The step takes its key as a one-element device tensor, and the
 per-tick counters, fixed for a layout, are built once as a device tensor
 (``sealing.leaf_counters``), so the step can be captured in a CUDA
 graph: each replay seals under the key the engine copied in for it.
@@ -48,33 +51,45 @@ receives each from stage s - 1, runs it, and posts it to stage s + 1
 sealed under the step's key and the counter of tick ``m + s + 1`` (raw
 without sealing) as a message (``launch.ranks``: through pinned host
 memory under gloo), so a payload leaves its enclave only as cipher text.
-The ``data`` ranks of a pod split each microbatch's rows evenly: data
-rank d takes the d-th block of ``B_mb / data`` rows and seals it under
-the leaf counter ``_leaf_counter(t + 1, d)``, so two data ranks never
-share a (key, counter) pair (with one data rank the counters, and the
-cipher, are the one-card path's). A data rank keeps its stage's whole
-cache and reads and writes only its rows (its rows' pages in the pools).
-The last stage's logits reach every rank (a broadcast over ``pod``, then a
-gather over ``data``), so the step returns the one-card path's [B, V].
-The rank step runs eagerly: a step that messages through the host is not
-captured in a CUDA graph.
+The ``data`` ranks of a pod split each microbatch's rows evenly, as the
+reference's pipelined step shards ``act_batch`` over ``data`` inside a
+stage: data rank d takes the d-th block of ``B_mb / data`` rows and
+stage s seals it under leaf ``s * data + d`` (``boundary_counters``), so
+no two activations share a (key, counter) pair (with one data rank the
+counters, and the cipher, are the one-card path's). A microbatch whose
+rows the data ranks do not divide runs whole on each of them, as the
+reference's rule falls back to replication. The reference keeps a pod's
+pools whole on each of its data devices; here each data rank keeps its
+stage's whole cache and writes its own rows' entries in a step, and
+after the step's ticks the data ranks of a pod exchange those entries
+(each row's K and V at the (page, offset) it wrote, or the timeline
+body's rows at the step's slot), sealed with the page cipher under
+sequence numbers of their own (``sealing.exchange_seq``): after every
+step the data ranks of a pod hold one cache, bit for bit. The last
+stage's logits reach every rank (a broadcast over ``pod``, then a gather
+over ``data``), so the step returns the one-card path's [B, V]. The rank
+step runs eagerly: a step that messages through the host is not captured
+in a CUDA graph.
 
 Two more pieces serve an engine whose stages are ranks
-(``ServingEngine(mesh=)``), with one pod rank per stage and no data axis:
+(``ServingEngine(mesh=)``, pod and data ranks):
 
 * ``rank_forward`` runs this rank's layers of a prefill (one-shot, packed,
-  chunked or one token) between its neighbours: it takes the hidden
-  state from stage s - 1 and posts its own to stage s + 1, each crossing
-  sealed with the lossless page cipher under a counter of its own
-  (``sealing.crossing_seq``), never with the int8 seal: the reference runs
-  its prefill on the whole params, so a lossy crossing would change its
-  streams. Unsealed with ``seal_boundary`` off, as the decode boundary.
-  The last stage's logits reach every rank.
+  chunked or one token) between its neighbours: every data rank of a pod
+  runs the whole batch (so their pages stay equal without an exchange),
+  takes the hidden state from stage s - 1's rank of its data index and
+  posts its own to stage s + 1's, each crossing sealed with the lossless
+  page cipher under a counter of its own (``sealing.crossing_seq``),
+  never with the int8 seal: the reference runs its prefill on the whole
+  params, so a lossy crossing would change its streams. Unsealed with
+  ``seal_boundary`` off, as the decode boundary. The last stage's logits
+  reach every rank.
 * ``restage_cache`` on a live re-plan moves the layers that change owner
-  between the ranks: their pool rows (paged) or body rows (timeline) go
-  sealed with the page cipher under counters of their own
-  (``sealing.restage_seq``); what a rank keeps stays in place. The result
-  is the cache staged directly under the new boundaries.
+  between the ranks of one data index: their pool rows (paged) or body
+  rows (timeline) go sealed with the page cipher under counters of their
+  own (``sealing.restage_seq``, distinct for each data index); what a
+  rank keeps stays in place. The result is the cache staged directly
+  under the new boundaries.
 
 Each stage reads and writes only its own layers of the shared pools, for
 its microbatch's block-table rows; ``seq_lens`` advance once per step,
@@ -96,6 +111,7 @@ from repro_torch.kernels import ops as K
 from repro_torch.kernels.seal import int_dtype_of
 from repro_torch.launch import ranks as RK
 from repro_torch.models.api import ModelAPI
+from repro_torch.models.layers import paged_write_targets
 from repro_torch.tree import leaves, map_tree
 
 
@@ -217,7 +233,34 @@ class PipelinedDecoder:
         self.num_data = ax.size("data")
         self._pod_group, self._data_group = ax.group("pod"), ax.group("data")
         self._pod_ranks = RK.group_ranks(self._pod_group)
+        self._data_ranks = RK.group_ranks(self._data_group)
+        names = tuple(self.mesh.mesh_dim_names)
+        # the global rank of (pod s, data 0), for each stage s
+        self.stage_leads = [int(self.mesh.mesh[tuple(
+            s if n == "pod" else 0 for n in names)])
+            for s in range(self.num_stages)]
         self.staging = RK.Staging()
+        # the KV exchange's own buffers and byte count: ``staging`` counts
+        # what crosses a stage boundary
+        self.exchange_staging = RK.Staging()
+        self.last_exchange: Optional[Tuple[float, int]] = None
+
+    def splits(self, rows: int) -> bool:
+        """Whether the data ranks split a microbatch of ``rows`` rows: with
+        more than one data rank and rows a multiple of their count. Else
+        every data rank runs the whole microbatch, as the reference's
+        ``act_batch`` rule falls back to replication when the data axis
+        does not divide the rows."""
+        return self.num_data > 1 and rows % self.num_data == 0
+
+    def _rows_of(self, d: int, B: int) -> torch.Tensor:
+        """The batch rows data rank ``d`` runs in a step of ``B`` rows (its
+        block of every microbatch), on the model's device."""
+        nm = self.num_microbatches
+        B_mb = B // nm
+        b = B_mb // self.num_data
+        return (torch.arange(nm)[:, None] * B_mb + d * b
+                + torch.arange(b)).reshape(-1).to(self.api.device)
 
     def _local(self, s: int) -> Tuple[int, int]:
         """Stage s's layer range in the params and cache it runs on: its
@@ -323,8 +366,8 @@ class PipelinedDecoder:
             (len(moves), len(flat))
 
         def ctr(m: int, j: int):
-            return sealing._swap_counter(
-                sealing.restage_seq(seq + m * len(flat) + j), 0)
+            return sealing._swap_counter(sealing.restage_seq(
+                (seq + m * len(flat) + j) * self.num_data + self.data), 0)
 
         outgoing, incoming = [], []
         for m, (a, b, lo, hi) in enumerate(moves):
@@ -360,11 +403,15 @@ class PipelinedDecoder:
         ``run(x)`` runs them, with ``x`` the hidden state [*shape, d_model]
         from stage s - 1 (None on stage 0, which embeds), and returns what
         leaves them: the hidden state, or the f32 logits [logits_rows, V]
-        on the last stage. The hidden state crossing from stage s to s + 1
-        is sealed with the page cipher under ``key`` and the crossing
-        sequence number ``seq + s`` (``sealing.crossing_seq``; one call
-        takes ``num_stages - 1`` of them), raw with ``seal_boundary`` off.
-        Returns the last stage's logits on every rank. A rank that sends a
+        on the last stage. Every data rank of a pod runs the whole batch:
+        it receives from the previous pod's rank of its data index and
+        sends to the next one's. The hidden state crossing from stage s to
+        s + 1 on data rank d is sealed with the page cipher under ``key``
+        and the crossing sequence number ``(seq + s) * data + d``
+        (``sealing.crossing_seq``; one call takes ``num_stages - 1`` of
+        them a data rank, ``seq + s`` with one data rank), raw with
+        ``seal_boundary`` off. Returns the last stage's logits on every
+        rank. A rank that sends a
         crossing keeps its host ms (from its hidden state ready on the
         device to the send complete: seal, staging, transport) and bytes
         in ``last_crossing``."""
@@ -373,7 +420,8 @@ class PipelinedDecoder:
         dev = api.device
 
         def ctr(i: int):
-            return sealing._swap_counter(sealing.crossing_seq(seq + i), 0)
+            return sealing._swap_counter(sealing.crossing_seq(
+                (seq + i) * self.num_data + self.data), 0)
 
         x = None
         if s > 0:
@@ -483,6 +531,8 @@ class PipelinedDecoder:
             logits = ticks(params, batch["tokens"], key,
                            lambda s, x, rows: stage_run(
                                params, pools, s, x, bt[rows], sl[rows]))
+            if self._exchanges(batch):
+                self._exchange_paged(pools, bt, sl, batch)
             sl.copy_(torch.where(sl > 0, sl + 1, sl))
             return logits, cache
 
@@ -507,23 +557,40 @@ class PipelinedDecoder:
                 return stage_run(params, body, s, x, cache_len, st, rows)
 
             logits = ticks(params, batch["tokens"], key, run)
+            if self._exchanges(batch):
+                self._exchange_timeline(body, cache_len, batch)
             cache_len.add_(1)
             return logits, cache
 
         return step_fn
+
+    def boundary_counters(self, d: int, D: int) -> Optional[torch.Tensor]:
+        """[S - 1, nm + S] int64 on the device: row s holds
+        ``_leaf_counter(t, s * D + d)`` for every tick t, the counters
+        stage s seals its boundary under on data rank d of D (tick t seals
+        under t + 1). One leaf a (stage, data rank), so no two
+        activations of a step share a (key, counter) pair at any stage
+        count; at two stages only stage 0 seals, under leaf d, the
+        reference's counters. Built once: a host-to-device copy cannot be
+        captured in a CUDA graph."""
+        S, nm = self.num_stages, self.num_microbatches
+        if S < 2:
+            return None
+        return torch.stack([sealing.leaf_counters(
+            nm + S, self.api.device, leaf=s * D + d) for s in range(S - 1)])
 
     def _ticks(self) -> Callable:
         """The tick loop of one step, for either layout:
         ``ticks(params, tokens, key, run) -> f32 logits [B, V]``, where
         ``run(s, x, rows)`` runs stage s on microbatch ``rows`` (a slice of
         the batch). Microbatch m leaves stage s at tick ``t = m + s``,
-        sealed under ``key`` and the counter of tick t + 1; stage 0 embeds,
-        the last stage applies the head."""
+        sealed under ``key`` and the counter of tick t + 1 at leaf s
+        (``boundary_counters``); stage 0 embeds, the last stage applies
+        the head."""
         api, model = self.api, self.api.model
         S, nm = self.num_stages, self.num_microbatches
         seal_on = self.seal_boundary
-        # _leaf_counter(t, 0) for every tick t: tick t seals under t + 1
-        ctrs = sealing.leaf_counters(nm + S, api.device) if seal_on else None
+        ctrs = self.boundary_counters(0, 1) if seal_on else None
 
         def ticks(params, tokens, key, run):
             B = tokens.shape[0]                            # tokens [B, 1]
@@ -542,7 +609,8 @@ class PipelinedDecoder:
                         x = model.embed(params, tokens[rows])
                     elif seal_on:
                         cipher, scales = inflight[m]
-                        x = K.unseal(cipher, scales, key, ctrs[t:t + 1],
+                        x = K.unseal(cipher, scales, key,
+                                     ctrs[s - 1, t:t + 1],
                                      out_dtype=api.dtype).reshape(B_mb, 1, d)
                     else:
                         x = inflight[m]
@@ -551,7 +619,7 @@ class PipelinedDecoder:
                         logits[m] = model.head(params, h)
                     elif seal_on:
                         inflight[m] = K.seal(h.reshape(-1, d), key,
-                                             ctrs[t + 1:t + 2])
+                                             ctrs[s, t + 1:t + 2])
                     else:
                         inflight[m] = h
             return torch.cat(logits)
@@ -560,16 +628,16 @@ class PipelinedDecoder:
 
     def _rank_ticks(self) -> Callable:
         """``_ticks`` on a rank: this rank's stage over the microbatches in
-        order, its rows of each (``data`` ranks split them), inputs
-        received from the previous stage's rank of this data index and
-        outputs posted to the next one's; then the last stage's logits to
-        every rank."""
+        order, its rows of each (``data`` ranks split them where they
+        divide, ``splits``), inputs received from the previous stage's rank
+        of this data index and outputs posted to the next one's, each
+        sealed under leaf ``s * data + d`` (``boundary_counters``); then
+        the last stage's logits to every rank."""
         api, model = self.api, self.api.model
         S, nm, s = self.num_stages, self.num_microbatches, self.stage
         D, d = self.num_data, self.data
         seal_on = self.seal_boundary
-        ctrs = sealing.leaf_counters(nm + S, api.device, leaf=d) \
-            if seal_on else None
+        ctrs = self.boundary_counters(d, D) if seal_on else None
         prev = self._pod_ranks[s - 1] if s > 0 else None
         nxt = self._pod_ranks[s + 1] if s < S - 1 else None
         staging, pod_g = self.staging, self._pod_group
@@ -577,9 +645,10 @@ class PipelinedDecoder:
 
         def ticks(params, tokens, key, run):
             B = tokens.shape[0]                            # tokens [B, 1]
-            assert B % (nm * D) == 0, (B, nm, D)
+            assert B % nm == 0, (B, nm)
             B_mb = B // nm
-            b = B_mb // D
+            split = self.splits(B_mb)
+            b, lo = (B_mb // D, d * (B_mb // D)) if split else (B_mb, 0)
             dev = tokens.device
             if seal_on:
                 likes = (torch.empty((b, dm), dtype=torch.uint8, device=dev),
@@ -593,13 +662,13 @@ class PipelinedDecoder:
             posted = []
             for m in range(nm):
                 t = m + s                          # the reference's tick
-                rows = slice(m * B_mb + d * b, m * B_mb + (d + 1) * b)
+                rows = slice(m * B_mb + lo, m * B_mb + lo + b)
                 if s == 0:
                     x = model.embed(params, tokens[rows])
                 else:
                     got = RK.recv(staging, likes, prev, pod_g,
                                   tag="in").wait()
-                    x = K.unseal(got[0], got[1], key, ctrs[t:t + 1],
+                    x = K.unseal(got[0], got[1], key, ctrs[s - 1, t:t + 1],
                                  out_dtype=api.dtype).reshape(b, 1, dm) \
                         if seal_on else got[0]
                 h = run(s, x, rows)
@@ -607,16 +676,165 @@ class PipelinedDecoder:
                     logits[m] = model.head(params, h)
                 else:
                     payload = K.seal(h.reshape(-1, dm), key,
-                                     ctrs[t + 1:t + 2]) if seal_on else (h,)
+                                     ctrs[s, t + 1:t + 2]) if seal_on \
+                        else (h,)
                     posted.append(RK.send(staging, payload, nxt, pod_g,
                                           tag=("out", m)))
             for p in posted:
                 p.wait()
             RK.broadcast(staging, logits, self._pod_ranks[-1], pod_g,
                          tag="logits")
-            every = logits[None] if D == 1 else RK.all_gather(
-                staging, logits, self._data_group, tag="logits")
+            if not split:
+                return logits.reshape(B, V)
+            every = RK.all_gather(staging, logits, self._data_group,
+                                  tag="logits")
             # every: [D, nm, b, V]; row m * B_mb + d * b + j is [d, m, j]
             return every.transpose(0, 1).reshape(B, V)
 
         return ticks
+
+    # -- the data ranks of a pod keep one cache -------------------------------
+    def _exchanges(self, batch) -> bool:
+        """Whether this step ends with a KV exchange between the data ranks
+        of a pod (they split its microbatches); such a step needs the
+        exchange's ``(key, n)`` in ``batch["exchange"]``."""
+        if self.mesh is None or not self.splits(
+                batch["tokens"].shape[0] // self.num_microbatches):
+            return False
+        if "exchange" not in batch:
+            raise ValueError(
+                "PipelinedDecoder(mesh=) over data ranks: the step's batch "
+                "needs 'exchange': (key, n), the page-cipher key and the "
+                "step's exchange number, to seal the KV entries the data "
+                "ranks of a pod exchange after it")
+        return True
+
+    def _exchange(self, take, put, B: int, batch) -> None:
+        """The KV entries each data rank of this pod wrote this step reach
+        the others: ``take(rows)`` gives this stage's entries of batch rows
+        ``rows`` (tensors [n, ...]), ``put(rows, parts)`` writes another
+        rank's into this rank's cache. Each rank's entries go as cipher
+        text under the page cipher, ``key`` and the exchange sequence
+        number ``(n * pods + s) * data + d`` of stage s's data rank d
+        (``sealing.exchange_seq``), raw with
+        ``seal_boundary`` off, so after the step the data ranks of a pod
+        hold one cache, bit for bit (the reference's replicated pools).
+        Keeps (host ms, bytes sent) in ``last_exchange``."""
+        key, n = batch["exchange"]
+        D, d, dev = self.num_data, self.data, self.api.device
+        first = (n * self.num_stages + self.stage) * D
+
+        def ctr(i: int):
+            return sealing._swap_counter(sealing.exchange_seq(first + i), 0)
+
+        staging = self.exchange_staging
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0, sent0 = time.perf_counter(), staging.sent
+        parts = take(self._rows_of(d, B))
+        mine = _pack_rows(parts)
+        payload = K.seal_bits(mine, key, ctr(d)) if self.seal_boundary \
+            else mine
+        peers = [i for i in range(D) if i != d]
+        got = RK.transfer(
+            staging, [(self._data_ranks[i], [payload]) for i in peers],
+            [(self._data_ranks[i], [torch.empty_like(payload)])
+             for i in peers], self._data_group, tag="exchange")
+        for i, (c,) in zip(peers, got):
+            rows = K.unseal_bits(c, key, ctr(i), out_dtype=mine.dtype) \
+                if self.seal_boundary else c
+            put(self._rows_of(i, B), _unpack_rows(rows, parts))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.last_exchange = ((time.perf_counter() - t0) * 1e3,
+                              staging.sent - sent0)
+
+    def _exchange_paged(self, pools, bt: torch.Tensor, sl: torch.Tensor,
+                        batch) -> None:
+        """``_exchange`` over the pools: each row's K and V at the (page,
+        offset) its decode wrote (``layers.paged_write_targets`` at the
+        step's seq_lens; a dropped row reads and writes the null page's
+        zeros), over this stage's layers."""
+        Pg = pools[0].shape[3]
+
+        def take(rows):
+            page, off, _ = paged_write_targets(bt[rows], sl[rows], Pg)
+            return [pool[:, page, :, off] for pool in pools]
+
+        def put(rows, parts):
+            page, off, _ = paged_write_targets(bt[rows], sl[rows], Pg)
+            for pool, g in zip(pools, parts):
+                pool[:, page, :, off] = g
+
+        self._exchange(take, put, bt.shape[0], batch)
+
+    def _exchange_timeline(self, body, cache_len: torch.Tensor,
+                           batch) -> None:
+        """``_exchange`` over the timeline body: each leaf with a batch
+        axis, at the slot the step wrote on a leaf with a KV time axis
+        (``decode_slot``), whole rows of a recurrent state; a leaf without
+        a batch axis (the int8 cache's scales) is written by prefill only
+        and stays."""
+        seg = self.api.model.served_segment
+        axes = axes_leaves(self.api.model.init_cache_axes()[seg.name])
+        flat = leaves(body)
+        assert len(axes) == len(flat), (len(axes), len(flat))
+        slot = seg.block.decode_slot(cache_len, body)
+        views = []
+        for t, ax in zip(flat, axes):
+            if "act_kv_batch" not in ax:
+                continue
+            if "act_kv_seq" in ax:
+                t = t.narrow(ax.index("act_kv_seq"), int(slot), 1)
+            views.append((t, ax.index("act_kv_batch")))
+
+        def take(rows):
+            return [t.index_select(bd, rows).movedim(bd, 0)
+                    for t, bd in views]
+
+        def put(rows, parts):
+            for (t, bd), g in zip(views, parts):
+                t.index_copy_(bd, rows, g.movedim(0, bd))
+
+        self._exchange(take, put, batch["tokens"].shape[0], batch)
+
+
+def axes_leaves(axes) -> List[tuple]:
+    """The leaves of a cache's axes tree (a tuple of axis names each), in
+    ``tree.leaves`` order."""
+    if isinstance(axes, tuple) and all(a is None or isinstance(a, str)
+                                       for a in axes):
+        return [axes]
+    if isinstance(axes, dict):
+        return [x for k in sorted(axes) for x in axes_leaves(axes[k])]
+    return [x for a in axes for x in axes_leaves(a)]
+
+
+def _pack_rows(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Tensors [n, ...] side by side as one float [n, cols] the page
+    cipher moves: in their own type when they share f32 or bf16, else
+    their bytes as bf16."""
+    flat = [p.reshape(p.shape[0], -1) for p in parts]
+    dt = flat[0].dtype
+    if dt in (torch.float32, torch.bfloat16) and all(f.dtype == dt
+                                                     for f in flat):
+        return torch.cat(flat, 1)
+    raw = torch.cat([f.contiguous().view(torch.uint8) for f in flat], 1)
+    assert raw.shape[1] % 2 == 0, raw.shape
+    return raw.view(torch.bfloat16)
+
+
+def _unpack_rows(packed: torch.Tensor, likes: Sequence[torch.Tensor]
+                 ) -> List[torch.Tensor]:
+    """The inverse of ``_pack_rows``: tensors shaped and typed as
+    ``likes``."""
+    n = packed.shape[0]
+    if packed.dtype == likes[0].dtype and all(
+            t.dtype == packed.dtype for t in likes):
+        sizes = [t[0].numel() for t in likes]
+        return [p.reshape(t.shape) for p, t in
+                zip(packed.split(sizes, 1), likes)]
+    raw = packed.contiguous().view(torch.uint8)
+    sizes = [t[0].numel() * t.element_size() for t in likes]
+    return [p.contiguous().view(t.dtype).reshape(t.shape)
+            for p, t in zip(raw.split(sizes, 1), likes)]

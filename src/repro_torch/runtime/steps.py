@@ -23,10 +23,11 @@ the ranks unequal counts still gives the batch's mean. The compressed
 step (``compress_pod_grads``, the reference's ``_make_train_step_compressed``)
 averages within a pod over its ``data`` group the same way, exchanges the
 pod's gradient as int8 with error feedback over ``pod``
-(``optim.compression``) and takes the pods' mean loss. A ``model`` axis
-above 1 (tensor parallelism), the serve steps over ranks and a logical
-mesh of several devices in a process of one rank are refused by name
-(ROADMAP item 10d and item 10).
+(``optim.compression``) and takes the pods' mean loss. The prefill and
+decode serve steps run over the same meshes: each rank its block of the
+batch's rows, the logits gathered whole on every rank. A ``model`` axis
+above 1 (tensor parallelism) and a logical mesh of several devices in a
+process of one rank are refused by name (ROADMAP item 10d and item 10).
 
 On the card the train step runs under ``torch.use_deterministic_algorithms``,
 so a run repeats its bits and a resumed run ends where a straight one
@@ -40,7 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -126,13 +127,11 @@ def replicated(mesh) -> R.NamedSharding:
     return R.NamedSharding(mesh, ())
 
 
-def check_mesh(api: ModelAPI, mesh, what: str, ranks: bool = False
-               ) -> None:
+def check_mesh(api: ModelAPI, mesh, what: str) -> None:
     """The meshes a step of the port runs over: none, a mesh of one
     device (a ``DeviceMesh`` on the model's device type, or a logical
     one), any logical mesh when the model is on ``meta``, where nothing
-    is placed, and, for a step that takes ``ranks=True`` (the train
-    steps), a ``DeviceMesh`` of the world's ranks over ``pod`` and
+    is placed, and a ``DeviceMesh`` of the world's ranks over ``pod`` and
     ``data`` with any ``model`` axis of 1. Anything else raises by name."""
     if mesh is None:
         return
@@ -144,13 +143,6 @@ def check_mesh(api: ModelAPI, mesh, what: str, ranks: bool = False
         return
     sizes = R.mesh_axis_sizes(mesh)
     if R.is_device_mesh(mesh):
-        if not ranks:
-            raise NotImplementedError(
-                f"{what}: a mesh of {n} ranks {sizes}: the serve steps run "
-                f"on one device; serving over pod ranks is the engine "
-                f"(ServingEngine(mesh=), serving/ranked.py) and the "
-                f"pipelined decoder (runtime/pipeline.py, mesh=); the serve "
-                f"steps over data ranks are ROADMAP queue 1, item 10d")
         wide = {a: k for a, k in sizes.items()
                 if a not in ("pod", "data") and k > 1}
         if wide:
@@ -179,7 +171,8 @@ def batch_to_device(batch: Dict[str, Any], device: torch.device
             for k, v in batch.items()}
 
 
-def _rank_rows(mesh, axes, n: int) -> Tuple[int, int]:
+def _rank_rows(mesh, axes, n: int, what: str = "train_step"
+               ) -> Tuple[int, int]:
     """(this rank's index, the rank count) over ``axes`` of ``mesh``,
     pod-major: the reference's batch sharding gives rank (p, d) the
     ``(p * data + d)``-th block of ``n / count`` rows."""
@@ -188,9 +181,20 @@ def _rank_rows(mesh, axes, n: int) -> Tuple[int, int]:
     for a in axes:
         idx, count = idx * ax.size(a) + ax.index(a), count * ax.size(a)
     if n % count:
-        raise ValueError(f"train_step: global batch {n} does not split "
+        raise ValueError(f"{what}: global batch {n} does not split "
                          f"over {count} ranks of {axes}")
     return idx, count
+
+
+def _block_ranks(mesh) -> List[int]:
+    """The global rank holding each block of a batch split over ``pod``
+    and ``data`` (``_rank_rows``), in block order."""
+    names = tuple(mesh.mesh_dim_names)
+    sizes = R.mesh_axis_sizes(mesh)
+    return [int(mesh.mesh[tuple(p if a == "pod" else d if a == "data"
+                                else 0 for a in names)])
+            for p in range(sizes.get("pod", 1))
+            for d in range(sizes.get("data", 1))]
 
 
 def _label_counts(batch, count: int) -> np.ndarray:
@@ -252,7 +256,7 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
             "error-feedback exchange (optim/compression.py) runs between "
             "ranks, one a pod; a logical mesh in a process of one rank has "
             "no pods to exchange with (ROADMAP queue 1, item 10)")
-    check_mesh(api, mesh, "make_train_step", ranks=True)
+    check_mesh(api, mesh, "make_train_step")
     act_rules = act_rules or R.ACT_RULES
     on_card = dev.type == "cuda"
     if on_card:
@@ -351,23 +355,60 @@ def _check_inputs(api: ModelAPI, shape: ShapeConfig, batch, what: str):
                              f"{shape.name} gives {tuple(shp)}")
 
 
+class _RankRows:
+    """A serve step's rows on a mesh of ranks: rank (p, d) takes the
+    ``(p * data + d)``-th block of ``B / (pod * data)`` rows of the global
+    batch (``act_batch`` over ``("pod", "data")``, the block order of the
+    train step's ``_rank_rows``) and the whole [B, V] logits come back on
+    every rank, gathered in block order (the reference's replicated
+    logits). Nothing on one device or a logical mesh."""
+
+    def __init__(self, mesh, B: int, what: str):
+        self.on = R.is_device_mesh(mesh) and R.mesh_size(mesh) > 1
+        if not self.on:
+            return
+        idx, count = _rank_rows(mesh, ("pod", "data"), B, what)
+        b = B // count
+        self.rows = slice(idx * b, (idx + 1) * b)
+        self.order = _block_ranks(mesh)
+        self.staging = RK.Staging()
+
+    def take(self, batch):
+        if not self.on:
+            return batch
+        return {k: v[self.rows] for k, v in batch.items()}
+
+    def logits(self, logits: torch.Tensor) -> torch.Tensor:
+        if not self.on:
+            return logits
+        every = RK.all_gather(self.staging, logits.contiguous(), None,
+                              tag="logits")
+        return every[self.order].reshape(-1, logits.shape[-1])
+
+
 def make_prefill_step(api: ModelAPI, mesh, shape: ShapeConfig, *,
                       act_rules=None, param_rules=None,
                       sharded_logits: bool = False):
     """``prefill_step(params, batch) -> (logits, cache)``: ``api.prefill_fn``
     under ``act_rules`` on ``mesh`` (checked by ``check_mesh``), nothing
     else: the step adds no arithmetic. ``batch`` holds tensors on the
-    model's device with ``input_specs(shape)``'s shapes. ``param_rules``
-    and ``sharded_logits`` choose the reference's output shardings, which
-    place nothing on one device."""
+    model's device with ``input_specs(shape)``'s shapes. On a mesh of
+    ranks each rank runs its block of the batch's rows (``_RankRows``; a
+    batch that does not split over the ranks raises by name) and returns
+    the whole [B, V] logits and the cache of its rows only, as
+    ``act_kv_batch`` shards it. ``param_rules`` and ``sharded_logits``
+    choose the reference's output shardings, which place nothing on one
+    device."""
     del param_rules, sharded_logits
     check_mesh(api, mesh, "make_prefill_step")
     act_rules = act_rules or R.ACT_RULES
+    ranks = _RankRows(mesh, shape.global_batch, "prefill_step")
 
     def prefill_step(params, batch):
         _check_inputs(api, shape, batch, "prefill_step")
         with R.axis_rules(mesh, act_rules):
-            return api.prefill_fn(params, batch)
+            logits, cache = api.prefill_fn(params, ranks.take(batch))
+        return ranks.logits(logits), cache
 
     return prefill_step
 
@@ -378,15 +419,19 @@ def make_decode_step(api: ModelAPI, mesh, shape: ShapeConfig, *,
     """``decode_step(params, cache, batch) -> (logits, cache)``:
     ``api.decode_fn`` under ``act_rules`` on ``mesh``; the cache (a
     timeline cache of ``shape.seq_len`` positions) is updated in place and
-    returned, as the reference donates it."""
+    returned, as the reference donates it. On a mesh of ranks ``batch``
+    is the global batch and ``cache`` this rank's rows (the prefill
+    step's), as ``make_prefill_step``; the logits are the whole [B, V]."""
     del param_rules, sharded_logits
     check_mesh(api, mesh, "make_decode_step")
     act_rules = act_rules or R.ACT_RULES
+    ranks = _RankRows(mesh, shape.global_batch, "decode_step")
 
     def decode_step(params, cache, batch):
         _check_inputs(api, shape, batch, "decode_step")
         with R.axis_rules(mesh, act_rules):
-            return api.decode_fn(params, cache, batch)
+            logits, cache = api.decode_fn(params, cache, ranks.take(batch))
+        return ranks.logits(logits), cache
 
     return decode_step
 

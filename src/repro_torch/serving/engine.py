@@ -120,7 +120,6 @@ from repro_torch.core.privacy import LM_SIM_DELTA
 from repro_torch.device import resolve_device, to_device
 from repro_torch.enclave import sealing
 from repro_torch.enclave.domain import ResourceManager, two_enclave_manager
-from repro_torch.launch import ranks as RK
 from repro_torch.runtime.ft import HeartbeatMonitor, OnlineReplanner
 from repro_torch.runtime.pipeline import PipelinedDecoder, pipeline_applicable
 from repro_torch.serving.aot import AotRegistry
@@ -834,7 +833,7 @@ class ServingEngine:
                               and cfg.num_stages > 1 else "local")
         if backend not in ("local", "pipelined"):
             raise ValueError(f"backend {backend!r}: 'local' or 'pipelined'")
-        # a mesh of ranks: stage s on rank s (serving/ranked.py)
+        # a mesh of ranks: stage s on the ranks of pod s (serving/ranked.py)
         self.mesh = mesh
         if mesh is not None:
             from repro_torch.serving import ranked
@@ -872,10 +871,9 @@ class ServingEngine:
             monitor = HeartbeatMonitor(self.rm,
                                        timeout_s=cfg.heartbeat_timeout_s)
         else:
-            pods = mesh.get_group("pod")
+            # global rank 0's verdict on every rank of the world
             monitor = ranked.AgreedMonitor(
-                self.rm, timeout_s=cfg.heartbeat_timeout_s, group=pods,
-                src=RK.group_ranks(pods)[0])
+                self.rm, timeout_s=cfg.heartbeat_timeout_s)
         self.telemetry = StageTelemetry(
             self.replanner,
             monitor=monitor,

@@ -173,8 +173,10 @@ class FaultPlane:
             bit = np.uint8(1 << self.rng.randrange(8))
             row, col = divmod(byte, row_cols * size)
             col -= col0 * size
-            mine = arr.reshape(arr.shape[0], -1).view(np.uint8)
-            if 0 <= col < mine.shape[1]:
+            # a rank's part may be empty (a data rank other than 0)
+            mine = arr.reshape(arr.shape[0], -1).view(np.uint8) \
+                if arr.size else None
+            if mine is not None and 0 <= col < mine.shape[1]:
                 mine[row, col] ^= bit
             parts[which] = arr
         else:

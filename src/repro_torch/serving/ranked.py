@@ -1,43 +1,53 @@
-"""The serving engine's pipelined backends with one stage per rank.
+"""The serving engine's pipelined backends with one stage per pod of
+ranks.
 
 ``ServingEngine(api, config, params, mesh=mesh, backend="pipelined")``,
-called on every rank of a ``pod`` mesh of ranks (``launch.ranks.spawn``,
-then ``launch.mesh.make_mesh((S, 1), ("pod", "data"))``), serves with
-stage s on rank s: the reference's default serve, where its engine lays a
-pod's layers of params and page pools on that pod. Every rank runs the
-same host logic (scheduler, page pool, planner, fault plane) on the same
-inputs; each holds only its stage's layers of the params and of the KV
-on its device, and a host copy of the whole params tree, from which a
-live re-plan cuts its new layers (as the reference's backend keeps its
-params whole and restages from them).
+called on every rank of a pod x data mesh of ranks (``launch.ranks.spawn``,
+then ``launch.mesh.make_mesh((S, D), ("pod", "data"))``), serves with
+stage s on the D data ranks of pod s: the reference's default serve,
+where its engine lays a pod's layers of params and page pools on that pod
+(its tested layout is 2 x 2). Every rank runs the same host logic
+(scheduler, page pool, planner, fault plane) on the same inputs; each
+holds only its stage's layers of the params and of the KV on its device,
+and a host copy of the whole params tree, from which a live re-plan cuts
+its new layers (as the reference's backend keeps its params whole and
+restages from them).
 
 What the reference moves inside one program over its mesh is a message
 between ranks here, and user data leaves a rank only as cipher text:
 
 * decode: ``PipelinedDecoder(mesh=)``'s tick loop, the boundary sealed
-  with the quantizing seal under the step's key (as on one card);
+  with the quantizing seal under the step's key (as on one card); the
+  data ranks of a pod split each microbatch's rows and then exchange the
+  KV entries they wrote, sealed with the page cipher, so that they hold
+  one cache (the reference's pools, whole on each data device of a pod);
 * admission (one-shot, packed, chunked, one token at a time): each rank
-  runs its layers (``PipelinedDecoder.rank_forward``); the hidden state
-  crosses sealed with the lossless page cipher, the last stage's logits
-  reach every rank;
-* a swap-out seals each rank's layers of the swap rows as its window of
-  the rows (``seal_pages(col0=, row_cols=)``): the ranks' parts side by
-  side are the one-device payload, byte for byte, and each part stays on
-  its rank's host with its own digest. A swap-in after a live re-plan
-  first moves the cipher columns to the layers' new owners;
-* a live re-plan moves the layers that change owner
-  (``PipelinedDecoder.restage_cache``).
+  runs its layers on the whole prompt batch
+  (``PipelinedDecoder.rank_forward``); the hidden state crosses to the
+  next pod's rank of the same data index sealed with the lossless page
+  cipher, the last stage's logits reach every rank; page-table edits,
+  forks and slot inserts run on every data rank alike;
+* a swap-out seals each pod's layers of the swap rows as its window of
+  the rows (``seal_pages(col0=, row_cols=)``), on data rank 0 of the pod
+  only: the pods' parts side by side are the one-device payload, byte
+  for byte, each part stays on its rank's host with its own digest, and
+  each (key, counter) is sealed once. A swap-in after a live re-plan
+  first moves the cipher columns to the layers' new owners; then data
+  rank 0 of each pod sends its part, still cipher text, to the pod's
+  other data ranks, and each unseals it under the same (key, counter);
+* a live re-plan moves the layers that change owner between the ranks of
+  one data index (``PipelinedDecoder.restage_cache``).
 
-Host decisions agree without further messages once what they read agrees:
-the stage times are gathered into one vector (each rank probes its own
-stage, one rank after another so that two probes never share a card), the
-decode step's wall time and each admission's are rank 0's, and the
-heartbeat sweep's verdict is rank 0's (``launch.ranks.share``); a swap-in's
-integrity verdicts are gathered, so one failing part fails it on every
-rank. The
-fault plane draws from its seed on every rank alike.
+Host decisions agree over the whole world without further messages once
+what they read agrees: the stage times are gathered into one vector (data
+rank 0 of each pod probes its stage, one pod after another so that two
+probes never share a card), the decode step's wall time and each
+admission's are global rank 0's, and so is the heartbeat sweep's verdict
+(``launch.ranks.share``); a swap-in's integrity verdicts are gathered
+from every rank, so one failing part fails it on every rank. The fault
+plane draws from its seed on every rank alike.
 
-Refused by name (ROADMAP item 10d): a ``data`` axis above 1, CUDA-graph
+Refused by name (ROADMAP item 10d): a ``model`` axis above 1, CUDA-graph
 warmup (a step that messages between its kernels) and the disaggregated
 pair. The stage probes keep their graphs: they send nothing.
 """
@@ -52,6 +62,7 @@ from typing import Any, Deque, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.enclave import sealing
+from repro_torch.kernels.seal import int_dtype_of
 from repro_torch.launch import ranks as RK
 from repro_torch.runtime.ft import HeartbeatMonitor
 from repro_torch.runtime.pipeline import RESTAGE_SEQS, PipelinedDecoder
@@ -82,10 +93,13 @@ def check_rank_mesh(mesh, cfg, backend: str) -> None:
     if backend != "pipelined":
         raise ValueError(f"ServingEngine(mesh=) serves one stage a rank on "
                          f"the pipelined backend, not backend={backend!r}")
-    if sizes.get("data", 1) > 1:
+    wide = {a: k for a, k in sizes.items()
+            if a not in ("pod", "data") and k > 1}
+    if wide:
         raise NotImplementedError(
-            f"ServingEngine(mesh=): a data axis of {sizes['data']}: each "
-            f"data rank would own other slots' pages (ROADMAP item 10d)")
+            f"ServingEngine(mesh=): mesh axes {wide}: the engine's ranks "
+            f"run over pod and data only; tensor parallelism is ROADMAP "
+            f"item 10d")
     if sizes.get("pod") != cfg.num_stages:
         raise ValueError(f"ServingEngine(mesh=): {sizes.get('pod')} pods "
                          f"but num_stages {cfg.num_stages}; stage s runs "
@@ -126,10 +140,13 @@ class _Ranked:
         self.dec: Optional[PipelinedDecoder] = None
         self._crossing_seq = 0          # crossing sequence numbers taken
         self._restage_seq = 0
+        self._exchange_n = 0            # KV exchanges taken (data ranks)
         # (host ms, bytes this rank sent) of each prefill crossing this
-        # rank sent and of each restage, the latest LOG_CAP
+        # rank sent, of each restage and of each decode step's KV
+        # exchange, the latest LOG_CAP
         self.crossings: Deque[Tuple[float, int]] = deque(maxlen=LOG_CAP)
         self.restages: Deque[Tuple[float, int]] = deque(maxlen=LOG_CAP)
+        self.exchanges: Deque[Tuple[float, int]] = deque(maxlen=LOG_CAP)
         self.relayouts = 0      # swap-ins whose columns moved first
 
     @property
@@ -137,18 +154,18 @@ class _Ranked:
         return self.dec.stage
 
     @property
-    def group(self):
-        return self.dec._pod_group
+    def data(self) -> int:
+        return self.dec.data
 
     def share_first(self, values: Sequence[float]) -> List[float]:
-        """Rank 0's ``values`` on every rank."""
-        return RK.share(values, self.dec._pod_ranks[0], self.group)
+        """Global rank 0's ``values`` on every rank of the world."""
+        return RK.share(values, 0, None)
 
     def verdicts(self, ok: bool) -> List[bool]:
-        """Every rank's verdict, in stage order, on every rank."""
+        """Every rank's verdict, in global rank order, on every rank."""
         got = RK.all_gather(self.staging, torch.tensor(
-            [int(bool(ok))], device=RK.message_device(self.group)),
-            self.group, tag="verdict")
+            [int(bool(ok))], device=RK.message_device(None)), None,
+            tag="verdict")
         return [bool(v) for v in got.reshape(-1).tolist()]
 
     def _build(self, stage_blocks: Sequence[int]) -> None:
@@ -166,8 +183,15 @@ class _Ranked:
         probe = dec.build_stage_probe(paged=self.paged)
 
         def step(toks, step_key):
-            return step_fn(self.params, self._step_cache(),
-                           {"tokens": toks}, step_key)[0]
+            dec.last_exchange = None
+            n = self._exchange_n
+            self._exchange_n += 1
+            out = step_fn(self.params, self._step_cache(),
+                          {"tokens": toks, "exchange": (self.key, n)},
+                          step_key)[0]
+            if dec.last_exchange is not None:
+                self.exchanges.append(dec.last_exchange)
+            return out
 
         events = tuple(torch.cuda.Event(enable_timing=True, external=True)
                        for _ in range(2)) \
@@ -219,19 +243,22 @@ class _Ranked:
             torch.cuda.synchronize(self.device)
 
     def warm_probes(self) -> None:
-        """Warm this rank's own stage probe (state-neutral)."""
-        self._probe.warm(self.stage, self._probe_arg())
+        """Warm this rank's own stage probe (state-neutral); a data rank
+        other than 0 never probes."""
+        if self.data == 0:
+            self._probe.warm(self.stage, self._probe_arg())
 
     def stage_times(self) -> List[float]:
         """Seconds of each stage's layers on one microbatch, as on one
-        card (``_Pipelined.stage_times``), each measured by its own rank,
-        one rank after another (rank s probes once s - 1's time has
-        reached it), gathered into one vector on every rank."""
+        card (``_Pipelined.stage_times``), each measured by data rank 0 of
+        its pod, one pod after another (pod s probes once s - 1's time
+        has reached it: two probes never share a card), on every rank of
+        the world."""
         arg = self._probe_arg()
         times = []
-        for s, rank in enumerate(self.dec._pod_ranks):
+        for s, rank in enumerate(self.dec.stage_leads):
             t = 0.0
-            if s == self.stage:
+            if s == self.stage and self.data == 0:
                 if self._events:
                     self._probe(s, arg)
                     start, end = self._events
@@ -241,7 +268,7 @@ class _Ranked:
                     t0 = time.perf_counter()
                     self._probe(s, arg)
                     t = time.perf_counter() - t0
-            times += RK.share([t], rank, self.group)
+            times += RK.share([t], rank, None)
         return times
 
     # -- admission: this rank's layers of a prefill ---------------------------
@@ -338,6 +365,12 @@ class RankPagedBackend(_Ranked, PagedPipelinedBackend):
 
     def _gather_fn(self, pg: torch.Tensor, key: torch.Tensor,
                    seq: torch.Tensor):
+        if self.data > 0:
+            # data rank 0 of the pod seals the pod's part; the others keep
+            # an empty one, so that every (key, counter) is sealed once
+            return tuple(torch.empty((pg.shape[0], 0), device=pool.device,
+                                     dtype=int_dtype_of(pool.dtype))
+                         for pool in self.body)
         out = []
         for part, pool in enumerate(self.body):
             rows = pool[:, pg].transpose(0, 1).reshape(pg.shape[0], -1)
@@ -366,9 +399,29 @@ class RankPagedBackend(_Ranked, PagedPipelinedBackend):
         live re-plan moved layers since, their cipher columns first go to
         their new owners (``_relayout``)."""
         if layout is not None and tuple(layout) != self.dec.ranges:
-            ck, cv = self._relayout((ck, cv), tuple(layout))
+            if self.data == 0:
+                ck, cv = self._relayout((ck, cv), tuple(layout))
             self.relayouts += 1
+        if self.dec.num_data > 1:
+            ck, cv = self._share_part((ck, cv))
         super().scatter_pages(ck, cv, pages, key, ctr)
+
+    def _share_part(self, parts):
+        """Data rank 0's part of a payload (cipher text, its columns under
+        the current layout) on every data rank of its pod: rank 0 sends
+        it, the others receive it in place of their empty parts; each then
+        unseals it under the same (key, counter)."""
+        ranks = self.dec._data_ranks
+        if self.data == 0:
+            RK.transfer(self.staging, [(r, list(parts)) for r in ranks[1:]],
+                        [], self.dec._data_group, tag="part")
+            return parts
+        lo, hi = self._span()
+        likes = [torch.empty((p.shape[0], (hi - lo) * math.prod(
+            pool.shape[2:])), dtype=p.dtype, device=p.device)
+            for p, pool in zip(parts, self.body)]
+        return tuple(RK.transfer(self.staging, [], [(ranks[0], likes)],
+                                 self.dec._data_group, tag="part")[0])
 
     def _relayout(self, parts, old: Tuple[Tuple[int, int], ...]):
         """This rank's payload parts (cipher [rows, layers x per]) sealed
@@ -395,8 +448,8 @@ class RankPagedBackend(_Ranked, PagedPipelinedBackend):
                                     dtype=p.dtype, device=p.device)
                         for p, w in zip(parts, per)]))
                     moves.append(lo)
-        got = RK.transfer(self.staging, outgoing, incoming, self.group,
-                          tag="relayout")
+        got = RK.transfer(self.staging, outgoing, incoming,
+                          self.dec._pod_group, tag="relayout")
         pieces = dict(zip(moves, got))
         lo, hi = max(olo, nlo), min(old[s][1], nhi)
         if lo < hi:

@@ -17,10 +17,12 @@ launcher over ranks, on reduced llama3.2-1b in f32 on gloo CPU ranks.
     counter) pair ciphers twice across swaps, restages, prefill crossings
     and decode boundaries.
 (d) The serve launcher with ``--ranks gloo``: the reference's
-    ``--verify-swap`` line on two ranks, its non-prefix line on three; a
-    data axis, CUDA-graph warmup and the disaggregated pair are refused by
-    name; ``restage_cache`` on three ranks (a layer moving past a
-    neighbour) equals direct staging.
+    ``--verify-swap`` line on two ranks, its non-prefix line on three;
+    CUDA-graph warmup and the disaggregated pair are refused by name,
+    while a (2, 2) pod x data engine builds and ``--mesh 2x2 --ranks gloo``
+    serves (``test_torch_engine_data_ranks.py`` holds it);
+    ``restage_cache`` on three ranks (a layer moving past a neighbour)
+    equals direct staging.
 """
 import numpy as np
 import pytest
@@ -202,7 +204,8 @@ def test_serve_non_prefix_plan_on_three_ranks(capfd):
 
 
 def refusal_body(ctx, cfg):
-    """Each refused rank engine's error, by name, on a (2, 2) mesh."""
+    """Each refused rank engine's error, by name, on a (2, 2) mesh, and
+    ``"built"`` for the engine it serves."""
     from repro_torch.launch.mesh import make_mesh
     api = build_model(cfg, device="cpu", dtype=torch.float32)
     params = api.init(torch.Generator().manual_seed(0))
@@ -212,22 +215,25 @@ def refusal_body(ctx, cfg):
         try:
             ServingEngine(api, EngineConfig(**kw), params, device="cpu",
                           backend="pipelined", mesh=mesh)
+            out.append("built")
         except (NotImplementedError, ValueError) as e:
             out.append(f"{type(e).__name__}: {e}")
     return out
 
 
-def test_rank_engine_refusals_are_named():
+def test_rank_engine_refusals_are_named(capfd):
     cfg = reduced(get_arch("llama3.2-1b"))
     for errs in spawn(refusal_body, 4, backend="gloo", device="cpu",
                       args=(cfg,)):
         assert len(errs) == 3, errs
         assert "warmup" in errs[0] and "item 10d" in errs[0]
         assert "disagg" in errs[1] and "item 10d" in errs[1]
-        assert "data axis" in errs[2] and "item 10d" in errs[2]
-    with pytest.raises(NotImplementedError, match="data axis"):
-        serve.main(ARGV + ["--stages", "2", "--mesh", "2x2", "--ranks",
-                           "gloo"])
+        assert errs[2] == "built", errs[2]
+    plain = [a for a in ARGV if a != "--verify-swap"]
+    st = serve.main(plain + ["--stages", "2", "--mesh", "2x2", "--ranks",
+                             "gloo"])
+    assert "2 pods x 2 data" in capfd.readouterr().out
+    assert st["completed"] == 6
     with pytest.raises(ValueError, match="pipelined"):
         serve.main(ARGV + ["--stages", "2", "--ranks", "gloo", "--backend",
                            "local"])

@@ -128,7 +128,7 @@ def test_backend_is_named_and_checked_before_ranks_start():
 def test_launcher_refuses_tensor_parallel_meshes_by_name(flags, names):
     with pytest.raises(NotImplementedError, match=names) as e:
         train.main(LAUNCH + ["--backend", "gloo", *flags])
-    assert "item 10b" in str(e.value)
+    assert "item 10d" in str(e.value)
 
 
 def test_a_failing_rank_fails_the_run():
