@@ -5598,7 +5598,238 @@ def serve_data_ranks(torch, ops, smi, phase6=None, phase20=None):
         f"gather) [{smi}]")
     log(f"phase 21: {time.perf_counter() - t_phase:.1f} s (the spawn "
         f"{spawn_s:.1f} s)")
+    eager = {"streams": a[0]["streams"],
+             "step_ms": [_p50(r["step_ms"]) for r in a],
+             "admission": (st["admission_p50_ms"], st["admission_p99_ms"]),
+             "exchange_ms": [_p50(e) for e in ex_ms],
+             "crossing_ms": _p50([c[0] for c in cross])}
     del api, params, out, a, b
+    _free(torch)
+    return [{"launches": launches, "eager": eager}]
+
+
+# phase 22: warmup over ranks (ROADMAP item 10d, step 3): phase 21's
+# stream on the 2 x 2 ranks with each rank's stage work captured as CUDA
+# graphs between its messages, and the reference's live re-plan line
+# (``--inject-straggler 1:10 --verify-swap --warmup --assert-no-recompile``)
+# at full width
+# the straggler moves (1, 15) to (15, 1) (phase 20b): a tour of every
+# composition of 16 blocks into two stages (15 layouts) holds it
+WARM_TOUR = 14
+# (b)'s cut of phase 6's stream: its first requests
+WARM_REPLAN_REQUESTS = 8
+# stats each rank keeps of its own
+PER_RANK = ("graphs", "warmup_s")
+
+
+def _same_decisions(ranks, what):
+    """Every rank's events and stats (but ``PER_RANK``) equal."""
+    def mine(st):
+        return {k: v for k, v in st.items() if k not in PER_RANK}
+    for r in ranks[1:]:
+        assert r["events"] == ranks[0]["events"], (what, "events")
+        assert mine(r["stats"]) == mine(ranks[0]["stats"]), (what, "stats")
+
+
+def _warmed(ranks, what):
+    """Zero post-warmup captures and no stall on every rank."""
+    for r in ranks:
+        assert r["post_warmup_compiles"] == 0 and r["stalls"] == [], \
+            (what, r["stage"], r["data"], r["post_warmup_compiles"],
+             r["stalls"][:4])
+        if DEV == "cuda":
+            assert r["graphs"] > 0, (what, r["graphs"])
+
+
+def serve_warm_ranks(torch, ops, smi, phase6=None, phase21=None):
+    """22. ``ServingEngine(mesh=, config=EngineConfig(warmup=True))`` on
+    the four gloo ranks of phase 21 (``DATA_MESH``), in one spawn: every
+    rank runs the warmup passes in lockstep and then serves with its
+    stage's device work replayed from CUDA graphs, the messages posted
+    eagerly between replays. (a) Phase 21's stream (full-width
+    llama3.2-1b in bf16, pipelined (1, 15), sealed, 8 slots, 2
+    microbatches, 30 pages) warmed: streams bit-equal to phase 21's eager
+    rank streams (``phase21``, or an eager run in the same spawn when the
+    phase runs alone) and, where those equal phase 6's, to phase 6's;
+    every swap-in restored bit for bit on every rank; equal cache digests
+    within each pod; no (key, counter) pair twice over the four ranks
+    across warmup and serve (the ledger sees replays); zero post-warmup
+    captures and no stall on every rank; launches as phase 21's formulas
+    (replays add what their capture launched). (b) The reference's live
+    re-plan line at full width: unsealed, warmed, ``--inject-straggler
+    1:10`` over a tour of every layout (``WARM_TOUR``), on phase 6's first
+    ``WARM_REPLAN_REQUESTS`` requests: a live swap onto a toured layout
+    with zero post-warmup captures on every rank, streams equal to the
+    warmed undisturbed run's. Prints, beside phase 21's eager figures,
+    host ms a decode step per rank split into segment replays and message
+    waits, admission p50 / p99, graphs and warmup seconds per rank, the
+    KV exchange's and a crossing's host ms. Returns the ranks' launch
+    counts, summed."""
+    import dataclasses
+
+    from repro_torch.launch import rank_jobs, serve
+    from repro_torch.launch.ranks import spawn
+    t_phase = time.perf_counter()
+    _free(torch)
+    argv = [DEV if a == "cuda" else a for a in RANKS_SERVE]
+    args = serve.build_parser().parse_args(argv)
+    cfg = _family_cfg("llama3.2-1b")
+    if phase6 is None:                    # run alone: phase 6 first
+        from repro_torch.models.api import build_model
+        api = build_model(cfg, device=DEV, dtype=torch.bfloat16)
+        params = api.init(torch.Generator(device=DEV).manual_seed(
+            args.seed))
+        phase6 = serve_full_width(torch, ops, api, params, argv, 6,
+                                  plan=(1, cfg.num_layers - 1))
+        del api, params
+        _free(torch)
+    if DEV == "cuda":
+        free, total = torch.cuda.mem_get_info()
+        log(f"phase 22: device memory free {free / 2**30:.2f} of "
+            f"{total / 2**30:.2f} GiB before the spawn (this process "
+            f"reserves {torch.cuda.memory_reserved() / 2**30:.2f} GiB)")
+    L, nm = cfg.num_layers, args.microbatches
+    P, D = DATA_MESH
+    reqs = [(p, args.max_new)
+            for p in serve.gen_prompts(args, cfg.vocab_size)]
+    sealed = serve.make_config(args, warmup=True)
+    calm = dataclasses.replace(sealed, seal_boundary=False,
+                               telemetry_interval=args.telemetry_interval)
+    cut = reqs[:WARM_REPLAN_REQUESTS]
+    every = args.arrival_every
+    runs = [rank_jobs.ServeRun(sealed, reqs, every=every, check_swaps=True),
+            rank_jobs.ServeRun(calm, cut, every=every),
+            rank_jobs.ServeRun(dataclasses.replace(
+                calm, warmup_layouts=WARM_TOUR), cut, every=every,
+                inject=RANKS_STRAGGLER)]
+    if phase21 is None:                   # run alone: phase 21's run too
+        runs.append(rank_jobs.ServeRun(serve.make_config(args), reqs,
+                                       every=every))
+    t0 = time.perf_counter()
+    out = spawn(rank_jobs.serve, P * D, backend="gloo", device=DEV, args=(
+        rank_jobs.ServeJob(cfg, runs, dtype=torch.bfloat16, seed=args.seed,
+                           data=D),))
+    spawn_s = time.perf_counter() - t0
+    launches = {k: 0 for k in ops.LAUNCHES}
+    for res in out:
+        for r in res:
+            for k in launches:
+                launches[k] += r["launches"][k]
+    a, calm_b, tour_b = ([res[i] for res in out] for i in range(3))
+    eager = phase21 or {"streams": out[0][3]["streams"],
+                        "step_ms": [_p50(res[3]["step_ms"]) for res in out],
+                        "admission": (out[0][3]["stats"]["admission_p50_ms"],
+                                      out[0][3]["stats"]["admission_p99_ms"]),
+                        "exchange_ms": [_p50([m for m, _ in res[3][
+                            "exchanges"]]) for res in out],
+                        "crossing_ms": _p50([c[0] for c in out[0][3][
+                            "crossings"]])}
+    # (a) phase 21's stream, warmed
+    assert [(r["stage"], r["data"]) for r in a] == [(0, 0), (0, 1), (1, 0),
+                                                  (1, 1)]
+    for ranks, what in ((a, "22a"), (calm_b, "22b calm"),
+                        (tour_b, "22b straggler")):
+        _same_decisions(ranks, what)
+        _warmed(ranks, what)
+        bad = rank_jobs.keystream_reuse([r["keys"] for r in ranks])
+        assert not bad, (what, "a (key, counter) pair ciphered twice",
+                         bad[:3])
+    st = a[0]["stats"]
+    assert st["stage_blocks"] == (1, L - 1) and st["swaps"] == 0, st
+    assert st["swap_outs"] > 0 and st["swap_ins"] > 0, st
+    for pod in range(P):
+        digests = {r["data"]: r["cache_digest"] for r in a
+                   if r["stage"] == pod}
+        assert digests[0] == digests[1], ("22a: the data ranks of pod "
+                                          f"{pod} hold other caches")
+    for r in a:
+        assert r["status"] == ["done"] * len(reqs), r["status"]
+        assert r["streams"] == eager["streams"], \
+            ("22a: streams differ from phase 21's eager ranks",
+             r["stage"], r["data"])
+        assert r["restored"] > 0 and r["moved"] == 0, r["restored"]
+        lo, hi = r["range"]
+        steps, lc, d = r["decode_steps"], r["launches"], r["data"]
+        if DEV == "cuda":
+            first, last = r["stage"] == 0, r["stage"] == P - 1
+            assert lc["paged_attention"] == (hi - lo) * (
+                nm * steps + (r["probes"] if d == 0 else 0)), \
+                (r["stage"], d, lc, steps, r["probes"])
+            assert lc["flash_attention"] == (hi - lo) * st["prefill_calls"]
+            assert lc["seal"] == (nm * steps if first else 0), lc
+            assert lc["unseal"] == (nm * steps if last else 0), lc
+            assert lc["seal_bits_window"] == (
+                2 * st["swap_outs"] if d == 0 else 0), lc
+            assert lc["unseal_bits_window"] == 2 * st["swap_ins"], lc
+            assert lc["seal_bits"] == steps + (
+                st["prefill_calls"] if first else 0), lc
+            assert lc["unseal_bits"] == (D - 1) * steps + (
+                st["prefill_calls"] if last else 0), lc
+    same6 = eager["streams"] == phase6["streams"]
+    if same6:
+        assert a[0]["streams"] == phase6["streams"]
+    splits = [list(zip(*r["step_splits"])) for r in a]
+    assert all(len(r["step_splits"]) == r["decode_steps"] for r in a)
+
+    def row(xs, digits=3):
+        return ", ".join(f"{x:.{digits}f}" for x in xs)
+
+    log(f"phase 22a llama3.2-1b ({L} layers) bf16, phase 21's stream on "
+        f"2 x 2 pod x data ranks warmed as CUDA graphs (stage blocks "
+        f"{st['stage_blocks']}), sealed: streams bit-equal to phase 21's "
+        f"eager ranks{' and to phase 6' if same6 else ''}"
+        f"{'' if same6 else ' (phase 21 differs from phase 6)'}; "
+        f"{st['completed']} requests, {a[0]['decode_steps']} decode steps, "
+        f"swap-outs {st['swap_outs']}, swap-ins {st['swap_ins']} (pages "
+        f"restored bit-exact {[r['restored'] for r in a]}); cache digests "
+        f"equal within each pod; post-warmup captures 0 and no stall on "
+        f"every rank; graphs a rank {[r['graphs'] for r in a]}, warmup s "
+        f"{row([r['warmup_s'] for r in a], 2)}, peak reserved GiB "
+        f"{row([r['peak_reserved'] / 2**30 for r in a], 2)} [{smi}]")
+    log(f"phase 22a: host ms a decode step p50, (pod, data) order "
+        f"{row([_p50(r['step_ms']) for r in a])} (phase 21 eager ranks "
+        f"{row(eager['step_ms'])}); of which segment replays p50 "
+        f"{row([_p50(x[0]) for x in splits])} and message waits p50 "
+        f"{row([_p50(x[1]) for x in splits])}; admission p50 / p99 "
+        f"{st['admission_p50_ms']:.1f} / {st['admission_p99_ms']:.1f} ms "
+        f"(phase 21 {eager['admission'][0]:.1f} / "
+        f"{eager['admission'][1]:.1f}); the KV exchange host ms p50 "
+        f"{row([_p50([m for m, _ in r['exchanges']]) for r in a], 4)} "
+        f"(phase 21 {row(eager['exchange_ms'], 4)}); a prefill crossing "
+        f"(pod 0 -> 1, data rank 0) host ms p50 "
+        f"{_p50([c[0] for c in a[0]['crossings']]):.4f} (phase 21 "
+        f"{eager['crossing_ms']:.4f}); (key, "
+        f"counter) pairs a rank {[len(r['keys']) for r in a]}, none twice; "
+        f"launches {[r['launches'] for r in a]}")
+    # (b) the live re-plan line, warmed
+    for r, c in zip(tour_b, calm_b):
+        assert r["streams"] == c["streams"], \
+            ("22b: streams differ across the live swap", r["stage"],
+             r["data"])
+        assert r["status"] == ["done"] * len(cut), r["status"]
+    sb = tour_b[0]["stats"]
+    swaps = [(d["from"], d["to"]) for _, kind, d in tour_b[0]["events"]
+             if kind == "swap"]
+    assert sb["swaps"] >= 1 and swaps and all(
+        d["migrated"] for _, kind, d in tour_b[0]["events"]
+        if kind == "swap"), tour_b[0]["events"]
+    log(f"phase 22b: unsealed, warmed over a tour of every layout "
+        f"(warmup_layouts {WARM_TOUR}), --inject-straggler 1:10, phase 6's "
+        f"first {len(cut)} requests: live swaps "
+        f"{', '.join(f'{x}->{y}' for x, y in swaps)} with post-warmup "
+        f"captures 0 and no stall on every rank; streams equal the warmed "
+        f"undisturbed run's; warmup s "
+        f"{row([r['warmup_s'] for r in tour_b], 2)} (undisturbed, planned "
+        f"tour: "
+        f"{row([r['warmup_s'] for r in calm_b], 2)}); graphs a rank "
+        f"{[r['graphs'] for r in tour_b]}, peak reserved GiB "
+        f"{row([r['peak_reserved'] / 2**30 for r in tour_b], 2)}; a "
+        f"restage's host ms "
+        f"{row([m for m, _ in tour_b[0]['restages']], 1)}; host ms a decode "
+        f"step p50 {row([_p50(r['step_ms']) for r in tour_b])}")
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s (the spawn "
+        f"{spawn_s:.1f} s)")
+    del out, a, calm_b, tour_b
     _free(torch)
     return [{"launches": launches}]
 
@@ -5755,6 +5986,9 @@ def main() -> int:
     # steps on a 2 x 2 pod x data mesh
     runs += serve_data_ranks(torch, ops, smi0, runs[1],
                              runs[-1]["step_ms_p50"])
+    # phase 22: warmup over ranks: phase 21's stream warmed as CUDA graphs
+    # on the 2 x 2 ranks, and the live re-plan line warmed
+    runs += serve_warm_ranks(torch, ops, smi0, runs[1], runs[-1]["eager"])
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 

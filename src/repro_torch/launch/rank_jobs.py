@@ -20,6 +20,7 @@ each other.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
@@ -38,6 +39,7 @@ from repro_torch.optim.compression import (compressed_psum_pod,
                                            init_error_feedback)
 from repro_torch.runtime import steps as S
 from repro_torch.runtime.pipeline import PipelinedDecoder, axes_leaves
+from repro_torch.serving import aot
 from repro_torch.serving.engine import EngineConfig, ServingEngine
 from repro_torch.tree import leaves, map_tree
 
@@ -227,9 +229,14 @@ def _ping(ctx: RankContext, dec: PipelinedDecoder, job: DecodeJob) -> dict:
 class KeyLedger:
     """Every (key, counter) this process seals under while it is open, with
     the window of the row each seal covers: ``ops.seal`` (a stage
-    boundary) and ``ops.seal_bits`` (swaps, restages, prefill crossings)
-    are wrapped, keys and counters kept as given (device tensors cloned,
-    read back at ``close``, so recording adds no host sync)."""
+    boundary) and ``ops.seal_bits`` (swaps, restages, prefill crossings,
+    KV exchanges) are wrapped, keys and counters kept as given (device
+    tensors cloned, read back at ``close``, so recording adds no host
+    sync). Graph replays seal too: under a capture the wrapper notes its
+    clones with the graph (``aot.capture_notes``, cloned inside it, so
+    they hold each replay's key and counter) and a replay hook records
+    them after every replay. A warm's repeated eager runs seal the same
+    bytes under the same pair as its first run, which alone is kept."""
 
     def __init__(self):
         self.records: List[tuple] = []
@@ -242,22 +249,33 @@ class KeyLedger:
         def keep(v):
             return v.detach().clone() if isinstance(v, torch.Tensor) else v
 
+        def record(kind, key, counter, col0, cols, row_cols):
+            if aot.repeat_run():
+                return
+            rec = (kind, keep(key), keep(counter), col0, cols, row_cols)
+            notes = aot.capture_notes()
+            (self._raw if notes is None else notes).append(rec)
+
         def seal(x, key, counter, *a, **kw):
-            self._raw.append(("seal", keep(key), keep(counter), 0,
-                              x.shape[1], x.shape[1]))
+            record("seal", key, counter, 0, x.shape[1], x.shape[1])
             return real_seal(x, key, counter, *a, **kw)
 
         def seal_bits(x, key, counter, col0=0, row_cols=None):
-            self._raw.append(("seal_bits", keep(key), keep(counter),
-                              int(col0), x.shape[1],
-                              x.shape[1] if row_cols is None
-                              else int(row_cols)))
+            record("seal_bits", key, counter, int(col0), x.shape[1],
+                   x.shape[1] if row_cols is None else int(row_cols))
             return real_bits(x, key, counter, col0=col0, row_cols=row_cols)
 
+        def replayed(graph):
+            self._raw += [(kind, keep(key), keep(ctr), *rest)
+                          for kind, key, ctr, *rest in graph.notes]
+
+        self._hook = replayed
+        aot.REPLAY_HOOKS.append(replayed)
         ops.seal, ops.seal_bits = seal, seal_bits
         return self
 
     def __exit__(self, *exc):
+        aot.REPLAY_HOOKS.remove(self._hook)
         ops.seal, ops.seal_bits = self._real
         self.records += [(kind, int(key) & 0xFFFFFFFF,
                           int(ctr) & 0xFFFFFFFF, col0, cols, row_cols)
@@ -476,7 +494,13 @@ def serve(ctx: RankContext, job: ServeJob) -> List[dict]:
     under (``KeyLedger``); its ``data`` index (``stage`` is its pod's); the KV
     ``exchanges`` between data ranks (host ms, bytes sent) a decode step;
     a ``param_digest`` of its cache after the run (``cache_digest``) and,
-    with ``digest_steps``, after every engine step (``digests``)."""
+    with ``digest_steps``, after every engine step (``digests``). Its
+    warmup (``EngineConfig(warmup=True)``, run inside the ledger): the
+    rank's ``graphs``, ``warmup_s``, ``post_warmup_compiles`` and
+    ``stalls`` (each rank captures its own stage's work), and each decode
+    step's host ms in its device segments and in its messages
+    (``step_splits``, ``PipelinedDecoder.rank_loop``); on a card the
+    run's ``peak_reserved`` device bytes."""
     from repro_torch.launch.serve import TOPOLOGIES
     api, params = _model(ctx, job.cfg, job.dtype, job.params, job.seed,
                          job.max_seq)
@@ -486,6 +510,8 @@ def serve(ctx: RankContext, job: ServeJob) -> List[dict]:
                      device=ctx.device)
     out = []
     for run in job.runs:
+        if ctx.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(ctx.device)
         with KeyLedger() as ledger:
             eng = ServingEngine(api, run.config, params, device=ctx.device,
                                 rm=TOPOLOGIES[run.topology](
@@ -519,8 +545,16 @@ def serve(ctx: RankContext, job: ServeJob) -> List[dict]:
             "moved": probe.moved, "decode_steps": be.steps,
             "exchanges": list(be.exchanges),
             "cache_digest": param_digest(be.cache),
-            "digests": probe.digests, "keys": ledger.records})
+            "digests": probe.digests, "keys": ledger.records,
+            "graphs": eng.aot.graphs, "warmup_s": eng.warmup_s,
+            "post_warmup_compiles": eng.aot.post_freeze_compiles,
+            "stalls": [x.describe() for x in eng.aot.post_freeze_stalls],
+            "step_splits": list(be.step_splits),
+            "peak_reserved": torch.cuda.max_memory_reserved(ctx.device)
+            if ctx.device.type == "cuda" else 0})
         del eng, be, probe
+        # the engine's graphs go now, not inside the next one's captures
+        gc.collect()
     return out
 
 

@@ -34,9 +34,16 @@ rank's host numbers (a clock reading, a verdict vector), and
 ``transfer`` posts a set of point-to-point
 messages of sizes both sides know (a stage's KV rows on a live re-plan, a
 swap payload's columns) and completes them together.
+
+No message may be posted or waited on inside a function under graph
+management (``serving/aot.py``): a CUDA graph replays device work only,
+so a message captured in one would never be sent again, and a rank
+waiting in a capture stalls its peers. ``no_messages(name)`` marks such a
+function's run; every helper below raises in it, naming the function.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -51,6 +58,27 @@ from repro_torch.device import resolve_device
 
 TIMEOUT_S = 120.0
 BACKENDS = ("gloo", "nccl")
+
+# the managed functions running on this process, innermost last
+_QUIET: List[str] = []
+
+
+@contextlib.contextmanager
+def no_messages(name: str):
+    """Run a managed function ``name``: a message inside raises."""
+    _QUIET.append(name)
+    try:
+        yield
+    finally:
+        _QUIET.pop()
+
+
+def _may_message(what: str) -> None:
+    if _QUIET:
+        raise RuntimeError(
+            f"{what} inside the managed function {_QUIET[-1]!r}: a CUDA "
+            f"graph replays device work only, so messages are posted and "
+            f"waited on between managed calls")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,6 +240,7 @@ class Pending:
         self._keep = keep             # what the transport reads until wait
 
     def wait(self) -> List[torch.Tensor]:
+        _may_message("a message's wait")
         for w in self._works:
             w.wait()
         self._keep = ()
@@ -223,6 +252,7 @@ def send(staging: Staging, tensors: Sequence[torch.Tensor], dst: int,
          group=None, tag="send") -> Pending:
     """Post ``tensors`` to global rank ``dst`` (in order); wait on the
     result before the buffers of ``tag`` are used again."""
+    _may_message("send")
     works, wires = [], []
     for i, t in enumerate(tensors):
         wire = staging._wire(t, group, (tag, i))
@@ -236,6 +266,7 @@ def recv(staging: Staging, likes: Sequence[torch.Tensor], src: int,
          group=None, tag="recv") -> Pending:
     """Post receives from global rank ``src`` into tensors shaped and typed
     as ``likes`` (in order), returned by ``wait()`` on their devices."""
+    _may_message("recv")
     works, outs = [], []
     for i, like in enumerate(likes):
         buf = staging._landing(like, group, (tag, i))
@@ -261,6 +292,7 @@ def all_reduce(staging: Staging, t: torch.Tensor, group=None,
     """Sum of ``t`` over ``group``, written into ``t`` and returned; the
     same bits on every rank (the backend reduces each element once and
     hands the result to all)."""
+    _may_message("all_reduce")
     if dist.get_world_size(group) == 1:
         return t
     wire = staging._wire(t, group, tag)
@@ -274,6 +306,7 @@ def broadcast(staging: Staging, t: torch.Tensor, src: int, group=None,
               tag="broadcast") -> torch.Tensor:
     """Global rank ``src``'s ``t`` on every rank of ``group``, written into
     ``t`` and returned."""
+    _may_message("broadcast")
     if dist.get_world_size(group) == 1:
         return t
     wire = staging._wire(t, group, tag)
@@ -287,6 +320,7 @@ def all_gather(staging: Staging, t: torch.Tensor, group=None,
                tag="all_gather") -> torch.Tensor:
     """Every rank's ``t`` stacked in the group's order: [group size,
     *t.shape] on ``t``'s device."""
+    _may_message("all_gather")
     n = dist.get_world_size(group)
     if n == 1:
         return t[None]
@@ -322,6 +356,7 @@ def message_device(group) -> torch.device:
 def share(values: Sequence[float], src: int, group=None) -> List[float]:
     """Global rank ``src``'s ``values`` (floats, exact as float64) on every
     rank of ``group``; each rank passes a sequence of the same length."""
+    _may_message("share")
     t = torch.tensor([float(v) for v in values], dtype=torch.float64,
                      device=message_device(group))
     if dist.get_world_size(group) > 1:

@@ -115,6 +115,20 @@ raises.
       --device cpu --mesh 2x2 --stages 2 --ranks gloo --microbatches 2 \\
       --slots 4 --requests 6 --max-new 8 --no-seal --f32 \\
       --inject-straggler 1:10 --verify-swap
+  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
+      --device cpu --mesh 2x2 --stages 2 --ranks gloo --microbatches 2 \\
+      --slots 4 --requests 6 --max-new 8 --no-seal --f32 \\
+      --inject-straggler 1:10 --verify-swap --warmup --assert-no-recompile
+  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
+      --device cpu --mesh 2x2 --stages 2 --ranks gloo --microbatches 2 \\
+      --slots 4 --requests 8 --prompt-len 24 --max-new 8 --page-size 8 \\
+      --no-seal --f32 --warmup --prefill-chunk 6 --verify-chunked \\
+      --assert-no-recompile
+
+The last two are the reference's 2 x 2 ``--warmup --assert-no-recompile``
+lines over four ranks: each rank captures its stage's device work between
+its messages, and ``--assert-no-recompile`` gathers every rank's
+post-warmup captures and stalls, so rank 0 prints the world's verdict.
 """
 from __future__ import annotations
 
@@ -525,6 +539,20 @@ def _assert_no_recompile(st, role: str = "") -> None:
     assert not st["compile_stalls"], st["compile_stalls"]
 
 
+def world_counts(st):
+    """Every rank's (post-warmup captures, post-warmup stalls, graphs) in
+    global rank order, gathered over the world: each rank's engine warms
+    and captures its own stage's work. Every rank calls it at the same
+    point; ``stats()`` itself sends nothing."""
+    from repro_torch.launch import ranks as RK
+    mine = torch.tensor([st["post_warmup_compiles"],
+                         len(st["compile_stalls"]), st["graphs"]],
+                        dtype=torch.int64,
+                        device=RK.message_device(None))
+    got = RK.all_gather(RK.Staging(), mine, None, tag="no_recompile")
+    return [tuple(int(x) for x in row) for row in got.cpu().tolist()]
+
+
 def disagg_main(api, params, args):
     """``--disagg``: serve through the prefill/decode orchestrator; with
     ``--verify-disagg`` serve again monolithically and through the no-peer
@@ -652,10 +680,20 @@ def serve_main(args):
     if args.assert_no_recompile:
         # checked before any --verify-* rerun, as the reference does
         assert args.warmup, "--assert-no-recompile needs --warmup"
-        _assert_no_recompile(st)
-        print(f"NO-RECOMPILE OK: post_warmup_compiles="
-              f"{st['post_warmup_compiles']}, 0 stalls "
-              f"({st['graphs']} graphs, warmup {st['warmup_s']:.2f} s)")
+        if args.ranks:
+            world = world_counts(st)
+            bad = [(r, c, n) for r, (c, n, _) in enumerate(world) if c or n]
+            assert not bad, f"(rank, post-warmup captures, stalls) " \
+                f"{bad}; this rank's stalls: {st['compile_stalls']}"
+            print(f"NO-RECOMPILE OK: post_warmup_compiles=0, 0 stalls on "
+                  f"every one of {len(world)} ranks (graphs a rank "
+                  f"{[g for _, _, g in world]}, warmup on rank 0 "
+                  f"{st['warmup_s']:.2f} s)")
+        else:
+            _assert_no_recompile(st)
+            print(f"NO-RECOMPILE OK: post_warmup_compiles="
+                  f"{st['post_warmup_compiles']}, 0 stalls "
+                  f"({st['graphs']} graphs, warmup {st['warmup_s']:.2f} s)")
     if args.verify_swap:
         eng2, reqs2 = run_once(api, params, copy.copy(args))
         assert eng.swaps >= 1, \

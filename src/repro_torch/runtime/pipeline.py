@@ -67,15 +67,27 @@ body's rows at the step's slot), sealed with the page cipher under
 sequence numbers of their own (``sealing.exchange_seq``): after every
 step the data ranks of a pod hold one cache, bit for bit. The last
 stage's logits reach every rank (a broadcast over ``pod``, then a gather
-over ``data``), so the step returns the one-card path's [B, V]. The rank
-step runs eagerly: a step that messages through the host is not captured
-in a CUDA graph.
+over ``data``), so the step returns the one-card path's [B, V].
+
+A CUDA graph cannot post or wait on a message, so the rank step is split
+into segments that touch the device only (``rank_segments``): a
+microbatch's stage work (``tick``: embed or unseal, the layers, then seal
+or the head), the exchange's ``take`` (this rank's entries, sealed) and
+the step's ``tail`` (the peers' entries unsealed and written, then
+``seq_lens`` or ``len`` advanced). ``rank_loop`` runs them in order on
+the host and posts the messages between them; an engine puts each
+segment under graph management (``serving/ranked.py``), ``build`` runs
+them eagerly. Per-call numbers reach a segment as device tensors (the
+step key, the exchange's key and counters); the host ints among its
+arguments (the microbatch, the batch size) select its graph.
 
 Two more pieces serve an engine whose stages are ranks
 (``ServingEngine(mesh=)``, pod and data ranks):
 
 * ``rank_forward`` runs this rank's layers of a prefill (one-shot, packed,
-  chunked or one token) between its neighbours: every data rank of a pod
+  chunked or one token: a ``crossing_segment``, which also opens the
+  hidden state it receives and seals the one it sends) between its
+  neighbours: every data rank of a pod
   runs the whole batch (so their pages stay equal without an exchange),
   takes the hidden state from stage s - 1's rank of its data index and
   posts its own to stage s + 1's, each crossing sealed with the lossless
@@ -102,7 +114,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -244,6 +256,9 @@ class PipelinedDecoder:
         # what crosses a stage boundary
         self.exchange_staging = RK.Staging()
         self.last_exchange: Optional[Tuple[float, int]] = None
+        # host ms of the last rank step in its segments and its messages
+        self.last_split: Optional[Tuple[float, float]] = None
+        self._row_blocks: Dict[Tuple[int, int], torch.Tensor] = {}
 
     def splits(self, rows: int) -> bool:
         """Whether the data ranks split a microbatch of ``rows`` rows: with
@@ -255,12 +270,28 @@ class PipelinedDecoder:
 
     def _rows_of(self, d: int, B: int) -> torch.Tensor:
         """The batch rows data rank ``d`` runs in a step of ``B`` rows (its
-        block of every microbatch), on the model's device."""
-        nm = self.num_microbatches
-        B_mb = B // nm
-        b = B_mb // self.num_data
-        return (torch.arange(nm)[:, None] * B_mb + d * b
+        block of every microbatch), on the model's device; made at the
+        first call (an eager run: a segment runs once before its capture)
+        and kept, since a host-to-device copy cannot be captured."""
+        rows = self._row_blocks.get((d, B))
+        if rows is None:
+            nm = self.num_microbatches
+            B_mb = B // nm
+            b = B_mb // self.num_data
+            rows = self._row_blocks[(d, B)] = (
+                torch.arange(nm)[:, None] * B_mb + d * b
                 + torch.arange(b)).reshape(-1).to(self.api.device)
+        return rows
+
+    def _block(self, B: int) -> Tuple[int, int]:
+        """(rows, first row) of this rank's block of a microbatch in a step
+        of ``B`` rows: its share where the data ranks split them, else the
+        whole microbatch."""
+        B_mb = B // self.num_microbatches
+        if not self.splits(B_mb):
+            return B_mb, 0
+        b = B_mb // self.num_data
+        return b, self.data * b
 
     def _local(self, s: int) -> Tuple[int, int]:
         """Stage s's layer range in the params and cache it runs on: its
@@ -397,53 +428,80 @@ class PipelinedDecoder:
         return map_tree(lambda _: next(it), tree)
 
     # -- a prefill stage on a rank --------------------------------------------
-    def rank_forward(self, run: Callable, shape: Tuple[int, ...],
-                     logits_rows: int, key, seq: int) -> torch.Tensor:
-        """This rank's layers of one prefill call between its neighbours:
-        ``run(x)`` runs them, with ``x`` the hidden state [*shape, d_model]
-        from stage s - 1 (None on stage 0, which embeds), and returns what
-        leaves them: the hidden state, or the f32 logits [logits_rows, V]
-        on the last stage. Every data rank of a pod runs the whole batch:
-        it receives from the previous pod's rank of its data index and
-        sends to the next one's. The hidden state crossing from stage s to
-        s + 1 on data rank d is sealed with the page cipher under ``key``
-        and the crossing sequence number ``(seq + s) * data + d``
-        (``sealing.crossing_seq``; one call takes ``num_stages - 1`` of
-        them a data rank, ``seq + s`` with one data rank), raw with
-        ``seal_boundary`` off. Returns the last stage's logits on every
-        rank. A rank that sends a
-        crossing keeps its host ms (from its hidden state ready on the
-        device to the send complete: seal, staging, transport) and bytes
-        in ``last_crossing``."""
-        api, S, s = self.api, self.num_stages, self.stage
-        d, V = api.cfg.d_model, api.cfg.vocab_size
-        dev = api.device
+    def crossing_counters(self, seq: int) -> List[int]:
+        """The page-cipher counters of one prefill call's crossings on this
+        rank, ``[in, out]``: the crossing from stage i to i + 1 on data
+        rank d seals under the crossing sequence number ``(seq + i) *
+        data + d`` (``sealing.crossing_seq``; ``seq + i`` with one data
+        rank), so a call takes ``num_stages - 1`` of them a data rank; 0
+        where this rank has no such crossing."""
+        S, s = self.num_stages, self.stage
 
-        def ctr(i: int):
+        def ctr(i: int) -> int:
+            if not 0 <= i < S - 1:
+                return 0
             return sealing._swap_counter(sealing.crossing_seq(
                 (seq + i) * self.num_data + self.data), 0)
 
-        x = None
+        return [ctr(s - 1), ctr(s)]
+
+    def crossing_segment(self, run: Callable) -> Callable:
+        """This rank's device work of one prefill call, message-free:
+        ``segment(shape, got, key, ctr, *inputs) -> (out, extra)`` opens
+        ``got``, the hidden state [rows, d_model] received from stage s -
+        1 (None on stage 0), under ``key`` and ``ctr[0]`` into [*shape,
+        d_model], runs ``run(x, *inputs) -> (out, extra)`` (``out`` the
+        hidden state, or the f32 logits on the last stage) and, on a stage
+        that sends, seals ``out`` as [rows, d_model] under ``ctr[1]`` (the
+        lossless page cipher; raw with ``seal_boundary`` off)."""
+        api, S, s = self.api, self.num_stages, self.stage
+        d = api.cfg.d_model
+
+        def segment(shape, got, key, ctr, *inputs):
+            x = None
+            if got is not None:
+                if self.seal_boundary:
+                    got = K.unseal_bits(got, key, ctr[0:1],
+                                        out_dtype=api.dtype)
+                x = got.reshape(*shape, d)
+            out, extra = run(x, *inputs)
+            if s < S - 1:
+                out = out.reshape(-1, d)
+                if self.seal_boundary:
+                    out = K.seal_bits(out, key, ctr[1:2])
+            return out, extra
+
+        return segment
+
+    def rank_forward(self, segment: Callable, shape: Tuple[int, ...],
+                     logits_rows: int, key, ctr, *inputs):
+        """This rank's layers of one prefill call between its neighbours:
+        ``segment`` (a ``crossing_segment``, or a managed call of one) on
+        the hidden state [*shape, d_model] received from stage s - 1 (none
+        on stage 0, which embeds), its output posted to stage s + 1.
+        Every data rank of a pod runs the whole batch: it receives from
+        the previous pod's rank of its data index and sends to the next
+        one's, the crossing sealed under ``key`` and ``ctr``
+        (``crossing_counters``, on the device). Returns (the last stage's
+        f32 logits [logits_rows, V] on every rank, the segment's
+        ``extra``). A rank that sends a crossing keeps its host ms (from
+        the sealed payload ready on the device to the send complete:
+        staging and transport) and bytes in ``last_crossing``."""
+        api, S, s = self.api, self.num_stages, self.stage
+        d, V = api.cfg.d_model, api.cfg.vocab_size
+        dev = api.device
+        got = None
         if s > 0:
-            rows = math.prod(shape)
-            like = torch.empty((rows, d), device=dev, dtype=(
+            like = torch.empty((math.prod(shape), d), device=dev, dtype=(
                 int_dtype_of(api.dtype) if self.seal_boundary
                 else api.dtype))
             got = RK.recv(self.staging, [like], self._pod_ranks[s - 1],
                           self._pod_group, tag="hidden_in").wait()[0]
-            if self.seal_boundary:
-                got = K.unseal_bits(got, key, ctr(s - 1),
-                                    out_dtype=api.dtype)
-            x = got.reshape(*shape, d)
-        out = run(x)
+        out, extra = segment(tuple(shape), got, key, ctr, *inputs)
         if s < S - 1:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            self._sync()
             t0, sent0 = time.perf_counter(), self.staging.sent
-            h = out.reshape(-1, d)
-            payload = K.seal_bits(h, key, ctr(s)) if self.seal_boundary \
-                else h
-            RK.send(self.staging, [payload], self._pod_ranks[s + 1],
+            RK.send(self.staging, [out], self._pod_ranks[s + 1],
                     self._pod_group, tag="hidden_out").wait()
             self.last_crossing = ((time.perf_counter() - t0) * 1e3,
                                   self.staging.sent - sent0)
@@ -451,7 +509,11 @@ class PipelinedDecoder:
                               device=dev)
         RK.broadcast(self.staging, out, self._pod_ranks[-1], self._pod_group,
                      tag="prefill_logits")
-        return out
+        return out, extra
+
+    def _sync(self) -> None:
+        if self.api.device.type == "cuda":
+            torch.cuda.synchronize(self.api.device)
 
     # -- one stage on one microbatch (the tick body and the probe) ----------
     def _pos3(self, pos: torch.Tensor, rows: int):
@@ -520,10 +582,12 @@ class PipelinedDecoder:
         ``(body, len, start)`` with ``start`` the per-slot [B] first valid
         positions (``per_slot_start``, the engine's continuous-batching
         mask), or ``(body, len)`` without it; ``len`` advances by one."""
+        if self.mesh is not None:
+            return self._rank_build(paged, per_slot_start)
         if not paged:
             return self._build_timeline(per_slot_start)
         stage_run = self._stage_run
-        ticks = self._ticks() if self.mesh is None else self._rank_ticks()
+        ticks = self._ticks()
 
         def step_fn(params, cache, batch, key):
             bt, sl = cache["block_tables"], cache["seq_lens"]
@@ -531,8 +595,6 @@ class PipelinedDecoder:
             logits = ticks(params, batch["tokens"], key,
                            lambda s, x, rows: stage_run(
                                params, pools, s, x, bt[rows], sl[rows]))
-            if self._exchanges(batch):
-                self._exchange_paged(pools, bt, sl, batch)
             sl.copy_(torch.where(sl > 0, sl + 1, sl))
             return logits, cache
 
@@ -544,7 +606,7 @@ class PipelinedDecoder:
         position ``len``; stage s runs its layer range on them and seals
         its boundary as on the paged layout."""
         stage_run = self._timeline_stage_run
-        ticks = self._ticks() if self.mesh is None else self._rank_ticks()
+        ticks = self._ticks()
 
         def step_fn(params, cache, batch, key):
             if per_slot_start:
@@ -557,8 +619,6 @@ class PipelinedDecoder:
                 return stage_run(params, body, s, x, cache_len, st, rows)
 
             logits = ticks(params, batch["tokens"], key, run)
-            if self._exchanges(batch):
-                self._exchange_timeline(body, cache_len, batch)
             cache_len.add_(1)
             return logits, cache
 
@@ -626,177 +686,308 @@ class PipelinedDecoder:
 
         return ticks
 
-    def _rank_ticks(self) -> Callable:
-        """``_ticks`` on a rank: this rank's stage over the microbatches in
-        order, its rows of each (``data`` ranks split them where they
-        divide, ``splits``), inputs received from the previous stage's rank
-        of this data index and outputs posted to the next one's, each
-        sealed under leaf ``s * data + d`` (``boundary_counters``); then
-        the last stage's logits to every rank."""
+    # -- the step on a rank: device segments between messages ----------------
+    def _rank_build(self, paged: bool, per_slot_start: bool) -> Callable:
+        """``build`` on a rank: ``rank_segments`` run eagerly by
+        ``rank_loop``. A step whose data ranks split the rows needs
+        ``batch["exchange"] = (key, n)``: the page-cipher key and the
+        step's exchange number, to seal the KV entries exchanged after
+        it."""
+        segs = self.rank_segments(paged, per_slot_start)
+
+        def step_fn(params, cache, batch, key):
+            tokens = batch["tokens"]
+            exchange = None
+            if self.exchanges(tokens.shape[0]):
+                if "exchange" not in batch:
+                    raise ValueError(
+                        "PipelinedDecoder(mesh=) over data ranks: the step's "
+                        "batch needs 'exchange': (key, n), the page-cipher "
+                        "key and the step's exchange number, to seal the KV "
+                        "entries the data ranks of a pod exchange after it")
+                ekey, n = batch["exchange"]
+                exchange = (ekey, torch.tensor(self.exchange_counters(n),
+                                               dtype=torch.int64,
+                                               device=tokens.device))
+            bound = {name: (lambda *a, f=f: f(params, cache, *a))
+                     for name, f in segs.items()}
+            return self.rank_loop(bound, tokens, key, exchange), cache
+
+        return step_fn
+
+    def rank_segments(self, paged: bool = True, per_slot_start: bool = True
+                      ) -> Dict[str, Callable]:
+        """This rank's decode step as segments that touch the device only,
+        each ``f(params, cache, *args)`` over the paged cache dict or the
+        timeline's staged tuple ``(body, len[, start])``:
+
+        * ``tick(m, B, tokens, got, key)``: microbatch m of a step of B
+          rows on this stage (this rank's block of its rows, ``splits``):
+          stage 0 embeds ``tokens`` [B, 1], a later stage opens ``got``
+          (the cipher and scales received, or the raw hidden state) under
+          ``key`` and the counter of tick ``m + s`` at leaf ``(s - 1) *
+          data + d``; then the stage's layers, and the head on the last
+          stage ([b, V] f32 logits), else the hidden state sealed under
+          the counter of tick ``m + s + 1`` at leaf ``s * data + d``
+          (``boundary_counters``) or raw;
+        * ``take(B, key, ctr)``: the KV entries this data rank wrote in
+          the step (``rank_loop``), packed into one float [n, cols] and
+          sealed under ``key`` and ``ctr[d]`` (raw with ``seal_boundary``
+          off);
+        * ``tail(B, key, ctr, got)``: each peer's entries ``got`` (in data
+          order, without this rank's) opened under its ``ctr[i]`` and
+          written, then ``seq_lens`` (paged) or ``len`` advanced; with no
+          exchange ``key`` and ``ctr`` are None and ``got`` empty."""
         api, model = self.api, self.api.model
         S, nm, s = self.num_stages, self.num_microbatches, self.stage
         D, d = self.num_data, self.data
         seal_on = self.seal_boundary
         ctrs = self.boundary_counters(d, D) if seal_on else None
+        dm = api.cfg.d_model
+        run, take_rows, put_rows, advance = (
+            self._paged_parts() if paged
+            else self._timeline_parts(per_slot_start))
+
+        def tick(params, cache, m, B, tokens, got, key):
+            b, lo = self._block(B)
+            B_mb, t = B // nm, m + s               # t: the reference's tick
+            rows = slice(m * B_mb + lo, m * B_mb + lo + b)
+            if s == 0:
+                x = model.embed(params, tokens[rows])
+            elif seal_on:
+                x = K.unseal(got[0], got[1], key, ctrs[s - 1, t:t + 1],
+                             out_dtype=api.dtype).reshape(b, 1, dm)
+            else:
+                x = got[0]
+            h = run(params, cache, s, x, rows)
+            if s == S - 1:
+                return model.head(params, h)
+            if seal_on:
+                return K.seal(h.reshape(-1, dm), key, ctrs[s, t + 1:t + 2])
+            return (h,)
+
+        def take(params, cache, B, key, ctr):
+            mine = _pack_rows(take_rows(cache, self._rows_of(d, B)))
+            return K.seal_bits(mine, key, ctr[d:d + 1]) if seal_on else mine
+
+        def tail(params, cache, B, key, ctr, got):
+            peers = [i for i in range(D) if i != d]
+            for i, c in zip(peers, got):
+                rows = self._rows_of(i, B)
+                likes = take_rows(cache, rows)
+                if seal_on:
+                    c = K.unseal_bits(c, key, ctr[i:i + 1],
+                                      out_dtype=_packed_dtype(likes))
+                put_rows(cache, rows, _unpack_rows(c, likes))
+            advance(cache)
+
+        return {"tick": tick, "take": take, "tail": tail}
+
+    def _paged_parts(self):
+        """(run, take, put, advance) of ``rank_segments`` over the paged
+        cache: each row's K and V at the (page, offset) its decode writes
+        (``layers.paged_write_targets`` at the step's seq_lens; a dropped
+        row reads and writes the null page's zeros), over this stage's
+        layers."""
+        seg = self.api.model.served_segment.name
+
+        def run(params, cache, s, x, rows):
+            return self._stage_run(params, cache[seg], s, x,
+                                   cache["block_tables"][rows],
+                                   cache["seq_lens"][rows])
+
+        def targets(cache, rows):
+            return paged_write_targets(cache["block_tables"][rows],
+                                       cache["seq_lens"][rows],
+                                       cache[seg][0].shape[3])[:2]
+
+        def take(cache, rows):
+            page, off = targets(cache, rows)
+            return [pool[:, page, :, off] for pool in cache[seg]]
+
+        def put(cache, rows, parts):
+            page, off = targets(cache, rows)
+            for pool, g in zip(cache[seg], parts):
+                pool[:, page, :, off] = g
+
+        def advance(cache):
+            sl = cache["seq_lens"]
+            sl.copy_(torch.where(sl > 0, sl + 1, sl))
+
+        return run, take, put, advance
+
+    def _timeline_parts(self, per_slot_start: bool):
+        """(run, take, put, advance) of ``rank_segments`` over the timeline
+        body: each leaf with a batch axis, at the slot the step wrote on a
+        leaf with a KV time axis (``decode_slot``, a device index: no host
+        read), whole rows of a recurrent state; a leaf without a batch
+        axis (the int8 cache's scales) is written by prefill only and
+        stays."""
+        segment = self.api.model.served_segment
+        axes = axes_leaves(self.api.model.init_cache_axes()[segment.name])
+
+        def parts(cache):
+            body, cache_len = cache[0], cache[1]
+            flat = leaves(body)
+            assert len(axes) == len(flat), (len(axes), len(flat))
+            slot = segment.block.decode_slot(cache_len, body)
+            return [(t, ax.index("act_kv_batch"),
+                     ax.index("act_kv_seq") if "act_kv_seq" in ax else None,
+                     slot) for t, ax in zip(flat, axes)
+                    if "act_kv_batch" in ax]
+
+        def run(params, cache, s, x, rows):
+            start = cache[2][rows] if per_slot_start else None
+            return self._timeline_stage_run(params, cache[0], s, x, cache[1],
+                                            start, rows)
+
+        def take(cache, rows):
+            out = []
+            for t, bd, sd, slot in parts(cache):
+                if sd is not None:
+                    t = t.index_select(sd, slot)
+                out.append(t.index_select(bd, rows).movedim(bd, 0))
+            return out
+
+        def put(cache, rows, got):
+            for (t, bd, sd, slot), g in zip(parts(cache), got):
+                if sd is None:
+                    t.index_copy_(bd, rows, g.movedim(0, bd))
+                    continue
+                at = t.index_select(sd, slot)
+                at.index_copy_(bd, rows, g.movedim(0, bd))
+                t.index_copy_(sd, slot, at)
+
+        def advance(cache):
+            cache[1].add_(1)
+
+        return run, take, put, advance
+
+    def exchanges(self, B: int) -> bool:
+        """Whether a step of ``B`` rows ends with a KV exchange between the
+        data ranks of a pod: they split its microbatches."""
+        return self.mesh is not None and self.splits(
+            B // self.num_microbatches)
+
+    def exchange_counters(self, n: int) -> List[int]:
+        """The page-cipher counters of the n-th KV exchange of this stage's
+        data ranks, one a data rank: data rank i seals its entries under
+        the exchange sequence number ``(n * pods + s) * data + i``
+        (``sealing.exchange_seq``)."""
+        first = (n * self.num_stages + self.stage) * self.num_data
+        return [sealing._swap_counter(sealing.exchange_seq(first + i), 0)
+                for i in range(self.num_data)]
+
+    def rank_loop(self, segs: Dict[str, Callable], tokens: torch.Tensor,
+                  key, exchange=None) -> torch.Tensor:
+        """One decode step of this rank: ``segs`` (``rank_segments``'
+        segments, called with their per-call arguments) in tick order,
+        with the messages between them posted here: stage s takes its
+        microbatches in order, receives each from the previous stage's
+        rank of its data index and posts its output to the next one's;
+        then the last stage's logits reach every rank (a broadcast over
+        ``pod``, then a gather over ``data``), and, where the data ranks
+        split the rows, the KV exchange (``exchange``: the page-cipher key
+        and the ``exchange_counters``, device tensors) runs between
+        ``take`` and ``tail``: after the step the data ranks of a pod hold
+        one cache (the reference's replicated pools). Returns the f32
+        logits [B, V]. Keeps the host ms spent in segments (each between
+        two device synchronises) and in messages in ``last_split``, and
+        the exchange's (host ms, bytes sent) in ``last_exchange``."""
+        api = self.api
+        S, nm, s = self.num_stages, self.num_microbatches, self.stage
+        V, dm = api.cfg.vocab_size, api.cfg.d_model
+        B = tokens.shape[0]                                # tokens [B, 1]
+        assert B % nm == 0, (B, nm)
+        b, _ = self._block(B)
+        dev = tokens.device
+        clock = _Clock(dev)
+        staging, pod_g = self.staging, self._pod_group
         prev = self._pod_ranks[s - 1] if s > 0 else None
         nxt = self._pod_ranks[s + 1] if s < S - 1 else None
-        staging, pod_g = self.staging, self._pod_group
-        dm, V = api.cfg.d_model, api.cfg.vocab_size
-
-        def ticks(params, tokens, key, run):
-            B = tokens.shape[0]                            # tokens [B, 1]
-            assert B % nm == 0, (B, nm)
-            B_mb = B // nm
-            split = self.splits(B_mb)
-            b, lo = (B_mb // D, d * (B_mb // D)) if split else (B_mb, 0)
-            dev = tokens.device
-            if seal_on:
-                likes = (torch.empty((b, dm), dtype=torch.uint8, device=dev),
-                         torch.empty((b, 1), dtype=torch.float32,
-                                     device=dev))
+        if self.seal_boundary:
+            likes = (torch.empty((b, dm), dtype=torch.uint8, device=dev),
+                     torch.empty((b, 1), dtype=torch.float32, device=dev))
+        else:
+            likes = (torch.empty((b, 1, dm), dtype=api.dtype, device=dev),)
+        logits = torch.empty((nm, b, V), dtype=torch.float32, device=dev)
+        posted = []
+        for m in range(nm):
+            got = None
+            if prev is not None:
+                got = tuple(clock.message(lambda: RK.recv(
+                    staging, likes, prev, pod_g, tag="in").wait()))
+            out = clock.segment(segs["tick"], m, B,
+                                tokens if s == 0 else None, got, key)
+            if nxt is None:
+                logits[m].copy_(out)
             else:
-                likes = (torch.empty((b, 1, dm), dtype=api.dtype,
-                                     device=dev),)
-            logits = torch.empty((nm, b, V), dtype=torch.float32,
-                                 device=dev)
-            posted = []
-            for m in range(nm):
-                t = m + s                          # the reference's tick
-                rows = slice(m * B_mb + lo, m * B_mb + lo + b)
-                if s == 0:
-                    x = model.embed(params, tokens[rows])
-                else:
-                    got = RK.recv(staging, likes, prev, pod_g,
-                                  tag="in").wait()
-                    x = K.unseal(got[0], got[1], key, ctrs[s - 1, t:t + 1],
-                                 out_dtype=api.dtype).reshape(b, 1, dm) \
-                        if seal_on else got[0]
-                h = run(s, x, rows)
-                if nxt is None:
-                    logits[m] = model.head(params, h)
-                else:
-                    payload = K.seal(h.reshape(-1, dm), key,
-                                     ctrs[s, t + 1:t + 2]) if seal_on \
-                        else (h,)
-                    posted.append(RK.send(staging, payload, nxt, pod_g,
-                                          tag=("out", m)))
-            for p in posted:
-                p.wait()
-            RK.broadcast(staging, logits, self._pod_ranks[-1], pod_g,
-                         tag="logits")
-            if not split:
-                return logits.reshape(B, V)
-            every = RK.all_gather(staging, logits, self._data_group,
-                                  tag="logits")
+                posted.append(clock.message(lambda: RK.send(
+                    staging, out, nxt, pod_g, tag=("out", m))))
+        clock.message(lambda: [p.wait() for p in posted])
+        clock.message(lambda: RK.broadcast(staging, logits,
+                                           self._pod_ranks[-1], pod_g,
+                                           tag="logits"))
+        if self.splits(B // nm):
+            every = clock.message(lambda: RK.all_gather(
+                staging, logits, self._data_group, tag="logits"))
             # every: [D, nm, b, V]; row m * B_mb + d * b + j is [d, m, j]
-            return every.transpose(0, 1).reshape(B, V)
+            logits = every.transpose(0, 1).reshape(B, V)
+        else:
+            logits = logits.reshape(B, V)
+        if exchange is None:
+            clock.segment(segs["tail"], B, None, None, ())
+        else:
+            self._exchange(segs, B, exchange, clock)
+        self.last_split = (clock.segment_ms, clock.message_ms)
+        return logits
 
-        return ticks
-
-    # -- the data ranks of a pod keep one cache -------------------------------
-    def _exchanges(self, batch) -> bool:
-        """Whether this step ends with a KV exchange between the data ranks
-        of a pod (they split its microbatches); such a step needs the
-        exchange's ``(key, n)`` in ``batch["exchange"]``."""
-        if self.mesh is None or not self.splits(
-                batch["tokens"].shape[0] // self.num_microbatches):
-            return False
-        if "exchange" not in batch:
-            raise ValueError(
-                "PipelinedDecoder(mesh=) over data ranks: the step's batch "
-                "needs 'exchange': (key, n), the page-cipher key and the "
-                "step's exchange number, to seal the KV entries the data "
-                "ranks of a pod exchange after it")
-        return True
-
-    def _exchange(self, take, put, B: int, batch) -> None:
-        """The KV entries each data rank of this pod wrote this step reach
-        the others: ``take(rows)`` gives this stage's entries of batch rows
-        ``rows`` (tensors [n, ...]), ``put(rows, parts)`` writes another
-        rank's into this rank's cache. Each rank's entries go as cipher
-        text under the page cipher, ``key`` and the exchange sequence
-        number ``(n * pods + s) * data + d`` of stage s's data rank d
-        (``sealing.exchange_seq``), raw with
-        ``seal_boundary`` off, so after the step the data ranks of a pod
-        hold one cache, bit for bit (the reference's replicated pools).
-        Keeps (host ms, bytes sent) in ``last_exchange``."""
-        key, n = batch["exchange"]
-        D, d, dev = self.num_data, self.data, self.api.device
-        first = (n * self.num_stages + self.stage) * D
-
-        def ctr(i: int):
-            return sealing._swap_counter(sealing.exchange_seq(first + i), 0)
-
+    def _exchange(self, segs, B: int, exchange, clock: "_Clock") -> None:
+        """The KV exchange of ``rank_loop``: ``take`` seals this rank's
+        entries, every peer of the pod's data ranks gets them and ``tail``
+        writes theirs. Keeps (host ms, bytes sent) in ``last_exchange``."""
+        key, ctr = exchange
+        D, d = self.num_data, self.data
         staging = self.exchange_staging
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        self._sync()
         t0, sent0 = time.perf_counter(), staging.sent
-        parts = take(self._rows_of(d, B))
-        mine = _pack_rows(parts)
-        payload = K.seal_bits(mine, key, ctr(d)) if self.seal_boundary \
-            else mine
+        payload = clock.segment(segs["take"], B, key, ctr)
         peers = [i for i in range(D) if i != d]
-        got = RK.transfer(
+        got = clock.message(lambda: RK.transfer(
             staging, [(self._data_ranks[i], [payload]) for i in peers],
             [(self._data_ranks[i], [torch.empty_like(payload)])
-             for i in peers], self._data_group, tag="exchange")
-        for i, (c,) in zip(peers, got):
-            rows = K.unseal_bits(c, key, ctr(i), out_dtype=mine.dtype) \
-                if self.seal_boundary else c
-            put(self._rows_of(i, B), _unpack_rows(rows, parts))
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+             for i in peers], self._data_group, tag="exchange"))
+        clock.segment(segs["tail"], B, key, ctr, tuple(c for (c,) in got))
+        self._sync()
         self.last_exchange = ((time.perf_counter() - t0) * 1e3,
                               staging.sent - sent0)
 
-    def _exchange_paged(self, pools, bt: torch.Tensor, sl: torch.Tensor,
-                        batch) -> None:
-        """``_exchange`` over the pools: each row's K and V at the (page,
-        offset) its decode wrote (``layers.paged_write_targets`` at the
-        step's seq_lens; a dropped row reads and writes the null page's
-        zeros), over this stage's layers."""
-        Pg = pools[0].shape[3]
 
-        def take(rows):
-            page, off, _ = paged_write_targets(bt[rows], sl[rows], Pg)
-            return [pool[:, page, :, off] for pool in pools]
+class _Clock:
+    """Host ms a rank step spends in its device segments (each timed
+    between two synchronises of the device, so a segment's time is its
+    launches or replay and its device work) and in its messages."""
 
-        def put(rows, parts):
-            page, off, _ = paged_write_targets(bt[rows], sl[rows], Pg)
-            for pool, g in zip(pools, parts):
-                pool[:, page, :, off] = g
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+        self.dev = dev
+        self.segment_ms = self.message_ms = 0.0
 
-        self._exchange(take, put, bt.shape[0], batch)
+    def segment(self, f: Callable, *args):
+        if self.cuda:
+            torch.cuda.synchronize(self.dev)
+        t0 = time.perf_counter()
+        out = f(*args)
+        if self.cuda:
+            torch.cuda.synchronize(self.dev)
+        self.segment_ms += (time.perf_counter() - t0) * 1e3
+        return out
 
-    def _exchange_timeline(self, body, cache_len: torch.Tensor,
-                           batch) -> None:
-        """``_exchange`` over the timeline body: each leaf with a batch
-        axis, at the slot the step wrote on a leaf with a KV time axis
-        (``decode_slot``), whole rows of a recurrent state; a leaf without
-        a batch axis (the int8 cache's scales) is written by prefill only
-        and stays."""
-        seg = self.api.model.served_segment
-        axes = axes_leaves(self.api.model.init_cache_axes()[seg.name])
-        flat = leaves(body)
-        assert len(axes) == len(flat), (len(axes), len(flat))
-        slot = seg.block.decode_slot(cache_len, body)
-        views = []
-        for t, ax in zip(flat, axes):
-            if "act_kv_batch" not in ax:
-                continue
-            if "act_kv_seq" in ax:
-                t = t.narrow(ax.index("act_kv_seq"), int(slot), 1)
-            views.append((t, ax.index("act_kv_batch")))
-
-        def take(rows):
-            return [t.index_select(bd, rows).movedim(bd, 0)
-                    for t, bd in views]
-
-        def put(rows, parts):
-            for (t, bd), g in zip(views, parts):
-                t.index_copy_(bd, rows, g.movedim(0, bd))
-
-        self._exchange(take, put, batch["tokens"].shape[0], batch)
+    def message(self, post: Callable):
+        t0 = time.perf_counter()
+        out = post()
+        self.message_ms += (time.perf_counter() - t0) * 1e3
+        return out
 
 
 def axes_leaves(axes) -> List[tuple]:
@@ -808,6 +999,15 @@ def axes_leaves(axes) -> List[tuple]:
     if isinstance(axes, dict):
         return [x for k in sorted(axes) for x in axes_leaves(axes[k])]
     return [x for a in axes for x in axes_leaves(a)]
+
+
+def _packed_dtype(parts: Sequence[torch.Tensor]) -> torch.dtype:
+    """The float type ``_pack_rows`` packs ``parts`` in."""
+    dt = parts[0].dtype
+    if dt in (torch.float32, torch.bfloat16) and all(p.dtype == dt
+                                                     for p in parts):
+        return dt
+    return torch.bfloat16
 
 
 def _pack_rows(parts: Sequence[torch.Tensor]) -> torch.Tensor:

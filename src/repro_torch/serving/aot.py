@@ -34,13 +34,22 @@ from the host. This module is the machinery behind
   ``ops.LAUNCHES`` counts on the host, so a replay would not move it: each
   graph keeps the launches its capture counted (and takes them back out
   of the counts, since a capture launches nothing) and adds them on every
-  replay.
+  replay. So that a host ledger of what was sealed sees replays too, code
+  running under a capture may ``note`` tensors its graph fills at every
+  replay (``capture_notes``), and ``REPLAY_HOOKS`` see each graph after
+  its replay; a warm's repeated eager runs (the same call on the same
+  inputs) are marked by ``repeat_run``.
 * ``AotRegistry`` -- one engine's functions, its capture stream and graph
   memory pool, the stall ledger and the freeze point. ``post_freeze_compiles``
   counts the graph captures made after ``freeze()``.
 
 There is no ``CompileMonitor``: PyTorch compiles nothing here (the
 reference's monitor is a no-op on jax 0.9.0 anyway).
+
+A managed function touches the device only: a message posted or waited
+on inside one raises, naming it (``launch.ranks.no_messages``), on the
+CPU as on the card. An engine whose stages are ranks manages the device
+segments between its messages, and posts the messages itself.
 
 A graph's outputs are static: the next replay of the same graph writes
 them again, and since every graph of a registry shares one memory pool, so
@@ -53,14 +62,34 @@ updated in place, never reallocated.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.launch.ranks import no_messages
 
 #: eager runs on the capture stream before ``warm()`` captures
 WARM_RUNS = 3
+
+#: ``hook(graph)`` after every replay of a captured graph (``_Graph``)
+REPLAY_HOOKS: List[Callable] = []
+# the notes of the capture in progress; a warm's run after its first
+_capture_notes: Optional[list] = None
+_repeat = False
+
+
+def capture_notes() -> Optional[list]:
+    """The note list of the graph being captured (what is appended stays
+    with the graph, ``_Graph.notes``), or None outside a capture."""
+    return _capture_notes
+
+
+def repeat_run() -> bool:
+    """Whether a warm's second or later eager run is running: it repeats
+    the first on the same inputs."""
+    return _repeat
 
 
 def _sig_of(args) -> Tuple:
@@ -124,6 +153,7 @@ class _Graph:
     inputs: List[torch.Tensor]
     outputs: Any
     launches: Dict[str, int]
+    notes: list = dataclasses.field(default_factory=list)
 
     def replay(self, args) -> Any:
         for buf, x in zip(self.inputs, (a for a in _leaves(args)
@@ -132,6 +162,8 @@ class _Graph:
         self.graph.replay()
         for k, n in self.launches.items():
             ops.LAUNCHES[k] += n
+        for hook in REPLAY_HOOKS:
+            hook(self)
         return self.outputs
 
 
@@ -172,38 +204,57 @@ class GraphFn:
         sig = _sig_of(args)
         if sig in self.entries:
             entry = self.entries[sig]
-            return self.fn(*args) if entry is None else entry.replay(args)
+            return self._run(*args) if entry is None else entry.replay(args)
         self.registry.record_stall(self, sig)
         if not self._captures(args):
             self.entries[sig] = None
-            return self.fn(*args)
+            return self._run(*args)
         self.entries[sig], out = self._capture(args, 1)
         return out
+
+    def _run(self, *args):
+        with no_messages(self.name):
+            return self.fn(*args)
 
     def _capture(self, args, runs: int):
         """Run ``fn`` eagerly ``runs`` times on the capture stream (the
         last run's outputs are returned), then capture one call into a
         graph over static copies of ``args``."""
+        global _capture_notes, _repeat
         reg = self.registry
         stream, pool = reg.capture_resources()
         static = _map_tensors(lambda t: t.clone(), args)
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
-            for _ in range(runs):
-                out = self.fn(*static)
+            try:
+                for i in range(runs):
+                    _repeat = i > 0
+                    out = self._run(*static)
+            finally:
+                _repeat = False
         torch.cuda.current_stream().wait_stream(stream)
         before = dict(ops.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
+        notes: list = []
+        # no cyclic garbage collection inside the capture: it could destroy
+        # a dead engine's graphs, and a graph reset while a stream captures
+        # invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
         try:
+            _capture_notes = notes
             with torch.cuda.graph(graph, pool=pool, stream=stream):
-                outputs = self.fn(*static)
+                outputs = self._run(*static)
         finally:
+            if collecting:
+                gc.enable()
+            _capture_notes = None
             launched = {k: ops.LAUNCHES[k] - n for k, n in before.items()}
             ops.LAUNCHES.update(before)     # a capture launches nothing
         reg.captures += 1
         inputs = [t for t in _leaves(static) if isinstance(t, torch.Tensor)]
         entry = _Graph(graph, inputs, outputs,
-                       {k: n for k, n in launched.items() if n})
+                       {k: n for k, n in launched.items() if n}, notes)
         return entry, out
 
 
@@ -249,6 +300,12 @@ class AotRegistry:
     @property
     def graphs(self) -> int:
         return sum(f.graphs for f in self.fns.values())
+
+    def drop_graphs(self) -> None:
+        """Forget every signature (a rank engine whose state moved to new
+        memory): each is entered again at its next call, as a stall."""
+        for f in self.fns.values():
+            f.entries.clear()
 
     @property
     def post_freeze_compiles(self) -> Optional[int]:

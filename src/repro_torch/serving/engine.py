@@ -55,7 +55,11 @@ graphs' static buffers: the seal and cipher kernels read their key and
 counter from device memory, so a replayed step seals under the key copied
 in for it. What stays eager: page-table maintenance (``insert_slot``,
 ``commit_slot``, ``clear_slot``, ``set_table_entry``, ``copy_page``), a
-few small launches per admission or fork.
+few small launches per admission or fork. On a rank engine
+(``serving/ranked.py``) every rank runs the warmup passes in lockstep and
+manages the device work between its messages instead of whole calls;
+there the prefills are a stage layout's own, so the tour warms them for
+each layout too.
 
 ``disagg_role`` is the reference's disaggregated prefill/decode
 (``serving/disagg.py`` drives a pair): a ``"prefill"`` engine prefills,
@@ -937,12 +941,15 @@ class ServingEngine:
         self._key = 0xC0FFEE
         pipelined = backend == "pipelined"
         if mesh is not None:
+            # a rank's slabs hold the most layers its stage takes over the
+            # planned layout and the warmup's tour
+            layouts = [self.stage_blocks] + self._swap_targets()
             self.backend = ranked.RankPagedBackend(
                 api, self.params, cfg, num_pages, self.pages_per_slot,
-                self.stage_blocks, self.aot, mesh, self._key) if paged \
-                else ranked.RankTimelineBackend(
+                self.stage_blocks, self.aot, mesh, self._key, layouts) \
+                if paged else ranked.RankTimelineBackend(
                     api, self.params, cfg, self.stage_blocks, self.aot,
-                    mesh, self._key)
+                    mesh, self._key, layouts)
         elif paged:
             backend_cls = PagedPipelinedBackend if pipelined \
                 else PagedLocalBackend
@@ -954,19 +961,28 @@ class ServingEngine:
                 else LocalDecodeBackend
             self.backend = backend_cls(api, self.params, cfg,
                                        self.stage_blocks, aot=self.aot)
-        self._prefill_at = self.aot.wrap("prefill_at", self._prefill_at_fn)
         # packed prefill: the paged layout's batched prefill only
         self._packing = (cfg.prefill_pack > 1 and paged
                          and cfg.batched_prefill)
-        self._prefill_at_packed = self.aot.wrap("prefill_packed",
-                                                self._prefill_packed_fn)
         # per-token prefill (the timeline; batched_prefill=False): one
-        # [1, 1] decode step a token over a static private cache per width,
-        # reset in place at every admission (``_token_cache``)
-        self._token_caches: Dict[int, Dict[str, Any]] = {}
-        if not (paged and cfg.batched_prefill):
-            self._prefill_token = self.aot.wrap("prefill_token",
-                                                self._prefill_token_fn)
+        # [1, 1] decode step a token over a static private cache per width
+        # (on a rank engine, per stage layout too), reset in place at every
+        # admission (``_token_cache``)
+        self._token_caches: Dict[Any, Dict[str, Any]] = {}
+        if mesh is not None:
+            # a rank's prefill entry points: its layers between messages
+            self._token_caches = self.backend.token_caches
+            self._prefill_at = self.backend.entry("prefill_at")
+            self._prefill_at_packed = self.backend.entry("prefill_packed")
+            self._prefill_token = self.backend.entry("prefill_token")
+        else:
+            self._prefill_at = self.aot.wrap("prefill_at",
+                                             self._prefill_at_fn)
+            self._prefill_at_packed = self.aot.wrap("prefill_packed",
+                                                    self._prefill_packed_fn)
+            if not (paged and cfg.batched_prefill):
+                self._prefill_token = self.aot.wrap("prefill_token",
+                                                    self._prefill_token_fn)
         self.backend_kind = backend
         self.scheduler = SlotScheduler(cfg.num_slots,
                                        finished_cap=cfg.finished_cap)
@@ -1288,9 +1304,6 @@ class ServingEngine:
         (k, v) [L, 1, KVH, S_pad, D]), static outputs under a graph that
         the caller consumes (insert, sample) before its next managed
         call."""
-        if self.mesh is not None:
-            return self.backend.prefill(self.api.prefill_at_fn, toks,
-                                        {"prompt_len": plen})
         logits, caches = self.api.prefill_at_fn(
             self.params, {"tokens": toks, "prompt_len": plen})
         return logits, caches[self.api.model.served_segment.name]
@@ -1298,9 +1311,6 @@ class ServingEngine:
     def _prefill_packed_fn(self, toks: torch.Tensor, plens: torch.Tensor):
         """Packed prefill, graph-managed per bucket at width K (see
         ``_prefill_at_fn``)."""
-        if self.mesh is not None:
-            return self.backend.prefill(self.api.prefill_packed_fn, toks,
-                                        {"prompt_lens": plens})
         logits, caches = self.api.prefill_packed_fn(
             self.params, {"tokens": toks, "prompt_lens": plens})
         return logits, caches[self.api.model.served_segment.name]
@@ -1327,7 +1337,8 @@ class ServingEngine:
         S, made once and reset in place: zeros (the int8 cache's scales
         too, as the reference's ``init_cache`` makes them), ``len`` =
         ``start`` (0 without one) and, on the timeline, ``start``."""
-        cache = self._token_caches.get(S)
+        key = S if self.mesh is None else (self.backend.stage_blocks, S)
+        cache = self._token_caches.get(key)
         if cache is None:
             cache = self.api.init_cache(1, S)
             if self.mesh is not None:
@@ -1336,7 +1347,7 @@ class ServingEngine:
             if self.kv_layout != "paged":
                 cache["start"] = torch.zeros(1, dtype=torch.int32,
                                              device=self.device)
-            self._token_caches[S] = cache
+            self._token_caches[key] = cache
         for t in leaves(cache[self.api.model.served_segment.name]):
             t.zero_()
         cache["len"].fill_(start or 0)
@@ -1348,8 +1359,6 @@ class ServingEngine:
         """One [1, 1] decode step on the private cache of width ``S`` (a
         host int: one graph per width), graph-managed: logits [1, V], a
         static output under a graph."""
-        if self.mesh is not None:
-            return self.backend.prefill_token(tok, self._token_caches[S])
         return self.api.decode_fn(self.params, self._token_caches[S],
                                   {"tokens": tok})[0]
 
@@ -2216,9 +2225,6 @@ class ServingEngine:
             self._emit("swap_skipped", {"blocks": blocks})
             return False
         migrated = self.backend.swap(blocks)
-        if self.mesh is not None:
-            # the private prefill caches hold the old layout's layers
-            self._token_caches.clear()
         self._emit("swap", {"from": self.stage_blocks, "to": blocks,
                             "migrated": migrated and
                             self.backend.migrates_cache})
@@ -2346,19 +2352,38 @@ class ServingEngine:
 
     def _warm_direct(self) -> None:
         """State-neutral warm of every managed entry point the traffic may
-        have missed: one-shot and packed prefill (pure functions) at every
-        bucket, the chunk at every offset below request_capacity against
-        the null page, the swap I/O, a decode tick on idle slots and the
-        stage probes; per-token prefill at every bucket on its private
-        cache. Runs after the traffic drained, so every slot is clear. On
-        the timeline a decode tick advances the shared position, so it runs
-        only if the traffic took none (the warmup reset follows)."""
-        dev = self.device
+        have missed: the prefills (``_warm_prefills``), the swap I/O, a
+        decode tick on idle slots and the stage probes. Runs after the
+        traffic drained, so every slot is clear. On the timeline a decode
+        tick advances the shared position, so it runs only if the traffic
+        took none (the warmup reset follows)."""
         if self.kv_layout != "paged":
             if self.steps == 0:
                 self._warm_step_neutral()
             self._warm_sampler()
             self.backend.stage_times()
+            return
+        self._warm_prefills()
+        self._warm_swap_io()
+        self._warm_step_neutral()
+        self._warm_sampler()
+        self.backend.stage_times()
+
+    def _warm_prefills(self) -> None:
+        """One-shot and packed prefill (pure functions) at every bucket, the
+        chunk at every offset below request_capacity against the null
+        page, per-token prefill at every bucket on its private cache. On a
+        rank engine each is this stage layout's own (its layers), and the
+        timeline's per-token prefill and slot insert are warmed here too:
+        on one card the traffic's admission covers them for every
+        layout."""
+        dev = self.device
+        if self.kv_layout != "paged":
+            if self.mesh is not None:
+                S = self.config.max_seq
+                cache = self._token_cache(S, self.global_len - 1)
+                self._prefill_token.warm(to_device(np.zeros((1, 1)), dev), S)
+                self.backend.warm_insert(cache)
             return
         for b in self._bucket_inventory():
             if self.config.batched_prefill:
@@ -2376,10 +2401,6 @@ class ServingEngine:
         if C > 0:
             for offset in range(0, self.request_capacity, C):
                 self.backend.warm_chunk(offset)
-        self._warm_swap_io()
-        self._warm_step_neutral()
-        self._warm_sampler()
-        self.backend.stage_times()
 
     def _warm_sampler(self) -> None:
         """A sampled engine samples one row at admission and ``num_slots``
@@ -2462,9 +2483,11 @@ class ServingEngine:
     def _warm_layouts(self) -> None:
         """Tour the other stage layouts: each ``try_swap`` builds (and
         keeps) the target's decoder, then its probes, two neutral decode
-        ticks and the swap I/O run there, and the engine swaps home -- so a
-        post-freeze re-plan onto any toured layout, and the swap home,
-        replay captured graphs only."""
+        ticks and the swap I/O run there (on a rank engine also the
+        layout's prefills, ``_warm_prefills``), and the engine swaps home
+        -- so a post-freeze re-plan onto any toured layout, and the swap
+        home, replay captured graphs only. Every rank of a rank engine
+        tours in lockstep, so each restage's messages pair up."""
         planned = self.stage_blocks
         for target in self._swap_targets():
             if not self.try_swap(target):
@@ -2473,6 +2496,8 @@ class ServingEngine:
             for _ in range(2):
                 self._warm_step_neutral()
             self._warm_swap_io()
+            if self.mesh is not None:
+                self._warm_prefills()
             self.try_swap(planned)
         assert self.stage_blocks == planned
 

@@ -47,9 +47,28 @@ admission's are global rank 0's, and so is the heartbeat sweep's verdict
 from every rank, so one failing part fails it on every rank. The fault
 plane draws from its seed on every rank alike.
 
-Refused by name (ROADMAP item 10d): a ``model`` axis above 1, CUDA-graph
-warmup (a step that messages between its kernels) and the disaggregated
-pair. The stage probes keep their graphs: they send nothing.
+Warmup (``EngineConfig(warmup=True)``) runs the one-card engine's passes
+on every rank in lockstep, so every message pairs up; afterwards each
+rank serves with its stage's device work replayed from CUDA graphs and
+the messages posted eagerly between replays. A graph cannot hold a
+message (``aot`` raises on one inside a managed function), so what is
+managed is the work between messages: the decode step's segments
+(``PipelinedDecoder.rank_segments``: a microbatch's stage work, the KV
+exchange's take and tail), a prefill call's layers with the crossing's
+unseal and seal (``crossing_segment``, per bucket), the swap I/O over the
+rank's window, the stage probe and the timeline's slot insert, each per
+stage layout. Per-call numbers reach them as device tensors: the step
+key, the rank's key (made once), the exchange and crossing counters. A
+state-neutral warm that needs a neighbour's input takes zeros, not a
+message; its counters are drawn like a real call's, and the warmup reset
+keeps every sequence running, so no (key, counter) pair that warmup
+ciphered is used again. A graph holds addresses, so a rank keeps its
+params and KV in slabs sized for the most layers its stage takes over the
+planned layout and the warmup's tour: each layout uses a leading view,
+and a swap writes the new layers into the slabs in place (``_Ranked``).
+
+Refused by name (ROADMAP item 10d): a ``model`` axis above 1 and the
+disaggregated pair.
 """
 from __future__ import annotations
 
@@ -57,8 +76,9 @@ import dataclasses
 import math
 import time
 from collections import deque
-from typing import Any, Deque, List, Optional, Sequence, Tuple
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.enclave import sealing
@@ -68,7 +88,7 @@ from repro_torch.runtime.ft import HeartbeatMonitor
 from repro_torch.runtime.pipeline import RESTAGE_SEQS, PipelinedDecoder
 from repro_torch.serving.engine import (PagedPipelinedBackend,
                                         PipelinedDecodeBackend)
-from repro_torch.tree import map_tree
+from repro_torch.tree import leaves, map_tree
 
 LOG_CAP = 4096          # crossings and restages a backend remembers
 
@@ -76,11 +96,6 @@ LOG_CAP = 4096          # crossings and restages a backend remembers
 def check_rank_mesh(mesh, cfg, backend: str) -> None:
     """What a rank engine serves, refused by name otherwise."""
     from repro_torch.sharding import rules as R
-    if cfg.warmup:
-        raise NotImplementedError(
-            "ServingEngine(mesh=) with warmup=True: CUDA-graph capture of "
-            "a decode step that messages between ranks between its kernels "
-            "(ROADMAP item 10d)")
     if cfg.disagg_role:
         raise NotImplementedError(
             f"ServingEngine(mesh=) with disagg_role={cfg.disagg_role!r}: "
@@ -128,16 +143,64 @@ class AgreedMonitor(HeartbeatMonitor):
         return dead
 
 
-class _Ranked:
-    """A pipelined backend's half on a rank (see the module docstring):
-    this rank's stage of each layout, built from the host params anew at
-    every swap (the device state a layout's step and probe were built
-    over moves with a restage, so nothing is kept per layout)."""
+@dataclasses.dataclass
+class _Layout:
+    """What a rank keeps of one stage layout: its decoder (whose boundary
+    counters a graph reads) and its managed functions, one per piece of
+    device work between two messages."""
 
-    def _rank_setup(self, mesh, host_params, key: int) -> None:
+    dec: PipelinedDecoder
+    segs: Dict[str, Any]            # the decode step's (rank_segments)
+    probe: Any
+    events: Any
+    prefill: Dict[str, Any]         # kind -> its crossing_segment
+    io: Tuple[Any, ...] = ()        # (gather, scatter) on the paged layout
+
+
+class _RankEntry:
+    """A prefill entry point of a rank engine, called and warmed as the
+    one-card engine calls and warms its managed prefill: ``kind``'s
+    managed ``crossing_segment`` of the current layout, between this
+    rank's messages (``_Ranked._forward``, ``_warm_forward``)."""
+
+    def __init__(self, be: "_Ranked", kind: str):
+        self.be, self.kind = be, kind
+
+    def __call__(self, *inputs):
+        return self.be._forward(self.kind, inputs)
+
+    def warm(self, *inputs) -> None:
+        self.be._warm_forward(self.kind, inputs)
+
+
+# prefill kinds: (the model API's function, its batch's length key)
+_PREFILL = {"prefill_at": ("prefill_at_fn", "prompt_len"),
+            "prefill_packed": ("prefill_packed_fn", "prompt_lens")}
+
+
+class _Ranked:
+    """A pipelined backend's half on a rank (see the module docstring).
+
+    Each stage layout keeps its decoder and its managed functions
+    (``_Layout``), as ``_Pipelined`` does on one card, so a swap back, or
+    onto a layout the warmup toured, finds its graphs. They read the
+    rank's params and KV from slabs sized for the most layers this rank's
+    stage takes over the planned layout and the warmup's tour: a layout
+    uses a leading view of them, and a swap writes its layers into them in
+    place, so a graph's addresses stay valid across swaps. A layout beyond
+    the slabs reallocates them and drops every graph of the rank."""
+
+    def _rank_setup(self, mesh, host_params, key: int,
+                    layouts: Sequence[Tuple[int, ...]]) -> None:
         self.mesh, self.host_params, self.key = mesh, host_params, key
+        self.slab_layouts = tuple(tuple(x) for x in layouts)
         self.staging = RK.Staging()
         self.dec: Optional[PipelinedDecoder] = None
+        self._kv_slab = self._param_slab = None
+        self.capacity = 0               # layers the slabs hold
+        self.reallocations = 0
+        # the per-token prefill's private caches, by (layout, width)
+        self.token_caches: Dict[Tuple, Dict[str, Any]] = {}
         self._crossing_seq = 0          # crossing sequence numbers taken
         self._restage_seq = 0
         self._exchange_n = 0            # KV exchanges taken (data ranks)
@@ -147,6 +210,9 @@ class _Ranked:
         self.crossings: Deque[Tuple[float, int]] = deque(maxlen=LOG_CAP)
         self.restages: Deque[Tuple[float, int]] = deque(maxlen=LOG_CAP)
         self.exchanges: Deque[Tuple[float, int]] = deque(maxlen=LOG_CAP)
+        # (segment ms, message ms) of each decode step (``rank_loop``)
+        self.step_splits: Deque[Tuple[float, float]] = deque(
+            maxlen=LOG_CAP)
         self.relayouts = 0      # swap-ins whose columns moved first
 
     @property
@@ -168,31 +234,105 @@ class _Ranked:
             tag="verdict")
         return [bool(v) for v in got.reshape(-1).tolist()]
 
+    # -- slabs ---------------------------------------------------------------
+    def _alloc(self, dec: PipelinedDecoder) -> None:
+        """The slabs at construction, for the most layers this rank's stage
+        takes over ``slab_layouts``: the params' (its first layers loaded)
+        and the KV's (zeros, from the whole cache the backend made)."""
+        seg = self.api.model.served_segment.name
+        self.capacity = max(x[dec.stage] for x in self.slab_layouts)
+        self._fixed_params = dec.stage_params(
+            {k: v for k, v in self.host_params.items() if k != seg},
+            self.device)
+        self._param_slab = self._slab_like(
+            map_tree(lambda t: t[0], self.host_params[seg]), self.capacity)
+        self._kv_slab = self._slab_like(
+            map_tree(lambda t: t[0], self.cache[seg]), self.capacity)
+        self.cache[seg] = None          # the whole cache, freed
+        self._copy_params(dec)
+
+    def _copy_params(self, dec: PipelinedDecoder) -> None:
+        """``dec``'s layers of this rank, from the host tree into the
+        params slab."""
+        lo, hi = dec.ranges[dec.stage]
+        for slab, h in zip(leaves(self._param_slab), leaves(
+                self.host_params[self.api.model.served_segment.name])):
+            slab[:hi - lo].copy_(h[lo:hi])
+
+    def _slab_like(self, layer, n: int):
+        return map_tree(lambda t: torch.zeros((n,) + tuple(t.shape),
+                                              dtype=t.dtype,
+                                              device=self.device), layer)
+
+    def _views(self) -> None:
+        """``params`` and the cache's served segment as this layout's
+        leading views of the slabs."""
+        n = self.dec.stage_counts[self.stage]
+        seg = self.api.model.served_segment.name
+        self.params = dict(self._fixed_params,
+                           **{seg: map_tree(lambda t: t[:n],
+                                            self._param_slab)})
+        self.cache[seg] = map_tree(lambda t: t[:n], self._kv_slab)
+
+    def _load(self, kv) -> None:
+        """This layout's layers into the slabs, in place: the params from
+        the host tree, the KV from ``kv`` (its layers over the new range, a
+        temporary). A layout beyond the slabs first reallocates them, and
+        then every graph of the rank is dropped: each is entered again as
+        a stall."""
+        n = self.dec.stage_counts[self.stage]
+        if n > self.capacity:
+            self.capacity = n
+            self._param_slab = self._slab_like(
+                map_tree(lambda t: t[0], self._param_slab), n)
+            self._kv_slab = self._slab_like(
+                map_tree(lambda t: t[0], self._kv_slab), n)
+            self.aot.drop_graphs()
+            self._probe_aot.drop_graphs()
+            self.reallocations += 1
+        self._copy_params(self.dec)
+        for slab, t in zip(leaves(self._kv_slab), leaves(kv)):
+            slab[:n].copy_(t)
+        self._views()
+
+    def reset_state(self) -> None:
+        """The backend's reset, every layer of the KV slab zeroed (a toured
+        layout may have left entries past this layout's view) and the
+        logs restarted. The sequence numbers keep running."""
+        super().reset_state()
+        if self._kv_slab is not None:
+            for t in leaves(self._kv_slab):
+                t.zero_()
+        for log in (self.crossings, self.restages, self.exchanges,
+                    self.step_splits):
+            log.clear()
+        self.relayouts = 0
+
+    # -- layouts -------------------------------------------------------------
     def _build(self, stage_blocks: Sequence[int]) -> None:
-        cfg = self.cfg
         self.stage_blocks = key = tuple(stage_blocks)
-        first = self.dec is None
+        hit = self._layouts.get(key)
+        if hit is None:
+            hit = self._layouts[key] = self._new_layout(key)
+        self.dec, self._probe, self._events = hit.dec, hit.probe, hit.events
+        self._segs, self._prefill = hit.segs, hit.prefill
+        if hit.io:
+            self._gather, self._scatter = hit.io
+        self._views()
+
+    def _new_layout(self, key: Tuple[int, ...]) -> _Layout:
+        cfg = self.cfg
         dec = PipelinedDecoder(self.api, num_stages=cfg.num_stages,
                                num_microbatches=cfg.num_microbatches,
                                seal_boundary=cfg.seal_boundary,
                                stage_blocks=key, mesh=self.mesh)
         dec.staging = self.staging
-        self.params = None              # the old layout's, freed first
-        self.params = dec.stage_params(self.host_params, self.device)
-        step_fn = dec.build(paged=self.paged)
+        if self._kv_slab is None:
+            self._key_dev = self._idx([self.key])
+            self._alloc(dec)
+        segs = {n: self.aot.wrap(f"{n}{key}", self._bound(f))
+                for n, f in dec.rank_segments(paged=self.paged).items()}
         probe = dec.build_stage_probe(paged=self.paged)
-
-        def step(toks, step_key):
-            dec.last_exchange = None
-            n = self._exchange_n
-            self._exchange_n += 1
-            out = step_fn(self.params, self._step_cache(),
-                          {"tokens": toks, "exchange": (self.key, n)},
-                          step_key)[0]
-            if dec.last_exchange is not None:
-                self.exchanges.append(dec.last_exchange)
-            return out
-
         events = tuple(torch.cuda.Event(enable_timing=True, external=True)
                        for _ in range(2)) \
             if self.device.type == "cuda" else None
@@ -207,31 +347,65 @@ class _Ranked:
                 events[1].record()
             return out
 
-        self.dec, self._events = dec, events
-        self._step = self.aot.wrap(f"step{key}", step)
-        self._probe = self._probe_aot.wrap(f"probe{key}", run_probe)
-        if first:
-            self._own_cache(dec)
+        lo, hi = dec.ranges[dec.stage]
+        kinds = ("prefill_at", "prefill_packed", "prefill_token") + (
+            ("prefill_chunk",) if self.paged else ())
+        prefill = {kind: self.aot.wrap(f"{kind}{key}", dec.crossing_segment(
+            self._prefill_run(kind, lo, hi))) for kind in kinds}
+        # a data rank other than 0 gathers empty parts: nothing to capture
+        io = (self.aot.wrap(f"gather_pages{key}", self._gather_fn)
+              if dec.data == 0 else self._gather_fn,
+              self.aot.wrap(f"scatter_pages{key}", self._scatter_fn)) \
+            if self.paged else ()
+        return _Layout(dec, segs, self._probe_aot.wrap(f"probe{key}",
+                                                       run_probe),
+                       events, prefill, io)
 
-    def _own_cache(self, dec: PipelinedDecoder) -> None:
-        """Cut the freshly made whole cache to this rank's layers."""
-        seg = self.api.model.served_segment.name
-        self.cache[seg] = dec._cut(self.cache[seg])
+    def _bound(self, f):
+        """A decode segment over this rank's params and cache, read at the
+        call (a capture holds the slabs' addresses)."""
+        return lambda *args: f(self.params, self._step_cache(), *args)
+
+    def _span(self) -> Tuple[int, int]:
+        return self.dec.ranges[self.stage]
 
     def own_layers(self, tree):
         """This rank's layers of a tree of stacked layer leaves (a private
         prefill cache)."""
         return self.dec._cut(tree)
 
+    def step(self, tokens: np.ndarray, key) -> torch.Tensor:
+        """One decode step: this layout's managed segments between the
+        rank's messages (``PipelinedDecoder.rank_loop``), its boundaries
+        sealed under ``key`` and its KV exchange under the rank's key and
+        the next exchange number."""
+        toks = self._tokens(tokens)
+        n = self._exchange_n
+        self._exchange_n += 1
+        exchange = (self._key_dev, self._idx(self.dec.exchange_counters(n))) \
+            if self.dec.exchanges(toks.shape[0]) else None
+        self.dec.last_exchange = None
+        logits = self.dec.rank_loop(self._segs, toks, self._key_tensor(key),
+                                    exchange)
+        if self.dec.last_exchange is not None:
+            self.exchanges.append(self.dec.last_exchange)
+        self.step_splits.append(self.dec.last_split)
+        self.steps += 1
+        return logits
+
     def swap(self, stage_blocks: Sequence[int]) -> bool:
-        """Rebuild on the new boundaries and move the layers that change
-        owner (``PipelinedDecoder.restage_cache``)."""
+        """Rebuild on the new boundaries (or take the layout kept), move the
+        layers that change owner (``PipelinedDecoder.restage_cache``) and
+        write the new layers into the slabs in place."""
         old = self.dec
         t0, sent0 = time.perf_counter(), self.staging.sent
+        old_cache = self._step_cache()
+        if isinstance(old_cache, dict):
+            old_cache = dict(old_cache)     # _build re-views its segment
         self._build(stage_blocks)
         seq = self._restage_seq
         self._restage_seq += RESTAGE_SEQS
-        self._restage(old, seq)
+        self._load(self._restage(old, old_cache, seq))
         self._sync()
         self.restages.append(((time.perf_counter() - t0) * 1e3,
                               self.staging.sent - sent0))
@@ -272,83 +446,111 @@ class _Ranked:
         return times
 
     # -- admission: this rank's layers of a prefill ---------------------------
-    def _forward(self, run, shape: Tuple[int, ...], rows: int
-                 ) -> torch.Tensor:
-        """``PipelinedDecoder.rank_forward`` under the next crossing
-        sequence numbers; the crossing this rank sends is kept in
-        ``crossings``."""
+    def _prefill_run(self, kind: str, lo: int, hi: int):
+        """``run(x, *inputs) -> (out, extra)`` of a prefill ``kind`` over
+        layers [lo, hi) of this rank (``x`` the hidden state in, None on
+        stage 0): the model API's functions with ``start=``, ``end=``.
+        One-shot and packed prefill return this rank's layers of their KV
+        as ``extra``; the per-token step takes the width of its private
+        cache (``token_caches``), the chunk writes the live pools."""
+        api, seg = self.api, self.api.model.served_segment.name
+
+        def batch(x, **kw):
+            return kw if x is None else dict(kw, hidden=x)
+
+        if kind in _PREFILL:
+            fn, lens = _PREFILL[kind]
+
+            def run(x, toks, plens):
+                out, caches = getattr(api, fn)(
+                    self.params, batch(x, tokens=toks, **{lens: plens}),
+                    start=lo, end=hi)
+                return out, caches[seg]
+        elif kind == "prefill_token":
+            def run(x, tok, S: int):
+                cache = self.token_caches[(self.stage_blocks, S)]
+                return api.decode_fn(self.params, cache, batch(x, tokens=tok),
+                                     start=lo, end=hi)[0], None
+        else:
+            def run(x, toks, offset, chunk_len, bt_row, pages, offs):
+                return api.prefill_chunk_fn(
+                    self.params, {seg: self.body},
+                    batch(x, tokens=toks, offset=offset, chunk_len=chunk_len,
+                          bt_row=bt_row, pages=pages, offs=offs),
+                    start=lo, end=hi)[0], None
+        return run
+
+    def entry(self, kind: str) -> _RankEntry:
+        """The engine's ``kind`` of prefill on this rank."""
+        return _RankEntry(self, kind)
+
+    @staticmethod
+    def _frame(kind: str, inputs) -> Tuple[Tuple[int, ...], int]:
+        """(the hidden state's leading shape, the logits' rows) of a
+        prefill call."""
+        if kind == "prefill_token":
+            return (1, 1), 1
+        shape = tuple(inputs[0].shape)
+        return shape, (shape[0] if kind in _PREFILL else 1)
+
+    def _crossing_ctr(self) -> torch.Tensor:
+        """The next call's crossing counters on the device."""
         seq = self._crossing_seq
         self._crossing_seq += self.cfg.num_stages - 1
+        return self._idx(self.dec.crossing_counters(seq))
+
+    def _forward(self, kind: str, inputs):
+        """One prefill call of ``kind`` (``PipelinedDecoder.rank_forward``)
+        under the next crossing sequence numbers; the crossing this rank
+        sends is kept in ``crossings``. Returns the logits on every rank,
+        and one-shot and packed prefill this rank's layers of their KV."""
+        shape, rows = self._frame(kind, inputs)
         self.dec.last_crossing = None
-        logits = self.dec.rank_forward(run, shape, rows, self.key, seq)
+        logits, extra = self.dec.rank_forward(
+            self._prefill[kind], shape, rows, self._key_dev,
+            self._crossing_ctr(), *inputs)
         if self.dec.last_crossing is not None:
             self.crossings.append(self.dec.last_crossing)
-        return logits
+        return (logits, extra) if kind in _PREFILL else logits
 
-    def _span(self) -> Tuple[int, int]:
-        return self.dec.ranges[self.stage]
+    def _warm_forward(self, kind: str, inputs) -> None:
+        """Warm ``kind``'s segment at ``inputs``' signature without a
+        message: a stage that receives takes a payload of zeros. Its
+        crossing counters are drawn like a real call's, so no pair a warm
+        run seals under is used again."""
+        shape, _ = self._frame(kind, inputs)
+        got = None
+        if self.stage > 0:
+            got = torch.zeros((math.prod(shape), self.api.cfg.d_model),
+                              device=self.device, dtype=(
+                                  int_dtype_of(self.api.dtype)
+                                  if self.cfg.seal_boundary
+                                  else self.api.dtype))
+        self._prefill[kind].warm(shape, got, self._key_dev,
+                                 self._crossing_ctr(), *inputs)
 
-    def prefill(self, fn, toks: torch.Tensor, batch) -> Tuple[Any, Any]:
-        """One one-shot or packed prefill (``fn``: the model API's
-        ``prefill_at_fn`` or ``prefill_packed_fn``) of ``toks`` [B, S_pad]:
-        (the logits on every rank, this rank's layers of its KV)."""
-        lo, hi = self._span()
-        kv = []
-
-        def run(x):
-            b = dict(batch, tokens=toks)
-            if x is not None:
-                b["hidden"] = x
-            out, caches = fn(self.params, b, start=lo, end=hi)
-            kv.append(caches[self.api.model.served_segment.name])
-            return out
-
-        return self._forward(run, tuple(toks.shape), toks.shape[0]), kv[0]
-
-    def prefill_token(self, tok: torch.Tensor, cache) -> torch.Tensor:
-        """One [1, 1] step of per-token prefill over this rank's layers of
-        the private cache ``cache``."""
-        lo, hi = self._span()
-
-        def run(x):
-            b = {"tokens": tok}
-            if x is not None:
-                b["hidden"] = x
-            return self.api.decode_fn(self.params, cache, b, start=lo,
-                                      end=hi)[0]
-
-        return self._forward(run, (1, 1), 1)
+    def warm_insert(self, cache) -> None:
+        """Warm the slot insert of this layout (the timeline's; the paged
+        layout has none)."""
 
 
 class RankPagedBackend(_Ranked, PagedPipelinedBackend):
     """``PagedPipelinedBackend`` on a rank: the pools hold this rank's
-    layers ``[L_s, N, KVH, Pg, D]``; block tables and seq_lens are whole,
-    as the reference replicates them."""
+    layers ``[L_s, N, KVH, Pg, D]`` (a view of its slab); block tables and
+    seq_lens are whole, as the reference replicates them."""
 
     def __init__(self, api, host_params, cfg, num_pages: int,
-                 pages_per_slot: int, stage_blocks, aot, mesh, key: int):
-        self._rank_setup(mesh, host_params, key)
+                 pages_per_slot: int, stage_blocks, aot, mesh, key: int,
+                 layouts):
+        self._rank_setup(mesh, host_params, key, layouts)
         super().__init__(api, None, cfg, num_pages, pages_per_slot,
                          stage_blocks, aot=aot)
+        self._chunk = self.entry("prefill_chunk")
 
-    def _restage(self, old_dec: PipelinedDecoder, seq: int) -> None:
-        self.cache = old_dec.restage_cache(self.cache, self.dec,
-                                           key=self.key, seq=seq)
-
-    def _prefill_chunk(self, toks, offset: int, chunk_len, bt_row, pages,
-                       offs) -> torch.Tensor:
-        lo, hi = self._span()
+    def _restage(self, old_dec: PipelinedDecoder, old_cache, seq: int):
         seg = self.api.model.served_segment.name
-
-        def run(x):
-            b = {"tokens": toks, "offset": offset, "chunk_len": chunk_len,
-                 "bt_row": bt_row, "pages": pages, "offs": offs}
-            if x is not None:
-                b["hidden"] = x
-            return self.api.prefill_chunk_fn(self.params, {seg: self.body},
-                                             b, start=lo, end=hi)[0]
-
-        return self._forward(run, tuple(toks.shape), 1)
+        return old_dec.restage_cache(old_cache, self.dec, key=self.key,
+                                     seq=seq)[seg]
 
     # -- the sealed swap over this rank's window of the rows ------------------
     def _window(self, pool: torch.Tensor, span=None) -> Tuple[int, int]:
@@ -461,18 +663,21 @@ class RankPagedBackend(_Ranked, PagedPipelinedBackend):
 
 class RankTimelineBackend(_Ranked, PipelinedDecodeBackend):
     """``PipelinedDecodeBackend`` on a rank: the timeline body holds this
-    rank's layers; ``len`` and ``start`` are whole."""
+    rank's layers (a view of its slab); ``len`` and ``start`` are
+    whole."""
 
     def __init__(self, api, host_params, cfg, stage_blocks, aot, mesh,
-                 key: int):
-        self._rank_setup(mesh, host_params, key)
+                 key: int, layouts):
+        self._rank_setup(mesh, host_params, key, layouts)
         super().__init__(api, None, cfg, stage_blocks, aot=aot)
 
-    def _restage(self, old_dec: PipelinedDecoder, seq: int) -> None:
-        body, n, start = old_dec.restage_cache(self._step_cache(), self.dec,
-                                               key=self.key, seq=seq)
-        self.cache.update({self.api.model.served_segment.name: body,
-                           "len": n, "start": start})
+    def _restage(self, old_dec: PipelinedDecoder, old_cache, seq: int):
+        return old_dec.restage_cache(old_cache, self.dec, key=self.key,
+                                     seq=seq)[0]
+
+    def warm_insert(self, cache) -> None:
+        self._insert.warm(cache[self.api.model.served_segment.name],
+                          cache["start"], self._idx([0]))
 
 
 def host_copy(params):
