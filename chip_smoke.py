@@ -1174,7 +1174,8 @@ def small_reference_check(torch):
                                   dtype=torch.float32)
                 orch = serve.make_disagg(api, _to(torch, params, device),
                                          args)
-                reqs = serve.serve_stream_orch(orch, args, prompts)
+                reqs = serve.serve_stream_orch(
+                    orch, serve.stream_of(args, prompts), args.arrival_every)
                 orch.check_invariants()
                 st = orch.stats()
                 assert [r.generated for r in reqs] == streams[False], \
@@ -1921,7 +1922,8 @@ def serve_disagg(torch, ops, api, params, argv, phase5, phase8, smi,
             ops.reset_launch_counts()
             t0 = time.perf_counter()
             try:
-                reqs = serve.serve_stream_orch(orch, args, prompts)
+                reqs = serve.serve_stream_orch(
+                    orch, serve.stream_of(args, prompts), args.arrival_every)
             finally:
                 probe.close()
         torch.cuda.synchronize()
@@ -1978,7 +1980,8 @@ def serve_disagg(torch, ops, api, params, argv, phase5, phase8, smi,
         else:
             fb = DisaggOrchestrator(serve.make_engine(api, params, args,
                                                       **overrides))
-            fb_reqs = serve.serve_stream_orch(fb, args, prompts)
+            fb_reqs = serve.serve_stream_orch(
+                fb, serve.stream_of(args, prompts), args.arrival_every)
             assert [list(r.generated) for r in fb_reqs] == streams, \
                 f"phase {label}: the no-peer fallback's streams differ"
             assert fb.stats()["handoffs"] == 0
@@ -2027,6 +2030,8 @@ def serve_disagg(torch, ops, api, params, argv, phase5, phase8, smi,
             f"2 x ({ds['transfers_in']} transfer-ins + "
             f"{ds['swap_ins'] + ps['swap_ins']} swap-ins))")
         out.append(dict(launches=launches, handoffs=st["handoffs"],
+                        export_ms=exp[len(exp) // 2],
+                        transfer_in_ms=tin[len(tin) // 2],
                         step_ms=step_ms, tok_per_s=ds["tok_per_s"],
                         admission=(ds.get("admission_p50_ms", 0.0),
                                    ds.get("admission_p99_ms", 0.0)),
@@ -2327,8 +2332,9 @@ def serve_chaos(torch, ops, api, params, smi):
         def build(faults=faults):
             orch = serve.make_disagg(api, params, args, faults=faults)
             return orch, [orch.decode, orch.eng_prefill]
-        runs[name] = _chaos_run(torch, ops, build, lambda orch: serve
-                                .serve_stream_orch(orch, args, prompts))
+        runs[name] = _chaos_run(torch, ops, build, lambda orch: (
+            serve.serve_stream_orch(orch, serve.stream_of(args, prompts),
+                                    args.arrival_every)))
     armed = ("stage_stall", "corrupt_swap", "truncate_swap",
              "corrupt_transfer", "truncate_transfer", "drop_handoff",
              "delay_handoff", "pool_storm")
@@ -5834,6 +5840,280 @@ def serve_warm_ranks(torch, ops, smi, phase6=None, phase21=None):
     return [{"launches": launches}]
 
 
+# phase 23: the disaggregated pair over ranks (ROADMAP item 10d, step 4):
+# phase 21's stream through the pair on the 2 x 2 ranks, eager and warmed,
+# and the reference's chaos-over-disagg line at full width in f32
+DISAGG_CHAOS = ["--arch", "llama3.2-1b", "--device", "cuda", "--ranks",
+                "gloo", "--mesh", "2x2", "--stages", "2", "--microbatches",
+                "2", "--slots", "4", "--requests", "8", "--prompt-len", "8",
+                "--max-new", "10", "--page-size", "4", "--no-seal", "--f32",
+                "--seed", "7", "--disagg", "--chaos", "--verify-recovery"]
+
+
+def _one_card_pair(torch, api, params, args):
+    """The one-card pipelined pair on ``args``' stream, eager, instrumented
+    as the ranks' (``rank_jobs.PairProbe``): its streams, its first
+    handoff and every export's and transfer-in's host ms."""
+    from repro_torch.launch import rank_jobs, serve
+    orch = serve.make_disagg(api, params, args)
+    probe = rank_jobs.PairProbe(orch)
+    reqs = serve.serve_stream_orch(
+        orch, serve.stream_of(args, serve.gen_prompts(
+            args, api.cfg.vocab_size)), args.arrival_every)
+    out = {"streams": [list(r.generated) for r in reqs],
+           "first_handoff": probe.first_handoff,
+           "export_ms": [e[0] for e in probe.exports],
+           "transfer_in_ms": [t[0] for t in probe.transfers_in]}
+    del orch, probe
+    return out
+
+
+def serve_disagg_ranks(torch, ops, smi, phase6=None, phase21=None,
+                       phase9=None):
+    """23. ``build_disagg(mesh=)`` on the four gloo ranks of phase 21
+    (``DATA_MESH``): a prefill-role and a decode-role rank engine on every
+    rank, stage s on the ranks of pod s, the orchestrator on every rank.
+    (a) Phase 21's stream (full-width llama3.2-1b in bf16, pipelined (1,
+    15), sealed, 8 slots, 2 microbatches, 30 pages) through the pair,
+    eager: streams bit-equal to phase 21's eager rank engine
+    (``phase21``, or run in the same spawn when the phase runs alone) and,
+    where those equal phase 6's, to phase 6's; handoffs = requests -
+    finished at prefill = transfers out = transfers in; every transferred
+    (layer, page row) restored bit for bit on every rank
+    (``rank_jobs.rows_restored``); equal decode-cache digests within each
+    pod after every tick; the first handoff's four parts side by side =
+    the payload and digest of the same manifest exported by a one-card
+    pipelined pair; no (key, counter) pair twice over four ranks and both
+    roles; every rank's events, decisions and stats equal. (b) The same
+    with ``--warmup``: streams = (a)'s, zero post-warmup captures and
+    stalls on every rank on both roles. (c) The reference's
+    chaos-over-disagg flags at full width in f32 (``DISAGG_CHAOS``)
+    through ``serve.main``: ``RECOVERY-EXACT OK``, at least one tampered
+    transfer falling back, the same on all four ranks (``serve`` asserts
+    it over the world). Prints host ms per export and per transfer-in a
+    rank (p50) beside the one-card pipelined pair's on the same stream,
+    eager, and phase 9's (the local backend on phase 5's stream);
+    handoffs, the decode
+    role's admission p50 / p99, host ms a decode step a rank, graphs and
+    warmup s a rank a role, peak reserved memory a rank, the phase's
+    seconds. Returns the ranks' launch counts over (a) and (b),
+    summed."""
+    import dataclasses
+
+    from repro_torch.enclave import sealing
+    from repro_torch.launch import rank_jobs, serve
+    from repro_torch.launch.ranks import spawn
+    from repro_torch.models.api import build_model
+    t_phase = time.perf_counter()
+    _free(torch)
+    argv = [DEV if a == "cuda" else a for a in RANKS_SERVE]
+    args = serve.build_parser().parse_args(argv)
+    cfg = _family_cfg("llama3.2-1b")
+    api = build_model(cfg, device=DEV, dtype=torch.bfloat16)
+    params = api.init(torch.Generator(device=DEV).manual_seed(args.seed))
+    if phase6 is None:                    # run alone: phase 6 first
+        phase6 = serve_full_width(torch, ops, api, params, argv, 6,
+                                  plan=(1, cfg.num_layers - 1))
+    one = _one_card_pair(torch, api, params, args)
+    want = one["first_handoff"]
+    del api, params
+    _free(torch)
+    L, nm = cfg.num_layers, args.microbatches
+    P, D = DATA_MESH
+    reqs = [(p, args.max_new)
+            for p in serve.gen_prompts(args, cfg.vocab_size)]
+    every = args.arrival_every
+    runs = [rank_jobs.DisaggRun(serve.make_config(args, warmup=warm), reqs,
+                                every=every) for warm in (False, True)]
+    calls = [(rank_jobs.disagg, rank_jobs.DisaggJob(
+        cfg, runs, dtype=torch.bfloat16, seed=args.seed, data=D))]
+    if phase21 is None:                   # run alone: phase 21's run too
+        calls.append((rank_jobs.serve, rank_jobs.ServeJob(
+            cfg, [rank_jobs.ServeRun(serve.make_config(args), reqs,
+                                     every=every)],
+            dtype=torch.bfloat16, seed=args.seed, data=D)))
+    t0 = time.perf_counter()
+    out = spawn(rank_jobs.chain, P * D, backend="gloo", device=DEV,
+                args=(calls,))
+    spawn_s = time.perf_counter() - t0
+    a, b = ([res[0][i] for res in out] for i in range(2))
+    eager = phase21 or {"streams": out[0][1][0]["streams"]}
+    launches = {k: 0 for k in ops.LAUNCHES}
+    for r in a + b:
+        for k in launches:
+            launches[k] += r["launches"][k]
+
+    def mine(st):
+        return {k: v for k, v in st.items() if k not in PER_RANK}
+
+    assert [(r["decode"]["stage"], r["decode"]["data"]) for r in a] == [
+        (0, 0), (0, 1), (1, 0), (1, 1)]
+    for ranks, what in ((a, "23a"), (b, "23b")):
+        r0 = ranks[0]
+        for r in ranks[1:]:
+            assert r["decisions"] == r0["decisions"], (what, "decisions")
+            assert mine(r["orch"]) == mine(r0["orch"]), (what, "stats")
+            for role in ("decode", "prefill"):
+                assert r[role]["events"] == r0[role]["events"], \
+                    (what, role, "events")
+                assert mine(r[role]["stats"]) == mine(r0[role]["stats"]), \
+                    (what, role, "stats")
+        bad = rank_jobs.keystream_reuse([r["keys"] for r in ranks])
+        assert not bad, (what, "a (key, counter) pair ciphered twice",
+                         bad[:3])
+        restored = rank_jobs.rows_restored(ranks)
+        assert all(n > 0 for n in restored), (what, restored)
+        for pod in range(P):
+            x, y = (r for r in ranks if r["decode"]["stage"] == pod)
+            assert x["digests"] == y["digests"] \
+                and x["cache_digest"] == y["cache_digest"], \
+                (what, f"the data ranks of pod {pod} hold other caches")
+        st = r0["orch"]
+        ps, ds = r0["prefill"]["stats"], r0["decode"]["stats"]
+        assert st["stage_blocks"] == (1, L - 1) and st["swaps"] == 0, st
+        assert ps["stage_blocks"] == (1, L - 1)
+        assert st["handoffs"] == len(reqs) - st["prefill_completed"] \
+            == ps["transfers_out"] == st["transfers_in"], (what, st)
+        assert st["recovery"]["unseal_fallback_transfer"] == 0, st
+        for r in ranks:
+            assert r["status"] == ["done"] * len(reqs), r["status"]
+            assert r["streams"] == eager["streams"], \
+                (what, "streams differ from phase 21's eager ranks",
+                 r["decode"]["stage"], r["decode"]["data"])
+            assert r["relayouts"] == 0 and all(t[3] for t in
+                                               r["transfers_in"])
+            if DEV == "cuda":
+                lo, hi = r["decode"]["range"]
+                steps, lc = r["decode"]["decode_steps"], r["launches"]
+                d, first = r["decode"]["data"], r["decode"]["stage"] == 0
+                last = r["decode"]["stage"] == P - 1
+                calls_ = ps["prefill_calls"] + ds["prefill_calls"]
+                outs = ps["transfers_out"] + ps["swap_outs"] \
+                    + ds["swap_outs"]
+                ins = ds["transfers_in"] + ds["swap_ins"] + ps["swap_ins"]
+                assert lc["paged_attention"] == (hi - lo) * (
+                    nm * steps + (r["probes"] if d == 0 else 0)), \
+                    (what, d, lc, steps, r["probes"])
+                assert lc["flash_attention"] == (hi - lo) * calls_, lc
+                assert lc["seal"] == (nm * steps if first else 0), lc
+                assert lc["unseal"] == (nm * steps if last else 0), lc
+                assert lc["seal_bits_window"] == (
+                    2 * outs if d == 0 else 0), lc
+                assert lc["unseal_bits_window"] == 2 * ins, lc
+                assert lc["seal_bits"] == steps + (calls_ if first
+                                                   else 0), lc
+                assert lc["unseal_bits"] == (D - 1) * steps + (
+                    calls_ if last else 0), lc
+    for r in b:
+        for role in ("decode", "prefill"):
+            assert r[role]["post_warmup_compiles"] == 0 \
+                and r[role]["stalls"] == [], \
+                ("23b", role, r[role]["post_warmup_compiles"],
+                 r[role]["stalls"][:4])
+            if DEV == "cuda":
+                assert r[role]["graphs"] > 0, ("23b", role)
+    same6 = eager["streams"] == phase6["streams"]
+    if same6:
+        assert a[0]["streams"] == phase6["streams"]
+    # the first handoff: the pods' parts side by side = the one-card pair's
+    parts = {(r["decode"]["stage"], r["decode"]["data"]): r["first_handoff"]
+             for r in a}
+    assert all(p["counter"] == want["counter"] == sealing.transfer_seq(0)
+               for p in parts.values())
+    import numpy as np
+    whole = tuple(np.concatenate([parts[(pod, 0)]["payload"][i]
+                                  for pod in range(P)], axis=1)
+                  for i in range(2))
+    for x, y in zip(whole, want["payload"]):
+        assert x.dtype == y.dtype and np.array_equal(x, y), \
+            "23a: the ranks' first handoff is not the one-card payload"
+    assert sealing.payload_digest(whole) == want["digest"]
+    assert all(p["payload"][0].shape[1] == 0
+               for (_, d), p in parts.items() if d > 0)
+
+    def row(xs, digits=3):
+        return ", ".join(f"{x:.{digits}f}" for x in xs)
+
+    def p9(key, i):
+        return f"{phase9[i][key]:.3f}" if phase9 and len(phase9) > i \
+            else "not run"
+
+    adm9 = phase9[0]["admission"] if phase9 else (math.nan, math.nan)
+
+    st = a[0]["orch"]
+    ds = a[0]["decode"]["stats"]
+    log(f"phase 23a llama3.2-1b ({L} layers) bf16, phase 21's stream "
+        f"through the disaggregated pair on 2 x 2 pod x data ranks (both "
+        f"roles on every rank, stage blocks {st['stage_blocks']}), sealed, "
+        f"eager: streams bit-equal to phase 21's eager ranks"
+        f"{' and to phase 6' if same6 else ' (phase 21 differs from phase 6)'}"
+        f"; {len(reqs)} requests, handoffs {st['handoffs']} (finished at "
+        f"prefill {st['prefill_completed']}), transfers out "
+        f"{a[0]['prefill']['stats']['transfers_out']} = in "
+        f"{st['transfers_in']}; transferred (layer, row) pairs restored "
+        f"bit-exact a rank {rank_jobs.rows_restored(a)}; decode caches "
+        f"equal within each pod after every tick; the first handoff's parts "
+        f"side by side = the one-card pair's payload and digest (counter "
+        f"{want['counter']}); (key, counter) pairs a rank "
+        f"{[len(r['keys']) for r in a]}, none twice over both roles; "
+        f"peak reserved GiB a rank "
+        f"{row([r['peak_reserved'] / 2**30 for r in a], 2)} [{smi}]")
+    log(f"phase 23a: the one-card pipelined pair on the same stream, "
+        f"eager (the first handoff's source): streams "
+        f"{'equal' if one['streams'] == eager['streams'] else 'differ from'}"
+        f" the ranks'; {len(one['export_ms'])} exports, host ms p50 "
+        f"{_p50(one['export_ms']):.3f}; {len(one['transfer_in_ms'])} "
+        f"transfer-ins, p50 {_p50(one['transfer_in_ms']):.3f}")
+    for ranks, what in ((a, "23a eager"), (b, "23b warmed")):
+        ds = ranks[0]["decode"]["stats"]
+        log(f"phase {what}: host ms per export p50, (pod, data) order "
+            f"{row([_p50([e[0] for e in r['exports']]) for r in ranks])} "
+            f"(the one-card pipelined pair, eager, same stream: "
+            f"{_p50(one['export_ms']):.3f}; phase 9, local backend on phase "
+            f"5's stream: eager {p9('export_ms', 0)}, graphs "
+            f"{p9('export_ms', 1)}), bytes a rank's part "
+            f"{[r['exports'][0][1] for r in ranks]}; per transfer-in p50 "
+            f"{row([_p50([t[0] for t in r['transfers_in']]) for r in ranks])} "
+            f"(one-card pipelined pair {_p50(one['transfer_in_ms']):.3f}; "
+            f"phase 9: {p9('transfer_in_ms', 0)}, "
+            f"{p9('transfer_in_ms', 1)}), bytes sent a transfer-in "
+            f"{[r['transfers_in'][0][2] for r in ranks]}; handoffs "
+            f"{ranks[0]['orch']['handoffs']}; decode-role admission p50 / "
+            f"p99 {ds['admission_p50_ms']:.1f} / {ds['admission_p99_ms']:.1f}"
+            f" ms (phase 9 eager {adm9[0]:.1f} / {adm9[1]:.1f});"
+            f" host ms a decode step p50 "
+            f"{row([_p50(r['step_ms']) for r in ranks])} (phase 9 eager "
+            f"{p9('step_ms', 0)} mean); graphs a rank decode / prefill "
+            f"role {[r['decode']['graphs'] for r in ranks]} / "
+            f"{[r['prefill']['graphs'] for r in ranks]}, warmup s "
+            f"{row([r['decode']['warmup_s'] for r in ranks], 2)} / "
+            f"{row([r['prefill']['warmup_s'] for r in ranks], 2)}; peak "
+            f"reserved GiB a rank "
+            f"{row([r['peak_reserved'] / 2**30 for r in ranks], 2)}; "
+            f"launches {[r['launches'] for r in ranks]}")
+    del out, a, b
+    _free(torch)
+    # (c) the reference's chaos-over-disagg line at full width, f32
+    t0 = time.perf_counter()
+    cargv = [DEV if x == "cuda" else x for x in DISAGG_CHAOS]
+    cst = serve.main(cargv)
+    chaos_s = time.perf_counter() - t0
+    inj, rec = cst["faults"], cst["recovery"]
+    assert rec["unseal_fallback_transfer"] >= 1 \
+        and rec["unseal_fallback_transfer"] == inj["corrupt_transfer"] \
+        + inj["truncate_transfer"], (inj, rec)
+    assert not cst["failed_requests"] and cst["in_flight_handoffs"] == 0
+    log(f"phase 23c: the reference's chaos-over-disagg flags at full width "
+        f"in f32 on 2 x 2 ranks through serve.main: RECOVERY-EXACT OK, "
+        f"injected {dict((k, v) for k, v in inj.items() if v)}, rungs "
+        f"{dict((k, v) for k, v in rec.items() if v)}, the same on every "
+        f"rank; {cst['handoffs']} handoffs, {cst['transfers_in']} "
+        f"transfers in; {chaos_s:.1f} s [{smi}]")
+    log(f"phase 23: {time.perf_counter() - t_phase:.1f} s (the spawn of "
+        f"(a) and (b) {spawn_s:.1f} s, (c) {chaos_s:.1f} s)")
+    return [{"launches": launches}]
+
+
 def _sharding_leaves(tree):
     from repro_torch.sharding.rules import NamedSharding
     if isinstance(tree, NamedSharding):
@@ -5986,9 +6266,15 @@ def main() -> int:
     # steps on a 2 x 2 pod x data mesh
     runs += serve_data_ranks(torch, ops, smi0, runs[1],
                              runs[-1]["step_ms_p50"])
+    phase21_eager = runs[-1]["eager"]
     # phase 22: warmup over ranks: phase 21's stream warmed as CUDA graphs
     # on the 2 x 2 ranks, and the live re-plan line warmed
     runs += serve_warm_ranks(torch, ops, smi0, runs[1], runs[-1]["eager"])
+    # phase 23: the disaggregated pair over ranks: phase 21's stream
+    # through the pair on the 2 x 2 ranks, eager and warmed, and the
+    # reference's chaos-over-disagg line
+    runs += serve_disagg_ranks(torch, ops, smi0, runs[1], phase21_eager,
+                               runs[6:8])
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 

@@ -17,15 +17,19 @@ packages, so a payload sealed by one unseals under the other.
 
 An engine whose pipeline stages are ranks (``ServingEngine(mesh=)``) moves
 with the page cipher what the reference moves inside one program, each
-under sequence numbers of its own, carved out of the swap space below the
-half the prefill role of a disaggregated pair draws from (a rank engine
-has no such role): a prefill's hidden state crossing a stage boundary
-(``crossing_seq``), the layers a live re-plan moves between ranks
-(``restage_seq``) and the KV entries the data ranks of a pod exchange
-after each decode step (``exchange_seq``). A rank seals its own layers
-of a swap row as a window of the row (``seal_pages(col0=, row_cols=)``):
-the ranks' windows side by side are the one-card payload, under the
-one-card (key, counter).
+under sequence numbers of its own, carved out of the swap space: a
+prefill's hidden state crossing a stage boundary (``crossing_seq``), the
+layers a live re-plan moves between ranks (``restage_seq``) and the KV
+entries the data ranks of a pod exchange after each decode step
+(``exchange_seq``). A decode engine (a rank engine alone, or the decode
+role of a disaggregated pair) keeps its swaps in the first eighth of the
+swap space and these three in the next three eighths; the prefill role of
+a pair, whose two engines share every rank and its key, draws its swaps
+and its own three spaces from the upper half (``prefill=True``), so the
+roles never cipher under one (key, counter). A rank seals its own layers
+of a swap row, or of a handoff's, as a window of the row
+(``seal_pages(col0=, row_cols=)``): the ranks' windows side by side are
+the one-card payload, under the one-card (key, counter).
 
 Keys, sequence numbers, steps and counters are Python ints or one-element
 integer tensors (``kernels.seal.u32``): a tensor stays on its device and
@@ -66,37 +70,41 @@ def transfer_seq(n: int) -> int:
     return TRANSFER_SEQ_BASE + n
 
 
-# the rank engine's sequence spaces: swaps of a decode engine stay below
-# EXCHANGE_SEQ_BASE (2^27 of them), the prefill role of a pair starts at
-# TRANSFER_SEQ_BASE // 2
+# the rank engine's sequence spaces, an eighth of the swap space each: a
+# decode engine's swaps stay below EXCHANGE_SEQ_BASE (2^27 of them); the
+# prefill role of a pair draws its swaps and the same three spaces
+# PREFILL_SEQ_SHIFT higher, all below TRANSFER_SEQ_BASE
 EXCHANGE_SEQ_BASE = TRANSFER_SEQ_BASE // 8
 CROSSING_SEQ_BASE = TRANSFER_SEQ_BASE // 4
 RESTAGE_SEQ_BASE = 3 * TRANSFER_SEQ_BASE // 8
+PREFILL_SEQ_SHIFT = TRANSFER_SEQ_BASE // 2
 
 
-def _in_space(name: str, base: int, n: int) -> int:
+def _in_space(name: str, base: int, n: int, prefill: bool) -> int:
     size = TRANSFER_SEQ_BASE // 8
     if not 0 <= n < size:
         raise ValueError(f"{name} {n} outside [0, {size})")
-    return base + n
+    return base + n + (PREFILL_SEQ_SHIFT if prefill else 0)
 
 
-def crossing_seq(n: int) -> int:
+def crossing_seq(n: int, prefill: bool = False) -> int:
     """The swap sequence number of the n-th prefill crossing between two
-    pipeline ranks (part 0)."""
-    return _in_space("crossing", CROSSING_SEQ_BASE, n)
+    pipeline ranks (part 0), of a pair's prefill role with ``prefill``."""
+    return _in_space("crossing", CROSSING_SEQ_BASE, n, prefill)
 
 
-def restage_seq(n: int) -> int:
+def restage_seq(n: int, prefill: bool = False) -> int:
     """The swap sequence number of the n-th tensor a live re-plan moves
-    between two pipeline ranks (part 0)."""
-    return _in_space("restage message", RESTAGE_SEQ_BASE, n)
+    between two pipeline ranks (part 0), of a pair's prefill role with
+    ``prefill``."""
+    return _in_space("restage message", RESTAGE_SEQ_BASE, n, prefill)
 
 
-def exchange_seq(n: int) -> int:
+def exchange_seq(n: int, prefill: bool = False) -> int:
     """The swap sequence number of the n-th KV exchange a data rank of a
-    pod seals for the others after a decode step (part 0)."""
-    return _in_space("exchange", EXCHANGE_SEQ_BASE, n)
+    pod seals for the others after a decode step (part 0), of a pair's
+    prefill role with ``prefill``."""
+    return _in_space("exchange", EXCHANGE_SEQ_BASE, n, prefill)
 
 
 def _swap_counter(swap_seq, part: int):

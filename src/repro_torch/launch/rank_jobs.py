@@ -1,6 +1,7 @@
-"""Rank bodies for ``launch.ranks.spawn``: the pipelined decoder and the
+"""Rank bodies for ``launch.ranks.spawn``: the pipelined decoder, the
 serving engine with one stage per pod (its data ranks splitting each
-microbatch's rows), the prefill and decode serve steps and the train step
+microbatch's rows) and the disaggregated pair on the same mesh, the
+prefill and decode serve steps and the train step
 (plain or compressed) over a mesh of pod and data ranks, each driven for
 a few steps from inputs the caller hands over on the CPU, or from seeded
 weights drawn on the rank's device.
@@ -10,6 +11,9 @@ weights drawn on the rank's device.
     outs = spawn(rank_jobs.serve, 2, backend="gloo", device="cpu",
                  args=(ServeJob(cfg, [ServeRun(EngineConfig(...),
                                                requests)]),))
+    outs = spawn(rank_jobs.disagg, 4, backend="gloo", device="cpu",
+                 args=(DisaggJob(cfg, [DisaggRun(EngineConfig(...),
+                                                 requests)], data=2),))
 
 Each body returns, per rank, what it computed (logits, tokens, losses,
 the rank's cache or params), the kernel launches it made (``ops.LAUNCHES``
@@ -554,6 +558,284 @@ def serve(ctx: RankContext, job: ServeJob) -> List[dict]:
             if ctx.device.type == "cuda" else 0})
         del eng, be, probe
         # the engine's graphs go now, not inside the next one's captures
+        gc.collect()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The disaggregated pair over ranks
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class DisaggRun:
+    """The prefill/decode pair (``build_disagg(mesh=)``) over one request
+    stream: ``requests`` ``(prompt, max_new)``; with ``every`` > 0 one is
+    submitted whenever the decode role's step count is a multiple of
+    ``every`` (the serve launcher's ``serve_stream_orch``), with ``every``
+    0 all up front and then ``run``. ``config`` seeds both roles (faults
+    and warmup included); ``inject`` is a straggler ``(stage, factor)`` on
+    the decode role's telemetry (a live re-plan there, so later handoffs
+    relayout)."""
+
+    config: EngineConfig
+    requests: Sequence[Tuple[Sequence[int], int]]
+    every: int = 0
+    inject: Optional[Tuple[int, float]] = None
+
+
+PAIR_MAX_TICKS = 2000       # an up-front stream drains within this
+
+
+def drive_pair(orch, run: DisaggRun):
+    """Serve ``run``'s stream through the orchestrator ``orch``; returns the
+    requests."""
+    from repro_torch.launch.serve import serve_stream_orch
+    if run.every:
+        return serve_stream_orch(orch, run.requests, run.every)
+    reqs = [orch.submit(list(p), m) for p, m in run.requests]
+    orch.run(max_steps=PAIR_MAX_TICKS)
+    return reqs
+
+
+def _row_digests(rows: torch.Tensor) -> torch.Tensor:
+    """[layers, n, ...] -> int64 [layers, n]: each (layer, row) slice's
+    ``param_digest`` (bit patterns times odd weights of their positions,
+    summed with wrapping), so two slices with equal digests hold the same
+    bits but with a vanishing chance."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+    flat = rows.reshape(rows.shape[0], rows.shape[1], -1)
+    bits = flat.contiguous().view(ints[rows.element_size()]).to(torch.int64)
+    w = torch.arange(bits.shape[-1], dtype=torch.int64,
+                     device=bits.device).mul_(2).add_(1)
+    return (bits * w).sum(-1).cpu()
+
+
+class PairProbe:
+    """A pair instrumented from outside: the decode role's ``Probe``
+    (``decode``: host ms a decode step, stage probes, a ``param_digest``
+    of its cache after every tick); host ms, this rank's part bytes and
+    bytes messaged of each export (``exports``) and each transfer-in
+    (``transfers_in``, and whether it restored), between device
+    synchronises, less the time the row digests below took; the first
+    handoff's part (``first_handoff``: payload, digest, layout, counter);
+    a digest of every transferred (layer, page row) as the prefill role
+    gathered it (``gathered``) and as the decode role restored it
+    (``restored``, the rows that landed), keyed by (counter, part, layer,
+    row), for the layers this rank holds in each role; the orchestrator's
+    decisions after every tick (``decisions``: clock, back-pressure
+    events, handoffs, the in-flight ladder). On one card ``layer`` runs
+    over every layer."""
+
+    def __init__(self, orch):
+        pre, dec = orch.eng_prefill, orch.decode
+        self.decode = Probe(dec, keep=False, digest=True)
+        self.exports, self.transfers_in = [], []
+        self.first_handoff = None
+        self.gathered, self.restored = {}, {}
+        self.decisions = []
+        self._watch_ms = 0.0        # host ms the row digests took
+        dev = dec.device
+        export, transfer_in = pre.export_transfer, dec._transfer_in
+
+        def sent(eng):
+            st = getattr(eng.backend, "staging", None)
+            return st.sent if st is not None else 0
+
+        def timed_export(slot):
+            _sync(dev)
+            t0, s0, w0 = time.perf_counter(), sent(pre), self._watch_ms
+            req, man = export(slot)
+            _sync(dev)
+            self.exports.append(((time.perf_counter() - t0) * 1e3
+                                 - (self._watch_ms - w0),
+                                 sum(p.nbytes for p in man.payload),
+                                 sent(pre) - s0))
+            if self.first_handoff is None:
+                self.first_handoff = dict(
+                    payload=tuple(man.payload), digest=man.digest,
+                    layout=man.layout, counter=man.counter)
+            return req, man
+
+        def timed_in(slot, req, t0):
+            man = dec.pool.transfer_manifest[req.rid]
+            _sync(dev)
+            t, s0, w0 = time.perf_counter(), sent(dec), self._watch_ms
+            ok = transfer_in(slot, req, t0)
+            _sync(dev)
+            self.transfers_in.append(((time.perf_counter() - t) * 1e3
+                                      - (self._watch_ms - w0),
+                                      sum(p.nbytes for p in man.payload),
+                                      sent(dec) - s0, ok))
+            if not ok:          # fresh pages released: nothing restored
+                for k in [k for k in self.restored if k[0] == man.counter]:
+                    del self.restored[k]
+            return ok
+
+        pre.export_transfer, dec._transfer_in = timed_export, timed_in
+        self._watch_rows(pre.backend, dec.backend, dec.pool.num_pages)
+        step = orch.step
+
+        def observed_step():
+            step()
+            self.decisions.append((
+                orch.clock, orch.backpressure_events, orch.handoffs,
+                [(e[0].rid, e[2], e[3], e[4], e[5])
+                 for e in orch._in_flight]))
+
+        orch.step = observed_step
+
+    @staticmethod
+    def _span(be):
+        dec = getattr(be, "dec", None)
+        if dec is None or dec.mesh is None:
+            return 0
+        return dec.ranges[dec.stage][0]
+
+    def _watch_rows(self, pre_be, dec_be, num_pages: int) -> None:
+        from repro_torch.enclave import sealing
+        gather, scatter = pre_be.gather_pages, dec_be.scatter_pages
+
+        def watched_gather(pages, key, ctr):
+            if ctr >= sealing.TRANSFER_SEQ_BASE:
+                _sync(pre_be.device)
+                t0 = time.perf_counter()
+                pg = torch.as_tensor(np.asarray(pages, np.int64),
+                                     device=pre_be.device)
+                lo = self._span(pre_be)
+                for part, pool in enumerate(pre_be.body):
+                    d = _row_digests(pool[:, pg])
+                    for i in range(d.shape[0]):
+                        for r in range(d.shape[1]):
+                            self.gathered[(ctr, part, lo + i, r)] = \
+                                int(d[i, r])
+                self._watch_ms += (time.perf_counter() - t0) * 1e3
+            return gather(pages, key, ctr)
+
+        def watched_scatter(ck, cv, pages, key, ctr, **layout):
+            scatter(ck, cv, pages, key, ctr, **layout)
+            if ctr < sealing.TRANSFER_SEQ_BASE:
+                return
+            _sync(dec_be.device)
+            t0 = time.perf_counter()
+            rows = [r for r, pg in enumerate(pages) if pg < num_pages]
+            pg = torch.as_tensor([int(pages[r]) for r in rows],
+                                 dtype=torch.int64, device=dec_be.device)
+            lo = self._span(dec_be)
+            for part, pool in enumerate(dec_be.body):
+                d = _row_digests(pool[:, pg])
+                for i in range(d.shape[0]):
+                    for j, r in enumerate(rows):
+                        self.restored[(ctr, part, lo + i, r)] = int(d[i, j])
+            self._watch_ms += (time.perf_counter() - t0) * 1e3
+
+        pre_be.gather_pages, dec_be.scatter_pages = (watched_gather,
+                                                     watched_scatter)
+
+
+def rows_restored(ranks: Sequence[dict]) -> List[int]:
+    """Each rank's transferred (layer, page row) pairs whose restored bits
+    equal the bits the prefill role gathered (``PairProbe`` digests of
+    every rank's results, one dict a rank with ``gathered`` and
+    ``restored``); raises on a row restored otherwise, or gathered
+    differently by two ranks that held its layer."""
+    gathered = {}
+    for r in ranks:
+        for k, d in r["gathered"].items():
+            assert gathered.setdefault(k, d) == d, \
+                ("two ranks gathered one row differently", k)
+    out = []
+    for r in ranks:
+        for k, d in r["restored"].items():
+            assert k in gathered and gathered[k] == d, \
+                ("a transferred row not restored bit for bit", k)
+        out.append(len(r["restored"]))
+    return out
+
+
+@dataclasses.dataclass
+class DisaggJob:
+    """``build_disagg(mesh=)`` on each rank of a ``(world / data, data)``
+    pod x data mesh, over each of ``runs`` in turn. ``params`` on the CPU,
+    or None to draw them from ``seed`` on the rank's device."""
+
+    cfg: ArchConfig
+    runs: Sequence[DisaggRun]
+    dtype: torch.dtype = torch.float32
+    params: Any = None
+    seed: int = 0
+    max_seq: int = 4096
+    data: int = 1
+
+
+def _role(eng) -> dict:
+    """What a rank keeps of one role: its stats and events, graphs, warmup
+    and post-warmup counts, its stage, data index, final range and decode
+    steps."""
+    be = eng.backend
+    return {"stats": eng.stats(), "events": _events(eng),
+            "graphs": eng.aot.graphs, "warmup_s": eng.warmup_s,
+            "post_warmup_compiles": eng.aot.post_freeze_compiles,
+            "stalls": [x.describe() for x in eng.aot.post_freeze_stalls],
+            "stage": be.stage, "data": be.data,
+            "range": be.dec.ranges[be.stage], "decode_steps": be.steps}
+
+
+def disagg(ctx: RankContext, job: DisaggJob) -> List[dict]:
+    """One result a run: ``streams`` and ``status``; ``orch`` (the
+    orchestrator's ``stats()``); ``decode`` and ``prefill`` (``_role``: each
+    role's stats, events, graphs, warmup, post-warmup captures and stalls,
+    stage, final range and decode steps); ``launches`` over the run (construction and warmup
+    excluded); the ``PairProbe`` figures (``exports``, ``transfers_in``,
+    ``first_handoff``, ``gathered``, ``restored``, ``decisions``,
+    ``digests``, ``step_ms``, ``probes``); the decode role's
+    ``relayouts`` and final ``cache_digest``; ``keys``, every (kind, key, counter, col0, cols,
+    row_cols) this rank sealed under, both roles, construction and warmup
+    included (``KeyLedger``); the decode role's ``admission_ms``; on a card
+    the run's ``peak_reserved`` device bytes, both roles on the rank."""
+    from repro_torch.launch.serve import TOPOLOGIES
+    from repro_torch.serving.disagg import build_disagg
+    rm = TOPOLOGIES["two-enclave"]
+    api, params = _model(ctx, job.cfg, job.dtype, job.params, job.seed,
+                         job.max_seq)
+    params = map_tree(lambda t: t.cpu(), params)
+    _sync(ctx.device)
+    mesh = make_mesh((ctx.world // job.data, job.data), ("pod", "data"),
+                     device=ctx.device)
+    out = []
+    for run in job.runs:
+        if ctx.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(ctx.device)
+        with KeyLedger() as ledger:
+            orch = build_disagg(api, params, config=run.config,
+                                backend="pipelined", mesh=mesh,
+                                device=ctx.device,
+                                rm=rm(run.config.num_stages))
+            if run.inject:
+                orch.decode.telemetry.inject(*run.inject)
+            probe = PairProbe(orch)
+            _sync(ctx.device)
+            ops.reset_launch_counts()
+            reqs = drive_pair(orch, run)
+            _sync(ctx.device)
+            launches = dict(ops.LAUNCHES)
+        orch.check_invariants()
+        dec = orch.decode
+        out.append({
+            "streams": [list(r.generated) for r in reqs],
+            "status": [r.status for r in reqs],
+            "orch": orch.stats(), "decode": _role(dec),
+            "prefill": _role(orch.eng_prefill), "launches": launches,
+            "exports": probe.exports, "transfers_in": probe.transfers_in,
+            "first_handoff": probe.first_handoff,
+            "step_ms": probe.decode.step_ms, "probes": probe.decode.probes,
+            "gathered": probe.gathered, "restored": probe.restored,
+            "decisions": probe.decisions, "digests": probe.decode.digests,
+            "relayouts": dec.backend.relayouts,
+            "cache_digest": param_digest(dec.backend.cache),
+            "keys": ledger.records,
+            "admission_ms": list(dec.admission_ms),
+            "peak_reserved": torch.cuda.max_memory_reserved(ctx.device)
+            if ctx.device.type == "cuda" else 0})
+        del orch, dec, probe
         gc.collect()
     return out
 

@@ -124,17 +124,32 @@ raises.
       --slots 4 --requests 8 --prompt-len 24 --max-new 8 --page-size 8 \\
       --no-seal --f32 --warmup --prefill-chunk 6 --verify-chunked \\
       --assert-no-recompile
+  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
+      --device cpu --mesh 2x2 --stages 2 --ranks gloo --microbatches 2 \\
+      --slots 4 --requests 6 --prompt-len 8 --max-new 8 --page-size 4 \\
+      --no-seal --f32 --warmup --disagg --verify-disagg \\
+      --assert-no-recompile
+  python -m repro_torch.launch.serve --arch llama3.2-1b --reduced \\
+      --device cpu --mesh 2x2 --stages 2 --ranks gloo --microbatches 2 \\
+      --slots 4 --requests 8 --prompt-len 8 --max-new 10 --page-size 4 \\
+      --no-seal --f32 --seed 7 --disagg --chaos --verify-recovery
 
-The last two are the reference's 2 x 2 ``--warmup --assert-no-recompile``
-lines over four ranks: each rank captures its stage's device work between
-its messages, and ``--assert-no-recompile`` gathers every rank's
-post-warmup captures and stalls, so rank 0 prints the world's verdict.
+The 2 x 2 ``--warmup --assert-no-recompile`` lines are the reference's
+over four ranks: each rank captures its stage's device work between its
+messages, and ``--assert-no-recompile`` gathers every rank's post-warmup
+captures and stalls, so rank 0 prints the world's verdict. The last two
+are the reference's ``--disagg`` lines over four ranks: both roles of the
+pair are rank engines on the pod x data mesh (``build_disagg(mesh=)``),
+``--assert-no-recompile`` gathers each role's counts over the world, and
+``--verify-recovery`` also asserts that every rank injected the same
+faults and took the same rungs.
 """
 from __future__ import annotations
 
 import argparse
 import copy
 import dataclasses
+import gc
 
 import numpy as np
 import torch
@@ -431,22 +446,28 @@ def serve_stream(eng: ServingEngine, args, prompts):
     return reqs
 
 
-def serve_stream_orch(orch: DisaggOrchestrator, args, prompts):
-    """The orchestrator twin of ``serve_stream``: the same prompts in the
-    same order on the decode engine's clock, so the rids match a
-    monolithic run's."""
+def serve_stream_orch(orch: DisaggOrchestrator, requests, every: int):
+    """The orchestrator twin of ``serve_stream``: ``requests`` ``(prompt,
+    max_new)`` in order, one submitted whenever the decode engine's step
+    count is a multiple of ``every``, so the rids match a monolithic
+    run's."""
     reqs, k = [], 0
-    while k < len(prompts) or orch.has_work():
-        if k < len(prompts) and orch.decode.steps % args.arrival_every == 0:
-            reqs.append(orch.submit(prompts[k], args.max_new))
+    while k < len(requests) or orch.has_work():
+        if k < len(requests) and orch.decode.steps % every == 0:
+            reqs.append(orch.submit(list(requests[k][0]), requests[k][1]))
             k += 1
         orch.step()
         if orch.stalled:
             break
-        if k < len(prompts) and not orch.has_work():
-            reqs.append(orch.submit(prompts[k], args.max_new))
+        if k < len(requests) and not orch.has_work():
+            reqs.append(orch.submit(list(requests[k][0]), requests[k][1]))
             k += 1
     return reqs
+
+
+def stream_of(args, prompts):
+    """``serve_stream_orch``'s requests for the parsed arguments."""
+    return [(p, args.max_new) for p in prompts]
 
 
 def make_disagg(api, params, args, **overrides) -> DisaggOrchestrator:
@@ -455,12 +476,15 @@ def make_disagg(api, params, args, **overrides) -> DisaggOrchestrator:
     ``make_config``."""
     return build_disagg(api, params, config=make_config(args, **overrides),
                         backend=backend_of(args), device=api.device,
-                        rm=TOPOLOGIES[args.topology](args.stages))
+                        rm=TOPOLOGIES[args.topology](args.stages),
+                        mesh=getattr(args, "rank_mesh", None))
 
 
 def build_params(args):
     """(api, params) for the parsed arguments: the model on its device with
-    random weights drawn from ``--seed``."""
+    random weights drawn from ``--seed``. On a rank of ``--ranks`` the
+    params come back on the host, one tree that every rank engine of the
+    process reads its layers from (``serving/ranked.py::host_copy``)."""
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
@@ -468,6 +492,9 @@ def build_params(args):
     dtype = torch.float32 if args.f32 else torch.bfloat16
     api = build_model(cfg, device=device, dtype=dtype)
     params = api.init(torch.Generator(device=device).manual_seed(args.seed))
+    if getattr(args, "rank_mesh", None) is not None:
+        from repro_torch.serving.ranked import host_copy
+        params = host_copy(params)
     return api, params
 
 
@@ -539,18 +566,23 @@ def _assert_no_recompile(st, role: str = "") -> None:
     assert not st["compile_stalls"], st["compile_stalls"]
 
 
+def world_rows(values, tag: str):
+    """Every rank's ``values`` (ints) in global rank order, gathered over
+    the world. Every rank calls it at the same point."""
+    from repro_torch.launch import ranks as RK
+    mine = torch.tensor(values, dtype=torch.int64,
+                        device=RK.message_device(None))
+    got = RK.all_gather(RK.Staging(), mine, None, tag=tag)
+    return [tuple(int(x) for x in row) for row in got.cpu().tolist()]
+
+
 def world_counts(st):
     """Every rank's (post-warmup captures, post-warmup stalls, graphs) in
-    global rank order, gathered over the world: each rank's engine warms
-    and captures its own stage's work. Every rank calls it at the same
-    point; ``stats()`` itself sends nothing."""
-    from repro_torch.launch import ranks as RK
-    mine = torch.tensor([st["post_warmup_compiles"],
-                         len(st["compile_stalls"]), st["graphs"]],
-                        dtype=torch.int64,
-                        device=RK.message_device(None))
-    got = RK.all_gather(RK.Staging(), mine, None, tag="no_recompile")
-    return [tuple(int(x) for x in row) for row in got.cpu().tolist()]
+    global rank order: each rank's engine warms and captures its own
+    stage's work; ``stats()`` itself sends nothing."""
+    return world_rows([st["post_warmup_compiles"],
+                       len(st["compile_stalls"]), st["graphs"]],
+                      "no_recompile")
 
 
 def disagg_main(api, params, args):
@@ -562,8 +594,13 @@ def disagg_main(api, params, args):
                              max_new=args.max_new, page_size=args.page_size)
     print(f"role plan: {plan.describe()}")
     orch = make_disagg(api, params, args)
+    print(f"disagg: prefill backend={orch.eng_prefill.backend_kind} "
+          f"decode backend={orch.decode.backend_kind}"
+          + (f", both roles on the {args.mesh} ranks" if args.ranks
+             else ""))
     prompts = gen_prompts(args, api.cfg.vocab_size)
-    reqs = serve_stream_orch(orch, args, prompts)
+    stream = stream_of(args, prompts)
+    reqs = serve_stream_orch(orch, stream, args.arrival_every)
     orch.check_invariants()
     st = orch.stats()
     ps = st["prefill_stats"]
@@ -583,14 +620,32 @@ def disagg_main(api, params, args):
         print("sample tokens:", reqs[0].generated)
     if args.assert_no_recompile:
         assert args.warmup, "--assert-no-recompile needs --warmup"
-        _assert_no_recompile(orch.decode.stats(), "decode role: ")
-        _assert_no_recompile(orch.eng_prefill.stats(), "prefill role: ")
-        print("NO-RECOMPILE OK: zero post-warmup captures and no stall on "
-              "both roles")
+        roles = (("decode", orch.decode), ("prefill", orch.eng_prefill))
+        if args.ranks:
+            # each role's counts over the world, the decode role's first,
+            # at the same point on every rank
+            graphs = {}
+            for role, eng in roles:
+                world = world_counts(eng.stats())
+                bad = [(r, c, n) for r, (c, n, _) in enumerate(world)
+                       if c or n]
+                assert not bad, f"{role} role: (rank, post-warmup " \
+                    f"captures, stalls) {bad}; this rank's stalls: " \
+                    f"{eng.stats()['compile_stalls']}"
+                graphs[role] = [g for _, _, g in world]
+            print(f"NO-RECOMPILE OK: post_warmup_compiles=0, 0 stalls on "
+                  f"both roles on every one of {len(world)} ranks (graphs "
+                  f"a rank: decode role {graphs['decode']}, prefill role "
+                  f"{graphs['prefill']})")
+        else:
+            for role, eng in roles:
+                _assert_no_recompile(eng.stats(), f"{role} role: ")
+            print("NO-RECOMPILE OK: zero post-warmup captures and no stall "
+                  "on both roles")
     if args.verify_disagg:
         mono = serve_stream(make_engine(api, params, args), args, prompts)
         fb = DisaggOrchestrator(make_engine(api, params, args))
-        fb_reqs = serve_stream_orch(fb, args, prompts)
+        fb_reqs = serve_stream_orch(fb, stream, args.arrival_every)
         assert fb.stats()["handoffs"] == 0
         assert len(reqs) == len(mono) == len(fb_reqs) == len(prompts)
         for a, b, c in zip(reqs, mono, fb_reqs):
@@ -613,10 +668,13 @@ def disagg_main(api, params, args):
             orch.eng_prefill.faults.total_injected()
         assert total > 0, "chaos armed but no fault landed"
         assert st["in_flight_handoffs"] == 0
+        # the chaotic pair's engines go before the calm pair is built
+        del orch
+        gc.collect()
         calm = copy.copy(args)
         calm.chaos = False
-        calm_reqs = serve_stream_orch(make_disagg(api, params, calm), calm,
-                                      prompts)
+        calm_reqs = serve_stream_orch(make_disagg(api, params, calm),
+                                      stream, args.arrival_every)
         assert len(reqs) == len(calm_reqs) == len(prompts)
         for a, b in zip(reqs, calm_reqs):
             assert a.generated == b.generated, \
@@ -625,9 +683,18 @@ def disagg_main(api, params, args):
         for role in (ds, ps):
             assert not role["failed_requests"], role["failed_requests"]
             assert_recovery_accounted(role)
+        where = ""
+        if args.ranks:
+            # every rank injected the same faults and took the same rungs
+            world = world_rows([v for role in (ds, ps)
+                                for k in ("faults", "recovery")
+                                for _, v in sorted(role[k].items())],
+                               "recovery")
+            assert all(row == world[0] for row in world), world
+            where = f", the same on every one of {len(world)} ranks"
         print(f"RECOVERY-EXACT OK: {len(reqs)} token streams identical "
               f"under {total} injected faults across both roles "
-              f"({_rungs(ds)})")
+              f"({_rungs(ds)}{where})")
     return st
 
 

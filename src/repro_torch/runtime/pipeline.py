@@ -184,6 +184,9 @@ class PipelinedDecoder:
     stage_blocks: Optional[Sequence[int]] = None   # per-stage block counts
     stage_devices: Optional[Sequence[str]] = None  # per-stage device names
     mesh: Any = None                               # a DeviceMesh of ranks
+    # on ranks, whether its crossings, restages and exchanges draw from
+    # the sequence spaces of a pair's prefill role (``sealing``)
+    prefill_role: bool = False
 
     @classmethod
     def from_spec(cls, api: ModelAPI, spec, num_microbatches: int, *,
@@ -398,7 +401,8 @@ class PipelinedDecoder:
 
         def ctr(m: int, j: int):
             return sealing._swap_counter(sealing.restage_seq(
-                (seq + m * len(flat) + j) * self.num_data + self.data), 0)
+                (seq + m * len(flat) + j) * self.num_data + self.data,
+                self.prefill_role), 0)
 
         outgoing, incoming = [], []
         for m, (a, b, lo, hi) in enumerate(moves):
@@ -441,7 +445,7 @@ class PipelinedDecoder:
             if not 0 <= i < S - 1:
                 return 0
             return sealing._swap_counter(sealing.crossing_seq(
-                (seq + i) * self.num_data + self.data), 0)
+                (seq + i) * self.num_data + self.data, self.prefill_role), 0)
 
         return [ctr(s - 1), ctr(s)]
 
@@ -875,8 +879,9 @@ class PipelinedDecoder:
         the exchange sequence number ``(n * pods + s) * data + i``
         (``sealing.exchange_seq``)."""
         first = (n * self.num_stages + self.stage) * self.num_data
-        return [sealing._swap_counter(sealing.exchange_seq(first + i), 0)
-                for i in range(self.num_data)]
+        return [sealing._swap_counter(
+            sealing.exchange_seq(first + i, self.prefill_role), 0)
+            for i in range(self.num_data)]
 
     def rank_loop(self, segs: Dict[str, Callable], tokens: torch.Tensor,
                   key, exchange=None) -> torch.Tensor:

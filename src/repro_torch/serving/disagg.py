@@ -35,6 +35,13 @@ sampled on the prefill side exactly as the monolithic engine samples it,
 and ``_transfer_in`` resumes decode like a swap-in (the first token was never written to KV, so it is the next
 decode input). On the card both roles run their paged, flash and cipher
 CUDA kernels; with ``warmup`` each role captures its own CUDA graphs.
+
+Over a pod x data mesh of ranks (``build_disagg(mesh=)``) both roles are
+rank engines on every rank and the orchestrator runs its same host logic
+on each: a handoff's fate, back-pressure and deadlines read only what
+every rank holds alike (the fault plane's seeded draws, queue lengths,
+the tick clock), so they agree with no message. Each rank ships its own
+part of a handoff, cipher text only (``serving/ranked.py``).
 """
 from __future__ import annotations
 
@@ -364,8 +371,11 @@ class DisaggOrchestrator:
                 continue
             if plane is not None:
                 # in-transit tamper: the damage travels with the manifest
-                # and the digest check at _transfer_in catches it
-                tampered, mode = plane.maybe_tamper_transfer(man.payload)
+                # and the digest check at _transfer_in catches it. On
+                # ranks the byte is drawn over whole rows, as one device
+                # draws it, and flipped on the rank whose part holds it
+                tampered, mode = plane.maybe_tamper_transfer(
+                    man.payload, self.decode.cipher_window(man))
                 if mode is not None:
                     man.payload = tampered
             self.decode.ingest_transfer(req, man)
@@ -469,7 +479,7 @@ class DisaggOrchestrator:
 # ---------------------------------------------------------------------------
 def build_disagg(api, params=None, *, config: Optional[EngineConfig] = None,
                  prefill_overrides: Optional[Dict[str, Any]] = None,
-                 backend: Optional[str] = None,
+                 backend: Optional[str] = None, mesh=None,
                  device: Optional[Union[str, torch.device]] = None,
                  rm: Optional[ResourceManager] = None,
                  warmup: Optional[bool] = None) -> DisaggOrchestrator:
@@ -478,13 +488,21 @@ def build_disagg(api, params=None, *, config: Optional[EngineConfig] = None,
     fault plane from ``config.faults``); ``prefill_overrides``
     (e.g. ``{"prefill_pack": 4, "num_slots": 2}``) reshape the prefill
     role only. ``device`` is the engines' (``cuda`` unless the caller asks
-    for the CPU). With ``warmup`` each role captures its own graphs in its
-    constructor; each registry counts only its own captures, so unlike the
-    reference (whose compile monitor is process-global) neither needs to be
-    frozen again once both have warmed up."""
+    for the CPU). With ``mesh`` (a pod x data mesh of ranks, called on
+    every rank of ``launch.ranks.spawn``) both roles are rank engines with
+    stage s on the ranks of pod s (``serving/ranked.py``), over one host
+    copy of the params, and the orchestrator runs on every rank. With
+    ``warmup`` each role captures its own graphs in its constructor, the
+    decode role first, on every rank at the same point; each registry
+    counts only its own captures, so unlike the reference (whose compile
+    monitor is process-global) neither needs to be frozen again once both
+    have warmed up."""
     cfg = config or EngineConfig()
     if params is None:
         params = api.init(torch.Generator(device=api.device).manual_seed(0))
+    if mesh is not None:
+        from repro_torch.serving import ranked
+        params = ranked.host_copy(params)    # one host tree for both roles
     d_cfg = dataclasses.replace(cfg, disagg_role="decode")
     p_cfg = dataclasses.replace(cfg, **{**(prefill_overrides or {}),
                                         "disagg_role": "prefill"})
@@ -492,7 +510,7 @@ def build_disagg(api, params=None, *, config: Optional[EngineConfig] = None,
         d_cfg = dataclasses.replace(d_cfg, warmup=warmup)
         p_cfg = dataclasses.replace(p_cfg, warmup=warmup)
     decode = ServingEngine(api, d_cfg, params, device=device, rm=rm,
-                           backend=backend)
+                           backend=backend, mesh=mesh)
     pre = ServingEngine(api, p_cfg, params, device=device, rm=rm,
-                        backend=backend)
+                        backend=backend, mesh=mesh)
     return DisaggOrchestrator(decode, PrefillEngine(pre))

@@ -209,8 +209,10 @@ class EngineConfig:
 # (0xC0FFEE). Its swap sequence numbers start at the middle of the swap
 # space (still below sealing.TRANSFER_SEQ_BASE) and its stage-boundary
 # keys at key + 2^31, so neither its swaps, nor its warmup's swap I/O and
-# decode ticks, reuse a (key, counter) pair of the decode role's.
-_PREFILL_SWAP_SEQ = sealing.TRANSFER_SEQ_BASE // 2
+# decode ticks, reuse a (key, counter) pair of the decode role's. On ranks
+# its crossings, restages and exchanges draw from that upper half too
+# (``sealing``, ``prefill=True``).
+_PREFILL_SWAP_SEQ = sealing.PREFILL_SEQ_SHIFT
 _PREFILL_KEY_SHIFT = 1 << 31
 
 
@@ -1600,6 +1602,15 @@ class ServingEngine:
                                        "error": str(e)})
         return False
 
+    def cipher_window(self, man):
+        """The columns of a whole payload row that this rank's part of a
+        swap or transfer manifest holds, under the layer ranges it was
+        sealed with (the fault plane's tamper window); None on one
+        device."""
+        if man.layout is None:
+            return None
+        return self.backend.cipher_window(man.layout)
+
     def _swap_in(self, slot: int, req: Request, t0: float) -> bool:
         """Resume a swapped-out request: one fresh page per sealed row,
         unseal + scatter the host payload into them, re-adopt the pinned
@@ -1614,10 +1625,8 @@ class ServingEngine:
         man = self.pool.swap_manifest[req.rid]
         context = f"swap-in rid {req.rid}"
         if self.faults is not None and not self._in_warmup:
-            window = None if man.layout is None else \
-                self.backend.cipher_window(man.layout)
-            tampered, mode = self.faults.maybe_tamper_swap(man.payload,
-                                                           window)
+            tampered, mode = self.faults.maybe_tamper_swap(
+                man.payload, self.cipher_window(man))
             if mode is not None:
                 man.payload = tampered
                 self._emit("fault_tamper", {"rid": req.rid, "path": "swap",
@@ -1707,8 +1716,10 @@ class ServingEngine:
         self._transfer_seq += 1
         ck, cv = self.backend.gather_pages(gather_vec, self._key, seq)
         payload = (sealing.cipher_to_host(ck), sealing.cipher_to_host(cv))
+        # on a rank engine this rank's part, sealed under these layer ranges
         man = TransferManifest(req.rid, n_tokens, entries, payload, seq,
-                               sealing.payload_digest(payload))
+                               sealing.payload_digest(payload),
+                               self.backend.swap_layout())
         self.pool.release(pages)
         self.backend.clear_slot(slot)
         self.scheduler.handoff(slot, step=self.steps)
@@ -1748,7 +1759,10 @@ class ServingEngine:
                     adopted += 1
         self.pool.register_transfer(req.rid, entries, man.payload,
                                     man.n_tokens, man.counter,
-                                    digest=man.digest)
+                                    digest=man.digest,
+                                    # a manifest of one device may have no
+                                    # such field (the reference's)
+                                    layout=getattr(man, "layout", None))
         self.scheduler.adopt(req)
         self._emit("handoff_in", {"rid": req.rid,
                                   "sealed": len(entries) - adopted,
@@ -1768,13 +1782,20 @@ class ServingEngine:
         is launched, the host re-hashes the sealed bits while the card
         unseals, and the block table commits only after the digest
         matches. Returns False (the caller re-prefills prompt + first
-        token) when the payload fails either check."""
+        token) when the payload fails either check. On a rank engine each
+        rank checks its own part and the verdicts are every rank's
+        (``_agreed_integrity``), and the scatter takes the layer ranges the
+        part was sealed under, as a swap-in's."""
         man = self.pool.transfer_manifest[req.rid]
         context = f"transfer-in rid {req.rid}"
+        err = None
         try:
             sealing.verify_structure(man.payload, man.digest, context=context)
         except sealing.SealIntegrityError as e:
-            return self._integrity_reject(req, "transfer", [], e)
+            err = e
+        err = self._agreed_integrity(err, context, "structure")
+        if err is not None:
+            return self._integrity_reject(req, "transfer", [], err)
         N = self.pool.num_pages
         pages: List[int] = []
         fresh: List[int] = []
@@ -1794,12 +1815,17 @@ class ServingEngine:
                 fresh_keys.append((key, pg))
         ck, cv = (sealing.cipher_to_device(a, self.device)
                   for a in man.payload)
+        layout = {} if man.layout is None else {"layout": man.layout}
         self.backend.scatter_pages(ck, cv, scatter_vec, self._key,
-                                   man.counter)
+                                   man.counter, **layout)
+        err = None
         try:
             sealing.verify_payload(man.payload, man.digest, context=context)
         except sealing.SealIntegrityError as e:
-            return self._integrity_reject(req, "transfer", fresh, e)
+            err = e
+        err = self._agreed_integrity(err, context, "digest")
+        if err is not None:
+            return self._integrity_reject(req, "transfer", fresh, err)
         man = self.pool.transfer_in(req.rid)
         bt_row = np.zeros(self.pages_per_slot, np.int32)
         bt_row[:len(pages)] = pages
@@ -1810,7 +1836,7 @@ class ServingEngine:
             for key, pg in fresh_keys:
                 self.pool.register_prefix(key, pg)     # keeps an older hit
         self.pending[slot] = req.generated[-1]
-        ms = (time.perf_counter() - t0) * 1e3
+        ms = self._ms_since(t0)
         self.admission_ms.append(ms)
         self.admissions += 1
         self._emit("admit", {"rid": req.rid, "slot": slot,

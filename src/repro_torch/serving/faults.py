@@ -190,10 +190,10 @@ class FaultPlane:
         return self._tamper(payload, self.config.corrupt_swap,
                             self.config.truncate_swap, "swap", window)
 
-    def maybe_tamper_transfer(self, payload: Any
+    def maybe_tamper_transfer(self, payload: Any, window=None
                               ) -> Tuple[Any, Optional[str]]:
         return self._tamper(payload, self.config.corrupt_transfer,
-                            self.config.truncate_transfer, "transfer")
+                            self.config.truncate_transfer, "transfer", window)
 
     # -- site: handoff transit ------------------------------------------
     def handoff_fate(self) -> Tuple[str, int]:

@@ -67,8 +67,21 @@ params and KV in slabs sized for the most layers its stage takes over the
 planned layout and the warmup's tour: each layout uses a leading view,
 and a swap writes the new layers into the slabs in place (``_Ranked``).
 
-Refused by name (ROADMAP item 10d): a ``model`` axis above 1 and the
-disaggregated pair.
+The disaggregated pair (``serving/disagg.py::build_disagg(mesh=)``) puts
+a prefill-role and a decode-role rank engine on every rank, over one host
+tree of params (``host_copy`` keeps a tree already whole on the host, so
+both roles share it). Both lay stage s on the ranks of pod s; the prefill
+role draws its swaps, crossings, restages and exchanges from sequence
+spaces of its own (``sealing``, ``prefill=True``), since both share the
+rank's key. A handoff is a swap between the two roles' pools: data rank 0
+of each pod seals its pod's window of every page row at export, the
+manifest records the prefill role's layer ranges, and at transfer-in the
+decode role first moves the cipher columns to their owners under its own
+ranges if it has re-planned since (``_relayout``), then forwards the part
+to the pod's other data ranks (``_share_part``); its integrity verdicts
+are every rank's, as a swap-in's.
+
+Refused by name: a ``model`` axis above 1 (ROADMAP item 10d, step 5).
 """
 from __future__ import annotations
 
@@ -96,10 +109,6 @@ LOG_CAP = 4096          # crossings and restages a backend remembers
 def check_rank_mesh(mesh, cfg, backend: str) -> None:
     """What a rank engine serves, refused by name otherwise."""
     from repro_torch.sharding import rules as R
-    if cfg.disagg_role:
-        raise NotImplementedError(
-            f"ServingEngine(mesh=) with disagg_role={cfg.disagg_role!r}: "
-            f"the disaggregated pair over ranks (ROADMAP item 10d)")
     sizes = R.mesh_axis_sizes(mesh)
     if not R.is_device_mesh(mesh):
         raise ValueError(f"ServingEngine(mesh=): a DeviceMesh of ranks "
@@ -114,7 +123,7 @@ def check_rank_mesh(mesh, cfg, backend: str) -> None:
         raise NotImplementedError(
             f"ServingEngine(mesh=): mesh axes {wide}: the engine's ranks "
             f"run over pod and data only; tensor parallelism is ROADMAP "
-            f"item 10d")
+            f"item 10d, step 5")
     if sizes.get("pod") != cfg.num_stages:
         raise ValueError(f"ServingEngine(mesh=): {sizes.get('pod')} pods "
                          f"but num_stages {cfg.num_stages}; stage s runs "
@@ -325,7 +334,8 @@ class _Ranked:
         dec = PipelinedDecoder(self.api, num_stages=cfg.num_stages,
                                num_microbatches=cfg.num_microbatches,
                                seal_boundary=cfg.seal_boundary,
-                               stage_blocks=key, mesh=self.mesh)
+                               stage_blocks=key, mesh=self.mesh,
+                               prefill_role=cfg.disagg_role == "prefill")
         dec.staging = self.staging
         if self._kv_slab is None:
             self._key_dev = self._idx([self.key])
@@ -681,7 +691,11 @@ class RankTimelineBackend(_Ranked, PipelinedDecodeBackend):
 
 
 def host_copy(params):
-    """The whole params tree on the host (the tensors themselves when they
-    are there already)."""
+    """The whole params tree on the host: ``params`` itself when every leaf
+    is there already (so two engines built over one host tree share it),
+    else a copy."""
+    if all(t.device.type == "cpu" and not t.requires_grad
+           for t in leaves(params)):
+        return params
     return map_tree(lambda t: t.detach().to("cpu"), params)
 

@@ -538,16 +538,18 @@ class PagePool:
 
     def register_transfer(self, rid: int, entries: Sequence[Tuple[str, Any]],
                           payload: Any, n_tokens: int, counter: int,
-                          digest: Any = None) -> TransferManifest:
+                          digest: Any = None,
+                          layout: Any = None) -> TransferManifest:
         """Park an incoming handoff manifest until the scheduler admits its
         request. Shared entries were resolved against this pool's prefix
         index by the caller -- ``lookup_prefix`` already took the manifest's
         pin reference, so this only records and validates (unlike
         ``swap_out``, which increfs itself: resolution and pinning are one
-        lookup here)."""
+        lookup here). ``layout`` is the stage layer ranges the payload was
+        sealed under on a rank engine, as a swap manifest's."""
         assert rid not in self.transfer_manifest, rid
         man = TransferManifest(rid, n_tokens, list(entries), payload, counter,
-                               digest)
+                               digest, layout)
         for tag, val in man.entries:
             if tag == "shared":
                 key, page = val

@@ -204,17 +204,21 @@ def test_serve_non_prefix_plan_on_three_ranks(capfd):
 
 
 def refusal_body(ctx, cfg):
-    """On a (2, 2) mesh: ``"built"`` for each engine it serves (warmed up
-    as CUDA graphs, and not), the refused one's error by name."""
+    """On a (2, 2) pod x data mesh: ``"built"`` for each engine it serves
+    (warmed up as CUDA graphs, the decode role of a disaggregated pair,
+    and a plain one); then on a (2, 1, 2) pod x data x model mesh, the
+    refused one's error by name."""
     from repro_torch.launch.mesh import make_mesh
     api = build_model(cfg, device="cpu", dtype=torch.float32)
     params = api.init(torch.Generator().manual_seed(0))
     mesh = make_mesh((2, 2), ("pod", "data"), device="cpu")
+    wide = make_mesh((2, 1, 2), ("pod", "data", "model"), device="cpu")
     out = []
-    for kw in ({"warmup": True}, {"disagg_role": "decode"}, {}):
+    for kw, m in (({"warmup": True}, mesh), ({"disagg_role": "decode"}, mesh),
+                  ({}, mesh), ({}, wide)):
         try:
             ServingEngine(api, EngineConfig(**kw), params, device="cpu",
-                          backend="pipelined", mesh=mesh)
+                          backend="pipelined", mesh=m)
             out.append("built")
         except (NotImplementedError, ValueError) as e:
             out.append(f"{type(e).__name__}: {e}")
@@ -225,10 +229,11 @@ def test_rank_engine_refusals_are_named(capfd):
     cfg = reduced(get_arch("llama3.2-1b"))
     for errs in spawn(refusal_body, 4, backend="gloo", device="cpu",
                       args=(cfg,)):
-        assert len(errs) == 3, errs
-        assert errs[0] == "built", errs[0]
-        assert "disagg" in errs[1] and "item 10d" in errs[1]
-        assert errs[2] == "built", errs[2]
+        assert len(errs) == 4, errs
+        assert errs[:3] == ["built"] * 3, errs[:3]
+        assert errs[3].startswith("NotImplementedError") \
+            and "'model': 2" in errs[3] and "item 10d, step 5" in errs[3], \
+            errs[3]
     plain = [a for a in ARGV if a != "--verify-swap"]
     st = serve.main(plain + ["--stages", "2", "--mesh", "2x2", "--ranks",
                              "gloo"])
