@@ -184,11 +184,13 @@ Phases (each prints its own lines; any failure exits non-zero):
      Eq. 1-2 on every chosen plan, and the attestation stub over the
      full-width params' payload digest. Prints the forward's host ms, the
      profile, the plans, the speedups and the phase's wall time;
- 16. three more model families and glm4-9b: first the kernels at their
+ 16. three more model families and glm4-9b, each at its published width
+     and the depth ``DEPTH`` gives it: first the kernels at their
      new shapes against their plain versions, timed (flash at qwen2-vl's
      prefill, 28 heads over 4 at D=128, at hymba's, 25 over 5 at D=64
-     with its 2048-token window biting at S=4096, and at moonshot's; paged
-     at qwen2-vl's decode, rep 7); (a) qwen2-vl-7b (``VlmLM``: M-RoPE,
+     with its 2048-token window biting at S=4096, at moonshot's, and at
+     phase 24's head shards; paged at qwen2-vl's decode, rep 7); (a)
+     qwen2-vl-7b (``VlmLM``: M-RoPE,
      patch embeddings), reduced f32 card against CPU, then full width:
      prefill of 2 x (1024 patches + 128 tokens), prefill S+1 against
      decode one, 16 greedy steps on the timeline and on pages held
@@ -209,9 +211,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      both non-causal, and its causal decoder self-attention at 224);
  17. the last two families: (a) xlstm-125m, first reduced in f32, card
      against CPU (every path, the engine's streams local and pipelined,
-     sealed and unsealed), then at full width (6 sLSTM/mLSTM pairs,
-     recurrent state, no attention): prefill of 2 x 1024 tokens, prefill
-     S+1 against decode one (bf16 printed; f32 on the reference's init
+     sealed and unsealed), then at full width (2 of its 6 sLSTM/mLSTM
+     pairs, recurrent state, no attention): prefill of 2 x 1024 tokens,
+     prefill S+1 against decode one (bf16 printed; f32 on the reference's init
      printed at S = 8 to 1024 beside an embedding nudge's effect, since
      that init amplifies rounding to order one; f32 on the weights
      rescaled to their contraction's fan-in held within 1e-3), block 0's
@@ -243,19 +245,20 @@ Phases (each prints its own lines; any failure exits non-zero):
      logical 16 x 16 mesh, rc 0;
  19. the pod axis over ranks: processes spawned on the card, joined by
      gloo (NCCL refuses two ranks on one device), the parent's models
-     freed first: (a) full-width llama3.2-1b in bf16, 8 slots, 4
-     microbatches, paged, sealed, 16 greedy decode steps with stage s on
-     rank s at blocks (8, 8) and (1, 15): logits and tokens bit-equal to
-     the one-card sealed ``PipelinedDecoder``, seal launches on stage 0 and
-     unseal launches on stage 1 each 4 x 16, paged launches the stage's
-     layers x 4 x 16, host ms a step, sealed bytes a boundary and one
-     boundary crossing's host ms; (b) the compressed train step of
-     full-width llama3.2-1b at pods 2 x data 1, batch 8 x 128, 5 steps:
-     finite losses, both ranks' params the same bits after every step,
-     the error feedback finite and nonzero, 2 x 16 x 5 flash launches a
-     rank, int8 bytes exchanged a step against f32's, host ms a step, each
-     rank's peak memory; (c) reduced llama3.2-1b in f32 on (2, 2) ranks,
-     plain and compressed, the card against the CPU;
+     freed first: (a) full-width llama3.2-1b in bf16 at 8 of its 16
+     layers, 8 slots, 4 microbatches, paged, sealed, 8 greedy decode
+     steps with stage s on rank s at blocks (4, 4) and (1, 7): logits and
+     tokens bit-equal to the one-card sealed ``PipelinedDecoder``, seal
+     launches on stage 0 and unseal launches on stage 1 each 4 x 8, paged
+     launches the stage's layers x 4 x 8, host ms a step, sealed bytes a
+     boundary and one boundary crossing's host ms; (b) the compressed
+     train step of full-width llama3.2-1b at 4 layers, pods 2 x data 1,
+     batch 8 x 128, 5 steps: finite losses, both ranks' params the same
+     bits after every step, the error feedback finite and nonzero, 2 x 4
+     x 5 flash launches a rank, int8 bytes exchanged a step against
+     f32's, host ms a step, each rank's peak memory; (c) reduced
+     llama3.2-1b in f32 on (2, 2) ranks, plain and compressed, the card
+     against the CPU;
  20. the serving engine over pod ranks (``ServingEngine(mesh=)``): phase
      6's stream on two ranks spawned on the card over gloo, each holding
      its stage's layers of params and pools: (a) sealed, streams bit-equal
@@ -278,7 +281,20 @@ Phases (each prints its own lines; any failure exits non-zero):
      prefill and decode serve steps over the same ranks at phase 18's
      shapes, each rank bit-equal to the one-card step on its rows; host ms
      a decode step, admission, the KV exchange's bytes and host ms, a
-     crossing, swap-out and swap-in, the serve steps.
+     crossing, swap-out and swap-in, the serve steps;
+ 22. warmup over ranks (phase 21's stream as CUDA graphs on the 2 x 2
+     ranks); 23. the disaggregated pair over the same ranks;
+ 24. the model axis over ranks (tensor parallelism of the serve steps):
+     one spawn of four gloo ranks on the card, a (1, 4) ("data", "model")
+     mesh, each rank drawing only its shard of seeded weights, 8 x 128
+     prefill tokens and 4 greedy decode steps, after the port's one-card
+     steps on the same draw: (a) glm4-9b at full width, 4 layers, f32 and
+     (c) qwen2-moe-a2.7b at full width, 4 layers, f32 (15 experts a
+     rank), each within 1e-3 of the one-card logits, greedy tokens equal;
+     (b) glm4-9b at full width and depth in bf16, its error, host ms,
+     bytes messaged a step, param bytes against the shard shapes, peak
+     memory and 40 flash launches a prefill a rank printed; the whole
+     logits the same bits on every rank.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
@@ -759,7 +775,10 @@ FLASH_CASES = ([(B, S, S, H, H, D, int(c), w, 0) for B, H, S, D, w, c in (
     # frames (non-causal, a 28-key tail) and its causal decoder
     + [(2, 1500, 1500, 12, 12, 64, 0, 0, 0),
        (2, 224, 1500, 12, 12, 64, 0, 0, 0),
-       (2, 224, 224, 12, 12, 64, 1, 0, 0)])
+       (2, 224, 224, 12, 12, 64, 1, 0, 0)]
+    # phase 24's head shards over a model axis of 4: glm4-9b's 8 query
+    # heads of one KV head (rep 16 kept), qwen2-moe-a2.7b's 4 over 4
+    + [(8, 128, 128, 8, 1, 128, 1, 0, 0), (8, 128, 128, 4, 4, 128, 1, 0, 0)])
 # phases 11's and 12's one-shot prefill shapes, timed beside FLASH_PATH's
 FLASH_D128 = {"one-shot d128": (1, 128, 128, 24, 8, 128, 1, 0, 0),
               "one-shot d128 mha": (1, 128, 128, 16, 16, 128, 1, 0, 0)}
@@ -3328,7 +3347,12 @@ FLASH_FAMILIES = {
     # causal self-attention
     "whisper encoder": (2, 1500, 1500, 12, 12, 64, 0, 0, 0),
     "whisper cross": (2, 224, 1500, 12, 12, 64, 0, 0, 0),
-    "whisper decoder": (2, 224, 224, 12, 12, 64, 1, 0, 0)}
+    "whisper decoder": (2, 224, 224, 12, 12, 64, 1, 0, 0),
+    # 24: a rank's head shard over a model axis of 4 at the 8 x 128
+    # prefill: glm4-9b's 8 query heads on their one KV head, qwen2-moe's 4
+    # over 4
+    "glm4 head shard": (8, 128, 128, 8, 1, 128, 1, 0, 0),
+    "qwen2-moe head shard": (8, 128, 128, 4, 4, 128, 1, 0, 0)}
 # paged attention at 16a's decode: 2 rows of 1152..1167 tokens over tables
 # of 73 pages of 16 (their own pages), 28 heads over 4 KV heads (rep 7)
 PAGED_VLM = dict(B=2, KVH=4, rep=7, D=128, Pg=16, lens=(1160, 1167), MP=73)
@@ -3348,6 +3372,9 @@ F32_FULL_TOL = 1e-3
 HYMBA_SERVE = ["--arch", "hymba-1.5b", "--device", "cuda", "--slots", "4",
                "--requests", "3", "--prompt-len", "48", "--max-new", "16",
                "--telemetry-interval", "1000"]
+# the reduced config's engine runs, card against CPU, at 2 of its 4 layers
+# (one a stage when pipelined; the script's time)
+HYMBA_REDUCED_LAYERS = 2
 HYMBA_REDUCED = ["--arch", "hymba-1.5b", "--reduced", "--device", "cpu",
                  "--slots", "4", "--requests", "6", "--prompt-len", "40",
                  "--max-new", "8", "--f32", "--telemetry-interval", "1000"]
@@ -3358,10 +3385,39 @@ GLM4_SERVE = ["--arch", "glm4-9b", "--device", "cuda", "--slots", "8",
               "--shared-system-prompt", "0.75"]
 
 
+# phases 16-17: the depth each full-width family runs at (widths whole),
+# cut to keep the whole script inside its time with phase 24 added:
+# qwen2-vl-7b 28 -> 4 layers, hymba-1.5b 32 -> 4, glm4-9b 40 -> 10 (16d;
+# phase 24 serves it at full depth), xlstm-125m 12 blocks (6 pairs) -> 4
+# (2 pairs)
+DEPTH = {"qwen2-vl-7b": 4, "hymba-1.5b": 4, "glm4-9b": 10, "xlstm-125m": 4}
+
+
 def _family_cfg(name):
+    """``name``'s config (FAMILY_ARCH's map of it in a rehearsal) at its
+    phase's depth (``DEPTH``)."""
+    import dataclasses
+
     from repro_torch.configs import get_arch
     cfg = get_arch(name)
-    return FAMILY_ARCH(cfg) if FAMILY_ARCH else cfg
+    cfg = FAMILY_ARCH(cfg) if FAMILY_ARCH else cfg
+    if name in DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=min(DEPTH[name],
+                                                      cfg.num_layers))
+    return cfg
+
+
+def _build_params(torch, argv):
+    """``serve.build_params`` of ``argv`` on ``_family_cfg``'s config of
+    its ``--arch`` (its phase's depth; ``--reduced`` maps it in a
+    rehearsal, where FAMILY_ARCH is set too)."""
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    args = serve.build_parser().parse_args(argv)
+    api = build_model(_family_cfg(args.arch), device=args.device,
+                      dtype=torch.float32 if args.f32 else torch.bfloat16)
+    return api, api.init(torch.Generator(device=args.device).manual_seed(
+        args.seed))
 
 
 def _sync(torch):
@@ -3768,26 +3824,26 @@ def _engine_streams(torch, api, params, argv, label):
 
 
 def family_hymba(torch, ops, smi):
-    """16b. hymba-1.5b (parallel attention + selective SSM, window 2048):
-    the reduced config in f32 served through ``ServingEngine`` on the
-    timeline, local and pipelined, unsealed and sealed, card against CPU
-    (streams equal); then at full width in bf16: ``prefill_fn`` at B=1,
-    S=4096 (32 flash launches, D=64, 25 heads over 5, the window biting),
-    a prefill of 2048 then one decode step (only slot 0 of the rolling
-    buffer changes: the oldest token evicted) against a prefill of 2049,
-    in bf16 (printed) and f32 (within F32_FULL_TOL);
-    then 3 requests on 4 timeline slots: local eager, local in CUDA graphs
-    (equal streams, steps and launches), pipelined over 2 stages with one
-    microbatch unsealed (= local) and sealed (its first parting from local
-    printed; seals = unseals = decode steps). Returns the runs' launch
-    counts."""
+    """16b. hymba-1.5b (parallel attention + selective SSM, window 2048): the
+    reduced config at HYMBA_REDUCED_LAYERS layers in f32 served through
+    ``ServingEngine`` on the timeline, local and pipelined, unsealed and
+    sealed, card against CPU (streams equal); then at full width in bf16:
+    ``prefill_fn`` at B=1, S=4096 (32 flash launches, D=64, 25 heads over 5,
+    the window biting), a prefill of 2048 then one decode step (only slot 0 of
+    the rolling buffer changes: the oldest token evicted) against a prefill of
+    2049, in bf16 (printed) and f32 (within F32_FULL_TOL); then 3 requests on 4
+    timeline slots: local eager, local in CUDA graphs (equal streams, steps and
+    launches), pipelined over 2 stages with one microbatch unsealed (= local)
+    and sealed (its first parting from local printed; seals = unseals = decode
+    steps). Returns the runs' launch counts."""
     from repro_torch.configs import reduced
     from repro_torch.launch import serve
     from repro_torch.models.api import build_model
     SEGMENT = "blocks"                  # Hymba's served segment
+    import dataclasses
     t_phase = time.perf_counter()
     cfg = _family_cfg("hymba-1.5b")
-    rcfg = reduced(cfg)
+    rcfg = dataclasses.replace(reduced(cfg), num_layers=HYMBA_REDUCED_LAYERS)
     rparams = build_model(rcfg, device="cpu", dtype=torch.float32).init(
         torch.Generator().manual_seed(0))
     for seal in ([], ["--no-seal"]):
@@ -3812,9 +3868,9 @@ def family_hymba(torch, ops, smi):
     del rparams
 
     t0 = time.perf_counter()
-    api, params = serve.build_params(serve.build_parser().parse_args(
-        [a if a != "cuda" else DEV for a in HYMBA_SERVE]
-        + (["--reduced"] if FAMILY_ARCH else [])))
+    api, params = _build_params(torch, [a if a != "cuda" else DEV
+                                        for a in HYMBA_SERVE]
+                                + (["--reduced"] if FAMILY_ARCH else []))
     _sync(torch)
     cfg = api.cfg
     L = cfg.num_layers
@@ -3910,17 +3966,17 @@ def family_hymba(torch, ops, smi):
 
 
 def family_glm4(torch, ops, smi, phase5_ms):
-    """16d. glm4-9b at full width (40 layers, 2 KV heads, rep 16, untied
-    head), phase 5's flags with 6 requests on the paged local engine,
-    eager and warmed as CUDA graphs: equal streams, steps and launches
-    (paged attention at rep 16 a layer a decode step). Returns the runs'
-    launch counts."""
+    """16d. glm4-9b at full width (its depth cut to DEPTH's 10 layers of 40; 2
+    KV heads, rep 16, untied head), phase 5's flags with 6 requests on the
+    paged local engine, eager and warmed as CUDA graphs: equal streams, steps
+    and launches (paged attention at rep 16 a layer a decode step). Returns the
+    runs' launch counts."""
     from repro_torch.launch import serve
     t_phase = time.perf_counter()
     argv = [a if a != "cuda" else DEV for a in GLM4_SERVE] \
         + (["--reduced"] if FAMILY_ARCH else [])
     t0 = time.perf_counter()
-    api, params = serve.build_params(serve.build_parser().parse_args(argv))
+    api, params = _build_params(torch, argv)
     _sync(torch)
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
@@ -4065,6 +4121,10 @@ def family_moonshot(torch, ops, smi):
 # (encoder-decoder through the model API, its three attentions on the flash
 # kernel). Sizes are names, as phase 16's, for a CPU rehearsal.
 XLSTM_B, XLSTM_S, XLSTM_STEPS, XLSTM_SHORT = 2, 1024, 16, 16
+# block 0's long scan-against-steps checks: steps of one token (cut from
+# 1024 to keep the script's time: two of the mLSTM's 256-token chunks, so
+# the C and n carried from the first chunk into the second are checked)
+XLSTM_BLOCK_S = 512
 # The reference's initializer takes a weight's leading axis as its fan-in.
 # For a stacked block weight that axis is the block count, so every block
 # projection draws at std 1/sqrt(6) (xLSTM's pairs) or 1/sqrt(12)
@@ -4079,7 +4139,7 @@ XLSTM_B, XLSTM_S, XLSTM_STEPS, XLSTM_SHORT = 2, 1024, 16, 16
 # * one block at full width on the reference's weights: the sLSTM's scan
 #   against its steps over XLSTM_SHORT tokens and Whisper's decoder block
 #   0, prefill S+1 against prefill S then decode one, within BLOCK_TOL;
-#   the mLSTM's chunks against its steps over XLSTM_S tokens, C and n
+#   the mLSTM's chunks against its steps over XLSTM_BLOCK_S tokens, C and n
 #   within MLSTM_STATE_TOL;
 # * a sealed pipelined step against the unpipelined step with the plain
 #   int8 round trip (``seal_ref``, ``unseal_ref``) at the same boundary,
@@ -4267,25 +4327,24 @@ def xlstm_reduced(torch, ops, cfg):
 
 
 def family_xlstm(torch, ops, smi):
-    """17a. xlstm-125m: first ``xlstm_reduced`` (f32, card against CPU),
-    then at full width in bf16 (6 (sLSTM, mLSTM) pairs, d 768, 4 heads x
-    192, untied head): ``prefill_fn`` at B=2, S=1024 (mLSTM chunks of
-    256), prefill S then decode one against prefill S+1 (S+1 = 1025 runs
-    chunks of 1) in bf16, printed; in f32 on the same weights upcast, the
-    same at each S of XLSTM_SWEEP beside an embedding nudge's effect,
-    printed; block 0 alone in f32: the sLSTM over XLSTM_SHORT tokens, scan
-    against steps (output and state within BLOCK_TOL; over 1024 printed),
-    the mLSTM over 1024, chunks against steps (C and n within
-    MLSTM_STATE_TOL); the model with ``_contraction_scaled`` weights in
-    f32 at S = 16 and 1024 (within F32_FULL_TOL); the bf16 recurrent state
-    of ``cache_quant`` against the f32 state over 16 decode steps fed the
-    f32 run's greedy tokens (top-1 agreement printed); the sealed
-    pipelined step against its mirror (``pipe_step_mirror``) in bf16 and
-    f32; then phase 5's first 4 requests through ``ServingEngine`` on the
-    timeline: local eager, local in CUDA graphs (equal streams, steps and
-    launches), pipelined over 2 stages with one microbatch in CUDA graphs,
-    unsealed (= local) and sealed (seal = unseal = one a decode step).
-    Returns the runs' launch counts."""
+    """17a. xlstm-125m: first ``xlstm_reduced`` (f32, card against CPU), then
+    at full width in bf16 (d 768, 4 heads x 192, untied head; its depth cut to
+    DEPTH's 2 (sLSTM, mLSTM) pairs of 6): ``prefill_fn`` at B=2, S=1024 (mLSTM
+    chunks of 256), prefill S then decode one against prefill S+1 (S+1 = 1025
+    runs chunks of 1) in bf16, printed; in f32 on the same weights upcast, the
+    same at each S of XLSTM_SWEEP beside an embedding nudge's effect, printed;
+    block 0 alone in f32: the sLSTM over XLSTM_SHORT tokens, scan against steps
+    (output and state within BLOCK_TOL; over XLSTM_BLOCK_S printed), the mLSTM
+    over XLSTM_BLOCK_S, chunks against steps (C and n within MLSTM_STATE_TOL);
+    the model with ``_contraction_scaled`` weights in f32 at S = 16 and 1024
+    (within F32_FULL_TOL); the bf16 recurrent state of ``cache_quant`` against
+    the f32 state over 16 decode steps fed the f32 run's greedy tokens (top-1
+    agreement printed); the sealed pipelined step against its mirror
+    (``pipe_step_mirror``) in bf16 and f32; then phase 5's first 4 requests
+    through ``ServingEngine`` on the timeline: local eager, local in CUDA
+    graphs (equal streams, steps and launches), pipelined over 2 stages with
+    one microbatch in CUDA graphs, unsealed (= local) and sealed (seal = unseal
+    = one a decode step). Returns the runs' launch counts."""
     from repro_torch.launch import serve
     from repro_torch.models import xlstm as X
     from repro_torch.models.api import build_model
@@ -4296,7 +4355,7 @@ def family_xlstm(torch, ops, smi):
     argv = [a if a != "cuda" else DEV for a in XLSTM_SERVE] \
         + (["--reduced"] if FAMILY_ARCH else [])
     t0 = time.perf_counter()
-    api, params = serve.build_params(serve.build_parser().parse_args(argv))
+    api, params = _build_params(torch, argv)
     _sync(torch)
     cfg = api.cfg
     seg = api.model.served_segment
@@ -4350,8 +4409,8 @@ def family_xlstm(torch, ops, smi):
     x = torch.randn(B, S, cfg.d_model, generator=g, device=DEV)
     blocks = []
     for kind, fn, n in (("slstm", X.slstm_apply, XLSTM_SHORT),
-                        ("slstm", X.slstm_apply, S),
-                        ("mlstm", X.mlstm_apply, S)):
+                        ("slstm", X.slstm_apply, XLSTM_BLOCK_S),
+                        ("mlstm", X.mlstm_apply, XLSTM_BLOCK_S)):
         pb = _at0(p32["pairs"][kind])
         full, st_full = fn(cfg, pb, x[:, :n], mode="train")
         st, outs = None, []
@@ -4870,13 +4929,17 @@ def mesh_steps(torch, ops, smi):
 # on the one card (``launch.ranks.spawn``), joined by gloo: NCCL refuses
 # two ranks on one device. Sizes are names, for a CPU rehearsal as phases
 # 16 to 18.
-RANKS_SLOTS, RANKS_NM, RANKS_PROMPT, RANKS_STEPS = 8, 4, 128, 16
-RANKS_LAYOUTS = ((8, 8), (1, 15))      # even, and the planner's (phase 6)
+# 19a at llama3.2-1b's full width, its depth cut from 16 layers to 8 and
+# its decode steps from 16 to 8 (the script's time, with phase 24 added)
+RANKS_SLOTS, RANKS_NM, RANKS_PROMPT, RANKS_STEPS = 8, 4, 128, 8
+RANKS_LAYERS = 8
+RANKS_LAYOUTS = ((4, 4), (1, 7))       # even, and one layer on stage 0
 RANKS_KEY = 0xC0FFEE
 RANKS_PING = 50                        # round trips of one boundary
 # 19b: the compressed step at pods 2 x data 1 over a global batch of
-# 8 x 128 (4 rows a pod)
+# 8 x 128 (4 rows a pod), full width, depth cut from 16 layers to 4
 RANKS_TRAIN = dict(steps=5, batch=8, seq=128)
+RANKS_TRAIN_LAYERS = 4
 # 19c: reduced llama3.2-1b in f32 on (2, 2) ranks, card against CPU
 RANKS_SMALL = dict(steps=3, batch=8, seq=32)
 # card against CPU: losses within rtol RANKS_TOL at every step. The plain
@@ -4947,27 +5010,54 @@ def _held_share(torch, got, want, tol, share, what):
     return worst
 
 
+def _beside(fn, *args, **kw):
+    """Start ``fn(*args, **kw)`` on a thread; returns a function that
+    waits for it and returns its result or raises its exception."""
+    import threading
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args, **kw)
+        except BaseException as e:       # re-raised by the caller's wait
+            box["err"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def wait():
+        th.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    return wait
+
+
 def pod_ranks(torch, ops, smi):
     """19. The pod axis over ranks on the card, ranks spawned on ``cuda:0``
     over gloo (the parent's models freed first):
-    (a) full-width llama3.2-1b in bf16 (seeded weights, every rank draws
-    the same), 8 slots, 4 microbatches, paged, sealed, RANKS_STEPS greedy
-    decode steps on 2 pod ranks at stage blocks (8, 8) and (1, 15) from
-    one prefill (the parent's): logits and tokens bit-equal to the
+    (a) full-width llama3.2-1b in bf16 at RANKS_LAYERS layers (seeded
+    weights, every rank draws the same), 8 slots, 4 microbatches, paged,
+    sealed, RANKS_STEPS greedy decode steps on 2 pod ranks at stage
+    blocks RANKS_LAYOUTS from one prefill (the parent's): logits and
+    tokens bit-equal to the
     one-card sealed ``PipelinedDecoder``; seal launches on stage 0 and
     unseal launches on stage 1 each microbatches x steps, paged launches
     the stage's layers x microbatches x steps; host ms a step, sealed
     bytes a boundary a step and one boundary crossing's host ms;
     (b) the compressed train step of full-width llama3.2-1b in bf16 at
-    pods 2 x data 1, global batch 8 x 128, 5 steps: losses finite, both
+    RANKS_TRAIN_LAYERS layers, pods 2 x data 1, global batch 8 x 128, 5
+    steps: losses finite, both
     ranks' params the same bits after every step (``param_digest``), the
-    error feedback finite and nonzero, flash launches a rank 2 x 16 x
+    error feedback finite and nonzero, flash launches a rank 2 x layers x
     steps, bytes sent a step sum(numel + 4) against 4 x sum(numel)
     uncompressed, host ms a step and each rank's peak memory;
     (c) reduced llama3.2-1b in f32 on (2, 2) ranks, the plain and the
-    compressed step: the card against the same ranks on the CPU, held as
-    the constants above say. Returns the runs' launch counts (the ranks'
-    own, summed)."""
+    compressed step: the card against the same ranks on the CPU (the two
+    spawns side by side), held as the constants above say. (a) and (b)
+    share one spawn. Returns the runs' launch counts (the ranks' own,
+    summed)."""
     from repro_torch.configs import get_arch, reduced
     from repro_torch.launch import rank_jobs
     from repro_torch.launch.ranks import spawn
@@ -4979,7 +5069,10 @@ def pod_ranks(torch, ops, smi):
     log(f"phase 19: ranks are processes on {DEV} (cuda:0 on the card), "
         f"backend={backend} (NCCL refuses two ranks on one device)")
     _free(torch)
-    cfg = _family_cfg("llama3.2-1b")
+    import dataclasses
+    full = _family_cfg("llama3.2-1b")
+    cfg = dataclasses.replace(full, num_layers=min(RANKS_LAYERS,
+                                                   full.num_layers))
     L = cfg.num_layers
     layouts = RANKS_LAYOUTS if FAMILY_ARCH is None else ((L // 2, L // 2),
                                                          (1, L - 1))
@@ -4996,9 +5089,19 @@ def pod_ranks(torch, ops, smi):
                               num_microbatches=RANKS_NM, steps=RANKS_STEPS,
                               key=RANKS_KEY, dtype=torch.bfloat16, seed=0,
                               ping_iters=RANKS_PING)
-    dec_ranks = spawn(rank_jobs.decode, 2, backend=backend, device=DEV,
-                      args=(job,))
-    a_s = time.perf_counter() - t0
+    # (b)'s ranks are (a)'s: one spawn runs both
+    tcfg = dataclasses.replace(full, num_layers=min(RANKS_TRAIN_LAYERS,
+                                                    full.num_layers))
+    tj = rank_jobs.TrainJob(
+        tcfg, ((2, 1), ("pod", "data")), RANKS_TRAIN["steps"],
+        RANKS_TRAIN["batch"], RANKS_TRAIN["seq"],
+        opt=AdamWConfig(lr=1e-3, warmup_steps=1,
+                        total_steps=RANKS_TRAIN["steps"]),
+        compressed=True, dtype=torch.bfloat16, seed=0, keep_state=False)
+    both = spawn(rank_jobs.chain, 2, backend=backend, device=DEV,
+                 args=([(rank_jobs.decode, job), (rank_jobs.train, tj)],))
+    dec_ranks, tr = [b[0] for b in both], [b[1] for b in both]
+    ab_s = time.perf_counter() - t0
     launches = {k: 0 for k in ops.LAUNCHES}
     rows = RANKS_SLOTS // RANKS_NM
     for li, blocks in enumerate(layouts):
@@ -5046,18 +5149,10 @@ def pod_ranks(torch, ops, smi):
         f"round trips); the same message between host tensors (gloo "
         f"alone) {ping[0]['host_ms']:.4f} / {ping[1]['host_ms']:.4f} ms; "
         f"the card-to-pinned and pinned-to-card copies of it {copies}; "
-        f"the spawn with its {len(layouts)} runs {a_s:.1f} s")
+        f"the spawn with its {len(layouts)} runs and (b) {ab_s:.1f} s")
     del dec_ranks, one, pages
     # (b) the compressed step at full width over two pods
-    t0 = time.perf_counter()
-    tj = rank_jobs.TrainJob(
-        cfg, ((2, 1), ("pod", "data")), RANKS_TRAIN["steps"],
-        RANKS_TRAIN["batch"], RANKS_TRAIN["seq"],
-        opt=AdamWConfig(lr=1e-3, warmup_steps=1,
-                        total_steps=RANKS_TRAIN["steps"]),
-        compressed=True, dtype=torch.bfloat16, seed=0, keep_state=False)
-    tr = spawn(rank_jobs.train, 2, backend=backend, device=DEV, args=(tj,))
-    b_s = time.perf_counter() - t0
+    cfg, L = tcfg, tcfg.num_layers
     meta = build_model(cfg, device="meta", dtype=torch.float32)
     numel = sum(p.numel() for p in _leaves(meta.abstract_params()))
     sent = exchanged_bytes(meta.abstract_params())
@@ -5074,7 +5169,8 @@ def pod_ranks(torch, ops, smi):
         for k in launches:
             launches[k] += r["launches"][k]
     peaks = [r.get("peak_bytes", 0) / 2**30 for r in tr]
-    log(f"phase 19b compressed train step, llama3.2-1b full width bf16 "
+    log(f"phase 19b compressed train step, llama3.2-1b full width ({L} "
+        f"layers) bf16 "
         f"(new params f32 from step 1, as the reference's update casts to "
         f"the reduced gradient's dtype), pods 2 x data 1, global batch "
         f"{RANKS_TRAIN['batch']} x {RANKS_TRAIN['seq']}, "
@@ -5086,8 +5182,8 @@ def pod_ranks(torch, ops, smi):
         f"host ms a step rank 0 {[round(x, 1) for x in tr[0]['host_ms']]}, "
         f"rank 1 {[round(x, 1) for x in tr[1]['host_ms']]}; flash "
         f"launches a rank {tr[0]['launches']['flash_attention']}; peak "
-        f"allocated {peaks[0]:.2f} / {peaks[1]:.2f} GiB; the spawn "
-        f"{b_s:.1f} s [{smi}]")
+        f"allocated {peaks[0]:.2f} / {peaks[1]:.2f} GiB; in (a)'s spawn "
+        f"[{smi}]")
     del tr
     # (c) reduced, f32, (2, 2) ranks: the card against the CPU
     t0 = time.perf_counter()
@@ -5099,10 +5195,12 @@ def pod_ranks(torch, ops, smi):
         RANKS_SMALL["batch"], RANKS_SMALL["seq"],
         opt=AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=10),
         compressed=c, params=sparams) for c in (False, True)]
+    # the CPU's ranks run beside the card's (their own store and group)
+    on_cpu = _beside(spawn, rank_jobs.train_each, 4, backend=backend,
+                     device="cpu", args=(jobs,))
     on_card = spawn(rank_jobs.train_each, 4, backend=backend, device=DEV,
                     args=(jobs,))
-    on_cpu = spawn(rank_jobs.train_each, 4, backend=backend, device="cpu",
-                   args=(jobs,))
+    on_cpu = on_cpu()
     worst, ef_worst, moved = {}, 0.0, 0.0
     for i, c in enumerate((False, True)):
         for rank in range(4):
@@ -6114,6 +6212,216 @@ def serve_disagg_ranks(torch, ops, smi, phase6=None, phase21=None,
     return [{"launches": launches}]
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the model axis over ranks (ROADMAP item 10d, step 5a): the
+# prefill and decode serve steps with tensor parallelism, four gloo ranks
+# on the card, each holding its shard of seeded weights. Sizes are names,
+# for a CPU rehearsal as phases 16 to 23.
+MODEL_MESH = ((1, 4), ("data", "model"))
+MODEL_B, MODEL_S, MODEL_STEPS, MODEL_SEED = 8, 128, 4, 0
+# (name, config, layers (None: all), dtype): (a) and (c) cut to 4 layers,
+# (a) also at 1 and 2 (how the f32 error grows with depth)
+MODEL_CASES = (("24a1", "glm4-9b", 1, "f32"),
+               ("24a2", "glm4-9b", 2, "f32"),
+               ("24a", "glm4-9b", 4, "f32"),
+               ("24b", "glm4-9b", None, "bf16"),
+               ("24c", "qwen2-moe-a2.7b", 4, "f32"))
+# the embedding scaled by 1 + MODEL_NUDGE: how far an f32 rounding of the
+# input moves the one-card step's logits on these weights
+MODEL_NUDGE = 1e-6
+
+
+def _held(torch, got, want):
+    """Each step's error of the logits ``got`` against ``want`` over the
+    rows fed the same tokens so far, and the rows whose greedy tokens
+    agreed at every step."""
+    rows, errs = torch.ones(len(want[0]), dtype=torch.bool), []
+    for a, b in zip(got, want):
+        errs.append(_rel(a[rows], b[rows]) if rows.any() else math.nan)
+        rows &= a.argmax(-1) == b.argmax(-1)
+    return errs, int(rows.sum())
+
+
+def _one_card_steps(torch, api, params, toks, steps):
+    """The port's one-card prefill and decode serve steps on ``toks``
+    [B, S] then ``steps`` greedy steps, timed as ``rank_jobs.serve_steps``
+    times a rank's (first calls untimed): logits on the CPU, host ms."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import rank_jobs
+    from repro_torch.runtime import steps as S
+    B, Sq = tuple(toks.shape)
+    pre = S.make_prefill_step(api, None, ShapeConfig("p", Sq, B, "prefill"))
+    dec = S.make_decode_step(api, None, ShapeConfig("d", Sq + steps, B,
+                                                     "decode"))
+    tok = toks.to(DEV)
+    logits, cache = pre(params, {"tokens": tok})
+    dec(params, rank_jobs.grow_cache(api, cache, steps),
+        {"tokens": logits.argmax(-1)[:, None].to(torch.int32)})
+    del logits, cache
+    _sync(torch)
+    t0 = time.perf_counter()
+    logits, cache = pre(params, {"tokens": tok})
+    _sync(torch)
+    out = {"prefill_ms": (time.perf_counter() - t0) * 1e3,
+           "logits": [logits.cpu()], "decode_ms": []}
+    cache = rank_jobs.grow_cache(api, cache, steps)
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = dec(params, cache, {
+            "tokens": logits.argmax(-1)[:, None].to(torch.int32)})
+        _sync(torch)
+        out["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["logits"].append(logits.cpu())
+    return out
+
+
+def model_ranks(torch, ops, smi):
+    """24. The model axis over ranks: for each of MODEL_CASES, the port's
+    one-card serve steps on seeded weights first (freed after), then one
+    spawn of four gloo ranks on the card on a (1, 4) ("data", "model")
+    mesh running them all (``rank_jobs.serve_steps`` chained), each rank
+    drawing only its shard (``steps.draw_params``) from the same seed:
+    MODEL_B x MODEL_S prefill tokens, MODEL_STEPS greedy decode steps. Every
+    step's whole logits are the same bits on the four ranks; f32 cases
+    within F32_FULL_TOL of the one-card step's largest |logit| with equal
+    greedy tokens, printed beside how far an embedding nudged by
+    MODEL_NUDGE moves the one-card step; bf16 printed, beside the one-card
+    bf16 step's and the ranks' errors against the one-card f32 step on
+    the same draw (the precision's own gap); each rank's param shapes the shard
+    shapes of ``param_shardings`` on the model axis and its param bytes
+    their sum; flash launches a rank = layers (one prefill). Prints host
+    ms a prefill and a decode step against one card, bytes messaged a
+    step, param GiB and peak memory a rank. Returns the ranks' launch
+    counts, summed."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import rank_jobs
+    from repro_torch.launch.mesh import LogicalMesh
+    from repro_torch.launch.ranks import spawn
+    from repro_torch.models.api import build_model
+    from repro_torch.runtime import steps as S
+    from repro_torch.tree import leaves
+    t_phase = time.perf_counter()
+    _free(torch)
+    M = dict(zip(MODEL_MESH[1], MODEL_MESH[0]))["model"]
+    horizon = MODEL_S + MODEL_STEPS
+    jobs, one, cfgs = [], {}, {}
+    for name, arch, layers, dt in MODEL_CASES:
+        cfg = get_arch(arch)
+        cfg = FAMILY_ARCH(cfg) if FAMILY_ARCH else cfg
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=min(layers,
+                                                          cfg.num_layers))
+        dtype = torch.float32 if dt == "f32" else torch.bfloat16
+        toks = torch.randint(0, cfg.vocab_size, (MODEL_B, MODEL_S),
+                             generator=torch.Generator().manual_seed(24))
+        # the case's dtype, then (for bf16) the f32 step on the same draw
+        for run in dict.fromkeys((dtype, torch.float32)):
+            api = build_model(cfg, device=DEV, dtype=run, max_seq=horizon)
+            params = api.init(torch.Generator(device=DEV).manual_seed(
+                MODEL_SEED))
+            key = name if run is dtype else f"{name} f32"
+            one[key] = _one_card_steps(torch, api, params, toks,
+                                       MODEL_STEPS)
+            one[key]["param_bytes"] = sum(t.numel() * t.element_size()
+                                          for t in _leaves(params))
+            if run is torch.float32:
+                nudged = dict(params,
+                              embed=params["embed"] * (1 + MODEL_NUDGE))
+                one[key]["nudge"] = _held(torch, _one_card_steps(
+                    torch, api, nudged, toks, MODEL_STEPS)["logits"],
+                    one[key]["logits"])[0]
+                del nudged
+            del api, params
+            _free(torch)
+        cfgs[name] = (cfg, dtype)
+        jobs.append((rank_jobs.serve_steps, rank_jobs.StepsJob(
+            cfg, MODEL_MESH, toks, steps=MODEL_STEPS, dtype=dtype,
+            seed=MODEL_SEED, max_seq=horizon)))
+    t0 = time.perf_counter()
+    ranks = spawn(rank_jobs.chain, M, backend="gloo", device=DEV,
+                  args=(jobs,))
+    spawn_s = time.perf_counter() - t0
+    launches = {k: 0 for k in ops.LAUNCHES}
+    lm = LogicalMesh((M,), ("model",))
+
+    def row(xs, fmt="{:.3f}"):
+        return ", ".join(fmt.format(x) for x in xs)
+
+    for i, (name, arch, _, dt) in enumerate(MODEL_CASES):
+        cfg, dtype = cfgs[name]
+        rs, o = [r[i] for r in ranks], one[name]
+        for r in rs[1:]:
+            assert all(torch.equal(a, b) for a, b in
+                       zip(r["logits"], rs[0]["logits"])), \
+                f"{name}: the ranks' logits differ"
+        errs, agree = _held(torch, rs[0]["logits"], o["logits"])
+        if dt == "f32":
+            assert max(errs) < F32_FULL_TOL and agree == MODEL_B, \
+                (name, errs, agree)
+            control = (f"; an embedding nudged by {MODEL_NUDGE:g} moves the "
+                       f"one-card step {row(o['nudge'], '{:.2e}')}")
+        else:
+            f32 = one[f"{name} f32"]
+            (e1, a1), (e2, a2) = (_held(torch, o["logits"], f32["logits"]),
+                                  _held(torch, rs[0]["logits"],
+                                        f32["logits"]))
+            control = (f"; against the one-card f32 step on the same draw: "
+                       f"the one-card {dt} step {row(e1, '{:.2e}')} "
+                       f"(tokens equal on {a1} of {MODEL_B} rows), the "
+                       f"ranks {row(e2, '{:.2e}')} (on {a2}); an embedding "
+                       f"nudged by {MODEL_NUDGE:g} moves the f32 step "
+                       f"{row(f32['nudge'], '{:.2e}')}")
+        meta = build_model(cfg, device="meta", dtype=dtype)
+        want = [sh.shard_shape(sp.shape) for sh, sp in zip(
+            leaves(S.param_shardings(meta, lm)), leaves(meta.param_specs()))]
+        esz = torch.empty((), dtype=dtype).element_size()
+        want_bytes = sum(math.prod(w) for w in want) * esz
+        for r in rs:
+            assert r["param_shapes"] == want, name
+            assert r["param_bytes"] == want_bytes, (name, r["param_bytes"])
+            if DEV == "cuda":
+                assert r["launches"]["flash_attention"] == cfg.num_layers, \
+                    (name, r["launches"])
+            for k in launches:
+                launches[k] += r["launches"][k]
+        experts = ""
+        if cfg.num_experts:
+            wi = meta.param_specs()["blocks"]["moe"]["wi"]
+            e_loc = S.param_shardings(meta, lm)["blocks"]["moe"][
+                "wi"].shard_shape(wi.shape)[1]
+            experts = f", {e_loc} of {cfg.num_experts} experts a rank"
+            if FAMILY_ARCH is None:
+                assert e_loc == 15, e_loc
+        peaks = [r["peak_bytes"] / 2**30 if r["peak_bytes"] else math.nan
+                 for r in rs]
+        log(f"phase {name} {arch} full width, {cfg.num_layers} layers, "
+            f"{dt} on {M} model ranks ({MODEL_MESH[1]} mesh "
+            f"{MODEL_MESH[0]}){experts}: prefill {MODEL_B} x {MODEL_S} and "
+            f"{MODEL_STEPS} greedy decode steps; logits against the "
+            f"one-card step {row(errs, '{:.2e}')} of its largest |logit| "
+            f"over the rows fed the same tokens (limit "
+            f"{F32_FULL_TOL if dt == 'f32' else 'printed'}), greedy tokens "
+            f"equal on {agree} of {MODEL_B} rows at every step{control}; "
+            f"the whole logits the same bits on every rank; host ms a prefill "
+            f"step a rank {row([r['prefill_ms'] for r in rs])} (one card "
+            f"{o['prefill_ms']:.3f}), a decode step p50 a rank "
+            f"{row([_p50(r['decode_ms']) for r in rs])} (one card "
+            f"{_p50(o['decode_ms']):.3f}); bytes messaged a rank, the "
+            f"prefill {rs[0]['prefill_bytes']}, a decode step "
+            f"{rs[0]['decode_bytes']}; param GiB a rank "
+            f"{row([r['param_bytes'] / 2**30 for r in rs])} = the shard "
+            f"shapes of param_shardings on the model axis (one card "
+            f"{o['param_bytes'] / 2**30:.3f}); peak allocated GiB a rank "
+            f"{row(peaks, '{:.2f}')}; flash launches a rank "
+            f"{[r['launches']['flash_attention'] for r in rs]} "
+            f"[{smi}]")
+    log(f"phase 24: {time.perf_counter() - t_phase:.1f} s (the spawn "
+        f"{spawn_s:.1f} s)")
+    return [{"launches": launches}]
+
+
 def _sharding_leaves(tree):
     from repro_torch.sharding.rules import NamedSharding
     if isinstance(tree, NamedSharding):
@@ -6275,6 +6583,9 @@ def main() -> int:
     # reference's chaos-over-disagg line
     runs += serve_disagg_ranks(torch, ops, smi0, runs[1], phase21_eager,
                                runs[6:8])
+    # phase 24: the model axis over ranks: the serve steps with tensor
+    # parallelism on four ranks, glm4-9b and qwen2-moe-a2.7b
+    runs += model_ranks(torch, ops, smi0)
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 

@@ -846,13 +846,15 @@ def disagg(ctx: RankContext, job: DisaggJob) -> List[dict]:
 @dataclasses.dataclass
 class StepsJob:
     """The prefill and decode serve steps (``runtime.steps``) over a mesh
-    of pod and data ranks: ``make_prefill_step`` at ``ShapeConfig("p",
+    of pod, data and model ranks: ``make_prefill_step`` at ``ShapeConfig("p",
     seq, batch, "prefill")`` on ``tokens`` [batch, seq] (on the CPU),
     then ``steps`` greedy ``make_decode_step`` calls at ``ShapeConfig("d",
     seq + steps, batch, "decode")`` on the prefilled cache grown by
-    ``steps`` positions (``grow_cache``). ``params`` on the CPU, or None to
-    draw them from ``seed`` on the rank's device. ``indivisible``, when
-    not 0, is a global batch the steps must refuse by name."""
+    ``steps`` positions (``grow_cache``). ``params`` the whole tree on the
+    CPU (each rank keeps its shard, ``shard_params``), or None to draw the
+    rank's shard from ``seed`` on its device (``draw_params``).
+    ``indivisible``, when not 0, is a global batch the steps must refuse
+    by name."""
 
     cfg: ArchConfig
     mesh: Mesh
@@ -867,38 +869,61 @@ class StepsJob:
 
 def grow_cache(api, cache, n: int):
     """A timeline cache from a prefill with ``n`` more zero positions on
-    every leaf's KV time axis (new tensors)."""
-    seg = api.model.served_segment.name
-    axes = iter(axes_leaves(api.model.init_cache_axes()[seg]))
+    every leaf's KV time axis (new tensors), in every segment."""
+    out = dict(cache)
+    for seg in api.model.segments:
+        axes = iter(axes_leaves(api.model.init_cache_axes()[seg.name]))
 
-    def grow(t):
-        ax = next(axes)
-        if "act_kv_seq" not in ax:
-            return t.clone()
-        pad = [0, 0] * (t.dim() - 1 - ax.index("act_kv_seq")) + [0, n]
-        return torch.nn.functional.pad(t, pad)
+        def grow(t):
+            ax = next(axes)
+            if "act_kv_seq" not in ax:
+                return t.clone()
+            pad = [0, 0] * (t.dim() - 1 - ax.index("act_kv_seq")) + [0, n]
+            return torch.nn.functional.pad(t, pad)
 
-    return dict(cache, **{seg: map_tree(grow, cache[seg])})
+        out[seg.name] = map_tree(grow, cache[seg.name])
+    return out
+
+
+def _messaged(*steps) -> int:
+    """Bytes the steps' ``Staging`` buffers have messaged so far."""
+    seen = {id(st): st for f in steps for st in f.stagings}
+    return sum(st.sent + st.collective for st in seen.values())
 
 
 def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
     """This rank's ``rows`` (a slice of the global batch), the whole [B, V]
     ``logits`` of the prefill and of each decode step, its
-    ``prefill_cache`` and its final ``cache`` (its rows), host ms of the
-    prefill and of each decode step (``prefill_ms``, ``decode_ms``; a
-    first prefill and decode step run untimed before them),
-    ``launches`` over them and, with ``indivisible``, the refusal's
-    message (``refusal``)."""
+    ``prefill_cache`` and its final ``cache`` (its rows, its shard on a
+    model axis), host ms of the prefill and of each decode step
+    (``prefill_ms``, ``decode_ms``; a first prefill and decode step run
+    untimed before them), the bytes each of them messaged
+    (``prefill_bytes``, ``decode_bytes``), ``launches`` over them, the
+    rank's ``param_bytes`` and ``param_shapes`` (in leaf order),
+    ``peak_bytes`` (the card's peak allocation over the driven steps;
+    None on the CPU) and, with ``indivisible``, the refusal's message
+    (``refusal``)."""
     B, Sq = tuple(job.tokens.shape)
-    api, params = _model(ctx, job.cfg, job.dtype, job.params, job.seed,
-                         job.max_seq)
+    api = build_model(job.cfg, device=ctx.device, dtype=job.dtype,
+                      max_seq=job.max_seq)
     mesh = make_mesh(*job.mesh, device=ctx.device)
+    out = {"logits": [], "decode_ms": [], "decode_bytes": []}
+    if job.params is None:
+        params = S.draw_params(api, mesh, torch.Generator(
+            device=ctx.device).manual_seed(job.seed))
+    else:
+        params = map_tree(lambda t: t.to(ctx.device, copy=True),
+                          S.shard_params(api, mesh, job.params))
+    if ctx.device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["param_bytes"] = sum(t.numel() * t.element_size()
+                             for t in leaves(params))
+    out["param_shapes"] = [tuple(t.shape) for t in leaves(params)]
     pre = S.make_prefill_step(api, mesh, ShapeConfig("p", Sq, B, "prefill"))
     dec = S.make_decode_step(api, mesh, ShapeConfig("d", Sq + job.steps, B,
                                                      "decode"))
     idx, count = S._rank_rows(mesh, ("pod", "data"), B)
-    out = {"rows": slice(idx * B // count, (idx + 1) * B // count),
-           "logits": [], "decode_ms": []}
+    out["rows"] = slice(idx * B // count, (idx + 1) * B // count)
     tok = job.tokens.to(ctx.device)
     # first calls, untimed (the rank's first cuBLAS calls and kernel
     # loads), on copies
@@ -908,22 +933,30 @@ def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
     del logits, cache
     _sync(ctx.device)
     ops.reset_launch_counts()
+    if ctx.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(ctx.device)
+    sent = _messaged(pre, dec)
     t0 = time.perf_counter()
     logits, cache = pre(params, {"tokens": tok})
     _sync(ctx.device)
     out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["prefill_bytes"] = _messaged(pre, dec) - sent
     out["logits"].append(logits)
     out["prefill_cache"] = map_tree(lambda t: t.clone(), cache)
     cache = grow_cache(api, cache, job.steps)
     for _ in range(job.steps):
         tok = logits.argmax(-1)[:, None].to(torch.int32)
+        sent = _messaged(pre, dec)
         t0 = time.perf_counter()
         logits, cache = dec(params, cache, {"tokens": tok})
         _sync(ctx.device)
         out["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["decode_bytes"].append(_messaged(pre, dec) - sent)
         out["logits"].append(logits)
     out["cache"] = cache
     out["launches"] = dict(ops.LAUNCHES)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(ctx.device) \
+        if ctx.device.type == "cuda" else None
     if job.indivisible:
         try:
             S.make_prefill_step(api, mesh, ShapeConfig(

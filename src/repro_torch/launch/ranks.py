@@ -201,11 +201,14 @@ class Staging:
     """Pinned host buffers for one rank's messages under gloo, reused by
     tag: a buffer is written again only after the message that used it
     was waited for (the caller's tags say which messages may be in flight
-    together). Also counts the bytes this rank sent point to point."""
+    together). Also counts the bytes this rank sent point to point
+    (``sent``) and the bytes it put into collectives (``collective``:
+    what it passed to ``all_reduce``, ``broadcast`` and ``all_gather``)."""
 
     def __init__(self):
         self._bufs: Dict[Tuple, torch.Tensor] = {}
         self.sent = 0
+        self.collective = 0
 
     def host(self, tag, like: torch.Tensor) -> torch.Tensor:
         key = (tag, tuple(like.shape), like.dtype)
@@ -295,6 +298,7 @@ def all_reduce(staging: Staging, t: torch.Tensor, group=None,
     _may_message("all_reduce")
     if dist.get_world_size(group) == 1:
         return t
+    staging.collective += t.numel() * t.element_size()
     wire = staging._wire(t, group, tag)
     dist.all_reduce(wire, group=group)
     if wire is not t:
@@ -309,6 +313,7 @@ def broadcast(staging: Staging, t: torch.Tensor, src: int, group=None,
     _may_message("broadcast")
     if dist.get_world_size(group) == 1:
         return t
+    staging.collective += t.numel() * t.element_size()
     wire = staging._wire(t, group, tag)
     dist.broadcast(wire, src, group=group)
     if wire is not t:
@@ -324,6 +329,7 @@ def all_gather(staging: Staging, t: torch.Tensor, group=None,
     n = dist.get_world_size(group)
     if n == 1:
         return t[None]
+    staging.collective += t.numel() * t.element_size()
     wire = staging._wire(t, group, (tag, "in"))
     out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=t.device)
     land = staging._landing(out, group, (tag, "out"))

@@ -25,8 +25,8 @@ rank); each rank trains on its rows of the global batch and rank 0 prints
 and writes checkpoints. ``--compress-pod-grads`` on a mesh with pods runs
 the compressed step (int8 error-feedback exchange between pods); without
 a pod axis it is the plain step, as in the reference. A ``model`` axis
-above 1 (tensor parallelism, ROADMAP item 10d) and ``--production-mesh``
-(512 chips) are refused by name.
+above 1 (tensor parallelism of the train step, ROADMAP item 10d, step
+5b) and ``--production-mesh`` (512 chips) are refused by name.
 """
 from __future__ import annotations
 
@@ -112,7 +112,8 @@ def check_args(args) -> None:
     if sizes.get("model", 1) > 1:
         raise NotImplementedError(
             f"--mesh {args.mesh}: a model axis of {sizes['model']} is "
-            f"tensor parallelism (ROADMAP queue 1, item 10d)")
+            f"tensor parallelism of the train step (ROADMAP queue 1, item "
+            f"10d, step 5b)")
     n = math.prod(dims)
     if n > 1:
         if args.backend is None:

@@ -61,28 +61,40 @@ MAX_F32_DRAW = 1 << 34
 
 
 def init_one(spec: ParamSpec, generator: torch.Generator, device,
-             dtype) -> torch.Tensor:
+             dtype, block: Optional[Tuple[slice, ...]] = None
+             ) -> torch.Tensor:
     """The reference's initializer (``repro.models.layers._init_one``):
     zeros, ones, N(0, 0.02) for the embedding, else N(0, scale /
     sqrt(fan_in)) with fan_in = the spec's leading dim. For stacked block
     weights that leading dim is the layer count, as in the reference, so
     random-weight runs of the two packages sit in the same numeric range.
     Draws in f32 from ``generator`` (on ``device``), then casts; past
-    ``MAX_F32_DRAW`` bytes, one leading slice a draw."""
+    ``MAX_F32_DRAW`` bytes, one leading slice a draw. With ``block`` (one
+    slice a dim) only that block of the leaf is kept, drawn as the whole
+    leaf draws (the generator advances as it would)."""
+    block = block or tuple(slice(None) for _ in spec.shape)
+    shape = tuple(len(range(*b.indices(n))) for b, n in zip(block,
+                                                             spec.shape))
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, device=device, dtype=dtype)
+        return torch.zeros(shape, device=device, dtype=dtype)
     if spec.init == "ones":
-        return torch.ones(spec.shape, device=device, dtype=dtype)
+        return torch.ones(shape, device=device, dtype=dtype)
     fan_in = spec.shape[0] if len(spec.shape) > 1 else max(spec.shape[-1], 1)
     std = 0.02 if spec.init == "embed" else spec.scale / math.sqrt(fan_in)
+    whole = shape == tuple(spec.shape)
     if 4 * math.prod(spec.shape) <= MAX_F32_DRAW:
         w = torch.randn(spec.shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return w.mul_(std).to(dtype)
-    out = torch.empty(spec.shape, device=device, dtype=dtype)
+                        dtype=torch.float32).mul_(std)
+        if whole:
+            return w.to(dtype)
+        return torch.empty(shape, device=device, dtype=dtype).copy_(w[block])
+    out = torch.empty(shape, device=device, dtype=dtype)
+    lead = range(*block[0].indices(spec.shape[0]))
     for i in range(spec.shape[0]):
-        out[i] = torch.randn(spec.shape[1:], generator=generator,
-                             device=device, dtype=torch.float32).mul_(std)
+        w = torch.randn(spec.shape[1:], generator=generator, device=device,
+                        dtype=torch.float32).mul_(std)
+        if i in lead:
+            out[i - lead.start] = w[block[1:]]
     return out
 
 

@@ -15,6 +15,18 @@ scatter into unique (expert, slot) targets, and the K expert outputs of
 a token are summed in k order, as the reference's scatter-add sums them.
 The expert products are ``torch.bmm`` over all E experts, the
 reference's ``einsum``.
+
+On a rank of a model axis (``sharding.tensor_parallel``) the experts are
+split as the reference's ``act_experts`` splits them (expert
+parallelism): the router, the top-k and the slots are computed whole on
+every rank, each rank scatters only the decisions of its E / M experts
+into its rows of the buffer and runs their FFN, and combines its
+experts' outputs in k order with zeros for the others'. The shared
+experts are a SwiGLU over the rank's ``mlp`` columns. The partial
+combines and the shared experts' partial output are then added over the
+model group in one ``reduce_model``: a [T, D] message, where gathering
+the experts' outputs to run the one-card combine unchanged would move
+the whole [E, C, D] buffer (C = T * K rows an expert without dropping).
 """
 from __future__ import annotations
 
@@ -25,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.sharding import tensor_parallel as TP
 from . import layers as L
 from .layers import ParamSpec
 from .transformer import StackedLM, _attn_segment
@@ -70,12 +83,18 @@ def moe_mlp_apply(cfg: ArchConfig, p, x: torch.Tensor, *,
     ceil8(T * K)) so that no decision is dropped: inference requires it,
     because a capacity that depends on T would make prefill (T = B * S)
     and decode (T = B) drop different tokens. ``aux=False`` returns None
-    for the loss (serving never reads it)."""
+    for the loss (serving never reads it). On a rank of a model axis
+    ``p`` holds the rank's experts (or its ``mlp`` columns of all of
+    them) and the output is summed over the group (see the module's
+    docstring)."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     T = B * S
     dev = x.device
     xt = x.reshape(T, D)
+    E_loc = p["wi"].shape[0]
+    routed_split = TP.split(E_loc, E) or TP.split(p["wi"].shape[-1],
+                                                  cfg.moe_d_ff)
 
     gates = torch.softmax(xt.float() @ p["router"].float(), dim=-1)  # [T, E]
     topv, topi = torch.topk(gates, K, dim=-1, sorted=True)          # [T, K]
@@ -89,6 +108,17 @@ def moe_mlp_apply(cfg: ArchConfig, p, x: torch.Tensor, *,
     pos_in_e = pos.gather(1, flat_e[:, None])[:, 0]                 # [TK]
     tok_idx = torch.arange(T * K, device=dev) // K
     w = topv.reshape(T * K)
+    row = take = flat_e                     # buffer rows written, read
+    rows = E
+    if E_loc != E:
+        # this rank's experts [lo, lo + E_loc): the others' decisions land
+        # in a spare last row, never read, and weigh zero in the combine
+        local = flat_e - TP.current().index * E_loc
+        mine = (local >= 0) & (local < E_loc)
+        row = torch.where(mine, local, torch.full_like(local, E_loc))
+        take = torch.where(mine, local, torch.zeros_like(local))
+        rows = E_loc + 1
+        w = w * mine
     if drop_tokens:
         C = capacity(T, K, E, capacity_factor)
         keep = pos_in_e < C
@@ -99,27 +129,39 @@ def moe_mlp_apply(cfg: ArchConfig, p, x: torch.Tensor, *,
         contrib = torch.where(keep[:, None], xt[tok_idx],
                               torch.zeros((), dtype=x.dtype, device=dev))
         w = w * keep
-        buf = torch.zeros(E, C, D, dtype=x.dtype, device=dev)
-        buf.index_put_((flat_e, slot), contrib, accumulate=True)
+        buf = torch.zeros(rows, C, D, dtype=x.dtype, device=dev)
+        buf.index_put_((row, slot), contrib, accumulate=True)
     else:
         C = max(8, -(-T * K // 8) * 8)     # worst case: nothing dropped
         slot = pos_in_e                   # every (expert, slot) unique
-        buf = torch.zeros(E, C, D, dtype=x.dtype, device=dev)
-        buf.index_put_((flat_e, slot), xt[tok_idx])
+        buf = torch.zeros(rows, C, D, dtype=x.dtype, device=dev)
+        buf.index_put_((row, slot), xt[tok_idx])
 
-    y = expert_ffn(p, buf)                                          # [E, C, D]
+    y = expert_ffn(p, buf[:E_loc])                              # [E, C, D]
 
     # gather back; gate weights in the activations' type, as the reference
     # casts them, and the K outputs of a token summed in k order
-    y_tok = (y[flat_e, slot] * w.to(y.dtype)[:, None]).view(T, K, D)
+    y_tok = (y[take, slot] * w.to(y.dtype)[:, None]).view(T, K, D)
     out = y_tok[:, 0]
     for k in range(1, K):
         out = out + y_tok[:, k]
 
     if cfg.num_shared_experts:
         sh = p["shared"]
-        shared = L.swiglu(x, sh["wi"], sh["wg"], sh["wo"])
-        out = out + shared.reshape(T, D).to(out.dtype)
+        shared = L.swiglu(x, sh["wi"], sh["wg"], sh["wo"]).reshape(
+            T, D).to(out.dtype)
+        shared_split = TP.split(sh["wo"].shape[0],
+                                cfg.num_shared_experts * cfg.moe_d_ff)
+        if routed_split and shared_split:
+            out = TP.reduce_model(out + shared)
+        else:
+            if shared_split:
+                shared = TP.reduce_model(shared)
+            if routed_split:
+                out = TP.reduce_model(out)
+            out = out + shared
+    elif routed_split:
+        out = TP.reduce_model(out)
 
     loss = None
     if aux:

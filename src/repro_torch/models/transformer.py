@@ -33,6 +33,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.sharding import tensor_parallel as TP
 from repro_torch.tree import leaves
 from . import layers as L
 from .layers import ParamSpec, init_one
@@ -194,13 +195,24 @@ class AttnBlock:
     sliding window), then the FFN, SwiGLU or ``ffn(p, h, train)`` (the MoE
     FFN). One method a path; each writes its layer of a cache in place.
     ``cache_quant`` keeps the timeline cache in int8 with per-(head,
-    channel) scales."""
+    channel) scales; ``d_ff`` is the SwiGLU's width (``cfg.d_ff``, or a
+    dense stem's).
+
+    On a rank of a model axis (``sharding.tensor_parallel``) the block
+    weights are the rank's shard: q and the output projection over its
+    heads, k and v over its KV heads (all of them where they stayed
+    whole: attention then reads the ones its heads map to), the SwiGLU
+    over its columns of ``wi`` / ``wg`` and rows of ``wo``. The two
+    products that contract a split dim end in ``reduce_model``; the
+    timeline paths write the rank's KV heads into its cache."""
 
     paged = True                # has the paged-cache paths
 
     def __init__(self, cfg: ArchConfig, cache_quant: bool = False,
-                 ffn: Optional[Callable] = None):
+                 ffn: Optional[Callable] = None,
+                 d_ff: Optional[int] = None):
         self.cfg, self.cache_quant, self.ffn = cfg, cache_quant, ffn
+        self.d_ff = cfg.d_ff if d_ff is None else d_ff
         self.window = cfg.sliding_window
         self.rolling = bool(self.window)
 
@@ -209,7 +221,23 @@ class AttnBlock:
         if self.ffn is not None:
             return x + self.ffn(p, h, train)
         m = p["mlp"]
-        return x + L.swiglu(h, m["wi"], m["wg"], m["wo"])
+        y = L.swiglu(h, m["wi"], m["wg"], m["wo"])
+        if TP.split(m["wo"].shape[0], self.d_ff):
+            y = TP.reduce_model(y)
+        return x + y
+
+    def attn_out(self, p, ctx: torch.Tensor) -> torch.Tensor:
+        """The output projection of ``ctx`` [B, S, H, hd], summed over the
+        model group where the heads are split."""
+        y = L.attn_out(p["attn"], ctx)
+        if TP.split(ctx.shape[2], self.cfg.num_heads):
+            y = TP.reduce_model(y)
+        return y
+
+    def kv_heads(self, q: torch.Tensor, k: torch.Tensor):
+        """``TP.kv_for_heads`` of q [.., H, hd] and k [.., KVH, hd]."""
+        return TP.kv_for_heads(self.cfg.num_heads, self.cfg.num_kv_heads,
+                               q.shape[2], k.shape[2])
 
     def forward(self, p, x, positions, pos3=None, train: bool = False):
         """The block over a whole sequence: causal (windowed) attention
@@ -218,8 +246,11 @@ class AttnBlock:
         cfg = self.cfg
         h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
         q, k, v = L.attn_qkv(p["attn"], h, positions, cfg, pos3)
-        ctx = L.chunked_attention(q, k, v, causal=True, window=self.window)
-        x = x + L.attn_out(p["attn"], ctx)
+        which = self.kv_heads(q, k)
+        ctx = L.chunked_attention(q, TP.take_kv(k, which, 2),
+                                  TP.take_kv(v, which, 2), causal=True,
+                                  window=self.window)
+        x = x + self.attn_out(p, ctx)
         return self.mlp(p, x, train), k, v
 
     def train(self, p, x, positions, pos3=None) -> torch.Tensor:
@@ -250,7 +281,9 @@ class AttnBlock:
         """Write this step's k, v [b, 1, KVH, D] at ``slot`` of the layer's
         ``kv`` rows ``rows`` (int8 against the layer's scales when
         quantized), in place, and attend over ``cache_len + 1`` positions
-        from each row's ``start`` (``L.decode_attention``)."""
+        from each row's ``start`` (``L.decode_attention``), over the KV
+        heads q's heads read (``kv_heads``)."""
+        which = self.kv_heads(q, k)
         k, v = k.transpose(1, 2), v.transpose(1, 2)         # [b, KVH, 1, D]
         if self.cache_quant:
             k_q, v_q, k_s, v_s = kv
@@ -263,7 +296,8 @@ class AttnBlock:
             kc, vc = kv[0][rows], kv[1][rows]
             kc.index_copy_(2, slot, k)
             vc.index_copy_(2, slot, v)
-        return L.decode_attention(q, kc, vc, cache_len + 1,
+        return L.decode_attention(q, TP.take_kv(kc, which, 1),
+                                  TP.take_kv(vc, which, 1), cache_len + 1,
                                   rolling=self.rolling, start=start)
 
     def decode(self, p, x, positions, pos3, cache, cache_len, slot, start,
@@ -275,7 +309,7 @@ class AttnBlock:
         q, k, v = L.attn_qkv(p["attn"], h, positions, cfg, pos3)
         ctx = self.attend_decode(q, k, v, cache, cache_len, slot, start,
                                  rows)
-        x = x + L.attn_out(p["attn"], ctx)
+        x = x + self.attn_out(p, ctx)
         return self.mlp(p, x)
 
     # -- the paged paths -------------------------------------------------------
@@ -366,7 +400,9 @@ class StackedLM:
 
     # -- embedding / frontend / head -----------------------------------------
     def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens.long()]
+        """The embedding's rows of ``tokens`` (over its vocab shards on a
+        rank of a model axis, ``TP.embed_lookup``)."""
+        return TP.embed_lookup(params["embed"], tokens, self.cfg.vocab_size)
 
     def _fuse_frontend(self, params, x: torch.Tensor, batch) -> torch.Tensor:
         """A modality frontend's fusion into the embedded tokens (none
@@ -376,9 +412,15 @@ class StackedLM:
     def logits(self, params, h: torch.Tensor) -> torch.Tensor:
         """h [B, d] -> f32 logits [B, V]. The reference asks XLA for f32
         accumulation over its bf16 operands (``preferred_element_type``);
-        upcasting the operands is exact, so the head runs in f32."""
+        upcasting the operands is exact, so the head runs in f32. On a
+        rank of a model axis with the vocab split, each rank computes its
+        block of columns and the whole [B, V] is gathered (the reference's
+        replicated logits)."""
         w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
-        return h.float() @ w.float()
+        out = h.float() @ w.float()
+        if TP.split(w.shape[1], self.cfg.vocab_size):
+            out = TP.gather_model(out, -1)
+        return out
 
     def head(self, params, x: torch.Tensor) -> torch.Tensor:
         """Final norm and output head at the last position: x [B, S, d] ->
@@ -809,7 +851,7 @@ def _attn_segment(cfg: ArchConfig, name: str, n: int, cache_quant: bool,
 
     return Segment(name, n, specs_fn or (lambda: dense_block_specs(cfg,
                                                                    d_ff)),
-                   AttnBlock(cfg, cache_quant, ffn), cache_fn,
+                   AttnBlock(cfg, cache_quant, ffn, d_ff), cache_fn,
                    default_kv_cache_axes(cache_quant))
 
 

@@ -242,7 +242,7 @@ class PipelinedDecoder:
             raise ValueError(
                 f"PipelinedDecoder(mesh=): a DeviceMesh of ranks over pod "
                 f"(= num_stages {self.num_stages}) and data, got {sizes} "
-                f"(a model axis is ROADMAP item 10d)")
+                f"(a model axis is ROADMAP item 10d, step 5c)")
         ax = rank_axes(self.mesh)
         self.stage, self.data = ax.index("pod"), ax.index("data")
         self.num_data = ax.size("data")

@@ -25,9 +25,27 @@ averages within a pod over its ``data`` group the same way, exchanges the
 pod's gradient as int8 with error feedback over ``pod``
 (``optim.compression``) and takes the pods' mean loss. The prefill and
 decode serve steps run over the same meshes: each rank its block of the
-batch's rows, the logits gathered whole on every rank. A ``model`` axis
-above 1 (tensor parallelism) and a logical mesh of several devices in a
-process of one rank are refused by name (ROADMAP item 10d and item 10).
+batch's rows, the logits gathered whole on every rank.
+
+The two serve steps also run over a ``model`` axis above 1 (tensor
+parallelism, ROADMAP item 10d, step 5a) for the dense and MoE stacks:
+each rank holds its shard of the params (``shard_params`` of the whole
+tree, or ``draw_params`` leaf by leaf from a seed), split over ``model``
+as ``param_shardings`` resolves them with ``PARAM_RULES`` (over ``pod``
+and ``data`` they stay whole), and the model code, told by the rule
+context that it runs on a model-split rank, adds the messages a shard
+needs (``sharding.tensor_parallel``: a reduce after each product that
+contracts a split dim, the vocab-split embedding and logits). The model
+ranks of a row block run the same rows and return the same whole logits;
+each returns its rows of the cache with its KV heads where they divide
+over ``model``, else all of them, and every position (where the KV heads
+do not divide, ``cache_shardings`` gives the positions to ``model`` when
+they divide; the ranks keep them whole, as every rank computes every KV
+head there, and send nothing for the cache). Refused by name over a
+model axis: the train step (item 10d, step 5b), the ``act_seq_sp`` rules
+(``SP_ACT_RULES``, step 5b), families other than the dense and MoE
+``StackedLM`` and the int8 cache (step 5c). A logical mesh of several
+devices in a process of one rank is refused by name (item 10).
 
 On the card the train step runs under ``torch.use_deterministic_algorithms``,
 so a run repeats its bits and a resumed run ends where a straight one
@@ -49,13 +67,16 @@ import torch
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.device import resolve_device, to_device
 from repro_torch.launch import ranks as RK
-from repro_torch.launch.mesh import rank_axes
+from repro_torch.launch.mesh import LogicalMesh, rank_axes
 from repro_torch.models.api import ModelAPI
-from repro_torch.models.transformer import is_spec, map_specs
+from repro_torch.models.layers import init_one
+from repro_torch.models.transformer import (AttnBlock, StackedLM, _map_specs,
+                                            is_spec, map_specs)
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig, AdamWState
 from repro_torch.optim.compression import compressed_psum_pod
 from repro_torch.sharding import rules as R
+from repro_torch.sharding import tensor_parallel as TP
 from repro_torch.tree import leaves, map_tree
 
 CUBLAS_WORKSPACE = ":4096:8"
@@ -127,12 +148,17 @@ def replicated(mesh) -> R.NamedSharding:
     return R.NamedSharding(mesh, ())
 
 
-def check_mesh(api: ModelAPI, mesh, what: str) -> None:
+SERVE_STEPS = ("make_prefill_step", "make_decode_step")
+
+
+def check_mesh(api: ModelAPI, mesh, what: str, act_rules=None) -> None:
     """The meshes a step of the port runs over: none, a mesh of one
     device (a ``DeviceMesh`` on the model's device type, or a logical
     one), any logical mesh when the model is on ``meta``, where nothing
-    is placed, and a ``DeviceMesh`` of the world's ranks over ``pod`` and
-    ``data`` with any ``model`` axis of 1. Anything else raises by name."""
+    is placed, and a ``DeviceMesh`` of the world's ranks over ``pod``,
+    ``data`` and ``model``, a model axis above 1 for the serve steps of
+    the dense and MoE ``StackedLM`` only (``check_model_axis``). Anything
+    else raises by name."""
     if mesh is None:
         return
     n = R.mesh_size(mesh)
@@ -144,18 +170,119 @@ def check_mesh(api: ModelAPI, mesh, what: str) -> None:
     sizes = R.mesh_axis_sizes(mesh)
     if R.is_device_mesh(mesh):
         wide = {a: k for a, k in sizes.items()
-                if a not in ("pod", "data") and k > 1}
+                if a not in ("pod", "data", "model") and k > 1}
         if wide:
             raise NotImplementedError(
-                f"{what}: mesh axes {wide} would be tensor parallelism "
-                f"(the constrain call sites); ranks run over pod and data "
-                f"only (ROADMAP queue 1, item 10d)")
+                f"{what}: mesh axes {wide}: ranks run over pod, data and "
+                f"model (ROADMAP queue 1, item 10d)")
+        if sizes.get("model", 1) > 1:
+            check_model_axis(api, sizes["model"], what, act_rules)
         return
     raise NotImplementedError(
         f"{what}: a logical mesh of {n} devices {sizes} in a process of "
         f"one rank places nothing; run one rank per device "
         f"(launch/ranks.py) or count on meta tensors (ROADMAP queue 1, "
         f"item 10)")
+
+
+def check_model_axis(api: ModelAPI, m: int, what: str,
+                     act_rules=None) -> None:
+    """What a model axis of ``m`` ranks runs (ROADMAP item 10d, step 5a):
+    the prefill and decode serve steps of the dense and MoE ``StackedLM``
+    (one ``AttnBlock`` class in every segment) with a bf16 or f32
+    timeline cache, under rules that keep the sequence whole. The rest
+    raises by name with its roadmap step."""
+    model, cfg = api.model, api.cfg
+    if what not in SERVE_STEPS:
+        raise NotImplementedError(
+            f"{what}: a model axis of {m} ranks (tensor parallelism) runs "
+            f"the prefill and decode serve steps only; the train step's "
+            f"backward collectives are ROADMAP item 10d, step 5b")
+    if any(k == "act_seq_sp" and any("model" in c for c in v)
+           for k, v in (act_rules or {}).items()):
+        raise NotImplementedError(
+            f"{what}: act_seq_sp over model (SP_ACT_RULES, Megatron-SP) "
+            f"splits the residual stream's sequence, a training layout; "
+            f"ROADMAP item 10d, step 5b")
+    if type(model) is not StackedLM or any(
+            type(seg.block) is not AttnBlock for seg in model.segments):
+        raise NotImplementedError(
+            f"{what}: {cfg.name} ({type(model).__name__}) over a model "
+            f"axis of {m}: tensor parallelism covers the dense and MoE "
+            f"StackedLM stacks; the other families are ROADMAP item 10d, "
+            f"step 5c")
+    if model.cache_quant:
+        raise NotImplementedError(
+            f"{what}: the int8 timeline cache over a model axis of {m} "
+            f"(its per-head scales) is ROADMAP item 10d, step 5c")
+
+
+# ---------------------------------------------------------------------------
+# A rank's shard of the params on the model axis
+# ---------------------------------------------------------------------------
+def _model_view(mesh) -> Tuple[LogicalMesh, Dict[str, int]]:
+    """The model axis of ``mesh`` alone, and this rank's index on it (0
+    off a mesh of ranks)."""
+    m = R.mesh_axis_sizes(mesh).get("model", 1)
+    ax = TP.axis_of(mesh)
+    return (LogicalMesh((m,), ("model",)),
+            {"model": ax.index if ax is not None else 0})
+
+
+def shard_params(api: ModelAPI, mesh, params):
+    """This rank's shard of each leaf of the whole tree ``params``: each
+    leaf's ``ParamSpec.axes`` resolved by ``resolve_spec`` with
+    ``PARAM_RULES`` on the mesh's ``model`` axis alone (so a dim that does
+    not divide stays whole, as the reference's fallback keeps it; over
+    ``pod`` and ``data`` every leaf stays whole). A split leaf is a new
+    tensor (the whole can be freed), a whole one the same tensor."""
+    lm, idx = _model_view(mesh)
+
+    def cut(t, spec):
+        sh = R.logical_sharding(spec.shape, spec.axes, lm, R.PARAM_RULES)
+        if sh.is_replicated:
+            return t
+        return t[sh.block(spec.shape, idx)].clone()
+
+    return map_tree(cut, params, api.param_specs())
+
+
+def draw_params(api: ModelAPI, mesh, generator: torch.Generator):
+    """``shard_params(api, mesh, api.init(generator))``, bit for bit,
+    drawing each leaf from ``generator`` in ``api.init``'s order and
+    keeping only this rank's block before the next: a rank's peak is one
+    whole leaf in f32 beside its shards, not the model. The dense and MoE
+    ``StackedLM`` (whose ``init_params`` draws ``param_specs`` in order)."""
+    if type(api.model) is not StackedLM:
+        raise NotImplementedError(
+            f"draw_params: {type(api.model).__name__} draws its own "
+            f"params; the model axis covers the dense and MoE StackedLM "
+            f"(ROADMAP item 10d, step 5c)")
+    lm, idx = _model_view(mesh)
+
+    def one(spec):
+        sh = R.logical_sharding(spec.shape, spec.axes, lm, R.PARAM_RULES)
+        return init_one(spec, generator, api.device, api.dtype,
+                        block=None if sh.is_replicated
+                        else sh.block(spec.shape, idx))
+
+    return _map_specs(one, api.model.param_specs())
+
+
+def check_shards(api: ModelAPI, mesh, params, what: str) -> None:
+    """Refuse, by name, params that are not this rank's shards."""
+    lm, _ = _model_view(mesh)
+
+    def check(t, spec):
+        want = R.logical_sharding(spec.shape, spec.axes, lm,
+                                  R.PARAM_RULES).shard_shape(spec.shape)
+        if tuple(t.shape) != want:
+            raise ValueError(
+                f"{what}: a param of shape {tuple(t.shape)} where this "
+                f"rank's shard is {want} (axes {spec.axes}); on a model "
+                f"axis pass shard_params(api, mesh, params)")
+
+    map_tree(check, params, api.param_specs())
 
 
 # ---------------------------------------------------------------------------
@@ -184,17 +311,6 @@ def _rank_rows(mesh, axes, n: int, what: str = "train_step"
         raise ValueError(f"{what}: global batch {n} does not split "
                          f"over {count} ranks of {axes}")
     return idx, count
-
-
-def _block_ranks(mesh) -> List[int]:
-    """The global rank holding each block of a batch split over ``pod``
-    and ``data`` (``_rank_rows``), in block order."""
-    names = tuple(mesh.mesh_dim_names)
-    sizes = R.mesh_axis_sizes(mesh)
-    return [int(mesh.mesh[tuple(p if a == "pod" else d if a == "data"
-                                else 0 for a in names)])
-            for p in range(sizes.get("pod", 1))
-            for d in range(sizes.get("data", 1))]
 
 
 def _label_counts(batch, count: int) -> np.ndarray:
@@ -360,8 +476,10 @@ class _RankRows:
     ``(p * data + d)``-th block of ``B / (pod * data)`` rows of the global
     batch (``act_batch`` over ``("pod", "data")``, the block order of the
     train step's ``_rank_rows``) and the whole [B, V] logits come back on
-    every rank, gathered in block order (the reference's replicated
-    logits). Nothing on one device or a logical mesh."""
+    every rank (the reference's replicated logits), gathered over its
+    ``data`` group and then its ``pod`` group, so in block order. The
+    ranks of a ``model`` group hold the same rows and the same logits, so
+    nothing crosses that axis. Nothing on one device or a logical mesh."""
 
     def __init__(self, mesh, B: int, what: str):
         self.on = R.is_device_mesh(mesh) and R.mesh_size(mesh) > 1
@@ -370,7 +488,9 @@ class _RankRows:
         idx, count = _rank_rows(mesh, ("pod", "data"), B, what)
         b = B // count
         self.rows = slice(idx * b, (idx + 1) * b)
-        self.order = _block_ranks(mesh)
+        ax = rank_axes(mesh)
+        self.groups = [ax.group(a) for a in ("data", "pod")
+                       if ax.size(a) > 1]
         self.staging = RK.Staging()
 
     def take(self, batch):
@@ -381,9 +501,10 @@ class _RankRows:
     def logits(self, logits: torch.Tensor) -> torch.Tensor:
         if not self.on:
             return logits
-        every = RK.all_gather(self.staging, logits.contiguous(), None,
-                              tag="logits")
-        return every[self.order].reshape(-1, logits.shape[-1])
+        for g in self.groups:
+            logits = RK.all_gather(self.staging, logits.contiguous(), g,
+                                   tag="logits").reshape(-1, logits.shape[-1])
+        return logits
 
 
 def make_prefill_step(api: ModelAPI, mesh, shape: ShapeConfig, *,
@@ -396,20 +517,27 @@ def make_prefill_step(api: ModelAPI, mesh, shape: ShapeConfig, *,
     ranks each rank runs its block of the batch's rows (``_RankRows``; a
     batch that does not split over the ranks raises by name) and returns
     the whole [B, V] logits and the cache of its rows only, as
-    ``act_kv_batch`` shards it. ``param_rules`` and ``sharded_logits``
-    choose the reference's output shardings, which place nothing on one
-    device."""
+    ``act_kv_batch`` shards it; over a ``model`` axis ``params`` are the
+    rank's shards (``shard_params``; others raise by name) and the cache
+    holds the rank's KV heads where they divide over ``model``, else all
+    of them, and every position.
+    ``param_rules`` and ``sharded_logits`` choose the reference's output
+    shardings, which place nothing on one device."""
     del param_rules, sharded_logits
-    check_mesh(api, mesh, "make_prefill_step")
+    check_mesh(api, mesh, "make_prefill_step", act_rules)
     act_rules = act_rules or R.ACT_RULES
     ranks = _RankRows(mesh, shape.global_batch, "prefill_step")
+    tp = TP.axis_of(mesh)
 
     def prefill_step(params, batch):
         _check_inputs(api, shape, batch, "prefill_step")
+        if tp is not None:
+            check_shards(api, mesh, params, "prefill_step")
         with R.axis_rules(mesh, act_rules):
             logits, cache = api.prefill_fn(params, ranks.take(batch))
-        return ranks.logits(logits), cache
+            return ranks.logits(logits), cache
 
+    prefill_step.stagings = _stagings(ranks, tp)
     return prefill_step
 
 
@@ -421,19 +549,31 @@ def make_decode_step(api: ModelAPI, mesh, shape: ShapeConfig, *,
     timeline cache of ``shape.seq_len`` positions) is updated in place and
     returned, as the reference donates it. On a mesh of ranks ``batch``
     is the global batch and ``cache`` this rank's rows (the prefill
-    step's), as ``make_prefill_step``; the logits are the whole [B, V]."""
+    step's), as ``make_prefill_step``, and over a ``model`` axis its
+    KV heads; the logits are the whole [B, V]."""
     del param_rules, sharded_logits
-    check_mesh(api, mesh, "make_decode_step")
+    check_mesh(api, mesh, "make_decode_step", act_rules)
     act_rules = act_rules or R.ACT_RULES
     ranks = _RankRows(mesh, shape.global_batch, "decode_step")
+    tp = TP.axis_of(mesh)
 
     def decode_step(params, cache, batch):
         _check_inputs(api, shape, batch, "decode_step")
+        if tp is not None:
+            check_shards(api, mesh, params, "decode_step")
         with R.axis_rules(mesh, act_rules):
             logits, cache = api.decode_fn(params, cache, ranks.take(batch))
-        return ranks.logits(logits), cache
+            return ranks.logits(logits), cache
 
+    decode_step.stagings = _stagings(ranks, tp)
     return decode_step
+
+
+def _stagings(ranks: _RankRows, tp: Optional[TP.ModelAxis]) -> list:
+    """The ``Staging`` buffers a serve step messages through: the logits
+    gather's and the model axis's (shared by every step on the mesh)."""
+    return ([ranks.staging] if ranks.on else []) + \
+        ([tp.staging] if tp is not None else [])
 
 
 def abstract_inputs(api: ModelAPI, shape: ShapeConfig) -> Dict[str, Any]:

@@ -81,7 +81,8 @@ ranges if it has re-planned since (``_relayout``), then forwards the part
 to the pod's other data ranks (``_share_part``); its integrity verdicts
 are every rank's, as a swap-in's.
 
-Refused by name: a ``model`` axis above 1 (ROADMAP item 10d, step 5).
+Refused by name: a ``model`` axis above 1 (ROADMAP item 10d, step 5c;
+the serve steps run over one, ``runtime.steps``).
 """
 from __future__ import annotations
 
@@ -122,8 +123,8 @@ def check_rank_mesh(mesh, cfg, backend: str) -> None:
     if wide:
         raise NotImplementedError(
             f"ServingEngine(mesh=): mesh axes {wide}: the engine's ranks "
-            f"run over pod and data only; tensor parallelism is ROADMAP "
-            f"item 10d, step 5")
+            f"run over pod and data only; tensor parallelism of the "
+            f"engine is ROADMAP item 10d, step 5c")
     if sizes.get("pod") != cfg.num_stages:
         raise ValueError(f"ServingEngine(mesh=): {sizes.get('pod')} pods "
                          f"but num_stages {cfg.num_stages}; stage s runs "

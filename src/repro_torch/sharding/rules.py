@@ -203,6 +203,23 @@ class NamedSharding:
             out[d] //= math.prod(sizes[a] for a in _names(entry))
         return tuple(out)
 
+    def block(self, shape: Sequence[int],
+              coords: Dict[str, int]) -> Tuple[slice, ...]:
+        """The index of the block of a tensor of global ``shape`` that the
+        device at ``coords`` ({mesh axis: index}; an axis left out is at
+        0) holds: a dim over several mesh axes is cut first by the first,
+        as JAX lays out a ``PartitionSpec`` entry ``("pod", "data")``."""
+        sizes = mesh_axis_sizes(self.mesh)
+        out = [slice(None)] * len(shape)
+        for d, entry in enumerate(self.spec):
+            idx, n = 0, 1
+            for a in _names(entry):
+                idx, n = idx * sizes[a] + coords.get(a, 0), n * sizes[a]
+            if n > 1:
+                b = shape[d] // n
+                out[d] = slice(idx * b, (idx + 1) * b)
+        return tuple(out)
+
     @property
     def is_replicated(self) -> bool:
         """Every device holds the whole tensor: the spec names no mesh

@@ -1,0 +1,169 @@
+"""A rank's view of the ``model`` axis (tensor parallelism over ranks).
+
+The reference marks its model code with ``constrain`` and lets GSPMD
+insert the collectives. Here each device of a mesh is a rank
+(``launch.ranks``), each rank holds its shard of the params
+(``runtime.steps.shard_params``) and the model code asks this module for
+the messages a shard needs. The model code learns that it runs on a
+model-sharded rank from the rule context the step enters
+(``rules.axis_rules(mesh, rules)``): ``current()`` is this rank's
+``ModelAxis`` when that mesh is a ``DeviceMesh`` of ranks with a
+``model`` axis above 1, else None, and every helper below is then the
+identity. No model function takes a mesh argument.
+
+    reduce_model(partial)       the sum over the model group of the
+                                partial outputs of a product that
+                                contracts a model-split dim, in f32,
+                                rounded once to the partial's dtype
+    gather_model(x, dim)        the group's shards of x side by side
+                                along dim, in model order
+    embed_lookup(table, ids)    rows of a vocab-split embedding: a
+                                masked local lookup, then a reduce
+
+Every model-axis message goes through these three, so a backward
+(``torch.autograd.Function``) can be given to each in one place and a
+count on meta tensors can see them all. ``split(local, whole)`` tells a
+call site whether its operand holds a shard (the divisibility fallback of
+``rules.resolve_spec`` keeps a dim whole when it does not divide), and
+``kv_for_heads`` picks the KV heads a rank's query heads read when the KV
+heads stayed whole.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch.sharding import rules as R
+
+
+@dataclasses.dataclass
+class ModelAxis:
+    """This rank on the ``model`` axis of a mesh of ranks: its index, the
+    axis size, the axis's process group and the host buffers of its
+    messages (``Staging``, which counts their bytes)."""
+
+    index: int
+    size: int
+    group: Any
+    staging: Any
+
+
+# mesh id -> (the mesh, its ModelAxis); a mesh lives as long as its step
+_AXES: Dict[int, Tuple[Any, ModelAxis]] = {}
+
+
+def axis_of(mesh) -> Optional[ModelAxis]:
+    """The ``ModelAxis`` of this rank on ``mesh``, or None where the mesh
+    is no ``DeviceMesh`` of ranks or its model axis is 1."""
+    if mesh is None or not R.is_device_mesh(mesh) \
+            or R.mesh_axis_sizes(mesh).get("model", 1) == 1:
+        return None
+    hit = _AXES.get(id(mesh))
+    if hit is not None and hit[0] is mesh:
+        return hit[1]
+    import torch.distributed as dist
+
+    from repro_torch.launch import ranks as RK
+    from repro_torch.launch.mesh import rank_axes
+    ax = rank_axes(mesh)
+    group = ax.group("model")
+    if dist.get_rank(group) != ax.index("model"):
+        raise ValueError("the model group's order is not the mesh's")
+    out = ModelAxis(ax.index("model"), ax.size("model"), group,
+                    RK.Staging())
+    _AXES[id(mesh)] = (mesh, out)
+    return out
+
+
+def current() -> Optional[ModelAxis]:
+    """``axis_of`` the mesh of the active rule context."""
+    return axis_of(R.current_mesh())
+
+
+def split(local: int, whole: int) -> bool:
+    """Whether an operand dim of ``local`` entries (of ``whole`` in the
+    unsplit model) holds a shard on this rank: False with no model
+    axis."""
+    return current() is not None and local != whole
+
+
+def reduce_model(partial: torch.Tensor) -> torch.Tensor:
+    """The sum over the model group of each rank's ``partial`` (a product
+    over its shard of the contracted dim), added in f32 and rounded once
+    to ``partial``'s dtype; the same bits on every rank of the group.
+    ``partial`` is consumed (an f32 one is summed in place). The identity
+    with no model axis."""
+    ax = current()
+    if ax is None:
+        return partial
+    from repro_torch.launch import ranks as RK
+    total = RK.all_reduce(ax.staging, partial.float().contiguous(),
+                          ax.group, tag="reduce_model")
+    return total.to(partial.dtype)
+
+
+def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model group's shards of ``x`` side by side along ``dim``, in
+    model order (every rank's the same); the identity with no model
+    axis."""
+    ax = current()
+    if ax is None:
+        return x
+    from repro_torch.launch import ranks as RK
+    every = RK.all_gather(ax.staging, x.contiguous(), ax.group,
+                          tag="gather_model")
+    return torch.cat(every.unbind(0), dim=dim)
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """``table[ids]`` for an embedding of ``vocab`` rows, of which
+    ``table`` holds this rank's block when the vocab is split: each rank
+    looks up the ids in its block (zeros elsewhere) and the reduce adds
+    the one nonzero row of each id, so the rows are the whole table's
+    bit for bit."""
+    ids = ids.long()
+    if not split(table.shape[0], vocab):
+        return table[ids]
+    n = table.shape[0]
+    local = ids - current().index * n
+    mine = (local >= 0) & (local < n)
+    rows = table[torch.where(mine, local, torch.zeros_like(local))]
+    rows = torch.where(mine[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return reduce_model(rows)
+
+
+def kv_for_heads(num_heads: int, num_kv_heads: int, local_heads: int,
+                 local_kv: int) -> Union[slice, torch.Tensor, None]:
+    """The KV heads this rank's ``local_heads`` query heads read when its
+    K and V hold all ``num_kv_heads`` (``local_kv``; the KV heads stayed
+    whole while the query heads split): global query head h reads KV
+    head h // rep, rep = num_heads / num_kv_heads. A slice where every KV
+    head it names serves the same number of the rank's heads (the rank then attends with that
+    many heads a KV head, the one-card kernel's grouping); else an index
+    of one KV head for each of its query heads (K and V expanded, one
+    query head a KV head). None where the query heads are whole or the KV
+    heads split with them (each rank's KV heads are then its heads')."""
+    if not split(local_heads, num_heads) or local_kv != num_kv_heads:
+        return None
+    rep = num_heads // num_kv_heads
+    first = current().index * local_heads
+    kv = [(first + j) // rep for j in range(local_heads)]
+    counts = [kv.count(g) for g in range(kv[0], kv[-1] + 1)]
+    if len(set(counts)) == 1:
+        return slice(kv[0], kv[-1] + 1)
+    return torch.tensor(kv, dtype=torch.long)
+
+
+def take_kv(t: torch.Tensor, which, dim: int) -> torch.Tensor:
+    """``t``'s KV heads ``which`` (``kv_for_heads``) along ``dim``, a
+    contiguous tensor (the flash kernel's input)."""
+    if which is None:
+        return t
+    if isinstance(which, slice):
+        return t.narrow(dim, which.start,
+                        which.stop - which.start).contiguous()
+    return t.index_select(dim, which.to(t.device))
