@@ -294,7 +294,28 @@ Phases (each prints its own lines; any failure exits non-zero):
      (b) glm4-9b at full width and depth in bf16, its error, host ms,
      bytes messaged a step, param bytes against the shard shapes, peak
      memory and 40 flash launches a prefill a rank printed; the whole
-     logits the same bits on every rank.
+     logits the same bits on every rank;
+ 25. the model axis's train step over ranks (tensor parallelism's
+     backward): four gloo ranks on the card, each drawing only its shards
+     of seeded weights (``rank_jobs.train``): (a) full-width llama3.2-1b
+     at full depth in bf16 on a (2, 2) ("data", "model") mesh, phase 13's
+     batch (8 x 128), stream, seed and schedule, 3 steps: finite losses
+     that fall, the data ranks of each model index holding the same bits
+     of every shard and every rank the same whole leaves after every
+     step, param bytes a rank the model-axis shard shapes of
+     ``param_shardings``, 2 x 16 x 3 flash launches a rank; each step's
+     loss and grad norm printed beside phase 13's, host ms a step, bytes a
+     step (model-axis collectives, data reduce) and peak memory a rank;
+     (b) f32 at 2 layers on (1, 4): glm4-9b (two KV heads whole over 4)
+     and qwen2-moe-a2.7b (15 experts a rank), the seeded draw's block
+     weights rescaled to their contractions (the reference's init
+     amplifies f32 rounding to order one in the gradient at full width),
+     one step each at index 0 against the one-card step on the same weights:
+     loss within 1e-5, grad norm within 1e-4, each rank's gradient
+     shards (AdamW's first moment) within 1e-4 of each leaf's largest,
+     errors printed. Phase 2 holds
+     ``FlashAttentionFn`` and phase 16 times flash at 25a's shard (4 rows,
+     16 heads over 4).
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
@@ -745,6 +766,8 @@ def check_captured_keys(torch, ops, ref, sealing):
 
 
 # prefill attention: B, Sq, Sk, H, KVH, D, causal, window, q_offset
+# phase 25a's training shard over (2, 2) data x model ranks
+FLASH_TRAIN_SHARD = (4, 128, 128, 16, 4, 64, 1, 0, 0)
 FLASH_PATH = {"one-shot": (1, 512, 512, 32, 8, 64, 1, 0, 0),
               "packed": (4, 128, 128, 32, 8, 64, 1, 0, 0),
               "chunk": (1, 128, 512, 32, 8, 64, 1, 0, 384),
@@ -778,7 +801,10 @@ FLASH_CASES = ([(B, S, S, H, H, D, int(c), w, 0) for B, H, S, D, w, c in (
        (2, 224, 224, 12, 12, 64, 1, 0, 0)]
     # phase 24's head shards over a model axis of 4: glm4-9b's 8 query
     # heads of one KV head (rep 16 kept), qwen2-moe-a2.7b's 4 over 4
-    + [(8, 128, 128, 8, 1, 128, 1, 0, 0), (8, 128, 128, 4, 4, 128, 1, 0, 0)])
+    + [(8, 128, 128, 8, 1, 128, 1, 0, 0), (8, 128, 128, 4, 4, 128, 1, 0, 0)]
+    # phase 25a's shard: llama3.2-1b's 4 rows a data rank, 16 heads over 4
+    # a model rank
+    + [FLASH_TRAIN_SHARD])
 # phases 11's and 12's one-shot prefill shapes, timed beside FLASH_PATH's
 FLASH_D128 = {"one-shot d128": (1, 128, 128, 24, 8, 128, 1, 0, 0),
               "one-shot d128 mha": (1, 128, 128, 16, 16, 128, 1, 0, 0)}
@@ -840,7 +866,8 @@ def check_flash_attention(torch, ops, ref):
 
 def check_flash_train(torch, ops, ref):
     """Prefill attention under autograd at phase 13's shape (B=8, S=128,
-    32 heads over 8, D=64): ``ops.flash_attention`` refuses CUDA inputs
+    32 heads over 8, D=64) and phase 25a's shard of it (B=4, 16 heads over
+    4): ``ops.flash_attention`` refuses CUDA inputs
     that require grad while autograd records (its output has no graph);
     ``FlashAttentionFn`` gives the kernel's output bit for bit, and its
     plain backward's dq, dk, dv agree with autograd through the plain
@@ -848,8 +875,9 @@ def check_flash_train(torch, ops, ref):
     within 3e-5, enters delta = rowsum(dO·O)), bf16 within 1.6e-2 of it
     (two bf16 steps: the kernel's bf16 output may sit one step from the
     plain one's). A second backward gives the same bits."""
-    case = FLASH_PATH["train"]
-    for dtype, rel in ((torch.float32, 1e-4), (torch.bfloat16, 1.6e-2)):
+    for case, dtype, rel in (
+            (c, d, r) for c in (FLASH_PATH["train"], FLASH_TRAIN_SHARD)
+            for d, r in ((torch.float32, 1e-4), (torch.bfloat16, 1.6e-2))):
         q, k, v = (t.requires_grad_() for t in flash_inputs(torch, case,
                                                             dtype, seed=6))
         do = torch.randn(q.shape, generator=torch.Generator(
@@ -877,8 +905,9 @@ def check_flash_train(torch, ops, ref):
             top = c.float().abs().max().item()
             assert err <= rel * top, (dtype, name, err, top)
             errs.append(f"d{name} {err:.2e} (max {top:.2f})")
-        log(f"check flash_attention under autograd {dtype} B=8 S=128 H=32 "
-            f"KVH=8 D=64: refused outside FlashAttentionFn, forward = "
+        log(f"check flash_attention under autograd {dtype} B={case[0]} "
+            f"S={case[1]} H={case[3]} KVH={case[4]} D={case[5]}: refused "
+            f"outside FlashAttentionFn, forward = "
             f"kernel bit for bit, {', '.join(errs)} <= {rel} x max, second "
             f"backward bit-equal")
 
@@ -2632,7 +2661,7 @@ def train_full_width(torch, ops, smi):
     del out
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches}
+    return {"launches": launches, "losses": losses, "gnorms": gnorms}
 
 
 # phase 14: the timeline KV layout, per-token prefill and the int8 cache at
@@ -3352,7 +3381,9 @@ FLASH_FAMILIES = {
     # prefill: glm4-9b's 8 query heads on their one KV head, qwen2-moe's 4
     # over 4
     "glm4 head shard": (8, 128, 128, 8, 1, 128, 1, 0, 0),
-    "qwen2-moe head shard": (8, 128, 128, 4, 4, 128, 1, 0, 0)}
+    "qwen2-moe head shard": (8, 128, 128, 4, 4, 128, 1, 0, 0),
+    # 25a: llama3.2-1b's training shard on (2, 2) data x model
+    "llama train shard": FLASH_TRAIN_SHARD}
 # paged attention at 16a's decode: 2 rows of 1152..1167 tokens over tables
 # of 73 pages of 16 (their own pages), 28 heads over 4 KV heads (rep 7)
 PAGED_VLM = dict(B=2, KVH=4, rep=7, D=128, Pg=16, lens=(1160, 1167), MP=73)
@@ -5097,7 +5128,7 @@ def pod_ranks(torch, ops, smi):
         RANKS_TRAIN["batch"], RANKS_TRAIN["seq"],
         opt=AdamWConfig(lr=1e-3, warmup_steps=1,
                         total_steps=RANKS_TRAIN["steps"]),
-        compressed=True, dtype=torch.bfloat16, seed=0, keep_state=False)
+        compressed=True, dtype=torch.bfloat16, seed=0, keep=())
     both = spawn(rank_jobs.chain, 2, backend=backend, device=DEV,
                  args=([(rank_jobs.decode, job), (rank_jobs.train, tj)],))
     dec_ranks, tr = [b[0] for b in both], [b[1] for b in both]
@@ -6422,6 +6453,282 @@ def model_ranks(torch, ops, smi):
     return [{"launches": launches}]
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the train step over a model axis of ranks (ROADMAP item 10d,
+# step 5b): tensor parallelism's backward, the data reduce beside it, four
+# gloo ranks on the card, each drawing only its shards. Sizes are names,
+# for a CPU rehearsal as phases 16 to 24.
+# 25a: full-width llama3.2-1b at full depth in bf16 on (2, 2) data x
+# model, phase 13's batch, stream, seed and schedule, 3 steps
+TRAIN_MESH = ((2, 2), ("data", "model"))
+TRAIN_STEPS = 3
+# 25b: f32 at cut depth on (1, 4), one step at index 0 against the
+# one-card step on the same draw
+TRAIN_F32_MESH = ((1, 4), ("data", "model"))
+TRAIN_F32_CASES = (("25b glm4", "glm4-9b", 2), ("25b moe", "qwen2-moe-a2.7b",
+                                                  2))
+TRAIN_F32_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=30)
+# on ``_conditioned`` weights (the reference's init amplifies f32 rounding
+# to order one in the gradient at full width: on an H100 the ranks'
+# gradient of 2-layer glm4-9b stood 0.16 of a leaf's largest off one
+# card's, and at 1 layer the card's one-card gradient 1.0 off the CPU's);
+# the gradient is held through AdamW's first moment after the step (m =
+# (1 - b1) g from zero moments; the schedule's lr is 0 at step 0, and at
+# a moving step Adam moves an element whose gradient sits at rounding
+# level by up to lr either way, so new params would show little more)
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4, 1e-4
+
+
+def _conditioned(api, params):
+    """``params`` (whole, or a rank's shards) with every stacked block
+    weight rescaled in place from the reference's std 1/sqrt(n blocks) to
+    1/sqrt(k), k the count its product contracts: the ``embed`` axis of
+    an input projection (q, k, v, the router, ``wi``, ``wg``), the heads
+    and head_dim or ``mlp`` axes of an output projection ``wo``. The
+    factor comes from the whole leaf's spec, so a shard scales as its
+    leaf does, bit for bit. At full width the reference's init saturates
+    attention and amplifies f32 rounding to order one in the gradient (as
+    phase 17's ``_contraction_scaled`` finds for its families); these
+    weights keep the step well conditioned."""
+    from repro_torch.tree import leaves, named_leaves
+    specs = named_leaves(api.param_specs())
+    for (name, sp), t in zip(specs.items(), leaves(params)):
+        if sp.init != "normal" or not sp.axes or sp.axes[0] != "layers":
+            continue
+        axes = ("heads", "head_dim", "mlp") if name.endswith("wo") \
+            else ("embed",)
+        k = math.prod(n for n, a in zip(sp.shape, sp.axes) if a in axes)
+        t.mul_(math.sqrt(sp.shape[0] / k))
+    return params
+
+
+def _model_cfg(arch, layers=None):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    cfg = FAMILY_ARCH(cfg) if FAMILY_ARCH else cfg
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=min(layers,
+                                                      cfg.num_layers))
+    return cfg
+
+
+def _one_card_train(torch, cfg, opt_cfg, seq, batch, moment=True,
+                    prepare=None):
+    """The port's one-card f32 train step on ``cfg``'s seeded draw (the
+    ranks' seed, MODEL_SEED; then ``prepare(api, params)`` when given) at
+    step index 0: loss, grad norm, host ms, and with ``moment`` AdamW's
+    first moment after it on the host."""
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import SyntheticTokenStream
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as S
+    from repro_torch.tree import map_tree
+    api = build_model(cfg, device=DEV, dtype=torch.float32, max_seq=seq)
+    params = api.init(torch.Generator(device=DEV).manual_seed(MODEL_SEED))
+    if prepare is not None:
+        params = prepare(api, params)
+    opt = adamw.init(params)
+    step = S.make_train_step(api, adamw.AdamWConfig(**opt_cfg),
+                             ShapeConfig("t", seq, batch, "train"),
+                             device=DEV)
+    data = SyntheticTokenStream(cfg.vocab_size, batch, seq)
+    _sync(torch)
+    t0 = time.perf_counter()
+    loss, params, opt, gnorm = step(params, opt, data.batch_at(0),
+                                    np.int32(0))
+    loss, gnorm = float(loss), float(gnorm)
+    ms = (time.perf_counter() - t0) * 1e3
+    del params
+    out = {"loss": loss, "gnorm": gnorm, "ms": ms}
+    if moment:
+        out["m"] = map_tree(lambda t: t.cpu(), opt.m)
+    del opt, step, api
+    _free(torch)
+    return out
+
+
+def model_train_ranks(torch, ops, smi, phase13=None):
+    """25. The train step over a model axis (tensor parallelism's backward
+    and the data reduce beside it), four gloo ranks on the card, each
+    drawing only its shards of seeded weights (``steps.draw_params``)
+    through ``rank_jobs.train``. (a) full-width llama3.2-1b in bf16 at
+    full depth on TRAIN_MESH, phase 13's batch (8 x 128), stream, seed and
+    schedule, TRAIN_STEPS steps: finite losses that fall, the data ranks
+    of each model index with the same bits of every shard after every
+    step, every whole leaf (the norms) the same bits on every rank, param
+    bytes a rank = the model-axis shard shapes of ``param_shardings``,
+    flash launches a rank = 2 x layers x steps (forward and remat
+    recompute); prints each step's loss and grad norm beside phase 13's
+    one-card run, host ms a step a rank, bytes a step a rank (the model
+    axis's collectives and the data reduce) and peak memory a rank. (b)
+    f32 at cut depth on TRAIN_F32_MESH, glm4-9b (two KV heads whole over
+    4) and qwen2-moe-a2.7b (15 experts a rank), on the seeded draw's
+    ``_conditioned`` weights, one step each at index 0 against the
+    one-card step on the same weights: loss within
+    TRAIN_LOSS_RTOL, grad norm within TRAIN_GNORM_RTOL, each rank's
+    gradient shards (AdamW's first moment after the step) within
+    TRAIN_GRAD_TOL of the one-card leaf's largest, errors printed before
+    they are asserted. (a) and (b) run in one spawn (``rank_jobs.chain``),
+    each one-card step before it. Returns the ranks' launch counts,
+    summed."""
+    import dataclasses
+
+    from repro_torch.launch import rank_jobs, train
+    from repro_torch.launch.mesh import LogicalMesh
+    from repro_torch.launch.ranks import spawn
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import steps as S
+    from repro_torch.tree import leaves
+    t_phase = time.perf_counter()
+    _free(torch)
+    launches = {k: 0 for k in ops.LAUNCHES}
+
+    def row(xs, fmt="{:.3f}"):
+        return ", ".join(fmt.format(x) for x in xs)
+
+    # (a) llama3.2-1b at full depth in bf16, phase 13's run on ranks
+    args = train.build_parser().parse_args(FULL_TRAIN)
+    cfg = _model_cfg(args.arch)
+    dims = dict(zip(TRAIN_MESH[1], TRAIN_MESH[0]))
+    M, n = dims["model"], math.prod(TRAIN_MESH[0])
+    opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
+                      total_steps=args.steps)
+    jobs = [(rank_jobs.train, rank_jobs.TrainJob(
+        cfg, TRAIN_MESH, TRAIN_STEPS, args.batch, args.seq, opt=opt,
+        dtype=torch.bfloat16, seed=MODEL_SEED, keep=()))]
+    # the precision's own gap: the one-card f32 step on the same draw
+    f32 = _one_card_train(torch, cfg, dataclasses.asdict(opt), args.seq,
+                          args.batch, moment=False)
+    # (b)'s one-card steps and jobs, so that one spawn runs (a) and (b)
+    B, Sq = args.batch, args.seq
+    ones = {}
+    for name, arch, layers in TRAIN_F32_CASES:
+        cfg_b = _model_cfg(arch, layers)
+        ones[name] = (cfg_b, _one_card_train(torch, cfg_b, TRAIN_F32_OPT, Sq,
+                                             B, prepare=_conditioned))
+        jobs.append((rank_jobs.train, rank_jobs.TrainJob(
+            cfg_b, TRAIN_F32_MESH, 1, B, Sq,
+            opt=AdamWConfig(**TRAIN_F32_OPT), dtype=torch.float32,
+            seed=MODEL_SEED, keep=("m",), prepare=_conditioned)))
+    assert math.prod(TRAIN_F32_MESH[0]) == n
+    t0 = time.perf_counter()
+    chained = spawn(rank_jobs.chain, n, backend="gloo", device=DEV,
+                    args=(jobs,))
+    spawn_s = time.perf_counter() - t0
+    rs = [r[0] for r in chained]
+    meta = build_model(cfg, device="meta", dtype=torch.bfloat16)
+    specs = leaves(meta.param_specs())
+    shards = leaves(S.param_shardings(meta, LogicalMesh((M,), ("model",))))
+    want_bytes = 2 * sum(math.prod(sh.shard_shape(sp.shape))
+                         for sh, sp in zip(shards, specs))
+    one_bytes = 2 * sum(math.prod(sp.shape) for sp in specs)
+    for r in rs:
+        assert r["param_bytes"] == want_bytes, (r["param_bytes"], want_bytes)
+        assert all(math.isfinite(x) for x in r["losses"] + r["gnorms"]), r
+        assert r["losses"] == rs[0]["losses"], "the ranks' losses differ"
+        assert r["gnorms"] == rs[0]["gnorms"], "the ranks' grad norms differ"
+        if DEV == "cuda":
+            assert r["launches"]["flash_attention"] == \
+                2 * cfg.num_layers * TRAIN_STEPS, r["launches"]
+        for k in launches:
+            launches[k] += r["launches"][k]
+    losses, gnorms = rs[0]["losses"], rs[0]["gnorms"]
+    assert losses[-1] < losses[0], losses
+    split = rs[0]["split"]
+    for rank, r in enumerate(rs):
+        j = rank % M                     # model is the mesh's last axis
+        for i, (mine, first, peer) in enumerate(zip(
+                r["digests"], rs[0]["digests"], rs[j]["digests"])):
+            for k, is_split in enumerate(split):
+                assert mine[k] == (peer[k] if is_split else first[k]), \
+                    ("25a: a shard or a whole leaf differs", rank, i, k)
+    one = ""
+    if phase13 is not None:
+        one = (f"; phase 13's one-card steps: losses "
+               f"{row(phase13['losses'][:TRAIN_STEPS], '{:.4f}')}, grad "
+               f"norms {row(phase13['gnorms'][:TRAIN_STEPS])}")
+    one += (f"; the one-card f32 step 1 on the same draw: loss "
+            f"{f32['loss']:.4f}, grad norm {f32['gnorm']:.3f}")
+    peaks = [r["peak_bytes"] / 2**30 if r.get("peak_bytes") else math.nan
+             for r in rs]
+    log(f"phase 25a {args.arch} full width, {cfg.num_layers} layers, bf16 "
+        f"on {n} ranks ({TRAIN_MESH[1]} mesh {TRAIN_MESH[0]}), batch "
+        f"{args.batch} x {args.seq}, lr {args.lr}, {TRAIN_STEPS} steps: "
+        f"losses {row(losses, '{:.4f}')}, grad norms {row(gnorms)}{one}; "
+        f"the data ranks of each model index hold the same bits of every "
+        f"shard and every rank the same whole leaves after every step; "
+        f"param bytes a rank {rs[0]['param_bytes']} = the model-axis "
+        f"shard shapes of param_shardings (one card {one_bytes}); host ms "
+        f"a step a rank "
+        f"{'; '.join(row(r['host_ms'], '{:.1f}') for r in rs)}; bytes a "
+        f"step a rank: model-axis collectives "
+        f"{row([r['model_bytes_per_step'] for r in rs], '{:.0f}')}, the "
+        f"data reduce {row([r['data_bytes_per_step'] for r in rs], '{:.0f}')}"
+        f"; peak allocated GiB a rank {row(peaks, '{:.2f}')}; flash "
+        f"launches a rank {[r['launches']['flash_attention'] for r in rs]}"
+        f" [{smi}]")
+
+    # (b) f32 at cut depth against one card on the same draw
+    dims = dict(zip(TRAIN_F32_MESH[1], TRAIN_F32_MESH[0]))
+    M = dims["model"]
+    for c, (name, arch, layers) in enumerate(TRAIN_F32_CASES):
+        cfg, o = ones[name]
+        rs = [r[c + 1] for r in chained]
+        meta = build_model(cfg, device="meta", dtype=torch.float32)
+        loss_err = abs(rs[0]["losses"][0] - o["loss"]) / abs(o["loss"])
+        gnorm_err = abs(rs[0]["gnorms"][0] - o["gnorm"]) / abs(o["gnorm"])
+        worst = 0.0
+        whole = leaves(o["m"])
+        for rank, r in enumerate(rs):
+            assert r["losses"] == rs[0]["losses"], name
+            assert r["gnorms"] == rs[0]["gnorms"], name
+            if DEV == "cuda":
+                assert r["launches"]["flash_attention"] == \
+                    2 * cfg.num_layers, (name, r["launches"])
+            for k in launches:
+                launches[k] += r["launches"][k]
+            j = rank % M
+            for blk, w, g in zip(S.model_blocks(meta, M, j), whole,
+                                 leaves(r["m"])):
+                w = w if blk is None else w[blk]
+                assert tuple(g.shape) == tuple(w.shape), (name, g.shape)
+                worst = max(worst, _rel(g.to(DEV), w.to(DEV)))
+        experts = ""
+        if cfg.num_experts:
+            experts = (f", {cfg.num_experts // M} of {cfg.num_experts} "
+                       f"experts a rank")
+        log(f"phase {name} {arch} full width, {cfg.num_layers} layers, f32 "
+            f"on {n} ranks ({TRAIN_F32_MESH[1]} mesh {TRAIN_F32_MESH[0]})"
+            f"{experts}, batch {B} x {Sq}, the seeded draw's block weights "
+            f"rescaled to their contractions, one step at index 0: loss "
+            f"{rs[0]['losses'][0]:.6f} against one card's {o['loss']:.6f} "
+            f"(rel {loss_err:.2e}, limit {TRAIN_LOSS_RTOL}), grad norm "
+            f"{rs[0]['gnorms'][0]:.4f} against {o['gnorm']:.4f} (rel "
+            f"{gnorm_err:.2e}, limit {TRAIN_GNORM_RTOL}), each rank's "
+            f"gradient shards (AdamW's first moment) within {worst:.2e} of "
+            f"each one-card leaf's largest (limit {TRAIN_GRAD_TOL}); host ms "
+            f"the step a rank "
+            f"{row([r['host_ms'][0] for r in rs], '{:.1f}')} (one card "
+            f"{o['ms']:.1f}, its first step); bytes a rank, model-axis "
+            f"collectives {rs[0]['model_bytes_per_step']:.0f}; flash "
+            f"launches a rank {[r['launches']['flash_attention'] for r in rs]}"
+            f" [{smi}]")
+        assert loss_err <= TRAIN_LOSS_RTOL, (name, loss_err)
+        assert gnorm_err <= TRAIN_GNORM_RTOL, (name, gnorm_err)
+        assert worst <= TRAIN_GRAD_TOL, (name, worst)
+    del chained, ones
+    _free(torch)
+    log(f"phase 25: {time.perf_counter() - t_phase:.1f} s (the spawn "
+        f"{spawn_s:.1f} s)")
+    return [{"launches": launches}]
+
+
 def _sharding_leaves(tree):
     from repro_torch.sharding.rules import NamedSharding
     if isinstance(tree, NamedSharding):
@@ -6536,8 +6843,8 @@ def main() -> int:
     # pipelined with sealed boundaries
     runs += serve_moe(torch, ops, smi[0] if smi else "unavailable")
     # phase 13: full-width llama3.2-1b training through the launcher
-    runs.append(train_full_width(torch, ops,
-                                 smi[0] if smi else "unavailable"))
+    phase13 = train_full_width(torch, ops, smi[0] if smi else "unavailable")
+    runs.append(phase13)
     # phase 14: the timeline KV layout, per-token prefill and the int8
     # cache on full-width llama3.2-1b
     runs += serve_timeline(torch, ops, smi[0] if smi else "unavailable")
@@ -6586,6 +6893,9 @@ def main() -> int:
     # phase 24: the model axis over ranks: the serve steps with tensor
     # parallelism on four ranks, glm4-9b and qwen2-moe-a2.7b
     runs += model_ranks(torch, ops, smi0)
+    # phase 25: the model axis's train step over ranks: llama3.2-1b at full
+    # depth on (2, 2) data x model, glm4-9b and qwen2-moe-a2.7b in f32
+    runs += model_train_ranks(torch, ops, smi0, phase13)
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 

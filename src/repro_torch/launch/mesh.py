@@ -6,7 +6,9 @@ card with no group that is a mesh of one, over a one-rank process group
 that ``make_mesh`` sets up itself (an in-process store: no address, no
 network); in a rank that ``launch.ranks.spawn`` started, a mesh of the
 world's ranks, pod-major (rank ``p * data + d`` is pod p, data index d),
-with one process group per axis (``rank_axes``). Any other mesh, the
+with one process group per axis (``rank_axes``; with a ``model`` axis
+above 1 also the group of the ranks that share this rank's model index,
+``ROWS``). Any other mesh, the
 production meshes among them, is a ``LogicalMesh``: axis names and sizes,
 no devices. The sharding rules and the dry-run read a logical mesh; a
 step that would have to place tensors on one refuses it by name (ROADMAP
@@ -74,11 +76,21 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
                       mesh_dim_names=axes)
 
 
+# the (pod, data) ranks of one model index: the data axes' reduce
+ROWS = ("pod", "data")
+# mesh id -> (the mesh, this rank's group of ROWS); made once a mesh, by
+# every rank together
+_ROW_GROUPS: Dict[int, Tuple[Any, Any]] = {}
+
+
 @dataclasses.dataclass(frozen=True)
 class RankAxes:
     """This rank's place on a mesh of ranks: its coordinate and the
     process group along each axis (the ranks that differ from it on that
-    axis only). An axis the mesh lacks has size 1, index 0, no group."""
+    axis only). An axis the mesh lacks has size 1, index 0, no group.
+    With a ``model`` axis above 1 and more than one (pod, data) position,
+    ``group(ROWS)`` is the group of the ranks that hold this rank's model
+    index (its pod and data neighbours together)."""
 
     coords: Dict[str, int]
     sizes: Dict[str, int]
@@ -100,9 +112,28 @@ def rank_axes(mesh) -> RankAxes:
     coord = mesh.get_coordinate()
     if coord is None:
         raise ValueError(f"rank_axes: this rank is not on {mesh}")
-    return RankAxes(dict(zip(names, (int(c) for c in coord))),
-                    dict(zip(names, tuple(mesh.mesh.shape))),
-                    {n: mesh.get_group(n) for n in names})
+    sizes = dict(zip(names, tuple(mesh.mesh.shape)))
+    groups = {n: mesh.get_group(n) for n in names}
+    rows = math.prod(sizes.get(a, 1) for a in ROWS)
+    if sizes.get("model", 1) > 1 and rows > 1:
+        groups[ROWS] = _rows_group(mesh, names)
+    return RankAxes(dict(zip(names, (int(c) for c in coord))), sizes,
+                    groups)
+
+
+def _rows_group(mesh, names):
+    """This rank's group of the ranks with its model index, made once a
+    mesh (every rank makes every such group, in model order)."""
+    hit = _ROW_GROUPS.get(id(mesh))
+    if hit is not None and hit[0] is mesh:
+        return hit[1]
+    import torch.distributed as dist
+    m = names.index("model")
+    ranks = mesh.mesh.movedim(m, -1).reshape(-1, mesh.mesh.shape[m])
+    group, _ = dist.new_subgroups_by_enumeration(
+        [ranks[:, j].tolist() for j in range(ranks.shape[1])])
+    _ROW_GROUPS[id(mesh)] = (mesh, group)
+    return group
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:

@@ -1,10 +1,10 @@
 """Rank bodies for ``launch.ranks.spawn``: the pipelined decoder, the
 serving engine with one stage per pod (its data ranks splitting each
 microbatch's rows) and the disaggregated pair on the same mesh, the
-prefill and decode serve steps and the train step
-(plain or compressed) over a mesh of pod and data ranks, each driven for
-a few steps from inputs the caller hands over on the CPU, or from seeded
-weights drawn on the rank's device.
+prefill and decode serve steps and the train step (plain or compressed)
+over a mesh of pod, data and model ranks, each driven for a few steps
+from inputs the caller hands over on the CPU, or from seeded weights
+drawn on the rank's device.
 
     outs = spawn(rank_jobs.decode, 4, backend="gloo", device="cpu",
                  args=(DecodeJob(cfg, ((2, 2), ("pod", "data")), ...),))
@@ -45,6 +45,7 @@ from repro_torch.runtime import steps as S
 from repro_torch.runtime.pipeline import PipelinedDecoder, axes_leaves
 from repro_torch.serving import aot
 from repro_torch.serving.engine import EngineConfig, ServingEngine
+from repro_torch.sharding import tensor_parallel as TP
 from repro_torch.tree import leaves, map_tree
 
 Mesh = Tuple[Tuple[int, ...], Tuple[str, ...]]
@@ -908,12 +909,7 @@ def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
                       max_seq=job.max_seq)
     mesh = make_mesh(*job.mesh, device=ctx.device)
     out = {"logits": [], "decode_ms": [], "decode_bytes": []}
-    if job.params is None:
-        params = S.draw_params(api, mesh, torch.Generator(
-            device=ctx.device).manual_seed(job.seed))
-    else:
-        params = map_tree(lambda t: t.to(ctx.device, copy=True),
-                          S.shard_params(api, mesh, job.params))
+    params = _rank_params(ctx, api, mesh, job.params, job.seed)
     if ctx.device.type == "cuda":
         torch.cuda.empty_cache()
     out["param_bytes"] = sum(t.numel() * t.element_size()
@@ -969,8 +965,16 @@ def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
 def chain(ctx: RankContext, calls: Sequence[Tuple[Callable, Any]]
           ) -> List[Any]:
     """``fn(ctx, job)`` for each ``(fn, job)`` of ``calls`` in turn, in one
-    set of ranks (each ``fn`` a body of this module)."""
-    return [fn(ctx, job) for fn, job in calls]
+    set of ranks (each ``fn`` a body of this module). On a card the
+    allocator's cached blocks are released after each call, so four ranks
+    sharing it do not each keep one call's peak reserved for the next."""
+    out = []
+    for fn, job in calls:
+        out.append(fn(ctx, job))
+        if ctx.device.type == "cuda":
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1000,8 +1004,10 @@ class TrainJob:
     """``steps`` train steps of ``make_train_step(mesh=)`` (compressed with
     ``compressed``) over ``SyntheticTokenStream(vocab, batch, seq,
     structure=structure)``, every step's batch with
-    ``label_mask`` [batch, seq] when given. ``params`` on the CPU, or None
-    to draw them from ``seed`` on the rank's device."""
+    ``label_mask`` [batch, seq] when given. ``params`` the whole tree on
+    the CPU, or None to draw them from ``seed`` on the rank's device (on a
+    model axis each rank keeps or draws its shards), then ``prepare(api,
+    params)`` when given."""
 
     cfg: ArchConfig
     mesh: Mesh
@@ -1015,19 +1021,44 @@ class TrainJob:
     seed: int = 0
     structure: float = 0.9
     label_mask: Optional[np.ndarray] = None
-    keep_state: bool = True          # return the params and every ef
+    # the state returned: "params" (final), "ef" (after every step,
+    # compressed), "m" (AdamW's first moment, final)
+    keep: Tuple[str, ...] = ("params", "ef")
+    # fn(api, params) -> params, on the rank's params before step 1
+    prepare: Optional[Callable] = None
+
+
+def _rank_params(ctx: RankContext, api, mesh, params, seed: int):
+    """This rank's params on ``mesh``: its shards of the whole tree
+    ``params`` (on the CPU; ``shard_params``, the whole tree with no model
+    axis) moved to its device, or drawn there from ``seed``
+    (``draw_params``)."""
+    if params is None:
+        return S.draw_params(api, mesh, torch.Generator(
+            device=ctx.device).manual_seed(seed))
+    return map_tree(lambda t: t.to(ctx.device, copy=True),
+                    S.shard_params(api, mesh, params))
 
 
 def train(ctx: RankContext, job: TrainJob) -> dict:
     """The rank's ``losses`` and ``gnorms`` a step, a ``param_digest`` of
-    its params after each step, ``launches``, ``host_ms`` a step, the
-    bytes it sent a step, its peak device memory (a card), the error
-    feedback's largest |value| and nonzero count (compressed), and with
-    ``keep_state`` the final ``params`` and the ``ef`` after every step
-    (``ef_steps``)."""
-    api, params = _model(ctx, job.cfg, job.dtype, job.params, job.seed,
-                         job.seq)
+    its params after each step (``digests``, one int a leaf; ``split``
+    says which leaves are shards on a model axis, the rest whole),
+    ``param_bytes``, ``launches``, ``host_ms`` a step, the bytes it sent
+    point to point a step (``sent_per_step``), the bytes a step of its
+    data reduce and pod exchange (``data_bytes_per_step``) and of its
+    model axis's collectives (``model_bytes_per_step``), its peak device
+    memory (a card), the error feedback's largest |value| and nonzero
+    count (compressed), and as ``keep`` names them the final ``params``,
+    the ``ef`` after every step (``ef_steps``) and AdamW's final first
+    moment ``m``. On a model axis the params are the rank's shards (of
+    ``params``, or drawn from ``seed``)."""
     mesh = make_mesh(*job.mesh, device=ctx.device)
+    api = build_model(job.cfg, device=ctx.device, dtype=job.dtype,
+                      max_seq=job.seq)
+    params = _rank_params(ctx, api, mesh, job.params, job.seed)
+    if job.prepare is not None:
+        params = job.prepare(api, params)
     opt = adamw.init(params)
     extra = (init_error_feedback(params),) if job.compressed else ()
     step = S.make_train_step(api, job.opt,
@@ -1037,12 +1068,18 @@ def train(ctx: RankContext, job: TrainJob) -> dict:
                              compress_pod_grads=job.compressed)
     data = SyntheticTokenStream(job.cfg.vocab_size, job.batch, job.seq,
                                 structure=job.structure)
-    res = {"losses": [], "gnorms": [], "digests": [], "host_ms": []}
+    res = {"losses": [], "gnorms": [], "digests": [], "host_ms": [],
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in leaves(params))}
+    res["split"] = [b is not None for b in S.model_blocks(api, mesh)]
+    tp = TP.axis_of(mesh)
     if ctx.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(ctx.device)
     _sync(ctx.device)
     ops.reset_launch_counts()
     sent0 = step.staging.sent
+    data0 = step.staging.sent + step.staging.collective
+    model0 = tp.staging.collective if tp else 0
     for i in range(job.steps):
         batch = next(data)
         if job.label_mask is not None:
@@ -1057,11 +1094,16 @@ def train(ctx: RankContext, job: TrainJob) -> dict:
         res["losses"].append(loss)
         res["gnorms"].append(float(out[-1]))
         res["digests"].append(param_digest(params))
-        if job.keep_state and job.compressed:
+        if "ef" in job.keep and job.compressed:
             res.setdefault("ef_steps", []).append(
                 map_tree(lambda t: t.clone(), extra[0]))
     res["launches"] = dict(ops.LAUNCHES)
-    res["sent_per_step"] = (step.staging.sent - sent0) / max(job.steps, 1)
+    n = max(job.steps, 1)
+    res["sent_per_step"] = (step.staging.sent - sent0) / n
+    res["data_bytes_per_step"] = (step.staging.sent + step.staging.collective
+                                  - data0) / n
+    res["model_bytes_per_step"] = ((tp.staging.collective if tp else 0)
+                                   - model0) / n
     if ctx.device.type == "cuda":
         res["peak_bytes"] = torch.cuda.max_memory_allocated(ctx.device)
     if job.compressed:
@@ -1069,8 +1111,10 @@ def train(ctx: RankContext, job: TrainJob) -> dict:
         res["ef_absmax"] = max(float(e.abs().max()) for e in ef)
         res["ef_nonzero"] = sum(int(e.count_nonzero()) for e in ef)
         res["ef_finite"] = all(bool(torch.isfinite(e).all()) for e in ef)
-    if job.keep_state:
+    if "params" in job.keep:
         res["params"] = params
+    if "m" in job.keep:
+        res["m"] = opt.m
     return res
 
 

@@ -21,12 +21,12 @@ sends into an error instead of a hang.
 The caller names the backend, ``gloo`` or ``nccl``; nothing picks one.
 NCCL places one rank per card: more ranks than visible cards raises
 before any process starts. Gloo moves host memory only, so the helpers
-below (``send``, ``recv``, ``exchange``, ``all_reduce``, ``broadcast``,
-``all_gather``) stage a card's tensor through a pinned host buffer of the
-``Staging`` the caller owns, then copy it to the card: a sealed payload
-crosses host memory between two enclaves, as the paper's boundaries do.
-Under NCCL, or with tensors already on the CPU, they pass tensors as they
-are.
+below (``send``, ``recv``, ``exchange``, ``all_reduce`` (a sum or a
+max), ``broadcast``, ``all_gather``) stage a card's tensor through a
+pinned host buffer of the ``Staging`` the caller owns, then copy it to
+the card: a sealed payload crosses host memory between two enclaves, as
+the paper's boundaries do. Under NCCL, or with tensors already on the
+CPU, they pass tensors as they are.
 
 An engine whose stages are ranks runs the same host logic on every rank,
 so what that logic reads must agree: ``share`` gives every rank one
@@ -291,16 +291,17 @@ def exchange(staging: Staging, tensors: Sequence[torch.Tensor], peer: int,
 
 
 def all_reduce(staging: Staging, t: torch.Tensor, group=None,
-               tag="all_reduce") -> torch.Tensor:
-    """Sum of ``t`` over ``group``, written into ``t`` and returned; the
-    same bits on every rank (the backend reduces each element once and
-    hands the result to all)."""
+               tag="all_reduce", op: str = "sum") -> torch.Tensor:
+    """Sum (``op="max"``: elementwise max) of ``t`` over ``group``,
+    written into ``t`` and returned; the same bits on every rank (the
+    backend reduces each element once and hands the result to all)."""
     _may_message("all_reduce")
     if dist.get_world_size(group) == 1:
         return t
     staging.collective += t.numel() * t.element_size()
     wire = staging._wire(t, group, tag)
-    dist.all_reduce(wire, group=group)
+    dist.all_reduce(wire, op={"sum": dist.ReduceOp.SUM,
+                              "max": dist.ReduceOp.MAX}[op], group=group)
     if wire is not t:
         t.copy_(wire)
     return t

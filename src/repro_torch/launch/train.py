@@ -7,6 +7,9 @@
       --reduced --steps 3 --device cpu --mesh 2x2 --multi-pod \\
       --compress-pod-grads --backend gloo
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --reduced --steps 3 --device cpu --mesh 2x2 --backend gloo
+
 Trains on ``cuda`` unless ``--device cpu`` is asked for (without a card
 and without it, it raises). Weights are drawn from a seeded
 ``torch.Generator`` on the device, bf16 unless ``--f32``; data is
@@ -22,11 +25,15 @@ no pod axis; three dims agree.) A mesh of more than one device runs one
 rank per device, which the launcher spawns itself (``launch.ranks``) over
 the backend ``--backend`` names (required then; ``nccl`` needs a card per
 rank); each rank trains on its rows of the global batch and rank 0 prints
-and writes checkpoints. ``--compress-pod-grads`` on a mesh with pods runs
-the compressed step (int8 error-feedback exchange between pods); without
-a pod axis it is the plain step, as in the reference. A ``model`` axis
-above 1 (tensor parallelism of the train step, ROADMAP item 10d, step
-5b) and ``--production-mesh`` (512 chips) are refused by name.
+and writes checkpoints. A ``model`` axis above 1 is tensor parallelism
+(``sharding.tensor_parallel``): each rank draws only its shards of the
+weights (``steps.draw_params``, the same seed), and its AdamW state is
+of its shards. ``--compress-pod-grads`` on a mesh with pods runs the
+compressed step (int8 error-feedback exchange between pods); without a
+pod axis it is the plain step, as in the reference. Refused by name:
+``--ckpt-dir`` with a model axis above 1 (rank 0 would write its shards
+alone; restoring shards is ROADMAP item 10d, step 7) and
+``--production-mesh`` (512 chips).
 """
 from __future__ import annotations
 
@@ -109,11 +116,13 @@ def check_args(args) -> None:
             "trains over ranks of pod and data (ROADMAP queue 1, item 10d)")
     dims, names = mesh_axes(args)
     sizes = dict(zip(names, dims))
-    if sizes.get("model", 1) > 1:
+    if sizes.get("model", 1) > 1 and args.ckpt_dir:
         raise NotImplementedError(
-            f"--mesh {args.mesh}: a model axis of {sizes['model']} is "
-            f"tensor parallelism of the train step (ROADMAP queue 1, item "
-            f"10d, step 5b)")
+            f"--ckpt-dir with --mesh {args.mesh}: on a model axis of "
+            f"{sizes['model']} each rank holds its shards, and a checkpoint "
+            f"of shards written and restored over ranks "
+            f"(CheckpointManager.restore(shardings=)) is ROADMAP queue 1, "
+            f"item 10d, step 7")
     n = math.prod(dims)
     if n > 1:
         if args.backend is None:
@@ -133,7 +142,8 @@ def _run(args, dev: torch.device, mesh, names) -> dict:
     api = build_model(cfg, device=dev, dtype=dtype)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                           total_steps=args.steps)
-    params = api.init(torch.Generator(device=dev).manual_seed(SEED))
+    params = S.draw_params(api, mesh,
+                           torch.Generator(device=dev).manual_seed(SEED))
     opt_state = adamw.init(params)
     data = SyntheticTokenStream(cfg.vocab_size, args.batch, args.seq)
     compressed = args.compress_pod_grads and "pod" in names \

@@ -25,6 +25,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as KO
+from repro_torch.sharding import rules as R
+from repro_torch.sharding import tensor_parallel as TP
 
 
 # ---------------------------------------------------------------------------
@@ -242,12 +244,13 @@ def attn_specs(cfg, prefix_bias: bool = False) -> Dict[str, ParamSpec]:
     return s
 
 
-def attn_qkv(p, x, positions, cfg, pos3=None):
+def attn_qkv(p, x, positions, cfg, pos3=None, xq=None):
     """Project to q, k, v, add the biases where the block has them, and
     rotate: RoPE at ``positions``, or M-RoPE at ``pos3`` [B, S, 3] for
     ``pos_type == "mrope"`` (which raises without them, as the reference
-    asserts). x: [B, S, d] -> q [B, S, H, hd], k and v [B, S, KVH, hd]."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    asserts). x: [B, S, d] -> q [B, S, H, hd], k and v [B, S, KVH, hd];
+    q from ``xq`` where given (the same values, another autograd path)."""
+    q = torch.einsum("bsd,dhk->bshk", x if xq is None else xq, p["wq"])
     k = torch.einsum("bsd,dgk->bsgk", x, p["wk"])
     v = torch.einsum("bsd,dgk->bsgk", x, p["wv"])
     if "bq" in p:
@@ -452,16 +455,46 @@ def _xent_chunk(hb, lb, mb, w_head):
     return nll.sum(), mb.sum()
 
 
+def _xent_chunk_split(hb, lb, mb, w_head, lo: int):
+    """``_xent_chunk`` over a vocab-split head: ``w_head`` holds this
+    rank's columns [lo, lo + V / M) of the model axis's vocab. The
+    logsumexp's shift is the max over the group of each rank's row max
+    (``TP.max_model``, no gradient: the logsumexp does not depend on it),
+    the sum of exponentials and the gold logit (picked where the label is
+    in this rank's block, else 0) are summed over the group in one
+    ``TP.reduce_model``; the [B, c, V] logits are never gathered."""
+    logits = hb.float() @ w_head.float()                        # [B, c, Vl]
+    with torch.no_grad():
+        shift = TP.max_model(logits.amax(-1))                   # [B, c]
+    sumexp = torch.exp(logits - shift[..., None]).sum(-1)
+    local = lb.long() - lo
+    mine = (local >= 0) & (local < logits.shape[-1])
+    gold = logits.gather(-1, torch.where(
+        mine, local, torch.zeros_like(local))[..., None])[..., 0]
+    gold = torch.where(mine, gold, torch.zeros_like(gold))
+    sumexp, gold = TP.reduce_model(torch.stack([sumexp, gold])).unbind(0)
+    nll = (torch.log(sumexp) + shift - gold) * mb
+    return nll.sum(), mb.sum()
+
+
 def chunked_softmax_xent(h, w_head, labels, *, chunk: int = 512,
-                         label_mask=None):
+                         label_mask=None, vocab: Optional[int] = None):
     """h: [B, S, D]; w_head: [D, V]; labels: [B, S] int. Returns the mean
     nll over unmasked positions (the reference's ``chunked_softmax_xent``):
     the sequence is cut into chunks of ``min(chunk, S)`` halved until it
     divides S, each chunk's f32 logits are recomputed in the backward
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), and
-    the chunks' sums are added in order."""
+    the chunks' sums are added in order. On a rank of a model axis whose
+    ``w_head`` holds a block of the ``vocab`` columns, each chunk is the
+    vocab-parallel cross entropy (``_xent_chunk_split``) and ``h`` enters
+    it through ``TP.copy_to_model``."""
     B, S, D = h.shape
     c = pick_chunk(S, chunk)
+    fn, recompute = _xent_chunk, R.recompute_context()
+    if vocab is not None and TP.split(w_head.shape[1], vocab):
+        h = TP.copy_to_model(h)
+        fn = functools.partial(
+            _xent_chunk_split, lo=TP.current().index * w_head.shape[1])
     if label_mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
     else:
@@ -470,7 +503,8 @@ def chunked_softmax_xent(h, w_head, labels, *, chunk: int = 512,
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, S, c):
         t, n = torch.utils.checkpoint.checkpoint(
-            _xent_chunk, h[:, i:i + c], labels[:, i:i + c],
-            mask[:, i:i + c], w_head, use_reentrant=False)
+            fn, h[:, i:i + c], labels[:, i:i + c],
+            mask[:, i:i + c], w_head, use_reentrant=False,
+            context_fn=recompute)
         tot, cnt = tot + t, cnt + n
     return tot / torch.clamp(cnt, min=1.0)

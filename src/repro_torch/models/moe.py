@@ -27,6 +27,10 @@ combines and the shared experts' partial output are then added over the
 model group in one ``reduce_model``: a [T, D] message, where gathering
 the experts' outputs to run the one-card combine unchanged would move
 the whole [E, C, D] buffer (C = T * K rows an expert without dropping).
+In training the tokens entering the dispatch, the gate weights entering
+the combine and the shared experts' input pass ``copy_to_model``, so
+their gradients (and through them the router's) are the whole ones on
+every rank.
 """
 from __future__ import annotations
 
@@ -108,6 +112,10 @@ def moe_mlp_apply(cfg: ArchConfig, p, x: torch.Tensor, *,
     pos_in_e = pos.gather(1, flat_e[:, None])[:, 0]                 # [TK]
     tok_idx = torch.arange(T * K, device=dev) // K
     w = topv.reshape(T * K)
+    if routed_split:
+        # the whole tokens and gate weights enter this rank's share of the
+        # experts: their gradients are summed over the model group
+        xt, w = TP.copy_to_model(xt), TP.copy_to_model(w)
     row = take = flat_e                     # buffer rows written, read
     rows = E
     if E_loc != E:
@@ -148,10 +156,11 @@ def moe_mlp_apply(cfg: ArchConfig, p, x: torch.Tensor, *,
 
     if cfg.num_shared_experts:
         sh = p["shared"]
-        shared = L.swiglu(x, sh["wi"], sh["wg"], sh["wo"]).reshape(
-            T, D).to(out.dtype)
         shared_split = TP.split(sh["wo"].shape[0],
                                 cfg.num_shared_experts * cfg.moe_d_ff)
+        xs = TP.copy_to_model(x) if shared_split else x
+        shared = L.swiglu(xs, sh["wi"], sh["wg"], sh["wo"]).reshape(
+            T, D).to(out.dtype)
         if routed_split and shared_split:
             out = TP.reduce_model(out + shared)
         else:

@@ -33,6 +33,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.sharding import rules as R
 from repro_torch.sharding import tensor_parallel as TP
 from repro_torch.tree import leaves
 from . import layers as L
@@ -203,8 +204,10 @@ class AttnBlock:
     heads, k and v over its KV heads (all of them where they stayed
     whole: attention then reads the ones its heads map to), the SwiGLU
     over its columns of ``wi`` / ``wg`` and rows of ``wo``. The two
-    products that contract a split dim end in ``reduce_model``; the
-    timeline paths write the rank's KV heads into its cache."""
+    products that contract a split dim end in ``reduce_model``, and the
+    normed input of each split product enters it through
+    ``copy_to_model`` (its gradient summed over the group in training);
+    the timeline paths write the rank's KV heads into its cache."""
 
     paged = True                # has the paged-cache paths
 
@@ -221,8 +224,11 @@ class AttnBlock:
         if self.ffn is not None:
             return x + self.ffn(p, h, train)
         m = p["mlp"]
+        split = TP.split(m["wo"].shape[0], self.d_ff)
+        if split:
+            h = TP.copy_to_model(h)
         y = L.swiglu(h, m["wi"], m["wg"], m["wo"])
-        if TP.split(m["wo"].shape[0], self.d_ff):
+        if split:
             y = TP.reduce_model(y)
         return x + y
 
@@ -233,6 +239,22 @@ class AttnBlock:
         if TP.split(ctx.shape[2], self.cfg.num_heads):
             y = TP.reduce_model(y)
         return y
+
+    def qkv(self, p, h, positions, pos3=None):
+        """``L.attn_qkv`` of the normed ``h``. Where the query heads are
+        split over a model axis, ``h`` enters their product through
+        ``TP.copy_to_model``; where the KV heads stayed whole, k and v
+        come from ``h`` itself and enter the rank's attention through
+        ``TP.copy_to_model`` (each rank reads some of them), so every
+        rank's gradient of ``h``, ``wk`` and ``wv`` is the whole one."""
+        a, cfg = p["attn"], self.cfg
+        if not TP.split(a["wq"].shape[1], cfg.num_heads):
+            return L.attn_qkv(a, h, positions, cfg, pos3)
+        hq = TP.copy_to_model(h)
+        if TP.split(a["wk"].shape[1], cfg.num_kv_heads):
+            return L.attn_qkv(a, hq, positions, cfg, pos3)
+        q, k, v = L.attn_qkv(a, h, positions, cfg, pos3, xq=hq)
+        return q, TP.copy_to_model(k), TP.copy_to_model(v)
 
     def kv_heads(self, q: torch.Tensor, k: torch.Tensor):
         """``TP.kv_for_heads`` of q [.., H, hd] and k [.., KVH, hd]."""
@@ -245,7 +267,7 @@ class AttnBlock:
         then the FFN. Returns (x, k, v) with k, v [B, S, KVH, D]."""
         cfg = self.cfg
         h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = L.attn_qkv(p["attn"], h, positions, cfg, pos3)
+        q, k, v = self.qkv(p, h, positions, pos3)
         which = self.kv_heads(q, k)
         ctx = L.chunked_attention(q, TP.take_kv(k, which, 2),
                                   TP.take_kv(v, which, 2), causal=True,
@@ -490,8 +512,10 @@ class StackedLM:
         where ``start > 0``, and the cache holds those layers. In training with
         ``remat`` each block runs under ``torch.utils.checkpoint`` (the
         reference's ``jax.checkpoint`` of each scan step) while autograd
-        records: its activations are recomputed in the backward, so the
-        flash kernel runs twice a layer. The stacked block weights are
+        records: its activations are recomputed in the backward (under
+        the forward's rule context, ``rules.recompute_context``, so a
+        model axis's messages run again), so the flash kernel runs twice
+        a layer. The stacked block weights are
         unbound once, so their gradient is one stack of the layers'.
         ``hidden``, when given, receives the embedding and then each
         block's output."""
@@ -505,6 +529,7 @@ class StackedLM:
         if hidden is not None:
             hidden.append(x)
         caches = {}
+        recompute = R.recompute_context()
         span = None if start == 0 and end is None else \
             self._span(params[self.served_segment.name], start, end)
         for seg in self.segments:
@@ -523,7 +548,7 @@ class StackedLM:
                 elif self.remat and torch.is_grad_enabled():
                     x = torch.utils.checkpoint.checkpoint(
                         blk.train, p, x, positions, pos3,
-                        use_reentrant=False)
+                        use_reentrant=False, context_fn=recompute)
                 else:
                     x = blk.train(p, x, positions, pos3)
                 if hidden is not None:
@@ -543,7 +568,8 @@ class StackedLM:
         x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
         w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
         return L.chunked_softmax_xent(x, w, batch["labels"],
-                                      label_mask=batch.get("label_mask"))
+                                      label_mask=batch.get("label_mask"),
+                                      vocab=self.cfg.vocab_size)
 
     # -- public: per-layer hidden states (privacy profiling) ------------------
     @torch.no_grad()

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -78,24 +78,35 @@ def schedule(cfg: AdamWConfig, step, device=None) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, leaf_totals: Optional[Callable] = None
+                ) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, in f32; the leaves'
-    sums are added in leaf order, as the reference's Python ``sum``."""
+    sums are added in leaf order, as the reference's Python ``sum``.
+    ``leaf_totals``, where ``tree`` holds a rank's shards of a model split
+    over ranks, maps the [n] vector of this rank's per-leaf sums to the
+    whole leaves' sums, the same bits on every rank
+    (``runtime.steps.ModelShards.leaf_totals``)."""
+    sums = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
+    if leaf_totals is not None:
+        sums = leaf_totals(torch.stack(sums)).unbind(0)
     total = None
-    for x in leaves(tree):
-        s = torch.sum(torch.square(x.float()))
+    for s in sums:
         total = s if total is None else total + s
     return torch.sqrt(total)
 
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads, state: AdamWState, step,
-           params: Optional[Any] = None):
+           params: Optional[Any] = None,
+           leaf_totals: Optional[Callable] = None):
     """Returns (new_params, state, gnorm). ``state``'s tensors are updated
     in place and returned. New parameters are the master copy cast to each
     grad's dtype: written into ``params`` in place when it is given (the
-    train step's buffers), else fresh tensors."""
-    gnorm = global_norm(grads)
+    train step's buffers), else fresh tensors. On a rank holding shards,
+    ``leaf_totals`` (see ``global_norm``) makes the clipping norm the
+    whole model's; the update is elementwise, so a shard's is the whole
+    leaf's cut to it."""
+    gnorm = global_norm(grads, leaf_totals)
     dev = gnorm.device
     scale = torch.minimum(_f32(1.0, dev), _f32(cfg.clip_norm, dev)
                           / torch.maximum(gnorm, _f32(1e-9, dev)))

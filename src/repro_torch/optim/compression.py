@@ -23,7 +23,7 @@ bits: ``(mine + theirs) * 0.5`` commutes.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -36,9 +36,12 @@ def _f32_reciprocal(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), 1.0 / n, dtype=torch.float32, device=like.device)
 
 
-def _quantize(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """An f32 leaf -> (int8 q of its shape, 0-d f32 scale)."""
-    absmax = g.abs().amax()
+def _quantize(g: torch.Tensor, absmax: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An f32 leaf -> (int8 q of its shape, 0-d f32 scale); ``absmax``
+    the leaf's largest |value| where ``g`` is a shard of it."""
+    if absmax is None:
+        absmax = g.abs().amax()
     scale = absmax.clamp_min(1e-12) * _f32_reciprocal(127, absmax)
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -50,7 +53,8 @@ def _unflatten(tree, flat):
 
 
 def compressed_psum_pod(grads: Any, ef: Any, group, num_pods: int,
-                        staging: Optional[RK.Staging] = None):
+                        staging: Optional[RK.Staging] = None,
+                        leaf_absmax: Optional[Callable] = None):
     """grads, ef: trees of one structure (grads f32 or bf16, ef f32).
     Returns (the pods' mean gradient in f32, the new ef). Every rank of
     ``group`` (this rank's ``pod`` axis) calls it with its pod's gradient.
@@ -60,7 +64,11 @@ def compressed_psum_pod(grads: Any, ef: Any, group, num_pods: int,
     ``num_pods``, ef unchanged. Both trees are donated, as the reference's
     step donates them: ef is updated in place, and an f32 gradient leaf
     receives its reduced value (at full width each saves a copy of the f32
-    parameter bytes)."""
+    parameter bytes). Where the trees hold a rank's shards of a model
+    split over ranks, ``leaf_absmax`` maps the [n] vector of this rank's
+    per-leaf absmaxes to the whole leaves' (the max over the model
+    group), so each shard is quantized on its whole leaf's scale, as the
+    reference's ``_quantize`` sees the whole leaf."""
     staging = staging or RK.Staging()
     g_leaves = leaves(grads)
     dev = g_leaves[0].device
@@ -77,10 +85,13 @@ def compressed_psum_pod(grads: Any, ef: Any, group, num_pods: int,
     q_flat = torch.empty(sum(g.numel() for g in g_leaves), dtype=torch.int8,
                          device=dev)
     scales = torch.empty(len(g_leaves), dtype=torch.float32, device=dev)
+    gfs = [e.add_(g) for g, e in zip(g_leaves, e_leaves)]  # in ef's buffers
+    absmax = [None] * len(gfs)
+    if leaf_absmax is not None:
+        absmax = leaf_absmax(torch.stack([gf.abs().amax() for gf in gfs]))
     off = 0
-    for i, (g, e) in enumerate(zip(g_leaves, e_leaves)):
-        gf = e.add_(g)                        # g + e, in ef's buffer
-        q, scales[i] = _quantize(gf)
+    for i, gf in enumerate(gfs):
+        q, scales[i] = _quantize(gf, absmax[i])
         q_flat[off:off + q.numel()] = q.reshape(-1)
         off += q.numel()
     q_peer, scales_peer = RK.exchange(staging, [q_flat, scales], peer,

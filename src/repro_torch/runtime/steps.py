@@ -13,22 +13,26 @@ the dry-run counts it.
 
 The train step also runs over a mesh of ranks (``launch.ranks.spawn``;
 ``make_mesh`` in each rank gives a ``DeviceMesh`` of the world): axes
-drawn from ``pod`` and ``data``, a ``model`` axis of 1. Each rank holds
-plain tensors, takes its rows of the global batch (pod-major, as the
-reference's batch sharding lays them out) and reduces with explicit
+drawn from ``pod``, ``data`` and ``model``. Each rank holds plain
+tensors, takes its rows of the global batch (pod-major, as the
+reference's batch sharding lays them out; the model ranks of a (pod,
+data) position take the same rows) and reduces with explicit
 collectives on the process group of an axis (``launch.ranks``). The plain
-step averages the gradient and the loss over every rank, each rank
-weighted by its count of unmasked labels, so a ``label_mask`` that gives
-the ranks unequal counts still gives the batch's mean. The compressed
-step (``compress_pod_grads``, the reference's ``_make_train_step_compressed``)
-averages within a pod over its ``data`` group the same way, exchanges the
-pod's gradient as int8 with error feedback over ``pod``
-(``optim.compression``) and takes the pods' mean loss. The prefill and
-decode serve steps run over the same meshes: each rank its block of the
-batch's rows, the logits gathered whole on every rank.
+step averages the gradient and the loss over the (pod, data) positions,
+each weighted by its count of unmasked labels, so a ``label_mask`` that
+gives the ranks unequal counts still gives the batch's mean; with a
+model axis the reduce runs over the ranks that hold the same model
+index (``mesh.ROWS``). The compressed step (``compress_pod_grads``, the
+reference's ``_make_train_step_compressed``) averages within a pod over
+its ``data`` group the same way, exchanges the pod's gradient as int8
+with error feedback over ``pod`` (``optim.compression``) and takes the
+pods' mean loss. The prefill and decode serve steps run over the same
+meshes: each rank its block of the batch's rows, the logits gathered
+whole on every rank.
 
-The two serve steps also run over a ``model`` axis above 1 (tensor
-parallelism, ROADMAP item 10d, step 5a) for the dense and MoE stacks:
+The serve steps (ROADMAP item 10d, step 5a) and the train step (step
+5b) also run over a ``model`` axis above 1 (tensor parallelism) for the
+dense and MoE stacks:
 each rank holds its shard of the params (``shard_params`` of the whole
 tree, or ``draw_params`` leaf by leaf from a seed), split over ``model``
 as ``param_shardings`` resolves them with ``PARAM_RULES`` (over ``pod``
@@ -41,8 +45,13 @@ each returns its rows of the cache with its KV heads where they divide
 over ``model``, else all of them, and every position (where the KV heads
 do not divide, ``cache_shardings`` gives the positions to ``model`` when
 they divide; the ranks keep them whole, as every rank computes every KV
-head there, and send nothing for the cache). Refused by name over a
-model axis: the train step (item 10d, step 5b), the ``act_seq_sp`` rules
+head there, and send nothing for the cache). In the train step every
+helper's backward gives each rank its shards' gradients and the whole
+leaves' (the norms, the router, KV heads that stay whole) the same bits
+on every rank; the clipping norm counts each split leaf's shards once
+over the model group and each whole leaf once (``ModelShards``), and the
+compressed step quantizes each shard on its whole leaf's absmax.
+Refused by name over a model axis: the ``act_seq_sp`` rules
 (``SP_ACT_RULES``, step 5b), families other than the dense and MoE
 ``StackedLM`` and the int8 cache (step 5c). A logical mesh of several
 devices in a process of one rank is refused by name (item 10).
@@ -67,7 +76,7 @@ import torch
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.device import resolve_device, to_device
 from repro_torch.launch import ranks as RK
-from repro_torch.launch.mesh import LogicalMesh, rank_axes
+from repro_torch.launch.mesh import ROWS, LogicalMesh, rank_axes
 from repro_torch.models.api import ModelAPI
 from repro_torch.models.layers import init_one
 from repro_torch.models.transformer import (AttnBlock, StackedLM, _map_specs,
@@ -148,17 +157,14 @@ def replicated(mesh) -> R.NamedSharding:
     return R.NamedSharding(mesh, ())
 
 
-SERVE_STEPS = ("make_prefill_step", "make_decode_step")
-
-
 def check_mesh(api: ModelAPI, mesh, what: str, act_rules=None) -> None:
     """The meshes a step of the port runs over: none, a mesh of one
     device (a ``DeviceMesh`` on the model's device type, or a logical
     one), any logical mesh when the model is on ``meta``, where nothing
     is placed, and a ``DeviceMesh`` of the world's ranks over ``pod``,
-    ``data`` and ``model``, a model axis above 1 for the serve steps of
-    the dense and MoE ``StackedLM`` only (``check_model_axis``). Anything
-    else raises by name."""
+    ``data`` and ``model``, a model axis above 1 for the dense and MoE
+    ``StackedLM`` only (``check_model_axis``). Anything else raises by
+    name."""
     if mesh is None:
         return
     n = R.mesh_size(mesh)
@@ -187,17 +193,13 @@ def check_mesh(api: ModelAPI, mesh, what: str, act_rules=None) -> None:
 
 def check_model_axis(api: ModelAPI, m: int, what: str,
                      act_rules=None) -> None:
-    """What a model axis of ``m`` ranks runs (ROADMAP item 10d, step 5a):
-    the prefill and decode serve steps of the dense and MoE ``StackedLM``
-    (one ``AttnBlock`` class in every segment) with a bf16 or f32
-    timeline cache, under rules that keep the sequence whole. The rest
-    raises by name with its roadmap step."""
+    """What a model axis of ``m`` ranks runs (ROADMAP item 10d, steps 5a
+    and 5b): the prefill and decode serve steps and the train step of the
+    dense and MoE ``StackedLM`` (one ``AttnBlock`` class in every
+    segment), serving from a bf16 or f32 timeline cache, under rules that
+    keep the sequence whole. The rest raises by name with its roadmap
+    step."""
     model, cfg = api.model, api.cfg
-    if what not in SERVE_STEPS:
-        raise NotImplementedError(
-            f"{what}: a model axis of {m} ranks (tensor parallelism) runs "
-            f"the prefill and decode serve steps only; the train step's "
-            f"backward collectives are ROADMAP item 10d, step 5b")
     if any(k == "act_seq_sp" and any("model" in c for c in v)
            for k, v in (act_rules or {}).items()):
         raise NotImplementedError(
@@ -220,62 +222,111 @@ def check_model_axis(api: ModelAPI, m: int, what: str,
 # ---------------------------------------------------------------------------
 # A rank's shard of the params on the model axis
 # ---------------------------------------------------------------------------
-def _model_view(mesh) -> Tuple[LogicalMesh, Dict[str, int]]:
-    """The model axis of ``mesh`` alone, and this rank's index on it (0
+def model_block(spec, m: int, j: int) -> Optional[Tuple[slice, ...]]:
+    """The block of a leaf of ``spec`` (a ``ParamSpec``) that model index
+    ``j`` holds on a model axis of ``m`` ranks, or None where the leaf
+    stays whole: its ``axes`` resolved by ``resolve_spec`` with
+    ``PARAM_RULES`` on the ``model`` axis alone, so a dim that does not
+    divide stays whole, as the reference's fallback keeps it (over ``pod``
+    and ``data`` every leaf stays whole). The one decision behind
+    ``shard_params``, ``draw_params``, ``check_shards`` and
+    ``ModelShards``."""
+    sh = R.logical_sharding(spec.shape, spec.axes,
+                            LogicalMesh((m,), ("model",)), R.PARAM_RULES)
+    return None if sh.is_replicated else sh.block(spec.shape, {"model": j})
+
+
+def _model_index(mesh) -> Tuple[int, int]:
+    """The size of ``mesh``'s model axis and this rank's index on it (0
     off a mesh of ranks)."""
-    m = R.mesh_axis_sizes(mesh).get("model", 1)
+    if mesh is None:
+        return 1, 0
     ax = TP.axis_of(mesh)
-    return (LogicalMesh((m,), ("model",)),
-            {"model": ax.index if ax is not None else 0})
+    return (R.mesh_axis_sizes(mesh).get("model", 1),
+            ax.index if ax is not None else 0)
+
+
+def model_blocks(api: ModelAPI, mesh, j: Optional[int] = None
+                 ) -> List[Optional[Tuple[slice, ...]]]:
+    """``model_block`` of each leaf of ``api.param_specs()``, in leaf
+    order, on the model axis of ``mesh`` (a mesh, or the axis size with
+    the index ``j``) at model index ``j`` (this rank's by default)."""
+    m, mine = (mesh, 0) if isinstance(mesh, int) else _model_index(mesh)
+    j = mine if j is None else j
+    return [model_block(sp, m, j) for sp in leaves(api.param_specs())]
 
 
 def shard_params(api: ModelAPI, mesh, params):
-    """This rank's shard of each leaf of the whole tree ``params``: each
-    leaf's ``ParamSpec.axes`` resolved by ``resolve_spec`` with
-    ``PARAM_RULES`` on the mesh's ``model`` axis alone (so a dim that does
-    not divide stays whole, as the reference's fallback keeps it; over
-    ``pod`` and ``data`` every leaf stays whole). A split leaf is a new
-    tensor (the whole can be freed), a whole one the same tensor."""
-    lm, idx = _model_view(mesh)
+    """This rank's shard of each leaf of the whole tree ``params``
+    (``model_block``). A split leaf is a new tensor (the whole can be
+    freed), a whole one the same tensor."""
+    blocks = iter(model_blocks(api, mesh))
 
-    def cut(t, spec):
-        sh = R.logical_sharding(spec.shape, spec.axes, lm, R.PARAM_RULES)
-        if sh.is_replicated:
-            return t
-        return t[sh.block(spec.shape, idx)].clone()
+    def cut(t):
+        blk = next(blocks)
+        return t if blk is None else t[blk].clone()
 
-    return map_tree(cut, params, api.param_specs())
+    return map_tree(cut, params)
 
 
 def draw_params(api: ModelAPI, mesh, generator: torch.Generator):
-    """``shard_params(api, mesh, api.init(generator))``, bit for bit,
-    drawing each leaf from ``generator`` in ``api.init``'s order and
-    keeping only this rank's block before the next: a rank's peak is one
-    whole leaf in f32 beside its shards, not the model. The dense and MoE
-    ``StackedLM`` (whose ``init_params`` draws ``param_specs`` in order)."""
+    """``shard_params(api, mesh, api.init(generator))``, bit for bit: with
+    no model axis ``api.init(generator)`` itself; on one, each leaf drawn
+    from ``generator`` in ``api.init``'s order, keeping only this rank's
+    block before the next, so a rank's peak is one whole leaf in f32
+    beside its shards, not the model. A model axis draws the dense and
+    MoE ``StackedLM`` (whose ``init_params`` draws ``param_specs`` in
+    order)."""
+    if TP.axis_of(mesh) is None:
+        return api.init(generator)
     if type(api.model) is not StackedLM:
         raise NotImplementedError(
             f"draw_params: {type(api.model).__name__} draws its own "
             f"params; the model axis covers the dense and MoE StackedLM "
             f"(ROADMAP item 10d, step 5c)")
-    lm, idx = _model_view(mesh)
+    m, j = _model_index(mesh)
+    return _map_specs(lambda spec: init_one(
+        spec, generator, api.device, api.dtype,
+        block=model_block(spec, m, j)), api.model.param_specs())
 
-    def one(spec):
-        sh = R.logical_sharding(spec.shape, spec.axes, lm, R.PARAM_RULES)
-        return init_one(spec, generator, api.device, api.dtype,
-                        block=None if sh.is_replicated
-                        else sh.block(spec.shape, idx))
 
-    return _map_specs(one, api.model.param_specs())
+class ModelShards:
+    """The train step's view of its params on a model axis: which leaves
+    are split (``model_blocks``), and the two per-leaf reductions over
+    the model group that make a rank's numbers the whole model's. A whole
+    leaf holds the same bits on every rank (its gradient comes from whole
+    tensors only, ``sharding.tensor_parallel``), so it is counted once."""
+
+    def __init__(self, api: ModelAPI, mesh):
+        self.ax = TP.axis_of(mesh)
+        self.split = [b is not None for b in model_blocks(api, mesh)]
+
+    def leaf_totals(self, sums: torch.Tensor) -> torch.Tensor:
+        """Each leaf's sum of squares over the whole leaf, from this
+        rank's [n] vector: a split leaf's shards summed over the group, a
+        whole leaf's taken from model index 0 (the others add zeros, so
+        the sum is exact)."""
+        keep = torch.tensor(self.split, device=sums.device) \
+            | (self.ax.index == 0)
+        total = torch.where(keep, sums, torch.zeros_like(sums))
+        return RK.all_reduce(self.ax.staging, total, self.ax.group,
+                             tag="grad_norm")
+
+    def leaf_absmax(self, absmax: torch.Tensor) -> torch.Tensor:
+        """Each leaf's largest |value| over the whole leaf: the max over
+        the group of this rank's [n] vector."""
+        return RK.all_reduce(self.ax.staging, absmax.contiguous(),
+                             self.ax.group, tag="absmax", op="max")
 
 
 def check_shards(api: ModelAPI, mesh, params, what: str) -> None:
     """Refuse, by name, params that are not this rank's shards."""
-    lm, _ = _model_view(mesh)
+    blocks = iter(model_blocks(api, mesh))
 
     def check(t, spec):
-        want = R.logical_sharding(spec.shape, spec.axes, lm,
-                                  R.PARAM_RULES).shard_shape(spec.shape)
+        blk = next(blocks)
+        want = tuple(spec.shape) if blk is None else tuple(
+            len(range(n)[b]) for b, n in zip(blk, spec.shape))
         if tuple(t.shape) != want:
             raise ValueError(
                 f"{what}: a param of shape {tuple(t.shape)} where this "
@@ -353,12 +404,17 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
     and the loss runs under its ``act_rules``; ``param_rules`` is the
     reference's and places nothing on one device. On a mesh of ranks each
     rank runs this on its rows and the step reduces across ranks (see the
-    module's docstring). With ``compress_pod_grads`` on a mesh of ranks
+    module's docstring); over a ``model`` axis ``params`` and
+    ``opt_state`` are this rank's shards (``shard_params`` or
+    ``draw_params``, then ``adamw.init``; whole ones raise by name) and so
+    are the returned ones. With ``compress_pod_grads`` on a mesh of ranks
     with a ``pod`` axis the step is the compressed one:
     ``train_step(params, opt_state, ef, batch, step) -> (loss, params,
     opt_state, ef, gnorm)``, ``ef`` from
-    ``optim.compression.init_error_feedback``. The step's ``staging``
-    attribute (a ``launch.ranks.Staging``) counts the bytes it messaged.
+    ``optim.compression.init_error_feedback`` (of the shards). The
+    step's ``staging`` attribute (a ``launch.ranks.Staging``) counts the
+    bytes its data reduce and pod exchange messaged, ``model_staging``
+    (None without a model axis) those of the model axis's collectives.
     """
     del param_rules
     dev = resolve_device(device)
@@ -372,7 +428,7 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
             "error-feedback exchange (optim/compression.py) runs between "
             "ranks, one a pod; a logical mesh in a process of one rank has "
             "no pods to exchange with (ROADMAP queue 1, item 10)")
-    check_mesh(api, mesh, "make_train_step")
+    check_mesh(api, mesh, "make_train_step", act_rules)
     act_rules = act_rules or R.ACT_RULES
     on_card = dev.type == "cuda"
     if on_card:
@@ -380,13 +436,17 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
     want = (shape.global_batch, shape.seq_len)
     ranked = R.is_device_mesh(mesh)
     compressed = compress_pod_grads and pods and ranked
+    tp = TP.axis_of(mesh)
+    shards = ModelShards(api, mesh) if tp is not None else None
     if ranked:
         ax = rank_axes(mesh)
-        # plain: every rank one share; compressed: shares within a pod
-        share_axes = ("data",) if compressed else ("pod", "data")
-        idx, count = _rank_rows(mesh, ("pod", "data"), shape.global_batch)
+        # plain: every (pod, data) position one share; compressed: shares
+        # within a pod; the model ranks of a position share its rows
+        share_axes = ("data",) if compressed else ROWS
+        idx, count = _rank_rows(mesh, ROWS, shape.global_batch)
         share, shares = _rank_rows(mesh, share_axes, shape.global_batch)
-        share_group = ax.group("data") if compressed else None
+        share_group = ax.group("data") if compressed else \
+            ax.group(ROWS) if tp is not None else None
     staging = RK.Staging()      # host buffers of this step's messages
 
     def loss_and_grad(params, batch):
@@ -423,27 +483,36 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
             if isinstance(step, torch.Tensor) else to_device(
                 np.asarray(step, np.float32), dev, np.float32).reshape(())
 
+    def check(params, opt_state):
+        if tp is not None:
+            check_shards(api, mesh, params, "train_step")
+            check_shards(api, mesh, opt_state.master, "train_step")
+
     def train_step(params, opt_state, batch, step):
+        check(params, opt_state)
         step_t = step_tensor(step)
         with deterministic(on_card):
             loss, grads = loss_and_grad(params, batch)
-            params, opt_state, gnorm = adamw.update(opt_cfg, grads,
-                                                    opt_state, step_t,
-                                                    params=params)
+            params, opt_state, gnorm = adamw.update(
+                opt_cfg, grads, opt_state, step_t, params=params,
+                leaf_totals=shards and shards.leaf_totals)
         return loss, params, opt_state, gnorm
 
     train_step.staging = staging
+    train_step.model_staging = tp.staging if tp is not None else None
     if not compressed:
         return train_step
     num_pods = ax.size("pod")
     pod_group = ax.group("pod")
 
     def train_step_compressed(params, opt_state, ef, batch, step):
+        check(params, opt_state)
         step_t = step_tensor(step)
         with deterministic(on_card):
             loss, grads = loss_and_grad(params, batch)
-            grads, ef = compressed_psum_pod(grads, ef, pod_group, num_pods,
-                                            staging)
+            grads, ef = compressed_psum_pod(
+                grads, ef, pod_group, num_pods, staging,
+                leaf_absmax=shards and shards.leaf_absmax)
             # pmean: XLA folds its / num_pods into a multiply by 1/num_pods
             RK.all_reduce(staging, loss, pod_group, tag="pod_loss")
             loss = loss * torch.full((), 1.0 / num_pods, device=dev)
@@ -453,10 +522,12 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
                        for p, g in zip(leaves(params), leaves(grads)))
             params, opt_state, gnorm = adamw.update(
                 opt_cfg, grads, opt_state, step_t,
-                params=params if same else None)
+                params=params if same else None,
+                leaf_totals=shards and shards.leaf_totals)
         return loss, params, opt_state, ef, gnorm
 
     train_step_compressed.staging = staging
+    train_step_compressed.model_staging = train_step.model_staging
     return train_step_compressed
 
 

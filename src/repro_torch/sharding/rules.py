@@ -20,6 +20,7 @@ and sizes, so it runs on either.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import threading
@@ -263,6 +264,16 @@ class axis_rules:
 
 def current_mesh():
     return _CTX.mesh
+
+
+def recompute_context():
+    """A ``context_fn`` for ``torch.utils.checkpoint`` (non-reentrant)
+    that runs the recompute under the rule context active now, at the
+    forward: the recompute runs in the backward, which may run on another
+    thread (on a card, autograd's device thread), where this thread's
+    context is not set."""
+    mesh, rules = _CTX.mesh, _CTX.rules
+    return lambda: (contextlib.nullcontext(), axis_rules(mesh, rules))
 
 
 def constrain(x, axes: Sequence[Optional[str]]):

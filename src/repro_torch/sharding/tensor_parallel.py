@@ -14,19 +14,36 @@ identity. No model function takes a mesh argument.
     reduce_model(partial)       the sum over the model group of the
                                 partial outputs of a product that
                                 contracts a model-split dim, in f32,
-                                rounded once to the partial's dtype
+                                rounded once to the partial's dtype;
+                                backward: the identity
+    copy_to_model(x)            x, which every rank holds whole, entering
+                                work that only this rank's share does;
+                                backward: the sum over the group
     gather_model(x, dim)        the group's shards of x side by side
-                                along dim, in model order
+                                along dim, in model order; backward:
+                                this rank's block of the gradient
     embed_lookup(table, ids)    rows of a vocab-split embedding: a
                                 masked local lookup, then a reduce
+    max_model(x)                the elementwise max over the group (no
+                                gradient: a softmax's shift)
 
-Every model-axis message goes through these three, so a backward
-(``torch.autograd.Function``) can be given to each in one place and a
-count on meta tensors can see them all. ``split(local, whole)`` tells a
-call site whether its operand holds a shard (the divisibility fallback of
-``rules.resolve_spec`` keeps a dim whole when it does not divide), and
-``kv_for_heads`` picks the KV heads a rank's query heads read when the KV
-heads stayed whole.
+Every model-axis message goes through these, so each has its backward
+(a ``torch.autograd.Function``) in one place and a count on meta tensors
+can see them all. A tensor every rank holds whole has the same value and
+the same gradient on every rank: a product over this rank's shard gives
+its input only this rank's share of that gradient, which
+``copy_to_model`` sums; a reduce's output gradient is every partial's.
+Outside autograd a Function runs its forward alone (``copy_to_model``
+is then the identity). ``split(local,
+whole)`` tells a call site whether its operand holds a shard (the
+divisibility fallback of ``rules.resolve_spec`` keeps a dim whole when
+it does not divide), and ``kv_for_heads`` picks the KV heads a rank's
+query heads read when the KV heads stayed whole.
+
+In a backward the collectives run in autograd's order, which is the same
+on every rank of a group (the same graph built in the same order); a
+recomputed forward (``torch.utils.checkpoint``) issues its collectives
+again, at the same point of that order on every rank.
 """
 from __future__ import annotations
 
@@ -89,19 +106,80 @@ def split(local: int, whole: int) -> bool:
     return current() is not None and local != whole
 
 
+def _group_sum(ax: ModelAxis, t: torch.Tensor, tag: str) -> torch.Tensor:
+    """The f32 sum of ``t`` over the model group, rounded once to ``t``'s
+    dtype, in a new tensor (``t`` is not written)."""
+    from repro_torch.launch import ranks as RK
+    total = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    total.copy_(t)
+    RK.all_reduce(ax.staging, total, ax.group, tag=tag)
+    return total.to(t.dtype)
+
+
+class _ReduceModel(torch.autograd.Function):
+    """The group's f32 sum; the output's gradient is every partial's."""
+
+    @staticmethod
+    def forward(ctx, partial, ax):
+        return _group_sum(ax, partial, "reduce_model")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The identity; the input's gradient is the group's sum of the
+    rank's shares."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _group_sum(ctx.ax, grad, "copy_to_model"), None
+
+
+class _GatherModel(torch.autograd.Function):
+    """The group's shards side by side; a shard's gradient is its block
+    of the whole one's (the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        from repro_torch.launch import ranks as RK
+        ctx.ax, ctx.dim, ctx.n = ax, dim, x.shape[dim]
+        every = RK.all_gather(ax.staging, x.contiguous(), ax.group,
+                              tag="gather_model")
+        return torch.cat(every.unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.ax.index * ctx.n, ctx.n), None, None
+
+
 def reduce_model(partial: torch.Tensor) -> torch.Tensor:
     """The sum over the model group of each rank's ``partial`` (a product
     over its shard of the contracted dim), added in f32 and rounded once
-    to ``partial``'s dtype; the same bits on every rank of the group.
-    ``partial`` is consumed (an f32 one is summed in place). The identity
-    with no model axis."""
+    to ``partial``'s dtype, in a new tensor; the same bits on every rank
+    of the group. The identity with no model axis."""
     ax = current()
     if ax is None:
         return partial
-    from repro_torch.launch import ranks as RK
-    total = RK.all_reduce(ax.staging, partial.float().contiguous(),
-                          ax.group, tag="reduce_model")
-    return total.to(partial.dtype)
+    return _ReduceModel.apply(partial, ax)
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (whole on every rank) where it enters work that only this
+    rank's shard does (a product with split columns, the rank's experts,
+    its vocab block): the identity forward; backward, the sum over the
+    model group of the ranks' gradients, in f32 rounded once. The
+    identity with no model axis or outside autograd."""
+    ax = current()
+    if ax is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyToModel.apply(x, ax)
 
 
 def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -111,10 +189,20 @@ def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     ax = current()
     if ax is None:
         return x
+    return _GatherModel.apply(x, ax, dim)
+
+
+def max_model(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``x`` over the model group, in a new tensor
+    without gradient (every rank's the same bits); ``x`` itself with no
+    model axis."""
+    ax = current()
+    if ax is None:
+        return x
     from repro_torch.launch import ranks as RK
-    every = RK.all_gather(ax.staging, x.contiguous(), ax.group,
-                          tag="gather_model")
-    return torch.cat(every.unbind(0), dim=dim)
+    return RK.all_reduce(ax.staging, x.detach().clone(
+        memory_format=torch.contiguous_format), ax.group, tag="max_model",
+        op="max")
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
@@ -123,7 +211,8 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
     ``table`` holds this rank's block when the vocab is split: each rank
     looks up the ids in its block (zeros elsewhere) and the reduce adds
     the one nonzero row of each id, so the rows are the whole table's
-    bit for bit."""
+    bit for bit. Backward: the reduce passes the rows' gradient to every
+    rank, and the masked lookup gives it to the rank's own rows only."""
     ids = ids.long()
     if not split(table.shape[0], vocab):
         return table[ids]

@@ -521,7 +521,7 @@ def test_straggler_hook(setup):
 
 @pytest.mark.parametrize("flags,names", [
     (["--production-mesh"], "--production-mesh"),
-    (["--mesh", "1x2"], "model axis")])
+    (["--mesh", "1x2", "--ckpt-dir", "unwritten"], "model axis")])
 def test_launcher_refuses_meshes_by_name(flags, names):
     with pytest.raises(NotImplementedError, match=names) as e:
         train.main(["--arch", "llama3.2-1b", "--reduced", "--device", "cpu",

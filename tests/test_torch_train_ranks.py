@@ -13,8 +13,11 @@ over gloo on the CPU).
     run's largest move; every rank ends with the same params.
 (b) The launcher: ``--mesh 2x2 --multi-pod --compress-pod-grads --backend
     gloo`` runs, rank 0 alone writes checkpoints and a run resumes from
-    them over ranks; ``--backend`` is required for a mesh of several
-    devices; ``nccl`` with more ranks than cards, a ``model`` axis and
+    them over ranks; a ``model`` axis (``--mesh 1x2``, ``--multi-pod
+    --mesh 2x2x2``, plain and with ``--compress-pod-grads``) runs and
+    rank 0 alone prints the summary line;
+    ``--backend`` is required for a mesh of several devices; ``nccl``
+    with more ranks than cards, ``--ckpt-dir`` with a model axis and
     ``--production-mesh`` are refused by name.
 (c) A failing rank fails the run, with every failed rank's traceback.
 """
@@ -123,12 +126,34 @@ def test_backend_is_named_and_checked_before_ranks_start():
 @pytest.mark.parametrize("flags,names", [
     (["--production-mesh"], "--production-mesh"),
     (["--production-mesh", "--multi-pod"], "--production-mesh"),
-    (["--mesh", "1x2"], "model axis"),
-    (["--mesh", "2x2x2", "--multi-pod"], "model axis")])
+    (["--mesh", "1x2", "--ckpt-dir", "unwritten"], "model axis"),
+    (["--mesh", "2x2x2", "--multi-pod", "--ckpt-dir", "unwritten"],
+     "model axis")])
 def test_launcher_refuses_tensor_parallel_meshes_by_name(flags, names):
+    # a model axis trains (below); checkpoints of its shards are step 7
     with pytest.raises(NotImplementedError, match=names) as e:
         train.main(LAUNCH + ["--backend", "gloo", *flags])
     assert "item 10d" in str(e.value)
+    assert not os.path.exists("unwritten")
+
+
+@pytest.mark.parametrize("flags,mesh", [
+    (["--mesh", "1x2"], "{'data': 1, 'model': 2}"),
+    (["--mesh", "2x2x2", "--multi-pod"],
+     "{'pod': 2, 'data': 2, 'model': 2}"),
+    (["--mesh", "2x2x2", "--multi-pod", "--compress-pod-grads"],
+     "{'pod': 2, 'data': 2, 'model': 2}")])
+def test_launcher_runs_tensor_parallel_meshes(capfd, flags, mesh):
+    result = train.main(LAUNCH + ["--backend", "gloo", *flags])
+    assert result["step"] == STEPS and len(result["losses"]) == STEPS
+    assert all(np.isfinite(result["losses"]))
+    lines = [l for l in capfd.readouterr().out.splitlines()
+             if l.startswith("arch=")]
+    # rank 0 alone prints the summary
+    assert len(lines) == 1, lines
+    assert lines[0].startswith("arch=llama3.2-1b-reduced device=cpu ")
+    kind = " compressed" if "--compress-pod-grads" in flags else ""
+    assert f"mesh={mesh} backend=gloo{kind} steps=3 loss " in lines[0]
 
 
 def test_a_failing_rank_fails_the_run():
