@@ -279,9 +279,11 @@ Phases (each prints its own lines; any failure exits non-zero):
      equal cache digests, no (key, counter) pair twice over the four
      ranks, launches per rank as its layers and data index say; (b) the
      prefill and decode serve steps over the same ranks at phase 18's
-     shapes, each rank bit-equal to the one-card step on its rows; host ms
-     a decode step, admission, the KV exchange's bytes and host ms, a
-     crossing, swap-out and swap-in, the serve steps;
+     prefill shape (1 decode step), each rank holding its blocks of the
+     params over data (the reference's FSDP), bit-equal to the one-card
+     step on its rows; host ms a decode step, admission, the KV
+     exchange's bytes and host ms, a crossing, swap-out and swap-in, the
+     serve steps and their gather bytes;
  22. warmup over ranks (phase 21's stream as CUDA graphs on the 2 x 2
      ranks); 23. the disaggregated pair over the same ranks;
  24. the model axis over ranks (tensor parallelism of the serve steps):
@@ -295,27 +297,33 @@ Phases (each prints its own lines; any failure exits non-zero):
      bytes messaged a step, param bytes against the shard shapes, peak
      memory and 40 flash launches a prefill a rank printed; the whole
      logits the same bits on every rank;
- 25. the model axis's train step over ranks (tensor parallelism's
-     backward): four gloo ranks on the card, each drawing only its shards
-     of seeded weights (``rank_jobs.train``): (a) full-width llama3.2-1b
-     at full depth in bf16 on a (2, 2) ("data", "model") mesh, phase 13's
-     batch (8 x 128), stream, seed and schedule, 3 steps: finite losses
-     that fall, the data ranks of each model index holding the same bits
-     of every shard and every rank the same whole leaves after every
-     step, param bytes a rank the model-axis shard shapes of
-     ``param_shardings``, 2 x 16 x 3 flash launches a rank; each step's
-     loss and grad norm printed beside phase 13's, host ms a step, bytes a
-     step (model-axis collectives, data reduce) and peak memory a rank;
-     (b) f32 at 2 layers on (1, 4): glm4-9b (two KV heads whole over 4)
-     and qwen2-moe-a2.7b (15 experts a rank), the seeded draw's block
-     weights rescaled to their contractions (the reference's init
-     amplifies f32 rounding to order one in the gradient at full width),
-     one step each at index 0 against the one-card step on the same weights:
-     loss within 1e-5, grad norm within 1e-4, each rank's gradient
-     shards (AdamW's first moment) within 1e-4 of each leaf's largest,
-     errors printed. Phase 2 holds
-     ``FlashAttentionFn`` and phase 16 times flash at 25a's shard (4 rows,
-     16 heads over 4).
+ 25. the train step over ranks with the reference's layout (tensor
+     parallelism's backward, every leaf with an embed dim split over data
+     too, its AdamW state with it): four gloo ranks on the card, each
+     drawing only its blocks of seeded weights (``rank_jobs.train``): (a)
+     full-width llama3.2-1b at full depth in bf16 on a (2, 2) ("data",
+     "model") mesh, phase 13's batch (8 x 128), stream, seed and
+     schedule, 2 steps: finite losses that fall, param and AdamW shapes
+     (and param bytes) the whole mesh's ``param_shardings`` blocks, each
+     rank's data blocks gathered equal to its model index's shard of the
+     draw, the data ranks holding different blocks and each block the
+     same bits wherever it is held after every step, 2 x 16 x 2 flash
+     launches a rank, peak memory a rank under the whole-over-data
+     layout's 16.38 GiB; each
+     step's loss and grad norm printed beside phase 13's, host ms a step,
+     bytes a step (gathers, reduce-scatters, model-axis collectives, the
+     rest) a rank; (b) f32 at 2 layers on (1, 4): glm4-9b (two KV heads
+     whole over 4) and qwen2-moe-a2.7b (15 experts a rank); (c)
+     qwen2-moe-a2.7b f32 at 2 layers on (2, 2), router, experts and
+     shared experts over data, its MoE routing over the whole batch's
+     rows; (b) and (c) on the seeded draw's block weights rescaled to
+     their contractions (the reference's init amplifies f32 rounding to
+     order one in the gradient at full width), one step each at index 0
+     against the one-card step on the same weights: loss within 1e-5,
+     grad norm within 1e-4, each rank's gradient blocks (AdamW's first
+     moment) within 1e-4 of each leaf's largest, errors printed. Phase 2
+     holds ``FlashAttentionFn`` and flash at 25a's and 25c's shards, and
+     phase 16 times flash at both.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
@@ -768,6 +776,9 @@ def check_captured_keys(torch, ops, ref, sealing):
 # prefill attention: B, Sq, Sk, H, KVH, D, causal, window, q_offset
 # phase 25a's training shard over (2, 2) data x model ranks
 FLASH_TRAIN_SHARD = (4, 128, 128, 16, 4, 64, 1, 0, 0)
+# phase 25c's: qwen2-moe-a2.7b's 4 rows a data rank, 8 heads over 8 a
+# model rank (f32 there)
+FLASH_MOE_SHARD = (4, 128, 128, 8, 8, 128, 1, 0, 0)
 FLASH_PATH = {"one-shot": (1, 512, 512, 32, 8, 64, 1, 0, 0),
               "packed": (4, 128, 128, 32, 8, 64, 1, 0, 0),
               "chunk": (1, 128, 512, 32, 8, 64, 1, 0, 384),
@@ -803,8 +814,8 @@ FLASH_CASES = ([(B, S, S, H, H, D, int(c), w, 0) for B, H, S, D, w, c in (
     # heads of one KV head (rep 16 kept), qwen2-moe-a2.7b's 4 over 4
     + [(8, 128, 128, 8, 1, 128, 1, 0, 0), (8, 128, 128, 4, 4, 128, 1, 0, 0)]
     # phase 25a's shard: llama3.2-1b's 4 rows a data rank, 16 heads over 4
-    # a model rank
-    + [FLASH_TRAIN_SHARD])
+    # a model rank; phase 25c's
+    + [FLASH_TRAIN_SHARD, FLASH_MOE_SHARD])
 # phases 11's and 12's one-shot prefill shapes, timed beside FLASH_PATH's
 FLASH_D128 = {"one-shot d128": (1, 128, 128, 24, 8, 128, 1, 0, 0),
               "one-shot d128 mha": (1, 128, 128, 16, 16, 128, 1, 0, 0)}
@@ -3382,8 +3393,10 @@ FLASH_FAMILIES = {
     # over 4
     "glm4 head shard": (8, 128, 128, 8, 1, 128, 1, 0, 0),
     "qwen2-moe head shard": (8, 128, 128, 4, 4, 128, 1, 0, 0),
-    # 25a: llama3.2-1b's training shard on (2, 2) data x model
-    "llama train shard": FLASH_TRAIN_SHARD}
+    # 25a: llama3.2-1b's training shard on (2, 2) data x model; 25c:
+    # qwen2-moe-a2.7b's
+    "llama train shard": FLASH_TRAIN_SHARD,
+    "qwen2-moe train shard": FLASH_MOE_SHARD}
 # paged attention at 16a's decode: 2 rows of 1152..1167 tokens over tables
 # of 73 pages of 16 (their own pages), 28 heads over 4 KV heads (rep 7)
 PAGED_VLM = dict(B=2, KVH=4, rep=7, D=128, Pg=16, lens=(1160, 1167), MP=73)
@@ -5091,10 +5104,12 @@ def pod_ranks(torch, ops, smi):
     summed)."""
     from repro_torch.configs import get_arch, reduced
     from repro_torch.launch import rank_jobs
+    from repro_torch.launch.mesh import LogicalMesh
     from repro_torch.launch.ranks import spawn
     from repro_torch.models.api import build_model
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.optim.compression import exchanged_bytes
+    from repro_torch.runtime import steps as S
     t_phase = time.perf_counter()
     backend = "gloo"
     log(f"phase 19: ranks are processes on {DEV} (cuda:0 on the card), "
@@ -5221,8 +5236,9 @@ def pod_ranks(torch, ops, smi):
     small = reduced(get_arch("llama3.2-1b"))
     sapi = build_model(small, device="cpu", dtype=torch.float32)
     sparams = sapi.init(torch.Generator().manual_seed(0))
+    mesh = ((2, 2), ("pod", "data"))
     jobs = [rank_jobs.TrainJob(
-        small, ((2, 2), ("pod", "data")), RANKS_SMALL["steps"],
+        small, mesh, RANKS_SMALL["steps"],
         RANKS_SMALL["batch"], RANKS_SMALL["seq"],
         opt=AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=10),
         compressed=c, params=sparams) for c in (False, True)]
@@ -5248,8 +5264,11 @@ def pod_ranks(torch, ops, smi):
             ef_worst = max(ef_worst, _held_share(
                 torch, card["ef_steps"][0], cpu["ef_steps"][0],
                 RANKS_EF_TOL, RANKS_EF_SHARE, f"19c ef, rank {rank}"))
+            # the rank's blocks of the draw (every embed dim over data)
+            first = S.shard_params(sapi, LogicalMesh(*mesh), sparams,
+                                   coords=_rank_coords(rank, mesh))
             for g, w, p0 in zip(_leaves(card["params"]),
-                                _leaves(cpu["params"]), _leaves(sparams)):
+                                _leaves(cpu["params"]), _leaves(first)):
                 d, m = float((g - w).abs().max()), float((w - p0).abs().max())
                 assert d <= 2 * m, ("19c: compressed params apart", d, m)
                 moved = max(moved, d / m)
@@ -5472,6 +5491,10 @@ def serve_ranks(torch, ops, smi, phase6=None):
 # and the serve steps over the same mesh at phase 18's shapes; four gloo
 # ranks on the one card, in one spawn
 DATA_MESH = (2, 2)
+# 21b's decode steps: each gathers the params' data blocks over gloo (1.24
+# GB a rank, 3.26 to 4.88 s a step on an H100 80GB HBM3 at 700.00 W), so
+# 21b runs one, not phase 18's MESH_STEPS
+DATA_STEPS = 1
 # 21's check of the row split: one stage's decode step at 4 rows (phase
 # 6's microbatch) against its two 2-row halves (a data rank's), after a
 # prefill of DATA_PROMPT tokens a row
@@ -5556,15 +5579,17 @@ def serve_data_ranks(torch, ops, smi, phase6=None, phase20=None):
     logits must equal the one-card engine's at 4 microbatches (2-row
     stage calls) bit for bit, and the phase prints how many of the 16
     streams equal phase 6's. (b) ``make_prefill_step`` at 8 x MESH_S and
-    MESH_STEPS ``make_decode_step`` calls over MESH_S + MESH_STEPS
-    positions over the same ranks: each rank's logits rows and cache rows
-    bit-equal to the one-card ``prefill_fn`` / ``decode_fn`` on its 2
-    rows, the whole [8, V] logits the same on every rank. Prints host ms
+    DATA_STEPS ``make_decode_step`` calls over MESH_S + DATA_STEPS
+    positions over the same ranks, each holding its blocks of the params
+    over data (the reference's FSDP; half the bytes, each layer gathered
+    before use): each rank's logits rows and cache rows bit-equal to the
+    one-card ``prefill_fn`` / ``decode_fn`` on its 2 rows, the whole [8,
+    V] logits the same on every rank. Prints host ms
     a decode step on each rank beside phase 20's and phase 6's,
     admission p50 / p99, the KV exchange's bytes and host ms a step, a
     prefill crossing's host ms and bytes, swap-out and swap-in host ms a
-    rank and the serve steps' host ms. Returns the ranks' launch counts,
-    summed."""
+    rank and the serve steps' host ms and gather bytes. Returns the ranks'
+    launch counts, summed."""
     from repro_torch.launch import rank_jobs, serve
     from repro_torch.launch.ranks import spawn
     from repro_torch.models.api import build_model
@@ -5595,7 +5620,7 @@ def serve_data_ranks(torch, ops, smi, phase6=None, phase20=None):
     toks = torch.randint(0, cfg.vocab_size, (MESH_B, MESH_S), generator=g,
                          device=DEV, dtype=torch.int32)
     steps_job = rank_jobs.StepsJob(cfg, (DATA_MESH, ("pod", "data")),
-                                   toks.cpu(), steps=MESH_STEPS,
+                                   toks.cpu(), steps=DATA_STEPS,
                                    dtype=torch.bfloat16, seed=args.seed)
     _free(torch)
     t0 = time.perf_counter()
@@ -5710,8 +5735,8 @@ def serve_data_ranks(torch, ops, smi, phase6=None, phase20=None):
             ("21b: prefill logits", rank)
         assert _tree_equal(torch, r["prefill_cache"], on_cpu(cache)), \
             ("21b: prefill cache", rank)
-        cache = rank_jobs.grow_cache(api, cache, MESH_STEPS)
-        for i in range(MESH_STEPS):
+        cache = rank_jobs.grow_cache(api, cache, DATA_STEPS)
+        for i in range(DATA_STEPS):
             tok = r["logits"][i].argmax(-1)[:, None].to(torch.int32)
             lg, cache = api.decode_fn(params, cache,
                                       {"tokens": tok[rows].to(DEV)})
@@ -5723,14 +5748,24 @@ def serve_data_ranks(torch, ops, smi, phase6=None, phase20=None):
             assert r["launches"]["flash_attention"] == L, r["launches"]
     prefill_ms = ", ".join(f"{r['prefill_ms']:.2f}" for r in b)
     decode_ms = ", ".join(f"{_p50(r['decode_ms']):.3f}" for r in b)
+    whole = sum(t.numel() * t.element_size() for t in _leaves(params))
+    for r in b:
+        # every leaf with an embed dim over data: half the params a rank
+        assert r["param_bytes"] * D == whole, (r["param_bytes"], whole)
+        assert r["decode_gather_bytes"] and all(
+            n == r["prefill_gather_bytes"] > 0
+            for n in r["decode_gather_bytes"]), r["decode_gather_bytes"]
     log(f"phase 21b serve steps over the 2 x 2 ranks, {MESH_B} x {MESH_S} "
-        f"prefill and {MESH_STEPS} decode steps over "
-        f"{MESH_S + MESH_STEPS} positions, {MESH_B // (P * D)} rows a "
-        f"rank: each rank's logits and cache rows bit-equal to the "
-        f"one-card prefill_fn / decode_fn on its rows, the [{MESH_B}, V] "
-        f"logits equal on every rank; host ms, rank order, prefill "
-        f"{prefill_ms}, a decode step p50 {decode_ms} (with the logits' "
-        f"gather) [{smi}]")
+        f"prefill and {DATA_STEPS} decode steps over "
+        f"{MESH_S + DATA_STEPS} positions, {MESH_B // (P * D)} rows a "
+        f"rank, params split over data (the reference's FSDP: "
+        f"{b[0]['param_bytes']} bytes a rank of {whole}, each layer "
+        f"gathered before use): each rank's logits and cache rows "
+        f"bit-equal to the one-card prefill_fn / decode_fn on its rows, "
+        f"the [{MESH_B}, V] logits equal on every rank; host ms, rank "
+        f"order, prefill {prefill_ms}, a decode step p50 {decode_ms} (with "
+        f"the gathers and the logits' gather); gather bytes a step a rank "
+        f"{b[0]['prefill_gather_bytes']} [{smi}]")
     log(f"phase 21: {time.perf_counter() - t_phase:.1f} s (the spawn "
         f"{spawn_s:.1f} s)")
     eager = {"streams": a[0]["streams"],
@@ -6455,18 +6490,22 @@ def model_ranks(torch, ops, smi):
 
 # ---------------------------------------------------------------------------
 # phase 25: the train step over a model axis of ranks (ROADMAP item 10d,
-# step 5b): tensor parallelism's backward, the data reduce beside it, four
-# gloo ranks on the card, each drawing only its shards. Sizes are names,
-# for a CPU rehearsal as phases 16 to 24.
+# step 5b): tensor parallelism's backward, and (step 8) every leaf with an
+# embed dim split over the data axis, its AdamW state with it (the
+# reference's FSDP): four gloo ranks on the card, each drawing only its
+# blocks. Sizes are names, for a CPU rehearsal as phases 16 to 24.
 # 25a: full-width llama3.2-1b at full depth in bf16 on (2, 2) data x
-# model, phase 13's batch, stream, seed and schedule, 3 steps
+# model, phase 13's batch, stream, seed and schedule, 2 steps (3 until the
+# data axis's gathers made a step 7.4 to 13.0 s a rank)
 TRAIN_MESH = ((2, 2), ("data", "model"))
-TRAIN_STEPS = 3
+TRAIN_STEPS = 2
 # 25b: f32 at cut depth on (1, 4), one step at index 0 against the
-# one-card step on the same draw
+# one-card step on the same draw; 25c: qwen2-moe-a2.7b the same on
+# TRAIN_MESH, its router, experts and shared experts split over data
 TRAIN_F32_MESH = ((1, 4), ("data", "model"))
-TRAIN_F32_CASES = (("25b glm4", "glm4-9b", 2), ("25b moe", "qwen2-moe-a2.7b",
-                                                  2))
+TRAIN_F32_CASES = (("25b glm4", "glm4-9b", 2, TRAIN_F32_MESH),
+                   ("25b moe", "qwen2-moe-a2.7b", 2, TRAIN_F32_MESH),
+                   ("25c moe", "qwen2-moe-a2.7b", 2, TRAIN_MESH))
 TRAIN_F32_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=30)
 # on ``_conditioned`` weights (the reference's init amplifies f32 rounding
 # to order one in the gradient at full width: on an H100 the ranks'
@@ -6477,6 +6516,33 @@ TRAIN_F32_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=30)
 # a moving step Adam moves an element whose gradient sits at rounding
 # level by up to lr either way, so new params would show little more)
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4, 1e-4
+# 25a on (2, 2) with every leaf whole over data, the layout before the
+# data axis split (H100 80GB HBM3, 700.00 W): bytes a step a rank of the
+# data reduce and of the model axis's collectives, and the peak
+# allocated a rank
+WHOLE_DATA_BYTES, WHOLE_MODEL_BYTES, WHOLE_PEAK_GIB = \
+    2471763972, 343945260, 16.38
+
+
+def _rank_coords(rank, mesh):
+    """{axis: index} of ``rank`` on ``mesh`` (sizes, names), row-major."""
+    import numpy as np
+    shape, names = mesh
+    return {a: int(c) for a, c in zip(names, np.unravel_index(rank, shape))}
+
+
+def _rank_at(coords, mesh):
+    """The rank at ``coords`` ({axis: index}) of ``mesh``, row-major."""
+    import numpy as np
+    shape, names = mesh
+    return int(np.ravel_multi_index([coords[a] for a in names], shape))
+
+
+def _holder(rank, mesh, axes):
+    """The lowest rank of ``mesh`` holding ``rank``'s block of a leaf
+    split over ``axes``: its coordinates on those, 0 on the rest."""
+    c = _rank_coords(rank, mesh)
+    return _rank_at({a: c[a] if a in axes else 0 for a in mesh[1]}, mesh)
 
 
 def _conditioned(api, params):
@@ -6553,29 +6619,35 @@ def _one_card_train(torch, cfg, opt_cfg, seq, batch, moment=True,
 
 
 def model_train_ranks(torch, ops, smi, phase13=None):
-    """25. The train step over a model axis (tensor parallelism's backward
-    and the data reduce beside it), four gloo ranks on the card, each
-    drawing only its shards of seeded weights (``steps.draw_params``)
-    through ``rank_jobs.train``. (a) full-width llama3.2-1b in bf16 at
-    full depth on TRAIN_MESH, phase 13's batch (8 x 128), stream, seed and
-    schedule, TRAIN_STEPS steps: finite losses that fall, the data ranks
-    of each model index with the same bits of every shard after every
-    step, every whole leaf (the norms) the same bits on every rank, param
-    bytes a rank = the model-axis shard shapes of ``param_shardings``,
-    flash launches a rank = 2 x layers x steps (forward and remat
-    recompute); prints each step's loss and grad norm beside phase 13's
-    one-card run, host ms a step a rank, bytes a step a rank (the model
-    axis's collectives and the data reduce) and peak memory a rank. (b)
-    f32 at cut depth on TRAIN_F32_MESH, glm4-9b (two KV heads whole over
-    4) and qwen2-moe-a2.7b (15 experts a rank), on the seeded draw's
-    ``_conditioned`` weights, one step each at index 0 against the
-    one-card step on the same weights: loss within
+    """25. The train step over a model axis (tensor parallelism's backward)
+    with every leaf that has an embed dim split over the data axis, its
+    AdamW state with it (the reference's FSDP: each layer's blocks
+    gathered before use, the gradient reduce-scattered), four gloo ranks
+    on the card, each drawing only its blocks of seeded weights
+    (``steps.draw_params``) through ``rank_jobs.train``. (a) full-width
+    llama3.2-1b in bf16 at full depth on TRAIN_MESH, phase 13's batch (8 x
+    128), stream, seed and schedule, TRAIN_STEPS steps: finite losses that
+    fall; param bytes a rank, and the shapes of params and AdamW's master,
+    m and v, = the shard shapes of ``param_shardings`` on the whole mesh;
+    before step 1 each rank's data blocks gathered over its data group =
+    its model index's shard of the draw, bit for bit; the two data ranks
+    of each model index hold different blocks; after every step each
+    block the same bits on every rank that holds it; flash launches a
+    rank = 2 x layers x steps (forward and remat recompute); prints each
+    step's loss and grad norm beside phase 13's one-card run, host ms a
+    step a rank, bytes a step a rank (the gathers, the reduce-scatters,
+    the model axis's collectives, the rest of the data reduce) and peak
+    memory a rank beside the whole-over-data layout's. (b), (c): f32 at
+    cut depth (TRAIN_F32_CASES: glm4-9b with two KV heads whole over 4
+    and qwen2-moe-a2.7b on (1, 4); qwen2-moe-a2.7b on TRAIN_MESH, router,
+    experts and shared experts over data too) on the seeded draw's
+    ``_conditioned`` weights, one step each
+    at index 0 against the one-card step on the same weights: loss within
     TRAIN_LOSS_RTOL, grad norm within TRAIN_GNORM_RTOL, each rank's
-    gradient shards (AdamW's first moment after the step) within
+    gradient blocks (AdamW's first moment after the step) within
     TRAIN_GRAD_TOL of the one-card leaf's largest, errors printed before
-    they are asserted. (a) and (b) run in one spawn (``rank_jobs.chain``),
-    each one-card step before it. Returns the ranks' launch counts,
-    summed."""
+    they are asserted. All run in one spawn (``rank_jobs.chain``), each
+    one-card step before it. Returns the ranks' launch counts, summed."""
     import dataclasses
 
     from repro_torch.launch import rank_jobs, train
@@ -6595,28 +6667,28 @@ def model_train_ranks(torch, ops, smi, phase13=None):
     # (a) llama3.2-1b at full depth in bf16, phase 13's run on ranks
     args = train.build_parser().parse_args(FULL_TRAIN)
     cfg = _model_cfg(args.arch)
-    dims = dict(zip(TRAIN_MESH[1], TRAIN_MESH[0]))
-    M, n = dims["model"], math.prod(TRAIN_MESH[0])
+    n = math.prod(TRAIN_MESH[0])
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                       total_steps=args.steps)
     jobs = [(rank_jobs.train, rank_jobs.TrainJob(
         cfg, TRAIN_MESH, TRAIN_STEPS, args.batch, args.seq, opt=opt,
-        dtype=torch.bfloat16, seed=MODEL_SEED, keep=()))]
+        dtype=torch.bfloat16, seed=MODEL_SEED, keep=(), check_layout=True))]
     # the precision's own gap: the one-card f32 step on the same draw
     f32 = _one_card_train(torch, cfg, dataclasses.asdict(opt), args.seq,
                           args.batch, moment=False)
-    # (b)'s one-card steps and jobs, so that one spawn runs (a) and (b)
+    # (b) and (c)'s one-card steps and jobs, so that one spawn runs them all
     B, Sq = args.batch, args.seq
     ones = {}
-    for name, arch, layers in TRAIN_F32_CASES:
+    for name, arch, layers, mesh in TRAIN_F32_CASES:
+        assert math.prod(mesh[0]) == n
         cfg_b = _model_cfg(arch, layers)
-        ones[name] = (cfg_b, _one_card_train(torch, cfg_b, TRAIN_F32_OPT, Sq,
-                                             B, prepare=_conditioned))
+        if (arch, layers) not in ones:
+            ones[arch, layers] = _one_card_train(
+                torch, cfg_b, TRAIN_F32_OPT, Sq, B, prepare=_conditioned)
         jobs.append((rank_jobs.train, rank_jobs.TrainJob(
-            cfg_b, TRAIN_F32_MESH, 1, B, Sq,
-            opt=AdamWConfig(**TRAIN_F32_OPT), dtype=torch.float32,
-            seed=MODEL_SEED, keep=("m",), prepare=_conditioned)))
-    assert math.prod(TRAIN_F32_MESH[0]) == n
+            cfg_b, mesh, 1, B, Sq, opt=AdamWConfig(**TRAIN_F32_OPT),
+            dtype=torch.float32, seed=MODEL_SEED, keep=("m",),
+            prepare=_conditioned)))
     t0 = time.perf_counter()
     chained = spawn(rank_jobs.chain, n, backend="gloo", device=DEV,
                     args=(jobs,))
@@ -6624,12 +6696,15 @@ def model_train_ranks(torch, ops, smi, phase13=None):
     rs = [r[0] for r in chained]
     meta = build_model(cfg, device="meta", dtype=torch.bfloat16)
     specs = leaves(meta.param_specs())
-    shards = leaves(S.param_shardings(meta, LogicalMesh((M,), ("model",))))
-    want_bytes = 2 * sum(math.prod(sh.shard_shape(sp.shape))
-                         for sh, sp in zip(shards, specs))
+    want = [sh.shard_shape(sp.shape) for sh, sp in zip(
+        leaves(S.param_shardings(meta, LogicalMesh(*TRAIN_MESH))), specs)]
+    want_bytes = 2 * sum(math.prod(w) for w in want)
     one_bytes = 2 * sum(math.prod(sp.shape) for sp in specs)
     for r in rs:
         assert r["param_bytes"] == want_bytes, (r["param_bytes"], want_bytes)
+        assert r["param_shapes"] == want, "25a: not the reference's blocks"
+        assert r["opt_shapes"] == [want] * 3, "25a: AdamW's blocks"
+        assert r["layout_ok"], "25a: data blocks are not the model shard"
         assert all(math.isfinite(x) for x in r["losses"] + r["gnorms"]), r
         assert r["losses"] == rs[0]["losses"], "the ranks' losses differ"
         assert r["gnorms"] == rs[0]["gnorms"], "the ranks' grad norms differ"
@@ -6641,13 +6716,19 @@ def model_train_ranks(torch, ops, smi, phase13=None):
     losses, gnorms = rs[0]["losses"], rs[0]["gnorms"]
     assert losses[-1] < losses[0], losses
     split = rs[0]["split"]
+    assert all("data" in a for a in split), split
+    drawn = [sp.init not in ("ones", "zeros") for sp in specs]
     for rank, r in enumerate(rs):
-        j = rank % M                     # model is the mesh's last axis
-        for i, (mine, first, peer) in enumerate(zip(
-                r["digests"], rs[0]["digests"], rs[j]["digests"])):
-            for k, is_split in enumerate(split):
-                assert mine[k] == (peer[k] if is_split else first[k]), \
-                    ("25a: a shard or a whole leaf differs", rank, i, k)
+        twin = _rank_coords(rank, TRAIN_MESH)
+        twin["data"] = 1 - twin["data"]
+        twin = rs[_rank_at(twin, TRAIN_MESH)]
+        for i, mine in enumerate(r["digests"]):
+            for k, axes in enumerate(split):
+                assert mine[k] == rs[_holder(rank, TRAIN_MESH, axes)][
+                    "digests"][i][k], ("25a: a block differs", rank, i, k)
+                # the data twin holds another block of each drawn leaf
+                assert not drawn[k] or mine[k] != twin["digests"][i][k], \
+                    ("25a: data ranks hold one block", rank, i, k)
     one = ""
     if phase13 is not None:
         one = (f"; phase 13's one-card steps: losses "
@@ -6657,28 +6738,35 @@ def model_train_ranks(torch, ops, smi, phase13=None):
             f"{f32['loss']:.4f}, grad norm {f32['gnorm']:.3f}")
     peaks = [r["peak_bytes"] / 2**30 if r.get("peak_bytes") else math.nan
              for r in rs]
+    per = lambda key: row([r[key] for r in rs], "{:.0f}")
     log(f"phase 25a {args.arch} full width, {cfg.num_layers} layers, bf16 "
         f"on {n} ranks ({TRAIN_MESH[1]} mesh {TRAIN_MESH[0]}), batch "
         f"{args.batch} x {args.seq}, lr {args.lr}, {TRAIN_STEPS} steps: "
         f"losses {row(losses, '{:.4f}')}, grad norms {row(gnorms)}{one}; "
-        f"the data ranks of each model index hold the same bits of every "
-        f"shard and every rank the same whole leaves after every step; "
-        f"param bytes a rank {rs[0]['param_bytes']} = the model-axis "
-        f"shard shapes of param_shardings (one card {one_bytes}); host ms "
+        f"param bytes a rank {rs[0]['param_bytes']} = the shard shapes of "
+        f"param_shardings on the whole mesh, AdamW's master, m and v the "
+        f"same blocks (one card {one_bytes}); each rank's data blocks "
+        f"gathered = its model index's shard of the draw; each block the "
+        f"same bits on every rank that holds it after every step; host ms "
         f"a step a rank "
         f"{'; '.join(row(r['host_ms'], '{:.1f}') for r in rs)}; bytes a "
-        f"step a rank: model-axis collectives "
-        f"{row([r['model_bytes_per_step'] for r in rs], '{:.0f}')}, the "
-        f"data reduce {row([r['data_bytes_per_step'] for r in rs], '{:.0f}')}"
-        f"; peak allocated GiB a rank {row(peaks, '{:.2f}')}; flash "
-        f"launches a rank {[r['launches']['flash_attention'] for r in rs]}"
-        f" [{smi}]")
+        f"step a rank: gathers {per('gather_bytes_per_step')}, "
+        f"reduce-scatters {per('scatter_bytes_per_step')}, model-axis "
+        f"collectives {per('model_bytes_per_step')}, the rest of the data "
+        f"reduce {per('data_bytes_per_step')} (every leaf whole over "
+        f"data: data reduce {WHOLE_DATA_BYTES}, model axis "
+        f"{WHOLE_MODEL_BYTES}); peak allocated GiB a rank "
+        f"{row(peaks, '{:.2f}')} (whole over data: {WHOLE_PEAK_GIB}); "
+        f"flash launches "
+        f"a rank {[r['launches']['flash_attention'] for r in rs]} [{smi}]")
+    if DEV == "cuda":
+        assert max(peaks) < WHOLE_PEAK_GIB, ("25a: peak", peaks)
 
-    # (b) f32 at cut depth against one card on the same draw
-    dims = dict(zip(TRAIN_F32_MESH[1], TRAIN_F32_MESH[0]))
-    M = dims["model"]
-    for c, (name, arch, layers) in enumerate(TRAIN_F32_CASES):
-        cfg, o = ones[name]
+    # (b), (c) f32 at cut depth against one card on the same draw
+    gib = "{:.2f}"
+    for c, (name, arch, layers, mesh) in enumerate(TRAIN_F32_CASES):
+        cfg = _model_cfg(arch, layers)
+        o = ones[arch, layers]
         rs = [r[c + 1] for r in chained]
         meta = build_model(cfg, device="meta", dtype=torch.float32)
         loss_err = abs(rs[0]["losses"][0] - o["loss"]) / abs(o["loss"])
@@ -6693,32 +6781,40 @@ def model_train_ranks(torch, ops, smi, phase13=None):
                     2 * cfg.num_layers, (name, r["launches"])
             for k in launches:
                 launches[k] += r["launches"][k]
-            j = rank % M
-            for blk, w, g in zip(S.model_blocks(meta, M, j), whole,
-                                 leaves(r["m"])):
+            blocks = S.param_blocks(meta, LogicalMesh(*mesh),
+                                    _rank_coords(rank, mesh))
+            for blk, w, g in zip(blocks, whole, leaves(r["m"])):
                 w = w if blk is None else w[blk]
                 assert tuple(g.shape) == tuple(w.shape), (name, g.shape)
                 worst = max(worst, _rel(g.to(DEV), w.to(DEV)))
+        dims = dict(zip(mesh[1], mesh[0]))
+        M = dims["model"]
         experts = ""
         if cfg.num_experts:
             experts = (f", {cfg.num_experts // M} of {cfg.num_experts} "
                        f"experts a rank")
+        if dims["data"] > 1:
+            experts += (", every leaf with an embed dim over data (router, "
+                        "experts, shared experts)")
         log(f"phase {name} {arch} full width, {cfg.num_layers} layers, f32 "
-            f"on {n} ranks ({TRAIN_F32_MESH[1]} mesh {TRAIN_F32_MESH[0]})"
-            f"{experts}, batch {B} x {Sq}, the seeded draw's block weights "
-            f"rescaled to their contractions, one step at index 0: loss "
+            f"on {n} ranks ({mesh[1]} mesh {mesh[0]}){experts}, batch {B} x "
+            f"{Sq}, the seeded draw's block weights rescaled to their "
+            f"contractions, one step at index 0: loss "
             f"{rs[0]['losses'][0]:.6f} against one card's {o['loss']:.6f} "
             f"(rel {loss_err:.2e}, limit {TRAIN_LOSS_RTOL}), grad norm "
             f"{rs[0]['gnorms'][0]:.4f} against {o['gnorm']:.4f} (rel "
             f"{gnorm_err:.2e}, limit {TRAIN_GNORM_RTOL}), each rank's "
-            f"gradient shards (AdamW's first moment) within {worst:.2e} of "
+            f"gradient blocks (AdamW's first moment) within {worst:.2e} of "
             f"each one-card leaf's largest (limit {TRAIN_GRAD_TOL}); host ms "
             f"the step a rank "
             f"{row([r['host_ms'][0] for r in rs], '{:.1f}')} (one card "
-            f"{o['ms']:.1f}, its first step); bytes a rank, model-axis "
-            f"collectives {rs[0]['model_bytes_per_step']:.0f}; flash "
-            f"launches a rank {[r['launches']['flash_attention'] for r in rs]}"
-            f" [{smi}]")
+            f"{o['ms']:.1f}, its first step); bytes a rank: model-axis "
+            f"collectives {rs[0]['model_bytes_per_step']:.0f}, gathers "
+            f"{rs[0]['gather_bytes_per_step']:.0f}, reduce-scatters "
+            f"{rs[0]['scatter_bytes_per_step']:.0f}; peak allocated GiB a "
+            f"rank {row([r.get('peak_bytes', 0) / 2**30 for r in rs], gib)}"
+            f"; flash launches a rank "
+            f"{[r['launches']['flash_attention'] for r in rs]} [{smi}]")
         assert loss_err <= TRAIN_LOSS_RTOL, (name, loss_err)
         assert gnorm_err <= TRAIN_GNORM_RTOL, (name, gnorm_err)
         assert worst <= TRAIN_GRAD_TOL, (name, worst)

@@ -8,7 +8,8 @@ network); in a rank that ``launch.ranks.spawn`` started, a mesh of the
 world's ranks, pod-major (rank ``p * data + d`` is pod p, data index d),
 with one process group per axis (``rank_axes``; with a ``model`` axis
 above 1 also the group of the ranks that share this rank's model index,
-``ROWS``). Any other mesh, the
+``ROWS``, and with ``data`` or ``model`` above 1 the group of this pod's
+(data, model) ranks, ``LOCAL``). Any other mesh, the
 production meshes among them, is a ``LogicalMesh``: axis names and sizes,
 no devices. The sharding rules and the dry-run read a logical mesh; a
 step that would have to place tensors on one refuses it by name (ROADMAP
@@ -78,9 +79,12 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
 
 # the (pod, data) ranks of one model index: the data axes' reduce
 ROWS = ("pod", "data")
-# mesh id -> (the mesh, this rank's group of ROWS); made once a mesh, by
-# every rank together
-_ROW_GROUPS: Dict[int, Tuple[Any, Any]] = {}
+# the (data, model) ranks of one pod: a whole leaf's norm and absmax from
+# its blocks
+LOCAL = ("data", "model")
+# (mesh id, axes) -> (the mesh, this rank's group of those axes); made
+# once a mesh, by every rank together
+_GROUPS: Dict[Tuple[int, Tuple[str, ...]], Tuple[Any, Any]] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +94,9 @@ class RankAxes:
     axis only). An axis the mesh lacks has size 1, index 0, no group.
     With a ``model`` axis above 1 and more than one (pod, data) position,
     ``group(ROWS)`` is the group of the ranks that hold this rank's model
-    index (its pod and data neighbours together)."""
+    index (its pod and data neighbours together). With ``data`` or
+    ``model`` above 1, ``group(LOCAL)`` is the group of this pod's (data,
+    model) ranks (the data or model group where the other is 1)."""
 
     coords: Dict[str, int]
     sizes: Dict[str, int]
@@ -116,23 +122,32 @@ def rank_axes(mesh) -> RankAxes:
     groups = {n: mesh.get_group(n) for n in names}
     rows = math.prod(sizes.get(a, 1) for a in ROWS)
     if sizes.get("model", 1) > 1 and rows > 1:
-        groups[ROWS] = _rows_group(mesh, names)
+        groups[ROWS] = _axes_group(mesh, names, ROWS)
+    wide = [a for a in LOCAL if sizes.get(a, 1) > 1]
+    if len(wide) == 2:
+        groups[LOCAL] = _axes_group(mesh, names, LOCAL)
+    elif wide:
+        groups[LOCAL] = groups[wide[0]]
     return RankAxes(dict(zip(names, (int(c) for c in coord))), sizes,
                     groups)
 
 
-def _rows_group(mesh, names):
-    """This rank's group of the ranks with its model index, made once a
-    mesh (every rank makes every such group, in model order)."""
-    hit = _ROW_GROUPS.get(id(mesh))
+def _axes_group(mesh, names, axes: Tuple[str, ...]):
+    """This rank's group of the ranks that differ from it on ``axes``
+    only (each group's ranks in mesh order), made once a mesh: every
+    rank makes every such group, in the order of the other axes'
+    coordinates."""
+    key = (id(mesh), axes)
+    hit = _GROUPS.get(key)
     if hit is not None and hit[0] is mesh:
         return hit[1]
     import torch.distributed as dist
-    m = names.index("model")
-    ranks = mesh.mesh.movedim(m, -1).reshape(-1, mesh.mesh.shape[m])
-    group, _ = dist.new_subgroups_by_enumeration(
-        [ranks[:, j].tolist() for j in range(ranks.shape[1])])
-    _ROW_GROUPS[id(mesh)] = (mesh, group)
+    inner = [names.index(a) for a in axes if a in names]
+    outer = [d for d in range(len(names)) if d not in inner]
+    ranks = mesh.mesh.permute(*outer, *inner).reshape(
+        -1, math.prod(mesh.mesh.shape[d] for d in inner))
+    group, _ = dist.new_subgroups_by_enumeration(ranks.tolist())
+    _GROUPS[key] = (mesh, group)
     return group
 
 

@@ -45,6 +45,8 @@ from repro_torch.runtime import steps as S
 from repro_torch.runtime.pipeline import PipelinedDecoder, axes_leaves
 from repro_torch.serving import aot
 from repro_torch.serving.engine import EngineConfig, ServingEngine
+from repro_torch.sharding import fsdp as FS
+from repro_torch.sharding import rules as R
 from repro_torch.sharding import tensor_parallel as TP
 from repro_torch.tree import leaves, map_tree
 
@@ -855,7 +857,10 @@ class StepsJob:
     CPU (each rank keeps its shard, ``shard_params``), or None to draw the
     rank's shard from ``seed`` on its device (``draw_params``).
     ``indivisible``, when not 0, is a global batch the steps must refuse
-    by name."""
+    by name. ``param_rules`` and ``sharded_logits`` go to the steps (and
+    the rules to the rank's blocks); ``feed`` ([steps, batch, 1] int32),
+    when given, holds the tokens the decode steps take in place of the
+    greedy ones (a rank's sharded logits hold only its block)."""
 
     cfg: ArchConfig
     mesh: Mesh
@@ -866,6 +871,9 @@ class StepsJob:
     seed: int = 0
     max_seq: int = 4096
     indivisible: int = 0
+    param_rules: Optional[dict] = None
+    sharded_logits: bool = False
+    feed: Optional[torch.Tensor] = None
 
 
 def grow_cache(api, cache, n: int):
@@ -892,6 +900,13 @@ def _messaged(*steps) -> int:
     return sum(st.sent + st.collective for st in seen.values())
 
 
+def _gathered(step) -> int:
+    """Bytes the data axis's gathers have put in so far (every step on a
+    mesh shares them; 0 without a data axis)."""
+    st = step.gather_staging
+    return st.collective if st is not None else 0
+
+
 def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
     """This rank's ``rows`` (a slice of the global batch), the whole [B, V]
     ``logits`` of the prefill and of each decode step, its
@@ -899,8 +914,10 @@ def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
     model axis), host ms of the prefill and of each decode step
     (``prefill_ms``, ``decode_ms``; a first prefill and decode step run
     untimed before them), the bytes each of them messaged
-    (``prefill_bytes``, ``decode_bytes``), ``launches`` over them, the
-    rank's ``param_bytes`` and ``param_shapes`` (in leaf order),
+    (``prefill_bytes``, ``decode_bytes``) and, of those, the bytes of its
+    gathers of the params' data blocks (``prefill_gather_bytes``,
+    ``decode_gather_bytes``), ``launches`` over them, the rank's
+    ``param_bytes`` and ``param_shapes`` (its blocks, in leaf order),
     ``peak_bytes`` (the card's peak allocation over the driven steps;
     None on the CPU) and, with ``indivisible``, the refusal's message
     (``refusal``)."""
@@ -908,46 +925,57 @@ def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
     api = build_model(job.cfg, device=ctx.device, dtype=job.dtype,
                       max_seq=job.max_seq)
     mesh = make_mesh(*job.mesh, device=ctx.device)
-    out = {"logits": [], "decode_ms": [], "decode_bytes": []}
-    params = _rank_params(ctx, api, mesh, job.params, job.seed)
+    out = {"logits": [], "decode_ms": [], "decode_bytes": [],
+           "decode_gather_bytes": []}
+    params = _rank_params(ctx, api, mesh, job.params, job.seed,
+                          job.param_rules)
     if ctx.device.type == "cuda":
         torch.cuda.empty_cache()
     out["param_bytes"] = sum(t.numel() * t.element_size()
                              for t in leaves(params))
     out["param_shapes"] = [tuple(t.shape) for t in leaves(params)]
-    pre = S.make_prefill_step(api, mesh, ShapeConfig("p", Sq, B, "prefill"))
+    kw = dict(param_rules=job.param_rules, sharded_logits=job.sharded_logits)
+    pre = S.make_prefill_step(api, mesh, ShapeConfig("p", Sq, B, "prefill"),
+                              **kw)
     dec = S.make_decode_step(api, mesh, ShapeConfig("d", Sq + job.steps, B,
-                                                     "decode"))
+                                                     "decode"), **kw)
     idx, count = S._rank_rows(mesh, ("pod", "data"), B)
     out["rows"] = slice(idx * B // count, (idx + 1) * B // count)
     tok = job.tokens.to(ctx.device)
     # first calls, untimed (the rank's first cuBLAS calls and kernel
     # loads), on copies
+    def next_tokens(logits, i):
+        if job.feed is not None:
+            return job.feed[i].to(ctx.device)
+        return logits.argmax(-1)[:, None].to(torch.int32)
+
     logits, cache = pre(params, {"tokens": tok})
     dec(params, grow_cache(api, cache, job.steps),
-        {"tokens": logits.argmax(-1)[:, None].to(torch.int32)})
+        {"tokens": next_tokens(logits, 0)})
     del logits, cache
     _sync(ctx.device)
     ops.reset_launch_counts()
     if ctx.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(ctx.device)
-    sent = _messaged(pre, dec)
+    sent, gathered = _messaged(pre, dec), _gathered(pre)
     t0 = time.perf_counter()
     logits, cache = pre(params, {"tokens": tok})
     _sync(ctx.device)
     out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
     out["prefill_bytes"] = _messaged(pre, dec) - sent
+    out["prefill_gather_bytes"] = _gathered(pre) - gathered
     out["logits"].append(logits)
     out["prefill_cache"] = map_tree(lambda t: t.clone(), cache)
     cache = grow_cache(api, cache, job.steps)
-    for _ in range(job.steps):
-        tok = logits.argmax(-1)[:, None].to(torch.int32)
-        sent = _messaged(pre, dec)
+    for i in range(job.steps):
+        tok = next_tokens(logits, i)
+        sent, gathered = _messaged(pre, dec), _gathered(pre)
         t0 = time.perf_counter()
         logits, cache = dec(params, cache, {"tokens": tok})
         _sync(ctx.device)
         out["decode_ms"].append((time.perf_counter() - t0) * 1e3)
         out["decode_bytes"].append(_messaged(pre, dec) - sent)
+        out["decode_gather_bytes"].append(_gathered(pre) - gathered)
         out["logits"].append(logits)
     out["cache"] = cache
     out["launches"] = dict(ops.LAUNCHES)
@@ -1026,53 +1054,92 @@ class TrainJob:
     keep: Tuple[str, ...] = ("params", "ef")
     # fn(api, params) -> params, on the rank's params before step 1
     prepare: Optional[Callable] = None
+    # the step's param_rules (the rank's blocks with them); None: PARAM_RULES
+    param_rules: Optional[dict] = None
+    # before step 1: whether the rank's data blocks, gathered over its data
+    # group, are its model index's shard of the same draw (``layout_ok``)
+    check_layout: bool = False
 
 
-def _rank_params(ctx: RankContext, api, mesh, params, seed: int):
-    """This rank's params on ``mesh``: its shards of the whole tree
-    ``params`` (on the CPU; ``shard_params``, the whole tree with no model
-    axis) moved to its device, or drawn there from ``seed``
-    (``draw_params``)."""
+def _layout_ok(ctx: RankContext, api, mesh, job: TrainJob, params) -> bool:
+    """Whether ``params`` (the rank's blocks), gathered whole over its data
+    group, equal its model index's shard of the same weights (the blocks
+    of the rules with every leaf whole over data), bit for bit."""
+    rules = R.merge_rules(job.param_rules or R.PARAM_RULES, {"embed": [()]})
+    shard = _rank_params(ctx, api, mesh, job.params, job.seed, rules)
+    if job.prepare is not None:
+        shard = job.prepare(api, shard)
+    layout = S.DataLayout(api, mesh, job.param_rules)
+    dims = layout.dims or map_tree(lambda _: None, params)
+    with torch.no_grad():
+        # every leaf, so that every rank runs every gather
+        same = [torch.equal(FS.gather_data(t, d, layout.blocks), w)
+                for t, d, w in zip(leaves(params), leaves(dims),
+                                   leaves(shard))]
+    return all(same)
+
+
+def _rank_params(ctx: RankContext, api, mesh, params, seed: int,
+                 rules=None):
+    """This rank's params on ``mesh``: its blocks of the whole tree
+    ``params`` (on the CPU; ``shard_params`` under ``rules``) moved to
+    its device, or drawn there from ``seed`` (``draw_params``)."""
     if params is None:
         return S.draw_params(api, mesh, torch.Generator(
-            device=ctx.device).manual_seed(seed))
+            device=ctx.device).manual_seed(seed), rules)
     return map_tree(lambda t: t.to(ctx.device, copy=True),
-                    S.shard_params(api, mesh, params))
+                    S.shard_params(api, mesh, params, rules))
 
 
 def train(ctx: RankContext, job: TrainJob) -> dict:
     """The rank's ``losses`` and ``gnorms`` a step, a ``param_digest`` of
     its params after each step (``digests``, one int a leaf; ``split``
-    says which leaves are shards on a model axis, the rest whole),
-    ``param_bytes``, ``launches``, ``host_ms`` a step, the bytes it sent
-    point to point a step (``sent_per_step``), the bytes a step of its
-    data reduce and pod exchange (``data_bytes_per_step``) and of its
-    model axis's collectives (``model_bytes_per_step``), its peak device
+    names, a leaf, the mesh axes that split it: a leaf's block holds the
+    same bits on every rank with its coordinates on those axes),
+    ``param_bytes`` and ``param_shapes`` (its blocks), ``opt_shapes``
+    (AdamW's master, ``m`` and ``v``), ``layout_ok`` (``check_layout``),
+    ``launches``,
+    ``host_ms`` a step, the bytes it sent point to point a step
+    (``sent_per_step``), the bytes a step of its data reduce of whole
+    leaves, pod sums and pod exchange (``data_bytes_per_step``), of its
+    model axis's collectives (``model_bytes_per_step``), of its gathers
+    of the params' data blocks (``gather_bytes_per_step``) and of their
+    gradients' reduce-scatters (``scatter_bytes_per_step``), its peak device
     memory (a card), the error feedback's largest |value| and nonzero
     count (compressed), and as ``keep`` names them the final ``params``,
     the ``ef`` after every step (``ef_steps``) and AdamW's final first
-    moment ``m``. On a model axis the params are the rank's shards (of
-    ``params``, or drawn from ``seed``)."""
+    moment ``m``. On a mesh of ranks the params are the rank's blocks
+    (of ``params``, or drawn from ``seed``)."""
     mesh = make_mesh(*job.mesh, device=ctx.device)
     api = build_model(job.cfg, device=ctx.device, dtype=job.dtype,
                       max_seq=job.seq)
-    params = _rank_params(ctx, api, mesh, job.params, job.seed)
+    params = _rank_params(ctx, api, mesh, job.params, job.seed,
+                          job.param_rules)
     if job.prepare is not None:
         params = job.prepare(api, params)
+    layout_ok = _layout_ok(ctx, api, mesh, job, params) \
+        if job.check_layout else None
     opt = adamw.init(params)
     extra = (init_error_feedback(params),) if job.compressed else ()
     step = S.make_train_step(api, job.opt,
                              ShapeConfig("ranks", job.seq, job.batch,
                                          "train"),
                              device=ctx.device, mesh=mesh,
-                             compress_pod_grads=job.compressed)
+                             compress_pod_grads=job.compressed,
+                             param_rules=job.param_rules)
     data = SyntheticTokenStream(job.cfg.vocab_size, job.batch, job.seq,
                                 structure=job.structure)
     res = {"losses": [], "gnorms": [], "digests": [], "host_ms": [],
            "param_bytes": sum(t.numel() * t.element_size()
                               for t in leaves(params))}
-    res["split"] = [b is not None for b in S.model_blocks(api, mesh)]
+    res["param_shapes"] = [tuple(t.shape) for t in leaves(params)]
+    res["opt_shapes"] = [[tuple(t.shape) for t in leaves(tree)]
+                         for tree in opt]
+    res["layout_ok"] = layout_ok
+    res["split"] = S.split_axes(api, mesh, job.param_rules)
     tp = TP.axis_of(mesh)
+    data_stagings = [st for st in (step.gather_staging, step.scatter_staging)
+                     if st is not None]
     if ctx.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(ctx.device)
     _sync(ctx.device)
@@ -1080,6 +1147,7 @@ def train(ctx: RankContext, job: TrainJob) -> dict:
     sent0 = step.staging.sent
     data0 = step.staging.sent + step.staging.collective
     model0 = tp.staging.collective if tp else 0
+    fsdp0 = [st.collective for st in data_stagings]
     for i in range(job.steps):
         batch = next(data)
         if job.label_mask is not None:
@@ -1104,6 +1172,9 @@ def train(ctx: RankContext, job: TrainJob) -> dict:
                                   - data0) / n
     res["model_bytes_per_step"] = ((tp.staging.collective if tp else 0)
                                    - model0) / n
+    fsdp = [(st.collective - b0) / n for st, b0 in zip(data_stagings, fsdp0)]
+    res["gather_bytes_per_step"], res["scatter_bytes_per_step"] = \
+        fsdp or (0.0, 0.0)
     if ctx.device.type == "cuda":
         res["peak_bytes"] = torch.cuda.max_memory_allocated(ctx.device)
     if job.compressed:

@@ -12,21 +12,22 @@ card does not survive a fork), joined over a ``FileStore`` in a temporary
 directory: no address and no network. ``body`` must be a top-level
 function of an importable module, since each rank imports it by name.
 What each rank returns comes back to the parent, tensors moved to the
-CPU, as a list in rank order. If a rank raises, the others are stopped
-and the parent raises a ``RuntimeError`` holding the traceback of every
-rank that failed; the process group's
-timeout (``TIMEOUT_S``) turns a rank stuck on a message its peer never
-sends into an error instead of a hang.
+CPU, as a list in rank order. If a rank raises, the others get a short
+grace (``GRACE_S``) to finish or fail on their own, then the rest are
+stopped, and the parent raises a ``RuntimeError`` holding the traceback
+of every rank that failed by itself; the process group's timeout
+(``TIMEOUT_S``) turns a rank stuck on a message its peer never sends
+into an error instead of a hang.
 
 The caller names the backend, ``gloo`` or ``nccl``; nothing picks one.
 NCCL places one rank per card: more ranks than visible cards raises
 before any process starts. Gloo moves host memory only, so the helpers
 below (``send``, ``recv``, ``exchange``, ``all_reduce`` (a sum or a
-max), ``broadcast``, ``all_gather``) stage a card's tensor through a
-pinned host buffer of the ``Staging`` the caller owns, then copy it to
-the card: a sealed payload crosses host memory between two enclaves, as
-the paper's boundaries do. Under NCCL, or with tensors already on the
-CPU, they pass tensors as they are.
+max), ``broadcast``, ``all_gather``, ``reduce_scatter``) stage a card's
+tensor through a pinned host buffer of the ``Staging`` the caller owns,
+then copy it to the card: a sealed payload crosses host memory between
+two enclaves, as the paper's boundaries do. Under NCCL, or with tensors
+already on the CPU, they pass tensors as they are.
 
 An engine whose stages are ranks runs the same host logic on every rank,
 so what that logic reads must agree: ``share`` gives every rank one
@@ -48,6 +49,7 @@ import dataclasses
 import datetime
 import os
 import tempfile
+import time
 import traceback
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
@@ -57,6 +59,10 @@ import torch.distributed as dist
 from repro_torch.device import resolve_device
 
 TIMEOUT_S = 120.0
+# after the first rank fails, how long the others may take to end on their
+# own (a rank slower to start still reports its own fault) before the
+# rest are stopped
+GRACE_S = 5.0
 BACKENDS = ("gloo", "nccl")
 
 # the managed functions running on this process, innermost last
@@ -163,25 +169,54 @@ def spawn(fn: Callable, world: int, *, backend: str, device,
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", 0)
     import torch.multiprocessing as mp
-    from torch.multiprocessing.spawn import ProcessException
     with tempfile.TemporaryDirectory(prefix="repro_ranks_") as tmp:
-        try:
-            mp.start_processes(_entry, args=(fn, world, backend, str(dev),
-                                             tmp, tuple(args),
-                                             float(timeout_s)),
-                               nprocs=world, join=True,
-                               start_method="spawn")
-        except ProcessException as e:
+        procs = mp.start_processes(
+            _entry, args=(fn, world, backend, str(dev), tmp, tuple(args),
+                          float(timeout_s)),
+            nprocs=world, join=False, start_method="spawn").processes
+        stopped = _wait_ranks(procs)
+        failed = [r for r, p in enumerate(procs)
+                  if p.exitcode != 0 and r not in stopped]
+        if failed or stopped:
             errs = {r: open(os.path.join(tmp, f"rank{r}.err")).read()
                     for r in range(world)
                     if os.path.exists(os.path.join(tmp, f"rank{r}.err"))}
             raise RuntimeError(
                 f"spawn: {fn.__module__}.{fn.__qualname__} failed on ranks "
-                f"{sorted(errs) or [e.error_index]} of {world}\n"
+                f"{sorted(set(errs) | set(failed))} of {world}"
+                + (f" (ranks {stopped} stopped after a {GRACE_S:g} s "
+                   f"grace)" if stopped else "") + "\n"
                 + "\n".join(f"--- rank {r} ---\n{tb}"
-                             for r, tb in sorted(errs.items()))) from e
+                             for r, tb in sorted(errs.items())))
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                            weights_only=False) for r in range(world)]
+
+
+def _wait_ranks(procs) -> List[int]:
+    """Wait for every rank's process to end. After the first one ends
+    with an error, the others get ``GRACE_S`` to end on their own; those
+    still running then are stopped, and returned (their ranks)."""
+    from multiprocessing.connection import wait
+    alive = {p.sentinel: r for r, p in enumerate(procs)}
+    deadline = None
+    while alive:
+        left = None if deadline is None else deadline - time.monotonic()
+        if left is not None and left <= 0:
+            break
+        for s in wait(list(alive), left):
+            p = procs[alive.pop(s)]
+            p.join()
+            if p.exitcode != 0 and deadline is None:
+                deadline = time.monotonic() + GRACE_S
+    stopped = sorted(alive.values())
+    for r in stopped:
+        procs[r].terminate()
+    for r in stopped:
+        procs[r].join(GRACE_S)
+        if procs[r].is_alive():
+            procs[r].kill()
+            procs[r].join()
+    return stopped
 
 
 # ---------------------------------------------------------------------------
@@ -203,7 +238,8 @@ class Staging:
     was waited for (the caller's tags say which messages may be in flight
     together). Also counts the bytes this rank sent point to point
     (``sent``) and the bytes it put into collectives (``collective``:
-    what it passed to ``all_reduce``, ``broadcast`` and ``all_gather``)."""
+    what it passed to ``all_reduce``, ``broadcast``, ``all_gather`` and
+    ``reduce_scatter``)."""
 
     def __init__(self):
         self._bufs: Dict[Tuple, torch.Tensor] = {}
@@ -338,6 +374,35 @@ def all_gather(staging: Staging, t: torch.Tensor, group=None,
     if land is not out:
         out.copy_(land)
     return out
+
+
+def reduce_scatter(staging: Staging, t: torch.Tensor, group=None,
+                   tag="reduce_scatter", dim: int = 0) -> torch.Tensor:
+    """The f32 sum of ``t`` over ``group``, cut into the group's size
+    blocks along ``dim``: this rank's block, in the group's order (rank
+    i of the group the i-th), a new contiguous f32 tensor on ``t``'s
+    device; the same bits as the sum's block on every rank. ``t`` (each
+    rank's of one shape, ``dim`` divisible by the group's size) is not
+    written; its bytes count as this rank's input."""
+    _may_message("reduce_scatter")
+    n = dist.get_world_size(group)
+    x = t.float().movedim(dim, 0)
+    if x.shape[0] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} "
+                         f"does not split over {n} ranks")
+    if n == 1:
+        return x.movedim(0, dim).clone(
+            memory_format=torch.contiguous_format)
+    x = x.contiguous()
+    staging.collective += x.numel() * x.element_size()
+    out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                      dtype=torch.float32, device=t.device)
+    wire = staging._wire(x, group, (tag, "in"))
+    land = staging._landing(out, group, (tag, "out"))
+    dist.reduce_scatter_tensor(land, wire, group=group)
+    if land is not out:
+        out.copy_(land)
+    return out.movedim(0, dim).contiguous()
 
 
 def peer_of(group) -> int:

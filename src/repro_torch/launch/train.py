@@ -19,20 +19,25 @@ blocking save on SIGTERM.
 
 ``--mesh`` names the axes as the reference's launcher does without
 ``--multi-pod``: ``DxM`` is (data, model). With ``--multi-pod`` it reads
-``PxD[xM]``: (pod, data[, model]) from the left. (The reference takes the
-last names of (pod, data, model), so its two-dim ``--multi-pod`` mesh has
-no pod axis; three dims agree.) A mesh of more than one device runs one
-rank per device, which the launcher spawns itself (``launch.ranks``) over
-the backend ``--backend`` names (required then; ``nccl`` needs a card per
-rank); each rank trains on its rows of the global batch and rank 0 prints
-and writes checkpoints. A ``model`` axis above 1 is tensor parallelism
-(``sharding.tensor_parallel``): each rank draws only its shards of the
-weights (``steps.draw_params``, the same seed), and its AdamW state is
-of its shards. ``--compress-pod-grads`` on a mesh with pods runs the
-compressed step (int8 error-feedback exchange between pods); without a
-pod axis it is the plain step, as in the reference. Refused by name:
-``--ckpt-dir`` with a model axis above 1 (rank 0 would write its shards
-alone; restoring shards is ROADMAP item 10d, step 7) and
+``PxD[xM]``: (pod, data[, model]) from the left. (The reference takes
+the last names of (pod, data, model), so its two-dim ``--multi-pod``
+mesh has no pod axis; three dims agree.) A mesh of more than one device
+runs one rank per device, which the launcher spawns itself
+(``launch.ranks``) over the backend ``--backend`` names (required then;
+``nccl`` needs a card per rank); each rank trains on its rows of the
+global batch and rank 0 prints. Each rank draws only its blocks of the
+weights (``steps.draw_params``, the same seed: the reference's
+``PARAM_RULES`` on the whole mesh), and its AdamW state is of its
+blocks: a ``data`` axis above 1 splits every leaf with an ``embed`` dim
+(the reference's FSDP, ``sharding.fsdp``), a ``model`` axis above 1 is
+tensor parallelism (``sharding.tensor_parallel``). A checkpoint gathers
+the data blocks whole (every rank takes part) and rank 0 writes it in
+the one-card format; every rank restores the whole leaves and keeps its
+blocks. ``--compress-pod-grads`` on a mesh with pods runs the compressed
+step (int8 error-feedback exchange between pods); without a pod axis it
+is the plain step, as in the reference. Refused by name: ``--ckpt-dir``
+with a model axis above 1 (rank 0 would write its model shards alone;
+writing and restoring them is ROADMAP item 10d, step 7) and
 ``--production-mesh`` (512 chips).
 """
 from __future__ import annotations
@@ -157,7 +162,8 @@ def _run(args, dev: torch.device, mesh, names) -> dict:
                      data=data, ckpt=ckpt,
                      cfg=TrainLoopConfig(total_steps=args.steps,
                                          ckpt_every=args.ckpt_every),
-                     extra_step_args=extra)
+                     extra_step_args=extra,
+                     layout=mesh and S.DataLayout(api, mesh))
     lead = mesh is None or dist.get_rank() == 0
     previous = loop.install_signal_handler()
     try:

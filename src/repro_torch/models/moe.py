@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.sharding import fsdp as FS
 from repro_torch.sharding import tensor_parallel as TP
 from . import layers as L
 from .layers import ParamSpec
@@ -128,7 +129,12 @@ def moe_mlp_apply(cfg: ArchConfig, p, x: torch.Tensor, *,
         rows = E_loc + 1
         w = w * mine
     if drop_tokens:
-        C = capacity(T, K, E, capacity_factor)
+        # where a train step splits the batch's rows over ranks, the slots
+        # and the capacity are the whole batch's (``fsdp.earlier_rows``)
+        before, blocks = FS.earlier_rows(onehot.sum(0))
+        if before is not None:
+            pos_in_e = pos_in_e + before.gather(0, flat_e)
+        C = capacity(T * blocks, K, E, capacity_factor)
         keep = pos_in_e < C
         # dropped decisions add zeros at slot 0 of their expert, as the
         # reference's scatter-add does; only one value there is nonzero,

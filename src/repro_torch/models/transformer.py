@@ -33,6 +33,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.sharding import fsdp as FS
 from repro_torch.sharding import rules as R
 from repro_torch.sharding import tensor_parallel as TP
 from repro_torch.tree import leaves
@@ -126,6 +127,13 @@ def _at(tree, l: int):
     if isinstance(tree, (tuple, list)):
         return tuple(_at(v, l) for v in tree)
     return tree[l]
+
+
+def _train_layer(blk, name: str, p, x, positions, pos3):
+    """``blk.train`` of one layer, its blocks ``p`` of the segment ``name``
+    gathered whole over the data axis first (the identity off one): the
+    function a remat checkpoint wraps, so its recompute gathers again."""
+    return blk.train(FS.gather_layer(p, name), x, positions, pos3)
 
 
 def _unbind(tree, n: int):
@@ -440,7 +448,7 @@ class StackedLM:
         replicated logits)."""
         w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
         out = h.float() @ w.float()
-        if TP.split(w.shape[1], self.cfg.vocab_size):
+        if TP.split(w.shape[1], self.cfg.vocab_size) and not TP.vocab_kept():
             out = TP.gather_model(out, -1)
         return out
 
@@ -449,6 +457,12 @@ class StackedLM:
         f32 logits [B, V]."""
         x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
         return self.logits(params, x[:, -1])
+
+    def _outer(self, params):
+        """``params`` with every leaf outside the segments (``embed``,
+        ``ln_f``, ``head``, a frontend's) gathered whole over the data
+        axis, once a call (``sharding.fsdp``; the identity off one)."""
+        return FS.gather_outer(params, [seg.name for seg in self.segments])
 
     def _layer(self, params, l: int) -> Dict[str, Any]:
         """Layer ``l`` of the whole stack's block weights."""
@@ -516,9 +530,13 @@ class StackedLM:
         the forward's rule context, ``rules.recompute_context``, so a
         model axis's messages run again), so the flash kernel runs twice
         a layer. The stacked block weights are
-        unbound once, so their gradient is one stack of the layers'.
-        ``hidden``, when given, receives the embedding and then each
-        block's output."""
+        unbound once, so their gradient is one stack of the layers'. On a
+        data axis (``sharding.fsdp``) each layer's blocks are gathered
+        whole right before the layer runs, inside the checkpointed
+        function in training (the recompute gathers them again, and no
+        whole leaf is saved for the backward); ``params`` outside the
+        segments are whole (``_outer``). ``hidden``, when given, receives
+        the embedding and then each block's output."""
         tokens = batch["tokens"]
         positions = batch.get("positions")
         if positions is None:
@@ -543,14 +561,15 @@ class StackedLM:
                 stack = stack[lo - at:hi - at]
             for p in stack:
                 if not train:
-                    x, c = blk.prefill(p, x, positions, pos3)
+                    x, c = blk.prefill(FS.gather_layer(p, seg.name), x,
+                                       positions, pos3)
                     layers.append(c)
                 elif self.remat and torch.is_grad_enabled():
                     x = torch.utils.checkpoint.checkpoint(
-                        blk.train, p, x, positions, pos3,
+                        _train_layer, blk, seg.name, p, x, positions, pos3,
                         use_reentrant=False, context_fn=recompute)
                 else:
-                    x = blk.train(p, x, positions, pos3)
+                    x = _train_layer(blk, seg.name, p, x, positions, pos3)
                 if hidden is not None:
                     hidden.append(x)
             if layers:
@@ -564,6 +583,7 @@ class StackedLM:
         ``pos3``): every block in train mode, the final norm, and
         ``chunked_softmax_xent`` against the tied embedding or ``head``
         (the reference's ``StackedLM.loss_fn``)."""
+        params = self._outer(params)
         x, _ = self._blocks(params, batch, train=True)
         x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
         w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
@@ -583,7 +603,7 @@ class StackedLM:
         reads as entry 0). Runs without autograd, so each layer's attention
         is the flash kernel's forward on a CUDA tensor."""
         hidden = []
-        self._blocks(params, {k: v for k, v in batch.items()
+        self._blocks(self._outer(params), {k: v for k, v in batch.items()
                               if k != "positions"}, train=True, hidden=hidden)
         return torch.stack(hidden)
 
@@ -613,6 +633,7 @@ class StackedLM:
         1e-6`` over the batch and the sequence per (head, channel), the
         only call that sets them."""
         tokens = batch["tokens"]
+        params = self._outer(params)
         x, caches = self._prefill(params, batch)
         if self.cache_quant:
             for name, (kk, vv) in list(caches.items()):
@@ -741,8 +762,10 @@ class StackedLM:
         positions = cache_len.reshape(1, 1)
         slot = blk.decode_slot(cache_len, body)
         for l in range(lo, hi):
-            x = blk.decode(_at(params[seg.name], l), x, positions, pos3,
-                           _at(body, l), cache_len, slot, start, rows)
+            x = blk.decode(FS.gather_layer(_at(params[seg.name], l),
+                                           seg.name),
+                           x, positions, pos3, _at(body, l), cache_len, slot,
+                           start, rows)
         return x
 
     def decode_fn(self, params, cache, batch, start: int = 0,
@@ -759,6 +782,7 @@ class StackedLM:
         state [B, 1, d] in place of the logits where ``end`` is not the
         last layer; ``len`` advances either way."""
         n = cache["len"]
+        params = self._outer(params)
         if start == 0 and end is None:
             x = self.embed(params, batch["tokens"])              # [B, 1, d]
             for seg in self.segments:

@@ -28,15 +28,28 @@ its ``data`` group the same way, exchanges the pod's gradient as int8
 with error feedback over ``pod`` (``optim.compression``) and takes the
 pods' mean loss. The prefill and decode serve steps run over the same
 meshes: each rank its block of the batch's rows, the logits gathered
-whole on every rank.
+whole on every rank (with ``sharded_logits``, each rank's block of
+them).
+
+On a mesh of ranks each rank holds its block of every param leaf as the
+reference's ``param_shardings`` place it: ``param_rules`` (by default
+``PARAM_RULES``) resolved on the whole mesh at the rank's coordinates
+(``leaf_block``, ``param_blocks``), and AdamW's state with it. Over
+``data`` (ROADMAP item 10d, step 8, the reference's FSDP: every leaf
+with an ``embed`` dim) the model gathers a leaf over the data group
+before use and the backward reduce-scatters its gradient, weighted by
+the rank's label count and summed over pods (``sharding.fsdp``); the
+leaves whole over data join the weighted sum above. An MoE layer in
+training routes over the whole batch's rows (``fsdp.RowBlocks``), as
+the reference's one logical batch does.
 
 The serve steps (ROADMAP item 10d, step 5a) and the train step (step
 5b) also run over a ``model`` axis above 1 (tensor parallelism) for the
 dense and MoE stacks:
-each rank holds its shard of the params (``shard_params`` of the whole
+each rank holds its block of the params (``shard_params`` of the whole
 tree, or ``draw_params`` leaf by leaf from a seed), split over ``model``
-as ``param_shardings`` resolves them with ``PARAM_RULES`` (over ``pod``
-and ``data`` they stay whole), and the model code, told by the rule
+(and ``data``) as ``param_shardings`` resolves them with
+``PARAM_RULES``, and the model code, told by the rule
 context that it runs on a model-split rank, adds the messages a shard
 needs (``sharding.tensor_parallel``: a reduce after each product that
 contracts a split dim, the vocab-split embedding and logits). The model
@@ -48,9 +61,9 @@ they divide; the ranks keep them whole, as every rank computes every KV
 head there, and send nothing for the cache). In the train step every
 helper's backward gives each rank its shards' gradients and the whole
 leaves' (the norms, the router, KV heads that stay whole) the same bits
-on every rank; the clipping norm counts each split leaf's shards once
-over the model group and each whole leaf once (``ModelShards``), and the
-compressed step quantizes each shard on its whole leaf's absmax.
+on every rank; the clipping norm counts each block once over the pod's
+(data, model) ranks (``ModelShards``), and the compressed step
+quantizes each block on its whole leaf's absmax.
 Refused by name over a model axis: the ``act_seq_sp`` rules
 (``SP_ACT_RULES``, step 5b), families other than the dense and MoE
 ``StackedLM`` and the int8 cache (step 5c). A logical mesh of several
@@ -67,6 +80,7 @@ has.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -76,7 +90,7 @@ import torch
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.device import resolve_device, to_device
 from repro_torch.launch import ranks as RK
-from repro_torch.launch.mesh import ROWS, LogicalMesh, rank_axes
+from repro_torch.launch.mesh import LOCAL, ROWS, rank_axes
 from repro_torch.models.api import ModelAPI
 from repro_torch.models.layers import init_one
 from repro_torch.models.transformer import (AttnBlock, StackedLM, _map_specs,
@@ -85,8 +99,9 @@ from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig, AdamWState
 from repro_torch.optim.compression import compressed_psum_pod
 from repro_torch.sharding import rules as R
+from repro_torch.sharding import fsdp as FS
 from repro_torch.sharding import tensor_parallel as TP
-from repro_torch.tree import leaves, map_tree
+from repro_torch.tree import leaves, map_tree, named_leaves
 
 CUBLAS_WORKSPACE = ":4096:8"
 
@@ -220,47 +235,134 @@ def check_model_axis(api: ModelAPI, m: int, what: str,
 
 
 # ---------------------------------------------------------------------------
-# A rank's shard of the params on the model axis
+# A rank's block of the params on the whole mesh
 # ---------------------------------------------------------------------------
-def model_block(spec, m: int, j: int) -> Optional[Tuple[slice, ...]]:
-    """The block of a leaf of ``spec`` (a ``ParamSpec``) that model index
-    ``j`` holds on a model axis of ``m`` ranks, or None where the leaf
-    stays whole: its ``axes`` resolved by ``resolve_spec`` with
-    ``PARAM_RULES`` on the ``model`` axis alone, so a dim that does not
-    divide stays whole, as the reference's fallback keeps it (over ``pod``
-    and ``data`` every leaf stays whole). The one decision behind
-    ``shard_params``, ``draw_params``, ``check_shards`` and
-    ``ModelShards``."""
-    sh = R.logical_sharding(spec.shape, spec.axes,
-                            LogicalMesh((m,), ("model",)), R.PARAM_RULES)
-    return None if sh.is_replicated else sh.block(spec.shape, {"model": j})
+def leaf_block(spec, mesh, coords: Dict[str, int], rules=None
+               ) -> Optional[Tuple[slice, ...]]:
+    """The block of a leaf of ``spec`` (a ``ParamSpec``) that the device
+    at ``coords`` ({mesh axis: index}) of ``mesh`` holds, or None where
+    the leaf stays whole: its ``axes`` resolved by ``resolve_spec`` with
+    ``rules`` (``PARAM_RULES`` by default) on the whole mesh, the
+    reference's ``param_shardings``, so a dim that does not divide stays
+    whole as the reference's fallback keeps it. The one decision behind
+    ``param_blocks``, ``shard_params``, ``draw_params``, ``check_shards``,
+    ``ModelShards`` and the data axis's gathers (``data_dims``)."""
+    sh = R.logical_sharding(spec.shape, spec.axes, mesh,
+                            rules or R.PARAM_RULES)
+    return None if sh.is_replicated else sh.block(spec.shape, coords)
 
 
-def _model_index(mesh) -> Tuple[int, int]:
-    """The size of ``mesh``'s model axis and this rank's index on it (0
-    off a mesh of ranks)."""
-    if mesh is None:
-        return 1, 0
-    ax = TP.axis_of(mesh)
-    return (R.mesh_axis_sizes(mesh).get("model", 1),
-            ax.index if ax is not None else 0)
+def _on_ranks(mesh) -> bool:
+    return mesh is not None and R.is_device_mesh(mesh) \
+        and R.mesh_size(mesh) > 1
 
 
-def model_blocks(api: ModelAPI, mesh, j: Optional[int] = None
-                 ) -> List[Optional[Tuple[slice, ...]]]:
-    """``model_block`` of each leaf of ``api.param_specs()``, in leaf
-    order, on the model axis of ``mesh`` (a mesh, or the axis size with
-    the index ``j``) at model index ``j`` (this rank's by default)."""
-    m, mine = (mesh, 0) if isinstance(mesh, int) else _model_index(mesh)
-    j = mine if j is None else j
-    return [model_block(sp, m, j) for sp in leaves(api.param_specs())]
+def param_blocks(api: ModelAPI, mesh, coords: Optional[Dict[str, int]] = None,
+                 rules=None) -> List[Optional[Tuple[slice, ...]]]:
+    """``leaf_block`` of each leaf of ``api.param_specs()``, in leaf
+    order, at ``coords`` of ``mesh`` (a mesh of ranks, or any mesh with
+    ``coords``); by default this rank's coordinates on a mesh of ranks,
+    and every leaf whole elsewhere (no mesh, a mesh of one device, a
+    logical mesh in a process of one rank)."""
+    specs = leaves(api.param_specs())
+    if coords is None:
+        if not _on_ranks(mesh):
+            return [None] * len(specs)
+        coords = rank_axes(mesh).coords
+    return [leaf_block(sp, mesh, coords, rules) for sp in specs]
 
 
-def shard_params(api: ModelAPI, mesh, params):
-    """This rank's shard of each leaf of the whole tree ``params``
-    (``model_block``). A split leaf is a new tensor (the whole can be
-    freed), a whole one the same tensor."""
-    blocks = iter(model_blocks(api, mesh))
+def join_blocks(api: ModelAPI, mesh, trees, rules=None):
+    """The whole params-shaped tree (params, or one of AdamW's states) on
+    the host from ``trees``, each rank's blocks of it in rank order (the
+    ranks of ``mesh``, any mesh, in its axes' row-major order): each
+    rank's block written where ``param_blocks`` puts it."""
+    sizes = R.mesh_axis_sizes(mesh)
+    wholes = [torch.empty(sp.shape, dtype=t.dtype) for sp, t in zip(
+        leaves(api.param_specs()), leaves(trees[0]))]
+    for r, tree in enumerate(trees):
+        at = np.unravel_index(r, tuple(sizes.values()))
+        coords = {a: int(c) for a, c in zip(sizes, at)}
+        for w, blk, t in zip(wholes, param_blocks(api, mesh, coords, rules),
+                             leaves(tree)):
+            w[blk if blk is not None else ...] = t.detach().cpu()
+    it = iter(wholes)
+    return map_tree(lambda _: next(it), trees[0])
+
+
+def _split_dims(shape, axes, mesh, rules) -> Dict[str, int]:
+    """{mesh axis of more than one device: the dim it splits} of a tensor
+    of ``shape`` over logical ``axes`` under ``rules`` (``PARAM_RULES``
+    by default)."""
+    sizes = R.mesh_axis_sizes(mesh)
+    sh = R.logical_sharding(shape, axes, mesh, rules or R.PARAM_RULES)
+    return {a: d for d, entry in enumerate(sh.spec)
+            for a in R._names(entry) if sizes[a] > 1}
+
+
+def split_axes(api: ModelAPI, mesh, rules=None) -> List[Tuple[str, ...]]:
+    """The mesh axes (of more than one device) that split each leaf of
+    ``api.param_specs()``, in leaf order and mesh order; none off a mesh
+    of ranks."""
+    specs = leaves(api.param_specs())
+    if not _on_ranks(mesh):
+        return [()] * len(specs)
+    order = list(R.mesh_axis_sizes(mesh))
+    return [tuple(sorted(_split_dims(sp.shape, sp.axes, mesh, rules),
+                         key=order.index)) for sp in specs]
+
+
+def data_dims(api: ModelAPI, mesh, rules=None):
+    """The params tree with each leaf's dim over ``data`` (None where the
+    leaf is whole over data, or the mesh has no data axis above 1): what
+    ``sharding.fsdp`` gathers."""
+    return map_tree(lambda sp: _split_dims(sp.shape, sp.axes, mesh,
+                                               rules).get("data"),
+                    api.param_specs())
+
+
+def check_param_rules(api: ModelAPI, mesh, rules, what: str) -> None:
+    """What a ``param_rules`` table may do on a mesh of ranks: ``data``
+    takes any dim of a leaf but a stack's ``layers`` (the gather is
+    generic, one layer at a time), alone; ``model`` lands where
+    ``PARAM_RULES`` puts it (the tensor-parallel call sites split those
+    dims only); ``pod`` takes only ``stages``. Anything else raises by
+    name, with its roadmap step."""
+    if rules is None or rules is R.PARAM_RULES or not _on_ranks(mesh):
+        return
+    for name, sp in named_leaves(api.param_specs()).items():
+        got = _split_dims(sp.shape, sp.axes, mesh, rules)
+        want = _split_dims(sp.shape, sp.axes, mesh, R.PARAM_RULES)
+        if got.get("model") != want.get("model"):
+            where = lambda d: "nowhere" if d is None else repr(sp.axes[d])
+            raise NotImplementedError(
+                f"{what}: param_rules put model on {where(got.get('model'))}"
+                f" of {name} {sp.axes}, PARAM_RULES on "
+                f"{where(want.get('model'))}: the tensor-parallel call "
+                f"sites split PARAM_RULES' dims only (ROADMAP item 10d, "
+                f"step 5c)")
+        if "pod" in got and sp.axes[got["pod"]] != "stages":
+            raise NotImplementedError(
+                f"{what}: param_rules put pod on {sp.axes[got['pod']]!r} "
+                f"of {name}: pod takes only pipeline stages, which the "
+                f"pipelined decoder places itself (ROADMAP item 10d, "
+                f"step 5c)")
+        d = got.get("data")
+        shared = d is not None and sum(a == d for a in got.values()) > 1
+        if d is not None and (sp.axes[d] == "layers" or shared):
+            raise NotImplementedError(
+                f"{what}: param_rules put data on {sp.axes[d]!r} of "
+                f"{name} {sp.axes}{' with another axis' * shared}: the "
+                f"data axis gathers one layer at a time, along a dim of "
+                f"its own (ROADMAP item 10d, step 8)")
+
+
+def shard_params(api: ModelAPI, mesh, params, rules=None,
+                 coords: Optional[Dict[str, int]] = None):
+    """This rank's block (or the block at ``coords``) of each leaf of the
+    whole tree ``params`` (``param_blocks``). A split leaf is a new tensor
+    (the whole can be freed), a whole one the same tensor."""
+    blocks = iter(param_blocks(api, mesh, coords, rules))
 
     def cut(t):
         blk = next(blocks)
@@ -269,59 +371,108 @@ def shard_params(api: ModelAPI, mesh, params):
     return map_tree(cut, params)
 
 
-def draw_params(api: ModelAPI, mesh, generator: torch.Generator):
-    """``shard_params(api, mesh, api.init(generator))``, bit for bit: with
-    no model axis ``api.init(generator)`` itself; on one, each leaf drawn
-    from ``generator`` in ``api.init``'s order, keeping only this rank's
-    block before the next, so a rank's peak is one whole leaf in f32
-    beside its shards, not the model. A model axis draws the dense and
-    MoE ``StackedLM`` (whose ``init_params`` draws ``param_specs`` in
-    order)."""
-    if TP.axis_of(mesh) is None:
+def draw_params(api: ModelAPI, mesh, generator: torch.Generator,
+                rules=None):
+    """``shard_params(api, mesh, api.init(generator))``, bit for bit: on
+    no mesh of ranks ``api.init(generator)`` itself; on one, each leaf
+    drawn from ``generator`` in ``api.init``'s order (every model's
+    ``init_params`` draws its ``param_specs`` in order), keeping only this
+    rank's block before the next, so a rank's peak is one whole leaf in
+    f32 beside its blocks, not the model."""
+    if not _on_ranks(mesh):
         return api.init(generator)
-    if type(api.model) is not StackedLM:
-        raise NotImplementedError(
-            f"draw_params: {type(api.model).__name__} draws its own "
-            f"params; the model axis covers the dense and MoE StackedLM "
-            f"(ROADMAP item 10d, step 5c)")
-    m, j = _model_index(mesh)
+    coords = rank_axes(mesh).coords
     return _map_specs(lambda spec: init_one(
         spec, generator, api.device, api.dtype,
-        block=model_block(spec, m, j)), api.model.param_specs())
+        block=leaf_block(spec, mesh, coords, rules)),
+        api.model.param_specs())
 
 
 class ModelShards:
-    """The train step's view of its params on a model axis: which leaves
-    are split (``model_blocks``), and the two per-leaf reductions over
-    the model group that make a rank's numbers the whole model's. A whole
-    leaf holds the same bits on every rank (its gradient comes from whole
-    tensors only, ``sharding.tensor_parallel``), so it is counted once."""
+    """The train step's view of its params over a pod's (data, model)
+    ranks: which leaves are split over ``model`` (``split``) and over
+    ``data`` (``data``), and the two per-leaf reductions over the pod's
+    ``mesh.LOCAL`` group that make a rank's numbers the whole model's.
+    A leaf's block holds the same bits on every rank that holds that
+    block (a whole leaf's gradient comes from whole tensors only,
+    ``sharding.tensor_parallel``; a data block's from the reduce-scatter,
+    ``sharding.fsdp``), so each block is counted once."""
 
-    def __init__(self, api: ModelAPI, mesh):
-        self.ax = TP.axis_of(mesh)
-        self.split = [b is not None for b in model_blocks(api, mesh)]
+    def __init__(self, api: ModelAPI, mesh, staging=None, rules=None):
+        ax = rank_axes(mesh)
+        split = split_axes(api, mesh, rules)
+        self.split = [("model" in a) for a in split]
+        self.data = [("data" in a) for a in split]
+        self.index = (ax.index("data"), ax.index("model"))
+        self.group = ax.group(LOCAL)
+        self.staging = staging or RK.Staging()
 
     def leaf_totals(self, sums: torch.Tensor) -> torch.Tensor:
         """Each leaf's sum of squares over the whole leaf, from this
-        rank's [n] vector: a split leaf's shards summed over the group, a
-        whole leaf's taken from model index 0 (the others add zeros, so
-        the sum is exact)."""
-        keep = torch.tensor(self.split, device=sums.device) \
-            | (self.ax.index == 0)
+        rank's [n] vector: summed over the group, each leaf counted once
+        along every axis that does not split it (the ranks off index 0 of
+        such an axis add zeros, so the sum is exact)."""
+        d, j = self.index
+        keep = (torch.tensor(self.split, device=sums.device) | (j == 0)) \
+            & (torch.tensor(self.data, device=sums.device) | (d == 0))
         total = torch.where(keep, sums, torch.zeros_like(sums))
-        return RK.all_reduce(self.ax.staging, total, self.ax.group,
+        return RK.all_reduce(self.staging, total, self.group,
                              tag="grad_norm")
 
     def leaf_absmax(self, absmax: torch.Tensor) -> torch.Tensor:
         """Each leaf's largest |value| over the whole leaf: the max over
         the group of this rank's [n] vector."""
-        return RK.all_reduce(self.ax.staging, absmax.contiguous(),
-                             self.ax.group, tag="absmax", op="max")
+        return RK.all_reduce(self.staging, absmax.contiguous(), self.group,
+                             tag="absmax", op="max")
 
 
-def check_shards(api: ModelAPI, mesh, params, what: str) -> None:
-    """Refuse, by name, params that are not this rank's shards."""
-    blocks = iter(model_blocks(api, mesh))
+class DataLayout:
+    """A params-shaped tree's blocks over the data axis of a mesh of ranks
+    (params, or one of AdamW's states), and the whole leaves they come
+    from: what a checkpoint writes and restores (whole host arrays, the
+    reference's format)."""
+
+    def __init__(self, api: ModelAPI, mesh, rules=None):
+        self.api = api
+        dax, self.dims = _data_blocks(api, mesh, rules)
+        # a staging of its own: a checkpoint's gathers are not a step's
+        self.blocks = None if dax is None else FS.DataBlocks(
+            dataclasses.replace(dax, staging=RK.Staging()), self.dims)
+        self.cuts = param_blocks(api, mesh, rules=rules)
+
+    def whole(self, tree):
+        """Each leaf gathered whole over the data group onto the host, one
+        at a time (every rank of the group takes part)."""
+        if self.blocks is None:
+            return tree
+        with torch.no_grad():
+            return map_tree(lambda t, d: FS.gather_data(
+                t, d, self.blocks).cpu(), tree, self.dims)
+
+    def like(self, tree):
+        """``TensorSpec``s of the whole leaves of ``tree``'s blocks, on the
+        host in their dtypes (what ``CheckpointManager.restore`` reads)."""
+        from repro_torch.checkpoint.manager import TensorSpec
+        return map_tree(lambda t, sp: TensorSpec(tuple(sp.shape), t.dtype,
+                                                 "cpu"),
+                        tree, self.api.param_specs())
+
+    def cut(self, whole, like):
+        """This rank's blocks of the whole host tree ``whole``, each on
+        the device of ``like``'s leaf."""
+        cuts = iter(self.cuts)
+
+        def one(w, t):
+            b = next(cuts)
+            return (w if b is None else w[b]).to(t.device, copy=True)
+
+        return map_tree(one, whole, like)
+
+
+def check_shards(api: ModelAPI, mesh, params, what: str,
+                 rules=None) -> None:
+    """Refuse, by name, params that are not this rank's blocks."""
+    blocks = iter(param_blocks(api, mesh, rules=rules))
 
     def check(t, spec):
         blk = next(blocks)
@@ -330,8 +481,8 @@ def check_shards(api: ModelAPI, mesh, params, what: str) -> None:
         if tuple(t.shape) != want:
             raise ValueError(
                 f"{what}: a param of shape {tuple(t.shape)} where this "
-                f"rank's shard is {want} (axes {spec.axes}); on a model "
-                f"axis pass shard_params(api, mesh, params)")
+                f"rank's block is {want} (axes {spec.axes}); on a mesh of "
+                f"ranks pass shard_params(api, mesh, params)")
 
     map_tree(check, params, api.param_specs())
 
@@ -401,22 +552,24 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
     ``label_mask``), host arrays or tensors on the device. ``device``
     defaults to ``cuda`` and must be the model's. ``mesh`` (the
     reference's argument, here by keyword) is checked by ``check_mesh``
-    and the loss runs under its ``act_rules``; ``param_rules`` is the
-    reference's and places nothing on one device. On a mesh of ranks each
+    and the loss runs under its ``act_rules``; ``param_rules`` (default
+    ``PARAM_RULES``, checked by ``check_param_rules``) places the params
+    on a mesh of ranks and nothing on one device. On a mesh of ranks each
     rank runs this on its rows and the step reduces across ranks (see the
-    module's docstring); over a ``model`` axis ``params`` and
-    ``opt_state`` are this rank's shards (``shard_params`` or
-    ``draw_params``, then ``adamw.init``; whole ones raise by name) and so
-    are the returned ones. With ``compress_pod_grads`` on a mesh of ranks
-    with a ``pod`` axis the step is the compressed one:
-    ``train_step(params, opt_state, ef, batch, step) -> (loss, params,
-    opt_state, ef, gnorm)``, ``ef`` from
-    ``optim.compression.init_error_feedback`` (of the shards). The
-    step's ``staging`` attribute (a ``launch.ranks.Staging``) counts the
-    bytes its data reduce and pod exchange messaged, ``model_staging``
-    (None without a model axis) those of the model axis's collectives.
+    module's docstring); ``params`` and ``opt_state`` are this rank's
+    blocks (``shard_params`` or ``draw_params``, then ``adamw.init``;
+    whole ones raise by name where a leaf is split) and so are the
+    returned ones. With ``compress_pod_grads`` on a mesh of ranks with a
+    ``pod`` axis the step is the compressed one: ``train_step(params,
+    opt_state, ef, batch, step) -> (loss, params, opt_state, ef,
+    gnorm)``, ``ef`` from ``optim.compression.init_error_feedback`` (of
+    the blocks). The step's ``staging`` attribute (a
+    ``launch.ranks.Staging``) counts the bytes its data reduce of whole
+    leaves, pod sums and pod exchange messaged, ``model_staging`` (None
+    without a model axis) those of the model axis's collectives,
+    ``gather_staging`` and ``scatter_staging`` (None without a data axis)
+    those of the data axis's gathers and reduce-scatters.
     """
-    del param_rules
     dev = resolve_device(device)
     if dev != api.device:
         raise ValueError(f"make_train_step: device {dev} but the model is "
@@ -429,6 +582,7 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
             "ranks, one a pod; a logical mesh in a process of one rank has "
             "no pods to exchange with (ROADMAP queue 1, item 10)")
     check_mesh(api, mesh, "make_train_step", act_rules)
+    check_param_rules(api, mesh, param_rules, "make_train_step")
     act_rules = act_rules or R.ACT_RULES
     on_card = dev.type == "cuda"
     if on_card:
@@ -437,7 +591,12 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
     ranked = R.is_device_mesh(mesh)
     compressed = compress_pod_grads and pods and ranked
     tp = TP.axis_of(mesh)
-    shards = ModelShards(api, mesh) if tp is not None else None
+    staging = RK.Staging()      # host buffers of this step's messages
+    dax, dims = _data_blocks(api, mesh, param_rules)
+    shards = ModelShards(api, mesh, staging, param_rules) \
+        if tp is not None or dax is not None else None
+    # the leaves whole over data: their gradient joins the weighted sum
+    whole = None if dims is None else [d is None for d in leaves(dims)]
     if ranked:
         ax = rank_axes(mesh)
         # plain: every (pod, data) position one share; compressed: shares
@@ -447,7 +606,14 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
         share, shares = _rank_rows(mesh, share_axes, shape.global_batch)
         share_group = ax.group("data") if compressed else \
             ax.group(ROWS) if tp is not None else None
-    staging = RK.Staging()      # host buffers of this step's messages
+        # a data block's gradient: the data group's reduce-scatter, then
+        # (plain) the pods' sum
+        pod_sum = (ax.group("pod"), staging) if dax is not None \
+            and not compressed and ax.size("pod") > 1 else None
+        # the rows an MoE layer routes over: the shares' (the whole batch,
+        # or the pod's in the compressed step, as its shard_map over pod)
+        row_blocks = FS.RowBlocks(share, shares, share_group, staging) \
+            if shares > 1 else None
 
     def loss_and_grad(params, batch):
         if tuple(np.shape(batch["tokens"])) != want:
@@ -467,16 +633,23 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
             batch = {k: v[rows] for k, v in batch.items()}
         b = batch_to_device(batch, dev)
         tracked = map_tree(lambda p: p.detach().requires_grad_(), params)
-        with torch.enable_grad(), R.axis_rules(mesh, act_rules):
-            loss = api.loss_fn(tracked, b)
-            flat = torch.autograd.grad(loss, leaves(tracked))
-        it = iter(flat)
-        grads = map_tree(lambda _: next(it), tracked)
+        data = None if dax is None else FS.DataBlocks(dax, dims, weight,
+                                                      pod_sum)
+        with torch.enable_grad(), R.axis_rules(
+                mesh, act_rules, data, row_blocks if ranked else None):
+            loss = api.loss_fn(_gathered(api, tracked, dims), b)
+            flat = list(torch.autograd.grad(loss, leaves(tracked)))
         loss = loss.detach()
         if weight is not None:
-            loss, grads = _weighted_sum(staging, [loss, grads], weight,
-                                        share_group)
-        return loss, grads
+            keep = [g for k, g in enumerate(flat) if whole is None
+                    or whole[k]]
+            loss, keep = _weighted_sum(staging, [loss, keep], weight,
+                                       share_group)
+            it = iter(keep)
+            flat = [next(it) if whole is None or whole[k] else g
+                    for k, g in enumerate(flat)]
+        it = iter(flat)
+        return loss, map_tree(lambda _: next(it), tracked)
 
     def step_tensor(step):
         return step.to(dev, torch.float32).reshape(()) \
@@ -484,9 +657,10 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
                 np.asarray(step, np.float32), dev, np.float32).reshape(())
 
     def check(params, opt_state):
-        if tp is not None:
-            check_shards(api, mesh, params, "train_step")
-            check_shards(api, mesh, opt_state.master, "train_step")
+        if ranked:
+            check_shards(api, mesh, params, "train_step", param_rules)
+            check_shards(api, mesh, opt_state.master, "train_step",
+                         param_rules)
 
     def train_step(params, opt_state, batch, step):
         check(params, opt_state)
@@ -498,8 +672,7 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
                 leaf_totals=shards and shards.leaf_totals)
         return loss, params, opt_state, gnorm
 
-    train_step.staging = staging
-    train_step.model_staging = tp.staging if tp is not None else None
+    _train_stagings(train_step, staging, tp, dax)
     if not compressed:
         return train_step
     num_pods = ax.size("pod")
@@ -526,9 +699,37 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
                 leaf_totals=shards and shards.leaf_totals)
         return loss, params, opt_state, ef, gnorm
 
-    train_step_compressed.staging = staging
-    train_step_compressed.model_staging = train_step.model_staging
+    _train_stagings(train_step_compressed, staging, tp, dax)
     return train_step_compressed
+
+
+def _data_blocks(api: ModelAPI, mesh, rules):
+    """(this rank's ``DataAxis``, ``data_dims``) where some leaf is split
+    over the data axis of a mesh of ranks, else (None, None)."""
+    dax = FS.axis_of(mesh)
+    if dax is None:
+        return None, None
+    dims = data_dims(api, mesh, rules)
+    if all(d is None for d in leaves(dims)):
+        return None, None
+    return dax, dims
+
+
+def _gathered(api: ModelAPI, params, dims):
+    """What a step hands the model: its params as they are for a
+    ``StackedLM``, which gathers each leaf where it is used
+    (``sharding.fsdp``), else (Whisper) every leaf gathered whole now."""
+    if dims is None or isinstance(api.model, StackedLM):
+        return params
+    return FS.gather_leaves(params, dims)
+
+
+def _train_stagings(step, staging, tp, dax) -> None:
+    """A train step's ``Staging`` attributes (see ``make_train_step``)."""
+    step.staging = staging
+    step.model_staging = tp.staging if tp is not None else None
+    step.gather_staging = dax.staging if dax is not None else None
+    step.scatter_staging = dax.scatter if dax is not None else None
 
 
 # ---------------------------------------------------------------------------
@@ -546,14 +747,21 @@ class _RankRows:
     """A serve step's rows on a mesh of ranks: rank (p, d) takes the
     ``(p * data + d)``-th block of ``B / (pod * data)`` rows of the global
     batch (``act_batch`` over ``("pod", "data")``, the block order of the
-    train step's ``_rank_rows``) and the whole [B, V] logits come back on
-    every rank (the reference's replicated logits), gathered over its
-    ``data`` group and then its ``pod`` group, so in block order. The
-    ranks of a ``model`` group hold the same rows and the same logits, so
-    nothing crosses that axis. Nothing on one device or a logical mesh."""
+    train step's ``_rank_rows``). By default the whole [B, V] logits come
+    back on every rank (the reference's replicated logits), gathered over
+    its ``data`` group and then its ``pod`` group, so in block order; the
+    ranks of a ``model`` group hold the same rows and the same logits.
+    With ``sharded`` each rank returns its block of ``("act_batch",
+    "act_vocab")`` resolved under ``act_rules`` (the reference's
+    ``_logits_sharding``): its own rows, and its vocab block where the
+    vocab splits over ``model`` (``keep()``: the head's columns are not
+    gathered), so nothing crosses a rank for the logits. Nothing on one
+    device or a logical mesh."""
 
-    def __init__(self, mesh, B: int, what: str):
-        self.on = R.is_device_mesh(mesh) and R.mesh_size(mesh) > 1
+    def __init__(self, api: ModelAPI, mesh, B: int, what: str, act_rules,
+                 sharded: bool):
+        self.on = _on_ranks(mesh)
+        self.keep_rows = self.keep_vocab = False
         if not self.on:
             return
         idx, count = _rank_rows(mesh, ("pod", "data"), B, what)
@@ -563,19 +771,59 @@ class _RankRows:
         self.groups = [ax.group(a) for a in ("data", "pod")
                        if ax.size(a) > 1]
         self.staging = RK.Staging()
+        if not sharded:
+            return
+        V = api.cfg.vocab_size
+        sh = R.logical_sharding((B, V), ("act_batch", "act_vocab"), mesh,
+                                act_rules)
+        rows, cols = sh.block((B, V), ax.coords)
+        vocab = _split_dims((B, V), ("act_batch", "act_vocab"), mesh,
+                            act_rules).get("model")
+        if rows not in (self.rows, slice(None)) or (
+                cols != slice(None) and vocab != 1):
+            raise NotImplementedError(
+                f"{what}: sharded_logits resolve to {sh.spec} under "
+                f"act_rules; the ranks hold rows over (pod, data) and the "
+                f"vocab over model (ROADMAP item 10d, step 5c)")
+        self.keep_rows = rows == self.rows
+        self.keep_vocab = vocab == 1
 
     def take(self, batch):
         if not self.on:
             return batch
         return {k: v[self.rows] for k, v in batch.items()}
 
+    def keep(self):
+        """The context a step's forward runs in: a vocab-split head keeps
+        its block of columns where the logits are sharded over model."""
+        return TP.keep_vocab_split(self.keep_vocab)
+
     def logits(self, logits: torch.Tensor) -> torch.Tensor:
-        if not self.on:
+        if not self.on or self.keep_rows:
             return logits
         for g in self.groups:
             logits = RK.all_gather(self.staging, logits.contiguous(), g,
                                    tag="logits").reshape(-1, logits.shape[-1])
         return logits
+
+
+def _serve_step(api: ModelAPI, mesh, shape: ShapeConfig, what: str,
+                act_rules, param_rules, sharded_logits: bool):
+    """What a serve step needs: (act_rules, ``_RankRows``, the step's rule
+    context's ``data``, ``data_dims``, its stagings), after refusing by
+    name what it does not run."""
+    check_mesh(api, mesh, f"make_{what}", act_rules)
+    check_param_rules(api, mesh, param_rules, f"make_{what}")
+    act_rules = act_rules or R.ACT_RULES
+    ranks = _RankRows(api, mesh, shape.global_batch, what, act_rules,
+                      sharded_logits)
+    tp = TP.axis_of(mesh)
+    dax, dims = _data_blocks(api, mesh, param_rules)
+    data = None if dax is None else FS.DataBlocks(dax, dims)
+    stagings = ([ranks.staging] if ranks.on else []) + \
+        ([tp.staging] if tp is not None else []) + \
+        ([dax.staging] if dax is not None else [])
+    return act_rules, ranks, data, dims, stagings
 
 
 def make_prefill_step(api: ModelAPI, mesh, shape: ShapeConfig, *,
@@ -587,28 +835,32 @@ def make_prefill_step(api: ModelAPI, mesh, shape: ShapeConfig, *,
     model's device with ``input_specs(shape)``'s shapes. On a mesh of
     ranks each rank runs its block of the batch's rows (``_RankRows``; a
     batch that does not split over the ranks raises by name) and returns
-    the whole [B, V] logits and the cache of its rows only, as
-    ``act_kv_batch`` shards it; over a ``model`` axis ``params`` are the
-    rank's shards (``shard_params``; others raise by name) and the cache
-    holds the rank's KV heads where they divide over ``model``, else all
-    of them, and every position.
-    ``param_rules`` and ``sharded_logits`` choose the reference's output
-    shardings, which place nothing on one device."""
-    del param_rules, sharded_logits
-    check_mesh(api, mesh, "make_prefill_step", act_rules)
-    act_rules = act_rules or R.ACT_RULES
-    ranks = _RankRows(mesh, shape.global_batch, "prefill_step")
-    tp = TP.axis_of(mesh)
+    the whole [B, V] logits (with ``sharded_logits``, its block of them)
+    and the cache of its rows only, as ``act_kv_batch`` shards it;
+    ``params`` are the rank's blocks under ``param_rules`` (default
+    ``PARAM_RULES``, checked by ``check_param_rules``; ``shard_params``,
+    others raise by name where a leaf is split), gathered over data where
+    they are used (``sharding.fsdp``), and over a ``model`` axis the
+    cache holds the rank's KV heads where they divide over ``model``,
+    else all of them, and every position. On one device ``param_rules``
+    and ``sharded_logits`` place nothing. ``prefill_step.stagings`` are
+    the step's ``Staging`` buffers; ``gather_staging`` (None without a
+    data axis) the data axis's gathers'."""
+    act_rules, ranks, data, dims, stagings = _serve_step(
+        api, mesh, shape, "prefill_step", act_rules, param_rules,
+        sharded_logits)
 
     def prefill_step(params, batch):
         _check_inputs(api, shape, batch, "prefill_step")
-        if tp is not None:
-            check_shards(api, mesh, params, "prefill_step")
-        with R.axis_rules(mesh, act_rules):
-            logits, cache = api.prefill_fn(params, ranks.take(batch))
+        if ranks.on:
+            check_shards(api, mesh, params, "prefill_step", param_rules)
+        with R.axis_rules(mesh, act_rules, data), ranks.keep():
+            logits, cache = api.prefill_fn(_gathered(api, params, dims),
+                                           ranks.take(batch))
             return ranks.logits(logits), cache
 
-    prefill_step.stagings = _stagings(ranks, tp)
+    prefill_step.stagings = stagings
+    prefill_step.gather_staging = data and data.axis.staging
     return prefill_step
 
 
@@ -620,40 +872,47 @@ def make_decode_step(api: ModelAPI, mesh, shape: ShapeConfig, *,
     timeline cache of ``shape.seq_len`` positions) is updated in place and
     returned, as the reference donates it. On a mesh of ranks ``batch``
     is the global batch and ``cache`` this rank's rows (the prefill
-    step's), as ``make_prefill_step``, and over a ``model`` axis its
-    KV heads; the logits are the whole [B, V]."""
-    del param_rules, sharded_logits
-    check_mesh(api, mesh, "make_decode_step", act_rules)
-    act_rules = act_rules or R.ACT_RULES
-    ranks = _RankRows(mesh, shape.global_batch, "decode_step")
-    tp = TP.axis_of(mesh)
+    step's), ``params`` its blocks, as ``make_prefill_step``, and over a
+    ``model`` axis its KV heads; the logits are the whole [B, V] (with
+    ``sharded_logits``, the rank's block)."""
+    act_rules, ranks, data, dims, stagings = _serve_step(
+        api, mesh, shape, "decode_step", act_rules, param_rules,
+        sharded_logits)
 
     def decode_step(params, cache, batch):
         _check_inputs(api, shape, batch, "decode_step")
-        if tp is not None:
-            check_shards(api, mesh, params, "decode_step")
-        with R.axis_rules(mesh, act_rules):
-            logits, cache = api.decode_fn(params, cache, ranks.take(batch))
+        if ranks.on:
+            check_shards(api, mesh, params, "decode_step", param_rules)
+        with R.axis_rules(mesh, act_rules, data), ranks.keep():
+            logits, cache = api.decode_fn(_gathered(api, params, dims),
+                                          cache, ranks.take(batch))
             return ranks.logits(logits), cache
 
-    decode_step.stagings = _stagings(ranks, tp)
+    decode_step.stagings = stagings
+    decode_step.gather_staging = data and data.axis.staging
     return decode_step
 
 
-def _stagings(ranks: _RankRows, tp: Optional[TP.ModelAxis]) -> list:
-    """The ``Staging`` buffers a serve step messages through: the logits
-    gather's and the model axis's (shared by every step on the mesh)."""
-    return ([ranks.staging] if ranks.on else []) + \
-        ([tp.staging] if tp is not None else [])
-
-
-def abstract_inputs(api: ModelAPI, shape: ShapeConfig) -> Dict[str, Any]:
+def abstract_inputs(api: ModelAPI, shape: ShapeConfig, mesh=None,
+                    param_rules=None,
+                    coords: Optional[Dict[str, int]] = None
+                    ) -> Dict[str, Any]:
     """Meta tensors for (params, [opt], batch, [cache]), the dry-run's
     stand-ins: the params in the model's dtype, the AdamW state in f32 for
     ``train``, a timeline cache of ``shape.seq_len`` positions for
-    ``decode``. They hold no memory."""
+    ``decode``. With ``mesh`` (of ranks, or any mesh with ``coords``) the
+    params and the AdamW state are the blocks that rank holds
+    (``param_blocks`` under ``param_rules``). They hold no memory."""
     meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")
     params = api.abstract_params()
+    if mesh is not None:
+        blocks = iter(param_blocks(api, mesh, coords, param_rules))
+
+        def cut(t):
+            b = next(blocks)
+            return t if b is None else meta(t[b].shape, t.dtype)
+
+        params = map_tree(cut, params)
     batch = {k: meta(shp, dt) for k, (shp, dt) in
              api.input_specs(shape).items()}
     out = {"params": params, "batch": batch}

@@ -12,7 +12,12 @@ The loop reads the loss back each step (``float(loss)``), the one host
 sync of a step; the step's time therefore covers its device work.
 
 Over ranks (``launch.ranks``) every rank runs the loop on its own state;
-rank 0 alone writes checkpoints, and every rank restores from them. The
+rank 0 alone writes checkpoints, and every rank restores from them. Where
+the ranks hold blocks over the data axis (``layout``, a
+``runtime.steps.DataLayout``), a save gathers each leaf of params and
+AdamW state whole over the data group, every rank taking part, so the
+files hold whole arrays as one card's do; a restore reads the whole
+leaves on every rank and keeps each rank's blocks. The
 compressed step's error-feedback buffer rides in ``extra_step_args``
 (passed ahead of the batch, replaced by what the step returns) and, as in
 the reference, is not checkpointed: a resumed compressed run restarts it
@@ -46,7 +51,8 @@ class TrainLoop:
                  cfg: TrainLoopConfig = TrainLoopConfig(),
                  on_straggler: Optional[Callable[[int, float, float],
                                                  None]] = None,
-                 extra_step_args: tuple = ()):
+                 extra_step_args: tuple = (),
+                 layout=None):
         self.train_step = train_step
         self.params = params
         self.opt_state = opt_state
@@ -55,6 +61,7 @@ class TrainLoop:
         self.cfg = cfg
         self.on_straggler = on_straggler
         self.extra_step_args = extra_step_args
+        self.layout = layout
         self.step = 0
         self.losses: list = []
         self.gnorms: list = []
@@ -77,18 +84,22 @@ class TrainLoop:
         self._preempted = True
 
     # -- checkpoint -----------------------------------------------------
-    def _state_tree(self):
-        return {"params": self.params, "opt": self.opt_state}
+    def _state_tree(self, fn=lambda t: t):
+        """{"params", "opt"}, each params-shaped tree through ``fn``."""
+        return {"params": fn(self.params),
+                "opt": type(self.opt_state)(*map(fn, self.opt_state))}
 
     def save(self, block: bool = False):
-        if self.ckpt is None or (dist.is_initialized()
-                                 and dist.get_rank() != 0):
+        if self.ckpt is None:
+            return
+        tree = self._state_tree(self.layout.whole if self.layout
+                                else (lambda t: t))
+        if dist.is_initialized() and dist.get_rank() != 0:
             return
         extra = {"data": self.data.state_dict()
                  if hasattr(self.data, "state_dict") else {},
                  "step": self.step}
-        self.ckpt.save(self.step, self._state_tree(), extra=extra,
-                       block=block)
+        self.ckpt.save(self.step, tree, extra=extra, block=block)
 
     def try_restore(self) -> bool:
         if self.ckpt is None:
@@ -96,7 +107,17 @@ class TrainLoop:
         latest = self.ckpt.latest_step()
         if latest is None:
             return False
-        restored = self.ckpt.restore(latest, self._state_tree())
+        mine = self._state_tree()
+        if self.layout is None:
+            restored = self.ckpt.restore(latest, mine)
+        else:
+            restored = self.ckpt.restore(
+                latest, self._state_tree(self.layout.like))
+            restored = {k: self.layout.cut(restored[k], mine[k])
+                        if k == "params" else type(mine[k])(*(
+                            self.layout.cut(w, t)
+                            for w, t in zip(restored[k], mine[k])))
+                        for k in mine}
         self.params = restored["params"]
         self.opt_state = restored["opt"]
         extra = self.ckpt.manifest(latest)["extra"]

@@ -240,30 +240,50 @@ def logical_sharding(shape: Sequence[int], axes: Sequence[Optional[str]],
 class _Ctx(threading.local):
     mesh: Any = None
     rules: Optional[Rules] = None
+    data: Any = None
+    rows: Any = None
 
 
 _CTX = _Ctx()
 
 
 class axis_rules:
-    """Context manager enabling ``constrain`` inside model code."""
+    """Context manager enabling ``constrain`` inside model code. ``data``
+    is the step's view of its params over the data axis
+    (``sharding.fsdp.DataBlocks``), or None where they are whole; ``rows``
+    the train step's rows of the batch over ranks
+    (``sharding.fsdp.RowBlocks``), or None where a rank holds them all."""
 
-    def __init__(self, mesh, rules: Optional[Rules] = None):
+    def __init__(self, mesh, rules: Optional[Rules] = None, data=None,
+                 rows=None):
         self.mesh = mesh
         self.rules = rules if rules is not None else ACT_RULES
+        self.data = data
+        self.rows = rows
 
     def __enter__(self):
-        self._prev = (_CTX.mesh, _CTX.rules)
-        _CTX.mesh, _CTX.rules = self.mesh, self.rules
+        self._prev = (_CTX.mesh, _CTX.rules, _CTX.data, _CTX.rows)
+        _CTX.mesh, _CTX.rules, _CTX.data, _CTX.rows = \
+            self.mesh, self.rules, self.data, self.rows
         return self
 
     def __exit__(self, *exc):
-        _CTX.mesh, _CTX.rules = self._prev
+        _CTX.mesh, _CTX.rules, _CTX.data, _CTX.rows = self._prev
         return False
 
 
 def current_mesh():
     return _CTX.mesh
+
+
+def current_data():
+    """The active context's ``data`` (``sharding.fsdp.current``)."""
+    return _CTX.data
+
+
+def current_rows():
+    """The active context's ``rows`` (``sharding.fsdp.current_rows``)."""
+    return _CTX.rows
 
 
 def recompute_context():
@@ -272,8 +292,9 @@ def recompute_context():
     forward: the recompute runs in the backward, which may run on another
     thread (on a card, autograd's device thread), where this thread's
     context is not set."""
-    mesh, rules = _CTX.mesh, _CTX.rules
-    return lambda: (contextlib.nullcontext(), axis_rules(mesh, rules))
+    mesh, rules, data, rows = _CTX.mesh, _CTX.rules, _CTX.data, _CTX.rows
+    return lambda: (contextlib.nullcontext(),
+                    axis_rules(mesh, rules, data, rows))
 
 
 def constrain(x, axes: Sequence[Optional[str]]):

@@ -26,6 +26,9 @@ identity. No model function takes a mesh argument.
                                 masked local lookup, then a reduce
     max_model(x)                the elementwise max over the group (no
                                 gradient: a softmax's shift)
+    keep_vocab_split()          a context in which a vocab-split head's
+                                logits stay this rank's block of columns
+                                (a serve step's ``sharded_logits``)
 
 Every model-axis message goes through these, so each has its backward
 (a ``torch.autograd.Function``) in one place and a count on meta tensors
@@ -47,7 +50,9 @@ again, at the same point of that order on every rank.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -97,6 +102,29 @@ def axis_of(mesh) -> Optional[ModelAxis]:
 def current() -> Optional[ModelAxis]:
     """``axis_of`` the mesh of the active rule context."""
     return axis_of(R.current_mesh())
+
+
+class _Logits(threading.local):
+    keep: bool = False
+
+
+_LOGITS = _Logits()
+
+
+@contextlib.contextmanager
+def keep_vocab_split(on: bool = True):
+    """Inside (with ``on``), a vocab-split head's logits are this rank's
+    block of columns, not gathered over the model group."""
+    prev, _LOGITS.keep = _LOGITS.keep, on
+    try:
+        yield
+    finally:
+        _LOGITS.keep = prev
+
+
+def vocab_kept() -> bool:
+    """Whether ``keep_vocab_split`` is on."""
+    return _LOGITS.keep
 
 
 def split(local: int, whole: int) -> bool:

@@ -33,8 +33,10 @@ CPU.
     params: the schedule's lr is 0 at step 0) within 2.5e-2 of its largest
     |value| at all but 0.1% of the elements (a tie moves one by a scale,
     twice that largest value; measured: at most 2% of a 256-element norm
-    past 1e-2, 0.03% past 0.25); every rank ends with the same params,
-    and a pod's data ranks with the same error feedback.
+    past 1e-2, 0.03% past 0.25). Each rank holds its blocks of params and
+    error feedback (the reference's FSDP layout over data), put side by
+    side to compare; both pods end with the same bits of each params
+    block, and each pod keeps its own error feedback.
 
 The reference runs once, in a subprocess with 4 fake XLA devices, and
 hands its results over in a pickle.
@@ -50,8 +52,11 @@ from conftest import run_subprocess
 from repro_torch.configs import get_arch, reduced
 from repro_torch.launch import rank_jobs
 from repro_torch.launch import ranks as RK
+from repro_torch.launch.mesh import LogicalMesh
+from repro_torch.models.api import build_model
 from repro_torch.optim import compression as C
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.runtime import steps as S
 from repro_torch.tree import leaves, named_leaves
 from repro_torch.weights import params_from_jax
 
@@ -284,11 +289,15 @@ def test_compressed_steps_on_ranks_match_the_reference(reference):
     outs = RK.spawn(rank_jobs.train, 4, backend="gloo", device="cpu",
                     args=(job,))
     np.testing.assert_allclose(outs[0]["losses"], losses, rtol=1e-4)
-    for o in outs[1:]:
+    for r, o in enumerate(outs):
         assert o["losses"] == outs[0]["losses"]
-        assert o["digests"] == outs[0]["digests"]
+        # pod 1's data rank d holds pod 0's data rank d's blocks
+        assert o["digests"] == outs[r % 2]["digests"]
+    api = build_model(cfg, device="meta", dtype=torch.float32)
+    mesh = LogicalMesh(*job.mesh)
     p0 = named_leaves(params_from_jax(ref["params0"], "cpu"))
-    got_p = named_leaves(outs[0]["params"])
+    got_p = named_leaves(S.join_blocks(api, mesh,
+                                       [o["params"] for o in outs]))
     want_p = named_leaves(params_from_jax(want_params, "cpu"))
     assert sorted(got_p) == sorted(want_p)
     for name, w in want_p.items():
@@ -300,12 +309,14 @@ def test_compressed_steps_on_ranks_match_the_reference(reference):
         assert float((g - w).abs().max()) <= 2 * moved, name
     # step 1 runs on equal params (lr is 0 at step 0): the ef differs by
     # the gradients' rounding, and by a scale at tie elements
-    got_e = named_leaves(outs[0]["ef_steps"][0])
+    # pod 0's blocks (ranks 0 and 1) side by side; ranks 2 and 3 stand in
+    # for the layout's other pod
+    got_e = named_leaves(S.join_blocks(
+        api, mesh, [o["ef_steps"][0] for o in outs[:2] * 2]))
     want_e = named_leaves(params_from_jax(want_efs[0], "cpu"))
     for name, w in want_e.items():
         _held(got_e[name].numpy(), w.numpy(), EF_TOL, TIE_SHARE, name)
-    # the pods keep their own error feedback; a pod's data ranks share it
-    for a, b in ((1, 0), (3, 2)):
-        for x, y in zip(leaves(outs[a]["ef_steps"][-1]),
-                        leaves(outs[b]["ef_steps"][-1])):
-            assert torch.equal(x, y)
+    # the pods keep their own error feedback, each data rank its blocks
+    for a, b in ((0, 2), (1, 3)):
+        assert not all(torch.equal(x, y) for x, y in zip(
+            leaves(outs[a]["ef_steps"][-1]), leaves(outs[b]["ef_steps"][-1])))

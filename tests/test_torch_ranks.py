@@ -12,7 +12,9 @@
     starts: ``nccl`` refuses more ranks than visible cards.
 (d) A rank that raises before its send fails the run with its traceback,
     and its waiting peer fails too instead of hanging; a rank that stays
-    silent fails its peer at the group's timeout.
+    silent fails its peer at the group's timeout; a rank that fails later
+    than its peer, inside the grace ``spawn`` gives the others after a
+    first failure, still reports its own traceback.
 """
 import time
 
@@ -133,3 +135,19 @@ def test_a_peer_waiting_on_a_failed_or_silent_rank_fails():
         RK.spawn(stays_silent, 2, backend="gloo", device="cpu", timeout_s=2)
     assert "--- rank 1 ---" in str(e.value)
     assert time.perf_counter() - t0 < 60
+
+
+def fails_late(ctx):
+    """A rank body: rank 0 raises at once, rank 1 a while later."""
+    if ctx.rank == 1:
+        time.sleep(RK.GRACE_S / 2)
+    raise ValueError(f"rank {ctx.rank} fails on its own")
+
+
+def test_a_rank_that_fails_later_still_reports_its_traceback():
+    with pytest.raises(RuntimeError) as e:
+        RK.spawn(fails_late, 2, backend="gloo", device="cpu")
+    for r in (0, 1):
+        assert f"--- rank {r} ---" in str(e.value)
+        assert f"rank {r} fails on its own" in str(e.value)
+    assert "stopped" not in str(e.value)

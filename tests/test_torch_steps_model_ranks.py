@@ -25,8 +25,9 @@ rank:
     the model group's shards side by side.
 (c) The whole logits are the same bits on every rank.
 (d) Each rank's param shapes are the shard shapes of ``param_shardings``
-    on the model axis alone; the sharded draw equals ``shard_params`` of
-    the whole draw bit for bit.
+    on the whole mesh (the reference's: every ``embed`` dim over data too,
+    on glm4-9b's (2, 4)); the sharded draw equals ``shard_params`` of the
+    whole draw bit for bit.
 (e) What the model axis does not run yet is refused by name with its
     roadmap step; the train step builds (step 5b).
 
@@ -327,9 +328,8 @@ def test_each_rank_holds_the_reference_cache_shard(steps, arch):
 @pytest.mark.parametrize("arch", sorted(CASES))
 def test_each_rank_holds_its_param_shards(steps, arch):
     _, api, params, ranks = steps[0][arch]
-    m = R.mesh_axis_sizes(LogicalMesh(*CASES[arch]))["model"]
     want = [sh.shard_shape(sp.shape) for sh, sp in zip(
-        leaves(S.param_shardings(api, LogicalMesh((m,), ("model",)))),
+        leaves(S.param_shardings(api, LogicalMesh(*CASES[arch]))),
         leaves(api.param_specs()))]
     whole = sum(t.numel() * t.element_size() for t in leaves(params))
     for r in ranks:

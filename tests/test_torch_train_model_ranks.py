@@ -78,7 +78,7 @@ import torch
 from repro_torch.configs import ShapeConfig, get_arch, reduced
 from repro_torch.data.tokens import SyntheticTokenStream
 from repro_torch.launch import rank_jobs
-from repro_torch.launch.mesh import make_mesh, rank_axes
+from repro_torch.launch.mesh import LogicalMesh, make_mesh, rank_axes
 from repro_torch.launch.ranks import spawn
 from repro_torch.models import layers as L
 from repro_torch.models.api import build_model
@@ -216,7 +216,7 @@ def from_state(ctx, job: FromState) -> dict:
     def cut(tree):
         return map_tree(lambda t: t.clone(), S.shard_params(api, mesh, tree))
 
-    out = {"steps": [], "split": S.ModelShards(api, mesh).split}
+    out = {"steps": [], "split": S.split_axes(api, mesh)}
     for i, (p, o, b) in enumerate(zip(job.params, job.opt, job.batches)):
         loss, p, o, gnorm = step(cut(p), AdamWState(*map(cut, o)), b,
                                  np.int32(i))
@@ -435,11 +435,28 @@ def runs():
             "compressed": (list(compressed), [r[3] for r in two])}
 
 
+def _coords(rank, shape, axes):
+    return {a: int(c) for a, c in zip(axes, np.unravel_index(rank, shape))}
+
+
+def _blocks(api, mesh, rank):
+    """The reference's blocks (``resolve_spec`` with ``PARAM_RULES`` on the
+    whole mesh) that ``rank`` of ``mesh`` (sizes, names) holds."""
+    return S.param_blocks(api, LogicalMesh(*mesh), _coords(rank, *mesh))
+
+
+def _holder(rank, mesh, axes):
+    """The lowest rank of ``mesh`` holding ``rank``'s block of a leaf
+    split over ``axes``: its coordinates on those, 0 on the rest."""
+    shape, names = mesh
+    c = _coords(rank, shape, names)
+    return int(np.ravel_multi_index(
+        [c[a] if a in axes else 0 for a in names], shape))
+
+
 @pytest.mark.parametrize("arch", sorted(CASES))
 def test_steps_hold_the_reference(runs, arch):
     ref, ranks = runs["ref"][arch], runs["ranks"][arch]
-    shape, axes = CASES[arch]
-    m = shape[axes.index("model")]
     api = build_model(reduced(get_arch(arch)), device="meta",
                       dtype=torch.float32)
     names = list(named_leaves(api.param_specs()))
@@ -458,8 +475,7 @@ def test_steps_hold_the_reference(runs, arch):
             assert torch.equal(got["gnorm"], ranks[0]["steps"][i]["gnorm"])
         before, after = leaves(ref["params"][i]), leaves(ref["new"][i])
         for rank, r in enumerate(ranks):
-            j = int(np.unravel_index(rank, shape)[axes.index("model")])
-            blocks = S.model_blocks(api, m, j)
+            blocks = _blocks(api, CASES[arch], rank)
             for name, blk, w0, w, g in zip(names, blocks, before, after,
                                            leaves(r["steps"][i]["params"])):
                 if blk is not None:
@@ -477,26 +493,28 @@ def test_steps_hold_the_reference(runs, arch):
 @pytest.mark.parametrize("arch", sorted(CASES))
 def test_ranks_agree_on_whole_leaves_and_model_shards(runs, arch):
     ranks = runs["ranks"][arch]
-    shape, axes = CASES[arch]
-    mi = axes.index("model")
+    mesh = CASES[arch]
     split = ranks[0]["split"]
-    assert any(split) and not all(split)
+    # the reference's layout: every leaf with an embed dim over data, the
+    # head, heads and mlp dims over model
+    assert any("model" in a for a in split)
+    data = dict(zip(mesh[1], mesh[0]))["data"] > 1
+    assert any("data" in a for a in split) == data
     for i in range(STEPS):
         for rank, r in enumerate(ranks):
-            j = int(np.unravel_index(rank, shape)[mi])
-            peer = ranks[j]          # rank j: model index j, row block 0
-            for k, (a, b, c) in enumerate(zip(
-                    r["steps"][i]["digest"], ranks[0]["steps"][i]["digest"],
-                    peer["steps"][i]["digest"])):
-                # whole leaves: every rank; shards: every rank of index j
-                assert a == (c if split[k] else b), (arch, i, rank, k)
+            for k, axes in enumerate(split):
+                # a block: the same bits on every rank that holds it
+                peer = ranks[_holder(rank, mesh, axes)]
+                assert r["steps"][i]["digest"][k] == \
+                    peer["steps"][i]["digest"][k], (arch, i, rank, k)
         assert all(r["model_bytes"] > 0 for r in ranks)
     if arch == "glm4-9b":
-        # the KV heads stayed whole: wk and wv are not split
+        # the KV heads stayed whole over model: wk and wv are not split
+        # there, only over data
         names = list(named_leaves(build_model(
             reduced(get_arch(arch)), device="meta").param_specs()))
-        assert not split[names.index("blocks/attn/wk")]
-        assert split[names.index("blocks/attn/wq")]
+        assert split[names.index("blocks/attn/wk")] == ("data",)
+        assert split[names.index("blocks/attn/wq")] == ("data", "model")
 
 
 def test_compressed_payload_is_the_whole_leaf_cut_to_the_shard(runs):
@@ -518,7 +536,7 @@ def test_compressed_payload_is_the_whole_leaf_cut_to_the_shard(runs):
         gf, q_want, s_want = want[pod]
         _, q_peer, s_peer = want[1 - pod]
         cuts = [(lambda a: a) if b is None else (lambda a, b=b: a[b])
-                for b in S.model_blocks(api, 2, int(j))]
+                for b in _blocks(api, COMPRESSED, rank)]
         parts = out["q"].split([cut(q).size for q, cut in zip(q_want, cuts)])
         assert out["scales"].numpy().tobytes() == \
             np.asarray(s_want, np.float32).tobytes()
@@ -550,6 +568,7 @@ def test_compressed_step_on_a_model_axis_holds_the_pods_alone(runs):
     first = leaves(api.init(torch.Generator().manual_seed(3)))
     split = ranks[0]["split"]
     assert any(split) and not all(split) and not any(alone[0]["split"])
+    assert all(a in ((), ("model",)) for a in split)
     for rank, r in enumerate(ranks):
         pod, _, j = np.unravel_index(rank, COMPRESSED[0])
         mine = alone[pod]
@@ -560,12 +579,10 @@ def test_compressed_step_on_a_model_axis_holds_the_pods_alone(runs):
         assert r["losses"] == ranks[0]["losses"]
         assert r["gnorms"] == ranks[0]["gnorms"]
         # whole leaves: the same bits everywhere; shards: on both pods
-        peer = ranks[int(j)]
-        for k, (a, b, c) in enumerate(zip(r["digests"][-1],
-                                          ranks[0]["digests"][-1],
-                                          peer["digests"][-1])):
-            assert a == (c if split[k] else b), (rank, k)
-        blocks = S.model_blocks(api, 2, int(j))
+        for k, axes in enumerate(split):
+            peer = ranks[_holder(rank, COMPRESSED, axes)]
+            assert r["digests"][-1][k] == peer["digests"][-1][k], (rank, k)
+        blocks = _blocks(api, COMPRESSED, rank)
         for name, blk, p0, w, g, e_w, e_g in zip(
                 names, blocks, first, leaves(mine["params"]),
                 leaves(r["params"]), leaves(mine["ef_steps"][0]),

@@ -10,7 +10,9 @@ over gloo on the CPU).
     element by about lr whatever its gradient's size, so a gradient at
     rounding level can point either way: measured, 0.1% of the embedding,
     1.1e-4 at most) and nowhere further apart than twice the one-rank
-    run's largest move; every rank ends with the same params.
+    run's largest move, the ranks' blocks (the reference's FSDP layout:
+    every leaf with an ``embed`` dim split over data) put side by side;
+    the two pods end with the same bits of each block.
 (b) The launcher: ``--mesh 2x2 --multi-pod --compress-pod-grads --backend
     gloo`` runs, rank 0 alone writes checkpoints and a run resumes from
     them over ranks; a ``model`` axis (``--mesh 1x2``, ``--multi-pod
@@ -31,6 +33,7 @@ from repro_torch.configs import ShapeConfig, get_arch, reduced
 from repro_torch.data.tokens import SyntheticTokenStream
 from repro_torch.launch import rank_jobs, train
 from repro_torch.launch import ranks as RK
+from repro_torch.launch.mesh import LogicalMesh
 from repro_torch.models.api import build_model
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
@@ -82,10 +85,12 @@ def test_data_parallel_step_equals_one_rank_on_the_whole_batch():
         loss, params, opt, _ = step(params, opt, batch, np.int32(i))
         losses.append(float(loss))
     np.testing.assert_allclose(outs[0]["losses"], losses, rtol=LOSS_RTOL)
-    for o in outs[1:]:
+    for r, o in enumerate(outs):
         assert o["losses"] == outs[0]["losses"]
-        assert o["digests"] == outs[0]["digests"]
-    got = named_leaves(outs[0]["params"])
+        # pod 1's data rank d holds pod 0's data rank d's blocks
+        assert o["digests"] == outs[r % 2]["digests"]
+    got = named_leaves(S.join_blocks(api, LogicalMesh((2, 2), ("pod", "data")),
+                                     [o["params"] for o in outs]))
     for name, w in named_leaves(params).items():
         d = (got[name] - w).abs()
         off = d > PARAM_TOL * w.abs().max()
