@@ -142,9 +142,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      KV heads at head_dim 128) in bf16, greedy, over phase 5's stream and
      pool: local eager twice and warmed as CUDA graphs (one set of
      streams, schedules and launch counts, nothing captured after
-     warmup), then pipelined eager over two enclaves with two microbatches
-     and sealed boundaries (blocks (4, 20), no re-plan, nm x (S - 1) seals
-     a step); every swap-in bit-exact, every logit finite. Prints the
+     warmup), then pipelined in CUDA graphs over two enclaves with two
+     microbatches and sealed boundaries (blocks (4, 20), no re-plan, nm x
+     (S - 1) seals a step); every swap-in bit-exact, every logit finite. Prints the
      parameters, init seconds, ms per decode step, decode tokens/s,
      admission p50/p99 and memory reserved and at peak;
  13. train full-width llama3.2-1b in bf16 through ``launch.train.main``
@@ -161,8 +161,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      prefill and paged batched, streams equal; (b) in bf16, phase 5's
      first 8 requests on the timeline local eager, local in CUDA graphs
      (equal streams, steps and launches, nothing captured after warmup),
-     pipelined at blocks (1, 15) with sealed boundaries (seal and unseal
-     nm x (S - 1) a step) and paged with per-token prefill in graphs, then
+     pipelined in CUDA graphs at blocks (1, 15) with sealed boundaries
+     (seal and unseal nm x (S - 1) a step) and paged with per-token prefill in graphs, then
      the timeline under a horizon too short for the stream (back-pressure,
      a permanent stall, every request done or queued); (c) the int8
      cache's prefill then decode on 4 x 31 tokens plus one against bf16
@@ -245,17 +245,17 @@ Phases (each prints its own lines; any failure exits non-zero):
      logical 16 x 16 mesh, rc 0;
  19. the pod axis over ranks: processes spawned on the card, joined by
      gloo (NCCL refuses two ranks on one device), the parent's models
-     freed first: (a) full-width llama3.2-1b in bf16 at 8 of its 16
+     freed first: (a) full-width llama3.2-1b in bf16 at 4 of its 16
      layers, 8 slots, 4 microbatches, paged, sealed, 8 greedy decode
-     steps with stage s on rank s at blocks (4, 4) and (1, 7): logits and
+     steps with stage s on rank s at blocks (2, 2) and (1, 3): logits and
      tokens bit-equal to the one-card sealed ``PipelinedDecoder``, seal
      launches on stage 0 and unseal launches on stage 1 each 4 x 8, paged
      launches the stage's layers x 4 x 8, host ms a step, sealed bytes a
      boundary and one boundary crossing's host ms; (b) the compressed
      train step of full-width llama3.2-1b at 4 layers, pods 2 x data 1,
-     batch 8 x 128, 5 steps: finite losses, both ranks' params the same
+     batch 8 x 128, 3 steps: finite losses, both ranks' params the same
      bits after every step, the error feedback finite and nonzero, 2 x 4
-     x 5 flash launches a rank, int8 bytes exchanged a step against
+     x 3 flash launches a rank, int8 bytes exchanged a step against
      f32's, host ms a step, each rank's peak memory; (c) reduced
      llama3.2-1b in f32 on (2, 2) ranks, plain and compressed, the card
      against the CPU;
@@ -264,8 +264,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      its stage's layers of params and pools: (a) sealed, streams bit-equal
      to phase 6's, swap-outs with every swap-in restored bit-exactly,
      launches per rank as its layers say; (b) unsealed, with and without
-     ``--inject-straggler 1:10``: a swap migrates layers between the
-     ranks, the streams stay; (c) the ranks' first swap-out parts side by
+     ``--inject-straggler 1:10``, on the stream's first 8 requests: a
+     swap migrates layers between the ranks, the streams stay; (c) the ranks' first swap-out parts side by
      side are phase 6's payload with its digest; (d) no (key, counter)
      pair ciphers twice; host ms a decode step, admission, a prefill
      crossing, a restage, swap-out and swap-in;
@@ -293,10 +293,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      steps on the same draw: (a) glm4-9b at full width, 4 layers, f32 and
      (c) qwen2-moe-a2.7b at full width, 4 layers, f32 (15 experts a
      rank), each within 1e-3 of the one-card logits, greedy tokens equal;
-     (b) glm4-9b at full width and depth in bf16, its error, host ms,
-     bytes messaged a step, param bytes against the shard shapes, peak
-     memory and 40 flash launches a prefill a rank printed; the whole
-     logits the same bits on every rank;
+     (b) glm4-9b at full width and 10 of its 40 layers in bf16, its
+     error, host ms, bytes messaged a step, param bytes against the shard
+     shapes, peak memory and 10 flash launches a prefill a rank printed;
+     the whole logits the same bits on every rank;
  25. the train step over ranks with the reference's layout (tensor
      parallelism's backward, every leaf with an embed dim split over data
      too, its AdamW state with it): four gloo ranks on the card, each
@@ -314,7 +314,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      bytes a step (gathers, reduce-scatters, model-axis collectives, the
      rest) a rank; (b) f32 at 2 layers on (1, 4): glm4-9b (two KV heads
      whole over 4) and qwen2-moe-a2.7b (15 experts a rank); (c)
-     qwen2-moe-a2.7b f32 at 2 layers on (2, 2), router, experts and
+     qwen2-moe-a2.7b f32 at 1 layer on (2, 2), router, experts and
      shared experts over data, its MoE routing over the whole batch's
      rows; (b) and (c) on the seeded draw's block weights rescaled to
      their contractions (the reference's init amplifies f32 rounding to
@@ -323,7 +323,21 @@ Phases (each prints its own lines; any failure exits non-zero):
      grad norm within 1e-4, each rank's gradient blocks (AdamW's first
      moment) within 1e-4 of each leaf's largest, errors printed. Phase 2
      holds ``FlashAttentionFn`` and flash at 25a's and 25c's shards, and
-     phase 16 times flash at both.
+     phase 16 times flash at both;
+ 26. the residual stream's sequence split over the model axis
+     (``SP_ACT_RULES``, Megatron-SP: between blocks each model rank holds
+     its block of the sequence), one spawn of four gloo ranks on the
+     card: (a) 25a under it, losses and grad norms printed beside 25a's,
+     step 0's loss 25a's bits and its grad norm within 1e-5 of 25a's,
+     each block the same bits wherever it is held, 2 x 16 x 2 flash
+     launches a rank, bytes a step of the sequence's gathers, its
+     reduce-scatters and the norms' model sum, the saved block inputs
+     reckoned, peak memory beside 25a's; (b) 25b's two cases under it
+     against the same one-card steps, gradients within 1e-5 of each
+     leaf's largest; (c) glm4-9b f32 at 4 layers on (1, 4): the
+     SP prefill step within 1e-3 of phase 24's one-card step with equal
+     greedy tokens, each decode step the same bits as the plain decode
+     step on the same cache.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. TF32 is off for matmuls and convolutions,
 so f32 products are full f32. Imports nothing of JAX.
@@ -2536,8 +2550,9 @@ def serve_moe(torch, ops, smi):
     top-4 plus 4 shared, 16 heads over 16 KV heads, head_dim 128, biases)
     in bf16 with seeded random weights, greedy, phase 5's stream and pool:
     (a) the local backend eager, twice; (b) the same warmed as CUDA
-    graphs; (c) pipelined eager over two enclaves with two microbatches
-    and sealed boundaries. (a)'s second run and (b) must give (a)'s
+    graphs; (c) pipelined in CUDA graphs over two enclaves with two
+    microbatches and sealed boundaries. (a)'s second run and (b) must give
+    (a)'s
     streams, schedule and launches; ``serve_full_width`` holds the launch
     counts (paged = 24 x decode steps, flash = 24 x prefill calls, seals
     nm x (S - 1) a step), the bit-exact restores, the finite logits, (b)'s
@@ -2574,12 +2589,14 @@ def serve_moe(torch, ops, smi):
         again["launches"] == a["launches"], (again["schedule"], a["schedule"])
     b = serve_in_graphs(torch, ops, api, params, local, "12a", a,
                         label="12b")
+    # in graphs: eager, the pipelined engine took about 30 s of the
+    # script's time (phase 6 and 10c run pipelined eager)
     c = serve_full_width(torch, ops, api, params, FULL_MOE + [
-        "--backend", "pipelined", "--stages", "2", "--microbatches", "2"],
-        "12c", plan=(4, 20))
+        "--backend", "pipelined", "--stages", "2", "--microbatches", "2",
+        "--warmup"], "12c", plan=(4, 20))
     for name, r in (("12a eager", a), ("12a eager, second run", again),
-                    ("12b CUDA graphs", b), ("12c pipelined (4, 20), eager",
-                                             c)):
+                    ("12b CUDA graphs", b),
+                    ("12c pipelined (4, 20), CUDA graphs", c)):
         log(f"serve phase {name}: {r['tok_per_s']:.1f} tok/s decode, "
             f"{r['step_ms']:.2f} ms/decode step, admission p50 "
             f"{r['admission'][0]:.2f} p99 {r['admission'][1]:.2f} ms, "
@@ -2843,9 +2860,13 @@ def serve_timeline(torch, ops, smi):
     assert graphs["steps"] == eager["steps"] and \
         graphs["launches"] == eager["launches"], (graphs["steps"],
                                                   eager["steps"])
+    # in graphs: eager, the stream's 746 per-token prefill steps through
+    # two stages take about 26 s of the script's time (phase 16b runs the
+    # pipelined timeline eager)
     pipe = serve_layout(torch, ops, api, params,
                         tl + ["--backend", "pipelined", "--stages", "2",
-                              "--microbatches", "2"], "14b pipelined, sealed")
+                              "--microbatches", "2", "--warmup"],
+                        "14b pipelined, sealed, CUDA graphs")
     st = pipe["st"]
     assert st["stage_blocks"] == (1, 15) and st["replans"] == 0, st
     assert pipe["launches"]["seal"] == pipe["launches"]["unseal"] \
@@ -2863,7 +2884,8 @@ def serve_timeline(torch, ops, smi):
         f"{pipe['launches']['seal']} = unseal = {pipe['steps']} steps x 2 "
         f"microbatches x 1 "
         f"boundary; host ms per decode step eager {eager['step_ms']:.2f}, "
-        f"graphs {graphs['step_ms']:.2f}, pipelined {pipe['step_ms']:.2f}, "
+        f"graphs {graphs['step_ms']:.2f}, pipelined graphs "
+        f"{pipe['step_ms']:.2f}, "
         f"paged per-token graphs {paged['step_ms']:.2f}; ms per prefill "
         f"token eager {eager['token_ms']:.3f}, graphs "
         f"{graphs['token_ms']:.3f}, paged graphs {paged['token_ms']:.3f} "
@@ -4974,15 +4996,17 @@ def mesh_steps(torch, ops, smi):
 # two ranks on one device. Sizes are names, for a CPU rehearsal as phases
 # 16 to 18.
 # 19a at llama3.2-1b's full width, its depth cut from 16 layers to 8 and
-# its decode steps from 16 to 8 (the script's time, with phase 24 added)
+# its decode steps from 16 to 8 (the script's time, with phase 24 added),
+# then to 4 layers (with phase 26 added)
 RANKS_SLOTS, RANKS_NM, RANKS_PROMPT, RANKS_STEPS = 8, 4, 128, 8
-RANKS_LAYERS = 8
-RANKS_LAYOUTS = ((4, 4), (1, 7))       # even, and one layer on stage 0
+RANKS_LAYERS = 4
+RANKS_LAYOUTS = ((2, 2), (1, 3))       # even, and one layer on stage 0
 RANKS_KEY = 0xC0FFEE
 RANKS_PING = 50                        # round trips of one boundary
 # 19b: the compressed step at pods 2 x data 1 over a global batch of
-# 8 x 128 (4 rows a pod), full width, depth cut from 16 layers to 4
-RANKS_TRAIN = dict(steps=5, batch=8, seq=128)
+# 8 x 128 (4 rows a pod), full width, depth cut from 16 layers to 4, its
+# steps from 5 to 3 (the script's time, with phase 26 added)
+RANKS_TRAIN = dict(steps=3, batch=8, seq=128)
 RANKS_TRAIN_LAYERS = 4
 # 19c: reduced llama3.2-1b in f32 on (2, 2) ranks, card against CPU
 RANKS_SMALL = dict(steps=3, batch=8, seq=32)
@@ -5091,7 +5115,7 @@ def pod_ranks(torch, ops, smi):
     the stage's layers x microbatches x steps; host ms a step, sealed
     bytes a boundary a step and one boundary crossing's host ms;
     (b) the compressed train step of full-width llama3.2-1b in bf16 at
-    RANKS_TRAIN_LAYERS layers, pods 2 x data 1, global batch 8 x 128, 5
+    RANKS_TRAIN_LAYERS layers, pods 2 x data 1, global batch 8 x 128, 3
     steps: losses finite, both
     ranks' params the same bits after every step (``param_digest``), the
     error feedback finite and nonzero, flash launches a rank 2 x layers x
@@ -5292,6 +5316,10 @@ def pod_ranks(torch, ops, smi):
 # half): phase 6's stream with stage s on rank s, gloo on the one card
 RANKS_SERVE = FULL_WIDTH + ["--backend", "pipelined"]      # phase 6's flags
 RANKS_STRAGGLER = (1, 10.0)          # serve's --inject-straggler 1:10
+# (b) and the sealed run with the straggler serve phase 6's first
+# requests (as phase 22b does): the swap comes within them, and the whole
+# stream's three more runs took about 20 s of the script's time
+RANKS_REPLAN_REQUESTS = 8
 
 
 def _p50(xs):
@@ -5311,7 +5339,8 @@ def serve_ranks(torch, ops, smi, phase6=None):
     prefill calls; seals on rank 0 = unseals on rank 1 = microbatches x
     steps; the windowed cipher 2 x swap-outs and 2 x swap-ins, the prefill
     crossings (the page cipher) one a prefill call; (b) unsealed, without
-    and with ``--inject-straggler 1:10``: a swap that migrates layers
+    and with ``--inject-straggler 1:10`` (each on the stream's first
+    ``RANKS_REPLAN_REQUESTS`` requests): a swap that migrates layers
     between the ranks, other final stage blocks, the same streams (the
     quantizing seal makes streams depend on the boundary, which is why
     serve's ``--verify-swap`` runs unsealed; a sealed run with the
@@ -5350,11 +5379,12 @@ def serve_ranks(torch, ops, smi, phase6=None):
             for p in serve.gen_prompts(args, cfg.vocab_size)]
     sealed = serve.make_config(args)
     calm = dataclasses.replace(sealed, seal_boundary=False)
-    runs = [rank_jobs.ServeRun(c, reqs, every=args.arrival_every,
+    cut = reqs[:RANKS_REPLAN_REQUESTS]
+    runs = [rank_jobs.ServeRun(c, rs, every=args.arrival_every,
                                inject=inject, check_swaps=True)
-            for c, inject in ((sealed, None), (calm, None),
-                              (calm, RANKS_STRAGGLER),
-                              (sealed, RANKS_STRAGGLER))]
+            for c, rs, inject in ((sealed, reqs, None), (calm, cut, None),
+                                  (calm, cut, RANKS_STRAGGLER),
+                                  (sealed, cut, RANKS_STRAGGLER))]
     t0 = time.perf_counter()
     out = spawn(rank_jobs.serve, 2, backend="gloo", device=DEV, args=(
         rank_jobs.ServeJob(cfg, runs, dtype=torch.bfloat16,
@@ -5471,7 +5501,7 @@ def serve_ranks(torch, ops, smi, phase6=None):
                  for i, (p, q) in enumerate(zip(x, y)) if p != q),
                 default=None)
     log(f"phase 20b, sealed with the straggler (final stage blocks "
-        f"{d['stats']['stage_blocks']}): {same} of {len(reqs)} streams "
+        f"{d['stats']['stage_blocks']}): {same} of {len(cut)} streams "
         f"equal 20a's; the earliest parting at token {first} (the int8 "
         f"boundary moved; not held)")
     log(f"phase 20d: (key, counter) pairs sealed under, rank 0 / rank 1: "
@@ -6286,11 +6316,12 @@ def serve_disagg_ranks(torch, ops, smi, phase6=None, phase21=None,
 MODEL_MESH = ((1, 4), ("data", "model"))
 MODEL_B, MODEL_S, MODEL_STEPS, MODEL_SEED = 8, 128, 4, 0
 # (name, config, layers (None: all), dtype): (a) and (c) cut to 4 layers,
-# (a) also at 1 and 2 (how the f32 error grows with depth)
+# (a) also at 1 and 2 (how the f32 error grows with depth); (b) cut from
+# 40 layers to 10 (the script's time, with phase 26 added)
 MODEL_CASES = (("24a1", "glm4-9b", 1, "f32"),
                ("24a2", "glm4-9b", 2, "f32"),
                ("24a", "glm4-9b", 4, "f32"),
-               ("24b", "glm4-9b", None, "bf16"),
+               ("24b", "glm4-9b", 10, "bf16"),
                ("24c", "qwen2-moe-a2.7b", 4, "f32"))
 # the embedding scaled by 1 + MODEL_NUDGE: how far an f32 rounding of the
 # input moves the one-card step's logits on these weights
@@ -6358,7 +6389,8 @@ def model_ranks(torch, ops, smi):
     their sum; flash launches a rank = layers (one prefill). Prints host
     ms a prefill and a decode step against one card, bytes messaged a
     step, param GiB and peak memory a rank. Returns the ranks' launch
-    counts, summed."""
+    counts, summed, and the one-card steps by case name (``one``: phase
+    26c holds its ranks against them)."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -6485,7 +6517,7 @@ def model_ranks(torch, ops, smi):
             f"[{smi}]")
     log(f"phase 24: {time.perf_counter() - t_phase:.1f} s (the spawn "
         f"{spawn_s:.1f} s)")
-    return [{"launches": launches}]
+    return [{"launches": launches, "one": one}]
 
 
 # ---------------------------------------------------------------------------
@@ -6501,11 +6533,12 @@ TRAIN_MESH = ((2, 2), ("data", "model"))
 TRAIN_STEPS = 2
 # 25b: f32 at cut depth on (1, 4), one step at index 0 against the
 # one-card step on the same draw; 25c: qwen2-moe-a2.7b the same on
-# TRAIN_MESH, its router, experts and shared experts split over data
+# TRAIN_MESH, its router, experts and shared experts split over data, its
+# depth cut from 2 layers to 1 (the script's time, with phase 26 added)
 TRAIN_F32_MESH = ((1, 4), ("data", "model"))
 TRAIN_F32_CASES = (("25b glm4", "glm4-9b", 2, TRAIN_F32_MESH),
                    ("25b moe", "qwen2-moe-a2.7b", 2, TRAIN_F32_MESH),
-                   ("25c moe", "qwen2-moe-a2.7b", 2, TRAIN_MESH))
+                   ("25c moe", "qwen2-moe-a2.7b", 1, TRAIN_MESH))
 TRAIN_F32_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=30)
 # on ``_conditioned`` weights (the reference's init amplifies f32 rounding
 # to order one in the gradient at full width: on an H100 the ranks'
@@ -6580,12 +6613,13 @@ def _model_cfg(arch, layers=None):
     return cfg
 
 
-def _one_card_train(torch, cfg, opt_cfg, seq, batch, moment=True,
+def _one_card_train(torch, cfg, opt_cfg, seq, batch, moment=None,
                     prepare=None):
     """The port's one-card f32 train step on ``cfg``'s seeded draw (the
     ranks' seed, MODEL_SEED; then ``prepare(api, params)`` when given) at
-    step index 0: loss, grad norm, host ms, and with ``moment`` AdamW's
-    first moment after it on the host."""
+    step index 0: loss, grad norm, host ms; with ``moment`` (a path) AdamW's
+    first moment after it is saved there (``torch.save`` of its leaves,
+    what ``rank_jobs.TrainJob.against`` reads)."""
     import numpy as np
 
     from repro_torch.configs.base import ShapeConfig
@@ -6593,7 +6627,7 @@ def _one_card_train(torch, cfg, opt_cfg, seq, batch, moment=True,
     from repro_torch.models.api import build_model
     from repro_torch.optim import adamw
     from repro_torch.runtime import steps as S
-    from repro_torch.tree import map_tree
+    from repro_torch.tree import leaves
     api = build_model(cfg, device=DEV, dtype=torch.float32, max_seq=seq)
     params = api.init(torch.Generator(device=DEV).manual_seed(MODEL_SEED))
     if prepare is not None:
@@ -6610,15 +6644,15 @@ def _one_card_train(torch, cfg, opt_cfg, seq, batch, moment=True,
     loss, gnorm = float(loss), float(gnorm)
     ms = (time.perf_counter() - t0) * 1e3
     del params
-    out = {"loss": loss, "gnorm": gnorm, "ms": ms}
+    out = {"loss": loss, "gnorm": gnorm, "ms": ms, "m": moment}
     if moment:
-        out["m"] = map_tree(lambda t: t.cpu(), opt.m)
+        torch.save([t.cpu() for t in leaves(opt.m)], moment)
     del opt, step, api
     _free(torch)
     return out
 
 
-def model_train_ranks(torch, ops, smi, phase13=None):
+def model_train_ranks(torch, ops, smi, phase13=None, also=None):
     """25. The train step over a model axis (tensor parallelism's backward)
     with every leaf that has an embed dim split over the data axis, its
     AdamW state with it (the reference's FSDP: each layer's blocks
@@ -6647,8 +6681,14 @@ def model_train_ranks(torch, ops, smi, phase13=None):
     gradient blocks (AdamW's first moment after the step) within
     TRAIN_GRAD_TOL of the one-card leaf's largest, errors printed before
     they are asserted. All run in one spawn (``rank_jobs.chain``), each
-    one-card step before it. Returns the ranks' launch counts, summed."""
+    one-card step before it, its first moment saved to a file that each
+    rank holds its blocks against (``TrainJob.against``), and after them
+    the jobs ``also(ones)`` gives (phase 26's; one start-up for both).
+    Returns the ranks' launch counts, summed, and what phase 26 reads:
+    ``also``'s results a rank, the one-card steps (``ones``), 25a's
+    results a rank and (b) and (c)'s gradient errors by case name."""
     import dataclasses
+    import tempfile
 
     from repro_torch.launch import rank_jobs, train
     from repro_torch.launch.mesh import LogicalMesh
@@ -6660,6 +6700,7 @@ def model_train_ranks(torch, ops, smi, phase13=None):
     t_phase = time.perf_counter()
     _free(torch)
     launches = {k: 0 for k in ops.LAUNCHES}
+    moments = tempfile.TemporaryDirectory(prefix="chip_smoke_moments_")
 
     def row(xs, fmt="{:.3f}"):
         return ", ".join(fmt.format(x) for x in xs)
@@ -6675,7 +6716,7 @@ def model_train_ranks(torch, ops, smi, phase13=None):
         dtype=torch.bfloat16, seed=MODEL_SEED, keep=(), check_layout=True))]
     # the precision's own gap: the one-card f32 step on the same draw
     f32 = _one_card_train(torch, cfg, dataclasses.asdict(opt), args.seq,
-                          args.batch, moment=False)
+                          args.batch)
     # (b) and (c)'s one-card steps and jobs, so that one spawn runs them all
     B, Sq = args.batch, args.seq
     ones = {}
@@ -6684,16 +6725,21 @@ def model_train_ranks(torch, ops, smi, phase13=None):
         cfg_b = _model_cfg(arch, layers)
         if (arch, layers) not in ones:
             ones[arch, layers] = _one_card_train(
-                torch, cfg_b, TRAIN_F32_OPT, Sq, B, prepare=_conditioned)
+                torch, cfg_b, TRAIN_F32_OPT, Sq, B, prepare=_conditioned,
+                moment=os.path.join(moments.name, f"{arch}-{layers}.pt"))
         jobs.append((rank_jobs.train, rank_jobs.TrainJob(
             cfg_b, mesh, 1, B, Sq, opt=AdamWConfig(**TRAIN_F32_OPT),
-            dtype=torch.float32, seed=MODEL_SEED, keep=("m",),
-            prepare=_conditioned)))
+            dtype=torch.float32, seed=MODEL_SEED, keep=(),
+            prepare=_conditioned, against=ones[arch, layers]["m"])))
+    extra = also(ones) if also is not None else []
     t0 = time.perf_counter()
     chained = spawn(rank_jobs.chain, n, backend="gloo", device=DEV,
-                    args=(jobs,))
+                    args=(jobs + extra,))
     spawn_s = time.perf_counter() - t0
+    moments.cleanup()
     rs = [r[0] for r in chained]
+    out = {"also": [r[len(jobs):] for r in chained], "ones": ones,
+           "25a": rs, "worst": {}}
     meta = build_model(cfg, device="meta", dtype=torch.bfloat16)
     specs = leaves(meta.param_specs())
     want = [sh.shard_shape(sp.shape) for sh, sp in zip(
@@ -6768,11 +6814,9 @@ def model_train_ranks(torch, ops, smi, phase13=None):
         cfg = _model_cfg(arch, layers)
         o = ones[arch, layers]
         rs = [r[c + 1] for r in chained]
-        meta = build_model(cfg, device="meta", dtype=torch.float32)
         loss_err = abs(rs[0]["losses"][0] - o["loss"]) / abs(o["loss"])
         gnorm_err = abs(rs[0]["gnorms"][0] - o["gnorm"]) / abs(o["gnorm"])
-        worst = 0.0
-        whole = leaves(o["m"])
+        worst = max(max(r["m_err"]) for r in rs)
         for rank, r in enumerate(rs):
             assert r["losses"] == rs[0]["losses"], name
             assert r["gnorms"] == rs[0]["gnorms"], name
@@ -6781,12 +6825,6 @@ def model_train_ranks(torch, ops, smi, phase13=None):
                     2 * cfg.num_layers, (name, r["launches"])
             for k in launches:
                 launches[k] += r["launches"][k]
-            blocks = S.param_blocks(meta, LogicalMesh(*mesh),
-                                    _rank_coords(rank, mesh))
-            for blk, w, g in zip(blocks, whole, leaves(r["m"])):
-                w = w if blk is None else w[blk]
-                assert tuple(g.shape) == tuple(w.shape), (name, g.shape)
-                worst = max(worst, _rel(g.to(DEV), w.to(DEV)))
         dims = dict(zip(mesh[1], mesh[0]))
         M = dims["model"]
         experts = ""
@@ -6818,10 +6856,267 @@ def model_train_ranks(torch, ops, smi, phase13=None):
         assert loss_err <= TRAIN_LOSS_RTOL, (name, loss_err)
         assert gnorm_err <= TRAIN_GNORM_RTOL, (name, gnorm_err)
         assert worst <= TRAIN_GRAD_TOL, (name, worst)
-    del chained, ones
+        out["worst"][name] = worst
+    del chained
     _free(torch)
     log(f"phase 25: {time.perf_counter() - t_phase:.1f} s (the spawn "
         f"{spawn_s:.1f} s)")
+    return [dict(out, launches=launches)]
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the residual stream's sequence split over the model axis of
+# ranks (ROADMAP item 10d, step 5b's rest; SP_ACT_RULES, Megatron-SP) in
+# the train step and both serve steps. Its jobs run in phase 25's spawn
+# (one start-up for both); every rank holds its first moment against the
+# one-card one in a file, so that no rank returns its moment (with them,
+# phases 25 and 26 in one spawn passed the host's 96 GiB). Sizes are
+# names, for a CPU rehearsal as phases 16 to 25. 26a: phase 25a's run
+# under SP_ACT_RULES; 26b: 25b's two f32 cases under SP_ACT_RULES
+# against the same one-card steps; 26c: the serve
+# steps of glm4-9b in f32 at SP_SERVE_LAYERS on MODEL_MESH (phase 24a's
+# deepest case; 24a1 and 24a2 show the error's growth with depth) under
+# SP_ACT_RULES, against phase 24's one-card step
+SP_SERVE_LAYERS = (4,)
+SP_GRAD_TOL = 1e-5
+# 25a's losses and grad norms as recorded before the sequence split
+# (PERF.md §6; H100 80GB HBM3, 700.00 W)
+RECORDED_25A_LOSSES = (12.2170, 12.1860)
+RECORDED_25A_GNORMS = (192.173, 198.076)
+# 26a's first step against 25a's in the same spawn (the same draw and
+# batch): the loss the same bits (each sum over the two model ranks the
+# same partials in the same order), the grad norm within SP_GNORM_RTOL
+# (the norms' gradients are summed in another order; both read 192.173,
+# H100 80GB HBM3, 700.00 W)
+SP_GNORM_RTOL = 1e-5
+
+
+def sp_jobs(torch, ones):
+    """Phase 26's rank jobs, in the order ``sp_ranks`` reads them: 26a,
+    26b's cases (each held against phase 25's one-card first moment,
+    ``ones``), then 26c's."""
+    from repro_torch.launch import rank_jobs, train
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.sharding.rules import SP_ACT_RULES
+    args = train.build_parser().parse_args(FULL_TRAIN)
+    opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
+                      total_steps=args.steps)
+    jobs = [(rank_jobs.train, rank_jobs.TrainJob(
+        _model_cfg(args.arch), TRAIN_MESH, TRAIN_STEPS, args.batch,
+        args.seq, opt=opt, dtype=torch.bfloat16, seed=MODEL_SEED, keep=(),
+        act_rules=SP_ACT_RULES))]
+    for _, arch, layers, mesh in TRAIN_F32_CASES:
+        if mesh is TRAIN_F32_MESH:
+            jobs.append((rank_jobs.train, rank_jobs.TrainJob(
+                _model_cfg(arch, layers), mesh, 1, args.batch, args.seq,
+                opt=AdamWConfig(**TRAIN_F32_OPT), dtype=torch.float32,
+                seed=MODEL_SEED, keep=(), prepare=_conditioned,
+                act_rules=SP_ACT_RULES, against=ones[arch, layers]["m"])))
+    for layers in SP_SERVE_LAYERS:
+        cfg = _model_cfg("glm4-9b", layers)
+        toks = torch.randint(0, cfg.vocab_size, (MODEL_B, MODEL_S),
+                             generator=torch.Generator().manual_seed(24))
+        jobs.append((rank_jobs.serve_steps, rank_jobs.StepsJob(
+            cfg, MODEL_MESH, toks, steps=MODEL_STEPS, dtype=torch.float32,
+            seed=MODEL_SEED, max_seq=MODEL_S + MODEL_STEPS,
+            act_rules=SP_ACT_RULES, plain_decode=True)))
+    return jobs
+
+
+def sp_ranks(torch, ops, smi, phase24, phase25):
+    """26. The residual stream's sequence split over the model axis
+    (``SP_ACT_RULES``): between blocks each model rank holds its block of
+    the sequence (``sharding.tensor_parallel``: ``gather_seq`` before each
+    product, ``reduce_scatter_seq`` after, the norms on the block, their
+    gradients summed over the model group once a step), four gloo ranks
+    on the card running ``sp_jobs`` in phase 25's spawn (``phase25``'s
+    ``also``). (a) phase 25a's run (full-width
+    llama3.2-1b, bf16, full depth, TRAIN_MESH, phase 13's batch, stream,
+    seed and schedule) under SP_ACT_RULES: finite losses that fall, the
+    same on every rank, step 0's loss 25a's bits and its grad norm within
+    SP_GNORM_RTOL of 25a's (the same spawn, draw and batch), each block
+    the same bits on every rank that holds it after every step, flash
+    launches a rank = 2 x layers x steps; prints losses and grad norms beside 25a's in this run and recorded,
+    host ms a step a rank, bytes a step a rank (the sequence's gathers,
+    its reduce-scatters, the norms' sum, the model axis's other
+    collectives, beside 25a's model-axis bytes), the saved block inputs
+    reckoned from the shapes and peak memory a rank beside 25a's. (b) 25b's
+    f32 cases under SP_ACT_RULES, one step on the same ``_conditioned``
+    weights: loss within TRAIN_LOSS_RTOL, grad norm within
+    TRAIN_GNORM_RTOL and each rank's gradient blocks (AdamW's first moment)
+    within SP_GRAD_TOL of the one-card leaf's largest, beside 25b's
+    errors. (c) glm4-9b f32 at SP_SERVE_LAYERS: the SP prefill step's
+    logits within F32_FULL_TOL of phase 24's one-card step with equal
+    greedy tokens at every decode step, the same bits on every rank, each
+    SP decode step the same bits as the non-SP decode step on the same
+    cache and tokens; flash launches a rank = layers. Errors are printed
+    before they are asserted. Returns the ranks' launch counts, summed."""
+    from repro_torch.launch import train
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in ops.LAUNCHES}
+    chained = phase25["also"]
+
+    def row(xs, fmt="{:.3f}"):
+        return ", ".join(fmt.format(x) for x in xs)
+
+    def count(rs):
+        for r in rs:
+            for k in launches:
+                launches[k] += r["launches"][k]
+
+    # (a) 25a under SP_ACT_RULES
+    args = train.build_parser().parse_args(FULL_TRAIN)
+    cfg = _model_cfg(args.arch)
+    rs, base = [r[0] for r in chained], phase25["25a"]
+    split = rs[0]["split"]
+    for rank, r in enumerate(rs):
+        assert all(math.isfinite(x) for x in r["losses"] + r["gnorms"]), r
+        assert r["losses"] == rs[0]["losses"], "26a: the ranks' losses"
+        assert r["gnorms"] == rs[0]["gnorms"], "26a: the ranks' grad norms"
+        for i, mine in enumerate(r["digests"]):
+            for k, axes in enumerate(split):
+                assert mine[k] == rs[_holder(rank, TRAIN_MESH, axes)][
+                    "digests"][i][k], ("26a: a block differs", rank, i, k)
+        if DEV == "cuda":
+            assert r["launches"]["flash_attention"] == \
+                2 * cfg.num_layers * TRAIN_STEPS, r["launches"]
+        assert r["seq_gather_bytes_per_step"] > 0 \
+            and r["seq_scatter_bytes_per_step"] > 0 \
+            and r["norms_bytes_per_step"] > 0, r
+    count(rs)
+    losses, gnorms = rs[0]["losses"], rs[0]["gnorms"]
+    assert losses[-1] < losses[0], losses
+    gnorm0_err = abs(gnorms[0] - base[0]["gnorms"][0]) \
+        / abs(base[0]["gnorms"][0])
+    dims = dict(zip(TRAIN_MESH[1], TRAIN_MESH[0]))
+    M, rows = dims["model"], args.batch // dims["data"]
+    # what each layer's remat checkpoint saves: its input, a rank's rows
+    # and its block of the sequence (the whole sequence without SP)
+    saved = cfg.num_layers * rows * (args.seq // M) * cfg.d_model * 2
+    peaks = [r["peak_bytes"] / 2**30 if r.get("peak_bytes") else math.nan
+             for r in rs]
+    base_peaks = [r["peak_bytes"] / 2**30 if r.get("peak_bytes")
+                  else math.nan for r in base]
+    per = lambda key: row([r[key] for r in rs], "{:.0f}")
+    log(f"phase 26a {args.arch} full width, {cfg.num_layers} layers, bf16 "
+        f"on {math.prod(TRAIN_MESH[0])} ranks ({TRAIN_MESH[1]} mesh "
+        f"{TRAIN_MESH[0]}) under SP_ACT_RULES (each model rank "
+        f"{args.seq // M} of {args.seq} positions between blocks), batch "
+        f"{args.batch} x "
+        f"{args.seq}, {TRAIN_STEPS} steps: losses {row(losses, '{:.4f}')}, "
+        f"grad norms {row(gnorms)} (25a in this run: losses "
+        f"{row(base[0]['losses'], '{:.4f}')}, grad norms "
+        f"{row(base[0]['gnorms'])}; 25a recorded: "
+        f"{row(RECORDED_25A_LOSSES, '{:.4f}')}, "
+        f"{row(RECORDED_25A_GNORMS)}); "
+        f"step 0's loss {losses[0] - base[0]['losses'][0]:+.3e} from "
+        f"25a's (limit 0), its grad norm {gnorm0_err:.2e} (limit "
+        f"{SP_GNORM_RTOL}); each block the same bits on every rank that holds it "
+        f"after every step; host ms a step a rank "
+        f"{'; '.join(row(r['host_ms'], '{:.1f}') for r in rs)} (25a "
+        f"{'; '.join(row(r['host_ms'], '{:.1f}') for r in base)}); bytes "
+        f"a step a rank: sequence gathers {per('seq_gather_bytes_per_step')}"
+        f", sequence reduce-scatters {per('seq_scatter_bytes_per_step')}, "
+        f"the norms' model sum {per('norms_bytes_per_step')}, the model "
+        f"axis's other collectives {per('model_bytes_per_step')} (25a's "
+        f"model axis "
+        f"{row([r['model_bytes_per_step'] for r in base], '{:.0f}')}), "
+        f"data gathers {per('gather_bytes_per_step')}, reduce-scatters "
+        f"{per('scatter_bytes_per_step')}; saved block inputs a rank "
+        f"{saved} bytes reckoned ({saved * M} without SP); peak allocated "
+        f"GiB a rank {row(peaks, '{:.2f}')} (25a {row(base_peaks, '{:.2f}')})"
+        f"; flash launches a rank "
+        f"{[r['launches']['flash_attention'] for r in rs]} [{smi}]")
+    assert losses[0] == base[0]["losses"][0], \
+        ("26a: step 0's loss is not 25a's", losses[0], base[0]["losses"][0])
+    assert gnorm0_err <= SP_GNORM_RTOL, ("26a: step 0's grad norm",
+                                         gnorms[0], base[0]["gnorms"][0])
+
+    # (b) 25b's f32 cases under SP_ACT_RULES
+    c = 1
+    for name, arch, layers, mesh in TRAIN_F32_CASES:
+        if mesh is not TRAIN_F32_MESH:
+            continue
+        cfg = _model_cfg(arch, layers)
+        o = phase25["ones"][arch, layers]
+        rs = [r[c] for r in chained]
+        c += 1
+        loss_err = abs(rs[0]["losses"][0] - o["loss"]) / abs(o["loss"])
+        gnorm_err = abs(rs[0]["gnorms"][0] - o["gnorm"]) / abs(o["gnorm"])
+        worst = max(max(r["m_err"]) for r in rs)
+        for r in rs:
+            assert r["losses"] == rs[0]["losses"], name
+            assert r["gnorms"] == rs[0]["gnorms"], name
+            if DEV == "cuda":
+                assert r["launches"]["flash_attention"] == \
+                    2 * cfg.num_layers, (name, r["launches"])
+        count(rs)
+        log(f"phase 26b {arch} full width, {cfg.num_layers} layers, f32 on "
+            f"{math.prod(mesh[0])} ranks ({mesh[1]} mesh {mesh[0]}) under "
+            f"SP_ACT_RULES, 25b's weights, batch {args.batch} x "
+            f"{args.seq}, one step at index 0: loss "
+            f"{rs[0]['losses'][0]:.6f} against one card's {o['loss']:.6f} "
+            f"(rel {loss_err:.2e}, limit {TRAIN_LOSS_RTOL}), grad norm "
+            f"{rs[0]['gnorms'][0]:.4f} against {o['gnorm']:.4f} (rel "
+            f"{gnorm_err:.2e}, limit {TRAIN_GNORM_RTOL}), each rank's "
+            f"gradient blocks within {worst:.2e} of each one-card leaf's "
+            f"largest (limit {SP_GRAD_TOL}; 25b without SP "
+            f"{phase25['worst'][name]:.2e}); host ms the step a rank "
+            f"{row([r['host_ms'][0] for r in rs], '{:.1f}')}; bytes a rank: "
+            f"sequence gathers {rs[0]['seq_gather_bytes_per_step']:.0f}, "
+            f"reduce-scatters {rs[0]['seq_scatter_bytes_per_step']:.0f}, "
+            f"the norms' sum {rs[0]['norms_bytes_per_step']:.0f}, the model "
+            f"axis's other collectives "
+            f"{rs[0]['model_bytes_per_step']:.0f}; flash launches a rank "
+            f"{[r['launches']['flash_attention'] for r in rs]} [{smi}]")
+        assert loss_err <= TRAIN_LOSS_RTOL, (name, loss_err)
+        assert gnorm_err <= TRAIN_GNORM_RTOL, (name, gnorm_err)
+        assert worst <= SP_GRAD_TOL, (name, worst)
+
+    # (c) the serve steps of glm4-9b f32 under SP_ACT_RULES, against
+    # phase 24's one-card steps of its f32 glm4-9b cases by depth
+    M = dict(zip(MODEL_MESH[1], MODEL_MESH[0]))["model"]
+    by_depth = {layers: name for name, arch, layers, dt in MODEL_CASES
+                if arch == "glm4-9b" and dt == "f32"}
+    for layers in SP_SERVE_LAYERS:
+        one = phase24["one"][by_depth[layers]]
+        rs = [r[c] for r in chained]
+        c += 1
+        cfg = _model_cfg("glm4-9b", layers)
+        for r in rs:
+            assert all(torch.equal(a, b) for a, b in
+                       zip(r["logits"], rs[0]["logits"])), \
+                f"26c {layers}: the ranks' logits differ"
+            assert len(r["plain_decode_logits"]) == MODEL_STEPS
+            assert all(torch.equal(a, b) for a, b in zip(
+                r["logits"][1:], r["plain_decode_logits"])), \
+                f"26c {layers}: SP decode differs from the plain decode"
+            assert r["prefill_seq_bytes"][0] > 0, r["prefill_seq_bytes"]
+            assert all(b == (0, 0) for b in r["decode_seq_bytes"])
+            if DEV == "cuda":
+                assert r["launches"]["flash_attention"] == cfg.num_layers, \
+                    (layers, r["launches"])
+        count(rs)
+        errs, agree = _held(torch, rs[0]["logits"], one["logits"])
+        log(f"phase 26c glm4-9b full width, {cfg.num_layers} layers, f32 on "
+            f"{M} model ranks under SP_ACT_RULES: "
+            f"prefill {MODEL_B} x {MODEL_S} ({MODEL_S // M} positions a rank "
+            f"between blocks) and {MODEL_STEPS} greedy decode steps; logits "
+            f"against phase 24's one-card step {row(errs, '{:.2e}')} of its "
+            f"largest |logit| (limit {F32_FULL_TOL}), greedy tokens equal on "
+            f"{agree} of {MODEL_B} rows at every step; each decode step the "
+            f"same bits as the non-SP decode step on the same cache; the "
+            f"whole logits the same bits on every rank; host ms a prefill "
+            f"step a rank {row([r['prefill_ms'] for r in rs])} (one card "
+            f"{one['prefill_ms']:.3f}); the prefill's bytes a rank: sequence "
+            f"gathers {rs[0]['prefill_seq_bytes'][0]}, reduce-scatters "
+            f"{rs[0]['prefill_seq_bytes'][1]}, in all "
+            f"{rs[0]['prefill_bytes']}; flash launches a rank "
+            f"{[r['launches']['flash_attention'] for r in rs]} [{smi}]")
+        assert max(errs) < F32_FULL_TOL and agree == MODEL_B, \
+            (layers, errs, agree)
+    log(f"phase 26: {time.perf_counter() - t_phase:.1f} s after its jobs "
+        f"ran in phase 25's spawn")
     return [{"launches": launches}]
 
 
@@ -6990,8 +7285,14 @@ def main() -> int:
     # parallelism on four ranks, glm4-9b and qwen2-moe-a2.7b
     runs += model_ranks(torch, ops, smi0)
     # phase 25: the model axis's train step over ranks: llama3.2-1b at full
-    # depth on (2, 2) data x model, glm4-9b and qwen2-moe-a2.7b in f32
-    runs += model_train_ranks(torch, ops, smi0, phase13)
+    # depth on (2, 2) data x model, glm4-9b and qwen2-moe-a2.7b in f32;
+    # phase 26's jobs run in its spawn
+    phase24 = runs[-1]
+    runs += model_train_ranks(torch, ops, smi0, phase13,
+                              also=lambda ones: sp_jobs(torch, ones))
+    # phase 26: the sequence split over the model axis (SP_ACT_RULES): 25a
+    # and 25b under it, glm4-9b's serve steps at 4 layers
+    runs += sp_ranks(torch, ops, smi0, phase24, runs[-1])
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 

@@ -857,10 +857,13 @@ class StepsJob:
     CPU (each rank keeps its shard, ``shard_params``), or None to draw the
     rank's shard from ``seed`` on its device (``draw_params``).
     ``indivisible``, when not 0, is a global batch the steps must refuse
-    by name. ``param_rules`` and ``sharded_logits`` go to the steps (and
-    the rules to the rank's blocks); ``feed`` ([steps, batch, 1] int32),
-    when given, holds the tokens the decode steps take in place of the
-    greedy ones (a rank's sharded logits hold only its block)."""
+    by name. ``act_rules``, ``param_rules`` and ``sharded_logits`` go to
+    the steps (the param rules also to the rank's blocks); ``feed``
+    ([steps, batch, 1] int32), when given, holds the tokens the decode
+    steps take in place of the greedy ones (a rank's sharded logits hold
+    only its block). With ``plain_decode`` each decode step is also run,
+    untimed and first, by a decode step built without ``act_rules`` on a
+    copy of the same cache and the same tokens."""
 
     cfg: ArchConfig
     mesh: Mesh
@@ -874,6 +877,8 @@ class StepsJob:
     param_rules: Optional[dict] = None
     sharded_logits: bool = False
     feed: Optional[torch.Tensor] = None
+    act_rules: Optional[dict] = None
+    plain_decode: bool = False
 
 
 def grow_cache(api, cache, n: int):
@@ -907,6 +912,16 @@ def _gathered(step) -> int:
     return st.collective if st is not None else 0
 
 
+def _seq_bytes(mesh) -> Tuple[int, int]:
+    """Bytes the sequence's gathers and reduce-scatters over the model
+    axis of ``mesh`` have put in so far (every step on the mesh shares
+    them; 0 without a model axis)."""
+    tp = TP.axis_of(mesh)
+    if tp is None:
+        return 0, 0
+    return tp.seq_gather.collective, tp.seq_scatter.collective
+
+
 def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
     """This rank's ``rows`` (a slice of the global batch), the whole [B, V]
     ``logits`` of the prefill and of each decode step, its
@@ -916,7 +931,12 @@ def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
     untimed before them), the bytes each of them messaged
     (``prefill_bytes``, ``decode_bytes``) and, of those, the bytes of its
     gathers of the params' data blocks (``prefill_gather_bytes``,
-    ``decode_gather_bytes``), ``launches`` over them, the rank's
+    ``decode_gather_bytes``) and of the sequence's gathers and
+    reduce-scatters over the model axis (``prefill_seq_bytes``,
+    ``decode_seq_bytes``: a (gathers, reduce-scatters) pair each;
+    under ``SP_ACT_RULES``), with ``plain_decode`` the other decode
+    step's logits (``plain_decode_logits``), ``launches`` over them, the
+    rank's
     ``param_bytes`` and ``param_shapes`` (its blocks, in leaf order),
     ``peak_bytes`` (the card's peak allocation over the driven steps;
     None on the CPU) and, with ``indivisible``, the refusal's message
@@ -926,7 +946,7 @@ def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
                       max_seq=job.max_seq)
     mesh = make_mesh(*job.mesh, device=ctx.device)
     out = {"logits": [], "decode_ms": [], "decode_bytes": [],
-           "decode_gather_bytes": []}
+           "decode_gather_bytes": [], "decode_seq_bytes": []}
     params = _rank_params(ctx, api, mesh, job.params, job.seed,
                           job.param_rules)
     if ctx.device.type == "cuda":
@@ -934,11 +954,14 @@ def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
     out["param_bytes"] = sum(t.numel() * t.element_size()
                              for t in leaves(params))
     out["param_shapes"] = [tuple(t.shape) for t in leaves(params)]
-    kw = dict(param_rules=job.param_rules, sharded_logits=job.sharded_logits)
+    kw = dict(act_rules=job.act_rules, param_rules=job.param_rules,
+              sharded_logits=job.sharded_logits)
     pre = S.make_prefill_step(api, mesh, ShapeConfig("p", Sq, B, "prefill"),
                               **kw)
-    dec = S.make_decode_step(api, mesh, ShapeConfig("d", Sq + job.steps, B,
-                                                     "decode"), **kw)
+    dshape = ShapeConfig("d", Sq + job.steps, B, "decode")
+    dec = S.make_decode_step(api, mesh, dshape, **kw)
+    plain = S.make_decode_step(api, mesh, dshape, **dict(
+        kw, act_rules=None)) if job.plain_decode else None
     idx, count = S._rank_rows(mesh, ("pod", "data"), B)
     out["rows"] = slice(idx * B // count, (idx + 1) * B // count)
     tok = job.tokens.to(ctx.device)
@@ -957,25 +980,35 @@ def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
     ops.reset_launch_counts()
     if ctx.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(ctx.device)
-    sent, gathered = _messaged(pre, dec), _gathered(pre)
+    sent, gathered, seq = _messaged(pre, dec), _gathered(pre), \
+        _seq_bytes(mesh)
     t0 = time.perf_counter()
     logits, cache = pre(params, {"tokens": tok})
     _sync(ctx.device)
     out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
     out["prefill_bytes"] = _messaged(pre, dec) - sent
     out["prefill_gather_bytes"] = _gathered(pre) - gathered
+    out["prefill_seq_bytes"] = tuple(
+        b - a for a, b in zip(seq, _seq_bytes(mesh)))
     out["logits"].append(logits)
     out["prefill_cache"] = map_tree(lambda t: t.clone(), cache)
     cache = grow_cache(api, cache, job.steps)
     for i in range(job.steps):
         tok = next_tokens(logits, i)
-        sent, gathered = _messaged(pre, dec), _gathered(pre)
+        if plain is not None:
+            out.setdefault("plain_decode_logits", []).append(plain(
+                params, map_tree(lambda t: t.clone(), cache),
+                {"tokens": tok})[0])
+        sent, gathered, seq = _messaged(pre, dec), _gathered(pre), \
+            _seq_bytes(mesh)
         t0 = time.perf_counter()
         logits, cache = dec(params, cache, {"tokens": tok})
         _sync(ctx.device)
         out["decode_ms"].append((time.perf_counter() - t0) * 1e3)
         out["decode_bytes"].append(_messaged(pre, dec) - sent)
         out["decode_gather_bytes"].append(_gathered(pre) - gathered)
+        out["decode_seq_bytes"].append(tuple(
+            b - a for a, b in zip(seq, _seq_bytes(mesh))))
         out["logits"].append(logits)
     out["cache"] = cache
     out["launches"] = dict(ops.LAUNCHES)
@@ -1050,7 +1083,7 @@ class TrainJob:
     structure: float = 0.9
     label_mask: Optional[np.ndarray] = None
     # the state returned: "params" (final), "ef" (after every step,
-    # compressed), "m" (AdamW's first moment, final)
+    # compressed)
     keep: Tuple[str, ...] = ("params", "ef")
     # fn(api, params) -> params, on the rank's params before step 1
     prepare: Optional[Callable] = None
@@ -1059,6 +1092,12 @@ class TrainJob:
     # before step 1: whether the rank's data blocks, gathered over its data
     # group, are its model index's shard of the same draw (``layout_ok``)
     check_layout: bool = False
+    # the step's act_rules (SP_ACT_RULES: the sequence split over model);
+    # None: ACT_RULES
+    act_rules: Optional[dict] = None
+    # a file (``torch.save``) of the list of whole leaves of a first
+    # moment to hold the rank's against (``m_err``), or None
+    against: Optional[str] = None
 
 
 def _layout_ok(ctx: RankContext, api, mesh, job: TrainJob, params) -> bool:
@@ -1104,12 +1143,19 @@ def train(ctx: RankContext, job: TrainJob) -> dict:
     leaves, pod sums and pod exchange (``data_bytes_per_step``), of its
     model axis's collectives (``model_bytes_per_step``), of its gathers
     of the params' data blocks (``gather_bytes_per_step``) and of their
-    gradients' reduce-scatters (``scatter_bytes_per_step``), its peak device
+    gradients' reduce-scatters (``scatter_bytes_per_step``), under a
+    sequence split (``act_rules``) of the sequence's gathers
+    (``seq_gather_bytes_per_step``) and reduce-scatters
+    (``seq_scatter_bytes_per_step``) over the model axis, apart from
+    ``model_bytes_per_step``, and of the norms' sum over the model group
+    (``norms_bytes_per_step``; all three 0 without one), its peak device
     memory (a card), the error feedback's largest |value| and nonzero
-    count (compressed), and as ``keep`` names them the final ``params``,
-    the ``ef`` after every step (``ef_steps``) and AdamW's final first
-    moment ``m``. On a mesh of ranks the params are the rank's blocks
-    (of ``params``, or drawn from ``seed``)."""
+    count (compressed), and as ``keep`` names them the final ``params``
+    and the ``ef`` after every step (``ef_steps``); with ``against``,
+    AdamW's final first moment held against the saved one (``m_err``,
+    one number a leaf, ``held_against``). On a mesh of
+    ranks the params are the rank's blocks (of ``params``, or drawn from
+    ``seed``)."""
     mesh = make_mesh(*job.mesh, device=ctx.device)
     api = build_model(job.cfg, device=ctx.device, dtype=job.dtype,
                       max_seq=job.seq)
@@ -1126,6 +1172,7 @@ def train(ctx: RankContext, job: TrainJob) -> dict:
                                          "train"),
                              device=ctx.device, mesh=mesh,
                              compress_pod_grads=job.compressed,
+                             act_rules=job.act_rules,
                              param_rules=job.param_rules)
     data = SyntheticTokenStream(job.cfg.vocab_size, job.batch, job.seq,
                                 structure=job.structure)
@@ -1140,6 +1187,9 @@ def train(ctx: RankContext, job: TrainJob) -> dict:
     tp = TP.axis_of(mesh)
     data_stagings = [st for st in (step.gather_staging, step.scatter_staging)
                      if st is not None]
+    seq_stagings = [st for st in (step.seq_gather_staging,
+                                  step.seq_scatter_staging,
+                                  step.norms_staging) if st is not None]
     if ctx.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(ctx.device)
     _sync(ctx.device)
@@ -1148,6 +1198,7 @@ def train(ctx: RankContext, job: TrainJob) -> dict:
     data0 = step.staging.sent + step.staging.collective
     model0 = tp.staging.collective if tp else 0
     fsdp0 = [st.collective for st in data_stagings]
+    seq0 = [st.collective for st in seq_stagings]
     for i in range(job.steps):
         batch = next(data)
         if job.label_mask is not None:
@@ -1175,6 +1226,10 @@ def train(ctx: RankContext, job: TrainJob) -> dict:
     fsdp = [(st.collective - b0) / n for st, b0 in zip(data_stagings, fsdp0)]
     res["gather_bytes_per_step"], res["scatter_bytes_per_step"] = \
         fsdp or (0.0, 0.0)
+    (res["seq_gather_bytes_per_step"], res["seq_scatter_bytes_per_step"],
+     res["norms_bytes_per_step"]) = [
+        (st.collective - b0) / n for st, b0 in zip(seq_stagings, seq0)] \
+        or (0.0, 0.0, 0.0)
     if ctx.device.type == "cuda":
         res["peak_bytes"] = torch.cuda.max_memory_allocated(ctx.device)
     if job.compressed:
@@ -1184,9 +1239,28 @@ def train(ctx: RankContext, job: TrainJob) -> dict:
         res["ef_finite"] = all(bool(torch.isfinite(e).all()) for e in ef)
     if "params" in job.keep:
         res["params"] = params
-    if "m" in job.keep:
-        res["m"] = opt.m
+    if job.against is not None:
+        res["m_err"] = held_against(api, mesh, opt.m, job.against,
+                                    job.param_rules)
     return res
+
+
+def held_against(api, mesh, tree, path: str, rules=None) -> List[float]:
+    """Each leaf of ``tree`` (this rank's blocks) against its block of the
+    same leaf in the list of whole leaves saved at ``path`` (read as a
+    memory map, so a rank reads little more than its blocks): the largest
+    |difference| over the block's largest |value|."""
+    whole = torch.load(path, mmap=True, weights_only=True)
+    out = []
+    for t, w, blk in zip(leaves(tree), whole,
+                         S.param_blocks(api, mesh, rules=rules)):
+        w = (w if blk is None else w[blk]).to(t.device)
+        if w.shape != t.shape:
+            raise ValueError(f"held_against: a block {tuple(t.shape)} "
+                             f"against {tuple(w.shape)}")
+        out.append(float((t - w).abs().max())
+                   / max(float(w.abs().max()), 1e-30))
+    return out
 
 
 def train_each(ctx: RankContext, jobs: Sequence[TrainJob]) -> List[dict]:

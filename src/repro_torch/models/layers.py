@@ -478,7 +478,8 @@ def _xent_chunk_split(hb, lb, mb, w_head, lo: int):
 
 
 def chunked_softmax_xent(h, w_head, labels, *, chunk: int = 512,
-                         label_mask=None, vocab: Optional[int] = None):
+                         label_mask=None, vocab: Optional[int] = None,
+                         seq: bool = False):
     """h: [B, S, D]; w_head: [D, V]; labels: [B, S] int. Returns the mean
     nll over unmasked positions (the reference's ``chunked_softmax_xent``):
     the sequence is cut into chunks of ``min(chunk, S)`` halved until it
@@ -487,12 +488,15 @@ def chunked_softmax_xent(h, w_head, labels, *, chunk: int = 512,
     the chunks' sums are added in order. On a rank of a model axis whose
     ``w_head`` holds a block of the ``vocab`` columns, each chunk is the
     vocab-parallel cross entropy (``_xent_chunk_split``) and ``h`` enters
-    it through ``TP.copy_to_model``."""
+    it through ``TP.copy_to_model``. With ``seq`` (a sequence split) ``h``
+    is this rank's block of the sequence, gathered whole first
+    (``TP.enter``)."""
+    split = vocab is not None and TP.split(w_head.shape[1], vocab)
+    h = TP.enter(h, split, seq)
     B, S, D = h.shape
     c = pick_chunk(S, chunk)
     fn, recompute = _xent_chunk, R.recompute_context()
-    if vocab is not None and TP.split(w_head.shape[1], vocab):
-        h = TP.copy_to_model(h)
+    if split:
         fn = functools.partial(
             _xent_chunk_split, lo=TP.current().index * w_head.shape[1])
     if label_mask is None:

@@ -30,7 +30,11 @@ the whole [E, C, D] buffer (C = T * K rows an expert without dropping).
 In training the tokens entering the dispatch, the gate weights entering
 the combine and the shared experts' input pass ``copy_to_model``, so
 their gradients (and through them the router's) are the whole ones on
-every rank.
+every rank. Under a sequence split (``SP_ACT_RULES``) the layer takes
+the rank's block of the sequence and gathers it whole first: the router,
+the dispatch, the capacity and the shared experts run on the whole
+sequence as without the split, and the output is reduce-scattered back
+to the block in place of each ``reduce_model`` (``TP.leave``).
 """
 from __future__ import annotations
 
@@ -81,7 +85,8 @@ def expert_ffn(p, buf: torch.Tensor) -> torch.Tensor:
 
 def moe_mlp_apply(cfg: ArchConfig, p, x: torch.Tensor, *,
                   capacity_factor: float = CAPACITY_FACTOR,
-                  drop_tokens: bool = True, aux: bool = True):
+                  drop_tokens: bool = True, aux: bool = True,
+                  seq: bool = False):
     """x: [B, S, D] -> ([B, S, D], Switch aux load-balancing loss).
 
     ``drop_tokens=False`` sizes the buffers for the worst case (C =
@@ -91,7 +96,9 @@ def moe_mlp_apply(cfg: ArchConfig, p, x: torch.Tensor, *,
     for the loss (serving never reads it). On a rank of a model axis
     ``p`` holds the rank's experts (or its ``mlp`` columns of all of
     them) and the output is summed over the group (see the module's
-    docstring)."""
+    docstring). With ``seq`` (a sequence split) ``x`` and the output are
+    the rank's block of the sequence, [B, S / M, D]."""
+    x = TP.enter(x, False, seq)
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     T = B * S
@@ -160,6 +167,9 @@ def moe_mlp_apply(cfg: ArchConfig, p, x: torch.Tensor, *,
     for k in range(1, K):
         out = out + y_tok[:, k]
 
+    def leave(t, split):            # [T, D] -> the residual's [B, S, D]
+        return TP.leave(t.reshape(B, S, D), split, seq)
+
     if cfg.num_shared_experts:
         sh = p["shared"]
         shared_split = TP.split(sh["wo"].shape[0],
@@ -168,22 +178,18 @@ def moe_mlp_apply(cfg: ArchConfig, p, x: torch.Tensor, *,
         shared = L.swiglu(xs, sh["wi"], sh["wg"], sh["wo"]).reshape(
             T, D).to(out.dtype)
         if routed_split and shared_split:
-            out = TP.reduce_model(out + shared)
+            out = leave(out + shared, True)
         else:
-            if shared_split:
-                shared = TP.reduce_model(shared)
-            if routed_split:
-                out = TP.reduce_model(out)
-            out = out + shared
-    elif routed_split:
-        out = TP.reduce_model(out)
+            out = leave(out, routed_split) + leave(shared, shared_split)
+    else:
+        out = leave(out, routed_split)
 
     loss = None
     if aux:
         me = gates.mean(0)                                          # [E]
         ce = (onehot.view(T, K, E).sum(1) > 0).float().mean(0)
         loss = (me * ce).sum() * E
-    return out.reshape(B, S, D).to(x.dtype), loss
+    return out.to(x.dtype), loss
 
 
 def moe_block_specs(cfg: ArchConfig) -> Dict[str, Any]:
@@ -200,10 +206,10 @@ def moe_ffn(cfg: ArchConfig):
     """An MoE block's FFN for ``AttnBlock``: inference dispatches without
     capacity dropping, as the reference's ``moe_block_apply`` does outside
     training; training drops at capacity and discards the aux loss, as it
-    does."""
-    def ffn(p, h, train: bool):
+    does; ``seq``: ``h`` is the rank's block of a split sequence."""
+    def ffn(p, h, train: bool, seq: bool = False):
         out, _ = moe_mlp_apply(cfg, p["moe"], h, drop_tokens=train,
-                               aux=False)
+                               aux=False, seq=seq)
         return out
     return ffn
 

@@ -215,7 +215,18 @@ class AttnBlock:
     products that contract a split dim end in ``reduce_model``, and the
     normed input of each split product enters it through
     ``copy_to_model`` (its gradient summed over the group in training);
-    the timeline paths write the rank's KV heads into its cache."""
+    the timeline paths write the rank's KV heads into its cache.
+
+    Where the rule context splits the sequence (``SP_ACT_RULES``,
+    ``TP.seq_split`` of the whole sequence's length) ``x`` in and out of
+    ``forward`` is this rank's block of the sequence, [B, S / M, d]: both
+    norms run on the block, the normed block is gathered where it enters
+    a product (``TP.enter``: as a share of a split product, whole for
+    whole weights), and each product's output returns to the block
+    (``TP.leave``: a reduce-scatter in place of ``reduce_model``, or the
+    rank's block of a whole output). Attention and the FFN see the whole
+    sequence, so the flash kernel's shapes and the cache are those
+    without the split."""
 
     paged = True                # has the paged-cache paths
 
@@ -227,41 +238,41 @@ class AttnBlock:
         self.window = cfg.sliding_window
         self.rolling = bool(self.window)
 
-    def mlp(self, p, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def mlp(self, p, x: torch.Tensor, train: bool = False,
+            seq: bool = False) -> torch.Tensor:
+        """``x`` plus the FFN of its ``ln2`` norm; with ``seq`` (a
+        sequence split) ``x`` is the rank's block and so is the output."""
         h = L.rmsnorm(x, p["ln2"], self.cfg.norm_eps)
         if self.ffn is not None:
-            return x + self.ffn(p, h, train)
+            return x + self.ffn(p, h, train, seq)
         m = p["mlp"]
         split = TP.split(m["wo"].shape[0], self.d_ff)
-        if split:
-            h = TP.copy_to_model(h)
-        y = L.swiglu(h, m["wi"], m["wg"], m["wo"])
-        if split:
-            y = TP.reduce_model(y)
-        return x + y
+        y = L.swiglu(TP.enter(h, split, seq), m["wi"], m["wg"], m["wo"])
+        return x + TP.leave(y, split, seq)
 
-    def attn_out(self, p, ctx: torch.Tensor) -> torch.Tensor:
+    def attn_out(self, p, ctx: torch.Tensor,
+                 seq: bool = False) -> torch.Tensor:
         """The output projection of ``ctx`` [B, S, H, hd], summed over the
-        model group where the heads are split."""
-        y = L.attn_out(p["attn"], ctx)
-        if TP.split(ctx.shape[2], self.cfg.num_heads):
-            y = TP.reduce_model(y)
-        return y
+        model group where the heads are split (``TP.leave``)."""
+        return TP.leave(L.attn_out(p["attn"], ctx),
+                        TP.split(ctx.shape[2], self.cfg.num_heads), seq)
 
-    def qkv(self, p, h, positions, pos3=None):
-        """``L.attn_qkv`` of the normed ``h``. Where the query heads are
-        split over a model axis, ``h`` enters their product through
-        ``TP.copy_to_model``; where the KV heads stayed whole, k and v
-        come from ``h`` itself and enter the rank's attention through
+    def qkv(self, p, h, positions, pos3=None, seq: bool = False):
+        """``L.attn_qkv`` of the normed ``h`` (the rank's sequence block
+        with ``seq``, gathered first: ``TP.enter``). Where the query heads
+        are split over a model axis, ``h`` enters their product as a share
+        (``TP.copy_to_model``); where the KV heads stayed whole, k and v
+        come from the whole ``h`` and enter the rank's attention through
         ``TP.copy_to_model`` (each rank reads some of them), so every
         rank's gradient of ``h``, ``wk`` and ``wv`` is the whole one."""
         a, cfg = p["attn"], self.cfg
-        if not TP.split(a["wq"].shape[1], cfg.num_heads):
-            return L.attn_qkv(a, h, positions, cfg, pos3)
-        hq = TP.copy_to_model(h)
-        if TP.split(a["wk"].shape[1], cfg.num_kv_heads):
-            return L.attn_qkv(a, hq, positions, cfg, pos3)
-        q, k, v = L.attn_qkv(a, h, positions, cfg, pos3, xq=hq)
+        split = TP.split(a["wq"].shape[1], cfg.num_heads)
+        if not split or TP.split(a["wk"].shape[1], cfg.num_kv_heads):
+            return L.attn_qkv(a, TP.enter(h, split, seq), positions, cfg,
+                              pos3)
+        h = TP.enter(h, False, seq)
+        q, k, v = L.attn_qkv(a, h, positions, cfg, pos3,
+                             xq=TP.copy_to_model(h))
         return q, TP.copy_to_model(k), TP.copy_to_model(v)
 
     def kv_heads(self, q: torch.Tensor, k: torch.Tensor):
@@ -272,16 +283,19 @@ class AttnBlock:
     def forward(self, p, x, positions, pos3=None, train: bool = False):
         """The block over a whole sequence: causal (windowed) attention
         through ``L.chunked_attention`` (the flash kernel on the card),
-        then the FFN. Returns (x, k, v) with k, v [B, S, KVH, D]."""
+        then the FFN. Returns (x, k, v) with k, v [B, S, KVH, D]; ``x`` is
+        the rank's sequence block in and out where ``TP.seq_split`` of
+        the positions' length holds."""
         cfg = self.cfg
+        seq = TP.seq_split(positions.shape[-1])
         h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = self.qkv(p, h, positions, pos3)
+        q, k, v = self.qkv(p, h, positions, pos3, seq)
         which = self.kv_heads(q, k)
         ctx = L.chunked_attention(q, TP.take_kv(k, which, 2),
                                   TP.take_kv(v, which, 2), causal=True,
                                   window=self.window)
-        x = x + self.attn_out(p, ctx)
-        return self.mlp(p, x, train), k, v
+        x = x + self.attn_out(p, ctx, seq)
+        return self.mlp(p, x, train, seq), k, v
 
     def train(self, p, x, positions, pos3=None) -> torch.Tensor:
         return self.forward(p, x, positions, pos3, train=True)[0]
@@ -429,10 +443,13 @@ class StackedLM:
                           self.param_specs())
 
     # -- embedding / frontend / head -----------------------------------------
-    def embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+    def embed(self, params, tokens: torch.Tensor,
+              seq: bool = False) -> torch.Tensor:
         """The embedding's rows of ``tokens`` (over its vocab shards on a
-        rank of a model axis, ``TP.embed_lookup``)."""
-        return TP.embed_lookup(params["embed"], tokens, self.cfg.vocab_size)
+        rank of a model axis, ``TP.embed_lookup``; this rank's block of
+        the sequence with ``seq``)."""
+        return TP.embed_lookup(params["embed"], tokens, self.cfg.vocab_size,
+                               seq)
 
     def _fuse_frontend(self, params, x: torch.Tensor, batch) -> torch.Tensor:
         """A modality frontend's fusion into the embedded tokens (none
@@ -497,15 +514,25 @@ class StackedLM:
             return start, end, start
         raise ValueError(f"layers [{start}, {end}) of a stack of {have}")
 
-    def _entry(self, params, batch) -> torch.Tensor:
+    def _entry(self, params, batch, seq: bool = False) -> torch.Tensor:
         """What enters the first layer of a range: the embedded tokens
-        (with the frontend) at layer 0, else ``batch["hidden"]``, the
-        hidden state the previous range returned."""
+        (with the frontend; this rank's block of the sequence with
+        ``seq``) at layer 0, else ``batch["hidden"]``, the hidden state
+        the previous range returned."""
         if "hidden" in batch:
             return batch["hidden"]
         return self._fuse_frontend(params, self.embed(params,
-                                                      batch["tokens"]),
+                                                      batch["tokens"], seq),
                                    batch)
+
+    def seq_norms(self) -> List[str]:
+        """The leaves (``named_leaves`` names) that run on the rank's
+        sequence block under a sequence split: every segment's ``ln1`` and
+        ``ln2`` and the final ``ln_f``. Whole over ``model``, each gets
+        only its block's share of the gradient on a rank, which the train
+        step sums over the model group."""
+        return [f"{seg.name}/{n}" for seg in self.segments
+                for n in ("ln1", "ln2")] + ["ln_f"]
 
     def _block(self, p, x, positions, train: bool = False, pos3=None):
         """One block of the last segment (the served one) over a whole
@@ -536,14 +563,17 @@ class StackedLM:
         function in training (the recompute gathers them again, and no
         whole leaf is saved for the backward); ``params`` outside the
         segments are whole (``_outer``). ``hidden``, when given, receives
-        the embedding and then each block's output."""
+        the embedding and then each block's output. Under a sequence split
+        (``TP.seq_split(S)``) x is this rank's block of the sequence from
+        the embedding on, [B, S / M, d], and so is what returns (and what
+        a remat checkpoint saves)."""
         tokens = batch["tokens"]
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(tokens.shape[1],
                                      device=tokens.device)[None, :]
         pos3 = batch.get("pos3")
-        x = self._entry(params, batch)
+        x = self._entry(params, batch, TP.seq_split(tokens.shape[1]))
         if hidden is not None:
             hidden.append(x)
         caches = {}
@@ -582,14 +612,17 @@ class StackedLM:
         optional ``label_mask``, ``positions``, and a VLM's ``patches`` /
         ``pos3``): every block in train mode, the final norm, and
         ``chunked_softmax_xent`` against the tied embedding or ``head``
-        (the reference's ``StackedLM.loss_fn``)."""
+        (the reference's ``StackedLM.loss_fn``). Under a sequence split
+        the final norm runs on the rank's block, which the loss gathers
+        whole."""
         params = self._outer(params)
         x, _ = self._blocks(params, batch, train=True)
         x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
         w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
-        return L.chunked_softmax_xent(x, w, batch["labels"],
-                                      label_mask=batch.get("label_mask"),
-                                      vocab=self.cfg.vocab_size)
+        return L.chunked_softmax_xent(
+            x, w, batch["labels"], label_mask=batch.get("label_mask"),
+            vocab=self.cfg.vocab_size,
+            seq=TP.seq_split(batch["tokens"].shape[1]))
 
     # -- public: per-layer hidden states (privacy profiling) ------------------
     @torch.no_grad()
@@ -615,10 +648,12 @@ class StackedLM:
         cache, each leaf stacked on a leading layer dim}): an attention
         segment's ``(k, v)`` [L, B, KVH, S, D]. Over a layer range
         (``_blocks``) that stops short of the last layer, x is the hidden
-        state that leaves the range, without the norm."""
+        state that leaves the range, without the norm. Under a sequence
+        split the norm runs on the rank's block, gathered whole after."""
         x, layers = self._blocks(params, batch, start=start, end=end)
         if self._is_last(end):
             x = L.rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
+        x = TP.enter(x, False, TP.seq_split(batch["tokens"].shape[1]))
         return x, {name: _stack(ls) for name, ls in layers.items()}
 
     def _is_last(self, end: Optional[int]) -> bool:

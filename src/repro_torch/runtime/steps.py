@@ -63,11 +63,16 @@ helper's backward gives each rank its shards' gradients and the whole
 leaves' (the norms, the router, KV heads that stay whole) the same bits
 on every rank; the clipping norm counts each block once over the pod's
 (data, model) ranks (``ModelShards``), and the compressed step
-quantizes each block on its whole leaf's absmax.
-Refused by name over a model axis: the ``act_seq_sp`` rules
-(``SP_ACT_RULES``, step 5b), families other than the dense and MoE
-``StackedLM`` and the int8 cache (step 5c). A logical mesh of several
-devices in a process of one rank is refused by name (item 10).
+quantizes each block on its whole leaf's absmax. Under ``SP_ACT_RULES``
+(Megatron-SP, step 5b) the residual stream between blocks is each model
+rank's block of the sequence where ``act_seq_sp`` resolves to ``model``
+(``TP.seq_splits``; a sequence that does not divide, a decode step's
+one position among them, runs as without the rules): the norms then see
+only the rank's block, and the train step sums their gradients over the
+model group once a step (``_norms_sum``).
+Refused by name over a model axis: families other than the dense and
+MoE ``StackedLM`` and the int8 cache (step 5c). A logical mesh of
+several devices in a process of one rank is refused by name (item 10).
 
 On the card the train step runs under ``torch.use_deterministic_algorithms``,
 so a run repeats its bits and a resumed run ends where a straight one
@@ -172,7 +177,7 @@ def replicated(mesh) -> R.NamedSharding:
     return R.NamedSharding(mesh, ())
 
 
-def check_mesh(api: ModelAPI, mesh, what: str, act_rules=None) -> None:
+def check_mesh(api: ModelAPI, mesh, what: str) -> None:
     """The meshes a step of the port runs over: none, a mesh of one
     device (a ``DeviceMesh`` on the model's device type, or a logical
     one), any logical mesh when the model is on ``meta``, where nothing
@@ -197,7 +202,7 @@ def check_mesh(api: ModelAPI, mesh, what: str, act_rules=None) -> None:
                 f"{what}: mesh axes {wide}: ranks run over pod, data and "
                 f"model (ROADMAP queue 1, item 10d)")
         if sizes.get("model", 1) > 1:
-            check_model_axis(api, sizes["model"], what, act_rules)
+            check_model_axis(api, sizes["model"], what)
         return
     raise NotImplementedError(
         f"{what}: a logical mesh of {n} devices {sizes} in a process of "
@@ -206,21 +211,14 @@ def check_mesh(api: ModelAPI, mesh, what: str, act_rules=None) -> None:
         f"item 10)")
 
 
-def check_model_axis(api: ModelAPI, m: int, what: str,
-                     act_rules=None) -> None:
+def check_model_axis(api: ModelAPI, m: int, what: str) -> None:
     """What a model axis of ``m`` ranks runs (ROADMAP item 10d, steps 5a
     and 5b): the prefill and decode serve steps and the train step of the
     dense and MoE ``StackedLM`` (one ``AttnBlock`` class in every
     segment), serving from a bf16 or f32 timeline cache, under rules that
-    keep the sequence whole. The rest raises by name with its roadmap
-    step."""
+    keep the sequence whole or split it over ``model`` (``act_rules``,
+    ``SP_ACT_RULES``). The rest raises by name with its roadmap step."""
     model, cfg = api.model, api.cfg
-    if any(k == "act_seq_sp" and any("model" in c for c in v)
-           for k, v in (act_rules or {}).items()):
-        raise NotImplementedError(
-            f"{what}: act_seq_sp over model (SP_ACT_RULES, Megatron-SP) "
-            f"splits the residual stream's sequence, a training layout; "
-            f"ROADMAP item 10d, step 5b")
     if type(model) is not StackedLM or any(
             type(seg.block) is not AttnBlock for seg in model.segments):
         raise NotImplementedError(
@@ -394,9 +392,14 @@ class ModelShards:
     ``data`` (``data``), and the two per-leaf reductions over the pod's
     ``mesh.LOCAL`` group that make a rank's numbers the whole model's.
     A leaf's block holds the same bits on every rank that holds that
-    block (a whole leaf's gradient comes from whole tensors only,
-    ``sharding.tensor_parallel``; a data block's from the reduce-scatter,
-    ``sharding.fsdp``), so each block is counted once."""
+    block, so each block is counted once: a leaf whole over ``model``
+    gets the whole gradient on every model rank, from whole tensors (a
+    gathered sequence entering whole weights, ``TP.enter``; the summed
+    gradient of a share, ``copy_to_model``), or, for the norms that run
+    on a rank's sequence block under a sequence split, from the step's
+    one f32 sum of their gradients over the model group
+    (``_norms_sum``); a data block's comes from the reduce-scatter
+    (``sharding.fsdp``)."""
 
     def __init__(self, api: ModelAPI, mesh, staging=None, rules=None):
         ax = rank_axes(mesh)
@@ -539,6 +542,19 @@ def _weighted_sum(staging, trees, weight: torch.Tensor, group):
     return [map_tree(lambda _: next(parts), tree) for tree in trees]
 
 
+def _norms_sum(staging, flat: List[torch.Tensor], mask: List[bool],
+               group) -> List[torch.Tensor]:
+    """``flat`` with each gradient where ``mask`` holds summed over
+    ``group`` (the model group) in f32, one collective for all of them,
+    each rounded once to its dtype: the same bits on every rank."""
+    parts = [g for g, m in zip(flat, mask) if m]
+    total = torch.cat([g.float().reshape(-1) for g in parts])
+    RK.all_reduce(staging, total, group, tag="norms_sum")
+    it = iter(t.reshape(g.shape).to(g.dtype) for t, g in
+              zip(total.split([g.numel() for g in parts]), parts))
+    return [next(it) if m else g for g, m in zip(flat, mask)]
+
+
 def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
                     *, device: Optional[Union[str, torch.device]] = None,
                     mesh=None, act_rules=None, param_rules=None,
@@ -568,7 +584,13 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
     leaves, pod sums and pod exchange messaged, ``model_staging`` (None
     without a model axis) those of the model axis's collectives,
     ``gather_staging`` and ``scatter_staging`` (None without a data axis)
-    those of the data axis's gathers and reduce-scatters.
+    those of the data axis's gathers and reduce-scatters. Under a
+    sequence split (``act_rules`` splitting ``shape.seq_len`` over
+    ``model``, ``TP.seq_splits``) ``seq_gather_staging`` and
+    ``seq_scatter_staging`` count the sequence's gathers and
+    reduce-scatters (apart from ``model_staging``) and
+    ``norms_staging`` the norms' sum over the model group; None
+    without one.
     """
     dev = resolve_device(device)
     if dev != api.device:
@@ -581,7 +603,7 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
             "error-feedback exchange (optim/compression.py) runs between "
             "ranks, one a pod; a logical mesh in a process of one rank has "
             "no pods to exchange with (ROADMAP queue 1, item 10)")
-    check_mesh(api, mesh, "make_train_step", act_rules)
+    check_mesh(api, mesh, "make_train_step")
     check_param_rules(api, mesh, param_rules, "make_train_step")
     act_rules = act_rules or R.ACT_RULES
     on_card = dev.type == "cuda"
@@ -597,6 +619,11 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
         if tp is not None or dax is not None else None
     # the leaves whole over data: their gradient joins the weighted sum
     whole = None if dims is None else [d is None for d in leaves(dims)]
+    # under a sequence split, the norms' gradients: a block's share a rank
+    seq = TP.seq_splits(mesh, act_rules, shape.seq_len)
+    norms = [n in api.model.seq_norms()
+             for n in named_leaves(api.param_specs())] if seq else None
+    norms_staging = RK.Staging() if seq else None
     if ranked:
         ax = rank_axes(mesh)
         # plain: every (pod, data) position one share; compressed: shares
@@ -640,6 +667,8 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
             loss = api.loss_fn(_gathered(api, tracked, dims), b)
             flat = list(torch.autograd.grad(loss, leaves(tracked)))
         loss = loss.detach()
+        if norms is not None:
+            flat = _norms_sum(norms_staging, flat, norms, tp.group)
         if weight is not None:
             keep = [g for k, g in enumerate(flat) if whole is None
                     or whole[k]]
@@ -672,7 +701,7 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
                 leaf_totals=shards and shards.leaf_totals)
         return loss, params, opt_state, gnorm
 
-    _train_stagings(train_step, staging, tp, dax)
+    _train_stagings(train_step, staging, tp, dax, norms_staging)
     if not compressed:
         return train_step
     num_pods = ax.size("pod")
@@ -699,7 +728,7 @@ def make_train_step(api: ModelAPI, opt_cfg: AdamWConfig, shape: ShapeConfig,
                 leaf_totals=shards and shards.leaf_totals)
         return loss, params, opt_state, ef, gnorm
 
-    _train_stagings(train_step_compressed, staging, tp, dax)
+    _train_stagings(train_step_compressed, staging, tp, dax, norms_staging)
     return train_step_compressed
 
 
@@ -724,12 +753,16 @@ def _gathered(api: ModelAPI, params, dims):
     return FS.gather_leaves(params, dims)
 
 
-def _train_stagings(step, staging, tp, dax) -> None:
+def _train_stagings(step, staging, tp, dax, norms_staging) -> None:
     """A train step's ``Staging`` attributes (see ``make_train_step``)."""
     step.staging = staging
     step.model_staging = tp.staging if tp is not None else None
     step.gather_staging = dax.staging if dax is not None else None
     step.scatter_staging = dax.scatter if dax is not None else None
+    seq = norms_staging is not None
+    step.seq_gather_staging = tp.seq_gather if seq else None
+    step.seq_scatter_staging = tp.seq_scatter if seq else None
+    step.norms_staging = norms_staging
 
 
 # ---------------------------------------------------------------------------
@@ -812,7 +845,7 @@ def _serve_step(api: ModelAPI, mesh, shape: ShapeConfig, what: str,
     """What a serve step needs: (act_rules, ``_RankRows``, the step's rule
     context's ``data``, ``data_dims``, its stagings), after refusing by
     name what it does not run."""
-    check_mesh(api, mesh, f"make_{what}", act_rules)
+    check_mesh(api, mesh, f"make_{what}")
     check_param_rules(api, mesh, param_rules, f"make_{what}")
     act_rules = act_rules or R.ACT_RULES
     ranks = _RankRows(api, mesh, shape.global_batch, what, act_rules,
@@ -821,7 +854,8 @@ def _serve_step(api: ModelAPI, mesh, shape: ShapeConfig, what: str,
     dax, dims = _data_blocks(api, mesh, param_rules)
     data = None if dax is None else FS.DataBlocks(dax, dims)
     stagings = ([ranks.staging] if ranks.on else []) + \
-        ([tp.staging] if tp is not None else []) + \
+        ([tp.staging, tp.seq_gather, tp.seq_scatter]
+         if tp is not None else []) + \
         ([dax.staging] if dax is not None else [])
     return act_rules, ranks, data, dims, stagings
 

@@ -276,6 +276,11 @@ def current_mesh():
     return _CTX.mesh
 
 
+def current_rules() -> Optional[Rules]:
+    """The active context's activation rules (None outside one)."""
+    return _CTX.rules
+
+
 def current_data():
     """The active context's ``data`` (``sharding.fsdp.current``)."""
     return _CTX.data

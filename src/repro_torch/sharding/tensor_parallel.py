@@ -30,6 +30,34 @@ identity. No model function takes a mesh argument.
                                 logits stay this rank's block of columns
                                 (a serve step's ``sharded_logits``)
 
+Under ``SP_ACT_RULES`` (Megatron-SP: ``act_seq_sp`` over ``model``) the
+residual stream between blocks is this rank's block of the sequence,
+[B, S / M, d], where ``seq_split(S)`` says the rule resolves to
+``model``; the sequence is whole inside attention and each product:
+
+    gather_seq(x, share)        the group's sequence blocks side by side
+                                (dim 1, model order); backward, with
+                                ``share`` (x enters this rank's share of
+                                work, as ``copy_to_model``'s input does)
+                                the group's f32 sum of the gradients cut
+                                to this rank's block (a reduce-scatter
+                                in effect), without it this rank's block of the
+                                gradient, the same on every rank
+    reduce_scatter_seq(partial) this rank's sequence block of
+                                ``reduce_model(partial)``, bit for bit:
+                                its f32 all-reduce cut to the block;
+                                backward: the blocks' gradients gathered
+    keep_seq(x)                 this rank's sequence block of x, which
+                                every rank holds whole; backward: the
+                                blocks' gradients gathered
+    enter(h, split, seq)        a normed ``h`` entering a product that is
+                                ``split`` over model or not, the sequence
+                                split (``seq``) or not: one of the above,
+                                ``copy_to_model`` or ``h``
+    leave(y, split, seq)        the product's output back on the residual
+                                stream: ``reduce_scatter_seq``,
+                                ``reduce_model``, ``keep_seq`` or ``y``
+
 Every model-axis message goes through these, so each has its backward
 (a ``torch.autograd.Function``) in one place and a count on meta tensors
 can see them all. A tensor every rank holds whole has the same value and
@@ -64,12 +92,16 @@ from repro_torch.sharding import rules as R
 class ModelAxis:
     """This rank on the ``model`` axis of a mesh of ranks: its index, the
     axis size, the axis's process group and the host buffers of its
-    messages (``Staging``, which counts their bytes)."""
+    messages (``Staging``, which counts their bytes): the sequence's
+    gathers (``seq_gather``) and reduce-scatters (``seq_scatter``) apart
+    from the rest (``staging``)."""
 
     index: int
     size: int
     group: Any
     staging: Any
+    seq_gather: Any
+    seq_scatter: Any
 
 
 # mesh id -> (the mesh, its ModelAxis); a mesh lives as long as its step
@@ -94,7 +126,7 @@ def axis_of(mesh) -> Optional[ModelAxis]:
     if dist.get_rank(group) != ax.index("model"):
         raise ValueError("the model group's order is not the mesh's")
     out = ModelAxis(ax.index("model"), ax.size("model"), group,
-                    RK.Staging())
+                    RK.Staging(), RK.Staging(), RK.Staging())
     _AXES[id(mesh)] = (mesh, out)
     return out
 
@@ -134,13 +166,37 @@ def split(local: int, whole: int) -> bool:
     return current() is not None and local != whole
 
 
-def _group_sum(ax: ModelAxis, t: torch.Tensor, tag: str) -> torch.Tensor:
+def seq_splits(mesh, rules, seq_len: int) -> bool:
+    """Whether ``act_seq_sp`` under ``rules`` splits a residual stream of
+    ``seq_len`` positions over the model axis of ``mesh``, a mesh of
+    ranks with a model axis above 1: ``resolve_spec`` of [B, seq_len, d]
+    over ``("act_batch", "act_seq_sp", "act_embed")`` gives the sequence
+    ``model``. False under rules that keep it whole (``ACT_RULES``), or
+    where ``seq_len`` does not divide (the rule's fallback ``()``: a
+    decode step's one position)."""
+    if rules is None or axis_of(mesh) is None:
+        return False
+    spec = R.resolve_spec((1, seq_len, 1),
+                          ("act_batch", "act_seq_sp", "act_embed"), mesh,
+                          rules)
+    return len(spec) > 1 and "model" in R._names(spec[1])
+
+
+def seq_split(seq_len: int) -> bool:
+    """``seq_splits`` under the active rule context: whether a residual
+    stream of ``seq_len`` positions is this rank's block of them."""
+    return seq_splits(R.current_mesh(), R.current_rules(), seq_len)
+
+
+def _group_sum(ax: ModelAxis, t: torch.Tensor, tag: str,
+               staging=None) -> torch.Tensor:
     """The f32 sum of ``t`` over the model group, rounded once to ``t``'s
-    dtype, in a new tensor (``t`` is not written)."""
+    dtype, in a new tensor (``t`` is not written); its bytes count in
+    ``staging`` (default ``ax.staging``)."""
     from repro_torch.launch import ranks as RK
     total = torch.empty(t.shape, dtype=torch.float32, device=t.device)
     total.copy_(t)
-    RK.all_reduce(ax.staging, total, ax.group, tag=tag)
+    RK.all_reduce(staging or ax.staging, total, ax.group, tag=tag)
     return total.to(t.dtype)
 
 
@@ -185,6 +241,132 @@ class _GatherModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad.narrow(ctx.dim, ctx.ax.index * ctx.n, ctx.n), None, None
+
+
+def _scatter_sum(ax: ModelAxis, t: torch.Tensor) -> torch.Tensor:
+    """This rank's block along dim 1 of the f32 sum of ``t`` over the model
+    group, rounded once to ``t``'s dtype: ``_group_sum``'s all-reduce (the
+    one ``reduce_model`` sends, the same partials added in the same order)
+    cut to the block, so the block is ``reduce_model(t)``'s bit for bit
+    over any number of ranks. A backend's reduce-scatter would move half
+    the bytes on the wire but adds in its own order (gloo's over four
+    ranks is not its all-reduce's). Its bytes count in ``seq_scatter``."""
+    total = _group_sum(ax, t, "reduce_scatter_seq", ax.seq_scatter)
+    return _own_block(ax, total).contiguous()
+
+
+def _gather_blocks(ax: ModelAxis, x: torch.Tensor) -> torch.Tensor:
+    """The group's blocks of ``x`` side by side along dim 1."""
+    from repro_torch.launch import ranks as RK
+    every = RK.all_gather(ax.seq_gather, x.contiguous(), ax.group,
+                          tag="gather_seq")
+    return torch.cat(every.unbind(0), dim=1)
+
+
+def _own_block(ax: ModelAxis, x: torch.Tensor) -> torch.Tensor:
+    n = x.shape[1] // ax.size
+    return x.narrow(1, ax.index * n, n)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The group's sequence blocks side by side; the input's gradient is
+    the reduce-scatter of the ranks' shares (``share``) or this rank's
+    block of a gradient every rank holds whole."""
+
+    @staticmethod
+    def forward(ctx, x, ax, share):
+        ctx.ax, ctx.share = ax, share
+        return _gather_blocks(ax, x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.share:
+            return _scatter_sum(ctx.ax, grad), None, None
+        return _own_block(ctx.ax, grad), None, None
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    """This rank's sequence block of the group's f32 sum; the partial's
+    gradient is the whole one, its blocks gathered."""
+
+    @staticmethod
+    def forward(ctx, partial, ax):
+        ctx.ax = ax
+        return _scatter_sum(ax, partial)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_blocks(ctx.ax, grad), None
+
+
+class _KeepSeq(torch.autograd.Function):
+    """This rank's sequence block of a tensor every rank holds whole; its
+    gradient is the whole one, the blocks' gathered."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return _own_block(ax, x).clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_blocks(ctx.ax, grad), None
+
+
+def gather_seq(x: torch.Tensor, share: bool = True) -> torch.Tensor:
+    """The model group's sequence blocks of ``x`` [B, S / M, ...] side by
+    side, [B, S, ...] (every rank's the same bits). Backward with
+    ``share`` (``x`` enters work of which this rank does its share): this
+    rank's block of the ranks' gradients summed in f32 and rounded once
+    (``_scatter_sum``); without it
+    (every rank's gradient is the whole one) this rank's block. The
+    identity with no model axis."""
+    ax = current()
+    if ax is None:
+        return x
+    return _GatherSeq.apply(x, ax, share)
+
+
+def reduce_scatter_seq(partial: torch.Tensor) -> torch.Tensor:
+    """This rank's block along the sequence (dim 1) of the sum over the
+    model group of each rank's ``partial``, added in f32 and rounded once
+    (``reduce_model`` cut to the block, bit for bit: ``_scatter_sum``);
+    backward,
+    the blocks' gradients gathered. The identity with no model axis."""
+    ax = current()
+    if ax is None:
+        return partial
+    return _ReduceScatterSeq.apply(partial, ax)
+
+
+def keep_seq(x: torch.Tensor) -> torch.Tensor:
+    """This rank's block along the sequence (dim 1) of ``x``, which every
+    rank holds whole; backward, the blocks' gradients gathered. The
+    identity with no model axis."""
+    ax = current()
+    if ax is None:
+        return x
+    return _KeepSeq.apply(x, ax)
+
+
+def enter(h: torch.Tensor, split: bool, seq: bool) -> torch.Tensor:
+    """A normed ``h`` (the rank's sequence block where ``seq``) as it
+    enters a product over this rank's shard (``split``) or over whole
+    weights: gathered, as a share or whole, under a sequence split, else
+    ``copy_to_model`` or ``h`` itself."""
+    if seq:
+        return gather_seq(h, share=split)
+    return copy_to_model(h) if split else h
+
+
+def leave(y: torch.Tensor, split: bool, seq: bool) -> torch.Tensor:
+    """A product's output [B, S, ...] back on the residual stream: summed
+    over the model group where ``split`` (reduce-scattered to the rank's
+    block under a sequence split, ``seq``), else whole (the rank's block
+    of it under a sequence split)."""
+    if split:
+        return reduce_scatter_seq(y) if seq else reduce_model(y)
+    return keep_seq(y) if seq else y
 
 
 def reduce_model(partial: torch.Tensor) -> torch.Tensor:
@@ -234,23 +416,25 @@ def max_model(x: torch.Tensor) -> torch.Tensor:
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
-                 vocab: int) -> torch.Tensor:
+                 vocab: int, seq: bool = False) -> torch.Tensor:
     """``table[ids]`` for an embedding of ``vocab`` rows, of which
     ``table`` holds this rank's block when the vocab is split: each rank
     looks up the ids in its block (zeros elsewhere) and the reduce adds
     the one nonzero row of each id, so the rows are the whole table's
     bit for bit. Backward: the reduce passes the rows' gradient to every
-    rank, and the masked lookup gives it to the rank's own rows only."""
+    rank, and the masked lookup gives it to the rank's own rows only.
+    With ``seq`` (a sequence split) the rows are this rank's block of
+    the sequence (``leave``: the reduce is a reduce-scatter)."""
     ids = ids.long()
     if not split(table.shape[0], vocab):
-        return table[ids]
+        return leave(table[ids], False, seq)
     n = table.shape[0]
     local = ids - current().index * n
     mine = (local >= 0) & (local < n)
     rows = table[torch.where(mine, local, torch.zeros_like(local))]
     rows = torch.where(mine[..., None], rows,
                        torch.zeros((), dtype=rows.dtype, device=rows.device))
-    return reduce_model(rows)
+    return leave(rows, True, seq)
 
 
 def kv_for_heads(num_heads: int, num_kv_heads: int, local_heads: int,

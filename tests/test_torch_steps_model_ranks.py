@@ -29,7 +29,8 @@ rank:
     on glm4-9b's (2, 4)); the sharded draw equals ``shard_params`` of the
     whole draw bit for bit.
 (e) What the model axis does not run yet is refused by name with its
-    roadmap step; the train step builds (step 5b).
+    roadmap step; the train step and the prefill step under
+    ``SP_ACT_RULES`` build (step 5b).
 
 The helpers of ``sharding.tensor_parallel`` on 2 gloo ranks:
 ``reduce_model`` gives both ranks the f32 sum rounded once, the
@@ -345,7 +346,8 @@ def test_what_the_model_axis_does_not_run_is_refused_by_name(steps):
     for errs in steps[1]:
         # the train step runs over a model axis since step 5b
         assert errs["train"] == "built", errs["train"]
-        assert "act_seq_sp" in errs["sp"] and "step 5b" in errs["sp"]
+        # and under SP_ACT_RULES (Megatron-SP) since step 5b's rest
+        assert errs["sp"] == "built", errs["sp"]
         assert "int8" in errs["int8"] and "step 5c" in errs["int8"]
         assert "model axis" in errs["decoder"] and "step 5c" in errs["decoder"]
         assert errs["whole_params"].startswith("ValueError") \
