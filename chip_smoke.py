@@ -509,6 +509,13 @@ PAGED_LONG = dict(MP=34, N=116, seq_lens=(544, 0, 1, 16, 17, 300, 543, 129))
 PAGED_D128 = {"d128 rep3": dict(KVH=8, rep=3, D=128, MP=10, N=30),
               "d128 rep16": dict(KVH=2, rep=16, D=128, MP=10, N=30),
               "d128 rep1": dict(KVH=16, rep=1, D=128, MP=10, N=30)}
+# a rank's shard over a model axis (phase 27): glm4-9b's 8 query heads a
+# rank of 4 read KV head 1 of its 2, whole on every rank, in place
+# (kv_head0 = 1, the rank's rep 8; the query heads of rank 2); llama3.2-1b's
+# 16 query heads a rank of 2 over its 4 KV heads (the plain launch)
+PAGED_RANK = {"glm4 rank kv_head0": dict(KVH=2, rep=16, D=128, MP=10, N=30,
+                                         heads=(16, 24), kv0=1),
+              "llama rank": dict(KVH=4, rep=4, D=64, MP=10, N=30)}
 # the page cipher's row on the swap and handoff paths (``gather_pages``:
 # [pages, layers x KV heads x page size x head_dim]) for the three served
 # models; the first is the kernels line's shape
@@ -540,6 +547,56 @@ def paged_inputs(torch, dtype, B=8, KVH=8, rep=4, D=64, Pg=16, MP=10, N=30,
     dev = "cuda"
     return (q.to(dev, dtype), k.to(dev, dtype), v.to(dev, dtype),
             torch.from_numpy(bt).to(dev), torch.from_numpy(sl).to(dev))
+
+
+def paged_rank_inputs(torch, dtype, shape):
+    """``paged_inputs`` at a ``PAGED_RANK`` shape: (q, pools, tables,
+    seq_lens, the launch's kv_head0 / rep keywords); q holds the rank's
+    query heads ``heads`` of the whole model's where it reads KV heads
+    from ``kv0`` of pools that hold them all."""
+    shape = dict(shape)
+    heads, kv0 = shape.pop("heads", None), shape.pop("kv0", None)
+    q, k, v, bt, sl = paged_inputs(torch, dtype, **shape)
+    if heads is None:
+        return q, k, v, bt, sl, {}
+    q = q[:, heads[0]:heads[1]].contiguous()
+    return q, k, v, bt, sl, dict(kv_head0=kv0, rep=heads[1] - heads[0])
+
+
+def check_paged_rank(torch, ops, ref):
+    """The paged kernel at a model-axis rank's shapes (``PAGED_RANK``):
+    against the plain version with the same ``kv_head0`` and rep, and that
+    against the plain version on the pool cut to those heads, bf16 and
+    f32 at ``check_paged_attention``'s tolerances; a repeat bit-equal.
+    Returns the largest bf16 error."""
+    worst = 0.0
+    for dtype, tol in ((torch.bfloat16, dict(atol=1e-3, rtol=1e-2)),
+                       (torch.float32, dict(atol=3e-5, rtol=3e-5))):
+        for name, shape in PAGED_RANK.items():
+            q, k, v, bt, sl, kw = paged_rank_inputs(torch, dtype, shape)
+            got = ops.paged_attention(q, k, v, bt, sl, **kw)
+            again = ops.paged_attention(q, k, v, bt, sl, **kw)
+            want = ref.paged_attention_ref(q, k, v, bt, sl, **kw)
+            if kw:
+                g = q.shape[1] // kw["rep"]
+                cut = [t[:, kw["kv_head0"]:kw["kv_head0"] + g].contiguous()
+                       for t in (k, v)]
+                assert torch.equal(want, ref.paged_attention_ref(
+                    q, *cut, bt, sl)), name
+            torch.cuda.synchronize()
+            live = sl > 0
+            assert torch.equal(got, again), "repeated call not bit-equal"
+            assert not got[~live].float().any(), "idle rows must be zero"
+            err = (got[live].float() - want[live].float()).abs().max().item()
+            torch.testing.assert_close(got[live].float(), want[live].float(),
+                                       **tol)
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+            log(f"check paged_attention {dtype} {name} (H={q.shape[1]}, "
+                f"pools KVH={k.shape[1]}, {kw or 'plain launch'}, "
+                f"D={q.shape[2]}): max_abs_err={err:.3e} ({tol}), plain "
+                f"with kv_head0 = plain on the cut pool, repeat bit-equal")
+    return worst
 
 
 def check_paged_attention(torch, ops, ref):
@@ -1007,18 +1064,26 @@ def time_flash(torch, ops, ref, F):
             for name, case in {**FLASH_PATH, **FLASH_D128}.items()}
 
 
-def time_paged(torch, ops, ref, F, shape, inputs=None):
+def time_paged(torch, ops, ref, F, shape, inputs=None, kw=None):
     """ms of the paged decode kernel, its plain version and SDPA over K/V
     gathered beforehand, in bf16, with the bound, at ``paged_inputs``'s
-    ``shape`` or on the given ``inputs``."""
+    ``shape`` or on the given ``inputs``; ``kw`` a rank's ``kv_head0`` /
+    ``rep`` launch (the bytes and SDPA then count the KV heads it
+    reads)."""
     q, k, v, bt, sl = inputs or paged_inputs(torch, torch.bfloat16, **shape)
+    kw = kw or {}
     B, H, D = q.shape
     N, KVH, Pg, _ = k.shape
     MP = bt.shape[1]
+    ms = time_ms(lambda: ops.paged_attention(q, k, v, bt, sl, **kw))
+    in_graph = graph_ms(lambda: ops.paged_attention(q, k, v, bt, sl, **kw))
+    plain = time_ms(lambda: ref.paged_attention_ref(q, k, v, bt, sl, **kw),
+                    20)
+    if kw:                                # the KV heads the launch reads
+        KVH = H // kw["rep"]
+        k = k[:, kw["kv_head0"]:kw["kv_head0"] + KVH]
+        v = v[:, kw["kv_head0"]:kw["kv_head0"] + KVH]
     rep = H // KVH
-    ms = time_ms(lambda: ops.paged_attention(q, k, v, bt, sl))
-    in_graph = graph_ms(lambda: ops.paged_attention(q, k, v, bt, sl))
-    plain = time_ms(lambda: ref.paged_attention_ref(q, k, v, bt, sl), 20)
     # library yardstick: SDPA over K/V gathered beforehand (not timed)
     btl = bt.long()
     kg = k[btl].permute(0, 2, 1, 3, 4).reshape(B, KVH, MP * Pg, D)
@@ -1045,7 +1110,8 @@ def time_paged(torch, ops, ref, F, shape, inputs=None):
     res = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                bound_by=b_by, bytes=nbytes, flops=flops, graph_ms=in_graph)
     log(f"time paged_attention bf16 B={B} KVH={KVH} rep={rep} D={D} Pg={Pg} "
-        f"MP={MP} N={N}: kernel {ms * 1e3:.2f} us, in a graph "
+        f"MP={MP} N={N}{' ' + str(kw) if kw else ''}: kernel "
+        f"{ms * 1e3:.2f} us, in a graph "
         f"{in_graph * 1e3:.2f} us, plain "
         f"{plain * 1e3:.1f} us, sdpa {lib * 1e3:.2f} us, bound "
         f"{b_ms * 1e3:.3f} us ({b_by}, "
@@ -1061,6 +1127,10 @@ def time_kernels(torch, ops, ref, sealing, F):
                                               PAGED_LONG)}
     for name, shape in PAGED_D128.items():
         out[f"paged_attention {name}"] = time_paged(torch, ops, ref, F, shape)
+    for name, shape in PAGED_RANK.items():
+        q, k, v, bt, sl, kw = paged_rank_inputs(torch, torch.bfloat16, shape)
+        out[f"paged_attention {name}"] = time_paged(
+            torch, ops, ref, F, None, (q, k, v, bt, sl), kw)
 
     g = torch.Generator(device="cuda").manual_seed(2)
     for model, cols in CIPHER_COLS.items():
@@ -5312,208 +5382,18 @@ def pod_ranks(torch, ops, smi):
 
 
 # ---------------------------------------------------------------------------
-# phase 20: the serving engine over pod ranks (ROADMAP item 10b, first
-# half): phase 6's stream with stage s on rank s, gloo on the one card
+# the engine over ranks (phases 21 to 23 and 27; phase 20, the engine on 2
+# pod ranks, was cut for the script's time): phase 6's flags, its
+# straggler, and the cut of its stream the live re-plans serve (the swap
+# comes within its first requests)
 RANKS_SERVE = FULL_WIDTH + ["--backend", "pipelined"]      # phase 6's flags
 RANKS_STRAGGLER = (1, 10.0)          # serve's --inject-straggler 1:10
-# (b) and the sealed run with the straggler serve phase 6's first
-# requests (as phase 22b does): the swap comes within them, and the whole
-# stream's three more runs took about 20 s of the script's time
 RANKS_REPLAN_REQUESTS = 8
 
 
 def _p50(xs):
     xs = sorted(xs)
     return xs[len(xs) // 2] if xs else float("nan")
-
-
-def serve_ranks(torch, ops, smi, phase6=None):
-    """20. ``ServingEngine(mesh=)``: phase 6's stream (full-width
-    llama3.2-1b in bf16, pipelined, 8 slots, 30 pages, stage blocks
-    (1, 15)) on two pod ranks spawned on the card over gloo, each rank
-    holding its stage's layers of the params and the pools, in one spawn:
-    (a) sealed: streams bit-equal to phase 6's one-card engine (``phase6``,
-    or run here first when the phase runs alone); swap-outs > 0 and every
-    swap-in restored bit for bit; per rank paged launches = its layers x
-    (microbatches x decode steps + its stage probes), flash = its layers x
-    prefill calls; seals on rank 0 = unseals on rank 1 = microbatches x
-    steps; the windowed cipher 2 x swap-outs and 2 x swap-ins, the prefill
-    crossings (the page cipher) one a prefill call; (b) unsealed, without
-    and with ``--inject-straggler 1:10`` (each on the stream's first
-    ``RANKS_REPLAN_REQUESTS`` requests): a swap that migrates layers
-    between the ranks, other final stage blocks, the same streams (the
-    quantizing seal makes streams depend on the boundary, which is why
-    serve's ``--verify-swap`` runs unsealed; a sealed run with the
-    straggler is read against (a)); (c) the ranks' parts of the
-    first swap-out, side by side, byte-equal to phase 6's first payload
-    with its ``payload_digest``; (d) no (key, counter) pair sealed twice
-    on a rank, nor on both but as the two windows of one row; every rank's
-    events and stats the same. Prints host ms a decode step on each rank
-    beside phase 6's, admission p50/p99, a prefill crossing's and a
-    restage's host ms and bytes, swap-out and swap-in host ms, and how
-    many of (a)'s streams a sealed run with the straggler keeps (read,
-    not held). Returns the ranks' launch counts, summed."""
-    import dataclasses
-
-    import numpy as np
-
-    from repro_torch.enclave import sealing
-    from repro_torch.launch import rank_jobs, serve
-    from repro_torch.launch.ranks import spawn
-    t_phase = time.perf_counter()
-    _free(torch)
-    argv = [DEV if a == "cuda" else a for a in RANKS_SERVE]
-    args = serve.build_parser().parse_args(argv)
-    cfg = _family_cfg("llama3.2-1b")
-    if phase6 is None:                    # run alone: phase 6 first
-        from repro_torch.models.api import build_model
-        api = build_model(cfg, device=DEV, dtype=torch.bfloat16)
-        params = api.init(torch.Generator(device=DEV).manual_seed(
-            args.seed))
-        phase6 = serve_full_width(torch, ops, api, params, argv, 6,
-                                  plan=(1, cfg.num_layers - 1))
-        del api, params
-        _free(torch)
-    L, nm = cfg.num_layers, args.microbatches
-    reqs = [(p, args.max_new)
-            for p in serve.gen_prompts(args, cfg.vocab_size)]
-    sealed = serve.make_config(args)
-    calm = dataclasses.replace(sealed, seal_boundary=False)
-    cut = reqs[:RANKS_REPLAN_REQUESTS]
-    runs = [rank_jobs.ServeRun(c, rs, every=args.arrival_every,
-                               inject=inject, check_swaps=True)
-            for c, rs, inject in ((sealed, reqs, None), (calm, cut, None),
-                                  (calm, cut, RANKS_STRAGGLER),
-                                  (sealed, cut, RANKS_STRAGGLER))]
-    t0 = time.perf_counter()
-    out = spawn(rank_jobs.serve, 2, backend="gloo", device=DEV, args=(
-        rank_jobs.ServeJob(cfg, runs, dtype=torch.bfloat16,
-                           seed=args.seed),))
-    spawn_s = time.perf_counter() - t0
-    launches = {k: 0 for k in ops.LAUNCHES}
-    for res in out:
-        for r in res:
-            for k in launches:
-                launches[k] += r["launches"][k]
-    for i in range(len(runs)):            # (d), and one decision a step
-        r0, r1 = out[0][i], out[1][i]
-        assert r0["events"] == r1["events"] and r0["stats"] == r1["stats"]
-        bad = rank_jobs.keystream_reuse([r0["keys"], r1["keys"]])
-        assert not bad, ("20d: a (key, counter) pair ciphered twice",
-                         bad[:3])
-    # (a) phase 6's stream on ranks, sealed
-    a = [res[0] for res in out]
-    st = a[0]["stats"]
-    # phase 6's plan, and no live swap: a sealed boundary moved would
-    # change the streams (a re-plan to the same blocks moves nothing)
-    assert st["stage_blocks"] == (1, L - 1) and st["swaps"] == 0, st
-    assert st["swap_outs"] > 0 and st["swap_ins"] > 0, st
-    for rank, r in enumerate(a):
-        assert r["status"] == ["done"] * len(reqs), r["status"]
-        assert r["streams"] == phase6["streams"], \
-            ("20a: streams differ from phase 6's one-card engine", rank)
-        assert r["restored"] > 0 and r["moved"] == 0, r["restored"]
-        lo, hi = r["range"]
-        steps, lc = r["decode_steps"], r["launches"]
-        if DEV == "cuda":
-            assert lc["paged_attention"] == (hi - lo) * (
-                nm * steps + r["probes"]), (rank, lc, steps, r["probes"])
-            assert lc["flash_attention"] == (hi - lo) * st["prefill_calls"]
-            assert lc["seal"] == (nm * steps if rank == 0 else 0), lc
-            assert lc["unseal"] == (nm * steps if rank == 1 else 0), lc
-            assert lc["seal_bits_window"] == 2 * st["swap_outs"], lc
-            assert lc["unseal_bits_window"] == 2 * st["swap_ins"], lc
-            assert lc["seal_bits"] == (st["prefill_calls"] if rank == 0
-                                       else 0), lc
-            assert lc["unseal_bits"] == (st["prefill_calls"] if rank == 1
-                                         else 0), lc
-    cross = a[0]["crossings"]
-    log(f"phase 20a llama3.2-1b ({L} layers) bf16, phase 6's stream on 2 "
-        f"pod ranks (stage blocks {st['stage_blocks']}: rank 0 layers "
-        f"{a[0]['range']}, rank 1 {a[1]['range']}), sealed: streams "
-        f"bit-equal to phase 6's one-card engine; {st['completed']} "
-        f"requests, {a[0]['decode_steps']} decode steps, swap-outs "
-        f"{st['swap_outs']}, swap-ins {st['swap_ins']} ({a[0]['restored']} "
-        f"/ {a[1]['restored']} pages restored bit-exact on rank 0 / 1); "
-        f"host ms a decode step p50 rank 0 {_p50(a[0]['step_ms']):.3f}, "
-        f"rank 1 {_p50(a[1]['step_ms']):.3f}, mean "
-        f"{sum(a[0]['step_ms']) / len(a[0]['step_ms']):.3f} / "
-        f"{sum(a[1]['step_ms']) / len(a[1]['step_ms']):.3f} (phase 6 one "
-        f"card {phase6['step_ms']:.3f} mean); admission p50 / p99 "
-        f"{st['admission_p50_ms']:.1f} / {st['admission_p99_ms']:.1f} ms "
-        f"(phase 6 {phase6['admission'][0]:.1f} / "
-        f"{phase6['admission'][1]:.1f}) [{smi}]")
-    log(f"phase 20a: a prefill crossing (rank 0 -> 1, sealed with the page "
-        f"cipher): host ms p50 {_p50([c[0] for c in cross]):.4f} over "
-        f"{len(cross)}, bytes {cross[0][1]} for the first "
-        f"({cross[0][1] // (2 * cfg.d_model)} positions), "
-        f"{sum(c[1] for c in cross)} in all; swap-out host ms p50 rank 0 "
-        f"{_p50(a[0]['swap_out_ms']):.3f}, rank 1 "
-        f"{_p50(a[1]['swap_out_ms']):.3f}; swap-in "
-        f"{_p50(a[0]['swap_in_ms']):.3f} / {_p50(a[1]['swap_in_ms']):.3f}; "
-        f"decode bytes sent a step p50 rank 0 {_p50(a[0]['step_bytes'])}; "
-        f"launches rank 0 {a[0]['launches']}, rank 1 {a[1]['launches']}")
-    # (c) the first swap-out's parts, side by side, are phase 6's payload
-    want = phase6["first_swap"]
-    parts = [r["first_swap"] for r in a]
-    assert all(p["counter"] == want["counter"] for p in parts), parts
-    whole = tuple(np.concatenate([p["payload"][i] for p in parts], axis=1)
-                  for i in range(2))
-    for got, exp in zip(whole, want["payload"]):
-        assert got.dtype == exp.dtype and got.shape == exp.shape and \
-            bytes(got.tobytes()) == bytes(exp.tobytes()), \
-            "20c: the ranks' parts are not phase 6's payload"
-    digest = sealing.payload_digest(whole)
-    assert digest == sealing.payload_digest(want["payload"])
-    log(f"phase 20c: first swap-out (counter {want['counter']}): rank 0's "
-        f"part {parts[0]['payload'][0].shape} and rank 1's "
-        f"{parts[1]['payload'][0].shape} per plane, side by side, "
-        f"byte-equal to phase 6's {want['payload'][0].shape} with the same "
-        f"payload_digest")
-    # (b) a live re-plan over the ranks, unsealed
-    b0, b1 = out[0][1], out[0][2]
-    for rank in range(2):
-        assert out[rank][2]["streams"] == out[rank][1]["streams"], \
-            ("20b: streams differ across the live swap", rank)
-    s0, s1 = b0["stats"], b1["stats"]
-    assert s1["swaps"] >= 1 and s1["stage_blocks"] != s0["stage_blocks"]
-    assert any(kind == "swap" and d["migrated"]
-               for _, kind, d in b1["events"]), b1["events"]
-    rest = [res[2]["restages"] for res in out]
-    swaps = ", ".join(f"{d['from']}->{d['to']}" for _, kind, d
-                      in b1["events"] if kind == "swap")
-    log(f"phase 20b: unsealed, with --inject-straggler 1:10: {s1['swaps']} "
-        f"live swaps ({swaps}), final stage blocks {s1['stage_blocks']} against "
-        f"{s0['stage_blocks']} undisturbed, streams equal; a restage's host "
-        f"ms and bytes sent, rank 0 "
-        f"{[(round(m, 2), n) for m, n in rest[0]]}, rank 1 "
-        f"{[(round(m, 2), n) for m, n in rest[1]]}; swap-ins across a "
-        f"re-plan {b1['relayouts']}; host ms a decode step p50 "
-        f"{_p50(b0['step_ms']):.3f} undisturbed")
-    # the same straggler with the boundary sealed: the int8 seal moves
-    # with the boundary, so the streams may part from (a)'s at near-ties
-    # of the logits (read, not held)
-    d = out[0][3]
-    assert d["stats"]["swaps"] >= 1 and any(
-        kind == "swap" and e["migrated"] for _, kind, e in d["events"])
-    same = sum(x == y for x, y in zip(d["streams"], a[0]["streams"]))
-    first = min((i for x, y in zip(d["streams"], a[0]["streams"])
-                 for i, (p, q) in enumerate(zip(x, y)) if p != q),
-                default=None)
-    log(f"phase 20b, sealed with the straggler (final stage blocks "
-        f"{d['stats']['stage_blocks']}): {same} of {len(cut)} streams "
-        f"equal 20a's; the earliest parting at token {first} (the int8 "
-        f"boundary moved; not held)")
-    log(f"phase 20d: (key, counter) pairs sealed under, rank 0 / rank 1: "
-        f"{len(a[0]['keys'])} / {len(a[1]['keys'])} (20a), "
-        f"{len(b1['keys'])} / {len(out[1][2]['keys'])} (20b straggler); "
-        f"none twice, the swaps' shared by the two ranks only as disjoint "
-        f"windows of one row; every rank's events and stats equal")
-    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s (the spawn "
-        f"{spawn_s:.1f} s)")
-    step_p50 = [_p50(r["step_ms"]) for r in a]
-    del out
-    return [{"launches": launches, "step_ms_p50": step_p50}]
 
 
 # phase 21: the data axis over ranks (ROADMAP item 10d, steps 1-2): phase
@@ -5587,7 +5467,7 @@ def _first_step_logits(torch, api, params, argv, microbatches):
     return probe.logits[0]
 
 
-def serve_data_ranks(torch, ops, smi, phase6=None, phase20=None):
+def serve_data_ranks(torch, ops, smi, phase6=None, also=None):
     """21. The data axis over ranks, ``make_mesh((2, 2), ("pod",
     "data"))`` on four gloo ranks spawned on the card in one spawn (the
     reference's own engine layout, ``tests/test_serving.py:392``):
@@ -5605,7 +5485,11 @@ def serve_data_ranks(torch, ops, smi, phase6=None, phase20=None):
     exchange a decode step (its inverse the same on pod 1's side). The
     streams: the phase first holds one stage's decode step at 4 rows
     against its 2-row halves (``_split_bits``); if they agree the streams
-    must equal phase 6's; if not, each data rank's first decode step's
+    must equal phase 6's, and (c) data rank 0 of each pod seals its pod's
+    part of a swap, the parts side by side phase 6's first payload byte
+    for byte with its ``payload_digest`` (phase 20 held this on two pod
+    ranks before it was cut: 21, 22 and 27a serve over the pod axis); if
+    not, each data rank's first decode step's
     logits must equal the one-card engine's at 4 microbatches (2-row
     stage calls) bit for bit, and the phase prints how many of the 16
     streams equal phase 6's. (b) ``make_prefill_step`` at 8 x MESH_S and
@@ -5615,11 +5499,17 @@ def serve_data_ranks(torch, ops, smi, phase6=None, phase20=None):
     before use): each rank's logits rows and cache rows bit-equal to the
     one-card ``prefill_fn`` / ``decode_fn`` on its 2 rows, the whole [8,
     V] logits the same on every rank. Prints host ms
-    a decode step on each rank beside phase 20's and phase 6's,
+    a decode step on each rank beside phase 6's,
     admission p50 / p99, the KV exchange's bytes and host ms a step, a
     prefill crossing's host ms and bytes, swap-out and swap-in host ms a
     rank and the serve steps' host ms and gather bytes. Returns the ranks'
-    launch counts, summed."""
+    launch counts, summed, phase 21's eager figures (``eager``) and, for
+    ``also`` (``warm_jobs``' jobs and context, run in the same spawn after
+    21's: one start-up for both phases), their results a rank and the
+    context (``also``)."""
+    import numpy as np
+
+    from repro_torch.enclave import sealing
     from repro_torch.launch import rank_jobs, serve
     from repro_torch.launch.ranks import spawn
     from repro_torch.models.api import build_model
@@ -5654,12 +5544,14 @@ def serve_data_ranks(torch, ops, smi, phase6=None, phase20=None):
                                    dtype=torch.bfloat16, seed=args.seed)
     _free(torch)
     t0 = time.perf_counter()
+    more = list(also[0]) if also else []
     out = spawn(rank_jobs.chain, P * D, backend="gloo", device=DEV, args=([
         (rank_jobs.serve, rank_jobs.ServeJob(cfg, [run],
                                              dtype=torch.bfloat16,
                                              seed=args.seed, data=D)),
-        (rank_jobs.serve_steps, steps_job)],))
+        (rank_jobs.serve_steps, steps_job)] + more,))
     spawn_s = time.perf_counter() - t0
+    later = ([res[2:] for res in out], also[1]) if also else None
     a = [res[0][0] for res in out]
     b = [res[1] for res in out]
     launches = {k: 0 for k in ops.LAUNCHES}
@@ -5705,6 +5597,26 @@ def serve_data_ranks(torch, ops, smi, phase6=None, phase20=None):
     if halves_equal:
         assert same == len(reqs), \
             ("21a: streams differ from phase 6's one-card engine", same)
+        # (c) data rank 0 of each pod seals its pod's part of a swap: the
+        # parts side by side are phase 6's first payload, byte for byte
+        want = phase6["first_swap"]
+        parts = [r["first_swap"] for r in a if r["data"] == 0]
+        assert all(p["counter"] == want["counter"] for p in parts), parts
+        whole = tuple(np.concatenate([p["payload"][i] for p in parts],
+                                     axis=1) for i in range(2))
+        for got, exp in zip(whole, want["payload"]):
+            assert got.dtype == exp.dtype and got.shape == exp.shape and \
+                bytes(got.tobytes()) == bytes(exp.tobytes()), \
+                "21c: the pods' parts are not phase 6's payload"
+        assert sealing.payload_digest(whole) == \
+            sealing.payload_digest(want["payload"])
+        assert all(r["first_swap"]["payload"][0].shape[1] == 0
+                   for r in a if r["data"] > 0)
+        log(f"phase 21c: first swap-out (counter {want['counter']}): data "
+            f"rank 0's parts of the two pods {[p['payload'][0].shape for p in parts]} "
+            f"per plane, side by side, byte-equal to phase 6's "
+            f"{want['payload'][0].shape} with the same payload_digest; the "
+            f"other data ranks seal none")
     else:
         want = _first_step_logits(torch, api, params, argv, nm * D)
         for r in a:
@@ -5712,7 +5624,6 @@ def serve_data_ranks(torch, ops, smi, phase6=None, phase20=None):
                 ("21a: first decode step differs from the one-card 2-row "
                  "run", r["stage"], r["data"])
     cross = a[0]["crossings"]
-    p20 = ", ".join(f"{t:.3f}" for t in phase20) if phase20 else "not run"
     step_p50 = ", ".join(f"{_p50(r['step_ms']):.3f}" for r in a)
     parity = "" if halves_equal else (
         " (not held: the 2-row products differ; each data rank's first "
@@ -5724,8 +5635,8 @@ def serve_data_ranks(torch, ops, smi, phase6=None, phase20=None):
         f"steps, swap-outs {st['swap_outs']}, swap-ins {st['swap_ins']} "
         f"(pages restored bit-exact {[r['restored'] for r in a]}); cache "
         f"digests equal within each pod; host ms a decode step p50 "
-        f"(pod, data) order {step_p50} (phase 20, 2 pod ranks: {p20}; "
-        f"phase 6 one card {phase6['step_ms']:.3f} mean); "
+        f"(pod, data) order {step_p50} (phase 6 one card "
+        f"{phase6['step_ms']:.3f} mean); "
         f"admission p50 / p99 {st['admission_p50_ms']:.1f} / "
         f"{st['admission_p99_ms']:.1f} ms (phase 6 "
         f"{phase6['admission'][0]:.1f} / {phase6['admission'][1]:.1f}) "
@@ -5797,7 +5708,7 @@ def serve_data_ranks(torch, ops, smi, phase6=None, phase20=None):
         f"the gathers and the logits' gather); gather bytes a step a rank "
         f"{b[0]['prefill_gather_bytes']} [{smi}]")
     log(f"phase 21: {time.perf_counter() - t_phase:.1f} s (the spawn "
-        f"{spawn_s:.1f} s)")
+        f"{spawn_s:.1f} s" + (", with phase 22)" if also else ")"))
     eager = {"streams": a[0]["streams"],
              "step_ms": [_p50(r["step_ms"]) for r in a],
              "admission": (st["admission_p50_ms"], st["admission_p99_ms"]),
@@ -5805,7 +5716,7 @@ def serve_data_ranks(torch, ops, smi, phase6=None, phase20=None):
              "crossing_ms": _p50([c[0] for c in cross])}
     del api, params, out, a, b
     _free(torch)
-    return [{"launches": launches, "eager": eager}]
+    return [{"launches": launches, "eager": eager, "also": later}]
 
 
 # phase 22: warmup over ranks (ROADMAP item 10d, step 3): phase 21's
@@ -5841,7 +5752,38 @@ def _warmed(ranks, what):
             assert r["graphs"] > 0, (what, r["graphs"])
 
 
-def serve_warm_ranks(torch, ops, smi, phase6=None, phase21=None):
+def warm_jobs(torch, alone: bool = False):
+    """Phase 22's rank job (``rank_jobs.serve`` on four ranks: its runs,
+    with phase 21's eager run last when the phase runs ``alone``) and the
+    context its checks read."""
+    import dataclasses
+
+    from repro_torch.launch import rank_jobs, serve
+    args = _phase6_args()
+    cfg = _family_cfg("llama3.2-1b")
+    reqs = [(p, args.max_new)
+            for p in serve.gen_prompts(args, cfg.vocab_size)]
+    sealed = serve.make_config(args, warmup=True)
+    calm = dataclasses.replace(sealed, seal_boundary=False,
+                               telemetry_interval=args.telemetry_interval)
+    cut = reqs[:WARM_REPLAN_REQUESTS]
+    every = args.arrival_every
+    runs = [rank_jobs.ServeRun(sealed, reqs, every=every, check_swaps=True),
+            rank_jobs.ServeRun(calm, cut, every=every),
+            rank_jobs.ServeRun(dataclasses.replace(
+                calm, warmup_layouts=WARM_TOUR), cut, every=every,
+                inject=RANKS_STRAGGLER)]
+    if alone:                             # phase 21's run too
+        runs.append(rank_jobs.ServeRun(serve.make_config(args), reqs,
+                                       every=every))
+    job = rank_jobs.ServeJob(cfg, runs, dtype=torch.bfloat16,
+                             seed=args.seed, data=DATA_MESH[1])
+    return [(rank_jobs.serve, job)], dict(args=args, cfg=cfg, reqs=reqs,
+                                          cut=cut)
+
+
+def serve_warm_ranks(torch, ops, smi, phase6=None, phase21=None,
+                     served=None):
     """22. ``ServingEngine(mesh=, config=EngineConfig(warmup=True))`` on
     the four gloo ranks of phase 21 (``DATA_MESH``), in one spawn: every
     rank runs the warmup passes in lockstep and then serves with its
@@ -5863,16 +5805,15 @@ def serve_warm_ranks(torch, ops, smi, phase6=None, phase21=None):
     warmed undisturbed run's. Prints, beside phase 21's eager figures,
     host ms a decode step per rank split into segment replays and message
     waits, admission p50 / p99, graphs and warmup seconds per rank, the
-    KV exchange's and a crossing's host ms. Returns the ranks' launch
-    counts, summed."""
-    import dataclasses
-
-    from repro_torch.launch import rank_jobs, serve
+    KV exchange's and a crossing's host ms. ``served``: the job's results
+    a rank and its context (``warm_jobs``), from phase 21's spawn; with
+    None the phase spawns its own ranks. Returns the ranks' launch counts,
+    summed."""
+    from repro_torch.launch import rank_jobs
     from repro_torch.launch.ranks import spawn
     t_phase = time.perf_counter()
     _free(torch)
     argv = [DEV if a == "cuda" else a for a in RANKS_SERVE]
-    args = serve.build_parser().parse_args(argv)
     cfg = _family_cfg("llama3.2-1b")
     if phase6 is None:                    # run alone: phase 6 first
         from repro_torch.models.api import build_model
@@ -5883,33 +5824,22 @@ def serve_warm_ranks(torch, ops, smi, phase6=None, phase21=None):
                                   plan=(1, cfg.num_layers - 1))
         del api, params
         _free(torch)
-    if DEV == "cuda":
-        free, total = torch.cuda.mem_get_info()
-        log(f"phase 22: device memory free {free / 2**30:.2f} of "
-            f"{total / 2**30:.2f} GiB before the spawn (this process "
-            f"reserves {torch.cuda.memory_reserved() / 2**30:.2f} GiB)")
-    L, nm = cfg.num_layers, args.microbatches
     P, D = DATA_MESH
-    reqs = [(p, args.max_new)
-            for p in serve.gen_prompts(args, cfg.vocab_size)]
-    sealed = serve.make_config(args, warmup=True)
-    calm = dataclasses.replace(sealed, seal_boundary=False,
-                               telemetry_interval=args.telemetry_interval)
-    cut = reqs[:WARM_REPLAN_REQUESTS]
-    every = args.arrival_every
-    runs = [rank_jobs.ServeRun(sealed, reqs, every=every, check_swaps=True),
-            rank_jobs.ServeRun(calm, cut, every=every),
-            rank_jobs.ServeRun(dataclasses.replace(
-                calm, warmup_layouts=WARM_TOUR), cut, every=every,
-                inject=RANKS_STRAGGLER)]
-    if phase21 is None:                   # run alone: phase 21's run too
-        runs.append(rank_jobs.ServeRun(serve.make_config(args), reqs,
-                                       every=every))
-    t0 = time.perf_counter()
-    out = spawn(rank_jobs.serve, P * D, backend="gloo", device=DEV, args=(
-        rank_jobs.ServeJob(cfg, runs, dtype=torch.bfloat16, seed=args.seed,
-                           data=D),))
-    spawn_s = time.perf_counter() - t0
+    spawn_s = None
+    if served is None:
+        if DEV == "cuda":
+            free, total = torch.cuda.mem_get_info()
+            log(f"phase 22: device memory free {free / 2**30:.2f} of "
+                f"{total / 2**30:.2f} GiB before the spawn (this process "
+                f"reserves {torch.cuda.memory_reserved() / 2**30:.2f} GiB)")
+        jobs, ctx = warm_jobs(torch, alone=phase21 is None)
+        t0 = time.perf_counter()
+        served = (spawn(rank_jobs.chain, P * D, backend="gloo", device=DEV,
+                        args=(jobs,)), ctx)
+        spawn_s = time.perf_counter() - t0
+    out = [res[0] for res in served[0]]
+    args, reqs, cut = (served[1][k] for k in ("args", "reqs", "cut"))
+    L, nm = cfg.num_layers, args.microbatches
     launches = {k: 0 for k in ops.LAUNCHES}
     for res in out:
         for r in res:
@@ -6027,8 +5957,9 @@ def serve_warm_ranks(torch, ops, smi, phase6=None, phase21=None):
         f"restage's host ms "
         f"{row([m for m, _ in tour_b[0]['restages']], 1)}; host ms a decode "
         f"step p50 {row([_p50(r['step_ms']) for r in tour_b])}")
-    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s (the spawn "
-        f"{spawn_s:.1f} s)")
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s" + (
+        f" (the spawn {spawn_s:.1f} s)" if spawn_s is not None
+        else " reading its ranks' results (run in phase 21's spawn)"))
     del out, a, calm_b, tour_b
     _free(torch)
     return [{"launches": launches}]
@@ -6372,37 +6303,17 @@ def _one_card_steps(torch, api, params, toks, steps):
     return out
 
 
-def model_ranks(torch, ops, smi):
-    """24. The model axis over ranks: for each of MODEL_CASES, the port's
-    one-card serve steps on seeded weights first (freed after), then one
-    spawn of four gloo ranks on the card on a (1, 4) ("data", "model")
-    mesh running them all (``rank_jobs.serve_steps`` chained), each rank
-    drawing only its shard (``steps.draw_params``) from the same seed:
-    MODEL_B x MODEL_S prefill tokens, MODEL_STEPS greedy decode steps. Every
-    step's whole logits are the same bits on the four ranks; f32 cases
-    within F32_FULL_TOL of the one-card step's largest |logit| with equal
-    greedy tokens, printed beside how far an embedding nudged by
-    MODEL_NUDGE moves the one-card step; bf16 printed, beside the one-card
-    bf16 step's and the ranks' errors against the one-card f32 step on
-    the same draw (the precision's own gap); each rank's param shapes the shard
-    shapes of ``param_shardings`` on the model axis and its param bytes
-    their sum; flash launches a rank = layers (one prefill). Prints host
-    ms a prefill and a decode step against one card, bytes messaged a
-    step, param GiB and peak memory a rank. Returns the ranks' launch
-    counts, summed, and the one-card steps by case name (``one``: phase
-    26c holds its ranks against them)."""
+def model_jobs(torch):
+    """Phase 24's rank jobs (``rank_jobs.serve_steps``, one a case of
+    MODEL_CASES) and what its checks read: the port's one-card serve steps
+    of each case on seeded weights (run here, freed after; for bf16 the
+    f32 step on the same draw too), and each case's config and dtype."""
     import dataclasses
 
     from repro_torch.configs import get_arch
     from repro_torch.launch import rank_jobs
-    from repro_torch.launch.mesh import LogicalMesh
-    from repro_torch.launch.ranks import spawn
     from repro_torch.models.api import build_model
-    from repro_torch.runtime import steps as S
-    from repro_torch.tree import leaves
-    t_phase = time.perf_counter()
     _free(torch)
-    M = dict(zip(MODEL_MESH[1], MODEL_MESH[0]))["model"]
     horizon = MODEL_S + MODEL_STEPS
     jobs, one, cfgs = [], {}, {}
     for name, arch, layers, dt in MODEL_CASES:
@@ -6437,10 +6348,49 @@ def model_ranks(torch, ops, smi):
         jobs.append((rank_jobs.serve_steps, rank_jobs.StepsJob(
             cfg, MODEL_MESH, toks, steps=MODEL_STEPS, dtype=dtype,
             seed=MODEL_SEED, max_seq=horizon)))
-    t0 = time.perf_counter()
-    ranks = spawn(rank_jobs.chain, M, backend="gloo", device=DEV,
-                  args=(jobs,))
-    spawn_s = time.perf_counter() - t0
+    return jobs, dict(one=one, cfgs=cfgs)
+
+
+def model_ranks(torch, ops, smi, served=None):
+    """24. The model axis over ranks: for each of MODEL_CASES, the port's
+    one-card serve steps on seeded weights first (``model_jobs``), then
+    one spawn of four gloo ranks on the card on a (1, 4) ("data", "model")
+    mesh running them all (``rank_jobs.serve_steps`` chained), each rank
+    drawing only its shard (``steps.draw_params``) from the same seed:
+    MODEL_B x MODEL_S prefill tokens, MODEL_STEPS greedy decode steps. Every
+    step's whole logits are the same bits on the four ranks; f32 cases
+    within F32_FULL_TOL of the one-card step's largest |logit| with equal
+    greedy tokens, printed beside how far an embedding nudged by
+    MODEL_NUDGE moves the one-card step; bf16 printed, beside the one-card
+    bf16 step's and the ranks' errors against the one-card f32 step on
+    the same draw (the precision's own gap); each rank's param shapes the shard
+    shapes of ``param_shardings`` on the model axis and its param bytes
+    their sum; flash launches a rank = layers (one prefill). Prints host
+    ms a prefill and a decode step against one card, bytes messaged a
+    step, param GiB and peak memory a rank. Returns the ranks' launch
+    counts, summed, and the one-card steps by case name (``one``: phase
+    26c holds its ranks against them). ``served``: the jobs' results a rank and their context
+    (``model_jobs``), from another phase's spawn (phase 25's); with None
+    the phase spawns its own ranks."""
+    from repro_torch.launch import rank_jobs
+    from repro_torch.launch.mesh import LogicalMesh
+    from repro_torch.launch.ranks import spawn
+    from repro_torch.models.api import build_model
+    from repro_torch.runtime import steps as S
+    from repro_torch.tree import leaves
+    t_phase = time.perf_counter()
+    M = dict(zip(MODEL_MESH[1], MODEL_MESH[0]))["model"]
+    horizon = MODEL_S + MODEL_STEPS
+    spawn_s = None
+    if served is None:
+        jobs, ctx = model_jobs(torch)
+        t0 = time.perf_counter()
+        ranks = spawn(rank_jobs.chain, M, backend="gloo", device=DEV,
+                      args=(jobs,))
+        spawn_s = time.perf_counter() - t0
+    else:
+        ranks, ctx = served
+    one, cfgs = ctx["one"], ctx["cfgs"]
     launches = {k: 0 for k in ops.LAUNCHES}
     lm = LogicalMesh((M,), ("model",))
 
@@ -6494,6 +6444,23 @@ def model_ranks(torch, ops, smi):
                 assert e_loc == 15, e_loc
         peaks = [r["peak_bytes"] / 2**30 if r["peak_bytes"] else math.nan
                  for r in rs]
+        # the decode cache a rank holds (ROADMAP item 10d, step 5c's
+        # repair): its KV heads where they divide over model, else its
+        # block of the positions where the horizon divides
+        kv_rank = [sum(t.numel() * t.element_size()
+                       for t in _leaves(r["cache"]["blocks"])) for r in rs]
+        per_pos = cfg.num_layers * 2 * MODEL_B * cfg.head_dim * esz
+        if cfg.num_kv_heads % M == 0:
+            reckoned = per_pos * (cfg.num_kv_heads // M) * horizon
+        elif horizon % M == 0:
+            reckoned = per_pos * cfg.num_kv_heads * (horizon // M)
+        else:
+            reckoned = per_pos * cfg.num_kv_heads * horizon
+        assert kv_rank == [reckoned] * M, (name, kv_rank, reckoned)
+        cache = (f"; decode cache bytes a rank {kv_rank[0]} = reckoned "
+                 f"(one card {per_pos * cfg.num_kv_heads * horizon}, "
+                 f"{cfg.num_kv_heads} KV heads over {M} ranks, "
+                 f"{horizon} positions)")
         log(f"phase {name} {arch} full width, {cfg.num_layers} layers, "
             f"{dt} on {M} model ranks ({MODEL_MESH[1]} mesh "
             f"{MODEL_MESH[0]}){experts}: prefill {MODEL_B} x {MODEL_S} and "
@@ -6513,10 +6480,11 @@ def model_ranks(torch, ops, smi):
             f"shapes of param_shardings on the model axis (one card "
             f"{o['param_bytes'] / 2**30:.3f}); peak allocated GiB a rank "
             f"{row(peaks, '{:.2f}')}; flash launches a rank "
-            f"{[r['launches']['flash_attention'] for r in rs]} "
+            f"{[r['launches']['flash_attention'] for r in rs]}{cache} "
             f"[{smi}]")
-    log(f"phase 24: {time.perf_counter() - t_phase:.1f} s (the spawn "
-        f"{spawn_s:.1f} s)")
+    log(f"phase 24: {time.perf_counter() - t_phase:.1f} s" + (
+        f" (the spawn {spawn_s:.1f} s)" if spawn_s is not None
+        else " reading its ranks' results (run in phase 25's spawn)"))
     return [{"launches": launches, "one": one}]
 
 
@@ -7120,6 +7088,349 @@ def sp_ranks(torch, ops, smi, phase24, phase25):
     return [{"launches": launches}]
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the serving engine and the pipelined decoder over a model axis
+# of ranks (ROADMAP item 10d, step 5c's first part): each stage's layers
+# split over its model ranks (tensor parallelism inside a pod), four gloo
+# ranks on the card, in phase 25's spawn. Sizes are names, for a CPU
+# rehearsal as phases 16 to 26.
+# 27a: phase 6's model and flags on (2, 1, 2) pod x data x model, sealed,
+# on its first RANKS_REPLAN_REQUESTS requests, with phase 20's straggler
+# (one live re-plan)
+MODEL_SERVE_MESH = (2, 1, 2)
+# 27b: f32 at full width, MODEL_SERVE_LAYERS layers, one stage: llama3.2-1b
+# on (1, 2, 2) (the KV exchange beside the model axis) and glm4-9b on (1,
+# 1, 4) (its 2 KV heads whole over 4: the paged kernel at kv_head0, the
+# timeline's positions split), paged and timeline, against the one-card
+# engine on the same draw; short prompts (the timeline prefills one token
+# a step, each a round of the model group's messages)
+MODEL_SERVE_LAYERS = 2
+MODEL_SERVE_F32 = (("27b llama3.2-1b", "llama3.2-1b", (1, 2, 2)),
+                   ("27b glm4-9b", "glm4-9b", (1, 1, 4)))
+MODEL_SERVE_STREAM = dict(requests=4, prompt=(4, 13), max_new=8, seed=27)
+MODEL_SERVE_CFG = dict(num_slots=8, num_stages=1, num_microbatches=2,
+                       max_seq=128, prompt_capacity=48, page_size=16,
+                       telemetry_interval=1000)
+# 27c: the eager live re-plan held on the card (phase 20b held it on pod
+# ranks before it was cut): llama3.2-1b in f32 at full width,
+# MODEL_REPLAN_LAYERS layers on (2, 1, 2), unsealed, phase 20's straggler
+# on stage 1 from the first telemetry tick, on 27b's prompts decoded
+# longer; streams held equal to the one-card engine's, which serves the
+# same draw undisturbed
+MODEL_REPLAN = ("27c llama3.2-1b", "llama3.2-1b", (2, 1, 2))
+MODEL_REPLAN_LAYERS = 4
+MODEL_REPLAN_CFG = dict(MODEL_SERVE_CFG, num_stages=2, seal_boundary=False,
+                        telemetry_interval=6)
+MODEL_REPLAN_NEW = 24
+# prefill kinds that run the flash kernel (``prefill_token`` decodes)
+FLASH_PREFILLS = ("prefill_at", "prefill_packed", "prefill_chunk")
+
+
+def _model_bytes(r):
+    """Per decode step, the bytes a rank put into its model group's
+    collectives: (all, the flash-decode's query gathers, its partial
+    combines)."""
+    return [sum(b) for b in r["model_bytes"]], \
+        [b[1] for b in r["model_bytes"]], [b[2] for b in r["model_bytes"]]
+
+
+def _reckoned_model_bytes(cfg, stage, layers, nm, b, esz):
+    """Bytes a rank of pipelined stage ``stage`` (of 2) over ``layers``
+    layers puts into the model group's collectives in one decode step of
+    ``nm`` microbatches of ``b`` rows, over a model axis of 2 (from the
+    code, ``sharding/tensor_parallel.py``): two f32 [b, 1, d]
+    ``reduce_model`` a layer; on stage 0 the vocab-split embedding's rows
+    (a reduce), on stage 1 the opened activation broadcast from model
+    rank 0 in the model's dtype and the head's f32 [b, V / 2] columns
+    gathered."""
+    d, V = cfg.d_model, cfg.vocab_size
+    per = 2 * layers * b * d * 4
+    per += b * d * 4 if stage == 0 else b * d * esz + b * (V // 2) * 4
+    return nm * per
+
+
+def model_serve_jobs(torch, ops):
+    """Phase 27's rank jobs (``rank_jobs.serve``, four ranks) and what its
+    checks read: 27a's run, and 27b's runs with the one-card engine's
+    streams, logits and host ms on the same draw (run here, before the
+    spawn)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.launch import rank_jobs, serve
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import EngineConfig, ServingEngine
+    args = _phase6_args()
+    cfg = _family_cfg("llama3.2-1b")
+    reqs = [(p, args.max_new) for p in serve.gen_prompts(
+        args, cfg.vocab_size)][:RANKS_REPLAN_REQUESTS]
+    run_a = rank_jobs.ServeRun(serve.make_config(args), reqs,
+                               every=args.arrival_every,
+                               inject=RANKS_STRAGGLER, check_swaps=True)
+    jobs = [(rank_jobs.serve, rank_jobs.ServeJob(
+        cfg, [run_a], dtype=torch.bfloat16, seed=args.seed,
+        data=MODEL_SERVE_MESH[1], model=MODEL_SERVE_MESH[2]))]
+    rng = np.random.RandomState(MODEL_SERVE_STREAM["seed"])
+    stream = [(rng.randint(1, 500, size=int(rng.randint(
+        *MODEL_SERVE_STREAM["prompt"]))).tolist(),
+        MODEL_SERVE_STREAM["max_new"])
+        for _ in range(MODEL_SERVE_STREAM["requests"])]
+    one = {}
+    for name, arch, mesh in MODEL_SERVE_F32:
+        cf = get_arch_at(arch, MODEL_SERVE_LAYERS)
+        runs = [rank_jobs.ServeRun(EngineConfig(kv_layout=kv,
+                                                **MODEL_SERVE_CFG), stream,
+                                   keep_logits=True)
+                for kv in ("paged", "timeline")]
+        api = build_model(cf, device=DEV, dtype=torch.float32, max_seq=128)
+        params = api.init(torch.Generator(device=DEV).manual_seed(0))
+        for kv, run in zip(("paged", "timeline"), runs):
+            config = dataclasses.replace(
+                run.config, num_microbatches=mesh[1] * run.config
+                .num_microbatches)
+            eng = ServingEngine(api, config, params, device=DEV,
+                                backend="pipelined")
+            probe = rank_jobs.Probe(eng, True)
+            got = rank_jobs.drive(eng, dataclasses.replace(run,
+                                                           config=config))
+            body = eng.backend.body if kv == "paged" else \
+                eng.backend.cache[api.model.served_segment.name]
+            one[(name, kv)] = dict(
+                streams=[list(r.generated) for r in got],
+                logits=probe.logits, step_ms=probe.step_ms,
+                kv_bytes=sum(t.numel() * t.element_size()
+                             for t in _leaves(body)))
+            del eng, probe
+        del api, params
+        _free(torch)
+        jobs.append((rank_jobs.serve, rank_jobs.ServeJob(
+            cf, runs, dtype=torch.float32, seed=0, max_seq=128,
+            data=mesh[1], model=mesh[2])))
+    # 27c: the one-card engine undisturbed, the ranks with the straggler
+    name, arch, mesh = MODEL_REPLAN
+    cf = get_arch_at(arch, MODEL_REPLAN_LAYERS)
+    longer = [(p, MODEL_REPLAN_NEW) for p, _ in stream]
+    api = build_model(cf, device=DEV, dtype=torch.float32, max_seq=128)
+    params = api.init(torch.Generator(device=DEV).manual_seed(0))
+    calm = EngineConfig(**dict(MODEL_REPLAN_CFG, telemetry_interval=1000))
+    eng = ServingEngine(api, calm, params, device=DEV, backend="pipelined")
+    one[name] = dict(streams=[list(r.generated) for r in rank_jobs.drive(
+        eng, rank_jobs.ServeRun(calm, longer))])
+    del eng, api, params
+    _free(torch)
+    jobs.append((rank_jobs.serve, rank_jobs.ServeJob(
+        cf, [rank_jobs.ServeRun(EngineConfig(**MODEL_REPLAN_CFG), longer,
+                                inject=RANKS_STRAGGLER)],
+        dtype=torch.float32, seed=0, max_seq=128, data=mesh[1],
+        model=mesh[2])))
+    return jobs, dict(args=args, cfg=cfg, reqs=reqs, one=one)
+
+
+def serve_model_ranks(torch, ops, smi, phase6=None, served=None):
+    """27. ``ServingEngine(mesh=)`` over a pod x data x model mesh of four
+    gloo ranks on the card, from ``model_serve_jobs`` (``served``: the
+    jobs' ranks' results and their context, from phase 25's spawn; run
+    here in a spawn of their own when None). (a) Phase 6's model
+    (full-width llama3.2-1b, bf16, 16 layers, stage blocks (1, 15) as
+    phase 6 plans them) and flags on (2, 1, 2), sealed, its first
+    RANKS_REPLAN_REQUESTS requests, with phase 20's straggler: model rank
+    0 of each stage seals and sends the crossings, the model ranks split
+    each stage's heads, columns and vocab. Held: one live re-plan that
+    migrates layers; swap-outs > 0 and every swapped page restored bit
+    for bit (``Probe``); paged launches a rank = microbatches x the layers
+    it held at each decode step + the layers at each of its stage probes,
+    flash = the layers at each prefill call, seals on stage 0's model rank
+    0 only (microbatches x steps), unseals on stage 1's; the model group's
+    bytes a rank over the run = the reckoned count at each step's layers
+    (``_reckoned_model_bytes``); every rank's events and stats equal; no
+    (key, counter) pair twice. Printed, not held (bf16 over a model axis:
+    ROADMAP §3): how many streams equal phase 6's, host ms a decode step
+    a rank, param and KV bytes a rank. (b) f32, MODEL_SERVE_LAYERS
+    layers, one stage: MODEL_SERVE_F32 paged and timeline against the
+    one-card engine on the same draw at microbatches x data
+    microbatches: streams equal, decode logits within F32_FULL_TOL of
+    each step's largest |logit|; glm4-9b's ranks hold the whole pool (2
+    KV heads) and a quarter of the timeline's positions, and its
+    timeline steps send the flash-decode's query gathers and partial
+    combines. (c) MODEL_REPLAN: f32, unsealed, on (2, 1, 2) with the
+    straggler: a live re-plan that migrates layers, every rank's streams
+    equal to the undisturbed one-card engine's on the same draw. Returns
+    the ranks' launch counts, summed."""
+    from repro_torch.launch import rank_jobs
+    from repro_torch.launch.ranks import spawn
+    from repro_torch.models.api import build_model
+    t_phase = time.perf_counter()
+    if phase6 is None:                    # run alone: phase 6 first
+        args0 = _phase6_args()
+        cfg0 = _family_cfg("llama3.2-1b")
+        api = build_model(cfg0, device=DEV, dtype=torch.bfloat16)
+        params = api.init(torch.Generator(device=DEV).manual_seed(
+            args0.seed))
+        phase6 = serve_full_width(torch, ops, api, params,
+                                  [DEV if a == "cuda" else a
+                                   for a in RANKS_SERVE], 6,
+                                  plan=(1, cfg0.num_layers - 1))
+        del api, params
+        _free(torch)
+    if served is None:
+        jobs, ctx = model_serve_jobs(torch, ops)
+        out = spawn(rank_jobs.chain, 4, backend="gloo", device=DEV,
+                    args=(jobs,))
+    else:
+        out, ctx = served
+    args, cfg, reqs, one = ctx["args"], ctx["cfg"], ctx["reqs"], ctx["one"]
+    L, nm = cfg.num_layers, args.microbatches
+    launches = {k: 0 for k in ops.LAUNCHES}
+    for res in out:
+        for job in res:
+            for r in job:
+                for k in launches:
+                    launches[k] += r["launches"][k]
+    for j, job in enumerate(out[0]):      # decisions and keys, every run
+        for i in range(len(job)):
+            rs = [res[j][i] for res in out]
+            for r in rs[1:]:
+                assert r["events"] == rs[0]["events"] and \
+                    r["stats"] == rs[0]["stats"], ("27: decisions", j, i)
+            bad = rank_jobs.keystream_reuse([r["keys"] for r in rs])
+            assert not bad, ("27: a (key, counter) pair ciphered twice", j,
+                             i, bad[:3])
+    # (a) phase 6's model on (2, 1, 2) with a live re-plan
+    a = [res[0][0] for res in out]
+    st = a[0]["stats"]
+    assert st["swaps"] >= 1 and any(kind == "swap" and e["migrated"]
+                                    for _, kind, e in a[0]["events"]), st
+    assert st["swap_outs"] > 0 and st["swap_ins"] > 0, st
+    esz, b = 2, args.slots // nm
+    for r in a:
+        assert r["status"] == ["done"] * len(reqs), r["status"]
+        assert r["restored"] > 0 and r["restored"] == a[0]["restored"]
+        steps, lc, lead = r["decode_steps"], r["launches"], r["model"] == 0
+        assert len(r["step_layers"]) == steps, (steps, r["step_layers"])
+        if DEV == "cuda":
+            assert lc["paged_attention"] == nm * sum(r["step_layers"]) + \
+                sum(r["probe_layers"]), (r["stage"], r["model"], lc)
+            assert lc["flash_attention"] == sum(
+                n for kind, n in r["prefill_layers"]
+                if kind in FLASH_PREFILLS), (r["stage"], r["model"], lc)
+            assert lc["seal"] == (nm * steps if r["stage"] == 0 and lead
+                                  else 0), lc
+            assert lc["unseal"] == (nm * steps if r["stage"] == 1 and lead
+                                    else 0), lc
+        total, qg, comb = _model_bytes(r)
+        assert not any(qg) and not any(comb), "27a: no flash-decode here"
+        r["reckoned"] = sum(_reckoned_model_bytes(
+            cfg, r["stage"], n, nm, b, esz) for n in r["step_layers"])
+        assert sum(total) == r["reckoned"], (r["stage"], r["model"],
+                                              sum(total), r["reckoned"])
+    swaps = ", ".join(f"{e['from']}->{e['to']}" for _, kind, e
+                      in a[0]["events"] if kind == "swap")
+    same = sum(x == y for x, y in zip(a[0]["streams"], phase6["streams"]))
+    log(f"phase 27a llama3.2-1b ({L} layers) bf16 on (2, 1, 2) pod x data "
+        f"x model ranks, sealed, phase 6's first {len(reqs)} requests with "
+        f"--inject-straggler 1:10: {st['swaps']} live swaps ({swaps}), final "
+        f"stage blocks {st['stage_blocks']}, every model rank moving its own "
+        f"blocks (a restage's host ms and bytes a rank "
+        f"{[[(round(m, 2), n) for m, n in r['restages']] for r in a]}); "
+        f"{same} of {len(reqs)} streams equal phase 6's one-card streams "
+        f"(bf16 over a model axis, and the int8 boundary moved: printed, "
+        f"not held); {st['completed']} requests, {a[0]['decode_steps']} "
+        f"decode steps, swap-outs {st['swap_outs']}, swap-ins "
+        f"{st['swap_ins']}, {a[0]['restored']} pages restored bit-exact on "
+        f"every rank ({a[0]['relayouts']} swap-ins across the re-plan); "
+        f"host ms a decode step p50 a rank (stage, model) "
+        f"{[(r['stage'], r['model'], round(_p50(r['step_ms']), 3)) for r in a]}"
+        f" (phase 6 one card {phase6['step_ms']:.3f} mean); model-group "
+        f"bytes a rank over the run "
+        f"{[(r['stage'], r['model'], sum(_model_bytes(r)[0])) for r in a]} = "
+        f"reckoned, p50 a step {[_p50(_model_bytes(r)[0]) for r in a]}; "
+        f"crossing bytes sent a step p50 {[_p50(r['step_bytes']) for r in a]}"
+        f"; param GiB a rank {[round(r['param_bytes'] / 2**30, 3) for r in a]}"
+        f", KV GiB a rank {[round(r['kv_bytes'] / 2**30, 3) for r in a]}; "
+        f"admission p50 / p99 {st['admission_p50_ms']:.1f} / "
+        f"{st['admission_p99_ms']:.1f} ms; paged / flash launches a rank "
+        f"{[(r['launches']['paged_attention'], r['launches']['flash_attention']) for r in a]}"
+        f" [{smi}]")
+    # (b) f32 against one card
+    for j, (name, arch, mesh) in enumerate(MODEL_SERVE_F32):
+        cf = get_arch_at(arch, MODEL_SERVE_LAYERS)
+        for i, kv in enumerate(("paged", "timeline")):
+            rs, o = [res[j + 1][i] for res in out], one[(name, kv)]
+            errs = []
+            for r in rs:
+                assert r["streams"] == o["streams"], (name, kv)
+                assert len(r["logits"]) == len(o["logits"]) > 0
+                errs.append(max(_rel(x, y) for x, y in
+                                zip(r["logits"], o["logits"])))
+                if DEV == "cuda" and kv == "paged":
+                    assert r["launches"]["paged_attention"] > 0 and \
+                        r["launches"]["flash_attention"] > 0, r["launches"]
+            assert max(errs) < F32_FULL_TOL, (name, kv, errs)
+            total, qg, comb = _model_bytes(rs[0])
+            heads = rs[0]["kv_shapes"][0][2]
+            if kv == "timeline" and cf.num_kv_heads % mesh[2]:
+                assert all(s[3] == 128 // mesh[2]
+                           for s in rs[0]["kv_shapes"]), rs[0]["kv_shapes"]
+                assert all(qg) and all(comb), (qg, comb)
+            log(f"phase {name} f32, {cf.num_layers} layers, {kv}, on "
+                f"{mesh} pod x data x model ranks: streams equal the "
+                f"one-card engine's on the same draw ({len(o['streams'])} "
+                f"requests); decode logits within {max(errs):.2e} of each "
+                f"step's largest |logit| (limit {F32_FULL_TOL}); KV heads a "
+                f"rank {heads} of {cf.num_kv_heads}"
+                + (f", positions a rank {rs[0]['kv_shapes'][0][3]} of 128"
+                   if kv == "timeline" else "")
+                + f"; KV bytes a rank {rs[0]['kv_bytes']} (one card "
+                f"{o['kv_bytes']}); host ms a decode step p50 a rank "
+                f"{[round(_p50(r['step_ms']), 3) for r in rs]} (one card "
+                f"{_p50(o['step_ms']):.3f}); model-group bytes a step p50 "
+                f"{_p50(total)}, of them query gathers {_p50(qg)} and "
+                f"partial combines {_p50(comb)}; paged launches a rank "
+                f"{[r['launches']['paged_attention'] for r in rs]} [{smi}]")
+    # (c) the eager live re-plan in f32 against one card
+    name, arch, mesh = MODEL_REPLAN
+    rs = [res[len(MODEL_SERVE_F32) + 1][0] for res in out]
+    st = rs[0]["stats"]
+    for r in rs:
+        assert r["streams"] == one[name]["streams"], \
+            ("27c: the streams differ from the one-card engine's across "
+             "the live re-plan", r["stage"], r["model"])
+    moved = [f"{e['from']}->{e['to']}" for _, kind, e in rs[0]["events"]
+             if kind == "swap" and e["migrated"]]
+    assert st["swaps"] >= 1 and moved, rs[0]["events"]
+    log(f"phase {name} f32, {MODEL_REPLAN_LAYERS} layers, unsealed, on "
+        f"{mesh} pod x data x model ranks with --inject-straggler 1:10: "
+        f"live swaps {', '.join(moved)} (final stage blocks "
+        f"{st['stage_blocks']}), every model rank moving its own blocks; "
+        f"streams equal the undisturbed one-card engine's on the same draw "
+        f"({len(rs[0]['streams'])} requests, {rs[0]['decode_steps']} decode "
+        f"steps); a restage's host ms and bytes a rank "
+        f"{[[(round(m, 2), n) for m, n in r['restages']] for r in rs]} "
+        f"[{smi}]")
+    log(f"phase 27: {time.perf_counter() - t_phase:.1f} s reading the "
+        f"jobs' results" + (" (run in phase 25's spawn)" if served else ""))
+    return [{"launches": launches}]
+
+
+def _phase6_args():
+    """Phase 6's parsed flags at ``DEV``."""
+    from repro_torch.launch import serve
+    return serve.build_parser().parse_args(
+        [DEV if a == "cuda" else a for a in RANKS_SERVE])
+
+
+def get_arch_at(arch, layers):
+    """``arch``'s config (FAMILY_ARCH's map of it in a rehearsal) cut to
+    ``layers`` layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    cfg = FAMILY_ARCH(cfg) if FAMILY_ARCH else cfg
+    return dataclasses.replace(cfg, num_layers=min(layers, cfg.num_layers))
+
+
 def _sharding_leaves(tree):
     from repro_torch.sharding.rules import NamedSharding
     if isinstance(tree, NamedSharding):
@@ -7177,6 +7488,7 @@ def main() -> int:
 
     # phase 2: kernels vs plain versions
     pa_err = check_paged_attention(torch, ops, ref)
+    check_paged_rank(torch, ops, ref)
     for cols in CIPHER_COLS.values():
         check_cipher(torch, ops, ref, sealing, cols=cols)
     check_cipher_window(torch, ops, ref, sealing)
@@ -7266,33 +7578,56 @@ def main() -> int:
     # phase 19: the pod axis over ranks on the card (gloo): the pipelined
     # decoder one stage a rank, the compressed train step over two pods
     runs += pod_ranks(torch, ops, smi0)
-    # phase 20: the serving engine over pod ranks, phase 6's stream
-    runs += serve_ranks(torch, ops, smi0, runs[1])
+    # phase 20 (the engine on 2 pod ranks) was cut for the script's time:
+    # 21, 22 and 27a serve over the pod axis, and 21c holds its payload
+    # check
     # phase 21: the data axis over ranks: phase 6's stream and the serve
     # steps on a 2 x 2 pod x data mesh
+    # (phase 22's engines run in its spawn)
     runs += serve_data_ranks(torch, ops, smi0, runs[1],
-                             runs[-1]["step_ms_p50"])
+                             also=warm_jobs(torch))
     phase21_eager = runs[-1]["eager"]
     # phase 22: warmup over ranks: phase 21's stream warmed as CUDA graphs
     # on the 2 x 2 ranks, and the live re-plan line warmed
-    runs += serve_warm_ranks(torch, ops, smi0, runs[1], runs[-1]["eager"])
+    runs += serve_warm_ranks(torch, ops, smi0, runs[1], runs[-1]["eager"],
+                             runs[-1]["also"])
     # phase 23: the disaggregated pair over ranks: phase 21's stream
     # through the pair on the 2 x 2 ranks, eager and warmed, and the
     # reference's chaos-over-disagg line
     runs += serve_disagg_ranks(torch, ops, smi0, runs[1], phase21_eager,
                                runs[6:8])
-    # phase 24: the model axis over ranks: the serve steps with tensor
-    # parallelism on four ranks, glm4-9b and qwen2-moe-a2.7b
-    runs += model_ranks(torch, ops, smi0)
+    # phases 24 to 27 run their rank jobs in one spawn of four ranks (one
+    # start-up), phase 25's: 24's and 27's one-card runs first
+    t27 = time.perf_counter()
+    jobs24, ctx24 = model_jobs(torch)
+    t24, t27 = time.perf_counter() - t27, time.perf_counter()
+    jobs27, ctx27 = model_serve_jobs(torch, ops)
+    t27 = time.perf_counter() - t27
+    log(f"phases 24 and 27: their one-card steps and engines {t24:.1f} s "
+        f"and {t27:.1f} s before phase 25's spawn")
+    n24, n27 = len(jobs24), len(jobs27)
     # phase 25: the model axis's train step over ranks: llama3.2-1b at full
     # depth on (2, 2) data x model, glm4-9b and qwen2-moe-a2.7b in f32;
-    # phase 26's jobs run in its spawn
-    phase24 = runs[-1]
-    runs += model_train_ranks(torch, ops, smi0, phase13,
-                              also=lambda ones: sp_jobs(torch, ones))
+    # phases 24, 27 and 26's jobs run in its spawn
+    runs += model_train_ranks(
+        torch, ops, smi0, phase13,
+        also=lambda ones: jobs24 + jobs27 + sp_jobs(torch, ones))
+    phase25 = runs[-1]
+    chained = phase25["also"]
+    phase25["also"] = [r[n24 + n27:] for r in chained]
+    # phase 24: the model axis over ranks: the serve steps with tensor
+    # parallelism on four ranks, glm4-9b and qwen2-moe-a2.7b
+    runs += model_ranks(torch, ops, smi0,
+                        served=([r[:n24] for r in chained], ctx24))
     # phase 26: the sequence split over the model axis (SP_ACT_RULES): 25a
     # and 25b under it, glm4-9b's serve steps at 4 layers
-    runs += sp_ranks(torch, ops, smi0, phase24, runs[-1])
+    runs += sp_ranks(torch, ops, smi0, runs[-1], phase25)
+    # phase 27: the serving engine over a pod x data x model mesh: phase
+    # 6's model sealed on (2, 1, 2) with a live re-plan, llama3.2-1b and
+    # glm4-9b in f32 against one card, and a live re-plan in f32
+    runs += serve_model_ranks(torch, ops, smi0, runs[1], (
+        [r[n24:n24 + n27] for r in chained], ctx27))
+    del chained
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
 

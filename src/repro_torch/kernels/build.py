@@ -35,7 +35,7 @@ _P, _I, _F, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 # c_void_p, or ctypes would pass them as 32-bit ints
 SIGNATURES = {
     "paged_attention": ("paged_attention", "repro_paged_attention",
-                        [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P]),
+                        [_P] * 9 + [_I] * 9 + [_F, _I, _I, _P]),
     # the cipher kernels read key and counter from device memory: two
     # pointers, each to one int64
     "seal_bits": ("seal_bits", "repro_bits_xor",

@@ -36,6 +36,13 @@
 // splits in split order, so the result does not depend on which finished
 // last. Rows with seq_len == 0 (idle engine slots) write zeros.
 // Accumulation is f32; the output is written in the query's type.
+//
+// A rank of a tensor-parallel model axis whose query heads read KV heads
+// that stayed whole (more ranks than KV heads) attends with its G = H /
+// rep query groups over KV heads [kv0, kv0 + G) of pools that hold all
+// KVP of them: the pools are read in place at those heads (no copy of a
+// pool, no strided view), grid (splits, G, B). The default (KVP = KVH, kv0
+// = 0) is the one-card launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -95,7 +102,7 @@ __global__ void paged_attention_kernel(
     const int* __restrict__ seq_lens, T* __restrict__ out,
     float* __restrict__ part_ml, float* __restrict__ part_acc,
     int* __restrict__ counters, int KVH, int rep, int N, int Pg, int MP,
-    float scale, int splits) {
+    int KVP, int kv0, float scale, int splits) {
   constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
   constexpr int CPR = D / EPC;         // chunks per token row
   constexpr int DP = (D + 63) / 64;    // output dim pairs per lane
@@ -136,7 +143,7 @@ __global__ void paged_attention_kernel(
   auto issue = [&](int p, int st) {
     int pid = bt[p];
     if (pid < 0 || pid >= N) pid = 0;  // never read outside the pool
-    const size_t base = ((size_t)pid * KVH + g) * page_elems;
+    const size_t base = ((size_t)pid * KVP + kv0 + g) * page_elems;
     T* ks = ring + (2 * st) * page_elems;
     T* vs = ks + page_elems;
     for (int i = threadIdx.x; i < 2 * Pg * CPR; i += blockDim.x) {
@@ -295,8 +302,8 @@ template <typename T, int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const int* bt, const int* sl, void* out, float* part_ml,
                      float* part_acc, int* counters, int B, int KVH, int rep,
-                     int N, int Pg, int MP, float scale, int splits,
-                     cudaStream_t stream) {
+                     int N, int Pg, int MP, int KVP, int kv0, float scale,
+                     int splits, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(rep, D, Pg);
   static size_t attr = 48 * 1024;  // one per instantiation
   if (smem > attr) {
@@ -309,7 +316,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   dim3 grid(splits, KVH, B);
   paged_attention_kernel<T, D><<<grid, 32 * rep, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, bt, sl, (T*)out, part_ml,
-      part_acc, counters, KVH, rep, N, Pg, MP, scale, splits);
+      part_acc, counters, KVH, rep, N, Pg, MP, KVP, kv0, scale, splits);
   return cudaGetLastError();
 }
 
@@ -318,14 +325,14 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
                          const int* bt, const int* sl, void* out,
                          float* part_ml, float* part_acc, int* counters,
                          int B, int KVH, int rep, int D, int N, int Pg,
-                         int MP, float scale, int splits,
+                         int MP, int KVP, int kv0, float scale, int splits,
                          cudaStream_t stream) {
   switch (D) {
 #define REPRO_PAGED_CASE(DD)                                                \
   case DD:                                                                  \
     return launch_d<T, DD>(q, k, v, bt, sl, out, part_ml, part_acc,         \
-                           counters, B, KVH, rep, N, Pg, MP, scale, splits, \
-                           stream);
+                           counters, B, KVH, rep, N, Pg, MP, KVP, kv0,     \
+                           scale, splits, stream);
     REPRO_PAGED_CASE(16)
     REPRO_PAGED_CASE(32)
     REPRO_PAGED_CASE(64)
@@ -340,7 +347,8 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
 
 // Plain C entry (loaded with ctypes). dtype_code: 0 = float32, 1 = bfloat16
 // for q, both pools and the output. Shapes: q/out [B, KVH, rep, D], pools
-// [N, KVH, Pg, D], block_tables [B, MP] int32, seq_lens [B] int32, all
+// [N, KVP, Pg, D] read at heads [kv0, kv0 + KVH) (KVP = KVH, kv0 = 0 on
+// one card), block_tables [B, MP] int32, seq_lens [B] int32, all
 // contiguous and 16-byte aligned. Requires rep <= 32, Pg <= 32, D in
 // {16, 32, 64, 128} (the wrapper checks). splits in 1 .. 32; with
 // splits > 1: part_ml (f32, B * KVH * splits * rep * 2), part_acc (f32,
@@ -353,12 +361,13 @@ extern "C" int repro_paged_attention(const void* q, const void* k_pages,
                                      const int* seq_lens, void* out,
                                      void* part_ml, void* part_acc,
                                      void* counters, int B, int KVH, int rep,
-                                     int D, int N, int Pg, int MP,
-                                     float scale, int splits, int dtype_code,
-                                     void* stream) {
+                                     int D, int N, int Pg, int MP, int KVP,
+                                     int kv0, float scale, int splits,
+                                     int dtype_code, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (B == 0) return 0;
-  if (splits < 1 || splits > 32 || rep < 1 || rep > 32 || Pg < 1 || Pg > 32)
+  if (splits < 1 || splits > 32 || rep < 1 || rep > 32 || Pg < 1 || Pg > 32 ||
+      kv0 < 0 || kv0 + KVH > KVP)
     return (int)cudaErrorInvalidValue;
   float* ml = (float*)part_ml;
   float* acc = (float*)part_acc;
@@ -366,10 +375,10 @@ extern "C" int repro_paged_attention(const void* q, const void* k_pages,
   if (dtype_code == 0)
     return (int)launch_typed<float>(q, k_pages, v_pages, block_tables,
                                     seq_lens, out, ml, acc, ctr, B, KVH, rep,
-                                    D, N, Pg, MP, scale, splits, s);
+                                    D, N, Pg, MP, KVP, kv0, scale, splits, s);
   if (dtype_code == 1)
     return (int)launch_typed<__nv_bfloat16>(
         q, k_pages, v_pages, block_tables, seq_lens, out, ml, acc, ctr, B,
-        KVH, rep, D, N, Pg, MP, scale, splits, s);
+        KVH, rep, D, N, Pg, MP, KVP, kv0, scale, splits, s);
   return (int)cudaErrorInvalidValue;
 }

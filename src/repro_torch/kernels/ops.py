@@ -356,20 +356,33 @@ _PAGED_HEAD_DIMS = (16, 32, 64, 128)
 _SMEM_LIMIT = 227 * 1024            # a block's shared memory on sm_90
 
 
-def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
+def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
+                    kv_head0: int = 0, rep=None):
     """q: [B, H, D] (one decode token per row); k_pages, v_pages:
     [num_pages, KVH, page_size, D]; block_tables: [B, max_pages] int32;
     seq_lens: [B] int32. Returns [B, H, D] in q's type.
 
     On the card the query heads are grouped as [B, KVH, rep, D] (the
     reference's ops.py does the same) so one kernel block serves every
-    query head that shares a KV head."""
-    if not q.is_cuda:
-        return ref.paged_attention_ref(q, k_pages, v_pages, block_tables,
-                                       seq_lens)
-    from .build import entry
+    query head that shares a KV head. ``rep`` (default H / KVH) and
+    ``kv_head0`` (default 0) give a tensor-parallel rank's launch where its
+    H query heads read H / rep KV heads from ``kv_head0`` on of pools that
+    hold all KVH (KV heads that stayed whole over the model axis): the
+    kernel reads those heads of the pools in place. The defaults are the
+    one-card launch."""
     B, H, D = q.shape
     N, KVH, Pg, Dk = k_pages.shape
+    rep = H // KVH if rep is None else int(rep)
+    kv_head0 = int(kv_head0)
+    if rep < 1 or H % rep or kv_head0 < 0 or kv_head0 + H // rep > KVH:
+        raise ValueError(f"paged_attention: {H} query heads at rep {rep} "
+                         f"read KV heads [{kv_head0}, "
+                         f"{kv_head0 + H // max(rep, 1)}) of {KVH}")
+    if not q.is_cuda:
+        return ref.paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                       seq_lens, kv_head0, rep)
+    from .build import entry
+    G = H // rep                         # KV heads read: the grid's groups
     MP = block_tables.shape[-1]
     _check_cuda("paged_attention", q, k_pages, v_pages, block_tables,
                 seq_lens)
@@ -381,14 +394,13 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
     if block_tables.dtype != torch.int32 or seq_lens.dtype != torch.int32:
         raise TypeError("paged_attention: block_tables and seq_lens must be "
                         "int32")
-    if v_pages.shape != k_pages.shape or Dk != D or H % KVH \
+    if v_pages.shape != k_pages.shape or Dk != D \
             or tuple(block_tables.shape) != (B, MP) \
             or tuple(seq_lens.shape) != (B,):
         raise ValueError(f"paged_attention: inconsistent shapes q "
                          f"{tuple(q.shape)}, pools {tuple(k_pages.shape)}, "
                          f"tables {tuple(block_tables.shape)}, seq_lens "
                          f"{tuple(seq_lens.shape)}")
-    rep = H // KVH
     # a two-page ring of K and V pages, the queries and a page of P per warp
     smem = 4 * Pg * D * q.element_size() + 4 * (rep * D + rep * 32)
     if D not in _PAGED_HEAD_DIMS or rep > 32 or Pg > 32 \
@@ -397,19 +409,19 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
                          f"{_PAGED_HEAD_DIMS}, rep <= 32, page_size <= 32 and "
                          f"<= 227 KB of shared memory; got D={D}, rep={rep}, "
                          f"page_size={Pg} ({smem} bytes)")
-    qg = q.reshape(B, KVH, rep, D)       # GQA: heads grouped by KV head
+    qg = q.reshape(B, G, rep, D)         # GQA: heads grouped by KV head
     out = torch.empty_like(qg)
     _check_aligned("paged_attention", qg, k_pages, v_pages)
-    splits = _page_splits(B, KVH, MP, _sm_count(q.device))
+    splits = _page_splits(B, G, MP, _sm_count(q.device))
     scratch = (None,) * 3 if splits == 1 else _split_scratch(
-        "paged_attention", q.device, B * KVH * splits * rep, D, B * KVH)
+        "paged_attention", q.device, B * G * splits * rep, D, B * G)
     with torch.cuda.device(q.device):
         rc = entry("paged_attention")(
             qg.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
             *_pointers(scratch),
-            B, KVH, rep, D, N, Pg, MP, 1.0 / math.sqrt(D), splits,
-            _PAGED_DTYPES[q.dtype], _stream(q.device))
+            B, G, rep, D, N, Pg, MP, KVH, kv_head0, 1.0 / math.sqrt(D),
+            splits, _PAGED_DTYPES[q.dtype], _stream(q.device))
     if rc:
         raise _launch_failed("paged_attention", rc)
     LAUNCHES["paged_attention"] += 1

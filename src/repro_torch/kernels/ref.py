@@ -105,7 +105,8 @@ def unseal_bits_ref(cipher: torch.Tensor, key, counter,
 NEG_INF = -1e30
 
 
-def paged_attention_ref(q, k_pages, v_pages, block_tables, seq_lens):
+def paged_attention_ref(q, k_pages, v_pages, block_tables, seq_lens,
+                        kv_head0: int = 0, rep=None):
     """Single-token attention over a block-table-indexed paged KV cache.
 
     q: [B, H, D]; k_pages, v_pages: [num_pages, KVH, page_size, D];
@@ -113,10 +114,17 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, seq_lens):
     row's pages and runs masked softmax attention in f32, as the JAX oracle
     does — including its idle rows: a row with ``seq_len == 0`` masks every
     position with the same -1e30 and comes out as the finite uniform mean
-    of its table's pages."""
+    of its table's pages. With ``rep`` (query heads a KV head, default
+    H / KVH) the H query heads read the H / rep KV heads from
+    ``kv_head0`` on: a tensor-parallel rank whose query heads read KV
+    heads that stayed whole (``ops.paged_attention``)."""
     B, H, D = q.shape
-    KVH, Pg = k_pages.shape[1], k_pages.shape[2]
-    rep = H // KVH
+    Pg = k_pages.shape[2]
+    rep = H // k_pages.shape[1] if rep is None else rep
+    KVH = H // rep
+    if kv_head0 or KVH != k_pages.shape[1]:
+        k_pages = k_pages[:, kv_head0:kv_head0 + KVH]
+        v_pages = v_pages[:, kv_head0:kv_head0 + KVH]
     MP = block_tables.shape[1]
     bt = block_tables.long()
     # [B, MP, KVH, Pg, D] -> [B, KVH, MP * Pg, D]

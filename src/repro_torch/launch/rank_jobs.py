@@ -337,9 +337,12 @@ class ServeRun:
 @dataclasses.dataclass
 class ServeJob:
     """``ServingEngine(mesh=)`` on each rank of a ``(world / data, data)``
-    pod x data mesh, over each of ``runs`` in turn. ``params`` on the CPU,
-    or None to draw them from ``seed`` on the rank's device (every rank
-    draws the same bits)."""
+    pod x data mesh, or with ``model`` > 1 a ``(world / (data * model),
+    data, model)`` pod x data x model mesh (each stage's layers split
+    over its model ranks, tensor parallelism inside a pod), over each of
+    ``runs`` in turn. ``params`` the whole tree on the CPU, or None to
+    draw it from ``seed`` on the rank's device (every rank draws the same
+    bits); each rank keeps its stage's layers and its blocks of them."""
 
     cfg: ArchConfig
     runs: Sequence[ServeRun]
@@ -348,6 +351,7 @@ class ServeJob:
     seed: int = 0
     max_seq: int = 4096
     data: int = 1
+    model: int = 1
 
 
 def drive(eng, run: ServeRun):
@@ -381,18 +385,39 @@ class Probe:
     (``probes``), host ms of each swap-out and swap-in, the first
     swap-out's payload, digest, layout and counter, and (``check``) every
     swap-in's pages against the rows
-    gathered at its swap-out, bit for bit (``restored`` pages; a swap-in
+    gathered at its swap-out (the first swap-out's in ``first_rows``),
+    bit for bit (``restored`` pages; a swap-in
     whose stage layout moved since is counted in ``moved`` instead); with
     ``digest``, a ``param_digest`` of the backend's cache after every
-    engine step (``digests``)."""
+    engine step (``digests``); over a model axis (``tp``, the rank's
+    ``ModelAxis``) the bytes each decode step put into the model group's
+    collectives (``model_bytes``: (the layers' reduces, gathers and the
+    crossing's broadcast; the flash-decode's query gathers; its partial
+    combines) a step). On a rank engine, the layers the rank held at each
+    decode step (``step_layers``), stage probe (``probe_layers``) and
+    prefill call (``prefill_layers``: (kind, layers)), from which its
+    kernel launches are reckoned across a live re-plan."""
 
     def __init__(self, eng, keep: bool, check: bool = False,
-                 digest: bool = False):
+                 digest: bool = False, tp=None):
         self.step_ms, self.step_bytes, self.logits = [], [], []
+        self.model_bytes = []
+        model = (lambda: (tp.staging.collective, tp.q_gather.collective,
+                          tp.combine.collective)) if tp is not None \
+            else (lambda: (0, 0, 0))
         self.swap_out_ms, self.swap_in_ms = [], []
         self.first_swap, self.digests = None, []
+        self.first_rows = None
         self.probes = self.restored = self.moved = 0
+        self.step_layers, self.probe_layers, self.prefill_layers = [], [], []
         be, dev = eng.backend, eng.device
+        ranked = hasattr(be, "_forward")
+
+        def layers():
+            if not ranked:
+                return None
+            lo, hi = be.dec.ranges[be.stage]
+            return hi - lo
         staging = getattr(be, "staging", None)
         step, sample, times = be.step, eng._sample, be.stage_times
         pending = []
@@ -401,7 +426,11 @@ class Probe:
             _sync(dev)
             pending[:] = [time.perf_counter(),
                           staging.sent if staging else 0]
+            at = model()
+            self.step_layers.append(layers())
             out = step(tokens, key)
+            self.model_bytes.append(tuple(b - a for a, b in zip(at,
+                                                                model())))
             if keep is True or len(self.logits) < keep:
                 self.logits.append(out.detach().cpu())
             return out
@@ -417,7 +446,17 @@ class Probe:
 
         def counted_times():
             self.probes += 1
+            self.probe_layers.append(layers())
             return times()
+
+        if ranked:
+            forward = be._forward
+
+            def counted_forward(kind, inputs):
+                self.prefill_layers.append((kind, layers()))
+                return forward(kind, inputs)
+
+            be._forward = counted_forward
 
         swap_out, swap_in = eng._preempt_swap, eng._swap_in
 
@@ -430,7 +469,7 @@ class Probe:
                 self.first_swap = dict(payload=tuple(man.payload),
                                        digest=man.digest,
                                        layout=man.layout,
-                                       counter=man.counter)
+                                       counter=man.counter, key=eng._key)
 
         def timed_in(slot, req, t0):
             t = time.perf_counter()
@@ -465,6 +504,8 @@ class Probe:
                                  device=be.device)
             gathered[ctr] = (current(), [pool[:, pg].clone()
                                          for pool in be.body])
+            if self.first_rows is None:
+                self.first_rows = gathered[ctr][1]
             return gather(pages, key, ctr)
 
         def checked_scatter(ck, cv, pages, key, ctr, **layout):
@@ -481,6 +522,10 @@ class Probe:
                     self.restored += 1
 
         be.gather_pages, be.scatter_pages = checked_gather, checked_scatter
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
 
 
 def _events(eng) -> List[tuple]:
@@ -513,8 +558,14 @@ def serve(ctx: RankContext, job: ServeJob) -> List[dict]:
                          job.max_seq)
     params = map_tree(lambda t: t.cpu(), params)
     _sync(ctx.device)
-    mesh = make_mesh((ctx.world // job.data, job.data), ("pod", "data"),
-                     device=ctx.device)
+    if job.model > 1:
+        mesh = make_mesh((ctx.world // (job.data * job.model), job.data,
+                          job.model), ("pod", "data", "model"),
+                         device=ctx.device)
+    else:
+        mesh = make_mesh((ctx.world // job.data, job.data), ("pod", "data"),
+                         device=ctx.device)
+    tp = TP.axis_of(mesh)
     out = []
     for run in job.runs:
         if ctx.device.type == "cuda":
@@ -527,7 +578,7 @@ def serve(ctx: RankContext, job: ServeJob) -> List[dict]:
             if run.inject:
                 eng.telemetry.inject(*run.inject)
             probe = Probe(eng, run.keep_logits, run.check_swaps,
-                          run.digest_steps)
+                          run.digest_steps, tp)
             _sync(ctx.device)
             ops.reset_launch_counts()
             reqs = drive(eng, run)
@@ -548,6 +599,7 @@ def serve(ctx: RankContext, job: ServeJob) -> List[dict]:
             "swap_out_ms": probe.swap_out_ms,
             "swap_in_ms": probe.swap_in_ms,
             "first_swap": probe.first_swap, "logits": probe.logits,
+            "first_rows": probe.first_rows,
             "probes": probe.probes, "restored": probe.restored,
             "moved": probe.moved, "decode_steps": be.steps,
             "exchanges": list(be.exchanges),
@@ -557,6 +609,17 @@ def serve(ctx: RankContext, job: ServeJob) -> List[dict]:
             "post_warmup_compiles": eng.aot.post_freeze_compiles,
             "stalls": [x.describe() for x in eng.aot.post_freeze_stalls],
             "step_splits": list(be.step_splits),
+            "model": be.dec.model, "model_bytes": probe.model_bytes,
+            "step_layers": probe.step_layers,
+            "probe_layers": probe.probe_layers,
+            "prefill_layers": probe.prefill_layers,
+            "param_bytes": _nbytes(be.params),
+            "kv_bytes": _nbytes(be.body if be.paged else be.cache[
+                api.model.served_segment.name]),
+            "param_shapes": [tuple(t.shape) for t in leaves(be.params)],
+            "kv_shapes": [tuple(t.shape) for t in leaves(
+                be.body if be.paged else be.cache[
+                    api.model.served_segment.name])],
             "peak_reserved": torch.cuda.max_memory_reserved(ctx.device)
             if ctx.device.type == "cuda" else 0})
         del eng, be, probe
@@ -863,12 +926,14 @@ class StepsJob:
     steps take in place of the greedy ones (a rank's sharded logits hold
     only its block). With ``plain_decode`` each decode step is also run,
     untimed and first, by a decode step built without ``act_rules`` on a
-    copy of the same cache and the same tokens."""
+    copy of the same cache and the same tokens. ``horizon``, when not 0,
+    is the decode steps' cache length in place of ``seq + steps``."""
 
     cfg: ArchConfig
     mesh: Mesh
     tokens: torch.Tensor
     steps: int = 1
+    horizon: int = 0
     dtype: torch.dtype = torch.float32
     params: Any = None
     seed: int = 0
@@ -881,9 +946,16 @@ class StepsJob:
     plain_decode: bool = False
 
 
-def grow_cache(api, cache, n: int):
+def grow_cache(api, cache, n: int, mesh=None, split_in: int = 0,
+               split_out: int = 0):
     """A timeline cache from a prefill with ``n`` more zero positions on
-    every leaf's KV time axis (new tensors), in every segment."""
+    every leaf's KV time axis (new tensors), in every segment. Over the
+    model axis of ``mesh``, a cache that holds the rank's block of the
+    positions (``split_in``, the prefill step's ``positions``, its
+    horizon or 0) is first gathered whole over the model group, and the
+    grown one keeps the rank's block (``split_out``, the decode step's),
+    as the reference's test puts the grown cache under the decode step's
+    ``cache_shardings``."""
     out = dict(cache)
     for seg in api.model.segments:
         axes = iter(axes_leaves(api.model.init_cache_axes()[seg.name]))
@@ -892,10 +964,17 @@ def grow_cache(api, cache, n: int):
             ax = next(axes)
             if "act_kv_seq" not in ax:
                 return t.clone()
-            pad = [0, 0] * (t.dim() - 1 - ax.index("act_kv_seq")) + [0, n]
+            d = ax.index("act_kv_seq")
+            if split_in:
+                with R.axis_rules(mesh):
+                    t = TP.gather_model(t, d)
+            pad = [0, 0] * (t.dim() - 1 - d) + [0, n]
             return torch.nn.functional.pad(t, pad)
 
         out[seg.name] = map_tree(grow, cache[seg.name])
+    if split_out:
+        with R.axis_rules(mesh), TP.kv_positions(split_out):
+            out = S.keep_positions(api, out)
     return out
 
 
@@ -922,6 +1001,16 @@ def _seq_bytes(mesh) -> Tuple[int, int]:
     return tp.seq_gather.collective, tp.seq_scatter.collective
 
 
+def _flash_bytes(mesh) -> Tuple[int, int]:
+    """Bytes the distributed flash-decode's query gathers and partial
+    combines over the model axis of ``mesh`` have put in so far (0, 0
+    without a model axis)."""
+    tp = TP.axis_of(mesh)
+    if tp is None:
+        return 0, 0
+    return tp.q_gather.collective, tp.combine.collective
+
+
 def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
     """This rank's ``rows`` (a slice of the global batch), the whole [B, V]
     ``logits`` of the prefill and of each decode step, its
@@ -934,7 +1023,9 @@ def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
     ``decode_gather_bytes``) and of the sequence's gathers and
     reduce-scatters over the model axis (``prefill_seq_bytes``,
     ``decode_seq_bytes``: a (gathers, reduce-scatters) pair each;
-    under ``SP_ACT_RULES``), with ``plain_decode`` the other decode
+    under ``SP_ACT_RULES``) and of the distributed flash-decode
+    (``decode_flash_bytes``: (query gathers, partial combines) a step;
+    where the positions split over model), with ``plain_decode`` the other decode
     step's logits (``plain_decode_logits``), ``launches`` over them, the
     rank's
     ``param_bytes`` and ``param_shapes`` (its blocks, in leaf order),
@@ -946,7 +1037,8 @@ def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
                       max_seq=job.max_seq)
     mesh = make_mesh(*job.mesh, device=ctx.device)
     out = {"logits": [], "decode_ms": [], "decode_bytes": [],
-           "decode_gather_bytes": [], "decode_seq_bytes": []}
+           "decode_gather_bytes": [], "decode_seq_bytes": [],
+           "decode_flash_bytes": []}
     params = _rank_params(ctx, api, mesh, job.params, job.seed,
                           job.param_rules)
     if ctx.device.type == "cuda":
@@ -958,7 +1050,8 @@ def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
               sharded_logits=job.sharded_logits)
     pre = S.make_prefill_step(api, mesh, ShapeConfig("p", Sq, B, "prefill"),
                               **kw)
-    dshape = ShapeConfig("d", Sq + job.steps, B, "decode")
+    horizon = job.horizon or Sq + job.steps
+    dshape = ShapeConfig("d", horizon, B, "decode")
     dec = S.make_decode_step(api, mesh, dshape, **kw)
     plain = S.make_decode_step(api, mesh, dshape, **dict(
         kw, act_rules=None)) if job.plain_decode else None
@@ -972,9 +1065,12 @@ def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
             return job.feed[i].to(ctx.device)
         return logits.argmax(-1)[:, None].to(torch.int32)
 
+    def grown(cache):
+        return grow_cache(api, cache, horizon - Sq, mesh, pre.positions,
+                          dec.positions)
+
     logits, cache = pre(params, {"tokens": tok})
-    dec(params, grow_cache(api, cache, job.steps),
-        {"tokens": next_tokens(logits, 0)})
+    dec(params, grown(cache), {"tokens": next_tokens(logits, 0)})
     del logits, cache
     _sync(ctx.device)
     ops.reset_launch_counts()
@@ -992,7 +1088,7 @@ def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
         b - a for a, b in zip(seq, _seq_bytes(mesh)))
     out["logits"].append(logits)
     out["prefill_cache"] = map_tree(lambda t: t.clone(), cache)
-    cache = grow_cache(api, cache, job.steps)
+    cache = grown(cache)
     for i in range(job.steps):
         tok = next_tokens(logits, i)
         if plain is not None:
@@ -1001,10 +1097,13 @@ def serve_steps(ctx: RankContext, job: StepsJob) -> dict:
                 {"tokens": tok})[0])
         sent, gathered, seq = _messaged(pre, dec), _gathered(pre), \
             _seq_bytes(mesh)
+        flash = _flash_bytes(mesh)
         t0 = time.perf_counter()
         logits, cache = dec(params, cache, {"tokens": tok})
         _sync(ctx.device)
         out["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["decode_flash_bytes"].append(tuple(
+            b - a for a, b in zip(flash, _flash_bytes(mesh))))
         out["decode_bytes"].append(_messaged(pre, dec) - sent)
         out["decode_gather_bytes"].append(_gathered(pre) - gathered)
         out["decode_seq_bytes"].append(tuple(

@@ -295,6 +295,35 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
 NEG_INF = -1e30
 
 
+def decode_scores(q, k_cache):
+    """The scaled f32 scores [B, KVH, rep, S] of a decode step's query
+    q [B, 1, H, D] against a timeline cache block k_cache [B, KVH, S, D]."""
+    B, _, H, D = q.shape
+    KVH = k_cache.shape[1]
+    qf = q.reshape(B, KVH, H // KVH, D).float()
+    return torch.einsum("bgrd,bgsd->bgrs", qf, k_cache.float()) * (
+        1.0 / math.sqrt(D))
+
+
+def decode_valid(cache_len, S: int, pos, *, rolling: bool = False,
+                 start=None):
+    """Which timeline cache slots ``pos`` [n] (indices into a horizon of S
+    slots: all of them, or one rank's block) a decode step attends, as a
+    [B, n] mask ([1, n] without ``start``): slots < ``cache_len`` valid
+    entries (< min(cache_len, S) in a rolling window buffer), and with
+    ``start`` (per-row [B] or [1] first valid absolute position) only
+    those whose absolute position is at least the row's start."""
+    n = torch.as_tensor(cache_len, device=pos.device).reshape(()).long()
+    valid = (pos < (torch.clamp(n, max=S) if rolling else n))[None, :]
+    if start is not None:
+        # a rolling slot p was last written at n-1 - ((n-1-p) mod S)
+        abs_pos = n - 1 - torch.remainder(n - 1 - pos, S) if rolling \
+            else pos
+        first = torch.as_tensor(start, device=pos.device).reshape(-1, 1)
+        valid = valid & (abs_pos[None, :] >= first)
+    return valid
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *, rolling: bool = False,
                      start=None):
     """Single-token attention against a contiguous timeline KV cache (the
@@ -308,42 +337,34 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, rolling: bool = False,
     (sliding-window buffers) every slot < min(cache_len, S) is valid.
     ``start``: optional per-row [B] (or [1]) first valid absolute position:
     requests share one position timeline, so a slot admitted late masks
-    out whatever its cache holds before its own prompt. Returns
-    [B, 1, H, D] in q's type."""
+    out whatever its cache holds before its own prompt (``decode_valid``).
+    Returns [B, 1, H, D] in q's type."""
     B, _, H, D = q.shape
-    KVH, S = k_cache.shape[1], k_cache.shape[2]
-    rep = H // KVH
-    scale = 1.0 / math.sqrt(D)
-    qf = q.reshape(B, KVH, rep, D).float()
-    s = torch.einsum("bgrd,bgsd->bgrs", qf, k_cache.float()) * scale
-    pos = torch.arange(S, device=q.device)
-    n = torch.as_tensor(cache_len, device=q.device).reshape(()).long()
-    limit = torch.clamp(n, max=S) if rolling else n
-    valid = pos < limit
-    if start is not None:
-        if rolling:
-            # slot p last written at absolute position n-1 - ((n-1-p) mod S)
-            abs_pos = n - 1 - torch.remainder(n - 1 - pos, S)
-        else:
-            abs_pos = pos
-        first = torch.as_tensor(start, device=q.device).reshape(-1, 1)
-        valid = valid[None, :] & (abs_pos[None, :] >= first)
-        s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    else:
-        s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    S = k_cache.shape[2]
+    valid = decode_valid(cache_len, S, torch.arange(S, device=q.device),
+                         rolling=rolling, start=start)
+    s = torch.where(valid[:, None, None, :], decode_scores(q, k_cache),
+                    NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrs,bgsd->bgrd", p, v_cache.float())
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
-def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens):
+def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens,
+                           which=None):
     """Single-token attention over a paged KV cache. q: [B, 1, H, D];
     seq_lens counts the valid tokens per row *including* the one just
     written. Goes through ``ops.paged_attention``: the CUDA kernel for a
-    CUDA tensor, the plain version for a CPU tensor."""
+    CUDA tensor, the plain version for a CPU tensor. ``which`` (a slice,
+    ``TP.kv_for_heads``) names the KV heads of pools that hold them all
+    which a tensor-parallel rank's query heads read: the kernel reads
+    them in place (``kv_head0``), each serving H / their count heads."""
     B, _, H, D = q.shape
+    kw = {}
+    if which is not None:
+        kw = dict(kv_head0=which.start, rep=H // (which.stop - which.start))
     out = KO.paged_attention(q.reshape(B, H, D), k_pages, v_pages,
-                             block_tables, seq_lens)
+                             block_tables, seq_lens, **kw)
     return out.reshape(B, 1, H, D)
 
 
@@ -383,7 +404,7 @@ def paged_write(k_pages, v_pages, k_new, v_new, block_tables, seq_lens):
 
 
 def chunk_prefill_attention(q, k, v, k_pages, v_pages, block_tables,
-                            prior_len: int):
+                            prior_len: int, which=None):
     """Attention for one prefill chunk resuming at offset ``prior_len``.
 
     q: [1, C, H, D] chunk queries (absolute positions prior_len + i);
@@ -399,7 +420,9 @@ def chunk_prefill_attention(q, k, v, k_pages, v_pages, block_tables,
     mask. Pool positions at or past prior_len (null tails, the chunk's own
     fresh pages, the unwritten rest of an adopted COW page) are never
     gathered. The caller writes the chunk's KV after this
-    (``paged_write_chunk``). Returns [1, C, H, D]."""
+    (``paged_write_chunk``). ``which`` (``TP.kv_for_heads``) picks the KV
+    heads a tensor-parallel rank's query heads read where the pools hold
+    them all. Returns [1, C, H, D]."""
     B, _, KVH, D = k.shape
     assert B == 1, "chunked prefill runs one slot at a time"
     Pg = k_pages.shape[2]
@@ -410,7 +433,9 @@ def chunk_prefill_attention(q, k, v, k_pages, v_pages, block_tables,
         vp = v_pages[pages].transpose(1, 2).reshape(1, n * Pg, KVH, D)
         k = torch.cat([kp[:, :prior_len], k], dim=1)
         v = torch.cat([vp[:, :prior_len], v], dim=1)
-    return chunked_attention(q, k, v, causal=True, q_offset=prior_len)
+    return chunked_attention(q, TP.take_kv(k, which, 2),
+                             TP.take_kv(v, which, 2), causal=True,
+                             q_offset=prior_len)
 
 
 def chunk_write_targets(pages: torch.Tensor, offs: torch.Tensor,

@@ -215,7 +215,12 @@ class AttnBlock:
     products that contract a split dim end in ``reduce_model``, and the
     normed input of each split product enters it through
     ``copy_to_model`` (its gradient summed over the group in training);
-    the timeline paths write the rank's KV heads into its cache.
+    the timeline and paged paths write the rank's KV heads into its cache
+    (all of them where they stayed whole: the paged kernel then reads the
+    ones its query heads map to in place, ``paged_heads``). Where a
+    timeline cache holds the rank's block of the positions
+    (``TP.positions_split``: KV heads that stay whole), decode runs the
+    distributed flash-decode (``flash_decode``).
 
     Where the rule context splits the sequence (``SP_ACT_RULES``,
     ``TP.seq_split`` of the whole sequence's length) ``x`` in and out of
@@ -315,20 +320,59 @@ class AttnBlock:
     def decode_slot(self, cache_len: torch.Tensor, body) -> torch.Tensor:
         """The [1] slot a decode step at position ``cache_len`` writes into
         the segment's cache ``body`` of S positions: ``len % S`` in a
-        rolling window buffer, else ``min(len, S - 1)``."""
-        S = self.kv_of(body)[0].shape[3]
+        rolling window buffer, else ``min(len, S - 1)``. Where the body
+        holds this rank's block of the positions (``TP.positions_split``),
+        S is the whole horizon and the slot a whole-horizon index."""
+        S = TP.whole_positions(self.kv_of(body)[0].shape[3])
         n = cache_len.reshape(1).long()
         return torch.remainder(n, S) if self.rolling else \
             torch.clamp(n, max=S - 1)
+
+    def flash_decode(self, q, k, v, kv, cache_len, slot, start, rows):
+        """``attend_decode`` where the layer's ``kv`` holds this rank's
+        block of S / M positions with every KV head (the reference's
+        distributed flash-decode, ``act_kv_seq`` over ``model``): the rank
+        that owns ``slot`` writes the step's k, v; the query heads are
+        gathered over the model group (``TP.gather_heads``); every head
+        attends the rank's block in f32 under ``L.decode_attention``'s
+        scores and mask (``L.decode_scores``, ``L.decode_valid`` at the
+        block's whole-horizon positions), as max, sum and unnormalized
+        output, and the blocks' partials are merged in rank order
+        (``TP.combine_partials``): an empty block's max is ``NEG_INF``,
+        so it weighs nothing beside a block with a valid position; the
+        rank keeps its own query heads."""
+        ax = TP.positions_split()
+        kc, vc = kv[0][rows], kv[1][rows]                   # [b, KVH, Sl, D]
+        Sl = kc.shape[2]
+        at, own = TP.local_slot(slot, Sl)
+        for c, new in ((kc, k), (vc, v)):
+            c.index_copy_(2, at, torch.where(own, new, c.index_select(2, at)))
+        H_loc = q.shape[2]
+        qa = TP.gather_heads(q)                             # [b, 1, H, D]
+        b, _, H, D = qa.shape
+        pos = ax.index * Sl + torch.arange(Sl, device=q.device)
+        valid = L.decode_valid(cache_len + 1, TP.whole_positions(Sl), pos,
+                               rolling=self.rolling, start=start)
+        sc = torch.where(valid[:, None, None, :], L.decode_scores(qa, kc),
+                         L.NEG_INF)
+        m = sc.amax(-1)                                     # [b, KVH, rep]
+        e = torch.exp(sc - m[..., None])
+        o = torch.einsum("bgrs,bgsd->bgrd", e, vc.float())
+        out = TP.combine_partials(m, e.sum(-1), o).reshape(b, 1, H, D)
+        return out.narrow(2, ax.index * H_loc, H_loc).to(q.dtype)
 
     def attend_decode(self, q, k, v, kv, cache_len, slot, start, rows):
         """Write this step's k, v [b, 1, KVH, D] at ``slot`` of the layer's
         ``kv`` rows ``rows`` (int8 against the layer's scales when
         quantized), in place, and attend over ``cache_len + 1`` positions
         from each row's ``start`` (``L.decode_attention``), over the KV
-        heads q's heads read (``kv_heads``)."""
+        heads q's heads read (``kv_heads``); over this rank's block of the
+        positions where the cache holds one (``flash_decode``)."""
         which = self.kv_heads(q, k)
         k, v = k.transpose(1, 2), v.transpose(1, 2)         # [b, KVH, 1, D]
+        if TP.positions_split() is not None:
+            return self.flash_decode(q, k, v, kv, cache_len, slot, start,
+                                     rows)
         if self.cache_quant:
             k_q, v_q, k_s, v_s = kv
             sK, sV = k_s[:, None, :], v_s[:, None, :]       # [KVH, 1, D]
@@ -357,30 +401,51 @@ class AttnBlock:
         return self.mlp(p, x)
 
     # -- the paged paths -------------------------------------------------------
+    def paged_heads(self, q: torch.Tensor, k: torch.Tensor):
+        """``kv_heads`` for the paged paths, whose pools hold this rank's
+        KV heads (all of them where they stayed whole): None or a slice;
+        a rank whose query heads read KV heads unevenly is refused by
+        name (the paged kernel serves the same number of query heads from
+        each KV head it reads)."""
+        which = self.kv_heads(q, k)
+        if which is not None and not isinstance(which, slice):
+            raise NotImplementedError(
+                f"{self.cfg.name}: {q.shape[2]} query heads a rank read "
+                f"{self.cfg.num_kv_heads} whole KV heads unevenly; the "
+                f"paged kernel reads KV heads [kv_head0, ...) at one rep "
+                f"(ROADMAP item 10d, step 5c)")
+        return which
+
     def decode_paged(self, p, x, positions, pos3, pools, bt, sl, sl_next):
         """One paged decode step: write the new K/V into this layer's
         pools ``(k, v)`` [N, KVH, Pg, D] in place and attend over
-        ``sl_next`` tokens (the paged kernel on the card)."""
+        ``sl_next`` tokens (the paged kernel on the card). On a rank of a
+        model axis the pools hold the rank's KV heads (all of them where
+        they stayed whole: the kernel reads the ones its query heads map
+        to, ``kv_head0``) and the output projection ends in the model
+        group's reduce (``attn_out``)."""
         cfg = self.cfg
         h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
         q, k, v = L.attn_qkv(p["attn"], h, positions, cfg, pos3)
         L.paged_write(pools[0], pools[1], k[:, 0], v[:, 0], bt, sl)
-        ctx = L.paged_decode_attention(q, pools[0], pools[1], bt, sl_next)
-        x = x + L.attn_out(p["attn"], ctx)
+        ctx = L.paged_decode_attention(q, pools[0], pools[1], bt, sl_next,
+                                       self.paged_heads(q, k))
+        x = x + self.attn_out(p, ctx)
         return self.mlp(p, x)
 
     def prefill_chunk(self, p, x, positions, pos3, pools, bt, offset: int,
                       targets):
         """One prefill chunk: attend over the gathered prefix plus the chunk
-        (``L.chunk_prefill_attention``), then write the chunk's KV into
-        this layer's pools, in place."""
+        (``L.chunk_prefill_attention``, over the KV heads this rank's
+        query heads read), then write the chunk's KV into this layer's
+        pools, in place."""
         cfg = self.cfg
         h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
         q, k, v = L.attn_qkv(p["attn"], h, positions, cfg, pos3)
         ctx = L.chunk_prefill_attention(q, k, v, pools[0], pools[1], bt,
-                                        offset)
+                                        offset, self.kv_heads(q, k))
         L.paged_write_chunk(pools[0], pools[1], k[0], v[0], targets)
-        x = x + L.attn_out(p["attn"], ctx)
+        x = x + self.attn_out(p, ctx)
         return self.mlp(p, x)
 
 

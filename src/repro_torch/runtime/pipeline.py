@@ -41,8 +41,8 @@ on one card (without ``mesh``):
   between its seal and its unseal.
 
 With ``mesh=`` (a ``DeviceMesh`` of the world's ranks from ``make_mesh``
-inside ranks that ``launch.ranks.spawn`` started: axes ``pod`` and
-``data``, ``pod`` of ``num_stages``) stage s runs on the ranks of pod s,
+inside ranks that ``launch.ranks.spawn`` started: axes ``pod``, ``data``
+and ``model``, ``pod`` of ``num_stages``) stage s runs on the ranks of pod s,
 the reference's layout. ``stage_params`` / ``stage_cache`` /
 ``stage_paged_cache`` keep a rank's own layers only (and the embedding on
 stage 0, the final norm and head on the last). Microbatch m still meets
@@ -81,8 +81,27 @@ them eagerly. Per-call numbers reach a segment as device tensors (the
 step key, the exchange's key and counters); the host ints among its
 arguments (the microbatch, the batch size) select its graph.
 
+A ``model`` axis above 1 (ROADMAP item 10d, step 5c; the dense and MoE
+``StackedLM``) splits each stage's layers over the model ranks of its
+pod, tensor parallelism inside the enclave: each rank keeps its block of
+its stage's params (``model_block``: ``PARAM_RULES`` on the whole mesh,
+every leaf whole over data) and of its pools (``kv_block``: its KV heads
+where they divide, else all of them, and on a rank engine's timeline its
+block of the positions where the heads do not divide and the horizon
+does), and its layers run under ``context()`` (``PIPE_RULES``, the
+reference's pipelined body), whose collectives join the model group. The
+activation leaving a stage is whole on every model rank after the last
+reduce: model rank 0 of (s, d) alone seals it, under the counters above,
+and sends it to model rank 0 of (s + 1, d), which opens it and
+broadcasts the plaintext over its model group (``TP.from_lead``), so a
+crossing keeps its bytes and (key, counter)s and plaintext moves only
+inside a pod. The KV exchange and a restage run between the ranks of
+one model index, each sealing its own blocks under sequence numbers of
+its own (``exchange_counters``, ``_move_layers``: the numbers at one
+model rank times the model axis, plus its index).
+
 Two more pieces serve an engine whose stages are ranks
-(``ServingEngine(mesh=)``, pod and data ranks):
+(``ServingEngine(mesh=)``, pod, data and model ranks):
 
 * ``rank_forward`` runs this rank's layers of a prefill (one-shot, packed,
   chunked or one token: a ``crossing_segment``, which also opens the
@@ -111,6 +130,7 @@ advances once per step.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -124,11 +144,22 @@ from repro_torch.kernels.seal import int_dtype_of
 from repro_torch.launch import ranks as RK
 from repro_torch.models.api import ModelAPI
 from repro_torch.models.layers import paged_write_targets
+from repro_torch.sharding import rules as R
+from repro_torch.sharding import tensor_parallel as TP
 from repro_torch.tree import leaves, map_tree
 
 
 # restage sequence numbers one restage may take (``restage_cache``)
 RESTAGE_SEQS = 256
+# a rank's blocks on a pod x data x model mesh: the params' under
+# PARAM_RULES with every leaf whole over data (a pod's data ranks hold
+# whole params), the caches' under the pipelined body's rules with the
+# rows whole over data (a pod's data ranks hold one cache)
+PIPE_PARAM_RULES = R.merge_rules(R.PARAM_RULES, {"embed": [()]})
+PIPE_KV_RULES = R.merge_rules(R.PIPE_RULES, {"act_kv_batch": [()]})
+# logical axes of a paged pool [L, N, KVH, Pg, D] (the reference's
+# per-layer (None, "act_kv_heads", None, None))
+PAGED_AXES = ("layers", None, "act_kv_heads", None, None)
 
 
 def _cipher_dtype(t: torch.Tensor) -> torch.dtype:
@@ -232,21 +263,37 @@ class PipelinedDecoder:
 
     # -- a stage per rank ----------------------------------------------------
     def _place_on_ranks(self) -> None:
-        from repro_torch.launch.mesh import rank_axes
-        from repro_torch.sharding import rules as R
+        from repro_torch.launch.mesh import LOCAL, rank_axes
         sizes = R.mesh_axis_sizes(self.mesh)
         if not R.is_device_mesh(self.mesh) \
                 or any(k > 1 for a, k in sizes.items()
-                       if a not in ("pod", "data")) \
+                       if a not in ("pod", "data", "model")) \
                 or sizes.get("pod") != self.num_stages:
             raise ValueError(
                 f"PipelinedDecoder(mesh=): a DeviceMesh of ranks over pod "
-                f"(= num_stages {self.num_stages}) and data, got {sizes} "
-                f"(a model axis is ROADMAP item 10d, step 5c)")
+                f"(= num_stages {self.num_stages}), data and model, got "
+                f"{sizes}")
         ax = rank_axes(self.mesh)
         self.stage, self.data = ax.index("pod"), ax.index("data")
         self.num_data = ax.size("data")
+        # the model axis: this rank's blocks of its layers, the group's
+        # messages inside the stage (``sharding.tensor_parallel``)
+        self.model, self.num_model = ax.index("model"), ax.size("model")
+        self.lead = self.model == 0     # seals and sends the crossings
+        self._coords = ax.coords
+        if self.num_model > 1:
+            from repro_torch.runtime.steps import check_model_axis, leaf_block
+            check_model_axis(self.api, self.num_model,
+                             "PipelinedDecoder(mesh=)")
+            self._pcuts = {k: [leaf_block(sp, self.mesh, ax.coords,
+                                          PIPE_PARAM_RULES)
+                               for sp in leaves(v)]
+                           for k, v in self.api.param_specs().items()}
         self._pod_group, self._data_group = ax.group("pod"), ax.group("data")
+        # the model group, and this pod's (data, model) ranks (the data
+        # group where the model axis is 1)
+        self._model_group, self._local_group = ax.group("model"), \
+            ax.group(LOCAL)
         self._pod_ranks = RK.group_ranks(self._pod_group)
         self._data_ranks = RK.group_ranks(self._data_group)
         names = tuple(self.mesh.mesh_dim_names)
@@ -309,39 +356,111 @@ class PipelinedDecoder:
         return map_tree(lambda t: t[lo:hi].to(device or t.device,
                                               copy=True), tree)
 
+    def model_block(self, name: str, tree):
+        """This rank's block over the model axis of each leaf of
+        ``params[name]`` (whole over model; a stacked segment's leaves may
+        hold any range of its layers, which no block cuts): the leaf's
+        ``leaf_block`` under ``PIPE_PARAM_RULES`` (``PARAM_RULES`` with
+        the data axis keeping every leaf whole, as a pod's data ranks hold
+        whole params), as views. ``tree`` itself off a model axis."""
+        if self.mesh is None or self.num_model == 1:
+            return tree
+        cuts = iter(self._pcuts[name])
+
+        def cut(t):
+            b = next(cuts)
+            return t if b is None else t[b]
+
+        return map_tree(cut, tree)
+
+    def kv_block(self, tree, paged: bool, positions: bool = False):
+        """This rank's block over the model axis of a cache tree of stacked
+        layer leaves whole over model (the paged pools ``(k, v)`` [L, N,
+        KVH, Pg, D] or a timeline body): its KV heads where they divide
+        (the reference's ``act_kv_heads``), else all of them, and with
+        ``positions`` its block of a timeline's positions where the KV
+        heads do not divide and the positions do (``act_kv_seq``), as
+        views. ``tree`` itself off a model axis."""
+        if self.mesh is None or self.num_model == 1:
+            return tree
+        if paged:
+            axes = iter([PAGED_AXES] * len(leaves(tree)))
+        else:
+            axes = iter(axes_leaves(self.api.model.init_cache_axes()[
+                self.api.model.served_segment.name]))
+        rules = PIPE_KV_RULES if positions else R.merge_rules(
+            PIPE_KV_RULES, {"act_kv_seq": [()]})
+
+        def cut(t):
+            sh = R.logical_sharding(t.shape, next(axes), self.mesh, rules)
+            return t[sh.block(t.shape, self._coords)]
+
+        return map_tree(cut, tree)
+
+    def positions_split(self, horizon: int) -> int:
+        """``horizon`` where a timeline cache of ``horizon`` positions
+        holds this rank's block of them (``kv_block(positions=True)``):
+        the KV heads do not divide over the model axis and the positions
+        do; else 0."""
+        split = self.mesh is not None and self.num_model > 1 and \
+            TP.kv_seq_splits(self.mesh, PIPE_KV_RULES,
+                             self.api.cfg.num_kv_heads, horizon)
+        return horizon if split else 0
+
+    def context(self, positions: int = 0):
+        """The rule context this rank's model code runs in: the model
+        axis's (``PIPE_RULES``, the reference's pipelined body; with
+        ``positions``, a ``positions_split`` horizon, its timeline caches
+        hold the rank's block of those positions, ``TP.kv_positions``),
+        nothing off a model axis."""
+        stack = contextlib.ExitStack()
+        if self.mesh is not None and self.num_model > 1:
+            stack.enter_context(R.axis_rules(self.mesh, R.PIPE_RULES))
+            stack.enter_context(TP.kv_positions(positions))
+        return stack
+
     def stage_params(self, params, device=None):
         """This rank's params: its stage's layers of the served segment,
         the embedding on stage 0 (and on the last stage when the head is
         tied to it), the final norm and head on the last stage, anything
-        else (a frontend) on stage 0; copied to ``device`` when given (a
-        rank engine cuts them from its host copy of the whole tree). The
-        whole tree on one card."""
+        else (a frontend) on stage 0, each leaf's block over the model
+        axis (``model_block``); copied to ``device`` when given (a rank
+        engine cuts them from its host copy of the whole tree). The whole
+        tree on one card."""
         if self.mesh is None:
             return params
         seg = self.api.model.served_segment.name
         first, last = self.stage == 0, self.stage == self.num_stages - 1
         keep = {"embed": first or (last and self.api.cfg.tie_embeddings),
                 "ln_f": last, "head": last}
-        return {k: self._cut(v, device) if k == seg
-                else map_tree(lambda t: t.to(device or t.device), v)
+        lo, hi = self.ranges[self.stage]
+        return {k: map_tree(lambda t: t.to(device or t.device, copy=True),
+                            self.model_block(k, map_tree(lambda t: t[lo:hi],
+                                                         v)))
+                if k == seg else map_tree(lambda t: t.to(device or t.device),
+                                          self.model_block(k, v))
                 for k, v in params.items()
                 if k == seg or keep.get(k, first)}
 
     def stage_paged_cache(self, cache):
-        """This rank's paged cache: its stage's layers of the pools, the
-        whole block tables and seq_lens. The dict itself on one card."""
+        """This rank's paged cache: its stage's layers of the pools (its KV
+        heads over a model axis, ``kv_block``), the whole block tables and
+        seq_lens. The dict itself on one card."""
         if self.mesh is None:
             return cache
         seg = self.api.model.served_segment.name
-        return dict(cache, **{seg: self._cut(cache[seg])})
+        return dict(cache, **{seg: self._cut(self.kv_block(cache[seg],
+                                                           paged=True))})
 
     # -- the timeline cache's staging (the identity on one card) -------------
     def stage_cache(self, cache):
         """A timeline cache dict -> the staged pair ``(body, len)``. The
         body keeps its ``[L, B, ...]`` layout: stage s reads its layer range
-        of it. On a rank, the body holds the stage's layers only."""
+        of it. On a rank, the body holds the stage's layers only (its KV
+        heads over a model axis, every position)."""
         body = cache[self.api.model.served_segment.name]
-        return (body if self.mesh is None else self._cut(body)), cache["len"]
+        return (body if self.mesh is None else self._cut(
+            self.kv_block(body, paged=False))), cache["len"]
 
     def unstage_cache(self, staged, new_len):
         """The inverse of ``stage_cache``."""
@@ -400,9 +519,11 @@ class PipelinedDecoder:
             (len(moves), len(flat))
 
         def ctr(m: int, j: int):
+            # each (data, model) rank moves its own blocks: a sequence
+            # number of its own (the one-model-rank numbers at model 1)
             return sealing._swap_counter(sealing.restage_seq(
-                (seq + m * len(flat) + j) * self.num_data + self.data,
-                self.prefill_role), 0)
+                ((seq + m * len(flat) + j) * self.num_data + self.data)
+                * self.num_model + self.model, self.prefill_role), 0)
 
         outgoing, incoming = [], []
         for m, (a, b, lo, hi) in enumerate(moves):
@@ -457,7 +578,11 @@ class PipelinedDecoder:
         d_model], runs ``run(x, *inputs) -> (out, extra)`` (``out`` the
         hidden state, or the f32 logits on the last stage) and, on a stage
         that sends, seals ``out`` as [rows, d_model] under ``ctr[1]`` (the
-        lossless page cipher; raw with ``seal_boundary`` off)."""
+        lossless page cipher; raw with ``seal_boundary`` off). Over a
+        model axis only model rank 0 receives, opens, seals and sends: it
+        broadcasts the opened hidden state over its model group
+        (``TP.from_lead``), and the others return None for ``out`` on a
+        stage that sends."""
         api, S, s = self.api, self.num_stages, self.stage
         d = api.cfg.d_model
 
@@ -468,8 +593,12 @@ class PipelinedDecoder:
                     got = K.unseal_bits(got, key, ctr[0:1],
                                         out_dtype=api.dtype)
                 x = got.reshape(*shape, d)
+            if s > 0:
+                x = TP.from_lead(x, (*shape, d), api.dtype, api.device)
             out, extra = run(x, *inputs)
             if s < S - 1:
+                if not self.lead:
+                    return None, extra
                 out = out.reshape(-1, d)
                 if self.seal_boundary:
                     out = K.seal_bits(out, key, ctr[1:2])
@@ -495,7 +624,7 @@ class PipelinedDecoder:
         d, V = api.cfg.d_model, api.cfg.vocab_size
         dev = api.device
         got = None
-        if s > 0:
+        if s > 0 and self.lead:
             like = torch.empty((math.prod(shape), d), device=dev, dtype=(
                 int_dtype_of(api.dtype) if self.seal_boundary
                 else api.dtype))
@@ -503,12 +632,13 @@ class PipelinedDecoder:
                           self._pod_group, tag="hidden_in").wait()[0]
         out, extra = segment(tuple(shape), got, key, ctr, *inputs)
         if s < S - 1:
-            self._sync()
-            t0, sent0 = time.perf_counter(), self.staging.sent
-            RK.send(self.staging, [out], self._pod_ranks[s + 1],
-                    self._pod_group, tag="hidden_out").wait()
-            self.last_crossing = ((time.perf_counter() - t0) * 1e3,
-                                  self.staging.sent - sent0)
+            if self.lead:
+                self._sync()
+                t0, sent0 = time.perf_counter(), self.staging.sent
+                RK.send(self.staging, [out], self._pod_ranks[s + 1],
+                        self._pod_group, tag="hidden_out").wait()
+                self.last_crossing = ((time.perf_counter() - t0) * 1e3,
+                                      self.staging.sent - sent0)
             out = torch.empty((logits_rows, V), dtype=torch.float32,
                               device=dev)
         RK.broadcast(self.staging, out, self._pod_ranks[-1], self._pod_group,
@@ -715,7 +845,8 @@ class PipelinedDecoder:
                                                device=tokens.device))
             bound = {name: (lambda *a, f=f: f(params, cache, *a))
                      for name, f in segs.items()}
-            return self.rank_loop(bound, tokens, key, exchange), cache
+            with self.context():
+                return self.rank_loop(bound, tokens, key, exchange), cache
 
         return step_fn
 
@@ -733,7 +864,10 @@ class PipelinedDecoder:
           data + d``; then the stage's layers, and the head on the last
           stage ([b, V] f32 logits), else the hidden state sealed under
           the counter of tick ``m + s + 1`` at leaf ``s * data + d``
-          (``boundary_counters``) or raw;
+          (``boundary_counters``) or raw. Over a model axis model rank 0
+          opens ``got`` and broadcasts it over its model group (the
+          others take None), and seals alone (the others return None):
+          the activation leaving a stage is whole on every model rank;
         * ``take(B, key, ctr)``: the KV entries this data rank wrote in
           the step (``rank_loop``), packed into one float [n, cols] and
           sealed under ``key`` and ``ctr[d]`` (raw with ``seal_boundary``
@@ -758,14 +892,22 @@ class PipelinedDecoder:
             rows = slice(m * B_mb + lo, m * B_mb + lo + b)
             if s == 0:
                 x = model.embed(params, tokens[rows])
-            elif seal_on:
-                x = K.unseal(got[0], got[1], key, ctrs[s - 1, t:t + 1],
-                             out_dtype=api.dtype).reshape(b, 1, dm)
             else:
-                x = got[0]
+                x = None
+                if got is None:
+                    pass                # a model rank other than 0
+                elif seal_on:
+                    x = K.unseal(got[0], got[1], key, ctrs[s - 1, t:t + 1],
+                                 out_dtype=api.dtype)
+                else:
+                    x = got[0]
+                x = TP.from_lead(x, (b, 1, dm), api.dtype,
+                                 api.device).reshape(b, 1, dm)
             h = run(params, cache, s, x, rows)
             if s == S - 1:
                 return model.head(params, h)
+            if not self.lead:
+                return None
             if seal_on:
                 return K.seal(h.reshape(-1, dm), key, ctrs[s, t + 1:t + 2])
             return (h,)
@@ -835,10 +977,17 @@ class PipelinedDecoder:
             flat = leaves(body)
             assert len(axes) == len(flat), (len(axes), len(flat))
             slot = segment.block.decode_slot(cache_len, body)
-            return [(t, ax.index("act_kv_batch"),
-                     ax.index("act_kv_seq") if "act_kv_seq" in ax else None,
-                     slot) for t, ax in zip(flat, axes)
-                    if "act_kv_batch" in ax]
+            out = []
+            for t, ax in zip(flat, axes):
+                if "act_kv_batch" not in ax:
+                    continue
+                sd = ax.index("act_kv_seq") if "act_kv_seq" in ax else None
+                # a block of the positions: the slot's index there, or the
+                # block's edge, whose entries the data ranks already share
+                at = slot if sd is None else \
+                    TP.local_slot(slot, t.shape[sd])[0]
+                out.append((t, ax.index("act_kv_batch"), sd, at))
+            return out
 
         def run(params, cache, s, x, rows):
             start = cache[2][rows] if per_slot_start else None
@@ -875,12 +1024,14 @@ class PipelinedDecoder:
 
     def exchange_counters(self, n: int) -> List[int]:
         """The page-cipher counters of the n-th KV exchange of this stage's
-        data ranks, one a data rank: data rank i seals its entries under
-        the exchange sequence number ``(n * pods + s) * data + i``
-        (``sealing.exchange_seq``)."""
+        data ranks of this model index, one a data rank: data rank i of
+        model index m seals its entries under the exchange sequence
+        number ``((n * pods + s) * data + i) * model + m``
+        (``sealing.exchange_seq``; ``(n * pods + s) * data + i`` with one
+        model rank): the model ranks exchange their own KV heads."""
         first = (n * self.num_stages + self.stage) * self.num_data
-        return [sealing._swap_counter(
-            sealing.exchange_seq(first + i, self.prefill_role), 0)
+        return [sealing._swap_counter(sealing.exchange_seq(
+            (first + i) * self.num_model + self.model, self.prefill_role), 0)
             for i in range(self.num_data)]
 
     def rank_loop(self, segs: Dict[str, Callable], tokens: torch.Tensor,
@@ -908,8 +1059,9 @@ class PipelinedDecoder:
         dev = tokens.device
         clock = _Clock(dev)
         staging, pod_g = self.staging, self._pod_group
-        prev = self._pod_ranks[s - 1] if s > 0 else None
-        nxt = self._pod_ranks[s + 1] if s < S - 1 else None
+        # over a model axis, model rank 0 of a stage holds its crossings
+        prev = self._pod_ranks[s - 1] if s > 0 and self.lead else None
+        nxt = self._pod_ranks[s + 1] if s < S - 1 and self.lead else None
         if self.seal_boundary:
             likes = (torch.empty((b, dm), dtype=torch.uint8, device=dev),
                      torch.empty((b, 1), dtype=torch.float32, device=dev))
@@ -924,9 +1076,9 @@ class PipelinedDecoder:
                     staging, likes, prev, pod_g, tag="in").wait()))
             out = clock.segment(segs["tick"], m, B,
                                 tokens if s == 0 else None, got, key)
-            if nxt is None:
+            if s == S - 1:
                 logits[m].copy_(out)
-            else:
+            elif nxt is not None:
                 posted.append(clock.message(lambda: RK.send(
                     staging, out, nxt, pod_g, tag=("out", m))))
         clock.message(lambda: [p.wait() for p in posted])

@@ -55,10 +55,17 @@ needs (``sharding.tensor_parallel``: a reduce after each product that
 contracts a split dim, the vocab-split embedding and logits). The model
 ranks of a row block run the same rows and return the same whole logits;
 each returns its rows of the cache with its KV heads where they divide
-over ``model``, else all of them, and every position (where the KV heads
-do not divide, ``cache_shardings`` gives the positions to ``model`` when
-they divide; the ranks keep them whole, as every rank computes every KV
-head there, and send nothing for the cache). In the train step every
+over ``model``. Where they do not, ``cache_shardings`` gives the
+positions to ``model`` when they divide (``TP.kv_seq_splits`` of the
+step's whole horizon): the prefill step returns each rank its block of
+the positions (every rank computes every KV head there, so the cut
+sends nothing), and the decode step takes and returns that block, each
+rank attending its positions with every query head and the blocks'
+partial softmaxes combined over the model group (the reference's
+distributed flash-decode, ``AttnBlock.flash_decode``; its two messages a
+layer counted in the step's ``q_gather_staging`` and
+``combine_staging``). A horizon that does not divide keeps every
+position on every rank, as the reference's fallback. In the train step every
 helper's backward gives each rank its shards' gradients and the whole
 leaves' (the norms, the router, KV heads that stay whole) the same bits
 on every rank; the clipping norm counts each block once over the pod's
@@ -212,12 +219,15 @@ def check_mesh(api: ModelAPI, mesh, what: str) -> None:
 
 
 def check_model_axis(api: ModelAPI, m: int, what: str) -> None:
-    """What a model axis of ``m`` ranks runs (ROADMAP item 10d, steps 5a
-    and 5b): the prefill and decode serve steps and the train step of the
-    dense and MoE ``StackedLM`` (one ``AttnBlock`` class in every
-    segment), serving from a bf16 or f32 timeline cache, under rules that
+    """What a model axis of ``m`` ranks runs (ROADMAP item 10d, steps 5a,
+    5b and 5c's first part): the prefill and decode serve steps, the
+    train step, the serving engine and ``PipelinedDecoder`` of the dense
+    and MoE ``StackedLM`` (one ``AttnBlock`` class in every segment),
+    from a bf16 or f32 cache (paged, or the timeline with its positions
+    over ``model`` where the KV heads do not divide), under rules that
     keep the sequence whole or split it over ``model`` (``act_rules``,
-    ``SP_ACT_RULES``). The rest raises by name with its roadmap step."""
+    ``SP_ACT_RULES``). The rest (the other families, the int8 cache)
+    raises by name with its roadmap step."""
     model, cfg = api.model, api.cfg
     if type(model) is not StackedLM or any(
             type(seg.block) is not AttnBlock for seg in model.segments):
@@ -843,7 +853,8 @@ class _RankRows:
 def _serve_step(api: ModelAPI, mesh, shape: ShapeConfig, what: str,
                 act_rules, param_rules, sharded_logits: bool):
     """What a serve step needs: (act_rules, ``_RankRows``, the step's rule
-    context's ``data``, ``data_dims``, its stagings), after refusing by
+    context's ``data``, ``data_dims``, its stagings, whether its timeline
+    cache holds the rank's block of the positions), after refusing by
     name what it does not run."""
     check_mesh(api, mesh, f"make_{what}")
     check_param_rules(api, mesh, param_rules, f"make_{what}")
@@ -854,10 +865,46 @@ def _serve_step(api: ModelAPI, mesh, shape: ShapeConfig, what: str,
     dax, dims = _data_blocks(api, mesh, param_rules)
     data = None if dax is None else FS.DataBlocks(dax, dims)
     stagings = ([ranks.staging] if ranks.on else []) + \
-        ([tp.staging, tp.seq_gather, tp.seq_scatter]
-         if tp is not None else []) + \
+        ([tp.staging, tp.seq_gather, tp.seq_scatter, tp.q_gather,
+          tp.combine] if tp is not None else []) + \
         ([dax.staging] if dax is not None else [])
-    return act_rules, ranks, data, dims, stagings
+    positions = shape.seq_len if TP.kv_seq_splits(
+        mesh, act_rules, api.cfg.num_kv_heads, shape.seq_len) else 0
+    return act_rules, ranks, data, dims, stagings, positions
+
+
+def keep_positions(api: ModelAPI, cache):
+    """``cache`` (a timeline cache tree of whole positions) with every KV
+    leaf narrowed to this rank's block of its positions along
+    ``act_kv_seq`` (``TP.positions_split``), as new tensors; the cache
+    itself where the positions are whole."""
+    ax = TP.positions_split()
+    if ax is None:
+        return cache
+    from repro_torch.runtime.pipeline import axes_leaves
+    out = dict(cache)
+    for seg in api.model.segments:
+        axes = iter(axes_leaves(api.model.init_cache_axes()[seg.name]))
+
+        def cut(t):
+            ax_names = next(axes)
+            if "act_kv_seq" not in ax_names:
+                return t
+            d = ax_names.index("act_kv_seq")
+            n = t.shape[d] // ax.size
+            # the whole horizon that kv_positions gave, cut in M blocks
+            assert n * ax.size == t.shape[d] == TP.whole_positions(n), \
+                (t.shape, d)
+            return t.narrow(d, ax.index * n, n).clone()
+
+        out[seg.name] = map_tree(cut, cache[seg.name])
+    return out
+
+
+def _positions_stagings(step, tp) -> None:
+    """A serve step's flash-decode stagings (None without a model axis)."""
+    step.q_gather_staging = tp and tp.q_gather
+    step.combine_staging = tp and tp.combine
 
 
 def make_prefill_step(api: ModelAPI, mesh, shape: ShapeConfig, *,
@@ -876,11 +923,13 @@ def make_prefill_step(api: ModelAPI, mesh, shape: ShapeConfig, *,
     others raise by name where a leaf is split), gathered over data where
     they are used (``sharding.fsdp``), and over a ``model`` axis the
     cache holds the rank's KV heads where they divide over ``model``,
-    else all of them, and every position. On one device ``param_rules``
+    else all of them. On one device ``param_rules``
     and ``sharded_logits`` place nothing. ``prefill_step.stagings`` are
     the step's ``Staging`` buffers; ``gather_staging`` (None without a
-    data axis) the data axis's gathers'."""
-    act_rules, ranks, data, dims, stagings = _serve_step(
+    data axis) the data axis's gathers'. Where the KV heads do not divide
+    over ``model`` and the prompt's positions do, the cache holds this
+    rank's block of them (``keep_positions``)."""
+    act_rules, ranks, data, dims, stagings, positions = _serve_step(
         api, mesh, shape, "prefill_step", act_rules, param_rules,
         sharded_logits)
 
@@ -888,13 +937,16 @@ def make_prefill_step(api: ModelAPI, mesh, shape: ShapeConfig, *,
         _check_inputs(api, shape, batch, "prefill_step")
         if ranks.on:
             check_shards(api, mesh, params, "prefill_step", param_rules)
-        with R.axis_rules(mesh, act_rules, data), ranks.keep():
+        with R.axis_rules(mesh, act_rules, data), ranks.keep(), \
+                TP.kv_positions(positions):
             logits, cache = api.prefill_fn(_gathered(api, params, dims),
                                            ranks.take(batch))
-            return ranks.logits(logits), cache
+            return ranks.logits(logits), keep_positions(api, cache)
 
     prefill_step.stagings = stagings
     prefill_step.gather_staging = data and data.axis.staging
+    prefill_step.positions = positions
+    _positions_stagings(prefill_step, TP.axis_of(mesh))
     return prefill_step
 
 
@@ -907,9 +959,11 @@ def make_decode_step(api: ModelAPI, mesh, shape: ShapeConfig, *,
     returned, as the reference donates it. On a mesh of ranks ``batch``
     is the global batch and ``cache`` this rank's rows (the prefill
     step's), ``params`` its blocks, as ``make_prefill_step``, and over a
-    ``model`` axis its KV heads; the logits are the whole [B, V] (with
+    ``model`` axis its KV heads, or (KV heads that do not divide, a
+    horizon that does) its block of the positions, over which it runs
+    the distributed flash-decode; the logits are the whole [B, V] (with
     ``sharded_logits``, the rank's block)."""
-    act_rules, ranks, data, dims, stagings = _serve_step(
+    act_rules, ranks, data, dims, stagings, positions = _serve_step(
         api, mesh, shape, "decode_step", act_rules, param_rules,
         sharded_logits)
 
@@ -917,13 +971,16 @@ def make_decode_step(api: ModelAPI, mesh, shape: ShapeConfig, *,
         _check_inputs(api, shape, batch, "decode_step")
         if ranks.on:
             check_shards(api, mesh, params, "decode_step", param_rules)
-        with R.axis_rules(mesh, act_rules, data), ranks.keep():
+        with R.axis_rules(mesh, act_rules, data), ranks.keep(), \
+                TP.kv_positions(positions):
             logits, cache = api.decode_fn(_gathered(api, params, dims),
                                           cache, ranks.take(batch))
             return ranks.logits(logits), cache
 
     decode_step.stagings = stagings
     decode_step.gather_staging = data and data.axis.staging
+    decode_step.positions = positions
+    _positions_stagings(decode_step, TP.axis_of(mesh))
     return decode_step
 
 

@@ -843,7 +843,7 @@ class ServingEngine:
         self.mesh = mesh
         if mesh is not None:
             from repro_torch.serving import ranked
-            ranked.check_rank_mesh(mesh, cfg, backend)
+            ranked.check_rank_mesh(mesh, cfg, backend, api)
         self.api, self.config = api, cfg
         self.rm = rm or two_enclave_manager()
         self.params = params if params is not None else api.init(

@@ -3,7 +3,8 @@ ranks.
 
 ``ServingEngine(api, config, params, mesh=mesh, backend="pipelined")``,
 called on every rank of a pod x data mesh of ranks (``launch.ranks.spawn``,
-then ``launch.mesh.make_mesh((S, D), ("pod", "data"))``), serves with
+then ``launch.mesh.make_mesh((S, D), ("pod", "data"))``; a model axis
+below), serves with
 stage s on the D data ranks of pod s: the reference's default serve,
 where its engine lays a pod's layers of params and page pools on that pod
 (its tested layout is 2 x 2). Every rank runs the same host logic
@@ -81,8 +82,28 @@ ranges if it has re-planned since (``_relayout``), then forwards the part
 to the pod's other data ranks (``_share_part``); its integrity verdicts
 are every rank's, as a swap-in's.
 
-Refused by name: a ``model`` axis above 1 (ROADMAP item 10d, step 5c;
-the serve steps run over one, ``runtime.steps``).
+Over a ``model`` axis above 1 (a pod x data x model mesh, ROADMAP item
+10d, step 5c's first part; the dense and MoE ``StackedLM``) each stage's
+layers are split over its pod's model ranks: a rank's slabs hold its
+blocks of the params and of the KV (``PipelinedDecoder.model_block`` /
+``kv_block``: its KV heads where they divide, else all of them, and on
+the timeline its block of the positions there, the distributed
+flash-decode), its model code runs under the decoder's ``context()``,
+and every function runs eagerly, unmanaged, since its layers message the
+model group. Model rank 0 of a stage seals and sends its crossings and
+opens the ones it receives for its model group. A swap-out: the model
+ranks of (pod, data 0) send their KV heads of the swapped pages to model
+rank 0 (``_heads_to_lead``; where the pools hold every KV head, model
+rank 0 seals alone), which seals the pod's window as above, so the
+payload is the pod x data engine's for the same KV; at swap-in every
+rank of the pod receives the cipher (``_share_part`` over the pod's
+(data, model) ranks), opens it and keeps its KV heads. The stage probe
+runs on every model rank of data rank 0 (model rank 0's time is the
+stage's); a live re-plan moves each model rank's blocks to the same
+model index of the new owner. Refused by name over a model axis:
+warmup in CUDA graphs (a graph cannot hold the model group's
+collectives), a disaggregated role, the other families, the int8 cache
+(step 5c's rest).
 """
 from __future__ import annotations
 
@@ -107,8 +128,10 @@ from repro_torch.tree import leaves, map_tree
 LOG_CAP = 4096          # crossings and restages a backend remembers
 
 
-def check_rank_mesh(mesh, cfg, backend: str) -> None:
-    """What a rank engine serves, refused by name otherwise."""
+def check_rank_mesh(mesh, cfg, backend: str, api) -> None:
+    """What a rank engine serves, refused by name otherwise: pod, data and
+    model axes, a model axis above 1 for the dense and MoE ``StackedLM``
+    (``steps.check_model_axis``), eager and monolithic."""
     from repro_torch.sharding import rules as R
     sizes = R.mesh_axis_sizes(mesh)
     if not R.is_device_mesh(mesh):
@@ -119,12 +142,26 @@ def check_rank_mesh(mesh, cfg, backend: str) -> None:
         raise ValueError(f"ServingEngine(mesh=) serves one stage a rank on "
                          f"the pipelined backend, not backend={backend!r}")
     wide = {a: k for a, k in sizes.items()
-            if a not in ("pod", "data") and k > 1}
+            if a not in ("pod", "data", "model") and k > 1}
     if wide:
         raise NotImplementedError(
             f"ServingEngine(mesh=): mesh axes {wide}: the engine's ranks "
-            f"run over pod and data only; tensor parallelism of the "
-            f"engine is ROADMAP item 10d, step 5c")
+            f"run over pod, data and model (ROADMAP queue 1, item 10d)")
+    m = sizes.get("model", 1)
+    if m > 1:
+        from repro_torch.runtime.steps import check_model_axis
+        check_model_axis(api, m, "ServingEngine(mesh=)")
+        if cfg.warmup:
+            raise NotImplementedError(
+                f"ServingEngine(mesh=, warmup=True) over a model axis of "
+                f"{m}: a CUDA graph cannot hold the model group's "
+                f"collectives, two a layer (a model-axis step in graphs is "
+                f"ROADMAP item 10d, step 5c)")
+        if cfg.disagg_role:
+            raise NotImplementedError(
+                f"ServingEngine(mesh=, disagg_role={cfg.disagg_role!r}) "
+                f"over a model axis of {m}: the disaggregated pair over "
+                f"a model axis is ROADMAP item 10d, step 5c")
     if sizes.get("pod") != cfg.num_stages:
         raise ValueError(f"ServingEngine(mesh=): {sizes.get('pod')} pods "
                          f"but num_stages {cfg.num_stages}; stage s runs "
@@ -183,6 +220,22 @@ class _RankEntry:
         self.be._warm_forward(self.kind, inputs)
 
 
+class _Eager:
+    """A rank engine's function over a model axis, run eagerly and
+    unmanaged: its layers message the model group (a CUDA graph cannot
+    hold a collective), so nothing is captured and ``warm`` runs
+    nothing."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+    def warm(self, *args) -> None:
+        """Nothing to capture."""
+
+
 # prefill kinds: (the model API's function, its batch's length key)
 _PREFILL = {"prefill_at": ("prefill_at_fn", "prompt_len"),
             "prefill_packed": ("prefill_packed_fn", "prompt_lens")}
@@ -224,6 +277,10 @@ class _Ranked:
         self.step_splits: Deque[Tuple[float, float]] = deque(
             maxlen=LOG_CAP)
         self.relayouts = 0      # swap-ins whose columns moved first
+        # the horizon whose block of positions the timeline holds here (0:
+        # whole), and the KV heads of a swap row its pools hold (``_alloc``)
+        self.positions = 0
+        self._heads: Optional[slice] = None
 
     @property
     def stage(self) -> int:
@@ -248,26 +305,53 @@ class _Ranked:
     def _alloc(self, dec: PipelinedDecoder) -> None:
         """The slabs at construction, for the most layers this rank's stage
         takes over ``slab_layouts``: the params' (its first layers loaded)
-        and the KV's (zeros, from the whole cache the backend made)."""
+        and the KV's (zeros, from the whole cache the backend made), each
+        of this rank's blocks over a model axis (``dec.model_block``,
+        ``dec.kv_block``: its KV heads where they divide, and on the
+        timeline its block of the positions where they do not and the
+        horizon does, ``positions``)."""
         seg = self.api.model.served_segment.name
+        self.positions = 0 if self.paged else dec.positions_split(
+            self.cfg.max_seq)
+        self._heads = self._own_heads(dec)
         self.capacity = max(x[dec.stage] for x in self.slab_layouts)
         self._fixed_params = dec.stage_params(
             {k: v for k, v in self.host_params.items() if k != seg},
             self.device)
-        self._param_slab = self._slab_like(
-            map_tree(lambda t: t[0], self.host_params[seg]), self.capacity)
-        self._kv_slab = self._slab_like(
-            map_tree(lambda t: t[0], self.cache[seg]), self.capacity)
+        self._param_slab = self._slab_like(map_tree(
+            lambda t: t[0], dec.model_block(seg, self.host_params[seg])),
+            self.capacity)
+        self._kv_slab = self._slab_like(map_tree(
+            lambda t: t[0], self._kv_of(dec, self.cache[seg])),
+            self.capacity)
         self.cache[seg] = None          # the whole cache, freed
+        if not self.paged:
+            self._probe_body = map_tree(lambda t: t.clone(), self._kv_of(
+                dec, self._probe_body))
         self._copy_params(dec)
 
+    def _kv_of(self, dec: PipelinedDecoder, tree):
+        """This rank's block of a cache tree whole over model."""
+        return dec.kv_block(tree, self.paged, self.positions)
+
+    def _own_heads(self, dec: PipelinedDecoder) -> slice:
+        """The KV heads of the whole swap row this rank's pools hold:
+        its block where they divide over the model axis, else all."""
+        kvh = self.api.cfg.num_kv_heads
+        m = dec.num_model
+        if m == 1 or kvh % m:
+            return slice(0, kvh)
+        n = kvh // m
+        return slice(dec.model * n, (dec.model + 1) * n)
+
     def _copy_params(self, dec: PipelinedDecoder) -> None:
-        """``dec``'s layers of this rank, from the host tree into the
-        params slab."""
+        """``dec``'s layers of this rank (its blocks over a model axis),
+        from the host tree into the params slab."""
         lo, hi = dec.ranges[dec.stage]
-        for slab, h in zip(leaves(self._param_slab), leaves(
-                self.host_params[self.api.model.served_segment.name])):
-            slab[:hi - lo].copy_(h[lo:hi])
+        seg = self.api.model.served_segment.name
+        for slab, h in zip(leaves(self._param_slab), leaves(dec.model_block(
+                seg, map_tree(lambda t: t[lo:hi], self.host_params[seg])))):
+            slab[:hi - lo].copy_(h)
 
     def _slab_like(self, layer, n: int):
         return map_tree(lambda t: torch.zeros((n,) + tuple(t.shape),
@@ -341,7 +425,12 @@ class _Ranked:
         if self._kv_slab is None:
             self._key_dev = self._idx([self.key])
             self._alloc(dec)
-        segs = {n: self.aot.wrap(f"{n}{key}", self._bound(f))
+        # over a model axis every function messages the model group:
+        # eager and unmanaged (warmup there is refused, check_rank_mesh)
+        tp = dec.num_model > 1
+        wrap = (lambda reg, name, f: _Eager(f)) if tp else \
+            (lambda reg, name, f: reg.wrap(name, f))
+        segs = {n: wrap(self.aot, f"{n}{key}", self._bound(f))
                 for n, f in dec.rank_segments(paged=self.paged).items()}
         probe = dec.build_stage_probe(paged=self.paged)
         events = tuple(torch.cuda.Event(enable_timing=True, external=True)
@@ -361,16 +450,15 @@ class _Ranked:
         lo, hi = dec.ranges[dec.stage]
         kinds = ("prefill_at", "prefill_packed", "prefill_token") + (
             ("prefill_chunk",) if self.paged else ())
-        prefill = {kind: self.aot.wrap(f"{kind}{key}", dec.crossing_segment(
+        prefill = {kind: wrap(self.aot, f"{kind}{key}", dec.crossing_segment(
             self._prefill_run(kind, lo, hi))) for kind in kinds}
         # a data rank other than 0 gathers empty parts: nothing to capture
-        io = (self.aot.wrap(f"gather_pages{key}", self._gather_fn)
+        io = (wrap(self.aot, f"gather_pages{key}", self._gather_fn)
               if dec.data == 0 else self._gather_fn,
-              self.aot.wrap(f"scatter_pages{key}", self._scatter_fn)) \
+              wrap(self.aot, f"scatter_pages{key}", self._scatter_fn)) \
             if self.paged else ()
-        return _Layout(dec, segs, self._probe_aot.wrap(f"probe{key}",
-                                                       run_probe),
-                       events, prefill, io)
+        return _Layout(dec, segs, wrap(self._probe_aot, f"probe{key}",
+                                       run_probe), events, prefill, io)
 
     def _bound(self, f):
         """A decode segment over this rank's params and cache, read at the
@@ -381,9 +469,10 @@ class _Ranked:
         return self.dec.ranges[self.stage]
 
     def own_layers(self, tree):
-        """This rank's layers of a tree of stacked layer leaves (a private
-        prefill cache)."""
-        return self.dec._cut(tree)
+        """This rank's layers of a timeline-shaped tree of stacked layer
+        leaves (a private prefill cache), its block of them over a model
+        axis (its positions too where the timeline splits them)."""
+        return self.dec._cut(self.dec.kv_block(tree, False, self.positions))
 
     def step(self, tokens: np.ndarray, key) -> torch.Tensor:
         """One decode step: this layout's managed segments between the
@@ -396,8 +485,9 @@ class _Ranked:
         exchange = (self._key_dev, self._idx(self.dec.exchange_counters(n))) \
             if self.dec.exchanges(toks.shape[0]) else None
         self.dec.last_exchange = None
-        logits = self.dec.rank_loop(self._segs, toks, self._key_tensor(key),
-                                    exchange)
+        with self.dec.context(self.positions):
+            logits = self.dec.rank_loop(self._segs, toks,
+                                        self._key_tensor(key), exchange)
         if self.dec.last_exchange is not None:
             self.exchanges.append(self.dec.last_exchange)
         self.step_splits.append(self.dec.last_split)
@@ -436,23 +526,25 @@ class _Ranked:
     def stage_times(self) -> List[float]:
         """Seconds of each stage's layers on one microbatch, as on one
         card (``_Pipelined.stage_times``), each measured by data rank 0 of
-        its pod, one pod after another (pod s probes once s - 1's time
-        has reached it: two probes never share a card), on every rank of
-        the world."""
+        its pod (every model rank of it: the probe's layers message the
+        model group; model rank 0's time is the stage's), one pod after
+        another (pod s probes once s - 1's time has reached it: two
+        probes never share a card), on every rank of the world."""
         arg = self._probe_arg()
         times = []
         for s, rank in enumerate(self.dec.stage_leads):
             t = 0.0
             if s == self.stage and self.data == 0:
-                if self._events:
-                    self._probe(s, arg)
-                    start, end = self._events
-                    end.synchronize()
-                    t = start.elapsed_time(end) / 1e3
-                else:
-                    t0 = time.perf_counter()
-                    self._probe(s, arg)
-                    t = time.perf_counter() - t0
+                with self.dec.context(self.positions):
+                    if self._events:
+                        self._probe(s, arg)
+                        start, end = self._events
+                        end.synchronize()
+                        t = start.elapsed_time(end) / 1e3
+                    else:
+                        t0 = time.perf_counter()
+                        self._probe(s, arg)
+                        t = time.perf_counter() - t0
             times += RK.share([t], rank, None)
         return times
 
@@ -517,9 +609,10 @@ class _Ranked:
         and one-shot and packed prefill this rank's layers of their KV."""
         shape, rows = self._frame(kind, inputs)
         self.dec.last_crossing = None
-        logits, extra = self.dec.rank_forward(
-            self._prefill[kind], shape, rows, self._key_dev,
-            self._crossing_ctr(), *inputs)
+        with self.dec.context(self.positions):
+            logits, extra = self.dec.rank_forward(
+                self._prefill[kind], shape, rows, self._key_dev,
+                self._crossing_ctr(), *inputs)
         if self.dec.last_crossing is not None:
             self.crossings.append(self.dec.last_crossing)
         return (logits, extra) if kind in _PREFILL else logits
@@ -564,9 +657,14 @@ class RankPagedBackend(_Ranked, PagedPipelinedBackend):
                                      seq=seq)[seg]
 
     # -- the sealed swap over this rank's window of the rows ------------------
+    def _per_layer(self, pool: torch.Tensor) -> int:
+        """Columns of one layer of a swap row: every KV head of a page,
+        whatever this rank's pools hold of them."""
+        return self.api.cfg.num_kv_heads * math.prod(pool.shape[3:])
+
     def _window(self, pool: torch.Tensor, span=None) -> Tuple[int, int]:
         """(col0, row_cols) of this rank's layers in a swap row."""
-        per = math.prod(pool.shape[2:])
+        per = self._per_layer(pool)
         lo, _ = span or self._span()
         return lo * per, self.api.model.served_segment.n * per
 
@@ -578,19 +676,46 @@ class RankPagedBackend(_Ranked, PagedPipelinedBackend):
 
     def _gather_fn(self, pg: torch.Tensor, key: torch.Tensor,
                    seq: torch.Tensor):
+        empty = tuple(torch.empty((pg.shape[0], 0), device=pool.device,
+                                  dtype=int_dtype_of(pool.dtype))
+                      for pool in self.body)
         if self.data > 0:
             # data rank 0 of the pod seals the pod's part; the others keep
             # an empty one, so that every (key, counter) is sealed once
-            return tuple(torch.empty((pg.shape[0], 0), device=pool.device,
-                                     dtype=int_dtype_of(pool.dtype))
-                         for pool in self.body)
+            return empty
+        pages = self._heads_to_lead([pool[:, pg] for pool in self.body])
+        if pages is None:
+            return empty
         out = []
-        for part, pool in enumerate(self.body):
-            rows = pool[:, pg].transpose(0, 1).reshape(pg.shape[0], -1)
+        for part, (pool, got) in enumerate(zip(self.body, pages)):
+            rows = got.transpose(0, 1).reshape(pg.shape[0], -1)
             col0, row_cols = self._window(pool)
             out.append(sealing.seal_pages(rows, key, seq, part=part,
                                           col0=col0, row_cols=row_cols))
         return tuple(out)
+
+    def _heads_to_lead(self, parts):
+        """Swapped pages [L_s, n, KVH_m, Pg, D] of this rank's KV heads ->
+        every KV head of them on model rank 0 (the model ranks' blocks
+        sent to it, side by side in model order; the pages themselves
+        where the pools hold every KV head), None on the other model
+        ranks, which seal nothing."""
+        dec = self.dec
+        if dec.num_model == 1:
+            return parts
+        if self._heads == slice(0, self.api.cfg.num_kv_heads):
+            return parts if dec.lead else None
+        group = dec._model_group
+        ranks = RK.group_ranks(group)
+        if not dec.lead:
+            RK.transfer(self.staging, [(ranks[0], list(parts))], [],
+                        group, tag="heads")
+            return None
+        got = RK.transfer(self.staging, [], [
+            (r, [torch.empty_like(p) for p in parts]) for r in ranks[1:]],
+            group, tag="heads")
+        return [torch.cat([p] + [g[i] for g in got], dim=2)
+                for i, p in enumerate(parts)]
 
     def _scatter_fn(self, ck: torch.Tensor, cv: torch.Tensor,
                     pages: torch.Tensor, key: torch.Tensor,
@@ -601,7 +726,10 @@ class RankPagedBackend(_Ranked, PagedPipelinedBackend):
             col0, row_cols = self._window(pool)
             rows = sealing.unseal_pages(c, key, seq, pool.dtype, part=part,
                                         col0=col0, row_cols=row_cols)
-            g = rows.reshape(pages.shape[0], pool.shape[0], *pool.shape[2:])
+            # every KV head of the window, this rank's kept
+            g = rows.reshape(pages.shape[0], pool.shape[0],
+                             self.api.cfg.num_kv_heads,
+                             *pool.shape[3:])[:, :, self._heads]
             g = torch.where(keep.view(-1, *[1] * (g.dim() - 1)), g,
                             torch.zeros_like(g))
             pool[:, target] = g.transpose(0, 1)
@@ -612,29 +740,31 @@ class RankPagedBackend(_Ranked, PagedPipelinedBackend):
         live re-plan moved layers since, their cipher columns first go to
         their new owners (``_relayout``)."""
         if layout is not None and tuple(layout) != self.dec.ranges:
-            if self.data == 0:
+            if self.data == 0 and self.dec.lead:
                 ck, cv = self._relayout((ck, cv), tuple(layout))
             self.relayouts += 1
-        if self.dec.num_data > 1:
+        if self.dec.num_data > 1 or self.dec.num_model > 1:
             ck, cv = self._share_part((ck, cv))
         super().scatter_pages(ck, cv, pages, key, ctr)
 
     def _share_part(self, parts):
-        """Data rank 0's part of a payload (cipher text, its columns under
-        the current layout) on every data rank of its pod: rank 0 sends
-        it, the others receive it in place of their empty parts; each then
-        unseals it under the same (key, counter)."""
-        ranks = self.dec._data_ranks
-        if self.data == 0:
+        """The part of a payload that data rank 0 (model rank 0) of the
+        pod holds (cipher text, its columns under the current layout) on
+        every (data, model) rank of its pod: it sends it, the others
+        receive it in place of their empty parts; each then unseals it
+        under the same (key, counter) and keeps its KV heads."""
+        group = self.dec._local_group
+        ranks = RK.group_ranks(group)
+        if self.data == 0 and self.dec.lead:
             RK.transfer(self.staging, [(r, list(parts)) for r in ranks[1:]],
-                        [], self.dec._data_group, tag="part")
+                        [], group, tag="part")
             return parts
         lo, hi = self._span()
-        likes = [torch.empty((p.shape[0], (hi - lo) * math.prod(
-            pool.shape[2:])), dtype=p.dtype, device=p.device)
-            for p, pool in zip(parts, self.body)]
+        likes = [torch.empty((p.shape[0], (hi - lo) * self._per_layer(pool)),
+                             dtype=p.dtype, device=p.device)
+                 for p, pool in zip(parts, self.body)]
         return tuple(RK.transfer(self.staging, [], [(ranks[0], likes)],
-                                 self.dec._data_group, tag="part")[0])
+                                 group, tag="part")[0])
 
     def _relayout(self, parts, old: Tuple[Tuple[int, int], ...]):
         """This rank's payload parts (cipher [rows, layers x per]) sealed

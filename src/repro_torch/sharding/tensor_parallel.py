@@ -58,6 +58,26 @@ residual stream between blocks is this rank's block of the sequence,
                                 stream: ``reduce_scatter_seq``,
                                 ``reduce_model``, ``keep_seq`` or ``y``
 
+Where the KV heads stay whole over ``model`` (fewer KV heads than ranks)
+the reference's ``cache_shardings`` gives a timeline cache's positions
+to ``model`` (``act_kv_seq``; the distributed flash-decode). A step or
+an engine that keeps a rank's block of the positions says so for the
+model code's decode (``kv_positions``, with the whole horizon, read by
+``positions_split`` and held by ``whole_positions``); a
+decode step then attends each rank's block of positions with every
+query head and combines the blocks' partial softmaxes:
+
+    gather_heads(q)             the group's query heads side by side
+                                (one [B, 1, H, D] message, ``q_gather``)
+    combine_partials(m, l, o)   the group's (max, sum, unnormalized out)
+                                partials, in f32, gathered in one message
+                                (``combine``) and merged in rank order on
+                                every rank, so each ends with the same
+                                bits
+    from_lead(x, ...)           model rank 0's ``x`` on every rank of the
+                                group (a pipeline stage's activation,
+                                opened once on model rank 0)
+
 Every model-axis message goes through these, so each has its backward
 (a ``torch.autograd.Function``) in one place and a count on meta tensors
 can see them all. A tensor every rank holds whole has the same value and
@@ -93,8 +113,9 @@ class ModelAxis:
     """This rank on the ``model`` axis of a mesh of ranks: its index, the
     axis size, the axis's process group and the host buffers of its
     messages (``Staging``, which counts their bytes): the sequence's
-    gathers (``seq_gather``) and reduce-scatters (``seq_scatter``) apart
-    from the rest (``staging``)."""
+    gathers (``seq_gather``) and reduce-scatters (``seq_scatter``), the
+    distributed flash-decode's query gathers (``q_gather``) and partial
+    combines (``combine``) apart from the rest (``staging``)."""
 
     index: int
     size: int
@@ -102,6 +123,8 @@ class ModelAxis:
     staging: Any
     seq_gather: Any
     seq_scatter: Any
+    q_gather: Any = None
+    combine: Any = None
 
 
 # mesh id -> (the mesh, its ModelAxis); a mesh lives as long as its step
@@ -126,7 +149,7 @@ def axis_of(mesh) -> Optional[ModelAxis]:
     if dist.get_rank(group) != ax.index("model"):
         raise ValueError("the model group's order is not the mesh's")
     out = ModelAxis(ax.index("model"), ax.size("model"), group,
-                    RK.Staging(), RK.Staging(), RK.Staging())
+                    *(RK.Staging() for _ in range(5)))
     _AXES[id(mesh)] = (mesh, out)
     return out
 
@@ -138,9 +161,77 @@ def current() -> Optional[ModelAxis]:
 
 class _Logits(threading.local):
     keep: bool = False
+    positions: int = 0
 
 
 _LOGITS = _Logits()
+
+
+@contextlib.contextmanager
+def kv_positions(horizon: int = 0):
+    """Inside (with a ``horizon`` above 0), the timeline caches the model
+    code decodes over hold this rank's block of their ``horizon``
+    positions (the distributed flash-decode, ``AttnBlock.attend_decode``):
+    the caller that cut them says so, from ``kv_seq_splits`` of that
+    horizon, and the model code holds every block it reads to horizon /
+    M positions (``whole_positions``). 0: the positions are whole."""
+    prev, _LOGITS.positions = _LOGITS.positions, int(horizon)
+    try:
+        yield
+    finally:
+        _LOGITS.positions = prev
+
+
+def positions_split() -> Optional[ModelAxis]:
+    """This rank's ``ModelAxis`` where ``kv_positions`` gave a horizon over
+    a model axis, else None."""
+    return current() if _LOGITS.positions else None
+
+
+def whole_positions(held: int) -> int:
+    """The whole horizon of a timeline cache that holds ``held`` positions
+    here: ``held`` where the positions are whole, else ``kv_positions``'s
+    horizon, which a block must be exactly 1 / M of (a cache cut to
+    other positions than the caller said fails here by name)."""
+    ax = positions_split()
+    if ax is None:
+        return held
+    horizon = _LOGITS.positions
+    if held * ax.size != horizon:
+        raise ValueError(
+            f"a timeline cache block of {held} positions on a model axis of "
+            f"{ax.size} is not this rank's block of the {horizon} positions "
+            f"kv_positions gave")
+    return horizon
+
+
+def local_slot(slot: torch.Tensor, S_local: int):
+    """(this rank's index of the whole-horizon ``slot`` in its block of
+    ``S_local`` positions, clamped into the block, and whether the block
+    holds it): ``slot`` and True where the positions are whole."""
+    ax = positions_split()
+    if ax is None:
+        return slot, torch.ones_like(slot, dtype=torch.bool)
+    whole_positions(S_local)
+    local = slot - ax.index * S_local
+    own = (local >= 0) & (local < S_local)
+    return torch.clamp(local, 0, S_local - 1), own
+
+
+def kv_seq_splits(mesh, rules, num_kv_heads: int, seq_len: int) -> bool:
+    """Whether ``rules`` give a timeline cache of ``seq_len`` positions
+    and ``num_kv_heads`` KV heads its positions over the model axis of
+    ``mesh`` (a mesh of ranks with a model axis above 1): ``resolve_spec``
+    of one layer's [1, KVH, S, 1] over ``("act_kv_batch",
+    "act_kv_heads", "act_kv_seq", None)`` puts ``model`` on S, as the
+    reference's ``cache_shardings`` does where the KV heads do not divide
+    (and S does)."""
+    if rules is None or axis_of(mesh) is None:
+        return False
+    spec = R.resolve_spec((1, num_kv_heads, seq_len, 1),
+                          ("act_kv_batch", "act_kv_heads", "act_kv_seq",
+                           None), mesh, rules)
+    return len(spec) > 2 and "model" in R._names(spec[2])
 
 
 @contextlib.contextmanager
@@ -468,3 +559,63 @@ def take_kv(t: torch.Tensor, which, dim: int) -> torch.Tensor:
         return t.narrow(dim, which.start,
                         which.stop - which.start).contiguous()
     return t.index_select(dim, which.to(t.device))
+
+
+def gather_heads(q: torch.Tensor) -> torch.Tensor:
+    """The model group's query heads of ``q`` [B, 1, H / M, D] side by side,
+    [B, 1, H, D], in model order (the flash-decode's one query message,
+    counted in ``q_gather``); ``q`` with no model axis."""
+    ax = current()
+    if ax is None:
+        return q
+    from repro_torch.launch import ranks as RK
+    every = RK.all_gather(ax.q_gather, q.contiguous(), ax.group,
+                          tag="gather_heads")
+    return torch.cat(every.unbind(0), dim=2)
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor,
+                     o: torch.Tensor) -> torch.Tensor:
+    """Softmax attention over the whole cache from each rank's partial
+    over its block of positions: ``m`` [..] the block's max score (the
+    mask's ``NEG_INF`` for an empty block), ``l`` [..] its sum of
+    ``exp(score - m)``, ``o`` [.., D] the sum of those weights times V,
+    all f32. The group's partials are gathered in one message
+    (``combine``) and every rank merges them in rank order: with M* the
+    max of the blocks' maxima, the output is ``sum_j exp(m_j - M*) o_j /
+    sum_j exp(m_j - M*) l_j``, the same bits on every rank. An empty
+    block weighs exp(NEG_INF - M*) = 0 beside a block with a valid
+    position; a row with none anywhere gets the mean of V over the
+    horizon, as ``L.decode_attention``'s softmax over ``NEG_INF`` gives.
+    Returns f32 [.., D]."""
+    ax = current()
+    from repro_torch.launch import ranks as RK
+    packed = torch.cat([m[..., None], l[..., None], o], dim=-1)
+    every = RK.all_gather(ax.combine, packed.contiguous(), ax.group,
+                          tag="combine_partials")              # [M, .., D+2]
+    ms, ls, os_ = every[..., 0], every[..., 1], every[..., 2:]
+    top = ms.amax(0)
+    total = torch.zeros_like(l)
+    out = torch.zeros_like(o)
+    for j in range(ax.size):
+        w = torch.exp(ms[j] - top)
+        total = total + w * ls[j]
+        out = out + w[..., None] * os_[j]
+    return out / total[..., None]
+
+
+def from_lead(x: Optional[torch.Tensor], shape, dtype,
+              device) -> torch.Tensor:
+    """Model rank 0's ``x`` (others pass None) on every rank of the model
+    group, a broadcast counted in ``staging``; ``x`` itself with no model
+    axis."""
+    ax = current()
+    if ax is None:
+        return x
+    from repro_torch.launch import ranks as RK
+    if ax.index != 0:
+        x = torch.empty(shape, dtype=dtype, device=device)
+    else:
+        x = x.reshape(shape).contiguous()
+    src = RK.group_ranks(ax.group)[0]
+    return RK.broadcast(ax.staging, x, src, ax.group, tag="from_lead")

@@ -18,7 +18,7 @@ launcher over ranks, on reduced llama3.2-1b in f32 on gloo CPU ranks.
     and decode boundaries.
 (d) The serve launcher with ``--ranks gloo``: the reference's
     ``--verify-swap`` line on two ranks, its non-prefix line on three;
-    CUDA-graph warmup and the disaggregated pair are refused by name,
+    a (2, 1, 2) engine warmed up as CUDA graphs is refused by name,
     while a (2, 2) pod x data engine builds and ``--mesh 2x2 --ranks gloo``
     serves (``test_torch_engine_data_ranks.py`` holds it);
     ``restage_cache`` on three ranks (a layer moving past a neighbour)
@@ -207,7 +207,8 @@ def refusal_body(ctx, cfg):
     """On a (2, 2) pod x data mesh: ``"built"`` for each engine it serves
     (warmed up as CUDA graphs, the decode role of a disaggregated pair,
     and a plain one); then on a (2, 1, 2) pod x data x model mesh, the
-    refused one's error by name."""
+    refused one's error by name (warmed up as CUDA graphs: the model
+    group's collectives cannot sit in a graph)."""
     from repro_torch.launch.mesh import make_mesh
     api = build_model(cfg, device="cpu", dtype=torch.float32)
     params = api.init(torch.Generator().manual_seed(0))
@@ -215,7 +216,7 @@ def refusal_body(ctx, cfg):
     wide = make_mesh((2, 1, 2), ("pod", "data", "model"), device="cpu")
     out = []
     for kw, m in (({"warmup": True}, mesh), ({"disagg_role": "decode"}, mesh),
-                  ({}, mesh), ({}, wide)):
+                  ({}, mesh), ({"warmup": True}, wide)):
         try:
             ServingEngine(api, EngineConfig(**kw), params, device="cpu",
                           backend="pipelined", mesh=m)
@@ -232,8 +233,8 @@ def test_rank_engine_refusals_are_named(capfd):
         assert len(errs) == 4, errs
         assert errs[:3] == ["built"] * 3, errs[:3]
         assert errs[3].startswith("NotImplementedError") \
-            and "'model': 2" in errs[3] and "item 10d, step 5" in errs[3], \
-            errs[3]
+            and "warmup=True" in errs[3] and "model axis of 2" in errs[3] \
+            and "item 10d, step 5c" in errs[3], errs[3]
     plain = [a for a in ARGV if a != "--verify-swap"]
     st = serve.main(plain + ["--stages", "2", "--mesh", "2x2", "--ranks",
                              "gloo"])
